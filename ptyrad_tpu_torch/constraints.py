@@ -7,8 +7,9 @@ constraint computes new tensors under ``torch.no_grad`` and copies them into
 the parameters in place, so the optimizer keeps its references.
 
 Ported: ortho_pmode, fix_probe_int, obj_rblur, obj_zblur, obja_thresh,
-objp_postiv (the six the tBL configuration runs). The other six raise
-NotImplementedError when enabled; ROADMAP queue A lists them.
+objp_postiv (the six the tBL configuration runs) and kz_filter (PSO). The
+other five raise NotImplementedError when enabled; ROADMAP queue A lists
+them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ptyrad_tpu_torch.models.state import Buffers, PtychoParams
 from ptyrad_tpu_torch.ops.blur import gaussian_blur_1d, gaussian_blur_2d
+from ptyrad_tpu_torch.ops.fourier import fftn3
 
 DEFAULT_CONSTRAINT_PARAMS = {
     "ortho_pmode": {"freq": None},
@@ -107,6 +109,34 @@ def objp_postiv(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
     params.objp.copy_(cfg["relax"] * params.objp + (1.0 - cfg["relax"]) * modified)
 
 
+def kz_filter_fn(obj: torch.Tensor, beta: float = 1.0, alpha: float = 1.0,
+                 obj_type: str = "phase") -> torch.Tensor:
+    """Missing-wedge arctan kz filter (ptyrad_tpu/constraints.py:106-126).
+
+    W = 1 - atan((beta |kz| / sqrt(kx^2 + ky^2 + 1e-3))^2) / (pi/2), times a
+    lateral Gaussian exp(-alpha (kx^2 + ky^2)), applied over the last three
+    axes (Nz, Ny, Nx). For amplitude the filtered object is pulled softly
+    toward 1 (fobj -> 1 + 0.9 (fobj - 1))."""
+    nz, ny, nx = obj.shape[-3:]
+    kz, ky, kx = (torch.fft.fftfreq(k, device=obj.device, dtype=torch.float32)
+                  for k in (nz, ny, nx))
+    gz, gy, gx = torch.meshgrid(kz, ky, kx, indexing="ij")
+    w = 1.0 - torch.arctan((beta * gz.abs() / torch.sqrt(gx**2 + gy**2 + 1e-3)) ** 2) / (
+        torch.pi / 2)
+    wa = w * torch.exp(-alpha * (gx**2 + gy**2))
+    fobj = fftn3(fftn3(obj) * wa, inverse=True).real.to(obj.dtype)
+    if obj_type == "amplitude":
+        fobj = 1.0 + 0.9 * (fobj - 1.0)
+    return fobj
+
+
+def kz_filter(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
+    if cfg["obj_type"] in ("amplitude", "both"):
+        params.obja.copy_(kz_filter_fn(params.obja, cfg["beta"], cfg["alpha"], "amplitude"))
+    if cfg["obj_type"] in ("phase", "both"):
+        params.objp.copy_(kz_filter_fn(params.objp, cfg["beta"], cfg["alpha"], "phase"))
+
+
 # Reference application order (reference constraints.py:227-246)
 _ORDER: Tuple[str, ...] = (
     "ortho_pmode",
@@ -128,6 +158,7 @@ _FNS: Dict[str, Callable] = {
     "fix_probe_int": fix_probe_int,
     "obj_rblur": obj_rblur,
     "obj_zblur": obj_zblur,
+    "kz_filter": kz_filter,
     "obja_thresh": obja_thresh,
     "objp_postiv": objp_postiv,
 }

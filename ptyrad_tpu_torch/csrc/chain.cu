@@ -1,0 +1,524 @@
+// Segmented multislice chain (B5, B6) for sm_90a: forward and backward.
+//
+// Replaces the TPU kernels of ptyrad_tpu/ops/pallas_chain.py:
+//   B5a  _seg_fwd_kernel  (:238, pallas_call :1018, chain_segment :1045)
+//   B5b  _seg_bwd_kernel  (:279, pallas_call :1120)
+//   B6a  _mega_fwd_kernel (:466, pallas_call :810, chain_stack :841)
+//   B6b  _mega_bwd_kernel (:529, pallas_call :942)
+// without the far-field exit (set_far_field, off by default there) and
+// without propagator cotangents (need_dh).
+//
+// Contract, per sample b and probe mode p (complex64 wavefields):
+//   for slice z of the chain:  chi_z = psi_z * T_z,  T_z = a_z exp(i phi_z)
+//                               psi_{z+1} = ifft2(H * fft2(chi_z))
+//   except after the chain's final slice when `last` (B5) / `last_mega` (B6)
+//   is set: then the exit is chi of the final slice, unpropagated.
+//   B6a also writes the segment-entry stack (B, S, pmode, N, N): entry s is
+//   psi at the first slice of segment s (entry 0 is psi0).
+//   Backward: the adjoint of ifft2(H fft2(.)) is ifft2(conj(H) fft2(.)); the
+//   transmission adjoint gives d psi = d chi conj(T) and
+//   dT = sum_p d chi conj(psi), so d a = Re(dT e^{-i phi}) and
+//   d phi = a Im(dT e^{-i phi}). B5b rebuilds its segment's slice-entry
+//   states from the entry psi; B6b walks the segments in reverse, rebuilds
+//   each from its stacked entry into a scratch of Sg fields, and carries the
+//   cotangent across segment boundaries.
+//
+// Bound on the card. Counting only the inputs read once and the outputs
+// written once, a chain is bound by its FP32 operations: at PSO shapes
+// (B=32, pmode=4, N=256) one propagation of the 128 wavefields is a 2D FFT
+// and a 2D IFFT, 2 x 10 N^2 log2 N = 10.5 MFLOP each, 1.34 GFLOP in all
+// (20 us at 67 TFLOP/s). But a 256^2 complex64 field is 512 KB, more than
+// one block's shared memory (227 KB), so a wavefield cannot stay on chip for
+// a whole slice the way B3 keeps its 128^2 field. This design moves the
+// (B, pmode, N, N) field through device memory twice per slice:
+//   row pass     [the previous propagation's row IFFT], the T multiply,
+//                the row FFT
+//   column pass  the column FFT, the H multiply, the column IFFT
+// One field is 64 MiB, so a pass moves 134 MB (40 us at 3.35 TB/s): the
+// kernels are bound by their own traffic, about 4x the operation bound, and
+// the design keeps that traffic at two round trips per slice (the T and H
+// multiplies and both 1D transforms ride on the passes that move the field
+// anyway).
+//
+// Design:
+//  * Each pass holds a few whole lines (rows or columns) in dynamic shared
+//    memory and runs radix-2 N-point transforms there. The forward transform
+//    is decimation in frequency (natural in, bit-reversed out) and the
+//    inverse decimation in time (bit-reversed in, natural out), so no
+//    bit-reversal pass exists: between a row pass and a column pass the
+//    field sits in global memory with x in bit-reversed order, and the
+//    column pass reads H at (bitrev(ky), bitrev(kx)). The 1/N^2 of the
+//    inverse transform is folded into H.
+//  * A row-pass block holds R rows of one sample for ALL its probe modes, so
+//    T is computed once per pixel for every mode and the backward's
+//    dT = sum_p d chi conj(psi) is summed inside the block in a fixed order:
+//    d a and d phi are written once, by one thread, with no atomics, and are
+//    deterministic.
+//  * A column-pass block holds 16 adjacent columns of one field (16 x 8 B =
+//    128 B per row: coalesced), with neighbouring threads on neighbouring
+//    columns in shared memory.
+//  * Launch shape: a sequence of pass kernels on the caller's stream (the
+//    stream orders them; nothing synchronises). Each pass works in place on
+//    its own tile, so one working buffer carries the field.
+//  * FP32 throughout, accurate sincosf, twiddles from double sincospi.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxLogN = 9;      // N <= 512
+constexpr int kColTile = 16;     // columns per column-pass block
+constexpr int kRowElems = 4096;  // target elements (rows x modes x N) per row-pass block
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// a * conj(b)
+__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
+  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+
+__device__ __forceinline__ int bitrev(int i, int logn) {
+  return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - logn));
+}
+
+// tw[k] = exp(-2 pi i k / n), k < n/2; returns synchronised
+__device__ void init_twiddles(float2* tw, int n) {
+  for (int k = threadIdx.x; k < n / 2; k += blockDim.x) {
+    double sn, cs;
+    sincospi(-2.0 * k / n, &sn, &cs);
+    tw[k] = make_float2(static_cast<float>(cs), static_cast<float>(sn));
+  }
+  __syncthreads();
+}
+
+// One radix-2 stage over nlines lines of n = 2^logn points held in shared
+// memory, element (line l, position i) at s[l * ls + i * ps]. kInv:
+// decimation in time with conjugate twiddles; else decimation in frequency.
+// kLineFastest maps neighbouring threads to neighbouring lines (for the
+// column tile, whose lines are adjacent in memory).
+template <bool kInv, bool kLineFastest>
+__device__ __forceinline__ void fft_stage(float2* s, const float2* tw, int nlines, int logn,
+                                          int ls, int ps, int lh) {
+  const int half = 1 << lh;
+  const int tshift = logn - 1 - lh;  // twiddle stride n / (2 half)
+  const int per_line = 1 << (logn - 1);
+  const int total = nlines * per_line;
+  for (int t = threadIdx.x; t < total; t += blockDim.x) {
+    int line, b;
+    if (kLineFastest) {
+      line = t % nlines;
+      b = t / nlines;
+    } else {
+      line = t >> (logn - 1);
+      b = t & (per_line - 1);
+    }
+    const int j = b & (half - 1);
+    const int i0 = ((b >> lh) << (lh + 1)) + j;
+    const int a0 = line * ls + i0 * ps;
+    const int a1 = a0 + half * ps;
+    float2 w = tw[j << tshift];
+    const float2 u = s[a0];
+    const float2 v = s[a1];
+    if (kInv) {
+      w.y = -w.y;
+      const float2 t1 = cmul(v, w);
+      s[a0] = make_float2(u.x + t1.x, u.y + t1.y);
+      s[a1] = make_float2(u.x - t1.x, u.y - t1.y);
+    } else {
+      s[a0] = make_float2(u.x + v.x, u.y + v.y);
+      s[a1] = cmul(make_float2(u.x - v.x, u.y - v.y), w);
+    }
+  }
+}
+
+// Unnormalized forward transform of every line: natural in, bit-reversed
+// out. Callers synchronise before; returns synchronised.
+template <bool kLineFastest>
+__device__ void fft_lines(float2* s, const float2* tw, int nlines, int logn, int ls, int ps) {
+  for (int lh = logn - 1; lh >= 0; --lh) {
+    fft_stage<false, kLineFastest>(s, tw, nlines, logn, ls, ps, lh);
+    __syncthreads();
+  }
+}
+
+// Unnormalized inverse transform of every line: bit-reversed in, natural out.
+template <bool kLineFastest>
+__device__ void ifft_lines(float2* s, const float2* tw, int nlines, int logn, int ls, int ps) {
+  for (int lh = 0; lh < logn; ++lh) {
+    fft_stage<true, kLineFastest>(s, tw, nlines, logn, ls, ps, lh);
+    __syncthreads();
+  }
+}
+
+// Field addressing: sample b's mode p starts at base + b * bs + p * nn.
+struct Rows {
+  int b, y0, rows, pmode, logn;
+  __device__ size_t at(size_t bs, int e) const {  // e = (p * rows + r) * n + x
+    const int n = 1 << logn;
+    const int l = e >> logn;
+    const int p = l / rows;
+    const int r = l - p * rows;
+    return static_cast<size_t>(b) * bs + (static_cast<size_t>(p) << (2 * logn)) +
+           static_cast<size_t>(y0 + r) * n + (e & (n - 1));
+  }
+};
+
+// Row pass of the forward chain, for rows y0..y0+R-1 of sample b, all modes
+// (grid (N / R, B)). Loads src (bit-reversed along x when `pending`: the
+// previous propagation's row IFFT is still to do), finishes that IFFT,
+// stores the natural state to `entry` if given, multiplies by T if a is
+// given, runs the row FFT if `fft`, and writes dst if given.
+__global__ void __launch_bounds__(kThreads)
+row_fwd_kernel(const float2* src, long long src_bs, int pending, float2* entry,
+               long long entry_bs, const float* __restrict__ a, const float* __restrict__ ph,
+               long long obj_bs, int fft, float2* dst, long long dst_bs, int pmode, int logn,
+               int rows) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << logn;
+  float2* tw = smem;
+  float2* s = smem + n / 2;
+  const Rows g{static_cast<int>(blockIdx.y), static_cast<int>(blockIdx.x) * rows, rows, pmode,
+               logn};
+  const int nlines = pmode * rows;
+  const int ne = nlines << logn;
+
+  init_twiddles(tw, n);
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) s[e] = src[g.at(src_bs, e)];
+  __syncthreads();
+  if (pending) ifft_lines<false>(s, tw, nlines, logn, n, 1);
+  if (entry != nullptr) {
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) entry[g.at(entry_bs, e)] = s[e];
+  }
+  if (a != nullptr) {
+    const int npix = rows << logn;
+    for (int e = threadIdx.x; e < npix; e += blockDim.x) {
+      const size_t k = static_cast<size_t>(g.b) * obj_bs +
+                       (static_cast<size_t>(g.y0) << logn) + e;
+      float sn, cs;
+      sincosf(ph[k], &sn, &cs);
+      const float am = a[k];
+      const float2 t = make_float2(am * cs, am * sn);
+      for (int p = 0; p < pmode; ++p) {
+        const int i = p * npix + e;
+        s[i] = cmul(s[i], t);
+      }
+    }
+    __syncthreads();
+  }
+  if (fft) fft_lines<false>(s, tw, nlines, logn, n, 1);
+  if (dst != nullptr) {
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) dst[g.at(dst_bs, e)] = s[e];
+  }
+}
+
+// Row pass of the adjoint walk for slice z (grid (N / R, B)). Loads the
+// cotangent d chi (pending: bit-reversed along x, its row IFFT still to
+// do), forms dT = sum_p d chi conj(psi) against the slice-entry state psi,
+// writes d a and d phi for these pixels, multiplies by conj(T), runs the
+// row FFT if `fft` (the adjoint propagation to the previous slice
+// follows), and writes dst.
+__global__ void __launch_bounds__(kThreads)
+row_bwd_kernel(const float2* src, long long src_bs, int pending, const float2* __restrict__ psi,
+               long long psi_bs, const float* __restrict__ a, const float* __restrict__ ph,
+               long long obj_bs, float* __restrict__ da, float* __restrict__ dph,
+               long long dobj_bs, int fft, float2* dst, long long dst_bs, int pmode, int logn,
+               int rows) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << logn;
+  float2* tw = smem;
+  float2* s = smem + n / 2;
+  const Rows g{static_cast<int>(blockIdx.y), static_cast<int>(blockIdx.x) * rows, rows, pmode,
+               logn};
+  const int nlines = pmode * rows;
+  const int ne = nlines << logn;
+
+  init_twiddles(tw, n);
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) s[e] = src[g.at(src_bs, e)];
+  __syncthreads();
+  if (pending) ifft_lines<false>(s, tw, nlines, logn, n, 1);
+
+  const int npix = rows << logn;
+  const size_t mode_nn = static_cast<size_t>(1) << (2 * logn);
+  for (int e = threadIdx.x; e < npix; e += blockDim.x) {
+    const size_t pix = (static_cast<size_t>(g.y0) << logn) + e;
+    const size_t k = static_cast<size_t>(g.b) * obj_bs + pix;
+    float sn, cs;
+    sincosf(ph[k], &sn, &cs);
+    const float am = a[k];
+    const float2 t = make_float2(am * cs, am * sn);
+    const float2* psi_b = psi + static_cast<size_t>(g.b) * psi_bs + pix;
+    float2 dt = make_float2(0.0f, 0.0f);
+    for (int p = 0; p < pmode; ++p) {
+      const int i = p * npix + e;
+      const float2 dchi = s[i];
+      const float2 q = cmul_conj(dchi, psi_b[p * mode_nn]);
+      dt.x += q.x;
+      dt.y += q.y;
+      s[i] = cmul_conj(dchi, t);
+    }
+    const size_t kd = static_cast<size_t>(g.b) * dobj_bs + pix;
+    da[kd] = dt.x * cs + dt.y * sn;
+    dph[kd] = am * (dt.y * cs - dt.x * sn);
+  }
+  __syncthreads();
+  if (fft) fft_lines<false>(s, tw, nlines, logn, n, 1);
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) dst[g.at(dst_bs, e)] = s[e];
+}
+
+// Column pass, in place (grid (N / C, pmode, B)): columns c0..c0+C-1 of
+// field (b, p), which arrive with x bit-reversed. Column FFT, times H/N^2
+// (conj(H)/N^2 for the adjoint) read at (bitrev(ky), bitrev(kx)), column
+// IFFT.
+__global__ void __launch_bounds__(kThreads)
+col_kernel(float2* buf, long long bs, const float2* __restrict__ h, long long h_bs, int conj_h,
+           int logn, int log_c) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << logn;
+  const int c = 1 << log_c;
+  float2* tw = smem;
+  float2* s = smem + n / 2;  // s[r * c + col]
+  const int c0 = blockIdx.x * c;
+  const int p = blockIdx.y;
+  const int b = blockIdx.z;
+  const int ne = n << log_c;
+  float2* f = buf + static_cast<size_t>(b) * bs + (static_cast<size_t>(p) << (2 * logn)) + c0;
+
+  init_twiddles(tw, n);
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    s[e] = f[static_cast<size_t>(e >> log_c) * n + (e & (c - 1))];
+  }
+  __syncthreads();
+  fft_lines<true>(s, tw, c, logn, 1, c);
+  const float inv_nn = 1.0f / static_cast<float>(n * n);
+  const float2* hb = h + static_cast<size_t>(b) * h_bs;
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const int ky = bitrev(e >> log_c, logn);
+    const int kx = bitrev(c0 + (e & (c - 1)), logn);
+    float2 hv = hb[static_cast<size_t>(ky) * n + kx];
+    hv = make_float2(hv.x * inv_nn, (conj_h ? -hv.y : hv.y) * inv_nn);
+    s[e] = cmul(s[e], hv);
+  }
+  __syncthreads();
+  ifft_lines<true>(s, tw, c, logn, 1, c);
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    f[static_cast<size_t>(e >> log_c) * n + (e & (c - 1))] = s[e];
+  }
+}
+
+// Shapes shared by every pass of one call.
+struct Chain {
+  int B, pmode, logn;
+  long long nn, field_bs;  // N^2; a (B, pmode, N, N) field's per-sample stride
+  const float2* h;
+  long long h_bs;
+  cudaStream_t st;
+  int rows, log_c;
+  size_t row_smem, col_smem;
+
+  cudaError_t init() {
+    if (logn < 1 || logn > kMaxLogN || B < 1 || pmode < 1) return cudaErrorInvalidValue;
+    const int n = 1 << logn;
+    nn = static_cast<long long>(n) * n;
+    field_bs = pmode * nn;
+    rows = 1;
+    while (rows < n && 2 * rows * pmode * n <= kRowElems) rows *= 2;
+    log_c = 0;
+    while ((1 << log_c) < kColTile && (1 << log_c) < n) ++log_c;
+    row_smem = (static_cast<size_t>(rows) * pmode * n + n / 2) * sizeof(float2);
+    col_smem = ((static_cast<size_t>(n) << log_c) + n / 2) * sizeof(float2);
+    cudaError_t err = cudaFuncSetAttribute(row_fwd_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(row_smem));
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(row_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(row_smem));
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(col_smem));
+    }
+    return err;
+  }
+
+  dim3 row_grid() const { return dim3((1 << logn) / rows, B); }
+
+  cudaError_t row_fwd(const float2* src, long long src_bs, bool pending, float2* entry,
+                      long long entry_bs, const float* a, const float* ph, long long obj_bs,
+                      bool fft, float2* dst) const {
+    row_fwd_kernel<<<row_grid(), kThreads, row_smem, st>>>(
+        src, src_bs, pending, entry, entry_bs, a, ph, obj_bs, fft, dst, field_bs, pmode, logn,
+        rows);
+    return cudaGetLastError();
+  }
+
+  cudaError_t row_bwd(const float2* src, bool pending, const float2* psi, long long psi_bs,
+                      const float* a, const float* ph, long long obj_bs, float* da, float* dph,
+                      long long dobj_bs, bool fft, float2* dst) const {
+    row_bwd_kernel<<<row_grid(), kThreads, row_smem, st>>>(
+        src, field_bs, pending, psi, psi_bs, a, ph, obj_bs, da, dph, dobj_bs, fft, dst,
+        field_bs, pmode, logn, rows);
+    return cudaGetLastError();
+  }
+
+  cudaError_t col(float2* buf, bool conj_h) const {
+    const dim3 grid((1 << logn) >> log_c, pmode, B);
+    col_kernel<<<grid, kThreads, col_smem, st>>>(buf, field_bs, h, h_bs, conj_h, logn, log_c);
+    return cudaGetLastError();
+  }
+};
+
+#define CHAIN_TRY(expr)                         \
+  do {                                          \
+    const cudaError_t err_ = (expr);            \
+    if (err_ != cudaSuccess) return err_;       \
+  } while (0)
+
+// Forward walk over nslices slices (a and ph point at the first; slice z at
+// + z * nn), from psi_in into out. With a stack, the entry state of every
+// sg-slice segment is written to stack[:, z / sg]. `last`: no propagation
+// after the final slice.
+cudaError_t chain_fwd(const Chain& c, const float2* psi_in, float2* out, const float* a,
+                      const float* ph, long long obj_bs, float2* stack, int n_seg, int sg,
+                      int nslices, bool last) {
+  const float2* src = psi_in;
+  bool pending = false;
+  for (int z = 0; z < nslices; ++z) {
+    float2* entry = (stack != nullptr && z % sg == 0) ? stack + (z / sg) * c.field_bs : nullptr;
+    const bool prop = !(last && z == nslices - 1);
+    CHAIN_TRY(c.row_fwd(src, c.field_bs, pending, entry, n_seg * c.field_bs, a + z * c.nn,
+                        ph + z * c.nn, obj_bs, prop, out));
+    if (prop) CHAIN_TRY(c.col(out, false));
+    src = out;
+    pending = prop;
+  }
+  if (pending) {  // finish the trailing propagation's row IFFT
+    CHAIN_TRY(c.row_fwd(out, c.field_bs, true, nullptr, 0, nullptr, nullptr, 0, false, out));
+  }
+  return cudaSuccess;
+}
+
+// Adjoint walk over n_seg segments of sg slices, in reverse. Segment s
+// starts from stack[:, s] (stack_bs: the stack's per-sample stride); its
+// slice-entry states 1..sg-1 are rebuilt into scratch (sg - 1 fields of
+// (B, pmode, N, N), `work` one more) before its slices are walked. g is
+// the cotangent of the chain's exit; `last`: the final slice did not
+// propagate. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0 into dpsi,
+// which also carries the running cotangent.
+cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long long stack_bs,
+                      const float* a, const float* ph, long long obj_bs, float2* scratch,
+                      float2* work, float* da, float* dph, float2* dpsi, int n_seg, int sg,
+                      bool last) {
+  const long long dobj_bs = static_cast<long long>(n_seg) * sg * c.nn;
+  const long long scratch_field = c.B * c.field_bs;
+  const float2* src = g;
+  bool pending = false;
+  if (!last) {  // the cotangent arrives after the final propagation: undo it first
+    CHAIN_TRY(c.row_fwd(g, c.field_bs, false, nullptr, 0, nullptr, nullptr, 0, true, dpsi));
+    CHAIN_TRY(c.col(dpsi, true));
+    src = dpsi;
+    pending = true;
+  }
+  for (int s = n_seg - 1; s >= 0; --s) {
+    const float2* entry0 = stack + s * c.field_bs;
+    const float* a_s = a + static_cast<long long>(s) * sg * c.nn;
+    const float* ph_s = ph + static_cast<long long>(s) * sg * c.nn;
+    // rebuild: scratch[j - 1] = psi entering slice j, j = 1..sg-1
+    const float2* rsrc = entry0;
+    long long rsrc_bs = stack_bs;
+    for (int j = 0; j + 1 < sg; ++j) {
+      CHAIN_TRY(c.row_fwd(rsrc, rsrc_bs, j > 0, j > 0 ? scratch + (j - 1) * scratch_field : nullptr,
+                          c.field_bs, a_s + j * c.nn, ph_s + j * c.nn, obj_bs, true, work));
+      CHAIN_TRY(c.col(work, false));
+      rsrc = work;
+      rsrc_bs = c.field_bs;
+    }
+    if (sg > 1) {
+      CHAIN_TRY(c.row_fwd(work, c.field_bs, true, scratch + (sg - 2) * scratch_field, c.field_bs,
+                          nullptr, nullptr, 0, false, nullptr));
+    }
+    for (int j = sg - 1; j >= 0; --j) {
+      const bool prop = !(s == 0 && j == 0);
+      const float2* psi = j > 0 ? scratch + (j - 1) * scratch_field : entry0;
+      const long long psi_bs = j > 0 ? c.field_bs : stack_bs;
+      const long long z = static_cast<long long>(s) * sg + j;
+      CHAIN_TRY(c.row_bwd(src, pending, psi, psi_bs, a_s + j * c.nn, ph_s + j * c.nn, obj_bs,
+                          da + z * c.nn, dph + z * c.nn, dobj_bs, prop, dpsi));
+      if (prop) CHAIN_TRY(c.col(dpsi, true));
+      src = dpsi;
+      pending = prop;
+    }
+  }
+  return cudaSuccess;
+}
+
+Chain make_chain(int B, int pmode, int logn, const float2* h, int h_shared, void* stream) {
+  Chain c{};
+  c.B = B;
+  c.pmode = pmode;
+  c.logn = logn;
+  c.h = h;
+  c.st = static_cast<cudaStream_t>(stream);
+  c.h_bs = h_shared ? 0 : (1LL << (2 * logn));
+  return c;
+}
+
+}  // namespace
+
+extern "C" {
+
+// B5a. psi (B, pmode, N, N) complex64 -> out (same); a, ph: slice 0 of the
+// segment, (B, ., N, N) f32 with per-sample stride obj_bs (elements) and
+// the sg slices adjacent; h (1 or B, N, N) complex64, corner-centred.
+int ptyrad_chain_segment_fwd(const float2* psi, const float* a, const float* ph,
+                             long long obj_bs, const float2* h, float2* out, int B, int pmode,
+                             int sg, int logn, int h_shared, int last, void* stream) {
+  Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
+  if (sg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CHAIN_TRY(c.init());
+  return static_cast<int>(chain_fwd(c, psi, out, a, ph, obj_bs, nullptr, 1, sg, sg, last != 0));
+}
+
+// B5b. g: cotangent of the exit (B, pmode, N, N); psi: the segment's entry.
+// scratch: (sg - 1) fields, work: one field (B, pmode, N, N). Writes d a,
+// d phi (B, sg, N, N) and d psi (B, pmode, N, N).
+int ptyrad_chain_segment_bwd(const float2* g, const float2* psi, const float* a, const float* ph,
+                             long long obj_bs, const float2* h, float2* scratch, float2* work,
+                             float* da, float* dph, float2* dpsi, int B, int pmode, int sg,
+                             int logn, int h_shared, int last, void* stream) {
+  Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
+  if (sg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CHAIN_TRY(c.init());
+  return static_cast<int>(chain_bwd(c, g, psi, c.field_bs, a, ph, obj_bs, scratch, work, da, dph,
+                                    dpsi, 1, sg, last != 0));
+}
+
+// B6a. n_seg segments of sg slices from psi0; writes the exit to out and the
+// segment-entry stack (B, n_seg, pmode, N, N).
+int ptyrad_chain_stack_fwd(const float2* psi0, const float* a, const float* ph,
+                           long long obj_bs, const float2* h, float2* stack, float2* out, int B,
+                           int pmode, int n_seg, int sg, int logn, int h_shared, int last_mega,
+                           void* stream) {
+  Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
+  if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CHAIN_TRY(c.init());
+  return static_cast<int>(chain_fwd(c, psi0, out, a, ph, obj_bs, stack, n_seg, sg, n_seg * sg,
+                                    last_mega != 0));
+}
+
+// B6b. g: cotangent of the exit; stack from B6a. scratch (sg - 1) fields,
+// work one field. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0.
+int ptyrad_chain_stack_bwd(const float2* g, const float2* stack, const float* a, const float* ph,
+                           long long obj_bs, const float2* h, float2* scratch, float2* work,
+                           float* da, float* dph, float2* dpsi0, int B, int pmode, int n_seg,
+                           int sg, int logn, int h_shared, int last_mega, void* stream) {
+  Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
+  if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CHAIN_TRY(c.init());
+  return static_cast<int>(chain_bwd(c, g, stack, n_seg * c.field_bs, a, ph, obj_bs, scratch,
+                                    work, da, dph, dpsi0, n_seg, sg, last_mega != 0));
+}
+
+}  // extern "C"

@@ -6,12 +6,14 @@ propagates by the angular-spectrum propagator H; the exit wave goes to the
 detector with an orthonormal 2D FFT; incoherent probe/object modes sum in
 intensity.
 
-The training path is ``fused_loss_terms``: the loss_single data term folded
-into the multislice chain (kernel B3 on CUDA). ``forward`` returns the
-diffraction patterns themselves; on the TPU it reaches the plain fused
-kernels (B4), which are not ported yet, so on a CUDA tensor it raises. On the
-CPU it runs ``multislice_dp``, the eager torch.fft chain, as the JAX package
-does off the TPU.
+The training path is ``fused_loss_terms`` where its shapes allow: the
+loss_single data term folded into the multislice chain (kernel B3 on CUDA,
+N <= 128). Otherwise the solver takes ``forward`` + ``combined_loss``.
+``forward`` dispatches as the JAX package does: the plain fused kernels (B4)
+for the fused kernels' shapes, else the segmented chain (B5/B6) for patches
+up to 512^2. B4 is not ported yet, so there, and outside both rules, a CUDA
+tensor raises; on the CPU those cases run ``multislice_dp``, the eager
+torch.fft chain, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import torch
 from ptyrad_tpu_torch.losses import loss_simlar, loss_sparse, merge_loss_params
 from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams
 from ptyrad_tpu_torch.ops.blur import gaussian_blur_2d
+from ptyrad_tpu_torch.ops.chain import chain_applicable_shapes, multislice_dp_chain
 from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2, ifftshift2
-from ptyrad_tpu_torch.ops.fused_multislice import multislice_loss_sums_fused
+from ptyrad_tpu_torch.ops.fused_multislice import (fused_applicable_shapes,
+                                                    multislice_loss_sums_fused)
 from ptyrad_tpu_torch.ops.patches import extract_patches
 from ptyrad_tpu_torch.ops.shift import fourier_shift, fourier_shift_kspace
 
@@ -91,21 +95,47 @@ def multislice_dp(obja_patches: torch.Tensor, objp_patches: torch.Tensor,
     return (intensity * omode_occu[:, None, None]).sum(dim=(1, 2)) + eps
 
 
+def _batch_shapes(params: PtychoParams, geom: Geometry, indices: torch.Tensor):
+    """(b, omode, nz, ny, nx, probe_b, pmode, h_b) of a batch, the
+    arguments of the applicability rules, from the static geometry, so a
+    route is chosen before any patch is gathered."""
+    b = indices.shape[0]
+    (omode, nz), (ny, nx) = geom.obj_shape[:2], geom.probe_shape
+    h_b = b if geom.tilt_obj and not geom.global_tilt else 1
+    return (b, omode, nz, ny, nx, b if geom.shift_probes else 1, params.probe.shape[0], h_b)
+
+
 def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: torch.Tensor):
     """(dp, (obja_patches, objp_patches)) for a batch of scan indices.
 
-    On a CUDA tensor this raises: the TPU path here is the plain fused
-    multislice kernel pair (ROADMAP queue B, item B4), not yet ported.
+    The dispatch of ptyrad_tpu/models/forward.py:155-221 under the card's
+    own rules: the fused kernels' shapes go to B4 (not ported: raises on
+    CUDA, ROADMAP queue A), else the chain's shapes to multislice_dp_chain
+    (B5/B6), else CUDA raises; the CPU runs multislice_dp for all but the
+    chain.
     """
-    if params.obja.device.type != "cpu":
+    b, omode, nz, ny, nx, probe_b, pmode, h_b = _batch_shapes(params, geom, indices)
+    on_cuda = params.obja.device.type != "cpu"
+    use_fused = fused_applicable_shapes(b, omode, nz, ny, nx, probe_b, pmode, h_b)
+    use_chain = not use_fused and chain_applicable_shapes(b, omode, nz, ny, nx, pmode, h_b)
+    if on_cuda and use_fused:
         raise NotImplementedError(
-            "forward() on CUDA needs the fused multislice kernels B4 "
+            "forward() on CUDA at these shapes needs the fused multislice kernels B4 "
             "(ptyrad_tpu/ops/pallas_multislice.py:multislice_dp_fused), which wait for "
-            "ROADMAP queue B, item B4; the training path on CUDA is fused_loss_terms")
+            "ROADMAP queue A, item 1; the training path on CUDA is fused_loss_terms")
+    if on_cuda and not use_chain:
+        raise NotImplementedError(
+            f"forward() on CUDA: {ny}x{nx} patches fit neither the fused kernels nor the "
+            "chain kernels (square, N a power of two <= 512)")
+
     obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
     H = compute_propagators(params, buffers, geom, indices)
     probes = get_probes(params, geom, indices)
-    dp = multislice_dp(obja_p, objp_p, probes, H, buffers.omode_occu, eps=geom.eps)
+    if use_chain:
+        dp = multislice_dp_chain(obja_p, objp_p, probes, H, buffers.omode_occu, geom.eps,
+                                 need_dh=geom.change_thickness or geom.tilt_obj)
+    else:
+        dp = multislice_dp(obja_p, objp_p, probes, H, buffers.omode_occu, eps=geom.eps)
     std = geom.detector_blur_std
     if std is not None and std != 0:
         dp = gaussian_blur_2d(dp, kernel_size=5, sigma=std)
@@ -113,18 +143,27 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
 
 
 def get_measurements(buffers: Buffers, geom: Geometry, indices: torch.Tensor) -> torch.Tensor:
-    """Measured patterns (B, Ky, Kx) for a batch of scan indices (make_model
-    rejects the on-the-fly pad/resample, not ported yet)."""
-    return buffers.measurements[indices]
+    """Measured patterns (B, Ky, Kx) for a batch of scan indices, embedded
+    in the fitted background canvas when they are padded on the fly
+    (ptyrad_tpu/models/forward.py:344-349), so the padded dataset never
+    sits on the device."""
+    meas = buffers.measurements[indices]
+    if geom.meas_pad_idx is not None:
+        h1, h2, w1, w2 = geom.meas_pad_idx
+        canvas = buffers.meas_padded.expand(meas.shape[0], *geom.meas_padded_shape).clone()
+        canvas[:, h1:h2, w1:w2] = meas
+        meas = canvas
+    return meas
 
 
 def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
                      indices: torch.Tensor, mask, loss_params):
     """(total, terms) with the loss_single data term folded into the
     multislice chain (B3), or None when the configuration is out of regime:
-    loss_single must be the only dp-dependent term, with no detector blur and
-    one object mode. The caller then uses forward() + combined_loss, which
-    give the same numbers.
+    loss_single must be the only dp-dependent term, with no detector blur,
+    one object mode and shapes that fused_applicable_shapes takes (as
+    ptyrad_tpu/models/forward.py:271-276). The caller then uses forward() +
+    combined_loss, which give the same numbers.
 
     The chain returns the corner-centred partial sums, so the measurements are
     ifftshifted to match (pixel sums are permutation-invariant). The single
@@ -139,10 +178,11 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     if std is not None and std != 0:
         return None
 
-    obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
-    b, omode = obja_p.shape[0], obja_p.shape[1]
-    if omode != 1:
+    shapes = _batch_shapes(params, geom, indices)
+    b, omode = shapes[:2]
+    if omode != 1 or not fused_applicable_shapes(*shapes):
         return None
+    obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
     H = compute_propagators(params, buffers, geom, indices)
     h_differentiable = geom.change_thickness or geom.tilt_obj
 

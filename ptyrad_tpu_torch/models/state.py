@@ -55,6 +55,7 @@ class Buffers:
     Kx: torch.Tensor
     Kz: torch.Tensor             # sqrt(k^2 - Kx^2 - Ky^2)
     probe_int_sum: torch.Tensor  # () float32 initial total probe intensity
+    meas_padded: Optional[torch.Tensor] = None  # (Kp, Kp) on-the-fly pad background
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,8 @@ class Geometry:
     obj_preblur_std: Optional[float] = None
     detector_blur_std: Optional[float] = None
     eps: float = 1e-10
+    meas_pad_idx: Optional[Tuple[int, int, int, int]] = None  # (h1, h2, w1, w2)
+    meas_padded_shape: Optional[Tuple[int, int]] = None
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -111,7 +114,9 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
 
     Keys as in ptyrad_tpu.models.make_model: obj, probe, probe_pos_shifts,
     obj_tilts, slice_thickness, measurements, crop_pos, omode_occu, dx,
-    lambd, N_scan_slow, N_scan_fast, optional H. ``model_params`` carries
+    lambd, N_scan_slow, N_scan_fast, optional H, and the on-the-fly pad pair
+    on_the_fly_meas_padded / on_the_fly_meas_padded_idx (both or neither;
+    see initialization.meas_pad_on_the_fly). ``model_params`` carries
     update_params (per-tensor lr), obj_preblur_std and detector_blur_std.
     ``device=None`` means CUDA.
     """
@@ -121,7 +126,7 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
         if model_params.get(key, supported) != supported:
             raise NotImplementedError(
                 f"model_params.{key}={model_params[key]!r}: only {supported!r} is ported "
-                "(ROADMAP queue A, PSO slice)")
+                "(ROADMAP queue A)")
     update = model_params.get("update_params", {}) or {}
 
     def lr_of(name):
@@ -151,13 +156,19 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     k = 2.0 * np.pi / lambd
     Kz = np.sqrt(np.maximum(k**2 - Kx**2 - Ky**2, 0.0))
 
-    on_the_fly = [k for k in ("on_the_fly_meas_padded", "on_the_fly_meas_padded_idx",
-                              "on_the_fly_meas_scale_factors")
-                  if init_variables.get(k) is not None]
-    if on_the_fly:
+    if init_variables.get("on_the_fly_meas_scale_factors") is not None:
         raise NotImplementedError(
-            f"{on_the_fly}: on-the-fly measurement pad/resample waits for the PSO slice "
-            "(ROADMAP queue A)")
+            "on_the_fly_meas_scale_factors: the on-the-fly measurement resample waits for "
+            "ROADMAP queue A (ops/resize.py)")
+    meas_padded = init_variables.get("on_the_fly_meas_padded")
+    meas_pad_idx = init_variables.get("on_the_fly_meas_padded_idx")
+    if (meas_padded is None) != (meas_pad_idx is None):
+        # the pair travels together (meas_pad_on_the_fly returns both)
+        raise ValueError(
+            "init_variables must carry both 'on_the_fly_meas_padded' and "
+            "'on_the_fly_meas_padded_idx' (or neither); got "
+            f"padded={'set' if meas_padded is not None else 'None'}, "
+            f"idx={'set' if meas_pad_idx is not None else 'None'}")
 
     buffers = Buffers(
         H=torch.tensor(np.asarray(H, dtype=np.complex64), device=dev),
@@ -168,6 +179,7 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
         Kx=_f32(Kx, dev),
         Kz=_f32(Kz, dev),
         probe_int_sum=_f32(np.sum(np.abs(probe) ** 2), dev),
+        meas_padded=None if meas_padded is None else _f32(meas_padded, dev),
     )
 
     geom = Geometry(
@@ -183,5 +195,8 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
         change_thickness=lr_of("slice_thickness") != 0,
         obj_preblur_std=model_params.get("obj_preblur_std"),
         detector_blur_std=model_params.get("detector_blur_std"),
+        meas_pad_idx=None if meas_pad_idx is None else tuple(int(i) for i in meas_pad_idx),
+        meas_padded_shape=(None if meas_padded is None
+                           else tuple(int(v) for v in np.shape(meas_padded)[-2:])),
     )
     return params, buffers, geom

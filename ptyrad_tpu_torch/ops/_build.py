@@ -26,16 +26,24 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("patches.cu", "multislice_loss.cu")
+SOURCES = ("patches.cu", "multislice_loss.cu", "chain.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every launcher: pointers and the stream are c_void_p (a
-# default ctypes int would cut a 64-bit pointer), sizes c_int, scalars c_float
+# default ctypes int would cut a 64-bit pointer), sizes c_int, strides
+# c_longlong, scalars c_float
 SIGNATURES = {
+    "ptyrad_chain_segment_fwd": (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_chain_segment_bwd": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_chain_stack_fwd": (_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_chain_stack_bwd": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_gather_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_scatter_add_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

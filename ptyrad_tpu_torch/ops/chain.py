@@ -1,0 +1,313 @@
+"""Segmented multislice chain: the wavefield walks the object slices in
+segments of Sg slices (kernels B5 and B6).
+
+Counterpart of ptyrad_tpu/ops/pallas_chain.py, the path for patches too
+large for the loss-folded chain (B3 holds a whole wavefield in one block's
+shared memory, N <= 128): the PSO regime, 256^2 patches and 21 slices. For
+each sample b and probe mode p, slice z of a segment does
+
+    chi = psi * a_z exp(i phi_z);   psi = ifft2(H fft2(chi))
+
+except that the chain's final slice does not propagate (``last`` /
+``last_mega``).
+
+- ``chain_segment`` (B5): one segment. Its backward rebuilds the segment's
+  slice-entry states from the saved entry wavefield and walks back.
+- ``chain_stack`` (B6): S uniform segments in one call per direction. The
+  forward keeps only the segment-entry wavefields; the backward walks the
+  segments in reverse, rebuilding each from its stacked entry. With no
+  gradient wanted it runs B5 segment by segment and keeps no stack.
+- ``multislice_dp_chain``: the composition, B6 over the uniform segments and B5
+  for the ragged tail, then the far-field intensity in plain torch.
+
+On a CPU tensor every wrapper runs its plain version (torch.fft under
+autograd). On a CUDA tensor it launches the hand-written kernels of
+``csrc/chain.cu`` or raises; they compute no propagator gradient (need_dh).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ptyrad_tpu_torch.ops import _build
+from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2
+
+MAX_N = 512   # the kernels' radix-2 passes hold one N-point line per mode in shared memory
+MAX_SG = 8    # the JAX planner's search range (pallas_chain.py:1236)
+
+
+def chain_applicable_shapes(b, omode, nz, ny, nx, pmode, h_b) -> bool:
+    """The card's rule for what the chain kernels take: square N x N with N
+    a power of two up to 512 (radix-2 transforms) and a shared or
+    per-position propagator. Any omode (multislice_dp_chain loops object modes), any
+    nz (that is the point), any pmode."""
+    return ny == nx and 2 <= nx <= MAX_N and not nx & (nx - 1) and h_b in (1, b)
+
+
+def best_sg(nz: int) -> int:
+    """Segment length: the largest sg <= 8, the JAX planner's search range.
+    On this card device memory bounds nothing at PSO (the backward's
+    rebuilt states are 8 x 64 MiB), so no planner is needed. At nz = 21 it
+    gives 21 = 2 x 8 + 5: B6 covers 16 slices and B5 the 5-slice tail, and
+    all four kernels run in every training step."""
+    return min(nz, MAX_SG)
+
+
+def chain_segment_plain(psi, a_seg, p_seg, h, last: bool):
+    """The plain version of B5: psi (B, pmode, N, N) complex64; a_seg, p_seg
+    (B, Sg, N, N) float32; h (1 or B, N, N) complex64 corner-centred.
+    Returns the exit wavefield (B, pmode, N, N)."""
+    hb = h[:, None]
+    sg = a_seg.shape[1]
+    for s in range(sg):
+        psi = psi * torch.polar(a_seg[:, s], p_seg[:, s])[:, None]
+        if not (last and s == sg - 1):
+            psi = ifft2(hb * fft2(psi))
+    return psi
+
+
+def chain_stack_plain(psi0, a_main, p_main, h, sg: int, last_mega: bool):
+    """The plain version of B6: nz_main / sg segments of sg slices."""
+    nz_main = a_main.shape[1]
+    _check_uniform(nz_main, sg)
+    psi = psi0
+    for z0 in range(0, nz_main, sg):
+        psi = chain_segment_plain(psi, a_main[:, z0:z0 + sg], p_main[:, z0:z0 + sg], h,
+                                  last_mega and z0 + sg >= nz_main)
+    return psi
+
+
+def _check_uniform(nz_main: int, sg: int) -> None:
+    if sg < 1 or nz_main % sg:
+        raise ValueError(f"chain_stack: nz_main ({nz_main}) must be a multiple of sg ({sg}); "
+                         "route the ragged tail through chain_segment")
+
+
+# -- the CUDA kernels ---------------------------------------------------------
+
+def _dims(psi, a, p, h, nslices):
+    """Validate the kernels' operands; returns (B, pmode, logn, h_shared)."""
+    if psi.dim() != 4 or psi.shape[-1] != psi.shape[-2]:
+        raise ValueError(f"psi must be (B, pmode, N, N), got {tuple(psi.shape)}")
+    b, pmode, n, _ = psi.shape
+    if n > MAX_N or n < 2 or n & (n - 1):
+        raise ValueError(f"the chain kernels take N a power of two <= {MAX_N}; got {n}")
+    for name, t, dtype in (("psi", psi, torch.complex64), ("h", h, torch.complex64),
+                           ("a", a, torch.float32), ("phi", p, torch.float32)):
+        if t.device.type != "cuda" or t.dtype != dtype:
+            raise ValueError(f"chain kernels: {name} must be a CUDA {dtype} tensor, "
+                             f"got {t.dtype} on {t.device}")
+    if not psi.is_contiguous() or not h.is_contiguous():
+        raise ValueError("chain kernels: psi and h must be contiguous")
+    if tuple(h.shape) not in ((1, n, n), (b, n, n)):
+        raise ValueError(f"h must be (1 or {b}, {n}, {n}), got {tuple(h.shape)}")
+    for name, t in (("a", a), ("phi", p)):
+        # slices of a (B, omode, Nz, N, N) patch tensor: any batch stride, the
+        # slices adjacent and each N x N plane contiguous
+        if (tuple(t.shape) != (b, nslices, n, n) or t.stride()[2:] != (n, 1)
+                or (nslices > 1 and t.stride(1) != n * n) or t.stride(0) != a.stride(0)):
+            raise ValueError(f"chain kernels: {name} must be (B, {nslices}, N, N) with "
+                             f"contiguous slices and a's batch stride, got shape "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    return b, pmode, n.bit_length() - 1, int(h.shape[0] == 1)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool):
+    """Kernel B5a: the segment's exit wavefield."""
+    sg = a_seg.shape[1]
+    b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
+    out = torch.empty_like(psi)
+    err = _build.lib().ptyrad_chain_segment_fwd(
+        psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0), h.data_ptr(),
+        out.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), _stream(psi))
+    _build.check(err, "chain_segment_fwd")
+    segment_fwd_cuda.launches += 1
+    return out
+
+
+segment_fwd_cuda.launches = 0
+
+
+def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool):
+    """Kernel B5b: from the exit cotangent g, (d psi, d a_seg, d p_seg)."""
+    sg = a_seg.shape[1]
+    b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
+    if tuple(g.shape) != tuple(psi.shape) or g.dtype != psi.dtype or not g.is_contiguous():
+        raise ValueError("segment_bwd_cuda: g must be a contiguous tensor like psi")
+    scratch = torch.empty((sg - 1, *psi.shape), dtype=psi.dtype, device=psi.device)
+    work = torch.empty_like(psi)
+    d_psi = torch.empty_like(psi)
+    d_a = torch.empty(a_seg.shape, dtype=torch.float32, device=psi.device)
+    d_p = torch.empty_like(d_a)
+    err = _build.lib().ptyrad_chain_segment_bwd(
+        g.data_ptr(), psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0),
+        h.data_ptr(), scratch.data_ptr(), work.data_ptr(), d_a.data_ptr(), d_p.data_ptr(),
+        d_psi.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), _stream(psi))
+    _build.check(err, "chain_segment_bwd")
+    segment_bwd_cuda.launches += 1
+    return d_psi, d_a, d_p
+
+
+segment_bwd_cuda.launches = 0
+
+
+def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool):
+    """Kernel B6a: (exit wavefield, segment-entry stack (B, S, pmode, N, N))."""
+    nz_main = a_main.shape[1]
+    _check_uniform(nz_main, sg)
+    b, pmode, logn, h_shared = _dims(psi0, a_main, p_main, h, nz_main)
+    n_seg = nz_main // sg
+    stack = torch.empty((b, n_seg, *psi0.shape[1:]), dtype=psi0.dtype, device=psi0.device)
+    out = torch.empty_like(psi0)
+    err = _build.lib().ptyrad_chain_stack_fwd(
+        psi0.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0), h.data_ptr(),
+        stack.data_ptr(), out.data_ptr(), b, pmode, n_seg, sg, logn, h_shared,
+        int(bool(last_mega)), _stream(psi0))
+    _build.check(err, "chain_stack_fwd")
+    stack_fwd_cuda.launches += 1
+    return out, stack
+
+
+stack_fwd_cuda.launches = 0
+
+
+def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool):
+    """Kernel B6b: from the exit cotangent g and B6a's stack,
+    (d psi0, d a_main, d p_main)."""
+    nz_main = a_main.shape[1]
+    _check_uniform(nz_main, sg)
+    n_seg = nz_main // sg
+    if stack.dim() != 5 or stack.shape[1] != n_seg or not stack.is_contiguous():
+        raise ValueError(f"stack_bwd_cuda: stack must be a contiguous (B, {n_seg}, pmode, N, N)")
+    b, pmode, logn, h_shared = _dims(g, a_main, p_main, h, nz_main)
+    if tuple(stack[:, 0].shape) != tuple(g.shape) or stack.dtype != g.dtype:
+        raise ValueError("stack_bwd_cuda: each stack entry must be shaped like g")
+    scratch = torch.empty((sg - 1, *g.shape), dtype=g.dtype, device=g.device)
+    work = torch.empty_like(g)
+    d_psi0 = torch.empty_like(g)
+    d_a = torch.empty(a_main.shape, dtype=torch.float32, device=g.device)
+    d_p = torch.empty_like(d_a)
+    err = _build.lib().ptyrad_chain_stack_bwd(
+        g.data_ptr(), stack.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0),
+        h.data_ptr(), scratch.data_ptr(), work.data_ptr(), d_a.data_ptr(), d_p.data_ptr(),
+        d_psi0.data_ptr(), b, pmode, n_seg, sg, logn, h_shared, int(bool(last_mega)),
+        _stream(g))
+    _build.check(err, "chain_stack_bwd")
+    stack_bwd_cuda.launches += 1
+    return d_psi0, d_a, d_p
+
+
+stack_bwd_cuda.launches = 0
+
+
+class _SegmentCuda(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, psi, a_seg, p_seg, h, last):
+        ctx.save_for_backward(psi, a_seg, p_seg, h)
+        ctx.last = last
+        return segment_fwd_cuda(psi, a_seg, p_seg, h, last)
+
+    @staticmethod
+    def backward(ctx, g):
+        psi, a_seg, p_seg, h = ctx.saved_tensors
+        d_psi, d_a, d_p = segment_bwd_cuda(g.contiguous(), psi, a_seg, p_seg, h, ctx.last)
+        return d_psi, d_a, d_p, None, None
+
+
+class _StackCuda(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, psi0, a_main, p_main, h, sg, last_mega):
+        out, stack = stack_fwd_cuda(psi0, a_main, p_main, h, sg, last_mega)
+        ctx.save_for_backward(stack, a_main, p_main, h)
+        ctx.consts = (sg, last_mega)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        stack, a_main, p_main, h = ctx.saved_tensors
+        d_psi0, d_a, d_p = stack_bwd_cuda(g.contiguous(), stack, a_main, p_main, h, *ctx.consts)
+        return d_psi0, d_a, d_p, None, None, None
+
+
+def _no_dh() -> None:
+    raise NotImplementedError(
+        "the CUDA chain kernels compute no propagator gradient (need_dh): optimizable "
+        "slice thickness or tilts wait for ROADMAP queue A, item 2")
+
+
+def chain_segment(psi, a_seg, p_seg, h, last: bool):
+    """Advance psi (B, pmode, N, N) through one segment of Sg slices (a_seg,
+    p_seg (B, Sg, N, N)); see the module docstring. B5 on CUDA."""
+    if psi.device.type == "cpu":
+        return chain_segment_plain(psi, a_seg, p_seg, h, last)
+    if h.requires_grad:
+        _no_dh()
+    return _SegmentCuda.apply(psi.contiguous(), a_seg, p_seg, h.contiguous(), bool(last))
+
+
+def chain_stack(psi0, a_main, p_main, h, sg: int, last_mega: bool):
+    """Advance psi0 through nz_main / sg uniform segments; B6 on CUDA when a
+    gradient is wanted. ``last_mega`` is False when a ragged chain_segment
+    tail follows. With no gradient wanted this runs chain_segment segment by
+    segment: B6's forward writes the backward's stack, which nothing would
+    read."""
+    _check_uniform(a_main.shape[1], sg)
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (psi0, a_main, p_main, h))
+    if not wants_grad:
+        nz_main = a_main.shape[1]
+        psi = psi0
+        for z0 in range(0, nz_main, sg):
+            psi = chain_segment(psi, a_main[:, z0:z0 + sg], p_main[:, z0:z0 + sg], h,
+                                last_mega and z0 + sg >= nz_main)
+        return psi
+    if psi0.device.type == "cpu":
+        return chain_stack_plain(psi0, a_main, p_main, h, sg, last_mega)
+    if h.requires_grad:
+        _no_dh()
+    return _StackCuda.apply(psi0.contiguous(), a_main, p_main, h.contiguous(), int(sg),
+                            bool(last_mega))
+
+
+def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: float,
+                        need_dh: bool = False, seg_override: int | None = None):
+    """Far-field intensity (B, N, N), centred, with the omode_occu weights
+    and eps, through the segmented chain: a drop-in for multislice_dp.
+
+    obja/objp_patches (B, omode, Nz, N, N); probes (1 or B, pmode, N, N);
+    H (1 or B, N, N). Object modes are independent chains summed
+    incoherently; the uniform segments run as chain_stack, the ragged tail
+    as chain_segment; the far-field fft2, the mode sum and fftshift are
+    plain torch, as in the JAX package where they sit outside the kernels.
+    need_dh: H carries a gradient; the plain version gives it through
+    autograd, the CUDA kernels raise.
+    """
+    b, omode, nz, n, _ = obja_patches.shape
+    if need_dh and obja_patches.device.type != "cpu":
+        _no_dh()
+    sg = seg_override or best_sg(nz)
+    psi0 = probes.expand(b, *probes.shape[1:])
+    n_seg_uniform = nz // sg
+    nz_main = n_seg_uniform * sg if n_seg_uniform >= 2 else 0
+
+    dp = None
+    for om in range(omode):
+        psi, z0 = psi0, 0
+        if nz_main:
+            psi = chain_stack(psi, obja_patches[:, om, :nz_main], objp_patches[:, om, :nz_main],
+                              H, sg, nz_main == nz)
+            z0 = nz_main
+        while z0 < nz:
+            z1 = min(z0 + sg, nz)
+            psi = chain_segment(psi, obja_patches[:, om, z0:z1], objp_patches[:, om, z0:z1], H,
+                                z1 == nz)
+            z0 = z1
+        y = fft2(psi, norm="ortho")
+        contrib = omode_occu[om] * (y.real ** 2 + y.imag ** 2).sum(1)
+        dp = contrib if dp is None else dp + contrib
+    # fftshift is a fixed permutation: one roll of the mode sum
+    return fftshift2(dp) + eps

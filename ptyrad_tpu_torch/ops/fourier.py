@@ -37,3 +37,10 @@ def fftshift2(x: torch.Tensor) -> torch.Tensor:
 def ifftshift2(x: torch.Tensor) -> torch.Tensor:
     """ifftshift over the last two axes (differs from fftshift for odd N)."""
     return torch.roll(x, (-(x.shape[-2] // 2), -(x.shape[-1] // 2)), dims=(-2, -1))
+
+
+def fftn3(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """3D DFT over the last three axes (the kz-filter constraint);
+    unnormalized forward, 1/(Nz Ny Nx) inverse."""
+    fn = torch.fft.ifftn if inverse else torch.fft.fftn
+    return fn(x, dim=(-3, -2, -1), norm="backward")

@@ -62,6 +62,17 @@ def loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps:
     return (w * diff * diff).sum(), (w * mp).sum()
 
 
+def fused_applicable_shapes(b, omode, nz, ny, nx, probe_b, pmode, h_b) -> bool:
+    """The card's rule for what the fused kernels (B3, and B4 once ported)
+    take: square N x N with N a power of two, 2 <= N <= MAX_N (the whole
+    wavefield sits in one block's shared memory), and a shared or
+    per-position probe. Pure shape logic, the counterpart of
+    ptyrad_tpu/ops/pallas_multislice.py:fused_applicable_shapes; omode, nz,
+    pmode and h_b do not limit the kernels' shared memory, and a per-position
+    H or need_dh raise inside the regime (ROADMAP queue A)."""
+    return ny == nx and 2 <= nx <= MAX_N and not nx & (nx - 1) and probe_b in (1, b)
+
+
 def _shape_info(obja_p, probe, h):
     if obja_p.dim() != 5 or obja_p.shape[1] != 1:
         raise ValueError(f"object patches must be (B, 1, Nz, N, N), got {tuple(obja_p.shape)}")

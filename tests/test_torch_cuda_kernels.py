@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card, over
-the edge cases that chip_smoke.py's tBL shapes do not reach: small and odd
-patch sizes, one slice, one mode, every probe layout, other loss powers, a
-masked sample, the whole loss-folded path and a short solver run.
+the edge cases that chip_smoke.py's tBL and PSO shapes do not reach: small
+and odd patch sizes, one slice, one mode, every probe layout, other loss
+powers, a masked sample, the whole loss-folded path, the segmented chain
+(B5/B6) with `last` / `last_mega` both ways, per-position H and the grad-off
+route, and short tBL-like and PSO-like solver runs.
 
 Marked ``cuda``: skipped without a GPU. On a machine with one (and no JAX,
 which tests/conftest.py imports) run
@@ -12,6 +14,8 @@ Tolerances: the gather copies values (exact); the scatter and the B3
 cotangents sum with atomics in a run-dependent order, and B3 transforms with
 a different FFT than torch.fft: rtol 1e-5 of the largest sum for the
 scatter, 1e-4 relative for s1/s2 and 1e-4 of each cotangent's largest entry.
+B5/B6 sum over modes without atomics and repeat bit for bit; they are held
+at 1e-4 of the largest entry of each output or cotangent.
 """
 
 import numpy as np
@@ -189,3 +193,187 @@ def test_solver_cuda_matches_cpu(dev):
                                [v for _, v in cpu.history.loss_iters], rtol=1e-4)
     with pytest.raises(NotImplementedError, match="B4"):
         forward(gpu.params, gpu.buffers, gpu.geom, torch.arange(4, device=gpu.device))
+
+
+# -- B5 and B6: the segmented chain ------------------------------------------
+# Tolerance: 1e-4 of the largest entry of each output or cotangent, as for
+# B3 (float32 chains through radix-2 passes against torch.fft). d a and
+# d phi are summed over modes inside one block in a fixed order.
+
+def _seg_inputs(dev, gen, b, pmode, nz, n, h_b=1):
+    psi = torch.complex(torch.randn((b, pmode, n, n), generator=gen, device=dev),
+                        torch.randn((b, pmode, n, n), generator=gen, device=dev)) / n
+    # a view into a (B, omode=2, nz + 1, N, N) patch tensor, as multislice_dp_chain passes
+    base_a = 1.0 + 0.05 * torch.randn((b, 2, nz + 1, n, n), generator=gen, device=dev)
+    base_p = 0.3 * torch.randn((b, 2, nz + 1, n, n), generator=gen, device=dev)
+    a, p = base_a[:, 1, 1:], base_p[:, 1, 1:]
+    h = torch.exp(1j * torch.rand((h_b, n, n), generator=gen, device=dev) * 6.0)
+    return psi, a, p, h.to(torch.complex64)
+
+
+def _assert_rel(actual, ref, what):
+    actual, ref = actual.detach(), ref.detach()
+    scale = float(ref.abs().max())
+    err = float((actual - ref).abs().max())
+    assert err <= 1e-4 * scale, f"{what}: max abs err {err} > 1e-4 x {scale}"
+
+
+def _vjp_plain(fn, inputs, g):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, grad_outputs=g)
+
+
+@pytest.mark.parametrize("n", [16, 64, 256])
+@pytest.mark.parametrize("pmode", [1, 4])
+@pytest.mark.parametrize("sg", [1, 4, 5])
+@pytest.mark.parametrize("last", [True, False])
+def test_chain_segment_kernels(dev, gen, n, pmode, sg, last):
+    from ptyrad_tpu_torch.ops import chain as C
+
+    b = 3
+    psi, a, p, h = _seg_inputs(dev, gen, b, pmode, sg, n, h_b=b if sg == 4 else 1)
+    out = C.segment_fwd_cuda(psi, a, p, h, last)
+    g = torch.randn_like(out)
+    ref, (gp_psi, gp_a, gp_p) = _vjp_plain(
+        lambda x, y, z: C.chain_segment_plain(x, y, z, h, last), (psi, a, p), g)
+    _assert_rel(out, ref, "B5a exit")
+    d_psi, d_a, d_p = C.segment_bwd_cuda(g, psi, a, p, h, last)
+    _assert_rel(d_psi, gp_psi, "B5b d psi")
+    _assert_rel(d_a, gp_a, "B5b d a")
+    _assert_rel(d_p, gp_p, "B5b d phi")
+
+
+@pytest.mark.parametrize("n", [16, 64, 256])
+@pytest.mark.parametrize("pmode", [1, 4])
+@pytest.mark.parametrize("n_seg,sg", [(2, 8), (3, 1), (2, 2)])
+@pytest.mark.parametrize("last_mega", [True, False])
+def test_chain_stack_kernels(dev, gen, n, pmode, n_seg, sg, last_mega):
+    from ptyrad_tpu_torch.ops import chain as C
+
+    b = 2
+    psi, a, p, h = _seg_inputs(dev, gen, b, pmode, n_seg * sg, n)
+    out, stack = C.stack_fwd_cuda(psi, a, p, h, sg, last_mega)
+    g = torch.randn_like(out)
+    ref, (gp_psi, gp_a, gp_p) = _vjp_plain(
+        lambda x, y, z: C.chain_stack_plain(x, y, z, h, sg, last_mega), (psi, a, p), g)
+    _assert_rel(out, ref, "B6a exit")
+    assert stack.shape == (b, n_seg, pmode, n, n)
+    torch.testing.assert_close(stack[:, 0], psi, rtol=0, atol=0)
+    if n_seg > 1:  # entry 1 is the state after the first segment, propagated
+        _assert_rel(stack[:, 1], C.chain_segment_plain(psi, a[:, :sg], p[:, :sg], h, False),
+                    "B6a stack entry 1")
+    d_psi, d_a, d_p = C.stack_bwd_cuda(g, stack, a, p, h, sg, last_mega)
+    _assert_rel(d_psi, gp_psi, "B6b d psi0")
+    _assert_rel(d_a, gp_a, "B6b d a")
+    _assert_rel(d_p, gp_p, "B6b d phi")
+    d_again = C.stack_bwd_cuda(g, stack, a, p, h, sg, last_mega)
+    for x, y in zip((d_psi, d_a, d_p), d_again):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)  # no atomics: deterministic
+
+
+@pytest.mark.parametrize("nz,n,pmode", [(1, 64, 4), (4, 64, 1), (21, 256, 4), (21, 64, 4)])
+def test_multislice_dp_chain_cuda(dev, gen, nz, n, pmode):
+    """multislice_dp_chain against the plain multislice_dp on the same CUDA tensors,
+    values and gradients; sg = 4 divides nz = 4, sg = 8 leaves a tail at 21.
+    The grad-off route (B5a only) gives the same dp as the grad route."""
+    from ptyrad_tpu_torch.models import multislice_dp
+    from ptyrad_tpu_torch.ops import chain as C
+
+    b = 4
+    obja = 1.0 + 0.05 * torch.randn((b, 1, nz, n, n), generator=gen, device=dev)
+    objp = 0.3 * torch.randn((b, 1, nz, n, n), generator=gen, device=dev)
+    probe = torch.complex(torch.randn((b, pmode, n, n), generator=gen, device=dev),
+                          torch.randn((b, pmode, n, n), generator=gen, device=dev)) / n
+    h = torch.exp(1j * torch.rand((1, n, n), generator=gen, device=dev) * 6.0).to(torch.complex64)
+    occu = torch.ones(1, device=dev)
+    counters = (C.segment_fwd_cuda, C.segment_bwd_cuda, C.stack_fwd_cuda, C.stack_bwd_cuda)
+    for fn in counters:
+        fn.launches = 0
+    with torch.no_grad():
+        dp_off = C.multislice_dp_chain(obja, objp, probe, h, occu, 1e-10)
+    assert [fn.launches for fn in counters] == [len(range(0, nz, C.best_sg(nz))), 0, 0, 0]
+    for fn in counters:
+        fn.launches = 0
+    leaves_k = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+    leaves_p = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+    dp_k = C.multislice_dp_chain(*leaves_k, h, occu, 1e-10)
+    dp_p = multislice_dp(*leaves_p, h, occu, 1e-10)
+    _assert_rel(dp_k, dp_p, "dp")
+    torch.testing.assert_close(dp_off, dp_k.detach(), rtol=0, atol=0)
+    w = torch.rand(dp_k.shape, generator=gen, device=dev)
+    (w * dp_k).sum().backward()
+    (w * dp_p).sum().backward()
+    for name, x, y in zip(("obja", "objp", "probe"), leaves_k, leaves_p):
+        _assert_rel(x.grad, y.grad, f"d {name}")
+    if nz == 21:  # B6 over 16 slices, B5 over the 5-slice tail
+        assert [fn.launches for fn in counters] == [1, 1, 1, 1]
+
+
+def test_chain_unsupported_cases_raise(dev, gen):
+    """No propagator gradient on the card (need_dh), and N beyond the
+    kernels' radix-2 regime: the wrappers raise instead of falling back."""
+    from ptyrad_tpu_torch.ops import chain as C
+
+    psi, a, p, h = _seg_inputs(dev, gen, 2, 2, 3, 16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        C.chain_segment(psi, a, p, h.clone().requires_grad_(True), True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        C.multislice_dp_chain(a[:, None], p[:, None], psi, h, torch.ones(1, device=dev), 1e-10,
+                              need_dh=True)
+    psi, a, p, h = _seg_inputs(dev, gen, 1, 1, 1, 1024)
+    with pytest.raises(ValueError, match="power of two"):
+        C.segment_fwd_cuda(psi, a, p, h, True)
+
+
+def _pso_like_init(seed=5, n_scans=6, npix=256, crop=64, pmode=2, nz=17, canvas=288):
+    """Small PSO-like data: 64^2 crops padded on the fly to 256^2."""
+    from ptyrad_tpu_torch.initialization import meas_pad_on_the_fly
+    from ptyrad_tpu_torch.physics.propagator import near_field_evolution
+
+    rng = np.random.default_rng(seed)
+    init = _small_init(seed, n_scans, npix, pmode, nz, canvas)
+    lo = (npix - crop) // 2
+    crops = np.abs(rng.standard_normal((n_scans, crop, crop))).astype(np.float32) * 1e-3
+    padded, idx = meas_pad_on_the_fly(crops, "power", npix, 70)
+    init.update(measurements=crops, on_the_fly_meas_padded=padded,
+                on_the_fly_meas_padded_idx=idx, omode_occu=np.ones(1, np.float32),
+                H=near_field_evolution((npix, npix), 0.15, 10.0, 0.0197))
+    assert idx == [lo, lo + crop, lo, lo + crop]
+    return init
+
+
+def test_pso_solver_cuda_matches_cpu(dev):
+    """Two iterations of a PSO-like run (N = 256, 17 slices: B6 over two
+    8-slice segments, B5 over the tail) on the card against the CPU: losses
+    at rtol 1e-4, all four chain kernels launched and B3 not. The
+    yml's constraints without ortho_pmode: cuSOLVER's eigh picks other
+    eigenvector phases than LAPACK's, and Adam's elementwise steps then part
+    the two trajectories legitimately (tests/test_torch_solver.py)."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    params = {
+        "model_params": {"update_params": {
+            "obja": {"lr": 5e-4}, "objp": {"lr": 5e-4}, "probe": {"lr": 1e-4},
+            "probe_pos_shifts": {"lr": 1e-4}}},
+        "loss_params": {"loss_single": {"state": True, "dp_pow": 0.5}},
+        "constraint_params": {"fix_probe_int": {"freq": 1},
+                              "kz_filter": {"freq": 1, "obj_type": "both"},
+                              "obja_thresh": {"freq": 1}, "objp_postiv": {"freq": 1}},
+        "recon_params": {"NITER": 2, "BATCH_SIZE": {"size": 2}, "GROUP_MODE_SEED": 0},
+    }
+    counters = (M.loss_sums_fwd_cuda, M.loss_sums_bwd_cuda, C.segment_fwd_cuda,
+                C.segment_bwd_cuda, C.stack_fwd_cuda, C.stack_bwd_cuda)
+    for fn in counters:
+        fn.launches = 0
+    runs = {}
+    for d in ("cpu", None):
+        s = PtyRADSolver(params, init_variables=_pso_like_init(), device=d, verbose=False)
+        s.run()
+        runs[d] = s
+    np.testing.assert_allclose([v for _, v in runs[None].history.loss_iters],
+                               [v for _, v in runs["cpu"].history.loss_iters], rtol=1e-4)
+    steps = 2 * runs[None].batch_idx.shape[0]
+    assert [fn.launches for fn in counters] == [0, 0] + [steps] * 4

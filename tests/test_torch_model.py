@@ -26,7 +26,7 @@ from ptyrad_tpu_torch import constraints as TC
 from ptyrad_tpu_torch.losses import combined_loss, merge_loss_params
 from ptyrad_tpu_torch.models import (compute_propagators, forward, make_model,
                                      multislice_dp, params_from_numpy)
-from ptyrad_tpu_torch.models.state import PtychoParams
+from ptyrad_tpu_torch.models.state import Geometry, PtychoParams
 from torch_port_helpers import CPU, assert_grad_close, cplx_np, jax_params_numpy, np_, toy_init
 
 
@@ -114,11 +114,17 @@ def test_forward_and_gradients_match_jax(rng):
 
 
 def test_forward_raises_off_the_cpu():
-    """forward() outside the CPU needs kernel B4 (not ported): it raises."""
+    """forward() outside the CPU at the fused kernels' shapes (N <= 128)
+    needs kernel B4 (not ported), and at shapes neither rule takes has no
+    kernel: it raises before any work."""
     meta = torch.empty((1, 2, 8, 8), device="meta")
     params = PtychoParams(meta, meta, meta, meta, meta, meta)
-    with pytest.raises(NotImplementedError, match="B4"):
-        forward(params, None, None, None)
+    idx = torch.arange(3, device="meta")
+    for n, match in ((8, "B4"), (96, "neither")):
+        geom = Geometry(probe_shape=(n, n), obj_shape=(1, 2, 200, 200), n_scan_slow=3,
+                        n_scan_fast=1, dx=0.1, lambd=0.02)
+        with pytest.raises(NotImplementedError, match=match):
+            forward(params, None, geom, idx)
 
 
 LOSS_ALL = {
@@ -215,12 +221,13 @@ def test_scheduler_gating_and_strict_config(rng):
     with pytest.raises(ValueError, match="freq"):
         TC.ConstraintScheduler({"obj_rblur": {"freq": 0}})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.ConstraintScheduler({"kz_filter": {"freq": 1}})
+        TC.ConstraintScheduler({"kr_filter": {"freq": 1}})
 
 
 @pytest.mark.parametrize("extra_init,model_params", [
     ({"on_the_fly_meas_padded": np.zeros((20, 20), np.float32),
-      "on_the_fly_meas_padded_idx": (2, 18, 2, 18)}, None),
+      "on_the_fly_meas_padded_idx": (2, 18, 2, 18),
+      "on_the_fly_meas_scale_factors": (1.25, 1.25)}, None),  # a pad is ported, a resample not
     ({"on_the_fly_meas_scale_factors": (0.5, 0.5)}, None),
     ({}, {"compute_dtype": "bfloat16"}),
 ])
