@@ -1,23 +1,30 @@
-// Loss-folded mixed-state multislice chain (B3) for sm_90a: forward and
-// backward.
+// Mixed-state multislice chain for sm_90a at N <= 128, forward and backward:
+// the plain pair (B4), whose output is the diffraction intensity, and the
+// loss-folded pair (B3), whose output is the loss_single partial sums.
 //
-// Replaces the TPU kernels of ptyrad_tpu/ops/pallas_multislice.py that make
-// up multislice_loss_sums_fused (:626):
+// Replaces the TPU kernels of ptyrad_tpu/ops/pallas_multislice.py:
+//   B4a  _fwd_kernel      (:128, launched by _fused_fwd_impl :382/:404)
+//   B4b  _bwd_kernel      (:145, launched by _fused_bwd      :428/:464,
+//        adjoint walk _bwd_from_g :178)
 //   B3a  _fwd_loss_kernel (:548, launched by _loss_fwd_impl  :642/:666)
 //   B3b  _bwd_loss_kernel (:588, launched by _loss_fused_bwd :703/:744,
 //        adjoint walk _bwd_from_g :178)
+// B3 is B4 with the loss folded in; both share one chain kernel forward and
+// one backward kernel, templated on the loss.
 //
 // Contract (omode 1, shared propagator H, no dH):
-//   psi_0   = probe mode p (shared real-space (1, pmode, N, N)), or
-//             ifft2 of the per-position shifted spectrum (B, pmode, N, N)
+//   psi_0   = probe mode p (shared real-space (1, pmode, N, N), or
+//             per-position (B, pmode, N, N)), or ifft2 of the probe spectrum
 //   for z:    psi <- psi * T_z,  T_z = a_z exp(i phi_z);
 //             between slices psi <- ifft2(H * fft2(psi))
 //   dp      = sum_p |fft2(psi)|^2 / N^2                  (corner-centred)
-//   s1      = sum_b mask_b sum ((dp + eps)^p - meas^p)^2,  s2 = sum_b mask_b sum meas^p
-//   meas arrives ifftshifted to the corner-centred order.
-//   Backward: g = c mask 2p ((dp+eps)^p - meas^p)(dp+eps)^(p-1) with c the
-//   upstream cotangent of s1; returns d obja, d objp (B, 1, Nz, N, N) and
-//   d probe (same shape as the probe).
+//   B4a returns dp (B, N, N). B4b takes its cotangent g (B, N, N).
+//   B3a returns s1 = sum_b mask_b sum ((dp + eps)^p - meas^p)^2 and
+//   s2 = sum_b mask_b sum meas^p, with meas ifftshifted to the corner-centred
+//   order; B3b forms g = c mask 2p ((dp+eps)^p - meas^p)(dp+eps)^(p-1) with c
+//   the upstream cotangent of s1.
+//   Both backwards return d obja, d objp (B, 1, Nz, N, N) and d probe (the
+//   probe's shape).
 //
 // Bound on the card: FP32 arithmetic. A 128^2 complex 2D FFT is about
 // 10 N^2 log2 N = 1.15 MFLOP. The forward runs 12 of them per (sample, mode)
@@ -36,15 +43,18 @@
 //    frequency (natural order in, bit-reversed out) and the inverse is
 //    decimation in time (bit-reversed in, natural out), so a propagation
 //    multiplies by H read at bit-reversed indices and needs no permutation.
-//    Far-field values, the kspace probe and the measurement are addressed
-//    through the same index map. The adjoint of one is the other with the
-//    conjugate twiddles, so the backward reuses both.
+//    Far-field values, the kspace probe, the measurement and the dp
+//    cotangent are addressed through the same index map. The adjoint of one
+//    transform is the other with the conjugate twiddles, so the backward
+//    reuses both.
 //  * Mode reduction: dp sums over modes, which live in different blocks.
-//    The chain kernel writes |Y|^2/N^2 to a (B, pmode, N, N) scratch and a
-//    small second kernel, one block per sample, forms dp (kept as the
-//    residual for the backward, 2 MB), and the masked s1/s2 partial sums per
-//    sample; a one-warp third kernel adds the B partials in a fixed order.
-//    One block per sample looping over modes would fill only 32 of 132 SMs.
+//    The chain kernel writes |Y|^2/N^2 to a (B, pmode, N, N) scratch. For B4a
+//    an elementwise kernel sums the modes into dp in mode order. For B3a a
+//    second kernel, one block per sample, forms dp (kept as the residual for
+//    the backward, 2 MB) and the masked s1/s2 partial sums per sample; a
+//    one-warp third kernel adds the B partials in a fixed order. Both
+//    forwards are deterministic. One block per sample looping over modes
+//    would fill only 32 of 132 SMs.
 //  * Backward: the recompute writes the Nz slice-entry states of each
 //    wavefield to a device scratch (B pmode Nz N^2 8 B = 151 MB at tBL); each
 //    thread later reads back exactly the elements it wrote, so no extra
@@ -60,6 +70,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kReduceThreads = 256;
+constexpr int kSumThreads = 256;
 constexpr int kMaxLogN = 7;  // N <= 128: the field and twiddles fit 227 KB of shared memory
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -199,11 +210,36 @@ __device__ void load_probe(float2* s, const float2* tw, const float2* __restrict
   if (kspace) fft2_inv(s, tw, n, logn);
 }
 
+// The chain from the loaded probe through the far-field transform: s ends
+// as the unnormalized spectrum Y in bit-reversed order. With st, each
+// slice's entry state is stored there for the backward.
+__device__ void run_chain(float2* s, const float2* tw, const float* __restrict__ a_b,
+                          const float* __restrict__ phi_b, const float2* __restrict__ h,
+                          float2* __restrict__ st, int nz, int n, int logn, bool kspace) {
+  const int nn = n * n;
+  const float inv_nn = 1.0f / static_cast<float>(nn);
+  for (int z = 0; z < nz; ++z) {
+    const float f = (z == 0 && kspace) ? inv_nn : 1.0f;
+    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+      const size_t zi = static_cast<size_t>(z) * nn + i;
+      float sn, cs;
+      sincosf(phi_b[zi], &sn, &cs);
+      const float a = a_b[zi];
+      const float2 v = cscale(s[i], f);
+      if (st != nullptr) st[zi] = v;
+      s[i] = cmul(v, make_float2(a * cs, a * sn));
+    }
+    __syncthreads();
+    if (z < nz - 1) propagate<false>(s, tw, h, n, logn);
+  }
+  fft2_fwd(s, tw, n, logn);
+}
+
 __global__ void __launch_bounds__(kThreads)
-loss_fwd_chain_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
-                      const float2* __restrict__ probe, const float2* __restrict__ h,
-                      float* __restrict__ inten, int pmode, int nz, int logn, int shared_probe,
-                      int kspace) {
+chain_fwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
+                 const float2* __restrict__ probe, const float2* __restrict__ h,
+                 float* __restrict__ inten, int pmode, int nz, int logn, int shared_probe,
+                 int kspace) {
   extern __shared__ float2 smem[];
   const int n = 1 << logn;
   const int nn = n * n;
@@ -216,25 +252,27 @@ loss_fwd_chain_kernel(const float* __restrict__ obja, const float* __restrict__ 
   init_twiddles(tw, n);
   load_probe(s, tw, probe + (static_cast<size_t>(shared_probe ? 0 : b) * pmode + p) * nn, n,
              logn, kspace);
-
-  const float* a_b = obja + static_cast<size_t>(b) * nz * nn;
-  const float* phi_b = objp + static_cast<size_t>(b) * nz * nn;
-  for (int z = 0; z < nz; ++z) {
-    const float f = (z == 0 && kspace) ? inv_nn : 1.0f;
-    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-      float sn, cs;
-      sincosf(phi_b[static_cast<size_t>(z) * nn + i], &sn, &cs);
-      const float a = a_b[static_cast<size_t>(z) * nn + i];
-      s[i] = cmul(cscale(s[i], f), make_float2(a * cs, a * sn));
-    }
-    __syncthreads();
-    if (z < nz - 1) propagate<false>(s, tw, h, n, logn);
-  }
-  fft2_fwd(s, tw, n, logn);
+  run_chain(s, tw, obja + static_cast<size_t>(b) * nz * nn,
+            objp + static_cast<size_t>(b) * nz * nn, h, nullptr, nz, n, logn, kspace);
   float* out = inten + static_cast<size_t>(blockIdx.x) * nn;
   for (int i = threadIdx.x; i < nn; i += blockDim.x) {
     const float2 v = s[spectral_index(i, n, logn)];
     out[i] = (v.x * v.x + v.y * v.y) * inv_nn;
+  }
+}
+
+// dp = the sum over modes of inten, in mode order (B4a)
+__global__ void __launch_bounds__(kSumThreads)
+mode_sum_kernel(const float* __restrict__ inten, float* __restrict__ dp, int pmode, int logn2,
+                size_t total) {
+  const size_t nn = size_t(1) << logn2;
+  for (size_t t = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; t < total;
+       t += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t b = t >> logn2;
+    const float* src = inten + b * pmode * nn + (t & (nn - 1));
+    float d = 0.0f;
+    for (int q = 0; q < pmode; ++q) d += src[q * nn];
+    dp[t] = d;
   }
 }
 
@@ -252,7 +290,7 @@ __device__ float block_sum(float v, float* red) {
   return v;  // valid in thread 0
 }
 
-// One block per sample: dp = sum over modes, then the masked partial sums.
+// One block per sample: dp = sum over modes, then the masked partial sums (B3a).
 __global__ void __launch_bounds__(kReduceThreads)
 loss_reduce_kernel(const float* __restrict__ inten, const float* __restrict__ meas,
                    const float* __restrict__ mask, float* __restrict__ dp,
@@ -288,14 +326,19 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __
   }
 }
 
+// The backward of one (sample, mode) wavefield. kLoss (B3b): the dp
+// cotangent is formed here from meas, mask, the forward's dp and c; else
+// (B4b) it is read from g.
+template <bool kLoss>
 __global__ void __launch_bounds__(kThreads)
-loss_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
-                const float2* __restrict__ probe, const float2* __restrict__ h,
-                const float* __restrict__ meas, const float* __restrict__ mask,
-                const float* __restrict__ dp, const float* __restrict__ c,
-                float2* __restrict__ stack, float* __restrict__ d_obja,
-                float* __restrict__ d_objp, float2* __restrict__ d_probe, int pmode, int nz,
-                int logn, int shared_probe, int kspace, float p, float eps) {
+chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
+                 const float2* __restrict__ probe, const float2* __restrict__ h,
+                 const float* __restrict__ g, const float* __restrict__ meas,
+                 const float* __restrict__ mask, const float* __restrict__ dp,
+                 const float* __restrict__ c, float2* __restrict__ stack,
+                 float* __restrict__ d_obja, float* __restrict__ d_objp,
+                 float2* __restrict__ d_probe, int pmode, int nz, int logn, int shared_probe,
+                 int kspace, float p, float eps) {
   extern __shared__ float2 smem[];
   const int n = 1 << logn;
   const int nn = n * n;
@@ -313,30 +356,26 @@ loss_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   const float* a_b = obja + static_cast<size_t>(b) * nz * nn;
   const float* phi_b = objp + static_cast<size_t>(b) * nz * nn;
   float2* st = stack + static_cast<size_t>(blockIdx.x) * nz * nn;
-  for (int z = 0; z < nz; ++z) {
-    const float f = (z == 0 && kspace) ? inv_nn : 1.0f;
-    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-      float sn, cs;
-      sincosf(phi_b[static_cast<size_t>(z) * nn + i], &sn, &cs);
-      const float a = a_b[static_cast<size_t>(z) * nn + i];
-      const float2 v = cscale(s[i], f);
-      st[static_cast<size_t>(z) * nn + i] = v;
-      s[i] = cmul(v, make_float2(a * cs, a * sn));
-    }
-    __syncthreads();
-    if (z < nz - 1) propagate<false>(s, tw, h, n, logn);
-  }
-  fft2_fwd(s, tw, n, logn);
+  run_chain(s, tw, a_b, phi_b, h, st, nz, n, logn, kspace);
 
-  // dY = 2 g Y / N^2, g = c mask 2p ((dp+eps)^p - meas^p) (dp+eps)^(p-1)
-  const float coef = c[0] * mask[b] * 2.0f * p * 2.0f * inv_nn;
-  const float* dp_b = dp + static_cast<size_t>(b) * nn;
-  const float* m_b = meas + static_cast<size_t>(b) * nn;
-  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-    const int k = spectral_index(i, n, logn);
-    const float d = dp_b[k] + eps;
-    const float g = (pow_p(d, p) - pow_p(m_b[k], p)) * pow_pm1(d, p);
-    s[i] = cscale(s[i], coef * g);
+  // dY = 2 g Y / N^2, g the cotangent of dp
+  if constexpr (kLoss) {
+    // g = c mask 2p ((dp+eps)^p - meas^p) (dp+eps)^(p-1)
+    const float coef = c[0] * mask[b] * 2.0f * p * 2.0f * inv_nn;
+    const float* dp_b = dp + static_cast<size_t>(b) * nn;
+    const float* m_b = meas + static_cast<size_t>(b) * nn;
+    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+      const int k = spectral_index(i, n, logn);
+      const float d = dp_b[k] + eps;
+      const float gk = (pow_p(d, p) - pow_p(m_b[k], p)) * pow_pm1(d, p);
+      s[i] = cscale(s[i], coef * gk);
+    }
+  } else {
+    const float coef = 2.0f * inv_nn;
+    const float* g_b = g + static_cast<size_t>(b) * nn;
+    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+      s[i] = cscale(s[i], coef * g_b[spectral_index(i, n, logn)]);
+    }
   }
   __syncthreads();
   fft2_inv(s, tw, n, logn);  // adjoint of the far-field transform
@@ -378,28 +417,94 @@ size_t chain_smem_bytes(int logn) {
   return (n * n + n / 2) * sizeof(float2);
 }
 
+cudaError_t launch_chain_fwd(const float* obja, const float* objp, const float2* probe,
+                             const float2* h, float* inten, int B, int pmode, int nz, int logn,
+                             int shared_probe, int kspace, cudaStream_t st) {
+  const size_t smem = chain_smem_bytes(logn);
+  cudaError_t err = cudaFuncSetAttribute(chain_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  chain_fwd_kernel<<<B * pmode, kThreads, smem, st>>>(obja, objp, probe, h, inten, pmode, nz,
+                                                     logn, shared_probe, kspace);
+  return cudaGetLastError();
+}
+
+// Zeroes the outputs the backward accumulates into with atomics, then
+// launches it.
+template <bool kLoss>
+cudaError_t launch_chain_bwd(const float* obja, const float* objp, const float2* probe,
+                             const float2* h, const float* g, const float* meas,
+                             const float* mask, const float* dp, const float* c, float2* stack,
+                             float* d_obja, float* d_objp, float2* d_probe, int B, int pmode,
+                             int nz, int logn, int shared_probe, int kspace, float p, float eps,
+                             cudaStream_t st) {
+  const size_t nn = size_t(1) << (2 * logn);
+  const size_t obj_bytes = sizeof(float) * static_cast<size_t>(B) * nz * nn;
+  cudaError_t err = cudaMemsetAsync(d_obja, 0, obj_bytes, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(d_objp, 0, obj_bytes, st);
+  if (err == cudaSuccess && shared_probe) {
+    err = cudaMemsetAsync(d_probe, 0, sizeof(float2) * static_cast<size_t>(pmode) * nn, st);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t smem = chain_smem_bytes(logn);
+  err = cudaFuncSetAttribute(chain_bwd_kernel<kLoss>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  chain_bwd_kernel<kLoss><<<B * pmode, kThreads, smem, st>>>(
+      obja, objp, probe, h, g, meas, mask, dp, c, stack, d_obja, d_objp, d_probe, pmode, nz,
+      logn, shared_probe, kspace, p, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// obja, objp (B, 1, nz, N, N) f32; probe (B or 1, pmode, N, N) complex64;
-// h (N, N) complex64; meas (B, N, N) f32 corner-centred; mask (B,) f32.
-// Writes the inten (B, pmode, N, N) and partial (B, 2) scratch, dp (B, N, N)
-// and sums (2,) = (s1, s2).
+// B4a. obja, objp (B, 1, nz, N, N) f32; probe (B or 1, pmode, N, N)
+// complex64; h (N, N) complex64. Writes the inten (B, pmode, N, N) scratch
+// and dp (B, N, N), corner-centred.
+int ptyrad_dp_fwd(const float* obja, const float* objp, const float2* probe, const float2* h,
+                  float* inten, float* dp, int B, int pmode, int nz, int logn, int shared_probe,
+                  int kspace, void* stream) {
+  if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, logn,
+                                     shared_probe, kspace, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(B) << (2 * logn);
+  const size_t blocks = (total + kSumThreads - 1) / kSumThreads;
+  mode_sum_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), kSumThreads, 0, st>>>(
+      inten, dp, pmode, 2 * logn, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B4b. As ptyrad_dp_fwd, plus g (B, N, N) the dp cotangent, corner-centred,
+// and stack (B, pmode, nz, N, N) complex64 scratch. Writes d_obja, d_objp
+// (B, 1, nz, N, N) and d_probe (the probe's shape); all three are zeroed
+// here where they accumulate.
+int ptyrad_dp_bwd(const float* obja, const float* objp, const float2* probe, const float2* h,
+                  const float* g, float2* stack, float* d_obja, float* d_objp, float2* d_probe,
+                  int B, int pmode, int nz, int logn, int shared_probe, int kspace,
+                  void* stream) {
+  if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_chain_bwd<false>(
+      obja, objp, probe, h, g, nullptr, nullptr, nullptr, nullptr, stack, d_obja, d_objp,
+      d_probe, B, pmode, nz, logn, shared_probe, kspace, 1.0f, 0.0f,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B3a. As ptyrad_dp_fwd, plus meas (B, N, N) f32 corner-centred and mask
+// (B,) f32. Writes the inten (B, pmode, N, N) and partial (B, 2) scratch, dp
+// (B, N, N) and sums (2,) = (s1, s2).
 int ptyrad_loss_fwd(const float* obja, const float* objp, const float2* probe, const float2* h,
                     const float* meas, const float* mask, float* inten, float* dp,
                     float* partial, float* sums, int B, int pmode, int nz, int logn,
                     int shared_probe, int kspace, float p, float eps, void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = chain_smem_bytes(logn);
-  cudaError_t err = cudaFuncSetAttribute(loss_fwd_chain_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  loss_fwd_chain_kernel<<<B * pmode, kThreads, smem, st>>>(obja, objp, probe, h, inten, pmode,
-                                                          nz, logn, shared_probe, kspace);
-  err = cudaGetLastError();
+  cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, logn,
+                                     shared_probe, kspace, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   loss_reduce_kernel<<<B, kReduceThreads, 0, st>>>(inten, meas, mask, dp, partial, pmode,
                                                    1 << (2 * logn), p, eps);
@@ -409,33 +514,18 @@ int ptyrad_loss_fwd(const float* obja, const float* objp, const float2* probe, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// As ptyrad_loss_fwd, plus dp (the forward's residual), c (scalar cotangent of
-// s1, on the device) and stack (B, pmode, nz, N, N) complex64 scratch. Writes
-// d_obja, d_objp (B, 1, nz, N, N) and d_probe (the probe's shape); all three
-// are zeroed here where they accumulate.
+// B3b. As ptyrad_loss_fwd, plus dp (the forward's residual), c (scalar
+// cotangent of s1, on the device) and stack (B, pmode, nz, N, N) complex64
+// scratch. Writes d_obja, d_objp and d_probe as ptyrad_dp_bwd does.
 int ptyrad_loss_bwd(const float* obja, const float* objp, const float2* probe, const float2* h,
                     const float* meas, const float* mask, const float* dp, const float* c,
                     float2* stack, float* d_obja, float* d_objp, float2* d_probe, int B,
                     int pmode, int nz, int logn, int shared_probe, int kspace, float p,
                     float eps, void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t nn = size_t(1) << (2 * logn);
-  const size_t obj_bytes = sizeof(float) * static_cast<size_t>(B) * nz * nn;
-  cudaError_t err = cudaMemsetAsync(d_obja, 0, obj_bytes, st);
-  if (err == cudaSuccess) err = cudaMemsetAsync(d_objp, 0, obj_bytes, st);
-  if (err == cudaSuccess && shared_probe) {
-    err = cudaMemsetAsync(d_probe, 0, sizeof(float2) * static_cast<size_t>(pmode) * nn, st);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = chain_smem_bytes(logn);
-  err = cudaFuncSetAttribute(loss_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  loss_bwd_kernel<<<B * pmode, kThreads, smem, st>>>(obja, objp, probe, h, meas, mask, dp, c,
-                                                    stack, d_obja, d_objp, d_probe, pmode, nz,
-                                                    logn, shared_probe, kspace, p, eps);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_chain_bwd<true>(
+      obja, objp, probe, h, nullptr, meas, mask, dp, c, stack, d_obja, d_objp, d_probe, B,
+      pmode, nz, logn, shared_probe, kspace, p, eps, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

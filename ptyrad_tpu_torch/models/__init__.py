@@ -8,6 +8,7 @@ from ptyrad_tpu_torch.models.state import (
 from ptyrad_tpu_torch.models.forward import (
     compute_propagators,
     forward,
+    forward_route,
     fused_loss_terms,
     get_measurements,
     get_obj_patches,
@@ -22,6 +23,7 @@ __all__ = [
     "make_model",
     "params_from_numpy",
     "forward",
+    "forward_route",
     "fused_loss_terms",
     "multislice_dp",
     "compute_propagators",

@@ -9,11 +9,13 @@ intensity.
 The training path is ``fused_loss_terms`` where its shapes allow: the
 loss_single data term folded into the multislice chain (kernel B3 on CUDA,
 N <= 128). Otherwise the solver takes ``forward`` + ``combined_loss``.
-``forward`` dispatches as the JAX package does: the plain fused kernels (B4)
-for the fused kernels' shapes, else the segmented chain (B5/B6) for patches
-up to 512^2. B4 is not ported yet, so there, and outside both rules, a CUDA
-tensor raises; on the CPU those cases run ``multislice_dp``, the eager
-torch.fft chain, as the JAX package does off the TPU.
+``forward`` dispatches as the JAX package does, on both devices: the plain
+fused chain (``multislice_dp_fused``, kernel B4 on CUDA) for the fused
+kernels' shapes, looped over object modes; else the segmented chain
+(``multislice_dp_chain``, B5/B6) for patches up to 512^2. On the CPU each of
+them runs its plain torch.fft version, so the CPU tests cover the dispatch
+the card runs. Outside both rules a CUDA tensor raises and the CPU runs
+``multislice_dp``, the eager torch.fft chain that is also the oracle.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ptyrad_tpu_torch.ops.blur import gaussian_blur_2d
 from ptyrad_tpu_torch.ops.chain import chain_applicable_shapes, multislice_dp_chain
 from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2, ifftshift2
 from ptyrad_tpu_torch.ops.fused_multislice import (fused_applicable_shapes,
+                                                    multislice_dp_fused,
                                                     multislice_loss_sums_fused)
 from ptyrad_tpu_torch.ops.patches import extract_patches
 from ptyrad_tpu_torch.ops.shift import fourier_shift, fourier_shift_kspace
@@ -105,37 +108,54 @@ def _batch_shapes(params: PtychoParams, geom: Geometry, indices: torch.Tensor):
     return (b, omode, nz, ny, nx, b if geom.shift_probes else 1, params.probe.shape[0], h_b)
 
 
-def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: torch.Tensor):
-    """(dp, (obja_patches, objp_patches)) for a batch of scan indices.
-
-    The dispatch of ptyrad_tpu/models/forward.py:155-221 under the card's
-    own rules: the fused kernels' shapes go to B4 (not ported: raises on
-    CUDA, ROADMAP queue A), else the chain's shapes to multislice_dp_chain
-    (B5/B6), else CUDA raises; the CPU runs multislice_dp for all but the
-    chain.
-    """
+def forward_route(params: PtychoParams, geom: Geometry, indices: torch.Tensor) -> str:
+    """Which chain forward() runs for a batch: "fused" (multislice_dp_fused,
+    B4 on CUDA), "chain" (multislice_dp_chain, B5/B6) or "plain"
+    (multislice_dp, the CPU only), decided from the static geometry. Raises
+    on CUDA for shapes that neither kernel rule takes."""
     b, omode, nz, ny, nx, probe_b, pmode, h_b = _batch_shapes(params, geom, indices)
-    on_cuda = params.obja.device.type != "cpu"
-    use_fused = fused_applicable_shapes(b, omode, nz, ny, nx, probe_b, pmode, h_b)
-    use_chain = not use_fused and chain_applicable_shapes(b, omode, nz, ny, nx, pmode, h_b)
-    if on_cuda and use_fused:
-        raise NotImplementedError(
-            "forward() on CUDA at these shapes needs the fused multislice kernels B4 "
-            "(ptyrad_tpu/ops/pallas_multislice.py:multislice_dp_fused), which wait for "
-            "ROADMAP queue A, item 1; the training path on CUDA is fused_loss_terms")
-    if on_cuda and not use_chain:
+    if fused_applicable_shapes(b, omode, nz, ny, nx, probe_b, pmode, h_b):
+        return "fused"
+    if chain_applicable_shapes(b, omode, nz, ny, nx, pmode, h_b):
+        return "chain"
+    if params.obja.device.type != "cpu":
         raise NotImplementedError(
             f"forward() on CUDA: {ny}x{nx} patches fit neither the fused kernels nor the "
             "chain kernels (square, N a power of two <= 512)")
+    return "plain"
 
+
+def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: torch.Tensor):
+    """(dp, (obja_patches, objp_patches)) for a batch of scan indices.
+
+    The dispatch of ptyrad_tpu/models/forward.py:155-225 under the card's
+    own rules (forward_route). The fused route hands the kernel the shifted
+    probe spectrum when positions are optimized (the inverse transform runs
+    inside it), loops over object modes weighted by omode_occu, then applies
+    fftshift and eps to the sum.
+    """
+    route = forward_route(params, geom, indices)
     obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
     H = compute_propagators(params, buffers, geom, indices)
-    probes = get_probes(params, geom, indices)
-    if use_chain:
-        dp = multislice_dp_chain(obja_p, objp_p, probes, H, buffers.omode_occu, geom.eps,
-                                 need_dh=geom.change_thickness or geom.tilt_obj)
+    need_dh = geom.change_thickness or geom.tilt_obj
+    if route == "fused":
+        if geom.shift_probes:
+            probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices])
+        else:
+            probe = params.probe[None]
+        raw = None
+        for om in range(obja_p.shape[1]):
+            dp_om = multislice_dp_fused(obja_p[:, om:om + 1], objp_p[:, om:om + 1], probe, H,
+                                        need_dh=need_dh, probe_kspace=geom.shift_probes)
+            contrib = buffers.omode_occu[om] * dp_om
+            raw = contrib if raw is None else raw + contrib
+        dp = fftshift2(raw) + geom.eps
+    elif route == "chain":
+        dp = multislice_dp_chain(obja_p, objp_p, get_probes(params, geom, indices), H,
+                                 buffers.omode_occu, geom.eps, need_dh=need_dh)
     else:
-        dp = multislice_dp(obja_p, objp_p, probes, H, buffers.omode_occu, eps=geom.eps)
+        dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, indices), H,
+                           buffers.omode_occu, eps=geom.eps)
     std = geom.detector_blur_std
     if std is not None and std != 0:
         dp = gaussian_blur_2d(dp, kernel_size=5, sigma=std)

@@ -5,8 +5,8 @@ that take raw device pointers and the CUDA stream, and return
 ``cudaGetLastError()``), so no PyTorch header is compiled: every source is
 built by its own ``nvcc`` process, all started together, and linked into one
 shared library under ``ptyrad_tpu_torch/_build/``. The library's name carries
-a hash of the sources and flags, so an edit rebuilds and an unchanged tree
-reuses it.
+a hash of every file under ``csrc/`` (sources and the headers they
+include) and the flags, so an edit rebuilds and an unchanged tree reuses it.
 
 The build happens at first CUDA use (``lib()``), never at import: importing
 the package needs no nvcc. A failed build raises.
@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("patches.cu", "multislice_loss.cu", "chain.cu")
+SOURCES = ("patches.cu", "multislice.cu", "chain.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -46,6 +46,8 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_gather_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_scatter_add_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_dp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_dp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "ptyrad_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -68,10 +70,12 @@ def _nvcc() -> str:
 
 
 def _key() -> str:
+    """Hash of the flags and every file under csrc/, so an edited header
+    rebuilds as an edited source does."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

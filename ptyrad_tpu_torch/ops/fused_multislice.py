@@ -1,23 +1,28 @@
-"""Loss-folded multislice chain: (s1, s2) partial sums of the loss_single
-data term with the forward chain and the comparison fused (kernel B3).
+"""The fused multislice chain for N <= 128: the plain pair (kernel B4),
+whose output is the far-field intensity, and the loss-folded pair (kernel
+B3), whose output is the partial sums of the loss_single data term.
 
-Counterpart of the loss-folded half of ptyrad_tpu/ops/pallas_multislice.py
-(:519-801, ``multislice_loss_sums_fused``). For each sample b and probe mode p
+Counterpart of ptyrad_tpu/ops/pallas_multislice.py: ``multislice_dp_fused``
+(:356) and ``multislice_loss_sums_fused`` (:626). For each sample b and
+probe mode p
 
     psi  = probe[b or 0, p]            (ifft2 of it when probe_kspace)
     for z:  psi *= a_z exp(i phi_z);  between slices psi = ifft2(H fft2(psi))
-    dp   = sum_p |fft2(psi)|^2 / N^2   (corner-centred)
-    s1   = sum_b mask_b sum((dp + eps)^p - meas^p)^2,   s2 = sum_b mask_b sum meas^p
+    dp   = sum_p |fft2(psi)|^2 / N^2   (corner-centred; B4's output)
+    s1   = sum_b mask_b sum((dp + eps)^p - meas^p)^2     (B3's outputs)
+    s2   = sum_b mask_b sum meas^p
 
 with ``meas`` ifftshifted to the corner-centred order by the caller. s1
-carries the gradient; s2 depends on the measurements only.
+carries the gradient; s2 depends on the measurements only. B4 returns the
+raw dp: the caller weights object modes, applies fftshift and adds eps
+(models/forward.py).
 
-On a CPU tensor this runs ``loss_sums_plain``, the torch.fft chain under
-autograd. On a CUDA tensor it runs the hand-written kernels of
-``csrc/multislice_loss.cu`` through an autograd.Function whose forward is
-B3a and whose backward is B3b, or raises: the kernels take omode 1, a shared
-propagator and N a power of two up to 128, and compute no propagator
-gradient.
+On a CPU tensor each entry point runs its plain version (``multislice_dp_plain``,
+``loss_sums_plain``), the torch.fft chain under autograd. On a CUDA tensor it
+runs the hand-written kernels of ``csrc/multislice.cu`` through an
+autograd.Function whose forward is B4a (B3a) and whose backward is B4b
+(B3b), or raises: the kernels take omode 1, a shared propagator and N a
+power of two up to 128, and compute no propagator gradient.
 """
 
 from __future__ import annotations
@@ -38,13 +43,13 @@ def _pow(x: torch.Tensor, p: float) -> torch.Tensor:
     return torch.pow(x, p)
 
 
-def loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps: float,
-                    probe_kspace: bool = False):
-    """The plain PyTorch version of B3 (differentiable through autograd).
+def multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace: bool = False):
+    """The plain PyTorch version of B4 (differentiable through autograd):
+    the raw dp (B, N, N), corner-centred, with no occupancy weight, fftshift
+    or eps, as ptyrad_tpu/ops/pallas_multislice.py:_fused_fwd_impl returns.
 
     obja_p, objp_p (B, 1, Nz, N, N) f32; probe (B or 1, pmode, N, N)
-    complex64 (a spectrum when probe_kspace); h (B or 1, N, N) complex64;
-    meas_cc (B, N, N); mask (B,). Returns (s1, s2) scalars.
+    complex64 (a spectrum when probe_kspace); h (B or 1, N, N) complex64.
     """
     n_slices = obja_p.shape[2]
     psi = ifft2(probe) if probe_kspace else probe
@@ -55,7 +60,16 @@ def loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps:
         if z < n_slices - 1:
             psi = ifft2(hb * fft2(psi))
     y = fft2(psi)
-    dp = (y.real ** 2 + y.imag ** 2).sum(1) / (y.shape[-2] * y.shape[-1])
+    return (y.real ** 2 + y.imag ** 2).sum(1) / (y.shape[-2] * y.shape[-1])
+
+
+def loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps: float,
+                    probe_kspace: bool = False):
+    """The plain PyTorch version of B3 (differentiable through autograd):
+    the operands of multislice_dp_plain plus meas_cc (B, N, N) and mask
+    (B,). Returns (s1, s2) scalars.
+    """
+    dp = multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace)
     mp = _pow(meas_cc, dp_pow)
     diff = _pow(dp + eps, dp_pow) - mp
     w = mask[:, None, None]
@@ -63,13 +77,14 @@ def loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps:
 
 
 def fused_applicable_shapes(b, omode, nz, ny, nx, probe_b, pmode, h_b) -> bool:
-    """The card's rule for what the fused kernels (B3, and B4 once ported)
-    take: square N x N with N a power of two, 2 <= N <= MAX_N (the whole
-    wavefield sits in one block's shared memory), and a shared or
-    per-position probe. Pure shape logic, the counterpart of
-    ptyrad_tpu/ops/pallas_multislice.py:fused_applicable_shapes; omode, nz,
-    pmode and h_b do not limit the kernels' shared memory, and a per-position
-    H or need_dh raise inside the regime (ROADMAP queue A)."""
+    """The card's rule for what the fused kernels (B3 and B4) take: square
+    N x N with N a power of two, 2 <= N <= MAX_N (the whole wavefield sits
+    in one block's shared memory), and a shared or per-position probe. Pure
+    shape logic, the counterpart of
+    ptyrad_tpu/ops/pallas_multislice.py:fused_applicable_shapes; omode (the
+    callers loop object modes), nz, pmode and h_b do not limit the kernels'
+    shared memory, and a per-position H or need_dh raise inside the regime
+    (ROADMAP queue A, item 2)."""
     return ny == nx and 2 <= nx <= MAX_N and not nx & (nx - 1) and probe_b in (1, b)
 
 
@@ -78,8 +93,8 @@ def _shape_info(obja_p, probe, h):
         raise ValueError(f"object patches must be (B, 1, Nz, N, N), got {tuple(obja_p.shape)}")
     b, _, nz, ny, nx = obja_p.shape
     if ny != nx or nx > MAX_N or nx < 2 or nx & (nx - 1):
-        raise ValueError(f"the B3 kernels take square N x N patches with N a power of two "
-                         f"<= {MAX_N}; got {ny}x{nx}")
+        raise ValueError(f"the fused kernels (B3, B4) take square N x N patches with N a power "
+                         f"of two <= {MAX_N}; got {ny}x{nx}")
     if probe.shape[0] not in (1, b) or tuple(probe.shape[2:]) != (ny, nx):
         raise ValueError(f"probe must be (1 or {b}, pmode, {ny}, {nx}), got {tuple(probe.shape)}")
     if tuple(h.shape) != (1, ny, nx):
@@ -94,10 +109,108 @@ def _check(name, tensors):
                              f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def _inputs(obja_p, objp_p, probe, h, meas_cc, mask):
+def _inputs(obja_p, objp_p, probe, h, **real):
+    """The operands of a launch with their dtypes; the keyword tensors are
+    float32."""
     return {"obja_p": (obja_p, torch.float32), "objp_p": (objp_p, torch.float32),
             "probe": (probe, torch.complex64), "h": (h, torch.complex64),
-            "meas_cc": (meas_cc, torch.float32), "mask": (mask, torch.float32)}
+            **{k: (t, torch.float32) for k, t in real.items()}}
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool):
+    """Kernel B4a (the chain, then the mode sum in mode order): dp (B, N, N),
+    corner-centred."""
+    b, nz, logn, pmode, shared = _shape_info(obja_p, probe, h)
+    n = 1 << logn
+    _check("dp_fwd_cuda", _inputs(obja_p, objp_p, probe, h))
+    dev = obja_p.device
+    inten = torch.empty((b, pmode, n, n), dtype=torch.float32, device=dev)
+    dp = torch.empty((b, n, n), dtype=torch.float32, device=dev)
+    err = _build.lib().ptyrad_dp_fwd(
+        obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), inten.data_ptr(),
+        dp.data_ptr(), b, pmode, nz, logn, shared, int(bool(probe_kspace)), _stream(obja_p))
+    _build.check(err, "dp_fwd")
+    dp_fwd_cuda.launches += 1
+    return dp
+
+
+dp_fwd_cuda.launches = 0
+
+
+def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool):
+    """Kernel B4b: recomputes the chain and walks it back from g, the
+    cotangent of dp (B, N, N). Returns (d obja_p, d objp_p, d probe)."""
+    b, nz, logn, pmode, shared = _shape_info(obja_p, probe, h)
+    n = 1 << logn
+    _check("dp_bwd_cuda", _inputs(obja_p, objp_p, probe, h, g=g))
+    if tuple(g.shape) != (b, n, n):
+        raise ValueError(f"dp_bwd_cuda: g must be ({b}, {n}, {n}), got {tuple(g.shape)}")
+    stack = torch.empty((b, pmode, nz, n, n), dtype=torch.complex64, device=obja_p.device)
+    d_obja = torch.empty_like(obja_p)
+    d_objp = torch.empty_like(objp_p)
+    d_probe = torch.empty_like(probe)
+    err = _build.lib().ptyrad_dp_bwd(
+        obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), g.data_ptr(),
+        stack.data_ptr(), d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), b, pmode,
+        nz, logn, shared, int(bool(probe_kspace)), _stream(obja_p))
+    _build.check(err, "dp_bwd")
+    dp_bwd_cuda.launches += 1
+    return d_obja, d_objp, d_probe
+
+
+dp_bwd_cuda.launches = 0
+
+
+class _DpCuda(torch.autograd.Function):
+    """B4a forward, B4b backward; saves only the inputs, as the JAX
+    residuals do (pallas_multislice.py:425)."""
+
+    @staticmethod
+    def forward(ctx, obja_p, objp_p, probe, h, probe_kspace):
+        ctx.save_for_backward(obja_p, objp_p, probe, h)
+        ctx.probe_kspace = probe_kspace
+        return dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace)
+
+    @staticmethod
+    def backward(ctx, g):
+        obja_p, objp_p, probe, h = ctx.saved_tensors
+        d_obja, d_objp, d_probe = dp_bwd_cuda(obja_p, objp_p, probe, h, g.contiguous(),
+                                              ctx.probe_kspace)
+        return d_obja, d_objp, d_probe, None, None
+
+
+def _check_regime(need_dh: bool, h) -> None:
+    """What the CUDA kernels do not compute yet raises (ROADMAP queue A, item 2)."""
+    if need_dh:
+        raise NotImplementedError(
+            "the CUDA fused kernels (B3, B4) compute no propagator gradient (need_dh): "
+            "optimizable slice thickness or tilts wait for ROADMAP queue A, item 2")
+    if h.shape[0] != 1:
+        raise NotImplementedError(
+            "the CUDA fused kernels (B3, B4) take one shared propagator; a per-position H "
+            "waits for ROADMAP queue A, item 2")
+
+
+def multislice_dp_fused(obja_p, objp_p, probe, h, need_dh: bool = False,
+                        probe_kspace: bool = False):
+    """Raw dp (B, N, N), corner-centred (the caller applies the object-mode
+    weight, fftshift and eps); see the module docstring.
+
+    need_dh: H depends on optimizable parameters (slice thickness or tilts),
+    so its cotangent is needed. The plain version gets it from autograd; the
+    CUDA kernels do not compute it yet and raise. probe_kspace: the probe is
+    the shifted spectrum (ops/shift.py:fourier_shift_kspace), transformed
+    inside the kernel.
+    """
+    if obja_p.device.type == "cpu":
+        return multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace)
+    _check_regime(need_dh, h)
+    return _DpCuda.apply(obja_p.contiguous(), objp_p.contiguous(), probe.contiguous(),
+                         h.contiguous(), bool(probe_kspace))
 
 
 def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps: float,
@@ -107,7 +220,7 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
     intensity kept for the backward."""
     b, nz, logn, pmode, shared = _shape_info(obja_p, probe, h)
     n = 1 << logn
-    _check("loss_sums_fwd_cuda", _inputs(obja_p, objp_p, probe, h, meas_cc, mask))
+    _check("loss_sums_fwd_cuda", _inputs(obja_p, objp_p, probe, h, meas_cc=meas_cc, mask=mask))
     if tuple(meas_cc.shape) != (b, n, n) or tuple(mask.shape) != (b,):
         raise ValueError("loss_sums_fwd_cuda: meas_cc must be (B, N, N) and mask (B,)")
     dev = obja_p.device
@@ -119,8 +232,7 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), inten.data_ptr(), dp.data_ptr(),
         partial.data_ptr(), sums.data_ptr(), b, pmode, nz, logn, shared,
-        int(bool(probe_kspace)), float(dp_pow), float(eps),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(bool(probe_kspace)), float(dp_pow), float(eps), _stream(obja_p))
     _build.check(err, "loss_sums_fwd")
     loss_sums_fwd_cuda.launches += 1
     return sums[0], sums[1], dp
@@ -135,9 +247,8 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
     cotangent of s1 (a device scalar). Returns (d obja_p, d objp_p, d probe)."""
     b, nz, logn, pmode, shared = _shape_info(obja_p, probe, h)
     n = 1 << logn
-    tensors = _inputs(obja_p, objp_p, probe, h, meas_cc, mask)
-    tensors.update(dp=(dp, torch.float32), c=(c, torch.float32))
-    _check("loss_sums_bwd_cuda", tensors)
+    _check("loss_sums_bwd_cuda",
+           _inputs(obja_p, objp_p, probe, h, meas_cc=meas_cc, mask=mask, dp=dp, c=c))
     if tuple(dp.shape) != (b, n, n) or c.numel() != 1:
         raise ValueError("loss_sums_bwd_cuda: dp must be (B, N, N) and c a scalar")
     stack = torch.empty((b, pmode, nz, n, n), dtype=torch.complex64, device=obja_p.device)
@@ -148,8 +259,7 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), dp.data_ptr(), c.data_ptr(), stack.data_ptr(),
         d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), b, pmode, nz, logn, shared,
-        int(bool(probe_kspace)), float(dp_pow), float(eps),
-        torch.cuda.current_stream(obja_p.device).cuda_stream)
+        int(bool(probe_kspace)), float(dp_pow), float(eps), _stream(obja_p))
     _build.check(err, "loss_sums_bwd")
     loss_sums_bwd_cuda.launches += 1
     return d_obja, d_objp, d_probe
@@ -188,14 +298,7 @@ def multislice_loss_sums_fused(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: 
     if obja_p.device.type == "cpu":
         return loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow, eps,
                                probe_kspace)
-    if need_dh:
-        raise NotImplementedError(
-            "the CUDA B3 kernels compute no propagator gradient (need_dh): optimizable "
-            "slice thickness or tilts wait for ROADMAP queue B, item B3-need_dh")
-    if h.shape[0] != 1:
-        raise NotImplementedError(
-            "the CUDA B3 kernels take one shared propagator; a per-position H waits for "
-            "ROADMAP queue B, item B3-need_dh")
+    _check_regime(need_dh, h)
     return _LossSumsCuda.apply(obja_p.contiguous(), objp_p.contiguous(), probe.contiguous(),
                                h.contiguous(), meas_cc.contiguous(), mask.contiguous(),
                                float(dp_pow), float(eps), bool(probe_kspace))

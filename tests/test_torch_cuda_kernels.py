@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions on the card, over
 the edge cases that chip_smoke.py's tBL and PSO shapes do not reach: small
 and odd patch sizes, one slice, one mode, every probe layout, other loss
-powers, a masked sample, the whole loss-folded path, the segmented chain
-(B5/B6) with `last` / `last_mega` both ways, per-position H and the grad-off
-route, and short tBL-like and PSO-like solver runs.
+powers, a masked sample, the whole loss-folded path, the plain fused chain
+(B4) and forward() through it with two object modes and detector blur, the
+segmented chain (B5/B6) with `last` / `last_mega` both ways, per-position H
+and the grad-off route, and short tBL-like, low-dose and PSO-like solver
+runs.
 
 Marked ``cuda``: skipped without a GPU. On a machine with one (and no JAX,
 which tests/conftest.py imports) run
@@ -14,6 +16,9 @@ Tolerances: the gather copies values (exact); the scatter and the B3
 cotangents sum with atomics in a run-dependent order, and B3 transforms with
 a different FFT than torch.fft: rtol 1e-5 of the largest sum for the
 scatter, 1e-4 relative for s1/s2 and 1e-4 of each cotangent's largest entry.
+B4 is held the same way: dp at 1e-4 of its largest value, each cotangent at
+1e-4 of its largest entry (atomic sums over modes, and over samples for a
+shared probe).
 B5/B6 sum over modes without atomics and repeat bit for bit; they are held
 at 1e-4 of the largest entry of each output or cotangent.
 """
@@ -177,9 +182,10 @@ def test_fused_loss_terms_cuda_matches_cpu(dev):
 
 def test_solver_cuda_matches_cpu(dev):
     """Three iterations on the card against the CPU: losses at rtol 1e-4,
-    the same padded batch plan, and forward() raising on CUDA."""
+    the same padded batch plan, and forward() of a batch on CUDA (B4a)
+    against the CPU's on the same parameters at 1e-4 of the largest value."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
-    from ptyrad_tpu_torch.models import forward
+    from ptyrad_tpu_torch.models import forward, params_from_numpy
 
     runs = {}
     for d in ("cpu", None):  # None: the default device, CUDA
@@ -191,8 +197,115 @@ def test_solver_cuda_matches_cpu(dev):
     np.testing.assert_array_equal(gpu.batch_idx, cpu.batch_idx)
     np.testing.assert_allclose([v for _, v in gpu.history.loss_iters],
                                [v for _, v in cpu.history.loss_iters], rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="B4"):
-        forward(gpu.params, gpu.buffers, gpu.geom, torch.arange(4, device=gpu.device))
+    with torch.no_grad():
+        dp_gpu, _ = forward(gpu.params, gpu.buffers, gpu.geom, torch.arange(4, device=gpu.device))
+        same = params_from_numpy({n: t.detach().cpu().numpy() for n, t in gpu.params.named()},
+                                 device="cpu")
+        dp_cpu, _ = forward(same, cpu.buffers, cpu.geom, torch.arange(4))
+    _assert_rel(dp_gpu.cpu(), dp_cpu, "forward() dp")
+
+
+# -- B4: the plain fused chain ------------------------------------------------
+
+@pytest.mark.parametrize("n", [16, 64, 128])
+@pytest.mark.parametrize("pmode", [1, 6])
+@pytest.mark.parametrize("nz", [1, 6])
+@pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])
+def test_dp_chain_kernels(dev, gen, n, pmode, nz, probe_layout):
+    """multislice_dp_fused (B4a, then B4b through autograd) against
+    multislice_dp_plain on the same CUDA tensors."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    kspace = probe_layout.endswith("kspace")
+    obja, objp, probe, h, _, _ = _chain_inputs(dev, gen, 3, pmode, nz, n, probe_layout)
+    leaves_k = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+    leaves_p = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+    launches = M.dp_fwd_cuda.launches, M.dp_bwd_cuda.launches
+    dp_k = M.multislice_dp_fused(*leaves_k, h, probe_kspace=kspace)
+    dp_p = M.multislice_dp_plain(*leaves_p, h, kspace)
+    _assert_rel(dp_k, dp_p, "B4a dp")
+    g = torch.randn(dp_p.shape, generator=gen, device=dev)
+    dp_k.backward(g)
+    dp_p.backward(g)
+    assert (M.dp_fwd_cuda.launches, M.dp_bwd_cuda.launches) == (launches[0] + 1,
+                                                                launches[1] + 1)
+    for name, a, r in zip(("obja", "objp", "probe"), leaves_k, leaves_p):
+        _assert_rel(a.grad, r.grad, f"B4b d {name}")
+
+
+def test_dp_chain_unsupported_cases_raise(dev, gen):
+    """No propagator gradient (need_dh), no per-position H and no N beyond
+    128 on the card: multislice_dp_fused raises instead of falling back."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    obja, objp, probe, h, _, _ = _chain_inputs(dev, gen, 2, 2, 2, 16, "each")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.multislice_dp_fused(obja, objp, probe, h, need_dh=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.multislice_dp_fused(obja, objp, probe, h.expand(2, 16, 16).contiguous())
+    big = torch.ones((2, 1, 1, 256, 256), device=dev)
+    with pytest.raises(ValueError, match="power of two"):
+        M.multislice_dp_fused(big, big, probe, h)
+
+
+def test_forward_cuda_omode2_blur_matches_cpu(dev):
+    """forward() with two object modes, shifted probes and detector blur:
+    B4a per object mode and B4b under autograd on the card, against the
+    same forward() on the CPU (the plain version); values and gradients."""
+    from ptyrad_tpu_torch.models import forward, forward_route, make_model
+
+    init = _small_init()
+    rng = np.random.default_rng(8)
+    init["obj"] = np.exp(1j * 0.1 * rng.standard_normal((2, *init["obj"].shape[1:]))
+                         ).astype(np.complex64)
+    init["omode_occu"] = np.array([0.7, 0.3], np.float32)
+    mp = {"update_params": {"probe_pos_shifts": {"lr": 1e-4}}, "detector_blur_std": 0.7}
+    w = torch.from_numpy(rng.random((6, 32, 32)).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        params, buffers, geom = make_model(init, mp, device=d)
+        for _, t in params.named():
+            t.requires_grad_(True)
+        idx = torch.arange(6, device=d)
+        assert forward_route(params, geom, idx) == "fused"
+        dp, _ = forward(params, buffers, geom, idx)
+        (w.to(d) * dp).sum().backward()
+        out[str(d)] = (dp.detach().cpu(), {n: t.grad.cpu() for n, t in params.named()
+                                           if t.grad is not None})
+    (dp_cpu, g_cpu), (dp_gpu, g_gpu) = out["cpu"], out[str(dev)]
+    _assert_rel(dp_gpu, dp_cpu, "dp")
+    assert set(g_cpu) == set(g_gpu) == {"obja", "objp", "probe", "probe_pos_shifts"}
+    for name in g_cpu:
+        _assert_rel(g_gpu[name], g_cpu[name], f"d {name}")
+
+
+LOW_DOSE_PARAMS = {
+    **SOLVER_PARAMS,
+    "loss_params": {"loss_poissn": {"state": True, "weight": 1.0, "dp_pow": 1.0, "eps": 1e-6},
+                    "loss_pacbed": {"state": True, "weight": 0.5, "dp_pow": 0.2},
+                    "loss_sparse": {"state": True, "weight": 0.1, "ln_order": 1}},
+}
+
+
+def test_low_dose_solver_cuda_matches_cpu(dev):
+    """Three iterations with the low-dose loss mix (forward() + combined_loss:
+    B1, B4a, then B4b and B2 through autograd) on the card against the CPU:
+    losses at rtol 1e-4, B4 launched once per step each and B3 not."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    counters = (M.loss_sums_fwd_cuda, M.loss_sums_bwd_cuda, M.dp_fwd_cuda, M.dp_bwd_cuda)
+    for fn in counters:
+        fn.launches = 0
+    runs = {}
+    for d in ("cpu", None):
+        s = PtyRADSolver(LOW_DOSE_PARAMS, init_variables=_small_init(), device=d, verbose=False)
+        s.run()
+        runs[d] = s
+    np.testing.assert_allclose([v for _, v in runs[None].history.loss_iters],
+                               [v for _, v in runs["cpu"].history.loss_iters], rtol=1e-4)
+    steps = 3 * runs[None].batch_idx.shape[0]
+    assert [fn.launches for fn in counters] == [0, 0, steps, steps]
 
 
 # -- B5 and B6: the segmented chain ------------------------------------------

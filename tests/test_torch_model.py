@@ -24,7 +24,7 @@ from ptyrad_tpu.models import multislice_dp as j_multislice_dp
 from ptyrad_tpu.ops.cplx import Cplx
 from ptyrad_tpu_torch import constraints as TC
 from ptyrad_tpu_torch.losses import combined_loss, merge_loss_params
-from ptyrad_tpu_torch.models import (compute_propagators, forward, make_model,
+from ptyrad_tpu_torch.models import (compute_propagators, forward, forward_route, make_model,
                                      multislice_dp, params_from_numpy)
 from ptyrad_tpu_torch.models.state import Geometry, PtychoParams
 from torch_port_helpers import CPU, assert_grad_close, cplx_np, jax_params_numpy, np_, toy_init
@@ -114,17 +114,21 @@ def test_forward_and_gradients_match_jax(rng):
 
 
 def test_forward_raises_off_the_cpu():
-    """forward() outside the CPU at the fused kernels' shapes (N <= 128)
-    needs kernel B4 (not ported), and at shapes neither rule takes has no
-    kernel: it raises before any work."""
+    """Outside the CPU, forward() takes the fused kernels (B4) at their shapes
+    (N = 8 here) and the chain kernels at theirs (N = 256); at shapes neither
+    rule takes (N = 96) it has no kernel and raises before any work."""
     meta = torch.empty((1, 2, 8, 8), device="meta")
     params = PtychoParams(meta, meta, meta, meta, meta, meta)
     idx = torch.arange(3, device="meta")
-    for n, match in ((8, "B4"), (96, "neither")):
-        geom = Geometry(probe_shape=(n, n), obj_shape=(1, 2, 200, 200), n_scan_slow=3,
+
+    def geom(n):
+        return Geometry(probe_shape=(n, n), obj_shape=(1, 2, 200, 200), n_scan_slow=3,
                         n_scan_fast=1, dx=0.1, lambd=0.02)
-        with pytest.raises(NotImplementedError, match=match):
-            forward(params, None, geom, idx)
+
+    assert forward_route(params, geom(8), idx) == "fused"
+    assert forward_route(params, geom(256), idx) == "chain"
+    with pytest.raises(NotImplementedError, match="neither"):
+        forward(params, None, geom(96), idx)
 
 
 LOSS_ALL = {
