@@ -11,7 +11,10 @@ Phases, one JSON object per line each:
                error, tolerance and CUDA-event times (median of 20 runs after
                warm-up) beside the plain version's, one PyTorch call's where
                one computes the same function, and the bound from bytes and
-               operations.
+               operations; then the need_dh variants: B3a/B4a on a
+               per-position H and B3b/B4b with dH at tBL shapes, B5b/B6b with
+               dH at PSO shapes, each for a shared and a per-position H, dH
+               held at 1e-4 of its largest entry.
   4. main    - the tBL_WSe2 reconstruction through PtyRADSolver.run(): 16,384
                128^2 patterns simulated through forward() (B4a; every 8th
                batch held against the plain multislice_dp), 6 probe modes, 6
@@ -41,7 +44,25 @@ Phases, one JSON object per line each:
                B6a/b ran and B3 did not; then one no-grad forward() of a batch
                (the yml's "forward" figure) against the plain multislice_dp.
   7. profile - torch.profiler over 8 more PSO training steps.
-Then a {"kernels": [...]} line (launches summed over the three paths), the
+  8. tilt    - the tBL reconstruction with optimizable slice thickness and
+               per-position tilts: the 16,384 patterns simulated through
+               forward() with a smooth tilt field within 1 mrad (B4a on a
+               per-position H), reconstructed from zero tilts with obj_tilts
+               and slice_thickness at lr 1e-4 and tilt_smooth (std 2), 3
+               iterations. Asserts a finite, falling loss, moved dz and
+               tilts, B1, B2, B3a (per-position H) and B3b (dH) launched and
+               B4b not; then one batch's dH, dz and tilt gradients through B3
+               against the plain route; then a profile over 32 steps. The
+               forward phase also runs forward() with optimizable dz and
+               per-position tilts (B4b with dH) against the plain chain.
+  9. pso_tilt - the PSO reconstruction from data simulated at a global tilt
+               of (1.0, -0.5) mrad, from (0, 0) with obj_tilts and
+               slice_thickness at lr 1e-4, 2 iterations: a finite, falling
+               loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
+               profile over 8 steps.
+Then a {"kernels": [...]} line (launches summed over the driven runs: the
+tBL, low-dose, PSO, tilt (its simulation included) and PSO tilt paths and
+the forward phase's kernel routes), the
 nvidia-smi name/power-limit line, and as the last line {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is not 0 and the
 last line is never printed. Exits non-zero at once without CUDA.
@@ -50,6 +71,8 @@ last line is never printed. Exits non-zero at once without CUDA.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
@@ -319,7 +342,8 @@ def check_loss_chain(dev, gen) -> list:
         s1_plain, _ = M.loss_sums_plain(*leaves, h, *args, kspace)
         cvec = torch.tensor(c, device=dev)
         g_plain = torch.autograd.grad(s1_plain, leaves, grad_outputs=cvec, retain_graph=True)
-        g_kern = M.loss_sums_bwd_cuda(obja, objp, pr, h, meas, mask, dp, cvec, p, eps, kspace)
+        g_kern = M.loss_sums_bwd_cuda(obja, objp, pr, h, meas, mask, dp, cvec, p, eps,
+                                      kspace)[:3]
         errs = [float((a - b).abs().max()) for a, b in zip(g_kern, g_plain)]
         scales = [float(b.abs().max()) for b in g_plain]
         # 24 transforms and atomic mode sums: 1e-4 of each cotangent's largest entry
@@ -396,7 +420,7 @@ def check_dp_chain(dev, gen) -> list:
         # largest intensity, as for B3
         tol_fwd = 1e-4 * float(dp_p.detach().abs().max())
         g_plain = torch.autograd.grad(dp_p, leaves, grad_outputs=g, retain_graph=True)
-        g_kern = M.dp_bwd_cuda(obja, objp, pr, h, g, kspace)
+        g_kern = M.dp_bwd_cuda(obja, objp, pr, h, g, kspace)[:3]
         errs = [float((a - b).abs().max()) for a, b in zip(g_kern, g_plain)]
         # 24 transforms and atomic sums over modes (and over samples for a
         # shared probe), in a run-dependent order: 1e-4 of each cotangent's
@@ -506,7 +530,7 @@ def check_chain(dev, gen) -> list:
     out_k, stack = C.stack_fwd_cuda(psi, a_main, p_main, h, PSO_SG, False)
     out_p, leaves, g_plain = plain_vjp(stack_fn, (psi, a_main, p_main))
     (e_f,), (t_f,) = errs([out_k], [out_p.detach()])
-    g_kern = C.stack_bwd_cuda(g, stack, a_main, p_main, h, PSO_SG, False)
+    g_kern = C.stack_bwd_cuda(g, stack, a_main, p_main, h, PSO_SG, False)[:3]
     e_b, t_b = errs(g_kern, g_plain)
     emit({"phase": "kernel_check", "name": "B6 chain_stack", "S": 2, "sg": PSO_SG,
           "last_mega": False, "fwd_max_abs_err": e_f, "fwd_tolerance": t_f,
@@ -549,7 +573,7 @@ def check_chain(dev, gen) -> list:
         out_k = C.segment_fwd_cuda(psi, a_tail, p_tail, h, last)
         out_p, leaves, g_plain = plain_vjp(seg_fn, (psi, a_tail, p_tail))
         (e_f,), (t_f,) = errs([out_k], [out_p.detach()])
-        g_kern = C.segment_bwd_cuda(g, psi, a_tail, p_tail, h, last)
+        g_kern = C.segment_bwd_cuda(g, psi, a_tail, p_tail, h, last)[:3]
         e_b, t_b = errs(g_kern, g_plain)
         emit({"phase": "kernel_check", "name": "B5 chain_segment", "sg": sg, "last": last,
               "fwd_max_abs_err": e_f, "fwd_tolerance": t_f, "bwd_max_abs_err": e_b,
@@ -588,6 +612,240 @@ def check_chain(dev, gen) -> list:
     return rows
 
 
+def tilted_h(h: torch.Tensor, tilts: torch.Tensor, dx: float, dz: float) -> torch.Tensor:
+    """Per-position propagators (B, N, N): the shared h times the port's
+    tilt_ramp (models/forward.py), tilts (B, 2) in mrad."""
+    from ptyrad_tpu_torch.models import tilt_ramp
+    from ptyrad_tpu_torch.physics import propagator_kgrid
+
+    ky, kx = (torch.as_tensor(k, dtype=torch.float32, device=h.device)
+              for k in propagator_kgrid(tuple(h.shape[-2:]), dx))
+    return (h * tilt_ramp(ky, kx, tilts, dz)).contiguous()
+
+
+def _grad_errs(kern, plain) -> tuple[list, list]:
+    """Max abs error of each cotangent and its tolerance, 1e-4 of the plain
+    cotangent's largest entry (float32 chains by two FFT algorithms; atomic
+    mode sums for d obja/objp/probe in B3b/B4b, fixed-order sums for dH)."""
+    return ([float((a - b).abs().max()) for a, b in zip(kern, plain)],
+            [1e-4 * float(b.abs().max()) for b in plain])
+
+
+def check_fused_dh(dev, gen) -> list:
+    """B3 and B4 with a per-position H (B3a, B4a) and with dH (B3b, B4b) at
+    tBL shapes and per-position probe spectra, for a per-position H (tilts
+    within 1 mrad; the tilt path's case, which is timed) and a shared one:
+    values and every cotangent, dH included, against the plain versions."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+    from ptyrad_tpu_torch.ops.shift import fourier_shift_kspace
+    from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
+
+    n, dz = NPIX, 2.0
+    lam = electron_wavelength(80.0)
+    probe = torch.as_tensor(tbl_probe(), device=dev)
+    h1 = torch.as_tensor(near_field_evolution((n, n), 0.1494, dz, lam), device=dev)[None]
+    tilts = 2.0 * torch.rand((BATCH, 2), generator=gen, device=dev) - 1.0
+    h_each = tilted_h(h1, tilts, 0.1494, dz)
+    obja = 1.0 + 0.05 * torch.randn((BATCH, 1, NZ, n, n), generator=gen, device=dev)
+    objp = 0.1 * torch.randn((BATCH, 1, NZ, n, n), generator=gen, device=dev)
+    pr = fourier_shift_kspace(probe, 0.3 * torch.randn((BATCH, 2), generator=gen, device=dev))
+    meas = torch.rand((BATCH, n, n), generator=gen, device=dev) * 2e-4
+    mask = torch.ones(BATCH, device=dev)
+    mask[BATCH - 1] = 0.0
+    g = torch.randn((BATCH, n, n), generator=gen, device=dev)
+    p, eps, cvec = 0.5, 1e-10, torch.tensor(0.7, device=dev)
+    names = ["d obja", "d objp", "d probe", "d h"]
+    timed = {}
+    for layout, h in (("each", h_each), ("shared", h1)):
+        leaves = [t.clone().requires_grad_(True) for t in (obja, objp, pr, h)]
+        # B3: the loss-folded pair
+        s1k, s2k, dp = M.loss_sums_fwd_cuda(obja, objp, pr, h, meas, mask, p, eps, True)
+        s1p, s2p = M.loss_sums_plain(*leaves, meas, mask, p, eps, True)
+        e3f = max(abs(float(s1k - s1p.detach())), abs(float(s2k - s2p)))
+        t3f = 1e-4 * max(abs(float(s1p.detach())), abs(float(s2p)))
+        g3p = torch.autograd.grad(s1p, leaves, grad_outputs=cvec, retain_graph=True)
+        g3k = M.loss_sums_bwd_cuda(obja, objp, pr, h, meas, mask, dp, cvec, p, eps, True,
+                                   need_dh=True)
+        e3b, t3b = _grad_errs(g3k, g3p)
+        # B4: the plain pair
+        dp_k = M.dp_fwd_cuda(obja, objp, pr, h, True)
+        dp_p = M.multislice_dp_plain(*leaves, True)
+        e4f = float((dp_k - dp_p.detach()).abs().max())
+        t4f = 1e-4 * float(dp_p.detach().abs().max())
+        g4p = torch.autograd.grad(dp_p, leaves, grad_outputs=g, retain_graph=True)
+        g4k = M.dp_bwd_cuda(obja, objp, pr, h, g, True, need_dh=True)
+        e4b, t4b = _grad_errs(g4k, g4p)
+        for name, ef, tf, eb, tb in (("B3", e3f, t3f, e3b, t3b), ("B4", e4f, t4f, e4b, t4b)):
+            emit({"phase": "kernel_check", "name": f"{name} with dH", "h": layout,
+                  "fwd_max_abs_err": ef, "fwd_tolerance": tf, "bwd_max_abs_err": eb,
+                  "bwd_tolerance": tb, "bwd_names": names})
+            require(ef <= tf, f"{name}a ({layout} H) differs: {ef} > {tf}")
+            for nm, e, t in zip(names, eb, tb):
+                require(e <= t, f"{name}b {nm} ({layout} H) differs: {e} > {t}")
+        timed[layout] = (leaves, s1p, dp, dp_p, e3f, max(e3b), e4f, max(e4b))
+
+    leaves, s1p, dp, dp_p, e3f, e3b, e4f, e4b = timed["each"]
+    h = h_each
+    n_wave = BATCH * PMODE
+    obj_bytes = 4 * (obja.numel() + objp.numel())
+    in_bytes = obj_bytes + 8 * (pr.numel() + h.numel())
+    loss_in = 4 * (meas.numel() + mask.numel())
+    # the K scratch, written by the recompute and read by the walk: the
+    # design's own traffic, reported apart; the bound counts only what the
+    # function must move (the JAX kernel recomputes K instead)
+    k_bytes = 2 * 8 * n_wave * (NZ - 1) * n * n
+    # dH: U conj(K) and its sum, 8 operations per element and propagation
+    dh_ops = n_wave * (NZ - 1) * 8 * n * n
+    fwd_ops = n_wave * _chain_flops(n, 2 * NZ, NZ)
+    bwd_out = obj_bytes + 8 * (pr.numel() + h.numel())
+    note = ("tBL shapes, per-position probe spectra and H (tilts within 1 mrad); "
+            "scratch_bytes: the K scratch written and read back, not in the bound")
+    rows = [
+        {"name": "B3a loss_sums_fwd (per-position H)", "route": "cuda",
+         "source": "ptyrad_tpu_torch/csrc/multislice.cu",
+         "replaces": "ptyrad_tpu/ops/pallas_multislice.py:548", "max_abs_err": e3f,
+         "ms": time_ms(lambda: M.loss_sums_fwd_cuda(obja, objp, pr, h, meas, mask, p, eps, True)),
+         "plain_ms": time_ms(lambda: M.loss_sums_plain(obja, objp, pr, h, meas, mask, p, eps,
+                                                       True)),
+         "library_ms": None,
+         **dict(zip(("bound_ms", "bound_by"), bound(in_bytes + loss_in + 8, fwd_ops)))},
+        {"name": "B3b loss_sums_bwd (dH)", "route": "cuda",
+         "source": "ptyrad_tpu_torch/csrc/multislice.cu",
+         "replaces": "ptyrad_tpu/ops/pallas_multislice.py:588", "max_abs_err": e3b,
+         "ms": time_ms(lambda: M.loss_sums_bwd_cuda(obja, objp, pr, h, meas, mask, dp, cvec, p,
+                                                    eps, True, need_dh=True)),
+         "plain_ms": time_ms(lambda: torch.autograd.grad(s1p, leaves, grad_outputs=cvec,
+                                                         retain_graph=True)),
+         "library_ms": None, "scratch_bytes": k_bytes,
+         **dict(zip(("bound_ms", "bound_by"),
+                    bound(in_bytes + loss_in + 4 * dp.numel() + bwd_out, 2 * fwd_ops + dh_ops)))},
+        {"name": "B4a dp_fwd (per-position H)", "route": "cuda",
+         "source": "ptyrad_tpu_torch/csrc/multislice.cu",
+         "replaces": "ptyrad_tpu/ops/pallas_multislice.py:128", "max_abs_err": e4f,
+         "ms": time_ms(lambda: M.dp_fwd_cuda(obja, objp, pr, h, True)),
+         "plain_ms": time_ms(lambda: M.multislice_dp_plain(obja, objp, pr, h, True)),
+         "library_ms": None,
+         **dict(zip(("bound_ms", "bound_by"), bound(in_bytes + 4 * g.numel(), fwd_ops)))},
+        {"name": "B4b dp_bwd (dH)", "route": "cuda",
+         "source": "ptyrad_tpu_torch/csrc/multislice.cu",
+         "replaces": "ptyrad_tpu/ops/pallas_multislice.py:145", "max_abs_err": e4b,
+         "ms": time_ms(lambda: M.dp_bwd_cuda(obja, objp, pr, h, g, True, need_dh=True)),
+         "plain_ms": time_ms(lambda: torch.autograd.grad(dp_p, leaves, grad_outputs=g,
+                                                         retain_graph=True)),
+         "library_ms": None, "scratch_bytes": k_bytes,
+         **dict(zip(("bound_ms", "bound_by"),
+                    bound(in_bytes + 4 * g.numel() + bwd_out, 2 * fwd_ops + dh_ops)))},
+    ]
+    for k in rows:
+        emit({"phase": "kernel", **k, "note": note})
+    return rows
+
+
+def check_chain_dh(dev, gen) -> list:
+    """B5b and B6b with dH at the PSO shapes the main path gives them (B6
+    over 2 x 8 slices with last_mega False, B5 over the 5-slice tail with
+    `last` both ways), for a shared H (the PSO tilt path's case, which is
+    timed) and a per-position one: every cotangent, dH included, against the
+    plain chain's VJP."""
+    from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.ops.shift import fourier_shift
+    from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
+
+    n, b, pm = PSO_NPIX, BATCH, PSO_PMODE
+    lam = electron_wavelength(PSO_KV)
+    h1 = torch.as_tensor(near_field_evolution((n, n), PSO_DX, PSO_DZ, lam), device=dev)[None]
+    h_each = tilted_h(h1, 2.0 * torch.rand((b, 2), generator=gen, device=dev) - 1.0, PSO_DX,
+                      PSO_DZ)
+    probe = torch.as_tensor(pso_probe(), device=dev)
+    psi = fourier_shift(probe, 0.3 * torch.randn((b, 2), generator=gen, device=dev))
+    obja = 1.0 + 0.05 * torch.randn((b, 1, PSO_NZ, n, n), generator=gen, device=dev)
+    objp = 0.1 * torch.randn((b, 1, PSO_NZ, n, n), generator=gen, device=dev)
+    nz_main, sg_tail = 2 * PSO_SG, PSO_NZ - 2 * PSO_SG
+    a_main, p_main = obja[:, 0, :nz_main], objp[:, 0, :nz_main]
+    a_tail, p_tail = obja[:, 0, nz_main:], objp[:, 0, nz_main:]
+    g = torch.complex(torch.randn(psi.shape, generator=gen, device=dev),
+                      torch.randn(psi.shape, generator=gen, device=dev)) * float(psi.abs().max())
+    names = ["d psi", "d a", "d phi", "d h"]
+
+    def plain_vjp(fn, inputs):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return out, leaves, torch.autograd.grad(out, leaves, grad_outputs=g, retain_graph=True)
+
+    timed = {}
+    for layout, h in (("shared", h1), ("each", h_each)):
+        _, stack = C.stack_fwd_cuda(psi, a_main, p_main, h, PSO_SG, False)
+        stack_fn = lambda x, y, z, w: C.chain_stack_plain(x, y, z, w, PSO_SG, False)  # noqa: E731
+        out6, leaves6, g6p = plain_vjp(stack_fn, (psi, a_main, p_main, h))
+        e6, t6 = _grad_errs(C.stack_bwd_cuda(g, stack, a_main, p_main, h, PSO_SG, False,
+                                             need_dh=True), g6p)
+        checks = [("B6", {"S": 2, "sg": PSO_SG, "last_mega": False}, e6, t6)]
+        for last in (True, False):
+            seg_fn = lambda x, y, z, w, last=last: C.chain_segment_plain(  # noqa: E731
+                x, y, z, w, last)
+            out5, leaves5, g5p = plain_vjp(seg_fn, (psi, a_tail, p_tail, h))
+            e5, t5 = _grad_errs(C.segment_bwd_cuda(g, psi, a_tail, p_tail, h, last,
+                                                   need_dh=True), g5p)
+            checks.append(("B5", {"sg": sg_tail, "last": last}, e5, t5))
+            if last and layout == "shared":
+                timed[layout] = (stack, out6, leaves6, max(e6), out5, leaves5, max(e5))
+        for name, extra, e, t in checks:
+            emit({"phase": "kernel_check", "name": f"{name} with dH", "h": layout, **extra,
+                  "bwd_max_abs_err": e, "bwd_tolerance": t, "bwd_names": names})
+            for nm, ei, ti in zip(names, e, t):
+                require(ei <= ti, f"{name}b {nm} ({layout} H, {extra}) differs: {ei} > {ti}")
+        del stack, out6, leaves6, g6p
+
+    stack, out6, leaves6, e6, out5, leaves5, e5 = timed["shared"]
+    h = h1
+    field = 8 * psi.numel()
+    n_wave = b * pm
+
+    def slab(k):
+        return 2 * 4 * b * k * n * n  # a and phi
+
+    # dH: U conj(K) and its sum, 8 operations per element and propagation
+    def dh_ops(n_prop):
+        return n_wave * n_prop * 8 * n * n
+
+    # B6b: rebuild 2 x 8 propagations (the final slice's K included), walk 16
+    # adjoint slices and 16 adjoint propagations (the exit's included). The
+    # bound counts inputs read once and outputs written once; the K scratch
+    # (one field written and read per propagation) is reported apart.
+    n6 = nz_main
+    b6_bytes = 3 * field + slab(nz_main) + 8 * h.numel() + field + slab(nz_main) \
+        + 8 * h.numel()
+    b6_ops = _chain_ops(n, n_wave, 2 * n6, n6, nz_main) + dh_ops(n6)
+    n5 = sg_tail - 1  # B5b with last: 4 propagations each way
+    b5_bytes = 2 * field + slab(sg_tail) + 8 * h.numel() + field + slab(sg_tail) \
+        + 8 * h.numel()
+    b5_ops = _chain_ops(n, n_wave, 2 * n5, n5, sg_tail) + dh_ops(n5)
+    rows = [
+        {"name": "B6b chain_stack_bwd (dH)", "route": "cuda",
+         "source": "ptyrad_tpu_torch/csrc/chain.cu",
+         "replaces": "ptyrad_tpu/ops/pallas_chain.py:529", "max_abs_err": e6,
+         "ms": time_ms(lambda: C.stack_bwd_cuda(g, stack, a_main, p_main, h, PSO_SG, False,
+                                                need_dh=True)),
+         "plain_ms": time_ms(lambda: torch.autograd.grad(out6, leaves6, grad_outputs=g,
+                                                         retain_graph=True)),
+         "library_ms": None, "scratch_bytes": 2 * field * n6,
+         **dict(zip(("bound_ms", "bound_by"), bound(b6_bytes, b6_ops)))},
+        {"name": "B5b chain_segment_bwd (dH)", "route": "cuda",
+         "source": "ptyrad_tpu_torch/csrc/chain.cu",
+         "replaces": "ptyrad_tpu/ops/pallas_chain.py:279", "max_abs_err": e5,
+         "ms": time_ms(lambda: C.segment_bwd_cuda(g, psi, a_tail, p_tail, h, True,
+                                                  need_dh=True)),
+         "plain_ms": time_ms(lambda: torch.autograd.grad(out5, leaves5, grad_outputs=g,
+                                                         retain_graph=True)),
+         "library_ms": None, "scratch_bytes": 2 * field * n5,
+         **dict(zip(("bound_ms", "bound_by"), bound(b5_bytes, b5_ops)))},
+    ]
+    for k in rows:
+        emit({"phase": "kernel", **k, "note": "PSO shapes, shared H; scratch_bytes: the K "
+              "scratch written and read back, not in the bound"})
+    return rows
+
+
 # -- phase 4: the main path -----------------------------------------------------
 
 def ground_truth_phase(canvas: int) -> np.ndarray:
@@ -618,6 +876,7 @@ def simulate(dev, init: dict) -> torch.Tensor:
     params, buffers, geom = make_model(init, None, dev)
     meas = torch.empty((N_SCANS, NPIX, NPIX), dtype=torch.float32, device=dev)
     launches, checks = M.dp_fwd_cuda.launches, []
+    h_each = M.dp_fwd_cuda.launches_h_each
     t0 = time.perf_counter()
     with torch.no_grad():
         for k, start in enumerate(range(0, N_SCANS, SIM_BATCH)):
@@ -631,11 +890,16 @@ def simulate(dev, init: dict) -> torch.Tensor:
                 checks.append((float((dp - ref).abs().max()), 1e-4 * float(ref.abs().max())))
     torch.cuda.synchronize()
     launches = M.dp_fwd_cuda.launches - launches
+    h_each = M.dp_fwd_cuda.launches_h_each - h_each
     emit({"phase": "simulate", "n_patterns": N_SCANS, "batch": SIM_BATCH,
+          "tilts": "per position" if not geom.global_tilt else "none",
           "seconds": time.perf_counter() - t0, "b4a_launches": launches,
+          "b4a_per_position_h_launches": h_each,
           "checked_batches": len(checks), "max_abs_err": [e for e, _ in checks],
           "tolerance": [t for _, t in checks]})
     require(launches == -(-N_SCANS // SIM_BATCH), f"simulate ran B4a {launches} times")
+    require(h_each == (0 if geom.global_tilt else launches),
+            f"simulate ran B4a on a per-position H {h_each} times")
     require(bool(torch.isfinite(meas).all()), "simulated measurements are not finite")
     for e, t in checks:
         require(e <= t, f"forward() differs from the plain multislice_dp: {e} > {t}")
@@ -643,16 +907,29 @@ def simulate(dev, init: dict) -> torch.Tensor:
 
 
 def kernel_counters():
+    """Row name -> (wrapper, count attribute): `launches` counts every
+    launch; `launches_h_each` those on a per-position H; `launches_dh` the
+    backwards that computed dH."""
     from ptyrad_tpu_torch.ops import chain as C
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops import patches as P
 
-    return {"B1 gather_patches": P.gather_cuda, "B2 scatter_add_patches": P.scatter_add_cuda,
-            "B3a loss_sums_fwd": M.loss_sums_fwd_cuda, "B3b loss_sums_bwd": M.loss_sums_bwd_cuda,
-            "B4a dp_fwd": M.dp_fwd_cuda, "B4b dp_bwd": M.dp_bwd_cuda,
-            "B5a chain_segment_fwd": C.segment_fwd_cuda,
-            "B5b chain_segment_bwd": C.segment_bwd_cuda,
-            "B6a chain_stack_fwd": C.stack_fwd_cuda, "B6b chain_stack_bwd": C.stack_bwd_cuda}
+    every = {"B1 gather_patches": P.gather_cuda, "B2 scatter_add_patches": P.scatter_add_cuda,
+             "B3a loss_sums_fwd": M.loss_sums_fwd_cuda, "B3b loss_sums_bwd": M.loss_sums_bwd_cuda,
+             "B4a dp_fwd": M.dp_fwd_cuda, "B4b dp_bwd": M.dp_bwd_cuda,
+             "B5a chain_segment_fwd": C.segment_fwd_cuda,
+             "B5b chain_segment_bwd": C.segment_bwd_cuda,
+             "B6a chain_stack_fwd": C.stack_fwd_cuda, "B6b chain_stack_bwd": C.stack_bwd_cuda}
+    out = {name: (fn, "launches") for name, fn in every.items()}
+    out.update({
+        "B3a loss_sums_fwd (per-position H)": (M.loss_sums_fwd_cuda, "launches_h_each"),
+        "B3b loss_sums_bwd (dH)": (M.loss_sums_bwd_cuda, "launches_dh"),
+        "B4a dp_fwd (per-position H)": (M.dp_fwd_cuda, "launches_h_each"),
+        "B4b dp_bwd (dH)": (M.dp_bwd_cuda, "launches_dh"),
+        "B5b chain_segment_bwd (dH)": (C.segment_bwd_cuda, "launches_dh"),
+        "B6b chain_stack_bwd (dH)": (C.stack_bwd_cuda, "launches_dh"),
+    })
+    return out
 
 
 TBL_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B3a loss_sums_fwd",
@@ -660,29 +937,40 @@ TBL_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B3a loss_sums_fwd
 LOW_DOSE_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B4a dp_fwd", "B4b dp_bwd")
 PSO_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B5a chain_segment_fwd",
                "B5b chain_segment_bwd", "B6a chain_stack_fwd", "B6b chain_stack_bwd")
+TILT_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches",
+                "B3a loss_sums_fwd (per-position H)", "B3b loss_sums_bwd (dH)")
+PSO_TILT_KERNELS = PSO_KERNELS + ("B5b chain_segment_bwd (dH)", "B6b chain_stack_bwd (dH)")
+
+
+def counted(fn):
+    """fn() with every launch count set to 0 just before it: (its result,
+    the counts just after)."""
+    counters = kernel_counters()
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: getattr(f, attr) for name, (f, attr) in counters.items()}
 
 
 def drive(solver) -> dict:
-    """solver.run() with every launch count set to 0 just before it; the
-    counts just after."""
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    solver.run()
-    torch.cuda.synchronize()
-    return {name: fn.launches for name, fn in counters.items()}
+    """solver.run() under counted(): the counts of the run."""
+    return counted(solver.run)[1]
 
 
-def main_path(dev, card: str):
-    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+def add_counts(*runs) -> dict:
+    return {k: sum(run[k] for run in runs) for k in runs[0]}
+
+
+def tbl_init() -> dict:
+    """init_variables of the tBL simulation: the known object, the probe,
+    the raster and the yml's 2 Ang slices; no tilt; measurements to fill."""
     from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
 
-    t0 = time.perf_counter()
     crop_pos, canvas = tbl_positions()
     lam = electron_wavelength(80.0)
-    true_obj = np.exp(1j * ground_truth_phase(canvas))[None].astype(np.complex64)
-    init = {
-        "obj": true_obj,
+    return {
+        "obj": np.exp(1j * ground_truth_phase(canvas))[None].astype(np.complex64),
         "probe": tbl_probe(),
         "probe_pos_shifts": np.zeros((N_SCANS, 2), np.float32),
         "obj_tilts": np.zeros((1, 2), np.float32),
@@ -696,11 +984,19 @@ def main_path(dev, card: str):
         "N_scan_slow": N_SIDE,
         "N_scan_fast": N_SIDE,
     }
+
+
+def main_path(dev, card: str):
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    t0 = time.perf_counter()
+    init = tbl_init()
     init["measurements"] = simulate(dev, init)
-    init["obj"] = np.ones_like(true_obj)
+    init["obj"] = np.ones_like(init["obj"])
     setup_s = time.perf_counter() - t0
 
     solver = PtyRADSolver(TBL_PARAMS, init_variables=init, device=dev, verbose=True)
+    torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     launches = drive(solver)
     run_s = time.perf_counter() - t1
@@ -723,56 +1019,165 @@ def main_path(dev, card: str):
 
 # -- the forward() figure and the low-dose path ---------------------------------
 
-def forward_modes_check(dev, init: dict) -> None:
-    """One forward() of a batch with 2 object modes (a random weak object),
-    per-position shifted probes and detector blur: B4a per
-    object mode, and B4b per mode under autograd, against the plain
-    multislice_dp plus the same blur on the same CUDA tensors. dp within 1e-4
-    of its largest value, each gradient within 1e-4 of its largest entry."""
+def float64_cpu(params, buffers):
+    """CPU copies of a model in float64 / complex128, the parameters as
+    fresh leaves that want gradients: the reference for the gradients that
+    float32 rounding dominates."""
+    from ptyrad_tpu_torch.models.state import PtychoParams
+
+    def up(t):
+        if t is None:
+            return None
+        t = t.detach().cpu()
+        if t.is_complex():
+            return t.to(torch.complex128)
+        return t.double() if t.is_floating_point() else t
+
+    p64 = PtychoParams(**{n: up(t).requires_grad_(True) for n, t in params.named()})
+    b64 = dataclasses.replace(buffers, **{f.name: up(getattr(buffers, f.name))
+                                          for f in dataclasses.fields(buffers)})
+    return p64, b64
+
+
+def scalar_grads_check(label: str, names, kern, plain, ref64) -> None:
+    """The dz and tilt gradients, which autograd contracts out of dH. The
+    global phase exp(i dz k) of every propagator (k = 2 pi / lambda, about
+    150 / Ang at 80 kV) contributes a term that is zero in exact arithmetic
+    but of order float32 epsilon x k x sum |dH| in any float32 route, so the
+    kernels' gradients are held against the float64 plain route: each entry
+    within 5e-2 of its own size (the rtol of the JAX package's own test,
+    tests/test_forward.py:1192-1198) plus 1e-3 of the largest entry, for
+    entries near zero. The float32 plain route's error is reported beside."""
+    errs_k, errs_p, worst = [], [], []
+    for name, k, p, r in zip(names, kern, plain, ref64):
+        r = r.detach().cpu().double()
+        dk = (k.detach().cpu().double() - r).abs()
+        scale = float(r.abs().max())
+        tol = 5e-2 * r.abs() + 1e-3 * scale
+        errs_k.append(float(dk.max()))
+        errs_p.append(float((p.detach().cpu().double() - r).abs().max()))
+        worst.append(float((dk / tol).max()) if scale > 0 else float("inf"))
+        require(scale > 0, f"{label}: the float64 {name} gradient is zero")
+        require(worst[-1] <= 1.0, f"{label}: the kernels' {name} gradient is off the float64 "
+                f"one by {worst[-1]} of the limit (max abs err {errs_k[-1]}, largest entry "
+                f"{scale}; the float32 plain route's error: {errs_p[-1]})")
+    emit({"phase": "scalar_gradients", "path": label, "names": list(names),
+          "kernel_err_vs_float64": errs_k, "plain_float32_err_vs_float64": errs_p,
+          "kernel_err_over_limit": worst, "limit": "5e-2 |ref| + 1e-3 max |ref| per entry",
+          "float64": [r.detach().cpu().reshape(-1)[:4].tolist() for r in ref64]})
+
+
+def forward_vs_plain(dev, data: dict, mp: dict, label: dict, scalar_names=()) -> dict:
+    """One forward() of a batch spread over the scan (B4a, and B4b under
+    autograd) against the plain multislice_dp plus the same detector blur on
+    the same CUDA tensors: dp within 1e-4 of its largest value, each
+    gradient within 1e-4 of its largest entry, dH (the cotangent of the
+    batch's H, kept in both routes) included; the scalars autograd
+    contracts out of dH (dz, tilts) go to scalar_grads_check against a
+    float64 plain route on the CPU. Returns the kernel route's launch
+    counts (forward and backward, under counted())."""
     from ptyrad_tpu_torch.models import (compute_propagators, forward, forward_route,
                                          get_obj_patches, get_probes, make_model, multislice_dp)
+    F = importlib.import_module("ptyrad_tpu_torch.models.forward")
     from ptyrad_tpu_torch.ops.blur import gaussian_blur_2d
 
+    idx = torch.arange(0, N_SCANS, N_SCANS // BATCH, device=dev)
+    w = torch.rand((BATCH, NPIX, NPIX), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev)
+
+    held = []
+
+    def keep_h(*args):
+        """compute_propagators, its H kept for dH when it wants a gradient"""
+        h = compute_propagators(*args)
+        if h.requires_grad:
+            h.retain_grad()
+            held.append(h)
+        return h
+
+    def run(route):
+        params, buffers, geom = make_model(data, mp, dev)
+        for _, t in params.named():
+            t.requires_grad_(True)
+        at, wr = idx, w
+        held.clear()
+        if route == "float64":
+            params, buffers = float64_cpu(params, buffers)
+            at, wr = idx.cpu(), w.cpu().double()
+        if route == "kernels":
+            require(forward_route(params, geom, idx) == "fused", "forward() left the B4 route")
+            F.compute_propagators = keep_h  # forward() looks it up at call time
+            try:
+                dp, _ = forward(params, buffers, geom, idx)
+            finally:
+                F.compute_propagators = compute_propagators
+        else:
+            obja_p, objp_p = get_obj_patches(params, buffers, geom, at)
+            dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, at),
+                               keep_h(params, buffers, geom, at), buffers.omode_occu, eps=geom.eps)
+            if geom.detector_blur_std:
+                dp = gaussian_blur_2d(dp, kernel_size=5, sigma=geom.detector_blur_std)
+        (wr * dp).sum().backward()
+        grads = {n: t.grad for n, t in params.named() if t.grad is not None}
+        if held:
+            grads["H"] = held[0].grad
+        return dp.detach(), grads
+
+    (dp_k, g_k), launches = counted(lambda: run("kernels"))
+    dp_p, g_p = run("plain")
+    if scalar_names:
+        g_64 = run("float64")[1]
+        scalar_grads_check(f"forward() {label}", scalar_names,
+                           [g_k[n] for n in scalar_names], [g_p[n] for n in scalar_names],
+                           [g_64[n] for n in scalar_names])
+    err = float((dp_k - dp_p).abs().max())
+    tol = 1e-4 * float(dp_p.abs().max())
+    # every gradient at 1e-4 of its largest entry, dH (B4b's own output) too
+    names = sorted(set(g_p) - set(scalar_names))
+    errs = [float((g_k[n] - g_p[n]).abs().max()) for n in names]
+    tols = [1e-4 * float(g_p[n].abs().max()) for n in names]
+    emit({"phase": "forward_modes", **label, "batch": BATCH,
+          "finite": bool(torch.isfinite(dp_k).all()), "max_abs_err": err, "tolerance": tol,
+          "grad_names": names, "grad_max_abs_err": errs, "grad_tolerance": tols,
+          "launches": launches})
+    expected = {"obja", "objp", "probe", "probe_pos_shifts", *scalar_names,
+                *(("H",) if scalar_names else ())}
+    require(set(g_k) == set(g_p) == expected, f"gradients reached {sorted(g_k)} and {sorted(g_p)}")
+    require(bool(torch.isfinite(dp_k).all()) and err <= tol,
+            f"forward() ({label}) differs from the plain version: {err} > {tol}")
+    for name, e, t in zip(names, errs, tols):
+        require(e <= t, f"forward() ({label}) gradient of {name} differs: {e} > {t}")
+    n_dh = launches["B4b dp_bwd (dH)"]
+    require(n_dh == (1 if scalar_names else 0), f"B4b computed dH {n_dh} times")
+    return launches
+
+
+def forward_modes_check(dev, init: dict) -> dict:
+    """forward() against the plain chain in two cases: 2 object modes (a
+    random weak object), per-position shifted probes and detector blur (B4a
+    per object mode, B4b per mode under autograd); then optimizable slice
+    thickness and per-position tilts within 1 mrad (B4a on a per-position H,
+    B4b with dH), every gradient checked, dz's and the tilts' included.
+    Returns the kernel routes' launch counts."""
     rng = np.random.default_rng(SEED + 2)
     shape = (2, *init["obj"].shape[1:])
     obj = (1.0 + 0.02 * rng.standard_normal(shape)) * np.exp(0.1j * rng.standard_normal(shape))
+    shifts = (0.3 * rng.standard_normal((N_SCANS, 2))).astype(np.float32)
     two = dict(init, obj=obj.astype(np.complex64), omode_occu=np.array([0.7, 0.3], np.float32),
-               probe_pos_shifts=(0.3 * rng.standard_normal((N_SCANS, 2))).astype(np.float32))
-    mp = {"update_params": {"probe_pos_shifts": {"lr": 1e-4}}, "detector_blur_std": 0.5}
-    idx = torch.arange(0, N_SCANS, N_SCANS // BATCH, device=dev)  # spread over the scan
-    runs = []
-    for route in ("kernels", "plain"):
-        params, buffers, geom = make_model(two, mp, dev)
-        for _, t in params.named():
-            t.requires_grad_(True)
-        if route == "kernels":
-            require(forward_route(params, geom, idx) == "fused", "forward() left the B4 route")
-            dp, _ = forward(params, buffers, geom, idx)
-        else:
-            obja_p, objp_p = get_obj_patches(params, buffers, geom, idx)
-            dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, idx),
-                               compute_propagators(params, buffers, geom, idx),
-                               buffers.omode_occu, eps=geom.eps)
-            dp = gaussian_blur_2d(dp, kernel_size=5, sigma=geom.detector_blur_std)
-        w = torch.rand(dp.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
-                       device=dev)
-        (w * dp).sum().backward()
-        runs.append((dp.detach(), {n: t.grad for n, t in params.named() if t.grad is not None}))
-    (dp_k, g_k), (dp_p, g_p) = runs
-    err = float((dp_k - dp_p).abs().max())
-    tol = 1e-4 * float(dp_p.abs().max())
-    names = sorted(g_p)
-    errs = [float((g_k[n] - g_p[n]).abs().max()) for n in names]
-    tols = [1e-4 * float(g_p[n].abs().max()) for n in names]
-    emit({"phase": "forward_modes", "omode": 2, "detector_blur_std": 0.5, "batch": BATCH,
-          "finite": bool(torch.isfinite(dp_k).all()), "max_abs_err": err, "tolerance": tol,
-          "grad_names": names, "grad_max_abs_err": errs, "grad_tolerance": tols})
-    require(set(g_k) == set(g_p) == {"obja", "objp", "probe", "probe_pos_shifts"},
-            f"gradients reached {sorted(g_k)} and {names}")
-    require(bool(torch.isfinite(dp_k).all()) and err <= tol,
-            f"forward() with 2 object modes differs from the plain version: {err} > {tol}")
-    for name, e, t in zip(names, errs, tols):
-        require(e <= t, f"forward() gradient of {name} differs: {e} > {t}")
+               probe_pos_shifts=shifts)
+    modes = forward_vs_plain(dev, two, {"update_params": {"probe_pos_shifts": {"lr": 1e-4}},
+                                        "detector_blur_std": 0.5},
+                             {"omode": 2, "detector_blur_std": 0.5})
+    one = (1.0 + 0.02 * rng.standard_normal(init["obj"].shape)) * np.exp(
+        0.1j * rng.standard_normal(init["obj"].shape))
+    tilted = dict(init, obj=one.astype(np.complex64), probe_pos_shifts=shifts,
+                  obj_tilts=rng.uniform(-1.0, 1.0, (N_SCANS, 2)).astype(np.float32))
+    tilts = forward_vs_plain(dev, tilted, {"update_params": {
+        "probe_pos_shifts": {"lr": 1e-4}, "obj_tilts": {"lr": 1e-4},
+        "slice_thickness": {"lr": 1e-4}}},
+        {"omode": 1, "tilts": "per position", "slice_thickness": "optimizable"},
+        scalar_names=("obj_tilts", "slice_thickness"))
+    return add_counts(modes, tilts)
 
 
 def low_dose_dataset(init: dict) -> dict:
@@ -863,12 +1268,13 @@ def columnar_phase(canvas: int) -> np.ndarray:
     return np.broadcast_to(phase, (PSO_NZ, canvas, canvas))
 
 
-def pso_dataset(dev) -> dict:
+def pso_dataset(dev, tilt=(0.0, 0.0)) -> dict:
     """init_variables for PSO: 256^2 patterns simulated through the port's
-    plain multislice_dp (set-up, not the path being driven), cropped to
-    [68, 188)^2, normalised to max at one, and padded on the fly; the probe
-    scaled to the mean measured intensity with its pad, as the Initializer's
-    _probe_normalize does; a flat initial object."""
+    plain multislice_dp (set-up, not the path being driven) with a global
+    crystal tilt (mrad), cropped to [68, 188)^2, normalised to max at one,
+    and padded on the fly; the probe scaled to the mean measured intensity
+    with its pad, as the Initializer's _probe_normalize does; a flat initial
+    object and zero tilt."""
     from ptyrad_tpu_torch.initialization import meas_pad_on_the_fly
     from ptyrad_tpu_torch.models import (compute_propagators, get_obj_patches, get_probes,
                                          make_model, multislice_dp)
@@ -881,7 +1287,7 @@ def pso_dataset(dev) -> dict:
         "obj": true_obj,
         "probe": pso_probe(),
         "probe_pos_shifts": np.zeros((PSO_SCANS, 2), np.float32),
-        "obj_tilts": np.zeros((1, 2), np.float32),
+        "obj_tilts": np.array([tilt], np.float32),
         "slice_thickness": PSO_DZ,
         "H": near_field_evolution((PSO_NPIX, PSO_NPIX), PSO_DX, PSO_DZ, lam),
         "measurements": np.zeros((1, PSO_NPIX, PSO_NPIX), np.float32),
@@ -911,7 +1317,8 @@ def pso_dataset(dev) -> dict:
     probe = init["probe"]
     probe = (probe * np.sqrt(meas_avg_sum / np.sum(np.abs(probe) ** 2))).astype(np.complex64)
     init.update(obj=np.ones_like(true_obj), probe=probe, measurements=crops,
-                on_the_fly_meas_padded=padded, on_the_fly_meas_padded_idx=pad_idx)
+                obj_tilts=np.zeros((1, 2), np.float32), on_the_fly_meas_padded=padded,
+                on_the_fly_meas_padded_idx=pad_idx)
     return init
 
 
@@ -967,6 +1374,155 @@ def pso_forward_figure(solver) -> None:
     require(tuple(dp.shape) == (len(idx), PSO_NPIX, PSO_NPIX) and bool(torch.isfinite(dp).all()),
             "forward() gave a non-finite or misshapen dp")
     require(err <= tol, f"forward() differs from the plain multislice_dp: {err} > {tol}")
+
+
+# -- the tilt paths: optimizable slice thickness and crystal tilts -----------------
+
+DZ_TILT_UPDATE = {"obj_tilts": {"start_iter": 1, "lr": 1.0e-4},
+                  "slice_thickness": {"start_iter": 1, "lr": 1.0e-4}}
+
+
+def with_dz_tilts(params: dict, constraints: dict | None = None) -> dict:
+    """A copy of a configuration with obj_tilts and slice_thickness
+    optimized from iteration 1 at lr 1e-4 (the rates of
+    tests/test_forward.py:1164-1167), plus extra constraints."""
+    out = copy.deepcopy(params)
+    out["model_params"]["update_params"].update(copy.deepcopy(DZ_TILT_UPDATE))
+    out["constraint_params"].update(constraints or {})
+    return out
+
+
+def tilt_field() -> np.ndarray:
+    """A smooth per-position tilt field over the tBL raster, within +-1 mrad
+    (tilt_y, tilt_x)."""
+    ys, xs = np.meshgrid(np.arange(N_SIDE), np.arange(N_SIDE), indexing="ij")
+    ty = 0.8 * np.sin(2 * np.pi * ys / N_SIDE) * np.cos(np.pi * xs / N_SIDE)
+    tx = 0.6 * np.cos(2 * np.pi * xs / N_SIDE) + 0.2 * np.sin(np.pi * ys / N_SIDE)
+    return np.stack([ty.ravel(), tx.ravel()], -1).astype(np.float32)
+
+
+def run_tilt_solver(dev, card: str, phase: str, params: dict, init: dict, setup_s: float,
+                    niter: int):
+    """PtyRADSolver.run() with the counts set to 0 just before it; asserts a
+    finite, falling loss and that dz and the tilts moved."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    solver = PtyRADSolver(params, init_variables=init, device=dev, verbose=True)
+    tilts0 = solver.params.obj_tilts.detach().clone()
+    dz0 = float(solver.params.slice_thickness.detach())
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    launches = drive(solver)
+    run_s = time.perf_counter() - t1
+    losses = [v for _, v in solver.history.loss_iters]
+    times = solver.history.iter_times
+    n = solver.buffers.measurements.shape[0]
+    tilt_moved = float((solver.params.obj_tilts.detach() - tilts0).abs().max())
+    emit({
+        "phase": phase, "card": card, "n_patterns": n, "batch": BATCH,
+        "iterations": len(losses), "losses": losses, "iter_s": times,
+        "patterns_per_s": [n / t for t in times], "setup_s": setup_s, "run_s": run_s,
+        "dz": [dz0] + [v for _, v in solver.history.dz_iters],
+        "avg_tilt": [np.asarray(v).tolist() for _, v in solver.history.avg_tilt_iters],
+        "tilt_max_change": tilt_moved,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+    })
+    require(len(losses) == niter and all(np.isfinite(losses)), f"{phase}: loss not finite")
+    require(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
+    require(solver.history.dz_iters[-1][1] != dz0, f"{phase}: dz did not move")
+    require(tilt_moved > 0.0, f"{phase}: the tilts did not move")
+    return solver, launches
+
+
+def tilt_path(dev, card: str):
+    """The tBL reconstruction with per-position tilts: 16,384 patterns
+    simulated through forward() with tilt_field() (B4a on a per-position H),
+    reconstructed from zero tilts with obj_tilts (16,384 x 2) and
+    slice_thickness optimized and tilt_smooth, the yml otherwise, 3
+    iterations. The simulation and the run are driven under counted():
+    B4a on a per-position H, B1, B2, B3a on a per-position H and B3b with
+    dH must run, B4b must not; then one batch's dz and tilt gradients and dH
+    through B3 against the plain route."""
+    t0 = time.perf_counter()
+    init = tbl_init()
+    init["obj_tilts"] = tilt_field()
+    init["measurements"], sim_launches = counted(lambda: simulate(dev, init))
+    init.update(obj=np.ones_like(init["obj"]), obj_tilts=np.zeros((N_SCANS, 2), np.float32))
+    setup_s = time.perf_counter() - t0
+    params = with_dz_tilts(TBL_PARAMS, {"tilt_smooth": {"freq": 1, "std": 2.0}})
+    solver, launches = run_tilt_solver(dev, card, "tilt", params, init, setup_s, NITER)
+    launches = add_counts(sim_launches, launches)
+    require(not solver.geom.global_tilt, "the tilt path runs one global tilt")
+    for name in TILT_KERNELS + ("B4a dp_fwd (per-position H)",):
+        require(launches[name] > 0, f"kernel {name} was not launched on the tilt path")
+    for name in ("B4b dp_bwd", "B5a chain_segment_fwd", "B6b chain_stack_bwd"):
+        require(launches[name] == 0, f"kernel {name} ran on the tilt path")
+    tilt_gradients_check(solver)
+    return solver, launches
+
+
+def tilt_gradients_check(solver) -> None:
+    """On the first batch of the trained state: s1 of the loss-folded chain
+    through B3 (per-position H, dH) and through its plain version on the
+    same CUDA tensors, dH within 1e-4 of its largest entry; the dz and tilt
+    gradients through scalar_grads_check against the plain version in
+    float64 on the CPU."""
+    from ptyrad_tpu_torch.models import compute_propagators, get_measurements, get_obj_patches
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+    from ptyrad_tpu_torch.ops.fourier import ifftshift2
+    from ptyrad_tpu_torch.ops.shift import fourier_shift_kspace
+
+    p, bufs, geom = solver.params, solver.buffers, solver.geom
+    idx = torch.as_tensor(solver.batch_idx[0], device=solver.device)
+    mask = torch.as_tensor(solver.batch_mask[0], device=solver.device)
+    with torch.no_grad():
+        obja_p, objp_p = get_obj_patches(p, bufs, geom, idx)
+        probe = (fourier_shift_kspace(p.probe, p.probe_pos_shifts[idx]) if geom.shift_probes
+                 else p.probe[None])
+        meas_cc = ifftshift2(get_measurements(bufs, geom, idx))
+    out = {}
+    p64, b64 = float64_cpu(p, bufs)
+    for route in ("kernels", "plain", "float64"):
+        model, bb, at, ops = p, bufs, idx, (obja_p, objp_p, probe)
+        if route == "float64":
+            model, bb, at = p64, b64, idx.cpu()
+            ops = (obja_p.cpu().double(), objp_p.cpu().double(), probe.cpu().to(torch.complex128))
+        model.slice_thickness.grad = model.obj_tilts.grad = None
+        h = compute_propagators(model, bb, geom, at)
+        h.retain_grad()
+        rest = (meas_cc, mask) if route != "float64" else (meas_cc.cpu().double(),
+                                                           mask.cpu().double())
+        args = (*ops, h, *rest, 0.5, geom.eps)
+        s1 = (M.multislice_loss_sums_fused(*args, probe_kspace=geom.shift_probes)
+              if route == "kernels" else M.loss_sums_plain(*args, geom.shift_probes))[0]
+        s1.backward()
+        out[route] = (h.grad, model.slice_thickness.grad.clone(), model.obj_tilts.grad[at].clone())
+    (e_dh,), (t_dh,) = _grad_errs(out["kernels"][:1], out["plain"][:1])
+    emit({"phase": "tilt_gradients", "batch": len(idx), "dh_max_abs_err": e_dh,
+          "dh_tolerance": t_dh})
+    require(e_dh <= t_dh, f"tilt path dH differs from the plain route: {e_dh} > {t_dh}")
+    scalar_grads_check("tilt path", ("slice_thickness", "obj_tilts"), *(
+        out[r][1:] for r in ("kernels", "plain", "float64")))
+    p.slice_thickness.grad = p.obj_tilts.grad = None
+
+
+def pso_tilt_path(dev, card: str):
+    """The PSO reconstruction with a global tilt: the data simulated at
+    (1.0, -0.5) mrad, reconstructed from (0, 0) with obj_tilts (1 x 2) and
+    slice_thickness (10 Ang) optimized, 2 iterations. B5b and B6b must run
+    with dH, B3 must not."""
+    t0 = time.perf_counter()
+    init = pso_dataset(dev, tilt=(1.0, -0.5))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    solver, launches = run_tilt_solver(dev, card, "pso_tilt", with_dz_tilts(PSO_PARAMS), init,
+                                       setup_s, PSO_NITER)
+    require(solver.geom.global_tilt, "the PSO tilt path runs per-position tilts")
+    for name in PSO_TILT_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the PSO tilt path")
+    for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd", "B4a dp_fwd", "B4b dp_bwd"):
+        require(launches[name] == 0, f"kernel {name} ran on the PSO tilt path (N = 256)")
+    return solver, launches
 
 
 def profile_steps(solver, card: str, path: str, niter: int, n_batches: int) -> None:
@@ -1029,12 +1585,16 @@ def main() -> int:
     kernels = (check_patches(dev, gen) + check_loss_chain(dev, gen) + check_dp_chain(dev, gen)
                + check_chain(dev, gen))
     torch.cuda.empty_cache()
+    kernels += check_fused_dh(dev, gen)
+    torch.cuda.empty_cache()
+    kernels += check_chain_dh(dev, gen)
+    torch.cuda.empty_cache()
 
     solver, tbl_launches, init = main_path(dev, card)
     profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
     del solver
     torch.cuda.empty_cache()
-    forward_modes_check(dev, init)
+    forward_launches = forward_modes_check(dev, init)
     torch.cuda.empty_cache()
     solver, low_dose_launches = low_dose_path(dev, card, init)
     profile_steps(solver, card, "low-dose", NITER + 1, n_batches=32)
@@ -1042,8 +1602,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver, pso_launches = pso_path(dev, card)
     profile_steps(solver, card, "PSO", PSO_NITER + 1, n_batches=8)
-    launches = {k: tbl_launches[k] + low_dose_launches[k] + pso_launches[k]
-                for k in tbl_launches}
+    del solver
+    torch.cuda.empty_cache()
+    solver, tilt_launches = tilt_path(dev, card)
+    profile_steps(solver, card, "tBL-tilt", NITER + 1, n_batches=32)
+    del solver
+    torch.cuda.empty_cache()
+    solver, pso_tilt_launches = pso_tilt_path(dev, card)
+    profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
+    launches = add_counts(tbl_launches, forward_launches, low_dose_launches, pso_launches,
+                          tilt_launches, pso_tilt_launches)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{key: {**k, "launches": launches[k["name"]]}[key] for key in keys}

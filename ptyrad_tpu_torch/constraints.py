@@ -7,18 +7,19 @@ constraint computes new tensors under ``torch.no_grad`` and copies them into
 the parameters in place, so the optimizer keeps its references.
 
 Ported: ortho_pmode, fix_probe_int, obj_rblur, obj_zblur, obja_thresh,
-objp_postiv (the six the tBL configuration runs) and kz_filter (PSO). The
-other five raise NotImplementedError when enabled; ROADMAP queue A lists
-them.
+objp_postiv (the six the tBL configuration runs), kz_filter (PSO) and
+tilt_smooth (per-position tilts). The other four raise NotImplementedError
+when enabled; ROADMAP queue A lists them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ptyrad_tpu_torch.models.state import Buffers, PtychoParams
+from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams
 from ptyrad_tpu_torch.ops.blur import gaussian_blur_1d, gaussian_blur_2d
 from ptyrad_tpu_torch.ops.fourier import fftn3
 
@@ -137,6 +138,18 @@ def kz_filter(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
         params.objp.copy_(kz_filter_fn(params.objp, cfg["beta"], cfg["alpha"], "phase"))
 
 
+def tilt_smooth(params: PtychoParams, buffers: Buffers, cfg: dict, n_slow: int = 1,
+                n_fast: int = 1) -> None:
+    """5x5 Gaussian blur of per-position tilts over the (n_slow, n_fast)
+    scan grid (ptyrad_tpu/constraints.py:255-264); nothing for a global
+    tilt (tilt_type 'all') or std 0."""
+    if params.obj_tilts.shape[0] == 1 or cfg["std"] == 0:
+        return
+    grid = params.obj_tilts.reshape(n_slow, n_fast, 2).movedim(-1, 0)  # (2, slow, fast)
+    blurred = gaussian_blur_2d(grid, kernel_size=5, sigma=cfg["std"])
+    params.obj_tilts.copy_(blurred.movedim(0, -1).reshape(-1, 2))
+
+
 # Reference application order (reference constraints.py:227-246)
 _ORDER: Tuple[str, ...] = (
     "ortho_pmode",
@@ -161,13 +174,16 @@ _FNS: Dict[str, Callable] = {
     "kz_filter": kz_filter,
     "obja_thresh": obja_thresh,
     "objp_postiv": objp_postiv,
+    "tilt_smooth": tilt_smooth,
 }
 
 
 class ConstraintScheduler:
-    """Applies the due constraints each iteration, in the reference order."""
+    """Applies the due constraints each iteration, in the reference order.
+    tilt_smooth is bound to the scan grid of ``geom``, as the JAX scheduler
+    binds it (ptyrad_tpu/constraints.py:341-342)."""
 
-    def __init__(self, constraint_params: dict | None):
+    def __init__(self, constraint_params: dict | None, geom: Geometry):
         cfg = {k: {**v} for k, v in DEFAULT_CONSTRAINT_PARAMS.items()}
         for key, val in (constraint_params or {}).items():
             if key not in cfg:
@@ -196,7 +212,10 @@ class ConstraintScheduler:
                     f"constraint '{name}' waits for ROADMAP queue A (constraints)")
             c = dict(cfg[name])
             c.pop("freq")
-            self._active.append((name, int(freq), _FNS[name], c))
+            fn = _FNS[name]
+            if name == "tilt_smooth":
+                fn = functools.partial(fn, n_slow=geom.n_scan_slow, n_fast=geom.n_scan_fast)
+            self._active.append((name, int(freq), fn, c))
 
     @torch.no_grad()
     def __call__(self, params: PtychoParams, buffers: Buffers, niter: int) -> PtychoParams:

@@ -5,8 +5,10 @@
 //   B5b  _seg_bwd_kernel  (:279, pallas_call :1120)
 //   B6a  _mega_fwd_kernel (:466, pallas_call :810, chain_stack :841)
 //   B6b  _mega_bwd_kernel (:529, pallas_call :942)
-// without the far-field exit (set_far_field, off by default there) and
-// without propagator cotangents (need_dh).
+// with the propagator cotangents (need_dh: _seg_bwd_kernel :330-334,
+// :369-373, _acc_dh :396; _mega_bwd_kernel :552-564, :593-597, :632-636,
+// _acc_dh_mega :651), without the far-field exit (set_far_field, off by
+// default there).
 //
 // Contract, per sample b and probe mode p (complex64 wavefields):
 //   for slice z of the chain:  chi_z = psi_z * T_z,  T_z = a_z exp(i phi_z)
@@ -22,6 +24,9 @@
 //   states from the entry psi; B6b walks the segments in reverse, rebuilds
 //   each from its stacked entry into a scratch of Sg fields, and carries the
 //   cotangent across segment boundaries.
+//   dH (on request): with K = fft2(chi) of each propagation and U = fft2 of
+//   the cotangent it delivers, dH = (1/N^2) sum_prop sum_p U conj(K),
+//   summed over samples too for a shared H.
 //
 // Bound on the card. Counting only the inputs read once and the outputs
 // written once, a chain is bound by its FP32 operations: at PSO shapes
@@ -60,9 +65,25 @@
 //  * Launch shape: a sequence of pass kernels on the caller's stream (the
 //    stream orders them; nothing synchronises). Each pass works in place on
 //    its own tile, so one working buffer carries the field.
+//  * dH. Every propagation's K and U exist in the column pass, after its
+//    column FFT and before the H multiply, at the same (bitrev ky, bitrev
+//    kx) position. The rebuild's column passes store K to a scratch of sg
+//    fields (512 MiB at PSO), extended by one slice so that the propagation
+//    out of the segment's final slice has its K too; the adjoint column
+//    passes read it back and accumulate U conj(K) into a per-(sample, mode)
+//    partial field (64 MiB); after the walk dh_reduce.cuh sums the modes,
+//    and the samples for a shared H, in a fixed order. The adjoint of the
+//    propagation out of a segment's final slice runs its row pass at the end
+//    of the later segment's walk, as before, and its column pass after this
+//    segment's rebuild, where K exists (the order of pallas_chain.py:589-604):
+//    no pass is added, so the path without dH runs the same passes as ever.
+//    The dH work lives in col_kernel<true> only; without dH every column
+//    pass is col_kernel<false>, which has none of it.
 //  * FP32 throughout, accurate sincosf, twiddles from double sincospi.
 
 #include <cuda_runtime.h>
+
+#include "dh_reduce.cuh"
 
 namespace {
 
@@ -271,10 +292,14 @@ row_bwd_kernel(const float2* src, long long src_bs, int pending, const float2* _
 // Column pass, in place (grid (N / C, pmode, B)): columns c0..c0+C-1 of
 // field (b, p), which arrive with x bit-reversed. Column FFT, times H/N^2
 // (conj(H)/N^2 for the adjoint) read at (bitrev(ky), bitrev(kx)), column
-// IFFT.
+// IFFT. kDh (need_dh), after the column FFT: forward, K is stored to kbuf
+// (and with h null the pass ends there); adjoint, dacc = U conj(K) (+=
+// unless first) against K read from kbuf. kbuf and dacc are fields laid out
+// as buf; without kDh they are ignored.
+template <bool kDh>
 __global__ void __launch_bounds__(kThreads)
 col_kernel(float2* buf, long long bs, const float2* __restrict__ h, long long h_bs, int conj_h,
-           int logn, int log_c) {
+           float2* kbuf, float2* dacc, int first, int logn, int log_c) {
   extern __shared__ float2 smem[];
   const int n = 1 << logn;
   const int c = 1 << log_c;
@@ -292,6 +317,22 @@ col_kernel(float2* buf, long long bs, const float2* __restrict__ h, long long h_
   }
   __syncthreads();
   fft_lines<true>(s, tw, c, logn, 1, c);
+  if constexpr (kDh) {
+    const size_t fo = static_cast<size_t>(b) * bs + (static_cast<size_t>(p) << (2 * logn)) + c0;
+    if (!conj_h) {
+      for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+        kbuf[fo + static_cast<size_t>(e >> log_c) * n + (e & (c - 1))] = s[e];
+      }
+      if (h == nullptr) return;
+    } else {
+      for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+        const size_t k = fo + static_cast<size_t>(e >> log_c) * n + (e & (c - 1));
+        float2 d = cmul_conj(s[e], kbuf[k]);
+        if (!first) d = make_float2(d.x + dacc[k].x, d.y + dacc[k].y);
+        dacc[k] = d;
+      }
+    }
+  }
   const float inv_nn = 1.0f / static_cast<float>(n * n);
   const float2* hb = h + static_cast<size_t>(b) * h_bs;
   for (int e = threadIdx.x; e < ne; e += blockDim.x) {
@@ -337,7 +378,11 @@ struct Chain {
                                  static_cast<int>(row_smem));
     }
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(col_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(col_smem));
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(col_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(col_smem));
     }
     return err;
@@ -363,9 +408,22 @@ struct Chain {
     return cudaGetLastError();
   }
 
-  cudaError_t col(float2* buf, bool conj_h) const {
+  // a propagation (conj_h: its adjoint); with kbuf, the dH variant of
+  // col_kernel (kbuf, dacc, first as there), else the plain one
+  cudaError_t col(float2* buf, bool conj_h, float2* kbuf = nullptr, float2* dacc = nullptr,
+                  bool first = false) const {
     const dim3 grid((1 << logn) >> log_c, pmode, B);
-    col_kernel<<<grid, kThreads, col_smem, st>>>(buf, field_bs, h, h_bs, conj_h, logn, log_c);
+    auto kernel = kbuf != nullptr ? col_kernel<true> : col_kernel<false>;
+    kernel<<<grid, kThreads, col_smem, st>>>(buf, field_bs, h, h_bs, conj_h, kbuf, dacc, first,
+                                             logn, log_c);
+    return cudaGetLastError();
+  }
+
+  // the column FFT of buf only, stored to kbuf (the K of a final slice)
+  cudaError_t col_k(float2* buf, float2* kbuf) const {
+    const dim3 grid((1 << logn) >> log_c, pmode, B);
+    col_kernel<true><<<grid, kThreads, col_smem, st>>>(buf, field_bs, nullptr, 0, 0, kbuf,
+                                                       nullptr, 0, logn, log_c);
     return cudaGetLastError();
   }
 };
@@ -406,52 +464,80 @@ cudaError_t chain_fwd(const Chain& c, const float2* psi_in, float2* out, const f
 // (B, pmode, N, N), `work` one more) before its slices are walked. g is
 // the cotangent of the chain's exit; `last`: the final slice did not
 // propagate. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0 into dpsi,
-// which also carries the running cotangent.
+// which also carries the running cotangent. With dh (need_dh): kscr holds
+// sg fields of K, dh_part one field of partials, and dh gets the
+// propagator cotangent in H's shape.
 cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long long stack_bs,
                       const float* a, const float* ph, long long obj_bs, float2* scratch,
-                      float2* work, float* da, float* dph, float2* dpsi, int n_seg, int sg,
-                      bool last) {
+                      float2* work, float2* kscr, float2* dh_part, float2* dh, float* da,
+                      float* dph, float2* dpsi, int n_seg, int sg, bool last) {
   const long long dobj_bs = static_cast<long long>(n_seg) * sg * c.nn;
   const long long scratch_field = c.B * c.field_bs;
+  const bool with_dh = dh != nullptr;
+  bool dh_first = true;
+  // the adjoint propagations: a column pass of dpsi, whose K is kscr[j]
+  auto adjoint_col = [&](int j) -> cudaError_t {
+    const cudaError_t err =
+        c.col(dpsi, true, with_dh ? kscr + j * scratch_field : nullptr, with_dh ? dh_part : nullptr,
+              dh_first);
+    dh_first = false;
+    return err;
+  };
   const float2* src = g;
-  bool pending = false;
-  if (!last) {  // the cotangent arrives after the final propagation: undo it first
+  bool pending = false;   // src awaits the row IFFT of an adjoint propagation
+  bool col_due = !last;   // dpsi awaits the column pass of the adjoint propagation
+                          // out of the segment's final slice (its row FFT is done)
+  if (!last) {  // the cotangent arrives after the final propagation
     CHAIN_TRY(c.row_fwd(g, c.field_bs, false, nullptr, 0, nullptr, nullptr, 0, true, dpsi));
-    CHAIN_TRY(c.col(dpsi, true));
     src = dpsi;
-    pending = true;
   }
   for (int s = n_seg - 1; s >= 0; --s) {
     const float2* entry0 = stack + s * c.field_bs;
     const float* a_s = a + static_cast<long long>(s) * sg * c.nn;
     const float* ph_s = ph + static_cast<long long>(s) * sg * c.nn;
-    // rebuild: scratch[j - 1] = psi entering slice j, j = 1..sg-1
+    // rebuild: scratch[j - 1] = psi entering slice j, j = 1..sg-1; with dH,
+    // kscr[j] = K of slice j, for every slice that propagates
     const float2* rsrc = entry0;
     long long rsrc_bs = stack_bs;
     for (int j = 0; j + 1 < sg; ++j) {
       CHAIN_TRY(c.row_fwd(rsrc, rsrc_bs, j > 0, j > 0 ? scratch + (j - 1) * scratch_field : nullptr,
                           c.field_bs, a_s + j * c.nn, ph_s + j * c.nn, obj_bs, true, work));
-      CHAIN_TRY(c.col(work, false));
+      CHAIN_TRY(c.col(work, false, with_dh ? kscr + j * scratch_field : nullptr));
       rsrc = work;
       rsrc_bs = c.field_bs;
     }
-    if (sg > 1) {
-      CHAIN_TRY(c.row_fwd(work, c.field_bs, true, scratch + (sg - 2) * scratch_field, c.field_bs,
-                          nullptr, nullptr, 0, false, nullptr));
+    const bool k_final = with_dh && col_due;  // the final slice propagates: its K
+    if (sg > 1 || k_final) {
+      float2* last_entry = sg > 1 ? scratch + (sg - 2) * scratch_field : nullptr;
+      CHAIN_TRY(c.row_fwd(rsrc, rsrc_bs, sg > 1, last_entry,
+                          c.field_bs, k_final ? a_s + (sg - 1) * c.nn : nullptr,
+                          k_final ? ph_s + (sg - 1) * c.nn : nullptr, obj_bs, k_final,
+                          k_final ? work : nullptr));
+      if (k_final) CHAIN_TRY(c.col_k(work, kscr + (sg - 1) * scratch_field));
+    }
+    if (col_due) {
+      CHAIN_TRY(adjoint_col(sg - 1));
+      pending = true;
     }
     for (int j = sg - 1; j >= 0; --j) {
-      const bool prop = !(s == 0 && j == 0);
+      const bool prop_in = j > 0 || s > 0;  // a propagation delivered slice j's entry
       const float2* psi = j > 0 ? scratch + (j - 1) * scratch_field : entry0;
       const long long psi_bs = j > 0 ? c.field_bs : stack_bs;
       const long long z = static_cast<long long>(s) * sg + j;
       CHAIN_TRY(c.row_bwd(src, pending, psi, psi_bs, a_s + j * c.nn, ph_s + j * c.nn, obj_bs,
-                          da + z * c.nn, dph + z * c.nn, dobj_bs, prop, dpsi));
-      if (prop) CHAIN_TRY(c.col(dpsi, true));
+                          da + z * c.nn, dph + z * c.nn, dobj_bs, prop_in, dpsi));
+      if (j > 0) CHAIN_TRY(adjoint_col(j - 1));
       src = dpsi;
-      pending = prop;
+      pending = j > 0;
     }
+    col_due = s > 0;
   }
-  return cudaSuccess;
+  if (!with_dh) return cudaSuccess;
+  const int h_shared = c.h_bs == 0;
+  if (dh_first) {  // nothing propagated
+    return cudaMemsetAsync(dh, 0, sizeof(float2) * (h_shared ? 1 : c.B) * c.nn, c.st);
+  }
+  return dh::reduce(dh_part, dh, c.B, c.pmode, h_shared, c.logn, c.st);
 }
 
 Chain make_chain(int B, int pmode, int logn, const float2* h, int h_shared, void* stream) {
@@ -483,16 +569,19 @@ int ptyrad_chain_segment_fwd(const float2* psi, const float* a, const float* ph,
 
 // B5b. g: cotangent of the exit (B, pmode, N, N); psi: the segment's entry.
 // scratch: (sg - 1) fields, work: one field (B, pmode, N, N). Writes d a,
-// d phi (B, sg, N, N) and d psi (B, pmode, N, N).
+// d phi (B, sg, N, N) and d psi (B, pmode, N, N). With dh (H's shape) not
+// null, also the propagator cotangent, through kscr (sg fields) and
+// dh_part (one field).
 int ptyrad_chain_segment_bwd(const float2* g, const float2* psi, const float* a, const float* ph,
                              long long obj_bs, const float2* h, float2* scratch, float2* work,
-                             float* da, float* dph, float2* dpsi, int B, int pmode, int sg,
-                             int logn, int h_shared, int last, void* stream) {
+                             float2* kscr, float2* dh_part, float2* dh, float* da, float* dph,
+                             float2* dpsi, int B, int pmode, int sg, int logn, int h_shared,
+                             int last, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1) return static_cast<int>(cudaErrorInvalidValue);
   CHAIN_TRY(c.init());
-  return static_cast<int>(chain_bwd(c, g, psi, c.field_bs, a, ph, obj_bs, scratch, work, da, dph,
-                                    dpsi, 1, sg, last != 0));
+  return static_cast<int>(chain_bwd(c, g, psi, c.field_bs, a, ph, obj_bs, scratch, work, kscr,
+                                    dh_part, dh, da, dph, dpsi, 1, sg, last != 0));
 }
 
 // B6a. n_seg segments of sg slices from psi0; writes the exit to out and the
@@ -509,16 +598,19 @@ int ptyrad_chain_stack_fwd(const float2* psi0, const float* a, const float* ph,
 }
 
 // B6b. g: cotangent of the exit; stack from B6a. scratch (sg - 1) fields,
-// work one field. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0.
+// work one field. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0; with
+// dh, the propagator cotangent as B5b does.
 int ptyrad_chain_stack_bwd(const float2* g, const float2* stack, const float* a, const float* ph,
                            long long obj_bs, const float2* h, float2* scratch, float2* work,
-                           float* da, float* dph, float2* dpsi0, int B, int pmode, int n_seg,
-                           int sg, int logn, int h_shared, int last_mega, void* stream) {
+                           float2* kscr, float2* dh_part, float2* dh, float* da, float* dph,
+                           float2* dpsi0, int B, int pmode, int n_seg, int sg, int logn,
+                           int h_shared, int last_mega, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
   CHAIN_TRY(c.init());
   return static_cast<int>(chain_bwd(c, g, stack, n_seg * c.field_bs, a, ph, obj_bs, scratch,
-                                    work, da, dph, dpsi0, n_seg, sg, last_mega != 0));
+                                    work, kscr, dh_part, dh, da, dph, dpsi0, n_seg, sg,
+                                    last_mega != 0));
 }
 
 }  // extern "C"

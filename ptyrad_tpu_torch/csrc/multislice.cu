@@ -12,7 +12,7 @@
 // B3 is B4 with the loss folded in; both share one chain kernel forward and
 // one backward kernel, templated on the loss.
 //
-// Contract (omode 1, shared propagator H, no dH):
+// Contract (omode 1; propagator H shared (1, N, N) or per position (B, N, N)):
 //   psi_0   = probe mode p (shared real-space (1, pmode, N, N), or
 //             per-position (B, pmode, N, N)), or ifft2 of the probe spectrum
 //   for z:    psi <- psi * T_z,  T_z = a_z exp(i phi_z);
@@ -24,7 +24,11 @@
 //   order; B3b forms g = c mask 2p ((dp+eps)^p - meas^p)(dp+eps)^(p-1) with c
 //   the upstream cotangent of s1.
 //   Both backwards return d obja, d objp (B, 1, Nz, N, N) and d probe (the
-//   probe's shape).
+//   probe's shape), and on request (need_dh, pallas_multislice.py
+//   _bwd_from_g :211-231) dH in H's shape: with K_z = fft2(psi_z T_z) and
+//   U_z = fft2(d psi_{z+1}) for each propagation z -> z+1,
+//   dH = (1/N^2) sum_z sum_p U_z conj(K_z), summed over samples too for a
+//   shared H (the 1/N^2 is kernel_util.unscale_dh :96-100).
 //
 // Bound on the card: FP32 arithmetic. A 128^2 complex 2D FFT is about
 // 10 N^2 log2 N = 1.15 MFLOP. The forward runs 12 of them per (sample, mode)
@@ -62,9 +66,23 @@
 //    d(a, phi) contribution (linear in dT) into zeroed outputs with
 //    atomicAdd, and a shared probe's gradient is summed over samples the
 //    same way; the order of those adds varies from run to run.
+//  * dH: two 128^2 fields do not fit one block's shared memory, so the
+//    JAX kernel's extra DFT per slice (recomputing K in the walk) has no
+//    room here. Instead the recompute writes each K_z, which it holds in
+//    shared memory between its forward transform and the H multiply, to a
+//    device scratch (B pmode (Nz-1) N^2 8 B = 126 MB at tBL), and the walk
+//    reads it back at the same index inside its adjoint propagation, where
+//    U_z sits in shared memory at the same point. Each block accumulates its
+//    (sample, mode) share of dH into its own partial field (25 MB at tBL);
+//    dh_reduce.cuh then sums the modes (and the samples for a shared H) in
+//    a fixed order, without atomics. The backward kernel is templated on
+//    kDh, so its instantiation without dH has none of this work.
+//  * A per-position H is read at b N^2 by the blocks of sample b.
 //  * FP32 throughout, accurate sincosf, twiddles from double sincospi.
 
 #include <cuda_runtime.h>
+
+#include "dh_reduce.cuh"
 
 namespace {
 
@@ -184,13 +202,25 @@ __device__ void fft2_inv(float2* s, const float2* tw, int n, int logn) {
 
 // psi <- ifft2(H * fft2(psi)), with the 1/N^2 of ifft2 folded into H. With
 // kConjH it is the adjoint step: inv(conj(H)/N^2 * fwd(.)) unnormalized.
-template <bool kConjH>
+// kDh (need_dh): forward, K = fwd(psi) is stored to kbuf; adjoint, the
+// forward's K is read back from kbuf and dacc (= U conj(K), or += when
+// !first) accumulates this propagation's share of dH. Each thread stores and
+// reads the same elements, so no synchronisation is needed. Without kDh the
+// pointers are not touched.
+template <bool kConjH, bool kDh>
 __device__ void propagate(float2* s, const float2* tw, const float2* __restrict__ h, int n,
-                          int logn) {
+                          int logn, float2* kbuf, float2* dacc, bool first) {
   const int nn = n * n;
   const float inv_nn = 1.0f / static_cast<float>(nn);
   fft2_fwd(s, tw, n, logn);
   for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+    if constexpr (kDh && kConjH) {
+      float2 d = cmul_conj(s[i], kbuf[i]);
+      if (!first) d = make_float2(d.x + dacc[i].x, d.y + dacc[i].y);
+      dacc[i] = d;
+    } else if constexpr (kDh) {
+      kbuf[i] = s[i];
+    }
     const float2 hv = cscale(h[spectral_index(i, n, logn)], inv_nn);
     s[i] = kConjH ? cmul_conj(s[i], hv) : cmul(s[i], hv);
   }
@@ -212,10 +242,13 @@ __device__ void load_probe(float2* s, const float2* tw, const float2* __restrict
 
 // The chain from the loaded probe through the far-field transform: s ends
 // as the unnormalized spectrum Y in bit-reversed order. With st, each
-// slice's entry state is stored there for the backward.
+// slice's entry state is stored there for the backward; with kDh, the
+// spectrum K_z of each propagation z -> z+1 in kst (nz - 1 fields).
+template <bool kDh>
 __device__ void run_chain(float2* s, const float2* tw, const float* __restrict__ a_b,
                           const float* __restrict__ phi_b, const float2* __restrict__ h,
-                          float2* __restrict__ st, int nz, int n, int logn, bool kspace) {
+                          float2* __restrict__ st, float2* kst, int nz, int n, int logn,
+                          bool kspace) {
   const int nn = n * n;
   const float inv_nn = 1.0f / static_cast<float>(nn);
   for (int z = 0; z < nz; ++z) {
@@ -230,7 +263,10 @@ __device__ void run_chain(float2* s, const float2* tw, const float* __restrict__
       s[i] = cmul(v, make_float2(a * cs, a * sn));
     }
     __syncthreads();
-    if (z < nz - 1) propagate<false>(s, tw, h, n, logn);
+    if (z < nz - 1) {
+      propagate<false, kDh>(s, tw, h, n, logn, kDh ? kst + static_cast<size_t>(z) * nn : nullptr,
+                            nullptr, false);
+    }
   }
   fft2_fwd(s, tw, n, logn);
 }
@@ -239,7 +275,7 @@ __global__ void __launch_bounds__(kThreads)
 chain_fwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
                  const float2* __restrict__ probe, const float2* __restrict__ h,
                  float* __restrict__ inten, int pmode, int nz, int logn, int shared_probe,
-                 int kspace) {
+                 int h_shared, int kspace) {
   extern __shared__ float2 smem[];
   const int n = 1 << logn;
   const int nn = n * n;
@@ -252,8 +288,10 @@ chain_fwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   init_twiddles(tw, n);
   load_probe(s, tw, probe + (static_cast<size_t>(shared_probe ? 0 : b) * pmode + p) * nn, n,
              logn, kspace);
-  run_chain(s, tw, obja + static_cast<size_t>(b) * nz * nn,
-            objp + static_cast<size_t>(b) * nz * nn, h, nullptr, nz, n, logn, kspace);
+  run_chain<false>(s, tw, obja + static_cast<size_t>(b) * nz * nn,
+                   objp + static_cast<size_t>(b) * nz * nn,
+                   h + static_cast<size_t>(h_shared ? 0 : b) * nn, nullptr, nullptr, nz, n, logn,
+                   kspace);
   float* out = inten + static_cast<size_t>(blockIdx.x) * nn;
   for (int i = threadIdx.x; i < nn; i += blockDim.x) {
     const float2 v = s[spectral_index(i, n, logn)];
@@ -328,17 +366,20 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __
 
 // The backward of one (sample, mode) wavefield. kLoss (B3b): the dp
 // cotangent is formed here from meas, mask, the forward's dp and c; else
-// (B4b) it is read from g.
-template <bool kLoss>
+// (B4b) it is read from g. kDh (need_dh): the recompute stores each K_z in
+// kstack (B pmode, nz - 1, N, N) and the walk accumulates this wavefield's
+// sum_z U_z conj(K_z) into its dh_part field, in the bit-reversed order of
+// the transforms; without it both pointers are ignored.
+template <bool kLoss, bool kDh>
 __global__ void __launch_bounds__(kThreads)
 chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
                  const float2* __restrict__ probe, const float2* __restrict__ h,
                  const float* __restrict__ g, const float* __restrict__ meas,
                  const float* __restrict__ mask, const float* __restrict__ dp,
-                 const float* __restrict__ c, float2* __restrict__ stack,
-                 float* __restrict__ d_obja, float* __restrict__ d_objp,
+                 const float* __restrict__ c, float2* __restrict__ stack, float2* kstack,
+                 float2* dh_part, float* __restrict__ d_obja, float* __restrict__ d_objp,
                  float2* __restrict__ d_probe, int pmode, int nz, int logn, int shared_probe,
-                 int kspace, float p, float eps) {
+                 int h_shared, int kspace, float p, float eps) {
   extern __shared__ float2 smem[];
   const int n = 1 << logn;
   const int nn = n * n;
@@ -347,6 +388,9 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   const int b = blockIdx.x / pmode;
   const int pm = blockIdx.x % pmode;
   const float inv_nn = 1.0f / static_cast<float>(nn);
+  const float2* h_b = h + static_cast<size_t>(h_shared ? 0 : b) * nn;
+  float2* kst = kDh ? kstack + static_cast<size_t>(blockIdx.x) * (nz - 1) * nn : nullptr;
+  float2* dacc = kDh ? dh_part + static_cast<size_t>(blockIdx.x) * nn : nullptr;
 
   init_twiddles(tw, n);
   load_probe(s, tw, probe + (static_cast<size_t>(shared_probe ? 0 : b) * pmode + pm) * nn, n,
@@ -356,7 +400,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   const float* a_b = obja + static_cast<size_t>(b) * nz * nn;
   const float* phi_b = objp + static_cast<size_t>(b) * nz * nn;
   float2* st = stack + static_cast<size_t>(blockIdx.x) * nz * nn;
-  run_chain(s, tw, a_b, phi_b, h, st, nz, n, logn, kspace);
+  run_chain<kDh>(s, tw, a_b, phi_b, h_b, st, kst, nz, n, logn, kspace);
 
   // dY = 2 g Y / N^2, g the cotangent of dp
   if constexpr (kLoss) {
@@ -395,7 +439,11 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
       s[i] = cmul_conj(dchi, make_float2(a * cs, a * sn));  // dpsi = dchi conj(T)
     }
     __syncthreads();
-    if (z > 0) propagate<true>(s, tw, h, n, logn);
+    if (z > 0) {
+      propagate<true, kDh>(s, tw, h_b, n, logn,
+                           kDh ? kst + static_cast<size_t>(z - 1) * nn : nullptr, dacc,
+                           z == nz - 1);
+    }
   }
 
   // s holds the cotangent of the (scaled) entry state psi_0
@@ -419,42 +467,52 @@ size_t chain_smem_bytes(int logn) {
 
 cudaError_t launch_chain_fwd(const float* obja, const float* objp, const float2* probe,
                              const float2* h, float* inten, int B, int pmode, int nz, int logn,
-                             int shared_probe, int kspace, cudaStream_t st) {
+                             int shared_probe, int h_shared, int kspace, cudaStream_t st) {
   const size_t smem = chain_smem_bytes(logn);
   cudaError_t err = cudaFuncSetAttribute(chain_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   chain_fwd_kernel<<<B * pmode, kThreads, smem, st>>>(obja, objp, probe, h, inten, pmode, nz,
-                                                     logn, shared_probe, kspace);
+                                                     logn, shared_probe, h_shared, kspace);
   return cudaGetLastError();
 }
 
 // Zeroes the outputs the backward accumulates into with atomics, then
-// launches it.
+// launches it; with dh (need_dh), then reduces the partials into dh (zero
+// for a single slice, which propagates nowhere).
 template <bool kLoss>
 cudaError_t launch_chain_bwd(const float* obja, const float* objp, const float2* probe,
                              const float2* h, const float* g, const float* meas,
                              const float* mask, const float* dp, const float* c, float2* stack,
-                             float* d_obja, float* d_objp, float2* d_probe, int B, int pmode,
-                             int nz, int logn, int shared_probe, int kspace, float p, float eps,
+                             float2* kstack, float2* dh_part, float2* dh, float* d_obja,
+                             float* d_objp, float2* d_probe, int B, int pmode, int nz, int logn,
+                             int shared_probe, int h_shared, int kspace, float p, float eps,
                              cudaStream_t st) {
   const size_t nn = size_t(1) << (2 * logn);
   const size_t obj_bytes = sizeof(float) * static_cast<size_t>(B) * nz * nn;
+  const bool with_dh = dh != nullptr && nz > 1;
   cudaError_t err = cudaMemsetAsync(d_obja, 0, obj_bytes, st);
   if (err == cudaSuccess) err = cudaMemsetAsync(d_objp, 0, obj_bytes, st);
   if (err == cudaSuccess && shared_probe) {
     err = cudaMemsetAsync(d_probe, 0, sizeof(float2) * static_cast<size_t>(pmode) * nn, st);
   }
+  if (err == cudaSuccess && dh != nullptr && !with_dh) {
+    err = cudaMemsetAsync(dh, 0, sizeof(float2) * (h_shared ? 1 : B) * nn, st);
+  }
   if (err != cudaSuccess) return err;
   const size_t smem = chain_smem_bytes(logn);
-  err = cudaFuncSetAttribute(chain_bwd_kernel<kLoss>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  // without dH the instantiation that never touches the dH scratch
+  auto kernel = with_dh ? chain_bwd_kernel<kLoss, true> : chain_bwd_kernel<kLoss, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  chain_bwd_kernel<kLoss><<<B * pmode, kThreads, smem, st>>>(
-      obja, objp, probe, h, g, meas, mask, dp, c, stack, d_obja, d_objp, d_probe, pmode, nz,
-      logn, shared_probe, kspace, p, eps);
-  return cudaGetLastError();
+  kernel<<<B * pmode, kThreads, smem, st>>>(obja, objp, probe, h, g, meas, mask, dp, c, stack,
+                                            kstack, dh_part, d_obja, d_objp, d_probe, pmode, nz,
+                                            logn, shared_probe, h_shared, kspace, p, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !with_dh) return err;
+  return dh::reduce(dh_part, dh, B, pmode, h_shared, logn, st);
 }
 
 }  // namespace
@@ -462,15 +520,15 @@ cudaError_t launch_chain_bwd(const float* obja, const float* objp, const float2*
 extern "C" {
 
 // B4a. obja, objp (B, 1, nz, N, N) f32; probe (B or 1, pmode, N, N)
-// complex64; h (N, N) complex64. Writes the inten (B, pmode, N, N) scratch
-// and dp (B, N, N), corner-centred.
+// complex64; h (B or 1, N, N) complex64 (h_shared: one H for all). Writes
+// the inten (B, pmode, N, N) scratch and dp (B, N, N), corner-centred.
 int ptyrad_dp_fwd(const float* obja, const float* objp, const float2* probe, const float2* h,
                   float* inten, float* dp, int B, int pmode, int nz, int logn, int shared_probe,
-                  int kspace, void* stream) {
+                  int h_shared, int kspace, void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, logn,
-                                     shared_probe, kspace, st);
+                                     shared_probe, h_shared, kspace, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(B) << (2 * logn);
   const size_t blocks = (total + kSumThreads - 1) / kSumThreads;
@@ -482,15 +540,17 @@ int ptyrad_dp_fwd(const float* obja, const float* objp, const float2* probe, con
 // B4b. As ptyrad_dp_fwd, plus g (B, N, N) the dp cotangent, corner-centred,
 // and stack (B, pmode, nz, N, N) complex64 scratch. Writes d_obja, d_objp
 // (B, 1, nz, N, N) and d_probe (the probe's shape); all three are zeroed
-// here where they accumulate.
+// here where they accumulate. With dh (H's shape) not null it also writes
+// the propagator cotangent, through the scratches kstack (B, pmode, nz - 1,
+// N, N) and dh_part (B, pmode, N, N).
 int ptyrad_dp_bwd(const float* obja, const float* objp, const float2* probe, const float2* h,
-                  const float* g, float2* stack, float* d_obja, float* d_objp, float2* d_probe,
-                  int B, int pmode, int nz, int logn, int shared_probe, int kspace,
-                  void* stream) {
+                  const float* g, float2* stack, float2* kstack, float2* dh_part, float2* dh,
+                  float* d_obja, float* d_objp, float2* d_probe, int B, int pmode, int nz,
+                  int logn, int shared_probe, int h_shared, int kspace, void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chain_bwd<false>(
-      obja, objp, probe, h, g, nullptr, nullptr, nullptr, nullptr, stack, d_obja, d_objp,
-      d_probe, B, pmode, nz, logn, shared_probe, kspace, 1.0f, 0.0f,
+      obja, objp, probe, h, g, nullptr, nullptr, nullptr, nullptr, stack, kstack, dh_part, dh,
+      d_obja, d_objp, d_probe, B, pmode, nz, logn, shared_probe, h_shared, kspace, 1.0f, 0.0f,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -500,11 +560,12 @@ int ptyrad_dp_bwd(const float* obja, const float* objp, const float2* probe, con
 int ptyrad_loss_fwd(const float* obja, const float* objp, const float2* probe, const float2* h,
                     const float* meas, const float* mask, float* inten, float* dp,
                     float* partial, float* sums, int B, int pmode, int nz, int logn,
-                    int shared_probe, int kspace, float p, float eps, void* stream) {
+                    int shared_probe, int h_shared, int kspace, float p, float eps,
+                    void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, logn,
-                                     shared_probe, kspace, st);
+                                     shared_probe, h_shared, kspace, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   loss_reduce_kernel<<<B, kReduceThreads, 0, st>>>(inten, meas, mask, dp, partial, pmode,
                                                    1 << (2 * logn), p, eps);
@@ -516,16 +577,19 @@ int ptyrad_loss_fwd(const float* obja, const float* objp, const float2* probe, c
 
 // B3b. As ptyrad_loss_fwd, plus dp (the forward's residual), c (scalar
 // cotangent of s1, on the device) and stack (B, pmode, nz, N, N) complex64
-// scratch. Writes d_obja, d_objp and d_probe as ptyrad_dp_bwd does.
+// scratch. Writes d_obja, d_objp, d_probe and (with dh) the propagator
+// cotangent as ptyrad_dp_bwd does.
 int ptyrad_loss_bwd(const float* obja, const float* objp, const float2* probe, const float2* h,
                     const float* meas, const float* mask, const float* dp, const float* c,
-                    float2* stack, float* d_obja, float* d_objp, float2* d_probe, int B,
-                    int pmode, int nz, int logn, int shared_probe, int kspace, float p,
-                    float eps, void* stream) {
+                    float2* stack, float2* kstack, float2* dh_part, float2* dh, float* d_obja,
+                    float* d_objp, float2* d_probe, int B, int pmode, int nz, int logn,
+                    int shared_probe, int h_shared, int kspace, float p, float eps,
+                    void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chain_bwd<true>(
-      obja, objp, probe, h, nullptr, meas, mask, dp, c, stack, d_obja, d_objp, d_probe, B,
-      pmode, nz, logn, shared_probe, kspace, p, eps, static_cast<cudaStream_t>(stream)));
+      obja, objp, probe, h, nullptr, meas, mask, dp, c, stack, kstack, dh_part, dh, d_obja,
+      d_objp, d_probe, B, pmode, nz, logn, shared_probe, h_shared, kspace, p, eps,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -128,7 +128,7 @@ def recon_loop(train_epoch, params: PtychoParams, batch_idx: np.ndarray,
         history.loss_iters.append((niter, total))
         history.term_iters.append(term_avgs)
         history.iter_times.append(iter_t)
-        history.dz_iters.append((niter, float(params.slice_thickness)))
+        history.dz_iters.append((niter, float(params.slice_thickness.detach())))
         history.avg_tilt_iters.append((niter, params.obj_tilts.detach().cpu().numpy().mean(0)))
 
         term_str = ", ".join(f"{k}: {v:.4f}" for k, v in term_avgs.items())
@@ -161,7 +161,8 @@ class PtyRADSolver:
             init_variables, self.model_params, self.device)
         self.recon_params = self.params_dict.get("recon_params", {}) or {}
         self.loss_params = self.params_dict.get("loss_params")
-        self.constraint_fn = ConstraintScheduler(self.params_dict.get("constraint_params"))
+        self.constraint_fn = ConstraintScheduler(self.params_dict.get("constraint_params"),
+                                                 self.geom)
         self.history = ReconHistory()
         self.batch_idx = None
         self.train_epoch = None

@@ -14,6 +14,7 @@ from ptyrad_tpu_torch.models.forward import (
     get_obj_patches,
     get_probes,
     multislice_dp,
+    tilt_ramp,
 )
 
 __all__ = [
@@ -30,4 +31,5 @@ __all__ = [
     "get_obj_patches",
     "get_probes",
     "get_measurements",
+    "tilt_ramp",
 ]

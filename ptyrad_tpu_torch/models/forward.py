@@ -16,6 +16,15 @@ kernels' shapes, looped over object modes; else the segmented chain
 them runs its plain torch.fft version, so the CPU tests cover the dispatch
 the card runs. Outside both rules a CUDA tensor raises and the CPU runs
 ``multislice_dp``, the eager torch.fft chain that is also the oracle.
+
+Optimizable slice thickness or tilts (need_dh) make the propagator H
+depend on parameters, and a per-position tilt makes it (B, N, N): every
+kernel takes both, and its backward returns dH whenever H requires a
+gradient, for autograd to carry on to dz and the tilts. One route differs
+from the JAX package: at tBL shapes with per-position probes the JAX
+package declines B3 under need_dh (its VMEM model gives 13.77 MB against a
+13 MiB budget) and runs B4, while the card's rule keeps B3 (dH goes
+through device scratch); the numbers are the same either way.
 """
 
 from __future__ import annotations
@@ -60,20 +69,26 @@ def get_probes(params: PtychoParams, geom: Geometry, indices: torch.Tensor) -> t
     return params.probe[None]
 
 
+def tilt_ramp(Ky: torch.Tensor, Kx: torch.Tensor, tilts: torch.Tensor, dz) -> torch.Tensor:
+    """exp(i dz (Ky tan ty + Kx tan tx)), complex (B, Ny, Nx), for tilts
+    (B, 2) in mrad (ty, tx): the factor a crystal tilt puts on H."""
+    ty = torch.tan(tilts[:, 0, None, None] / 1e3)
+    tx = torch.tan(tilts[:, 1, None, None] / 1e3)
+    return _expi(dz * (Ky[None] * ty + Kx[None] * tx))
+
+
 def compute_propagators(params: PtychoParams, buffers: Buffers, geom: Geometry,
                         indices: torch.Tensor) -> torch.Tensor:
     """Inter-slice propagators, complex (1 or B, Ny, Nx):
     base = exp(i dz Kz) if dz is optimizable else the precomputed H, times
     exp(i dz (Ky tan ty + Kx tan tx)) when tilts are active (global or
-    per position)."""
+    per position; tilt_ramp)."""
     dz = params.slice_thickness
     base = _expi(dz * buffers.Kz) if geom.change_thickness else buffers.H
     if not geom.tilt_obj:
         return base[None]
     tilts = params.obj_tilts if geom.global_tilt else params.obj_tilts[indices]
-    ty = torch.tan(tilts[:, 0, None, None] / 1e3)
-    tx = torch.tan(tilts[:, 1, None, None] / 1e3)
-    return base[None] * _expi(dz * (buffers.Ky[None] * ty + buffers.Kx[None] * tx))
+    return base[None] * tilt_ramp(buffers.Ky, buffers.Kx, tilts, dz)
 
 
 def multislice_dp(obja_patches: torch.Tensor, objp_patches: torch.Tensor,
@@ -132,12 +147,12 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
     own rules (forward_route). The fused route hands the kernel the shifted
     probe spectrum when positions are optimized (the inverse transform runs
     inside it), loops over object modes weighted by omode_occu, then applies
-    fftshift and eps to the sum.
+    fftshift and eps to the sum. With optimizable dz or tilts (need_dh) the
+    kernels' backwards return dH, shared or per position.
     """
     route = forward_route(params, geom, indices)
     obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
     H = compute_propagators(params, buffers, geom, indices)
-    need_dh = geom.change_thickness or geom.tilt_obj
     if route == "fused":
         if geom.shift_probes:
             probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices])
@@ -146,13 +161,13 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
         raw = None
         for om in range(obja_p.shape[1]):
             dp_om = multislice_dp_fused(obja_p[:, om:om + 1], objp_p[:, om:om + 1], probe, H,
-                                        need_dh=need_dh, probe_kspace=geom.shift_probes)
+                                        probe_kspace=geom.shift_probes)
             contrib = buffers.omode_occu[om] * dp_om
             raw = contrib if raw is None else raw + contrib
         dp = fftshift2(raw) + geom.eps
     elif route == "chain":
         dp = multislice_dp_chain(obja_p, objp_p, get_probes(params, geom, indices), H,
-                                 buffers.omode_occu, geom.eps, need_dh=need_dh)
+                                 buffers.omode_occu, geom.eps)
     else:
         dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, indices), H,
                            buffers.omode_occu, eps=geom.eps)
@@ -188,7 +203,8 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     The chain returns the corner-centred partial sums, so the measurements are
     ifftshifted to match (pixel sums are permutation-invariant). The single
     object mode's weight omode_occu[0] is folded into the probe as its square
-    root: dp is quadratic in psi.
+    root: dp is quadratic in psi. With optimizable dz or tilts B3b returns
+    dH too, for a shared or per-position H.
     """
     cfg = merge_loss_params(loss_params)
     if (not cfg["loss_single"]["state"] or cfg["loss_poissn"]["state"]
@@ -204,7 +220,6 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
         return None
     obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
     H = compute_propagators(params, buffers, geom, indices)
-    h_differentiable = geom.change_thickness or geom.tilt_obj
 
     occu_root = torch.sqrt(buffers.omode_occu[0])
     if geom.shift_probes:
@@ -221,7 +236,7 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     sp = cfg["loss_single"]
     s1, s2 = multislice_loss_sums_fused(
         obja_p, objp_p, probe, H, meas_cc, mask_b, float(sp.get("dp_pow", 0.5)),
-        float(geom.eps), need_dh=h_differentiable, probe_kspace=kspace,
+        float(geom.eps), probe_kspace=kspace,
     )
     denom = obja_p.shape[3] * obja_p.shape[4] * mask_b.sum()
     single = sp["weight"] * torch.sqrt(s1 / denom) / (s2 / denom)

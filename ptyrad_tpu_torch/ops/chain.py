@@ -20,9 +20,14 @@ except that the chain's final slice does not propagate (``last`` /
 - ``multislice_dp_chain``: the composition, B6 over the uniform segments and B5
   for the ragged tail, then the far-field intensity in plain torch.
 
+H is shared (1, N, N) or per position (B, N, N). When H requires a
+gradient (optimizable slice thickness or tilts: need_dh), each backward
+also returns its cotangent dH in H's shape; autograd sums the calls'.
+
 On a CPU tensor every wrapper runs its plain version (torch.fft under
 autograd). On a CUDA tensor it launches the hand-written kernels of
-``csrc/chain.cu`` or raises; they compute no propagator gradient (need_dh).
+``csrc/chain.cu`` (B5b and B6b compute dH only when autograd asks for it)
+or raises.
 """
 
 from __future__ import annotations
@@ -116,6 +121,25 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _bwd_scratch(g, sg, h, need_dh):
+    """(scratch, work, kscr, dh_part, dh) of a backward launch: the rebuilt
+    slice-entry states (sg - 1 fields like g) and one working field; with
+    need_dh the K of each slice (sg fields), the per-(sample, mode) dH
+    partials (one field) and dH in h's shape, else three Nones."""
+    field = lambda k: torch.empty((k, *g.shape), dtype=g.dtype, device=g.device)  # noqa: E731
+    scratch, work = field(sg - 1), torch.empty_like(g)
+    if not need_dh:
+        return scratch, work, None, None, None
+    return scratch, work, field(sg), torch.empty_like(g), torch.empty_like(h)
+
+
+def _count_bwd(fn, d_h) -> None:
+    """One launch of a backward; launches_dh counts those that computed dH."""
+    fn.launches += 1
+    if d_h is not None:
+        fn.launches_dh += 1
+
+
 def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool):
     """Kernel B5a: the segment's exit wavefield."""
     sg = a_seg.shape[1]
@@ -132,27 +156,28 @@ def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool):
 segment_fwd_cuda.launches = 0
 
 
-def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool):
-    """Kernel B5b: from the exit cotangent g, (d psi, d a_seg, d p_seg)."""
+def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False):
+    """Kernel B5b: from the exit cotangent g, (d psi, d a_seg, d p_seg,
+    d h), d h None unless need_dh."""
     sg = a_seg.shape[1]
     b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
     if tuple(g.shape) != tuple(psi.shape) or g.dtype != psi.dtype or not g.is_contiguous():
         raise ValueError("segment_bwd_cuda: g must be a contiguous tensor like psi")
-    scratch = torch.empty((sg - 1, *psi.shape), dtype=psi.dtype, device=psi.device)
-    work = torch.empty_like(psi)
+    scratch, work, kscr, dh_part, d_h = _bwd_scratch(g, sg, h, need_dh)
     d_psi = torch.empty_like(psi)
     d_a = torch.empty(a_seg.shape, dtype=torch.float32, device=psi.device)
     d_p = torch.empty_like(d_a)
     err = _build.lib().ptyrad_chain_segment_bwd(
         g.data_ptr(), psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0),
-        h.data_ptr(), scratch.data_ptr(), work.data_ptr(), d_a.data_ptr(), d_p.data_ptr(),
-        d_psi.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), _stream(psi))
+        h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
+        _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi.data_ptr(),
+        b, pmode, sg, logn, h_shared, int(bool(last)), _stream(psi))
     _build.check(err, "chain_segment_bwd")
-    segment_bwd_cuda.launches += 1
-    return d_psi, d_a, d_p
+    _count_bwd(segment_bwd_cuda, d_h)
+    return d_psi, d_a, d_p, d_h
 
 
-segment_bwd_cuda.launches = 0
+segment_bwd_cuda.launches = segment_bwd_cuda.launches_dh = 0
 
 
 def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool):
@@ -175,9 +200,10 @@ def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool):
 stack_fwd_cuda.launches = 0
 
 
-def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool):
+def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool,
+                   need_dh: bool = False):
     """Kernel B6b: from the exit cotangent g and B6a's stack,
-    (d psi0, d a_main, d p_main)."""
+    (d psi0, d a_main, d p_main, d h), d h None unless need_dh."""
     nz_main = a_main.shape[1]
     _check_uniform(nz_main, sg)
     n_seg = nz_main // sg
@@ -186,22 +212,21 @@ def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool):
     b, pmode, logn, h_shared = _dims(g, a_main, p_main, h, nz_main)
     if tuple(stack[:, 0].shape) != tuple(g.shape) or stack.dtype != g.dtype:
         raise ValueError("stack_bwd_cuda: each stack entry must be shaped like g")
-    scratch = torch.empty((sg - 1, *g.shape), dtype=g.dtype, device=g.device)
-    work = torch.empty_like(g)
+    scratch, work, kscr, dh_part, d_h = _bwd_scratch(g, sg, h, need_dh)
     d_psi0 = torch.empty_like(g)
     d_a = torch.empty(a_main.shape, dtype=torch.float32, device=g.device)
     d_p = torch.empty_like(d_a)
     err = _build.lib().ptyrad_chain_stack_bwd(
         g.data_ptr(), stack.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0),
-        h.data_ptr(), scratch.data_ptr(), work.data_ptr(), d_a.data_ptr(), d_p.data_ptr(),
-        d_psi0.data_ptr(), b, pmode, n_seg, sg, logn, h_shared, int(bool(last_mega)),
-        _stream(g))
+        h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
+        _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi0.data_ptr(),
+        b, pmode, n_seg, sg, logn, h_shared, int(bool(last_mega)), _stream(g))
     _build.check(err, "chain_stack_bwd")
-    stack_bwd_cuda.launches += 1
-    return d_psi0, d_a, d_p
+    _count_bwd(stack_bwd_cuda, d_h)
+    return d_psi0, d_a, d_p, d_h
 
 
-stack_bwd_cuda.launches = 0
+stack_bwd_cuda.launches = stack_bwd_cuda.launches_dh = 0
 
 
 class _SegmentCuda(torch.autograd.Function):
@@ -214,8 +239,9 @@ class _SegmentCuda(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         psi, a_seg, p_seg, h = ctx.saved_tensors
-        d_psi, d_a, d_p = segment_bwd_cuda(g.contiguous(), psi, a_seg, p_seg, h, ctx.last)
-        return d_psi, d_a, d_p, None, None
+        d_psi, d_a, d_p, d_h = segment_bwd_cuda(g.contiguous(), psi, a_seg, p_seg, h, ctx.last,
+                                                ctx.needs_input_grad[3])
+        return d_psi, d_a, d_p, d_h, None
 
 
 class _StackCuda(torch.autograd.Function):
@@ -229,14 +255,9 @@ class _StackCuda(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         stack, a_main, p_main, h = ctx.saved_tensors
-        d_psi0, d_a, d_p = stack_bwd_cuda(g.contiguous(), stack, a_main, p_main, h, *ctx.consts)
-        return d_psi0, d_a, d_p, None, None, None
-
-
-def _no_dh() -> None:
-    raise NotImplementedError(
-        "the CUDA chain kernels compute no propagator gradient (need_dh): optimizable "
-        "slice thickness or tilts wait for ROADMAP queue A, item 2")
+        d_psi0, d_a, d_p, d_h = stack_bwd_cuda(g.contiguous(), stack, a_main, p_main, h,
+                                               *ctx.consts, need_dh=ctx.needs_input_grad[3])
+        return d_psi0, d_a, d_p, d_h, None, None
 
 
 def chain_segment(psi, a_seg, p_seg, h, last: bool):
@@ -244,8 +265,6 @@ def chain_segment(psi, a_seg, p_seg, h, last: bool):
     p_seg (B, Sg, N, N)); see the module docstring. B5 on CUDA."""
     if psi.device.type == "cpu":
         return chain_segment_plain(psi, a_seg, p_seg, h, last)
-    if h.requires_grad:
-        _no_dh()
     return _SegmentCuda.apply(psi.contiguous(), a_seg, p_seg, h.contiguous(), bool(last))
 
 
@@ -267,14 +286,12 @@ def chain_stack(psi0, a_main, p_main, h, sg: int, last_mega: bool):
         return psi
     if psi0.device.type == "cpu":
         return chain_stack_plain(psi0, a_main, p_main, h, sg, last_mega)
-    if h.requires_grad:
-        _no_dh()
     return _StackCuda.apply(psi0.contiguous(), a_main, p_main, h.contiguous(), int(sg),
                             bool(last_mega))
 
 
 def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: float,
-                        need_dh: bool = False, seg_override: int | None = None):
+                        seg_override: int | None = None):
     """Far-field intensity (B, N, N), centred, with the omode_occu weights
     and eps, through the segmented chain: a drop-in for multislice_dp.
 
@@ -283,12 +300,11 @@ def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: 
     incoherently; the uniform segments run as chain_stack, the ragged tail
     as chain_segment; the far-field fft2, the mode sum and fftshift are
     plain torch, as in the JAX package where they sit outside the kernels.
-    need_dh: H carries a gradient; the plain version gives it through
-    autograd, the CUDA kernels raise.
+    When H requires a gradient (the JAX package's need_dh), both versions
+    give its cotangent: the plain one through autograd, B5b/B6b through
+    their dH halves.
     """
     b, omode, nz, n, _ = obja_patches.shape
-    if need_dh and obja_patches.device.type != "cpu":
-        _no_dh()
     sg = seg_override or best_sg(nz)
     psi0 = probes.expand(b, *probes.shape[1:])
     n_seg_uniform = nz // sg

@@ -17,12 +17,16 @@ carries the gradient; s2 depends on the measurements only. B4 returns the
 raw dp: the caller weights object modes, applies fftshift and adds eps
 (models/forward.py).
 
+The propagator H is shared (1, N, N) or per position (B, N, N). When H
+depends on optimizable parameters (slice thickness or tilts: need_dh), the
+backward also returns its cotangent dH in H's shape.
+
 On a CPU tensor each entry point runs its plain version (``multislice_dp_plain``,
 ``loss_sums_plain``), the torch.fft chain under autograd. On a CUDA tensor it
 runs the hand-written kernels of ``csrc/multislice.cu`` through an
 autograd.Function whose forward is B4a (B3a) and whose backward is B4b
-(B3b), or raises: the kernels take omode 1, a shared propagator and N a
-power of two up to 128, and compute no propagator gradient.
+(B3b), computing dH only when autograd asks for H's gradient, or raises:
+the kernels take omode 1 and N a power of two up to 128.
 """
 
 from __future__ import annotations
@@ -82,9 +86,9 @@ def fused_applicable_shapes(b, omode, nz, ny, nx, probe_b, pmode, h_b) -> bool:
     in one block's shared memory), and a shared or per-position probe. Pure
     shape logic, the counterpart of
     ptyrad_tpu/ops/pallas_multislice.py:fused_applicable_shapes; omode (the
-    callers loop object modes), nz, pmode and h_b do not limit the kernels'
-    shared memory, and a per-position H or need_dh raise inside the regime
-    (ROADMAP queue A, item 2)."""
+    callers loop object modes), nz, pmode, h_b and need_dh do not limit the
+    kernels' shared memory (dH goes through device scratch), so unlike the
+    JAX rule nothing else declines."""
     return ny == nx and 2 <= nx <= MAX_N and not nx & (nx - 1) and probe_b in (1, b)
 
 
@@ -97,9 +101,10 @@ def _shape_info(obja_p, probe, h):
                          f"of two <= {MAX_N}; got {ny}x{nx}")
     if probe.shape[0] not in (1, b) or tuple(probe.shape[2:]) != (ny, nx):
         raise ValueError(f"probe must be (1 or {b}, pmode, {ny}, {nx}), got {tuple(probe.shape)}")
-    if tuple(h.shape) != (1, ny, nx):
-        raise ValueError(f"propagator must be (1, {ny}, {nx}), got {tuple(h.shape)}")
-    return b, nz, nx.bit_length() - 1, probe.shape[1], int(probe.shape[0] == 1)
+    if h.shape[0] not in (1, b) or tuple(h.shape[1:]) != (ny, nx):
+        raise ValueError(f"propagator must be (1 or {b}, {ny}, {nx}), got {tuple(h.shape)}")
+    return (b, nz, nx.bit_length() - 1, probe.shape[1], int(probe.shape[0] == 1),
+            int(h.shape[0] == 1))
 
 
 def _check(name, tensors):
@@ -121,10 +126,32 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(fn, h_shared, dh=None) -> None:
+    """One launch of fn; launches_h_each counts those on a per-position H,
+    launches_dh (backwards) those that computed dH."""
+    fn.launches += 1
+    if not h_shared:
+        fn.launches_h_each += 1
+    if dh is not None:
+        fn.launches_dh += 1
+
+
+def _dh_scratch(b, pmode, nz, n, h, need_dh):
+    """(kstack, dh_part, dh) for a backward launch: the K_z scratch (B,
+    pmode, nz - 1, N, N), the per-wavefield partials (B, pmode, N, N) and dH
+    in h's shape; three Nones without need_dh."""
+    if not need_dh:
+        return None, None, None
+    dev = h.device
+    kstack = torch.empty((b, pmode, max(nz - 1, 1), n, n), dtype=torch.complex64, device=dev)
+    dh_part = torch.empty((b, pmode, n, n), dtype=torch.complex64, device=dev)
+    return kstack, dh_part, torch.empty_like(h)
+
+
 def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool):
     """Kernel B4a (the chain, then the mode sum in mode order): dp (B, N, N),
     corner-centred."""
-    b, nz, logn, pmode, shared = _shape_info(obja_p, probe, h)
+    b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     n = 1 << logn
     _check("dp_fwd_cuda", _inputs(obja_p, objp_p, probe, h))
     dev = obja_p.device
@@ -132,19 +159,21 @@ def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool):
     dp = torch.empty((b, n, n), dtype=torch.float32, device=dev)
     err = _build.lib().ptyrad_dp_fwd(
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), inten.data_ptr(),
-        dp.data_ptr(), b, pmode, nz, logn, shared, int(bool(probe_kspace)), _stream(obja_p))
+        dp.data_ptr(), b, pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)),
+        _stream(obja_p))
     _build.check(err, "dp_fwd")
-    dp_fwd_cuda.launches += 1
+    _count(dp_fwd_cuda, h_shared)
     return dp
 
 
-dp_fwd_cuda.launches = 0
+dp_fwd_cuda.launches = dp_fwd_cuda.launches_h_each = 0
 
 
-def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool):
+def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool = False):
     """Kernel B4b: recomputes the chain and walks it back from g, the
-    cotangent of dp (B, N, N). Returns (d obja_p, d objp_p, d probe)."""
-    b, nz, logn, pmode, shared = _shape_info(obja_p, probe, h)
+    cotangent of dp (B, N, N). Returns (d obja_p, d objp_p, d probe, d h),
+    d h None unless need_dh."""
+    b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     n = 1 << logn
     _check("dp_bwd_cuda", _inputs(obja_p, objp_p, probe, h, g=g))
     if tuple(g.shape) != (b, n, n):
@@ -153,21 +182,24 @@ def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool):
     d_obja = torch.empty_like(obja_p)
     d_objp = torch.empty_like(objp_p)
     d_probe = torch.empty_like(probe)
+    kstack, dh_part, d_h = _dh_scratch(b, pmode, nz, n, h, need_dh)
     err = _build.lib().ptyrad_dp_bwd(
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), g.data_ptr(),
-        stack.data_ptr(), d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), b, pmode,
-        nz, logn, shared, int(bool(probe_kspace)), _stream(obja_p))
+        stack.data_ptr(), _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h),
+        d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), b, pmode, nz, logn, shared,
+        h_shared, int(bool(probe_kspace)), _stream(obja_p))
     _build.check(err, "dp_bwd")
-    dp_bwd_cuda.launches += 1
-    return d_obja, d_objp, d_probe
+    _count(dp_bwd_cuda, h_shared, d_h)
+    return d_obja, d_objp, d_probe, d_h
 
 
-dp_bwd_cuda.launches = 0
+dp_bwd_cuda.launches = dp_bwd_cuda.launches_h_each = dp_bwd_cuda.launches_dh = 0
 
 
 class _DpCuda(torch.autograd.Function):
     """B4a forward, B4b backward; saves only the inputs, as the JAX
-    residuals do (pallas_multislice.py:425)."""
+    residuals do (pallas_multislice.py:425). dH is computed only when
+    autograd asks for H's gradient."""
 
     @staticmethod
     def forward(ctx, obja_p, objp_p, probe, h, probe_kspace):
@@ -178,37 +210,23 @@ class _DpCuda(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         obja_p, objp_p, probe, h = ctx.saved_tensors
-        d_obja, d_objp, d_probe = dp_bwd_cuda(obja_p, objp_p, probe, h, g.contiguous(),
-                                              ctx.probe_kspace)
-        return d_obja, d_objp, d_probe, None, None
+        d_obja, d_objp, d_probe, d_h = dp_bwd_cuda(obja_p, objp_p, probe, h, g.contiguous(),
+                                                   ctx.probe_kspace, ctx.needs_input_grad[3])
+        return d_obja, d_objp, d_probe, d_h, None
 
 
-def _check_regime(need_dh: bool, h) -> None:
-    """What the CUDA kernels do not compute yet raises (ROADMAP queue A, item 2)."""
-    if need_dh:
-        raise NotImplementedError(
-            "the CUDA fused kernels (B3, B4) compute no propagator gradient (need_dh): "
-            "optimizable slice thickness or tilts wait for ROADMAP queue A, item 2")
-    if h.shape[0] != 1:
-        raise NotImplementedError(
-            "the CUDA fused kernels (B3, B4) take one shared propagator; a per-position H "
-            "waits for ROADMAP queue A, item 2")
-
-
-def multislice_dp_fused(obja_p, objp_p, probe, h, need_dh: bool = False,
-                        probe_kspace: bool = False):
+def multislice_dp_fused(obja_p, objp_p, probe, h, probe_kspace: bool = False):
     """Raw dp (B, N, N), corner-centred (the caller applies the object-mode
     weight, fftshift and eps); see the module docstring.
 
-    need_dh: H depends on optimizable parameters (slice thickness or tilts),
-    so its cotangent is needed. The plain version gets it from autograd; the
-    CUDA kernels do not compute it yet and raise. probe_kspace: the probe is
-    the shifted spectrum (ops/shift.py:fourier_shift_kspace), transformed
-    inside the kernel.
+    When h requires a gradient (optimizable slice thickness or tilts: the
+    JAX package's need_dh), both versions give its cotangent: the plain one
+    through autograd, the kernels through B4b's dH half. probe_kspace: the
+    probe is the shifted spectrum (ops/shift.py:fourier_shift_kspace),
+    transformed inside the kernel.
     """
     if obja_p.device.type == "cpu":
         return multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace)
-    _check_regime(need_dh, h)
     return _DpCuda.apply(obja_p.contiguous(), objp_p.contiguous(), probe.contiguous(),
                          h.contiguous(), bool(probe_kspace))
 
@@ -218,7 +236,7 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
     """Kernel B3a (chain, the per-sample mode reduction, the sum over
     samples). Returns (s1, s2, dp) with dp (B, N, N) the corner-centred
     intensity kept for the backward."""
-    b, nz, logn, pmode, shared = _shape_info(obja_p, probe, h)
+    b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     n = 1 << logn
     _check("loss_sums_fwd_cuda", _inputs(obja_p, objp_p, probe, h, meas_cc=meas_cc, mask=mask))
     if tuple(meas_cc.shape) != (b, n, n) or tuple(mask.shape) != (b,):
@@ -231,21 +249,22 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
     err = _build.lib().ptyrad_loss_fwd(
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), inten.data_ptr(), dp.data_ptr(),
-        partial.data_ptr(), sums.data_ptr(), b, pmode, nz, logn, shared,
+        partial.data_ptr(), sums.data_ptr(), b, pmode, nz, logn, shared, h_shared,
         int(bool(probe_kspace)), float(dp_pow), float(eps), _stream(obja_p))
     _build.check(err, "loss_sums_fwd")
-    loss_sums_fwd_cuda.launches += 1
+    _count(loss_sums_fwd_cuda, h_shared)
     return sums[0], sums[1], dp
 
 
-loss_sums_fwd_cuda.launches = 0
+loss_sums_fwd_cuda.launches = loss_sums_fwd_cuda.launches_h_each = 0
 
 
 def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: float,
-                       eps: float, probe_kspace: bool):
+                       eps: float, probe_kspace: bool, need_dh: bool = False):
     """Kernel B3b: recomputes the chain and walks it back. c is the upstream
-    cotangent of s1 (a device scalar). Returns (d obja_p, d objp_p, d probe)."""
-    b, nz, logn, pmode, shared = _shape_info(obja_p, probe, h)
+    cotangent of s1 (a device scalar). Returns (d obja_p, d objp_p, d probe,
+    d h), d h None unless need_dh."""
+    b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     n = 1 << logn
     _check("loss_sums_bwd_cuda",
            _inputs(obja_p, objp_p, probe, h, meas_cc=meas_cc, mask=mask, dp=dp, c=c))
@@ -255,17 +274,20 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
     d_obja = torch.empty_like(obja_p)
     d_objp = torch.empty_like(objp_p)
     d_probe = torch.empty_like(probe)
+    kstack, dh_part, d_h = _dh_scratch(b, pmode, nz, n, h, need_dh)
     err = _build.lib().ptyrad_loss_bwd(
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), dp.data_ptr(), c.data_ptr(), stack.data_ptr(),
-        d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), b, pmode, nz, logn, shared,
+        _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h), d_obja.data_ptr(),
+        d_objp.data_ptr(), d_probe.data_ptr(), b, pmode, nz, logn, shared, h_shared,
         int(bool(probe_kspace)), float(dp_pow), float(eps), _stream(obja_p))
     _build.check(err, "loss_sums_bwd")
-    loss_sums_bwd_cuda.launches += 1
-    return d_obja, d_objp, d_probe
+    _count(loss_sums_bwd_cuda, h_shared, d_h)
+    return d_obja, d_objp, d_probe, d_h
 
 
-loss_sums_bwd_cuda.launches = 0
+loss_sums_bwd_cuda.launches = loss_sums_bwd_cuda.launches_h_each = 0
+loss_sums_bwd_cuda.launches_dh = 0
 
 
 class _LossSumsCuda(torch.autograd.Function):
@@ -282,23 +304,22 @@ class _LossSumsCuda(torch.autograd.Function):
     def backward(ctx, g1, _g2):
         obja_p, objp_p, probe, h, meas_cc, mask, dp = ctx.saved_tensors
         c = g1.reshape(()).to(torch.float32).contiguous()
-        d_obja, d_objp, d_probe = loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask,
-                                                     dp, c, *ctx.consts)
-        return d_obja, d_objp, d_probe, None, None, None, None, None, None
+        d_obja, d_objp, d_probe, d_h = loss_sums_bwd_cuda(
+            obja_p, objp_p, probe, h, meas_cc, mask, dp, c, *ctx.consts,
+            need_dh=ctx.needs_input_grad[3])
+        return d_obja, d_objp, d_probe, d_h, None, None, None, None, None
 
 
 def multislice_loss_sums_fused(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float,
-                               eps: float, need_dh: bool = False, probe_kspace: bool = False):
+                               eps: float, probe_kspace: bool = False):
     """(s1, s2) of the loss_single data term; see the module docstring.
 
-    need_dh: H depends on optimizable parameters (slice thickness or tilts),
-    so its cotangent is needed. The plain version gets it from autograd; the
-    CUDA kernels do not compute it yet and raise.
+    As for multislice_dp_fused, both versions give h's cotangent when h
+    requires a gradient (B3b's dH half on CUDA).
     """
     if obja_p.device.type == "cpu":
         return loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow, eps,
                                probe_kspace)
-    _check_regime(need_dh, h)
     return _LossSumsCuda.apply(obja_p.contiguous(), objp_p.contiguous(), probe.contiguous(),
                                h.contiguous(), meas_cc.contiguous(), mask.contiguous(),
                                float(dp_pow), float(eps), bool(probe_kspace))

@@ -3,9 +3,12 @@ the edge cases that chip_smoke.py's tBL and PSO shapes do not reach: small
 and odd patch sizes, one slice, one mode, every probe layout, other loss
 powers, a masked sample, the whole loss-folded path, the plain fused chain
 (B4) and forward() through it with two object modes and detector blur, the
-segmented chain (B5/B6) with `last` / `last_mega` both ways, per-position H
-and the grad-off route, and short tBL-like, low-dose and PSO-like solver
-runs.
+segmented chain (B5/B6) with `last` / `last_mega` both ways and the
+grad-off route, and short tBL-like, low-dose and PSO-like solver runs, with
+optimizable slice thickness and tilts too. Every kernel test runs on a
+shared and a per-position H, each with and without its gradient (need_dh):
+with it, the propagator cotangent dH of the backward (B3b, B4b, B5b, B6b)
+is compared as well.
 
 Marked ``cuda``: skipped without a GPU. On a machine with one (and no JAX,
 which tests/conftest.py imports) run
@@ -20,8 +23,12 @@ B4 is held the same way: dp at 1e-4 of its largest value, each cotangent at
 1e-4 of its largest entry (atomic sums over modes, and over samples for a
 shared probe).
 B5/B6 sum over modes without atomics and repeat bit for bit; they are held
-at 1e-4 of the largest entry of each output or cotangent.
+at 1e-4 of the largest entry of each output or cotangent. dH is summed in a
+fixed order by every kernel (no atomics) and repeats bit for bit; it is held
+at 1e-4 of its largest entry.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -76,44 +83,75 @@ def _chain_inputs(dev, gen, b, pmode, nz, n, probe_layout):
     return obja, objp, probe, h, meas, mask
 
 
+# H cases of every kernel test: shared (1, N, N) or per position (B, N, N),
+# and with "_dh" H wants a gradient, so the backward computes dH (need_dh)
+H_CASES = ["shared", "each", "shared_dh", "each_dh"]
+
+
+def _h_case(dev, gen, h, b, n, h_case):
+    """(H, need_dh) of an H case; h is the shared H."""
+    if h_case.startswith("each"):
+        h = torch.exp(1j * torch.rand((b, n, n), generator=gen, device=dev) * 6.0).to(
+            torch.complex64)
+    return h, h_case.endswith("_dh")
+
+
+def _grad(t):
+    """t's gradient; zero where autograd gave none (an H that no propagation
+    uses, with a single slice: the kernels return zero there)."""
+    return t.grad if t.grad is not None else torch.zeros_like(t)
+
+
 @pytest.mark.parametrize("b,pmode,nz,n", [(3, 2, 1, 16), (2, 1, 2, 2), (4, 3, 6, 64),
                                           (2, 6, 6, 128)])
 @pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])
 @pytest.mark.parametrize("p", [0.5, 1.0, 0.3])
-def test_loss_chain_kernels(dev, gen, b, pmode, nz, n, probe_layout, p):
+@pytest.mark.parametrize("h_case", H_CASES)
+def test_loss_chain_kernels(dev, gen, b, pmode, nz, n, probe_layout, p, h_case):
+    """B3a, then B3b through autograd, against loss_sums_plain; with "_dh"
+    dH too, which repeats bit for bit (a fixed-order sum)."""
     from ptyrad_tpu_torch.ops import fused_multislice as M
 
     kspace = probe_layout.endswith("kspace")
     obja, objp, probe, h, meas, mask = _chain_inputs(dev, gen, b, pmode, nz, n, probe_layout)
+    h, need_dh = _h_case(dev, gen, h, b, n, h_case)
     eps = 1e-10
-    leaves_k = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
-    leaves_p = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
-    launches = M.loss_sums_fwd_cuda.launches, M.loss_sums_bwd_cuda.launches
-    s1k, s2k = M.multislice_loss_sums_fused(*leaves_k, h, meas, mask, p, eps,
-                                            probe_kspace=kspace)
-    s1p, s2p = M.loss_sums_plain(*leaves_p, h, meas, mask, p, eps, kspace)
+    bwd = M.loss_sums_bwd_cuda
+    launches = M.loss_sums_fwd_cuda.launches, bwd.launches, bwd.launches_dh
+
+    def run(fused):
+        leaves = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+        leaves.append(h.clone().requires_grad_(need_dh))
+        if fused:
+            s1, s2 = M.multislice_loss_sums_fused(*leaves, meas, mask, p, eps,
+                                                  probe_kspace=kspace)
+        else:
+            s1, s2 = M.loss_sums_plain(*leaves, meas, mask, p, eps, kspace)
+        (0.7 * s1).backward()
+        return s1.detach(), s2, leaves
+
+    s1k, s2k, leaves_k = run(True)
+    s1p, s2p, leaves_p = run(False)
     torch.testing.assert_close(s1k, s1p, rtol=1e-4, atol=0)
     torch.testing.assert_close(s2k, s2p, rtol=1e-4, atol=0)
-    (0.7 * s1k).backward()
-    (0.7 * s1p).backward()
-    assert (M.loss_sums_fwd_cuda.launches, M.loss_sums_bwd_cuda.launches) == (
-        launches[0] + 1, launches[1] + 1)
-    for name, a, r in zip(("obja", "objp", "probe"), leaves_k, leaves_p):
-        scale = float(r.grad.abs().max())
-        torch.testing.assert_close(a.grad, r.grad, rtol=0, atol=1e-4 * scale,
+    assert (M.loss_sums_fwd_cuda.launches, bwd.launches, bwd.launches_dh) == (
+        launches[0] + 1, launches[1] + 1, launches[2] + need_dh)
+    names = ("obja", "objp", "probe", "h")[:3 + need_dh]
+    for name, a, r in zip(names, leaves_k, leaves_p):
+        scale = float(_grad(r).abs().max())
+        torch.testing.assert_close(a.grad, _grad(r), rtol=0, atol=1e-4 * scale,
                                    msg=lambda m, name=name: f"d {name}: {m}")
     assert float(leaves_k[0].grad[-1].abs().max()) == 0.0  # the masked sample
+    if need_dh:
+        assert leaves_k[3].grad.shape == h.shape
+        torch.testing.assert_close(run(True)[2][3].grad, leaves_k[3].grad, rtol=0, atol=0)
 
 
 def test_unsupported_cases_raise(dev, gen):
+    """N beyond 128 raises instead of falling back."""
     from ptyrad_tpu_torch.ops import fused_multislice as M
 
-    obja, objp, probe, h, meas, mask = _chain_inputs(dev, gen, 2, 2, 2, 16, "each")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.multislice_loss_sums_fused(obja, objp, probe, h, meas, mask, 0.5, 1e-10, need_dh=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.multislice_loss_sums_fused(obja, objp, probe, h.expand(2, 16, 16), meas, mask, 0.5,
-                                     1e-10)
+    _, _, probe, h, meas, mask = _chain_inputs(dev, gen, 2, 2, 2, 16, "each")
     big = torch.ones((2, 1, 1, 256, 256), device=dev)
     with pytest.raises(ValueError, match="power of two"):
         M.multislice_loss_sums_fused(big, big, probe, h, meas, mask, 0.5, 1e-10)
@@ -211,38 +249,46 @@ def test_solver_cuda_matches_cpu(dev):
 @pytest.mark.parametrize("pmode", [1, 6])
 @pytest.mark.parametrize("nz", [1, 6])
 @pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])
-def test_dp_chain_kernels(dev, gen, n, pmode, nz, probe_layout):
+@pytest.mark.parametrize("h_case", H_CASES)
+def test_dp_chain_kernels(dev, gen, n, pmode, nz, probe_layout, h_case):
     """multislice_dp_fused (B4a, then B4b through autograd) against
-    multislice_dp_plain on the same CUDA tensors."""
+    multislice_dp_plain on the same CUDA tensors; with "_dh" dH too, which
+    repeats bit for bit."""
     from ptyrad_tpu_torch.ops import fused_multislice as M
 
+    b = 3
     kspace = probe_layout.endswith("kspace")
-    obja, objp, probe, h, _, _ = _chain_inputs(dev, gen, 3, pmode, nz, n, probe_layout)
-    leaves_k = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
-    leaves_p = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
-    launches = M.dp_fwd_cuda.launches, M.dp_bwd_cuda.launches
-    dp_k = M.multislice_dp_fused(*leaves_k, h, probe_kspace=kspace)
-    dp_p = M.multislice_dp_plain(*leaves_p, h, kspace)
+    obja, objp, probe, h, _, _ = _chain_inputs(dev, gen, b, pmode, nz, n, probe_layout)
+    h, need_dh = _h_case(dev, gen, h, b, n, h_case)
+    g = torch.randn((b, n, n), generator=gen, device=dev)
+    bwd = M.dp_bwd_cuda
+    launches = M.dp_fwd_cuda.launches, bwd.launches, bwd.launches_dh
+
+    def run(fused):
+        leaves = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+        leaves.append(h.clone().requires_grad_(need_dh))
+        dp = (M.multislice_dp_fused(*leaves, probe_kspace=kspace) if fused
+              else M.multislice_dp_plain(*leaves, kspace))
+        dp.backward(g)
+        return dp.detach(), leaves
+
+    dp_k, leaves_k = run(True)
+    dp_p, leaves_p = run(False)
     _assert_rel(dp_k, dp_p, "B4a dp")
-    g = torch.randn(dp_p.shape, generator=gen, device=dev)
-    dp_k.backward(g)
-    dp_p.backward(g)
-    assert (M.dp_fwd_cuda.launches, M.dp_bwd_cuda.launches) == (launches[0] + 1,
-                                                                launches[1] + 1)
-    for name, a, r in zip(("obja", "objp", "probe"), leaves_k, leaves_p):
-        _assert_rel(a.grad, r.grad, f"B4b d {name}")
+    assert (M.dp_fwd_cuda.launches, bwd.launches, bwd.launches_dh) == (
+        launches[0] + 1, launches[1] + 1, launches[2] + need_dh)
+    for name, a, r in zip(("obja", "objp", "probe", "h")[:3 + need_dh], leaves_k, leaves_p):
+        _assert_rel(a.grad, _grad(r), f"B4b d {name}")
+    if need_dh:
+        assert leaves_k[3].grad.shape == h.shape
+        torch.testing.assert_close(run(True)[1][3].grad, leaves_k[3].grad, rtol=0, atol=0)
 
 
 def test_dp_chain_unsupported_cases_raise(dev, gen):
-    """No propagator gradient (need_dh), no per-position H and no N beyond
-    128 on the card: multislice_dp_fused raises instead of falling back."""
+    """N beyond 128 raises: multislice_dp_fused does not fall back."""
     from ptyrad_tpu_torch.ops import fused_multislice as M
 
-    obja, objp, probe, h, _, _ = _chain_inputs(dev, gen, 2, 2, 2, 16, "each")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.multislice_dp_fused(obja, objp, probe, h, need_dh=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.multislice_dp_fused(obja, objp, probe, h.expand(2, 16, 16).contiguous())
+    _, _, probe, h, _, _ = _chain_inputs(dev, gen, 2, 2, 2, 16, "each")
     big = torch.ones((2, 1, 1, 256, 256), device=dev)
     with pytest.raises(ValueError, match="power of two"):
         M.multislice_dp_fused(big, big, probe, h)
@@ -334,62 +380,93 @@ def _assert_rel(actual, ref, what):
 def _vjp_plain(fn, inputs, g):
     leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
     out = fn(*leaves)
-    return out.detach(), torch.autograd.grad(out, leaves, grad_outputs=g)
+    # materialize_grads: an H that no propagation uses has a zero gradient
+    return out.detach(), torch.autograd.grad(out, leaves, grad_outputs=g, materialize_grads=True)
+
+
+def _chain_grads(out, h_case, plain, inputs, bwd):
+    """The backward of a chain kernel against the plain chain's VJP: every
+    cotangent, dH with "_dh" (then also bit for bit on a second launch, a
+    fixed-order sum, and counted in launches_dh). plain takes (psi, a, phi,
+    h); bwd(g, h, need_dh) launches the kernel."""
+    psi, a, p, h = inputs
+    need_dh = h_case.endswith("_dh")
+    g = torch.randn_like(out)
+    ref, g_p = _vjp_plain(plain if need_dh else lambda x, y, z: plain(x, y, z, h),
+                          inputs if need_dh else inputs[:3], g)
+    _assert_rel(out, ref, "exit")
+    g_k = bwd(g, h, need_dh)
+    assert (g_k[3] is not None) == need_dh
+    for name, x, y in zip(("psi", "a", "phi", "h"), g_k, g_p):
+        _assert_rel(x, y, f"d {name}")
+    return g, g_k
 
 
 @pytest.mark.parametrize("n", [16, 64, 256])
 @pytest.mark.parametrize("pmode", [1, 4])
 @pytest.mark.parametrize("sg", [1, 4, 5])
 @pytest.mark.parametrize("last", [True, False])
-def test_chain_segment_kernels(dev, gen, n, pmode, sg, last):
+@pytest.mark.parametrize("h_case", H_CASES)
+def test_chain_segment_kernels(dev, gen, n, pmode, sg, last, h_case):
+    """B5a, and B5b against the plain chain's VJP."""
     from ptyrad_tpu_torch.ops import chain as C
 
     b = 3
-    psi, a, p, h = _seg_inputs(dev, gen, b, pmode, sg, n, h_b=b if sg == 4 else 1)
+    psi, a, p, h = _seg_inputs(dev, gen, b, pmode, sg, n)
+    h, need_dh = _h_case(dev, gen, h, b, n, h_case)
     out = C.segment_fwd_cuda(psi, a, p, h, last)
-    g = torch.randn_like(out)
-    ref, (gp_psi, gp_a, gp_p) = _vjp_plain(
-        lambda x, y, z: C.chain_segment_plain(x, y, z, h, last), (psi, a, p), g)
-    _assert_rel(out, ref, "B5a exit")
-    d_psi, d_a, d_p = C.segment_bwd_cuda(g, psi, a, p, h, last)
-    _assert_rel(d_psi, gp_psi, "B5b d psi")
-    _assert_rel(d_a, gp_a, "B5b d a")
-    _assert_rel(d_p, gp_p, "B5b d phi")
+    launches = C.segment_bwd_cuda.launches_dh
+    g, g_k = _chain_grads(
+        out, h_case, lambda x, y, z, w: C.chain_segment_plain(x, y, z, w, last),
+        (psi, a, p, h), lambda g, w, dh: C.segment_bwd_cuda(g, psi, a, p, w, last, need_dh=dh))
+    assert C.segment_bwd_cuda.launches_dh == launches + need_dh
+    if need_dh:
+        assert g_k[3].shape == h.shape
+        torch.testing.assert_close(C.segment_bwd_cuda(g, psi, a, p, h, last, need_dh=True)[3],
+                                   g_k[3], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n", [16, 64, 256])
 @pytest.mark.parametrize("pmode", [1, 4])
 @pytest.mark.parametrize("n_seg,sg", [(2, 8), (3, 1), (2, 2)])
 @pytest.mark.parametrize("last_mega", [True, False])
-def test_chain_stack_kernels(dev, gen, n, pmode, n_seg, sg, last_mega):
+@pytest.mark.parametrize("h_case", H_CASES)
+def test_chain_stack_kernels(dev, gen, n, pmode, n_seg, sg, last_mega, h_case):
+    """B6a and its stack, and B6b against the plain chain's VJP (with
+    last_mega False, the exit's propagation is undone after the last
+    segment's rebuild, which also gives its K); B6b repeats bit for bit."""
     from ptyrad_tpu_torch.ops import chain as C
 
     b = 2
     psi, a, p, h = _seg_inputs(dev, gen, b, pmode, n_seg * sg, n)
+    h, need_dh = _h_case(dev, gen, h, b, n, h_case)
     out, stack = C.stack_fwd_cuda(psi, a, p, h, sg, last_mega)
-    g = torch.randn_like(out)
-    ref, (gp_psi, gp_a, gp_p) = _vjp_plain(
-        lambda x, y, z: C.chain_stack_plain(x, y, z, h, sg, last_mega), (psi, a, p), g)
-    _assert_rel(out, ref, "B6a exit")
     assert stack.shape == (b, n_seg, pmode, n, n)
     torch.testing.assert_close(stack[:, 0], psi, rtol=0, atol=0)
     if n_seg > 1:  # entry 1 is the state after the first segment, propagated
         _assert_rel(stack[:, 1], C.chain_segment_plain(psi, a[:, :sg], p[:, :sg], h, False),
                     "B6a stack entry 1")
-    d_psi, d_a, d_p = C.stack_bwd_cuda(g, stack, a, p, h, sg, last_mega)
-    _assert_rel(d_psi, gp_psi, "B6b d psi0")
-    _assert_rel(d_a, gp_a, "B6b d a")
-    _assert_rel(d_p, gp_p, "B6b d phi")
-    d_again = C.stack_bwd_cuda(g, stack, a, p, h, sg, last_mega)
-    for x, y in zip((d_psi, d_a, d_p), d_again):
+    launches = C.stack_bwd_cuda.launches_dh
+
+    def bwd(g, w, dh):
+        return C.stack_bwd_cuda(g, stack, a, p, w, sg, last_mega, need_dh=dh)
+
+    g, g_k = _chain_grads(
+        out, h_case, lambda x, y, z, w: C.chain_stack_plain(x, y, z, w, sg, last_mega),
+        (psi, a, p, h), bwd)
+    assert C.stack_bwd_cuda.launches_dh == launches + need_dh
+    d_again = bwd(g, h, need_dh)
+    for x, y in zip(g_k[:3 + need_dh], d_again):
         torch.testing.assert_close(x, y, rtol=0, atol=0)  # no atomics: deterministic
 
 
 @pytest.mark.parametrize("nz,n,pmode", [(1, 64, 4), (4, 64, 1), (21, 256, 4), (21, 64, 4)])
-def test_multislice_dp_chain_cuda(dev, gen, nz, n, pmode):
+@pytest.mark.parametrize("need_dh", [False, True])
+def test_multislice_dp_chain_cuda(dev, gen, nz, n, pmode, need_dh):
     """multislice_dp_chain against the plain multislice_dp on the same CUDA tensors,
-    values and gradients; sg = 4 divides nz = 4, sg = 8 leaves a tail at 21.
-    The grad-off route (B5a only) gives the same dp as the grad route."""
+    values and gradients (H's too with need_dh); sg = 4 divides nz = 4,
+    sg = 8 leaves a tail at 21. The grad-off route (B5a only) gives the same
+    dp as the grad route."""
     from ptyrad_tpu_torch.models import multislice_dp
     from ptyrad_tpu_torch.ops import chain as C
 
@@ -410,30 +487,25 @@ def test_multislice_dp_chain_cuda(dev, gen, nz, n, pmode):
         fn.launches = 0
     leaves_k = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
     leaves_p = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
-    dp_k = C.multislice_dp_chain(*leaves_k, h, occu, 1e-10)
-    dp_p = multislice_dp(*leaves_p, h, occu, 1e-10)
+    h_k, h_p = h.clone().requires_grad_(need_dh), h.clone().requires_grad_(need_dh)
+    dp_k = C.multislice_dp_chain(*leaves_k, h_k, occu, 1e-10)
+    dp_p = multislice_dp(*leaves_p, h_p, occu, 1e-10)
     _assert_rel(dp_k, dp_p, "dp")
     torch.testing.assert_close(dp_off, dp_k.detach(), rtol=0, atol=0)
     w = torch.rand(dp_k.shape, generator=gen, device=dev)
     (w * dp_k).sum().backward()
     (w * dp_p).sum().backward()
-    for name, x, y in zip(("obja", "objp", "probe"), leaves_k, leaves_p):
-        _assert_rel(x.grad, y.grad, f"d {name}")
+    names = ("obja", "objp", "probe", "h")[:3 + need_dh]
+    for name, x, y in zip(names, leaves_k + [h_k], leaves_p + [h_p]):
+        _assert_rel(_grad(x), _grad(y), f"d {name}")
     if nz == 21:  # B6 over 16 slices, B5 over the 5-slice tail
         assert [fn.launches for fn in counters] == [1, 1, 1, 1]
 
 
 def test_chain_unsupported_cases_raise(dev, gen):
-    """No propagator gradient on the card (need_dh), and N beyond the
-    kernels' radix-2 regime: the wrappers raise instead of falling back."""
+    """N beyond the kernels' radix-2 regime raises instead of falling back."""
     from ptyrad_tpu_torch.ops import chain as C
 
-    psi, a, p, h = _seg_inputs(dev, gen, 2, 2, 3, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        C.chain_segment(psi, a, p, h.clone().requires_grad_(True), True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        C.multislice_dp_chain(a[:, None], p[:, None], psi, h, torch.ones(1, device=dev), 1e-10,
-                              need_dh=True)
     psi, a, p, h = _seg_inputs(dev, gen, 1, 1, 1, 1024)
     with pytest.raises(ValueError, match="power of two"):
         C.segment_fwd_cuda(psi, a, p, h, True)
@@ -490,3 +562,80 @@ def test_pso_solver_cuda_matches_cpu(dev):
                                [v for _, v in runs["cpu"].history.loss_iters], rtol=1e-4)
     steps = 2 * runs[None].batch_idx.shape[0]
     assert [fn.launches for fn in counters] == [0, 0] + [steps] * 4
+
+
+# -- optimizable slice thickness and tilts (need_dh) ------------------------------
+
+TILT_PARAMS = {
+    **SOLVER_PARAMS,
+    "model_params": {"update_params": {
+        **SOLVER_PARAMS["model_params"]["update_params"],
+        "obj_tilts": {"lr": 1e-4, "start_iter": 1},
+        "slice_thickness": {"lr": 1e-4, "start_iter": 1}}},
+    "constraint_params": {**SOLVER_PARAMS["constraint_params"],
+                          "tilt_smooth": {"freq": 1, "std": 2.0}},
+}
+
+
+@pytest.mark.parametrize("tilt_each", [True, False])
+def test_tilt_solver_cuda_matches_cpu(dev, tilt_each):
+    """Three iterations with optimizable slice thickness and tilts (per
+    position with tilt_smooth over a 4 x 5 grid, or one global tilt) on the
+    card against the CPU: losses at rtol 1e-4, dz and the mean tilt at 2.5
+    lr (Adam's steps are about lr; a near-zero gradient may take either
+    sign), and B3b computing dH in every step."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    init = _small_init()
+    init.update(N_scan_slow=4, N_scan_fast=5,
+                obj_tilts=np.zeros((20 if tilt_each else 1, 2), np.float32))
+    M.loss_sums_bwd_cuda.launches_dh = 0
+    runs = {}
+    for d in ("cpu", None):
+        s = PtyRADSolver(TILT_PARAMS, init_variables=copy.deepcopy(init), device=d,
+                         verbose=False)
+        s.run()
+        runs[d] = s
+    cpu, gpu = runs["cpu"], runs[None]
+    assert gpu.geom.global_tilt is not tilt_each
+    np.testing.assert_allclose([v for _, v in gpu.history.loss_iters],
+                               [v for _, v in cpu.history.loss_iters], rtol=1e-4)
+    np.testing.assert_allclose([v for _, v in gpu.history.dz_iters],
+                               [v for _, v in cpu.history.dz_iters], rtol=0, atol=2.5e-4)
+    np.testing.assert_allclose(np.array([v for _, v in gpu.history.avg_tilt_iters]),
+                               np.array([v for _, v in cpu.history.avg_tilt_iters]),
+                               rtol=0, atol=2.5e-4)
+    assert M.loss_sums_bwd_cuda.launches_dh == 3 * gpu.batch_idx.shape[0]
+
+
+def test_pso_tilt_solver_cuda_matches_cpu(dev):
+    """The PSO-like run of test_pso_solver_cuda_matches_cpu with a global
+    tilt and dz optimizable: losses at rtol 1e-4, dz at 2.5 lr, and B5b and
+    B6b computing dH in every step."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.ops import chain as C
+
+    params = {
+        "model_params": {"update_params": {
+            "obja": {"lr": 5e-4}, "objp": {"lr": 5e-4}, "probe": {"lr": 1e-4},
+            "obj_tilts": {"lr": 1e-4}, "slice_thickness": {"lr": 1e-4}}},
+        "loss_params": {"loss_single": {"state": True, "dp_pow": 0.5}},
+        "constraint_params": {"fix_probe_int": {"freq": 1}, "obja_thresh": {"freq": 1}},
+        "recon_params": {"NITER": 2, "BATCH_SIZE": {"size": 2}, "GROUP_MODE_SEED": 0},
+    }
+    init = _pso_like_init()
+    init["obj_tilts"] = np.array([[0.5, -0.3]], np.float32)
+    for fn in (C.segment_bwd_cuda, C.stack_bwd_cuda):
+        fn.launches_dh = 0
+    runs = {}
+    for d in ("cpu", None):
+        s = PtyRADSolver(params, init_variables=copy.deepcopy(init), device=d, verbose=False)
+        s.run()
+        runs[d] = s
+    np.testing.assert_allclose([v for _, v in runs[None].history.loss_iters],
+                               [v for _, v in runs["cpu"].history.loss_iters], rtol=1e-4)
+    np.testing.assert_allclose([v for _, v in runs[None].history.dz_iters],
+                               [v for _, v in runs["cpu"].history.dz_iters], rtol=0, atol=2.5e-4)
+    steps = 2 * runs[None].batch_idx.shape[0]
+    assert [C.segment_bwd_cuda.launches_dh, C.stack_bwd_cuda.launches_dh] == [steps, steps]

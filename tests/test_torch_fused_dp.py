@@ -89,7 +89,7 @@ def test_dp_plain_matches_pallas_interpret(rng, nz, pmode, layout):
 
     leaves = [torch.from_numpy(x).requires_grad_(True)
               for x in (obja, objp, pr + 1j * pi, h)]
-    dp = tfm.multislice_dp_fused(*leaves, need_dh=need_dh, probe_kspace=kspace)
+    dp = tfm.multislice_dp_fused(*leaves, probe_kspace=kspace)
     dp.backward(torch.from_numpy(g))
     assert tuple(dp.shape) == (b, n, n)
     close(np_(dp), j_out)

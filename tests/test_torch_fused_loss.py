@@ -123,7 +123,7 @@ def test_loss_sums_match_pallas_interpret(rng, kspace):
     tpr = torch.from_numpy(pr + 1j * pi).requires_grad_(True)
     s1, s2 = tfm.multislice_loss_sums_fused(ta, tpp, tpr, torch.from_numpy(h),
                                             torch.from_numpy(meas), torch.from_numpy(mask),
-                                            0.5, 1e-10, need_dh=False, probe_kspace=kspace)
+                                            0.5, 1e-10, probe_kspace=kspace)
     s1.backward()
     np.testing.assert_allclose(float(s1.detach()), float(j_s1), rtol=1e-5)
     np.testing.assert_allclose(float(s2), float(j_s2), rtol=1e-5)

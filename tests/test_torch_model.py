@@ -184,7 +184,7 @@ def test_constraints_match_scheduler(rng, name, cfg):
     tp.probe.mul_(1.3)  # so fix_probe_int has something to undo
     jp = dataclasses.replace(jp, probe=jp.probe * 1.3)
     j_out = JC.ConstraintScheduler({name: cfg}, jg)(jp, jb, 1)
-    TC.ConstraintScheduler({name: cfg})(tp, tb, 1)
+    TC.ConstraintScheduler({name: cfg}, tg)(tp, tb, 1)
     close(np_(tp.obja), j_out.obja)
     close(np_(tp.objp), j_out.objp)
     close(np_(tp.probe), cplx_np(j_out.probe))
@@ -197,7 +197,7 @@ def test_ortho_pmode_gauge_invariant(rng):
     the orthogonality of the result."""
     (jp, jb, jg), (tp, tb, tg) = _constraint_state(rng, pmode=4)
     j_out = JC.ConstraintScheduler({"ortho_pmode": {"freq": 1}}, jg)(jp, jb, 1)
-    TC.ConstraintScheduler({"ortho_pmode": {"freq": 1}})(tp, tb, 1)
+    TC.ConstraintScheduler({"ortho_pmode": {"freq": 1}}, tg)(tp, tb, 1)
     ours, ref = np_(tp.probe), cplx_np(j_out.probe)
     close(np.abs(ours) ** 2, np.abs(ref) ** 2, rtol=1e-4)
     flat = ours.reshape(4, -1)
@@ -210,7 +210,7 @@ def test_scheduler_gating_and_strict_config(rng):
     _, (tp, tb, tg) = _constraint_state(rng)
     sched = TC.ConstraintScheduler(
         {"obja_thresh": {"freq": 2, "relax": 0.0, "thresh": [0.99, 1.01]},
-         "objp_postiv": {"freq": 1}})
+         "objp_postiv": {"freq": 1}}, tg)
     assert sched.active_names == ["obja_thresh", "objp_postiv"]
     before = np_(tp.obja).copy()
     sched(tp, tb, 1)  # obja_thresh not due at iteration 1
@@ -219,13 +219,13 @@ def test_scheduler_gating_and_strict_config(rng):
     sched(tp, tb, 2)
     assert np_(tp.obja).max() <= 1.01 + 1e-7
     with pytest.raises(ValueError, match="Unknown constraint"):
-        TC.ConstraintScheduler({"ortho_pmod": {"freq": 1}})
+        TC.ConstraintScheduler({"ortho_pmod": {"freq": 1}}, tg)
     with pytest.raises(ValueError, match="Unknown option"):
-        TC.ConstraintScheduler({"obj_rblur": {"freq": 1, "sdt": 1.0}})
+        TC.ConstraintScheduler({"obj_rblur": {"freq": 1, "sdt": 1.0}}, tg)
     with pytest.raises(ValueError, match="freq"):
-        TC.ConstraintScheduler({"obj_rblur": {"freq": 0}})
+        TC.ConstraintScheduler({"obj_rblur": {"freq": 0}}, tg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.ConstraintScheduler({"kr_filter": {"freq": 1}})
+        TC.ConstraintScheduler({"kr_filter": {"freq": 1}}, tg)
 
 
 @pytest.mark.parametrize("extra_init,model_params", [
