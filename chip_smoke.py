@@ -14,7 +14,11 @@ Phases, one JSON object per line each:
                operations; then the need_dh variants: B3a/B4a on a
                per-position H and B3b/B4b with dH at tBL shapes, B5b/B6b with
                dH at PSO shapes, each for a shared and a per-position H, dH
-               held at 1e-4 of its largest entry.
+               held at 1e-4 of its largest entry; then B5a/B5b with the
+               far-field exit (without and with dH) at PSO shapes and at
+               N = 512, against chain_segment_plain(far_field=True), with the
+               time of what the exit replaces (B5 without it plus one
+               torch.fft.fft2 or its backward) as library_ms.
   4. main    - the tBL_WSe2 reconstruction through PtyRADSolver.run(): 16,384
                128^2 patterns simulated through forward() (B4a; every 8th
                batch held against the plain multislice_dp), 6 probe modes, 6
@@ -55,14 +59,30 @@ Phases, one JSON object per line each:
                against the plain route; then a profile over 32 steps. The
                forward phase also runs forward() with optimizable dz and
                per-position tilts (B4b with dH) against the plain chain.
+     tbl_store - the tBL data binned 2 x 2 on the host to 64^2, stored as
+               bfloat16 and resampled on the fly by (2, 2), 3 iterations
+               through B3: a finite, falling loss, the store's type and bytes.
+     constraints - all twelve constraints once on a tBL-sized model, on the
+               card against the CPU.
+     pso_ff  - the PSO run again on the same data after set_far_field(True):
+               B5's kernel ends in the detector transform. The first batch's
+               loss must equal the pso phase's at rtol 1e-5; from the flat
+               start the run amplifies float32 rounding, so each iteration's
+               loss is only held within 2e-2 there; every B5 launch must take
+               the exit, B3 and B4 stay at 0; its profile beside pso's.
+     pso_ff_random_start - the tight gate on the same path: the full-width
+               PSO run from a seeded random object, exit off against exit on,
+               each iteration's loss at rtol 1e-4. Then one forward() at
+               nz = 16 (the carve: B6 over one segment, a full B5 tail with
+               the exit, dH) against the plain chain.
   9. pso_tilt - the PSO reconstruction from data simulated at a global tilt
                of (1.0, -0.5) mrad, from (0, 0) with obj_tilts and
                slice_thickness at lr 1e-4, 2 iterations: a finite, falling
                loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
                profile over 8 steps.
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
-tBL, low-dose, PSO, tilt (its simulation included) and PSO tilt paths and
-the forward phase's kernel routes), the
+tBL, low-dose, tbl_store, PSO, pso_ff (with its random-start pair and the
+carve), tilt (its simulation included) and PSO tilt paths and the forward phase's kernel routes), the
 nvidia-smi name/power-limit line, and as the last line {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is not 0 and the
 last line is never printed. Exits non-zero at once without CUDA.
@@ -102,6 +122,7 @@ PSO_KV, PSO_STEP_ANG, PSO_CROP = 300.0, 0.41, (68, 188)
 PSO_SCANS = PSO_SIDE * PSO_SIDE
 PSO_NITER = 2
 PSO_SG = 8  # ops.chain.best_sg(21): 21 = 2 x 8 + 5
+PSO_FF_FLAT_RTOL = 2e-2  # pso_ff against pso from the flat start (see pso_ff_path)
 SIM_BATCH = 512  # patterns per forward() call when simulating the tBL data
 
 # tBL_WSe2 sections of demo/params/tBL_WSe2_reconstruct.yml (the card's
@@ -466,10 +487,10 @@ def check_dp_chain(dev, gen) -> list:
     return [fwd, bwd]
 
 
-def pso_probe() -> np.ndarray:
+def pso_probe(npix: int = PSO_NPIX) -> np.ndarray:
     from ptyrad_tpu_torch.physics import make_mixed_probe, make_stem_probe
 
-    probe = make_stem_probe({"kv": PSO_KV, "conv_angle": 21.4, "Npix": PSO_NPIX,
+    probe = make_stem_probe({"kv": PSO_KV, "conv_angle": 21.4, "Npix": npix,
                              "dx": PSO_DX, "df": -200.0})
     return make_mixed_probe(probe, PSO_PMODE, [0.02])
 
@@ -846,6 +867,111 @@ def check_chain_dh(dev, gen) -> list:
     return rows
 
 
+def check_chain_ff(dev, gen) -> list:
+    """B5a and B5b with the far-field exit against
+    chain_segment_plain(far_field=True) and its VJP, without and with dH
+    (shared H), over the 5-slice tail: at the PSO shapes the pso_ff path
+    gives them (B = 32, N = 256) and at N = 512 (B = 8: the same bytes).
+    library_ms is what the exit replaces, timed on the same inputs: B5
+    without the exit plus torch.fft.fft2(norm="ortho"), or that transform's
+    autograd backward before B5b."""
+    from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.ops.shift import fourier_shift
+    from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
+
+    pm, sg = PSO_PMODE, PSO_NZ - 2 * PSO_SG
+    lam = electron_wavelength(PSO_KV)
+    names = ["d psi", "d a", "d phi", "d h"]
+    rows = []
+    for n, b in ((PSO_NPIX, BATCH), (512, 8)):
+        h = torch.as_tensor(near_field_evolution((n, n), PSO_DX, PSO_DZ, lam), device=dev)[None]
+        psi = fourier_shift(torch.as_tensor(pso_probe(n), device=dev),
+                            0.3 * torch.randn((b, 2), generator=gen, device=dev))
+        # the tail's a/phi as views into whole patches, as multislice_dp_chain passes them
+        obja = 1.0 + 0.05 * torch.randn((b, 1, PSO_NZ, n, n), generator=gen, device=dev)
+        objp = 0.1 * torch.randn((b, 1, PSO_NZ, n, n), generator=gen, device=dev)
+        a_t, p_t = obja[:, 0, 2 * PSO_SG:], objp[:, 0, 2 * PSO_SG:]
+        g = torch.complex(torch.randn(psi.shape, generator=gen, device=dev),
+                          torch.randn(psi.shape, generator=gen, device=dev))
+
+        leaves = [t.detach().clone().requires_grad_(True) for t in (psi, a_t, p_t, h)]
+        out_p = C.chain_segment_plain(*leaves, True, far_field=True)
+        g_plain = torch.autograd.grad(out_p, leaves, grad_outputs=g, retain_graph=True)
+        out_k = C.segment_fwd_cuda(psi, a_t, p_t, h, True, far_field=True)
+        (e_f,), (t_f,) = _grad_errs([out_k], [out_p.detach()])
+        e_b, t_b = _grad_errs(C.segment_bwd_cuda(g, psi, a_t, p_t, h, True, far_field=True)[:3],
+                              g_plain[:3])
+        e_d, t_d = _grad_errs(C.segment_bwd_cuda(g, psi, a_t, p_t, h, True, need_dh=True,
+                                                 far_field=True), g_plain)
+        emit({"phase": "kernel_check", "name": "B5 chain_segment with the far-field exit",
+              "N": n, "B": b, "sg": sg, "fwd_max_abs_err": e_f, "fwd_tolerance": t_f,
+              "bwd_max_abs_err": e_b, "bwd_tolerance": t_b, "bwd_dh_max_abs_err": e_d,
+              "bwd_dh_tolerance": t_d, "bwd_names": names})
+        require(e_f <= t_f, f"B5a far-field (N={n}) differs from its plain version: {e_f} > {t_f}")
+        for nm, e, t in zip(names, e_b, t_b):
+            require(e <= t, f"B5b far-field {nm} (N={n}) differs: {e} > {t}")
+        for nm, e, t in zip(names, e_d, t_d):
+            require(e <= t, f"B5b far-field with dH {nm} (N={n}) differs: {e} > {t}")
+
+        # what the exit replaces: the detector transform through cuFFT and autograd
+        x = torch.empty_like(psi).requires_grad_(True)
+        y = torch.fft.fft2(x, norm="ortho")
+
+        def fft_bwd():
+            return torch.autograd.grad(y, x, grad_outputs=g, retain_graph=True)[0]
+
+        field, nn, n_wave, n_prop = 8 * psi.numel(), n * n, b * pm, sg - 1
+        slab = 2 * 4 * b * sg * nn  # a and phi
+        fft_ops = n_wave * 10 * nn * np.log2(n)
+        tag = "far-field" if n == PSO_NPIX else f"far-field, N={n}"
+        common = {"route": "cuda", "source": "ptyrad_tpu_torch/csrc/chain.cu"}
+        new = [
+            {"name": f"B5a chain_segment_fwd ({tag})", **common,
+             "replaces": "ptyrad_tpu/ops/pallas_chain.py:238", "max_abs_err": e_f,
+             "ms": time_ms(lambda: C.segment_fwd_cuda(psi, a_t, p_t, h, True, far_field=True)),
+             "plain_ms": time_ms(lambda: C.chain_segment_plain(psi, a_t, p_t, h, True,
+                                                               far_field=True)),
+             "library_ms": time_ms(lambda: torch.fft.fft2(
+                 C.segment_fwd_cuda(psi, a_t, p_t, h, True), norm="ortho")),
+             **dict(zip(("bound_ms", "bound_by"),
+                        bound(2 * field + slab + 8 * h.numel(),
+                              _chain_ops(n, n_wave, n_prop, sg) + fft_ops)))},
+            {"name": f"B5b chain_segment_bwd ({tag})", **common,
+             "replaces": "ptyrad_tpu/ops/pallas_chain.py:279", "max_abs_err": max(e_b),
+             "ms": time_ms(lambda: C.segment_bwd_cuda(g, psi, a_t, p_t, h, True, far_field=True)),
+             "plain_ms": time_ms(lambda: torch.autograd.grad(out_p, leaves[:3], grad_outputs=g,
+                                                             retain_graph=True)),
+             "library_ms": time_ms(lambda: C.segment_bwd_cuda(fft_bwd(), psi, a_t, p_t, h, True)),
+             **dict(zip(("bound_ms", "bound_by"),
+                        bound(3 * field + 2 * slab + 8 * h.numel(),
+                              _chain_ops(n, n_wave, 2 * n_prop, n_prop, sg) + fft_ops)))},
+        ]
+        if n == PSO_NPIX:
+            new.append(
+                {"name": f"B5b chain_segment_bwd ({tag}, dH)", **common,
+                 "replaces": "ptyrad_tpu/ops/pallas_chain.py:279", "max_abs_err": max(e_d),
+                 "ms": time_ms(lambda: C.segment_bwd_cuda(g, psi, a_t, p_t, h, True, need_dh=True,
+                                                          far_field=True)),
+                 "plain_ms": time_ms(lambda: torch.autograd.grad(out_p, leaves, grad_outputs=g,
+                                                                 retain_graph=True)),
+                 "library_ms": time_ms(lambda: C.segment_bwd_cuda(fft_bwd(), psi, a_t, p_t, h,
+                                                                  True, need_dh=True)),
+                 "scratch_bytes": 2 * field * n_prop,
+                 **dict(zip(("bound_ms", "bound_by"),
+                            bound(3 * field + 2 * slab + 16 * h.numel(),
+                                  _chain_ops(n, n_wave, 2 * n_prop, n_prop, sg) + fft_ops
+                                  + n_wave * n_prop * 8 * nn)))})
+        for k in new:
+            emit({"phase": "kernel", **k, "B": b, "note": "the 5-slice tail, shared H; library_ms: "
+                  "B5 without the exit plus torch.fft.fft2(norm='ortho') or its autograd "
+                  "backward, which the exit replaces"
+                  + ("" if n == PSO_NPIX else "; no driven path runs N = 512: 0 launches")})
+        rows += new
+        del out_p, leaves, g_plain, y, x
+        torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 4: the main path -----------------------------------------------------
 
 def ground_truth_phase(canvas: int) -> np.ndarray:
@@ -909,7 +1035,8 @@ def simulate(dev, init: dict) -> torch.Tensor:
 def kernel_counters():
     """Row name -> (wrapper, count attribute): `launches` counts every
     launch; `launches_h_each` those on a per-position H; `launches_dh` the
-    backwards that computed dH."""
+    backwards that computed dH; `launches_ff` those of B5 that took the
+    far-field exit, `launches_ff_dh` its backwards that also computed dH."""
     from ptyrad_tpu_torch.ops import chain as C
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops import patches as P
@@ -928,6 +1055,9 @@ def kernel_counters():
         "B4b dp_bwd (dH)": (M.dp_bwd_cuda, "launches_dh"),
         "B5b chain_segment_bwd (dH)": (C.segment_bwd_cuda, "launches_dh"),
         "B6b chain_stack_bwd (dH)": (C.stack_bwd_cuda, "launches_dh"),
+        "B5a chain_segment_fwd (far-field)": (C.segment_fwd_cuda, "launches_ff"),
+        "B5b chain_segment_bwd (far-field)": (C.segment_bwd_cuda, "launches_ff"),
+        "B5b chain_segment_bwd (far-field, dH)": (C.segment_bwd_cuda, "launches_ff_dh"),
     })
     return out
 
@@ -939,7 +1069,13 @@ PSO_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B5a chain_segment
                "B5b chain_segment_bwd", "B6a chain_stack_fwd", "B6b chain_stack_bwd")
 TILT_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches",
                 "B3a loss_sums_fwd (per-position H)", "B3b loss_sums_bwd (dH)")
+PSO_FF_KERNELS = PSO_KERNELS + ("B5a chain_segment_fwd (far-field)",
+                                "B5b chain_segment_bwd (far-field)")
 PSO_TILT_KERNELS = PSO_KERNELS + ("B5b chain_segment_bwd (dH)", "B6b chain_stack_bwd (dH)")
+# Rows of the kernels line that only size the far-field kernels at N = 512: every
+# driven path runs them at N = 256 (PSO_NPIX), so these rows report 0 launches.
+NOT_DRIVEN = ("B5a chain_segment_fwd (far-field, N=512)",
+              "B5b chain_segment_bwd (far-field, N=512)")
 
 
 def counted(fn):
@@ -1323,15 +1459,42 @@ def pso_dataset(dev, tilt=(0.0, 0.0)) -> dict:
 
 
 def pso_path(dev, card: str):
-    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
-
     t0 = time.perf_counter()
     init = pso_dataset(dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    solver, launches, first = run_pso_solver(dev, card, "pso", init, setup_s)
+    for name in PSO_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the PSO path")
+    for name in ("B5a chain_segment_fwd (far-field)", "B5b chain_segment_bwd (far-field)"):
+        require(launches[name] == 0, f"{name} ran with the exit switched off")
+    pso_forward_figure(solver)
+    ref = {"losses": [v for _, v in solver.history.loss_iters], "first_batch_loss": first}
+    return solver, launches, init, ref
+
+
+def first_batch_loss(solver) -> float:
+    """The loss of the solver's first batch before any step (no gradient:
+    the chain runs B5 segment by segment)."""
+    from ptyrad_tpu_torch.engine.solver import loss_fn
+
+    solver.prepare()
+    idx, mask = (torch.as_tensor(x[0], device=solver.device)
+                 for x in (solver.batch_idx, solver.batch_mask))
+    with torch.no_grad():
+        total, _ = loss_fn(solver.params, solver.buffers, solver.geom, idx, mask,
+                           solver.loss_params)
+    return float(total)
+
+
+def run_pso_solver(dev, card: str, phase: str, init: dict, setup_s: float):
+    """PtyRADSolver.run() on the PSO data with the counts set to 0 just before
+    it; asserts a finite, falling loss and that neither B3 nor B4 ran.
+    Returns (solver, launches, the first batch's loss before training)."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
 
     solver = PtyRADSolver(PSO_PARAMS, init_variables=init, device=dev, verbose=True)
-    del init
+    first = first_batch_loss(solver)
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     launches = drive(solver)
@@ -1339,19 +1502,17 @@ def pso_path(dev, card: str):
     losses = [v for _, v in solver.history.loss_iters]
     times = solver.history.iter_times
     emit({
-        "phase": "pso", "card": card, "n_patterns": PSO_SCANS, "batch": BATCH,
-        "iterations": len(losses), "losses": losses, "iter_s": times,
+        "phase": phase, "card": card, "n_patterns": PSO_SCANS, "batch": BATCH,
+        "first_batch_loss": first, "iterations": len(losses), "losses": losses, "iter_s": times,
         "patterns_per_s": [PSO_SCANS / t for t in times], "setup_s": setup_s, "run_s": run_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
     })
-    require(len(losses) == PSO_NITER and all(np.isfinite(losses)), f"loss not finite: {losses}")
-    require(losses[-1] < losses[0], f"PSO loss did not fall: {losses}")
-    for name in PSO_KERNELS:
-        require(launches[name] > 0, f"kernel {name} was not launched on the PSO path")
+    require(len(losses) == PSO_NITER and all(np.isfinite(losses)),
+            f"{phase}: loss not finite: {losses}")
+    require(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
     for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd", "B4a dp_fwd", "B4b dp_bwd"):
-        require(launches[name] == 0, f"kernel {name} ran on the PSO path (N = 256)")
-    pso_forward_figure(solver)
-    return solver, launches
+        require(launches[name] == 0, f"kernel {name} ran on the {phase} path (N = 256)")
+    return solver, launches, first
 
 
 def pso_forward_figure(solver) -> None:
@@ -1374,6 +1535,259 @@ def pso_forward_figure(solver) -> None:
     require(tuple(dp.shape) == (len(idx), PSO_NPIX, PSO_NPIX) and bool(torch.isfinite(dp).all()),
             "forward() gave a non-finite or misshapen dp")
     require(err <= tol, f"forward() differs from the plain multislice_dp: {err} > {tol}")
+
+
+# -- the far-field exit: the PSO path again, and the carve ----------------------
+
+def far_field_on(fn):
+    """fn() with the chain's far-field exit switched on, and off again after."""
+    from ptyrad_tpu_torch.ops import chain as C
+
+    C.set_far_field(True)
+    try:
+        return fn()
+    finally:
+        C.set_far_field(False)
+
+
+def pso_ff_path(dev, card: str, init: dict, pso: dict):
+    """The pso phase's run on the same data after set_far_field(True): the
+    5-slice B5 tail ends in the detector transform, forward and backward.
+    The exit changes where the transform runs, not the result: the first
+    batch's loss before training must equal the pso phase's at rtol 1e-5.
+    From the flat start the dark field of every pattern is rounding residue,
+    where loss_single's dp^0.5 is steepest, and Adam amplifies any float32
+    rounding difference: one unit in the last place of the initial object
+    moves the two losses by 1.7e-4 and 4.1e-3 (H100 80GB HBM3, 700 W). So
+    the trajectory is held here only within PSO_FF_FLAT_RTOL, and
+    pso_ff_random_start holds the path at rtol 1e-4. Every B5 launch of the
+    run must have taken the exit."""
+    def run():
+        solver, launches, first = run_pso_solver(dev, card, "pso_ff", init, 0.0)
+        pso_forward_figure(solver)
+        return solver, launches, first
+
+    solver, launches, first = far_field_on(run)
+    losses = [v for _, v in solver.history.loss_iters]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, pso["losses"])]
+    first_rel = abs(first - pso["first_batch_loss"]) / abs(pso["first_batch_loss"])
+    emit({"phase": "pso_ff_vs_pso", "losses": losses, "pso_losses": pso["losses"],
+          "rel_diff": rel, "limit": PSO_FF_FLAT_RTOL,
+          "first_batch_loss": [first, pso["first_batch_loss"]], "first_batch_rel_diff": first_rel,
+          "first_batch_rtol": 1e-5})
+    require(first_rel <= 1e-5, f"pso_ff's first loss {first} differs from pso's "
+            f"{pso['first_batch_loss']}")
+    require(max(rel) <= PSO_FF_FLAT_RTOL, f"pso_ff losses {losses} differ from pso's "
+            f"{pso['losses']}: {rel} > {PSO_FF_FLAT_RTOL}")
+    for name in PSO_FF_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the pso_ff path")
+    for way in ("B5a chain_segment_fwd", "B5b chain_segment_bwd"):
+        require(launches[f"{way} (far-field)"] == launches[way],
+                f"{way}: {launches[way]} launches on the tail, "
+                f"{launches[way + ' (far-field)']} with the exit")
+    return solver, launches
+
+
+def random_object(shape, seed: int) -> np.ndarray:
+    """A seeded object that is not flat: amplitude 1 + 0.02 n, phase 0.1 n."""
+    rng = np.random.default_rng(seed)
+    obj = (1.0 + 0.02 * rng.standard_normal(shape)) * np.exp(0.1j * rng.standard_normal(shape))
+    return obj.astype(np.complex64)
+
+
+def pso_ff_random_start(dev, init: dict) -> dict:
+    """The tight gate on the exit at full width: PtyRADSolver.run() on the PSO
+    data from a seeded random object, once with the exit off and once with it
+    on. Away from the flat start the run does not amplify rounding, so each
+    iteration's loss must agree at rtol 1e-4, which a wrong adjoint of the
+    exit would not pass; with the exit on every B5 launch must have taken it.
+    Returns the two runs' launch counts, summed."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    data = dict(init, obj=random_object(init["obj"].shape, SEED + 5))
+
+    def run():
+        solver = PtyRADSolver(PSO_PARAMS, init_variables=data, device=dev, verbose=False)
+        launches = drive(solver)
+        return [v for _, v in solver.history.loss_iters], launches
+
+    off, launches_off = run()
+    on, launches_on = far_field_on(run)
+    rel = [abs(a - b) / abs(b) for a, b in zip(on, off)]
+    emit({"phase": "pso_ff_random_start", "losses_exit_off": off, "losses_exit_on": on,
+          "rel_diff": rel, "rtol": 1e-4, "launches_exit_on": launches_on})
+    require(len(on) == len(off) == PSO_NITER and all(np.isfinite(on + off)),
+            f"pso_ff_random_start: losses {off}, {on}")
+    require(max(rel) <= 1e-4, f"from a random start the exit's losses {on} differ from "
+            f"{off}: {rel} > 1e-4")
+    for way in ("B5a chain_segment_fwd", "B5b chain_segment_bwd"):
+        require(launches_off[f"{way} (far-field)"] == 0, f"{way} took the exit while it was off")
+        require(0 < launches_on[way] == launches_on[f"{way} (far-field)"],
+                f"{way}: {launches_on[way]} launches on the tail, "
+                f"{launches_on[way + ' (far-field)']} with the exit")
+    return add_counts(launches_off, launches_on)
+
+
+def carve_check(dev, init: dict) -> dict:
+    """One forward() with gradients at nz = 16, a multiple of sg = 8, with
+    the exit on and an optimizable slice thickness: the dispatcher carves a
+    full tail segment off B6, which runs S = 1 segment, and B5 takes the
+    exit with dH. dp and the gradients of obja, objp, the probe and H (the
+    kernels' own dH, kept with retain_grad) against the plain multislice_dp
+    on the same CUDA tensors, each within 1e-4 of its largest entry. Returns
+    the kernel route's launch counts."""
+    from ptyrad_tpu_torch.models import (compute_propagators, forward, forward_route,
+                                         get_obj_patches, get_probes, make_model, multislice_dp)
+    F = importlib.import_module("ptyrad_tpu_torch.models.forward")
+    from ptyrad_tpu_torch.ops import chain as C
+
+    nz = 2 * PSO_SG
+    data = dict(init, obj=random_object((1, nz, *init["obj"].shape[2:]), SEED + 3))
+    mp = {"update_params": {"slice_thickness": {"lr": 1e-4}}}
+    idx = torch.arange(0, PSO_SCANS, PSO_SCANS // BATCH, device=dev)
+    w = torch.rand((BATCH, PSO_NPIX, PSO_NPIX), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    held = []
+
+    def keep_h(*args):
+        h = compute_propagators(*args)
+        h.retain_grad()
+        held.append(h)
+        return h
+
+    def run(kernels: bool):
+        params, buffers, geom = make_model(data, mp, dev)
+        for name in ("obja", "objp", "probe", "slice_thickness"):
+            getattr(params, name).requires_grad_(True)
+        held.clear()
+        if kernels:
+            require(forward_route(params, geom, idx) == "chain", "forward() left the chain route")
+            F.compute_propagators = keep_h  # forward() looks it up at call time
+            try:
+                dp, _ = far_field_on(lambda: forward(params, buffers, geom, idx))
+            finally:
+                F.compute_propagators = compute_propagators
+        else:
+            obja_p, objp_p = get_obj_patches(params, buffers, geom, idx)
+            dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, idx),
+                               keep_h(params, buffers, geom, idx), buffers.omode_occu,
+                               eps=geom.eps)
+        (w * dp).sum().backward()
+        return dp.detach(), {"obja": params.obja.grad, "objp": params.objp.grad,
+                             "probe": params.probe.grad, "H": held[0].grad}
+
+    (dp_k, g_k), launches = counted(lambda: run(True))
+    dp_p, g_p = run(False)
+    names = sorted(g_p)
+    (e_dp,), (t_dp,) = _grad_errs([dp_k], [dp_p])
+    errs, tols = _grad_errs([g_k[n] for n in names], [g_p[n] for n in names])
+    emit({"phase": "far_field_carve", "nz": nz, "sg": C.best_sg(nz), "S": nz // PSO_SG - 1,
+          "batch": BATCH, "max_abs_err": e_dp, "tolerance": t_dp, "grad_names": names,
+          "grad_max_abs_err": errs, "grad_tolerance": tols, "launches": launches})
+    require(bool(torch.isfinite(dp_k).all()) and e_dp <= t_dp,
+            f"the carved route differs from the plain version: {e_dp} > {t_dp}")
+    for name, e, t in zip(names, errs, tols):
+        require(e <= t, f"the carved route's gradient of {name} differs: {e} > {t}")
+    for name in ("B6a chain_stack_fwd", "B6b chain_stack_bwd", "B6b chain_stack_bwd (dH)",
+                 "B5a chain_segment_fwd", "B5a chain_segment_fwd (far-field)",
+                 "B5b chain_segment_bwd", "B5b chain_segment_bwd (far-field, dH)"):
+        require(launches[name] == 1, f"the carved route launched {name} {launches[name]} times")
+    return launches
+
+
+# -- the measurement store and the constraints -----------------------------------
+
+TBL_STORE_DTYPE = "bfloat16"
+
+
+def tbl_store_dataset(init: dict) -> dict:
+    """The tBL patterns binned 2 x 2 on the host to 64^2, as a detector
+    read out at half the sampling hands them over, with the scale factors
+    that resample them back to the probe's 128^2 on the fly."""
+    from ptyrad_tpu_torch.initialization import meas_resample_on_the_fly
+
+    meas = init["measurements"].cpu().numpy()
+    half = NPIX // 2
+    binned = meas.reshape(N_SCANS, half, 2, half, 2).sum(axis=(2, 4))
+    factors, npix = meas_resample_on_the_fly(binned, (2, 2))
+    require(npix == NPIX, f"the resampled patterns would be {npix} wide")
+    return dict(init, measurements=binned, on_the_fly_meas_scale_factors=factors)
+
+
+def tbl_store_path(dev, card: str, data: dict):
+    """The tBL reconstruction from a reduced measurement store: 64^2
+    patterns stored as bfloat16, each batch upcast and resampled bilinearly
+    by (2, 2) with its intensity conserved, trained through B3."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    params = copy.deepcopy(TBL_PARAMS)
+    params["model_params"]["meas_dtype"] = TBL_STORE_DTYPE
+    torch.cuda.reset_peak_memory_stats()
+    solver = PtyRADSolver(params, init_variables=data, device=dev, verbose=True)
+    store = solver.buffers.measurements
+    t1 = time.perf_counter()
+    launches = drive(solver)
+    run_s = time.perf_counter() - t1
+    losses = [v for _, v in solver.history.loss_iters]
+    times = solver.history.iter_times
+    emit({
+        "phase": "tbl_store", "card": card, "n_patterns": N_SCANS, "batch": BATCH,
+        "store_dtype": str(store.dtype), "store_shape": list(store.shape),
+        "store_bytes": store.numel() * store.element_size(),
+        "float32_128_bytes": N_SCANS * NPIX * NPIX * 4,
+        "scale_factors": list(solver.geom.meas_scale_factors),
+        "iterations": len(losses), "losses": losses, "iter_s": times,
+        "patterns_per_s": [N_SCANS / t for t in times], "run_s": run_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+    })
+    require(store.dtype == torch.bfloat16 and tuple(store.shape[-2:]) == (NPIX // 2, NPIX // 2),
+            f"the store is {store.dtype} {tuple(store.shape)}")
+    require(len(losses) == NITER and all(np.isfinite(losses)), f"tbl_store: loss not finite: {losses}")
+    require(losses[-1] < losses[0], f"tbl_store: loss did not fall: {losses}")
+    steps = NITER * -(-N_SCANS // BATCH)
+    for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd"):
+        require(launches[name] == steps, f"tbl_store: {name} ran {launches[name]} times in "
+                f"{steps} steps")
+    return solver, launches
+
+
+def constraints_check(dev) -> None:
+    """All twelve constraints, at their default options, applied once to a
+    tBL-sized model (the simulation's object with a varying amplitude, probe
+    modes of distinct powers, the per-position tilt field) on the card and
+    on the CPU: finite, and each parameter within 1e-4 of its largest entry
+    (float32 transforms and blurs on two devices). ortho_pmode leaves each
+    mode's phase free, so the probe is compared by its mode powers and its
+    incoherent intensity sum_m |p_m|^2."""
+    from ptyrad_tpu_torch.constraints import DEFAULT_CONSTRAINT_PARAMS, ConstraintScheduler
+    from ptyrad_tpu_torch.models import make_model
+    from ptyrad_tpu_torch.physics import make_mixed_probe, make_stem_probe
+
+    every = {name: {"freq": 1} for name in DEFAULT_CONSTRAINT_PARAMS}
+    init = tbl_init()
+    rng = np.random.default_rng(SEED + 4)
+    amp = 1.0 + 0.03 * rng.standard_normal(init["obj"].shape).astype(np.float32)
+    probe = make_stem_probe({"kv": 80.0, "conv_angle": 24.9, "Npix": NPIX, "dx": 0.1494})
+    init.update(obj=(amp * init["obj"]).astype(np.complex64), obj_tilts=tilt_field(),
+                probe=make_mixed_probe(probe, PMODE, [0.05, 0.04, 0.03, 0.02, 0.01]))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        params, buffers, geom = make_model(init, None, where)
+        sched = ConstraintScheduler(every, geom)
+        require(len(sched.active_names) == 12, f"{sched.active_names} are active")
+        sched(params, buffers, 1)
+        got = {n: t.detach().cpu() for n, t in params.named() if n != "probe"}
+        power = (params.probe.detach().abs() ** 2).cpu()
+        got.update(probe_mode_power=power.sum(dim=(-2, -1)), probe_intensity=power.sum(0))
+        out[where.type] = got
+    names = sorted(out["cpu"])
+    errs, tols = _grad_errs([out["cuda"][n] for n in names], [out["cpu"][n] for n in names])
+    emit({"phase": "constraints", "applied": sched.active_names, "names": names,
+          "finite": all(bool(torch.isfinite(t).all()) for t in out["cuda"].values()),
+          "max_abs_err_vs_cpu": errs, "tolerance": tols})
+    for name, e, t in zip(names, errs, tols):
+        require(bool(torch.isfinite(out["cuda"][name]).all()), f"constraints: {name} not finite")
+        require(e <= t, f"constraints: {name} differs from the CPU's: {e} > {t}")
 
 
 # -- the tilt paths: optimizable slice thickness and crystal tilts -----------------
@@ -1525,11 +1939,12 @@ def pso_tilt_path(dev, card: str):
     return solver, launches
 
 
-def profile_steps(solver, card: str, path: str, niter: int, n_batches: int) -> None:
+def profile_steps(solver, card: str, path: str, niter: int, n_batches: int):
     """Where a training step's time goes: torch.profiler over n_batches steps
     of the solver's own epoch function (after the path's run, so its launches
     are not counted there). Device time by kernel, the device's busy share of
-    the window's wall time, and the host time per step."""
+    the window's wall time, and the host time per step. Returns the device ms
+    per step (None if the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = solver.device
@@ -1556,6 +1971,7 @@ def profile_steps(solver, card: str, path: str, niter: int, n_batches: int) -> N
           "device_busy_ms": busy_ms if rows else "not measured",
           "device_busy_share": busy_ms / wall_ms if rows else "not measured",
           "top_device_ms": [{"kernel": k, "calls": c, "ms": ms} for ms, c, k in rows[:12]]})
+    return busy_ms / n_batches if rows else None
 
 
 def main() -> int:
@@ -1589,6 +2005,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += check_chain_dh(dev, gen)
     torch.cuda.empty_cache()
+    kernels += check_chain_ff(dev, gen)
+    torch.cuda.empty_cache()
 
     solver, tbl_launches, init = main_path(dev, card)
     profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
@@ -1598,11 +2016,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver, low_dose_launches = low_dose_path(dev, card, init)
     profile_steps(solver, card, "low-dose", NITER + 1, n_batches=32)
+    store_data = tbl_store_dataset(init)
     del solver, init
     torch.cuda.empty_cache()
-    solver, pso_launches = pso_path(dev, card)
-    profile_steps(solver, card, "PSO", PSO_NITER + 1, n_batches=8)
+    solver, store_launches = tbl_store_path(dev, card, store_data)
+    profile_steps(solver, card, "tBL-store", NITER + 1, n_batches=32)
+    del solver, store_data
+    torch.cuda.empty_cache()
+    constraints_check(dev)
+    torch.cuda.empty_cache()
+    solver, pso_launches, pso_init, pso_ref = pso_path(dev, card)
+    pso_ms = profile_steps(solver, card, "PSO", PSO_NITER + 1, n_batches=8)
     del solver
+    torch.cuda.empty_cache()
+    solver, pso_ff_launches = pso_ff_path(dev, card, pso_init, pso_ref)
+    pso_ff_ms = far_field_on(
+        lambda: profile_steps(solver, card, "PSO-ff", PSO_NITER + 1, n_batches=8))
+    emit({"phase": "pso_ff_profile", "card": card, "device_ms_per_step": {
+        "pso": pso_ms if pso_ms is not None else "not measured",
+        "pso_ff": pso_ff_ms if pso_ff_ms is not None else "not measured"}})
+    del solver
+    torch.cuda.empty_cache()
+    random_start_launches = pso_ff_random_start(dev, pso_init)
+    torch.cuda.empty_cache()
+    carve_launches = carve_check(dev, pso_init)
+    del pso_init
     torch.cuda.empty_cache()
     solver, tilt_launches = tilt_path(dev, card)
     profile_steps(solver, card, "tBL-tilt", NITER + 1, n_batches=32)
@@ -1610,10 +2048,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver, pso_tilt_launches = pso_tilt_path(dev, card)
     profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
-    launches = add_counts(tbl_launches, forward_launches, low_dose_launches, pso_launches,
-                          tilt_launches, pso_tilt_launches)
+    launches = add_counts(tbl_launches, forward_launches, low_dose_launches, store_launches,
+                          pso_launches, pso_ff_launches, random_start_launches,
+                          carve_launches, tilt_launches,
+                          pso_tilt_launches)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    launches.update({name: 0 for name in NOT_DRIVEN})
     emit({"kernels": [{key: {**k, "launches": launches[k["name"]]}[key] for key in keys}
                       for k in kernels]})
     print(card)

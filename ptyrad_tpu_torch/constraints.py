@@ -6,10 +6,9 @@ then tilt smoothing), the freq gating and the strict-config checks. Each
 constraint computes new tensors under ``torch.no_grad`` and copies them into
 the parameters in place, so the optimizer keeps its references.
 
-Ported: ortho_pmode, fix_probe_int, obj_rblur, obj_zblur, obja_thresh,
-objp_postiv (the six the tBL configuration runs), kz_filter (PSO) and
-tilt_smooth (per-position tilts). The other four raise NotImplementedError
-when enabled; ROADMAP queue A lists them.
+All twelve constraints of the JAX package are here: ortho_pmode,
+probe_mask_k, fix_probe_int, obj_rblur, obj_zblur, kr_filter, kz_filter,
+complex_ratio, mirrored_amp, obja_thresh, objp_postiv and tilt_smooth.
 """
 
 from __future__ import annotations
@@ -21,7 +20,8 @@ import torch
 
 from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams
 from ptyrad_tpu_torch.ops.blur import gaussian_blur_1d, gaussian_blur_2d
-from ptyrad_tpu_torch.ops.fourier import fftn3
+from ptyrad_tpu_torch.ops.fourier import fft2, fftn3, fftshift2, ifft2, ifftshift2
+from ptyrad_tpu_torch.ops.masks import make_sigmoid_mask
 
 DEFAULT_CONSTRAINT_PARAMS = {
     "ortho_pmode": {"freq": None},
@@ -69,6 +69,23 @@ def ortho_pmode(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
     params.probe.copy_(orthogonalize_modes(params.probe, sort=True))
 
 
+def probe_mask_k(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
+    """Sigmoid k-space mask on the strongest probe modes: mode 0 and every
+    mode i whose predecessors hold at most power_thresh of the total power
+    (ptyrad_tpu/constraints.py:160-177); then the modes are sorted by
+    intensity."""
+    probe = params.probe
+    power = (probe.real ** 2 + probe.imag ** 2).sum(dim=(-2, -1))
+    csum = torch.cumsum(power / power.sum(), dim=0)
+    masked = torch.cat([torch.ones(1, dtype=torch.bool, device=probe.device),
+                        csum[:-1] <= cfg["power_thresh"]])
+    mask2d = make_sigmoid_mask(probe.shape[-1], cfg["radius"], cfg["width"], device=probe.device)
+    probe_k = fftshift2(fft2(ifftshift2(probe), norm="ortho"))
+    probe_masked = fftshift2(ifft2(ifftshift2(probe_k * mask2d), norm="ortho"))
+    new_probe = torch.where(masked[:, None, None], probe_masked, probe)
+    probe.copy_(sort_by_mode_intensity(new_probe))
+
+
 def fix_probe_int(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
     """Rescale the probe to its initial total intensity."""
     probe = params.probe
@@ -110,6 +127,25 @@ def objp_postiv(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
     params.objp.copy_(cfg["relax"] * params.objp + (1.0 - cfg["relax"]) * modified)
 
 
+def kr_filter_fn(obj: torch.Tensor, radius: float, width: float) -> torch.Tensor:
+    """Lateral Fourier low-pass with a sigmoid cutoff over the last two axes
+    (ptyrad_tpu/constraints.py:87-103). On a rectangular canvas the square
+    mask is stretched by nearest-neighbour lookup with the floor source
+    mapping src = dst * S // D."""
+    ny, nx = obj.shape[-2:]
+    mask = make_sigmoid_mask(min(ny, nx), radius, width, device=obj.device)
+    if (ny, nx) != tuple(mask.shape):
+        sy, sx = mask.shape
+        iy = (torch.arange(ny, device=obj.device) * sy) // ny
+        ix = (torch.arange(nx, device=obj.device) * sx) // nx
+        mask = mask[iy][:, ix]
+    return ifft2(fft2(obj) * ifftshift2(mask)).real.to(obj.dtype)
+
+
+def kr_filter(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
+    _apply_obj(params, cfg["obj_type"], lambda o: kr_filter_fn(o, cfg["radius"], cfg["width"]))
+
+
 def kz_filter_fn(obj: torch.Tensor, beta: float = 1.0, alpha: float = 1.0,
                  obj_type: str = "phase") -> torch.Tensor:
     """Missing-wedge arctan kz filter (ptyrad_tpu/constraints.py:106-126).
@@ -136,6 +172,31 @@ def kz_filter(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
         params.obja.copy_(kz_filter_fn(params.obja, cfg["beta"], cfg["alpha"], "amplitude"))
     if cfg["obj_type"] in ("phase", "both"):
         params.objp.copy_(kz_filter_fn(params.objp, cfg["beta"], cfg["alpha"], "phase"))
+
+
+def complex_ratio_fn(obja: torch.Tensor, objp: torch.Tensor, alpha1: float, alpha2: float):
+    """Amplitude-phase coupling (ptyrad_tpu/constraints.py:129-140):
+    Cbar = sum|log a| / sum|phi|;  a' = exp((1 - a1) log a - a1 Cbar phi);
+    phi' = (1 - a2) phi - a2 / Cbar log a. Returns (a', phi', Cbar)."""
+    log_a = torch.log(obja)
+    cbar = log_a.abs().sum() / (objp.abs().sum() + 1e-8)
+    obja_c = torch.exp((1.0 - alpha1) * log_a - alpha1 * cbar * objp)
+    objp_c = (1.0 - alpha2) * objp - alpha2 / (cbar + 1e-8) * log_a
+    return obja_c, objp_c, cbar
+
+
+def complex_ratio(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
+    obja_c, objp_c, _ = complex_ratio_fn(params.obja, params.objp, cfg["alpha1"], cfg["alpha2"])
+    if cfg["obj_type"] in ("amplitude", "both"):
+        params.obja.copy_(obja_c)
+    if cfg["obj_type"] in ("phase", "both"):
+        params.objp.copy_(objp_c)
+
+
+def mirrored_amp(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
+    """a' = relax a + (1 - relax) (1 - scale clamp(phi, 0)^power)."""
+    amp_new = 1.0 - cfg["scale"] * params.objp.clamp(min=0.0) ** cfg["power"]
+    params.obja.copy_(cfg["relax"] * params.obja + (1.0 - cfg["relax"]) * amp_new)
 
 
 def tilt_smooth(params: PtychoParams, buffers: Buffers, cfg: dict, n_slow: int = 1,
@@ -168,10 +229,14 @@ _ORDER: Tuple[str, ...] = (
 
 _FNS: Dict[str, Callable] = {
     "ortho_pmode": ortho_pmode,
+    "probe_mask_k": probe_mask_k,
     "fix_probe_int": fix_probe_int,
     "obj_rblur": obj_rblur,
     "obj_zblur": obj_zblur,
+    "kr_filter": kr_filter,
     "kz_filter": kz_filter,
+    "complex_ratio": complex_ratio,
+    "mirrored_amp": mirrored_amp,
     "obja_thresh": obja_thresh,
     "objp_postiv": objp_postiv,
     "tilt_smooth": tilt_smooth,
@@ -207,9 +272,6 @@ class ConstraintScheduler:
                     f"Constraint '{name}' freq must be >= 1 (got {freq}); "
                     "use freq=None to disable it"
                 )
-            if name not in _FNS:
-                raise NotImplementedError(
-                    f"constraint '{name}' waits for ROADMAP queue A (constraints)")
             c = dict(cfg[name])
             c.pop("freq")
             fn = _FNS[name]

@@ -7,14 +7,18 @@
 //   B6b  _mega_bwd_kernel (:529, pallas_call :942)
 // with the propagator cotangents (need_dh: _seg_bwd_kernel :330-334,
 // :369-373, _acc_dh :396; _mega_bwd_kernel :552-564, :593-597, :632-636,
-// _acc_dh_mega :651), without the far-field exit (set_far_field, off by
-// default there).
+// _acc_dh_mega :651) and B5's far-field exit (set_far_field :738, off by
+// default there: _seg_fwd_kernel :250/:273, _seg_bwd_kernel :289/:323).
 //
 // Contract, per sample b and probe mode p (complex64 wavefields):
 //   for slice z of the chain:  chi_z = psi_z * T_z,  T_z = a_z exp(i phi_z)
 //                               psi_{z+1} = ifft2(H * fft2(chi_z))
 //   except after the chain's final slice when `last` (B5) / `last_mega` (B6)
-//   is set: then the exit is chi of the final slice, unpropagated.
+//   is set: then the exit is chi of the final slice, unpropagated; or, for
+//   B5 with `far_field` (needs `last`), its centred detector-plane spectrum
+//   Y = fftshift(fft2(chi)), unnormalised, in natural order (the caller folds
+//   1/N^2 into the intensity). The adjoint of that exit is the unnormalised
+//   inverse transform of the unshifted cotangent; it adds nothing to dH.
 //   B6a also writes the segment-entry stack (B, S, pmode, N, N): entry s is
 //   psi at the first slice of segment s (entry 0 is psi0).
 //   Backward: the adjoint of ifft2(H fft2(.)) is ifft2(conj(H) fft2(.)); the
@@ -79,6 +83,21 @@
 //    no pass is added, so the path without dH runs the same passes as ever.
 //    The dH work lives in col_kernel<true> only; without dH every column
 //    pass is col_kernel<false>, which has none of it.
+//  * The far-field exit. The TPU kernel multiplies by dense shift-folded DFT
+//    matrices because it has no FFT; here the exit rides on the passes: the
+//    final slice's row pass runs its row FFT after the T multiply and stores
+//    each line in natural, shifted kx order (a permutation on the way out of
+//    shared memory: the global stores stay whole 128-byte lines), and one
+//    more column pass (col_ff_kernel: column FFT only, no H, no inverse)
+//    stores its rows at (ky + N/2) % N. A column tile holds whole columns, so
+//    that pass permutes rows inside its own tile and works in place. The
+//    adjoint is one column pass on the cotangent (load through the same row
+//    map, unnormalised inverse column transform) and the same x permutation
+//    on the load of the first adjoint row pass, whose row IFFT is then
+//    pending. No 1/N^2 anywhere: the inverse transforms are unnormalised and
+//    the 1/N^2 of a propagation rides on H. The permuting store and load are
+//    template flags (kFf) of the row kernels, so every pass without the exit
+//    is the instantiation it was.
 //  * FP32 throughout, accurate sincosf, twiddles from double sincospi.
 
 #include <cuda_runtime.h>
@@ -103,6 +122,15 @@ __device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
 
 __device__ __forceinline__ int bitrev(int i, int logn) {
   return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - logn));
+}
+
+// The far-field exit's order along a line of n = 2^logn points: position
+// i = line * n + x of the natural, shifted order (x holds frequency
+// (x + n/2) % n = x ^ n/2) maps to where the bit-reversed output of the
+// forward transform holds that frequency, bitrev(x ^ n/2) = bitrev(x) ^ 1.
+__device__ __forceinline__ int ff_index(int i, int logn) {
+  const int n = 1 << logn;
+  return (i & ~(n - 1)) | (bitrev(i & (n - 1), logn) ^ 1);
 }
 
 // tw[k] = exp(-2 pi i k / n), k < n/2; returns synchronised
@@ -191,7 +219,10 @@ struct Rows {
 // (grid (N / R, B)). Loads src (bit-reversed along x when `pending`: the
 // previous propagation's row IFFT is still to do), finishes that IFFT,
 // stores the natural state to `entry` if given, multiplies by T if a is
-// given, runs the row FFT if `fft`, and writes dst if given.
+// given, runs the row FFT if `fft`, and writes dst if given. kFf (the
+// far-field exit; needs `fft`): the transformed lines are stored in natural,
+// shifted order, column x holding kx = (x + N/2) % N.
+template <bool kFf>
 __global__ void __launch_bounds__(kThreads)
 row_fwd_kernel(const float2* src, long long src_bs, int pending, float2* entry,
                long long entry_bs, const float* __restrict__ a, const float* __restrict__ ph,
@@ -231,7 +262,9 @@ row_fwd_kernel(const float2* src, long long src_bs, int pending, float2* entry,
   }
   if (fft) fft_lines<false>(s, tw, nlines, logn, n, 1);
   if (dst != nullptr) {
-    for (int e = threadIdx.x; e < ne; e += blockDim.x) dst[g.at(dst_bs, e)] = s[e];
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+      dst[g.at(dst_bs, e)] = s[kFf ? ff_index(e, logn) : e];
+    }
   }
 }
 
@@ -240,7 +273,9 @@ row_fwd_kernel(const float2* src, long long src_bs, int pending, float2* entry,
 // do), forms dT = sum_p d chi conj(psi) against the slice-entry state psi,
 // writes d a and d phi for these pixels, multiplies by conj(T), runs the
 // row FFT if `fft` (the adjoint propagation to the previous slice
-// follows), and writes dst.
+// follows), and writes dst. kFf (the adjoint of the far-field exit; needs
+// `pending`): src holds its lines in the exit's natural, shifted order.
+template <bool kFf>
 __global__ void __launch_bounds__(kThreads)
 row_bwd_kernel(const float2* src, long long src_bs, int pending, const float2* __restrict__ psi,
                long long psi_bs, const float* __restrict__ a, const float* __restrict__ ph,
@@ -257,7 +292,9 @@ row_bwd_kernel(const float2* src, long long src_bs, int pending, const float2* _
   const int ne = nlines << logn;
 
   init_twiddles(tw, n);
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) s[e] = src[g.at(src_bs, e)];
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    s[kFf ? ff_index(e, logn) : e] = src[g.at(src_bs, e)];
+  }
   __syncthreads();
   if (pending) ifft_lines<false>(s, tw, nlines, logn, n, 1);
 
@@ -349,6 +386,50 @@ col_kernel(float2* buf, long long bs, const float2* __restrict__ h, long long h_
   }
 }
 
+// Column pass of the far-field exit (grid (N / C, pmode, B)), on columns
+// c0..c0+C-1 of field (b, p) of src, into the same columns of dst (which may
+// be src: the block holds its whole columns before it stores any). Forward:
+// the column FFT, row ky of the result stored at (ky + N/2) % N. kAdj, its
+// adjoint: the rows loaded through the same map, then the unnormalised
+// inverse column transform.
+template <bool kAdj>
+__global__ void __launch_bounds__(kThreads)
+col_ff_kernel(const float2* src, float2* dst, long long bs, int logn, int log_c) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << logn;
+  const int c = 1 << log_c;
+  float2* tw = smem;
+  float2* s = smem + n / 2;  // s[r * c + col]
+  const int ne = n << log_c;
+  const size_t fo = static_cast<size_t>(blockIdx.z) * bs +
+                    (static_cast<size_t>(blockIdx.y) << (2 * logn)) + blockIdx.x * c;
+
+  init_twiddles(tw, n);
+  // memory row y of the exit <-> transform position bitrev(y) ^ 1 (ff_index)
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const int y = e >> log_c, col = e & (c - 1);
+    const int r = kAdj ? ff_index(y, logn) : y;
+    s[(r << log_c) + col] = src[fo + static_cast<size_t>(y) * n + col];
+  }
+  __syncthreads();
+  if (kAdj) {
+    ifft_lines<true>(s, tw, c, logn, 1, c);
+  } else {
+    fft_lines<true>(s, tw, c, logn, 1, c);
+  }
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const int y = e >> log_c, col = e & (c - 1);
+    const int r = kAdj ? y : ff_index(y, logn);
+    dst[fo + static_cast<size_t>(y) * n + col] = s[(r << log_c) + col];
+  }
+}
+
+#define CHAIN_TRY(expr)                         \
+  do {                                          \
+    const cudaError_t err_ = (expr);            \
+    if (err_ != cudaSuccess) return err_;       \
+  } while (0)
+
 // Shapes shared by every pass of one call.
 struct Chain {
   int B, pmode, logn;
@@ -359,7 +440,8 @@ struct Chain {
   int rows, log_c;
   size_t row_smem, col_smem;
 
-  cudaError_t init() {
+  // ff: the call takes the far-field exit, so its kernels are set up too
+  cudaError_t init(bool ff = false) {
     if (logn < 1 || logn > kMaxLogN || B < 1 || pmode < 1) return cudaErrorInvalidValue;
     const int n = 1 << logn;
     nn = static_cast<long long>(n) * n;
@@ -370,30 +452,32 @@ struct Chain {
     while ((1 << log_c) < kColTile && (1 << log_c) < n) ++log_c;
     row_smem = (static_cast<size_t>(rows) * pmode * n + n / 2) * sizeof(float2);
     col_smem = ((static_cast<size_t>(n) << log_c) + n / 2) * sizeof(float2);
-    cudaError_t err = cudaFuncSetAttribute(row_fwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(row_smem));
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(row_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(row_smem));
+    CHAIN_TRY(set_smem(row_fwd_kernel<false>, row_smem));
+    CHAIN_TRY(set_smem(row_bwd_kernel<false>, row_smem));
+    CHAIN_TRY(set_smem(col_kernel<false>, col_smem));
+    CHAIN_TRY(set_smem(col_kernel<true>, col_smem));
+    if (ff) {
+      CHAIN_TRY(set_smem(row_fwd_kernel<true>, row_smem));
+      CHAIN_TRY(set_smem(row_bwd_kernel<true>, row_smem));
+      CHAIN_TRY(set_smem(col_ff_kernel<false>, col_smem));
+      CHAIN_TRY(set_smem(col_ff_kernel<true>, col_smem));
     }
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(col_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(col_smem));
-    }
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(col_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(col_smem));
-    }
-    return err;
+    return cudaSuccess;
+  }
+
+  template <typename Kernel>
+  static cudaError_t set_smem(Kernel kernel, size_t bytes) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
   }
 
   dim3 row_grid() const { return dim3((1 << logn) / rows, B); }
 
   cudaError_t row_fwd(const float2* src, long long src_bs, bool pending, float2* entry,
                       long long entry_bs, const float* a, const float* ph, long long obj_bs,
-                      bool fft, float2* dst) const {
-    row_fwd_kernel<<<row_grid(), kThreads, row_smem, st>>>(
+                      bool fft, float2* dst, bool ff = false) const {
+    auto kernel = ff ? row_fwd_kernel<true> : row_fwd_kernel<false>;
+    kernel<<<row_grid(), kThreads, row_smem, st>>>(
         src, src_bs, pending, entry, entry_bs, a, ph, obj_bs, fft, dst, field_bs, pmode, logn,
         rows);
     return cudaGetLastError();
@@ -401,8 +485,9 @@ struct Chain {
 
   cudaError_t row_bwd(const float2* src, bool pending, const float2* psi, long long psi_bs,
                       const float* a, const float* ph, long long obj_bs, float* da, float* dph,
-                      long long dobj_bs, bool fft, float2* dst) const {
-    row_bwd_kernel<<<row_grid(), kThreads, row_smem, st>>>(
+                      long long dobj_bs, bool fft, float2* dst, bool ff = false) const {
+    auto kernel = ff ? row_bwd_kernel<true> : row_bwd_kernel<false>;
+    kernel<<<row_grid(), kThreads, row_smem, st>>>(
         src, field_bs, pending, psi, psi_bs, a, ph, obj_bs, da, dph, dobj_bs, fft, dst,
         field_bs, pmode, logn, rows);
     return cudaGetLastError();
@@ -426,29 +511,34 @@ struct Chain {
                                                        nullptr, 0, logn, log_c);
     return cudaGetLastError();
   }
-};
 
-#define CHAIN_TRY(expr)                         \
-  do {                                          \
-    const cudaError_t err_ = (expr);            \
-    if (err_ != cudaSuccess) return err_;       \
-  } while (0)
+  // the far-field exit's column pass from src into dst (adj: its adjoint)
+  cudaError_t col_ff(const float2* src, float2* dst, bool adj) const {
+    const dim3 grid((1 << logn) >> log_c, pmode, B);
+    auto kernel = adj ? col_ff_kernel<true> : col_ff_kernel<false>;
+    kernel<<<grid, kThreads, col_smem, st>>>(src, dst, field_bs, logn, log_c);
+    return cudaGetLastError();
+  }
+};
 
 // Forward walk over nslices slices (a and ph point at the first; slice z at
 // + z * nn), from psi_in into out. With a stack, the entry state of every
 // sg-slice segment is written to stack[:, z / sg]. `last`: no propagation
-// after the final slice.
+// after the final slice; with `ff` (needs `last`) the far-field exit instead.
 cudaError_t chain_fwd(const Chain& c, const float2* psi_in, float2* out, const float* a,
                       const float* ph, long long obj_bs, float2* stack, int n_seg, int sg,
-                      int nslices, bool last) {
+                      int nslices, bool last, bool ff = false) {
   const float2* src = psi_in;
   bool pending = false;
   for (int z = 0; z < nslices; ++z) {
     float2* entry = (stack != nullptr && z % sg == 0) ? stack + (z / sg) * c.field_bs : nullptr;
-    const bool prop = !(last && z == nslices - 1);
+    const bool final_slice = z == nslices - 1;
+    const bool prop = !(last && final_slice);
+    const bool exit_ff = ff && final_slice;
     CHAIN_TRY(c.row_fwd(src, c.field_bs, pending, entry, n_seg * c.field_bs, a + z * c.nn,
-                        ph + z * c.nn, obj_bs, prop, out));
+                        ph + z * c.nn, obj_bs, prop || exit_ff, out, exit_ff));
     if (prop) CHAIN_TRY(c.col(out, false));
+    if (exit_ff) CHAIN_TRY(c.col_ff(out, out, false));
     src = out;
     pending = prop;
   }
@@ -463,14 +553,14 @@ cudaError_t chain_fwd(const Chain& c, const float2* psi_in, float2* out, const f
 // slice-entry states 1..sg-1 are rebuilt into scratch (sg - 1 fields of
 // (B, pmode, N, N), `work` one more) before its slices are walked. g is
 // the cotangent of the chain's exit; `last`: the final slice did not
-// propagate. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0 into dpsi,
+// propagate, and with `ff` g is the cotangent of its far-field exit. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0 into dpsi,
 // which also carries the running cotangent. With dh (need_dh): kscr holds
 // sg fields of K, dh_part one field of partials, and dh gets the
 // propagator cotangent in H's shape.
 cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long long stack_bs,
                       const float* a, const float* ph, long long obj_bs, float2* scratch,
                       float2* work, float2* kscr, float2* dh_part, float2* dh, float* da,
-                      float* dph, float2* dpsi, int n_seg, int sg, bool last) {
+                      float* dph, float2* dpsi, int n_seg, int sg, bool last, bool ff = false) {
   const long long dobj_bs = static_cast<long long>(n_seg) * sg * c.nn;
   const long long scratch_field = c.B * c.field_bs;
   const bool with_dh = dh != nullptr;
@@ -490,7 +580,12 @@ cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long
   if (!last) {  // the cotangent arrives after the final propagation
     CHAIN_TRY(c.row_fwd(g, c.field_bs, false, nullptr, 0, nullptr, nullptr, 0, true, dpsi));
     src = dpsi;
+  } else if (ff) {  // the exit's adjoint: its column pass here, its row IFFT pending
+    CHAIN_TRY(c.col_ff(g, dpsi, true));
+    src = dpsi;
+    pending = true;
   }
+  bool ff_due = ff;  // the next adjoint row pass loads the exit's x order
   for (int s = n_seg - 1; s >= 0; --s) {
     const float2* entry0 = stack + s * c.field_bs;
     const float* a_s = a + static_cast<long long>(s) * sg * c.nn;
@@ -525,7 +620,8 @@ cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long
       const long long psi_bs = j > 0 ? c.field_bs : stack_bs;
       const long long z = static_cast<long long>(s) * sg + j;
       CHAIN_TRY(c.row_bwd(src, pending, psi, psi_bs, a_s + j * c.nn, ph_s + j * c.nn, obj_bs,
-                          da + z * c.nn, dph + z * c.nn, dobj_bs, prop_in, dpsi));
+                          da + z * c.nn, dph + z * c.nn, dobj_bs, prop_in, dpsi, ff_due));
+      ff_due = false;
       if (j > 0) CHAIN_TRY(adjoint_col(j - 1));
       src = dpsi;
       pending = j > 0;
@@ -557,17 +653,21 @@ extern "C" {
 
 // B5a. psi (B, pmode, N, N) complex64 -> out (same); a, ph: slice 0 of the
 // segment, (B, ., N, N) f32 with per-sample stride obj_bs (elements) and
-// the sg slices adjacent; h (1 or B, N, N) complex64, corner-centred.
+// the sg slices adjacent; h (1 or B, N, N) complex64, corner-centred. With
+// far_field (needs last) out is the exit's centred spectrum.
 int ptyrad_chain_segment_fwd(const float2* psi, const float* a, const float* ph,
                              long long obj_bs, const float2* h, float2* out, int B, int pmode,
-                             int sg, int logn, int h_shared, int last, void* stream) {
+                             int sg, int logn, int h_shared, int last, int far_field,
+                             void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
-  if (sg < 1) return static_cast<int>(cudaErrorInvalidValue);
-  CHAIN_TRY(c.init());
-  return static_cast<int>(chain_fwd(c, psi, out, a, ph, obj_bs, nullptr, 1, sg, sg, last != 0));
+  if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
+  CHAIN_TRY(c.init(far_field != 0));
+  return static_cast<int>(chain_fwd(c, psi, out, a, ph, obj_bs, nullptr, 1, sg, sg, last != 0,
+                                    far_field != 0));
 }
 
-// B5b. g: cotangent of the exit (B, pmode, N, N); psi: the segment's entry.
+// B5b. g: cotangent of the exit (B, pmode, N, N), of its centred spectrum
+// with far_field; psi: the segment's entry.
 // scratch: (sg - 1) fields, work: one field (B, pmode, N, N). Writes d a,
 // d phi (B, sg, N, N) and d psi (B, pmode, N, N). With dh (H's shape) not
 // null, also the propagator cotangent, through kscr (sg fields) and
@@ -576,12 +676,13 @@ int ptyrad_chain_segment_bwd(const float2* g, const float2* psi, const float* a,
                              long long obj_bs, const float2* h, float2* scratch, float2* work,
                              float2* kscr, float2* dh_part, float2* dh, float* da, float* dph,
                              float2* dpsi, int B, int pmode, int sg, int logn, int h_shared,
-                             int last, void* stream) {
+                             int last, int far_field, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
-  if (sg < 1) return static_cast<int>(cudaErrorInvalidValue);
-  CHAIN_TRY(c.init());
+  if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
+  CHAIN_TRY(c.init(far_field != 0));
   return static_cast<int>(chain_bwd(c, g, psi, c.field_bs, a, ph, obj_bs, scratch, work, kscr,
-                                    dh_part, dh, da, dph, dpsi, 1, sg, last != 0));
+                                    dh_part, dh, da, dph, dpsi, 1, sg, last != 0,
+                                    far_field != 0));
 }
 
 // B6a. n_seg segments of sg slices from psi0; writes the exit to out and the

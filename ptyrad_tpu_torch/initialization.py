@@ -1,15 +1,16 @@
 """Host-side measurement preparation (a narrow part of the Initializer).
 
-Counterpart of the ``on_the_fly`` branch of
-ptyrad_tpu/initialization.py:Initializer._meas_pad (:314-373). The rest of
-the Initializer (loading, cropping, calibration, probe/object/position
-initialisation) waits for ROADMAP queue A.
+Counterpart of the ``on_the_fly`` branches of
+ptyrad_tpu/initialization.py:Initializer._meas_pad (:314-373) and
+._meas_resample (:375-406). The rest of the Initializer (loading, cropping,
+calibration, probe/object/position initialisation) waits for ROADMAP queue A.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ptyrad_tpu_torch.ops.resize import out_size
 from ptyrad_tpu_torch.utils.image_proc import (create_one_hot_mask, exponential_decay,
                                                fit_background, power_law)
 
@@ -57,3 +58,23 @@ def meas_pad_on_the_fly(meas: np.ndarray, padding_type: str, target_npix: int,
     meas_padded = np.square(amp_padded).astype("float32")
     meas_padded[h1:h2, w1:w2] = 0
     return meas_padded, [h1, h2, w1, w2]
+
+
+def meas_resample_on_the_fly(meas: np.ndarray, scale_factors, meas_padded=None):
+    """The scale factors for resampling (N, h, w) patterns on the device,
+    batch by batch, and the pattern size that results.
+
+    Returns ([s, s], npix): the two factors equalised to the smaller one, and
+    floor(base * s), where the base size is the padded template's when an
+    on-the-fly pad is active (``meas_padded`` from meas_pad_on_the_fly; the
+    stored array stays unpadded) and the data's otherwise. ``make_model``
+    takes the factors as on_the_fly_meas_scale_factors; ``get_measurements``
+    pads, then resamples each batch; the probe must be npix wide.
+    """
+    scale = [float(s) for s in scale_factors]
+    if len(scale) != 2:
+        raise ValueError("scale_factors must have two entries")
+    if scale[0] != scale[1]:
+        scale = [min(scale)] * 2
+    base = np.shape(meas_padded)[-1] if meas_padded is not None else np.shape(meas)[-1]
+    return scale, out_size(int(base), scale[-1])

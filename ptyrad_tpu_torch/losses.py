@@ -13,12 +13,10 @@ means (0 = padding sample).
 
 from __future__ import annotations
 
-import math
-
 import torch
-import torch.nn.functional as F
 
 from ptyrad_tpu_torch.ops.blur import gaussian_blur_2d
+from ptyrad_tpu_torch.ops.resize import area_downsample
 
 DEFAULT_LOSS_PARAMS = {
     "loss_single": {"state": True, "weight": 1.0, "dp_pow": 0.5},
@@ -105,14 +103,6 @@ def loss_sparse(objp_patches, omode_occu, params, mask=None):
     return params["weight"] * (per_mode * omode_occu).sum()
 
 
-def _area_downsample(x, scale):
-    """torch mode='area': adaptive average pooling to floor(n * s)."""
-    ny = int(math.floor(x.shape[-2] * scale[0]))
-    nx = int(math.floor(x.shape[-1] * scale[1]))
-    flat = x.reshape(-1, 1, x.shape[-2], x.shape[-1])
-    return F.adaptive_avg_pool2d(flat, (ny, nx)).reshape(*x.shape[:-2], ny, nx)
-
-
 def loss_simlar(obja_patches, objp_patches, omode_occu, params, mask=None):
     """Cross-omode similarity: unbiased std over the omode axis after optional
     blur and area downsample; 0 for a single object mode."""
@@ -126,7 +116,7 @@ def loss_simlar(obja_patches, objp_patches, omode_occu, params, mask=None):
         if blur_std is not None and blur_std != 0:
             patches = gaussian_blur_2d(patches, kernel_size=5, sigma=blur_std)
         if scale is not None and any(s != 1 for s in scale):
-            patches = _area_downsample(patches, tuple(scale))
+            patches = area_downsample(patches, tuple(scale))
         weighted = patches * omode_occu[:, None, None, None]
         return _bmean(weighted.std(dim=1, correction=1), mask)
 

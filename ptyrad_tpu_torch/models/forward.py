@@ -40,6 +40,7 @@ from ptyrad_tpu_torch.ops.fused_multislice import (fused_applicable_shapes,
                                                     multislice_dp_fused,
                                                     multislice_loss_sums_fused)
 from ptyrad_tpu_torch.ops.patches import extract_patches
+from ptyrad_tpu_torch.ops.resize import bilinear_resize_conserve
 from ptyrad_tpu_torch.ops.shift import fourier_shift, fourier_shift_kspace
 
 
@@ -178,16 +179,26 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
 
 
 def get_measurements(buffers: Buffers, geom: Geometry, indices: torch.Tensor) -> torch.Tensor:
-    """Measured patterns (B, Ky, Kx) for a batch of scan indices, embedded
-    in the fitted background canvas when they are padded on the fly
-    (ptyrad_tpu/models/forward.py:344-349), so the padded dataset never
-    sits on the device."""
-    meas = buffers.measurements[indices]
+    """Measured patterns (B, Ky, Kx) float32 for a batch of scan indices
+    (ptyrad_tpu/models/forward.py:339-352): the batch alone is upcast from
+    the store's type, embedded in the fitted background canvas when the data
+    are padded on the fly, then resampled bilinearly with its intensity
+    conserved, so neither the float32, the padded nor the resampled dataset
+    ever sits on the device."""
+    meas = buffers.measurements[indices].to(torch.float32)
     if geom.meas_pad_idx is not None:
         h1, h2, w1, w2 = geom.meas_pad_idx
         canvas = buffers.meas_padded.expand(meas.shape[0], *geom.meas_padded_shape).clone()
         canvas[:, h1:h2, w1:w2] = meas
         meas = canvas
+    scale = geom.meas_scale_factors
+    if scale is not None and any(s != 1 for s in scale):
+        meas = bilinear_resize_conserve(meas, scale)
+    if tuple(meas.shape[-2:]) != tuple(geom.probe_shape):
+        raise ValueError(
+            f"measured patterns are {tuple(meas.shape[-2:])} after the on-the-fly pad/resample "
+            f"but the probe is {tuple(geom.probe_shape)}: the forward pattern would not "
+            "match them")
     return meas
 
 

@@ -9,6 +9,7 @@ the frozen ``Geometry``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -48,7 +49,7 @@ class Buffers:
     """Constant tensors used by the forward pass."""
 
     H: torch.Tensor              # (Ny, Nx) complex64 base propagator (corner-centred)
-    measurements: torch.Tensor   # (N, Ky, Kx) float32 diffraction data
+    measurements: torch.Tensor   # (N, Ky, Kx) diffraction data, stored as meas_dtype
     crop_pos: torch.Tensor       # (N, 2) int32 top-left patch corners
     omode_occu: torch.Tensor     # (omode,) float32
     Ky: torch.Tensor             # (Ny, Nx) float32 angular k-grid (corner layout)
@@ -77,6 +78,7 @@ class Geometry:
     eps: float = 1e-10
     meas_pad_idx: Optional[Tuple[int, int, int, int]] = None  # (h1, h2, w1, w2)
     meas_padded_shape: Optional[Tuple[int, int]] = None
+    meas_scale_factors: Optional[Tuple[float, float]] = None
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -101,12 +103,33 @@ def params_from_numpy(d: dict, device=None) -> PtychoParams:
     )
 
 
-def _measurements(meas, device) -> torch.Tensor:
-    """The measurement store on the device as float32; a tensor already there
-    (e.g. simulated on the card) is kept without a host round trip."""
-    if isinstance(meas, torch.Tensor):
-        return meas.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(meas, dtype=np.float32), device=device)
+MEAS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+_F16_MAX = 65504.0
+
+
+def _measurements(meas, device, meas_dtype: str = "float32") -> torch.Tensor:
+    """The measurement store on the device in its storage type (model_params
+    meas_dtype: float32, bfloat16 or float16; get_measurements upcasts each
+    batch). A tensor already on the device (e.g. simulated on the card) is
+    converted there without a host round trip. float16 overflows to inf above
+    65504, which would surface as a NaN loss, so such values are clipped with
+    a warning; bfloat16 keeps float32's exponent range."""
+    if meas_dtype not in MEAS_DTYPES:
+        raise ValueError(f"model_params.meas_dtype={meas_dtype!r}; use one of "
+                         f"{sorted(MEAS_DTYPES)}")
+    dtype = MEAS_DTYPES[meas_dtype]
+    if not isinstance(meas, torch.Tensor):
+        # torch.tensor copies: the store never shares memory with the caller's array
+        meas = torch.tensor(np.asarray(meas, dtype=np.float32))
+    if dtype == torch.float16 and meas.numel():
+        top = float(meas.max())
+        if top > _F16_MAX:
+            warnings.warn(
+                f"meas_dtype='float16': measurement max {top:.3g} exceeds float16 range; "
+                "clipping to 65504. Use 'bfloat16' (full float32 exponent range) or "
+                "normalize the measurements.", stacklevel=3)
+            meas = meas.clamp(max=_F16_MAX)
+    return meas.to(device=device, dtype=dtype)
 
 
 def make_model(init_variables: dict, model_params: Optional[dict] = None, device=None):
@@ -114,19 +137,19 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
 
     Keys as in ptyrad_tpu.models.make_model: obj, probe, probe_pos_shifts,
     obj_tilts, slice_thickness, measurements, crop_pos, omode_occu, dx,
-    lambd, N_scan_slow, N_scan_fast, optional H, and the on-the-fly pad pair
+    lambd, N_scan_slow, N_scan_fast, optional H, the on-the-fly pad pair
     on_the_fly_meas_padded / on_the_fly_meas_padded_idx (both or neither;
-    see initialization.meas_pad_on_the_fly). ``model_params`` carries
-    update_params (per-tensor lr), obj_preblur_std and detector_blur_std.
-    ``device=None`` means CUDA.
+    see initialization.meas_pad_on_the_fly) and on_the_fly_meas_scale_factors
+    (initialization.meas_resample_on_the_fly). ``model_params`` carries
+    update_params (per-tensor lr), obj_preblur_std, detector_blur_std and
+    meas_dtype (the store's type). ``device=None`` means CUDA.
     """
     dev = resolve_device(device)
     model_params = model_params or {}
-    for key, supported in (("compute_dtype", "float32"), ("meas_dtype", "float32")):
-        if model_params.get(key, supported) != supported:
-            raise NotImplementedError(
-                f"model_params.{key}={model_params[key]!r}: only {supported!r} is ported "
-                "(ROADMAP queue A)")
+    if model_params.get("compute_dtype", "float32") != "float32":
+        raise NotImplementedError(
+            f"model_params.compute_dtype={model_params['compute_dtype']!r}: only 'float32' "
+            "is ported (ROADMAP queue A)")
     update = model_params.get("update_params", {}) or {}
 
     def lr_of(name):
@@ -136,7 +159,8 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     probe = np.asarray(init_variables["probe"], dtype=np.complex64)
     tilts = np.asarray(init_variables["obj_tilts"], dtype=np.float32).reshape(-1, 2)
     dz = float(np.asarray(init_variables["slice_thickness"]))
-    meas = _measurements(init_variables["measurements"], dev)
+    meas = _measurements(init_variables["measurements"], dev,
+                         model_params.get("meas_dtype", "float32"))
     crop_pos = np.asarray(init_variables["crop_pos"], dtype=np.int32)
     omode_occu = np.asarray(init_variables["omode_occu"], dtype=np.float32)
     dx = float(np.asarray(init_variables["dx"]))
@@ -156,10 +180,7 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     k = 2.0 * np.pi / lambd
     Kz = np.sqrt(np.maximum(k**2 - Kx**2 - Ky**2, 0.0))
 
-    if init_variables.get("on_the_fly_meas_scale_factors") is not None:
-        raise NotImplementedError(
-            "on_the_fly_meas_scale_factors: the on-the-fly measurement resample waits for "
-            "ROADMAP queue A (ops/resize.py)")
+    meas_scale = init_variables.get("on_the_fly_meas_scale_factors")
     meas_padded = init_variables.get("on_the_fly_meas_padded")
     meas_pad_idx = init_variables.get("on_the_fly_meas_padded_idx")
     if (meas_padded is None) != (meas_pad_idx is None):
@@ -198,5 +219,6 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
         meas_pad_idx=None if meas_pad_idx is None else tuple(int(i) for i in meas_pad_idx),
         meas_padded_shape=(None if meas_padded is None
                            else tuple(int(v) for v in np.shape(meas_padded)[-2:])),
+        meas_scale_factors=None if meas_scale is None else tuple(float(s) for s in meas_scale),
     )
     return params, buffers, geom

@@ -38,9 +38,9 @@ _L = ctypes.c_longlong
 # default ctypes int would cut a 64-bit pointer), sizes c_int, strides
 # c_longlong, scalars c_float
 SIGNATURES = {
-    "ptyrad_chain_segment_fwd": (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_chain_segment_fwd": (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_chain_segment_bwd": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _P),
+                                 _I, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_chain_stack_fwd": (_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_chain_stack_bwd": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P),

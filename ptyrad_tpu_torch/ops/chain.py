@@ -12,13 +12,17 @@ except that the chain's final slice does not propagate (``last`` /
 ``last_mega``).
 
 - ``chain_segment`` (B5): one segment. Its backward rebuilds the segment's
-  slice-entry states from the saved entry wavefield and walks back.
+  slice-entry states from the saved entry wavefield and walks back. With
+  ``far_field`` (needs ``last``) the kernel ends in the detector-plane
+  transform: its exit is fftshift(fft2(chi)), unnormalised, and its backward
+  starts with that transform's adjoint.
 - ``chain_stack`` (B6): S uniform segments in one call per direction. The
   forward keeps only the segment-entry wavefields; the backward walks the
   segments in reverse, rebuilding each from its stacked entry. With no
   gradient wanted it runs B5 segment by segment and keeps no stack.
 - ``multislice_dp_chain``: the composition, B6 over the uniform segments and B5
-  for the ragged tail, then the far-field intensity in plain torch.
+  for the tail, then the far-field intensity: through torch.fft by default,
+  through B5's own exit after ``set_far_field(True)``.
 
 H is shared (1, N, N) or per position (B, N, N). When H requires a
 gradient (optimizable slice thickness or tilts: need_dh), each backward
@@ -40,6 +44,20 @@ from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2
 MAX_N = 512   # the kernels' radix-2 passes hold one N-point line per mode in shared memory
 MAX_SG = 8    # the JAX planner's search range (pallas_chain.py:1236)
 
+# In-kernel far-field exit of the chain's tail (pallas_chain.py:734). Off by
+# default, as in the JAX package, whose reason is a TPU measurement; PERF.md
+# holds what the exit costs on the card.
+_FAR_FIELD = False
+
+
+def set_far_field(flag: bool, silent: bool = False) -> None:
+    """Switch the in-kernel far-field exit of the chain's tail on or off
+    (pallas_chain.py:738). multislice_dp_chain reads the flag at every call:
+    eager PyTorch traces nothing, so a toggle always takes effect and never
+    warns. ``silent`` is kept for the JAX signature only."""
+    global _FAR_FIELD
+    _FAR_FIELD = bool(flag)
+
 
 def chain_applicable_shapes(b, omode, nz, ny, nx, pmode, h_b) -> bool:
     """The card's rule for what the chain kernels take: square N x N with N
@@ -58,17 +76,24 @@ def best_sg(nz: int) -> int:
     return min(nz, MAX_SG)
 
 
-def chain_segment_plain(psi, a_seg, p_seg, h, last: bool):
+def _check_far_field(far_field: bool, last: bool) -> None:
+    if far_field and not last:
+        raise ValueError("far_field requires last=True")
+
+
+def chain_segment_plain(psi, a_seg, p_seg, h, last: bool, far_field: bool = False):
     """The plain version of B5: psi (B, pmode, N, N) complex64; a_seg, p_seg
     (B, Sg, N, N) float32; h (1 or B, N, N) complex64 corner-centred.
-    Returns the exit wavefield (B, pmode, N, N)."""
+    Returns the exit wavefield (B, pmode, N, N), or with ``far_field`` its
+    centred spectrum fftshift(fft2(.)), unnormalised."""
+    _check_far_field(far_field, last)
     hb = h[:, None]
     sg = a_seg.shape[1]
     for s in range(sg):
         psi = psi * torch.polar(a_seg[:, s], p_seg[:, s])[:, None]
         if not (last and s == sg - 1):
             psi = ifft2(hb * fft2(psi))
-    return psi
+    return fftshift2(fft2(psi)) if far_field else psi
 
 
 def chain_stack_plain(psi0, a_main, p_main, h, sg: int, last_mega: bool):
@@ -140,25 +165,31 @@ def _count_bwd(fn, d_h) -> None:
         fn.launches_dh += 1
 
 
-def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool):
-    """Kernel B5a: the segment's exit wavefield."""
+def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool, far_field: bool = False):
+    """Kernel B5a: the segment's exit wavefield, or with ``far_field`` its
+    centred spectrum. launches_ff counts the launches that took the exit."""
+    _check_far_field(far_field, last)
     sg = a_seg.shape[1]
     b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
     out = torch.empty_like(psi)
     err = _build.lib().ptyrad_chain_segment_fwd(
         psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0), h.data_ptr(),
-        out.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), _stream(psi))
+        out.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)),
+        _stream(psi))
     _build.check(err, "chain_segment_fwd")
     segment_fwd_cuda.launches += 1
+    segment_fwd_cuda.launches_ff += bool(far_field)
     return out
 
 
-segment_fwd_cuda.launches = 0
+segment_fwd_cuda.launches = segment_fwd_cuda.launches_ff = 0
 
 
-def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False):
-    """Kernel B5b: from the exit cotangent g, (d psi, d a_seg, d p_seg,
-    d h), d h None unless need_dh."""
+def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False,
+                     far_field: bool = False):
+    """Kernel B5b: from the exit cotangent g (of the centred spectrum with
+    ``far_field``), (d psi, d a_seg, d p_seg, d h), d h None unless need_dh."""
+    _check_far_field(far_field, last)
     sg = a_seg.shape[1]
     b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
     if tuple(g.shape) != tuple(psi.shape) or g.dtype != psi.dtype or not g.is_contiguous():
@@ -171,13 +202,17 @@ def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False)
         g.data_ptr(), psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0),
         h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
         _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi.data_ptr(),
-        b, pmode, sg, logn, h_shared, int(bool(last)), _stream(psi))
+        b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)), _stream(psi))
     _build.check(err, "chain_segment_bwd")
     _count_bwd(segment_bwd_cuda, d_h)
+    if far_field:  # launches_ff: the exit's adjoint ran; launches_ff_dh: with dH too
+        segment_bwd_cuda.launches_ff += 1
+        segment_bwd_cuda.launches_ff_dh += d_h is not None
     return d_psi, d_a, d_p, d_h
 
 
 segment_bwd_cuda.launches = segment_bwd_cuda.launches_dh = 0
+segment_bwd_cuda.launches_ff = segment_bwd_cuda.launches_ff_dh = 0
 
 
 def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool):
@@ -231,17 +266,18 @@ stack_bwd_cuda.launches = stack_bwd_cuda.launches_dh = 0
 
 class _SegmentCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, psi, a_seg, p_seg, h, last):
+    def forward(ctx, psi, a_seg, p_seg, h, last, far_field):
         ctx.save_for_backward(psi, a_seg, p_seg, h)
-        ctx.last = last
-        return segment_fwd_cuda(psi, a_seg, p_seg, h, last)
+        ctx.consts = (last, far_field)
+        return segment_fwd_cuda(psi, a_seg, p_seg, h, last, far_field)
 
     @staticmethod
     def backward(ctx, g):
         psi, a_seg, p_seg, h = ctx.saved_tensors
-        d_psi, d_a, d_p, d_h = segment_bwd_cuda(g.contiguous(), psi, a_seg, p_seg, h, ctx.last,
-                                                ctx.needs_input_grad[3])
-        return d_psi, d_a, d_p, d_h, None
+        last, far_field = ctx.consts
+        d_psi, d_a, d_p, d_h = segment_bwd_cuda(g.contiguous(), psi, a_seg, p_seg, h, last,
+                                                ctx.needs_input_grad[3], far_field)
+        return d_psi, d_a, d_p, d_h, None, None
 
 
 class _StackCuda(torch.autograd.Function):
@@ -260,12 +296,16 @@ class _StackCuda(torch.autograd.Function):
         return d_psi0, d_a, d_p, d_h, None, None
 
 
-def chain_segment(psi, a_seg, p_seg, h, last: bool):
+def chain_segment(psi, a_seg, p_seg, h, last: bool, far_field: bool = False):
     """Advance psi (B, pmode, N, N) through one segment of Sg slices (a_seg,
-    p_seg (B, Sg, N, N)); see the module docstring. B5 on CUDA."""
+    p_seg (B, Sg, N, N)); see the module docstring. B5 on CUDA. With
+    ``far_field`` (needs ``last``) the exit is the centred detector-plane
+    spectrum, unnormalised."""
+    _check_far_field(far_field, last)
     if psi.device.type == "cpu":
-        return chain_segment_plain(psi, a_seg, p_seg, h, last)
-    return _SegmentCuda.apply(psi.contiguous(), a_seg, p_seg, h.contiguous(), bool(last))
+        return chain_segment_plain(psi, a_seg, p_seg, h, last, far_field)
+    return _SegmentCuda.apply(psi.contiguous(), a_seg, p_seg, h.contiguous(), bool(last),
+                              bool(far_field))
 
 
 def chain_stack(psi0, a_main, p_main, h, sg: int, last_mega: bool):
@@ -300,6 +340,10 @@ def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: 
     incoherently; the uniform segments run as chain_stack, the ragged tail
     as chain_segment; the far-field fft2, the mode sum and fftshift are
     plain torch, as in the JAX package where they sit outside the kernels.
+    After set_far_field(True) the chain always ends in a chain_segment whose
+    kernel does the detector transform itself (a full segment is carved off
+    chain_stack when nz is a multiple of sg), and only |Y|^2 / N^2 and the
+    mode sums stay in torch.
     When H requires a gradient (the JAX package's need_dh), both versions
     give its cotangent: the plain one through autograd, B5b/B6b through
     their dH halves.
@@ -309,6 +353,9 @@ def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: 
     psi0 = probes.expand(b, *probes.shape[1:])
     n_seg_uniform = nz // sg
     nz_main = n_seg_uniform * sg if n_seg_uniform >= 2 else 0
+    use_ff = _FAR_FIELD
+    if use_ff and nz_main == nz:
+        nz_main -= sg  # keep a full tail segment for the exit (chain_stack may run S = 1)
 
     dp = None
     for om in range(omode):
@@ -320,10 +367,16 @@ def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: 
         while z0 < nz:
             z1 = min(z0 + sg, nz)
             psi = chain_segment(psi, obja_patches[:, om, z0:z1], objp_patches[:, om, z0:z1], H,
-                                z1 == nz)
+                                z1 == nz, use_ff and z1 == nz)
             z0 = z1
-        y = fft2(psi, norm="ortho")
-        contrib = omode_occu[om] * (y.real ** 2 + y.imag ** 2).sum(1)
+        if use_ff:  # psi is the centred spectrum, unnormalised
+            inten = (psi.real ** 2 + psi.imag ** 2).sum(1) * (1.0 / (n * n))
+        else:
+            y = fft2(psi, norm="ortho")
+            inten = (y.real ** 2 + y.imag ** 2).sum(1)
+        contrib = omode_occu[om] * inten
         dp = contrib if dp is None else dp + contrib
-    # fftshift is a fixed permutation: one roll of the mode sum
-    return fftshift2(dp) + eps
+    if not use_ff:
+        # fftshift is a fixed permutation: one roll of the mode sum
+        dp = fftshift2(dp)
+    return dp + eps

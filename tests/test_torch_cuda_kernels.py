@@ -4,7 +4,8 @@ and odd patch sizes, one slice, one mode, every probe layout, other loss
 powers, a masked sample, the whole loss-folded path, the plain fused chain
 (B4) and forward() through it with two object modes and detector blur, the
 segmented chain (B5/B6) with `last` / `last_mega` both ways and the
-grad-off route, and short tBL-like, low-dose and PSO-like solver runs, with
+grad-off route, B5 with the far-field exit (set_far_field) and the route
+through it, and short tBL-like, low-dose and PSO-like solver runs, with
 optimizable slice thickness and tilts too. Every kernel test runs on a
 shared and a per-position H, each with and without its gradient (need_dh):
 with it, the propagator cotangent dH of the backward (B3b, B4b, B5b, B6b)
@@ -562,6 +563,161 @@ def test_pso_solver_cuda_matches_cpu(dev):
                                [v for _, v in runs["cpu"].history.loss_iters], rtol=1e-4)
     steps = 2 * runs[None].batch_idx.shape[0]
     assert [fn.launches for fn in counters] == [0, 0] + [steps] * 4
+
+
+# -- B5's far-field exit (set_far_field) ------------------------------------------
+
+@pytest.fixture()
+def exit_on():
+    from ptyrad_tpu_torch.ops import chain as C
+
+    C.set_far_field(True)
+    try:
+        yield
+    finally:
+        C.set_far_field(False)
+
+
+@pytest.mark.parametrize("n", [2, 16, 64, 256, 512])
+@pytest.mark.parametrize("pmode", [1, 4])
+@pytest.mark.parametrize("sg", [1, 5])
+@pytest.mark.parametrize("h_case", H_CASES)
+def test_chain_segment_far_field_kernels(dev, gen, n, pmode, sg, h_case):
+    """B5a with the exit against fftshift(fft2(.)) of the plain segment, and
+    B5b with its adjoint against the plain VJP; counted in launches_ff (and
+    launches_ff_dh), bit for bit on a second launch."""
+    from ptyrad_tpu_torch.ops import chain as C
+
+    b = 3 if n < 512 else 2
+    psi, a, p, h = _seg_inputs(dev, gen, b, pmode, sg, n)
+    h, need_dh = _h_case(dev, gen, h, b, n, h_case)
+    before = (C.segment_fwd_cuda.launches_ff, C.segment_bwd_cuda.launches_ff,
+              C.segment_bwd_cuda.launches_ff_dh)
+    out = C.segment_fwd_cuda(psi, a, p, h, True, far_field=True)
+    g, g_k = _chain_grads(
+        out, h_case, lambda x, y, z, w: C.chain_segment_plain(x, y, z, w, True, far_field=True),
+        (psi, a, p, h),
+        lambda g, w, dh: C.segment_bwd_cuda(g, psi, a, p, w, True, need_dh=dh, far_field=True))
+    after = (C.segment_fwd_cuda.launches_ff, C.segment_bwd_cuda.launches_ff,
+             C.segment_bwd_cuda.launches_ff_dh)
+    assert [y - x for x, y in zip(before, after)] == [1, 1, int(need_dh)]
+    again = C.segment_bwd_cuda(g, psi, a, p, h, True, need_dh=need_dh, far_field=True)
+    for x, y in zip(g_k[:3 + need_dh], again):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    if need_dh and sg == 1:  # nothing propagates: the exit adds nothing to dH
+        assert not bool(g_k[3].any())
+
+
+def test_far_field_without_last_raises_on_cuda(dev, gen):
+    from ptyrad_tpu_torch.ops import chain as C
+
+    psi, a, p, h = _seg_inputs(dev, gen, 1, 1, 2, 16)
+    for call in (lambda: C.chain_segment(psi, a, p, h, False, far_field=True),
+                 lambda: C.segment_fwd_cuda(psi, a, p, h, False, far_field=True),
+                 lambda: C.segment_bwd_cuda(psi, psi, a, p, h, False, far_field=True)):
+        with pytest.raises(ValueError, match="far_field requires last"):
+            call()
+
+
+@pytest.mark.parametrize("nz,n,pmode", [(1, 64, 4), (16, 64, 2), (8, 256, 2), (21, 256, 4)])
+@pytest.mark.parametrize("need_dh", [False, True])
+def test_multislice_dp_chain_far_field_cuda(dev, gen, exit_on, nz, n, pmode, need_dh):
+    """multislice_dp_chain with the exit on against the plain multislice_dp
+    on the same CUDA tensors, values and gradients; at nz = 16 and 8 (multiples
+    of sg = 8) a full tail is carved off B6, which runs one segment or none."""
+    from ptyrad_tpu_torch.models import multislice_dp
+    from ptyrad_tpu_torch.ops import chain as C
+
+    b = 4
+    obja = 1.0 + 0.05 * torch.randn((b, 2, nz, n, n), generator=gen, device=dev)
+    objp = 0.3 * torch.randn((b, 2, nz, n, n), generator=gen, device=dev)
+    probe = torch.complex(torch.randn((1, pmode, n, n), generator=gen, device=dev),
+                          torch.randn((1, pmode, n, n), generator=gen, device=dev)) / n
+    h = torch.exp(1j * torch.rand((1, n, n), generator=gen, device=dev) * 6.0).to(torch.complex64)
+    occu = torch.tensor([0.7, 0.3], device=dev)
+    counters = (C.segment_fwd_cuda, C.segment_bwd_cuda, C.stack_fwd_cuda, C.stack_bwd_cuda)
+    for fn in counters:
+        fn.launches = fn.launches_ff = 0
+    leaves_k = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+    leaves_p = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+    h_k, h_p = h.clone().requires_grad_(need_dh), h.clone().requires_grad_(need_dh)
+    dp_k = C.multislice_dp_chain(*leaves_k, h_k, occu, 1e-10)
+    dp_p = multislice_dp(*leaves_p, h_p, occu, 1e-10)
+    _assert_rel(dp_k, dp_p, "dp")
+    w = torch.rand(dp_k.shape, generator=gen, device=dev)
+    (w * dp_k).sum().backward()
+    (w * dp_p).sum().backward()
+    names = ("obja", "objp", "probe", "h")[:3 + (need_dh and nz > 1)]
+    for name, x, y in zip(names, leaves_k + [h_k], leaves_p + [h_p]):
+        _assert_rel(_grad(x), _grad(y), f"d {name}")
+    n_stack = {1: 0, 8: 0, 16: 1, 21: 1}[nz]  # per object mode
+    assert [fn.launches for fn in counters] == [2, 2, 2 * n_stack, 2 * n_stack]
+    assert (C.segment_fwd_cuda.launches_ff, C.segment_bwd_cuda.launches_ff) == (2, 2)
+    with torch.no_grad():  # the grad-off route: B5 segment by segment, the last with the exit
+        dp_off = C.multislice_dp_chain(obja, objp, probe, h, occu, 1e-10)
+    torch.testing.assert_close(dp_off, dp_k.detach(), rtol=0, atol=0)
+
+
+def test_pso_ff_solver_cuda_matches_cpu(dev, exit_on):
+    """The PSO-like run of test_pso_solver_cuda_matches_cpu with the exit on,
+    on the card against the CPU (its plain exit): losses at rtol 1e-4, every
+    B5 launch through the exit."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.ops import chain as C
+
+    params = {
+        "model_params": {"update_params": {
+            "obja": {"lr": 5e-4}, "objp": {"lr": 5e-4}, "probe": {"lr": 1e-4},
+            "probe_pos_shifts": {"lr": 1e-4}}},
+        "loss_params": {"loss_single": {"state": True, "dp_pow": 0.5}},
+        "constraint_params": {"fix_probe_int": {"freq": 1},
+                              "kz_filter": {"freq": 1, "obj_type": "both"},
+                              "obja_thresh": {"freq": 1}, "objp_postiv": {"freq": 1}},
+        "recon_params": {"NITER": 2, "BATCH_SIZE": {"size": 2}, "GROUP_MODE_SEED": 0},
+    }
+    for fn in (C.segment_fwd_cuda, C.segment_bwd_cuda):
+        fn.launches = fn.launches_ff = 0
+    runs = {}
+    for d in ("cpu", None):
+        s = PtyRADSolver(params, init_variables=_pso_like_init(), device=d, verbose=False)
+        s.run()
+        runs[d] = s
+    np.testing.assert_allclose([v for _, v in runs[None].history.loss_iters],
+                               [v for _, v in runs["cpu"].history.loss_iters], rtol=1e-4)
+    steps = 2 * runs[None].batch_idx.shape[0]
+    assert (C.segment_fwd_cuda.launches, C.segment_fwd_cuda.launches_ff) == (steps, steps)
+    assert (C.segment_bwd_cuda.launches, C.segment_bwd_cuda.launches_ff) == (steps, steps)
+
+
+def test_meas_store_and_constraints_cuda_match_cpu(dev):
+    """A bfloat16 store with the (2, 2) on-the-fly resample, and all twelve
+    constraints without ortho_pmode (cuSOLVER's eigenvector phases differ
+    from LAPACK's), on the card against the CPU."""
+    from ptyrad_tpu_torch.constraints import DEFAULT_CONSTRAINT_PARAMS, ConstraintScheduler
+    from ptyrad_tpu_torch.models import get_measurements, make_model
+
+    init = _small_init(n_scans=21)
+    rng = np.random.default_rng(9)
+    init.update(measurements=np.abs(rng.standard_normal((21, 16, 16))).astype(np.float32),
+                on_the_fly_meas_scale_factors=[2.0, 2.0],
+                obj_tilts=rng.standard_normal((21, 2)).astype(np.float32),
+                N_scan_slow=7, N_scan_fast=3)
+    cfg = {k: {"freq": 1} for k in DEFAULT_CONSTRAINT_PARAMS if k != "ortho_pmode"}
+    got = {}
+    for d in ("cpu", None):
+        params, buffers, geom = make_model(init, {"meas_dtype": "bfloat16"}, d)
+        assert buffers.measurements.dtype == torch.bfloat16
+        idx = torch.tensor([3, 0, 20], device=params.obja.device)
+        ConstraintScheduler(cfg, geom)(params, buffers, 1)
+        got[d] = [get_measurements(buffers, geom, idx).cpu()] + [t.detach().cpu()
+                                                                 for _, t in params.named()]
+    assert got[None][0].shape == (3, 32, 32)
+    for name, x, y in zip(["measurements"] + [n for n, _ in params.named()], got[None],
+                          got["cpu"]):
+        if bool(y.any()):
+            _assert_rel(x, y, name)
+        else:  # probe_pos_shifts stay as they were on both devices
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 # -- optimizable slice thickness and tilts (need_dh) ------------------------------

@@ -35,6 +35,18 @@ def test_sources_import_no_jax_or_reference_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", ["ops/resize.py", "ops/masks.py", "ops/chain.py",
+                                    "constraints.py", "initialization.py", "models/state.py"])
+def test_the_measurement_and_constraint_modules_are_covered(module):
+    """The modules of the far-field / measurement-store slice are among the
+    sources the import check walks, and torch or numpy is all they need."""
+    path = PACKAGE / module
+    assert path in _sources()
+    roots = set(_imported_roots(path))
+    assert roots <= {"__future__", "torch", "numpy", "scipy", "ptyrad_tpu_torch", "dataclasses",
+                     "typing", "functools", "math", "warnings"}, sorted(roots)
+
+
 def test_import_pulls_in_no_jax_and_needs_no_nvcc(tmp_path):
     """Import every module of the package in a fresh interpreter whose PATH
     holds no CUDA toolkit, then list what got loaded."""

@@ -224,19 +224,24 @@ def test_scheduler_gating_and_strict_config(rng):
         TC.ConstraintScheduler({"obj_rblur": {"freq": 1, "sdt": 1.0}}, tg)
     with pytest.raises(ValueError, match="freq"):
         TC.ConstraintScheduler({"obj_rblur": {"freq": 0}}, tg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.ConstraintScheduler({"kr_filter": {"freq": 1}}, tg)
+    every = TC.ConstraintScheduler({k: {"freq": 1} for k in TC.DEFAULT_CONSTRAINT_PARAMS}, tg)
+    assert every.active_names == list(TC._ORDER)
 
 
-@pytest.mark.parametrize("extra_init,model_params", [
-    ({"on_the_fly_meas_padded": np.zeros((20, 20), np.float32),
-      "on_the_fly_meas_padded_idx": (2, 18, 2, 18),
-      "on_the_fly_meas_scale_factors": (1.25, 1.25)}, None),  # a pad is ported, a resample not
-    ({"on_the_fly_meas_scale_factors": (0.5, 0.5)}, None),
-    ({}, {"compute_dtype": "bfloat16"}),
-])
-def test_unported_model_options_raise(rng, extra_init, model_params):
+@pytest.mark.parametrize("model_params", [{"compute_dtype": "bfloat16"}])
+def test_unported_model_options_raise(rng, model_params):
     """Options of later slices raise at make_model instead of being ignored."""
-    init = {**toy_init(rng), **extra_init}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(init, model_params, device=CPU)
+        make_model(toy_init(rng), model_params, device=CPU)
+
+
+@pytest.mark.parametrize("extra_init", [
+    {"on_the_fly_meas_padded": np.zeros((20, 20), np.float32),
+     "on_the_fly_meas_padded_idx": (2, 18, 2, 18),
+     "on_the_fly_meas_scale_factors": (1.25, 1.25)},
+    {"on_the_fly_meas_scale_factors": (0.5, 0.5)},
+], ids=["pad+resample", "resample"])
+def test_on_the_fly_resample_is_taken(rng, extra_init):
+    """make_model takes the on-the-fly scale factors into the geometry."""
+    _, _, geom = make_model({**toy_init(rng), **extra_init}, None, device=CPU)
+    assert geom.meas_scale_factors == extra_init["on_the_fly_meas_scale_factors"]
