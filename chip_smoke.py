@@ -5,7 +5,8 @@
 Phases, one JSON object per line each:
   1. device  - the card, torch and CUDA versions; TF32 off.
   2. build   - nvcc builds the kernels of ptyrad_tpu_torch/csrc into
-               ptyrad_tpu_torch/_build (seconds).
+               ptyrad_tpu_torch/_build (seconds), then the chain kernels'
+               one-time set-up for N = 256 and 512 (ops.chain.prepare).
   3. kernels - each kernel against its plain PyTorch version at its main
                path's shapes (B1-B4 at tBL_WSe2's, B5/B6 at PSO's), with its
                error, tolerance and CUDA-event times (median of 20 runs after
@@ -18,7 +19,16 @@ Phases, one JSON object per line each:
                far-field exit (without and with dH) at PSO shapes and at
                N = 512, against chain_segment_plain(far_field=True), with the
                time of what the exit replaces (B5 without it plus one
-               torch.fft.fft2 or its backward) as library_ms.
+               torch.fft.fft2 or its backward) as library_ms; then one
+               propagation of the PSO batch (a row pass plus a column pass
+               of B6a, torch.profiler) beside torch.fft's (fft2, the H
+               product, ifft2), its bound from what the function reads and
+               writes (psi in and out, a, phi and H once) and, apart, the
+               two passes' own traffic at the memory rate.
+     plain route - forward() at N = 96 and 120, which no kernel rule takes,
+               through the plain torch.fft chain on the card (B1/B2 for the
+               patches, no chain kernel) against the CPU, values and
+               gradients at 1e-4 of the largest entry.
   4. main    - the tBL_WSe2 reconstruction through PtyRADSolver.run(): 16,384
                128^2 patterns simulated through forward() (B4a; every 8th
                batch held against the plain multislice_dp), 6 probe modes, 6
@@ -70,9 +80,11 @@ Phases, one JSON object per line each:
                start the run amplifies float32 rounding, so each iteration's
                loss is only held within 2e-2 there; every B5 launch must take
                the exit, B3 and B4 stay at 0; its profile beside pso's.
-     pso_ff_random_start - the tight gate on the same path: the full-width
-               PSO run from a seeded random object, exit off against exit on,
-               each iteration's loss at rtol 1e-4. Then one forward() at
+     pso_ff_random_start - the tight gates on the same path: the
+               full-width PSO run from a seeded random object through the
+               kernels with the exit off, with it on, and with fwd_fused:
+               false (no chain kernel: cuFFT), each iteration's loss at rtol
+               1e-4 against the first. Then one forward() at
                nz = 16 (the carve: B6 over one segment, a full B5 tail with
                the exit, dH) against the plain chain.
   9. pso_tilt - the PSO reconstruction from data simulated at a global tilt
@@ -81,8 +93,9 @@ Phases, one JSON object per line each:
                loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
                profile over 8 steps.
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
-tBL, low-dose, tbl_store, PSO, pso_ff (with its random-start pair and the
-carve), tilt (its simulation included) and PSO tilt paths and the forward phase's kernel routes), the
+plain route, tBL, low-dose, tbl_store, PSO, pso_ff (with its random-start
+runs and the carve), tilt (its simulation included) and PSO tilt paths and
+the forward phase's kernel routes), the
 nvidia-smi name/power-limit line, and as the last line {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is not 0 and the
 last line is never printed. Exits non-zero at once without CUDA.
@@ -633,6 +646,58 @@ def check_chain(dev, gen) -> list:
     return rows
 
 
+def propagation_yardstick(dev, gen) -> dict:
+    """One propagation ifft2(H fft2(psi)) of the PSO batch (32 x 4 fields of
+    256^2): the kernels' share of it, one row pass plus one column pass
+    (their mean device times over one B6a call, torch.profiler; the row
+    pass also applies T), against one PyTorch call each of torch.fft.fft2,
+    the H product and torch.fft.ifft2 (cuFFT) on the same field. The bound
+    is that of the function the passes compute, T product included: psi
+    read and written once, a, phi and H read once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
+
+    n, b = PSO_NPIX, BATCH
+    lam = electron_wavelength(PSO_KV)
+    h = torch.as_tensor(near_field_evolution((n, n), PSO_DX, PSO_DZ, lam), device=dev)[None]
+    psi = torch.complex(torch.randn((b, PSO_PMODE, n, n), generator=gen, device=dev),
+                        torch.randn((b, PSO_PMODE, n, n), generator=gen, device=dev))
+    a = 1.0 + 0.05 * torch.randn((b, 2 * PSO_SG, n, n), generator=gen, device=dev)
+    p = 0.1 * torch.randn((b, 2 * PSO_SG, n, n), generator=gen, device=dev)
+    C.stack_fwd_cuda(psi, a, p, h, PSO_SG, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        C.stack_fwd_cuda(psi, a, p, h, PSO_SG, False)
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        for kind in ("row_fwd_kernel", "col_kernel"):
+            if kind in e.key and e.self_device_time_total > 0:
+                us[kind] = e.self_device_time_total / e.count
+    require(set(us) == {"row_fwd_kernel", "col_kernel"}, f"the profiler saw {sorted(us)}")
+    field = 8 * psi.numel()
+    nn = n * n
+    # the function: psi read and written once, one slice of a and phi, H
+    fn_bytes = 2 * field + 2 * 4 * b * nn + 8 * h.numel()
+    out = {
+        "phase": "propagation_yardstick", "shape": list(psi.shape),
+        "row_pass_ms": us["row_fwd_kernel"] / 1e3, "column_pass_ms": us["col_kernel"] / 1e3,
+        "ms": (us["row_fwd_kernel"] + us["col_kernel"]) / 1e3,
+        "library_ms": time_ms(lambda: torch.fft.ifft2(h * torch.fft.fft2(psi))),
+        "note": "ms: one row pass (with the T product) plus one column pass of B6a; "
+                "library_ms: torch.fft.fft2, the H product, torch.fft.ifft2; "
+                "design_traffic_ms: the two passes' own bytes (the field in and out of "
+                "each) at the card's memory rate, not a bound of the function",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(fn_bytes, b * PSO_PMODE * (20 * nn * np.log2(n) + 12 * nn)))),
+        "design_traffic_ms": (fn_bytes + 2 * field) / PEAK_BYTES_PER_S * 1e3,
+    }
+    emit(out)
+    return out
+
+
 def tilted_h(h: torch.Tensor, tilts: torch.Tensor, dx: float, dz: float) -> torch.Tensor:
     """Per-position propagators (B, N, N): the shared h times the port's
     tilt_ramp (models/forward.py), tilts (B, 2) in mrad."""
@@ -1036,7 +1101,8 @@ def kernel_counters():
     """Row name -> (wrapper, count attribute): `launches` counts every
     launch; `launches_h_each` those on a per-position H; `launches_dh` the
     backwards that computed dH; `launches_ff` those of B5 that took the
-    far-field exit, `launches_ff_dh` its backwards that also computed dH."""
+    far-field exit, `launches_ff_dh` its backwards that also computed dH;
+    PLAIN_ROUTE the forward() calls that took the plain torch.fft chain."""
     from ptyrad_tpu_torch.ops import chain as C
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops import patches as P
@@ -1049,6 +1115,8 @@ def kernel_counters():
              "B6a chain_stack_fwd": C.stack_fwd_cuda, "B6b chain_stack_bwd": C.stack_bwd_cuda}
     out = {name: (fn, "launches") for name, fn in every.items()}
     out.update({
+        PLAIN_ROUTE: (importlib.import_module("ptyrad_tpu_torch.models.forward").forward,
+                      "launches_plain"),
         "B3a loss_sums_fwd (per-position H)": (M.loss_sums_fwd_cuda, "launches_h_each"),
         "B3b loss_sums_bwd (dH)": (M.loss_sums_bwd_cuda, "launches_dh"),
         "B4a dp_fwd (per-position H)": (M.dp_fwd_cuda, "launches_h_each"),
@@ -1062,6 +1130,9 @@ def kernel_counters():
     return out
 
 
+PLAIN_ROUTE = "forward() plain route"
+CHAIN_KERNELS = ("B5a chain_segment_fwd", "B5b chain_segment_bwd", "B6a chain_stack_fwd",
+                 "B6b chain_stack_bwd")
 TBL_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B3a loss_sums_fwd",
                "B3b loss_sums_bwd")
 LOW_DOSE_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B4a dp_fwd", "B4b dp_bwd")
@@ -1596,28 +1667,38 @@ def random_object(shape, seed: int) -> np.ndarray:
 
 
 def pso_ff_random_start(dev, init: dict) -> dict:
-    """The tight gate on the exit at full width: PtyRADSolver.run() on the PSO
-    data from a seeded random object, once with the exit off and once with it
-    on. Away from the flat start the run does not amplify rounding, so each
-    iteration's loss must agree at rtol 1e-4, which a wrong adjoint of the
-    exit would not pass; with the exit on every B5 launch must have taken it.
-    Returns the two runs' launch counts, summed."""
+    """The tight gates of the chain kernels at full width: PtyRADSolver.run()
+    on the PSO data from a seeded random object, through the kernels with
+    the exit off, with it on, and with fwd_fused: false (the plain torch.fft
+    chain through cuFFT, no chain kernel). Away from the flat start the run
+    does not amplify rounding, so each iteration's loss must agree at rtol
+    1e-4 between the kernels and cuFFT (a wrong pass would not pass) and
+    between the exit on and off (nor a wrong adjoint of the exit); with the
+    exit on every B5 launch must have taken it. Returns the three runs'
+    launch counts, summed."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
 
     data = dict(init, obj=random_object(init["obj"].shape, SEED + 5))
+    plain_params = copy.deepcopy(PSO_PARAMS)
+    plain_params["model_params"]["fwd_fused"] = False
 
-    def run():
-        solver = PtyRADSolver(PSO_PARAMS, init_variables=data, device=dev, verbose=False)
+    def run(params=PSO_PARAMS):
+        solver = PtyRADSolver(params, init_variables=data, device=dev, verbose=False)
         launches = drive(solver)
         return [v for _, v in solver.history.loss_iters], launches
 
     off, launches_off = run()
     on, launches_on = far_field_on(run)
+    plain, launches_plain = run(plain_params)
     rel = [abs(a - b) / abs(b) for a, b in zip(on, off)]
+    rel_plain = [abs(a - b) / abs(b) for a, b in zip(off, plain)]
     emit({"phase": "pso_ff_random_start", "losses_exit_off": off, "losses_exit_on": on,
-          "rel_diff": rel, "rtol": 1e-4, "launches_exit_on": launches_on})
-    require(len(on) == len(off) == PSO_NITER and all(np.isfinite(on + off)),
-            f"pso_ff_random_start: losses {off}, {on}")
+          "losses_cufft_route": plain, "rel_diff": rel, "rel_diff_kernels_vs_cufft": rel_plain,
+          "rtol": 1e-4, "launches_exit_on": launches_on, "launches_cufft_route": launches_plain})
+    require(len(on) == len(off) == len(plain) == PSO_NITER and all(np.isfinite(on + off + plain)),
+            f"pso_ff_random_start: losses {off}, {on}, {plain}")
+    require(max(rel_plain) <= 1e-4, f"from a random start the kernels' losses {off} differ from "
+            f"the cuFFT route's {plain}: {rel_plain} > 1e-4")
     require(max(rel) <= 1e-4, f"from a random start the exit's losses {on} differ from "
             f"{off}: {rel} > 1e-4")
     for way in ("B5a chain_segment_fwd", "B5b chain_segment_bwd"):
@@ -1625,7 +1706,13 @@ def pso_ff_random_start(dev, init: dict) -> dict:
         require(0 < launches_on[way] == launches_on[f"{way} (far-field)"],
                 f"{way}: {launches_on[way]} launches on the tail, "
                 f"{launches_on[way + ' (far-field)']} with the exit")
-    return add_counts(launches_off, launches_on)
+    for name in CHAIN_KERNELS:
+        require(launches_off[name] > 0 and launches_plain[name] == 0,
+                f"{name}: {launches_off[name]} launches through the kernels, "
+                f"{launches_plain[name]} with fwd_fused off")
+    require(launches_plain[PLAIN_ROUTE] > 0 == launches_off[PLAIN_ROUTE],
+            "fwd_fused: false did not take the plain route, or the kernel run did")
+    return add_counts(launches_off, launches_on, launches_plain)
 
 
 def carve_check(dev, init: dict) -> dict:
@@ -1693,6 +1780,72 @@ def carve_check(dev, init: dict) -> dict:
                  "B5b chain_segment_bwd", "B5b chain_segment_bwd (far-field, dH)"):
         require(launches[name] == 1, f"the carved route launched {name} {launches[name]} times")
     return launches
+
+
+def plain_route_check(dev) -> dict:
+    """forward() where no kernel rule applies: N = 96 and 120 (not powers of
+    two) on the card go through the plain torch.fft chain, the patches still
+    through B1/B2. A batch of 32 with 6 probe modes, 6 slices and shifted
+    probes from a seeded random object: dp and every gradient against the
+    same forward() on the CPU, each within 1e-4 of its largest entry (the
+    tolerance of the B4 tests). Returns the card runs' launch counts."""
+    from ptyrad_tpu_torch.models import forward, forward_route, make_model
+    from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
+                                          make_stem_probe, near_field_evolution)
+
+    rng = np.random.default_rng(SEED + 6)
+    lam = electron_wavelength(80.0)
+    runs = []
+    for n in (96, 120):
+        canvas = n + 64
+        probe = make_stem_probe({"kv": 80.0, "conv_angle": 24.9, "Npix": n, "dx": 0.1494})
+        init = {
+            "obj": random_object((1, NZ, canvas, canvas), SEED + n),
+            "probe": make_mixed_probe(probe, PMODE, [0.02]),
+            "probe_pos_shifts": (0.3 * rng.standard_normal((BATCH, 2))).astype(np.float32),
+            "obj_tilts": np.zeros((1, 2), np.float32), "slice_thickness": 2.0,
+            "H": near_field_evolution((n, n), 0.1494, 2.0, lam),
+            "measurements": np.zeros((1, n, n), np.float32),
+            "crop_pos": rng.integers(0, canvas - n, (BATCH, 2)).astype(np.int32),
+            "omode_occu": np.ones(1, np.float32), "dx": 0.1494, "lambd": lam,
+            "N_scan_slow": BATCH, "N_scan_fast": 1,
+        }
+        mp = {"update_params": {"probe_pos_shifts": {"lr": 1e-4}}}
+        w = torch.from_numpy(rng.random((BATCH, n, n)).astype(np.float32))
+
+        def run(where):
+            params, buffers, geom = make_model(init, mp, where)
+            for _, t in params.named():
+                t.requires_grad_(True)
+            idx = torch.arange(BATCH, device=where)
+            require(forward_route(params, geom, idx) == "plain", f"N = {n} left the plain route")
+            dp, _ = forward(params, buffers, geom, idx)
+            (w.to(where) * dp).sum().backward()
+            return dp.detach().cpu(), {k: t.grad.cpu() for k, t in params.named()
+                                       if t.grad is not None}
+
+        (dp_k, g_k), launches = counted(lambda: run(dev))
+        dp_c, g_c = run(torch.device("cpu"))
+        names = sorted(g_c)
+        (e_dp,), (t_dp,) = _grad_errs([dp_k], [dp_c])
+        errs, tols = _grad_errs([g_k[k] for k in names], [g_c[k] for k in names])
+        emit({"phase": "forward_plain_route", "N": n, "batch": BATCH, "pmode": PMODE, "nz": NZ,
+              "finite": bool(torch.isfinite(dp_k).all()), "max_abs_err_vs_cpu": e_dp,
+              "tolerance": t_dp, "grad_names": names, "grad_max_abs_err": errs,
+              "grad_tolerance": tols, "launches": launches})
+        require(names == ["obja", "objp", "probe", "probe_pos_shifts"] and set(g_k) == set(g_c),
+                f"N = {n}: gradients reached {sorted(g_k)} and {names}")
+        require(bool(torch.isfinite(dp_k).all()) and e_dp <= t_dp,
+                f"N = {n}: forward() on the card differs from the CPU: {e_dp} > {t_dp}")
+        for k, e, t in zip(names, errs, tols):
+            require(e <= t, f"N = {n}: the gradient of {k} differs from the CPU's: {e} > {t}")
+        require(launches[PLAIN_ROUTE] == 1, f"N = {n}: {launches[PLAIN_ROUTE]} plain routes")
+        for k in ("B1 gather_patches", "B2 scatter_add_patches"):
+            require(launches[k] > 0, f"N = {n}: {k} did not gather the patches")
+        for k in ("B3a loss_sums_fwd", "B4a dp_fwd", "B4b dp_bwd") + CHAIN_KERNELS:
+            require(launches[k] == 0, f"N = {n}: {k} ran on the plain route")
+        runs.append(launches)
+    return add_counts(*runs)
 
 
 # -- the measurement store and the constraints -----------------------------------
@@ -1943,8 +2096,8 @@ def profile_steps(solver, card: str, path: str, niter: int, n_batches: int):
     """Where a training step's time goes: torch.profiler over n_batches steps
     of the solver's own epoch function (after the path's run, so its launches
     are not counted there). Device time by kernel, the device's busy share of
-    the window's wall time, and the host time per step. Returns the device ms
-    per step (None if the profiler saw no device time)."""
+    the window's wall time, and the host time per step. Returns the record
+    it prints."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = solver.device
@@ -1966,12 +2119,26 @@ def profile_steps(solver, card: str, path: str, niter: int, n_batches: int):
             and not getattr(e, "is_user_annotation", False)]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    emit({"phase": "profile", "path": path, "card": card, "steps": n_batches, "wall_ms": wall_ms,
-          "ms_per_step": wall_ms / n_batches,
-          "device_busy_ms": busy_ms if rows else "not measured",
-          "device_busy_share": busy_ms / wall_ms if rows else "not measured",
-          "top_device_ms": [{"kernel": k, "calls": c, "ms": ms} for ms, c, k in rows[:12]]})
-    return busy_ms / n_batches if rows else None
+    out = {"phase": "profile", "path": path, "card": card, "steps": n_batches,
+           "wall_ms": wall_ms, "ms_per_step": wall_ms / n_batches,
+           "device_busy_ms": busy_ms if rows else "not measured",
+           "device_ms_per_step": busy_ms / n_batches if rows else "not measured",
+           "device_busy_share": busy_ms / wall_ms if rows else "not measured",
+           "top_device_ms": [{"kernel": k, "calls": c, "ms": ms} for ms, c, k in rows[:12]]}
+    emit(out)
+    return out
+
+
+def kernel_rows(dev, gen) -> list:
+    """Every kernel against its plain version at the main paths' shapes, and
+    its times: the rows of the kernels line (chain_bench.py times the same
+    rows)."""
+    rows = []
+    for check in (check_patches, check_loss_chain, check_dp_chain, check_chain, check_fused_dh,
+                  check_chain_dh, check_chain_ff):
+        rows += check(dev, gen)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -1981,6 +2148,7 @@ def main() -> int:
         return 2
     from ptyrad_tpu_torch.device import pin_fp32
     from ptyrad_tpu_torch.ops import _build
+    from ptyrad_tpu_torch.ops import chain as C
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -1994,19 +2162,16 @@ def main() -> int:
     t0 = time.perf_counter()
     path = _build.build()
     _build.lib()
+    for n in (PSO_NPIX, 512):
+        C.prepare(dev, n)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": path.name,
           "compiled": _build.BUILD_SECONDS is not None})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernels = (check_patches(dev, gen) + check_loss_chain(dev, gen) + check_dp_chain(dev, gen)
-               + check_chain(dev, gen))
+    kernels = kernel_rows(dev, gen)
+    propagation_yardstick(dev, gen)
     torch.cuda.empty_cache()
-    kernels += check_fused_dh(dev, gen)
-    torch.cuda.empty_cache()
-    kernels += check_chain_dh(dev, gen)
-    torch.cuda.empty_cache()
-    kernels += check_chain_ff(dev, gen)
-    torch.cuda.empty_cache()
+    plain_launches = plain_route_check(dev)
 
     solver, tbl_launches, init = main_path(dev, card)
     profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
@@ -2026,15 +2191,15 @@ def main() -> int:
     constraints_check(dev)
     torch.cuda.empty_cache()
     solver, pso_launches, pso_init, pso_ref = pso_path(dev, card)
-    pso_ms = profile_steps(solver, card, "PSO", PSO_NITER + 1, n_batches=8)
+    pso_ms = profile_steps(solver, card, "PSO", PSO_NITER + 1, n_batches=8)["device_ms_per_step"]
     del solver
     torch.cuda.empty_cache()
     solver, pso_ff_launches = pso_ff_path(dev, card, pso_init, pso_ref)
     pso_ff_ms = far_field_on(
-        lambda: profile_steps(solver, card, "PSO-ff", PSO_NITER + 1, n_batches=8))
-    emit({"phase": "pso_ff_profile", "card": card, "device_ms_per_step": {
-        "pso": pso_ms if pso_ms is not None else "not measured",
-        "pso_ff": pso_ff_ms if pso_ff_ms is not None else "not measured"}})
+        lambda: profile_steps(solver, card, "PSO-ff", PSO_NITER + 1, n_batches=8)
+    )["device_ms_per_step"]
+    emit({"phase": "pso_ff_profile", "card": card,
+          "device_ms_per_step": {"pso": pso_ms, "pso_ff": pso_ff_ms}})
     del solver
     torch.cuda.empty_cache()
     random_start_launches = pso_ff_random_start(dev, pso_init)
@@ -2048,10 +2213,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver, pso_tilt_launches = pso_tilt_path(dev, card)
     profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
-    launches = add_counts(tbl_launches, forward_launches, low_dose_launches, store_launches,
-                          pso_launches, pso_ff_launches, random_start_launches,
-                          carve_launches, tilt_launches,
-                          pso_tilt_launches)
+    launches = add_counts(plain_launches, tbl_launches, forward_launches, low_dose_launches,
+                          store_launches, pso_launches, pso_ff_launches, random_start_launches,
+                          carve_launches, tilt_launches, pso_tilt_launches)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     launches.update({name: 0 for name in NOT_DRIVEN})

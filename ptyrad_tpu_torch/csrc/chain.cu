@@ -32,84 +32,129 @@
 //   the cotangent it delivers, dH = (1/N^2) sum_prop sum_p U conj(K),
 //   summed over samples too for a shared H.
 //
-// Bound on the card. Counting only the inputs read once and the outputs
-// written once, a chain is bound by its FP32 operations: at PSO shapes
-// (B=32, pmode=4, N=256) one propagation of the 128 wavefields is a 2D FFT
-// and a 2D IFFT, 2 x 10 N^2 log2 N = 10.5 MFLOP each, 1.34 GFLOP in all
-// (20 us at 67 TFLOP/s). But a 256^2 complex64 field is 512 KB, more than
-// one block's shared memory (227 KB), so a wavefield cannot stay on chip for
-// a whole slice the way B3 keeps its 128^2 field. This design moves the
-// (B, pmode, N, N) field through device memory twice per slice:
+// Bound on the card. A 256^2 complex64 field is 512 KB, more than one
+// block's shared memory (227 KB), so the field moves through device memory
+// twice per slice:
 //   row pass     [the previous propagation's row IFFT], the T multiply,
 //                the row FFT
 //   column pass  the column FFT, the H multiply, the column IFFT
-// One field is 64 MiB, so a pass moves 134 MB (40 us at 3.35 TB/s): the
-// kernels are bound by their own traffic, about 4x the operation bound, and
-// the design keeps that traffic at two round trips per slice (the T and H
-// multiplies and both 1D transforms ride on the passes that move the field
-// anyway).
+// At PSO shapes (B=32, pmode=4, N=256) one field is 64 MiB, so a pass moves
+// 134 MB: 40 us at 3.35 TB/s, against about 10 us for its two 1D transforms
+// at 67 TFLOP/s. A pass is bound by its bytes; the design keeps the work of
+// a pass under that traffic.
 //
-// Design:
-//  * Each pass holds a few whole lines (rows or columns) in dynamic shared
-//    memory and runs radix-2 N-point transforms there. The forward transform
-//    is decimation in frequency (natural in, bit-reversed out) and the
-//    inverse decimation in time (bit-reversed in, natural out), so no
-//    bit-reversal pass exists: between a row pass and a column pass the
-//    field sits in global memory with x in bit-reversed order, and the
-//    column pass reads H at (bitrev(ky), bitrev(kx)). The 1/N^2 of the
-//    inverse transform is folded into H.
-//  * A row-pass block holds R rows of one sample for ALL its probe modes, so
-//    T is computed once per pixel for every mode and the backward's
-//    dT = sum_p d chi conj(psi) is summed inside the block in a fixed order:
-//    d a and d phi are written once, by one thread, with no atomics, and are
-//    deterministic.
-//  * A column-pass block holds 16 adjacent columns of one field (16 x 8 B =
-//    128 B per row: coalesced), with neighbouring threads on neighbouring
-//    columns in shared memory.
+// Design (ptyrad_chain_plan reports Plan; tests/test_torch_chain_plan.py
+// emulates it):
+//  * Transforms in registers. Each thread holds E = 16 points of a line (N
+//    points below 16) at positions t + TL m, TL = N / E threads per line,
+//    and runs Stockham radix passes there: N = 256 is 16 x 16, N = 128
+//    16 x 8, N = 512 16 x 16 x 2. Each radix-R butterfly is an unrolled
+//    radix-2 network on compile-time indices; the only trip through shared
+//    memory is one exchange between two passes (a store, a barrier, a load).
+//    A thread loads its points at t + TL m and the last pass leaves frequency
+//    t + TL m in the same registers, so every transform is natural in and
+//    natural out: no permutation sits between the passes, H and the dH
+//    partials are in natural order, and the T and H multiplies need no
+//    exchange.
+//  * Pass twiddles exp(-2 pi i r k / (Ns R)) come from a table in device
+//    memory, filled once per device from double precision (prepare)
+//    and laid out so that a warp's reads are adjacent (g_twiddle); the radix
+//    networks' own are literals. Index math is shifts and masks: every
+//    kernel is a template on log2 N, dispatched by with_logn over
+//    N = 2 ... 512.
+//  * Device memory to registers and back directly: a row-pass thread reads
+//    8 B at stride TL (a warp covers whole 128-byte lines), a column-pass
+//    block holds 16 adjacent columns (16 x 8 B = 128 B per row) with the
+//    column fastest across threads.
+//  * A row-pass block holds a warp's worth of rows (32 / TL) of one sample
+//    and ALL its probe modes: G = min(pmode, 4) warps, one per mode group,
+//    warp g taking modes g, g + G, ... T is computed once per pixel into
+//    shared memory by the whole block; the backward sums
+//    dT = sum_p d chi conj(psi) in registers over a warp's modes, then over
+//    the warps in order through shared memory, so d a and d phi are written
+//    once, with no atomics, and are deterministic. Small blocks with one
+//    mode a warp keep many loads in flight and the last wave short. A row's
+//    threads share a warp, so its exchange waits on __syncwarp; the row's
+//    line in shared memory is padded (element a at a + a / 16), which keeps
+//    the radix-16 stores free of bank conflicts. The column tile's exchange
+//    is interleaved by column and waits on __syncthreads.
 //  * Launch shape: a sequence of pass kernels on the caller's stream (the
 //    stream orders them; nothing synchronises). Each pass works in place on
-//    its own tile, so one working buffer carries the field.
+//    its own elements, so one working buffer carries the field.
 //  * dH. Every propagation's K and U exist in the column pass, after its
-//    column FFT and before the H multiply, at the same (bitrev ky, bitrev
-//    kx) position. The rebuild's column passes store K to a scratch of sg
-//    fields (512 MiB at PSO), extended by one slice so that the propagation
-//    out of the segment's final slice has its K too; the adjoint column
-//    passes read it back and accumulate U conj(K) into a per-(sample, mode)
-//    partial field (64 MiB); after the walk dh_reduce.cuh sums the modes,
-//    and the samples for a shared H, in a fixed order. The adjoint of the
-//    propagation out of a segment's final slice runs its row pass at the end
-//    of the later segment's walk, as before, and its column pass after this
+//    column FFT and before the H multiply. The rebuild's column passes store
+//    K to a scratch of sg fields, extended by one slice so that the
+//    propagation out of the segment's final slice has its K too; the adjoint
+//    column passes read it back and accumulate U conj(K) into a
+//    per-(sample, mode) partial field; after the walk dh_reduce.cuh sums the
+//    modes, and the samples for a shared H, in a fixed order. The adjoint of
+//    the propagation out of a segment's final slice runs its row pass at the
+//    end of the later segment's walk and its column pass after this
 //    segment's rebuild, where K exists (the order of pallas_chain.py:589-604):
-//    no pass is added, so the path without dH runs the same passes as ever.
-//    The dH work lives in col_kernel<true> only; without dH every column
-//    pass is col_kernel<false>, which has none of it.
-//  * The far-field exit. The TPU kernel multiplies by dense shift-folded DFT
-//    matrices because it has no FFT; here the exit rides on the passes: the
-//    final slice's row pass runs its row FFT after the T multiply and stores
-//    each line in natural, shifted kx order (a permutation on the way out of
-//    shared memory: the global stores stay whole 128-byte lines), and one
-//    more column pass (col_ff_kernel: column FFT only, no H, no inverse)
-//    stores its rows at (ky + N/2) % N. A column tile holds whole columns, so
-//    that pass permutes rows inside its own tile and works in place. The
-//    adjoint is one column pass on the cotangent (load through the same row
-//    map, unnormalised inverse column transform) and the same x permutation
-//    on the load of the first adjoint row pass, whose row IFFT is then
-//    pending. No 1/N^2 anywhere: the inverse transforms are unnormalised and
-//    the 1/N^2 of a propagation rides on H. The permuting store and load are
-//    template flags (kFf) of the row kernels, so every pass without the exit
-//    is the instantiation it was.
-//  * FP32 throughout, accurate sincosf, twiddles from double sincospi.
+//    no pass is added. The dH work lives in col_kernel<., true> only.
+//  * The far-field exit rides on the passes: the final slice's row pass runs
+//    its row FFT after the T multiply and stores point m of a thread from
+//    register m ^ E/2 (column x holds kx = x ^ N/2, the shifted order; the
+//    stores stay whole lines), and one more column pass (col_ff_kernel:
+//    column FFT only) stores row ky at ky ^ N/2. The adjoint loads through
+//    the same maps and runs the unnormalised inverse transforms. No 1/N^2
+//    anywhere there; the 1/N^2 of a propagation rides on H. The permuting
+//    store and load are template flags (kFf) of the row kernels.
+//  * FP32 throughout, accurate sincosf.
 
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <cmath>
+#include <mutex>
+#include <type_traits>
 
 #include "dh_reduce.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxLogN = 9;      // N <= 512
-constexpr int kColTile = 16;     // columns per column-pass block
-constexpr int kRowElems = 4096;  // target elements (rows x modes x N) per row-pass block
+constexpr int kMaxLogN = 9;  // N <= 512
+constexpr int kMaxDevices = 64;
+
+// The pass twiddles exp(-2 pi i r k / M) of every pass that has them, M = NS R
+// the size of the sub-transforms it completes: NS = 16 for M = 32 ... 256
+// (the second pass of N = 32 ... 512) and NS = 256 for M = 512 (the third of
+// N = 512). Pass M's table starts at M - 32 and holds entry (r, k) at r NS + k,
+// so the threads of a line, which differ in k, read adjacent entries.
+constexpr int kTwEntries = 2 * 512 - 32;
+__device__ float2 g_twiddle[kTwEntries];
+
+__host__ __device__ constexpr int twiddle_ns(int m) { return m == 512 ? 256 : 16; }
+
+template <int LOGN>
+struct Plan {
+  static constexpr int kN = 1 << LOGN;
+  static constexpr int kLogE = LOGN < 4 ? LOGN : 4;
+  static constexpr int kE = 1 << kLogE;            // points of a line per thread
+  static constexpr int kLogTl = LOGN - kLogE;
+  static constexpr int kTl = 1 << kLogTl;          // threads per line
+  static constexpr int kPasses = (LOGN + 3) / 4;   // radix 16, ..., then the rest
+  static constexpr int kR0 = kPasses == 1 ? kN : 16;
+  static constexpr int kR1 = kPasses == 2 ? (kN >> 4) : 16;
+  static constexpr int kR2 = kN >> 8;
+  // a row-pass block: kRows rows (a warp's worth of threads, kGroup) for
+  // each of up to kMaxGroups mode groups; group g walks modes g, g + G, ...
+  static constexpr int kRows = kN < (32 >> kLogTl) ? kN : (32 >> kLogTl);
+  static constexpr int kGroup = kRows * kTl;
+  static constexpr int kMaxGroups = 4;
+  static constexpr int kLogCols = kLogE;
+  static constexpr int kCols = 1 << kLogCols;
+  static constexpr int kLine = kN + kN / 16;       // a row's padded line in shared memory
+  static constexpr int kColThreads = kCols * kTl;
+  static constexpr size_t kColSmem = kPasses > 1 ? sizeof(float2) * kCols * kN : 0;
+  static constexpr int groups(int pmode) { return pmode < kMaxGroups ? pmode : kMaxGroups; }
+  // the block's T tile, then each group's lines (the backward's partial dT
+  // sums reuse them after the mode loop)
+  static constexpr size_t row_smem(int g) {
+    return sizeof(float2) * (static_cast<size_t>(kRows) * kN +
+                             static_cast<size_t>(g) * kRows * kLine);
+  }
+};
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -120,308 +165,370 @@ __device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
   return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
 }
 
-__device__ __forceinline__ int bitrev(int i, int logn) {
-  return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - logn));
+__host__ __device__ constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n / 2); }
+
+__host__ __device__ constexpr int bitrev_const(int k, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r = (r << 1) | ((k >> i) & 1);
+  return r;
 }
 
-// The far-field exit's order along a line of n = 2^logn points: position
-// i = line * n + x of the natural, shifted order (x holds frequency
-// (x + n/2) % n = x ^ n/2) maps to where the bit-reversed output of the
-// forward transform holds that frequency, bitrev(x ^ n/2) = bitrev(x) ^ 1.
-__device__ __forceinline__ int ff_index(int i, int logn) {
-  const int n = 1 << logn;
-  return (i & ~(n - 1)) | (bitrev(i & (n - 1), logn) ^ 1);
-}
-
-// tw[k] = exp(-2 pi i k / n), k < n/2; returns synchronised
-__device__ void init_twiddles(float2* tw, int n) {
-  for (int k = threadIdx.x; k < n / 2; k += blockDim.x) {
-    double sn, cs;
-    sincospi(-2.0 * k / n, &sn, &cs);
-    tw[k] = make_float2(static_cast<float>(cs), static_cast<float>(sn));
-  }
-  __syncthreads();
-}
-
-// One radix-2 stage over nlines lines of n = 2^logn points held in shared
-// memory, element (line l, position i) at s[l * ls + i * ps]. kInv:
-// decimation in time with conjugate twiddles; else decimation in frequency.
-// kLineFastest maps neighbouring threads to neighbouring lines (for the
-// column tile, whose lines are adjacent in memory).
-template <bool kInv, bool kLineFastest>
-__device__ __forceinline__ void fft_stage(float2* s, const float2* tw, int nlines, int logn,
-                                          int ls, int ps, int lh) {
-  const int half = 1 << lh;
-  const int tshift = logn - 1 - lh;  // twiddle stride n / (2 half)
-  const int per_line = 1 << (logn - 1);
-  const int total = nlines * per_line;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    int line, b;
-    if (kLineFastest) {
-      line = t % nlines;
-      b = t / nlines;
-    } else {
-      line = t >> (logn - 1);
-      b = t & (per_line - 1);
-    }
-    const int j = b & (half - 1);
-    const int i0 = ((b >> lh) << (lh + 1)) + j;
-    const int a0 = line * ls + i0 * ps;
-    const int a1 = a0 + half * ps;
-    float2 w = tw[j << tshift];
-    const float2 u = s[a0];
-    const float2 v = s[a1];
-    if (kInv) {
-      w.y = -w.y;
-      const float2 t1 = cmul(v, w);
-      s[a0] = make_float2(u.x + t1.x, u.y + t1.y);
-      s[a1] = make_float2(u.x - t1.x, u.y - t1.y);
-    } else {
-      s[a0] = make_float2(u.x + v.x, u.y + v.y);
-      s[a1] = cmul(make_float2(u.x - v.x, u.y - v.y), w);
-    }
-  }
-}
-
-// Unnormalized forward transform of every line: natural in, bit-reversed
-// out. Callers synchronise before; returns synchronised.
-template <bool kLineFastest>
-__device__ void fft_lines(float2* s, const float2* tw, int nlines, int logn, int ls, int ps) {
-  for (int lh = logn - 1; lh >= 0; --lh) {
-    fft_stage<false, kLineFastest>(s, tw, nlines, logn, ls, ps, lh);
-    __syncthreads();
-  }
-}
-
-// Unnormalized inverse transform of every line: bit-reversed in, natural out.
-template <bool kLineFastest>
-__device__ void ifft_lines(float2* s, const float2* tw, int nlines, int logn, int ls, int ps) {
-  for (int lh = 0; lh < logn; ++lh) {
-    fft_stage<true, kLineFastest>(s, tw, nlines, logn, ls, ps, lh);
-    __syncthreads();
-  }
-}
-
-// Field addressing: sample b's mode p starts at base + b * bs + p * nn.
-struct Rows {
-  int b, y0, rows, pmode, logn;
-  __device__ size_t at(size_t bs, int e) const {  // e = (p * rows + r) * n + x
-    const int n = 1 << logn;
-    const int l = e >> logn;
-    const int p = l / rows;
-    const int r = l - p * rows;
-    return static_cast<size_t>(b) * bs + (static_cast<size_t>(p) << (2 * logn)) +
-           static_cast<size_t>(y0 + r) * n + (e & (n - 1));
-  }
+// A compile-time index that converts to int in device code
+template <int I>
+struct Idx {
+  static constexpr int value = I;
+  __host__ __device__ constexpr operator int() const { return I; }
 };
 
+// f(Idx<i>) for i = I ... End - 1: register arrays indexed through it are
+// indexed by constants, so they stay in registers
+template <int I, int End, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < End) {
+    f(Idx<I>{});
+    static_for<I + 1, End>(f);
+  }
+}
+
+// exp(-2 pi i k / 16), k < 8
+__host__ __device__ constexpr float2 w16(int k) {
+  constexpr float c1 = 0.923879532511286756f;  // cos(pi / 8)
+  constexpr float s1 = 0.382683432365089772f;  // sin(pi / 8)
+  constexpr float c2 = 0.707106781186547524f;  // cos(pi / 4)
+  return k == 0   ? float2{1.0f, 0.0f}
+         : k == 1 ? float2{c1, -s1}
+         : k == 2 ? float2{c2, -c2}
+         : k == 3 ? float2{s1, -c1}
+         : k == 4 ? float2{0.0f, -1.0f}
+         : k == 5 ? float2{-s1, -c1}
+         : k == 6 ? float2{-c2, -c2}
+                  : float2{-c1, -s1};
+}
+
+// d * exp(-2 pi i K / 16) (kInv: exp(+2 pi i K / 16)), K < 8
+template <bool kInv, int K>
+__device__ __forceinline__ float2 rot16(float2 d) {
+  if constexpr (K == 0) {
+    return d;
+  } else if constexpr (K == 4) {
+    return kInv ? make_float2(-d.y, d.x) : make_float2(d.y, -d.x);
+  } else {
+    constexpr float2 w = w16(K);
+    return kInv ? cmul_conj(d, w) : cmul(d, w);
+  }
+}
+
+// Unnormalised R-point DFT (kInv: inverse) of u in registers, natural order
+// in and out: a radix-2 decimation-in-frequency network, then the
+// bit-reversal as a renaming of registers.
+template <int R, bool kInv>
+__device__ __forceinline__ void dft(float2 (&u)[R]) {
+  static_for<0, log2i(R)>([&](auto stage) {
+    constexpr int len = R >> decltype(stage)::value;
+    static_for<0, R / len>([&](auto blk) {
+      static_for<0, len / 2>([&](auto jj) {
+        constexpr int j = decltype(jj)::value;
+        constexpr int i0 = decltype(blk)::value * len + j;
+        const float2 a = u[i0];
+        const float2 b = u[i0 + len / 2];
+        u[i0] = make_float2(a.x + b.x, a.y + b.y);
+        u[i0 + len / 2] = rot16<kInv, j * (16 / len)>(make_float2(a.x - b.x, a.y - b.y));
+      });
+    });
+  });
+  float2 tmp[R];
+  static_for<0, R>([&](auto k) { tmp[k] = u[bitrev_const(decltype(k)::value, log2i(R))]; });
+  static_for<0, R>([&](auto k) { u[k] = tmp[k]; });
+}
+
+// A row's line in shared memory, padded (element a at a + a / 16); the
+// row's threads share a warp.
+struct RowExchange {
+  float2* s;
+  __device__ __forceinline__ void store(int a, float2 x) const { s[a + (a >> 4)] = x; }
+  __device__ __forceinline__ float2 load(int a) const { return s[a + (a >> 4)]; }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+// The column tile: element a of column c at s[a * cols + c].
+template <int LOGC>
+struct ColExchange {
+  float2* s;
+  int c;
+  __device__ __forceinline__ void store(int a, float2 x) const { s[(a << LOGC) + c] = x; }
+  __device__ __forceinline__ float2 load(int a) const { return s[(a << LOGC) + c]; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+// One Stockham radix-R pass over a line whose sub-transforms so far have
+// NS points. The thread holds the pass's inputs at positions t + TL m in
+// v[m]; butterfly j = t + q TL takes inputs j + r N / R = v[q + r E / R],
+// twiddles them by exp(-2 pi i r (j mod NS) / (NS R)), transforms, and puts
+// output r at (j / NS) NS R + (j mod NS) + r NS: through the exchange, read
+// back at t + TL m for the next pass, or (kLast, where that position is
+// t + TL (q + r E / R)) straight into v.
+template <int LOGN, int R, int NS, bool kLast, bool kInv, class Ex>
+__device__ __forceinline__ void stockham_pass(float2 (&v)[Plan<LOGN>::kE], int t, const Ex& ex) {
+  using P = Plan<LOGN>;
+  constexpr int kQ = P::kE / R;
+  static_for<0, kQ>([&](auto qq) {
+    constexpr int q = decltype(qq)::value;
+    float2 u[R];
+    static_for<0, R>([&](auto r) { u[r] = v[q + r * kQ]; });
+    const int j = t + q * P::kTl;
+    const int k = j & (NS - 1);
+    if constexpr (NS > 1) {
+      static_assert(twiddle_ns(NS * R) == NS, "a pass without its twiddle table");
+      const float2* tw = g_twiddle + (NS * R - 32) + k;
+      static_for<1, R>([&](auto r) {
+        const float2 w = __ldg(tw + r * NS);
+        u[r] = kInv ? cmul_conj(u[r], w) : cmul(u[r], w);
+      });
+    }
+    dft<R, kInv>(u);
+    if constexpr (kLast) {
+      static_for<0, R>([&](auto r) { v[q + r * kQ] = u[r]; });
+    } else {
+      const int base = (j & ~(NS - 1)) * R + k;
+      static_for<0, R>([&](auto r) { ex.store(base + r * NS, u[r]); });
+    }
+  });
+  if constexpr (!kLast) {
+    ex.sync();
+    static_for<0, P::kE>([&](auto m) { v[m] = ex.load(t + m * P::kTl); });
+    ex.sync();  // the next exchange may overwrite what this one read
+  }
+}
+
+// Unnormalised N-point transform (kInv: inverse) of one line held by TL
+// threads, natural order in and out (see Plan for the passes).
+template <int LOGN, bool kInv, class Ex>
+__device__ __forceinline__ void line_fft(float2 (&v)[Plan<LOGN>::kE], int t, const Ex& ex) {
+  using P = Plan<LOGN>;
+  if constexpr (P::kPasses == 1) {
+    stockham_pass<LOGN, P::kR0, 1, true, kInv>(v, t, ex);
+  } else if constexpr (P::kPasses == 2) {
+    stockham_pass<LOGN, P::kR0, 1, false, kInv>(v, t, ex);
+    stockham_pass<LOGN, P::kR1, P::kR0, true, kInv>(v, t, ex);
+  } else {
+    stockham_pass<LOGN, P::kR0, 1, false, kInv>(v, t, ex);
+    stockham_pass<LOGN, P::kR1, P::kR0, false, kInv>(v, t, ex);
+    stockham_pass<LOGN, P::kR2, P::kR0 * P::kR1, true, kInv>(v, t, ex);
+  }
+}
+
 // Row pass of the forward chain, for rows y0..y0+R-1 of sample b, all modes
-// (grid (N / R, B)). Loads src (bit-reversed along x when `pending`: the
-// previous propagation's row IFFT is still to do), finishes that IFFT,
-// stores the natural state to `entry` if given, multiplies by T if a is
-// given, runs the row FFT if `fft`, and writes dst if given. kFf (the
-// far-field exit; needs `fft`): the transformed lines are stored in natural,
-// shifted order, column x holding kx = (x + N/2) % N.
-template <bool kFf>
-__global__ void __launch_bounds__(kThreads)
+// (grid (N / R, B), G = min(pmode, 4) warps of R rows, one per mode group).
+// Loads src (its rows in frequency when `pending`: the previous
+// propagation's row IFFT is still to do), finishes that IFFT, stores the
+// natural state to `entry` if given, multiplies by T if a is given, runs the
+// row FFT if `fft`, and writes dst if given. T is computed once per pixel,
+// into shared memory, by the whole block. kFf (the far-field exit; needs
+// `fft`): column x of dst holds kx = x ^ N/2.
+template <int LOGN, bool kFf>
+__global__ void __launch_bounds__(Plan<LOGN>::kGroup * Plan<LOGN>::kMaxGroups)
 row_fwd_kernel(const float2* src, long long src_bs, int pending, float2* entry,
                long long entry_bs, const float* __restrict__ a, const float* __restrict__ ph,
-               long long obj_bs, int fft, float2* dst, long long dst_bs, int pmode, int logn,
-               int rows) {
+               long long obj_bs, int fft, float2* dst, long long dst_bs, int pmode) {
+  using P = Plan<LOGN>;
+  constexpr int kE = P::kE, kTl = P::kTl, kTile = P::kRows * P::kN;
   extern __shared__ float2 smem[];
-  const int n = 1 << logn;
-  float2* tw = smem;
-  float2* s = smem + n / 2;
-  const Rows g{static_cast<int>(blockIdx.y), static_cast<int>(blockIdx.x) * rows, rows, pmode,
-               logn};
-  const int nlines = pmode * rows;
-  const int ne = nlines << logn;
+  const int groups = blockDim.x / P::kGroup;
+  const int group = threadIdx.x / P::kGroup;
+  const int line = (threadIdx.x % P::kGroup) >> P::kLogTl;
+  const int t = threadIdx.x & (kTl - 1);
+  const size_t b = blockIdx.y;
+  const size_t tile = static_cast<size_t>(blockIdx.x * P::kRows) << LOGN;  // the block's pixels
+  float2* tsm = smem;  // T of the tile's pixels
+  const RowExchange ex{smem + kTile + (group * P::kRows + line) * P::kLine};
+  const int pos = (line << LOGN) + t;  // the thread's pixels: pos + kTl m of the tile
 
-  init_twiddles(tw, n);
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) s[e] = src[g.at(src_bs, e)];
-  __syncthreads();
-  if (pending) ifft_lines<false>(s, tw, nlines, logn, n, 1);
-  if (entry != nullptr) {
-    for (int e = threadIdx.x; e < ne; e += blockDim.x) entry[g.at(entry_bs, e)] = s[e];
-  }
   if (a != nullptr) {
-    const int npix = rows << logn;
-    for (int e = threadIdx.x; e < npix; e += blockDim.x) {
-      const size_t k = static_cast<size_t>(g.b) * obj_bs +
-                       (static_cast<size_t>(g.y0) << logn) + e;
+    for (int e = threadIdx.x; e < kTile; e += blockDim.x) {
+      const size_t k = b * obj_bs + tile + e;
       float sn, cs;
       sincosf(ph[k], &sn, &cs);
-      const float am = a[k];
-      const float2 t = make_float2(am * cs, am * sn);
-      for (int p = 0; p < pmode; ++p) {
-        const int i = p * npix + e;
-        s[i] = cmul(s[i], t);
-      }
+      tsm[e] = make_float2(a[k] * cs, a[k] * sn);
     }
     __syncthreads();
   }
-  if (fft) fft_lines<false>(s, tw, nlines, logn, n, 1);
-  if (dst != nullptr) {
-    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-      dst[g.at(dst_bs, e)] = s[kFf ? ff_index(e, logn) : e];
+  for (int p = group; p < pmode; p += groups) {
+    const size_t off = (static_cast<size_t>(p) << (2 * LOGN)) + tile + pos;
+    const float2* sp = src + b * src_bs + off;
+    float2 v[kE];
+    static_for<0, kE>([&](auto m) { v[m] = sp[m * kTl]; });
+    if (pending) line_fft<LOGN, true>(v, t, ex);
+    if (entry != nullptr) {
+      float2* ep = entry + b * entry_bs + off;
+      static_for<0, kE>([&](auto m) { ep[m * kTl] = v[m]; });
+    }
+    if (a != nullptr) {
+      static_for<0, kE>([&](auto m) { v[m] = cmul(v[m], tsm[pos + m * kTl]); });
+    }
+    if (fft) line_fft<LOGN, false>(v, t, ex);
+    if (dst != nullptr) {
+      float2* dp = dst + b * dst_bs + off;
+      static_for<0, kE>([&](auto m) { dp[m * kTl] = v[kFf ? (m ^ (kE / 2)) : m]; });
     }
   }
 }
 
-// Row pass of the adjoint walk for slice z (grid (N / R, B)). Loads the
-// cotangent d chi (pending: bit-reversed along x, its row IFFT still to
-// do), forms dT = sum_p d chi conj(psi) against the slice-entry state psi,
-// writes d a and d phi for these pixels, multiplies by conj(T), runs the
-// row FFT if `fft` (the adjoint propagation to the previous slice
-// follows), and writes dst. kFf (the adjoint of the far-field exit; needs
-// `pending`): src holds its lines in the exit's natural, shifted order.
-template <bool kFf>
-__global__ void __launch_bounds__(kThreads)
+// Row pass of the adjoint walk for slice z (grid and groups as
+// row_fwd_kernel). Loads the cotangent d chi (pending: in frequency along x,
+// its row IFFT still to do), forms each group's share of
+// dT = sum_p d chi conj(psi) against the slice-entry state psi, multiplies
+// by conj(T), runs the row FFT if `fft` (the adjoint propagation to the
+// previous slice follows), and writes dst; then the block sums the groups'
+// shares in group order and writes d a and d phi. kFf (the adjoint of the
+// far-field exit; needs `pending`): column x of src holds kx = x ^ N/2.
+template <int LOGN, bool kFf>
+__global__ void __launch_bounds__(Plan<LOGN>::kGroup * Plan<LOGN>::kMaxGroups)
 row_bwd_kernel(const float2* src, long long src_bs, int pending, const float2* __restrict__ psi,
                long long psi_bs, const float* __restrict__ a, const float* __restrict__ ph,
                long long obj_bs, float* __restrict__ da, float* __restrict__ dph,
-               long long dobj_bs, int fft, float2* dst, long long dst_bs, int pmode, int logn,
-               int rows) {
+               long long dobj_bs, int fft, float2* dst, long long dst_bs, int pmode) {
+  using P = Plan<LOGN>;
+  constexpr int kE = P::kE, kTl = P::kTl, kTile = P::kRows * P::kN;
   extern __shared__ float2 smem[];
-  const int n = 1 << logn;
-  float2* tw = smem;
-  float2* s = smem + n / 2;
-  const Rows g{static_cast<int>(blockIdx.y), static_cast<int>(blockIdx.x) * rows, rows, pmode,
-               logn};
-  const int nlines = pmode * rows;
-  const int ne = nlines << logn;
+  const int groups = blockDim.x / P::kGroup;
+  const int group = threadIdx.x / P::kGroup;
+  const int line = (threadIdx.x % P::kGroup) >> P::kLogTl;
+  const int t = threadIdx.x & (kTl - 1);
+  const size_t b = blockIdx.y;
+  const size_t tile = static_cast<size_t>(blockIdx.x * P::kRows) << LOGN;
+  float2* tsm = smem;
+  float2* part = smem + kTile;  // after the mode loop: each group's dT share
+  const RowExchange ex{smem + kTile + (group * P::kRows + line) * P::kLine};
+  const int pos = (line << LOGN) + t;
 
-  init_twiddles(tw, n);
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    s[kFf ? ff_index(e, logn) : e] = src[g.at(src_bs, e)];
-  }
-  __syncthreads();
-  if (pending) ifft_lines<false>(s, tw, nlines, logn, n, 1);
-
-  const int npix = rows << logn;
-  const size_t mode_nn = static_cast<size_t>(1) << (2 * logn);
-  for (int e = threadIdx.x; e < npix; e += blockDim.x) {
-    const size_t pix = (static_cast<size_t>(g.y0) << logn) + e;
-    const size_t k = static_cast<size_t>(g.b) * obj_bs + pix;
+  for (int e = threadIdx.x; e < kTile; e += blockDim.x) {
+    const size_t k = b * obj_bs + tile + e;
     float sn, cs;
     sincosf(ph[k], &sn, &cs);
-    const float am = a[k];
-    const float2 t = make_float2(am * cs, am * sn);
-    const float2* psi_b = psi + static_cast<size_t>(g.b) * psi_bs + pix;
-    float2 dt = make_float2(0.0f, 0.0f);
-    for (int p = 0; p < pmode; ++p) {
-      const int i = p * npix + e;
-      const float2 dchi = s[i];
-      const float2 q = cmul_conj(dchi, psi_b[p * mode_nn]);
-      dt.x += q.x;
-      dt.y += q.y;
-      s[i] = cmul_conj(dchi, t);
-    }
-    const size_t kd = static_cast<size_t>(g.b) * dobj_bs + pix;
-    da[kd] = dt.x * cs + dt.y * sn;
-    dph[kd] = am * (dt.y * cs - dt.x * sn);
+    tsm[e] = make_float2(a[k] * cs, a[k] * sn);
   }
   __syncthreads();
-  if (fft) fft_lines<false>(s, tw, nlines, logn, n, 1);
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) dst[g.at(dst_bs, e)] = s[e];
+  float2 dt[kE];
+  static_for<0, kE>([&](auto m) { dt[m] = make_float2(0.0f, 0.0f); });
+  for (int p = group; p < pmode; p += groups) {
+    const size_t off = (static_cast<size_t>(p) << (2 * LOGN)) + tile + pos;
+    const float2* sp = src + b * src_bs + off;
+    const float2* pp = psi + b * psi_bs + off;
+    float2 v[kE], ps[kE];  // psi is loaded with d chi, before the transform
+    static_for<0, kE>([&](auto m) {
+      v[m] = sp[(kFf ? (m ^ (kE / 2)) : m) * kTl];
+      ps[m] = pp[m * kTl];
+    });
+    if (pending) line_fft<LOGN, true>(v, t, ex);
+    static_for<0, kE>([&](auto m) {
+      const float2 q = cmul_conj(v[m], ps[m]);
+      dt[m].x += q.x;
+      dt[m].y += q.y;
+      v[m] = cmul_conj(v[m], tsm[pos + m * kTl]);
+    });
+    if (fft) line_fft<LOGN, false>(v, t, ex);
+    float2* dp = dst + b * dst_bs + off;
+    static_for<0, kE>([&](auto m) { dp[m * kTl] = v[m]; });
+  }
+  __syncthreads();  // the exchange lines become the partial sums
+  static_for<0, kE>([&](auto m) { part[group * kTile + pos + m * kTl] = dt[m]; });
+  __syncthreads();
+  // d a = Re(dT e^{-i phi}), d phi = a Im(dT e^{-i phi}), dT summed over
+  // the groups in order: a fixed order, no atomics
+  for (int e = threadIdx.x; e < kTile; e += blockDim.x) {
+    float2 d = part[e];
+    for (int g = 1; g < groups; ++g) {
+      d.x += part[g * kTile + e].x;
+      d.y += part[g * kTile + e].y;
+    }
+    const size_t k = b * obj_bs + tile + e;
+    const size_t kd = b * dobj_bs + tile + e;
+    float sn, cs;
+    sincosf(ph[k], &sn, &cs);
+    da[kd] = d.x * cs + d.y * sn;
+    dph[kd] = a[k] * (d.y * cs - d.x * sn);
+  }
 }
 
 // Column pass, in place (grid (N / C, pmode, B)): columns c0..c0+C-1 of
-// field (b, p), which arrive with x bit-reversed. Column FFT, times H/N^2
-// (conj(H)/N^2 for the adjoint) read at (bitrev(ky), bitrev(kx)), column
-// IFFT. kDh (need_dh), after the column FFT: forward, K is stored to kbuf
-// (and with h null the pass ends there); adjoint, dacc = U conj(K) (+=
-// unless first) against K read from kbuf. kbuf and dacc are fields laid out
-// as buf; without kDh they are ignored.
-template <bool kDh>
-__global__ void __launch_bounds__(kThreads)
+// field (b, p), which arrive with x in frequency. Column FFT, times H/N^2
+// (conj(H)/N^2 for the adjoint), column IFFT. kDh (need_dh), after the
+// column FFT: forward, K is stored to kbuf (and with h null the pass ends
+// there); adjoint, dacc = U conj(K) (+= unless first) against K read from
+// kbuf. kbuf and dacc are fields laid out as buf; without kDh they are
+// ignored.
+template <int LOGN, bool kDh>
+__global__ void __launch_bounds__(Plan<LOGN>::kColThreads)
 col_kernel(float2* buf, long long bs, const float2* __restrict__ h, long long h_bs, int conj_h,
-           float2* kbuf, float2* dacc, int first, int logn, int log_c) {
+           float2* kbuf, float2* dacc, int first) {
+  using P = Plan<LOGN>;
+  constexpr int kE = P::kE, kTl = P::kTl;
   extern __shared__ float2 smem[];
-  const int n = 1 << logn;
-  const int c = 1 << log_c;
-  float2* tw = smem;
-  float2* s = smem + n / 2;  // s[r * c + col]
-  const int c0 = blockIdx.x * c;
-  const int p = blockIdx.y;
-  const int b = blockIdx.z;
-  const int ne = n << log_c;
-  float2* f = buf + static_cast<size_t>(b) * bs + (static_cast<size_t>(p) << (2 * logn)) + c0;
+  const int c = threadIdx.x & (P::kCols - 1);
+  const int t = threadIdx.x >> P::kLogCols;
+  // the thread's elements: rows t + kTl m of column c0 + c, at col + (m kTl << LOGN)
+  const size_t col = blockIdx.x * P::kCols + c + (static_cast<size_t>(t) << LOGN);
+  const size_t fo = blockIdx.z * static_cast<size_t>(bs) +
+                    (static_cast<size_t>(blockIdx.y) << (2 * LOGN)) + col;
+  const ColExchange<P::kLogCols> ex{smem, c};
+  float2* f = buf + fo;
+  constexpr size_t kStep = static_cast<size_t>(kTl) << LOGN;
 
-  init_twiddles(tw, n);
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    s[e] = f[static_cast<size_t>(e >> log_c) * n + (e & (c - 1))];
-  }
-  __syncthreads();
-  fft_lines<true>(s, tw, c, logn, 1, c);
+  float2 v[kE];
+  static_for<0, kE>([&](auto m) { v[m] = f[m * kStep]; });
+  line_fft<LOGN, false>(v, t, ex);
   if constexpr (kDh) {
-    const size_t fo = static_cast<size_t>(b) * bs + (static_cast<size_t>(p) << (2 * logn)) + c0;
+    float2* kb = kbuf + fo;
     if (!conj_h) {
-      for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-        kbuf[fo + static_cast<size_t>(e >> log_c) * n + (e & (c - 1))] = s[e];
-      }
+      static_for<0, kE>([&](auto m) { kb[m * kStep] = v[m]; });
       if (h == nullptr) return;
     } else {
-      for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-        const size_t k = fo + static_cast<size_t>(e >> log_c) * n + (e & (c - 1));
-        float2 d = cmul_conj(s[e], kbuf[k]);
-        if (!first) d = make_float2(d.x + dacc[k].x, d.y + dacc[k].y);
-        dacc[k] = d;
-      }
+      float2* dc = dacc + fo;
+      static_for<0, kE>([&](auto m) {
+        float2 d = cmul_conj(v[m], kb[m * kStep]);
+        if (!first) d = make_float2(d.x + dc[m * kStep].x, d.y + dc[m * kStep].y);
+        dc[m * kStep] = d;
+      });
     }
   }
-  const float inv_nn = 1.0f / static_cast<float>(n * n);
-  const float2* hb = h + static_cast<size_t>(b) * h_bs;
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    const int ky = bitrev(e >> log_c, logn);
-    const int kx = bitrev(c0 + (e & (c - 1)), logn);
-    float2 hv = hb[static_cast<size_t>(ky) * n + kx];
-    hv = make_float2(hv.x * inv_nn, (conj_h ? -hv.y : hv.y) * inv_nn);
-    s[e] = cmul(s[e], hv);
-  }
-  __syncthreads();
-  ifft_lines<true>(s, tw, c, logn, 1, c);
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    f[static_cast<size_t>(e >> log_c) * n + (e & (c - 1))] = s[e];
-  }
+  const float inv_nn = 1.0f / static_cast<float>(P::kN * P::kN);
+  const float2* hb = h + blockIdx.z * static_cast<size_t>(h_bs) + col;
+  static_for<0, kE>([&](auto m) {
+    const float2 hv = hb[m * kStep];
+    v[m] = cmul(v[m], make_float2(hv.x * inv_nn, (conj_h ? -hv.y : hv.y) * inv_nn));
+  });
+  line_fft<LOGN, true>(v, t, ex);
+  static_for<0, kE>([&](auto m) { f[m * kStep] = v[m]; });
 }
 
 // Column pass of the far-field exit (grid (N / C, pmode, B)), on columns
 // c0..c0+C-1 of field (b, p) of src, into the same columns of dst (which may
-// be src: the block holds its whole columns before it stores any). Forward:
-// the column FFT, row ky of the result stored at (ky + N/2) % N. kAdj, its
+// be src: each thread reads its elements before it writes them). Forward:
+// the column FFT, row ky of the result stored at ky ^ N/2. kAdj, its
 // adjoint: the rows loaded through the same map, then the unnormalised
 // inverse column transform.
-template <bool kAdj>
-__global__ void __launch_bounds__(kThreads)
-col_ff_kernel(const float2* src, float2* dst, long long bs, int logn, int log_c) {
+template <int LOGN, bool kAdj>
+__global__ void __launch_bounds__(Plan<LOGN>::kColThreads)
+col_ff_kernel(const float2* src, float2* dst, long long bs) {
+  using P = Plan<LOGN>;
+  constexpr int kE = P::kE, kTl = P::kTl;
   extern __shared__ float2 smem[];
-  const int n = 1 << logn;
-  const int c = 1 << log_c;
-  float2* tw = smem;
-  float2* s = smem + n / 2;  // s[r * c + col]
-  const int ne = n << log_c;
-  const size_t fo = static_cast<size_t>(blockIdx.z) * bs +
-                    (static_cast<size_t>(blockIdx.y) << (2 * logn)) + blockIdx.x * c;
+  const int c = threadIdx.x & (P::kCols - 1);
+  const int t = threadIdx.x >> P::kLogCols;
+  const size_t fo = blockIdx.z * static_cast<size_t>(bs) +
+                    (static_cast<size_t>(blockIdx.y) << (2 * LOGN)) + blockIdx.x * P::kCols + c +
+                    (static_cast<size_t>(t) << LOGN);
+  const ColExchange<P::kLogCols> ex{smem, c};
+  constexpr size_t kStep = static_cast<size_t>(kTl) << LOGN;
 
-  init_twiddles(tw, n);
-  // memory row y of the exit <-> transform position bitrev(y) ^ 1 (ff_index)
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    const int y = e >> log_c, col = e & (c - 1);
-    const int r = kAdj ? ff_index(y, logn) : y;
-    s[(r << log_c) + col] = src[fo + static_cast<size_t>(y) * n + col];
-  }
-  __syncthreads();
-  if (kAdj) {
-    ifft_lines<true>(s, tw, c, logn, 1, c);
+  float2 v[kE];
+  static_for<0, kE>([&](auto m) { v[m] = src[fo + (kAdj ? (m ^ (kE / 2)) : m) * kStep]; });
+  if constexpr (kAdj) {
+    line_fft<LOGN, true>(v, t, ex);
   } else {
-    fft_lines<true>(s, tw, c, logn, 1, c);
+    line_fft<LOGN, false>(v, t, ex);
   }
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    const int y = e >> log_c, col = e & (c - 1);
-    const int r = kAdj ? y : ff_index(y, logn);
-    dst[fo + static_cast<size_t>(y) * n + col] = s[(r << log_c) + col];
-  }
+  static_for<0, kE>([&](auto m) { dst[fo + m * kStep] = v[kAdj ? m : (m ^ (kE / 2))]; });
 }
 
 #define CHAIN_TRY(expr)                         \
@@ -430,6 +537,80 @@ col_ff_kernel(const float2* src, float2* dst, long long bs, int logn, int log_c)
     if (err_ != cudaSuccess) return err_;       \
   } while (0)
 
+// f(std::integral_constant<int, logn>) for logn = 1 ... kMaxLogN
+template <class F>
+cudaError_t with_logn(int logn, F&& f) {
+  switch (logn) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 9: return f(std::integral_constant<int, 9>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Set-up once per (device, log2 N): the device's twiddle table (double
+// precision, rounded to float) and the shared-memory limits of the eight
+// kernels of that N. After it, a launch checks one flag and does no set-up,
+// so a caller that warms up every N first (ptyrad_chain_prepare) can capture
+// the launches in a CUDA graph.
+std::atomic<bool> g_prepared[kMaxDevices][kMaxLogN + 1];
+
+cudaError_t prepare(int logn) {
+  if (logn < 1 || logn > kMaxLogN) return cudaErrorInvalidValue;
+  int dev = 0;
+  CHAIN_TRY(cudaGetDevice(&dev));
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_prepared[dev][logn].load(std::memory_order_acquire)) return cudaSuccess;
+  static std::mutex mu;
+  static bool twiddles[kMaxDevices] = {};
+  std::lock_guard<std::mutex> lock(mu);
+  if (g_prepared[dev][logn].load(std::memory_order_relaxed)) return cudaSuccess;
+  if (!twiddles[dev]) {
+    constexpr double kPi = 3.14159265358979323846;
+    float2 host[kTwEntries];
+    for (int m = 32; m <= 512; m *= 2) {
+      const int ns = twiddle_ns(m);
+      for (int r = 0; r < m / ns; ++r) {
+        for (int k = 0; k < ns; ++k) {
+          const double ang = -2.0 * kPi * r * k / m;
+          host[m - 32 + r * ns + k] =
+              make_float2(static_cast<float>(std::cos(ang)), static_cast<float>(std::sin(ang)));
+        }
+      }
+    }
+    CHAIN_TRY(cudaMemcpyToSymbol(g_twiddle, host, sizeof(host)));
+    CHAIN_TRY(cudaDeviceSynchronize());  // later streams see the table
+    twiddles[dev] = true;
+  }
+  CHAIN_TRY(with_logn(logn, [](auto L) -> cudaError_t {
+    constexpr int kL = decltype(L)::value;
+    using P = Plan<kL>;
+    const size_t row_smem = P::row_smem(P::kMaxGroups);
+    CHAIN_TRY(set_smem(row_fwd_kernel<kL, false>, row_smem));
+    CHAIN_TRY(set_smem(row_fwd_kernel<kL, true>, row_smem));
+    CHAIN_TRY(set_smem(row_bwd_kernel<kL, false>, row_smem));
+    CHAIN_TRY(set_smem(row_bwd_kernel<kL, true>, row_smem));
+    CHAIN_TRY(set_smem(col_kernel<kL, false>, P::kColSmem));
+    CHAIN_TRY(set_smem(col_kernel<kL, true>, P::kColSmem));
+    CHAIN_TRY(set_smem(col_ff_kernel<kL, false>, P::kColSmem));
+    return set_smem(col_ff_kernel<kL, true>, P::kColSmem);
+  }));
+  g_prepared[dev][logn].store(true, std::memory_order_release);
+  return cudaSuccess;
+}
+
 // Shapes shared by every pass of one call.
 struct Chain {
   int B, pmode, logn;
@@ -437,87 +618,73 @@ struct Chain {
   const float2* h;
   long long h_bs;
   cudaStream_t st;
-  int rows, log_c;
-  size_t row_smem, col_smem;
 
-  // ff: the call takes the far-field exit, so its kernels are set up too
-  cudaError_t init(bool ff = false) {
+  cudaError_t init() {
     if (logn < 1 || logn > kMaxLogN || B < 1 || pmode < 1) return cudaErrorInvalidValue;
-    const int n = 1 << logn;
-    nn = static_cast<long long>(n) * n;
+    nn = 1LL << (2 * logn);
     field_bs = pmode * nn;
-    rows = 1;
-    while (rows < n && 2 * rows * pmode * n <= kRowElems) rows *= 2;
-    log_c = 0;
-    while ((1 << log_c) < kColTile && (1 << log_c) < n) ++log_c;
-    row_smem = (static_cast<size_t>(rows) * pmode * n + n / 2) * sizeof(float2);
-    col_smem = ((static_cast<size_t>(n) << log_c) + n / 2) * sizeof(float2);
-    CHAIN_TRY(set_smem(row_fwd_kernel<false>, row_smem));
-    CHAIN_TRY(set_smem(row_bwd_kernel<false>, row_smem));
-    CHAIN_TRY(set_smem(col_kernel<false>, col_smem));
-    CHAIN_TRY(set_smem(col_kernel<true>, col_smem));
-    if (ff) {
-      CHAIN_TRY(set_smem(row_fwd_kernel<true>, row_smem));
-      CHAIN_TRY(set_smem(row_bwd_kernel<true>, row_smem));
-      CHAIN_TRY(set_smem(col_ff_kernel<false>, col_smem));
-      CHAIN_TRY(set_smem(col_ff_kernel<true>, col_smem));
-    }
-    return cudaSuccess;
+    return prepare(logn);
   }
-
-  template <typename Kernel>
-  static cudaError_t set_smem(Kernel kernel, size_t bytes) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
-  }
-
-  dim3 row_grid() const { return dim3((1 << logn) / rows, B); }
 
   cudaError_t row_fwd(const float2* src, long long src_bs, bool pending, float2* entry,
                       long long entry_bs, const float* a, const float* ph, long long obj_bs,
                       bool fft, float2* dst, bool ff = false) const {
-    auto kernel = ff ? row_fwd_kernel<true> : row_fwd_kernel<false>;
-    kernel<<<row_grid(), kThreads, row_smem, st>>>(
-        src, src_bs, pending, entry, entry_bs, a, ph, obj_bs, fft, dst, field_bs, pmode, logn,
-        rows);
-    return cudaGetLastError();
+    return with_logn(logn, [&](auto L) -> cudaError_t {
+      constexpr int kL = decltype(L)::value;
+      using P = Plan<kL>;
+      auto kernel = ff ? row_fwd_kernel<kL, true> : row_fwd_kernel<kL, false>;
+      const int groups = P::groups(pmode);
+      kernel<<<dim3(P::kN / P::kRows, B), P::kGroup * groups, P::row_smem(groups), st>>>(
+          src, src_bs, pending, entry, entry_bs, a, ph, obj_bs, fft, dst, field_bs, pmode);
+      return cudaGetLastError();
+    });
   }
 
   cudaError_t row_bwd(const float2* src, bool pending, const float2* psi, long long psi_bs,
                       const float* a, const float* ph, long long obj_bs, float* da, float* dph,
                       long long dobj_bs, bool fft, float2* dst, bool ff = false) const {
-    auto kernel = ff ? row_bwd_kernel<true> : row_bwd_kernel<false>;
-    kernel<<<row_grid(), kThreads, row_smem, st>>>(
-        src, field_bs, pending, psi, psi_bs, a, ph, obj_bs, da, dph, dobj_bs, fft, dst,
-        field_bs, pmode, logn, rows);
-    return cudaGetLastError();
+    return with_logn(logn, [&](auto L) -> cudaError_t {
+      constexpr int kL = decltype(L)::value;
+      using P = Plan<kL>;
+      auto kernel = ff ? row_bwd_kernel<kL, true> : row_bwd_kernel<kL, false>;
+      const int groups = P::groups(pmode);
+      kernel<<<dim3(P::kN / P::kRows, B), P::kGroup * groups, P::row_smem(groups), st>>>(
+          src, field_bs, pending, psi, psi_bs, a, ph, obj_bs, da, dph, dobj_bs, fft, dst,
+          field_bs, pmode);
+      return cudaGetLastError();
+    });
   }
 
   // a propagation (conj_h: its adjoint); with kbuf, the dH variant of
-  // col_kernel (kbuf, dacc, first as there), else the plain one
+  // col_kernel (kbuf, dacc, first as there), else the plain one; with h
+  // null (and kbuf) only the column FFT, stored to kbuf (a final slice's K)
   cudaError_t col(float2* buf, bool conj_h, float2* kbuf = nullptr, float2* dacc = nullptr,
-                  bool first = false) const {
-    const dim3 grid((1 << logn) >> log_c, pmode, B);
-    auto kernel = kbuf != nullptr ? col_kernel<true> : col_kernel<false>;
-    kernel<<<grid, kThreads, col_smem, st>>>(buf, field_bs, h, h_bs, conj_h, kbuf, dacc, first,
-                                             logn, log_c);
-    return cudaGetLastError();
+                  bool first = false, bool with_h = true) const {
+    return with_logn(logn, [&](auto L) -> cudaError_t {
+      constexpr int kL = decltype(L)::value;
+      using P = Plan<kL>;
+      auto kernel = kbuf != nullptr ? col_kernel<kL, true> : col_kernel<kL, false>;
+      kernel<<<dim3(P::kN / P::kCols, pmode, B), P::kColThreads, P::kColSmem, st>>>(
+          buf, field_bs, with_h ? h : nullptr, h_bs, conj_h, kbuf, dacc, first);
+      return cudaGetLastError();
+    });
   }
 
   // the column FFT of buf only, stored to kbuf (the K of a final slice)
   cudaError_t col_k(float2* buf, float2* kbuf) const {
-    const dim3 grid((1 << logn) >> log_c, pmode, B);
-    col_kernel<true><<<grid, kThreads, col_smem, st>>>(buf, field_bs, nullptr, 0, 0, kbuf,
-                                                       nullptr, 0, logn, log_c);
-    return cudaGetLastError();
+    return col(buf, false, kbuf, nullptr, false, false);
   }
 
   // the far-field exit's column pass from src into dst (adj: its adjoint)
   cudaError_t col_ff(const float2* src, float2* dst, bool adj) const {
-    const dim3 grid((1 << logn) >> log_c, pmode, B);
-    auto kernel = adj ? col_ff_kernel<true> : col_ff_kernel<false>;
-    kernel<<<grid, kThreads, col_smem, st>>>(src, dst, field_bs, logn, log_c);
-    return cudaGetLastError();
+    return with_logn(logn, [&](auto L) -> cudaError_t {
+      constexpr int kL = decltype(L)::value;
+      using P = Plan<kL>;
+      auto kernel = adj ? col_ff_kernel<kL, true> : col_ff_kernel<kL, false>;
+      kernel<<<dim3(P::kN / P::kCols, pmode, B), P::kColThreads, P::kColSmem, st>>>(
+          src, dst, field_bs);
+      return cudaGetLastError();
+    });
   }
 };
 
@@ -553,10 +720,11 @@ cudaError_t chain_fwd(const Chain& c, const float2* psi_in, float2* out, const f
 // slice-entry states 1..sg-1 are rebuilt into scratch (sg - 1 fields of
 // (B, pmode, N, N), `work` one more) before its slices are walked. g is
 // the cotangent of the chain's exit; `last`: the final slice did not
-// propagate, and with `ff` g is the cotangent of its far-field exit. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0 into dpsi,
-// which also carries the running cotangent. With dh (need_dh): kscr holds
-// sg fields of K, dh_part one field of partials, and dh gets the
-// propagator cotangent in H's shape.
+// propagate, and with `ff` g is the cotangent of its far-field exit. Writes
+// d a, d phi (B, n_seg * sg, N, N) and d psi0 into dpsi, which also
+// carries the running cotangent. With dh (need_dh): kscr holds sg fields
+// of K, dh_part one field of partials, and dh gets the propagator
+// cotangent in H's shape.
 cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long long stack_bs,
                       const float* a, const float* ph, long long obj_bs, float2* scratch,
                       float2* work, float2* kscr, float2* dh_part, float2* dh, float* da,
@@ -633,7 +801,8 @@ cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long
   if (dh_first) {  // nothing propagated
     return cudaMemsetAsync(dh, 0, sizeof(float2) * (h_shared ? 1 : c.B) * c.nn, c.st);
   }
-  return dh::reduce(dh_part, dh, c.B, c.pmode, h_shared, c.logn, c.st);
+  // the partials are in natural order (Plan: no permutation between passes)
+  return dh::reduce<false>(dh_part, dh, c.B, c.pmode, h_shared, c.logn, c.st);
 }
 
 Chain make_chain(int B, int pmode, int logn, const float2* h, int h_shared, void* stream) {
@@ -661,7 +830,7 @@ int ptyrad_chain_segment_fwd(const float2* psi, const float* a, const float* ph,
                              void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
-  CHAIN_TRY(c.init(far_field != 0));
+  CHAIN_TRY(c.init());
   return static_cast<int>(chain_fwd(c, psi, out, a, ph, obj_bs, nullptr, 1, sg, sg, last != 0,
                                     far_field != 0));
 }
@@ -679,7 +848,7 @@ int ptyrad_chain_segment_bwd(const float2* g, const float2* psi, const float* a,
                              int last, int far_field, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
-  CHAIN_TRY(c.init(far_field != 0));
+  CHAIN_TRY(c.init());
   return static_cast<int>(chain_bwd(c, g, psi, c.field_bs, a, ph, obj_bs, scratch, work, kscr,
                                     dh_part, dh, da, dph, dpsi, 1, sg, last != 0,
                                     far_field != 0));
@@ -712,6 +881,29 @@ int ptyrad_chain_stack_bwd(const float2* g, const float2* stack, const float* a,
   return static_cast<int>(chain_bwd(c, g, stack, n_seg * c.field_bs, a, ph, obj_bs, scratch,
                                     work, kscr, dh_part, dh, da, dph, dpsi0, n_seg, sg,
                                     last_mega != 0));
+}
+
+// The set-up of N = 2^logn on the current device (prepare): a launch after it
+// does none.
+int ptyrad_chain_prepare(int logn) { return static_cast<int>(prepare(logn)); }
+
+// The pass plan for N = 2^logn and pmode probe modes, which the card-only
+// tests hold against tests/test_torch_chain_plan.py's: out gets N, E, TL,
+// the number of passes, their radices (0 past the last), rows and columns
+// per block, threads per row and column block, and the two blocks' shared
+// bytes.
+int ptyrad_chain_plan(int logn, int pmode, int* out) {
+  if (pmode < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_logn(logn, [&](auto L) -> cudaError_t {
+    using P = Plan<decltype(L)::value>;
+    const int g = P::groups(pmode);
+    const int v[] = {P::kN, P::kE, P::kTl, P::kPasses, P::kR0, P::kPasses > 1 ? P::kR1 : 0,
+                     P::kPasses > 2 ? P::kR2 : 0, P::kRows, P::kCols, P::kGroup * g,
+                     P::kColThreads, static_cast<int>(P::row_smem(g)),
+                     static_cast<int>(P::kColSmem)};
+    for (int i = 0; i < 13; ++i) out[i] = v[i];
+    return cudaSuccess;
+  }));
 }
 
 }  // extern "C"

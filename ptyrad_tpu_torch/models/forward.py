@@ -9,13 +9,18 @@ intensity.
 The training path is ``fused_loss_terms`` where its shapes allow: the
 loss_single data term folded into the multislice chain (kernel B3 on CUDA,
 N <= 128). Otherwise the solver takes ``forward`` + ``combined_loss``.
-``forward`` dispatches as the JAX package does, on both devices: the plain
+``forward`` dispatches as the JAX package does, on both devices
+(``forward_route``, from the static shapes before any work): the plain
 fused chain (``multislice_dp_fused``, kernel B4 on CUDA) for the fused
 kernels' shapes, looped over object modes; else the segmented chain
-(``multislice_dp_chain``, B5/B6) for patches up to 512^2. On the CPU each of
-them runs its plain torch.fft version, so the CPU tests cover the dispatch
-the card runs. Outside both rules a CUDA tensor raises and the CPU runs
-``multislice_dp``, the eager torch.fft chain that is also the oracle.
+(``multislice_dp_chain``, B5/B6) for square patches of N a power of two up
+to 512; else ``multislice_dp``, the eager torch.fft chain, the counterpart
+of the JAX package's XLA path (and the kernels' oracle), on the CPU and the
+card alike: N that is not a power of two (96, 120, ...), non-square patches
+or N > 512. ``model_params.fwd_fused: false`` takes that route for every
+shape and turns ``fused_loss_terms`` off, as in the JAX package. On the CPU
+each route runs its plain torch.fft version, so the CPU tests cover the
+dispatch the card runs.
 
 Optimizable slice thickness or tilts (need_dh) make the propagator H
 depend on parameters, and a per-position tilt makes it (B, N, N): every
@@ -125,19 +130,19 @@ def _batch_shapes(params: PtychoParams, geom: Geometry, indices: torch.Tensor):
 
 
 def forward_route(params: PtychoParams, geom: Geometry, indices: torch.Tensor) -> str:
-    """Which chain forward() runs for a batch: "fused" (multislice_dp_fused,
-    B4 on CUDA), "chain" (multislice_dp_chain, B5/B6) or "plain"
-    (multislice_dp, the CPU only), decided from the static geometry. Raises
-    on CUDA for shapes that neither kernel rule takes."""
+    """Which chain forward() runs for a batch, decided from the static
+    geometry on either device: "fused" (multislice_dp_fused, B4 on CUDA),
+    "chain" (multislice_dp_chain, B5/B6) or "plain" (multislice_dp, the
+    eager torch.fft chain of the JAX package's XLA path) when fwd_fused is
+    off or the shapes fit neither kernel rule (ptyrad_tpu/models/forward.py:
+    155-221)."""
+    if not geom.fwd_fused:
+        return "plain"
     b, omode, nz, ny, nx, probe_b, pmode, h_b = _batch_shapes(params, geom, indices)
     if fused_applicable_shapes(b, omode, nz, ny, nx, probe_b, pmode, h_b):
         return "fused"
     if chain_applicable_shapes(b, omode, nz, ny, nx, pmode, h_b):
         return "chain"
-    if params.obja.device.type != "cpu":
-        raise NotImplementedError(
-            f"forward() on CUDA: {ny}x{nx} patches fit neither the fused kernels nor the "
-            "chain kernels (square, N a power of two <= 512)")
     return "plain"
 
 
@@ -150,6 +155,7 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
     inside it), loops over object modes weighted by omode_occu, then applies
     fftshift and eps to the sum. With optimizable dz or tilts (need_dh) the
     kernels' backwards return dH, shared or per position.
+    ``forward.launches_plain`` counts the calls that took the plain route.
     """
     route = forward_route(params, geom, indices)
     obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
@@ -172,10 +178,14 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
     else:
         dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, indices), H,
                            buffers.omode_occu, eps=geom.eps)
+        forward.launches_plain += 1
     std = geom.detector_blur_std
     if std is not None and std != 0:
         dp = gaussian_blur_2d(dp, kernel_size=5, sigma=std)
     return dp, (obja_p, objp_p)
+
+
+forward.launches_plain = 0
 
 
 def get_measurements(buffers: Buffers, geom: Geometry, indices: torch.Tensor) -> torch.Tensor:
@@ -206,9 +216,9 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
                      indices: torch.Tensor, mask, loss_params):
     """(total, terms) with the loss_single data term folded into the
     multislice chain (B3), or None when the configuration is out of regime:
-    loss_single must be the only dp-dependent term, with no detector blur,
+    fwd_fused on, loss_single the only dp-dependent term, no detector blur,
     one object mode and shapes that fused_applicable_shapes takes (as
-    ptyrad_tpu/models/forward.py:271-276). The caller then uses forward() +
+    ptyrad_tpu/models/forward.py:254-276). The caller then uses forward() +
     combined_loss, which give the same numbers.
 
     The chain returns the corner-centred partial sums, so the measurements are
@@ -220,6 +230,8 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     cfg = merge_loss_params(loss_params)
     if (not cfg["loss_single"]["state"] or cfg["loss_poissn"]["state"]
             or cfg["loss_pacbed"]["state"]):
+        return None
+    if not geom.fwd_fused:
         return None
     std = geom.detector_blur_std
     if std is not None and std != 0:

@@ -79,6 +79,7 @@ class Geometry:
     meas_pad_idx: Optional[Tuple[int, int, int, int]] = None  # (h1, h2, w1, w2)
     meas_padded_shape: Optional[Tuple[int, int]] = None
     meas_scale_factors: Optional[Tuple[float, float]] = None
+    fwd_fused: bool = True  # False: forward() takes multislice_dp, no kernel chain
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -101,6 +102,26 @@ def params_from_numpy(d: dict, device=None) -> PtychoParams:
         obj_tilts=_f32(np.asarray(d["obj_tilts"]).reshape(-1, 2), dev),
         slice_thickness=_f32(d["slice_thickness"], dev).reshape(()),
     )
+
+
+# model_params keys of the JAX package that act on the TPU only: accepted,
+# with one warning per key and process
+TPU_ONLY_KEYS = {
+    "fwd_remat": "rematerialises the XLA multislice loop to save TPU memory",
+    "matmul_dtype": "narrows the operands of the Pallas kernels' DFT matrix products",
+}
+_WARNED_TPU_ONLY: set = set()
+
+
+def _warn_tpu_only(model_params: dict) -> None:
+    for key, what in TPU_ONLY_KEYS.items():
+        value = model_params.get(key)
+        if value in (None, False) or key in _WARNED_TPU_ONLY:
+            continue
+        _WARNED_TPU_ONLY.add(key)
+        warnings.warn(f"model_params.{key}={value!r} does nothing in ptyrad_tpu_torch: in the "
+                      f"JAX package it {what}, and the port has no such step",
+                      stacklevel=3)
 
 
 MEAS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -141,11 +162,15 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     on_the_fly_meas_padded / on_the_fly_meas_padded_idx (both or neither;
     see initialization.meas_pad_on_the_fly) and on_the_fly_meas_scale_factors
     (initialization.meas_resample_on_the_fly). ``model_params`` carries
-    update_params (per-tensor lr), obj_preblur_std, detector_blur_std and
-    meas_dtype (the store's type). ``device=None`` means CUDA.
+    update_params (per-tensor lr), obj_preblur_std, detector_blur_std,
+    meas_dtype (the store's type) and fwd_fused (None or True: the kernel
+    routes where the shapes fit; False: the plain torch.fft chain); the JAX
+    package's fwd_remat and matmul_dtype are accepted and warn once (they act
+    on the TPU only). ``device=None`` means CUDA.
     """
     dev = resolve_device(device)
     model_params = model_params or {}
+    _warn_tpu_only(model_params)
     if model_params.get("compute_dtype", "float32") != "float32":
         raise NotImplementedError(
             f"model_params.compute_dtype={model_params['compute_dtype']!r}: only 'float32' "
@@ -220,5 +245,6 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
         meas_padded_shape=(None if meas_padded is None
                            else tuple(int(v) for v in np.shape(meas_padded)[-2:])),
         meas_scale_factors=None if meas_scale is None else tuple(float(s) for s in meas_scale),
+        fwd_fused=model_params.get("fwd_fused") is None or bool(model_params["fwd_fused"]),
     )
     return params, buffers, geom

@@ -9,7 +9,10 @@ a hash of every file under ``csrc/`` (sources and the headers they
 include) and the flags, so an edit rebuilds and an unchanged tree reuses it.
 
 The build happens at first CUDA use (``lib()``), never at import: importing
-the package needs no nvcc. A failed build raises.
+the package needs no nvcc. A failed build raises. Every launch goes through
+``launch``, which makes the operand's device current around the call (a
+ctypes launch runs in the current device's context, whatever stream it is
+handed) and costs one device query when it already is.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ import shutil
 import subprocess
 import tempfile
 import time
+from contextlib import nullcontext
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -44,6 +50,8 @@ SIGNATURES = {
     "ptyrad_chain_stack_fwd": (_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_chain_stack_bwd": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_chain_prepare": (_I,),
+    "ptyrad_chain_plan": (_I, _I, _P),
     "ptyrad_gather_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_scatter_add_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_dp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -135,6 +143,19 @@ def ptr(t) -> int | None:
     """A tensor's device pointer for a launcher, or None (NULL) for an
     absent optional operand."""
     return None if t is None else t.data_ptr()
+
+
+def launch(name: str, t: torch.Tensor, *args, stream: bool = True) -> None:
+    """Call launcher ``name`` with ``args`` and (unless ``stream`` is False)
+    the current stream of ``t``'s device last, with that device current:
+    under ``torch.cuda.device`` when another one is current. Raise if it
+    returns a CUDA error code."""
+    fn = getattr(lib(), name)
+    index = t.device.index
+    guard = nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index)
+    with guard:
+        err = fn(*args, torch.cuda.current_stream(index).cuda_stream) if stream else fn(*args)
+    check(err, name)
 
 
 def check(err: int, what: str) -> None:

@@ -31,7 +31,9 @@ also returns its cotangent dH in H's shape; autograd sums the calls'.
 On a CPU tensor every wrapper runs its plain version (torch.fft under
 autograd). On a CUDA tensor it launches the hand-written kernels of
 ``csrc/chain.cu`` (B5b and B6b compute dH only when autograd asks for it)
-or raises.
+or raises. The kernels move the field through device memory in a row pass
+and a column pass per slice; tests/test_torch_chain_plan.py emulates how
+each pass transforms its lines.
 """
 
 from __future__ import annotations
@@ -41,8 +43,20 @@ import torch
 from ptyrad_tpu_torch.ops import _build
 from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2
 
-MAX_N = 512   # the kernels' radix-2 passes hold one N-point line per mode in shared memory
+MAX_N = 512   # the kernels' transform plans go up to three passes of 16, 16, 2
 MAX_SG = 8    # the JAX planner's search range (pallas_chain.py:1236)
+
+
+def prepare(device, n: int) -> None:
+    """Do the kernels' one-time set-up for N-point fields on a CUDA device
+    (the twiddle table and the blocks' shared-memory limits). The first
+    launch at each N does it otherwise; after it no launch does any, so call
+    it for every N before capturing launches in a CUDA graph."""
+    if not (2 <= n <= MAX_N and not n & (n - 1)):
+        raise ValueError(f"prepare: N must be a power of two in [2, {MAX_N}], got {n}")
+    t = torch.empty(0, device=device)
+    _build.launch("ptyrad_chain_prepare", t, n.bit_length() - 1, stream=False)
+
 
 # In-kernel far-field exit of the chain's tail (pallas_chain.py:734). Off by
 # default, as in the JAX package, whose reason is a TPU measurement; PERF.md
@@ -61,9 +75,9 @@ def set_far_field(flag: bool, silent: bool = False) -> None:
 
 def chain_applicable_shapes(b, omode, nz, ny, nx, pmode, h_b) -> bool:
     """The card's rule for what the chain kernels take: square N x N with N
-    a power of two up to 512 (radix-2 transforms) and a shared or
-    per-position propagator. Any omode (multislice_dp_chain loops object modes), any
-    nz (that is the point), any pmode."""
+    a power of two up to 512 (chain.cu's plans) and a shared or per-position
+    propagator. Any omode (multislice_dp_chain loops object modes), any nz
+    (that is the point), any pmode."""
     return ny == nx and 2 <= nx <= MAX_N and not nx & (nx - 1) and h_b in (1, b)
 
 
@@ -142,10 +156,6 @@ def _dims(psi, a, p, h, nslices):
     return b, pmode, n.bit_length() - 1, int(h.shape[0] == 1)
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _bwd_scratch(g, sg, h, need_dh):
     """(scratch, work, kscr, dh_part, dh) of a backward launch: the rebuilt
     slice-entry states (sg - 1 fields like g) and one working field; with
@@ -172,11 +182,10 @@ def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool, far_field: bool = False):
     sg = a_seg.shape[1]
     b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
     out = torch.empty_like(psi)
-    err = _build.lib().ptyrad_chain_segment_fwd(
+    _build.launch(
+        "ptyrad_chain_segment_fwd", psi,
         psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0), h.data_ptr(),
-        out.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)),
-        _stream(psi))
-    _build.check(err, "chain_segment_fwd")
+        out.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)))
     segment_fwd_cuda.launches += 1
     segment_fwd_cuda.launches_ff += bool(far_field)
     return out
@@ -198,12 +207,12 @@ def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False,
     d_psi = torch.empty_like(psi)
     d_a = torch.empty(a_seg.shape, dtype=torch.float32, device=psi.device)
     d_p = torch.empty_like(d_a)
-    err = _build.lib().ptyrad_chain_segment_bwd(
+    _build.launch(
+        "ptyrad_chain_segment_bwd", g,
         g.data_ptr(), psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0),
         h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
         _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi.data_ptr(),
-        b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)), _stream(psi))
-    _build.check(err, "chain_segment_bwd")
+        b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)))
     _count_bwd(segment_bwd_cuda, d_h)
     if far_field:  # launches_ff: the exit's adjoint ran; launches_ff_dh: with dH too
         segment_bwd_cuda.launches_ff += 1
@@ -223,11 +232,11 @@ def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool):
     n_seg = nz_main // sg
     stack = torch.empty((b, n_seg, *psi0.shape[1:]), dtype=psi0.dtype, device=psi0.device)
     out = torch.empty_like(psi0)
-    err = _build.lib().ptyrad_chain_stack_fwd(
+    _build.launch(
+        "ptyrad_chain_stack_fwd", psi0,
         psi0.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0), h.data_ptr(),
         stack.data_ptr(), out.data_ptr(), b, pmode, n_seg, sg, logn, h_shared,
-        int(bool(last_mega)), _stream(psi0))
-    _build.check(err, "chain_stack_fwd")
+        int(bool(last_mega)))
     stack_fwd_cuda.launches += 1
     return out, stack
 
@@ -251,12 +260,12 @@ def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool,
     d_psi0 = torch.empty_like(g)
     d_a = torch.empty(a_main.shape, dtype=torch.float32, device=g.device)
     d_p = torch.empty_like(d_a)
-    err = _build.lib().ptyrad_chain_stack_bwd(
+    _build.launch(
+        "ptyrad_chain_stack_bwd", g,
         g.data_ptr(), stack.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0),
         h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
         _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi0.data_ptr(),
-        b, pmode, n_seg, sg, logn, h_shared, int(bool(last_mega)), _stream(g))
-    _build.check(err, "chain_stack_bwd")
+        b, pmode, n_seg, sg, logn, h_shared, int(bool(last_mega)))
     _count_bwd(stack_bwd_cuda, d_h)
     return d_psi0, d_a, d_p, d_h
 

@@ -122,10 +122,6 @@ def _inputs(obja_p, objp_p, probe, h, **real):
             **{k: (t, torch.float32) for k, t in real.items()}}
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _count(fn, h_shared, dh=None) -> None:
     """One launch of fn; launches_h_each counts those on a per-position H,
     launches_dh (backwards) those that computed dH."""
@@ -157,11 +153,10 @@ def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool):
     dev = obja_p.device
     inten = torch.empty((b, pmode, n, n), dtype=torch.float32, device=dev)
     dp = torch.empty((b, n, n), dtype=torch.float32, device=dev)
-    err = _build.lib().ptyrad_dp_fwd(
+    _build.launch(
+        "ptyrad_dp_fwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), inten.data_ptr(),
-        dp.data_ptr(), b, pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)),
-        _stream(obja_p))
-    _build.check(err, "dp_fwd")
+        dp.data_ptr(), b, pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)))
     _count(dp_fwd_cuda, h_shared)
     return dp
 
@@ -183,12 +178,12 @@ def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool =
     d_objp = torch.empty_like(objp_p)
     d_probe = torch.empty_like(probe)
     kstack, dh_part, d_h = _dh_scratch(b, pmode, nz, n, h, need_dh)
-    err = _build.lib().ptyrad_dp_bwd(
+    _build.launch(
+        "ptyrad_dp_bwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), g.data_ptr(),
         stack.data_ptr(), _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h),
         d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), b, pmode, nz, logn, shared,
-        h_shared, int(bool(probe_kspace)), _stream(obja_p))
-    _build.check(err, "dp_bwd")
+        h_shared, int(bool(probe_kspace)))
     _count(dp_bwd_cuda, h_shared, d_h)
     return d_obja, d_objp, d_probe, d_h
 
@@ -246,12 +241,12 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
     dp = torch.empty((b, n, n), dtype=torch.float32, device=dev)
     partial = torch.empty((b, 2), dtype=torch.float32, device=dev)
     sums = torch.empty(2, dtype=torch.float32, device=dev)
-    err = _build.lib().ptyrad_loss_fwd(
+    _build.launch(
+        "ptyrad_loss_fwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), inten.data_ptr(), dp.data_ptr(),
         partial.data_ptr(), sums.data_ptr(), b, pmode, nz, logn, shared, h_shared,
-        int(bool(probe_kspace)), float(dp_pow), float(eps), _stream(obja_p))
-    _build.check(err, "loss_sums_fwd")
+        int(bool(probe_kspace)), float(dp_pow), float(eps))
     _count(loss_sums_fwd_cuda, h_shared)
     return sums[0], sums[1], dp
 
@@ -275,13 +270,13 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
     d_objp = torch.empty_like(objp_p)
     d_probe = torch.empty_like(probe)
     kstack, dh_part, d_h = _dh_scratch(b, pmode, nz, n, h, need_dh)
-    err = _build.lib().ptyrad_loss_bwd(
+    _build.launch(
+        "ptyrad_loss_bwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), dp.data_ptr(), c.data_ptr(), stack.data_ptr(),
         _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h), d_obja.data_ptr(),
         d_objp.data_ptr(), d_probe.data_ptr(), b, pmode, nz, logn, shared, h_shared,
-        int(bool(probe_kspace)), float(dp_pow), float(eps), _stream(obja_p))
-    _build.check(err, "loss_sums_bwd")
+        int(bool(probe_kspace)), float(dp_pow), float(eps))
     _count(loss_sums_bwd_cuda, h_shared, d_h)
     return d_obja, d_objp, d_probe, d_h
 

@@ -10,8 +10,9 @@ On a CUDA tensor, ``gather_patches`` launches kernel B1 and
 kernel or raises. On a CPU tensor they run their plain PyTorch versions
 (``gather_plain`` / ``scatter_add_plain``), which the tests hold against the
 JAX package and ``chip_smoke.py`` holds the kernels against on the card.
-Corners are clamped like ``lax.dynamic_slice``: y to [0, H-Ny], x to
-[0, W-Nx].
+Corners are clamped as the Pallas kernels clamp them: y to [0, H-Ny], x to
+[0, W-Nx]. The JAX package's XLA path (``lax.dynamic_slice``) differs for a
+negative corner, which it wraps; no caller passes one.
 """
 
 from __future__ import annotations
@@ -82,10 +83,8 @@ def gather_cuda(canvas: torch.Tensor, pos: torch.Tensor, patch_shape) -> torch.T
     _check_cuda_inputs("gather_cuda", {"canvas": canvas, "pos": pos32})
     out = torch.empty((b, *lead, ny, nx), dtype=canvas.dtype, device=canvas.device)
     l = canvas.numel() // (h * w)
-    err = _build.lib().ptyrad_gather_patches(
-        canvas.data_ptr(), pos32.data_ptr(), out.data_ptr(), b, l, h, w, ny, nx,
-        torch.cuda.current_stream(canvas.device).cuda_stream)
-    _build.check(err, "gather_patches")
+    _build.launch("ptyrad_gather_patches", canvas, canvas.data_ptr(), pos32.data_ptr(),
+                  out.data_ptr(), b, l, h, w, ny, nx)
     gather_cuda.launches += 1
     return out
 
@@ -107,10 +106,8 @@ def scatter_add_cuda(canvas_shape, patches: torch.Tensor, pos: torch.Tensor) -> 
     _check_cuda_inputs("scatter_add_cuda", {"patches": patches, "pos": pos32})
     out = torch.empty(canvas_shape, dtype=patches.dtype, device=patches.device)
     l = out.numel() // (h * w)
-    err = _build.lib().ptyrad_scatter_add_patches(
-        patches.data_ptr(), pos32.data_ptr(), out.data_ptr(), b, l, h, w, ny, nx,
-        torch.cuda.current_stream(patches.device).cuda_stream)
-    _build.check(err, "scatter_add_patches")
+    _build.launch("ptyrad_scatter_add_patches", patches, patches.data_ptr(), pos32.data_ptr(),
+                  out.data_ptr(), b, l, h, w, ny, nx)
     scatter_add_cuda.launches += 1
     return out
 

@@ -326,6 +326,40 @@ def test_forward_cuda_omode2_blur_matches_cpu(dev):
         _assert_rel(g_gpu[name], g_cpu[name], f"d {name}")
 
 
+@pytest.mark.parametrize("npix,fwd_fused", [(96, True), (120, True), (32, False)])
+def test_forward_plain_route_cuda_matches_cpu(dev, npix, fwd_fused):
+    """forward() where no kernel rule applies (N = 96, 120: not a power of
+    two) or with fwd_fused off: the plain torch.fft chain on the card, the
+    patches still through B1/B2, against the CPU; values and gradients at
+    1e-4 of the largest entry, counted in forward.launches_plain."""
+    from ptyrad_tpu_torch.models import forward, forward_route, make_model
+    from ptyrad_tpu_torch.ops import patches as P
+
+    init = _small_init(npix=npix, canvas=npix + 32)
+    mp = {"update_params": {"probe_pos_shifts": {"lr": 1e-4}}, "fwd_fused": fwd_fused}
+    w = torch.from_numpy(np.random.default_rng(9).random((6, npix, npix)).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        params, buffers, geom = make_model(init, mp, device=d)
+        for _, t in params.named():
+            t.requires_grad_(True)
+        idx = torch.arange(6, device=d)
+        assert forward_route(params, geom, idx) == "plain"
+        before = forward.launches_plain, P.gather_cuda.launches, P.scatter_add_cuda.launches
+        dp, _ = forward(params, buffers, geom, idx)
+        (w.to(d) * dp).sum().backward()
+        after = forward.launches_plain, P.gather_cuda.launches, P.scatter_add_cuda.launches
+        assert after[0] - before[0] == 1
+        assert (after[1] > before[1] and after[2] > before[2]) == (d != "cpu")
+        out[str(d)] = (dp.detach().cpu(), {n: t.grad.cpu() for n, t in params.named()
+                                           if t.grad is not None})
+    (dp_cpu, g_cpu), (dp_gpu, g_gpu) = out["cpu"], out[str(dev)]
+    _assert_rel(dp_gpu, dp_cpu, "dp")
+    assert set(g_cpu) == set(g_gpu) == {"obja", "objp", "probe", "probe_pos_shifts"}
+    for name in g_cpu:
+        _assert_rel(g_gpu[name], g_cpu[name], f"d {name}")
+
+
 LOW_DOSE_PARAMS = {
     **SOLVER_PARAMS,
     "loss_params": {"loss_poissn": {"state": True, "weight": 1.0, "dp_pow": 1.0, "eps": 1e-6},
@@ -357,8 +391,9 @@ def test_low_dose_solver_cuda_matches_cpu(dev):
 
 # -- B5 and B6: the segmented chain ------------------------------------------
 # Tolerance: 1e-4 of the largest entry of each output or cotangent, as for
-# B3 (float32 chains through radix-2 passes against torch.fft). d a and
-# d phi are summed over modes inside one block in a fixed order.
+# B3 (float32 chains through the kernels' register radix passes against
+# torch.fft). d a and d phi are summed over modes in one thread in a fixed
+# order.
 
 def _seg_inputs(dev, gen, b, pmode, nz, n, h_b=1):
     psi = torch.complex(torch.randn((b, pmode, n, n), generator=gen, device=dev),
@@ -503,8 +538,55 @@ def test_multislice_dp_chain_cuda(dev, gen, nz, n, pmode, need_dh):
         assert [fn.launches for fn in counters] == [1, 1, 1, 1]
 
 
+def test_chain_kernel_plans_match_pass_plan(dev):
+    """The plan chain.cu compiled for every N (ptyrad_chain_plan) is the one
+    tests/test_torch_chain_plan.py's pass_plan describes and emulates on the
+    CPU."""
+    import ctypes
+
+    from test_torch_chain_plan import pass_plan
+
+    from ptyrad_tpu_torch.ops import _build
+    from ptyrad_tpu_torch.ops import chain as C
+
+    for logn, pmode in ((logn, pmode) for logn in range(1, 10) for pmode in (1, 3, 4, 8)):
+        C.prepare(dev, 1 << logn)  # the explicit warm-up, at every N
+        out = (ctypes.c_int * 13)()
+        _build.check(_build.lib().ptyrad_chain_plan(logn, pmode, out), "ptyrad_chain_plan")
+        plan = pass_plan(1 << logn, pmode)
+        radices = tuple(r for r in out[4:7] if r)
+        assert list(out[:4]) == [plan.n, plan.elems, plan.line_threads, len(plan.radices)]
+        assert radices == plan.radices
+        assert list(out[7:]) == [plan.rows, plan.cols, plan.row_threads, plan.col_threads,
+                                 plan.row_smem, plan.col_smem]
+
+
+@pytest.mark.parametrize("n", [32, 128, 512])
+@pytest.mark.parametrize("pmode", [1, 8])
+@pytest.mark.parametrize("h_case", H_CASES)
+def test_chain_kernels_on_each_plan(dev, gen, n, pmode, h_case):
+    """B5 and B6 at the sizes whose plans end in a short radix pass (N = 32:
+    16 x 2, N = 128: 16 x 8, N = 512: 16 x 16 x 2), odd B, one and eight
+    probe modes, a shared and a per-position H (h_b = B), with and without
+    dH: each output and cotangent against the plain chain."""
+    from ptyrad_tpu_torch.ops import chain as C
+
+    b, sg = 3, 2
+    psi, a, p, h = _seg_inputs(dev, gen, b, pmode, 2 * sg, n)
+    h, need_dh = _h_case(dev, gen, h, b, n, h_case)
+    out = C.segment_fwd_cuda(psi, a[:, :sg], p[:, :sg], h, False)
+    _chain_grads(out, h_case, lambda x, y, z, w: C.chain_segment_plain(x, y, z, w, False),
+                 (psi, a[:, :sg], p[:, :sg], h),
+                 lambda g, w, dh: C.segment_bwd_cuda(g, psi, a[:, :sg], p[:, :sg], w, False,
+                                                     need_dh=dh))
+    out, stack = C.stack_fwd_cuda(psi, a, p, h, sg, True)
+    _chain_grads(out, h_case, lambda x, y, z, w: C.chain_stack_plain(x, y, z, w, sg, True),
+                 (psi, a, p, h),
+                 lambda g, w, dh: C.stack_bwd_cuda(g, stack, a, p, w, sg, True, need_dh=dh))
+
+
 def test_chain_unsupported_cases_raise(dev, gen):
-    """N beyond the kernels' radix-2 regime raises instead of falling back."""
+    """N beyond the kernels' plans (N > 512) raises instead of falling back."""
     from ptyrad_tpu_torch.ops import chain as C
 
     psi, a, p, h = _seg_inputs(dev, gen, 1, 1, 1, 1024)
