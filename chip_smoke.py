@@ -2129,6 +2129,19 @@ def profile_steps(solver, card: str, path: str, niter: int, n_batches: int):
     return out
 
 
+def fused_plan(n: int) -> dict:
+    """The plan csrc/multislice.cu compiled for N (ptyrad_fused_plan)."""
+    import ctypes
+
+    from ptyrad_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 11)()
+    _build.check(_build.lib().ptyrad_fused_plan(n.bit_length() - 1, out), "ptyrad_fused_plan")
+    keys = ("n", "elems", "line_threads", "line", "fwd_threads", "fwd_sweeps", "bwd_threads",
+            "bwd_sweeps", "group_threads", "smem_bytes", "chunks")
+    return dict(zip(keys, out))
+
+
 def kernel_rows(dev, gen) -> list:
     """Every kernel against its plain version at the main paths' shapes, and
     its times: the rows of the kernels line (chain_bench.py times the same
@@ -2149,6 +2162,7 @@ def main() -> int:
     from ptyrad_tpu_torch.device import pin_fp32
     from ptyrad_tpu_torch.ops import _build
     from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.ops import fused_multislice as M
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -2164,8 +2178,9 @@ def main() -> int:
     _build.lib()
     for n in (PSO_NPIX, 512):
         C.prepare(dev, n)
+    M.prepare(dev, NPIX)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": path.name,
-          "compiled": _build.BUILD_SECONDS is not None})
+          "compiled": _build.BUILD_SECONDS is not None, "fused_plan": fused_plan(NPIX)})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = kernel_rows(dev, gen)

@@ -45,7 +45,8 @@
 //
 // Design (ptyrad_chain_plan reports Plan; tests/test_torch_chain_plan.py
 // emulates it):
-//  * Transforms in registers. Each thread holds E = 16 points of a line (N
+//  * Transforms in registers (reg_fft.cuh, shared with multislice.cu's B3
+//    and B4). Each thread holds E = 16 points of a line (N
 //    points below 16) at positions t + TL m, TL = N / E threads per line,
 //    and runs Stockham radix passes there: N = 256 is 16 x 16, N = 128
 //    16 x 8, N = 512 16 x 16 x 2. Each radix-R butterfly is an unrolled
@@ -104,39 +105,29 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
-#include <cmath>
-#include <mutex>
-#include <type_traits>
-
 #include "dh_reduce.cuh"
+#include "reg_fft.cuh"
 
 namespace {
 
+using regfft::cmul;
+using regfft::cmul_conj;
+using regfft::ColExchange;
+using regfft::line_fft;
+using regfft::RowExchange;
+using regfft::set_smem;
+using regfft::static_for;
+using regfft::with_logn;
+
 constexpr int kMaxLogN = 9;  // N <= 512
-constexpr int kMaxDevices = 64;
-
-// The pass twiddles exp(-2 pi i r k / M) of every pass that has them, M = NS R
-// the size of the sub-transforms it completes: NS = 16 for M = 32 ... 256
-// (the second pass of N = 32 ... 512) and NS = 256 for M = 512 (the third of
-// N = 512). Pass M's table starts at M - 32 and holds entry (r, k) at r NS + k,
-// so the threads of a line, which differ in k, read adjacent entries.
-constexpr int kTwEntries = 2 * 512 - 32;
-__device__ float2 g_twiddle[kTwEntries];
-
-__host__ __device__ constexpr int twiddle_ns(int m) { return m == 512 ? 256 : 16; }
 
 template <int LOGN>
 struct Plan {
-  static constexpr int kN = 1 << LOGN;
-  static constexpr int kLogE = LOGN < 4 ? LOGN : 4;
-  static constexpr int kE = 1 << kLogE;            // points of a line per thread
-  static constexpr int kLogTl = LOGN - kLogE;
-  static constexpr int kTl = 1 << kLogTl;          // threads per line
-  static constexpr int kPasses = (LOGN + 3) / 4;   // radix 16, ..., then the rest
-  static constexpr int kR0 = kPasses == 1 ? kN : 16;
-  static constexpr int kR1 = kPasses == 2 ? (kN >> 4) : 16;
-  static constexpr int kR2 = kN >> 8;
+  // the line transform (reg_fft.cuh)
+  using Line = regfft::LinePlan<LOGN>;
+  static constexpr int kN = Line::kN, kLogE = Line::kLogE, kE = Line::kE;
+  static constexpr int kLogTl = Line::kLogTl, kTl = Line::kTl, kPasses = Line::kPasses;
+  static constexpr int kR0 = Line::kR0, kR1 = Line::kR1, kR2 = Line::kR2;
   // a row-pass block: kRows rows (a warp's worth of threads, kGroup) for
   // each of up to kMaxGroups mode groups; group g walks modes g, g + G, ...
   static constexpr int kRows = kN < (32 >> kLogTl) ? kN : (32 >> kLogTl);
@@ -155,167 +146,6 @@ struct Plan {
                              static_cast<size_t>(g) * kRows * kLine);
   }
 };
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// a * conj(b)
-__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-
-__host__ __device__ constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n / 2); }
-
-__host__ __device__ constexpr int bitrev_const(int k, int bits) {
-  int r = 0;
-  for (int i = 0; i < bits; ++i) r = (r << 1) | ((k >> i) & 1);
-  return r;
-}
-
-// A compile-time index that converts to int in device code
-template <int I>
-struct Idx {
-  static constexpr int value = I;
-  __host__ __device__ constexpr operator int() const { return I; }
-};
-
-// f(Idx<i>) for i = I ... End - 1: register arrays indexed through it are
-// indexed by constants, so they stay in registers
-template <int I, int End, class F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (I < End) {
-    f(Idx<I>{});
-    static_for<I + 1, End>(f);
-  }
-}
-
-// exp(-2 pi i k / 16), k < 8
-__host__ __device__ constexpr float2 w16(int k) {
-  constexpr float c1 = 0.923879532511286756f;  // cos(pi / 8)
-  constexpr float s1 = 0.382683432365089772f;  // sin(pi / 8)
-  constexpr float c2 = 0.707106781186547524f;  // cos(pi / 4)
-  return k == 0   ? float2{1.0f, 0.0f}
-         : k == 1 ? float2{c1, -s1}
-         : k == 2 ? float2{c2, -c2}
-         : k == 3 ? float2{s1, -c1}
-         : k == 4 ? float2{0.0f, -1.0f}
-         : k == 5 ? float2{-s1, -c1}
-         : k == 6 ? float2{-c2, -c2}
-                  : float2{-c1, -s1};
-}
-
-// d * exp(-2 pi i K / 16) (kInv: exp(+2 pi i K / 16)), K < 8
-template <bool kInv, int K>
-__device__ __forceinline__ float2 rot16(float2 d) {
-  if constexpr (K == 0) {
-    return d;
-  } else if constexpr (K == 4) {
-    return kInv ? make_float2(-d.y, d.x) : make_float2(d.y, -d.x);
-  } else {
-    constexpr float2 w = w16(K);
-    return kInv ? cmul_conj(d, w) : cmul(d, w);
-  }
-}
-
-// Unnormalised R-point DFT (kInv: inverse) of u in registers, natural order
-// in and out: a radix-2 decimation-in-frequency network, then the
-// bit-reversal as a renaming of registers.
-template <int R, bool kInv>
-__device__ __forceinline__ void dft(float2 (&u)[R]) {
-  static_for<0, log2i(R)>([&](auto stage) {
-    constexpr int len = R >> decltype(stage)::value;
-    static_for<0, R / len>([&](auto blk) {
-      static_for<0, len / 2>([&](auto jj) {
-        constexpr int j = decltype(jj)::value;
-        constexpr int i0 = decltype(blk)::value * len + j;
-        const float2 a = u[i0];
-        const float2 b = u[i0 + len / 2];
-        u[i0] = make_float2(a.x + b.x, a.y + b.y);
-        u[i0 + len / 2] = rot16<kInv, j * (16 / len)>(make_float2(a.x - b.x, a.y - b.y));
-      });
-    });
-  });
-  float2 tmp[R];
-  static_for<0, R>([&](auto k) { tmp[k] = u[bitrev_const(decltype(k)::value, log2i(R))]; });
-  static_for<0, R>([&](auto k) { u[k] = tmp[k]; });
-}
-
-// A row's line in shared memory, padded (element a at a + a / 16); the
-// row's threads share a warp.
-struct RowExchange {
-  float2* s;
-  __device__ __forceinline__ void store(int a, float2 x) const { s[a + (a >> 4)] = x; }
-  __device__ __forceinline__ float2 load(int a) const { return s[a + (a >> 4)]; }
-  __device__ __forceinline__ void sync() const { __syncwarp(); }
-};
-
-// The column tile: element a of column c at s[a * cols + c].
-template <int LOGC>
-struct ColExchange {
-  float2* s;
-  int c;
-  __device__ __forceinline__ void store(int a, float2 x) const { s[(a << LOGC) + c] = x; }
-  __device__ __forceinline__ float2 load(int a) const { return s[(a << LOGC) + c]; }
-  __device__ __forceinline__ void sync() const { __syncthreads(); }
-};
-
-// One Stockham radix-R pass over a line whose sub-transforms so far have
-// NS points. The thread holds the pass's inputs at positions t + TL m in
-// v[m]; butterfly j = t + q TL takes inputs j + r N / R = v[q + r E / R],
-// twiddles them by exp(-2 pi i r (j mod NS) / (NS R)), transforms, and puts
-// output r at (j / NS) NS R + (j mod NS) + r NS: through the exchange, read
-// back at t + TL m for the next pass, or (kLast, where that position is
-// t + TL (q + r E / R)) straight into v.
-template <int LOGN, int R, int NS, bool kLast, bool kInv, class Ex>
-__device__ __forceinline__ void stockham_pass(float2 (&v)[Plan<LOGN>::kE], int t, const Ex& ex) {
-  using P = Plan<LOGN>;
-  constexpr int kQ = P::kE / R;
-  static_for<0, kQ>([&](auto qq) {
-    constexpr int q = decltype(qq)::value;
-    float2 u[R];
-    static_for<0, R>([&](auto r) { u[r] = v[q + r * kQ]; });
-    const int j = t + q * P::kTl;
-    const int k = j & (NS - 1);
-    if constexpr (NS > 1) {
-      static_assert(twiddle_ns(NS * R) == NS, "a pass without its twiddle table");
-      const float2* tw = g_twiddle + (NS * R - 32) + k;
-      static_for<1, R>([&](auto r) {
-        const float2 w = __ldg(tw + r * NS);
-        u[r] = kInv ? cmul_conj(u[r], w) : cmul(u[r], w);
-      });
-    }
-    dft<R, kInv>(u);
-    if constexpr (kLast) {
-      static_for<0, R>([&](auto r) { v[q + r * kQ] = u[r]; });
-    } else {
-      const int base = (j & ~(NS - 1)) * R + k;
-      static_for<0, R>([&](auto r) { ex.store(base + r * NS, u[r]); });
-    }
-  });
-  if constexpr (!kLast) {
-    ex.sync();
-    static_for<0, P::kE>([&](auto m) { v[m] = ex.load(t + m * P::kTl); });
-    ex.sync();  // the next exchange may overwrite what this one read
-  }
-}
-
-// Unnormalised N-point transform (kInv: inverse) of one line held by TL
-// threads, natural order in and out (see Plan for the passes).
-template <int LOGN, bool kInv, class Ex>
-__device__ __forceinline__ void line_fft(float2 (&v)[Plan<LOGN>::kE], int t, const Ex& ex) {
-  using P = Plan<LOGN>;
-  if constexpr (P::kPasses == 1) {
-    stockham_pass<LOGN, P::kR0, 1, true, kInv>(v, t, ex);
-  } else if constexpr (P::kPasses == 2) {
-    stockham_pass<LOGN, P::kR0, 1, false, kInv>(v, t, ex);
-    stockham_pass<LOGN, P::kR1, P::kR0, true, kInv>(v, t, ex);
-  } else {
-    stockham_pass<LOGN, P::kR0, 1, false, kInv>(v, t, ex);
-    stockham_pass<LOGN, P::kR1, P::kR0, false, kInv>(v, t, ex);
-    stockham_pass<LOGN, P::kR2, P::kR0 * P::kR1, true, kInv>(v, t, ex);
-  }
-}
 
 // Row pass of the forward chain, for rows y0..y0+R-1 of sample b, all modes
 // (grid (N / R, B), G = min(pmode, 4) warps of R rows, one per mode group).
@@ -531,84 +361,26 @@ col_ff_kernel(const float2* src, float2* dst, long long bs) {
   static_for<0, kE>([&](auto m) { dst[fo + m * kStep] = v[kAdj ? m : (m ^ (kE / 2))]; });
 }
 
-#define CHAIN_TRY(expr)                         \
-  do {                                          \
-    const cudaError_t err_ = (expr);            \
-    if (err_ != cudaSuccess) return err_;       \
-  } while (0)
-
-// f(std::integral_constant<int, logn>) for logn = 1 ... kMaxLogN
-template <class F>
-cudaError_t with_logn(int logn, F&& f) {
-  switch (logn) {
-    case 1: return f(std::integral_constant<int, 1>{});
-    case 2: return f(std::integral_constant<int, 2>{});
-    case 3: return f(std::integral_constant<int, 3>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    case 5: return f(std::integral_constant<int, 5>{});
-    case 6: return f(std::integral_constant<int, 6>{});
-    case 7: return f(std::integral_constant<int, 7>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 9: return f(std::integral_constant<int, 9>{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// Set-up once per (device, log2 N): the device's twiddle table (double
-// precision, rounded to float) and the shared-memory limits of the eight
-// kernels of that N. After it, a launch checks one flag and does no set-up,
-// so a caller that warms up every N first (ptyrad_chain_prepare) can capture
-// the launches in a CUDA graph.
-std::atomic<bool> g_prepared[kMaxDevices][kMaxLogN + 1];
-
+// Set-up once per (device, log2 N) (regfft::prepare_once): the twiddle table
+// and the shared-memory limits of the eight kernels of that N. After it, a
+// launch checks one flag and does no set-up, so a caller that warms up every
+// N first (ptyrad_chain_prepare) can capture the launches in a CUDA graph.
 cudaError_t prepare(int logn) {
-  if (logn < 1 || logn > kMaxLogN) return cudaErrorInvalidValue;
-  int dev = 0;
-  CHAIN_TRY(cudaGetDevice(&dev));
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (g_prepared[dev][logn].load(std::memory_order_acquire)) return cudaSuccess;
-  static std::mutex mu;
-  static bool twiddles[kMaxDevices] = {};
-  std::lock_guard<std::mutex> lock(mu);
-  if (g_prepared[dev][logn].load(std::memory_order_relaxed)) return cudaSuccess;
-  if (!twiddles[dev]) {
-    constexpr double kPi = 3.14159265358979323846;
-    float2 host[kTwEntries];
-    for (int m = 32; m <= 512; m *= 2) {
-      const int ns = twiddle_ns(m);
-      for (int r = 0; r < m / ns; ++r) {
-        for (int k = 0; k < ns; ++k) {
-          const double ang = -2.0 * kPi * r * k / m;
-          host[m - 32 + r * ns + k] =
-              make_float2(static_cast<float>(std::cos(ang)), static_cast<float>(std::sin(ang)));
-        }
-      }
-    }
-    CHAIN_TRY(cudaMemcpyToSymbol(g_twiddle, host, sizeof(host)));
-    CHAIN_TRY(cudaDeviceSynchronize());  // later streams see the table
-    twiddles[dev] = true;
-  }
-  CHAIN_TRY(with_logn(logn, [](auto L) -> cudaError_t {
-    constexpr int kL = decltype(L)::value;
-    using P = Plan<kL>;
-    const size_t row_smem = P::row_smem(P::kMaxGroups);
-    CHAIN_TRY(set_smem(row_fwd_kernel<kL, false>, row_smem));
-    CHAIN_TRY(set_smem(row_fwd_kernel<kL, true>, row_smem));
-    CHAIN_TRY(set_smem(row_bwd_kernel<kL, false>, row_smem));
-    CHAIN_TRY(set_smem(row_bwd_kernel<kL, true>, row_smem));
-    CHAIN_TRY(set_smem(col_kernel<kL, false>, P::kColSmem));
-    CHAIN_TRY(set_smem(col_kernel<kL, true>, P::kColSmem));
-    CHAIN_TRY(set_smem(col_ff_kernel<kL, false>, P::kColSmem));
-    return set_smem(col_ff_kernel<kL, true>, P::kColSmem);
-  }));
-  g_prepared[dev][logn].store(true, std::memory_order_release);
-  return cudaSuccess;
+  return regfft::prepare_once<kMaxLogN>(logn, [](int logn) {
+    return with_logn<kMaxLogN>(logn, [](auto L) -> cudaError_t {
+      constexpr int kL = decltype(L)::value;
+      using P = Plan<kL>;
+      const size_t row_smem = P::row_smem(P::kMaxGroups);
+      REGFFT_TRY(set_smem(row_fwd_kernel<kL, false>, row_smem));
+      REGFFT_TRY(set_smem(row_fwd_kernel<kL, true>, row_smem));
+      REGFFT_TRY(set_smem(row_bwd_kernel<kL, false>, row_smem));
+      REGFFT_TRY(set_smem(row_bwd_kernel<kL, true>, row_smem));
+      REGFFT_TRY(set_smem(col_kernel<kL, false>, P::kColSmem));
+      REGFFT_TRY(set_smem(col_kernel<kL, true>, P::kColSmem));
+      REGFFT_TRY(set_smem(col_ff_kernel<kL, false>, P::kColSmem));
+      return set_smem(col_ff_kernel<kL, true>, P::kColSmem);
+    });
+  });
 }
 
 // Shapes shared by every pass of one call.
@@ -629,7 +401,7 @@ struct Chain {
   cudaError_t row_fwd(const float2* src, long long src_bs, bool pending, float2* entry,
                       long long entry_bs, const float* a, const float* ph, long long obj_bs,
                       bool fft, float2* dst, bool ff = false) const {
-    return with_logn(logn, [&](auto L) -> cudaError_t {
+    return with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
       constexpr int kL = decltype(L)::value;
       using P = Plan<kL>;
       auto kernel = ff ? row_fwd_kernel<kL, true> : row_fwd_kernel<kL, false>;
@@ -643,7 +415,7 @@ struct Chain {
   cudaError_t row_bwd(const float2* src, bool pending, const float2* psi, long long psi_bs,
                       const float* a, const float* ph, long long obj_bs, float* da, float* dph,
                       long long dobj_bs, bool fft, float2* dst, bool ff = false) const {
-    return with_logn(logn, [&](auto L) -> cudaError_t {
+    return with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
       constexpr int kL = decltype(L)::value;
       using P = Plan<kL>;
       auto kernel = ff ? row_bwd_kernel<kL, true> : row_bwd_kernel<kL, false>;
@@ -660,7 +432,7 @@ struct Chain {
   // null (and kbuf) only the column FFT, stored to kbuf (a final slice's K)
   cudaError_t col(float2* buf, bool conj_h, float2* kbuf = nullptr, float2* dacc = nullptr,
                   bool first = false, bool with_h = true) const {
-    return with_logn(logn, [&](auto L) -> cudaError_t {
+    return with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
       constexpr int kL = decltype(L)::value;
       using P = Plan<kL>;
       auto kernel = kbuf != nullptr ? col_kernel<kL, true> : col_kernel<kL, false>;
@@ -677,7 +449,7 @@ struct Chain {
 
   // the far-field exit's column pass from src into dst (adj: its adjoint)
   cudaError_t col_ff(const float2* src, float2* dst, bool adj) const {
-    return with_logn(logn, [&](auto L) -> cudaError_t {
+    return with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
       constexpr int kL = decltype(L)::value;
       using P = Plan<kL>;
       auto kernel = adj ? col_ff_kernel<kL, true> : col_ff_kernel<kL, false>;
@@ -702,15 +474,15 @@ cudaError_t chain_fwd(const Chain& c, const float2* psi_in, float2* out, const f
     const bool final_slice = z == nslices - 1;
     const bool prop = !(last && final_slice);
     const bool exit_ff = ff && final_slice;
-    CHAIN_TRY(c.row_fwd(src, c.field_bs, pending, entry, n_seg * c.field_bs, a + z * c.nn,
-                        ph + z * c.nn, obj_bs, prop || exit_ff, out, exit_ff));
-    if (prop) CHAIN_TRY(c.col(out, false));
-    if (exit_ff) CHAIN_TRY(c.col_ff(out, out, false));
+    REGFFT_TRY(c.row_fwd(src, c.field_bs, pending, entry, n_seg * c.field_bs, a + z * c.nn,
+                         ph + z * c.nn, obj_bs, prop || exit_ff, out, exit_ff));
+    if (prop) REGFFT_TRY(c.col(out, false));
+    if (exit_ff) REGFFT_TRY(c.col_ff(out, out, false));
     src = out;
     pending = prop;
   }
   if (pending) {  // finish the trailing propagation's row IFFT
-    CHAIN_TRY(c.row_fwd(out, c.field_bs, true, nullptr, 0, nullptr, nullptr, 0, false, out));
+    REGFFT_TRY(c.row_fwd(out, c.field_bs, true, nullptr, 0, nullptr, nullptr, 0, false, out));
   }
   return cudaSuccess;
 }
@@ -746,10 +518,10 @@ cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long
   bool col_due = !last;   // dpsi awaits the column pass of the adjoint propagation
                           // out of the segment's final slice (its row FFT is done)
   if (!last) {  // the cotangent arrives after the final propagation
-    CHAIN_TRY(c.row_fwd(g, c.field_bs, false, nullptr, 0, nullptr, nullptr, 0, true, dpsi));
+    REGFFT_TRY(c.row_fwd(g, c.field_bs, false, nullptr, 0, nullptr, nullptr, 0, true, dpsi));
     src = dpsi;
   } else if (ff) {  // the exit's adjoint: its column pass here, its row IFFT pending
-    CHAIN_TRY(c.col_ff(g, dpsi, true));
+    REGFFT_TRY(c.col_ff(g, dpsi, true));
     src = dpsi;
     pending = true;
   }
@@ -763,23 +535,24 @@ cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long
     const float2* rsrc = entry0;
     long long rsrc_bs = stack_bs;
     for (int j = 0; j + 1 < sg; ++j) {
-      CHAIN_TRY(c.row_fwd(rsrc, rsrc_bs, j > 0, j > 0 ? scratch + (j - 1) * scratch_field : nullptr,
-                          c.field_bs, a_s + j * c.nn, ph_s + j * c.nn, obj_bs, true, work));
-      CHAIN_TRY(c.col(work, false, with_dh ? kscr + j * scratch_field : nullptr));
+      REGFFT_TRY(c.row_fwd(rsrc, rsrc_bs, j > 0,
+                           j > 0 ? scratch + (j - 1) * scratch_field : nullptr, c.field_bs,
+                           a_s + j * c.nn, ph_s + j * c.nn, obj_bs, true, work));
+      REGFFT_TRY(c.col(work, false, with_dh ? kscr + j * scratch_field : nullptr));
       rsrc = work;
       rsrc_bs = c.field_bs;
     }
     const bool k_final = with_dh && col_due;  // the final slice propagates: its K
     if (sg > 1 || k_final) {
       float2* last_entry = sg > 1 ? scratch + (sg - 2) * scratch_field : nullptr;
-      CHAIN_TRY(c.row_fwd(rsrc, rsrc_bs, sg > 1, last_entry,
-                          c.field_bs, k_final ? a_s + (sg - 1) * c.nn : nullptr,
-                          k_final ? ph_s + (sg - 1) * c.nn : nullptr, obj_bs, k_final,
-                          k_final ? work : nullptr));
-      if (k_final) CHAIN_TRY(c.col_k(work, kscr + (sg - 1) * scratch_field));
+      REGFFT_TRY(c.row_fwd(rsrc, rsrc_bs, sg > 1, last_entry,
+                           c.field_bs, k_final ? a_s + (sg - 1) * c.nn : nullptr,
+                           k_final ? ph_s + (sg - 1) * c.nn : nullptr, obj_bs, k_final,
+                           k_final ? work : nullptr));
+      if (k_final) REGFFT_TRY(c.col_k(work, kscr + (sg - 1) * scratch_field));
     }
     if (col_due) {
-      CHAIN_TRY(adjoint_col(sg - 1));
+      REGFFT_TRY(adjoint_col(sg - 1));
       pending = true;
     }
     for (int j = sg - 1; j >= 0; --j) {
@@ -787,10 +560,10 @@ cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long
       const float2* psi = j > 0 ? scratch + (j - 1) * scratch_field : entry0;
       const long long psi_bs = j > 0 ? c.field_bs : stack_bs;
       const long long z = static_cast<long long>(s) * sg + j;
-      CHAIN_TRY(c.row_bwd(src, pending, psi, psi_bs, a_s + j * c.nn, ph_s + j * c.nn, obj_bs,
-                          da + z * c.nn, dph + z * c.nn, dobj_bs, prop_in, dpsi, ff_due));
+      REGFFT_TRY(c.row_bwd(src, pending, psi, psi_bs, a_s + j * c.nn, ph_s + j * c.nn, obj_bs,
+                           da + z * c.nn, dph + z * c.nn, dobj_bs, prop_in, dpsi, ff_due));
       ff_due = false;
-      if (j > 0) CHAIN_TRY(adjoint_col(j - 1));
+      if (j > 0) REGFFT_TRY(adjoint_col(j - 1));
       src = dpsi;
       pending = j > 0;
     }
@@ -802,7 +575,7 @@ cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long
     return cudaMemsetAsync(dh, 0, sizeof(float2) * (h_shared ? 1 : c.B) * c.nn, c.st);
   }
   // the partials are in natural order (Plan: no permutation between passes)
-  return dh::reduce<false>(dh_part, dh, c.B, c.pmode, h_shared, c.logn, c.st);
+  return dh::reduce(dh_part, dh, c.B, c.pmode, h_shared, c.logn, c.st);
 }
 
 Chain make_chain(int B, int pmode, int logn, const float2* h, int h_shared, void* stream) {
@@ -830,7 +603,7 @@ int ptyrad_chain_segment_fwd(const float2* psi, const float* a, const float* ph,
                              void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
-  CHAIN_TRY(c.init());
+  REGFFT_TRY(c.init());
   return static_cast<int>(chain_fwd(c, psi, out, a, ph, obj_bs, nullptr, 1, sg, sg, last != 0,
                                     far_field != 0));
 }
@@ -848,7 +621,7 @@ int ptyrad_chain_segment_bwd(const float2* g, const float2* psi, const float* a,
                              int last, int far_field, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
-  CHAIN_TRY(c.init());
+  REGFFT_TRY(c.init());
   return static_cast<int>(chain_bwd(c, g, psi, c.field_bs, a, ph, obj_bs, scratch, work, kscr,
                                     dh_part, dh, da, dph, dpsi, 1, sg, last != 0,
                                     far_field != 0));
@@ -862,7 +635,7 @@ int ptyrad_chain_stack_fwd(const float2* psi0, const float* a, const float* ph,
                            void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
-  CHAIN_TRY(c.init());
+  REGFFT_TRY(c.init());
   return static_cast<int>(chain_fwd(c, psi0, out, a, ph, obj_bs, stack, n_seg, sg, n_seg * sg,
                                     last_mega != 0));
 }
@@ -877,7 +650,7 @@ int ptyrad_chain_stack_bwd(const float2* g, const float2* stack, const float* a,
                            int h_shared, int last_mega, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
-  CHAIN_TRY(c.init());
+  REGFFT_TRY(c.init());
   return static_cast<int>(chain_bwd(c, g, stack, n_seg * c.field_bs, a, ph, obj_bs, scratch,
                                     work, kscr, dh_part, dh, da, dph, dpsi0, n_seg, sg,
                                     last_mega != 0));
@@ -894,7 +667,7 @@ int ptyrad_chain_prepare(int logn) { return static_cast<int>(prepare(logn)); }
 // bytes.
 int ptyrad_chain_plan(int logn, int pmode, int* out) {
   if (pmode < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_logn(logn, [&](auto L) -> cudaError_t {
+  return static_cast<int>(with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
     using P = Plan<decltype(L)::value>;
     const int g = P::groups(pmode);
     const int v[] = {P::kN, P::kE, P::kTl, P::kPasses, P::kR0, P::kPasses > 1 ? P::kR1 : 0,

@@ -26,7 +26,11 @@ On a CPU tensor each entry point runs its plain version (``multislice_dp_plain``
 runs the hand-written kernels of ``csrc/multislice.cu`` through an
 autograd.Function whose forward is B4a (B3a) and whose backward is B4b
 (B3b), computing dH only when autograd asks for H's gradient, or raises:
-the kernels take omode 1 and N a power of two up to 128.
+the kernels take omode 1 and N a power of two up to 128. Each wavefield
+stays in one block's shared memory for the whole chain and is transformed
+in registers (the radix-2 pair of ``csrc/reg_fft.cuh``, the header the
+chain kernels share); tests/test_torch_fused_plan.py emulates the
+kernels' plan.
 """
 
 from __future__ import annotations
@@ -36,7 +40,18 @@ import torch
 from ptyrad_tpu_torch.ops import _build
 from ptyrad_tpu_torch.ops.fourier import fft2, ifft2
 
-MAX_N = 128  # a 128^2 complex64 wavefield fills 128 KB of a block's shared memory
+MAX_N = 128  # a padded 128^2 complex64 wavefield fills 139 KB of a block's shared memory
+
+
+def prepare(device, n: int) -> None:
+    """Do the kernels' one-time set-up for N-point fields on a CUDA device
+    (the twiddle table and the chain kernels' shared-memory limits). The
+    first launch at each N does it otherwise; after it no launch does any,
+    so call it for every N before capturing launches in a CUDA graph."""
+    if not (2 <= n <= MAX_N and not n & (n - 1)):
+        raise ValueError(f"prepare: N must be a power of two in [2, {MAX_N}], got {n}")
+    t = torch.empty(0, device=device)
+    _build.launch("ptyrad_fused_prepare", t, n.bit_length() - 1, stream=False)
 
 
 def _pow(x: torch.Tensor, p: float) -> torch.Tensor:
@@ -228,9 +243,9 @@ def multislice_dp_fused(obja_p, objp_p, probe, h, probe_kspace: bool = False):
 
 def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps: float,
                        probe_kspace: bool):
-    """Kernel B3a (chain, the per-sample mode reduction, the sum over
-    samples). Returns (s1, s2, dp) with dp (B, N, N) the corner-centred
-    intensity kept for the backward."""
+    """Kernel B3a (chain, the mode reduction in min(N, 16) blocks a sample,
+    the sum of their partials in a fixed order). Returns (s1, s2, dp) with
+    dp (B, N, N) the corner-centred intensity kept for the backward."""
     b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     n = 1 << logn
     _check("loss_sums_fwd_cuda", _inputs(obja_p, objp_p, probe, h, meas_cc=meas_cc, mask=mask))
@@ -239,7 +254,8 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
     dev = obja_p.device
     inten = torch.empty((b, pmode, n, n), dtype=torch.float32, device=dev)
     dp = torch.empty((b, n, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((b, 2), dtype=torch.float32, device=dev)
+    # per-block partial sums of B3a's epilogue: min(N, 16) blocks a sample
+    partial = torch.empty((b, min(n, 16), 2), dtype=torch.float32, device=dev)
     sums = torch.empty(2, dtype=torch.float32, device=dev)
     _build.launch(
         "ptyrad_loss_fwd", obja_p,

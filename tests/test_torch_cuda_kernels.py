@@ -22,7 +22,8 @@ a different FFT than torch.fft: rtol 1e-5 of the largest sum for the
 scatter, 1e-4 relative for s1/s2 and 1e-4 of each cotangent's largest entry.
 B4 is held the same way: dp at 1e-4 of its largest value, each cotangent at
 1e-4 of its largest entry (atomic sums over modes, and over samples for a
-shared probe).
+shared probe). B3a and B4a sum modes and samples in a fixed order and
+repeat bit for bit.
 B5/B6 sum over modes without atomics and repeat bit for bit; they are held
 at 1e-4 of the largest entry of each output or cotangent. dH is summed in a
 fixed order by every kernel (no atomics) and repeats bit for bit; it is held
@@ -104,7 +105,8 @@ def _grad(t):
 
 
 @pytest.mark.parametrize("b,pmode,nz,n", [(3, 2, 1, 16), (2, 1, 2, 2), (4, 3, 6, 64),
-                                          (2, 6, 6, 128)])
+                                          (2, 6, 6, 128), (3, 8, 3, 4), (5, 8, 2, 8),
+                                          (3, 8, 4, 32)])
 @pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])
 @pytest.mark.parametrize("p", [0.5, 1.0, 0.3])
 @pytest.mark.parametrize("h_case", H_CASES)
@@ -146,6 +148,39 @@ def test_loss_chain_kernels(dev, gen, b, pmode, nz, n, probe_layout, p, h_case):
     if need_dh:
         assert leaves_k[3].grad.shape == h.shape
         torch.testing.assert_close(run(True)[2][3].grad, leaves_k[3].grad, rtol=0, atol=0)
+
+
+def test_loss_forward_repeats_bit_for_bit(dev, gen):
+    """B3a sums modes and samples in a fixed order, without atomics: s1, s2
+    and dp repeat bit for bit."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    obja, objp, probe, h, meas, mask = _chain_inputs(dev, gen, 5, 6, 6, 128, "each_kspace")
+    first = M.loss_sums_fwd_cuda(obja, objp, probe, h, meas, mask, 0.5, 1e-10, True)
+    again = M.loss_sums_fwd_cuda(obja, objp, probe, h, meas, mask, 0.5, 1e-10, True)
+    for a, b in zip(first, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_fused_kernel_plans_match_fused_plan(dev):
+    """The plan multislice.cu compiled for every N (ptyrad_fused_plan) is the
+    one tests/test_torch_fused_plan.py's fused_plan describes and emulates on
+    the CPU."""
+    import ctypes
+
+    from test_torch_fused_plan import fused_plan
+
+    from ptyrad_tpu_torch.ops import _build
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    for logn in range(1, 8):
+        M.prepare(dev, 1 << logn)  # the explicit warm-up, at every N
+        out = (ctypes.c_int * 11)()
+        _build.check(_build.lib().ptyrad_fused_plan(logn, out), "ptyrad_fused_plan")
+        plan = fused_plan(1 << logn)
+        assert list(out) == [plan.n, plan.elems, plan.line_threads, plan.line, plan.threads,
+                             plan.sweeps, plan.bwd_threads, plan.bwd_sweeps,
+                             plan.group_threads, plan.smem, plan.chunks]
 
 
 def test_unsupported_cases_raise(dev, gen):
@@ -246,8 +281,8 @@ def test_solver_cuda_matches_cpu(dev):
 
 # -- B4: the plain fused chain ------------------------------------------------
 
-@pytest.mark.parametrize("n", [16, 64, 128])
-@pytest.mark.parametrize("pmode", [1, 6])
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("pmode", [1, 6, 8])
 @pytest.mark.parametrize("nz", [1, 6])
 @pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])
 @pytest.mark.parametrize("h_case", H_CASES)
