@@ -3,38 +3,52 @@ of this repository on one NVIDIA GPU, in turns.
 
     python3 chain_bench.py                                  # this tree
     python3 chain_bench.py --trees _ab/parent . . _ab/parent
+    python3 chain_bench.py --trees _ab/old . . _ab/old --atomic-b2 _ab/old
 
 Each turn is a process of its own. It imports ptyrad_tpu_torch from its tree
 (which builds that tree's kernels at first use) and chip_smoke.py from this
 one, so every tree is timed on the same rows, inputs and steps:
   - chip_smoke.kernel_rows: every row of chip_smoke's kernels line (B1-B6
-    with their per-position-H, dH and far-field variants, each checked
-    against its plain version first), CUDA-event medians of 20 runs;
+    with their per-position-H, dH and far-field variants, B1/B2 at the tBL
+    and PSO shapes, each checked against its plain version first),
+    CUDA-event medians of 20 runs, or for B1/B2 and any row under 0.1 ms
+    the device time per launch of a run of 100 (chip_smoke.run_ms); B1/B2's
+    host us per call and the pair launch (obja and objp at once); a tree
+    named in --atomic-b2 is one from before the pair launch, whose B2 summed
+    with atomics: its B2 is held at rtol 1e-5 and it has no pair rows;
   - chip_smoke.propagation_yardstick: B6a's row and column pass
     (torch.profiler);
   - the launch guard's host cost, where the tree has ops._build.launch: us
     per call of the chain set-up query (a launcher that does no device work
     once N is set up) directly, through launch, and inside
     torch.cuda.device as every launch was before launch skipped the guard
-    on the current device; and B1 and B2 through launch against the same
-    wrappers with a direct, unguarded call, in alternating rounds;
+    on the current device; and B1 and B2's host us per call through launch
+    against the same wrappers with a direct, unguarded call, in
+    alternating rounds;
   - the tBL and PSO steps: chip_smoke.profile_steps over 32 tBL and 8 PSO
     training steps on chip_smoke's simulated data (host and device ms per
-    step, busy share).
+    step, busy share, and B1's, B2's and the memsets' device ms per step).
 It prints one JSON line per turn, then per tree the median of each number
-over its turns. Needs one card; every number goes with the card's name and
-power limit.
+over its turns, with the smallest and largest of each step number. With
+more than one tree it then compiles every tree's csrc/*.cu as the build
+does and compares the kernels' machine code (cuobjdump -sass) with the
+first tree's, kernel by kernel, with the SASS instruction classes (opcode
+before its first dot) of each kernel that differs, in both trees. Needs one
+card; every number goes with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -53,9 +67,9 @@ def guard_cost(cs, dev) -> dict | None:
     """The launch guard's host cost, where the tree has _build.launch (else
     None): host us per call of the set-up query directly, through launch and
     inside torch.cuda.device; and B1 and B2 at chip_smoke's tBL shapes
-    (CUDA-event medians) through launch against the same wrappers with
-    launch swapped for a direct call with no guard, in 5 alternating
-    rounds."""
+    (host us per call, chip_smoke.host_us) through launch against the same
+    wrappers with launch swapped for a direct call with no guard, in 5
+    alternating rounds."""
     import torch
 
     from ptyrad_tpu_torch.ops import _build
@@ -90,13 +104,13 @@ def guard_cost(cs, dev) -> dict | None:
     shape = (cs.NPIX, cs.NPIX)
     rows = {"B1": lambda: P.gather_cuda(canvas, pos, shape),
             "B2": lambda: P.scatter_add_cuda(canvas.shape, grads, pos)}
-    times = {f"{k}_{form}": [] for k in rows for form in ("launch_ms", "direct_ms")}
+    times = {f"{k}_{form}": [] for k in rows for form in ("launch_us", "direct_us")}
     try:
         for _ in range(5):
-            for form, impl in (("launch_ms", guarded), ("direct_ms", unguarded)):
+            for form, impl in (("launch_us", guarded), ("direct_us", unguarded)):
                 _build.launch = impl
                 for k, f in rows.items():
-                    times[f"{k}_{form}"].append(cs.time_ms(f))
+                    times[f"{k}_{form}"].append(cs.host_us(f))
     finally:
         _build.launch = guarded
     out.update({k: statistics.median(v) for k, v in times.items()})
@@ -110,10 +124,12 @@ def step_profile(cs, dev, params: dict, init: dict, path: str, niter: int, n_bat
     solver.prepare()
     solver._build()
     rec = cs.profile_steps(solver, cs.gpu_line(), path, niter, n_batches=n_batches)
-    return {k: rec[k] for k in ("ms_per_step", "device_ms_per_step", "device_busy_share")}
+    out = {k: rec[k] for k in ("ms_per_step", "device_ms_per_step", "device_busy_share")}
+    out.update({f"{k}_device_ms": v for k, v in rec["patches_device_ms_per_step"].items()})
+    return out
 
 
-def worker(root: str) -> dict:
+def worker(root: str, atomic_b2: bool) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -133,7 +149,9 @@ def worker(root: str) -> dict:
     _build.lib()
     build_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    ms = {r["name"]: r["ms"] for r in cs.kernel_rows(dev, gen)}
+    rows = cs.kernel_rows(dev, gen, atomic_b2)
+    ms = {r["name"]: r["ms"] for r in rows}
+    extra = {key: {r["name"]: r[key] for r in rows if key in r} for key in ("host_us", "pair_ms")}
     yard = cs.propagation_yardstick(dev, gen)
     torch.cuda.empty_cache()
     guard = guard_cost(cs, dev)
@@ -145,7 +163,7 @@ def worker(root: str) -> dict:
     del init
     torch.cuda.empty_cache()
     pso = step_profile(cs, dev, cs.PSO_PARAMS, cs.pso_dataset(dev), "PSO", cs.PSO_NITER + 1, 8)
-    return {"tree": root, "card": cs.gpu_line(), "build_s": build_s, "ms": ms,
+    return {"tree": root, "card": cs.gpu_line(), "build_s": build_s, "ms": ms, **extra,
             "pass_ms": {"row": yard["row_pass_ms"], "column": yard["column_pass_ms"]},
             "guard": guard, "tbl_step": tbl, "pso_step": pso}
 
@@ -155,10 +173,73 @@ def _median(values):
     return statistics.median(values) if values else None
 
 
+def sass_classes(sass: str) -> dict:
+    """Count of each SASS instruction class (opcode before its first dot)."""
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", sass)
+    return dict(collections.Counter(ops).most_common())
+
+
+def machine_code(root: str) -> dict:
+    """{source: {kernel: SASS}} of a tree's csrc/*.cu, each compiled by its
+    own nvcc with the build's flags (in parallel) and read back with
+    cuobjdump; the per-file hash in the anonymous namespace's names is cut
+    out, so that two trees' kernels pair up by name."""
+    from ptyrad_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    csrc = os.path.join(root, "ptyrad_tpu_torch", "csrc")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {name: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", os.path.join(csrc, name),
+                                         "-o", os.path.join(tmp, name + ".o")],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for name in sorted(os.listdir(csrc)) if name.endswith(".cu")}
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {root}: {name}\n{log}")
+            sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                                   os.path.join(tmp, name + ".o")],
+                                  capture_output=True, text=True, check=True).stdout
+            kernels = {}
+            for chunk in re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", sass).split("Function : ")[1:]:
+                head, _, body = chunk.partition("\n")
+                kernels[head.strip()] = body
+            out[name] = kernels
+    return out
+
+
+def compare_machine_code(roots: list) -> dict:
+    """Per later tree and source: how many of its kernels have the first
+    tree's machine code, the names of those that do not, and the SASS
+    classes of those and of the first tree's kernels that have no twin."""
+    codes = [machine_code(root) for root in roots]
+    report = {}
+    for root, code in zip(roots[1:], codes[1:]):
+        report[root] = {}
+        for name, kernels in code.items():
+            first = codes[0].get(name, {})
+            differ = sorted(k for k in kernels if first.get(k) != kernels[k])
+            report[root][name] = {
+                "kernels": len(kernels), "identical": len(kernels) - len(differ),
+                "differ": differ, "only_in_first": len(set(first) - set(kernels)),
+                "classes": {"this": {k: sass_classes(kernels[k]) for k in differ},
+                            "first": {k: sass_classes(v) for k, v in first.items()
+                                      if k in differ or k not in kernels}}}
+    return report
+
+
+def _spread(values):
+    values = [v for v in values if isinstance(v, (int, float))]
+    return [min(values), max(values)] if values else None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="+", default=["."],
                     help="repository trees to time, in this order (default: this one)")
+    ap.add_argument("--atomic-b2", nargs="+", default=[], metavar="TREE",
+                    help="trees from before the pair launch, whose B2 sums with atomics")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -167,12 +248,13 @@ def main() -> int:
         if not torch.cuda.is_available():
             print("chain_bench.py: CUDA is not available", file=sys.stderr)
             return 2
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, bool(args.atomic_b2))), flush=True)
         return 0
     turns = []
     for tree in args.trees:
         root = os.path.abspath(os.path.join(HERE, tree))
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+        atomic = ["--atomic-b2", tree] if tree in args.atomic_b2 else []
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root, *atomic],
                              cwd=root, capture_output=True, text=True)
         sys.stderr.write(out.stderr[-4000:])
         if out.returncode != 0:
@@ -185,11 +267,17 @@ def main() -> int:
     for tree in dict.fromkeys(t["tree"] for t in turns):
         mine = [t for t in turns if t["tree"] == tree]
         summary[tree] = {"turns": len(mine)}
-        for group in ("ms", "pass_ms", "guard", "tbl_step", "pso_step"):
+        for group in ("ms", "host_us", "pair_ms", "pass_ms", "guard", "tbl_step", "pso_step"):
             if mine[0][group] is not None:
                 summary[tree][group] = {k: _median(t[group][k] for t in mine)
                                         for k in mine[0][group]}
-    print(json.dumps({"card": turns[0]["card"], "median_by_tree": summary}))
+        summary[tree]["spread"] = {group: {k: _spread(t[group][k] for t in mine)
+                                           for k in mine[0][group]}
+                                   for group in ("tbl_step", "pso_step")}
+    print(json.dumps({"card": turns[0]["card"], "median_by_tree": summary}), flush=True)
+    roots = list(dict.fromkeys(os.path.abspath(os.path.join(HERE, t)) for t in args.trees))
+    if len(roots) > 1:
+        print(json.dumps({"machine_code_vs": roots[0], "trees": compare_machine_code(roots)}))
     return 0
 
 

@@ -8,11 +8,19 @@ Phases, one JSON object per line each:
                ptyrad_tpu_torch/_build (seconds), then the chain kernels'
                one-time set-up for N = 256 and 512 (ops.chain.prepare).
   3. kernels - each kernel against its plain PyTorch version at its main
-               path's shapes (B1-B4 at tBL_WSe2's, B5/B6 at PSO's), with its
-               error, tolerance and CUDA-event times (median of 20 runs after
-               warm-up) beside the plain version's, one PyTorch call's where
+               path's shapes (B1-B4 at tBL_WSe2's, B5/B6 at PSO's, B1/B2 at
+               PSO's too), with its error, tolerance and CUDA-event times
+               (median of 20 runs after warm-up; a row under 0.1 ms, and B1,
+               B2 and their library calls always, as a run of 100
+               back-to-back launches queued behind a device-side sleep,
+               over 100) beside the plain version's, one PyTorch call's where
                one computes the same function, and the bound from bytes and
-               operations; then the need_dh variants: B3a/B4a on a
+               operations. B1 and B2 at tolerance 0 (B2 against
+               scatter_add_plain on the CPU, which sums in batch order as
+               the kernel does, and run twice to repeat bit for bit), their
+               pair launches (obja and objp at once) against two single
+               launches, and the wrappers' host us per call; then the
+               need_dh variants: B3a/B4a on a
                per-position H and B3b/B4b with dH at tBL shapes, B5b/B6b with
                dH at PSO shapes, each for a shared and a per-position H, dH
                held at 1e-4 of its largest entry; then B5a/B5b with the
@@ -95,7 +103,8 @@ Phases, one JSON object per line each:
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
 plain route, tBL, low-dose, tbl_store, PSO, pso_ff (with its random-start
 runs and the carve), tilt (its simulation included) and PSO tilt paths and
-the forward phase's kernel routes), the
+the forward phase's kernel routes; B1/B2's rows at the tBL shapes count the
+N <= 128 runs, their rows at the PSO shapes the N = 256 runs), the
 nvidia-smi name/power-limit line, and as the last line {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is not 0 and the
 last line is never printed. Exits non-zero at once without CUDA.
@@ -119,6 +128,12 @@ import torch
 # (non-tensor-core) operations/s; used for each kernel's bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# rows under SHORT_MS, and B1/B2 always, are timed as a run of RUN_LAUNCHES
+# back-to-back launches (run_ms); SLEEP_CYCLES_PER_S sizes the device-side
+# sleep that queues a run ahead of its first event (the boost clock)
+SHORT_MS = 0.1
+RUN_LAUNCHES = 100
+SLEEP_CYCLES_PER_S = 1.98e9
 
 N_SIDE, STEP_PX, NPIX, PMODE, NZ, BATCH = 128, 3, 128, 6, 6, 32
 N_SCANS = N_SIDE * N_SIDE
@@ -232,8 +247,8 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of fn() in ms."""
+def _event_ms(fn, reps: int, warmup: int) -> float:
+    """Median CUDA-event time of single calls of fn() in ms."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -246,6 +261,51 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def run_ms(fn, launches: int = RUN_LAUNCHES, runs: int = 5) -> float:
+    """Device ms per call of fn() over a run of `launches` back-to-back calls
+    between one pair of CUDA events, the median of `runs` runs. Before each
+    run a device-side sleep (twice the host's time to queue the run, from
+    host_us) holds the stream, so the host has queued every call before the
+    first event fires: the events time the device's work, not the host's
+    launch path."""
+    queue_s = launches * host_us(fn, reps=20) * 1e-6
+    sleep_cycles = int(2.0 * queue_s * SLEEP_CYCLES_PER_S)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """CUDA-event time of fn() in ms: the median of `reps` single calls, or,
+    where that is under SHORT_MS, run_ms's time per call of a run."""
+    one = _event_ms(fn, reps, warmup)
+    return one if one >= SHORT_MS else run_ms(fn)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host us per call of fn(): a host clock around each call, after a
+    synchronise so that the queue is empty and the call never waits on the
+    device; the median of `reps` calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -271,71 +331,121 @@ def tbl_positions() -> tuple[np.ndarray, int]:
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def check_patches(dev, gen) -> list:
+PSO_SHAPES = " (PSO shapes)"  # name suffix of the B1/B2 rows at the PSO shapes
+
+
+def patch_corners(dev, gen, corners: np.ndarray, h: int, w: int, n: int) -> torch.Tensor:
+    """BATCH corners drawn from `corners` with the edge cases of the kernel
+    checks: one past the last corner, one negative (both clamped) and a
+    window three times over."""
+    pick = torch.randperm(len(corners), generator=gen, device=dev)[:BATCH].cpu().numpy()
+    pos = torch.as_tensor(corners[pick], device=dev)
+    pos[0] = torch.tensor([h - n + 9, w - n + 3])  # past the last corner: clamped
+    pos[1] = torch.tensor([-4, 7])                  # negative: clamped
+    pos[3] = pos[2]                                 # duplicate windows
+    pos[4] = pos[2]
+    return pos.contiguous()
+
+
+def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.Tensor,
+                     suffix: str, atomic_b2: bool = False) -> list:
+    """B1 and B2 at one shape: a (1, lmodes, h, w) canvas, BATCH n^2 windows at
+    `pos`. B1 against advanced indexing and B2 against scatter_add_plain on
+    the CPU, both at tolerance 0; B2 run twice must repeat bit for bit; the
+    pair launch against two single launches. The kernels and their library
+    calls are timed as runs of back-to-back launches (run_ms), with the
+    wrapper's host us per call apart. `atomic_b2` is for a tree from before
+    the pair launch, whose B2 summed with atomics (chain_bench.py
+    --atomic-b2 times one): B2 held at rtol 1e-5 of the largest sum, with
+    no repeat check and no pair rows."""
     from ptyrad_tpu_torch.ops import patches as P
 
-    _, canvas_side = tbl_positions()
-    L, H, W = PMODE, canvas_side, canvas_side
-    canvas = torch.rand((1, L, H, W), generator=gen, device=dev)
-    pos = torch.randint(0, H - NPIX + 1, (BATCH, 2), generator=gen, device=dev,
-                        dtype=torch.int32)
-    pos[0] = torch.tensor([H - NPIX + 9, W - NPIX + 3])  # past the last corner: clamped
-    pos[1] = torch.tensor([-4, 7])                        # negative: clamped
-    pos[3] = pos[2]                                       # duplicate window
-    pos[4] = pos[2]
-    shape = (NPIX, NPIX)
-
+    shape = (n, n)
+    canvas = torch.rand((1, lmodes, h, w), generator=gen, device=dev)
+    canvas_p = torch.rand((1, lmodes, h, w), generator=gen, device=dev)
     out_k = P.gather_cuda(canvas, pos, shape)
-    out_p = P.gather_plain(canvas, pos, shape)
-    err_g = float((out_k - out_p).abs().max())
-    iy, ix = P._clamped_index(pos, (H, W), shape)
-    pos_np = pos.clamp(min=0).cpu().numpy()
-    covered = np.zeros((H, W), bool)
-    for y, x in np.minimum(pos_np, [H - NPIX, W - NPIX]):
-        covered[y:y + NPIX, x:x + NPIX] = True
-    g_bytes = 4 * (L * covered.sum() + out_k.numel()) + pos.numel() * 4
-    g_bound, g_by = bound(g_bytes, 0)
+    err_g = float((out_k - P.gather_plain(canvas, pos, shape)).abs().max())
+    iy, ix = P._clamped_index(pos, (h, w), shape)
+    covered = np.zeros((h, w), bool)
+    for y, x in np.minimum(pos.clamp(min=0).cpu().numpy(), [h - n, w - n]):
+        covered[y:y + n, x:x + n] = True
+    g_bound, g_by = bound(4 * (lmodes * covered.sum() + out_k.numel()) + pos.numel() * 4, 0)
     gather = {
-        "name": "B1 gather_patches", "route": "cuda",
+        "name": "B1 gather_patches" + suffix, "route": "cuda",
         "source": "ptyrad_tpu_torch/csrc/patches.cu",
         "replaces": "ptyrad_tpu/ops/patches.py:136",
+        "shape": {"canvas": [1, lmodes, h, w], "batch": BATCH, "window": n},
         "max_abs_err": err_g, "tolerance": 0.0,
-        "ms": time_ms(lambda: P.gather_cuda(canvas, pos, shape)),
+        "ms": run_ms(lambda: P.gather_cuda(canvas, pos, shape)),
+        "host_us": host_us(lambda: P.gather_cuda(canvas, pos, shape)),
         "plain_ms": time_ms(lambda: P.gather_plain(canvas, pos, shape)),
-        "library_ms": time_ms(lambda: canvas[..., iy, ix]),
+        "library_ms": run_ms(lambda: canvas[..., iy, ix]),
         "bound_ms": g_bound, "bound_by": g_by,
     }
+    if not atomic_b2:
+        pair = P.gather_pair_cuda(canvas, canvas_p, pos, shape)
+        require(torch.equal(pair[0], out_k)
+                and torch.equal(pair[1], P.gather_cuda(canvas_p, pos, shape)),
+                f"B1{suffix}: the pair launch differs from two single launches")
+        gather["pair_ms"] = run_ms(lambda: P.gather_pair_cuda(canvas, canvas_p, pos, shape))
+    del out_k
     emit({"phase": "kernel", **gather, "note": "bit-exact against advanced indexing"})
-    require(err_g == 0.0, f"B1 gather differs from its plain version: {err_g}")
+    require(err_g == 0.0, f"B1{suffix} gather differs from its plain version: {err_g}")
 
-    grads = torch.randn((BATCH, 1, L, NPIX, NPIX), generator=gen, device=dev)
-    cshape = (1, L, H, W)
+    cshape = (1, lmodes, h, w)
+    grads = torch.randn((BATCH, 1, lmodes, n, n), generator=gen, device=dev)
+    grads_p = torch.randn((BATCH, 1, lmodes, n, n), generator=gen, device=dev)
     sc_k = P.scatter_add_cuda(cshape, grads, pos)
-    sc_p = P.scatter_add_plain(cshape, grads, pos)
-    err_s = float((sc_k - sc_p).abs().max())
-    # atomics add the overlapping windows in a run-dependent order: compare at
-    # float32 rounding of the largest sum, rtol 1e-5
-    tol_s = 1e-5 * float(sc_p.abs().max())
-    flat = ((torch.arange(L, device=dev)[:, None, None, None] * H + iy) * W + ix)
-    flat = flat.expand(L, BATCH, NPIX, NPIX).reshape(-1)
+    ref = P.scatter_add_plain(cshape, grads.cpu(), pos.cpu())
+    err_s = float((sc_k.cpu() - ref).abs().max())
+    tol_s = 1e-5 * float(ref.abs().max()) if atomic_b2 else 0.0
+    repeats = torch.equal(sc_k, P.scatter_add_cuda(cshape, grads, pos))
+    flat = ((torch.arange(lmodes, device=dev)[:, None, None, None] * h + iy) * w + ix)
+    flat = flat.expand(lmodes, BATCH, n, n).reshape(-1)
     vals = grads[:, 0].transpose(0, 1).reshape(-1)
-    s_bytes = 4 * (grads.numel() + L * H * W) + pos.numel() * 4
-    s_bound, s_by = bound(s_bytes, grads.numel())
+    s_bound, s_by = bound(4 * (grads.numel() + lmodes * h * w) + pos.numel() * 4, grads.numel())
     scatter = {
-        "name": "B2 scatter_add_patches", "route": "cuda",
+        "name": "B2 scatter_add_patches" + suffix, "route": "cuda",
         "source": "ptyrad_tpu_torch/csrc/patches.cu",
         "replaces": "ptyrad_tpu/ops/patches.py:98",
-        "max_abs_err": err_s, "tolerance": tol_s,
-        "ms": time_ms(lambda: P.scatter_add_cuda(cshape, grads, pos)),
+        "shape": {"canvas": list(cshape), "batch": BATCH, "window": n},
+        "max_abs_err": err_s, "tolerance": tol_s, "repeats_bit_for_bit": repeats,
+        "ms": run_ms(lambda: P.scatter_add_cuda(cshape, grads, pos)),
+        "host_us": host_us(lambda: P.scatter_add_cuda(cshape, grads, pos)),
         "plain_ms": time_ms(lambda: P.scatter_add_plain(cshape, grads, pos)),
-        "library_ms": time_ms(lambda: torch.zeros(L * H * W, device=dev).index_put_(
+        "library_ms": run_ms(lambda: torch.zeros(lmodes * h * w, device=dev).index_put_(
             (flat,), vals, accumulate=True)),
         "bound_ms": s_bound, "bound_by": s_by,
     }
+    if not atomic_b2:
+        pair = P.scatter_add_pair_cuda(cshape, grads, grads_p, pos)
+        require(torch.equal(pair[0], sc_k)
+                and torch.equal(pair[1], P.scatter_add_cuda(cshape, grads_p, pos)),
+                f"B2{suffix}: the pair launch differs from two single launches")
+        scatter["pair_ms"] = run_ms(
+            lambda: P.scatter_add_pair_cuda(cshape, grads, grads_p, pos))
+        require(repeats, f"B2{suffix}: two runs differ")
     emit({"phase": "kernel", **scatter,
-          "note": "atomics: order varies run to run; rtol 1e-5 of the largest sum"})
-    require(err_s <= tol_s, f"B2 scatter differs from its plain version: {err_s} > {tol_s}")
+          "note": ("atomics: order varies run to run; rtol 1e-5 of the largest sum"
+                   if atomic_b2 else "batch-order sums: bit-exact against the CPU's index_add_")})
+    require(err_s <= tol_s, f"B2{suffix} scatter differs from its plain version: "
+                            f"{err_s} > {tol_s}")
     return [gather, scatter]
+
+
+def check_patches(dev, gen, atomic_b2: bool = False) -> list:
+    """B1 and B2 at the tBL shapes (canvas 6 x 520 x 520, 128^2 windows on
+    tbl_positions' raster) and at the PSO shapes (21 x 436 x 436, 256^2
+    windows on pso_positions')."""
+    corners, side = tbl_positions()
+    rows = check_patches_at(dev, gen, NZ, side, side, NPIX,
+                            patch_corners(dev, gen, corners, side, side, NPIX), "", atomic_b2)
+    torch.cuda.empty_cache()
+    corners, side = pso_positions()
+    rows += check_patches_at(dev, gen, PSO_NZ, side, side, PSO_NPIX,
+                             patch_corners(dev, gen, corners, side, side, PSO_NPIX), PSO_SHAPES,
+                             atomic_b2)
+    return rows
 
 
 def _chain_flops(n: int, n_fft: int, nz: int) -> float:
@@ -1131,6 +1241,7 @@ def kernel_counters():
 
 
 PLAIN_ROUTE = "forward() plain route"
+PATCH_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches")
 CHAIN_KERNELS = ("B5a chain_segment_fwd", "B5b chain_segment_bwd", "B6a chain_stack_fwd",
                  "B6b chain_stack_bwd")
 TBL_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B3a loss_sums_fwd",
@@ -2119,11 +2230,19 @@ def profile_steps(solver, card: str, path: str, niter: int, n_batches: int):
             and not getattr(e, "is_user_annotation", False)]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    # B1 and B2 by their kernels' names in csrc/patches.cu, and every memset
+    # (a B2 of the parent design zeroed its canvas with one)
+    patch_ms = {item: sum(ms for ms, _, k in rows if k.startswith(match)) / n_batches if rows
+                else "not measured"
+                for item, match in (("B1", "(anonymous namespace)::gather_kernel("),
+                                    ("B2", "(anonymous namespace)::scatter_add_kernel("),
+                                    ("memset", "Memset"))}
     out = {"phase": "profile", "path": path, "card": card, "steps": n_batches,
            "wall_ms": wall_ms, "ms_per_step": wall_ms / n_batches,
            "device_busy_ms": busy_ms if rows else "not measured",
            "device_ms_per_step": busy_ms / n_batches if rows else "not measured",
            "device_busy_share": busy_ms / wall_ms if rows else "not measured",
+           "patches_device_ms_per_step": patch_ms,
            "top_device_ms": [{"kernel": k, "calls": c, "ms": ms} for ms, c, k in rows[:12]]}
     emit(out)
     return out
@@ -2142,12 +2261,13 @@ def fused_plan(n: int) -> dict:
     return dict(zip(keys, out))
 
 
-def kernel_rows(dev, gen) -> list:
+def kernel_rows(dev, gen, atomic_b2: bool = False) -> list:
     """Every kernel against its plain version at the main paths' shapes, and
     its times: the rows of the kernels line (chain_bench.py times the same
-    rows)."""
-    rows = []
-    for check in (check_patches, check_loss_chain, check_dp_chain, check_chain, check_fused_dh,
+    rows; `atomic_b2` as in check_patches_at)."""
+    rows = check_patches(dev, gen, atomic_b2)
+    torch.cuda.empty_cache()
+    for check in (check_loss_chain, check_dp_chain, check_chain, check_fused_dh,
                   check_chain_dh, check_chain_ff):
         rows += check(dev, gen)
         torch.cuda.empty_cache()
@@ -2228,12 +2348,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver, pso_tilt_launches = pso_tilt_path(dev, card)
     profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
-    launches = add_counts(plain_launches, tbl_launches, forward_launches, low_dose_launches,
-                          store_launches, pso_launches, pso_ff_launches, random_start_launches,
-                          carve_launches, tilt_launches, pso_tilt_launches)
+    narrow = add_counts(plain_launches, tbl_launches, forward_launches, low_dose_launches,
+                        store_launches, tilt_launches)
+    wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
+                      pso_tilt_launches)
+    launches = add_counts(narrow, wide)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     launches.update({name: 0 for name in NOT_DRIVEN})
+    # B1/B2's rows at the tBL shapes count the launches of the N <= 128 runs,
+    # their rows at the PSO shapes those of the N = 256 runs
+    for name in PATCH_KERNELS:
+        launches[name], launches[name + PSO_SHAPES] = narrow[name], wide[name]
     emit({"kernels": [{key: {**k, "launches": launches[k["name"]]}[key] for key in keys}
                       for k in kernels]})
     print(card)

@@ -44,7 +44,7 @@ from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2, ifftshift2
 from ptyrad_tpu_torch.ops.fused_multislice import (fused_applicable_shapes,
                                                     multislice_dp_fused,
                                                     multislice_loss_sums_fused)
-from ptyrad_tpu_torch.ops.patches import extract_patches
+from ptyrad_tpu_torch.ops.patches import extract_patch_pair
 from ptyrad_tpu_torch.ops.resize import bilinear_resize_conserve
 from ptyrad_tpu_torch.ops.shift import fourier_shift, fourier_shift_kspace
 
@@ -58,8 +58,7 @@ def get_obj_patches(params: PtychoParams, buffers: Buffers, geom: Geometry,
     """Per-position (obja, objp) patches, each (B, omode, Nz, Ny, Nx) float32,
     with the optional lateral pre-blur."""
     pos = buffers.crop_pos[indices]
-    obja = extract_patches(params.obja, pos, geom.probe_shape)
-    objp = extract_patches(params.objp, pos, geom.probe_shape)
+    obja, objp = extract_patch_pair(params.obja, params.objp, pos, geom.probe_shape)
     std = geom.obj_preblur_std
     if std is not None and std != 0:
         obja = gaussian_blur_2d(obja, kernel_size=5, sigma=std)

@@ -54,8 +54,8 @@ SIGNATURES = {
     "ptyrad_chain_plan": (_I, _I, _P),
     "ptyrad_fused_prepare": (_I,),
     "ptyrad_fused_plan": (_I, _P),
-    "ptyrad_gather_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "ptyrad_scatter_add_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ptyrad_scatter_add_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_dp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_dp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _P),

@@ -16,10 +16,14 @@ which tests/conftest.py imports) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-Tolerances: the gather copies values (exact); the scatter and the B3
-cotangents sum with atomics in a run-dependent order, and B3 transforms with
-a different FFT than torch.fft: rtol 1e-5 of the largest sum for the
-scatter, 1e-4 relative for s1/s2 and 1e-4 of each cotangent's largest entry.
+Tolerances: the gather copies values and the scatter sums each canvas
+element over its windows in batch order, as scatter_add_plain does on the
+CPU: both exact (tolerance 0; the scatter against the CPU, since
+index_add_ on the card sums with atomics), one or two canvases a launch,
+and the scatter repeats bit for bit. The B3 cotangents sum with atomics in
+a run-dependent order, and B3 transforms with a different FFT than
+torch.fft: 1e-4 relative for s1/s2 and 1e-4 of each cotangent's largest
+entry.
 B4 is held the same way: dp at 1e-4 of its largest value, each cotangent at
 1e-4 of its largest entry (atomic sums over modes, and over samples for a
 shared probe). B3a and B4a sum modes and samples in a fixed order and
@@ -67,9 +71,83 @@ def test_gather_and_scatter(dev, gen, lead, hw, patch):
     out_k = P.gather_cuda(canvas, pos, patch)
     torch.testing.assert_close(out_k, P.gather_plain(canvas, pos, patch), rtol=0, atol=0)
     g = torch.randn(out_k.shape, generator=gen, device=dev)
-    ref = P.scatter_add_plain(canvas.shape, g, pos)
+    ref = P.scatter_add_plain(canvas.shape, g.cpu(), pos.cpu())
     out = P.scatter_add_cuda(canvas.shape, g, pos)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+
+
+# (lead, (H, W), patch, B): the PSO and tBL shapes, N = 96 and 120 with W no
+# multiple of 4, a width of 9 or 33 (B1's scalar path), B = 1 with L = 1, and
+# more windows than a B2 block holds at once (kChunk = 1024)
+PAIR_CASES = [((1, 21), (436, 436), (256, 256), 32),
+              ((1, 6), (520, 520), (128, 128), 32),
+              ((1, 3), (200, 201), (96, 96), 7),
+              ((2,), (150, 163), (120, 120), 5),
+              ((1,), (37, 41), (9, 33), 1),
+              ((2,), (300, 302), (64, 64), 2100)]
+
+
+@pytest.mark.parametrize("lead,hw,patch,b", PAIR_CASES)
+@pytest.mark.parametrize("frozen", [None, "obja", "objp"])
+def test_patch_pair_matches_cpu(dev, gen, lead, hw, patch, b, frozen):
+    """extract_patch_pair on the card against the CPU, patches and both
+    canvas gradients at tolerance 0: one B1 launch forward, one B2 launch
+    backward for the canvases that need a gradient (none for a frozen one)."""
+    from ptyrad_tpu_torch.ops import patches as P
+
+    h, w = hw
+    canvases = [torch.rand((*lead, h, w), generator=gen, device=dev) for _ in range(2)]
+    pos = torch.randint(-5, max(h, w), (b, 2), generator=gen, device=dev, dtype=torch.int32)
+    pos[b // 2] = pos[0]
+    weights = [torch.randn((b, *lead, *patch), generator=gen, device=dev) for _ in range(2)]
+
+    def run(where):
+        a, p = (c.to(where, copy=True).requires_grad_(name != frozen)
+                for c, name in zip(canvases, ("obja", "objp")))
+        oa, op = P.extract_patch_pair(a, p, pos.to(where), patch)
+        ((oa * weights[0].to(where)).sum() + (op * weights[1].to(where)).sum()).backward()
+        return [t.detach().cpu() if t is not None else None for t in (oa, op, a.grad, p.grad)]
+
+    before = P.gather_cuda.launches, P.scatter_add_cuda.launches
+    card = run(dev)
+    assert (P.gather_cuda.launches - before[0], P.scatter_add_cuda.launches - before[1]) == (1, 1)
+    for got, want in zip(card, run(torch.device("cpu"))):
+        if want is None:
+            assert got is None
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_patch_pair_unused_output(dev, gen):
+    """Only obja's patches reach the loss: objp's gradient is zero and obja's
+    is the scatter of its cotangent alone, in one single-canvas launch."""
+    from ptyrad_tpu_torch.ops import patches as P
+
+    a, p = (torch.rand((1, 4, 90, 91), generator=gen, device=dev).requires_grad_(True)
+            for _ in range(2))
+    pos = torch.randint(0, 60, (6, 2), generator=gen, device=dev, dtype=torch.int32)
+    oa, _ = P.extract_patch_pair(a, p, pos, (32, 32))
+    wa = torch.randn(oa.shape, generator=gen, device=dev)
+    (oa * wa).sum().backward()
+    assert torch.equal(p.grad, torch.zeros_like(p))
+    torch.testing.assert_close(a.grad.cpu(), P.scatter_add_plain(a.shape, wa.cpu(), pos.cpu()),
+                               rtol=0, atol=0)
+
+
+def test_scatter_repeats_bit_for_bit(dev, gen):
+    """B2 at the PSO shapes, duplicate windows included, gives the same bits
+    on every run, one canvas or two a launch."""
+    from ptyrad_tpu_torch.ops import patches as P
+
+    shape = (1, 21, 436, 436)
+    pos = torch.randint(0, 181, (32, 2), generator=gen, device=dev, dtype=torch.int32)
+    pos[5:9] = pos[4]
+    g = [torch.randn((32, 1, 21, 256, 256), generator=gen, device=dev) for _ in range(2)]
+    first = P.scatter_add_pair_cuda(shape, g[0], g[1], pos)
+    for _ in range(3):
+        again = P.scatter_add_pair_cuda(shape, g[0], g[1], pos)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    assert torch.equal(first[0], P.scatter_add_cuda(shape, g[0], pos))
 
 
 def _chain_inputs(dev, gen, b, pmode, nz, n, probe_layout):
