@@ -46,6 +46,21 @@ Phases, one JSON object per line each:
                during the run.
   5. profile - torch.profiler over 32 more tBL training steps: device time by
                kernel, the device's busy share, host time per step.
+     params_file - the same run from its params file through the normal
+               entry: the main phase's patterns written as an EMPAD .raw
+               (1,024 gap bytes a frame, flipped along ky) and a .json params
+               file (the yml's init_params: fitRBF, max_at_one, flipT,
+               jitter 0.15, simulated probe, positions, object and tilt; every
+               key written out), then load_params (validated where pydantic
+               imports) -> PtyRADSolver(params, init_rng=RandomState(SEED))
+               -> run(), 3 iterations. Prints which optional host packages
+               import, the Initializer's seconds by stage, load_raw's GB/s,
+               patterns/s and peak memory. Asserts the native .raw reader
+               ran, the mean pattern's max is 1, the probe and object shapes,
+               dx within 5% of the simulation's, a finite, falling loss, B1,
+               B2, B3a and B3b launched and B4-B6 not; then a .npy of the
+               patterns with a dx calibration, whose measurements must equal
+               the patterns bit for bit.
      forward - one forward() of a batch with 2 object modes, shifted probes
                and detector blur (B4a, and B4b under autograd) against the
                plain multislice_dp, values and gradients.
@@ -101,7 +116,7 @@ Phases, one JSON object per line each:
                loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
                profile over 8 steps.
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
-plain route, tBL, low-dose, tbl_store, PSO, pso_ff (with its random-start
+plain route, tBL, params_file, low-dose, tbl_store, PSO, pso_ff (with its random-start
 runs and the carve), tilt (its simulation included) and PSO tilt paths and
 the forward phase's kernel routes; B1/B2's rows at the tBL shapes count the
 N <= 128 runs, their rows at the PSO shapes the N = 256 runs), the
@@ -116,6 +131,7 @@ import copy
 import dataclasses
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1335,6 +1351,276 @@ def main_path(dev, card: str):
     return solver, launches, init
 
 
+# -- the params_file phase: the tBL run from its params file --------------------
+
+OPTIONAL_PACKAGES = ("pydantic", "h5py", "yaml", "PIL", "scipy")
+SIM_DX = 0.1494  # Ang, the simulation's pixel size (tbl_probe, tbl_init)
+RAW_GAP = 1024   # bytes after each EMPAD frame
+INIT_STAGES = ("init_cache", "_load_meas", "_process_meas", "init_calibration",
+               "set_variables_dict", "init_probe", "init_pos", "init_obj", "init_omode_occu",
+               "init_H", "init_obj_tilts", "init_check")
+
+
+def _tune(state: bool, suggest: str, **kwargs) -> dict:
+    return {"state": state, "suggest": suggest, "kwargs": kwargs}
+
+
+def tbl_params_file(meas_path: str) -> dict:
+    """The params file of the params_file phase: the init_params of
+    demo/params/tBL_WSe2_reconstruct.yml for the .raw at ``meas_path`` and
+    TBL_PARAMS' other four sections, with every key that validation would
+    fill written out (a fixed point of params/schema.py, held so by
+    tests/test_torch_params.py), so the card's machine runs what validation
+    would have given with or without pydantic. pos_scan_step_size is the
+    simulated scan's (3 px of SIM_DX), not the yml's 0.4290 Ang."""
+    return {
+        "init_params": {
+            "probe_illum_type": "electron", "probe_kv": 80.0, "probe_conv_angle": 24.9,
+            "probe_defocus": 0.0, "probe_c3": 0.0, "probe_c5": 0.0,
+            "beam_kev": None, "probe_dRn": None, "probe_Rn": None, "probe_D_H": None,
+            "probe_D_FZP": None, "probe_Ls": None,
+            "meas_Npix": NPIX, "pos_N_scans": N_SCANS, "pos_N_scan_slow": N_SIDE,
+            "pos_N_scan_fast": N_SIDE, "pos_scan_step_size": STEP_PX * SIM_DX,
+            "meas_calibration": {"mode": "fitRBF", "value": None, "thresh": 0.5},
+            "probe_pmode_max": PMODE, "probe_pmode_init_pows": [0.02],
+            "obj_omode_max": 1, "obj_omode_init_occu": {"occu_type": "uniform", "init_occu": None},
+            "obj_Nlayer": NZ, "obj_slice_thickness": 2.0,
+            "meas_permute": None, "meas_reshape": None, "meas_flipT": [1, 0, 0],
+            "meas_crop": None, "meas_pad": None, "meas_resample": None,
+            "meas_add_source_size": None, "meas_add_detector_blur": None,
+            "meas_remove_neg_values": {"mode": "clip_neg", "value": None, "force": False},
+            "meas_normalization": {"mode": "max_at_one", "value": None},
+            "meas_add_poisson_noise": None, "meas_export": None,
+            "probe_permute": None, "pos_scan_flipT": None, "pos_scan_affine": None,
+            "pos_scan_rand_std": 0.15,
+            "meas_source": "file",
+            "meas_params": {"path": meas_path, "key": None, "shape": None, "offset": None,
+                            "gap": None},
+            "probe_source": "simu", "probe_params": None, "pos_source": "simu",
+            "pos_params": None, "obj_source": "simu", "obj_params": None,
+            "tilt_source": "simu", "tilt_params": {"tilt_type": "all", "init_tilts": [[0.0, 0.0]]},
+        },
+        "model_params": {
+            "obj_preblur_std": None, "detector_blur_std": None,
+            "optimizer_params": {"name": "Adam", "configs": {}, "load_state": None},
+            "update_params": TBL_PARAMS["model_params"]["update_params"],
+            "fwd_fused": None, "fwd_remat": False, "compute_dtype": "float32",
+            "matmul_dtype": None, "meas_dtype": "float32",
+        },
+        "loss_params": {
+            **TBL_PARAMS["loss_params"],
+            "loss_poissn": {"state": False, "weight": 1.0, "dp_pow": 1.0, "eps": 1e-06},
+            "loss_pacbed": {"state": False, "weight": 0.5, "dp_pow": 0.2},
+            "loss_simlar": {"state": False, "weight": 0.1, "obj_type": "both",
+                            "scale_factor": [1.0, 1.0], "blur_std": 1.0},
+        },
+        "constraint_params": {
+            **TBL_PARAMS["constraint_params"],
+            "probe_mask_k": {"freq": None, "radius": 0.22, "width": 0.05, "power_thresh": 0.95},
+            "kr_filter": {"freq": None, "obj_type": "both", "radius": 0.15, "width": 0.05},
+            "kz_filter": {"freq": None, "obj_type": "both", "beta": 1.0, "alpha": 1.0},
+            "complex_ratio": {"freq": None, "obj_type": "both", "alpha1": 1.0, "alpha2": 0.0},
+            "mirrored_amp": {"freq": None, "relax": 0.1, "scale": 0.03, "power": 4.0},
+            "tilt_smooth": {"freq": None, "std": 2.0},
+        },
+        "recon_params": {
+            "NITER": NITER,
+            "INDICES_MODE": {"mode": "full", "subscan_slow": None, "subscan_fast": None},
+            "BATCH_SIZE": {"size": BATCH, "grad_accumulation": 1},
+            "GROUP_MODE": "random", "GROUP_MODE_SEED": SEED, "SAVE_ITERS": 10,
+            "shard_measurements": True, "shard_canvas": False, "output_dir": "output/tBL_WSe2/",
+            "recon_dir_affixes": ["default"], "prefix_time": "%Y%m%d", "prefix": "",
+            "postfix": "", "save_result": ["model", "objp", "probe"],
+            "result_modes": {"obj_dim": [2, 3], "FOV": ["crop"], "bit": ["8"]},
+            "selected_figs": ["loss", "forward", "probe_r_amp", "pos"],
+            "copy_params": True, "if_quiet": False,
+        },
+        "hypertune_params": {
+            "if_hypertune": False, "collate_results": True, "append_params": True,
+            "sampler_params": {"name": "TPESampler", "configs": {}},
+            "pruner_params": {"name": "HyperbandPruner", "configs": {}},
+            "n_trials": 50, "timeout": None, "error_metric": "loss",
+            "storage_path": "hypertune.db", "study_name": "ptyrad_hypertune",
+            "tune_params": {
+                "optimizer": _tune(False, "cat", choices=["Adam", "AdamW", "RMSprop", "SGD"],
+                                   optim_configs={}),
+                "batch_size": _tune(False, "int", low=16, high=512, log=True),
+                "plr": _tune(False, "cat", choices=[1e-2, 1e-3, 1e-4]),
+                **{k: _tune(False, "float", low=1e-4, high=1e-2, log=True)
+                   for k in ("oalr", "oplr", "slr", "tlr", "dzlr")},
+                "dx": _tune(False, "float", low=0.14, high=0.16, step=0.001),
+                "pmode_max": _tune(False, "int", low=1, high=8, step=1),
+                "conv_angle": _tune(False, "float", low=24, high=26, step=1),
+                "defocus": _tune(False, "float", low=-50, high=50, step=0.1),
+                "c3": _tune(False, "float", low=4000, high=10000, step=100),
+                "c5": _tune(False, "float", low=50000, high=100000, step=5000),
+                "Nlayer": _tune(False, "int", low=1, high=8, step=1),
+                "dz": _tune(False, "float", low=4, high=8, step=0.5),
+                "scale": _tune(True, "float", low=0.8, high=1.2, step=0.02),
+                "asymmetry": _tune(False, "float", low=-0.2, high=0.2, step=0.05),
+                "rotation": _tune(True, "float", low=-4, high=4, step=0.5),
+                "shear": _tune(False, "float", low=-4, high=4, step=0.5),
+                "tilt_y": _tune(False, "float", low=-5, high=5, step=0.5),
+                "tilt_x": _tune(False, "float", low=-5, high=5, step=0.5),
+            },
+        },
+        "params_path": None,
+    }
+
+
+def optional_packages() -> dict:
+    """Which of the optional host packages import on this machine."""
+    found = {}
+    for name in OPTIONAL_PACKAGES:
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
+def write_raw(path: str, meas: np.ndarray) -> float:
+    """Write (N, H, W) float32 patterns as an EMPAD .raw (RAW_GAP zero bytes
+    after each frame), flipped along ky so that meas_flipT [1, 0, 0]
+    restores them; returns the seconds."""
+    t0 = time.perf_counter()
+    n = meas.shape[0]
+    frame = meas[0].nbytes
+    buf = np.zeros((n, frame + RAW_GAP), np.uint8)
+    buf[:, :frame] = np.ascontiguousarray(np.flip(meas, axis=1)).view(np.uint8).reshape(n, frame)
+    buf.tofile(path)
+    return time.perf_counter() - t0
+
+
+class StageTimer:
+    """Wall seconds of each Initializer stage (INIT_STAGES) and of the CBED
+    fit, by wrapping them on the class for the duration of a ``with``."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+
+    def _wrap(self, owner, name: str):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        return fn, timed
+
+    def __enter__(self):
+        import ptyrad_tpu_torch.initialization as I
+
+        self._saved = []
+        for owner, names in ((I.Initializer, INIT_STAGES), (I, ("fit_cbed_pattern",))):
+            for name in names:
+                fn, timed = self._wrap(owner, name)
+                self._saved.append((owner, name, fn))
+                setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def params_file_path(dev, card: str, meas: np.ndarray) -> dict:
+    """The tBL run from its params file through the normal entry point:
+    the main phase's patterns written as an EMPAD .raw and the params as a
+    .json (no package needed), then load_params -> PtyRADSolver(params,
+    init_rng=RandomState(SEED)) -> run(), validated where pydantic imports.
+    Then a .npy of the same patterns with a dx calibration, no jitter and no
+    normalization, whose measurements must equal the patterns bit for bit.
+    Returns the run's launch counts."""
+    import tempfile
+
+    from ptyrad_tpu_torch import load as L
+    from ptyrad_tpu_torch import native
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.initialization import Initializer
+
+    packages = optional_packages()
+    emit({"phase": "params_file_packages", "imports": packages})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_params_") as tmp:
+        raw_path, json_path = f"{tmp}/tbl.raw", f"{tmp}/tbl.json"
+        write_s = write_raw(raw_path, meas)
+        with open(json_path, "w", encoding="utf-8") as f:
+            json.dump(tbl_params_file(raw_path), f)
+        params = L.load_params(json_path, validate=packages["pydantic"])
+        L.LAST_RAW_READ.clear()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()  # the main phase's patterns, still held
+        t0 = time.perf_counter()
+        with StageTimer() as timer:
+            solver = PtyRADSolver(params, init_rng=np.random.RandomState(SEED), device=dev,
+                                  verbose=True)
+        init_s = time.perf_counter() - t0
+        raw_read = dict(L.LAST_RAW_READ)
+        t1 = time.perf_counter()
+        launches = drive(solver)
+        run_s = time.perf_counter() - t1
+
+        iv = solver.init_variables
+        losses = [v for _, v in solver.history.loss_iters]
+        times = solver.history.iter_times
+        mean_max = float(iv["measurements"].mean(0).max())
+        out = {
+            "phase": "params_file", "card": card, "validated": packages["pydantic"],
+            "raw_bytes": os.path.getsize(raw_path), "write_raw_s": write_s,
+            "raw_reader": raw_read.get("reader"), "native_build_error": native.BUILD_ERROR,
+            "load_raw_s": raw_read.get("seconds"),
+            "load_raw_gb_per_s": raw_read["bytes"] / raw_read["seconds"] / 1e9,
+            "init_s": init_s, "init_stage_s": timer.seconds,
+            "measurements": [list(iv["measurements"].shape), str(iv["measurements"].dtype)],
+            "mean_pattern_max": mean_max, "fitRBF": iv["fitRBF"], "dx": iv["dx"],
+            "dx_rel_err": iv["dx"] / SIM_DX - 1.0,
+            "probe": list(solver.params.probe.shape), "obja": list(solver.params.obja.shape),
+            "iterations": len(losses), "losses": losses, "iter_s": times,
+            "patterns_per_s": [N_SCANS / t for t in times], "run_s": run_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "resident_before_gb": resident / 1e9, "launches": launches,
+        }
+        emit(out)
+        require(raw_read.get("reader") == "native",
+                f"the .raw was not read by the native reader: {raw_read}, "
+                f"build error {native.BUILD_ERROR}")
+        require(iv["measurements"].shape == (N_SCANS, NPIX, NPIX)
+                and iv["measurements"].dtype == np.float32,
+                f"measurements {iv['measurements'].shape} {iv['measurements'].dtype}")
+        require(abs(mean_max - 1.0) <= 1e-6, f"max_at_one left the mean pattern's max at {mean_max}")
+        require(tuple(solver.params.probe.shape) == (PMODE, NPIX, NPIX),
+                f"probe {tuple(solver.params.probe.shape)}")
+        require(tuple(solver.params.obja.shape[:2]) == (1, NZ), f"object {solver.params.obja.shape}")
+        require(abs(iv["dx"] / SIM_DX - 1.0) <= 0.05, f"fitted dx {iv['dx']} vs {SIM_DX}")
+        require(len(losses) == NITER and all(np.isfinite(losses)), f"loss not finite: {losses}")
+        require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        for name in TBL_KERNELS:
+            require(launches[name] > 0, f"kernel {name} was not launched on the params_file path")
+        for name in ("B4a dp_fwd", "B4b dp_bwd") + CHAIN_KERNELS:
+            require(launches[name] == 0, f"kernel {name} was launched on the params_file path")
+        del solver, iv
+        torch.cuda.empty_cache()
+
+        npy_path = f"{tmp}/tbl.npy"
+        np.save(npy_path, meas)
+        ip = tbl_params_file(npy_path)["init_params"]
+        ip.update(meas_flipT=None, pos_scan_rand_std=None,
+                  meas_calibration={"mode": "dx", "value": SIM_DX, "thresh": 0.5},
+                  meas_normalization={"mode": "divide_const", "value": 1.0})
+        t2 = time.perf_counter()
+        npy_init = Initializer(ip, verbose=False, rng=np.random.RandomState(SEED)).init_all()
+        got = npy_init.init_variables["measurements"]
+        same = got.dtype == meas.dtype and got.shape == meas.shape and np.array_equal(got, meas)
+        emit({"phase": "params_file_npy", "init_s": time.perf_counter() - t2,
+              "bit_exact": bool(same), "dx": npy_init.init_variables["dx"]})
+        require(same, "the .npy round trip changed the measurements")
+    return launches
+
+
 # -- the forward() figure and the low-dose path ---------------------------------
 
 def float64_cpu(params, buffers):
@@ -2312,6 +2598,8 @@ def main() -> int:
     profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
     del solver
     torch.cuda.empty_cache()
+    params_file_launches = params_file_path(dev, card, init["measurements"].cpu().numpy())
+    torch.cuda.empty_cache()
     forward_launches = forward_modes_check(dev, init)
     torch.cuda.empty_cache()
     solver, low_dose_launches = low_dose_path(dev, card, init)
@@ -2348,8 +2636,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver, pso_tilt_launches = pso_tilt_path(dev, card)
     profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
-    narrow = add_counts(plain_launches, tbl_launches, forward_launches, low_dose_launches,
-                        store_launches, tilt_launches)
+    narrow = add_counts(plain_launches, tbl_launches, params_file_launches, forward_launches,
+                        low_dose_launches, store_launches, tilt_launches)
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
                       pso_tilt_launches)
     launches = add_counts(narrow, wide)

@@ -1,6 +1,7 @@
 """Reconstruction engine: train epoch, iteration loop, solver facade.
 
-Counterpart of ptyrad_tpu/engine/solver.py for the single-device Adam path.
+Counterpart of ptyrad_tpu/engine/solver.py for the single-device Adam path,
+from a params dict (through the Initializer) or a prebuilt init_variables.
 Each iteration is a Python loop over the padded mini-batches: the loss
 (``fused_loss_terms`` when in regime, else ``forward`` + ``combined_loss``),
 backward, start-iter gating of the gradients, the Adam step; then the due
@@ -23,6 +24,7 @@ import torch
 from ptyrad_tpu_torch.constraints import ConstraintScheduler
 from ptyrad_tpu_torch.device import resolve_device
 from ptyrad_tpu_torch.engine.batching import make_batches, pad_batches, select_scan_indices
+from ptyrad_tpu_torch.initialization import Initializer
 from ptyrad_tpu_torch.losses import combined_loss
 from ptyrad_tpu_torch.models.forward import forward, fused_loss_terms, get_measurements
 from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams, make_model
@@ -142,20 +144,25 @@ def recon_loop(train_epoch, params: PtychoParams, batch_idx: np.ndarray,
 class PtyRADSolver:
     """Reconstruction facade (counterpart of ptyrad_tpu.engine.solver.PtyRADSolver).
 
-    params: dict with model_params, loss_params, constraint_params and
-    recon_params sections. init_variables: the prebuilt init dict (the
-    Initializer is not ported yet). device: None means "cuda"; pass "cpu" to
-    run the plain PyTorch path on the CPU.
+    params: dict with init_params, model_params, loss_params,
+    constraint_params and recon_params sections (load.load_params reads
+    them from a params file). init_variables: a prebuilt init dict; None
+    runs ``Initializer(params["init_params"], rng=init_rng).init_all()``.
+    init_rng: the Initializer's generator (np.random.RandomState; None is a
+    fresh unseeded one). device: None means "cuda"; pass "cpu" to run the
+    plain PyTorch path on the CPU.
     """
 
     def __init__(self, params: Optional[dict] = None, init_variables: Optional[dict] = None,
-                 device=None, verbose: bool = True):
+                 device=None, verbose: bool = True, init_rng=None):
         self.device = resolve_device(device)
         self.params_dict = params or {}
         self.verbose = verbose
         if init_variables is None:
-            raise NotImplementedError(
-                "the Initializer is not ported yet (ROADMAP queue A): pass init_variables")
+            init = Initializer(self.params_dict["init_params"], verbose=verbose, rng=init_rng)
+            init.init_all()
+            init_variables = init.init_variables
+        self.init_variables = init_variables
         self.model_params = self.params_dict.get("model_params", {}) or {}
         self.params, self.buffers, self.geom = make_model(
             init_variables, self.model_params, self.device)

@@ -154,7 +154,10 @@ def _measurements(meas, device, meas_dtype: str = "float32") -> torch.Tensor:
 
 
 def make_model(init_variables: dict, model_params: Optional[dict] = None, device=None):
-    """Build (params, buffers, geometry) from an init_variables dict.
+    """Build (params, buffers, geometry) from an init_variables dict, such
+    as the Initializer's as it comes (keys this function does not read, e.g.
+    Npix, dk, meas_avg, fitRBF, scan_affine, obj_lateral_extent, are
+    ignored, as the JAX package's make_model ignores them).
 
     Keys as in ptyrad_tpu.models.make_model: obj, probe, probe_pos_shifts,
     obj_tilts, slice_thickness, measurements, crop_pos, omode_occu, dx,

@@ -22,6 +22,16 @@ import torch
 
 from ptyrad_tpu_torch.models.state import PARAM_NAMES, PtychoParams
 
+# The optimizer names a params file may give (the keys of the JAX package's
+# registry: the torch.optim names and optax's lowercase aliases).
+# params/schema.py validates against it; create_optimizer runs Adam only
+# (ROADMAP item A5).
+OPTIMIZER_REGISTRY_NAMES = (
+    "Adam", "AdamW", "SGD", "RMSprop", "Adagrad", "Adamax", "NAdam", "RAdam", "Adadelta",
+    "LBFGS", "Rprop", "ASGD", "Adafactor", "Muon", "SparseAdam",
+    "adam", "adamw", "sgd", "rmsprop", "lbfgs",
+)
+
 
 def parse_update_params(update_params: Optional[dict]):
     """{name: lr} and {name: start_iter} from the update_params dict

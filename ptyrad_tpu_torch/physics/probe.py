@@ -1,12 +1,12 @@
-"""STEM probe simulation and mixed-state bases (host-side NumPy; bit-exact
-copy of ptyrad_tpu/physics/probe.py: make_stem_probe, hermite_like_basis,
-make_mixed_probe)."""
+"""Probe simulation: STEM probes, X-ray zone-plate probes and mixed-state
+bases (host-side NumPy; bit-exact copy of ptyrad_tpu/physics/probe.py:
+make_stem_probe, make_fzp_probe, hermite_like_basis, make_mixed_probe)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from ptyrad_tpu_torch.physics.constants import electron_wavelength
+from ptyrad_tpu_torch.physics.constants import electron_wavelength, xray_wavelength
 
 
 def make_stem_probe(probe_params: dict, verbose: bool = False) -> np.ndarray:
@@ -67,6 +67,64 @@ def make_stem_probe(probe_params: dict, verbose: bool = False) -> np.ndarray:
     probe = np.fft.fftshift(np.fft.ifft2(np.fft.ifftshift(psi_aperture)))
     probe = probe / np.sqrt(np.sum(np.abs(probe) ** 2))
     return probe.astype(np.complex64)
+
+
+def make_fzp_probe(probe_params: dict, verbose: bool = False) -> np.ndarray:
+    """Simulate an X-ray Fresnel-zone-plate probe at the sample plane.
+
+    A FZP of outer radius Rn / outer zone width dRn (focal length
+    f = 2*Rn*dRn/lambda), apertured by a pinhole D_FZP with central beamstop
+    D_H, is Fresnel-propagated a distance f + Ls to the sample plane.
+
+    probe_params keys: Npix, beam_kev [keV], dx [m], Ls [m], Rn [m], dRn [m],
+    D_FZP [m], D_H [m]. Returns (Npix, Npix) complex128.
+
+    A fractional photon energy is used as given (upstream PtyRAD truncates
+    it to an integer keV), as in the JAX package.
+    """
+    n = int(probe_params["Npix"])
+    energy_kev = float(probe_params["beam_kev"])
+    dx = float(probe_params["dx"])
+    ls = float(probe_params["Ls"])
+    rn = float(probe_params["Rn"])
+    drn = float(probe_params["dRn"])
+    d_fzp = float(probe_params["D_FZP"])
+    d_h = float(probe_params["D_H"])
+
+    lam = xray_wavelength(energy_kev)
+    fl = 2.0 * rn * drn / lam  # focal length at the central wavelength
+    k = 2.0 * np.pi / lam
+
+    # FZP-plane pixel size from the Fourier scaling of the focusing geometry
+    dx_fzp = lam * fl / n / dx
+    line = np.linspace(-dx_fzp * n / 2.0, dx_fzp * n / 2.0, n)
+    x, y = np.meshgrid(line, line)
+    r2 = x**2 + y**2
+
+    zone_phase = np.exp(-1j * k * r2 / (2.0 * fl))  # ideal FZP transmission
+    pinhole = (np.sqrt(r2) <= d_fzp / 2.0).astype(np.float64)
+    beamstop = (np.sqrt(r2) >= d_h / 2.0).astype(np.float64)
+    field_in = pinhole * zone_phase * beamstop
+
+    # Single-step Fresnel propagation over z = fl + Ls
+    fc = 1.0 / dx_fzp
+    fu = lam * (fl + ls) * fc
+    lu = np.fft.ifftshift(np.linspace(-fu / 2.0, fu / 2.0, n))
+    u, v = np.meshgrid(lu, lu)
+
+    z = fl + ls
+    if z > 0:
+        quad_out = np.exp(1j * k * z) * np.exp(1j * k * (u**2 + v**2) / (2.0 * z))
+        kern = field_in * np.exp(1j * k * r2 / (2.0 * z))
+        probe = np.fft.fftshift(np.fft.fft2(np.fft.fftshift(kern)) * quad_out)
+    else:
+        z = abs(z)
+        quad = np.exp(1j * k * z) * np.exp(1j * k * r2 / (2.0 * z))
+        cgh = np.fft.ifft2(
+            np.fft.ifftshift(field_in) / np.exp(1j * k * (u**2 + v**2) / (2.0 * z))
+        )
+        probe = np.fft.fftshift(cgh) / quad
+    return probe
 
 
 def hermite_like_basis(fundamental: np.ndarray, m_max: int, n_max: int) -> np.ndarray:

@@ -6,7 +6,8 @@ powers, a masked sample, the whole loss-folded path, the plain fused chain
 segmented chain (B5/B6) with `last` / `last_mega` both ways and the
 grad-off route, B5 with the far-field exit (set_far_field) and the route
 through it, and short tBL-like, low-dose and PSO-like solver runs, with
-optimizable slice thickness and tilts too. Every kernel test runs on a
+optimizable slice thickness and tilts too, and one from a params file and a
+.raw through the Initializer. Every kernel test runs on a
 shared and a per-position H, each with and without its gradient (need_dh):
 with it, the propagator cotangent dH of the backward (B3b, B4b, B5b, B6b)
 is compared as well.
@@ -990,3 +991,86 @@ def test_pso_tilt_solver_cuda_matches_cpu(dev):
                                [v for _, v in runs["cpu"].history.dz_iters], rtol=0, atol=2.5e-4)
     steps = 2 * runs[None].batch_idx.shape[0]
     assert [C.segment_bwd_cuda.launches_dh, C.stack_bwd_cuda.launches_dh] == [steps, steps]
+
+
+# -- the params-file entry: Initializer -> solver -----------------------------
+
+def _raw_params(raw_path, n_side=4, npix=32):
+    """A params dict for patterns in an EMPAD .raw, every key the Initializer
+    and the solver read written out (load_params(validate=False) on the
+    card's machine, which may lack pydantic): fitRBF, max_at_one, flipT,
+    seeded jitter, a simulated probe defocused by 200 Ang (it lights the
+    whole window, see tests/test_torch_initializer.py::solver_params),
+    positions, object and tilt."""
+    return {
+        "init_params": {
+            "probe_illum_type": "electron", "probe_kv": 80.0, "probe_conv_angle": 24.9,
+            "probe_defocus": 200.0, "probe_c3": 0.0, "probe_c5": 0.0, "meas_Npix": npix,
+            "pos_N_scans": n_side * n_side, "pos_N_scan_slow": n_side,
+            "pos_N_scan_fast": n_side, "pos_scan_step_size": 0.43,
+            "meas_calibration": {"mode": "fitRBF", "value": None, "thresh": 0.5},
+            "probe_pmode_max": 2, "probe_pmode_init_pows": [0.02], "obj_omode_max": 1,
+            "obj_omode_init_occu": {"occu_type": "uniform", "init_occu": None},
+            "obj_Nlayer": 2, "obj_slice_thickness": 2.0, "meas_flipT": [1, 0, 0],
+            "meas_remove_neg_values": {"mode": "clip_neg", "value": None, "force": False},
+            "meas_normalization": {"mode": "max_at_one", "value": None},
+            "pos_scan_rand_std": 0.15, "meas_source": "file",
+            "meas_params": {"path": raw_path, "key": None, "shape": None, "offset": None,
+                            "gap": None},
+            "probe_source": "simu", "probe_params": None, "pos_source": "simu",
+            "pos_params": None, "obj_source": "simu", "obj_params": None,
+            "tilt_source": "simu", "tilt_params": {"tilt_type": "all", "init_tilts": [[0.0, 0.0]]},
+        },
+        "model_params": SOLVER_PARAMS["model_params"],
+        "loss_params": SOLVER_PARAMS["loss_params"],
+        "constraint_params": SOLVER_PARAMS["constraint_params"],
+        "recon_params": {"NITER": 2, "BATCH_SIZE": {"size": 4}, "GROUP_MODE_SEED": 0},
+    }
+
+
+def test_solver_from_raw_params_cuda_matches_cpu(dev, tmp_path):
+    """load_params -> PtyRADSolver(params) with no init_variables, on a small
+    .raw of patterns simulated from a weak phase object (flipped as
+    meas_flipT undoes): the card's run against the CPU's, both from
+    RandomState(0), equal init_variables and losses at rtol 1e-4; the .raw
+    read by the native reader; B3 launched on the card."""
+    import json
+
+    from ptyrad_tpu_torch import load as L
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.initialization import Initializer
+    from ptyrad_tpu_torch.models import forward, make_model
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    raw = tmp_path / "m.raw"
+    ip = {**_raw_params(str(raw))["init_params"], "meas_source": "custom",
+          "meas_params": np.ones((16, 32, 32), np.float32), "pos_scan_rand_std": None,
+          "meas_calibration": {"mode": "dx", "value": 0.3}, "meas_flipT": None}
+    iv = Initializer(ip, verbose=False, rng=np.random.RandomState(0)).init_all().init_variables
+    iv["obj"] = np.exp(0.3j * np.random.default_rng(11).random(iv["obj"].shape))
+    params, buffers, geom = make_model(iv, None, device="cpu")
+    with torch.no_grad():
+        dp = forward(params, buffers, geom, torch.arange(16))[0].numpy()
+    with open(raw, "wb") as f:
+        for frame in np.flip(dp, axis=1):
+            f.write(np.ascontiguousarray(frame).tobytes())
+            f.write(b"\x00" * 1024)
+    path = tmp_path / "params.json"
+    path.write_text(json.dumps(_raw_params(str(raw))))
+
+    M.loss_sums_fwd_cuda.launches = 0
+    runs = {}
+    for d in ("cpu", None):
+        s = PtyRADSolver(L.load_params(str(path), validate=False), device=d, verbose=False,
+                         init_rng=np.random.RandomState(0))
+        assert L.LAST_RAW_READ["reader"] == "native"
+        s.run()
+        runs[d] = s
+    cpu, gpu = runs["cpu"], runs[None]
+    for key, value in cpu.init_variables.items():
+        if isinstance(value, np.ndarray):
+            np.testing.assert_array_equal(gpu.init_variables[key], value, err_msg=key)
+    losses = [[v for _, v in s.history.loss_iters] for s in (gpu, cpu)]
+    assert losses[0][-1] < losses[0][0]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    assert M.loss_sums_fwd_cuda.launches == 2 * gpu.batch_idx.shape[0]

@@ -36,15 +36,57 @@ def test_sources_import_no_jax_or_reference_package(path):
 
 
 @pytest.mark.parametrize("module", ["ops/resize.py", "ops/masks.py", "ops/chain.py",
-                                    "constraints.py", "initialization.py", "models/state.py"])
+                                    "constraints.py", "initialization.py", "models/state.py",
+                                    "ops/affine.py", "physics/constants.py", "physics/probe.py",
+                                    "utils/image_proc.py", "utils/nested.py", "utils/common.py",
+                                    "load.py", "save.py", "native/__init__.py",
+                                    "params/__init__.py", "params/schema.py"])
 def test_the_measurement_and_constraint_modules_are_covered(module):
-    """The modules of the far-field / measurement-store slice are among the
-    sources the import check walks, and torch or numpy is all they need."""
+    """The modules of the far-field / measurement-store slice and the host
+    modules of the params-file slice are among the sources the import check
+    walks, and torch, numpy, scipy and the standard library's os and
+    collections are all they need, besides what HOST_IMPORTS lists."""
     path = PACKAGE / module
     assert path in _sources()
     roots = set(_imported_roots(path))
-    assert roots <= {"__future__", "torch", "numpy", "scipy", "ptyrad_tpu_torch", "dataclasses",
-                     "typing", "functools", "math", "warnings"}, sorted(roots)
+    allowed = {"__future__", "torch", "numpy", "scipy", "ptyrad_tpu_torch", "dataclasses",
+               "typing", "functools", "math", "warnings", "os", "collections"}
+    allowed |= HOST_IMPORTS.get(module, set())
+    assert roots <= allowed, sorted(roots - allowed)
+
+
+# what the host modules of the params-file slice import besides the above:
+# the standard library, and the optional packages imported inside the
+# functions that need them (test_import_pulls_in_no_optional_host_package)
+HOST_IMPORTS = {
+    "utils/nested.py": {"ast"},
+    "utils/common.py": {"re", "sys", "datetime"},
+    "load.py": {"time", "json", "importlib", "types", "tomllib", "tomli", "yaml", "h5py", "PIL"},
+    "save.py": {"h5py", "PIL"},
+    "native/__init__.py": {"ctypes", "subprocess"},
+    "params/schema.py": {"pathlib", "pydantic"},
+}
+
+
+OPTIONAL = ("pydantic", "h5py", "yaml", "PIL")
+
+
+def test_import_pulls_in_no_optional_host_package():
+    """The card's machine may lack pydantic, h5py, yaml and PIL: importing
+    every module of the package loads none of them (the schema module,
+    which needs pydantic, is only imported by load_params(validate=True))."""
+    names = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+                   for p in PACKAGE.rglob("*.py") if "params" not in p.relative_to(PACKAGE).parts)
+    code = (
+        "import sys, importlib\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"print('LOADED', sorted(n for n in sys.modules if n.split('.')[0] in {OPTIONAL!r}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
 
 
 def test_import_pulls_in_no_jax_and_needs_no_nvcc(tmp_path):
@@ -66,5 +108,8 @@ def test_import_pulls_in_no_jax_and_needs_no_nvcc(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "NVCC None" in out.stdout, out.stdout
-    assert not (PACKAGE / "_build").exists() or not any((PACKAGE / "_build").glob("*.so")), \
+    # the kernel library; _build/ may also hold the host .raw reader
+    # (native/fastraw.c), which other tests build with the system cc
+    assert not (PACKAGE / "_build").exists() or \
+        not any((PACKAGE / "_build").glob("libptyrad_kernels_*.so")), \
         "importing the package must not build the kernels"
