@@ -61,6 +61,34 @@ Phases, one JSON object per line each:
                B2, B3a and B3b launched and B4-B6 not; then a .npy of the
                patterns with a dx calibration, whose measurements must equal
                the patterns bit for bit.
+     resume  - the tBL run at full width on the main phase's data, 3
+               iterations, whose callback takes make_save_dict's checkpoint
+               of iteration 2 with the optimizer state from the live run
+               (seconds printed); a second solver built from that dict alone
+               (resume_from: the tensors into init_variables, the optimizer
+               state through optim.load_opt_state_values) runs iteration 3
+               through recon_loop(start_niter=3) beside the uninterrupted
+               run's: the first batch's loss at rtol 1e-6, the first 8
+               batches' at 1e-5, the iteration's at 5e-3 (B3b's atomics
+               part two runs step by step; see resume_path), and a solver
+               without the restored optimizer state must miss the last two.
+               Where h5py imports, again through model_iter0002.hdf5 and
+               load_ptyrad (write seconds printed); which routes ran is
+               printed. B1, B2, B3a, B3b.
+     cli     - ``python -m ptyrad_tpu_torch run --params_path`` in a
+               subprocess on params_file's .raw and a .json set to 4
+               iterations saved every 2 into a temporary output_dir
+               (objp, obja, probe; model and optim_state where h5py
+               imports): exit 0, one output folder named as
+               make_output_folder names it, the params copy and the log in
+               it, the objp and probe_amp TIFs of iterations 2 and 4 at
+               their shapes (read back through PIL), each iteration saved
+               once, finite and falling losses, the kernel library neither
+               rebuilt nor replaced. Prints the seconds to training and to
+               the first iteration's end, patterns/s and each save's
+               seconds. Then validate-params (exit 0 on the .json, 1 on a
+               copy with a bad key), check-gpu and print-system-info (exit
+               0, naming the card), run at once.
      forward - one forward() of a batch with 2 object modes, shifted probes
                and detector blur (B4a, and B4b under autograd) against the
                plain multislice_dp, values and gradients.
@@ -116,7 +144,7 @@ Phases, one JSON object per line each:
                loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
                profile over 8 steps.
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
-plain route, tBL, params_file, low-dose, tbl_store, PSO, pso_ff (with its random-start
+plain route, tBL, params_file, resume, low-dose, tbl_store, PSO, pso_ff (with its random-start
 runs and the carve), tilt (its simulation included) and PSO tilt paths and
 the forward phase's kernel routes; B1/B2's rows at the tBL shapes count the
 N <= 128 runs, their rows at the PSO shapes the N = 256 runs), the
@@ -127,14 +155,18 @@ last line is never printed. Exits non-zero at once without CUDA.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1351,6 +1383,44 @@ def main_path(dev, card: str):
     return solver, launches, init
 
 
+# -- the resume phase: a checkpoint of iteration 2 continues at iteration 3 ------
+
+def resume_from(ckpt: dict, params: dict, init: dict, dev, verbose: bool = False):
+    """A solver set to go on from a checkpoint: ``ckpt`` is make_save_dict's
+    dict or load_ptyrad's of a model.hdf5 (which needs h5py). The
+    optimizable tensors go into ``init`` (the object as float64 amplitude
+    and phase, which make_model splits back into the float32 ones exactly),
+    the optimizer state through optim.load_opt_state_values. Run it with
+    recon_loop(start_niter=<the checkpoint's niter> + 1)."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.optim import load_opt_state_values
+
+    t = ckpt["optimizable_tensors"]
+    obj = np.asarray(t["obja"], np.float64) * np.exp(1j * np.asarray(t["objp"], np.float64))
+    iv = {**init, "obj": obj, "probe": t["probe"], "probe_pos_shifts": t["probe_pos_shifts"],
+          "obj_tilts": t["obj_tilts"], "slice_thickness": t["slice_thickness"]}
+    solver = PtyRADSolver(params, init_variables=iv, device=dev, verbose=verbose)
+    solver.prepare()
+    solver._build()
+    load_opt_state_values(solver.optimizer, ckpt["optim_state_dict"])
+    return solver
+
+
+def resume_step(solver, start_niter: int, verbose: bool = False):
+    """Iteration ``start_niter`` of a resumed solver; its ReconHistory."""
+    from ptyrad_tpu_torch.engine.solver import recon_loop
+
+    return recon_loop(solver.train_epoch, solver.params, solver.batch_idx, solver.batch_mask, 1,
+                      solver.constraint_fn, solver.buffers, verbose=verbose,
+                      optimizer=solver.optimizer, start_niter=start_niter)[1]
+
+
+def batch_totals(history) -> np.ndarray:
+    """The total loss of each batch of the history's last iteration, in the
+    order the batches ran."""
+    return np.sum([np.asarray(v) for v in history.batch_terms.values()], axis=0)
+
+
 # -- the params_file phase: the tBL run from its params file --------------------
 
 OPTIONAL_PACKAGES = ("pydantic", "h5py", "yaml", "PIL", "scipy")
@@ -1528,16 +1598,15 @@ class StageTimer:
         return False
 
 
-def params_file_path(dev, card: str, meas: np.ndarray) -> dict:
+def params_file_path(dev, card: str, meas: np.ndarray, tmp: str) -> tuple[dict, str]:
     """The tBL run from its params file through the normal entry point:
-    the main phase's patterns written as an EMPAD .raw and the params as a
-    .json (no package needed), then load_params -> PtyRADSolver(params,
-    init_rng=RandomState(SEED)) -> run(), validated where pydantic imports.
-    Then a .npy of the same patterns with a dx calibration, no jitter and no
-    normalization, whose measurements must equal the patterns bit for bit.
-    Returns the run's launch counts."""
-    import tempfile
-
+    the main phase's patterns written as an EMPAD .raw in ``tmp`` and the
+    params as a .json (no package needed), then load_params ->
+    PtyRADSolver(params, init_rng=RandomState(SEED)) -> run(), validated
+    where pydantic imports. Then a .npy of the same patterns with a dx
+    calibration, no jitter and no normalization, whose measurements must
+    equal the patterns bit for bit. Returns the run's launch counts and the
+    .raw's path (the cli phase reads it again)."""
     from ptyrad_tpu_torch import load as L
     from ptyrad_tpu_torch import native
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
@@ -1545,80 +1614,321 @@ def params_file_path(dev, card: str, meas: np.ndarray) -> dict:
 
     packages = optional_packages()
     emit({"phase": "params_file_packages", "imports": packages})
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_params_") as tmp:
-        raw_path, json_path = f"{tmp}/tbl.raw", f"{tmp}/tbl.json"
-        write_s = write_raw(raw_path, meas)
-        with open(json_path, "w", encoding="utf-8") as f:
-            json.dump(tbl_params_file(raw_path), f)
-        params = L.load_params(json_path, validate=packages["pydantic"])
-        L.LAST_RAW_READ.clear()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()  # the main phase's patterns, still held
+    raw_path, json_path = f"{tmp}/tbl.raw", f"{tmp}/tbl.json"
+    write_s = write_raw(raw_path, meas)
+    with open(json_path, "w", encoding="utf-8") as f:
+        json.dump(tbl_params_file(raw_path), f)
+    params = L.load_params(json_path, validate=packages["pydantic"])
+    L.LAST_RAW_READ.clear()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # the main phase's patterns, still held
+    t0 = time.perf_counter()
+    with StageTimer() as timer:
+        solver = PtyRADSolver(params, init_rng=np.random.RandomState(SEED), device=dev,
+                              verbose=True)
+    init_s = time.perf_counter() - t0
+    raw_read = dict(L.LAST_RAW_READ)
+    t1 = time.perf_counter()
+    launches = drive(solver)
+    run_s = time.perf_counter() - t1
+
+    iv = solver.init_variables
+    losses = [v for _, v in solver.history.loss_iters]
+    times = solver.history.iter_times
+    mean_max = float(iv["measurements"].mean(0).max())
+    out = {
+        "phase": "params_file", "card": card, "validated": packages["pydantic"],
+        "raw_bytes": os.path.getsize(raw_path), "write_raw_s": write_s,
+        "raw_reader": raw_read.get("reader"), "native_build_error": native.BUILD_ERROR,
+        "load_raw_s": raw_read.get("seconds"),
+        "load_raw_gb_per_s": raw_read["bytes"] / raw_read["seconds"] / 1e9,
+        "init_s": init_s, "init_stage_s": timer.seconds,
+        "measurements": [list(iv["measurements"].shape), str(iv["measurements"].dtype)],
+        "mean_pattern_max": mean_max, "fitRBF": iv["fitRBF"], "dx": iv["dx"],
+        "dx_rel_err": iv["dx"] / SIM_DX - 1.0,
+        "probe": list(solver.params.probe.shape), "obja": list(solver.params.obja.shape),
+        "iterations": len(losses), "losses": losses, "iter_s": times,
+        "patterns_per_s": [N_SCANS / t for t in times], "run_s": run_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "resident_before_gb": resident / 1e9, "launches": launches,
+    }
+    emit(out)
+    require(raw_read.get("reader") == "native",
+            f"the .raw was not read by the native reader: {raw_read}, "
+            f"build error {native.BUILD_ERROR}")
+    require(iv["measurements"].shape == (N_SCANS, NPIX, NPIX)
+            and iv["measurements"].dtype == np.float32,
+            f"measurements {iv['measurements'].shape} {iv['measurements'].dtype}")
+    require(abs(mean_max - 1.0) <= 1e-6, f"max_at_one left the mean pattern's max at {mean_max}")
+    require(tuple(solver.params.probe.shape) == (PMODE, NPIX, NPIX),
+            f"probe {tuple(solver.params.probe.shape)}")
+    require(tuple(solver.params.obja.shape[:2]) == (1, NZ), f"object {solver.params.obja.shape}")
+    require(abs(iv["dx"] / SIM_DX - 1.0) <= 0.05, f"fitted dx {iv['dx']} vs {SIM_DX}")
+    require(len(losses) == NITER and all(np.isfinite(losses)), f"loss not finite: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name in TBL_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the params_file path")
+    for name in ("B4a dp_fwd", "B4b dp_bwd") + CHAIN_KERNELS:
+        require(launches[name] == 0, f"kernel {name} was launched on the params_file path")
+    del solver, iv
+    torch.cuda.empty_cache()
+
+    npy_path = f"{tmp}/tbl.npy"
+    np.save(npy_path, meas)
+    ip = tbl_params_file(npy_path)["init_params"]
+    ip.update(meas_flipT=None, pos_scan_rand_std=None,
+              meas_calibration={"mode": "dx", "value": SIM_DX, "thresh": 0.5},
+              meas_normalization={"mode": "divide_const", "value": 1.0})
+    t2 = time.perf_counter()
+    npy_init = Initializer(ip, verbose=False, rng=np.random.RandomState(SEED)).init_all()
+    got = npy_init.init_variables["measurements"]
+    same = got.dtype == meas.dtype and got.shape == meas.shape and np.array_equal(got, meas)
+    emit({"phase": "params_file_npy", "init_s": time.perf_counter() - t2,
+          "bit_exact": bool(same), "dx": npy_init.init_variables["dx"]})
+    require(same, "the .npy round trip changed the measurements")
+    os.remove(npy_path)
+    return launches, raw_path
+
+
+# resume gates (see resume_path): the first batch of the resumed iteration,
+# its first RESUME_BATCHES batches, and the whole iteration
+RESUME_FIRST_RTOL = 1e-6
+RESUME_BATCHES, RESUME_BATCHES_RTOL = 8, 1e-5
+RESUME_ITER_RTOL = 5e-3
+
+
+def resume_path(dev, card: str, init: dict, main_losses: list, tmp: str):
+    """The tBL run at full width on the main phase's data, stopped and
+    resumed in process: 3 iterations whose callback takes make_save_dict's
+    checkpoint of iteration 2 (with the optimizer state) from the live run;
+    then a second solver from that dict alone (resume_from) runs iteration
+    3 through recon_loop(start_niter=3), batch by batch beside the
+    uninterrupted run's iteration 3. B3b adds each wavefield's object
+    gradient into the patch gradients with atomicAdd (csrc/multislice.cu,
+    "dT sums over modes"), so no two runs of a step agree in the last bits,
+    and Adam turns those bits into steps of lr where a gradient is of
+    rounding size: two runs part more with every step (the phase prints
+    how far this run's iterations are from the main phase's). So the first
+    batch's loss (before any step of iteration 3: the restored parameters)
+    is held at rtol 1e-6, the first 8 batches' (the restored optimizer
+    state's first steps) at 1e-5, and the iteration's at 5e-3, above the
+    spread of two uninterrupted runs (up to 3.8e-4 on the card). A third
+    solver from the checkpoint without its optimizer state must miss the
+    last two gates: a resume that drops the state fails them. Where h5py
+    imports, the resume again through model_iter0002.hdf5 and load_ptyrad.
+    Returns the launch counts and the uninterrupted solver."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.load import load_ptyrad
+    from ptyrad_tpu_torch.save import make_save_dict, save_dict_to_hdf5
+
+    params = copy.deepcopy(TBL_PARAMS)
+    params["recon_params"]["save_result"] = ["model", "optim_state"]
+    solver = PtyRADSolver(params, init_variables=init, device=dev, verbose=True)
+    taken = {}
+
+    def callback(niter, cur_params, history, optimizer=None):
+        if niter == 2:
+            t0 = time.perf_counter()
+            taken["ckpt"] = make_save_dict("", cur_params, solver.buffers, solver.geom, params,
+                                           optimizer, history, niter, solver.indices,
+                                           solver.lr_dict, solver.start_dict)
+            taken["make_save_dict_s"] = time.perf_counter() - t0
+
+    _, launches = counted(lambda: solver.run(callback=callback))
+    losses = [v for _, v in solver.history.loss_iters]
+    ref = batch_totals(solver.history)
+    ckpt = taken["ckpt"]
+    routes = {"dict": ckpt}
+    write_s = None
+    if optional_packages()["h5py"]:
+        path = f"{tmp}/model_iter0002.hdf5"
         t0 = time.perf_counter()
-        with StageTimer() as timer:
-            solver = PtyRADSolver(params, init_rng=np.random.RandomState(SEED), device=dev,
-                                  verbose=True)
-        init_s = time.perf_counter() - t0
-        raw_read = dict(L.LAST_RAW_READ)
-        t1 = time.perf_counter()
-        launches = drive(solver)
-        run_s = time.perf_counter() - t1
-
-        iv = solver.init_variables
-        losses = [v for _, v in solver.history.loss_iters]
-        times = solver.history.iter_times
-        mean_max = float(iv["measurements"].mean(0).max())
-        out = {
-            "phase": "params_file", "card": card, "validated": packages["pydantic"],
-            "raw_bytes": os.path.getsize(raw_path), "write_raw_s": write_s,
-            "raw_reader": raw_read.get("reader"), "native_build_error": native.BUILD_ERROR,
-            "load_raw_s": raw_read.get("seconds"),
-            "load_raw_gb_per_s": raw_read["bytes"] / raw_read["seconds"] / 1e9,
-            "init_s": init_s, "init_stage_s": timer.seconds,
-            "measurements": [list(iv["measurements"].shape), str(iv["measurements"].dtype)],
-            "mean_pattern_max": mean_max, "fitRBF": iv["fitRBF"], "dx": iv["dx"],
-            "dx_rel_err": iv["dx"] / SIM_DX - 1.0,
-            "probe": list(solver.params.probe.shape), "obja": list(solver.params.obja.shape),
-            "iterations": len(losses), "losses": losses, "iter_s": times,
-            "patterns_per_s": [N_SCANS / t for t in times], "run_s": run_s,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "resident_before_gb": resident / 1e9, "launches": launches,
+        save_dict_to_hdf5(ckpt, path)
+        write_s = time.perf_counter() - t0
+        routes["file"] = load_ptyrad(path)
+    routes["dict, fresh optimizer"] = ckpt
+    resumed = {}
+    for route, c in routes.items():
+        other = resume_from(c, params, init, dev, verbose=True)
+        if route.endswith("fresh optimizer"):
+            other.optimizer.state.clear()
+        history, counts = counted(lambda: resume_step(other, 3, verbose=True))
+        launches = add_counts(launches, counts)
+        got = batch_totals(history)
+        resumed[route] = {
+            "iter3": history.loss_iters[-1][1],
+            "rel_diff": abs(history.loss_iters[-1][1] - losses[2]) / abs(losses[2]),
+            "first_batch_rel_diff": float(abs(got[0] - ref[0]) / abs(ref[0])),
+            "batches_rel_diff_max": {n: float(np.max(np.abs(got[:n] - ref[:n]) / np.abs(ref[:n])))
+                                     for n in (RESUME_BATCHES, 64, 512)},
         }
-        emit(out)
-        require(raw_read.get("reader") == "native",
-                f"the .raw was not read by the native reader: {raw_read}, "
-                f"build error {native.BUILD_ERROR}")
-        require(iv["measurements"].shape == (N_SCANS, NPIX, NPIX)
-                and iv["measurements"].dtype == np.float32,
-                f"measurements {iv['measurements'].shape} {iv['measurements'].dtype}")
-        require(abs(mean_max - 1.0) <= 1e-6, f"max_at_one left the mean pattern's max at {mean_max}")
-        require(tuple(solver.params.probe.shape) == (PMODE, NPIX, NPIX),
-                f"probe {tuple(solver.params.probe.shape)}")
-        require(tuple(solver.params.obja.shape[:2]) == (1, NZ), f"object {solver.params.obja.shape}")
-        require(abs(iv["dx"] / SIM_DX - 1.0) <= 0.05, f"fitted dx {iv['dx']} vs {SIM_DX}")
-        require(len(losses) == NITER and all(np.isfinite(losses)), f"loss not finite: {losses}")
-        require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-        for name in TBL_KERNELS:
-            require(launches[name] > 0, f"kernel {name} was not launched on the params_file path")
-        for name in ("B4a dp_fwd", "B4b dp_bwd") + CHAIN_KERNELS:
-            require(launches[name] == 0, f"kernel {name} was launched on the params_file path")
-        del solver, iv
-        torch.cuda.empty_cache()
+        del other
+    out = {
+        "phase": "resume", "card": card, "n_patterns": N_SCANS, "batch": BATCH,
+        "routes": sorted(routes), "losses": losses, "resumed": resumed,
+        "main_losses": main_losses,
+        "rel_diff_to_main": [abs(a - b) / abs(b) for a, b in zip(losses, main_losses)],
+        "make_save_dict_s": taken["make_save_dict_s"],
+        "write_s": write_s if write_s is not None else "not measured: h5py does not import",
+        "optim_state_groups": [g["name"] for g in solver.optimizer.param_groups],
+        "launches": launches,
+    }
+    emit(out)
+    require(len(losses) == NITER and all(np.isfinite(losses)), f"resume: loss not finite: {losses}")
+    require(ckpt["optim_state_dict"] is not None and ckpt["niter"] == 2,
+            "resume: the checkpoint of iteration 2 holds no optimizer state")
+    for route, r in resumed.items():
+        require(r["first_batch_rel_diff"] <= RESUME_FIRST_RTOL,
+                f"resume ({route}): the first batch of iteration 3 differs by "
+                f"{r['first_batch_rel_diff']} > {RESUME_FIRST_RTOL}")
+        gates = ((r["batches_rel_diff_max"][RESUME_BATCHES], RESUME_BATCHES_RTOL,
+                  f"the first {RESUME_BATCHES} batches"), (r["rel_diff"], RESUME_ITER_RTOL,
+                                                            "iteration 3"))
+        for diff, tol, what in gates:
+            if route.endswith("fresh optimizer"):
+                require(diff > tol, f"resume without the optimizer state: {what} within "
+                                    f"{tol} ({diff}); the gate cannot tell")
+            else:
+                require(diff <= tol, f"resume ({route}): {what} differ from the "
+                                     f"uninterrupted run's by {diff} > {tol}")
+    for name in TBL_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the resume path")
+    return launches, solver
 
-        npy_path = f"{tmp}/tbl.npy"
-        np.save(npy_path, meas)
-        ip = tbl_params_file(npy_path)["init_params"]
-        ip.update(meas_flipT=None, pos_scan_rand_std=None,
-                  meas_calibration={"mode": "dx", "value": SIM_DX, "thresh": 0.5},
-                  meas_normalization={"mode": "divide_const", "value": 1.0})
-        t2 = time.perf_counter()
-        npy_init = Initializer(ip, verbose=False, rng=np.random.RandomState(SEED)).init_all()
-        got = npy_init.init_variables["measurements"]
-        same = got.dtype == meas.dtype and got.shape == meas.shape and np.array_equal(got, meas)
-        emit({"phase": "params_file_npy", "init_s": time.perf_counter() - t2,
-              "bit_exact": bool(same), "dx": npy_init.init_variables["dx"]})
-        require(same, "the .npy round trip changed the measurements")
-    return launches
+
+CLI_NITER, CLI_SAVE_ITERS = 4, 2
+_ITER_LINE = re.compile(r"Iter: (\d+), Total Loss: (\S+?),.* in ([0-9.]+) sec")
+_SAVE_LINE = re.compile(r"Saved the results of iteration (\d+) to .* in ([0-9.]+) sec")
+
+
+def _run_cli(args: list, timeout_s: float) -> tuple[int, list, float]:
+    """``python -m ptyrad_tpu_torch <args>`` from the repository root, its
+    output read line by line as it comes: (exit code, [(seconds since the
+    start, line)], seconds)."""
+    proc = subprocess.Popen([sys.executable, "-m", "ptyrad_tpu_torch", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    timer = threading.Timer(timeout_s, proc.kill)
+    t0 = time.perf_counter()
+    timer.start()
+    try:
+        lines = [(time.perf_counter() - t0, line.rstrip("\n")) for line in proc.stdout]
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        proc.stdout.close()
+    return rc, lines, time.perf_counter() - t0
+
+
+def _tail(lines: list, n: int = 30) -> str:
+    return "\n".join(line for _, line in lines[-n:])
+
+
+def cli_path(card: str, tmp: str, raw_path: str, named_like) -> None:
+    """The tBL run as a user starts it: ``python -m ptyrad_tpu_torch run
+    --params_path`` in a subprocess, on the params_file phase's .raw, with
+    its .json set to 4 iterations saved every 2 into a temporary output_dir
+    (objp, obja and probe; model and optim_state where h5py imports). The
+    kernels built for this process serve the subprocess unbuilt. Then
+    validate-params (on the .json and on a copy with a bad key), check-gpu
+    and print-system-info, all three at once. ``named_like``: a solver of
+    the same shapes, to name the output folder as make_output_folder does."""
+    from PIL import Image
+
+    from ptyrad_tpu_torch.ops import _build
+    from ptyrad_tpu_torch.save import make_output_folder
+
+    h5py = optional_packages()["h5py"]
+    d = tbl_params_file(raw_path)
+    out_dir = f"{tmp}/cli_out"
+    d["recon_params"].update(
+        NITER=CLI_NITER, SAVE_ITERS=CLI_SAVE_ITERS, output_dir=out_dir,
+        save_result=["objp", "obja", "probe"] + (["model", "optim_state"] if h5py else []))
+    json_path = f"{tmp}/tbl_cli.json"
+    with open(json_path, "w", encoding="utf-8") as f:
+        json.dump(d, f)
+
+    def folder_name():
+        return os.path.basename(make_output_folder(
+            out_dir, np.arange(N_SCANS), d, named_like.params, named_like.geom, make_dir=False))
+
+    build_files = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}
+    names = {folder_name()}
+    rc, lines, seconds = _run_cli(["run", "--params_path", json_path], 600)
+    names.add(folder_name())
+    text = [line for _, line in lines]
+    require(rc == 0, f"cli run exited {rc}:\n{_tail(lines)}")
+    iters = [(t, _ITER_LINE.search(line)) for t, line in lines if _ITER_LINE.search(line)]
+    saves = [_SAVE_LINE.search(line) for line in text if _SAVE_LINE.search(line)]
+    start_s = next(t for t, line in lines if "Starting reconstruction" in line)
+    losses = [float(m.group(2)) for _, m in iters]
+    iter_s = [float(m.group(3)) for _, m in iters]
+    folders = os.listdir(out_dir)
+    folder = os.path.join(out_dir, folders[0]) if len(folders) == 1 else None
+    files = sorted(os.listdir(folder)) if folder else []
+    shapes = {}
+    for name in files:
+        if name.endswith(".tif"):
+            with Image.open(os.path.join(folder, name)) as im:
+                shapes[name] = [getattr(im, "n_frames", 1), im.size[1], im.size[0]]
+    out = {
+        "phase": "cli", "card": card, "rc": rc, "seconds": seconds,
+        "seconds_to_training": start_s, "seconds_to_first_iteration_end": iters[0][0],
+        "iterations": len(losses), "losses": losses, "iter_s": iter_s,
+        "patterns_per_s": [N_SCANS / t for t in iter_s],
+        "saves": [[int(m.group(1)), float(m.group(2))] for m in saves],
+        "folder": folders, "files": files, "tif_shapes": shapes,
+        "rebuilt": build_files != {p.name: p.stat().st_mtime_ns
+                                   for p in _build.BUILD_DIR.iterdir()},
+    }
+    emit(out)
+    require(len(folders) == 1 and folders[0] in names,
+            f"cli output folders {folders}, expected one of {sorted(names)}")
+    date = folders[0].split("_")[0]
+    require({"tbl_cli.json", f"{date}_ptyrad_tpu_torch_log.txt"} <= set(files),
+            f"cli: no params copy or log in {files}")
+    require(not out["rebuilt"], "cli: the subprocess rebuilt or replaced the kernel library")
+    require(len(losses) == CLI_NITER and all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"cli: losses {losses}")
+    require([int(m.group(1)) for m in saves] == [2, 4],
+            f"cli: saves at iterations {[m.group(1) for m in saves]}, expected 2 and 4 once each")
+    for it in (2, 4):
+        zsum, zstack = f"objp_zsum_crop_08bit_iter{it:04d}.tif", f"objp_zstack_crop_08bit_iter{it:04d}.tif"
+        probe = f"probe_amp_08bit_iter{it:04d}.tif"
+        require(shapes.get(probe) == [1, NPIX, PMODE * NPIX], f"cli: {probe} {shapes.get(probe)}")
+        require(zsum in shapes and zstack in shapes and shapes[zstack][0] == NZ
+                and shapes[zstack][1:] == shapes[zsum][1:]
+                and all(0.9 * (N_SIDE - 1) * STEP_PX <= v <= 1.1 * (N_SIDE - 1) * STEP_PX + 2
+                        for v in shapes[zsum][1:]),
+                f"cli: object images {shapes.get(zsum)} {shapes.get(zstack)}")
+        if h5py:
+            require(f"model_iter{it:04d}.hdf5" in files, f"cli: no checkpoint of iteration {it}")
+    log = open(os.path.join(folder, f"{date}_ptyrad_tpu_torch_log.txt")).read()
+    require(f"Iter: {CLI_NITER}, Total Loss" in log and "### System information ###" in log,
+            "cli: the log file misses the run")
+
+    bad_path = f"{tmp}/tbl_bad.json"
+    with open(bad_path, "w", encoding="utf-8") as f:
+        json.dump({**d, "init_params": {**d["init_params"], "bogus_key": 1}}, f)
+    commands = {"validate-params": ["validate-params", "--params_path", json_path],
+                "validate-params (bad key)": ["validate-params", "--params_path", bad_path],
+                "check-gpu": ["check-gpu"], "print-system-info": ["print-system-info"]}
+    with concurrent.futures.ThreadPoolExecutor(len(commands)) as pool:
+        futures = {k: pool.submit(_run_cli, args, 180) for k, args in commands.items()}
+        results = {k: f.result() for k, f in futures.items()}
+    emit({"phase": "cli_commands",
+          **{k: {"rc": rc, "seconds": sec, "tail": [line for _, line in lines[-3:]]}
+             for k, (rc, lines, sec) in results.items()}})
+    expected = {"validate-params": 0, "validate-params (bad key)": 1, "check-gpu": 0,
+                "print-system-info": 0}
+    for k, want in expected.items():
+        require(results[k][0] == want, f"cli {k} exited {results[k][0]}, expected {want}:\n"
+                                       f"{_tail(results[k][1])}")
+    gpu_name = torch.cuda.get_device_name(0)
+    for k in ("check-gpu", "print-system-info"):
+        require(any(gpu_name in line for _, line in results[k][1]),
+                f"cli {k} does not name the card {gpu_name}")
 
 
 # -- the forward() figure and the low-dose path ---------------------------------
@@ -2595,10 +2905,18 @@ def main() -> int:
     plain_launches = plain_route_check(dev)
 
     solver, tbl_launches, init = main_path(dev, card)
+    main_losses = [v for _, v in solver.history.loss_iters]
     profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
     del solver
     torch.cuda.empty_cache()
-    params_file_launches = params_file_path(dev, card, init["measurements"].cpu().numpy())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        params_file_launches, raw_path = params_file_path(
+            dev, card, init["measurements"].cpu().numpy(), tmp)
+        torch.cuda.empty_cache()
+        resume_launches, solver = resume_path(dev, card, init, main_losses, tmp)
+        torch.cuda.empty_cache()
+        cli_path(card, tmp, raw_path, solver)
+        del solver
     torch.cuda.empty_cache()
     forward_launches = forward_modes_check(dev, init)
     torch.cuda.empty_cache()
@@ -2636,8 +2954,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver, pso_tilt_launches = pso_tilt_path(dev, card)
     profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
-    narrow = add_counts(plain_launches, tbl_launches, params_file_launches, forward_launches,
-                        low_dose_launches, store_launches, tilt_launches)
+    narrow = add_counts(plain_launches, tbl_launches, params_file_launches, resume_launches,
+                        forward_launches, low_dose_launches, store_launches, tilt_launches)
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
                       pso_tilt_launches)
     launches = add_counts(narrow, wide)

@@ -8,12 +8,15 @@ backward, start-iter gating of the gradients, the Adam step; then the due
 constraints. The per-batch loss terms stay on the device and reach the host
 once per iteration.
 
-Not in this slice: device meshes, LBFGS, canvas sharding and saving
-(ROADMAP queue A).
+``optimizer_params.load_state`` resumes the optimizer from a model.hdf5
+(either package's or upstream PtyRAD's), and ``recon_loop(start_niter=)``
+continues a run at a given iteration; engine/workflow.py saves. Not in this
+slice: device meshes, LBFGS and canvas sharding (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -28,7 +31,8 @@ from ptyrad_tpu_torch.initialization import Initializer
 from ptyrad_tpu_torch.losses import combined_loss
 from ptyrad_tpu_torch.models.forward import forward, fused_loss_terms, get_measurements
 from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams, make_model
-from ptyrad_tpu_torch.optim import create_optimizer, mask_unstarted_grads
+from ptyrad_tpu_torch.optim import (OptStateMismatchError, create_optimizer,
+                                    load_opt_state_hdf5, mask_unstarted_grads)
 from ptyrad_tpu_torch.utils.logging import vprint
 
 
@@ -98,14 +102,22 @@ def recon_loop(train_epoch, params: PtychoParams, batch_idx: np.ndarray,
                batch_mask: np.ndarray, n_iter: int,
                constraint_fn: Optional[ConstraintScheduler], buffers: Buffers,
                history: Optional[ReconHistory] = None, callback: Optional[Callable] = None,
-               verbose: bool = True):
-    """NITER outer loop. callback(niter, params, history) fires after each
-    iteration. Halts on a non-finite loss."""
+               verbose: bool = True, optimizer: Optional[torch.optim.Optimizer] = None,
+               start_niter: int = 1):
+    """n_iter iterations, numbered from start_niter: the batch order, the
+    start_iter gates and the constraints' schedule follow the number, so a
+    run resumed at k + 1 from iteration k's parameters and optimizer state
+    repeats the uninterrupted run's iteration k + 1. callback(niter, params,
+    history) fires after each iteration; a callback that declares an
+    ``optimizer`` parameter also gets the live optimizer. Halts on a
+    non-finite loss."""
     history = history or ReconHistory()
+    cb_takes_optimizer = (callback is not None
+                          and "optimizer" in inspect.signature(callback).parameters)
     device = params.obja.device
     batch_idx = np.asarray(batch_idx)
     batch_mask = np.asarray(batch_mask)
-    for niter in range(1, n_iter + 1):
+    for niter in range(start_niter, start_niter + n_iter):
         t0 = time.perf_counter()
         perm = iter_batch_perm(niter, batch_idx.shape[0])
         idx_dev = torch.as_tensor(batch_idx[perm], device=device)
@@ -136,7 +148,9 @@ def recon_loop(train_epoch, params: PtychoParams, batch_idx: np.ndarray,
         term_str = ", ".join(f"{k}: {v:.4f}" for k, v in term_avgs.items())
         vprint(f"Iter: {niter}, Total Loss: {total:.4f}, {term_str}, in {iter_t:.3f} sec",
                verbose=verbose)
-        if callback is not None:
+        if cb_takes_optimizer:
+            callback(niter, params, history, optimizer=optimizer)
+        elif callback is not None:
             callback(niter, params, history)
     return params, history
 
@@ -172,6 +186,8 @@ class PtyRADSolver:
                                                  self.geom)
         self.history = ReconHistory()
         self.batch_idx = None
+        self.indices = None
+        self.optimizer = None
         self.train_epoch = None
 
     def prepare(self):
@@ -188,6 +204,7 @@ class PtyRADSolver:
         batches = make_batches(indices, pos, batch_size, mode=rp.get("GROUP_MODE", "random"),
                                seed=rp.get("GROUP_MODE_SEED"))
         self.batch_idx, self.batch_mask = pad_batches(batches)
+        self.indices = indices
         return self.batch_idx, self.batch_mask
 
     def _build(self):
@@ -195,6 +212,21 @@ class PtyRADSolver:
         self.optimizer_name = optimizer_params.get("name", "Adam")
         self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
             optimizer_params, self.model_params.get("update_params"), self.params)
+        load_state = optimizer_params.get("load_state")
+        if load_state:
+            if not str(load_state).endswith((".hdf5", ".h5")):
+                raise NotImplementedError(
+                    f"optimizer_params.load_state='{load_state}': ptyrad_tpu_torch resumes the "
+                    "optimizer from a model.hdf5 (saved with 'optim_state' in save_result); an "
+                    "orbax optimizer directory is the JAX package's own format")
+            try:
+                load_opt_state_hdf5(self.optimizer, str(load_state))
+                vprint(f"Restored optimizer state from '{load_state}'", verbose=self.verbose)
+            except OptStateMismatchError:
+                raise  # a fresh state here would pass for the resume asked for
+            except (OSError, KeyError, ValueError) as e:
+                vprint(f"WARNING: failed to restore optimizer state from '{load_state}': {e}. "
+                       "Using fresh state.")
         self.train_epoch = build_train_epoch(
             self.params, self.buffers, self.geom, self.loss_params, self.optimizer,
             self.start_dict)
@@ -214,7 +246,7 @@ class PtyRADSolver:
         self.params, self.history = recon_loop(
             self.train_epoch, self.params, self.batch_idx, self.batch_mask, n_iter,
             self.constraint_fn, self.buffers, history=self.history, callback=callback,
-            verbose=self.verbose,
+            verbose=self.verbose, optimizer=self.optimizer,
         )
         return self.params, self.history
 

@@ -14,6 +14,7 @@ from ptyrad_tpu_torch.models.forward import (
     get_obj_patches,
     get_probes,
     multislice_dp,
+    propagated_probe,
     tilt_ramp,
 )
 
@@ -31,5 +32,6 @@ __all__ = [
     "get_obj_patches",
     "get_probes",
     "get_measurements",
+    "propagated_probe",
     "tilt_ramp",
 ]

@@ -211,6 +211,22 @@ def get_measurements(buffers: Buffers, geom: Geometry, indices: torch.Tensor) ->
     return meas
 
 
+def propagated_probe(params: PtychoParams, buffers: Buffers, geom: Geometry,
+                     index: torch.Tensor) -> torch.Tensor:
+    """The probe at each slice's entry, complex (Nz, pmode, Ny, Nx), for the
+    saved ``probe_prop`` image (ptyrad_tpu/models/forward.py:355): the probe
+    of scan position ``index[0]`` propagated slice by slice in free space
+    (no object). torch.fft on either device; no kernel."""
+    probe = get_probes(params, geom, index)[0]
+    H = compute_propagators(params, buffers, geom, index)[0]
+    slices = []
+    psi = probe
+    for _ in range(geom.obj_shape[1]):
+        slices.append(psi)
+        psi = ifft2(H[None] * fft2(psi))
+    return torch.stack(slices, dim=0)
+
+
 def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
                      indices: torch.Tensor, mask, loss_params):
     """(total, terms) with the loss_single data term folded into the

@@ -80,6 +80,11 @@ class Geometry:
     meas_padded_shape: Optional[Tuple[int, int]] = None
     meas_scale_factors: Optional[Tuple[float, float]] = None
     fwd_fused: bool = True  # False: forward() takes multislice_dp, no kernel chain
+    # read by save.make_save_dict (model_attributes) and make_output_folder;
+    # make_model fills them
+    n_scans: Optional[int] = None
+    dk: Optional[float] = None     # [1/Ang] detector pixel
+    scan_affine: Optional[Tuple[float, float, float, float]] = None  # (scale, asym, rot, shear)
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -156,12 +161,14 @@ def _measurements(meas, device, meas_dtype: str = "float32") -> torch.Tensor:
 def make_model(init_variables: dict, model_params: Optional[dict] = None, device=None):
     """Build (params, buffers, geometry) from an init_variables dict, such
     as the Initializer's as it comes (keys this function does not read, e.g.
-    Npix, dk, meas_avg, fitRBF, scan_affine, obj_lateral_extent, are
-    ignored, as the JAX package's make_model ignores them).
+    Npix, meas_avg, fitRBF, obj_lateral_extent, are ignored, as the JAX
+    package's make_model ignores them).
 
-    Keys as in ptyrad_tpu.models.make_model: obj, probe, probe_pos_shifts,
-    obj_tilts, slice_thickness, measurements, crop_pos, omode_occu, dx,
-    lambd, N_scan_slow, N_scan_fast, optional H, the on-the-fly pad pair
+    Keys as in ptyrad_tpu.models.make_model: obj (complex; a complex128 obj
+    keeps a float32 amplitude and phase exact through abs and angle),
+    probe, probe_pos_shifts, obj_tilts, slice_thickness, measurements, crop_pos, omode_occu, dx,
+    lambd, N_scan_slow, N_scan_fast, optional H, dk and scan_affine (kept in
+    ``Geometry`` for the checkpoint), the on-the-fly pad pair
     on_the_fly_meas_padded / on_the_fly_meas_padded_idx (both or neither;
     see initialization.meas_pad_on_the_fly) and on_the_fly_meas_scale_factors
     (initialization.meas_resample_on_the_fly). ``model_params`` carries
@@ -192,6 +199,8 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     crop_pos = np.asarray(init_variables["crop_pos"], dtype=np.int32)
     omode_occu = np.asarray(init_variables["omode_occu"], dtype=np.float32)
     dx = float(np.asarray(init_variables["dx"]))
+    dk = float(np.asarray(init_variables.get("dk", 1.0 / (dx * probe.shape[-1]))))
+    scan_affine = init_variables.get("scan_affine")
     lambd = float(np.asarray(init_variables["lambd"]))
 
     params = params_from_numpy({
@@ -249,5 +258,8 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
                            else tuple(int(v) for v in np.shape(meas_padded)[-2:])),
         meas_scale_factors=None if meas_scale is None else tuple(float(s) for s in meas_scale),
         fwd_fused=model_params.get("fwd_fused") is None or bool(model_params["fwd_fused"]),
+        n_scans=int(meas.shape[0]),
+        dk=dk,
+        scan_affine=None if scan_affine is None else tuple(scan_affine),
     )
     return params, buffers, geom

@@ -40,12 +40,16 @@ def test_sources_import_no_jax_or_reference_package(path):
                                     "ops/affine.py", "physics/constants.py", "physics/probe.py",
                                     "utils/image_proc.py", "utils/nested.py", "utils/common.py",
                                     "load.py", "save.py", "native/__init__.py",
-                                    "params/__init__.py", "params/schema.py"])
+                                    "params/__init__.py", "params/schema.py", "optim.py",
+                                    "cli.py", "__main__.py", "engine/workflow.py",
+                                    "engine/solver.py", "utils/system.py", "utils/logging.py",
+                                    "models/forward.py"])
 def test_the_measurement_and_constraint_modules_are_covered(module):
     """The modules of the far-field / measurement-store slice and the host
-    modules of the params-file slice are among the sources the import check
-    walks, and torch, numpy, scipy and the standard library's os and
-    collections are all they need, besides what HOST_IMPORTS lists."""
+    modules of the params-file and saving / CLI slices are among the sources
+    the import check walks, and torch, numpy, scipy and the standard
+    library's os and collections are all they need, besides what
+    HOST_IMPORTS lists."""
     path = PACKAGE / module
     assert path in _sources()
     roots = set(_imported_roots(path))
@@ -62,7 +66,13 @@ HOST_IMPORTS = {
     "utils/nested.py": {"ast"},
     "utils/common.py": {"re", "sys", "datetime"},
     "load.py": {"time", "json", "importlib", "types", "tomllib", "tomli", "yaml", "h5py", "PIL"},
-    "save.py": {"h5py", "PIL"},
+    "save.py": {"h5py", "PIL", "shutil", "time", "datetime"},
+    "optim.py": {"re"},
+    "cli.py": {"argparse", "sys", "pathlib"},
+    "__main__.py": {"sys"},
+    "engine/solver.py": {"inspect", "time"},
+    "utils/system.py": {"platform", "shutil", "subprocess", "sys"},
+    "utils/logging.py": {"io", "logging", "sys", "datetime"},
     "native/__init__.py": {"ctypes", "subprocess"},
     "params/schema.py": {"pathlib", "pydantic"},
 }
@@ -73,8 +83,9 @@ OPTIONAL = ("pydantic", "h5py", "yaml", "PIL")
 
 def test_import_pulls_in_no_optional_host_package():
     """The card's machine may lack pydantic, h5py, yaml and PIL: importing
-    every module of the package loads none of them (the schema module,
-    which needs pydantic, is only imported by load_params(validate=True))."""
+    every module of the package (the CLI, the workflow and utils/system.py
+    included) loads none of them (the schema module, which needs pydantic,
+    is only imported by load_params(validate=True))."""
     names = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                    for p in PACKAGE.rglob("*.py") if "params" not in p.relative_to(PACKAGE).parts)
     code = (

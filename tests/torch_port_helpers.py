@@ -71,3 +71,62 @@ def assert_grad_close(actual, expected, name, atol_scale=2e-5, rtol=1e-3):
     scale = max(float(np.abs(expected).max()), 1e-6)
     np.testing.assert_allclose(np.asarray(actual), expected, atol=atol_scale * scale, rtol=rtol,
                                err_msg=f"gradient mismatch: {name}")
+
+
+_PATTERNS = {}
+
+
+def recon_params_file(tmp, name, init_over=None, optimizer_params=None, **recon_over):
+    """A params .json in ``tmp`` for tests/test_torch_initializer.py's solver
+    run (16 scans of 32² simulated through the port's forward() and stored
+    as a flipped .raw, 2 probe modes, 2 slices, batch 4, the tBL yml's Adam
+    rates) without ortho_pmode, with no figures, no time prefix, its
+    output_dir ``tmp``/out, and the given init_params, optimizer_params and
+    recon_params entries; returns its path."""
+    import json
+
+    from test_torch_initializer import simulated_patterns, solver_params, write_raw
+
+    raw = tmp / "m.raw"
+    if not raw.exists():
+        if "meas" not in _PATTERNS:
+            _PATTERNS["meas"] = simulated_patterns()
+        write_raw(raw, np.ascontiguousarray(np.flip(_PATTERNS["meas"], axis=1)))
+    d = solver_params(str(raw))
+    d["constraint_params"]["ortho_pmode"] = {"freq": None}
+    d["init_params"].update(init_over or {})
+    if optimizer_params is not None:
+        d["model_params"]["optimizer_params"] = optimizer_params
+    d["recon_params"].update({"output_dir": str(tmp / "out"), "prefix_time": False,
+                              "selected_figs": [], **recon_over})
+    path = tmp / name
+    path.write_text(json.dumps(d))
+    return path
+
+
+SOLVER_SEED = 5
+
+
+def jax_solver(path):
+    """The JAX package's solver of a params file, seeded like torch_solver's
+    (its Initializer draws from NumPy's global state); validation leaves
+    meas_params.path a pathlib.Path, which its C reader refuses. Returns
+    (solver, params)."""
+    from ptyrad_tpu.engine.solver import PtyRADSolver
+    from ptyrad_tpu.load import load_params
+
+    params = load_params(str(path))
+    meas_params = params["init_params"]["meas_params"]
+    if isinstance(meas_params, dict) and meas_params.get("path") is not None:
+        meas_params["path"] = str(meas_params["path"])
+    np.random.seed(SOLVER_SEED)
+    return PtyRADSolver(params, verbose=False), params
+
+
+def torch_solver(path):
+    """The port's solver of a params file on the CPU."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.load import load_params
+
+    return PtyRADSolver(load_params(str(path)), device="cpu", verbose=False,
+                        init_rng=np.random.RandomState(SOLVER_SEED))
