@@ -4,18 +4,24 @@ of this repository on one NVIDIA GPU, in turns.
     python3 chain_bench.py                                  # this tree
     python3 chain_bench.py --trees _ab/parent . . _ab/parent
     python3 chain_bench.py --trees _ab/old . . _ab/old --atomic-b2 _ab/old
+    python3 chain_bench.py --trees _ab/parent . . _ab/parent --atomic-b3 _ab/parent \
+        --checks check_loss_chain check_dp_chain check_fused_dh --steps tBL
 
 Each turn is a process of its own. It imports ptyrad_tpu_torch from its tree
 (which builds that tree's kernels at first use) and chip_smoke.py from this
 one, so every tree is timed on the same rows, inputs and steps:
   - chip_smoke.kernel_rows: every row of chip_smoke's kernels line (B1-B6
     with their per-position-H, dH and far-field variants, B1/B2 at the tBL
-    and PSO shapes, each checked against its plain version first),
+    and PSO shapes, each checked against its plain version first; with
+    --checks, only the rows of the named chip_smoke checks, and then no
+    propagation or launch-guard rows),
     CUDA-event medians of 20 runs, or for B1/B2 and any row under 0.1 ms
     the device time per launch of a run of 100 (chip_smoke.run_ms); B1/B2's
     host us per call and the pair launch (obja and objp at once); a tree
     named in --atomic-b2 is one from before the pair launch, whose B2 summed
-    with atomics: its B2 is held at rtol 1e-5 and it has no pair rows;
+    with atomics: its B2 is held at rtol 1e-5 and it has no pair rows; a
+    tree named in --atomic-b3 is one from before B3b/B4b's fixed-order
+    reduce, whose repeat check is reported but not required;
   - chip_smoke.propagation_yardstick: B6a's row and column pass
     (torch.profiler);
   - the launch guard's host cost, where the tree has ops._build.launch: us
@@ -25,12 +31,12 @@ one, so every tree is timed on the same rows, inputs and steps:
     on the current device; and B1 and B2's host us per call through launch
     against the same wrappers with a direct, unguarded call, in
     alternating rounds;
-  - the tBL and PSO steps: chip_smoke.profile_steps over 32 tBL and 8 PSO
-    training steps on chip_smoke's simulated data (host and device ms per
+  - the tBL and PSO steps (those named in --steps): chip_smoke.profile_steps
+    over 32 tBL and 8 PSO training steps on chip_smoke's simulated data (host and device ms per
     step, busy share, and B1's, B2's and the memsets' device ms per step).
 It prints one JSON line per turn, then per tree the median of each number
 over its turns, with the smallest and largest of each step number. With
-more than one tree it then compiles every tree's csrc/*.cu as the build
+more than one tree (and no --checks) it then compiles every tree's csrc/*.cu as the build
 does and compares the kernels' machine code (cuobjdump -sass) with the
 first tree's, kernel by kernel, with the SASS instruction classes (opcode
 before its first dot) of each kernel that differs, in both trees. Needs one
@@ -129,7 +135,7 @@ def step_profile(cs, dev, params: dict, init: dict, path: str, niter: int, n_bat
     return out
 
 
-def worker(root: str, atomic_b2: bool) -> dict:
+def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -149,23 +155,28 @@ def worker(root: str, atomic_b2: bool) -> dict:
     _build.lib()
     build_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    rows = cs.kernel_rows(dev, gen, atomic_b2)
+    all_rows = checks is None
+    rows = cs.kernel_rows(dev, gen, atomic_b2, atomic_b3, checks or cs.KERNEL_CHECKS)
     ms = {r["name"]: r["ms"] for r in rows}
     extra = {key: {r["name"]: r[key] for r in rows if key in r} for key in ("host_us", "pair_ms")}
-    yard = cs.propagation_yardstick(dev, gen)
-    torch.cuda.empty_cache()
-    guard = guard_cost(cs, dev)
-
-    init = cs.tbl_init()
-    init["measurements"] = cs.simulate(dev, init)
-    init["obj"] = np.ones_like(init["obj"])
-    tbl = step_profile(cs, dev, cs.TBL_PARAMS, init, "tBL", cs.NITER + 1, 32)
-    del init
-    torch.cuda.empty_cache()
-    pso = step_profile(cs, dev, cs.PSO_PARAMS, cs.pso_dataset(dev), "PSO", cs.PSO_NITER + 1, 8)
+    pass_ms = guard = tbl = pso = None
+    if all_rows:
+        yard = cs.propagation_yardstick(dev, gen)
+        pass_ms = {"row": yard["row_pass_ms"], "column": yard["column_pass_ms"]}
+        torch.cuda.empty_cache()
+        guard = guard_cost(cs, dev)
+    if "tBL" in steps:
+        init = cs.tbl_init()
+        init["measurements"] = cs.simulate(dev, init)
+        init["obj"] = np.ones_like(init["obj"])
+        tbl = step_profile(cs, dev, cs.TBL_PARAMS, init, "tBL", cs.NITER + 1, 32)
+        del init
+        torch.cuda.empty_cache()
+    if "PSO" in steps:
+        pso = step_profile(cs, dev, cs.PSO_PARAMS, cs.pso_dataset(dev), "PSO", cs.PSO_NITER + 1,
+                           8)
     return {"tree": root, "card": cs.gpu_line(), "build_s": build_s, "ms": ms, **extra,
-            "pass_ms": {"row": yard["row_pass_ms"], "column": yard["column_pass_ms"]},
-            "guard": guard, "tbl_step": tbl, "pso_step": pso}
+            "pass_ms": pass_ms, "guard": guard, "tbl_step": tbl, "pso_step": pso}
 
 
 def _median(values):
@@ -240,6 +251,12 @@ def main() -> int:
                     help="repository trees to time, in this order (default: this one)")
     ap.add_argument("--atomic-b2", nargs="+", default=[], metavar="TREE",
                     help="trees from before the pair launch, whose B2 sums with atomics")
+    ap.add_argument("--atomic-b3", nargs="+", default=[], metavar="TREE",
+                    help="trees from before B3b/B4b's fixed-order reduce (atomics)")
+    ap.add_argument("--checks", nargs="+", default=None, metavar="CHECK",
+                    help="only these chip_smoke kernel checks (default: every row)")
+    ap.add_argument("--steps", nargs="*", default=["tBL", "PSO"], choices=["tBL", "PSO"],
+                    help="training steps to profile (default: both)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -248,13 +265,17 @@ def main() -> int:
         if not torch.cuda.is_available():
             print("chain_bench.py: CUDA is not available", file=sys.stderr)
             return 2
-        print(json.dumps(worker(args.worker, bool(args.atomic_b2))), flush=True)
+        print(json.dumps(worker(args.worker, bool(args.atomic_b2), bool(args.atomic_b3),
+                                args.checks, args.steps)), flush=True)
         return 0
     turns = []
     for tree in args.trees:
         root = os.path.abspath(os.path.join(HERE, tree))
-        atomic = ["--atomic-b2", tree] if tree in args.atomic_b2 else []
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root, *atomic],
+        flags = ["--steps", *args.steps]
+        flags += ["--atomic-b2", tree] if tree in args.atomic_b2 else []
+        flags += ["--atomic-b3", tree] if tree in args.atomic_b3 else []
+        flags += ["--checks", *args.checks] if args.checks else []
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root, *flags],
                              cwd=root, capture_output=True, text=True)
         sys.stderr.write(out.stderr[-4000:])
         if out.returncode != 0:
@@ -273,10 +294,11 @@ def main() -> int:
                                         for k in mine[0][group]}
         summary[tree]["spread"] = {group: {k: _spread(t[group][k] for t in mine)
                                            for k in mine[0][group]}
-                                   for group in ("tbl_step", "pso_step")}
+                                   for group in ("tbl_step", "pso_step")
+                                   if mine[0][group] is not None}
     print(json.dumps({"card": turns[0]["card"], "median_by_tree": summary}), flush=True)
     roots = list(dict.fromkeys(os.path.abspath(os.path.join(HERE, t)) for t in args.trees))
-    if len(roots) > 1:
+    if len(roots) > 1 and not args.checks:
         print(json.dumps({"machine_code_vs": roots[0], "trees": compare_machine_code(roots)}))
     return 0
 

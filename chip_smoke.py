@@ -19,7 +19,9 @@ Phases, one JSON object per line each:
                scatter_add_plain on the CPU, which sums in batch order as
                the kernel does, and run twice to repeat bit for bit), their
                pair launches (obja and objp at once) against two single
-               launches, and the wrappers' host us per call; then the
+               launches, and the wrappers' host us per call; B3b and B4b
+               (fixed-order sums over modes and samples) run twice to repeat
+               bit for bit, with a per-position and a shared probe; then the
                need_dh variants: B3a/B4a on a
                per-position H and B3b/B4b with dH at tBL shapes, B5b/B6b with
                dH at PSO shapes, each for a shared and a per-position H, dH
@@ -68,10 +70,10 @@ Phases, one JSON object per line each:
                (resume_from: the tensors into init_variables, the optimizer
                state through optim.load_opt_state_values) runs iteration 3
                through recon_loop(start_niter=3) beside the uninterrupted
-               run's: the first batch's loss at rtol 1e-6, the first 8
-               batches' at 1e-5, the iteration's at 5e-3 (B3b's atomics
-               part two runs step by step; see resume_path), and a solver
-               without the restored optimizer state must miss the last two.
+               run's: the first batch's loss, the first 8 batches' and the
+               iteration's equal bit for bit (rtol 0; see resume_path), and
+               a solver without the restored optimizer state must miss the
+               last two.
                Where h5py imports, again through model_iter0002.hdf5 and
                load_ptyrad (write seconds printed); which routes ran is
                printed. B1, B2, B3a, B3b.
@@ -89,6 +91,37 @@ Phases, one JSON object per line each:
                seconds. Then validate-params (exit 0 on the .json, 1 on a
                copy with a bad key), check-gpu and print-system-info (exit
                0, naming the card), run at once.
+     determinism - the main phase and the resume phase's uninterrupted run
+               (the same 3 iterations on the same data) equal bit for bit:
+               every batch's loss terms in every iteration, the losses and
+               the final obja, objp and probe; where they part, the ops
+               torch.use_deterministic_algorithms(warn_only=True) names. The
+               low-dose phase runs its 3 iterations twice for the same check
+               through B4b.
+     lbfgs   - tBL's sections with LBFGS (history_size 10), 2 iterations: the
+               objective is the mean loss of all 512 batches, evaluated
+               again at every line-search step. Per-iteration losses,
+               line-search steps, objective evaluations and seconds; a
+               finite, falling loss, probe_pos_shifts (start_iter 10)
+               unchanged bit for bit, the first value equal to the batch
+               mean recomputed at the start (rtol 1e-6), and a second run
+               equal bit for bit (values, line-search steps, final
+               tensors). B1, B2, B3a, B3b.
+     grad_accum - Adam with grad_accumulation 4, 2 iterations: a finite,
+               falling loss, each tensor's Adam step count the batches over
+               4, patterns/s.
+     optimizers - every other registry name (AdamW with weight_decay and
+               obja from iteration 2, SGD with momentum, RMSprop, Adagrad,
+               Adamax, NAdam, RAdam, Adadelta, Rprop, ASGD, Adafactor, Muon,
+               SparseAdam), 16 tBL batches each: finite losses; one more step
+               on CUDA against the same step on CPU copies of the same
+               parameters, state and gradients at rtol 1e-5; AdamW's obja
+               unchanged bit for bit before it starts.
+     grouping - compact and sparse grouping of the 16,384 positions, one
+               iteration each: make_batches' host seconds, every index in
+               one batch, none empty, compact tighter than random and sparse
+               wider than compact; "grouping: skipped, scikit-learn missing"
+               where scikit-learn does not import.
      forward - one forward() of a batch with 2 object modes, shifted probes
                and detector blur (B4a, and B4b under autograd) against the
                plain multislice_dp, values and gradients.
@@ -144,7 +177,8 @@ Phases, one JSON object per line each:
                loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
                profile over 8 steps.
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
-plain route, tBL, params_file, resume, low-dose, tbl_store, PSO, pso_ff (with its random-start
+plain route, tBL, params_file, resume, lbfgs, grad_accum, optimizers,
+grouping, low-dose (both runs), tbl_store, PSO, pso_ff (with its random-start
 runs and the carve), tilt (its simulation included) and PSO tilt paths and
 the forward phase's kernel routes; B1/B2's rows at the tBL shapes count the
 N <= 128 runs, their rows at the PSO shapes the N = 256 runs), the
@@ -503,7 +537,18 @@ def _chain_flops(n: int, n_fft: int, nz: int) -> float:
     return n_fft * 10 * nn * np.log2(n) + (2 * nz - 1) * 6 * nn
 
 
-def check_loss_chain(dev, gen) -> list:
+def repeats_bitwise(fn, first) -> bool:
+    """Does a second call of fn() give the tensors of ``first`` bit for
+    bit? (B3b/B4b reduce over modes and samples in a fixed order.)"""
+    return all(torch.equal(a, b) for a, b in zip(first, fn()))
+
+
+def check_loss_chain(dev, gen, atomic_b3: bool = False) -> list:
+    """B3a/B3b against loss_sums_plain and its autograd VJP at tBL shapes,
+    for per-position probe spectra (the main path's case, which is timed)
+    and a shared real-space probe; B3b run twice must repeat bit for bit
+    (``atomic_b3``: a tree from before the fixed-order reduce, whose B3b
+    added with atomics; chain_bench.py --atomic-b3 times one)."""
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops.shift import fourier_shift_kspace
     from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
@@ -534,19 +579,25 @@ def check_loss_chain(dev, gen) -> list:
         s1_plain, _ = M.loss_sums_plain(*leaves, h, *args, kspace)
         cvec = torch.tensor(c, device=dev)
         g_plain = torch.autograd.grad(s1_plain, leaves, grad_outputs=cvec, retain_graph=True)
-        g_kern = M.loss_sums_bwd_cuda(obja, objp, pr, h, meas, mask, dp, cvec, p, eps,
-                                      kspace)[:3]
+        def bwd(pr=pr, dp=dp, kspace=kspace):
+            return M.loss_sums_bwd_cuda(obja, objp, pr, h, meas, mask, dp, cvec, p, eps,
+                                        kspace)[:3]
+
+        g_kern = bwd()
+        repeat = repeats_bitwise(bwd, g_kern)
         errs = [float((a - b).abs().max()) for a, b in zip(g_kern, g_plain)]
         scales = [float(b.abs().max()) for b in g_plain]
-        # 24 transforms and atomic mode sums: 1e-4 of each cotangent's largest entry
+        # 24 transforms by two FFT algorithms: 1e-4 of each cotangent's largest entry
         tols = [1e-4 * s for s in scales]
         err_bwd = max(errs)
         emit({"phase": "kernel_check", "name": "B3 loss chain", "kspace": kspace,
+              "shared_probe": not kspace,
               "s1": [float(s1k), float(s1p)], "s2": [float(s2k), float(s2p)],
               "fwd_max_abs_err": err_fwd, "fwd_tolerance": tol_fwd,
               "bwd_max_abs_err": errs, "bwd_tolerance": tols,
-              "bwd_names": ["d obja", "d objp", "d probe"]})
+              "bwd_names": ["d obja", "d objp", "d probe"], "bwd_repeats_bitwise": repeat})
         require(err_fwd <= tol_fwd, f"B3a (kspace={kspace}) differs: {err_fwd} > {tol_fwd}")
+        require(repeat or atomic_b3, f"B3b (kspace={kspace}) run twice differs")
         for name, e, t in zip(("obja", "objp", "probe"), errs, tols):
             require(e <= t, f"B3b d{name} (kspace={kspace}) differs: {e} > {t}")
         results[kspace] = (pr, dp, err_fwd, err_bwd, s1_plain, leaves, cvec)
@@ -585,10 +636,11 @@ def check_loss_chain(dev, gen) -> list:
     return [fwd, bwd]
 
 
-def check_dp_chain(dev, gen) -> list:
+def check_dp_chain(dev, gen, atomic_b3: bool = False) -> list:
     """B4a/B4b against multislice_dp_plain and its autograd VJP at tBL
     shapes, for per-position probe spectra (the low-dose path's case, which
-    is timed) and a shared real-space probe."""
+    is timed) and a shared real-space probe; B4b run twice must repeat bit
+    for bit (``atomic_b3`` as in check_loss_chain)."""
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops.shift import fourier_shift_kspace
     from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
@@ -612,17 +664,22 @@ def check_dp_chain(dev, gen) -> list:
         # largest intensity, as for B3
         tol_fwd = 1e-4 * float(dp_p.detach().abs().max())
         g_plain = torch.autograd.grad(dp_p, leaves, grad_outputs=g, retain_graph=True)
-        g_kern = M.dp_bwd_cuda(obja, objp, pr, h, g, kspace)[:3]
+        def bwd(pr=pr, kspace=kspace):
+            return M.dp_bwd_cuda(obja, objp, pr, h, g, kspace)[:3]
+
+        g_kern = bwd()
+        repeat = repeats_bitwise(bwd, g_kern)
         errs = [float((a - b).abs().max()) for a, b in zip(g_kern, g_plain)]
-        # 24 transforms and atomic sums over modes (and over samples for a
-        # shared probe), in a run-dependent order: 1e-4 of each cotangent's
-        # largest entry
+        # 24 transforms by two FFT algorithms, sums over modes (and over
+        # samples for a shared probe) in another order: 1e-4 of each
+        # cotangent's largest entry
         tols = [1e-4 * float(b.abs().max()) for b in g_plain]
         emit({"phase": "kernel_check", "name": "B4 dp chain", "kspace": kspace,
               "shared_probe": not kspace, "fwd_max_abs_err": err_fwd, "fwd_tolerance": tol_fwd,
               "bwd_max_abs_err": errs, "bwd_tolerance": tols,
-              "bwd_names": ["d obja", "d objp", "d probe"]})
+              "bwd_names": ["d obja", "d objp", "d probe"], "bwd_repeats_bitwise": repeat})
         require(err_fwd <= tol_fwd, f"B4a (kspace={kspace}) differs: {err_fwd} > {tol_fwd}")
+        require(repeat or atomic_b3, f"B4b (kspace={kspace}) run twice differs")
         for name, e, t in zip(("obja", "objp", "probe"), errs, tols):
             require(e <= t, f"B4b d{name} (kspace={kspace}) differs: {e} > {t}")
         results[kspace] = (pr, err_fwd, max(errs), dp_p, leaves)
@@ -869,8 +926,8 @@ def tilted_h(h: torch.Tensor, tilts: torch.Tensor, dx: float, dz: float) -> torc
 
 def _grad_errs(kern, plain) -> tuple[list, list]:
     """Max abs error of each cotangent and its tolerance, 1e-4 of the plain
-    cotangent's largest entry (float32 chains by two FFT algorithms; atomic
-    mode sums for d obja/objp/probe in B3b/B4b, fixed-order sums for dH)."""
+    cotangent's largest entry (float32 chains by two FFT algorithms; the
+    kernels' sums over modes and samples run in another fixed order)."""
     return ([float((a - b).abs().max()) for a, b in zip(kern, plain)],
             [1e-4 * float(b.abs().max()) for b in plain])
 
@@ -1363,9 +1420,11 @@ def main_path(dev, card: str):
 
     solver = PtyRADSolver(TBL_PARAMS, init_variables=init, device=dev, verbose=True)
     torch.cuda.reset_peak_memory_stats()
+    record = RunRecord()
     t1 = time.perf_counter()
-    launches = drive(solver)
+    launches = counted(lambda: solver.run(callback=record))[1]
     run_s = time.perf_counter() - t1
+    record.finish(solver)
 
     losses = [v for _, v in solver.history.loss_iters]
     times = solver.history.iter_times
@@ -1380,7 +1439,79 @@ def main_path(dev, card: str):
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for name in TBL_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the tBL path")
-    return solver, launches, init
+    return solver, launches, init, record
+
+
+# -- determinism (fault C9): two runs of a path equal bit for bit ---------------
+
+class RunRecord:
+    """A solver callback that keeps every iteration's per-batch loss terms;
+    ``finish`` keeps the final obja, objp and probe on the host."""
+
+    def __init__(self):
+        self.batch_terms = {}
+        self.losses = []
+        self.tensors = {}
+
+    def __call__(self, niter, params, history):
+        self.batch_terms[niter] = {k: list(v) for k, v in history.batch_terms.items()}
+
+    def finish(self, solver):
+        self.losses = [v for _, v in solver.history.loss_iters]
+        self.tensors = {k: getattr(solver.params, k).detach().cpu().clone()
+                        for k in ("obja", "objp", "probe")}
+
+
+def _max_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))) if a.size else 0.0
+
+
+def nondeterministic_ops(solver, niter: int) -> list:
+    """What torch.use_deterministic_algorithms(True, warn_only=True) names
+    while the solver runs 2 batches: the ops with no deterministic CUDA
+    implementation on the path (the diagnostic when two runs part)."""
+    import warnings
+
+    idx = torch.as_tensor(solver.batch_idx[:2], device=solver.device)
+    mask = torch.as_tensor(solver.batch_mask[:2], device=solver.device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            solver.train_epoch(idx, mask, niter)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0][:200] for w in caught})
+
+
+def determinism_check(path: str, card: str, first: RunRecord, second: RunRecord,
+                      solver=None) -> None:
+    """Two runs of a path (same data, same sections, one process) must give
+    the same per-batch loss terms in every iteration, the same losses and
+    the same final obja, objp and probe, bit for bit: B3b/B4b reduce over
+    modes and samples in a fixed order and B2 sums in batch order. Where
+    they part, the ops torch's deterministic mode warns about are named
+    (``solver``: a solver of the path to run them on)."""
+    iters = sorted(first.batch_terms)
+    batches_equal = {n: first.batch_terms[n] == second.batch_terms.get(n) for n in iters}
+    tensors_equal = {k: torch.equal(first.tensors[k], second.tensors[k]) for k in first.tensors}
+    out = {"phase": "determinism", "path": path, "card": card, "iterations": iters,
+           "losses": [first.losses, second.losses],
+           "losses_equal": first.losses == second.losses,
+           "batch_terms_equal": batches_equal, "tensors_equal": tensors_equal,
+           "batch_terms_max_rel_diff": {
+               n: max(_max_rel(first.batch_terms[n][k], second.batch_terms[n][k])
+                      for k in first.batch_terms[n]) for n in iters},
+           "tensors_max_rel_diff": {k: _max_rel(first.tensors[k].abs().numpy(),
+                                                second.tensors[k].abs().numpy())
+                                    for k in first.tensors}}
+    same = out["losses_equal"] and all(batches_equal.values()) and all(tensors_equal.values())
+    if not same and solver is not None:
+        out["nondeterministic_ops"] = nondeterministic_ops(solver, iters[-1])
+    emit(out)
+    require(same, f"determinism ({path}): two runs differ: {out}")
 
 
 # -- the resume phase: a checkpoint of iteration 2 continues at iteration 3 ------
@@ -1421,9 +1552,314 @@ def batch_totals(history) -> np.ndarray:
     return np.sum([np.asarray(v) for v in history.batch_terms.values()], axis=0)
 
 
+# -- the optimizer phases (A5): LBFGS, accumulation, every family, grouping ----
+
+LBFGS_NITER = 2          # iterations of each of the lbfgs phase's two runs
+GRAD_ACCUM, GRAD_ACCUM_NITER = 4, 2
+FAMILY_BATCHES = 16      # batches each optimizer family runs
+# every registry name but Adam (the main phase's) and LBFGS (its own phase),
+# with the configs of a torch-named params file
+FAMILIES = (("AdamW", {"weight_decay": 0.1}), ("SGD", {"momentum": 0.9}), ("RMSprop", {}),
+            ("Adagrad", {}), ("Adamax", {}), ("NAdam", {}), ("RAdam", {}), ("Adadelta", {}),
+            ("Rprop", {}), ("ASGD", {}), ("Adafactor", {}), ("Muon", {}), ("SparseAdam", {}))
+FAMILY_RTOL = 1e-5       # one step on CUDA against the same step on the CPU
+# seconds each of these phases is expected to take on the card (PERF.md §6)
+PREDICTED_S = {"lbfgs": (10, 60), "grad_accum": (8, 20), "optimizers": (0, 20),
+               "grouping": (5, 30)}
+
+
+def with_optimizer(params: dict, optimizer_params: dict, **recon) -> dict:
+    out = copy.deepcopy(params)
+    out["model_params"]["optimizer_params"] = optimizer_params
+    out["recon_params"].update(recon)
+    return out
+
+
+def lbfgs_run(dev, init: dict, niter: int):
+    """tBL's own sections with LBFGS (history_size 10) for niter iterations:
+    (solver, launches, the parameters after the last iteration on the
+    host)."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    params = with_optimizer(TBL_PARAMS, {"name": "LBFGS", "configs": {"history_size": 10}},
+                            NITER=niter)
+    solver = PtyRADSolver(params, init_variables=init, device=dev, verbose=True)
+    _, launches = counted(solver.run)
+    return solver, launches, {k: t.detach().cpu().clone() for k, t in solver.params.named()}
+
+
+def batch_mean_loss(solver) -> float:
+    """The mean of the per-batch losses at the solver's parameters (no
+    gradient), summed in batch order as the LBFGS objective sums them."""
+    from ptyrad_tpu_torch.engine.solver import loss_fn
+
+    acc = torch.zeros((), dtype=torch.float32, device=solver.device)
+    with torch.no_grad():
+        for i, m in zip(solver.batch_idx, solver.batch_mask):
+            acc = acc + loss_fn(solver.params, solver.buffers, solver.geom,
+                                torch.as_tensor(i, device=solver.device),
+                                torch.as_tensor(m, device=solver.device), solver.loss_params)[0]
+    return float(acc / len(solver.batch_idx))
+
+
+def lbfgs_path(dev, card: str, init: dict) -> dict:
+    """LBFGS at tBL full width through B1, B2, B3a and B3b: the objective is
+    the mean loss over all 512 batches (one backward per batch), and each
+    iteration runs the zoom line search, every step of which evaluates it
+    again. Gates: a finite, falling loss; probe_pos_shifts (start_iter 10)
+    unchanged bit for bit; the first objective value equal to the batch
+    mean recomputed at the start parameters (rtol 1e-6); a second run
+    (its values, line-search steps, evaluations and final parameters) equal
+    to the first bit for bit, which needs B3b's fixed-order reduce."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.optim_lbfgs import LBFGS
+
+    t0 = time.perf_counter()
+    probe = PtyRADSolver(TBL_PARAMS, init_variables=init, device=dev, verbose=False)
+    probe.prepare()
+    start_mean = batch_mean_loss(probe)
+    shifts0 = probe.params.probe_pos_shifts.detach().cpu().clone()
+    del probe
+    solver, launches, final = lbfgs_run(dev, init, LBFGS_NITER)
+    first_s = time.perf_counter() - t0
+    h = solver.history
+    losses = [v for _, v in h.loss_iters]
+    steps = [(s, e) for _, s, e in h.linesearch]
+    shifts = solver.params.probe_pos_shifts.detach().cpu()
+    require(isinstance(solver.optimizer, LBFGS), "lbfgs: the solver did not build LBFGS")
+    del solver
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    again, counts, again_final = lbfgs_run(dev, init, LBFGS_NITER)
+    rerun_s = time.perf_counter() - t1
+    launches = add_counts(launches, counts)
+    rerun = {"losses": [v for _, v in again.history.loss_iters],
+             "linesearch": [(s, e) for _, s, e in again.history.linesearch]}
+    same = (rerun["losses"] == losses and rerun["linesearch"] == steps
+            and all(torch.equal(final[k], again_final[k]) for k in final))
+    del again
+    out = {"phase": "lbfgs", "card": card, "n_patterns": N_SCANS, "batch": BATCH,
+           "history_size": 10, "iterations": len(losses), "losses": losses,
+           "linesearch_steps": [s for s, _ in steps], "evaluations": [e for _, e in steps],
+           "iter_s": h.iter_times, "patterns_per_s_per_evaluation": [
+               N_SCANS * e / t for (_, e), t in zip(steps, h.iter_times)],
+           "first_value": losses[0], "batch_mean_at_start": start_mean,
+           "first_value_rel_diff": abs(losses[0] - start_mean) / abs(start_mean),
+           "rerun": rerun, "rerun_bitwise": same,
+           "shifts_unchanged": bool(torch.equal(shifts, shifts0)),
+           "seconds": first_s + rerun_s, "rerun_s": rerun_s,
+           "predicted_s": PREDICTED_S["lbfgs"], "launches": launches}
+    emit(out)
+    require(len(losses) == LBFGS_NITER and all(np.isfinite(losses)),
+            f"lbfgs: loss not finite: {losses}")
+    require(losses[-1] < losses[0], f"lbfgs: loss did not fall: {losses}")
+    require(out["shifts_unchanged"], "lbfgs: probe_pos_shifts moved before its start_iter")
+    require(out["first_value_rel_diff"] <= 1e-6,
+            f"lbfgs: first objective {losses[0]} is not the batch mean {start_mean}")
+    require(same, f"lbfgs: a second run differs: {rerun} against {losses}, {steps}")
+    for name in TBL_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the lbfgs path")
+    return launches
+
+
+def grad_accum_path(dev, card: str, init: dict) -> dict:
+    """Adam with grad_accumulation 4 at tBL full width: one step every 4
+    batches, the running mean carried across iterations. A finite, falling
+    loss; each tensor's Adam step count is the batches run over 4."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.optim import MultiSteps
+
+    params = with_optimizer(TBL_PARAMS, {"name": "Adam"}, NITER=GRAD_ACCUM_NITER)
+    params["recon_params"]["BATCH_SIZE"] = {"size": BATCH, "grad_accumulation": GRAD_ACCUM}
+    solver = PtyRADSolver(params, init_variables=init, device=dev, verbose=True)
+    t0 = time.perf_counter()
+    _, launches = counted(solver.run)
+    seconds = time.perf_counter() - t0
+    losses = [v for _, v in solver.history.loss_iters]
+    opt = solver.optimizer
+    n_batches = len(solver.batch_idx) * GRAD_ACCUM_NITER
+    steps = {g["name"]: float(opt.state[g["params"][0]]["step"]) for g in opt.param_groups}
+    out = {"phase": "grad_accum", "card": card, "grad_accumulation": GRAD_ACCUM,
+           "iterations": len(losses), "losses": losses, "iter_s": solver.history.iter_times,
+           "patterns_per_s": [N_SCANS / t for t in solver.history.iter_times],
+           "adam_steps": steps, "mini_step": opt.mini_step, "seconds": seconds,
+           "predicted_s": PREDICTED_S["grad_accum"], "launches": launches}
+    emit(out)
+    require(isinstance(opt, MultiSteps), "grad_accum: the optimizer is not accumulating")
+    require(len(losses) == GRAD_ACCUM_NITER and all(np.isfinite(losses)),
+            f"grad_accum: loss not finite: {losses}")
+    require(losses[-1] < losses[0], f"grad_accum: loss did not fall: {losses}")
+    require(all(v == n_batches // GRAD_ACCUM for v in steps.values()),
+            f"grad_accum: step counts {steps}, not {n_batches // GRAD_ACCUM}")
+    require(opt.mini_step == n_batches % GRAD_ACCUM, f"grad_accum: mini_step {opt.mini_step}")
+    return launches
+
+
+def _cpu_twin(solver, name: str, configs: dict, update: dict):
+    """The solver's parameters and optimizer state copied to the CPU, with
+    an optimizer of the same family over them."""
+    from ptyrad_tpu_torch.models.state import PtychoParams
+    from ptyrad_tpu_torch.optim import create_optimizer, load_opt_state_values, \
+        optim_state_values
+
+    params = PtychoParams(**{k: t.detach().cpu().clone() for k, t in solver.params.named()})
+    opt, _, _ = create_optimizer({"name": name, "configs": configs}, update, params)
+    load_opt_state_values(opt, optim_state_values(solver.optimizer))
+    return params, opt
+
+
+def optimizers_path(dev, card: str, init: dict) -> dict:
+    """Every registry name but Adam and LBFGS on the card: FAMILY_BATCHES
+    tBL batches each from the same start through B1-B3 (finite losses);
+    then one more step on CUDA and the same step on the CPU, from copies of
+    the same parameters, optimizer state and gradients, agreeing at rtol
+    1e-5 (atol 1e-5 of each tensor's largest entry: torch's foreach and
+    fused CUDA paths against the CPU's). AdamW (weight_decay 0.1) starts obja
+    at iteration 2: run at iteration 1, obja must not move at all."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver, build_train_epoch, loss_fn
+    from ptyrad_tpu_torch.optim import create_optimizer, mask_unstarted_grads, \
+        unstarted_tensors
+
+    t0 = time.perf_counter()
+    solver = PtyRADSolver(TBL_PARAMS, init_variables=init, device=dev, verbose=False)
+    solver.prepare()
+    start = {k: t.detach().clone() for k, t in solver.params.named()}
+    idx = torch.as_tensor(solver.batch_idx[:FAMILY_BATCHES + 1], device=dev)
+    mask = torch.as_tensor(solver.batch_mask[:FAMILY_BATCHES + 1], device=dev)
+    rows, launches = [], None
+    for name, configs in FAMILIES:
+        update = copy.deepcopy(TBL_PARAMS["model_params"]["update_params"])
+        if name == "AdamW":
+            update["obja"]["start_iter"] = 2
+        with torch.no_grad():
+            for k, t in solver.params.named():
+                t.copy_(start[k])
+        solver.optimizer, _, start_dict = create_optimizer(
+            {"name": name, "configs": configs}, update, solver.params)
+        epoch = build_train_epoch(solver.params, solver.buffers, solver.geom,
+                                  solver.loss_params, solver.optimizer, start_dict)
+        t1 = time.perf_counter()
+        (_, terms), counts = counted(lambda: epoch(idx[:-1], mask[:-1], 1))
+        seconds = time.perf_counter() - t1
+        launches = counts if launches is None else add_counts(launches, counts)
+        totals = np.sum([np.asarray(v) for v in terms.values()], axis=0)
+        obja_still = bool(torch.equal(solver.params.obja, start["obja"]))
+        # one more batch's gradients, then the same step on both devices
+        solver.optimizer.zero_grad(set_to_none=True)
+        loss_fn(solver.params, solver.buffers, solver.geom, idx[-1], mask[-1],
+                solver.loss_params)[0].backward()
+        mask_unstarted_grads(solver.params, 1, start_dict)
+        cpu_params, cpu_opt = _cpu_twin(solver, name, configs, update)
+        for (_, a), (_, b) in zip(solver.params.named(), cpu_params.named()):
+            b.grad = None if a.grad is None else a.grad.detach().cpu().clone()
+        for p, o in ((solver.params, solver.optimizer), (cpu_params, cpu_opt)):
+            frozen = unstarted_tensors(p, 1, start_dict)
+            kept = [t.detach().clone() for t in frozen]
+            o.step()
+            with torch.no_grad():
+                for t, k in zip(frozen, kept):
+                    t.copy_(k)
+        errs = {}
+        for (k, a), (_, b) in zip(solver.params.named(), cpu_params.named()):
+            a, b = a.detach().cpu(), b.detach()
+            scale = float(b.abs().max())
+            errs[k] = float(((a - b).abs() - FAMILY_RTOL * b.abs()).max()) / max(scale, 1e-30)
+        rows.append({"name": name, "configs": configs, "losses_first_last":
+                     [float(totals[0]), float(totals[-1])], "finite": bool(np.isfinite(totals).all()),
+                     "seconds": seconds, "cuda_vs_cpu_excess": errs,
+                     "obja_unchanged_before_start": obja_still if name == "AdamW" else None})
+    seconds = time.perf_counter() - t0
+    emit({"phase": "optimizers", "card": card, "batches": FAMILY_BATCHES, "families": rows,
+          "rtol": FAMILY_RTOL, "seconds": seconds, "predicted_s": PREDICTED_S["optimizers"],
+          "launches": launches})
+    for r in rows:
+        require(r["finite"], f"optimizers: {r['name']} gave a non-finite loss")
+        bad = {k: v for k, v in r["cuda_vs_cpu_excess"].items() if v > FAMILY_RTOL}
+        require(not bad, f"optimizers: {r['name']}'s step on CUDA differs from the CPU's: {bad}")
+    require(rows[0]["obja_unchanged_before_start"],
+            "optimizers: AdamW moved obja before its start_iter")
+    for name in TBL_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the optimizers path")
+    return launches
+
+
+def grouping_path(dev, card: str, init: dict):
+    """compact and sparse grouping of the 16,384 tBL positions (scikit-learn's
+    MiniBatchKMeans, then the max-min assignment), one iteration each: the
+    host seconds of make_batches, every index in exactly one batch, no
+    batch empty, compact batches tighter than random ones and sparse ones
+    wider (tests/test_engine.py:98-138's contract); None where scikit-learn
+    does not import."""
+    from ptyrad_tpu_torch.engine.batching import make_batches
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    if not optional_packages()["sklearn"]:
+        print("grouping: skipped, scikit-learn missing", flush=True)
+        emit({"phase": "grouping", "card": card, "skipped": "scikit-learn missing"})
+        return None
+    pos = init["crop_pos"].astype(np.float64)
+    indices = np.arange(N_SCANS)
+
+    def spread(batches):
+        return float(np.mean([np.linalg.norm(pos[b] - pos[b].mean(0), axis=1).mean()
+                              for b in batches]))
+
+    def nearest(batches):
+        """The mean over batches of each batch's smallest in-batch distance
+        (on 64 seeded batches: the pairwise table of 32 positions each)."""
+        vals = []
+        pick = np.random.default_rng(SEED).choice(len(batches), min(64, len(batches)),
+                                                  replace=False)
+        for i in sorted(pick):
+            b = pos[batches[i]]
+            d = np.linalg.norm(b[:, None] - b[None], axis=-1)
+            np.fill_diagonal(d, np.inf)
+            vals.append(d.min())
+        return float(np.mean(vals))
+
+    random_b = make_batches(indices, pos, BATCH, mode="random", seed=SEED)
+    out = {"phase": "grouping", "card": card, "n_positions": N_SCANS, "batch": BATCH,
+           "random": {"spread": spread(random_b), "nearest": nearest(random_b)}}
+    launches = None
+    t_all = time.perf_counter()
+    for mode in ("compact", "sparse"):
+        params = copy.deepcopy(TBL_PARAMS)
+        params["recon_params"].update(NITER=1, GROUP_MODE=mode)
+        solver = PtyRADSolver(params, init_variables=init, device=dev, verbose=True)
+        t0 = time.perf_counter()
+        solver.prepare()  # make_batches, then the padding
+        make_s = time.perf_counter() - t0
+        batches = [i[m > 0] for i, m in zip(solver.batch_idx, solver.batch_mask)]
+        flat = np.sort(np.concatenate(batches))
+        _, counts = counted(solver.run)
+        launches = counts if launches is None else add_counts(launches, counts)
+        loss = solver.history.loss_iters[-1][1]
+        out[mode] = {"make_batches_s": make_s, "batches": len(batches),
+                     "sizes": [int(min(map(len, batches))), int(max(map(len, batches)))],
+                     "partition": bool(np.array_equal(flat, indices)),
+                     "empty": int(sum(len(b) == 0 for b in batches)),
+                     "spread": spread(batches), "nearest": nearest(batches),
+                     "loss": loss, "iter_s": solver.history.iter_times[-1]}
+        del solver
+    out.update(seconds=time.perf_counter() - t_all, predicted_s=PREDICTED_S["grouping"],
+               launches=launches)
+    emit(out)
+    for mode in ("compact", "sparse"):
+        r = out[mode]
+        require(r["partition"] and r["empty"] == 0, f"grouping ({mode}): not a partition: {r}")
+        require(np.isfinite(r["loss"]), f"grouping ({mode}): loss not finite")
+    require(out["compact"]["spread"] < out["random"]["spread"],
+            "grouping: compact batches are not tighter than random ones")
+    require(out["sparse"]["nearest"] > out["compact"]["nearest"],
+            "grouping: sparse batches are not wider than compact ones")
+    for name in TBL_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the grouping path")
+    return launches
+
+
 # -- the params_file phase: the tBL run from its params file --------------------
 
-OPTIONAL_PACKAGES = ("pydantic", "h5py", "yaml", "PIL", "scipy")
+OPTIONAL_PACKAGES = ("pydantic", "h5py", "yaml", "PIL", "scipy", "sklearn")
 SIM_DX = 0.1494  # Ang, the simulation's pixel size (tbl_probe, tbl_init)
 RAW_GAP = 1024   # bytes after each EMPAD frame
 INIT_STAGES = ("init_cache", "_load_meas", "_process_meas", "init_calibration",
@@ -1691,32 +2127,32 @@ def params_file_path(dev, card: str, meas: np.ndarray, tmp: str) -> tuple[dict, 
 
 
 # resume gates (see resume_path): the first batch of the resumed iteration,
-# its first RESUME_BATCHES batches, and the whole iteration
-RESUME_FIRST_RTOL = 1e-6
-RESUME_BATCHES, RESUME_BATCHES_RTOL = 8, 1e-5
-RESUME_ITER_RTOL = 5e-3
+# its first RESUME_BATCHES batches, and the whole iteration; 0: bit for bit
+# (they were 1e-6, 1e-5 and 5e-3 while B3b added with atomics)
+RESUME_FIRST_RTOL = 0.0
+RESUME_BATCHES, RESUME_BATCHES_RTOL = 8, 0.0
+RESUME_ITER_RTOL = 0.0
 
 
-def resume_path(dev, card: str, init: dict, main_losses: list, tmp: str):
+def resume_path(dev, card: str, init: dict, main_losses: list, tmp: str, record: RunRecord):
     """The tBL run at full width on the main phase's data, stopped and
     resumed in process: 3 iterations whose callback takes make_save_dict's
     checkpoint of iteration 2 (with the optimizer state) from the live run;
     then a second solver from that dict alone (resume_from) runs iteration
     3 through recon_loop(start_niter=3), batch by batch beside the
-    uninterrupted run's iteration 3. B3b adds each wavefield's object
-    gradient into the patch gradients with atomicAdd (csrc/multislice.cu,
-    "dT sums over modes"), so no two runs of a step agree in the last bits,
-    and Adam turns those bits into steps of lr where a gradient is of
-    rounding size: two runs part more with every step (the phase prints
-    how far this run's iterations are from the main phase's). So the first
-    batch's loss (before any step of iteration 3: the restored parameters)
-    is held at rtol 1e-6, the first 8 batches' (the restored optimizer
-    state's first steps) at 1e-5, and the iteration's at 5e-3, above the
-    spread of two uninterrupted runs (up to 3.8e-4 on the card). A third
-    solver from the checkpoint without its optimizer state must miss the
-    last two gates: a resume that drops the state fails them. Where h5py
+    uninterrupted run's iteration 3. Every kernel of the path sums in a
+    fixed order (B2 in batch order, B3b over modes and samples), so the
+    first batch's loss (before any step of iteration 3: the restored
+    parameters), the first 8 batches' (the restored optimizer state's
+    first steps) and the iteration's are held equal bit for bit (rtol 0;
+    Adam turns a difference in the last bits of a gradient of rounding
+    size into a step of lr, so any difference would show). A third solver
+    from the checkpoint without its optimizer state must miss the last two
+    gates: a resume that drops the state fails them. Where h5py
     imports, the resume again through model_iter0002.hdf5 and load_ptyrad.
-    Returns the launch counts and the uninterrupted solver."""
+    ``record`` takes the uninterrupted run's per-batch terms and final
+    tensors (the determinism phase's second run of the main path). Returns
+    the launch counts and the uninterrupted solver."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
     from ptyrad_tpu_torch.load import load_ptyrad
     from ptyrad_tpu_torch.save import make_save_dict, save_dict_to_hdf5
@@ -1727,6 +2163,7 @@ def resume_path(dev, card: str, init: dict, main_losses: list, tmp: str):
     taken = {}
 
     def callback(niter, cur_params, history, optimizer=None):
+        record(niter, cur_params, history)
         if niter == 2:
             t0 = time.perf_counter()
             taken["ckpt"] = make_save_dict("", cur_params, solver.buffers, solver.geom, params,
@@ -1735,6 +2172,7 @@ def resume_path(dev, card: str, init: dict, main_losses: list, tmp: str):
             taken["make_save_dict_s"] = time.perf_counter() - t0
 
     _, launches = counted(lambda: solver.run(callback=callback))
+    record.finish(solver)
     losses = [v for _, v in solver.history.loss_iters]
     ref = batch_totals(solver.history)
     ckpt = taken["ckpt"]
@@ -2113,9 +2551,11 @@ def low_dose_path(dev, card: str, init: dict):
     data = low_dose_dataset(init)
     solver = PtyRADSolver(LOW_DOSE_PARAMS, init_variables=data, device=dev, verbose=True)
     torch.cuda.reset_peak_memory_stats()
+    record = RunRecord()
     t1 = time.perf_counter()
-    launches = drive(solver)
+    launches = counted(lambda: solver.run(callback=record))[1]
     run_s = time.perf_counter() - t1
+    record.finish(solver)
     losses = [v for _, v in solver.history.loss_iters]
     times = solver.history.iter_times
     emit({
@@ -2133,6 +2573,13 @@ def low_dose_path(dev, card: str, init: dict):
         require(launches[name] > 0, f"kernel {name} was not launched on the low-dose path")
     for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd"):
         require(launches[name] == 0, f"kernel {name} ran on the low-dose path")
+    # determinism through B4b: the same 3 iterations again
+    again = PtyRADSolver(LOW_DOSE_PARAMS, init_variables=data, device=dev, verbose=False)
+    second = RunRecord()
+    launches = add_counts(launches, counted(lambda: again.run(callback=second))[1])
+    second.finish(again)
+    determinism_check("low-dose (B4b)", card, record, second, again)
+    del again
     low_dose_terms_alone(dev, data)
     return solver, launches
 
@@ -2857,15 +3304,24 @@ def fused_plan(n: int) -> dict:
     return dict(zip(keys, out))
 
 
-def kernel_rows(dev, gen, atomic_b2: bool = False) -> list:
+KERNEL_CHECKS = ("check_patches", "check_loss_chain", "check_dp_chain", "check_chain",
+                 "check_fused_dh", "check_chain_dh", "check_chain_ff")
+
+
+def kernel_rows(dev, gen, atomic_b2: bool = False, atomic_b3: bool = False,
+                checks=KERNEL_CHECKS) -> list:
     """Every kernel against its plain version at the main paths' shapes, and
     its times: the rows of the kernels line (chain_bench.py times the same
-    rows; `atomic_b2` as in check_patches_at)."""
-    rows = check_patches(dev, gen, atomic_b2)
-    torch.cuda.empty_cache()
-    for check in (check_loss_chain, check_dp_chain, check_chain, check_fused_dh,
-                  check_chain_dh, check_chain_ff):
-        rows += check(dev, gen)
+    rows, or those of the named ``checks``; `atomic_b2` as in
+    check_patches_at, `atomic_b3` as in check_loss_chain)."""
+    rows = []
+    for name in checks:
+        if name == "check_patches":
+            rows += check_patches(dev, gen, atomic_b2)
+        elif name in ("check_loss_chain", "check_dp_chain"):
+            rows += globals()[name](dev, gen, atomic_b3)
+        else:
+            rows += globals()[name](dev, gen)
         torch.cuda.empty_cache()
     return rows
 
@@ -2904,7 +3360,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     plain_launches = plain_route_check(dev)
 
-    solver, tbl_launches, init = main_path(dev, card)
+    solver, tbl_launches, init, main_record = main_path(dev, card)
     main_losses = [v for _, v in solver.history.loss_iters]
     profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
     del solver
@@ -2913,10 +3369,20 @@ def main() -> int:
         params_file_launches, raw_path = params_file_path(
             dev, card, init["measurements"].cpu().numpy(), tmp)
         torch.cuda.empty_cache()
-        resume_launches, solver = resume_path(dev, card, init, main_losses, tmp)
+        resume_record = RunRecord()
+        resume_launches, solver = resume_path(dev, card, init, main_losses, tmp, resume_record)
+        determinism_check("tBL", card, main_record, resume_record, solver)
         torch.cuda.empty_cache()
         cli_path(card, tmp, raw_path, solver)
         del solver
+    torch.cuda.empty_cache()
+    lbfgs_launches = lbfgs_path(dev, card, init)
+    torch.cuda.empty_cache()
+    accum_launches = grad_accum_path(dev, card, init)
+    torch.cuda.empty_cache()
+    family_launches = optimizers_path(dev, card, init)
+    torch.cuda.empty_cache()
+    grouping_launches = grouping_path(dev, card, init)
     torch.cuda.empty_cache()
     forward_launches = forward_modes_check(dev, init)
     torch.cuda.empty_cache()
@@ -2955,7 +3421,9 @@ def main() -> int:
     solver, pso_tilt_launches = pso_tilt_path(dev, card)
     profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
     narrow = add_counts(plain_launches, tbl_launches, params_file_launches, resume_launches,
-                        forward_launches, low_dose_launches, store_launches, tilt_launches)
+                        forward_launches, low_dose_launches, store_launches, tilt_launches,
+                        lbfgs_launches, accum_launches, family_launches,
+                        *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
                       pso_tilt_launches)
     launches = add_counts(narrow, wide)

@@ -89,10 +89,13 @@
 //    its row phases; the adjoint walk's row phase for slice z reads them
 //    back at the same positions and forms dT = d chi conj(psi) and
 //    d psi = d chi conj(T) between its inverse and forward row transforms.
-//    dT sums over modes: each block adds its d(a, phi) contribution (linear
-//    in dT) into zeroed outputs with atomicAdd, and a shared probe's
-//    gradient is summed over samples the same way; the order of those adds
-//    varies from run to run.
+//    dT sums over modes, which live in different blocks: each thread reads
+//    an entry state once, so dT goes back into its slot of the stack, and
+//    dt_reduce.cuh sums the modes in mode order before it forms d(a, phi)
+//    (linear in dT). A shared probe's gradient leaves each block as a
+//    partial field (B pmode N^2 8 B = 25 MB at tBL), summed over the samples
+//    in sample order. No atomics, and no output to zero first: the
+//    backward is deterministic.
 //  * dH: the recompute's column phases store each K_z (B pmode (Nz-1) N^2
 //    8 B = 126 MB at tBL) between the forward column transform and the H
 //    multiply; the walk's column phases read it back at the same point,
@@ -109,6 +112,7 @@
 #include <cuda_runtime.h>
 
 #include "dh_reduce.cuh"
+#include "dt_reduce.cuh"
 #include "reg_fft.cuh"
 
 namespace {
@@ -236,16 +240,6 @@ template <class P, class Ex>
 __device__ __forceinline__ void store_freq(const float2 (&v)[P::kE], int t, const Ex& ex) {
   if constexpr (P::kTl > 1) ex.sync();
   static_for<0, P::kE>([&](auto i) { ex.store(regfft::dif_freq<P::kLogN>(t, i), v[i]); });
-}
-
-// d probe: stored, or summed over the samples for a shared probe
-__device__ __forceinline__ void put_probe(float2* out, float2 v, int shared_probe) {
-  if (shared_probe) {
-    atomicAdd(&out->x, v.x);
-    atomicAdd(&out->y, v.y);
-  } else {
-    *out = v;
-  }
 }
 
 // The chain from the probe through the final slice's forward row
@@ -433,10 +427,13 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __
 
 // The backward of one (sample, mode) wavefield. kLoss (B3b): the dp
 // cotangent is formed here from meas, mask, the forward's dp and c; else
-// (B4b) it is read from g. kDh (need_dh): the recompute stores each K_z in
-// kstack (B pmode, nz - 1, N, N) and the walk accumulates this wavefield's
-// sum_z U_z conj(K_z) into its dh_part field, in natural order; without it
-// both pointers are ignored.
+// (B4b) it is read from g. Leaves dT_z in place of each entry state in the
+// stack, and the probe's cotangent in d_probe (per-position probe) or in
+// this wavefield's probe_part field (shared probe); dt_reduce.cuh reduces
+// both. kDh (need_dh): the recompute stores each K_z in kstack (B pmode,
+// nz - 1, N, N) and the walk accumulates this wavefield's sum_z U_z
+// conj(K_z) into its dh_part field, in natural order; without it both
+// pointers are ignored.
 template <int LOGN, bool kLoss, bool kDh>
 __global__ void __launch_bounds__(kBwdBlock<LOGN>)
 chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
@@ -444,9 +441,9 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
                  const float* __restrict__ g, const float* __restrict__ meas,
                  const float* __restrict__ mask, const float* __restrict__ dp,
                  const float* __restrict__ c, float2* __restrict__ stack, float2* kstack,
-                 float2* dh_part, float* __restrict__ d_obja, float* __restrict__ d_objp,
-                 float2* __restrict__ d_probe, int pmode, int nz, int shared_probe,
-                 int h_shared, int kspace, float p, float eps) {
+                 float2* dh_part, float2* __restrict__ d_probe, float2* __restrict__ probe_part,
+                 int pmode, int nz, int shared_probe, int h_shared, int kspace, float p,
+                 float eps) {
   using P = FPlan<LOGN, kBwdThreads>;
   constexpr int kN = P::kN, kE = P::kE, kTl = P::kTl, kNN = P::kNN;
   constexpr float kInvNN = 1.0f / kNN;
@@ -490,14 +487,14 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   });
   __syncthreads();
 
-  float* da_b = d_obja + static_cast<size_t>(b) * nz * kNN;
-  float* dphi_b = d_objp + static_cast<size_t>(b) * nz * kNN;
-  float2* out = d_probe + pr_off;
+  float2* out = shared_probe ? probe_part + static_cast<size_t>(blockIdx.x) * kNN
+                             : d_probe + pr_off;
   for (int z = nz - 1; z >= 0; --z) {
     const bool probe_rows = z == 0 && !kspace;  // d probe leaves from the row phase
     // the inverse row transform (of the far field's adjoint or the adjoint
-    // propagation): d chi; dT against the entry state; d psi = d chi conj(T);
-    // the forward row transform of the adjoint propagation to slice z - 1
+    // propagation): d chi; dT against the entry state, stored in its slot;
+    // d psi = d chi conj(T); the forward row transform of the adjoint
+    // propagation to slice z - 1
     for_rows<P>(smem, [&](int y, int t, const auto& ex) {
       float2 v[kE];
       load_freq<P>(v, t, ex);
@@ -508,15 +505,11 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
         float sn, cs;
         sincosf(phi_b[k], &sn, &cs);
         const float a = a_b[k];
-        const float2 dt = cmul_conj(v[m], st[k]);  // dT = d chi conj(psi)
-        atomicAdd(da_b + k, dt.x * cs + dt.y * sn);
-        atomicAdd(dphi_b + k, a * (dt.y * cs - dt.x * sn));
+        st[k] = cmul_conj(v[m], st[k]);  // dT = d chi conj(psi)
         v[m] = cmul_conj(v[m], make_float2(a * cs, a * sn));
       });
       if (probe_rows) {
-        static_for<0, kE>([&](auto m) {
-          put_probe(out + y * kN + t + m * kTl, v[m], shared_probe);
-        });
+        static_for<0, kE>([&](auto m) { out[y * kN + t + m * kTl] = v[m]; });
       } else {
         line_dif<LOGN>(v, t, ex);
         store_freq<P>(v, t, ex);
@@ -552,8 +545,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
         load_line<P>(v, t, ex);
         line_dif<LOGN>(v, t, ex);
         static_for<0, kE>([&](auto i) {
-          put_probe(out + regfft::dif_freq<LOGN>(t, i) * kN + x, cscale(v[i], kInvNN),
-                    shared_probe);
+          out[regfft::dif_freq<LOGN>(t, i) * kN + x] = cscale(v[i], kInvNN);
         });
       });
     }
@@ -590,26 +582,22 @@ cudaError_t launch_chain_fwd(const float* obja, const float* objp, const float2*
   });
 }
 
-// Zeroes the outputs the backward accumulates into with atomics, then
-// launches it; with dh (need_dh), then reduces the partials into dh (zero
-// for a single slice, which propagates nowhere).
+// Launches the backward, then the fixed-order reduces of dt_reduce.cuh
+// (the object cotangents; a shared probe's); with dh (need_dh), then
+// reduces the partials into dh (zero for a single slice, which propagates
+// nowhere).
 template <bool kLoss>
 cudaError_t launch_chain_bwd(const float* obja, const float* objp, const float2* probe,
                              const float2* h, const float* g, const float* meas,
                              const float* mask, const float* dp, const float* c, float2* stack,
                              float2* kstack, float2* dh_part, float2* dh, float* d_obja,
-                             float* d_objp, float2* d_probe, int B, int pmode, int nz, int logn,
-                             int shared_probe, int h_shared, int kspace, float p, float eps,
-                             cudaStream_t st) {
+                             float* d_objp, float2* d_probe, float2* probe_part, int B, int pmode,
+                             int nz, int logn, int shared_probe, int h_shared, int kspace,
+                             float p, float eps, cudaStream_t st) {
   REGFFT_TRY(prepare(logn));
   const size_t nn = size_t(1) << (2 * logn);
-  const size_t obj_bytes = sizeof(float) * static_cast<size_t>(B) * nz * nn;
   const bool with_dh = dh != nullptr && nz > 1;
-  REGFFT_TRY(cudaMemsetAsync(d_obja, 0, obj_bytes, st));
-  REGFFT_TRY(cudaMemsetAsync(d_objp, 0, obj_bytes, st));
-  if (shared_probe) {
-    REGFFT_TRY(cudaMemsetAsync(d_probe, 0, sizeof(float2) * static_cast<size_t>(pmode) * nn, st));
-  }
+  if (shared_probe && probe_part == nullptr) return cudaErrorInvalidValue;
   if (dh != nullptr && !with_dh) {
     REGFFT_TRY(cudaMemsetAsync(dh, 0, sizeof(float2) * (h_shared ? 1 : B) * nn, st));
   }
@@ -619,10 +607,12 @@ cudaError_t launch_chain_bwd(const float* obja, const float* objp, const float2*
     // without dH the instantiation that never touches the dH scratch
     auto kernel = with_dh ? chain_bwd_kernel<kL, kLoss, true> : chain_bwd_kernel<kL, kLoss, false>;
     kernel<<<B * pmode, P::kThreads, P::kSmem, st>>>(
-        obja, objp, probe, h, g, meas, mask, dp, c, stack, kstack, dh_part, d_obja, d_objp,
-        d_probe, pmode, nz, shared_probe, h_shared, kspace, p, eps);
+        obja, objp, probe, h, g, meas, mask, dp, c, stack, kstack, dh_part, d_probe, probe_part,
+        pmode, nz, shared_probe, h_shared, kspace, p, eps);
     return cudaGetLastError();
   }));
+  REGFFT_TRY(dt::obj(stack, obja, objp, d_obja, d_objp, B, pmode, nz, nn, st));
+  if (shared_probe) REGFFT_TRY(dt::probe(probe_part, d_probe, B, pmode, nn, st));
   if (!with_dh) return cudaSuccess;
   return dh::reduce(dh_part, dh, B, pmode, h_shared, logn, st);
 }
@@ -653,20 +643,22 @@ int ptyrad_dp_fwd(const float* obja, const float* objp, const float2* probe, con
 }
 
 // B4b. As ptyrad_dp_fwd, plus g (B, N, N) the dp cotangent, corner-centred,
-// and stack (B, pmode, nz, N, N) complex64 scratch. Writes d_obja, d_objp
-// (B, 1, nz, N, N) and d_probe (the probe's shape); all three are zeroed
-// here where they accumulate. With dh (H's shape) not null it also writes
-// the propagator cotangent, through the scratches kstack (B, pmode, nz - 1,
-// N, N) and dh_part (B, pmode, N, N).
+// stack (B, pmode, nz, N, N) complex64 scratch and, for a shared probe,
+// probe_part (B, pmode, N, N) complex64 scratch (else null). Writes d_obja,
+// d_objp (B, 1, nz, N, N) and d_probe (the probe's shape), each summed in a
+// fixed order. With dh (H's shape) not null it also writes the propagator
+// cotangent, through the scratches kstack (B, pmode, nz - 1, N, N) and
+// dh_part (B, pmode, N, N).
 int ptyrad_dp_bwd(const float* obja, const float* objp, const float2* probe, const float2* h,
                   const float* g, float2* stack, float2* kstack, float2* dh_part, float2* dh,
-                  float* d_obja, float* d_objp, float2* d_probe, int B, int pmode, int nz,
-                  int logn, int shared_probe, int h_shared, int kspace, void* stream) {
+                  float* d_obja, float* d_objp, float2* d_probe, float2* probe_part, int B,
+                  int pmode, int nz, int logn, int shared_probe, int h_shared, int kspace,
+                  void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chain_bwd<false>(
       obja, objp, probe, h, g, nullptr, nullptr, nullptr, nullptr, stack, kstack, dh_part, dh,
-      d_obja, d_objp, d_probe, B, pmode, nz, logn, shared_probe, h_shared, kspace, 1.0f, 0.0f,
-      static_cast<cudaStream_t>(stream)));
+      d_obja, d_objp, d_probe, probe_part, B, pmode, nz, logn, shared_probe, h_shared, kspace,
+      1.0f, 0.0f, static_cast<cudaStream_t>(stream)));
 }
 
 // B3a. As ptyrad_dp_fwd, plus meas (B, N, N) f32 corner-centred and mask
@@ -693,19 +685,19 @@ int ptyrad_loss_fwd(const float* obja, const float* objp, const float2* probe, c
 }
 
 // B3b. As ptyrad_loss_fwd, plus dp (the forward's residual), c (scalar
-// cotangent of s1, on the device) and stack (B, pmode, nz, N, N) complex64
-// scratch. Writes d_obja, d_objp, d_probe and (with dh) the propagator
-// cotangent as ptyrad_dp_bwd does.
+// cotangent of s1, on the device), stack (B, pmode, nz, N, N) complex64
+// scratch and probe_part as for ptyrad_dp_bwd. Writes d_obja, d_objp,
+// d_probe and (with dh) the propagator cotangent as ptyrad_dp_bwd does.
 int ptyrad_loss_bwd(const float* obja, const float* objp, const float2* probe, const float2* h,
                     const float* meas, const float* mask, const float* dp, const float* c,
                     float2* stack, float2* kstack, float2* dh_part, float2* dh, float* d_obja,
-                    float* d_objp, float2* d_probe, int B, int pmode, int nz, int logn,
-                    int shared_probe, int h_shared, int kspace, float p, float eps,
+                    float* d_objp, float2* d_probe, float2* probe_part, int B, int pmode, int nz,
+                    int logn, int shared_probe, int h_shared, int kspace, float p, float eps,
                     void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chain_bwd<true>(
       obja, objp, probe, h, nullptr, meas, mask, dp, c, stack, kstack, dh_part, dh, d_obja,
-      d_objp, d_probe, B, pmode, nz, logn, shared_probe, h_shared, kspace, p, eps,
+      d_objp, d_probe, probe_part, B, pmode, nz, logn, shared_probe, h_shared, kspace, p, eps,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -1,17 +1,20 @@
 """Reconstruction engine: train epoch, iteration loop, solver facade.
 
-Counterpart of ptyrad_tpu/engine/solver.py for the single-device Adam path,
-from a params dict (through the Initializer) or a prebuilt init_variables.
-Each iteration is a Python loop over the padded mini-batches: the loss
+Counterpart of ptyrad_tpu/engine/solver.py for one device, from a params
+dict (through the Initializer) or a prebuilt init_variables. Each iteration
+is a Python loop over the padded mini-batches: the loss
 (``fused_loss_terms`` when in regime, else ``forward`` + ``combined_loss``),
-backward, start-iter gating of the gradients, the Adam step; then the due
+backward, start-iter gating of the gradients, the optimizer's step (with
+``grad_accumulation`` k > 1, one step every k batches, optim.MultiSteps),
+the updates of tensors that have not started put back; then the due
 constraints. The per-batch loss terms stay on the device and reach the host
-once per iteration.
+once per iteration. LBFGS instead takes one step an iteration on the mean
+of all batch losses (``build_lbfgs_objective``, ``PtyRADSolver._lbfgs_loop``).
 
 ``optimizer_params.load_state`` resumes the optimizer from a model.hdf5
 (either package's or upstream PtyRAD's), and ``recon_loop(start_niter=)``
 continues a run at a given iteration; engine/workflow.py saves. Not in this
-slice: device meshes, LBFGS and canvas sharding (ROADMAP queue A).
+slice: device meshes and canvas sharding (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ from ptyrad_tpu_torch.initialization import Initializer
 from ptyrad_tpu_torch.losses import combined_loss
 from ptyrad_tpu_torch.models.forward import forward, fused_loss_terms, get_measurements
 from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams, make_model
-from ptyrad_tpu_torch.optim import (OptStateMismatchError, create_optimizer,
-                                    load_opt_state_hdf5, mask_unstarted_grads)
+from ptyrad_tpu_torch.optim import (OptStateMismatchError, create_optimizer, is_lbfgs,
+                                    load_opt_state_hdf5, mask_unstarted_grads, started,
+                                    unstarted_tensors)
 from ptyrad_tpu_torch.utils.logging import vprint
 
 
@@ -54,17 +58,25 @@ def build_train_epoch(params: PtychoParams, buffers: Buffers, geom: Geometry,
 
     Returns train_epoch(idx_all, mask_all, niter) -> (mean total, {term:
     per-batch values}), with idx_all/mask_all (n_batches, L) tensors on the
-    device; params are updated in place.
+    device; params are updated in place. The updates of tensors whose
+    start_iter has not come are masked as the gradients are (their values
+    are put back after the step): decoupled or coupled weight decay would
+    move them otherwise (ptyrad_tpu/engine/solver.py:84-90).
     """
 
     def train_epoch(idx_all: torch.Tensor, mask_all: torch.Tensor, niter: int):
         totals, term_rows = [], []
+        frozen = unstarted_tensors(params, niter, start_iters)
         for b in range(idx_all.shape[0]):
             optimizer.zero_grad(set_to_none=True)
             total, terms = loss_fn(params, buffers, geom, idx_all[b], mask_all[b], loss_params)
             total.backward()
             mask_unstarted_grads(params, niter, start_iters)
+            kept = [t.detach().clone() for t in frozen]
             optimizer.step()
+            with torch.no_grad():
+                for t, k in zip(frozen, kept):
+                    t.copy_(k)
             totals.append(total.detach())
             term_rows.append(torch.stack([t.detach() for t in terms.values()]))
         names = list(terms.keys())
@@ -73,6 +85,41 @@ def build_train_epoch(params: PtychoParams, buffers: Buffers, geom: Geometry,
         return float(torch.stack(totals).mean()), batch_terms
 
     return train_epoch
+
+
+def build_lbfgs_objective(params: PtychoParams, buffers: Buffers, geom: Geometry,
+                          loss_params: Optional[dict], start_iters: Dict[str, int]):
+    """The LBFGS objective (ptyrad_tpu/engine/solver.py build_lbfgs_step):
+    objective_of(idx_all, mask_all, niter)() -> (value, {name: gradient}) at
+    the live parameters, the value the mean of the per-batch losses (summed
+    in batch order in float32, then divided by the batch count) and the
+    gradient its gradient: one backward per batch with cotangent 1/n,
+    accumulated, so one batch's graph is alive at a time. Tensors that have
+    not started (freeze_unstarted_params) and tensors not optimized get a
+    zero gradient."""
+
+    def objective_of(idx_all: torch.Tensor, mask_all: torch.Tensor, niter: int):
+        n = idx_all.shape[0]
+
+        def objective():
+            for _, t in params.named():
+                t.grad = None
+            scale = torch.tensor(1.0 / n, dtype=torch.float32, device=idx_all.device)
+            acc = torch.zeros((), dtype=torch.float32, device=idx_all.device)
+            for b in range(n):
+                total, _ = loss_fn(params, buffers, geom, idx_all[b], mask_all[b], loss_params)
+                acc = acc + total.detach()
+                total.backward(scale)
+            grads = {}
+            for name, t in params.named():
+                live = t.grad is not None and started(name, niter, start_iters)
+                grads[name] = t.grad if live else torch.zeros_like(t)
+                t.grad = None
+            return acc / n, grads
+
+        return objective
+
+    return objective_of
 
 
 @dataclass
@@ -85,6 +132,8 @@ class ReconHistory:
     avg_tilt_iters: List[tuple] = field(default_factory=list)
     term_iters: List[dict] = field(default_factory=list)
     batch_terms: Dict[str, list] = field(default_factory=dict)
+    # LBFGS: (niter, line-search steps, objective evaluations) per iteration
+    linesearch: List[tuple] = field(default_factory=list)
 
 
 def iter_batch_perm(niter: int, n_batches: int) -> np.ndarray:
@@ -189,6 +238,8 @@ class PtyRADSolver:
         self.indices = None
         self.optimizer = None
         self.train_epoch = None
+        self.lbfgs_objective = None
+        self.grad_accumulation = 1
 
     def prepare(self):
         rp = self.recon_params
@@ -198,8 +249,7 @@ class PtyRADSolver:
             im.get("subscan_slow"), im.get("subscan_fast"), mode=im.get("mode", "full"),
         )
         batch_size = int((rp.get("BATCH_SIZE", {}) or {}).get("size", 32))
-        if int((rp.get("BATCH_SIZE", {}) or {}).get("grad_accumulation", 1)) != 1:
-            raise NotImplementedError("grad_accumulation waits for ROADMAP queue A")
+        self.grad_accumulation = int((rp.get("BATCH_SIZE", {}) or {}).get("grad_accumulation", 1))
         pos = self.buffers.crop_pos.cpu().numpy()
         batches = make_batches(indices, pos, batch_size, mode=rp.get("GROUP_MODE", "random"),
                                seed=rp.get("GROUP_MODE_SEED"))
@@ -211,7 +261,8 @@ class PtyRADSolver:
         optimizer_params = self.model_params.get("optimizer_params", {"name": "Adam"})
         self.optimizer_name = optimizer_params.get("name", "Adam")
         self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
-            optimizer_params, self.model_params.get("update_params"), self.params)
+            optimizer_params, self.model_params.get("update_params"), self.params,
+            grad_accumulation=self.grad_accumulation)
         load_state = optimizer_params.get("load_state")
         if load_state:
             if not str(load_state).endswith((".hdf5", ".h5")):
@@ -227,15 +278,54 @@ class PtyRADSolver:
             except (OSError, KeyError, ValueError) as e:
                 vprint(f"WARNING: failed to restore optimizer state from '{load_state}': {e}. "
                        "Using fresh state.")
-        self.train_epoch = build_train_epoch(
-            self.params, self.buffers, self.geom, self.loss_params, self.optimizer,
-            self.start_dict)
+        if is_lbfgs(self.optimizer_name):
+            self.lbfgs_objective = build_lbfgs_objective(
+                self.params, self.buffers, self.geom, self.loss_params, self.start_dict)
+        else:
+            self.train_epoch = build_train_epoch(
+                self.params, self.buffers, self.geom, self.loss_params, self.optimizer,
+                self.start_dict)
+
+    def _lbfgs_loop(self, n_iter: int, callback: Optional[Callable] = None,
+                    start_niter: int = 1):
+        """LBFGS iterations (ptyrad_tpu/engine/solver.py _lbfgs_loop): one
+        optimizer step an iteration on the mean loss over all batches in
+        their planned order, then the due constraints; the history records
+        the objective at the start of each step (``LBFGS Loss``), the line
+        search's steps and the objective's evaluations. callback as for
+        recon_loop."""
+        history = self.history
+        idx_all = torch.as_tensor(self.batch_idx, device=self.device)
+        mask_all = torch.as_tensor(self.batch_mask, device=self.device)
+        cb_takes_optimizer = (callback is not None
+                              and "optimizer" in inspect.signature(callback).parameters)
+        for niter in range(start_niter, start_niter + n_iter):
+            t0 = time.perf_counter()
+            value = self.optimizer.step(self.lbfgs_objective(idx_all, mask_all, niter))
+            self.constraint_fn(self.params, self.buffers, niter)
+            _sync(self.device)
+            iter_t = time.perf_counter() - t0
+            value = float(value)
+            history.loss_iters.append((niter, value))
+            history.iter_times.append(iter_t)
+            history.dz_iters.append((niter, float(self.params.slice_thickness.detach())))
+            history.avg_tilt_iters.append(
+                (niter, self.params.obj_tilts.detach().cpu().numpy().mean(0)))
+            history.linesearch.append((niter, self.optimizer.info["num_linesearch_steps"],
+                                       self.optimizer.evaluations))
+            vprint(f"Iter: {niter}, LBFGS Loss: {value:.4f}, in {iter_t:.3f} sec",
+                   verbose=self.verbose)
+            if cb_takes_optimizer:
+                callback(niter, self.params, history, optimizer=self.optimizer)
+            elif callback is not None:
+                callback(niter, self.params, history)
+        return self.params, history
 
     def reconstruct(self, callback: Optional[Callable] = None):
         n_iter = int(self.recon_params.get("NITER", 100))
         if self.batch_idx is None:
             self.prepare()
-        if self.train_epoch is None:
+        if self.optimizer is None:
             self._build()
         vprint(
             f"Starting reconstruction: {n_iter} iters, "
@@ -243,6 +333,8 @@ class PtyRADSolver:
             f"optimizer={self.optimizer_name}, device={self.device}",
             verbose=self.verbose,
         )
+        if self.lbfgs_objective is not None:
+            return self._lbfgs_loop(n_iter, callback)
         self.params, self.history = recon_loop(
             self.train_epoch, self.params, self.batch_idx, self.batch_mask, n_iter,
             self.constraint_fn, self.buffers, history=self.history, callback=callback,

@@ -57,11 +57,11 @@ SIGNATURES = {
     "ptyrad_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_scatter_add_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_dp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "ptyrad_dp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "ptyrad_dp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _P),
     "ptyrad_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    "ptyrad_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "ptyrad_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 

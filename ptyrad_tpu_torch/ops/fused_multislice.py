@@ -159,6 +159,17 @@ def _dh_scratch(b, pmode, nz, n, h, need_dh):
     return kstack, dh_part, torch.empty_like(h)
 
 
+def _bwd_scratch(b, pmode, nz, n, probe, shared):
+    """(stack, probe_part) for a backward launch: the (B, pmode, nz, N, N)
+    slice-entry stack, which the kernel overwrites with each slice's dT for
+    the fixed-order mode reduce, and a shared probe's (B, pmode, N, N)
+    per-wavefield partials (None for a per-position probe)."""
+    dev = probe.device
+    stack = torch.empty((b, pmode, nz, n, n), dtype=torch.complex64, device=dev)
+    part = torch.empty((b, pmode, n, n), dtype=torch.complex64, device=dev) if shared else None
+    return stack, part
+
+
 def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool):
     """Kernel B4a (the chain, then the mode sum in mode order): dp (B, N, N),
     corner-centred."""
@@ -188,7 +199,7 @@ def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool =
     _check("dp_bwd_cuda", _inputs(obja_p, objp_p, probe, h, g=g))
     if tuple(g.shape) != (b, n, n):
         raise ValueError(f"dp_bwd_cuda: g must be ({b}, {n}, {n}), got {tuple(g.shape)}")
-    stack = torch.empty((b, pmode, nz, n, n), dtype=torch.complex64, device=obja_p.device)
+    stack, probe_part = _bwd_scratch(b, pmode, nz, n, probe, shared)
     d_obja = torch.empty_like(obja_p)
     d_objp = torch.empty_like(objp_p)
     d_probe = torch.empty_like(probe)
@@ -197,8 +208,8 @@ def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool =
         "ptyrad_dp_bwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), g.data_ptr(),
         stack.data_ptr(), _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h),
-        d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), b, pmode, nz, logn, shared,
-        h_shared, int(bool(probe_kspace)))
+        d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b,
+        pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)))
     _count(dp_bwd_cuda, h_shared, d_h)
     return d_obja, d_objp, d_probe, d_h
 
@@ -281,7 +292,7 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
            _inputs(obja_p, objp_p, probe, h, meas_cc=meas_cc, mask=mask, dp=dp, c=c))
     if tuple(dp.shape) != (b, n, n) or c.numel() != 1:
         raise ValueError("loss_sums_bwd_cuda: dp must be (B, N, N) and c a scalar")
-    stack = torch.empty((b, pmode, nz, n, n), dtype=torch.complex64, device=obja_p.device)
+    stack, probe_part = _bwd_scratch(b, pmode, nz, n, probe, shared)
     d_obja = torch.empty_like(obja_p)
     d_objp = torch.empty_like(objp_p)
     d_probe = torch.empty_like(probe)
@@ -291,8 +302,8 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), dp.data_ptr(), c.data_ptr(), stack.data_ptr(),
         _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h), d_obja.data_ptr(),
-        d_objp.data_ptr(), d_probe.data_ptr(), b, pmode, nz, logn, shared, h_shared,
-        int(bool(probe_kspace)), float(dp_pow), float(eps))
+        d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b, pmode, nz, logn,
+        shared, h_shared, int(bool(probe_kspace)), float(dp_pow), float(eps))
     _count(loss_sums_bwd_cuda, h_shared, d_h)
     return d_obja, d_objp, d_probe, d_h
 

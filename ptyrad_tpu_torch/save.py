@@ -3,8 +3,9 @@
 The port's own copy of ptyrad_tpu/save.py. The checkpoint (model.hdf5) has
 PtyRAD's layout, so either package, and upstream PtyRAD, resumes from the
 other's: the recursive dict-to-HDF5 writer with the "__NONE__" sentinel,
-the optimizable tensors (the probe complex), the optimizer state in
-upstream's torch layout (``optim.torch_optim_state``), the params, the model
+the optimizable tensors (the probe complex), the optimizer state
+(``optim.optim_state_values``: Adam's in upstream's torch layout, every
+other optimizer's in the JAX package's keystr layout), the params, the model
 attributes and the histories. Output folders are named from the
 configuration with the minimal/default/all affix presets, and save_results
 writes the object and probe images at every reduction, bit depth and field
@@ -187,9 +188,9 @@ def make_save_dict(output_path: str, params, buffers, geom, params_dict: dict, o
     save_optim = "optim_state" in (params_dict.get("recon_params", {}).get("save_result") or [])
     optim_state_dict = None
     if save_optim and optimizer is not None:
-        from ptyrad_tpu_torch.optim import torch_optim_state
+        from ptyrad_tpu_torch.optim import optim_state_values
 
-        optim_state_dict = torch_optim_state(optimizer)
+        optim_state_dict = optim_state_values(optimizer)
 
     return {
         "ptyrad_version": f"ptyrad_tpu_torch-{__version__}",

@@ -21,14 +21,13 @@ Tolerances: the gather copies values and the scatter sums each canvas
 element over its windows in batch order, as scatter_add_plain does on the
 CPU: both exact (tolerance 0; the scatter against the CPU, since
 index_add_ on the card sums with atomics), one or two canvases a launch,
-and the scatter repeats bit for bit. The B3 cotangents sum with atomics in
-a run-dependent order, and B3 transforms with a different FFT than
-torch.fft: 1e-4 relative for s1/s2 and 1e-4 of each cotangent's largest
-entry.
+and the scatter repeats bit for bit. B3 transforms with a different FFT
+than torch.fft and sums in another order: 1e-4 relative for s1/s2 and
+1e-4 of each cotangent's largest entry.
 B4 is held the same way: dp at 1e-4 of its largest value, each cotangent at
-1e-4 of its largest entry (atomic sums over modes, and over samples for a
-shared probe). B3a and B4a sum modes and samples in a fixed order and
-repeat bit for bit.
+1e-4 of its largest entry. B3a/B4a and B3b/B4b sum modes and samples in a
+fixed order (the backwards through csrc/dt_reduce.cuh) and repeat bit for
+bit.
 B5/B6 sum over modes without atomics and repeat bit for bit; they are held
 at 1e-4 of the largest entry of each output or cotangent. dH is summed in a
 fixed order by every kernel (no atomics) and repeats bit for bit; it is held
@@ -239,6 +238,25 @@ def test_loss_forward_repeats_bit_for_bit(dev, gen):
     again = M.loss_sums_fwd_cuda(obja, objp, probe, h, meas, mask, 0.5, 1e-10, True)
     for a, b in zip(first, again):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("probe_layout", ["shared", "each_kspace"])
+def test_backwards_repeat_bit_for_bit(dev, gen, probe_layout):
+    """B3b and B4b sum each mode's dT and a shared probe's samples in a
+    fixed order, without atomics: every cotangent repeats bit for bit."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    obja, objp, probe, h, meas, mask = _chain_inputs(dev, gen, 5, 6, 6, 128, probe_layout)
+    kspace = probe_layout.endswith("kspace")
+    _, _, dp = M.loss_sums_fwd_cuda(obja, objp, probe, h, meas, mask, 0.5, 1e-10, kspace)
+    c = torch.tensor(0.7, device=dev)
+    g = torch.randn(dp.shape, generator=gen, device=dev)
+    runs = [lambda: M.loss_sums_bwd_cuda(obja, objp, probe, h, meas, mask, dp, c, 0.5, 1e-10,
+                                         kspace)[:3],
+            lambda: M.dp_bwd_cuda(obja, objp, probe, h, g, kspace)[:3]]
+    for run in runs:
+        for a, b in zip(run(), run()):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_fused_kernel_plans_match_fused_plan(dev):

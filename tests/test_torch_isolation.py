@@ -43,7 +43,8 @@ def test_sources_import_no_jax_or_reference_package(path):
                                     "params/__init__.py", "params/schema.py", "optim.py",
                                     "cli.py", "__main__.py", "engine/workflow.py",
                                     "engine/solver.py", "utils/system.py", "utils/logging.py",
-                                    "models/forward.py"])
+                                    "models/forward.py", "optim_lbfgs.py",
+                                    "engine/batching.py"])
 def test_the_measurement_and_constraint_modules_are_covered(module):
     """The modules of the far-field / measurement-store slice and the host
     modules of the params-file and saving / CLI slices are among the sources
@@ -71,6 +72,7 @@ HOST_IMPORTS = {
     "cli.py": {"argparse", "sys", "pathlib"},
     "__main__.py": {"sys"},
     "engine/solver.py": {"inspect", "time"},
+    "engine/batching.py": {"sklearn"},
     "utils/system.py": {"platform", "shutil", "subprocess", "sys"},
     "utils/logging.py": {"io", "logging", "sys", "datetime"},
     "native/__init__.py": {"ctypes", "subprocess"},
@@ -78,11 +80,12 @@ HOST_IMPORTS = {
 }
 
 
-OPTIONAL = ("pydantic", "h5py", "yaml", "PIL")
+OPTIONAL = ("pydantic", "h5py", "yaml", "PIL", "sklearn")
 
 
 def test_import_pulls_in_no_optional_host_package():
-    """The card's machine may lack pydantic, h5py, yaml and PIL: importing
+    """The card's machine may lack pydantic, h5py, yaml, PIL and scikit-learn
+    (which compact/sparse grouping imports when asked for): importing
     every module of the package (the CLI, the workflow and utils/system.py
     included) loads none of them (the schema module, which needs pydantic,
     is only imported by load_params(validate=True))."""

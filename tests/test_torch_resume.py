@@ -262,12 +262,17 @@ def test_orbax_directory_is_refused(tmp_path):
         solver._build()
 
 
-def test_amsgrad_state_is_a_mismatch():
+def test_amsgrad_state_is_a_mismatch(capsys):
+    """amsgrad is a torch-only config: optax.adam has none, so both packages
+    drop it with a warning and the optimizer never keeps max_exp_avg_sq; a
+    checkpoint with no entry for the optimizer's state is a mismatch."""
     iv = toy_init(np.random.default_rng(6))
     up = {"obja": {"start_iter": 1, "lr": 1e-3}}
     params, _, _ = make_model(iv, {"update_params": up}, device=CPU)
     opt, _, _ = O.create_optimizer({"name": "Adam", "configs": {"amsgrad": True}}, up, params)
-    with pytest.raises(O.OptStateMismatchError, match="amsgrad"):
+    assert "does not support config 'amsgrad'" in capsys.readouterr().out
+    assert not opt.param_groups[0]["amsgrad"]
+    with pytest.raises(O.OptStateMismatchError, match="no checkpoint entry matches"):
         O.load_opt_state_values(opt, {"state": {}, "param_groups": []})
 
 

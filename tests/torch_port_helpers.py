@@ -130,3 +130,66 @@ def torch_solver(path):
 
     return PtyRADSolver(load_params(str(path)), device="cpu", verbose=False,
                         init_rng=np.random.RandomState(SOLVER_SEED))
+
+
+# The solver runs of the optimizer tests (tests/test_torch_optim.py,
+# test_torch_optim_resume.py, test_torch_lbfgs.py): tests/test_torch_solver.py's
+# small tBL run (16^2 patterns, 2 probe modes, 3 slices, 11 scans in batches
+# of 4, 4 and 3) without ortho_pmode, whose eigh gauge parts the packages.
+SMALL_LR = {"obja": 5.0e-4, "objp": 5.0e-4, "probe": 1.0e-4, "probe_pos_shifts": 1.0e-4}
+SMALL_CONSTRAINTS = {
+    "fix_probe_int": {"freq": 1},
+    "obj_rblur": {"freq": 1, "obj_type": "both", "kernel_size": 5, "std": 0.5},
+    "obj_zblur": {"freq": 1, "obj_type": "both", "kernel_size": 5, "std": 1.0},
+    "obja_thresh": {"freq": 1, "relax": 0, "thresh": [0.98, 1.02]},
+    "objp_postiv": {"freq": 1, "relax": 0, "mode": "clip_neg"},
+}
+
+
+def small_dataset():
+    """init_variables of the small run: measurements simulated through the
+    port's forward() from a weak phase object, then a flat object."""
+    from ptyrad_tpu_torch.models import forward, make_model
+
+    init = toy_init(np.random.default_rng(7), n_scans=11, npix=16, nz=3, pmode=2, canvas=32)
+    params, buffers, geom = make_model(init, None, device=CPU)
+    with torch.no_grad():
+        dp, _ = forward(params, buffers, geom, torch.arange(11))
+    init["measurements"] = np_(dp)
+    init["obj"] = np.ones_like(init["obj"])
+    return init
+
+
+def small_params(optimizer_params, niter=3, grad_accumulation=1, lr_scale=1.0, update=None):
+    """The small run's sections with the given optimizer (its lrs times
+    lr_scale; update entries replace update_params' own)."""
+    up = {name: {"start_iter": 1, "lr": lr * lr_scale} for name, lr in SMALL_LR.items()}
+    up["probe_pos_shifts"]["start_iter"] = 3
+    up["obj_tilts"] = {"start_iter": None, "lr": 0}
+    up["slice_thickness"] = {"start_iter": None, "lr": 0}
+    up.update(update or {})
+    return {
+        "model_params": {"optimizer_params": optimizer_params, "update_params": up},
+        "loss_params": {"loss_single": {"state": True, "weight": 1.0, "dp_pow": 0.5},
+                        "loss_sparse": {"state": True, "weight": 0.1, "ln_order": 1}},
+        "constraint_params": dict(SMALL_CONSTRAINTS),
+        "recon_params": {"NITER": niter, "GROUP_MODE": "random", "GROUP_MODE_SEED": 0,
+                         "BATCH_SIZE": {"size": 3, "grad_accumulation": grad_accumulation}},
+    }
+
+
+def both_solvers(params, init):
+    """(JAX solver, port solver on the CPU) of the same sections and
+    init_variables, neither run yet."""
+    import copy
+
+    from ptyrad_tpu.engine.solver import PtyRADSolver as JaxSolver
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    return (JaxSolver(copy.deepcopy(params), init_variables=copy.deepcopy(init), verbose=False),
+            PtyRADSolver(copy.deepcopy(params), init_variables=copy.deepcopy(init), device="cpu",
+                         verbose=False))
+
+
+def losses(solver) -> np.ndarray:
+    return np.array([v for _, v in solver.history.loss_iters])
