@@ -21,7 +21,8 @@ Phases, one JSON object per line each:
                pair launches (obja and objp at once) against two single
                launches, and the wrappers' host us per call; B3b and B4b
                (fixed-order sums over modes and samples) run twice to repeat
-               bit for bit, with a per-position and a shared probe; then the
+               bit for bit, with a per-position and a shared probe, and B3a/B3b
+               again at one slice (nz = 1, the hypertune path); then the
                need_dh variants: B3a/B4a on a
                per-position H and B3b/B4b with dH at tBL shapes, B5b/B6b with
                dH at PSO shapes, each for a shared and a per-position H, dH
@@ -91,6 +92,28 @@ Phases, one JSON object per line each:
                seconds. Then validate-params (exit 0 on the .json, 1 on a
                copy with a bad key), check-gpu and print-system-info (exit
                0, naming the card), run at once.
+     figures - the params_file phase's .raw through run_reconstruction, 2
+               iterations saved every iteration with selected_figs [loss,
+               forward, probe_r_amp, pos, group]: each plot_summary's
+               seconds (the forward figure's forward() is B4a on 2
+               patterns, one launch per save); forward_panels finite and
+               equal to the plain multislice_dp within 1e-4 of its largest
+               value; every expected PNG where matplotlib imports, else
+               "figures: drawing skipped, matplotlib missing".
+     hypertune - run_hypertune in process on the same .raw at full width
+               with demo/params/tBL_WSe2_hypertune.yml's sections (one
+               slice: B3 at nz = 1): 4 trials of 3 iterations tuning scale
+               and rotation, TPE (seed 0, 2 startup trials) and Hyperband
+               (min_resource 1, reduction_factor 2, 2 startup trials), a
+               sqlite study, objp and the loss and forward figures collated.
+               Each trial's seconds and peak memory, the best trial. No
+               trial FAILED (a failed trial's exception printed), the
+               staged re-init moved the positions, finite values, the
+               sqlite file's reports, the _error_..._tNNNN names, the last
+               trial's peak memory within 10% of the first's.
+     hypertune_cli - a second worker, ``python -m ptyrad_tpu_torch run
+               --jobid 1``, 1 trial of 2 iterations on the same study: exit
+               0, 5 trials in the study, the worker's log file.
      determinism - the main phase and the resume phase's uninterrupted run
                (the same 3 iterations on the same data) equal bit for bit:
                every batch's loss terms in every iteration, the losses and
@@ -177,8 +200,8 @@ Phases, one JSON object per line each:
                loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
                profile over 8 steps.
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
-plain route, tBL, params_file, resume, lbfgs, grad_accum, optimizers,
-grouping, low-dose (both runs), tbl_store, PSO, pso_ff (with its random-start
+plain route, tBL, params_file, resume, figures, hypertune, lbfgs,
+grad_accum, optimizers, grouping, low-dose (both runs), tbl_store, PSO, pso_ff (with its random-start
 runs and the carve), tilt (its simulation included) and PSO tilt paths and
 the forward phase's kernel routes; B1/B2's rows at the tBL shapes count the
 N <= 128 runs, their rows at the PSO shapes the N = 256 runs), the
@@ -633,7 +656,74 @@ def check_loss_chain(dev, gen, atomic_b3: bool = False) -> list:
     }
     for k in (fwd, bwd):
         emit({"phase": "kernel", **k, "note": "kspace probe, the main path's case"})
-    return [fwd, bwd]
+    return [fwd, bwd] + check_loss_chain_one_slice(obja, objp, pr, h, meas, mask, p, eps, cvec,
+                                                   atomic_b3)
+
+
+def check_loss_chain_one_slice(obja, objp, pr, h, meas, mask, p, eps, cvec,
+                               atomic_b3: bool = False) -> list:
+    """B3a/B3b at nz = 1 (the hypertune demo's obj_Nlayer: 1, no
+    propagation in the chain) against loss_sums_plain and its VJP, with the
+    per-position probe spectra of the main path, at check_loss_chain's
+    tolerances; B3b run twice must repeat bit for bit."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    n = NPIX
+    a1, p1 = obja[:, :, :1].contiguous(), objp[:, :, :1].contiguous()
+    args = (meas, mask, p, eps, True)
+    s1k, s2k, dp = M.loss_sums_fwd_cuda(a1, p1, pr, h, *args)
+    with torch.no_grad():
+        s1p, s2p = M.loss_sums_plain(a1, p1, pr, h, *args)
+    err_fwd = max(abs(float(s1k - s1p)), abs(float(s2k - s2p)))
+    tol_fwd = 1e-4 * max(abs(float(s1p)), abs(float(s2p)))
+    leaves = [t.clone().requires_grad_(True) for t in (a1, p1, pr)]
+    s1_plain, _ = M.loss_sums_plain(*leaves, h, *args)
+    g_plain = torch.autograd.grad(s1_plain, leaves, grad_outputs=cvec, retain_graph=True)
+
+    def bwd():
+        return M.loss_sums_bwd_cuda(a1, p1, pr, h, meas, mask, dp, cvec, p, eps, True)[:3]
+
+    g_kern = bwd()
+    repeat = repeats_bitwise(bwd, g_kern)
+    errs = [float((a - b).abs().max()) for a, b in zip(g_kern, g_plain)]
+    tols = [1e-4 * float(b.abs().max()) for b in g_plain]
+    emit({"phase": "kernel_check", "name": "B3 loss chain, nz = 1", "kspace": True,
+          "s1": [float(s1k), float(s1p)], "s2": [float(s2k), float(s2p)],
+          "fwd_max_abs_err": err_fwd, "fwd_tolerance": tol_fwd, "bwd_max_abs_err": errs,
+          "bwd_tolerance": tols, "bwd_names": ["d obja", "d objp", "d probe"],
+          "bwd_repeats_bitwise": repeat})
+    require(err_fwd <= tol_fwd, f"B3a (nz = 1) differs: {err_fwd} > {tol_fwd}")
+    require(repeat or atomic_b3, "B3b (nz = 1) run twice differs")
+    for name, e, t in zip(("obja", "objp", "probe"), errs, tols):
+        require(e <= t, f"B3b d{name} (nz = 1) differs: {e} > {t}")
+    n_wave = BATCH * PMODE
+    in_bytes = 4 * (a1.numel() + p1.numel() + meas.numel() + mask.numel()) \
+        + 8 * (pr.numel() + h.numel())
+    f_bound, f_by = bound(in_bytes + 8, n_wave * _chain_flops(n, 2, 1))
+    b_bytes = in_bytes + 4 * dp.numel() + 4 * (a1.numel() + p1.numel()) + 8 * pr.numel()
+    b_bound, b_by = bound(b_bytes, n_wave * 2 * _chain_flops(n, 2, 1))
+    fwd = {
+        "name": "B3a loss_sums_fwd (nz=1)", "route": "cuda",
+        "source": "ptyrad_tpu_torch/csrc/multislice.cu",
+        "replaces": "ptyrad_tpu/ops/pallas_multislice.py:548",
+        "max_abs_err": err_fwd,
+        "ms": time_ms(lambda: M.loss_sums_fwd_cuda(a1, p1, pr, h, *args)),
+        "plain_ms": time_ms(lambda: M.loss_sums_plain(a1, p1, pr, h, *args)),
+        "library_ms": None, "bound_ms": f_bound, "bound_by": f_by,
+    }
+    bwd_row = {
+        "name": "B3b loss_sums_bwd (nz=1)", "route": "cuda",
+        "source": "ptyrad_tpu_torch/csrc/multislice.cu",
+        "replaces": "ptyrad_tpu/ops/pallas_multislice.py:588",
+        "max_abs_err": max(errs),
+        "ms": time_ms(bwd),
+        "plain_ms": time_ms(lambda: torch.autograd.grad(s1_plain, leaves, grad_outputs=cvec,
+                                                        retain_graph=True)),
+        "library_ms": None, "bound_ms": b_bound, "bound_by": b_by,
+    }
+    for k in (fwd, bwd_row):
+        emit({"phase": "kernel", **k, "note": "kspace probe, one slice: the hypertune path"})
+    return [fwd, bwd_row]
 
 
 def check_dp_chain(dev, gen, atomic_b3: bool = False) -> list:
@@ -1317,7 +1407,8 @@ def kernel_counters():
     launch; `launches_h_each` those on a per-position H; `launches_dh` the
     backwards that computed dH; `launches_ff` those of B5 that took the
     far-field exit, `launches_ff_dh` its backwards that also computed dH;
-    PLAIN_ROUTE the forward() calls that took the plain torch.fft chain."""
+    `launches_nz1` those of B3 at one slice; PLAIN_ROUTE the forward() calls
+    that took the plain torch.fft chain."""
     from ptyrad_tpu_torch.ops import chain as C
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops import patches as P
@@ -1334,6 +1425,8 @@ def kernel_counters():
                       "launches_plain"),
         "B3a loss_sums_fwd (per-position H)": (M.loss_sums_fwd_cuda, "launches_h_each"),
         "B3b loss_sums_bwd (dH)": (M.loss_sums_bwd_cuda, "launches_dh"),
+        "B3a loss_sums_fwd (nz=1)": (M.loss_sums_fwd_cuda, "launches_nz1"),
+        "B3b loss_sums_bwd (nz=1)": (M.loss_sums_bwd_cuda, "launches_nz1"),
         "B4a dp_fwd (per-position H)": (M.dp_fwd_cuda, "launches_h_each"),
         "B4b dp_bwd (dH)": (M.dp_bwd_cuda, "launches_dh"),
         "B5b chain_segment_bwd (dH)": (C.segment_bwd_cuda, "launches_dh"),
@@ -1859,7 +1952,8 @@ def grouping_path(dev, card: str, init: dict):
 
 # -- the params_file phase: the tBL run from its params file --------------------
 
-OPTIONAL_PACKAGES = ("pydantic", "h5py", "yaml", "PIL", "scipy", "sklearn")
+OPTIONAL_PACKAGES = ("pydantic", "h5py", "yaml", "PIL", "scipy", "sklearn", "matplotlib",
+                     "optuna")
 SIM_DX = 0.1494  # Ang, the simulation's pixel size (tbl_probe, tbl_init)
 RAW_GAP = 1024   # bytes after each EMPAD frame
 INIT_STAGES = ("init_cache", "_load_meas", "_process_meas", "init_calibration",
@@ -2367,6 +2461,264 @@ def cli_path(card: str, tmp: str, raw_path: str, named_like) -> None:
     for k in ("check-gpu", "print-system-info"):
         require(any(gpu_name in line for _, line in results[k][1]),
                 f"cli {k} does not name the card {gpu_name}")
+
+
+# -- the figures and hypertune phases (A9) ---------------------------------------
+
+FIG_NITER = 2
+FIGS = ["loss", "forward", "probe_r_amp", "pos", "group"]
+HT_TRIALS, HT_NITER = 4, 3
+HT_CLI_NITER = 2
+HT_MEM_RTOL = 0.10  # the last trial's peak device memory against the first's
+
+
+def figures_path(dev, card: str, tmp: str, raw_path: str) -> dict:
+    """The tBL run from its params file through run_reconstruction, 2
+    iterations saved every iteration with selected_figs [loss, forward,
+    probe_r_amp, pos, group]: each plot_summary's seconds (the "forward"
+    figure's forward() is B4a on a batch of 2). Gate 1: forward_panels on
+    the first 2 indices is finite and equal to the plain multislice_dp on
+    the same patches within 1e-4 of its largest value. Gate 2, where
+    matplotlib imports: every expected PNG exists. Returns the run's launch
+    counts."""
+    import ptyrad_tpu_torch.engine.workflow as W
+    from ptyrad_tpu_torch import load as L
+    from ptyrad_tpu_torch.models import (compute_propagators, forward_route, get_obj_patches,
+                                         get_probes, multislice_dp)
+    from ptyrad_tpu_torch.visualization import forward_panels
+
+    t0 = time.perf_counter()
+    drawing = optional_packages()["matplotlib"]
+    d = tbl_params_file(raw_path)
+    d["recon_params"].update(NITER=FIG_NITER, SAVE_ITERS=1, selected_figs=FIGS,
+                             output_dir=f"{tmp}/fig_out", save_result=["objp"])
+    json_path = f"{tmp}/tbl_figs.json"
+    with open(json_path, "w", encoding="utf-8") as f:
+        json.dump(d, f)
+    params = L.load_params(json_path, validate=optional_packages()["pydantic"])
+    seconds = []
+    plot = W.plot_summary
+
+    def timed(*args, **kwargs):
+        t1 = time.perf_counter()
+        try:
+            return plot(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t1)
+
+    W.plot_summary = timed
+    try:
+        solver, launches = counted(lambda: W.run_reconstruction(
+            params, device=dev, init_rng=np.random.RandomState(SEED)))
+    finally:
+        W.plot_summary = plot
+    files = sorted(os.listdir(solver.output_path))
+    idx = torch.as_tensor(np.asarray(solver.indices)[:2], device=dev)
+    route = forward_route(solver.params, solver.geom, idx)
+    panels = forward_panels(solver.params, solver.buffers, solver.geom, idx.cpu().numpy())
+    with torch.no_grad():
+        obja_p, objp_p = get_obj_patches(solver.params, solver.buffers, solver.geom, idx)
+        ref = multislice_dp(obja_p, objp_p, get_probes(solver.params, solver.geom, idx),
+                            compute_propagators(solver.params, solver.buffers, solver.geom, idx),
+                            solver.buffers.omode_occu, solver.geom.eps).cpu().numpy()
+    dp = panels["model_dp"]
+    err = float(np.abs(dp - ref).max())
+    tol = 1e-4 * float(np.abs(ref).max())
+    want = {"summary_grouping.png"} | {f"summary_{f}_iter{i:04d}.png"
+                                       for f in FIGS[:-1] for i in range(1, FIG_NITER + 1)}
+    losses = [v for _, v in solver.history.loss_iters]
+    emit({"phase": "figures", "card": card, "seconds": time.perf_counter() - t0,
+          "matplotlib": drawing, "route": route, "plot_summary_s": seconds, "losses": losses, "pngs": [f for f in files
+                                                                  if f.endswith(".png")],
+          "panel_shapes": {k: list(v.shape) for k, v in panels.items()},
+          "max_abs_err": err, "tolerance": tol, "launches": launches})
+    require(route == "fused", f"figures: forward() of 2 patterns took the {route} route")
+    require(all(np.isfinite(v).all() for v in panels.values()), "figures: non-finite panels")
+    require(dp.shape == (2, NPIX, NPIX), f"figures: model_dp {dp.shape}")
+    require(err <= tol, f"figures: forward_panels differs from the plain chain: {err} > {tol}")
+    require(len(seconds) == FIG_NITER, f"figures: plot_summary ran {len(seconds)} times")
+    require(launches["B4a dp_fwd"] == FIG_NITER,
+            f"figures: {launches['B4a dp_fwd']} B4a launches, expected one per save")
+    for name in TBL_KERNELS:
+        require(launches[name] > 0, f"figures: kernel {name} was not launched")
+    if drawing:
+        require(want <= set(files), f"figures: missing {sorted(want - set(files))}")
+    else:
+        print("figures: drawing skipped, matplotlib missing", flush=True)
+    del solver
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hypertune_params_file(raw_path: str, tmp: str, n_trials: int, niter: int) -> dict:
+    """demo/params/tBL_WSe2_hypertune.yml on the params_file phase's .raw:
+    tbl_params_file with one slice of 12 Ang, the demo's constraints (no
+    obj_rblur), quiet trials collating objp and the loss and forward
+    figures into one folder, and its study: scale and rotation,
+    TPESampler(seed 0, 2 startup trials, the demo's multivariate, group and
+    constant_liar), HyperbandPruner(min_resource 1, reduction_factor 2, 2
+    startup trials), a sqlite file in ``tmp``."""
+    d = tbl_params_file(raw_path)
+    d["init_params"].update(obj_Nlayer=1, obj_slice_thickness=12.0)
+    d["constraint_params"]["obj_rblur"]["freq"] = None
+    d["recon_params"].update(
+        NITER=niter, SAVE_ITERS=None, output_dir=f"{tmp}/ht_out", recon_dir_affixes=[],
+        save_result=["objp"], selected_figs=["loss", "forward"], if_quiet=True,
+        result_modes={"obj_dim": [2, 3], "FOV": ["crop"], "bit": ["8"]})
+    d["hypertune_params"].update(
+        if_hypertune=True, collate_results=True, n_trials=n_trials,
+        sampler_params={"name": "TPESampler",
+                        "configs": {"seed": 0, "n_startup_trials": 2, "multivariate": True,
+                                    "group": True, "constant_liar": True}},
+        pruner_params={"name": "HyperbandPruner",
+                       "configs": {"min_resource": 1, "reduction_factor": 2,
+                                   "n_startup_trials": 2}},
+        storage_path=f"sqlite:///{tmp}/hypertune.sqlite3", study_name="tBL_WSe2")
+    return d
+
+
+class TrialRecorder:
+    """Wraps hypertune_objective for the duration of a ``with``: each
+    trial's seconds, peak device memory (the peak reset at its start), the
+    memory allocated before it, its params, crop_pos after its re-init, and
+    the exception of a trial that raised anything but TrialPruned."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        import ptyrad_tpu_torch.engine.hypertune as H
+
+        self._module, self._fn = H, H.hypertune_objective
+
+        def recorded(trial, params, init, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row = {"number": trial.number, "before_gb": torch.cuda.memory_allocated() / 1e9}
+            t0 = time.perf_counter()
+            try:
+                return self._fn(trial, params, init, **kwargs)
+            except Exception as e:
+                if "Pruned" not in type(e).__name__:
+                    row["exception"] = f"{type(e).__name__}: {e}"
+                raise
+            finally:
+                torch.cuda.synchronize()
+                row.update(seconds=time.perf_counter() - t0,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           params=dict(trial.params),
+                           crop_pos=np.array(init.init_variables["crop_pos"]))
+                self.rows.append(row)
+
+        H.hypertune_objective = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._module.hypertune_objective = self._fn
+        return False
+
+
+def hypertune_path(dev, card: str, tmp: str, raw_path: str) -> dict:
+    """run_hypertune in process on the .raw at full width (16,384 patterns
+    of 128², 6 probe modes, batch 32, one slice): 4 trials of 3 iterations
+    (hypertune_params_file), trials 3 and 4 past the TPE startup and
+    consulted by the pruner. Gates: no trial FAILED (each failed trial's
+    exception printed), every trial COMPLETE or PRUNED; each trial's
+    crop_pos differs from the previous one's (the staged re-init); every
+    completed value finite; the sqlite file holds the 4 trials with a report
+    per iteration run; the collated objp files carry the
+    _error_<value>_tNNNN names; B3a/B3b launched at one slice; the last
+    trial's peak memory within 10% of the first's. Returns the launch counts."""
+    from ptyrad_tpu_torch import load as L
+    from ptyrad_tpu_torch.engine import tuner
+    from ptyrad_tpu_torch.engine.hypertune import run_hypertune
+
+    d = hypertune_params_file(raw_path, tmp, HT_TRIALS, HT_NITER)
+    json_path = f"{tmp}/tbl_hypertune.json"
+    with open(json_path, "w", encoding="utf-8") as f:
+        json.dump(d, f)
+    params = L.load_params(json_path, validate=optional_packages()["pydantic"])
+    t0 = time.perf_counter()
+    with TrialRecorder() as rec:
+        study, launches = counted(lambda: run_hypertune(
+            params, device=dev, init_rng=np.random.RandomState(SEED), use_optuna=False))
+    seconds = time.perf_counter() - t0
+    trials = tuner.create_study("tBL_WSe2", d["hypertune_params"]["storage_path"]).trials
+    out_dir = d["recon_params"]["output_dir"]
+    files = sorted(os.listdir(out_dir))
+    best = study.best_trial
+    emit({"phase": "hypertune", "card": card, "seconds": seconds,
+          "trials": [{"number": t["number"], "state": t["state"], "value": t["value"],
+                      "params": t["params"], "reports": t["reports"]} for t in trials],
+          "trial_s": [r["seconds"] for r in rec.rows],
+          "trial_peak_gb": [r["peak_gb"] for r in rec.rows],
+          "allocated_before_trial_gb": [r["before_gb"] for r in rec.rows],
+          "best": None if best is None else {k: best[k] for k in ("number", "value", "params")},
+          "files": files, "launches": launches})
+    for r in rec.rows:
+        if "exception" in r:
+            print(f"hypertune: trial {r['number']} raised {r['exception']}", flush=True)
+    states = [t["state"] for t in trials]
+    require(len(trials) == HT_TRIALS and len(rec.rows) == HT_TRIALS,
+            f"hypertune: {len(trials)} trials in the study, {len(rec.rows)} run")
+    require(set(states) <= {"COMPLETE", "PRUNED"} and "COMPLETE" in states,
+            f"hypertune: trial states {states}")
+    # init_pos runs again in every trial (scale and rotation are tuned) and
+    # draws a new jitter (pos_scan_rand_std), so even a repeated affine moves
+    for prev, cur in zip(rec.rows, rec.rows[1:]):
+        require(not np.array_equal(prev["crop_pos"], cur["crop_pos"]),
+                f"hypertune: trial {cur['number']} kept the positions of trial "
+                f"{prev['number']}: the staged re-init did not run")
+    for t in trials:
+        niter = HT_NITER if t["state"] == "COMPLETE" else len(t["reports"])
+        require(t["value"] is not None and np.isfinite(t["value"]),
+                f"hypertune: trial {t['number']} value {t['value']}")
+        require(sorted(t["reports"], key=int) == [str(i) for i in range(1, niter + 1)],
+                f"hypertune: trial {t['number']} reports {t['reports']}")
+        stamp = f"_error_{t['value']:.5f}_t{t['number']:04d}_scale_"
+        require(any(f.startswith("objp_") and stamp in f for f in files),
+                f"hypertune: no objp file named with {stamp} in {files}")
+    for name in ("B3a loss_sums_fwd (nz=1)", "B3b loss_sums_bwd (nz=1)", "B4a dp_fwd"):
+        require(launches[name] > 0, f"hypertune: kernel {name} was not launched")
+    peaks = [r["peak_gb"] for r in rec.rows]
+    require(abs(peaks[-1] - peaks[0]) <= HT_MEM_RTOL * peaks[0],
+            f"hypertune: peak memory of the trials {peaks}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hypertune_cli_path(card: str, tmp: str, raw_path: str) -> None:
+    """A second worker on the same study: ``python -m ptyrad_tpu_torch run
+    --params_path <json> --jobid 1`` with 1 trial of 2 iterations on the
+    hypertune phase's sqlite file, as demo/scripts/LoopSubmit.sh starts
+    workers. Gates: exit 0, the study holds 5 trials, the worker's log file
+    carries its job id, the kernel library neither rebuilt nor replaced."""
+    from ptyrad_tpu_torch.engine import tuner
+    from ptyrad_tpu_torch.ops import _build
+
+    d = hypertune_params_file(raw_path, tmp, 1, HT_CLI_NITER)
+    json_path = f"{tmp}/tbl_hypertune_cli.json"
+    with open(json_path, "w", encoding="utf-8") as f:
+        json.dump(d, f)
+    build_files = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}
+    rc, lines, seconds = _run_cli(["run", "--params_path", json_path, "--jobid", "1"], 600)
+    trials = tuner.create_study("tBL_WSe2", d["hypertune_params"]["storage_path"]).trials
+    out_dir = d["recon_params"]["output_dir"]
+    logs = [f for f in os.listdir(out_dir) if f.endswith("_1_ptyrad_tpu_torch_log.txt")]
+    out = {"phase": "hypertune_cli", "card": card, "rc": rc, "seconds": seconds,
+           "trials": [[t["number"], t["state"], t["value"]] for t in trials], "logs": logs,
+           "rebuilt": build_files != {p.name: p.stat().st_mtime_ns
+                                      for p in _build.BUILD_DIR.iterdir()},
+           "tail": [line for _, line in lines[-4:]]}
+    emit(out)
+    require(rc == 0, f"hypertune_cli exited {rc}:\n{_tail(lines)}")
+    require([t["number"] for t in trials] == list(range(HT_TRIALS + 1)),
+            f"hypertune_cli: the study holds trials {[t['number'] for t in trials]}")
+    require(trials[-1]["state"] in ("COMPLETE", "PRUNED"),
+            f"hypertune_cli: the worker's trial is {trials[-1]['state']}")
+    require(len(logs) == 1, f"hypertune_cli: worker logs {logs}")
+    require(not out["rebuilt"], "hypertune_cli: the kernel library was rebuilt or replaced")
 
 
 # -- the forward() figure and the low-dose path ---------------------------------
@@ -3375,6 +3727,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         cli_path(card, tmp, raw_path, solver)
         del solver
+        torch.cuda.empty_cache()
+        figures_launches = figures_path(dev, card, tmp, raw_path)
+        hypertune_launches = hypertune_path(dev, card, tmp, raw_path)
+        hypertune_cli_path(card, tmp, raw_path)
     torch.cuda.empty_cache()
     lbfgs_launches = lbfgs_path(dev, card, init)
     torch.cuda.empty_cache()
@@ -3422,7 +3778,8 @@ def main() -> int:
     profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
     narrow = add_counts(plain_launches, tbl_launches, params_file_launches, resume_launches,
                         forward_launches, low_dose_launches, store_launches, tilt_launches,
-                        lbfgs_launches, accum_launches, family_launches,
+                        lbfgs_launches, accum_launches, family_launches, figures_launches,
+                        hypertune_launches,
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
                       pso_tilt_launches)

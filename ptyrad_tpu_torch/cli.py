@@ -3,7 +3,9 @@
     python -m ptyrad_tpu_torch <command> ...   (or the ptyrad-tpu-torch script)
 
   run               -- a reconstruction from a params file, on the card
-                       (``--device cpu`` for the plain PyTorch path)
+                       (``--device cpu`` for the plain PyTorch path), or a
+                       hypertune study when hypertune_params.if_hypertune
+                       (``--jobid`` labels the worker and its log file)
   check-gpu         -- the CUDA report; exit 1 without CUDA
   print-system-info -- platform, packages and the CUDA report
   export-meas-init  -- run the measurement initialisation and export it
@@ -12,7 +14,7 @@
 ``main()`` returns the exit code. One process on one device: ``--n_devices``
 above 1, ``--multihost`` and the three distributed flags are ROADMAP item A6
 (the distributed flags without ``--multihost`` fail at once, as in the JAX
-package), hypertune is A9, and ``bench`` belongs to the JAX package.
+package), and ``bench`` belongs to the JAX package.
 """
 
 from __future__ import annotations
@@ -57,11 +59,13 @@ def cmd_run(args) -> int:
         params = load_params(args.params_path, validate=not args.skip_validate)
         _apply_common_overrides(params, args)
         if (params.get("hypertune_params") or {}).get("if_hypertune"):
-            raise NotImplementedError("hypertune_params.if_hypertune: hypertune is not ported "
-                                      "yet (ROADMAP item A9)")
-        from ptyrad_tpu_torch.engine.workflow import run_reconstruction
+            from ptyrad_tpu_torch.engine.hypertune import run_hypertune
 
-        run_reconstruction(params, logger=logger, device=device)
+            run_hypertune(params, logger=logger, jobid=args.jobid, device=device)
+        else:
+            from ptyrad_tpu_torch.engine.workflow import run_reconstruction
+
+            run_reconstruction(params, logger=logger, device=device)
     finally:
         logger.close()
     return 0
@@ -142,7 +146,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "PyTorch path)")
     p_run.add_argument("--n_devices", type=int, default=None,
                        help="Number of devices (one; more is ROADMAP item A6)")
-    p_run.add_argument("--jobid", default="0", help="Job id label for the log file")
+    p_run.add_argument("--jobid", default="0",
+                       help="Job id label for the log file (a hypertune worker's)")
     p_run.add_argument("--skip_validate", action="store_true", help="Skip params validation")
     p_run.add_argument("--mixed_precision", action="store_true",
                        help="Set model_params.compute_dtype to bfloat16 (not ported yet: "

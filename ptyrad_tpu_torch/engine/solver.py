@@ -287,13 +287,14 @@ class PtyRADSolver:
                 self.start_dict)
 
     def _lbfgs_loop(self, n_iter: int, callback: Optional[Callable] = None,
-                    start_niter: int = 1):
+                    start_niter: int = 1, permute: bool = False):
         """LBFGS iterations (ptyrad_tpu/engine/solver.py _lbfgs_loop): one
         optimizer step an iteration on the mean loss over all batches in
-        their planned order, then the due constraints; the history records
-        the objective at the start of each step (``LBFGS Loss``), the line
-        search's steps and the objective's evaluations. callback as for
-        recon_loop."""
+        their planned order (``permute``: in iter_batch_perm's order of the
+        iteration, as the JAX package's hypertune trial passes them), then
+        the due constraints; the history records the objective at the start
+        of each step (``LBFGS Loss``), the line search's steps and the
+        objective's evaluations. callback as for recon_loop."""
         history = self.history
         idx_all = torch.as_tensor(self.batch_idx, device=self.device)
         mask_all = torch.as_tensor(self.batch_mask, device=self.device)
@@ -301,7 +302,12 @@ class PtyRADSolver:
                               and "optimizer" in inspect.signature(callback).parameters)
         for niter in range(start_niter, start_niter + n_iter):
             t0 = time.perf_counter()
-            value = self.optimizer.step(self.lbfgs_objective(idx_all, mask_all, niter))
+            idx, mask = idx_all, mask_all
+            if permute:
+                perm = iter_batch_perm(niter, self.batch_idx.shape[0])
+                idx = torch.as_tensor(self.batch_idx[perm], device=self.device)
+                mask = torch.as_tensor(self.batch_mask[perm], device=self.device)
+            value = self.optimizer.step(self.lbfgs_objective(idx, mask, niter))
             self.constraint_fn(self.params, self.buffers, niter)
             _sync(self.device)
             iter_t = time.perf_counter() - t0

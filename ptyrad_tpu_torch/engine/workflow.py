@@ -7,8 +7,10 @@ callback that saves every SAVE_ITERS iterations, then save the last
 iteration unless the callback has just saved it. A run that would save a
 checkpoint (``model`` or ``optim_state`` in save_result) checks that h5py
 imports before anything else, so a missing h5py ends the run before its
-first iteration rather than at its first save. Figures (selected_figs) are
-ROADMAP item A9: asked for, they are skipped with one warning.
+first iteration rather than at its first save. With selected_figs, the
+position grouping is drawn once the folder exists (``group`` or ``all``:
+summary_grouping.png) and visualization.plot_summary draws the summary
+figures after each SAVE_ITERS save (ptyrad_tpu/engine/workflow.py:56-103).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ptyrad_tpu_torch.engine.solver import PtyRADSolver
 from ptyrad_tpu_torch.save import (copy_params_to_dir, import_h5py, make_output_folder,
                                    save_results)
 from ptyrad_tpu_torch.utils.logging import vprint
+from ptyrad_tpu_torch.visualization import plot_summary, save_grouping_figure
 
 
 def run_reconstruction(params: dict, logger=None, verbose: Optional[bool] = None, device=None,
@@ -38,9 +41,6 @@ def run_reconstruction(params: dict, logger=None, verbose: Optional[bool] = None
     if "optim_state" in save_list and "model" not in save_list:
         vprint("WARNING: save_result holds 'optim_state' without 'model': the optimizer state "
                "is saved inside model.hdf5, so none is written")
-    if recon_params.get("selected_figs"):
-        vprint(f"WARNING: selected_figs {recon_params['selected_figs']} skipped: figures are "
-               "not ported yet (ROADMAP item A9)")
 
     solver = PtyRADSolver(params, device=device, verbose=verbose, init_rng=init_rng)
     solver.prepare()
@@ -52,6 +52,10 @@ def run_reconstruction(params: dict, logger=None, verbose: Optional[bool] = None
         copy_params_to_dir(params.get("params_path"), output_path)
     if logger is not None:
         logger.flush_to_dir(output_path)
+    selected = recon_params.get("selected_figs") or []
+    if "group" in selected or "all" in selected:
+        save_grouping_figure(output_path, solver.buffers.crop_pos.cpu().numpy(),
+                             solver.batch_idx, solver.batch_mask)
 
     save_iters = recon_params.get("SAVE_ITERS")
     last_saved = {"niter": None}
@@ -65,6 +69,10 @@ def run_reconstruction(params: dict, logger=None, verbose: Optional[bool] = None
     def callback(niter, cur_params, history, optimizer=None):
         if save_iters and niter % save_iters == 0:
             save(niter, optimizer)
+            if selected:
+                plot_summary(output_path, cur_params, solver.buffers, solver.geom, history,
+                             niter, solver.indices, selected_figs=selected,
+                             init_variables=solver.init_variables)
 
     solver.run(callback=callback)
     # the callback has already written the last iteration when it lands on

@@ -9,10 +9,13 @@ means (0 = padding sample).
   loss_pacbed : NRMSE of batch-averaged DP^p
   loss_sparse : Ln-norm sparsity of object-phase patches, omode-weighted
   loss_simlar : std across object modes of (blurred/downsampled) patches
+
+and ``objp_contrast``, hypertune's ``contrast`` error metric, on the host.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ptyrad_tpu_torch.ops.blur import gaussian_blur_2d
@@ -148,3 +151,24 @@ def combined_loss(model_dp, measured_dp, obja_patches, objp_patches, omode_occu,
                         if cfg["loss_simlar"]["state"] else zero),
     }
     return sum(terms.values()), terms
+
+
+def objp_contrast(objp, crop_pos, probe_shape, indices=None) -> float:
+    """Contrast (std/mean) of the z-summed phase inside the scanned region,
+    on host arrays (ptyrad_tpu/losses.py:187-210; reference losses.py:158-175).
+
+    The object modes are averaged first: the reference's .squeeze() leaves a
+    3D array for omode > 1 and its 2D crop then slices the (omode, Noy)
+    axes; the metric is only meaningful on a 2D phase map.
+    """
+    objp_sum = np.asarray(objp).sum(axis=1).mean(axis=0)  # (Noy, Nox)
+    pos = np.asarray(crop_pos)
+    if indices is not None:
+        pos = pos[np.asarray(indices)]
+    center = pos + np.array(probe_shape) // 2
+    y0, y1 = center[:, 0].min(), center[:, 0].max()
+    x0, x1 = center[:, 1].min(), center[:, 1].max()
+    crop = objp_sum[max(y0 - 1, 0):y1, max(x0 - 1, 0):x1]
+    lo, hi = crop.min(), crop.max()
+    norm = (crop - lo) / (hi - lo) if hi > lo else crop * 0
+    return float(np.std(norm) / (np.mean(norm) + 1e-8))

@@ -137,10 +137,13 @@ def _inputs(obja_p, objp_p, probe, h, **real):
             **{k: (t, torch.float32) for k, t in real.items()}}
 
 
-def _count(fn, h_shared, dh=None) -> None:
+def _count(fn, h_shared, nz, dh=None) -> None:
     """One launch of fn; launches_h_each counts those on a per-position H,
+    launches_nz1 those of a single slice (no propagation in the chain),
     launches_dh (backwards) those that computed dH."""
     fn.launches += 1
+    if nz == 1:
+        fn.launches_nz1 += 1
     if not h_shared:
         fn.launches_h_each += 1
     if dh is not None:
@@ -183,11 +186,11 @@ def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool):
         "ptyrad_dp_fwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), inten.data_ptr(),
         dp.data_ptr(), b, pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)))
-    _count(dp_fwd_cuda, h_shared)
+    _count(dp_fwd_cuda, h_shared, nz)
     return dp
 
 
-dp_fwd_cuda.launches = dp_fwd_cuda.launches_h_each = 0
+dp_fwd_cuda.launches = dp_fwd_cuda.launches_h_each = dp_fwd_cuda.launches_nz1 = 0
 
 
 def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool = False):
@@ -210,11 +213,12 @@ def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool =
         stack.data_ptr(), _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h),
         d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b,
         pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)))
-    _count(dp_bwd_cuda, h_shared, d_h)
+    _count(dp_bwd_cuda, h_shared, nz, d_h)
     return d_obja, d_objp, d_probe, d_h
 
 
 dp_bwd_cuda.launches = dp_bwd_cuda.launches_h_each = dp_bwd_cuda.launches_dh = 0
+dp_bwd_cuda.launches_nz1 = 0
 
 
 class _DpCuda(torch.autograd.Function):
@@ -274,11 +278,12 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
         meas_cc.data_ptr(), mask.data_ptr(), inten.data_ptr(), dp.data_ptr(),
         partial.data_ptr(), sums.data_ptr(), b, pmode, nz, logn, shared, h_shared,
         int(bool(probe_kspace)), float(dp_pow), float(eps))
-    _count(loss_sums_fwd_cuda, h_shared)
+    _count(loss_sums_fwd_cuda, h_shared, nz)
     return sums[0], sums[1], dp
 
 
 loss_sums_fwd_cuda.launches = loss_sums_fwd_cuda.launches_h_each = 0
+loss_sums_fwd_cuda.launches_nz1 = 0
 
 
 def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: float,
@@ -304,12 +309,12 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
         _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h), d_obja.data_ptr(),
         d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b, pmode, nz, logn,
         shared, h_shared, int(bool(probe_kspace)), float(dp_pow), float(eps))
-    _count(loss_sums_bwd_cuda, h_shared, d_h)
+    _count(loss_sums_bwd_cuda, h_shared, nz, d_h)
     return d_obja, d_objp, d_probe, d_h
 
 
 loss_sums_bwd_cuda.launches = loss_sums_bwd_cuda.launches_h_each = 0
-loss_sums_bwd_cuda.launches_dh = 0
+loss_sums_bwd_cuda.launches_dh = loss_sums_bwd_cuda.launches_nz1 = 0
 
 
 class _LossSumsCuda(torch.autograd.Function):

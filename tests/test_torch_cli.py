@@ -5,7 +5,8 @@ CPU at a small size, and the port's logger.
 CLI names it for the same yml), the checkpoint, the log and the params
 copy; validate-params and export-meas-init behave as the JAX commands do;
 the flags that ask for what is not ported (several devices, a distributed
-launch, bfloat16, hypertune) refuse; a run without CUDA and without
+launch, bfloat16) refuse; a params file with if_hypertune runs its study,
+its log file named with the --jobid prefix; a run without CUDA and without
 ``--device cpu`` stops with resolve_device's message; a run that would save
 a checkpoint without h5py stops before the Initializer; CustomLogger keeps
 the JAX logger's flush semantics (tests/test_logging_system.py).
@@ -148,7 +149,6 @@ FLAG_CASES = {
                              NotImplementedError, "A6"),
     "n_devices": (["--n_devices", "2"], NotImplementedError, "A6"),
     "mixed_precision": (["--mixed_precision"], NotImplementedError, "compute_dtype"),
-    "hypertune": ([], NotImplementedError, "A9"),
 }
 
 
@@ -156,13 +156,37 @@ FLAG_CASES = {
 def test_flags_for_what_is_not_ported_refuse(tmp_path, case, no_loggers):
     args, error, match = FLAG_CASES[case]
     path = recon_yml(tmp_path, "p.yml", tmp_path / "out")
-    if case == "hypertune":
-        d = yaml.safe_load(open(path))
-        d["hypertune_params"] = {"if_hypertune": True}
-        Path(path).write_text(yaml.safe_dump(d))
     with pytest.raises(error, match=match):
         main(["run", "--params_path", path, "--device", "cpu", *args])
     assert not (tmp_path / "out").exists()
+
+
+def test_run_with_if_hypertune_runs_the_study(tmp_path, no_loggers):
+    """``run --device cpu --jobid 3`` on a params file with if_hypertune: two
+    trials of the schema's default search (scale and rotation) through the
+    built-in engine into the sqlite file, the collated results in
+    output_dir, and the log there as <date>_3_ptyrad_tpu_torch_log.txt."""
+    from ptyrad_tpu_torch.engine import tuner
+
+    out = tmp_path / "out"
+    path = recon_yml(tmp_path, "p.yml", out, NITER=2, save_result=["objp"])
+    d = yaml.safe_load(open(path))
+    d["hypertune_params"] = {"if_hypertune": True, "n_trials": 2,
+                             "storage_path": str(tmp_path / "ht.db"), "study_name": "cli",
+                             "sampler_params": {"name": "RandomSampler", "configs": {"seed": 0}}}
+    Path(path).write_text(yaml.safe_dump(d))
+    assert main(["run", "--params_path", path, "--device", "cpu", "--jobid", "3"]) == 0
+    trials = tuner.create_study("cli", str(tmp_path / "ht.db")).trials
+    assert [t["number"] for t in trials] == [0, 1]
+    assert all(t["state"] == "COMPLETE" and set(t["params"]) == {"scale", "rotation"}
+               and set(t["reports"]) == {"1", "2"} for t in trials)
+    files = os.listdir(out)
+    for n in (0, 1):
+        assert any(f.startswith("objp_") and f"_t{n:04d}_scale_" in f for f in files), files
+    logs = [f for f in files if f.endswith("_3_ptyrad_tpu_torch_log.txt")]
+    assert len(logs) == 1, files
+    log = open(out / logs[0]).read()
+    assert "Starting hypertune: 2 trials, engine=builtin" in log and "Best trial: #" in log
 
 
 def test_run_without_cuda_stops_with_resolve_devices_message(tmp_path):

@@ -44,7 +44,8 @@ def test_sources_import_no_jax_or_reference_package(path):
                                     "cli.py", "__main__.py", "engine/workflow.py",
                                     "engine/solver.py", "utils/system.py", "utils/logging.py",
                                     "models/forward.py", "optim_lbfgs.py",
-                                    "engine/batching.py"])
+                                    "engine/batching.py", "engine/tuner.py",
+                                    "engine/hypertune.py", "visualization.py", "losses.py"])
 def test_the_measurement_and_constraint_modules_are_covered(module):
     """The modules of the far-field / measurement-store slice and the host
     modules of the params-file and saving / CLI slices are among the sources
@@ -73,6 +74,9 @@ HOST_IMPORTS = {
     "__main__.py": {"sys"},
     "engine/solver.py": {"inspect", "time"},
     "engine/batching.py": {"sklearn"},
+    "engine/tuner.py": {"json", "random", "sqlite3", "time", "statistics", "optuna"},
+    "engine/hypertune.py": {"copy", "optuna"},
+    "visualization.py": {"matplotlib"},
     "utils/system.py": {"platform", "shutil", "subprocess", "sys"},
     "utils/logging.py": {"io", "logging", "sys", "datetime"},
     "native/__init__.py": {"ctypes", "subprocess"},
@@ -80,15 +84,17 @@ HOST_IMPORTS = {
 }
 
 
-OPTIONAL = ("pydantic", "h5py", "yaml", "PIL", "sklearn")
+OPTIONAL = ("pydantic", "h5py", "yaml", "PIL", "sklearn", "matplotlib", "optuna")
 
 
 def test_import_pulls_in_no_optional_host_package():
-    """The card's machine may lack pydantic, h5py, yaml, PIL and scikit-learn
-    (which compact/sparse grouping imports when asked for): importing
-    every module of the package (the CLI, the workflow and utils/system.py
-    included) loads none of them (the schema module, which needs pydantic,
-    is only imported by load_params(validate=True))."""
+    """The card's machine may lack pydantic, h5py, yaml, PIL, scikit-learn
+    (which compact/sparse grouping imports when asked for), matplotlib (the
+    figures) and optuna (hypertune's engine when it imports): importing
+    every module of the package (the CLI, the workflow, hypertune,
+    visualization and utils/system.py included) loads none of them (the
+    schema module, which needs pydantic, is only imported by
+    load_params(validate=True))."""
     names = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                    for p in PACKAGE.rglob("*.py") if "params" not in p.relative_to(PACKAGE).parts)
     code = (
