@@ -35,7 +35,20 @@ Phases, one JSON object per line each:
                of B6a, torch.profiler) beside torch.fft's (fft2, the H
                product, ifft2), its bound from what the function reads and
                writes (psi in and out, a, phi and H once) and, apart, the
-               two passes' own traffic at the memory rate.
+               two passes' own traffic at the memory rate. Then the
+               bfloat16-operand kernels (csrc/multislice_bf16.cu,
+               csrc/chain_bf16.cu: every line transform rounds its operand):
+               B3a, B3b, B3b with dH, B4a, B4b at tBL shapes, B6a, B6b, B6b
+               with dH, B5a, B5a with the far-field exit and B5b at PSO
+               shapes, each against its plain twin with bf16_operands. Bfloat16
+               rounding turns float32 differences into whole bfloat16 steps
+               that later passes spread (BF16_RATIO_TOL), so a row holds the
+               kernel's own bfloat16 error against its twin's within 10% and
+               the kernel within twice that error of its twin, B3b/B4b run
+               twice bit for bit; at two passes (B4a at one slice, B5a/B5b at
+               one slice with the exit) the kernel is within a tenth of its
+               own bfloat16 error of its twin. Each timed beside the float32
+               kernel, with the float32 row's bound and library time.
      plain route - forward() at N = 96 and 120, which no kernel rule takes,
                through the plain torch.fft chain on the card (B1/B2 for the
                patches, no chain kernel) against the CPU, values and
@@ -46,7 +59,19 @@ Phases, one JSON object per line each:
                slices, batch 32, Adam, loss_single + loss_sparse, the six tBL
                constraints, 3 iterations from a flat object. Asserts a
                finite, falling loss and that every kernel of the path ran
-               during the run.
+               during the run. quality: its phase correlation with the
+               seeded object over the scanned square.
+     mixed_precision - the same run from the same start under
+               compute_dtype 'bfloat16' (B1, B2, the bf16 B3a/B3b): finite,
+               falling losses; its phase correlation and its final state's
+               loss through the float32 forward beside the main phase's
+               (noiseless patterns: that loss measures bfloat16's rounding
+               floor); patterns/s, peak memory. tBL_policy_gate: the JAX
+               policy's own gate, on the same patterns with Poisson noise at
+               1e5 counts, a float32 and a bfloat16 run from the same start:
+               the phase correlation at most 0.005 below the float32 run's, both
+               final states' loss through the same float32 forward within
+               2%. A profile (tBL-bf16).
   5. profile - torch.profiler over 32 more tBL training steps: device time by
                kernel, the device's busy share, host time per step.
      params_file - the same run from its params file through the normal
@@ -91,7 +116,9 @@ Phases, one JSON object per line each:
                the first iteration's end, patterns/s and each save's
                seconds. Then validate-params (exit 0 on the .json, 1 on a
                copy with a bad key), check-gpu and print-system-info (exit
-               0, naming the card), run at once.
+               0, naming the card), run at once. cli_mixed_precision: one
+               iteration of ``run --mixed_precision`` in a subprocess: exit
+               0, a finite loss, the log naming the policy.
      figures - the params_file phase's .raw through run_reconstruction, 2
                iterations saved every iteration with selected_figs [loss,
                forward, probe_r_amp, pos, group]: each plot_summary's
@@ -147,7 +174,13 @@ Phases, one JSON object per line each:
                where scikit-learn does not import.
      forward - one forward() of a batch with 2 object modes, shifted probes
                and detector blur (B4a, and B4b under autograd) against the
-               plain multislice_dp, values and gradients.
+               plain multislice_dp, values and gradients. forward_bf16: under
+               compute_dtype 'bfloat16', dp float32: a tBL batch through the
+               bf16 B4 against the plain multislice_dp with bf16_operands, and
+               N = 96 through the plain chain (a bfloat16 wavefield), card
+               against CPU, values and gradients by the bf16 rows' gates; a
+               tBL batch of loss_fn with optimizable dz and tilts (the bf16
+               B3b with dH).
      low-dose - the same reconstruction with the low-dose loss mix
                (loss_poissn + loss_pacbed of demo/scripts/run_parity_midscale.py
                plus loss_sparse) on the patterns normalised as the yml asks
@@ -164,7 +197,17 @@ Phases, one JSON object per line each:
                object. Asserts a finite, falling loss, that B1, B2, B5a/b and
                B6a/b ran and B3 did not; then one no-grad forward() of a batch
                (the yml's "forward" figure) against the plain multislice_dp.
+               quality: its phase correlation with the seeded columns.
   7. profile - torch.profiler over 8 more PSO training steps.
+     pso_bf16 - the PSO run from the same start under compute_dtype
+               'bfloat16' (the bf16 B5/B6), beside the pso phase as
+               mixed_precision is beside main; from pso_ff_random_start's
+               seeded object (the flat start amplifies any rounding to the
+               size of the loss gate) PSO_policy_report with the yml's
+               constraints (kz_filter quantizes the amplitude under the
+               policy, as in the JAX package: ROADMAP C10) and
+               PSO_policy_gate without the transform constraints; a profile
+               (PSO-bf16).
   8. tilt    - the tBL reconstruction with optimizable slice thickness and
                per-position tilts: the 16,384 patterns simulated through
                forward() with a smooth tilt field within 1 mrad (B4a on a
@@ -193,7 +236,10 @@ Phases, one JSON object per line each:
                false (no chain kernel: cuFFT), each iteration's loss at rtol
                1e-4 against the first. Then one forward() at
                nz = 16 (the carve: B6 over one segment, a full B5 tail with
-               the exit, dH) against the plain chain.
+               the exit, dH) against the plain chain. Then a PSO batch of
+               forward() under compute_dtype 'bfloat16' with the exit and
+               optimizable dz and its backward (the bf16 B6, B5 with the exit
+               and dH): dp float32 and finite.
   9. pso_tilt - the PSO reconstruction from data simulated at a global tilt
                of (1.0, -0.5) mrad, from (0, 0) with obj_tilts and
                slice_thickness at lr 1e-4, 2 iterations: a finite, falling
@@ -202,8 +248,9 @@ Phases, one JSON object per line each:
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
 plain route, tBL, params_file, resume, figures, hypertune, lbfgs,
 grad_accum, optimizers, grouping, low-dose (both runs), tbl_store, PSO, pso_ff (with its random-start
-runs and the carve), tilt (its simulation included) and PSO tilt paths and
-the forward phase's kernel routes; B1/B2's rows at the tBL shapes count the
+runs and the carve), tilt (its simulation included) and PSO tilt paths,
+mixed_precision, pso_bf16 and the forward phases' kernel routes, the bf16
+kernels in rows of their own; B1/B2's rows at the tBL shapes count the
 N <= 128 runs, their rows at the PSO shapes the N = 256 runs), the
 nvidia-smi name/power-limit line, and as the last line {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is not 0 and the
@@ -1407,8 +1454,10 @@ def kernel_counters():
     launch; `launches_h_each` those on a per-position H; `launches_dh` the
     backwards that computed dH; `launches_ff` those of B5 that took the
     far-field exit, `launches_ff_dh` its backwards that also computed dH;
-    `launches_nz1` those of B3 at one slice; PLAIN_ROUTE the forward() calls
-    that took the plain torch.fft chain."""
+    `launches_nz1` those of B3 at one slice; `launches_bf16` those of the
+    bfloat16-operand kernels, `launches_bf16_dh` and `launches_ff_bf16`
+    those of them with dH or the exit; PLAIN_ROUTE the forward() calls that
+    took the plain torch.fft chain."""
     from ptyrad_tpu_torch.ops import chain as C
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops import patches as P
@@ -1434,6 +1483,18 @@ def kernel_counters():
         "B5a chain_segment_fwd (far-field)": (C.segment_fwd_cuda, "launches_ff"),
         "B5b chain_segment_bwd (far-field)": (C.segment_bwd_cuda, "launches_ff"),
         "B5b chain_segment_bwd (far-field, dH)": (C.segment_bwd_cuda, "launches_ff_dh"),
+        # the bfloat16-operand kernels (the _bf16 entry points)
+        "B3a loss_sums_fwd (bf16)": (M.loss_sums_fwd_cuda, "launches_bf16"),
+        "B3b loss_sums_bwd (bf16)": (M.loss_sums_bwd_cuda, "launches_bf16"),
+        "B3b loss_sums_bwd (bf16, dH)": (M.loss_sums_bwd_cuda, "launches_bf16_dh"),
+        "B4a dp_fwd (bf16)": (M.dp_fwd_cuda, "launches_bf16"),
+        "B4b dp_bwd (bf16)": (M.dp_bwd_cuda, "launches_bf16"),
+        "B5a chain_segment_fwd (bf16)": (C.segment_fwd_cuda, "launches_bf16"),
+        "B5a chain_segment_fwd (far-field, bf16)": (C.segment_fwd_cuda, "launches_ff_bf16"),
+        "B5b chain_segment_bwd (bf16)": (C.segment_bwd_cuda, "launches_bf16"),
+        "B6a chain_stack_fwd (bf16)": (C.stack_fwd_cuda, "launches_bf16"),
+        "B6b chain_stack_bwd (bf16)": (C.stack_bwd_cuda, "launches_bf16"),
+        "B6b chain_stack_bwd (bf16, dH)": (C.stack_bwd_cuda, "launches_bf16_dh"),
     })
     return out
 
@@ -3045,8 +3106,11 @@ def pso_path(dev, card: str):
         require(launches[name] > 0, f"kernel {name} was not launched on the PSO path")
     for name in ("B5a chain_segment_fwd (far-field)", "B5b chain_segment_bwd (far-field)"):
         require(launches[name] == 0, f"{name} ran with the exit switched off")
+    ref = {"losses": [v for _, v in solver.history.loss_iters], "first_batch_loss": first,
+           "state": final_state(solver),
+           "phase_corr": quality_check("PSO", card, solver.params.objp,
+                                       columnar_phase(pso_positions()[1]), *pso_scanned())}
     pso_forward_figure(solver)
-    ref = {"losses": [v for _, v in solver.history.loss_iters], "first_batch_loss": first}
     return solver, launches, init, ref
 
 
@@ -3064,13 +3128,15 @@ def first_batch_loss(solver) -> float:
     return float(total)
 
 
-def run_pso_solver(dev, card: str, phase: str, init: dict, setup_s: float):
-    """PtyRADSolver.run() on the PSO data with the counts set to 0 just before
-    it; asserts a finite, falling loss and that neither B3 nor B4 ran.
-    Returns (solver, launches, the first batch's loss before training)."""
+def run_pso_solver(dev, card: str, phase: str, init: dict, setup_s: float,
+                   params: dict = PSO_PARAMS):
+    """PtyRADSolver(params).run() on the PSO data with the counts set to 0
+    just before it; asserts a finite, falling loss and that neither B3 nor
+    B4 ran. Returns (solver, launches, the first batch's loss before
+    training)."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
 
-    solver = PtyRADSolver(PSO_PARAMS, init_variables=init, device=dev, verbose=True)
+    solver = PtyRADSolver(params, init_variables=init, device=dev, verbose=True)
     first = first_batch_loss(solver)
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
@@ -3288,6 +3354,32 @@ def carve_check(dev, init: dict) -> dict:
     return launches
 
 
+def plain_route_case(n: int, rng) -> dict:
+    """The plain route's case at N: init_variables (a seeded random object,
+    6 probe modes, 6 slices, a batch of 32 shifted probes), model_params and
+    the weights of the summed dp, drawn from ``rng``."""
+    from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
+                                          make_stem_probe, near_field_evolution)
+
+    lam = electron_wavelength(80.0)
+    canvas = n + 64
+    probe = make_stem_probe({"kv": 80.0, "conv_angle": 24.9, "Npix": n, "dx": 0.1494})
+    init = {
+        "obj": random_object((1, NZ, canvas, canvas), SEED + n),
+        "probe": make_mixed_probe(probe, PMODE, [0.02]),
+        "probe_pos_shifts": (0.3 * rng.standard_normal((BATCH, 2))).astype(np.float32),
+        "obj_tilts": np.zeros((1, 2), np.float32), "slice_thickness": 2.0,
+        "H": near_field_evolution((n, n), 0.1494, 2.0, lam),
+        "measurements": np.zeros((1, n, n), np.float32),
+        "crop_pos": rng.integers(0, canvas - n, (BATCH, 2)).astype(np.int32),
+        "omode_occu": np.ones(1, np.float32), "dx": 0.1494, "lambd": lam,
+        "N_scan_slow": BATCH, "N_scan_fast": 1,
+    }
+    mp = {"update_params": {"probe_pos_shifts": {"lr": 1e-4}}}
+    w = torch.from_numpy(rng.random((BATCH, n, n)).astype(np.float32))
+    return {"init": init, "mp": mp, "w": w}
+
+
 def plain_route_check(dev) -> dict:
     """forward() where no kernel rule applies: N = 96 and 120 (not powers of
     two) on the card go through the plain torch.fft chain, the patches still
@@ -3296,28 +3388,12 @@ def plain_route_check(dev) -> dict:
     same forward() on the CPU, each within 1e-4 of its largest entry (the
     tolerance of the B4 tests). Returns the card runs' launch counts."""
     from ptyrad_tpu_torch.models import forward, forward_route, make_model
-    from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
-                                          make_stem_probe, near_field_evolution)
 
     rng = np.random.default_rng(SEED + 6)
-    lam = electron_wavelength(80.0)
     runs = []
     for n in (96, 120):
-        canvas = n + 64
-        probe = make_stem_probe({"kv": 80.0, "conv_angle": 24.9, "Npix": n, "dx": 0.1494})
-        init = {
-            "obj": random_object((1, NZ, canvas, canvas), SEED + n),
-            "probe": make_mixed_probe(probe, PMODE, [0.02]),
-            "probe_pos_shifts": (0.3 * rng.standard_normal((BATCH, 2))).astype(np.float32),
-            "obj_tilts": np.zeros((1, 2), np.float32), "slice_thickness": 2.0,
-            "H": near_field_evolution((n, n), 0.1494, 2.0, lam),
-            "measurements": np.zeros((1, n, n), np.float32),
-            "crop_pos": rng.integers(0, canvas - n, (BATCH, 2)).astype(np.int32),
-            "omode_occu": np.ones(1, np.float32), "dx": 0.1494, "lambd": lam,
-            "N_scan_slow": BATCH, "N_scan_fast": 1,
-        }
-        mp = {"update_params": {"probe_pos_shifts": {"lr": 1e-4}}}
-        w = torch.from_numpy(rng.random((BATCH, n, n)).astype(np.float32))
+        case = plain_route_case(n, rng)
+        init, mp, w = case["init"], case["mp"], case["w"]
 
         def run(where):
             params, buffers, geom = make_model(init, mp, where)
@@ -3643,6 +3719,706 @@ def profile_steps(solver, card: str, path: str, niter: int, n_batches: int):
     return out
 
 
+# -- the bfloat16 compute policy (A8) ---------------------------------------------
+
+# Bfloat16 rounding amplifies float32 differences: where two float32
+# transforms of one operand differ in the last bits across a rounding
+# boundary, the next rounding makes it a whole bfloat16 step, which the next
+# pass spreads over its line (tests/test_torch_bf16.py
+# test_rounding_amplifies_float32_differences). A kernel and its torch.fft
+# twin that round at the same points therefore agree to a few percent of the
+# policy's own error after one 2-D transform and part by about that error
+# after a few propagations. So each bf16 row compares errors, for every
+# output (L2 norms over the whole tensor): the kernel's own bfloat16 error
+# e_K = |K16 - K32| / |K32| against its twin's e_T = |T16 - T32| / |T32|
+# within BF16_RATIO_TOL (a kernel that rounds elsewhere, less or not at all
+# moves it), and the kernel within BF16_TWIN_FACTOR e_T of its twin (the CPU
+# tests' rule against the JAX package). At two passes, before the drift,
+# the kernel must be within BF16_SHALLOW of its own error of its twin.
+BF16_RATIO_TOL = 0.1
+BF16_TWIN_FACTOR = 2.0
+BF16_SHALLOW = 0.1
+BF16_TOLERANCE = (f"|e_K / e_T - 1| <= {BF16_RATIO_TOL} and |K16 - T16| <= {BF16_TWIN_FACTOR} "
+                  "e_T |T32| for every output (L2)")
+MP_CORR_TOL = 0.005   # how far the bf16 runs' phase correlation may fall below float32's
+MP_LOSS_RTOL = 0.02   # their final states' loss through the float32 forward
+# The JAX policy's own gate (tests/test_forward.py TestComputeDtypePolicy)
+# runs on data with Poisson noise at 1e5 counts a pattern: on noiseless data
+# float32 converges below bfloat16's rounding floor, and a loss gate then
+# measures the floor (test_bf16_policy_converges_like_f32's docstring).
+MP_COUNTS = 1e5
+
+
+def _l2(t: torch.Tensor) -> float:
+    t = t.detach()
+    return float(torch.linalg.vector_norm(t.to(torch.complex128 if t.is_complex()
+                                                else torch.float64)))
+
+
+def bf16_errors(k16, k32, t16, t32) -> list:
+    """Per output: e_kernel, e_twin, kernel_to_twin (|K16 - T16| / |T32|) and
+    max_abs (max |K16 - T16|)."""
+    out = []
+    for a, b, c, d in zip(k16, k32, t16, t32):
+        nd = _l2(d)
+        out.append({"e_kernel": _l2(a - b) / _l2(b), "e_twin": _l2(c - d) / nd,
+                    "kernel_to_twin": _l2(a - c) / nd, "max_abs": float((a - c).abs().max())})
+    return out
+
+
+def bf16_failures(label: str, names, errs, shallow: bool = False) -> list:
+    """The gates of one bf16 comparison (see BF16_RATIO_TOL); shallow: the
+    two-pass gate, kernel_to_twin <= BF16_SHALLOW e_kernel."""
+    bad = []
+    for nm, e in zip(names, errs):
+        e["ratio"] = e["e_kernel"] / e["e_twin"] if e["e_twin"] else float("inf")
+        if not e["e_twin"] > 1e-4:
+            bad.append(f"{label} {nm}: the twin did not round (e_T {e['e_twin']})")
+        if shallow:
+            if e["kernel_to_twin"] > BF16_SHALLOW * e["e_kernel"]:
+                bad.append(f"{label} {nm}: {e['kernel_to_twin']} from its twin at two passes, "
+                           f"over {BF16_SHALLOW} of its bf16 error {e['e_kernel']}")
+        else:
+            if abs(e["ratio"] - 1.0) > BF16_RATIO_TOL:
+                bad.append(f"{label} {nm}: e_K / e_T = {e['ratio']} (e_K {e['e_kernel']}, "
+                           f"e_T {e['e_twin']})")
+            if e["kernel_to_twin"] > BF16_TWIN_FACTOR * e["e_twin"]:
+                bad.append(f"{label} {nm}: {e['kernel_to_twin']} from its twin, over "
+                           f"{BF16_TWIN_FACTOR} e_T = {BF16_TWIN_FACTOR * e['e_twin']}")
+    return bad
+
+
+def _twin_vjp(fn, inputs, cot):
+    """(the cotangents of ``inputs`` of fn(*inputs) for ``cot``, a timer of
+    that backward), through autograd on fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+
+    def again():
+        return torch.autograd.grad(out, leaves, grad_outputs=cot, retain_graph=True)
+
+    return again(), again
+
+
+def check_bf16_kernels(dev, gen, f32_rows: list) -> list:
+    """The bf16-operand kernels (csrc/multislice_bf16.cu, csrc/chain_bf16.cu)
+    at the main paths' shapes, each against its plain twin with
+    bf16_operands on the same inputs (the gates of BF16_RATIO_TOL), B3b and
+    B4b run twice bit for bit; each row's kernel and twin timed with CUDA
+    events beside the float32 kernel (f32_ms), with the float32 row's bound
+    and library time (the same bytes and operations; no library call rounds
+    its operands). Then the two-pass checks: B4a at one slice with a shared
+    real-space probe and B5a/B5b at one slice with the far-field exit."""
+    from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+    from ptyrad_tpu_torch.ops.shift import fourier_shift, fourier_shift_kspace
+    from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
+
+    f32 = {r["name"]: r for r in f32_rows}
+    rows, failures = [], []
+    ms_src = "ptyrad_tpu_torch/csrc/multislice_bf16.cu"
+    ch_src = "ptyrad_tpu_torch/csrc/chain_bf16.cu"
+
+    def row(name, base, source, names, kern, twin, repeat=False, note=""):
+        """kern(bf16) and twin(bf16) -> (outputs, a timer of the call)"""
+        k16, time_k16 = kern(True)
+        k32, time_k32 = kern(False)
+        t16, time_t16 = twin(True)
+        t32 = twin(False)[0]
+        errs = bf16_errors(k16, k32, t16, t32)
+        bad = bf16_failures(name, names, errs)
+        rep = None
+        if repeat:
+            rep = repeats_bitwise(lambda: kern(True)[0], k16)
+            if not rep:
+                bad.append(f"{name}: run twice differs")
+        ref = f32[base]
+        r = {"name": name, "route": "cuda", "source": source, "replaces": ref["replaces"],
+             "max_abs_err": max(e["max_abs"] for e in errs), "ms": time_ms(time_k16),
+             "plain_ms": time_ms(time_t16), "bound_ms": ref["bound_ms"],
+             "bound_by": ref["bound_by"], "library_ms": ref["library_ms"]}
+        emit({"phase": "kernel", **r, "f32_ms": time_ms(time_k32), "f32_row": base,
+              "outputs": names, "errors": errs, "tolerance": BF16_TOLERANCE,
+              "repeats_bitwise": rep, "note": note})
+        rows.append(r)
+        failures.extend(bad)
+
+    # -- tBL shapes: B3 and B4 (check_loss_chain's inputs) --
+    n = NPIX
+    lam = electron_wavelength(80.0)
+    probe = torch.as_tensor(tbl_probe(), device=dev)
+    h = torch.as_tensor(near_field_evolution((n, n), 0.1494, 2.0, lam), device=dev)[None]
+    h_each = tilted_h(h, 2.0 * torch.rand((BATCH, 2), generator=gen, device=dev) - 1.0,
+                      0.1494, 2.0)
+    obja = 1.0 + 0.05 * torch.randn((BATCH, 1, NZ, n, n), generator=gen, device=dev)
+    objp = 0.1 * torch.randn((BATCH, 1, NZ, n, n), generator=gen, device=dev)
+    pr = fourier_shift_kspace(probe, 0.3 * torch.randn((BATCH, 2), generator=gen, device=dev))
+    meas = torch.rand((BATCH, n, n), generator=gen, device=dev) * 2e-4
+    mask = torch.ones(BATCH, device=dev)
+    mask[BATCH - 1] = 0.0
+    g = torch.randn((BATCH, n, n), generator=gen, device=dev)
+    p, eps, cvec = 0.5, 1e-10, torch.tensor(0.7, device=dev)
+    loss_args = (meas, mask, p, eps, True)
+
+    def b3a(bf16):
+        def call():
+            return M.loss_sums_fwd_cuda(obja, objp, pr, h, *loss_args, bf16_operands=bf16)
+        return (call()[2],), call
+
+    def b3a_twin(bf16):
+        with torch.no_grad():
+            dp = M.multislice_dp_plain(obja, objp, pr, h, True, bf16)
+        return (dp,), lambda: M.loss_sums_plain(obja, objp, pr, h, *loss_args, bf16)
+
+    def b3b(hh, dh):
+        def kern(bf16):
+            dp = M.loss_sums_fwd_cuda(obja, objp, pr, hh, *loss_args, bf16_operands=bf16)[2]
+
+            def call():
+                out = M.loss_sums_bwd_cuda(obja, objp, pr, hh, meas, mask, dp, cvec, p, eps,
+                                           True, need_dh=dh, bf16_operands=bf16)
+                return out if dh else out[:3]
+            return call(), call
+
+        def twin(bf16):
+            ins = (obja, objp, pr, hh) if dh else (obja, objp, pr)
+            return _twin_vjp(lambda a, ph, q, *hx: M.loss_sums_plain(
+                a, ph, q, hx[0] if hx else hh, *loss_args, bf16)[0], ins, cvec)
+        return kern, twin
+
+    row("B3a loss_sums_fwd (bf16)", "B3a loss_sums_fwd", ms_src, ["dp"], b3a, b3a_twin,
+        note="tBL shapes, per-position probe spectra: the main path's case")
+    row("B3b loss_sums_bwd (bf16)", "B3b loss_sums_bwd", ms_src, ["d obja", "d objp", "d probe"],
+        *b3b(h, False), repeat=True, note="tBL shapes, per-position probe spectra")
+    row("B3b loss_sums_bwd (bf16, dH)", "B3b loss_sums_bwd (dH)", ms_src,
+        ["d obja", "d objp", "d probe", "d h"], *b3b(h_each, True), repeat=True,
+        note="tBL shapes, per-position spectra and H (tilts within 1 mrad)")
+
+    def b4a(bf16):
+        def call():
+            return M.dp_fwd_cuda(obja, objp, pr, h, True, bf16)
+        return (call(),), call
+
+    def b4a_twin(bf16):
+        def call():
+            return M.multislice_dp_plain(obja, objp, pr, h, True, bf16)
+        with torch.no_grad():
+            return (call(),), call
+
+    def b4b(bf16):
+        def call():
+            return M.dp_bwd_cuda(obja, objp, pr, h, g, True, bf16_operands=bf16)[:3]
+        return call(), call
+
+    def b4b_twin(bf16):
+        return _twin_vjp(lambda a, ph, q: M.multislice_dp_plain(a, ph, q, h, True, bf16),
+                         (obja, objp, pr), g)
+
+    row("B4a dp_fwd (bf16)", "B4a dp_fwd", ms_src, ["dp"], b4a, b4a_twin,
+        note="tBL shapes, per-position probe spectra: the low-dose path's case")
+    row("B4b dp_bwd (bf16)", "B4b dp_bwd", ms_src, ["d obja", "d objp", "d probe"], b4b,
+        b4b_twin, repeat=True, note="tBL shapes, per-position probe spectra")
+
+    # two passes: B4a at one slice on the shared real-space probe
+    a1, p1 = obja[:, :, :1].contiguous(), objp[:, :, :1].contiguous()
+    k16, k32 = (M.dp_fwd_cuda(a1, p1, probe[None], h, False, b) for b in (True, False))
+    with torch.no_grad():
+        t16, t32 = (M.multislice_dp_plain(a1, p1, probe[None], h, False, b)
+                    for b in (True, False))
+    shallow = [("B4a dp_fwd (bf16), one slice", ["dp"], bf16_errors([k16], [k32], [t16], [t32]))]
+    del obja, objp, pr, meas, h_each, k16, k32, t16, t32
+    torch.cuda.empty_cache()
+
+    # -- PSO shapes: B5 and B6 (check_chain's inputs) --
+    n, b = PSO_NPIX, BATCH
+    lam = electron_wavelength(PSO_KV)
+    h = torch.as_tensor(near_field_evolution((n, n), PSO_DX, PSO_DZ, lam), device=dev)[None]
+    psi = fourier_shift(torch.as_tensor(pso_probe(), device=dev),
+                        0.3 * torch.randn((b, 2), generator=gen, device=dev))
+    obja = 1.0 + 0.05 * torch.randn((b, 1, PSO_NZ, n, n), generator=gen, device=dev)
+    objp = 0.1 * torch.randn((b, 1, PSO_NZ, n, n), generator=gen, device=dev)
+    nz_main = 2 * PSO_SG
+    a_main, p_main = obja[:, 0, :nz_main], objp[:, 0, :nz_main]
+    a_tail, p_tail = obja[:, 0, nz_main:], objp[:, 0, nz_main:]
+    gc = torch.complex(torch.randn(psi.shape, generator=gen, device=dev),
+                       torch.randn(psi.shape, generator=gen, device=dev)) * float(psi.abs().max())
+    chain_names = ["d psi", "d a", "d phi"]
+
+    def b6a(bf16):
+        def call():
+            return C.stack_fwd_cuda(psi, a_main, p_main, h, PSO_SG, False, bf16)
+        return (call()[0],), call
+
+    def b6a_twin(bf16):
+        def call():
+            return C.chain_stack_plain(psi, a_main, p_main, h, PSO_SG, False, bf16)
+        with torch.no_grad():
+            return (call(),), call
+
+    def b6b(dh):
+        def kern(bf16):
+            stack = C.stack_fwd_cuda(psi, a_main, p_main, h, PSO_SG, False, bf16)[1]
+
+            def call():
+                out = C.stack_bwd_cuda(gc, stack, a_main, p_main, h, PSO_SG, False, need_dh=dh,
+                                       bf16_operands=bf16)
+                return out if dh else out[:3]
+            return call(), call
+
+        def twin(bf16):
+            ins = (psi, a_main, p_main, h) if dh else (psi, a_main, p_main)
+            return _twin_vjp(lambda x, y, z, *hx: C.chain_stack_plain(
+                x, y, z, hx[0] if hx else h, PSO_SG, False, bf16), ins, gc)
+        return kern, twin
+
+    def b5a(ff):
+        def kern(bf16):
+            def call():
+                return C.segment_fwd_cuda(psi, a_tail, p_tail, h, True, ff, bf16)
+            return (call(),), call
+
+        def twin(bf16):
+            def call():
+                return C.chain_segment_plain(psi, a_tail, p_tail, h, True, ff, bf16)
+            with torch.no_grad():
+                return (call(),), call
+        return kern, twin
+
+    def b5b(bf16):
+        def call():
+            return C.segment_bwd_cuda(gc, psi, a_tail, p_tail, h, True, bf16_operands=bf16)[:3]
+        return call(), call
+
+    def b5b_twin(bf16):
+        return _twin_vjp(lambda x, y, z: C.chain_segment_plain(x, y, z, h, True,
+                                                               bf16_operands=bf16),
+                         (psi, a_tail, p_tail), gc)
+
+    pso_note = "PSO shapes, shared H"
+    row("B6a chain_stack_fwd (bf16)", "B6a chain_stack_fwd", ch_src, ["exit"], b6a, b6a_twin,
+        note=pso_note + ", S = 2 segments of 8")
+    row("B6b chain_stack_bwd (bf16)", "B6b chain_stack_bwd", ch_src, chain_names, *b6b(False),
+        note=pso_note)
+    row("B6b chain_stack_bwd (bf16, dH)", "B6b chain_stack_bwd (dH)", ch_src,
+        chain_names + ["d h"], *b6b(True), note=pso_note)
+    row("B5a chain_segment_fwd (bf16)", "B5a chain_segment_fwd", ch_src, ["exit"], *b5a(False),
+        note=pso_note + ", the 5-slice tail")
+    row("B5a chain_segment_fwd (far-field, bf16)", "B5a chain_segment_fwd (far-field)", ch_src,
+        ["spectrum"], *b5a(True), note=pso_note + ", the tail with the far-field exit")
+    row("B5b chain_segment_bwd (bf16)", "B5b chain_segment_bwd", ch_src, chain_names, b5b,
+        b5b_twin, note=pso_note + ", the 5-slice tail")
+
+    # two passes: B5a and B5b at one slice with the far-field exit
+    a1, p1 = a_tail[:, :1], p_tail[:, :1]
+    k16, k32 = (C.segment_fwd_cuda(psi, a1, p1, h, True, True, bf) for bf in (True, False))
+    with torch.no_grad():
+        t16, t32 = (C.chain_segment_plain(psi, a1, p1, h, True, True, bf)
+                    for bf in (True, False))
+    shallow.append(("B5a chain_segment_fwd (far-field, bf16), one slice", ["spectrum"],
+                    bf16_errors([k16], [k32], [t16], [t32])))
+    kb = {bf: C.segment_bwd_cuda(gc, psi, a1, p1, h, True, far_field=True,
+                                 bf16_operands=bf)[:3] for bf in (True, False)}
+    tb = {bf: _twin_vjp(lambda x, y, z, bf=bf: C.chain_segment_plain(
+        x, y, z, h, True, True, bf16_operands=bf), (psi, a1, p1), gc)[0] for bf in (True, False)}
+    shallow.append(("B5b chain_segment_bwd (far-field, bf16), one slice", chain_names,
+                    bf16_errors(kb[True], kb[False], tb[True], tb[False])))
+    for label, names, errs in shallow:
+        failures += bf16_failures(label, names, errs, shallow=True)
+        emit({"phase": "kernel_check", "name": label, "passes": 2, "outputs": names,
+              "errors": errs, "tolerance": f"|K16 - T16| <= {BF16_SHALLOW} |K16 - K32| (L2)"})
+    require(not failures, "bf16 kernels against their twins:\n" + "\n".join(failures))
+    return rows
+
+
+def phase_corr(objp: torch.Tensor, truth: np.ndarray, lo: int, hi: int) -> float:
+    """Pearson correlation of the reconstructed phase summed over object
+    modes and slices with the simulated truth summed over slices, on the
+    scanned square [lo, hi)^2 (the probe centres' span)."""
+    o = objp.detach().float().sum(dim=(0, 1))[lo:hi, lo:hi].cpu().numpy().ravel()
+    t = np.asarray(truth).sum(0)[lo:hi, lo:hi].ravel()
+    return float(np.corrcoef(o, t)[0, 1])
+
+
+def tbl_scanned() -> tuple[int, int]:
+    lo = 4 + NPIX // 2
+    return lo, lo + (N_SIDE - 1) * STEP_PX + 1
+
+
+def pso_scanned() -> tuple[int, int]:
+    lo = 4 + PSO_NPIX // 2
+    return lo, lo + int(pso_positions()[0][:, 0].max()) - 4 + 1
+
+
+def final_state(solver) -> dict:
+    """The tensors a few iterations of these paths move, on the device."""
+    return {k: getattr(solver.params, k).detach().clone() for k in ("obja", "objp", "probe")}
+
+
+def quality_check(path: str, card: str, objp: torch.Tensor, truth: np.ndarray, lo: int,
+                  hi: int) -> float:
+    """The float32 run's phase correlation with its seeded object: the
+    baseline of the bf16 phase's gate."""
+    corr = phase_corr(objp, truth, lo, hi)
+    emit({"phase": "quality", "path": path, "card": card, "dtype": "float32",
+          "phase_corr": corr, "window": [lo, hi]})
+    require(np.isfinite(corr), f"{path}: phase correlation {corr}")
+    return corr
+
+
+def f32_losses(params: dict, init: dict, dev, states: list) -> list:
+    """The mean batch loss of each state (obja, objp, probe) through the
+    float32 forward and loss of ``params`` on ``init``'s data."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    solver = PtyRADSolver(params, init_variables=init, device=dev, verbose=False)
+    require(not solver.geom.bf16_operands, "the float32 evaluation runs the bf16 policy")
+    solver.prepare()
+    out = []
+    with torch.no_grad():
+        for state in states:
+            for k, v in state.items():
+                getattr(solver.params, k).copy_(v)
+            out.append(batch_mean_loss(solver))
+    del solver
+    torch.cuda.empty_cache()
+    return out
+
+
+def with_bf16(params: dict) -> dict:
+    out = copy.deepcopy(params)
+    out["model_params"]["compute_dtype"] = "bfloat16"
+    return out
+
+
+BF16_TBL_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B3a loss_sums_fwd (bf16)",
+                    "B3b loss_sums_bwd (bf16)")
+BF16_PSO_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B5a chain_segment_fwd (bf16)",
+                    "B5b chain_segment_bwd (bf16)", "B6a chain_stack_fwd (bf16)",
+                    "B6b chain_stack_bwd (bf16)")
+
+
+def finite_falling(path: str, losses) -> None:
+    require(len(losses) > 1 and all(np.isfinite(losses)), f"{path}: loss not finite: {losses}")
+    require(losses[-1] < losses[0], f"{path}: loss did not fall: {losses}")
+
+
+def bf16_launches(path: str, launches: dict, kernels) -> None:
+    """Every kernel of the path ran, and every chain launch had bfloat16
+    operands."""
+    for name in kernels:
+        require(launches[name] > 0, f"{path}: kernel {name} was not launched")
+        base = name.replace(" (bf16)", "")
+        require(launches[base] == launches[name], f"{path}: {base} ran {launches[base]} times, "
+                f"{launches[name]} of them with bf16 operands")
+
+
+def poisson_noised(meas, gen) -> torch.Tensor:
+    """The patterns with Poisson noise at MP_COUNTS electrons each (each
+    pattern's sum kept as its scale), drawn on the device."""
+    m = torch.as_tensor(meas, dtype=torch.float32, device=gen.device)
+    total = m.sum(dim=(-2, -1), keepdim=True)
+    return torch.poisson(m / total * MP_COUNTS, generator=gen) / MP_COUNTS * total
+
+
+def policy_gate(dev, card: str, path: str, params: dict, init: dict, truth: np.ndarray,
+                window: tuple, start_obj=None, gated: bool = True) -> dict:
+    """The JAX policy's quality gate on this path: its data with Poisson
+    noise at MP_COUNTS, a float32 and a bfloat16 run from the same start
+    (init's object, or ``start_obj``; the path's iterations), both finite
+    and falling; with ``gated`` the bfloat16 run's
+    phase correlation with the seeded object at most MP_CORR_TOL below the
+    float32 run's (the JAX gate's c16 >= c32 - 0.005: a better bfloat16 run
+    passes), and both final states' loss through the same float32 forward
+    within MP_LOSS_RTOL; without it the same numbers, reported."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    noisy = dict(init, measurements=poisson_noised(init["measurements"], gen))
+    if start_obj is not None:
+        noisy["obj"] = start_obj
+    states, corrs, losses = {}, {}, {}
+    for dtype, p in (("float32", params), ("bfloat16", with_bf16(params))):
+        solver = PtyRADSolver(p, init_variables=noisy, device=dev, verbose=False)
+        solver.run()
+        losses[dtype] = [v for _, v in solver.history.loss_iters]
+        finite_falling(f"{path} ({dtype}, {MP_COUNTS:g} counts)", losses[dtype])
+        states[dtype] = final_state(solver)
+        corrs[dtype] = phase_corr(solver.params.objp, truth, *window)
+        del solver
+        torch.cuda.empty_cache()
+    e32, e16 = f32_losses(params, noisy, dev, [states["float32"], states["bfloat16"]])
+    out = {"phase": f"{path}_policy_{'gate' if gated else 'report'}", "card": card,
+           "counts_per_pattern": MP_COUNTS,
+           "constraints": sorted(params.get("constraint_params") or {}),
+           "start": "flat" if start_obj is None else "seeded random object",
+           "losses": losses, "phase_corr": corrs,
+           "f32_evaluated_loss": {"bfloat16": e16, "float32": e32},
+           "loss_rel_diff": abs(e16 - e32) / abs(e32)}
+    emit(out)
+    if not gated:
+        return out
+    require(corrs["bfloat16"] >= corrs["float32"] - MP_CORR_TOL,
+            f"{path}: phase correlation {corrs['bfloat16']} against float32's {corrs['float32']}")
+    require(abs(e16 - e32) <= MP_LOSS_RTOL * abs(e32),
+            f"{path}: float32-evaluated loss {e16} against float32's {e32}")
+    return out
+
+
+def mixed_precision_path(dev, card: str, init: dict, f32_state: dict, corr32: float):
+    """The tBL run of the main phase under compute_dtype 'bfloat16' (3
+    iterations through B1, B2 and the bf16 B3 from the same start): finite,
+    falling losses, every chain launch with bf16 operands; its phase
+    correlation and its final state's float32-evaluated loss beside the
+    main phase's, patterns/s and peak memory. Then policy_gate on the same
+    patterns with Poisson noise."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    solver = PtyRADSolver(with_bf16(TBL_PARAMS), init_variables=init, device=dev, verbose=True)
+    require(solver.geom.bf16_operands and solver.geom.compute_dtype == "bfloat16",
+            "mixed_precision: the policy did not reach the geometry")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    launches = drive(solver)
+    run_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [v for _, v in solver.history.loss_iters]
+    times = solver.history.iter_times
+    truth = ground_truth_phase(tbl_positions()[1])
+    corr16 = phase_corr(solver.params.objp, truth, *tbl_scanned())
+    e32, e16 = f32_losses(TBL_PARAMS, init, dev, [f32_state, final_state(solver)])
+    emit({"phase": "mixed_precision", "card": card, "n_patterns": N_SCANS, "batch": BATCH,
+          "iterations": len(losses), "losses": losses, "iter_s": times,
+          "patterns_per_s": [N_SCANS / t for t in times], "run_s": run_s, "peak_mem_gb": peak,
+          "phase_corr": {"bfloat16": corr16, "float32": corr32},
+          "f32_evaluated_loss": {"bfloat16": e16, "float32": e32},
+          "note": "noiseless patterns: the loss measures bfloat16's rounding floor, the gate is "
+                  "tBL_policy_gate's", "launches": launches})
+    finite_falling("mixed_precision", losses)
+    bf16_launches("mixed_precision", launches, BF16_TBL_KERNELS)
+    for name in ("B4a dp_fwd", "B4b dp_bwd") + CHAIN_KERNELS:
+        require(launches[name] == 0, f"mixed_precision: {name} ran")
+    policy_gate(dev, card, "tBL", TBL_PARAMS, init, truth, tbl_scanned())
+    return solver, launches
+
+
+def without_transform_constraints(params: dict) -> dict:
+    """A copy of a configuration without the constraints whose transforms
+    follow the bfloat16 policy (constraints.DFT_CONSTRAINTS)."""
+    from ptyrad_tpu_torch.constraints import DFT_CONSTRAINTS
+
+    out = copy.deepcopy(params)
+    out["constraint_params"] = {k: v for k, v in out["constraint_params"].items()
+                                if k not in DFT_CONSTRAINTS}
+    return out
+
+
+def pso_bf16_path(dev, card: str, init: dict, pso_ref: dict):
+    """The PSO run under compute_dtype 'bfloat16' from the same start as
+    the pso phase (2 iterations through B1, B2 and the bf16 B5/B6), as
+    mixed_precision_path does it. The policy pairs then start from
+    pso_ff_random_start's seeded object: the flat PSO start amplifies any
+    rounding (two float32 routes part by up to PSO_FF_FLAT_RTOL there, the
+    size of the loss gate), and away from it float32 routes agree at rtol
+    1e-4. The yml's kz_filter runs its transforms with bfloat16 operands
+    under the policy, in the JAX package as here, which quantizes the
+    object amplitude near 1 to bfloat16 steps of 2^-7 (ROADMAP fault C10;
+    tests/test_torch_bf16.py test_transform_constraints_follow_the_jax_switch):
+    the pair with the yml's constraints is reported, and the gate runs
+    without the constraints whose transforms follow the policy, where it
+    measures the kernels' and the trainer's rounding."""
+    solver, launches, _ = run_pso_solver(dev, card, "pso_bf16", init, 0.0,
+                                         params=with_bf16(PSO_PARAMS))
+    truth = columnar_phase(pso_positions()[1])
+    corr16 = phase_corr(solver.params.objp, truth, *pso_scanned())
+    e32, e16 = f32_losses(PSO_PARAMS, init, dev, [pso_ref["state"], final_state(solver)])
+    emit({"phase": "pso_bf16_quality", "card": card,
+          "phase_corr": {"bfloat16": corr16, "float32": pso_ref["phase_corr"]},
+          "f32_evaluated_loss": {"bfloat16": e16, "float32": e32},
+          "note": "noiseless patterns: the gate is PSO_policy_gate's"})
+    bf16_launches("pso_bf16", launches, BF16_PSO_KERNELS)
+    start = random_object(init["obj"].shape, SEED + 5)
+    policy_gate(dev, card, "PSO", PSO_PARAMS, init, truth, pso_scanned(), start, gated=False)
+    policy_gate(dev, card, "PSO", without_transform_constraints(PSO_PARAMS), init, truth,
+                pso_scanned(), start)
+    return solver, launches
+
+
+def bf16_compare(label: str, names, k16, k32, t16, t32) -> dict:
+    """bf16_errors and bf16_failures of a driven comparison, emitted; raises
+    on a failed gate."""
+    errs = bf16_errors(k16, k32, t16, t32)
+    bad = bf16_failures(label, names, errs)
+    emit({"phase": "forward_bf16", "check": label, "outputs": names, "errors": errs,
+          "tolerance": BF16_TOLERANCE})
+    require(not bad, "\n".join(bad))
+    return errs
+
+
+def forward_bf16_check(dev, init: dict) -> dict:
+    """forward() under compute_dtype 'bfloat16', dp float32: (1) a tBL
+    batch with shifted probes through B4 (the low-dose route), dp and every
+    gradient against the plain multislice_dp with bf16_operands on the same
+    patches (BF16_RATIO_TOL's gates); (2) N = 96 through the plain chain (a
+    bfloat16 wavefield), the card against the CPU, by the same gates; (3) a
+    tBL batch of loss_fn with optimizable dz and per-position tilts (B3 with
+    dH, bf16): a finite, float32 loss and gradients. Returns the kernel
+    routes' launch counts."""
+    from ptyrad_tpu_torch.engine.solver import loss_fn
+    from ptyrad_tpu_torch.models import (compute_propagators, forward, forward_route,
+                                         get_obj_patches, get_probes, make_model, multislice_dp)
+
+    rng = np.random.default_rng(SEED + 7)
+    # the fields; the 64 position-shift gradients are too few numbers for
+    # an L2 statistic and are held finite instead
+    names = ["obja", "objp", "probe"]
+    runs = []
+
+    # (1) B4 at the low-dose shapes
+    shifts = (0.3 * rng.standard_normal((N_SCANS, 2))).astype(np.float32)
+    one = (1.0 + 0.02 * rng.standard_normal(init["obj"].shape)) * np.exp(
+        0.1j * rng.standard_normal(init["obj"].shape))
+    data = dict(init, obj=one.astype(np.complex64), probe_pos_shifts=shifts)
+    idx = torch.arange(0, N_SCANS, N_SCANS // BATCH, device=dev)
+    w = torch.rand((BATCH, NPIX, NPIX), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev)
+    upd = {"update_params": {"probe_pos_shifts": {"lr": 1e-4}}}
+
+    def run(dtype, route):
+        params, buffers, geom = make_model(data, {**upd, "compute_dtype": dtype}, dev)
+        for _, t in params.named():
+            t.requires_grad_(True)
+        if route == "kernels":
+            require(forward_route(params, geom, idx) == "fused", "forward() left the B4 route")
+            dp, _ = forward(params, buffers, geom, idx)
+        else:
+            obja_p, objp_p = get_obj_patches(params, buffers, geom, idx)
+            dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, idx),
+                               compute_propagators(params, buffers, geom, idx),
+                               buffers.omode_occu, eps=geom.eps,
+                               bf16_operands=geom.bf16_operands)
+        (w * dp).sum().backward()
+        require(bool(torch.isfinite(params.probe_pos_shifts.grad).all()),
+                "forward(): the position-shift gradient is not finite")
+        return [dp.detach()] + [getattr(params, k).grad for k in names]
+
+    (k16, launches) = counted(lambda: run("bfloat16", "kernels"))
+    require(k16[0].dtype == torch.float32, f"forward() gave dp as {k16[0].dtype}")
+    require(launches["B4a dp_fwd (bf16)"] == launches["B4a dp_fwd"] > 0
+            and launches["B4b dp_bwd (bf16)"] == launches["B4b dp_bwd"] > 0,
+            f"forward() under the policy: {launches}")
+    runs.append(launches)
+    bf16_compare("forward() B4, tBL batch", ["dp"] + ["d " + k for k in names], k16,
+                 run("float32", "kernels"), run("bfloat16", "plain"), run("float32", "plain"))
+
+    # (2) the plain route at N = 96: the card against the CPU
+    n96 = plain_route_case(96, np.random.default_rng(SEED + 6))
+
+    def run96(where, dtype):
+        params, buffers, geom = make_model(n96["init"], {**n96["mp"], "compute_dtype": dtype},
+                                           where)
+        for _, t in params.named():
+            t.requires_grad_(True)
+        at = torch.arange(BATCH, device=where)
+        require(forward_route(params, geom, at) == "plain", "N = 96 left the plain route")
+        dp, _ = forward(params, buffers, geom, at)
+        (n96["w"].to(where) * dp).sum().backward()
+        return [dp.detach().cpu()] + [getattr(params, k).grad.cpu() for k in names]
+
+    (c16, launches) = counted(lambda: run96(dev, "bfloat16"))
+    require(c16[0].dtype == torch.float32 and launches[PLAIN_ROUTE] == 1,
+            f"N = 96 under the policy: dp {c16[0].dtype}, {launches[PLAIN_ROUTE]} plain routes")
+    runs.append(launches)
+    cpu = torch.device("cpu")
+    bf16_compare("forward() plain route, N = 96, card against CPU",
+                 ["dp"] + ["d " + k for k in names], c16, run96(dev, "float32"),
+                 run96(cpu, "bfloat16"), run96(cpu, "float32"))
+
+    # (3) B3 with dH: loss_fn with optimizable dz and per-position tilts
+    tilted = dict(data, obj_tilts=rng.uniform(-1.0, 1.0, (N_SCANS, 2)).astype(np.float32))
+    params, buffers, geom = make_model(tilted, with_bf16(with_dz_tilts(TBL_PARAMS))["model_params"],
+                                       dev)
+    for _, t in params.named():
+        t.requires_grad_(True)
+    mask = torch.ones(BATCH, device=dev)
+
+    def b3_dh():
+        total, _ = loss_fn(params, buffers, geom, idx, mask, TBL_PARAMS["loss_params"])
+        total.backward()
+        return total
+
+    total, launches = counted(b3_dh)
+    grads = {k: t.grad for k, t in params.named() if t.grad is not None}
+    emit({"phase": "forward_bf16", "check": "loss_fn B3 with dH (tilts, dz)",
+          "loss": float(total), "grads": sorted(grads), "launches": launches})
+    require(total.dtype == torch.float32 and bool(torch.isfinite(total)), f"loss {total}")
+    require({"slice_thickness", "obj_tilts"} <= set(grads)
+            and all(g.dtype == torch.float32 or g.dtype == torch.complex64 for g in grads.values())
+            and all(bool(torch.isfinite(g).all()) for g in grads.values()),
+            f"B3 with dH under the policy: gradients {sorted(grads)}")
+    require(launches["B3b loss_sums_bwd (bf16, dH)"] == 1, f"B3b (bf16, dH): {launches}")
+    runs.append(launches)
+    return add_counts(*runs)
+
+
+def forward_bf16_pso(dev, pso_init: dict) -> dict:
+    """A PSO batch of forward() under compute_dtype 'bfloat16' with the
+    far-field exit and optimizable dz (B6, B5 with the exit, dH, bf16) and
+    its backward: dp float32 and finite, a finite dz gradient. Returns the
+    launch counts."""
+    from ptyrad_tpu_torch.models import forward, make_model
+
+    C = importlib.import_module("ptyrad_tpu_torch.ops.chain")
+    pso_mp = with_bf16(PSO_PARAMS)["model_params"]
+    pso_mp["update_params"] = {**pso_mp["update_params"],
+                               "slice_thickness": {"start_iter": 1, "lr": 1e-4}}
+    params, buffers, geom = make_model(pso_init, pso_mp, dev)
+    for _, t in params.named():
+        t.requires_grad_(True)
+    pidx = torch.arange(BATCH, device=dev)
+
+    def pso_batch():
+        C.set_far_field(True)
+        try:
+            dp, _ = forward(params, buffers, geom, pidx)
+            dp.sum().backward()
+        finally:
+            C.set_far_field(False)
+        return dp
+
+    dp, launches = counted(pso_batch)
+    emit({"phase": "forward_bf16", "check": "forward() PSO batch, far-field exit, dz",
+          "dp_dtype": str(dp.dtype), "finite": bool(torch.isfinite(dp).all()),
+          "launches": launches})
+    require(dp.dtype == torch.float32 and bool(torch.isfinite(dp).all())
+            and bool(torch.isfinite(params.slice_thickness.grad)), "PSO batch under the policy")
+    for name in ("B5a chain_segment_fwd (far-field, bf16)", "B6a chain_stack_fwd (bf16)",
+                 "B6b chain_stack_bwd (bf16, dH)"):
+        require(launches[name] > 0, f"PSO batch under the policy: {name} was not launched")
+    return launches
+
+
+def cli_mixed_precision(card: str, tmp: str, raw_path: str) -> None:
+    """``python -m ptyrad_tpu_torch run --mixed_precision`` in a subprocess on
+    the params_file phase's .raw, 1 iteration: exit 0, a finite loss, and
+    the log names the policy."""
+    d = tbl_params_file(raw_path)
+    d["recon_params"].update(NITER=1, SAVE_ITERS=1, output_dir=f"{tmp}/cli_bf16_out",
+                             save_result=["objp"], selected_figs=[])
+    path = f"{tmp}/tbl_cli_bf16.json"
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(d, f)
+    rc, lines, seconds = _run_cli(["run", "--params_path", path, "--mixed_precision"], 600)
+    iters = [_ITER_LINE.search(line) for _, line in lines if _ITER_LINE.search(line)]
+    policy = [line for _, line in lines if "Compute policy:" in line]
+    emit({"phase": "cli_mixed_precision", "card": card, "rc": rc, "seconds": seconds,
+          "losses": [float(m.group(2)) for m in iters], "policy_line": policy})
+    require(rc == 0, f"cli --mixed_precision exited {rc}:\n{_tail(lines)}")
+    require(len(iters) == 1 and np.isfinite(float(iters[0].group(2))),
+            f"cli --mixed_precision: {_tail(lines)}")
+    require(any("compute_dtype=bfloat16, transform operands bfloat16" in line for line in policy),
+            f"cli --mixed_precision: the log does not name the policy: {policy}")
+
+
 def fused_plan(n: int) -> dict:
     """The plan csrc/multislice.cu compiled for N (ptyrad_fused_plan)."""
     import ctypes
@@ -3708,14 +4484,23 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = kernel_rows(dev, gen)
+    kernels += check_bf16_kernels(dev, gen, kernels)
+    torch.cuda.empty_cache()
     propagation_yardstick(dev, gen)
     torch.cuda.empty_cache()
     plain_launches = plain_route_check(dev)
 
     solver, tbl_launches, init, main_record = main_path(dev, card)
     main_losses = [v for _, v in solver.history.loss_iters]
+    main_state = final_state(solver)  # before the profile's steps move it
+    corr32 = quality_check("tBL", card, solver.params.objp,
+                           ground_truth_phase(tbl_positions()[1]), *tbl_scanned())
     profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
     del solver
+    torch.cuda.empty_cache()
+    solver, mp_launches = mixed_precision_path(dev, card, init, main_state, corr32)
+    profile_steps(solver, card, "tBL-bf16", NITER + 1, n_batches=32)
+    del solver, main_state
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         params_file_launches, raw_path = params_file_path(
@@ -3727,6 +4512,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         cli_path(card, tmp, raw_path, solver)
         del solver
+        cli_mixed_precision(card, tmp, raw_path)
         torch.cuda.empty_cache()
         figures_launches = figures_path(dev, card, tmp, raw_path)
         hypertune_launches = hypertune_path(dev, card, tmp, raw_path)
@@ -3741,6 +4527,8 @@ def main() -> int:
     grouping_launches = grouping_path(dev, card, init)
     torch.cuda.empty_cache()
     forward_launches = forward_modes_check(dev, init)
+    torch.cuda.empty_cache()
+    forward_bf16_launches = forward_bf16_check(dev, init)
     torch.cuda.empty_cache()
     solver, low_dose_launches = low_dose_path(dev, card, init)
     profile_steps(solver, card, "low-dose", NITER + 1, n_batches=32)
@@ -3757,6 +4545,10 @@ def main() -> int:
     pso_ms = profile_steps(solver, card, "PSO", PSO_NITER + 1, n_batches=8)["device_ms_per_step"]
     del solver
     torch.cuda.empty_cache()
+    solver, pso_bf16_launches = pso_bf16_path(dev, card, pso_init, pso_ref)
+    profile_steps(solver, card, "PSO-bf16", PSO_NITER + 1, n_batches=8)
+    del solver
+    torch.cuda.empty_cache()
     solver, pso_ff_launches = pso_ff_path(dev, card, pso_init, pso_ref)
     pso_ff_ms = far_field_on(
         lambda: profile_steps(solver, card, "PSO-ff", PSO_NITER + 1, n_batches=8)
@@ -3768,6 +4560,8 @@ def main() -> int:
     random_start_launches = pso_ff_random_start(dev, pso_init)
     torch.cuda.empty_cache()
     carve_launches = carve_check(dev, pso_init)
+    torch.cuda.empty_cache()
+    pso_bf16_forward_launches = forward_bf16_pso(dev, pso_init)
     del pso_init
     torch.cuda.empty_cache()
     solver, tilt_launches = tilt_path(dev, card)
@@ -3779,10 +4573,10 @@ def main() -> int:
     narrow = add_counts(plain_launches, tbl_launches, params_file_launches, resume_launches,
                         forward_launches, low_dose_launches, store_launches, tilt_launches,
                         lbfgs_launches, accum_launches, family_launches, figures_launches,
-                        hypertune_launches,
+                        hypertune_launches, mp_launches, forward_bf16_launches,
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
-                      pso_tilt_launches)
+                      pso_tilt_launches, pso_bf16_launches, pso_bf16_forward_launches)
     launches = add_counts(narrow, wide)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

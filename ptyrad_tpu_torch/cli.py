@@ -33,7 +33,9 @@ def _jobid_prefix(jobid) -> str:
 def _apply_common_overrides(params: dict, args) -> None:
     """CLI flags that override params-file fields."""
     if getattr(args, "mixed_precision", False):
-        params.setdefault("model_params", {})["compute_dtype"] = "bfloat16"
+        mp = params.setdefault("model_params", {})
+        mp["compute_dtype"] = "bfloat16"
+        mp["matmul_dtype"] = "bfloat16"
 
 
 def cmd_run(args) -> int:
@@ -150,8 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Job id label for the log file (a hypertune worker's)")
     p_run.add_argument("--skip_validate", action="store_true", help="Skip params validation")
     p_run.add_argument("--mixed_precision", action="store_true",
-                       help="Set model_params.compute_dtype to bfloat16 (not ported yet: "
-                            "ROADMAP item A8)")
+                       help="The bfloat16 compute policy: set model_params.compute_dtype "
+                            "and matmul_dtype to bfloat16 (bfloat16 transform operands in "
+                            "every kernel; parameters, gradients and the loss stay float32)")
     p_run.add_argument("--multihost", action="store_true",
                        help="Distributed launch (ROADMAP item A6)")
     p_run.add_argument("--coordinator_address", default=None,

@@ -9,6 +9,10 @@ the parameters in place, so the optimizer keeps its references.
 All twelve constraints of the JAX package are here: ortho_pmode,
 probe_mask_k, fix_probe_int, obj_rblur, obj_zblur, kr_filter, kz_filter,
 complex_ratio, mirrored_amp, obja_thresh, objp_postiv and tilt_smooth.
+Under the bfloat16 compute policy (``geom.bf16_operands``) the transforms of
+probe_mask_k, kr_filter and kz_filter round their operands to bfloat16, as
+the JAX package's do under its matmul switch (ptyrad_tpu/constraints.py:103,
+:122-123, :174-175).
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ def ortho_pmode(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
     params.probe.copy_(orthogonalize_modes(params.probe, sort=True))
 
 
-def probe_mask_k(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
+def probe_mask_k(params: PtychoParams, buffers: Buffers, cfg: dict,
+                 bf16_operands: bool = False) -> None:
     """Sigmoid k-space mask on the strongest probe modes: mode 0 and every
     mode i whose predecessors hold at most power_thresh of the total power
     (ptyrad_tpu/constraints.py:160-177); then the modes are sorted by
@@ -80,8 +85,10 @@ def probe_mask_k(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
     masked = torch.cat([torch.ones(1, dtype=torch.bool, device=probe.device),
                         csum[:-1] <= cfg["power_thresh"]])
     mask2d = make_sigmoid_mask(probe.shape[-1], cfg["radius"], cfg["width"], device=probe.device)
-    probe_k = fftshift2(fft2(ifftshift2(probe), norm="ortho"))
-    probe_masked = fftshift2(ifft2(ifftshift2(probe_k * mask2d), norm="ortho"))
+    ops = bf16_operands
+    probe_k = fftshift2(fft2(ifftshift2(probe), norm="ortho", bf16_operands=ops))
+    probe_masked = fftshift2(ifft2(ifftshift2(probe_k * mask2d), norm="ortho",
+                                   bf16_operands=ops))
     new_probe = torch.where(masked[:, None, None], probe_masked, probe)
     probe.copy_(sort_by_mode_intensity(new_probe))
 
@@ -127,7 +134,8 @@ def objp_postiv(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
     params.objp.copy_(cfg["relax"] * params.objp + (1.0 - cfg["relax"]) * modified)
 
 
-def kr_filter_fn(obj: torch.Tensor, radius: float, width: float) -> torch.Tensor:
+def kr_filter_fn(obj: torch.Tensor, radius: float, width: float,
+                 bf16_operands: bool = False) -> torch.Tensor:
     """Lateral Fourier low-pass with a sigmoid cutoff over the last two axes
     (ptyrad_tpu/constraints.py:87-103). On a rectangular canvas the square
     mask is stretched by nearest-neighbour lookup with the floor source
@@ -139,15 +147,19 @@ def kr_filter_fn(obj: torch.Tensor, radius: float, width: float) -> torch.Tensor
         iy = (torch.arange(ny, device=obj.device) * sy) // ny
         ix = (torch.arange(nx, device=obj.device) * sx) // nx
         mask = mask[iy][:, ix]
-    return ifft2(fft2(obj) * ifftshift2(mask)).real.to(obj.dtype)
+    ops = bf16_operands
+    return ifft2(fft2(obj, bf16_operands=ops) * ifftshift2(mask),
+                 bf16_operands=ops).real.to(obj.dtype)
 
 
-def kr_filter(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
-    _apply_obj(params, cfg["obj_type"], lambda o: kr_filter_fn(o, cfg["radius"], cfg["width"]))
+def kr_filter(params: PtychoParams, buffers: Buffers, cfg: dict,
+              bf16_operands: bool = False) -> None:
+    _apply_obj(params, cfg["obj_type"],
+               lambda o: kr_filter_fn(o, cfg["radius"], cfg["width"], bf16_operands))
 
 
 def kz_filter_fn(obj: torch.Tensor, beta: float = 1.0, alpha: float = 1.0,
-                 obj_type: str = "phase") -> torch.Tensor:
+                 obj_type: str = "phase", bf16_operands: bool = False) -> torch.Tensor:
     """Missing-wedge arctan kz filter (ptyrad_tpu/constraints.py:106-126).
 
     W = 1 - atan((beta |kz| / sqrt(kx^2 + ky^2 + 1e-3))^2) / (pi/2), times a
@@ -161,17 +173,19 @@ def kz_filter_fn(obj: torch.Tensor, beta: float = 1.0, alpha: float = 1.0,
     w = 1.0 - torch.arctan((beta * gz.abs() / torch.sqrt(gx**2 + gy**2 + 1e-3)) ** 2) / (
         torch.pi / 2)
     wa = w * torch.exp(-alpha * (gx**2 + gy**2))
-    fobj = fftn3(fftn3(obj) * wa, inverse=True).real.to(obj.dtype)
+    ops = bf16_operands
+    fobj = fftn3(fftn3(obj, bf16_operands=ops) * wa, inverse=True,
+                 bf16_operands=ops).real.to(obj.dtype)
     if obj_type == "amplitude":
         fobj = 1.0 + 0.9 * (fobj - 1.0)
     return fobj
 
 
-def kz_filter(params: PtychoParams, buffers: Buffers, cfg: dict) -> None:
-    if cfg["obj_type"] in ("amplitude", "both"):
-        params.obja.copy_(kz_filter_fn(params.obja, cfg["beta"], cfg["alpha"], "amplitude"))
-    if cfg["obj_type"] in ("phase", "both"):
-        params.objp.copy_(kz_filter_fn(params.objp, cfg["beta"], cfg["alpha"], "phase"))
+def kz_filter(params: PtychoParams, buffers: Buffers, cfg: dict,
+              bf16_operands: bool = False) -> None:
+    for obj_type, t in (("amplitude", params.obja), ("phase", params.objp)):
+        if cfg["obj_type"] in (obj_type, "both"):
+            t.copy_(kz_filter_fn(t, cfg["beta"], cfg["alpha"], obj_type, bf16_operands))
 
 
 def complex_ratio_fn(obja: torch.Tensor, objp: torch.Tensor, alpha1: float, alpha2: float):
@@ -211,6 +225,9 @@ def tilt_smooth(params: PtychoParams, buffers: Buffers, cfg: dict, n_slow: int =
     params.obj_tilts.copy_(blurred.movedim(0, -1).reshape(-1, 2))
 
 
+# the constraints whose transforms follow the bfloat16 compute policy
+DFT_CONSTRAINTS = ("probe_mask_k", "kr_filter", "kz_filter")
+
 # Reference application order (reference constraints.py:227-246)
 _ORDER: Tuple[str, ...] = (
     "ortho_pmode",
@@ -246,7 +263,8 @@ _FNS: Dict[str, Callable] = {
 class ConstraintScheduler:
     """Applies the due constraints each iteration, in the reference order.
     tilt_smooth is bound to the scan grid of ``geom``, as the JAX scheduler
-    binds it (ptyrad_tpu/constraints.py:341-342)."""
+    binds it (ptyrad_tpu/constraints.py:341-342), and the constraints with
+    transforms to ``geom.bf16_operands``."""
 
     def __init__(self, constraint_params: dict | None, geom: Geometry):
         cfg = {k: {**v} for k, v in DEFAULT_CONSTRAINT_PARAMS.items()}
@@ -277,6 +295,8 @@ class ConstraintScheduler:
             fn = _FNS[name]
             if name == "tilt_smooth":
                 fn = functools.partial(fn, n_slow=geom.n_scan_slow, n_fast=geom.n_scan_fast)
+            elif name in DFT_CONSTRAINTS and geom.bf16_operands:
+                fn = functools.partial(fn, bf16_operands=True)
             self._active.append((name, int(freq), fn, c))
 
     @torch.no_grad()

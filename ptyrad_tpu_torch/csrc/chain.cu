@@ -102,6 +102,24 @@
 //    anywhere there; the 1/N^2 of a propagation rides on H. The permuting
 //    store and load are template flags (kFf) of the row kernels.
 //  * FP32 throughout, accurate sincosf.
+//  * The bfloat16 compute policy: chain_bf16.cu compiles this file with
+//    PTYRAD_BF16_OPERANDS 1, so every line transform (line_fft: the row and
+//    column passes, forward and adjoint, and the far-field exit's) rounds
+//    its points to bfloat16 first, as the JAX chain rounds each pass's GEMM
+//    operand (pallas_chain.py:221-228, :270-274, :317-336, :368-375,
+//    :492-504). T and H multiplies, the dT and dH sums and every field
+//    written between passes stay FP32; its entry points carry the suffix
+//    _bf16. This file alone (the default, 0) compiles the FP32 kernels as
+//    they were.
+
+#ifndef PTYRAD_BF16_OPERANDS
+#define PTYRAD_BF16_OPERANDS 0
+#endif
+#if PTYRAD_BF16_OPERANDS
+#define PTYRAD_ENTRY(name) name##_bf16
+#else
+#define PTYRAD_ENTRY(name) name
+#endif
 
 #include <cuda_runtime.h>
 
@@ -120,6 +138,7 @@ using regfft::static_for;
 using regfft::with_logn;
 
 constexpr int kMaxLogN = 9;  // N <= 512
+constexpr bool kBf16 = PTYRAD_BF16_OPERANDS != 0;  // every line transform rounds its operand
 
 template <int LOGN>
 struct Plan {
@@ -187,7 +206,7 @@ row_fwd_kernel(const float2* src, long long src_bs, int pending, float2* entry,
     const float2* sp = src + b * src_bs + off;
     float2 v[kE];
     static_for<0, kE>([&](auto m) { v[m] = sp[m * kTl]; });
-    if (pending) line_fft<LOGN, true>(v, t, ex);
+    if (pending) line_fft<LOGN, true, kBf16>(v, t, ex);
     if (entry != nullptr) {
       float2* ep = entry + b * entry_bs + off;
       static_for<0, kE>([&](auto m) { ep[m * kTl] = v[m]; });
@@ -195,7 +214,7 @@ row_fwd_kernel(const float2* src, long long src_bs, int pending, float2* entry,
     if (a != nullptr) {
       static_for<0, kE>([&](auto m) { v[m] = cmul(v[m], tsm[pos + m * kTl]); });
     }
-    if (fft) line_fft<LOGN, false>(v, t, ex);
+    if (fft) line_fft<LOGN, false, kBf16>(v, t, ex);
     if (dst != nullptr) {
       float2* dp = dst + b * dst_bs + off;
       static_for<0, kE>([&](auto m) { dp[m * kTl] = v[kFf ? (m ^ (kE / 2)) : m]; });
@@ -249,14 +268,14 @@ row_bwd_kernel(const float2* src, long long src_bs, int pending, const float2* _
       v[m] = sp[(kFf ? (m ^ (kE / 2)) : m) * kTl];
       ps[m] = pp[m * kTl];
     });
-    if (pending) line_fft<LOGN, true>(v, t, ex);
+    if (pending) line_fft<LOGN, true, kBf16>(v, t, ex);
     static_for<0, kE>([&](auto m) {
       const float2 q = cmul_conj(v[m], ps[m]);
       dt[m].x += q.x;
       dt[m].y += q.y;
       v[m] = cmul_conj(v[m], tsm[pos + m * kTl]);
     });
-    if (fft) line_fft<LOGN, false>(v, t, ex);
+    if (fft) line_fft<LOGN, false, kBf16>(v, t, ex);
     float2* dp = dst + b * dst_bs + off;
     static_for<0, kE>([&](auto m) { dp[m * kTl] = v[m]; });
   }
@@ -306,7 +325,7 @@ col_kernel(float2* buf, long long bs, const float2* __restrict__ h, long long h_
 
   float2 v[kE];
   static_for<0, kE>([&](auto m) { v[m] = f[m * kStep]; });
-  line_fft<LOGN, false>(v, t, ex);
+  line_fft<LOGN, false, kBf16>(v, t, ex);
   if constexpr (kDh) {
     float2* kb = kbuf + fo;
     if (!conj_h) {
@@ -327,7 +346,7 @@ col_kernel(float2* buf, long long bs, const float2* __restrict__ h, long long h_
     const float2 hv = hb[m * kStep];
     v[m] = cmul(v[m], make_float2(hv.x * inv_nn, (conj_h ? -hv.y : hv.y) * inv_nn));
   });
-  line_fft<LOGN, true>(v, t, ex);
+  line_fft<LOGN, true, kBf16>(v, t, ex);
   static_for<0, kE>([&](auto m) { f[m * kStep] = v[m]; });
 }
 
@@ -354,9 +373,9 @@ col_ff_kernel(const float2* src, float2* dst, long long bs) {
   float2 v[kE];
   static_for<0, kE>([&](auto m) { v[m] = src[fo + (kAdj ? (m ^ (kE / 2)) : m) * kStep]; });
   if constexpr (kAdj) {
-    line_fft<LOGN, true>(v, t, ex);
+    line_fft<LOGN, true, kBf16>(v, t, ex);
   } else {
-    line_fft<LOGN, false>(v, t, ex);
+    line_fft<LOGN, false, kBf16>(v, t, ex);
   }
   static_for<0, kE>([&](auto m) { dst[fo + m * kStep] = v[kAdj ? m : (m ^ (kE / 2))]; });
 }
@@ -597,10 +616,10 @@ extern "C" {
 // segment, (B, ., N, N) f32 with per-sample stride obj_bs (elements) and
 // the sg slices adjacent; h (1 or B, N, N) complex64, corner-centred. With
 // far_field (needs last) out is the exit's centred spectrum.
-int ptyrad_chain_segment_fwd(const float2* psi, const float* a, const float* ph,
-                             long long obj_bs, const float2* h, float2* out, int B, int pmode,
-                             int sg, int logn, int h_shared, int last, int far_field,
-                             void* stream) {
+int PTYRAD_ENTRY(ptyrad_chain_segment_fwd)(
+    const float2* psi, const float* a, const float* ph, long long obj_bs, const float2* h,
+    float2* out, int B, int pmode, int sg, int logn, int h_shared, int last, int far_field,
+    void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
   REGFFT_TRY(c.init());
@@ -614,11 +633,11 @@ int ptyrad_chain_segment_fwd(const float2* psi, const float* a, const float* ph,
 // d phi (B, sg, N, N) and d psi (B, pmode, N, N). With dh (H's shape) not
 // null, also the propagator cotangent, through kscr (sg fields) and
 // dh_part (one field).
-int ptyrad_chain_segment_bwd(const float2* g, const float2* psi, const float* a, const float* ph,
-                             long long obj_bs, const float2* h, float2* scratch, float2* work,
-                             float2* kscr, float2* dh_part, float2* dh, float* da, float* dph,
-                             float2* dpsi, int B, int pmode, int sg, int logn, int h_shared,
-                             int last, int far_field, void* stream) {
+int PTYRAD_ENTRY(ptyrad_chain_segment_bwd)(
+    const float2* g, const float2* psi, const float* a, const float* ph, long long obj_bs,
+    const float2* h, float2* scratch, float2* work, float2* kscr, float2* dh_part, float2* dh,
+    float* da, float* dph, float2* dpsi, int B, int pmode, int sg, int logn, int h_shared,
+    int last, int far_field, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
   REGFFT_TRY(c.init());
@@ -629,10 +648,10 @@ int ptyrad_chain_segment_bwd(const float2* g, const float2* psi, const float* a,
 
 // B6a. n_seg segments of sg slices from psi0; writes the exit to out and the
 // segment-entry stack (B, n_seg, pmode, N, N).
-int ptyrad_chain_stack_fwd(const float2* psi0, const float* a, const float* ph,
-                           long long obj_bs, const float2* h, float2* stack, float2* out, int B,
-                           int pmode, int n_seg, int sg, int logn, int h_shared, int last_mega,
-                           void* stream) {
+int PTYRAD_ENTRY(ptyrad_chain_stack_fwd)(
+    const float2* psi0, const float* a, const float* ph, long long obj_bs, const float2* h,
+    float2* stack, float2* out, int B, int pmode, int n_seg, int sg, int logn, int h_shared,
+    int last_mega, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
   REGFFT_TRY(c.init());
@@ -643,11 +662,11 @@ int ptyrad_chain_stack_fwd(const float2* psi0, const float* a, const float* ph,
 // B6b. g: cotangent of the exit; stack from B6a. scratch (sg - 1) fields,
 // work one field. Writes d a, d phi (B, n_seg * sg, N, N) and d psi0; with
 // dh, the propagator cotangent as B5b does.
-int ptyrad_chain_stack_bwd(const float2* g, const float2* stack, const float* a, const float* ph,
-                           long long obj_bs, const float2* h, float2* scratch, float2* work,
-                           float2* kscr, float2* dh_part, float2* dh, float* da, float* dph,
-                           float2* dpsi0, int B, int pmode, int n_seg, int sg, int logn,
-                           int h_shared, int last_mega, void* stream) {
+int PTYRAD_ENTRY(ptyrad_chain_stack_bwd)(
+    const float2* g, const float2* stack, const float* a, const float* ph, long long obj_bs,
+    const float2* h, float2* scratch, float2* work, float2* kscr, float2* dh_part, float2* dh,
+    float* da, float* dph, float2* dpsi0, int B, int pmode, int n_seg, int sg, int logn,
+    int h_shared, int last_mega, void* stream) {
   Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
   if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
   REGFFT_TRY(c.init());
@@ -658,8 +677,9 @@ int ptyrad_chain_stack_bwd(const float2* g, const float2* stack, const float* a,
 
 // The set-up of N = 2^logn on the current device (prepare): a launch after it
 // does none.
-int ptyrad_chain_prepare(int logn) { return static_cast<int>(prepare(logn)); }
+int PTYRAD_ENTRY(ptyrad_chain_prepare)(int logn) { return static_cast<int>(prepare(logn)); }
 
+#if !PTYRAD_BF16_OPERANDS
 // The pass plan for N = 2^logn and pmode probe modes, which the card-only
 // tests hold against tests/test_torch_chain_plan.py's: out gets N, E, TL,
 // the number of passes, their radices (0 past the last), rows and columns
@@ -678,5 +698,6 @@ int ptyrad_chain_plan(int logn, int pmode, int* out) {
     return cudaSuccess;
   }));
 }
+#endif  // !PTYRAD_BF16_OPERANDS
 
 }  // extern "C"

@@ -108,6 +108,24 @@
 //  * Set-up once per (device, N) (prepare, ptyrad_fused_prepare): the
 //    twiddle table and the kernels' shared-memory limits.
 //  * FP32 throughout, accurate sincosf, twiddles from double precision.
+//  * The bfloat16 compute policy: multislice_bf16.cu compiles this file
+//    with PTYRAD_BF16_OPERANDS 1, so every line transform (line_dif,
+//    line_dit: each 1-D pass, forward and adjoint, of the chain, the kspace
+//    probe, the far field and the dH spectra) rounds its points to bfloat16
+//    first, as the JAX kernels round each pass's GEMM operand
+//    (pallas_multislice.py:105-107, :140, :172, :189, :215-239). T and H
+//    multiplies, the mode sums, the loss partials and the fixed-order
+//    reduces stay FP32; its entry points carry the suffix _bf16. This file
+//    alone (the default, 0) compiles the FP32 kernels as they were.
+
+#ifndef PTYRAD_BF16_OPERANDS
+#define PTYRAD_BF16_OPERANDS 0
+#endif
+#if PTYRAD_BF16_OPERANDS
+#define PTYRAD_ENTRY(name) name##_bf16
+#else
+#define PTYRAD_ENTRY(name) name
+#endif
 
 #include <cuda_runtime.h>
 
@@ -126,6 +144,7 @@ using regfft::static_for;
 using regfft::with_logn;
 
 constexpr int kMaxLogN = 7;  // N <= 128: the padded field fits 227 KB of shared memory
+constexpr bool kBf16 = PTYRAD_BF16_OPERANDS != 0;  // every line transform rounds its operand
 // A chain block's threads at N = 128 (one block an SM either way). The
 // forward's 1,024 threads fit 64 registers with a 60-byte spill and beat
 // 512; the backward needs 128 registers, and at 1,024 threads (64 each) a
@@ -261,7 +280,7 @@ __device__ __forceinline__ void run_chain(float2* s, const float2* __restrict__ 
     for_cols<P>(s, [&](int x, int t, const auto& ex) {
       float2 v[kE];
       static_for<0, kE>([&](auto i) { v[i] = pr[regfft::dif_freq<kLogN>(t, i) * kN + x]; });
-      line_dit<kLogN>(v, t, ex);
+      line_dit<kLogN, kBf16>(v, t, ex);
       store_line<P>(v, t, ex);
     });
     __syncthreads();
@@ -278,7 +297,7 @@ __device__ __forceinline__ void run_chain(float2* s, const float2* __restrict__ 
         static_for<0, kE>([&](auto m) { v[m] = pr[row + m * kTl]; });
       } else {
         load_freq<P>(v, t, ex);
-        line_dit<kLogN>(v, t, ex);
+        line_dit<kLogN, kBf16>(v, t, ex);
         if (z == 0) static_for<0, kE>([&](auto m) { v[m] = cscale(v[m], kInvNN); });
       }
       if (st != nullptr) {
@@ -291,7 +310,7 @@ __device__ __forceinline__ void run_chain(float2* s, const float2* __restrict__ 
         const float a = a_z[k];
         v[m] = cmul(v[m], make_float2(a * cs, a * sn));
       });
-      line_dif<kLogN>(v, t, ex);
+      line_dif<kLogN, kBf16>(v, t, ex);
       store_freq<P>(v, t, ex);
     });
     __syncthreads();
@@ -300,14 +319,14 @@ __device__ __forceinline__ void run_chain(float2* s, const float2* __restrict__ 
     for_cols<P>(s, [&](int x, int t, const auto& ex) {
       float2 v[kE];
       load_line<P>(v, t, ex);
-      line_dif<kLogN>(v, t, ex);
+      line_dif<kLogN, kBf16>(v, t, ex);
       static_for<0, kE>([&](auto i) {
         const int k = regfft::dif_freq<kLogN>(t, i) * kN + x;
         if constexpr (kDh) kst[z * kNN + k] = v[i];
         const float2 hv = __ldg(h + k);
         v[i] = cmul(v[i], make_float2(hv.x * kInvNN, hv.y * kInvNN));
       });
-      line_dit<kLogN>(v, t, ex);
+      line_dit<kLogN, kBf16>(v, t, ex);
       store_line<P>(v, t, ex);
     });
     __syncthreads();
@@ -336,7 +355,7 @@ chain_fwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   for_cols<P>(smem, [&](int x, int t, const auto& ex) {
     float2 v[kE];
     load_line<P>(v, t, ex);
-    line_dif<LOGN>(v, t, ex);
+    line_dif<LOGN, kBf16>(v, t, ex);
     static_for<0, kE>([&](auto i) {
       out[regfft::dif_freq<LOGN>(t, i) * kN + x] = (v[i].x * v[i].x + v[i].y * v[i].y) * kInvNN;
     });
@@ -470,7 +489,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   for_cols<P>(smem, [&](int x, int t, const auto& ex) {
     float2 v[kE];
     load_line<P>(v, t, ex);
-    line_dif<LOGN>(v, t, ex);
+    line_dif<LOGN, kBf16>(v, t, ex);
     static_for<0, kE>([&](auto i) {
       const int k = regfft::dif_freq<LOGN>(t, i) * kN + x;
       float gk;
@@ -482,7 +501,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
       }
       v[i] = cscale(v[i], coef * gk);
     });
-    line_dit<LOGN>(v, t, ex);
+    line_dit<LOGN, kBf16>(v, t, ex);
     store_line<P>(v, t, ex);
   });
   __syncthreads();
@@ -498,7 +517,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
     for_rows<P>(smem, [&](int y, int t, const auto& ex) {
       float2 v[kE];
       load_freq<P>(v, t, ex);
-      line_dit<LOGN>(v, t, ex);
+      line_dit<LOGN, kBf16>(v, t, ex);
       const int row = z * kNN + y * kN + t;
       static_for<0, kE>([&](auto m) {
         const int k = row + m * kTl;
@@ -511,7 +530,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
       if (probe_rows) {
         static_for<0, kE>([&](auto m) { out[y * kN + t + m * kTl] = v[m]; });
       } else {
-        line_dif<LOGN>(v, t, ex);
+        line_dif<LOGN, kBf16>(v, t, ex);
         store_freq<P>(v, t, ex);
       }
     });
@@ -523,7 +542,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
       for_cols<P>(smem, [&](int x, int t, const auto& ex) {
         float2 v[kE];
         load_line<P>(v, t, ex);
-        line_dif<LOGN>(v, t, ex);
+        line_dif<LOGN, kBf16>(v, t, ex);
         static_for<0, kE>([&](auto i) {
           const int k = regfft::dif_freq<LOGN>(t, i) * kN + x;
           if constexpr (kDh) {
@@ -534,7 +553,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
           const float2 hv = __ldg(h_b + k);
           v[i] = cmul_conj(v[i], make_float2(hv.x * kInvNN, hv.y * kInvNN));
         });
-        line_dit<LOGN>(v, t, ex);
+        line_dit<LOGN, kBf16>(v, t, ex);
         store_line<P>(v, t, ex);
       });
       __syncthreads();
@@ -543,7 +562,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
       for_cols<P>(smem, [&](int x, int t, const auto& ex) {
         float2 v[kE];
         load_line<P>(v, t, ex);
-        line_dif<LOGN>(v, t, ex);
+        line_dif<LOGN, kBf16>(v, t, ex);
         static_for<0, kE>([&](auto i) {
           out[regfft::dif_freq<LOGN>(t, i) * kN + x] = cscale(v[i], kInvNN);
         });
@@ -627,9 +646,10 @@ extern "C" {
 // B4a. obja, objp (B, 1, nz, N, N) f32; probe (B or 1, pmode, N, N)
 // complex64; h (B or 1, N, N) complex64 (h_shared: one H for all). Writes
 // the inten (B, pmode, N, N) scratch and dp (B, N, N), corner-centred.
-int ptyrad_dp_fwd(const float* obja, const float* objp, const float2* probe, const float2* h,
-                  float* inten, float* dp, int B, int pmode, int nz, int logn, int shared_probe,
-                  int h_shared, int kspace, void* stream) {
+int PTYRAD_ENTRY(ptyrad_dp_fwd)(
+    const float* obja, const float* objp, const float2* probe, const float2* h, float* inten,
+    float* dp, int B, int pmode, int nz, int logn, int shared_probe, int h_shared, int kspace,
+    void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, logn,
@@ -649,11 +669,11 @@ int ptyrad_dp_fwd(const float* obja, const float* objp, const float2* probe, con
 // fixed order. With dh (H's shape) not null it also writes the propagator
 // cotangent, through the scratches kstack (B, pmode, nz - 1, N, N) and
 // dh_part (B, pmode, N, N).
-int ptyrad_dp_bwd(const float* obja, const float* objp, const float2* probe, const float2* h,
-                  const float* g, float2* stack, float2* kstack, float2* dh_part, float2* dh,
-                  float* d_obja, float* d_objp, float2* d_probe, float2* probe_part, int B,
-                  int pmode, int nz, int logn, int shared_probe, int h_shared, int kspace,
-                  void* stream) {
+int PTYRAD_ENTRY(ptyrad_dp_bwd)(
+    const float* obja, const float* objp, const float2* probe, const float2* h, const float* g,
+    float2* stack, float2* kstack, float2* dh_part, float2* dh, float* d_obja, float* d_objp,
+    float2* d_probe, float2* probe_part, int B, int pmode, int nz, int logn, int shared_probe,
+    int h_shared, int kspace, void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chain_bwd<false>(
       obja, objp, probe, h, g, nullptr, nullptr, nullptr, nullptr, stack, kstack, dh_part, dh,
@@ -665,11 +685,11 @@ int ptyrad_dp_bwd(const float* obja, const float* objp, const float2* probe, con
 // (B,) f32. Writes the inten (B, pmode, N, N) and partial (B, chunks, 2)
 // scratch (chunks = min(N, 16), ptyrad_fused_plan), dp (B, N, N) and
 // sums (2,) = (s1, s2).
-int ptyrad_loss_fwd(const float* obja, const float* objp, const float2* probe, const float2* h,
-                    const float* meas, const float* mask, float* inten, float* dp,
-                    float* partial, float* sums, int B, int pmode, int nz, int logn,
-                    int shared_probe, int h_shared, int kspace, float p, float eps,
-                    void* stream) {
+int PTYRAD_ENTRY(ptyrad_loss_fwd)(
+    const float* obja, const float* objp, const float2* probe, const float2* h, const float* meas,
+    const float* mask, float* inten, float* dp, float* partial, float* sums, int B, int pmode,
+    int nz, int logn, int shared_probe, int h_shared, int kspace, float p, float eps,
+    void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, logn,
@@ -688,12 +708,12 @@ int ptyrad_loss_fwd(const float* obja, const float* objp, const float2* probe, c
 // cotangent of s1, on the device), stack (B, pmode, nz, N, N) complex64
 // scratch and probe_part as for ptyrad_dp_bwd. Writes d_obja, d_objp,
 // d_probe and (with dh) the propagator cotangent as ptyrad_dp_bwd does.
-int ptyrad_loss_bwd(const float* obja, const float* objp, const float2* probe, const float2* h,
-                    const float* meas, const float* mask, const float* dp, const float* c,
-                    float2* stack, float2* kstack, float2* dh_part, float2* dh, float* d_obja,
-                    float* d_objp, float2* d_probe, float2* probe_part, int B, int pmode, int nz,
-                    int logn, int shared_probe, int h_shared, int kspace, float p, float eps,
-                    void* stream) {
+int PTYRAD_ENTRY(ptyrad_loss_bwd)(
+    const float* obja, const float* objp, const float2* probe, const float2* h, const float* meas,
+    const float* mask, const float* dp, const float* c, float2* stack, float2* kstack,
+    float2* dh_part, float2* dh, float* d_obja, float* d_objp, float2* d_probe,
+    float2* probe_part, int B, int pmode, int nz, int logn, int shared_probe, int h_shared,
+    int kspace, float p, float eps, void* stream) {
   if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chain_bwd<true>(
       obja, objp, probe, h, nullptr, meas, mask, dp, c, stack, kstack, dh_part, dh, d_obja,
@@ -703,8 +723,9 @@ int ptyrad_loss_bwd(const float* obja, const float* objp, const float2* probe, c
 
 // The set-up of N = 2^logn on the current device (prepare): a launch after it
 // does none.
-int ptyrad_fused_prepare(int logn) { return static_cast<int>(prepare(logn)); }
+int PTYRAD_ENTRY(ptyrad_fused_prepare)(int logn) { return static_cast<int>(prepare(logn)); }
 
+#if !PTYRAD_BF16_OPERANDS
 // The plan for N = 2^logn, which the card-only tests hold against
 // tests/test_torch_fused_plan.py's: out gets N, E, TL, the padded row
 // length, the forward and the backward chain block's threads and sweeps, a
@@ -720,5 +741,6 @@ int ptyrad_fused_plan(int logn, int* out) {
     return cudaSuccess;
   }));
 }
+#endif  // !PTYRAD_BF16_OPERANDS
 
 }  // extern "C"

@@ -19,9 +19,17 @@
 //
 // An exchange policy provides store(a, x) and load(a) of line position a
 // and sync(), which waits for the line's threads.
+//
+// kBf16 (the bfloat16 compute policy; a template flag of line_fft, line_dif
+// and line_dit, false by default): the line's points are rounded to
+// bfloat16 and back before the first stage, one rounding per 1-D pass, as
+// the JAX kernels round each DFT pass's GEMM operand
+// (ptyrad_tpu/ops/kernel_util.py:47-61 cpass). Butterflies and twiddles stay
+// FP32; without the flag the code is what it was.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -152,6 +160,20 @@ __device__ __forceinline__ void dft(float2 (&u)[R]) {
   static_for<0, R>([&](auto k) { u[k] = tmp[k]; });
 }
 
+// x rounded to bfloat16 (round to nearest even) and back
+__device__ __forceinline__ float2 round_bf16(float2 x) {
+  return make_float2(__bfloat162float(__float2bfloat16_rn(x.x)),
+                     __bfloat162float(__float2bfloat16_rn(x.y)));
+}
+
+// The operand rounding of a pass under kBf16: every point of the line
+template <bool kBf16, int E>
+__device__ __forceinline__ void round_operand(float2 (&v)[E]) {
+  if constexpr (kBf16) {
+    static_for<0, E>([&](auto m) { v[m] = round_bf16(v[m]); });
+  }
+}
+
 // A row's line in shared memory, padded (element a at a + a / 16); the
 // row's threads share a warp.
 struct RowExchange {
@@ -213,10 +235,12 @@ __device__ __forceinline__ void stockham_pass(float2 (&v)[LinePlan<LOGN>::kE], i
 }
 
 // Unnormalised N-point transform (kInv: inverse) of one line held by TL
-// threads, natural order in and out (see LinePlan for the passes).
-template <int LOGN, bool kInv, class Ex>
+// threads, natural order in and out (see LinePlan for the passes); kBf16:
+// the points are rounded to bfloat16 first.
+template <int LOGN, bool kInv, bool kBf16 = false, class Ex>
 __device__ __forceinline__ void line_fft(float2 (&v)[LinePlan<LOGN>::kE], int t, const Ex& ex) {
   using P = LinePlan<LOGN>;
+  round_operand<kBf16>(v);
   if constexpr (P::kPasses == 1) {
     stockham_pass<LOGN, P::kR0, 1, true, kInv>(v, t, ex);
   } else if constexpr (P::kPasses == 2) {
@@ -259,11 +283,13 @@ __device__ __forceinline__ int dif_freq(int t, int i) {
 
 // Unnormalised forward transform of one line (see above). The exchange
 // loads other threads' positions: the caller waits (ex.sync()) before it
-// stores to the line's slots.
-template <int LOGN, class Ex>
+// stores to the line's slots. kBf16: the points are rounded to bfloat16
+// first.
+template <int LOGN, bool kBf16 = false, class Ex>
 __device__ __forceinline__ void line_dif(float2 (&v)[LinePlan<LOGN>::kE], int t, const Ex& ex) {
   using P = LinePlan<LOGN>;
   static_assert(P::kN <= 128 && P::kTl <= P::kE, "the radix-2 pair serves N <= 128");
+  round_operand<kBf16>(v);
   // span h = hm TL: pairs (m, m + hm) of the thread's points, twiddle of
   // jj = (t + TL m) mod 2h
   static_for<0, P::kLogE>([&](auto s) {
@@ -302,11 +328,13 @@ __device__ __forceinline__ void line_dif(float2 (&v)[LinePlan<LOGN>::kE], int t,
 
 // Unnormalised inverse transform of one line, the conjugate transpose of
 // line_dif: v[i] holds frequency dif_freq(t, i) on entry and position
-// t + TL m in v[m] on return.
-template <int LOGN, class Ex>
+// t + TL m in v[m] on return. kBf16: the points are rounded to bfloat16
+// first.
+template <int LOGN, bool kBf16 = false, class Ex>
 __device__ __forceinline__ void line_dit(float2 (&v)[LinePlan<LOGN>::kE], int t, const Ex& ex) {
   using P = LinePlan<LOGN>;
   static_assert(P::kN <= 128 && P::kTl <= P::kE, "the radix-2 pair serves N <= 128");
+  round_operand<kBf16>(v);
   if constexpr (P::kTl > 1) {
     static_for<0, P::kLogTl>([&](auto s) {
       constexpr int h = 1 << decltype(s)::value;

@@ -339,6 +339,10 @@ class PtyRADSolver:
             f"optimizer={self.optimizer_name}, device={self.device}",
             verbose=self.verbose,
         )
+        if self.geom.bf16_operands or self.geom.compute_dtype != "float32":
+            vprint(f"Compute policy: compute_dtype={self.geom.compute_dtype}, transform "
+                   f"operands {'bfloat16' if self.geom.bf16_operands else 'float32'}; "
+                   "parameters, gradients and the loss float32", verbose=self.verbose)
         if self.lbfgs_objective is not None:
             return self._lbfgs_loop(n_iter, callback)
         self.params, self.history = recon_loop(

@@ -30,6 +30,15 @@ from the JAX package: at tBL shapes with per-position probes the JAX
 package declines B3 under need_dh (its VMEM model gives 13.77 MB against a
 13 MiB budget) and runs B4, while the card's rule keeps B3 (dH goes
 through device scratch); the numbers are the same either way.
+
+The bfloat16 compute policy (``geom.compute_dtype`` / ``geom.bf16_operands``,
+models/state.py:resolve_compute_policy) reaches every route, which it does
+not change: with ``bf16_operands`` each DFT pass rounds its operand to
+bfloat16, in the kernels (B3-B6) and in the float32 transforms outside them
+(the probe shift, the chain's far field, the plain chain); with
+``compute_dtype`` 'bfloat16' the plain route also keeps its wavefield in
+bfloat16 between ops, as ptyrad_tpu/models/forward.py:110-136 does.
+Parameters, gradients, dp and the loss stay float32.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from ptyrad_tpu_torch.losses import loss_simlar, loss_sparse, merge_loss_params
 from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams
 from ptyrad_tpu_torch.ops.blur import gaussian_blur_2d
 from ptyrad_tpu_torch.ops.chain import chain_applicable_shapes, multislice_dp_chain
-from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2, ifftshift2
+from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2, ifftshift2, round_bf16
 from ptyrad_tpu_torch.ops.fused_multislice import (fused_applicable_shapes,
                                                     multislice_dp_fused,
                                                     multislice_loss_sums_fused)
@@ -70,7 +79,8 @@ def get_probes(params: PtychoParams, geom: Geometry, indices: torch.Tensor) -> t
     """Per-position probes (B, pmode, Ny, Nx), sub-pixel shifted when
     positions are optimized; else the shared (1, pmode, Ny, Nx) probe."""
     if geom.shift_probes:
-        return fourier_shift(params.probe, params.probe_pos_shifts[indices])
+        return fourier_shift(params.probe, params.probe_pos_shifts[indices],
+                             bf16_operands=geom.bf16_operands)
     return params.probe[None]
 
 
@@ -98,22 +108,41 @@ def compute_propagators(params: PtychoParams, buffers: Buffers, geom: Geometry,
 
 def multislice_dp(obja_patches: torch.Tensor, objp_patches: torch.Tensor,
                   probes: torch.Tensor, H: torch.Tensor, omode_occu: torch.Tensor,
-                  eps: float = 1e-10) -> torch.Tensor:
+                  eps: float = 1e-10, compute_dtype: str = "float32",
+                  bf16_operands: bool = False) -> torch.Tensor:
     """Far-field intensity (B, Ny, Nx): incoherent sum over (pmode, omode) of
     |fftshift(fft2(psi, ortho))|^2 weighted by omode_occu, plus eps.
 
     obja/objp_patches (B, omode, Nz, Ny, Nx); probes (B or 1, pmode, Ny, Nx);
     H (B or 1, Ny, Nx) corner-centred.
+
+    compute_dtype 'bfloat16' (ptyrad_tpu/models/forward.py:110-136): the
+    patches, probes and H are rounded to bfloat16 on entry, and so is each
+    product, each polar factor and each transform's output, so the wavefield
+    is bfloat16 between ops; the inter-slice transforms round their operands.
+    The detector-plane transform then runs in float32 on float32 operands
+    (the JAX package's exact=True), and the intensity and dp stay float32.
+    The rounding's backward rounds the cotangent, as autodiff through
+    bfloat16 ops does. bf16_operands alone rounds the operand of every
+    transform pass, the detector plane's included.
     """
+    low = compute_dtype == "bfloat16"
+    ops = bf16_operands or low
+    rnd = round_bf16 if low else (lambda t: t)
+    if low:
+        obja_patches, objp_patches = round_bf16(obja_patches), round_bf16(objp_patches)
+        probes, H = round_bf16(probes), round_bf16(H)
     n_slices = obja_patches.shape[2]
     psi = probes[:, :, None]       # (B|1, pmode, 1, Ny, Nx): broadcasts over omode
     hb = H[:, None, None]
     for z in range(n_slices):
         a, phi = obja_patches[:, :, z], objp_patches[:, :, z]
-        psi = psi * torch.complex(a * torch.cos(phi), a * torch.sin(phi))[:, None]
+        t = torch.complex(rnd(a * rnd(torch.cos(phi))), rnd(a * rnd(torch.sin(phi))))
+        psi = rnd(psi * t[:, None])
         if z < n_slices - 1:
-            psi = ifft2(hb * fft2(psi))
-    psi_k = fftshift2(fft2(psi, norm="ortho"))
+            k = rnd(fft2(psi, bf16_operands=ops))
+            psi = rnd(ifft2(rnd(hb * k), bf16_operands=ops))
+    psi_k = fftshift2(fft2(psi, norm="ortho", bf16_operands=bf16_operands and not low))
     intensity = psi_k.real ** 2 + psi_k.imag ** 2   # (B, pmode, omode, Ny, Nx)
     return (intensity * omode_occu[:, None, None]).sum(dim=(1, 2)) + eps
 
@@ -161,22 +190,26 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
     H = compute_propagators(params, buffers, geom, indices)
     if route == "fused":
         if geom.shift_probes:
-            probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices])
+            probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices],
+                                         bf16_operands=geom.bf16_operands)
         else:
             probe = params.probe[None]
         raw = None
         for om in range(obja_p.shape[1]):
             dp_om = multislice_dp_fused(obja_p[:, om:om + 1], objp_p[:, om:om + 1], probe, H,
-                                        probe_kspace=geom.shift_probes)
+                                        probe_kspace=geom.shift_probes,
+                                        bf16_operands=geom.bf16_operands)
             contrib = buffers.omode_occu[om] * dp_om
             raw = contrib if raw is None else raw + contrib
         dp = fftshift2(raw) + geom.eps
     elif route == "chain":
         dp = multislice_dp_chain(obja_p, objp_p, get_probes(params, geom, indices), H,
-                                 buffers.omode_occu, geom.eps)
+                                 buffers.omode_occu, geom.eps,
+                                 bf16_operands=geom.bf16_operands)
     else:
         dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, indices), H,
-                           buffers.omode_occu, eps=geom.eps)
+                           buffers.omode_occu, eps=geom.eps, compute_dtype=geom.compute_dtype,
+                           bf16_operands=geom.bf16_operands)
         forward.launches_plain += 1
     std = geom.detector_blur_std
     if std is not None and std != 0:
@@ -216,14 +249,16 @@ def propagated_probe(params: PtychoParams, buffers: Buffers, geom: Geometry,
     """The probe at each slice's entry, complex (Nz, pmode, Ny, Nx), for the
     saved ``probe_prop`` image (ptyrad_tpu/models/forward.py:355): the probe
     of scan position ``index[0]`` propagated slice by slice in free space
-    (no object). torch.fft on either device; no kernel."""
+    (no object). torch.fft on either device; no kernel; bfloat16 operands
+    under geom.bf16_operands."""
     probe = get_probes(params, geom, index)[0]
     H = compute_propagators(params, buffers, geom, index)[0]
     slices = []
     psi = probe
+    ops = geom.bf16_operands
     for _ in range(geom.obj_shape[1]):
         slices.append(psi)
-        psi = ifft2(H[None] * fft2(psi))
+        psi = ifft2(H[None] * fft2(psi, bf16_operands=ops), bf16_operands=ops)
     return torch.stack(slices, dim=0)
 
 
@@ -262,7 +297,7 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     occu_root = torch.sqrt(buffers.omode_occu[0])
     if geom.shift_probes:
         probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices],
-                                     scale=occu_root)
+                                     scale=occu_root, bf16_operands=geom.bf16_operands)
         kspace = True
     else:
         probe = params.probe[None] * occu_root
@@ -274,7 +309,7 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     sp = cfg["loss_single"]
     s1, s2 = multislice_loss_sums_fused(
         obja_p, objp_p, probe, H, meas_cc, mask_b, float(sp.get("dp_pow", 0.5)),
-        float(geom.eps), probe_kspace=kspace,
+        float(geom.eps), probe_kspace=kspace, bf16_operands=geom.bf16_operands,
     )
     denom = obja_p.shape[3] * obja_p.shape[4] * mask_b.sum()
     single = sp["weight"] * torch.sqrt(s1 / denom) / (s2 / denom)

@@ -80,6 +80,12 @@ class Geometry:
     meas_padded_shape: Optional[Tuple[int, int]] = None
     meas_scale_factors: Optional[Tuple[float, float]] = None
     fwd_fused: bool = True  # False: forward() takes multislice_dp, no kernel chain
+    # the bfloat16 compute policy: compute_dtype 'bfloat16' keeps the plain
+    # route's wavefield in bfloat16 between ops; bf16_operands rounds the
+    # operand of every DFT pass (every kernel's and the f32 transforms
+    # outside them) to bfloat16. Parameters, gradients, loss and dp stay f32.
+    compute_dtype: str = "float32"
+    bf16_operands: bool = False
     # read by save.make_save_dict (model_attributes) and make_output_folder;
     # make_model fills them
     n_scans: Optional[int] = None
@@ -113,8 +119,8 @@ def params_from_numpy(d: dict, device=None) -> PtychoParams:
 # with one warning per key and process
 TPU_ONLY_KEYS = {
     "fwd_remat": "rematerialises the XLA multislice loop to save TPU memory",
-    "matmul_dtype": "narrows the operands of the Pallas kernels' DFT matrix products",
 }
+COMPUTE_DTYPES = ("float32", "bfloat16")
 _WARNED_TPU_ONLY: set = set()
 
 
@@ -158,6 +164,25 @@ def _measurements(meas, device, meas_dtype: str = "float32") -> torch.Tensor:
     return meas.to(device=device, dtype=dtype)
 
 
+def _dtype_key(model_params: dict, key: str, default):
+    value = model_params.get(key, default)
+    if value is not None and value not in COMPUTE_DTYPES:
+        raise ValueError(f"model_params.{key}={value!r}; use one of {list(COMPUTE_DTYPES)}")
+    return value
+
+
+def resolve_compute_policy(model_params: dict) -> Tuple[str, bool]:
+    """(compute_dtype, bf16_operands) from model_params as
+    ptyrad_tpu/engine/solver.py:437-449 resolves them: an explicit
+    matmul_dtype wins; without it the operands are bfloat16 exactly when
+    compute_dtype is."""
+    compute = _dtype_key(model_params, "compute_dtype", "float32") or "float32"
+    matmul = _dtype_key(model_params, "matmul_dtype", None)
+    if matmul is None:
+        matmul = compute
+    return compute, matmul == "bfloat16"
+
+
 def make_model(init_variables: dict, model_params: Optional[dict] = None, device=None):
     """Build (params, buffers, geometry) from an init_variables dict, such
     as the Initializer's as it comes (keys this function does not read, e.g.
@@ -173,18 +198,18 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     see initialization.meas_pad_on_the_fly) and on_the_fly_meas_scale_factors
     (initialization.meas_resample_on_the_fly). ``model_params`` carries
     update_params (per-tensor lr), obj_preblur_std, detector_blur_std,
-    meas_dtype (the store's type) and fwd_fused (None or True: the kernel
-    routes where the shapes fit; False: the plain torch.fft chain); the JAX
-    package's fwd_remat and matmul_dtype are accepted and warn once (they act
-    on the TPU only). ``device=None`` means CUDA.
+    meas_dtype (the store's type), fwd_fused (None or True: the kernel
+    routes where the shapes fit; False: the plain torch.fft chain) and the
+    bfloat16 compute policy, compute_dtype and matmul_dtype
+    (resolve_compute_policy: bfloat16 operands in every DFT pass, the
+    kernels' included, and with compute_dtype a bfloat16 wavefield on the
+    plain route); the JAX package's fwd_remat is accepted and warns once (it
+    acts on the TPU only). ``device=None`` means CUDA.
     """
     dev = resolve_device(device)
     model_params = model_params or {}
     _warn_tpu_only(model_params)
-    if model_params.get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"model_params.compute_dtype={model_params['compute_dtype']!r}: only 'float32' "
-            "is ported (ROADMAP queue A)")
+    compute_dtype, bf16_operands = resolve_compute_policy(model_params)
     update = model_params.get("update_params", {}) or {}
 
     def lr_of(name):
@@ -258,6 +283,8 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
                            else tuple(int(v) for v in np.shape(meas_padded)[-2:])),
         meas_scale_factors=None if meas_scale is None else tuple(float(s) for s in meas_scale),
         fwd_fused=model_params.get("fwd_fused") is None or bool(model_params["fwd_fused"]),
+        compute_dtype=compute_dtype,
+        bf16_operands=bf16_operands,
         n_scans=int(meas.shape[0]),
         dk=dk,
         scan_affine=None if scan_affine is None else tuple(scan_affine),

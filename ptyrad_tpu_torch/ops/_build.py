@@ -32,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("patches.cu", "multislice.cu", "chain.cu")
+SOURCES = ("patches.cu", "multislice.cu", "chain.cu", "multislice_bf16.cu", "chain_bf16.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -64,6 +64,14 @@ SIGNATURES = {
     "ptyrad_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
+
+# Launchers with a bfloat16-operand twin of the same signature, name + "_bf16"
+# (multislice_bf16.cu and chain_bf16.cu: the chain sources compiled with
+# every transform pass rounding its operand; launch(..., bf16_operands=True))
+BF16_VARIANTS = ("ptyrad_chain_segment_fwd", "ptyrad_chain_segment_bwd",
+                 "ptyrad_chain_stack_fwd", "ptyrad_chain_stack_bwd", "ptyrad_chain_prepare",
+                 "ptyrad_fused_prepare", "ptyrad_dp_fwd", "ptyrad_dp_bwd", "ptyrad_loss_fwd",
+                 "ptyrad_loss_bwd")
 
 _LIB = None
 BUILD_SECONDS = None  # wall time of the build this process ran (None: cached)
@@ -131,7 +139,8 @@ def lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
+        entries = {**SIGNATURES, **{n + "_bf16": SIGNATURES[n] for n in BF16_VARIANTS}}
+        for name, argtypes in entries.items():
             fn = getattr(handle, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -147,11 +156,15 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def launch(name: str, t: torch.Tensor, *args, stream: bool = True) -> None:
-    """Call launcher ``name`` with ``args`` and (unless ``stream`` is False)
-    the current stream of ``t``'s device last, with that device current:
-    under ``torch.cuda.device`` when another one is current. Raise if it
-    returns a CUDA error code."""
+def launch(name: str, t: torch.Tensor, *args, stream: bool = True,
+           bf16_operands: bool = False) -> None:
+    """Call launcher ``name`` (its bfloat16-operand twin with
+    ``bf16_operands``, BF16_VARIANTS) with ``args`` and (unless ``stream``
+    is False) the current stream of ``t``'s device last, with that device
+    current: under ``torch.cuda.device`` when another one is current. Raise
+    if it returns a CUDA error code."""
+    if bf16_operands:
+        name += "_bf16"
     fn = getattr(lib(), name)
     index = t.device.index
     guard = nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index)

@@ -34,6 +34,14 @@ autograd). On a CUDA tensor it launches the hand-written kernels of
 or raises. The kernels move the field through device memory in a row pass
 and a column pass per slice; tests/test_torch_chain_plan.py emulates how
 each pass transforms its lines.
+
+``bf16_operands`` (the bfloat16 compute policy, models/state.py) rounds the
+operand of every 1-D transform pass to bfloat16, forward and adjoint, the
+far-field exit's and multislice_dp_chain's torch.fft far field included, as
+the JAX chain's ``gemm_dtype`` does: on the CPU through ops/fourier.py's
+rounded passes in the kernels' order, on CUDA through the kernels of
+``csrc/chain_bf16.cu`` (chain.cu compiled with the rounding on; the
+``_bf16`` entry points). Everything else stays float32.
 """
 
 from __future__ import annotations
@@ -55,7 +63,9 @@ def prepare(device, n: int) -> None:
     if not (2 <= n <= MAX_N and not n & (n - 1)):
         raise ValueError(f"prepare: N must be a power of two in [2, {MAX_N}], got {n}")
     t = torch.empty(0, device=device)
-    _build.launch("ptyrad_chain_prepare", t, n.bit_length() - 1, stream=False)
+    for bf16 in (False, True):  # the float32 and the bfloat16-operand kernels
+        _build.launch("ptyrad_chain_prepare", t, n.bit_length() - 1, stream=False,
+                      bf16_operands=bf16)
 
 
 # In-kernel far-field exit of the chain's tail (pallas_chain.py:734). Off by
@@ -95,29 +105,34 @@ def _check_far_field(far_field: bool, last: bool) -> None:
         raise ValueError("far_field requires last=True")
 
 
-def chain_segment_plain(psi, a_seg, p_seg, h, last: bool, far_field: bool = False):
+def chain_segment_plain(psi, a_seg, p_seg, h, last: bool, far_field: bool = False,
+                        bf16_operands: bool = False):
     """The plain version of B5: psi (B, pmode, N, N) complex64; a_seg, p_seg
     (B, Sg, N, N) float32; h (1 or B, N, N) complex64 corner-centred.
     Returns the exit wavefield (B, pmode, N, N), or with ``far_field`` its
-    centred spectrum fftshift(fft2(.)), unnormalised."""
+    centred spectrum fftshift(fft2(.)), unnormalised. bf16_operands: every
+    transform pass rounds its operand (and its cotangent) to bfloat16."""
     _check_far_field(far_field, last)
+    ops = bf16_operands
     hb = h[:, None]
     sg = a_seg.shape[1]
     for s in range(sg):
         psi = psi * torch.polar(a_seg[:, s], p_seg[:, s])[:, None]
         if not (last and s == sg - 1):
-            psi = ifft2(hb * fft2(psi))
-    return fftshift2(fft2(psi)) if far_field else psi
+            psi = ifft2(hb * fft2(psi, bf16_operands=ops), bf16_operands=ops)
+    return fftshift2(fft2(psi, bf16_operands=ops)) if far_field else psi
 
 
-def chain_stack_plain(psi0, a_main, p_main, h, sg: int, last_mega: bool):
+def chain_stack_plain(psi0, a_main, p_main, h, sg: int, last_mega: bool,
+                      bf16_operands: bool = False):
     """The plain version of B6: nz_main / sg segments of sg slices."""
     nz_main = a_main.shape[1]
     _check_uniform(nz_main, sg)
     psi = psi0
     for z0 in range(0, nz_main, sg):
         psi = chain_segment_plain(psi, a_main[:, z0:z0 + sg], p_main[:, z0:z0 + sg], h,
-                                  last_mega and z0 + sg >= nz_main)
+                                  last_mega and z0 + sg >= nz_main,
+                                  bf16_operands=bf16_operands)
     return psi
 
 
@@ -168,16 +183,22 @@ def _bwd_scratch(g, sg, h, need_dh):
     return scratch, work, field(sg), torch.empty_like(g), torch.empty_like(h)
 
 
-def _count_bwd(fn, d_h) -> None:
-    """One launch of a backward; launches_dh counts those that computed dH."""
+def _count_bwd(fn, d_h, bf16_operands: bool) -> None:
+    """One launch of a backward; launches_dh counts those that computed dH,
+    launches_bf16 those with bfloat16 operands, launches_bf16_dh both."""
     fn.launches += 1
     if d_h is not None:
         fn.launches_dh += 1
+    if bf16_operands:
+        fn.launches_bf16 += 1
+        fn.launches_bf16_dh += d_h is not None
 
 
-def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool, far_field: bool = False):
+def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool, far_field: bool = False,
+                     bf16_operands: bool = False):
     """Kernel B5a: the segment's exit wavefield, or with ``far_field`` its
-    centred spectrum. launches_ff counts the launches that took the exit."""
+    centred spectrum. launches_ff counts the launches that took the exit,
+    launches_bf16 those with bfloat16 operands, launches_ff_bf16 both."""
     _check_far_field(far_field, last)
     sg = a_seg.shape[1]
     b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
@@ -185,17 +206,21 @@ def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool, far_field: bool = False):
     _build.launch(
         "ptyrad_chain_segment_fwd", psi,
         psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0), h.data_ptr(),
-        out.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)))
+        out.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)),
+        bf16_operands=bf16_operands)
     segment_fwd_cuda.launches += 1
     segment_fwd_cuda.launches_ff += bool(far_field)
+    segment_fwd_cuda.launches_bf16 += bool(bf16_operands)
+    segment_fwd_cuda.launches_ff_bf16 += bool(far_field and bf16_operands)
     return out
 
 
 segment_fwd_cuda.launches = segment_fwd_cuda.launches_ff = 0
+segment_fwd_cuda.launches_bf16 = segment_fwd_cuda.launches_ff_bf16 = 0
 
 
 def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False,
-                     far_field: bool = False):
+                     far_field: bool = False, bf16_operands: bool = False):
     """Kernel B5b: from the exit cotangent g (of the centred spectrum with
     ``far_field``), (d psi, d a_seg, d p_seg, d h), d h None unless need_dh."""
     _check_far_field(far_field, last)
@@ -212,8 +237,9 @@ def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False,
         g.data_ptr(), psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0),
         h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
         _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi.data_ptr(),
-        b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)))
-    _count_bwd(segment_bwd_cuda, d_h)
+        b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)),
+        bf16_operands=bf16_operands)
+    _count_bwd(segment_bwd_cuda, d_h, bf16_operands)
     if far_field:  # launches_ff: the exit's adjoint ran; launches_ff_dh: with dH too
         segment_bwd_cuda.launches_ff += 1
         segment_bwd_cuda.launches_ff_dh += d_h is not None
@@ -222,9 +248,11 @@ def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False,
 
 segment_bwd_cuda.launches = segment_bwd_cuda.launches_dh = 0
 segment_bwd_cuda.launches_ff = segment_bwd_cuda.launches_ff_dh = 0
+segment_bwd_cuda.launches_bf16 = segment_bwd_cuda.launches_bf16_dh = 0
 
 
-def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool):
+def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool,
+                   bf16_operands: bool = False):
     """Kernel B6a: (exit wavefield, segment-entry stack (B, S, pmode, N, N))."""
     nz_main = a_main.shape[1]
     _check_uniform(nz_main, sg)
@@ -236,16 +264,18 @@ def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool):
         "ptyrad_chain_stack_fwd", psi0,
         psi0.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0), h.data_ptr(),
         stack.data_ptr(), out.data_ptr(), b, pmode, n_seg, sg, logn, h_shared,
-        int(bool(last_mega)))
+        int(bool(last_mega)),
+        bf16_operands=bf16_operands)
     stack_fwd_cuda.launches += 1
+    stack_fwd_cuda.launches_bf16 += bool(bf16_operands)
     return out, stack
 
 
-stack_fwd_cuda.launches = 0
+stack_fwd_cuda.launches = stack_fwd_cuda.launches_bf16 = 0
 
 
 def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool,
-                   need_dh: bool = False):
+                   need_dh: bool = False, bf16_operands: bool = False):
     """Kernel B6b: from the exit cotangent g and B6a's stack,
     (d psi0, d a_main, d p_main, d h), d h None unless need_dh."""
     nz_main = a_main.shape[1]
@@ -265,59 +295,66 @@ def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool,
         g.data_ptr(), stack.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0),
         h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
         _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi0.data_ptr(),
-        b, pmode, n_seg, sg, logn, h_shared, int(bool(last_mega)))
-    _count_bwd(stack_bwd_cuda, d_h)
+        b, pmode, n_seg, sg, logn, h_shared, int(bool(last_mega)),
+        bf16_operands=bf16_operands)
+    _count_bwd(stack_bwd_cuda, d_h, bf16_operands)
     return d_psi0, d_a, d_p, d_h
 
 
 stack_bwd_cuda.launches = stack_bwd_cuda.launches_dh = 0
+stack_bwd_cuda.launches_bf16 = stack_bwd_cuda.launches_bf16_dh = 0
 
 
 class _SegmentCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, psi, a_seg, p_seg, h, last, far_field):
+    def forward(ctx, psi, a_seg, p_seg, h, last, far_field, bf16_operands):
         ctx.save_for_backward(psi, a_seg, p_seg, h)
-        ctx.consts = (last, far_field)
-        return segment_fwd_cuda(psi, a_seg, p_seg, h, last, far_field)
+        ctx.consts = (last, far_field, bf16_operands)
+        return segment_fwd_cuda(psi, a_seg, p_seg, h, last, far_field, bf16_operands)
 
     @staticmethod
     def backward(ctx, g):
         psi, a_seg, p_seg, h = ctx.saved_tensors
-        last, far_field = ctx.consts
+        last, far_field, bf16_operands = ctx.consts
         d_psi, d_a, d_p, d_h = segment_bwd_cuda(g.contiguous(), psi, a_seg, p_seg, h, last,
-                                                ctx.needs_input_grad[3], far_field)
-        return d_psi, d_a, d_p, d_h, None, None
+                                                ctx.needs_input_grad[3], far_field,
+                                                bf16_operands)
+        return d_psi, d_a, d_p, d_h, None, None, None
 
 
 class _StackCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, psi0, a_main, p_main, h, sg, last_mega):
-        out, stack = stack_fwd_cuda(psi0, a_main, p_main, h, sg, last_mega)
+    def forward(ctx, psi0, a_main, p_main, h, sg, last_mega, bf16_operands):
+        out, stack = stack_fwd_cuda(psi0, a_main, p_main, h, sg, last_mega, bf16_operands)
         ctx.save_for_backward(stack, a_main, p_main, h)
         ctx.consts = (sg, last_mega)
+        ctx.bf16_operands = bf16_operands
         return out
 
     @staticmethod
     def backward(ctx, g):
         stack, a_main, p_main, h = ctx.saved_tensors
         d_psi0, d_a, d_p, d_h = stack_bwd_cuda(g.contiguous(), stack, a_main, p_main, h,
-                                               *ctx.consts, need_dh=ctx.needs_input_grad[3])
-        return d_psi0, d_a, d_p, d_h, None, None
+                                               *ctx.consts, need_dh=ctx.needs_input_grad[3],
+                                               bf16_operands=ctx.bf16_operands)
+        return d_psi0, d_a, d_p, d_h, None, None, None
 
 
-def chain_segment(psi, a_seg, p_seg, h, last: bool, far_field: bool = False):
+def chain_segment(psi, a_seg, p_seg, h, last: bool, far_field: bool = False,
+                  bf16_operands: bool = False):
     """Advance psi (B, pmode, N, N) through one segment of Sg slices (a_seg,
     p_seg (B, Sg, N, N)); see the module docstring. B5 on CUDA. With
     ``far_field`` (needs ``last``) the exit is the centred detector-plane
     spectrum, unnormalised."""
     _check_far_field(far_field, last)
     if psi.device.type == "cpu":
-        return chain_segment_plain(psi, a_seg, p_seg, h, last, far_field)
+        return chain_segment_plain(psi, a_seg, p_seg, h, last, far_field, bf16_operands)
     return _SegmentCuda.apply(psi.contiguous(), a_seg, p_seg, h.contiguous(), bool(last),
-                              bool(far_field))
+                              bool(far_field), bool(bf16_operands))
 
 
-def chain_stack(psi0, a_main, p_main, h, sg: int, last_mega: bool):
+def chain_stack(psi0, a_main, p_main, h, sg: int, last_mega: bool,
+                bf16_operands: bool = False):
     """Advance psi0 through nz_main / sg uniform segments; B6 on CUDA when a
     gradient is wanted. ``last_mega`` is False when a ragged chain_segment
     tail follows. With no gradient wanted this runs chain_segment segment by
@@ -331,16 +368,16 @@ def chain_stack(psi0, a_main, p_main, h, sg: int, last_mega: bool):
         psi = psi0
         for z0 in range(0, nz_main, sg):
             psi = chain_segment(psi, a_main[:, z0:z0 + sg], p_main[:, z0:z0 + sg], h,
-                                last_mega and z0 + sg >= nz_main)
+                                last_mega and z0 + sg >= nz_main, bf16_operands=bf16_operands)
         return psi
     if psi0.device.type == "cpu":
-        return chain_stack_plain(psi0, a_main, p_main, h, sg, last_mega)
+        return chain_stack_plain(psi0, a_main, p_main, h, sg, last_mega, bf16_operands)
     return _StackCuda.apply(psi0.contiguous(), a_main, p_main, h.contiguous(), int(sg),
-                            bool(last_mega))
+                            bool(last_mega), bool(bf16_operands))
 
 
 def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: float,
-                        seg_override: int | None = None):
+                        seg_override: int | None = None, bf16_operands: bool = False):
     """Far-field intensity (B, N, N), centred, with the omode_occu weights
     and eps, through the segmented chain: a drop-in for multislice_dp.
 
@@ -355,7 +392,8 @@ def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: 
     mode sums stay in torch.
     When H requires a gradient (the JAX package's need_dh), both versions
     give its cotangent: the plain one through autograd, B5b/B6b through
-    their dH halves.
+    their dH halves. bf16_operands: the bfloat16 compute policy, in the
+    kernels and in the torch.fft far field (pallas_chain.py:1345).
     """
     b, omode, nz, n, _ = obja_patches.shape
     sg = seg_override or best_sg(nz)
@@ -371,17 +409,17 @@ def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: 
         psi, z0 = psi0, 0
         if nz_main:
             psi = chain_stack(psi, obja_patches[:, om, :nz_main], objp_patches[:, om, :nz_main],
-                              H, sg, nz_main == nz)
+                              H, sg, nz_main == nz, bf16_operands)
             z0 = nz_main
         while z0 < nz:
             z1 = min(z0 + sg, nz)
             psi = chain_segment(psi, obja_patches[:, om, z0:z1], objp_patches[:, om, z0:z1], H,
-                                z1 == nz, use_ff and z1 == nz)
+                                z1 == nz, use_ff and z1 == nz, bf16_operands)
             z0 = z1
         if use_ff:  # psi is the centred spectrum, unnormalised
             inten = (psi.real ** 2 + psi.imag ** 2).sum(1) * (1.0 / (n * n))
         else:
-            y = fft2(psi, norm="ortho")
+            y = fft2(psi, norm="ortho", bf16_operands=bf16_operands)
             inten = (y.real ** 2 + y.imag ** 2).sum(1)
         contrib = omode_occu[om] * inten
         dp = contrib if dp is None else dp + contrib

@@ -31,6 +31,13 @@ stays in one block's shared memory for the whole chain and is transformed
 in registers (the radix-2 pair of ``csrc/reg_fft.cuh``, the header the
 chain kernels share); tests/test_torch_fused_plan.py emulates the
 kernels' plan.
+
+``bf16_operands`` (the bfloat16 compute policy, models/state.py) rounds the
+operand of every 1-D transform pass to bfloat16, forward and adjoint, as
+the JAX kernels' ``gemm_dtype`` does: on the CPU through ops/fourier.py's
+rounded passes in the kernels' pass order, on CUDA through the kernels of
+``csrc/multislice_bf16.cu`` (multislice.cu compiled with the rounding on;
+the ``_bf16`` entry points). Everything else stays float32.
 """
 
 from __future__ import annotations
@@ -51,7 +58,9 @@ def prepare(device, n: int) -> None:
     if not (2 <= n <= MAX_N and not n & (n - 1)):
         raise ValueError(f"prepare: N must be a power of two in [2, {MAX_N}], got {n}")
     t = torch.empty(0, device=device)
-    _build.launch("ptyrad_fused_prepare", t, n.bit_length() - 1, stream=False)
+    for bf16 in (False, True):  # the float32 and the bfloat16-operand kernels
+        _build.launch("ptyrad_fused_prepare", t, n.bit_length() - 1, stream=False,
+                      bf16_operands=bf16)
 
 
 def _pow(x: torch.Tensor, p: float) -> torch.Tensor:
@@ -62,33 +71,37 @@ def _pow(x: torch.Tensor, p: float) -> torch.Tensor:
     return torch.pow(x, p)
 
 
-def multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace: bool = False):
+def multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace: bool = False,
+                        bf16_operands: bool = False):
     """The plain PyTorch version of B4 (differentiable through autograd):
     the raw dp (B, N, N), corner-centred, with no occupancy weight, fftshift
     or eps, as ptyrad_tpu/ops/pallas_multislice.py:_fused_fwd_impl returns.
 
     obja_p, objp_p (B, 1, Nz, N, N) f32; probe (B or 1, pmode, N, N)
     complex64 (a spectrum when probe_kspace); h (B or 1, N, N) complex64.
+    bf16_operands: every transform pass rounds its operand (and its
+    cotangent) to bfloat16, where the kernel rounds.
     """
+    ops = bf16_operands
     n_slices = obja_p.shape[2]
-    psi = ifft2(probe) if probe_kspace else probe
+    psi = ifft2(probe, bf16_operands=ops) if probe_kspace else probe
     hb = h[:, None]
     for z in range(n_slices):
         a, phi = obja_p[:, 0, z], objp_p[:, 0, z]
         psi = psi * torch.complex(a * torch.cos(phi), a * torch.sin(phi))[:, None]
         if z < n_slices - 1:
-            psi = ifft2(hb * fft2(psi))
-    y = fft2(psi)
+            psi = ifft2(hb * fft2(psi, bf16_operands=ops), bf16_operands=ops)
+    y = fft2(psi, bf16_operands=ops)
     return (y.real ** 2 + y.imag ** 2).sum(1) / (y.shape[-2] * y.shape[-1])
 
 
 def loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps: float,
-                    probe_kspace: bool = False):
+                    probe_kspace: bool = False, bf16_operands: bool = False):
     """The plain PyTorch version of B3 (differentiable through autograd):
     the operands of multislice_dp_plain plus meas_cc (B, N, N) and mask
     (B,). Returns (s1, s2) scalars.
     """
-    dp = multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace)
+    dp = multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace, bf16_operands)
     mp = _pow(meas_cc, dp_pow)
     diff = _pow(dp + eps, dp_pow) - mp
     w = mask[:, None, None]
@@ -137,11 +150,16 @@ def _inputs(obja_p, objp_p, probe, h, **real):
             **{k: (t, torch.float32) for k, t in real.items()}}
 
 
-def _count(fn, h_shared, nz, dh=None) -> None:
+def _count(fn, h_shared, nz, dh=None, bf16_operands: bool = False) -> None:
     """One launch of fn; launches_h_each counts those on a per-position H,
     launches_nz1 those of a single slice (no propagation in the chain),
-    launches_dh (backwards) those that computed dH."""
+    launches_dh (backwards) those that computed dH, launches_bf16 those with
+    bfloat16 operands and launches_bf16_dh those that computed dH too."""
     fn.launches += 1
+    if bf16_operands:
+        fn.launches_bf16 += 1
+        if dh is not None:
+            fn.launches_bf16_dh += 1
     if nz == 1:
         fn.launches_nz1 += 1
     if not h_shared:
@@ -173,7 +191,7 @@ def _bwd_scratch(b, pmode, nz, n, probe, shared):
     return stack, part
 
 
-def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool):
+def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool, bf16_operands: bool = False):
     """Kernel B4a (the chain, then the mode sum in mode order): dp (B, N, N),
     corner-centred."""
     b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
@@ -185,15 +203,18 @@ def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool):
     _build.launch(
         "ptyrad_dp_fwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), inten.data_ptr(),
-        dp.data_ptr(), b, pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)))
-    _count(dp_fwd_cuda, h_shared, nz)
+        dp.data_ptr(), b, pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)),
+        bf16_operands=bf16_operands)
+    _count(dp_fwd_cuda, h_shared, nz, bf16_operands=bf16_operands)
     return dp
 
 
 dp_fwd_cuda.launches = dp_fwd_cuda.launches_h_each = dp_fwd_cuda.launches_nz1 = 0
+dp_fwd_cuda.launches_bf16 = dp_fwd_cuda.launches_bf16_dh = 0
 
 
-def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool = False):
+def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool = False,
+                bf16_operands: bool = False):
     """Kernel B4b: recomputes the chain and walks it back from g, the
     cotangent of dp (B, N, N). Returns (d obja_p, d objp_p, d probe, d h),
     d h None unless need_dh."""
@@ -212,13 +233,14 @@ def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool =
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), g.data_ptr(),
         stack.data_ptr(), _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h),
         d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b,
-        pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)))
-    _count(dp_bwd_cuda, h_shared, nz, d_h)
+        pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)),
+        bf16_operands=bf16_operands)
+    _count(dp_bwd_cuda, h_shared, nz, d_h, bf16_operands)
     return d_obja, d_objp, d_probe, d_h
 
 
 dp_bwd_cuda.launches = dp_bwd_cuda.launches_h_each = dp_bwd_cuda.launches_dh = 0
-dp_bwd_cuda.launches_nz1 = 0
+dp_bwd_cuda.launches_nz1 = dp_bwd_cuda.launches_bf16 = dp_bwd_cuda.launches_bf16_dh = 0
 
 
 class _DpCuda(torch.autograd.Function):
@@ -227,20 +249,23 @@ class _DpCuda(torch.autograd.Function):
     autograd asks for H's gradient."""
 
     @staticmethod
-    def forward(ctx, obja_p, objp_p, probe, h, probe_kspace):
+    def forward(ctx, obja_p, objp_p, probe, h, probe_kspace, bf16_operands):
         ctx.save_for_backward(obja_p, objp_p, probe, h)
-        ctx.probe_kspace = probe_kspace
-        return dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace)
+        ctx.consts = (probe_kspace, bf16_operands)
+        return dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace, bf16_operands)
 
     @staticmethod
     def backward(ctx, g):
         obja_p, objp_p, probe, h = ctx.saved_tensors
+        probe_kspace, bf16_operands = ctx.consts
         d_obja, d_objp, d_probe, d_h = dp_bwd_cuda(obja_p, objp_p, probe, h, g.contiguous(),
-                                                   ctx.probe_kspace, ctx.needs_input_grad[3])
-        return d_obja, d_objp, d_probe, d_h, None
+                                                   probe_kspace, ctx.needs_input_grad[3],
+                                                   bf16_operands)
+        return d_obja, d_objp, d_probe, d_h, None, None
 
 
-def multislice_dp_fused(obja_p, objp_p, probe, h, probe_kspace: bool = False):
+def multislice_dp_fused(obja_p, objp_p, probe, h, probe_kspace: bool = False,
+                        bf16_operands: bool = False):
     """Raw dp (B, N, N), corner-centred (the caller applies the object-mode
     weight, fftshift and eps); see the module docstring.
 
@@ -248,16 +273,17 @@ def multislice_dp_fused(obja_p, objp_p, probe, h, probe_kspace: bool = False):
     JAX package's need_dh), both versions give its cotangent: the plain one
     through autograd, the kernels through B4b's dH half. probe_kspace: the
     probe is the shifted spectrum (ops/shift.py:fourier_shift_kspace),
-    transformed inside the kernel.
+    transformed inside the kernel. bf16_operands: the bfloat16 compute
+    policy (the module docstring).
     """
     if obja_p.device.type == "cpu":
-        return multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace)
+        return multislice_dp_plain(obja_p, objp_p, probe, h, probe_kspace, bf16_operands)
     return _DpCuda.apply(obja_p.contiguous(), objp_p.contiguous(), probe.contiguous(),
-                         h.contiguous(), bool(probe_kspace))
+                         h.contiguous(), bool(probe_kspace), bool(bf16_operands))
 
 
 def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps: float,
-                       probe_kspace: bool):
+                       probe_kspace: bool, bf16_operands: bool = False):
     """Kernel B3a (chain, the mode reduction in min(N, 16) blocks a sample,
     the sum of their partials in a fixed order). Returns (s1, s2, dp) with
     dp (B, N, N) the corner-centred intensity kept for the backward."""
@@ -277,17 +303,20 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), inten.data_ptr(), dp.data_ptr(),
         partial.data_ptr(), sums.data_ptr(), b, pmode, nz, logn, shared, h_shared,
-        int(bool(probe_kspace)), float(dp_pow), float(eps))
-    _count(loss_sums_fwd_cuda, h_shared, nz)
+        int(bool(probe_kspace)), float(dp_pow), float(eps),
+        bf16_operands=bf16_operands)
+    _count(loss_sums_fwd_cuda, h_shared, nz, bf16_operands=bf16_operands)
     return sums[0], sums[1], dp
 
 
 loss_sums_fwd_cuda.launches = loss_sums_fwd_cuda.launches_h_each = 0
 loss_sums_fwd_cuda.launches_nz1 = 0
+loss_sums_fwd_cuda.launches_bf16 = loss_sums_fwd_cuda.launches_bf16_dh = 0
 
 
 def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: float,
-                       eps: float, probe_kspace: bool, need_dh: bool = False):
+                       eps: float, probe_kspace: bool, need_dh: bool = False,
+                       bf16_operands: bool = False):
     """Kernel B3b: recomputes the chain and walks it back. c is the upstream
     cotangent of s1 (a device scalar). Returns (d obja_p, d objp_p, d probe,
     d h), d h None unless need_dh."""
@@ -308,22 +337,26 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
         meas_cc.data_ptr(), mask.data_ptr(), dp.data_ptr(), c.data_ptr(), stack.data_ptr(),
         _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h), d_obja.data_ptr(),
         d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b, pmode, nz, logn,
-        shared, h_shared, int(bool(probe_kspace)), float(dp_pow), float(eps))
-    _count(loss_sums_bwd_cuda, h_shared, nz, d_h)
+        shared, h_shared, int(bool(probe_kspace)), float(dp_pow), float(eps),
+        bf16_operands=bf16_operands)
+    _count(loss_sums_bwd_cuda, h_shared, nz, d_h, bf16_operands)
     return d_obja, d_objp, d_probe, d_h
 
 
 loss_sums_bwd_cuda.launches = loss_sums_bwd_cuda.launches_h_each = 0
 loss_sums_bwd_cuda.launches_dh = loss_sums_bwd_cuda.launches_nz1 = 0
+loss_sums_bwd_cuda.launches_bf16 = loss_sums_bwd_cuda.launches_bf16_dh = 0
 
 
 class _LossSumsCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, obja_p, objp_p, probe, h, meas_cc, mask, dp_pow, eps, probe_kspace):
+    def forward(ctx, obja_p, objp_p, probe, h, meas_cc, mask, dp_pow, eps, probe_kspace,
+                bf16_operands):
         s1, s2, dp = loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow, eps,
-                                        probe_kspace)
+                                        probe_kspace, bf16_operands)
         ctx.save_for_backward(obja_p, objp_p, probe, h, meas_cc, mask, dp)
         ctx.consts = (dp_pow, eps, probe_kspace)
+        ctx.bf16_operands = bf16_operands
         ctx.mark_non_differentiable(s2)
         return s1, s2
 
@@ -333,12 +366,13 @@ class _LossSumsCuda(torch.autograd.Function):
         c = g1.reshape(()).to(torch.float32).contiguous()
         d_obja, d_objp, d_probe, d_h = loss_sums_bwd_cuda(
             obja_p, objp_p, probe, h, meas_cc, mask, dp, c, *ctx.consts,
-            need_dh=ctx.needs_input_grad[3])
-        return d_obja, d_objp, d_probe, d_h, None, None, None, None, None
+            need_dh=ctx.needs_input_grad[3], bf16_operands=ctx.bf16_operands)
+        return d_obja, d_objp, d_probe, d_h, None, None, None, None, None, None
 
 
 def multislice_loss_sums_fused(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float,
-                               eps: float, probe_kspace: bool = False):
+                               eps: float, probe_kspace: bool = False,
+                               bf16_operands: bool = False):
     """(s1, s2) of the loss_single data term; see the module docstring.
 
     As for multislice_dp_fused, both versions give h's cotangent when h
@@ -346,7 +380,8 @@ def multislice_loss_sums_fused(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: 
     """
     if obja_p.device.type == "cpu":
         return loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow, eps,
-                               probe_kspace)
+                               probe_kspace, bf16_operands)
     return _LossSumsCuda.apply(obja_p.contiguous(), objp_p.contiguous(), probe.contiguous(),
                                h.contiguous(), meas_cc.contiguous(), mask.contiguous(),
-                               float(dp_pow), float(eps), bool(probe_kspace))
+                               float(dp_pow), float(eps), bool(probe_kspace),
+                               bool(bf16_operands))

@@ -21,13 +21,15 @@ def shift_grid(ny: int, nx: int, device=None) -> torch.Tensor:
     return torch.stack([gy, gx], dim=0).to(device)
 
 
-def fourier_shift_kspace(img: torch.Tensor, shifts: torch.Tensor, scale=None) -> torch.Tensor:
+def fourier_shift_kspace(img: torch.Tensor, shifts: torch.Tensor, scale=None,
+                         bf16_operands: bool = False) -> torch.Tensor:
     """The shifted SPECTRUM: fft2(img) times the phase ramp, (B, ..., Ny, Nx).
 
     img: complex or real (..., Ny, Nx), broadcast over the batch of shifts.
     shifts: (B, 2) pixel shifts (shift_y, shift_x); positive moves down/right.
     scale: optional real scalar folded into the ramp (sqrt(omode_occu) for
     the loss-folded chain, models/forward.py:fused_loss_terms).
+    bf16_operands: the transform rounds its operands (ops/fourier.py).
     """
     ny, nx = img.shape[-2], img.shape[-1]
     grid = shift_grid(ny, nx, device=img.device)
@@ -40,9 +42,11 @@ def fourier_shift_kspace(img: torch.Tensor, shifts: torch.Tensor, scale=None) ->
     w = torch.complex(torch.cos(phase), torch.sin(phase))
     if scale is not None:
         w = w * scale
-    return fft2(img) * w
+    return fft2(img, bf16_operands=bf16_operands) * w
 
 
-def fourier_shift(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+def fourier_shift(img: torch.Tensor, shifts: torch.Tensor,
+                  bf16_operands: bool = False) -> torch.Tensor:
     """Shift `img` by a batch of sub-pixel displacements; complex (B, ..., Ny, Nx)."""
-    return ifft2(fourier_shift_kspace(img, shifts))
+    return ifft2(fourier_shift_kspace(img, shifts, bf16_operands=bf16_operands),
+                 bf16_operands=bf16_operands)

@@ -148,7 +148,6 @@ FLAG_CASES = {
     "multihost_with_flags": (["--multihost", "--num_processes", "2", "--process_id", "0"],
                              NotImplementedError, "A6"),
     "n_devices": (["--n_devices", "2"], NotImplementedError, "A6"),
-    "mixed_precision": (["--mixed_precision"], NotImplementedError, "compute_dtype"),
 }
 
 
@@ -159,6 +158,33 @@ def test_flags_for_what_is_not_ported_refuse(tmp_path, case, no_loggers):
     with pytest.raises(error, match=match):
         main(["run", "--params_path", path, "--device", "cpu", *args])
     assert not (tmp_path / "out").exists()
+
+
+def test_run_mixed_precision_takes_the_bf16_policy(tmp_path, no_loggers):
+    """--mixed_precision sets model_params compute_dtype and matmul_dtype to
+    bfloat16, as the JAX CLI does (ptyrad_tpu/cli.py:32-33); ``run
+    --mixed_precision --device cpu`` takes one iteration, exits 0, and the
+    log names the policy."""
+    from types import SimpleNamespace
+
+    from ptyrad_tpu.cli import _apply_common_overrides as j_overrides
+    from ptyrad_tpu_torch.cli import _apply_common_overrides
+
+    set_by = []
+    for fn in (_apply_common_overrides, j_overrides):
+        params = {"model_params": {"compute_dtype": "float32"}}
+        fn(params, SimpleNamespace(mixed_precision=True))
+        set_by.append(params["model_params"])
+    assert set_by[0] == set_by[1] == {"compute_dtype": "bfloat16", "matmul_dtype": "bfloat16"}
+
+    out = tmp_path / "out"
+    path = recon_yml(tmp_path, "p.yml", out, NITER=1, SAVE_ITERS=1)
+    assert main(["run", "--params_path", path, "--device", "cpu", "--mixed_precision"]) == 0
+    (folder,) = os.listdir(out)
+    (log_name,) = [f for f in os.listdir(out / folder) if f.endswith("ptyrad_tpu_torch_log.txt")]
+    log = (out / folder / log_name).read_text()
+    assert "Compute policy: compute_dtype=bfloat16, transform operands bfloat16" in log
+    assert "Iter: 1, Total Loss" in log and "Iter: 2," not in log
 
 
 def test_run_with_if_hypertune_runs_the_study(tmp_path, no_loggers):

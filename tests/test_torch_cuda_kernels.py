@@ -1092,3 +1092,85 @@ def test_solver_from_raw_params_cuda_matches_cpu(dev, tmp_path):
     assert losses[0][-1] < losses[0][0]
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
     assert M.loss_sums_fwd_cuda.launches == 2 * gpu.batch_idx.shape[0]
+
+
+# -- the bfloat16 compute policy: the _bf16 kernels -------------------------------
+#
+# Bfloat16 rounding turns float32 differences between a kernel and its
+# torch.fft twin into whole bfloat16 steps that later passes spread
+# (tests/test_torch_bf16.py test_rounding_amplifies_float32_differences), so
+# a kernel is held against its twin bit-near only at two passes: there the
+# kernel is within a tenth of its own bfloat16 error (L2) of its twin.
+# Deeper chains are held by chip_smoke.py's rows (the two errors' ratio).
+
+
+def _l2(t):
+    return float(torch.linalg.vector_norm(t.detach().to(torch.complex128)))
+
+
+def _within_tenth(k16, k32, t16, what):
+    """|K16 - T16| <= 0.1 |K16 - K32|, the kernel rounding (K16 != K32)."""
+    e_k = _l2(k16 - k32)
+    assert e_k > 0, f"{what}: the kernel did not round"
+    assert _l2(k16 - t16) <= 0.1 * e_k, f"{what}: {_l2(k16 - t16)} from its twin, e_K {e_k}"
+
+
+@pytest.mark.parametrize("n", [2, 16, 64, 128])
+@pytest.mark.parametrize("pmode", [1, 6])
+def test_bf16_dp_forward_at_two_passes(dev, gen, n, pmode):
+    """B4a's bf16 entry point at one slice on a shared real-space probe (the
+    far field's two passes) against multislice_dp_plain(bf16_operands=True),
+    counted in launches_bf16."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    obja, objp, probe, h, _, _ = _chain_inputs(dev, gen, 3, pmode, 1, n, "shared")
+    before = M.dp_fwd_cuda.launches_bf16
+    k16, k32 = (M.dp_fwd_cuda(obja, objp, probe, h, False, bf) for bf in (True, False))
+    assert M.dp_fwd_cuda.launches_bf16 == before + 1
+    with torch.no_grad():
+        t16 = M.multislice_dp_plain(obja, objp, probe, h, False, bf16_operands=True)
+    _within_tenth(k16, k32, t16, f"B4a bf16 N={n}")
+
+
+@pytest.mark.parametrize("n", [16, 64, 256, 512])
+def test_bf16_far_field_exit_at_two_passes(dev, gen, n):
+    """B5a and B5b's bf16 entry points at one slice with the far-field exit
+    (two passes each way) against chain_segment_plain(bf16_operands=True)
+    and its VJP, counted in launches_ff_bf16 and launches_bf16."""
+    from ptyrad_tpu_torch.ops import chain as C
+
+    psi, a, p, h = _seg_inputs(dev, gen, 2, 4, 1, n)
+    fwd, bwd = C.segment_fwd_cuda, C.segment_bwd_cuda
+    before = fwd.launches_ff_bf16, bwd.launches_bf16
+    k16, k32 = (fwd(psi, a, p, h, True, True, bf) for bf in (True, False))
+    g = torch.randn_like(k16)
+    gk16, gk32 = (bwd(g, psi, a, p, h, True, far_field=True, bf16_operands=bf)[:3]
+                  for bf in (True, False))
+    assert (fwd.launches_ff_bf16, bwd.launches_bf16) == (before[0] + 1, before[1] + 1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (psi, a, p)]
+    t16 = C.chain_segment_plain(*leaves, h, True, True, bf16_operands=True)
+    gt16 = torch.autograd.grad(t16, leaves, grad_outputs=g)
+    _within_tenth(k16, k32, t16, f"B5a bf16 exit N={n}")
+    for name, x, y, z in zip(("psi", "a", "phi"), gk16, gk32, gt16):
+        _within_tenth(x, y, z, f"B5b bf16 exit d {name} N={n}")
+
+
+@pytest.mark.parametrize("probe_layout", ["shared", "each_kspace"])
+def test_bf16_backwards_repeat_bit_for_bit(dev, gen, probe_layout):
+    """B3b and B4b's bf16 entry points sum in the float32 kernels' fixed
+    order: every cotangent, dH included, repeats bit for bit."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    obja, objp, probe, h, meas, mask = _chain_inputs(dev, gen, 5, 6, 6, 128, probe_layout)
+    kspace = probe_layout.endswith("kspace")
+    dp = M.loss_sums_fwd_cuda(obja, objp, probe, h, meas, mask, 0.5, 1e-10, kspace,
+                              bf16_operands=True)[2]
+    c = torch.tensor(0.7, device=dev)
+    g = torch.randn(dp.shape, generator=gen, device=dev)
+    runs = [lambda: M.loss_sums_bwd_cuda(obja, objp, probe, h, meas, mask, dp, c, 0.5, 1e-10,
+                                         kspace, need_dh=True, bf16_operands=True),
+            lambda: M.dp_bwd_cuda(obja, objp, probe, h, g, kspace, need_dh=True,
+                                  bf16_operands=True)]
+    for run in runs:
+        for a, b in zip(run(), run()):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -203,9 +203,9 @@ def test_far_field_carve_matches_jax(jax_exit_on, port_exit_on, nz, monkeypatch)
         stacks.append(a_main.shape[1])
         return orig_stack(psi0, a_main, *rest)
 
-    def segment(psi, a_seg, p_seg, h, last, far_field=False):
+    def segment(psi, a_seg, p_seg, h, last, far_field=False, bf16_operands=False):
         segments.append((a_seg.shape[1], last, far_field))
-        return orig_segment(psi, a_seg, p_seg, h, last, far_field)
+        return orig_segment(psi, a_seg, p_seg, h, last, far_field, bf16_operands)
 
     monkeypatch.setattr(C, "chain_stack", stack)
     monkeypatch.setattr(C, "chain_segment", segment)

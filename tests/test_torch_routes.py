@@ -104,17 +104,20 @@ def test_cpu_forward_at_any_n_is_the_plain_route(rng, n):
 
 
 def test_tpu_only_keys_warn_once(rng, monkeypatch):
+    """fwd_remat warns once a process; matmul_dtype is the bfloat16 compute
+    policy's key, which the port runs: no warning, bfloat16 operands."""
     monkeypatch.setattr(S, "_WARNED_TPU_ONLY", set())
     init = toy_init(rng)
     mp = {"fwd_remat": True, "matmul_dtype": "bfloat16"}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        make_model(init, mp, device=CPU)
+        _, _, geom = make_model(init, mp, device=CPU)
         make_model(init, mp, device=CPU)
         make_model(init, {"fwd_remat": False, "matmul_dtype": None}, device=CPU)
     texts = [str(w.message) for w in caught if "does nothing" in str(w.message)]
-    assert len(texts) == 2
-    assert any("fwd_remat" in t for t in texts) and any("matmul_dtype" in t for t in texts)
+    assert len(texts) == 1 and "fwd_remat" in texts[0]
+    assert not any("matmul_dtype" in str(w.message) for w in caught)
+    assert geom.bf16_operands and geom.compute_dtype == "float32"
 
 
 def _plain_params():
