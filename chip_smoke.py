@@ -118,7 +118,11 @@ Phases, one JSON object per line each:
                copy with a bad key), check-gpu and print-system-info (exit
                0, naming the card), run at once. cli_mixed_precision: one
                iteration of ``run --mixed_precision`` in a subprocess: exit
-               0, a finite loss, the log naming the policy.
+               0, a finite loss, the log naming the policy. dist_cli:
+               ``run --multihost --coordinator_address 127.0.0.1:<port>
+               --num_processes 1 --process_id 0`` on the same .raw, 2
+               iterations: NCCL as a world of one through the CLI, exit 0,
+               the log naming process 0 / 1 and NCCL, a falling loss.
      figures - the params_file phase's .raw through run_reconstruction, 2
                iterations saved every iteration with selected_figs [loss,
                forward, probe_r_amp, pos, group]: each plot_summary's
@@ -189,6 +193,24 @@ Phases, one JSON object per line each:
                B1, B2, B4a and B4b launched and B3 not; then each data term
                alone for 2 iterations, where loss_poissn must fall; then its
                torch.profiler breakdown over 32 more steps.
+     dist_tbl, dist_low_dose - data parallelism over ranks (A6): the tBL
+               data with random_object's seeded start written once as .npz,
+               then two ranks spawned on cuda:0 (gloo; one card, so no
+               speed-up is measured or claimed), each taking 16 of every
+               batch's 32 positions, run tBL and the low-dose mix for 2
+               iterations. Gates, each kind, against the one-rank run of
+               the same start on the card: the first batch's loss (rtol
+               1e-5) and gradients (obja/objp atol 1e-5, probe 5e-5, shifts
+               1e-7: tests/test_engine.py's mesh tolerances), each rank's
+               losses at rtol 1e-4; the ranks' parameters bit for bit after
+               every iteration (sha256); the path's kernels launched in each
+               rank. Per rank: s/iteration, peak memory, the all-reduces a
+               step, the gradient all-reduce's host ms and bytes a step.
+               Reported, not gated: the ranks' tBL run from the flat start
+               against the main phase, and how far float32 rounding alone
+               moves either start (a one-rank run from the object times
+               1 + 2^-23: about 1e-3 at iteration 2 from the flat start,
+               1e-6 from the seeded one; see DIST_WORLD).
   6. pso     - the PSO reconstruction (demo/params/PSO_reconstruct.yml)
                through PtyRADSolver.run(): 4,096 patterns simulated at 256^2,
                cropped to the central 120^2 and padded back to 256^2 on the
@@ -247,7 +269,7 @@ Phases, one JSON object per line each:
                profile over 8 steps.
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
 plain route, tBL, params_file, resume, figures, hypertune, lbfgs,
-grad_accum, optimizers, grouping, low-dose (both runs), tbl_store, PSO, pso_ff (with its random-start
+grad_accum, optimizers, grouping, low-dose (both runs), the dist ranks, tbl_store, PSO, pso_ff (with its random-start
 runs and the carve), tilt (its simulation included) and PSO tilt paths,
 mixed_precision, pso_bf16 and the forward phases' kernel routes, the bf16
 kernels in rows of their own; B1/B2's rows at the tBL shapes count the
@@ -262,10 +284,12 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import dataclasses
+import hashlib
 import importlib
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -2033,7 +2057,10 @@ def tbl_params_file(meas_path: str) -> dict:
     fill written out (a fixed point of params/schema.py, held so by
     tests/test_torch_params.py), so the card's machine runs what validation
     would have given with or without pydantic. pos_scan_step_size is the
-    simulated scan's (3 px of SIM_DX), not the yml's 0.4290 Ang."""
+    simulated scan's (3 px of SIM_DX), not the yml's 0.4290 Ang. The
+    sections are copies: a caller that edits one (hypertune_params_file
+    turns obj_rblur off) must not edit TBL_PARAMS, which later phases run."""
+    base = copy.deepcopy(TBL_PARAMS)
     return {
         "init_params": {
             "probe_illum_type": "electron", "probe_kv": 80.0, "probe_conv_angle": 24.9,
@@ -2064,19 +2091,19 @@ def tbl_params_file(meas_path: str) -> dict:
         "model_params": {
             "obj_preblur_std": None, "detector_blur_std": None,
             "optimizer_params": {"name": "Adam", "configs": {}, "load_state": None},
-            "update_params": TBL_PARAMS["model_params"]["update_params"],
+            "update_params": base["model_params"]["update_params"],
             "fwd_fused": None, "fwd_remat": False, "compute_dtype": "float32",
             "matmul_dtype": None, "meas_dtype": "float32",
         },
         "loss_params": {
-            **TBL_PARAMS["loss_params"],
+            **base["loss_params"],
             "loss_poissn": {"state": False, "weight": 1.0, "dp_pow": 1.0, "eps": 1e-06},
             "loss_pacbed": {"state": False, "weight": 0.5, "dp_pow": 0.2},
             "loss_simlar": {"state": False, "weight": 0.1, "obj_type": "both",
                             "scale_factor": [1.0, 1.0], "blur_std": 1.0},
         },
         "constraint_params": {
-            **TBL_PARAMS["constraint_params"],
+            **base["constraint_params"],
             "probe_mask_k": {"freq": None, "radius": 0.22, "width": 0.05, "power_thresh": 0.95},
             "kr_filter": {"freq": None, "obj_type": "both", "radius": 0.15, "width": 0.05},
             "kz_filter": {"freq": None, "obj_type": "both", "beta": 1.0, "alpha": 1.0},
@@ -4436,6 +4463,325 @@ KERNEL_CHECKS = ("check_patches", "check_loss_chain", "check_dp_chain", "check_c
                  "check_fused_dh", "check_chain_dh", "check_chain_ff")
 
 
+# -- data parallelism over ranks (A6) ---------------------------------------------
+
+# Two gloo ranks on the one card (cuda:0), each taking half of every tBL batch;
+# held against the one-rank run of the same data on the card at the JAX
+# package's mesh tolerances (tests/test_engine.py:818-921) and
+# tests/test_torch_dist.py's trajectory tolerance. The runs start from
+# random_object's seeded object: from the flat start a tBL run whose start
+# differs by one unit in the last place parts from the main phase by about
+# 1e-3 at iteration 2 (float32 rounding that the focused probe's Adam steps
+# amplify; the ranks part by 1.7e-4 there), so no reordering of float32
+# sums could be held at rtol 1e-4 from it; from the seeded object the same
+# change moves iteration 2 by about 1e-6. dist_tbl reports both yardsticks
+# and the ranks' run from the flat start beside the main phase's.
+DIST_WORLD, DIST_NITER = 2, 2
+DIST_GRAD_ATOL = {"obja": 1e-5, "objp": 1e-5, "probe": 5e-5, "probe_pos_shifts": 1e-7}
+DIST_LOSS_RTOL, DIST_TRAJ_RTOL = 1e-5, 1e-4
+DIST_TIMEOUT_S = 600
+DIST_KINDS = {"tbl": TBL_KERNELS, "low_dose": LOW_DOSE_KERNELS}
+DIST_ALLREDUCE_REPS = 20
+
+
+def dist_problem(kind: str, init: dict, low_dose_probe) -> tuple[dict, dict]:
+    """(params, init_variables) of a dist phase: tBL's sections or the
+    low-dose mix for DIST_NITER iterations, on the tBL init (the low-dose
+    phase's normalisation, with its probe as low_dose_dataset scaled it)."""
+    base = TBL_PARAMS if kind == "tbl" else LOW_DOSE_PARAMS
+    params = copy.deepcopy(base)
+    params["recon_params"]["NITER"] = DIST_NITER
+    if kind == "tbl":
+        return params, init
+    meas = init["measurements"]
+    return params, dict(init, measurements=meas / meas.max(), probe=low_dose_probe)
+
+
+def first_batch_grads(solver, group) -> tuple[float, dict]:
+    """The loss and gradients of iteration 1's first batch at the start
+    (each rank its block, the gradients all-reduced), on the host; the
+    gradients are then cleared."""
+    from ptyrad_tpu_torch.engine.solver import iter_batch_perm, loss_fn, params_tensors
+    from ptyrad_tpu_torch.parallel import all_reduce_grads, rank_slice
+
+    b = int(iter_batch_perm(1, solver.batch_idx.shape[0])[0])
+    idx = torch.as_tensor(solver.batch_idx[b], device=solver.device)
+    mask = torch.as_tensor(solver.batch_mask[b], device=solver.device)
+    idx, mask = rank_slice(idx, mask, group)
+    total, _ = loss_fn(solver.params, solver.buffers, solver.geom, idx, mask,
+                       solver.loss_params, group)
+    total.backward()
+    all_reduce_grads(params_tensors(solver.params), group)
+    grads = {}
+    for name, t in solver.params.named():
+        if t.grad is not None:
+            g = t.grad.detach()
+            grads[name] = (torch.view_as_real(g) if g.is_complex() else g).cpu().numpy()
+        t.grad = None
+    return float(total.detach()), grads
+
+
+def params_digest(params) -> str:
+    h = hashlib.sha256()
+    for _, t in params.named():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def allreduce_timing(solver, group) -> dict:
+    """Host ms of one step's gradient all-reduce (the flat buffer of every
+    gradient the step holds, zeroed first), synchronised before and after,
+    the median of DIST_ALLREDUCE_REPS, and its bytes; and the host ms of a
+    3-float all-reduce, the loss's kind."""
+    from ptyrad_tpu_torch.engine.solver import params_tensors
+    from ptyrad_tpu_torch.parallel import all_reduce_grads, all_reduce_sum
+
+    tensors = params_tensors(solver.params)
+    for t in tensors:
+        if t.grad is not None:
+            t.grad.zero_()
+
+    def median_ms(fn):
+        times = []
+        for _ in range(DIST_ALLREDUCE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    nbytes = all_reduce_grads(tensors, group)
+    small = torch.zeros(3, device=solver.device)
+    return {"grad_allreduce_ms": median_ms(lambda: all_reduce_grads(tensors, group)),
+            "grad_allreduce_bytes": nbytes,
+            "loss_allreduce_ms": median_ms(lambda: all_reduce_sum(small, group))}
+
+
+def dist_run(kind: str, init: dict, low_dose_probe, dev, group) -> tuple[dict, dict]:
+    """One dist run, in a rank (group) or in the one-rank parent (group
+    None): the first batch's loss and gradients, then DIST_NITER iterations
+    under counted(); in a rank also the parameters' digest after each
+    iteration, the collectives of one step and the all-reduce's times."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    params, data = dist_problem(kind, init, low_dose_probe)
+    solver = PtyRADSolver(params, init_variables=data, device=dev, verbose=False, group=group)
+    solver.prepare()
+    solver._build()
+    first, grads = first_batch_grads(solver, group)
+    out = {"first_loss": first}
+    if group is None:
+        out["launches"] = drive(solver)
+        out["losses"] = [v for _, v in solver.history.loss_iters]
+        return out, grads
+    calls = [0]
+    all_reduce = torch.distributed.all_reduce
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    digests = []
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.all_reduce = counting
+    try:
+        t0 = time.perf_counter()
+        launches = counted(lambda: solver.run(
+            callback=lambda niter, p, history: digests.append(params_digest(p))))[1]
+        run_s = time.perf_counter() - t0
+    finally:
+        torch.distributed.all_reduce = all_reduce
+    steps = DIST_NITER * solver.batch_idx.shape[0]
+    out.update({
+        "losses": [v for _, v in solver.history.loss_iters], "iter_s": solver.history.iter_times,
+        "run_s": run_s, "digests": digests, "launches": launches,
+        "allreduces_per_step": calls[0] / steps, "local_batch": solver.batch_idx.shape[1] // group.size,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **allreduce_timing(solver, group)})
+    return out, grads
+
+
+def dist_rank(rank: int, tmp: str, port: int) -> None:
+    """A rank of the dist phases (spawned): joins the gloo group on cuda:0,
+    runs both kinds from the parent's init and writes
+    <tmp>/dist_<rank>.json and dist_<rank>_<kind>.npz."""
+    from ptyrad_tpu_torch.parallel import init_multihost
+
+    group = init_multihost(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo")
+    try:
+        with np.load(f"{tmp}/dist_init.npz") as f:
+            init = {k: f[k] for k in f.files}
+        low_dose_probe, flat_obj = init.pop("low_dose_probe"), init.pop("flat_obj")
+        out = {}
+        for kind in DIST_KINDS:
+            out[kind], grads = dist_run(kind, init, low_dose_probe, group.device, group)
+            np.savez(f"{tmp}/dist_{rank}_{kind}.npz", **grads)
+            torch.cuda.empty_cache()
+        out["tbl_flat"], _ = dist_run("tbl", dict(init, obj=flat_obj), None, group.device, group)
+        with open(f"{tmp}/dist_{rank}.json", "w", encoding="utf-8") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(fn, args: tuple, world: int, timeout_s: float) -> None:
+    """fn(rank, *args) in `world` spawned processes; raises if one fails or
+    the run outlasts timeout_s, and leaves no process behind."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while not ctx.join(timeout=5):
+            require(time.perf_counter() < deadline, f"the ranks outlasted {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def rel_each(losses, ref) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+
+
+def ulp_yardstick(dev, init: dict, ref_losses: list) -> list:
+    """How far float32 rounding alone moves the tBL run from this start:
+    one rank from the start's object times (1 + 2^-23), its losses'
+    relative distance from ref_losses (the same run from the start itself),
+    iteration by iteration."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    params, _ = dist_problem("tbl", init, None)
+    obj = (init["obj"] * np.float32(1 + 2 ** -23)).astype(np.complex64)
+    solver = PtyRADSolver(params, init_variables=dict(init, obj=obj), device=dev, verbose=False)
+    solver.run()
+    return rel_each([v for _, v in solver.history.loss_iters], ref_losses)
+
+
+def dist_path(dev, card: str, init: dict, flat_losses: list) -> dict:
+    """dist_tbl and dist_low_dose: DIST_WORLD gloo ranks on cuda:0 run tBL
+    and the low-dose mix from random_object's seeded start on the tBL data
+    (written once as .npz, so no rank simulates), each rank half of every
+    batch. Gates: the first batch's loss (rtol 1e-5) and gradients, and the
+    loss trajectory (rtol 1e-4), against the one-rank run of the same start
+    on the card; the ranks' parameters bit for bit after every iteration;
+    the path's kernels launched in every rank. flat_losses: the main
+    phase's, for the flat start's rounding yardstick. Returns the launches
+    summed over the ranks and the one-rank runs. Reported beside dist_tbl:
+    the ranks from the flat start against the main phase, and the 1-ulp
+    yardstick of either start."""
+    flat_obj = init["obj"]
+    flat_ulp = ulp_yardstick(dev, init, flat_losses)
+    init = dict(init, obj=random_object(init["obj"].shape, SEED + 5))
+    low_dose_probe = low_dose_dataset(init)["probe"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        t0 = time.perf_counter()
+        np.savez(f"{tmp}/dist_init.npz", low_dose_probe=low_dose_probe, flat_obj=flat_obj,
+                 **{k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                    for k, v in init.items()})
+        write_s = time.perf_counter() - t0
+        one = {kind: dist_run(kind, init, low_dose_probe, dev, None) for kind in DIST_KINDS}
+        seeded_ulp = ulp_yardstick(dev, init, one["tbl"][0]["losses"])
+        torch.cuda.empty_cache()
+        loopback_env()
+        t1 = time.perf_counter()
+        spawn_ranks(dist_rank, (tmp, _free_port()), DIST_WORLD, DIST_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t1
+        outs = []
+        for r in range(DIST_WORLD):
+            with open(f"{tmp}/dist_{r}.json", encoding="utf-8") as f:
+                outs.append(json.load(f))
+        grads = {(r, kind): dict(np.load(f"{tmp}/dist_{r}_{kind}.npz"))
+                 for r in range(DIST_WORLD) for kind in DIST_KINDS}
+    launches = []
+    for kind, kernels in DIST_KINDS.items():
+        (one_out, one_grads), ranks = one[kind], [o[kind] for o in outs]
+        grad_err = {name: max(float(np.abs(grads[r, kind][name] - g).max())
+                              for r in range(DIST_WORLD))
+                    for name, g in one_grads.items()}
+        loss_err = [abs(o["first_loss"] - one_out["first_loss"]) / abs(one_out["first_loss"])
+                    for o in ranks]
+        traj_err = [_max_rel(o["losses"], one_out["losses"]) for o in ranks]
+        emit({"phase": f"dist_{kind}", "card": card, "world": DIST_WORLD, "backend": "gloo",
+              "device": str(dev), "n_patterns": N_SCANS, "batch": BATCH, "start": "seeded",
+              "iterations": DIST_NITER, "init_write_s": write_s, "ranks_s": ranks_s,
+              **({"seeded_start_ulp_rel": seeded_ulp,
+                  "flat_start": {"ranks_rel": rel_each(outs[0]["tbl_flat"]["losses"],
+                                                       flat_losses),
+                                 "ulp_rel": flat_ulp}} if kind == "tbl" else {}),
+              "one_rank_losses": one_out["losses"],
+              "first_loss_rel_err": loss_err, "first_loss_rtol": DIST_LOSS_RTOL,
+              "grad_max_abs_err": grad_err, "grad_atol": DIST_GRAD_ATOL,
+              "trajectory_max_rel_err": traj_err, "trajectory_rtol": DIST_TRAJ_RTOL,
+              "ranks": [{**{k: v for k, v in o.items() if k not in ("digests", "launches")},
+                         "launches": {name: o["launches"][name] for name in kernels}}
+                        for o in ranks],
+              "digests_equal": all(o["digests"] == ranks[0]["digests"] for o in ranks)})
+        for r, o in enumerate(ranks):
+            require(len(o["losses"]) == DIST_NITER and all(np.isfinite(o["losses"])),
+                    f"dist_{kind} rank {r}: losses {o['losses']}")
+            for name in kernels:
+                require(o["launches"][name] > 0, f"dist_{kind} rank {r}: {name} not launched")
+            require(o["digests"] == ranks[0]["digests"] and len(o["digests"]) == DIST_NITER,
+                    f"dist_{kind}: the ranks' parameters part")
+            require(o["losses"] == ranks[0]["losses"], f"dist_{kind}: the ranks' losses part")
+        require(max(loss_err) <= DIST_LOSS_RTOL, f"dist_{kind}: first loss {loss_err}")
+        for name, err in grad_err.items():
+            require(err <= DIST_GRAD_ATOL[name], f"dist_{kind}: gradient of {name} off by {err}")
+        require(set(grad_err) == set(DIST_GRAD_ATOL), f"dist_{kind}: gradients of {set(grad_err)}")
+        require(max(traj_err) <= DIST_TRAJ_RTOL, f"dist_{kind}: trajectory off by {traj_err}")
+        launches += [o["launches"] for o in ranks] + [one_out["launches"]]
+    for r, o in enumerate(outs):
+        require(o["tbl_flat"]["digests"] == outs[0]["tbl_flat"]["digests"],
+                f"dist_tbl from the flat start: rank {r}'s parameters part from rank 0's")
+        launches.append(o["tbl_flat"]["launches"])
+    return add_counts(*launches)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def loopback_env() -> None:
+    """gloo and NCCL meet on the loopback interface: the card's machine has
+    no network, and the ranks share one host."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+
+
+def dist_cli_path(card: str, tmp: str, raw_path: str) -> None:
+    """``python -m ptyrad_tpu_torch run --multihost --coordinator_address
+    127.0.0.1:<port> --num_processes 1 --process_id 0`` on params_file's
+    .raw, 2 iterations: NCCL as a world of one through the CLI. Exit 0,
+    the log naming the process and the backend, a finite, falling loss."""
+    d = tbl_params_file(raw_path)
+    d["recon_params"].update(NITER=DIST_NITER, output_dir=f"{tmp}/dist_cli_out",
+                             save_result=["objp"])
+    json_path = f"{tmp}/tbl_dist_cli.json"
+    with open(json_path, "w", encoding="utf-8") as f:
+        json.dump(d, f)
+    loopback_env()
+    rc, lines, seconds = _run_cli(
+        ["run", "--params_path", json_path, "--multihost", "--coordinator_address",
+         f"127.0.0.1:{_free_port()}", "--num_processes", "1", "--process_id", "0"], 600)
+    text = [line for _, line in lines]
+    losses = [float(m.group(2)) for m in map(_ITER_LINE.search, text) if m]
+    out = {"phase": "dist_cli", "card": card, "rc": rc, "seconds": seconds, "losses": losses,
+           "process_line": [t for t in text if "process index" in t],
+           "data_parallel_line": [t for t in text if "Data parallel" in t]}
+    emit(out)
+    require(rc == 0, f"dist_cli exited {rc}:\n{_tail(lines)}")
+    require(any("process index   : 0 / 1" in t for t in text), "dist_cli: no process line")
+    require(any("Data parallel: 1 rank(s) over nccl" in t for t in text),
+            f"dist_cli: not an NCCL world of one:\n{_tail(lines)}")
+    require(len(losses) == DIST_NITER and all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"dist_cli: losses {losses}")
+
+
 def kernel_rows(dev, gen, atomic_b2: bool = False, atomic_b3: bool = False,
                 checks=KERNEL_CHECKS) -> list:
     """Every kernel against its plain version at the main paths' shapes, and
@@ -4513,6 +4859,7 @@ def main() -> int:
         cli_path(card, tmp, raw_path, solver)
         del solver
         cli_mixed_precision(card, tmp, raw_path)
+        dist_cli_path(card, tmp, raw_path)
         torch.cuda.empty_cache()
         figures_launches = figures_path(dev, card, tmp, raw_path)
         hypertune_launches = hypertune_path(dev, card, tmp, raw_path)
@@ -4533,7 +4880,10 @@ def main() -> int:
     solver, low_dose_launches = low_dose_path(dev, card, init)
     profile_steps(solver, card, "low-dose", NITER + 1, n_batches=32)
     store_data = tbl_store_dataset(init)
-    del solver, init
+    del solver
+    torch.cuda.empty_cache()
+    dist_launches = dist_path(dev, card, init, main_losses)
+    del init
     torch.cuda.empty_cache()
     solver, store_launches = tbl_store_path(dev, card, store_data)
     profile_steps(solver, card, "tBL-store", NITER + 1, n_batches=32)
@@ -4573,7 +4923,7 @@ def main() -> int:
     narrow = add_counts(plain_launches, tbl_launches, params_file_launches, resume_launches,
                         forward_launches, low_dose_launches, store_launches, tilt_launches,
                         lbfgs_launches, accum_launches, family_launches, figures_launches,
-                        hypertune_launches, mp_launches, forward_bf16_launches,
+                        hypertune_launches, mp_launches, forward_bf16_launches, dist_launches,
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
                       pso_tilt_launches, pso_bf16_launches, pso_bf16_forward_launches)

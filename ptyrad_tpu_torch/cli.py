@@ -11,10 +11,15 @@
   export-meas-init  -- run the measurement initialisation and export it
   validate-params   -- validate a params file; exit 1 when it is invalid
 
-``main()`` returns the exit code. One process on one device: ``--n_devices``
-above 1, ``--multihost`` and the three distributed flags are ROADMAP item A6
-(the distributed flags without ``--multihost`` fail at once, as in the JAX
-package), and ``bench`` belongs to the JAX package.
+``main()`` returns the exit code. ``run --n_devices N`` (N > 1) starts N
+ranks, one process per GPU (or N gloo ranks with ``--device cpu``), with
+torch.multiprocessing's spawn and a free localhost port; ``run
+--multihost`` joins a launch made outside (``--coordinator_address``,
+``--num_processes``, ``--process_id``, or torchrun's environment), one
+process per GPU. The kernel library is built before the ranks start, so
+they do not compile it once each. The distributed flags without
+``--multihost`` fail at once, as in the JAX package; ``bench`` belongs to
+the JAX package.
 """
 
 from __future__ import annotations
@@ -38,21 +43,31 @@ def _apply_common_overrides(params: dict, args) -> None:
         mp["matmul_dtype"] = "bfloat16"
 
 
-def cmd_run(args) -> int:
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _build_kernels(device: str) -> None:
+    """Compile the kernel library once, before the ranks load it."""
+    if device == "cuda":
+        from ptyrad_tpu_torch.ops import _build
+
+        _build.build()
+
+
+def _run(args, group) -> None:
+    """The run of one process: a reconstruction, or a hypertune study (one
+    rank only), with rank 0 printing and writing."""
     from ptyrad_tpu_torch.device import resolve_device
     from ptyrad_tpu_torch.load import load_params
     from ptyrad_tpu_torch.utils.logging import CustomLogger
-    from ptyrad_tpu_torch.utils.system import print_system_info, resolve_devices
+    from ptyrad_tpu_torch.utils.system import print_system_info
 
-    given = [f"--{k}" for k in _DIST_FLAGS if getattr(args, k, None) is not None]
-    if given and not args.multihost:
-        raise SystemExit(f"{', '.join(given)} requires --multihost (the flags are only read "
-                         "by a distributed launch)")
-    if args.multihost:
-        raise NotImplementedError("--multihost: ptyrad_tpu_torch runs one process on one "
-                                  "device; distributed runs are ROADMAP item A6")
-    resolve_devices(args.n_devices)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if group is None else group.device)
     logger = CustomLogger(log_file="ptyrad_tpu_torch_log.txt",
                           prefix_jobid=_jobid_prefix(args.jobid), append_to_file=True,
                           show_timestamp=True)
@@ -67,9 +82,65 @@ def cmd_run(args) -> int:
         else:
             from ptyrad_tpu_torch.engine.workflow import run_reconstruction
 
-            run_reconstruction(params, logger=logger, device=device)
+            run_reconstruction(params, logger=logger, device=device, group=group)
     finally:
         logger.close()
+
+
+def _run_rank(rank: int, args, port: int, world: int) -> None:
+    """One of the ranks that ``run --n_devices`` spawns."""
+    import torch.distributed as dist
+
+    from ptyrad_tpu_torch.parallel.mesh import init_multihost
+
+    group = init_multihost(f"127.0.0.1:{port}", world, rank, device_type=args.device)
+    try:
+        _run(args, group)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_multihost(args) -> None:
+    """``run --multihost``: this process is one rank of a launch made
+    outside; rank 0 builds the kernels while the others wait."""
+    import torch.distributed as dist
+
+    from ptyrad_tpu_torch.parallel.mesh import init_multihost
+
+    group = init_multihost(args.coordinator_address, args.num_processes, args.process_id,
+                           device_type=args.device)
+    try:
+        if group.is_main:
+            _build_kernels(args.device)
+        dist.barrier()
+        _run(args, group)
+    finally:
+        dist.destroy_process_group()
+
+
+def cmd_run(args) -> int:
+    from ptyrad_tpu_torch.utils.system import resolve_devices
+
+    given = [f"--{k}" for k in _DIST_FLAGS if getattr(args, k, None) is not None]
+    if given and not args.multihost:
+        raise SystemExit(f"{', '.join(given)} requires --multihost (the flags are only read "
+                         "by a distributed launch)")
+    if args.multihost:
+        if args.n_devices not in (None, 1):
+            raise SystemExit("--n_devices with --multihost: a distributed launch runs one "
+                             "process per device, and its size is --num_processes (or "
+                             "torchrun's WORLD_SIZE)")
+        _run_multihost(args)
+        return 0
+    world = resolve_devices(args.n_devices, args.device)
+    if world == 1:
+        _run(args, None)
+        return 0
+    import torch.multiprocessing as mp
+
+    _build_kernels(args.device)
+    mp.start_processes(_run_rank, args=(args, _free_port(), world), nprocs=world,
+                       start_method="spawn")
     return 0
 
 
@@ -147,7 +218,8 @@ def build_parser() -> argparse.ArgumentParser:
                        help="cuda (the default; raises without CUDA) or cpu (the plain "
                             "PyTorch path)")
     p_run.add_argument("--n_devices", type=int, default=None,
-                       help="Number of devices (one; more is ROADMAP item A6)")
+                       help="Number of ranks: one process per GPU (at most the GPUs this "
+                            "host has), or gloo ranks on the CPU with --device cpu")
     p_run.add_argument("--jobid", default="0",
                        help="Job id label for the log file (a hypertune worker's)")
     p_run.add_argument("--skip_validate", action="store_true", help="Skip params validation")
@@ -156,7 +228,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "and matmul_dtype to bfloat16 (bfloat16 transform operands in "
                             "every kernel; parameters, gradients and the loss stay float32)")
     p_run.add_argument("--multihost", action="store_true",
-                       help="Distributed launch (ROADMAP item A6)")
+                       help="Join a distributed launch made outside (one process per GPU; "
+                            "NCCL, or gloo with --device cpu)")
     p_run.add_argument("--coordinator_address", default=None,
                        help="host:port of a distributed launch (needs --multihost)")
     p_run.add_argument("--num_processes", type=int, default=None)

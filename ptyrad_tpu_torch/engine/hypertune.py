@@ -268,8 +268,13 @@ def run_hypertune(params: dict, logger=None, jobid: Optional[str] = None,
     Initializer's generator. The trials print each iteration unless
     recon_params.if_quiet. A study that collates a checkpoint checks that
     h5py imports before the Initializer runs."""
+    from ptyrad_tpu_torch.parallel.mesh import world_size
     from ptyrad_tpu_torch.save import import_h5py
 
+    if world_size() > 1:
+        raise NotImplementedError(
+            f"hypertune on {world_size()} ranks: a study runs in one process (hypertune over "
+            "ranks is ROADMAP item A6b); start several workers with --jobid instead")
     ht = params["hypertune_params"]
     recon_params = params.get("recon_params", {}) or {}
     verbose = not recon_params.get("if_quiet", False)

@@ -13,8 +13,16 @@ of all batch losses (``build_lbfgs_objective``, ``PtyRADSolver._lbfgs_loop``).
 
 ``optimizer_params.load_state`` resumes the optimizer from a model.hdf5
 (either package's or upstream PtyRAD's), and ``recon_loop(start_niter=)``
-continues a run at a given iteration; engine/workflow.py saves. Not in this
-slice: device meshes and canvas sharding (ROADMAP queue A).
+continues a run at a given iteration; engine/workflow.py saves.
+
+Data parallelism (``group``, a parallel.DataGroup; ptyrad_tpu/engine/
+solver.py:410-600 on a mesh): every rank builds the same padded batches (a
+fixed group seed, the length a multiple of the world size), takes its
+contiguous block of each (parallel.rank_slice), computes the whole batch's
+loss terms (the loss all-reduces its batch sums) and, after backward, sums
+every gradient over the ranks in one flat buffer before the start-iter
+gating and the optimizer's step; the parameters stay bit-identical across
+ranks. Canvas sharding (ROADMAP item A7) is not in this slice.
 """
 
 from __future__ import annotations
@@ -37,23 +45,32 @@ from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams, make_
 from ptyrad_tpu_torch.optim import (OptStateMismatchError, create_optimizer, is_lbfgs,
                                     load_opt_state_hdf5, mask_unstarted_grads, started,
                                     unstarted_tensors)
+from ptyrad_tpu_torch.parallel.mesh import (DataGroup, all_reduce_grads, broadcast_str,
+                                            rank_slice, shard_model)
 from ptyrad_tpu_torch.utils.logging import vprint
 
 
 def loss_fn(params: PtychoParams, buffers: Buffers, geom: Geometry, indices, mask,
-            loss_params):
-    """(total, terms) for one batch, the loss-folded chain first."""
-    fused = fused_loss_terms(params, buffers, geom, indices, mask, loss_params)
+            loss_params, group: Optional[DataGroup] = None):
+    """(total, terms) for one batch, the loss-folded chain first. With a
+    group, indices and mask are the rank's slice and the terms the whole
+    batch's."""
+    fused = fused_loss_terms(params, buffers, geom, indices, mask, loss_params, group)
     if fused is not None:
         return fused
     dp, (obja_p, objp_p) = forward(params, buffers, geom, indices)
     meas = get_measurements(buffers, geom, indices)
-    return combined_loss(dp, meas, obja_p, objp_p, buffers.omode_occu, loss_params, mask)
+    return combined_loss(dp, meas, obja_p, objp_p, buffers.omode_occu, loss_params, mask,
+                         group)
+
+
+def params_tensors(params: PtychoParams) -> list:
+    return [t for _, t in params.named()]
 
 
 def build_train_epoch(params: PtychoParams, buffers: Buffers, geom: Geometry,
                       loss_params: Optional[dict], optimizer: torch.optim.Optimizer,
-                      start_iters: Dict[str, int]):
+                      start_iters: Dict[str, int], group: Optional[DataGroup] = None):
     """One call per iteration over all (padded) batches.
 
     Returns train_epoch(idx_all, mask_all, niter) -> (mean total, {term:
@@ -61,16 +78,23 @@ def build_train_epoch(params: PtychoParams, buffers: Buffers, geom: Geometry,
     device; params are updated in place. The updates of tensors whose
     start_iter has not come are masked as the gradients are (their values
     are put back after the step): decoupled or coupled weight decay would
-    move them otherwise (ptyrad_tpu/engine/solver.py:84-90).
+    move them otherwise (ptyrad_tpu/engine/solver.py:84-90). With a group
+    each rank takes its block of every batch and the gradients are summed
+    over the ranks before the gating and the step (under grad_accumulation,
+    before MultiSteps accumulates them).
     """
+    tensors = params_tensors(params)
 
     def train_epoch(idx_all: torch.Tensor, mask_all: torch.Tensor, niter: int):
         totals, term_rows = [], []
         frozen = unstarted_tensors(params, niter, start_iters)
+        idx_all, mask_all = rank_slice(idx_all, mask_all, group)
         for b in range(idx_all.shape[0]):
             optimizer.zero_grad(set_to_none=True)
-            total, terms = loss_fn(params, buffers, geom, idx_all[b], mask_all[b], loss_params)
+            total, terms = loss_fn(params, buffers, geom, idx_all[b], mask_all[b], loss_params,
+                                   group)
             total.backward()
+            all_reduce_grads(tensors, group)
             mask_unstarted_grads(params, niter, start_iters)
             kept = [t.detach().clone() for t in frozen]
             optimizer.step()
@@ -88,7 +112,8 @@ def build_train_epoch(params: PtychoParams, buffers: Buffers, geom: Geometry,
 
 
 def build_lbfgs_objective(params: PtychoParams, buffers: Buffers, geom: Geometry,
-                          loss_params: Optional[dict], start_iters: Dict[str, int]):
+                          loss_params: Optional[dict], start_iters: Dict[str, int],
+                          group: Optional[DataGroup] = None):
     """The LBFGS objective (ptyrad_tpu/engine/solver.py build_lbfgs_step):
     objective_of(idx_all, mask_all, niter)() -> (value, {name: gradient}) at
     the live parameters, the value the mean of the per-batch losses (summed
@@ -96,10 +121,15 @@ def build_lbfgs_objective(params: PtychoParams, buffers: Buffers, geom: Geometry
     gradient its gradient: one backward per batch with cotangent 1/n,
     accumulated, so one batch's graph is alive at a time. Tensors that have
     not started (freeze_unstarted_params) and tensors not optimized get a
-    zero gradient."""
+    zero gradient. With a group each rank runs its block of every batch;
+    the batch losses are already global (the loss reduces over the ranks)
+    and the accumulated gradients are summed over the ranks once, so the
+    line search takes the same steps on every rank."""
+    tensors = params_tensors(params)
 
     def objective_of(idx_all: torch.Tensor, mask_all: torch.Tensor, niter: int):
         n = idx_all.shape[0]
+        idx_all, mask_all = rank_slice(idx_all, mask_all, group)
 
         def objective():
             for _, t in params.named():
@@ -107,9 +137,11 @@ def build_lbfgs_objective(params: PtychoParams, buffers: Buffers, geom: Geometry
             scale = torch.tensor(1.0 / n, dtype=torch.float32, device=idx_all.device)
             acc = torch.zeros((), dtype=torch.float32, device=idx_all.device)
             for b in range(n):
-                total, _ = loss_fn(params, buffers, geom, idx_all[b], mask_all[b], loss_params)
+                total, _ = loss_fn(params, buffers, geom, idx_all[b], mask_all[b], loss_params,
+                                   group)
                 acc = acc + total.detach()
                 total.backward(scale)
+            all_reduce_grads(tensors, group)
             grads = {}
             for name, t in params.named():
                 live = t.grad is not None and started(name, niter, start_iters)
@@ -212,15 +244,32 @@ class PtyRADSolver:
     them from a params file). init_variables: a prebuilt init dict; None
     runs ``Initializer(params["init_params"], rng=init_rng).init_all()``.
     init_rng: the Initializer's generator (np.random.RandomState; None is a
-    fresh unseeded one). device: None means "cuda"; pass "cpu" to run the
-    plain PyTorch path on the CPU.
+    fresh unseeded one). device: None means "cuda" (the group's device with
+    a group); pass "cpu" to run the plain PyTorch path on the CPU.
+    group: a parallel.DataGroup for data parallelism over ranks (one
+    process per rank: parallel.init_multihost, or the CLI's --n_devices /
+    --multihost); None is one process. n_devices: the number of devices the
+    caller expects, which must be the group's size (1 without a group).
     """
 
     def __init__(self, params: Optional[dict] = None, init_variables: Optional[dict] = None,
-                 device=None, verbose: bool = True, init_rng=None):
-        self.device = resolve_device(device)
+                 device=None, verbose: bool = True, init_rng=None,
+                 group: Optional[DataGroup] = None, n_devices: Optional[int] = None):
+        world = group.size if group is not None else 1
+        if n_devices is not None and int(n_devices) != world:
+            raise ValueError(
+                f"n_devices={n_devices} but the run has {world} rank(s): ptyrad_tpu_torch runs "
+                "one process per device; start the ranks with `python -m ptyrad_tpu_torch run "
+                "--n_devices N` or parallel.init_multihost and pass the group")
+        self.group = group
+        self.device = resolve_device(device if device is not None or group is None
+                                     else group.device)
         self.params_dict = params or {}
         self.verbose = verbose
+        if init_variables is None and init_rng is None and group is not None:
+            # one seed for every rank's Initializer: the store it builds must agree
+            seed = broadcast_str(str(np.random.SeedSequence().entropy % 2**32), group)
+            init_rng = np.random.RandomState(int(seed))
         if init_variables is None:
             init = Initializer(self.params_dict["init_params"], verbose=verbose, rng=init_rng)
             init.init_all()
@@ -230,6 +279,10 @@ class PtyRADSolver:
         self.params, self.buffers, self.geom = make_model(
             init_variables, self.model_params, self.device)
         self.recon_params = self.params_dict.get("recon_params", {}) or {}
+        self.params, self.buffers = shard_model(
+            self.params, self.buffers, group,
+            shard_measurements=bool(self.recon_params.get("shard_measurements", True)),
+            verbose=verbose)
         self.loss_params = self.params_dict.get("loss_params")
         self.constraint_fn = ConstraintScheduler(self.params_dict.get("constraint_params"),
                                                  self.geom)
@@ -251,13 +304,25 @@ class PtyRADSolver:
         batch_size = int((rp.get("BATCH_SIZE", {}) or {}).get("size", 32))
         self.grad_accumulation = int((rp.get("BATCH_SIZE", {}) or {}).get("grad_accumulation", 1))
         pos = self.buffers.crop_pos.cpu().numpy()
+        world = self.group.size if self.group is not None else 1
+        seed = rp.get("GROUP_MODE_SEED")
+        if seed is None and world > 1:
+            # every rank must build the same batches (ptyrad_tpu/engine/solver.py:487-494)
+            seed = 0
         batches = make_batches(indices, pos, batch_size, mode=rp.get("GROUP_MODE", "random"),
-                               seed=rp.get("GROUP_MODE_SEED"))
-        self.batch_idx, self.batch_mask = pad_batches(batches)
+                               seed=seed)
+        self.batch_idx, self.batch_mask = pad_batches(batches, multiple_of=world)
         self.indices = indices
         return self.batch_idx, self.batch_mask
 
     def _build(self):
+        if self.recon_params.get("shard_canvas"):
+            if self.group is not None and self.group.size > 1:
+                raise NotImplementedError(
+                    "recon_params.shard_canvas on more than one rank: canvas sharding is "
+                    "ROADMAP item A7")
+            vprint("WARNING: recon_params.shard_canvas requires more than one rank (--n_devices "
+                   "or --multihost); running the replicated path instead.", verbose=self.verbose)
         optimizer_params = self.model_params.get("optimizer_params", {"name": "Adam"})
         self.optimizer_name = optimizer_params.get("name", "Adam")
         self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
@@ -280,11 +345,12 @@ class PtyRADSolver:
                        "Using fresh state.")
         if is_lbfgs(self.optimizer_name):
             self.lbfgs_objective = build_lbfgs_objective(
-                self.params, self.buffers, self.geom, self.loss_params, self.start_dict)
+                self.params, self.buffers, self.geom, self.loss_params, self.start_dict,
+                self.group)
         else:
             self.train_epoch = build_train_epoch(
                 self.params, self.buffers, self.geom, self.loss_params, self.optimizer,
-                self.start_dict)
+                self.start_dict, self.group)
 
     def _lbfgs_loop(self, n_iter: int, callback: Optional[Callable] = None,
                     start_niter: int = 1, permute: bool = False):
@@ -339,6 +405,10 @@ class PtyRADSolver:
             f"optimizer={self.optimizer_name}, device={self.device}",
             verbose=self.verbose,
         )
+        if self.group is not None:
+            vprint(f"Data parallel: {self.group.size} rank(s) over {self.group.backend}, "
+                   f"{self.batch_idx.shape[1] // self.group.size} positions of every batch "
+                   "on each", verbose=self.verbose)
         if self.geom.bf16_operands or self.geom.compute_dtype != "float32":
             vprint(f"Compute policy: compute_dtype={self.geom.compute_dtype}, transform "
                    f"operands {'bfloat16' if self.geom.bf16_operands else 'float32'}; "

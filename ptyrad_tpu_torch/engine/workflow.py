@@ -11,6 +11,11 @@ first iteration rather than at its first save. With selected_figs, the
 position grouping is drawn once the folder exists (``group`` or ``all``:
 summary_grouping.png) and visualization.plot_summary draws the summary
 figures after each SAVE_ITERS save (ptyrad_tpu/engine/workflow.py:56-103).
+
+With a group (parallel.DataGroup) every rank composes the folder name and
+takes rank 0's (parallel.broadcast_str: a prefix_time name can differ by a
+clock tick); only rank 0 makes the folder, copies the params, writes the
+log, draws and saves (ptyrad_tpu/engine/workflow.py:34-57, :80-115).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+from ptyrad_tpu_torch.parallel.mesh import broadcast_str
 from ptyrad_tpu_torch.save import (copy_params_to_dir, import_h5py, make_output_folder,
                                    save_results)
 from ptyrad_tpu_torch.utils.logging import vprint
@@ -25,12 +31,13 @@ from ptyrad_tpu_torch.visualization import plot_summary, save_grouping_figure
 
 
 def run_reconstruction(params: dict, logger=None, verbose: Optional[bool] = None, device=None,
-                       init_rng=None) -> PtyRADSolver:
+                       init_rng=None, group=None) -> PtyRADSolver:
     """The whole run; returns the solver, its ``output_path`` set.
 
     params: a params dict as load_params gives it. logger: a CustomLogger,
     flushed into the output folder once it exists. device: None means CUDA
     (see device.resolve_device). init_rng: the Initializer's generator.
+    group: a parallel.DataGroup (None: one process).
     """
     recon_params = params.get("recon_params", {}) or {}
     if verbose is None:
@@ -42,18 +49,21 @@ def run_reconstruction(params: dict, logger=None, verbose: Optional[bool] = None
         vprint("WARNING: save_result holds 'optim_state' without 'model': the optimizer state "
                "is saved inside model.hdf5, so none is written")
 
-    solver = PtyRADSolver(params, device=device, verbose=verbose, init_rng=init_rng)
+    solver = PtyRADSolver(params, device=device, verbose=verbose, init_rng=init_rng,
+                          group=group)
     solver.prepare()
-    output_path = make_output_folder(
+    main = group is None or group.is_main
+    output_path = broadcast_str(make_output_folder(
         recon_params.get("output_dir", "output/"), solver.indices, params, solver.params,
-        solver.geom, recon_dir_affixes=recon_params.get("recon_dir_affixes"))
+        solver.geom, recon_dir_affixes=recon_params.get("recon_dir_affixes"),
+        make_dir=main), group)
     vprint(f"Output folder: {output_path}", verbose=verbose)
-    if recon_params.get("copy_params", True):
+    if recon_params.get("copy_params", True) and main:
         copy_params_to_dir(params.get("params_path"), output_path)
     if logger is not None:
         logger.flush_to_dir(output_path)
     selected = recon_params.get("selected_figs") or []
-    if "group" in selected or "all" in selected:
+    if ("group" in selected or "all" in selected) and main:
         save_grouping_figure(output_path, solver.buffers.crop_pos.cpu().numpy(),
                              solver.batch_idx, solver.batch_mask)
 
@@ -69,7 +79,7 @@ def run_reconstruction(params: dict, logger=None, verbose: Optional[bool] = None
     def callback(niter, cur_params, history, optimizer=None):
         if save_iters and niter % save_iters == 0:
             save(niter, optimizer)
-            if selected:
+            if selected and main:
                 plot_summary(output_path, cur_params, solver.buffers, solver.geom, history,
                              niter, solver.indices, selected_figs=selected,
                              init_variables=solver.init_variables)

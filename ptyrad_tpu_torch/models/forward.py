@@ -56,6 +56,7 @@ from ptyrad_tpu_torch.ops.fused_multislice import (fused_applicable_shapes,
 from ptyrad_tpu_torch.ops.patches import extract_patch_pair
 from ptyrad_tpu_torch.ops.resize import bilinear_resize_conserve
 from ptyrad_tpu_torch.ops.shift import fourier_shift, fourier_shift_kspace
+from ptyrad_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def _expi(x: torch.Tensor) -> torch.Tensor:
@@ -263,7 +264,7 @@ def propagated_probe(params: PtychoParams, buffers: Buffers, geom: Geometry,
 
 
 def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
-                     indices: torch.Tensor, mask, loss_params):
+                     indices: torch.Tensor, mask, loss_params, group=None):
     """(total, terms) with the loss_single data term folded into the
     multislice chain (B3), or None when the configuration is out of regime:
     fwd_fused on, loss_single the only dp-dependent term, no detector blur,
@@ -276,6 +277,12 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     object mode's weight omode_occu[0] is folded into the probe as its square
     root: dp is quadratic in psi. With optimizable dz or tilts B3b returns
     dH too, for a shared or per-position H.
+
+    With a group (parallel.DataGroup) ``indices`` and ``mask`` are the
+    rank's slice of the batch: s1, s2 and the mask count are summed over
+    the ranks before loss_single is formed (the psum of
+    ptyrad_tpu/ops/pallas_multislice.py:678-680), and loss_sparse and
+    loss_simlar take the group too.
     """
     cfg = merge_loss_params(loss_params)
     if (not cfg["loss_single"]["state"] or cfg["loss_poissn"]["state"]
@@ -311,7 +318,11 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
         obja_p, objp_p, probe, H, meas_cc, mask_b, float(sp.get("dp_pow", 0.5)),
         float(geom.eps), probe_kspace=kspace, bf16_operands=geom.bf16_operands,
     )
-    denom = obja_p.shape[3] * obja_p.shape[4] * mask_b.sum()
+    if group is None:
+        denom = obja_p.shape[3] * obja_p.shape[4] * mask_b.sum()
+    else:
+        s1, s2, count = all_reduce_sum(torch.stack([s1, s2, mask_b.sum()]), group)
+        denom = obja_p.shape[3] * obja_p.shape[4] * count
     single = sp["weight"] * torch.sqrt(s1 / denom) / (s2 / denom)
 
     zero = torch.zeros((), dtype=torch.float32, device=obja_p.device)
@@ -319,9 +330,10 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
         "loss_single": single,
         "loss_poissn": zero,
         "loss_pacbed": zero,
-        "loss_sparse": (loss_sparse(objp_p, buffers.omode_occu, cfg["loss_sparse"], mask)
+        "loss_sparse": (loss_sparse(objp_p, buffers.omode_occu, cfg["loss_sparse"], mask, group)
                         if cfg["loss_sparse"]["state"] else zero),
-        "loss_simlar": (loss_simlar(obja_p, objp_p, buffers.omode_occu, cfg["loss_simlar"], mask)
+        "loss_simlar": (loss_simlar(obja_p, objp_p, buffers.omode_occu, cfg["loss_simlar"], mask,
+                                    group)
                         if cfg["loss_simlar"]["state"] else zero),
     }
     return sum(terms.values()), terms

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ptyrad_tpu_torch.parallel.mesh import is_main_process
 from ptyrad_tpu_torch.utils.common import safe_filename
 from ptyrad_tpu_torch.utils.logging import vprint
 from ptyrad_tpu_torch.utils.nested import NONE_SENTINEL
@@ -392,6 +393,8 @@ def save_results(output_path: str, params, buffers, geom, params_dict: dict, opt
     (mixed-state), 4D and the combined reductions; the amplitude takes
     zmean/zprod where the phase takes zsum.
     """
+    if not is_main_process():
+        return  # only rank 0 writes (ptyrad_tpu/save.py:446-447)
     t0 = time.perf_counter()
     recon_params = params_dict.get("recon_params", {})
     save_list = recon_params.get("save_result") or ["model", "obj", "probe"]

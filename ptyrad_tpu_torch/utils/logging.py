@@ -4,7 +4,8 @@ ptyrad_tpu/utils/logging.py: vprint and CustomLogger).
 ``vprint`` prints, or, once a ``CustomLogger`` has installed its handlers,
 logs through the named logger, so every line reaches the console, the
 in-memory buffer and, after ``flush_to_dir``, the log file in the run's
-output folder. The port runs one process per card, so there is no rank gate.
+output folder. In a distributed run only rank 0 prints, logs and writes the
+log file (ptyrad_tpu/utils/logging.py:25-49).
 """
 
 from __future__ import annotations
@@ -16,13 +17,16 @@ import sys
 from datetime import datetime
 from typing import Optional
 
+from ptyrad_tpu_torch.parallel.mesh import is_main_process
+
 _LOGGER_NAME = "ptyrad_tpu_torch"
 
 
 def vprint(*args, verbose: bool = True, **kwargs) -> None:
-    """print() when ``verbose``. Through the logger, ``sep`` is honoured and
-    ``end``, ``file`` and ``flush`` are dropped: every call is one record."""
-    if not verbose:
+    """print() when ``verbose``, on rank 0 only. Through the logger, ``sep``
+    is honoured and ``end``, ``file`` and ``flush`` are dropped: every call
+    is one record."""
+    if not verbose or not is_main_process():
         return
     logger = logging.getLogger(_LOGGER_NAME)
     if logger.handlers:
@@ -76,9 +80,12 @@ class CustomLogger:
 
     def flush_to_dir(self, output_dir: str) -> str:
         """Write what is buffered into ``output_dir`` and log there from now
-        on; returns the log file's path."""
-        os.makedirs(output_dir, exist_ok=True)
+        on; returns the log file's path (on rank 0; other ranks write
+        nothing)."""
         path = os.path.join(output_dir, self._file_name())
+        if not is_main_process():
+            return path
+        os.makedirs(output_dir, exist_ok=True)
         with open(path, "a" if self.append_to_file else "w") as f:
             f.write(self._buffer.getvalue())
         self._buffer.truncate(0)

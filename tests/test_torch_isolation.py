@@ -45,7 +45,8 @@ def test_sources_import_no_jax_or_reference_package(path):
                                     "engine/solver.py", "utils/system.py", "utils/logging.py",
                                     "models/forward.py", "optim_lbfgs.py",
                                     "engine/batching.py", "engine/tuner.py",
-                                    "engine/hypertune.py", "visualization.py", "losses.py"])
+                                    "engine/hypertune.py", "visualization.py", "losses.py",
+                                    "parallel/mesh.py", "parallel/__init__.py"])
 def test_the_measurement_and_constraint_modules_are_covered(module):
     """The modules of the far-field / measurement-store slice and the host
     modules of the params-file and saving / CLI slices are among the sources
@@ -70,7 +71,7 @@ HOST_IMPORTS = {
     "load.py": {"time", "json", "importlib", "types", "tomllib", "tomli", "yaml", "h5py", "PIL"},
     "save.py": {"h5py", "PIL", "shutil", "time", "datetime"},
     "optim.py": {"re"},
-    "cli.py": {"argparse", "sys", "pathlib"},
+    "cli.py": {"argparse", "sys", "pathlib", "socket"},
     "__main__.py": {"sys"},
     "engine/solver.py": {"inspect", "time"},
     "engine/batching.py": {"sklearn"},
