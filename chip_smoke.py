@@ -211,6 +211,28 @@ Phases, one JSON object per line each:
                moves either start (a one-rank run from the object times
                1 + 2^-23: about 1e-3 at iteration 2 from the flat start,
                1e-6 from the seeded one; see DIST_WORLD).
+     canvas_largefov, canvas_fullscan - canvas sharding over ranks (A7)
+               at demo/params/largeFOV_shard_canvas.yml's widths (128^2, 6
+               probe modes, 1 object mode, 6 slices, batch 256, loss_single
+               + loss_sparse, its four constraints) on tbl_positions'
+               raster, two gloo ranks on cuda:0 from one spawn, each rank
+               simulating only its slab's patterns. canvas_largefov: a
+               256 x 256 scan (the yml's 512 x 512 cut), 2 iterations from
+               random_object's seeded start, against the one-rank
+               replicated run of the same per-slab batches: the first
+               batch's loss (rtol 1e-6) and gradients (CANVAS_GRAD_RTOL), each
+               rank's losses at rtol 1e-5, the ranks bit for bit, B1-B3
+               launched in each rank; per rank peak memory beside the one
+               rank's, the all_gather and all_reduce calls and bytes a step,
+               the halo exchange's and the gradient all-reduce's host ms
+               and bytes. canvas_fullscan: the whole 512 x 512 scan for one
+               iteration, each rank's peak memory and s/iteration beside
+               one rank's replicated peak over 16 steps of the same scan;
+               gates: finite losses, the batch loss falling over the
+               iteration, each rank's peak below the replicated one.
+               Then B1/B2 at both phases' halo-extended slab shapes and
+               B1-B3 at the batch a rank launches them on (about 150 and
+               140 of each batch of 256).
   6. pso     - the PSO reconstruction (demo/params/PSO_reconstruct.yml)
                through PtyRADSolver.run(): 4,096 patterns simulated at 256^2,
                cropped to the central 120^2 and padded back to 256^2 on the
@@ -273,7 +295,8 @@ grad_accum, optimizers, grouping, low-dose (both runs), the dist ranks, tbl_stor
 runs and the carve), tilt (its simulation included) and PSO tilt paths,
 mixed_precision, pso_bf16 and the forward phases' kernel routes, the bf16
 kernels in rows of their own; B1/B2's rows at the tBL shapes count the
-N <= 128 runs, their rows at the PSO shapes the N = 256 runs), the
+N <= 128 runs but the canvas ranks, their rows at the PSO shapes the N =
+256 runs, their canvas slab rows the canvas ranks'), the
 nvidia-smi name/power-limit line, and as the last line {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is not 0 and the
 last line is never printed. Exits non-zero at once without CUDA.
@@ -510,11 +533,12 @@ def tbl_positions() -> tuple[np.ndarray, int]:
 PSO_SHAPES = " (PSO shapes)"  # name suffix of the B1/B2 rows at the PSO shapes
 
 
-def patch_corners(dev, gen, corners: np.ndarray, h: int, w: int, n: int) -> torch.Tensor:
-    """BATCH corners drawn from `corners` with the edge cases of the kernel
-    checks: one past the last corner, one negative (both clamped) and a
-    window three times over."""
-    pick = torch.randperm(len(corners), generator=gen, device=dev)[:BATCH].cpu().numpy()
+def patch_corners(dev, gen, corners: np.ndarray, h: int, w: int, n: int,
+                  batch: int = BATCH) -> torch.Tensor:
+    """``batch`` corners drawn from `corners` with the edge cases of the
+    kernel checks: one past the last corner, one negative (both clamped) and
+    a window three times over."""
+    pick = torch.randperm(len(corners), generator=gen, device=dev)[:batch].cpu().numpy()
     pos = torch.as_tensor(corners[pick], device=dev)
     pos[0] = torch.tensor([h - n + 9, w - n + 3])  # past the last corner: clamped
     pos[1] = torch.tensor([-4, 7])                  # negative: clamped
@@ -525,8 +549,8 @@ def patch_corners(dev, gen, corners: np.ndarray, h: int, w: int, n: int) -> torc
 
 def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.Tensor,
                      suffix: str, atomic_b2: bool = False) -> list:
-    """B1 and B2 at one shape: a (1, lmodes, h, w) canvas, BATCH n^2 windows at
-    `pos`. B1 against advanced indexing and B2 against scatter_add_plain on
+    """B1 and B2 at one shape: a (1, lmodes, h, w) canvas, len(pos) n^2
+    windows at `pos`. B1 against advanced indexing and B2 against scatter_add_plain on
     the CPU, both at tolerance 0; B2 run twice must repeat bit for bit; the
     pair launch against two single launches. The kernels and their library
     calls are timed as runs of back-to-back launches (run_ms), with the
@@ -536,7 +560,7 @@ def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.T
     no repeat check and no pair rows."""
     from ptyrad_tpu_torch.ops import patches as P
 
-    shape = (n, n)
+    shape, batch = (n, n), len(pos)
     canvas = torch.rand((1, lmodes, h, w), generator=gen, device=dev)
     canvas_p = torch.rand((1, lmodes, h, w), generator=gen, device=dev)
     out_k = P.gather_cuda(canvas, pos, shape)
@@ -550,7 +574,7 @@ def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.T
         "name": "B1 gather_patches" + suffix, "route": "cuda",
         "source": "ptyrad_tpu_torch/csrc/patches.cu",
         "replaces": "ptyrad_tpu/ops/patches.py:136",
-        "shape": {"canvas": [1, lmodes, h, w], "batch": BATCH, "window": n},
+        "shape": {"canvas": [1, lmodes, h, w], "batch": batch, "window": n},
         "max_abs_err": err_g, "tolerance": 0.0,
         "ms": run_ms(lambda: P.gather_cuda(canvas, pos, shape)),
         "host_us": host_us(lambda: P.gather_cuda(canvas, pos, shape)),
@@ -569,22 +593,22 @@ def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.T
     require(err_g == 0.0, f"B1{suffix} gather differs from its plain version: {err_g}")
 
     cshape = (1, lmodes, h, w)
-    grads = torch.randn((BATCH, 1, lmodes, n, n), generator=gen, device=dev)
-    grads_p = torch.randn((BATCH, 1, lmodes, n, n), generator=gen, device=dev)
+    grads = torch.randn((batch, 1, lmodes, n, n), generator=gen, device=dev)
+    grads_p = torch.randn((batch, 1, lmodes, n, n), generator=gen, device=dev)
     sc_k = P.scatter_add_cuda(cshape, grads, pos)
     ref = P.scatter_add_plain(cshape, grads.cpu(), pos.cpu())
     err_s = float((sc_k.cpu() - ref).abs().max())
     tol_s = 1e-5 * float(ref.abs().max()) if atomic_b2 else 0.0
     repeats = torch.equal(sc_k, P.scatter_add_cuda(cshape, grads, pos))
     flat = ((torch.arange(lmodes, device=dev)[:, None, None, None] * h + iy) * w + ix)
-    flat = flat.expand(lmodes, BATCH, n, n).reshape(-1)
+    flat = flat.expand(lmodes, batch, n, n).reshape(-1)
     vals = grads[:, 0].transpose(0, 1).reshape(-1)
     s_bound, s_by = bound(4 * (grads.numel() + lmodes * h * w) + pos.numel() * 4, grads.numel())
     scatter = {
         "name": "B2 scatter_add_patches" + suffix, "route": "cuda",
         "source": "ptyrad_tpu_torch/csrc/patches.cu",
         "replaces": "ptyrad_tpu/ops/patches.py:98",
-        "shape": {"canvas": list(cshape), "batch": BATCH, "window": n},
+        "shape": {"canvas": list(cshape), "batch": batch, "window": n},
         "max_abs_err": err_s, "tolerance": tol_s, "repeats_bit_for_bit": repeats,
         "ms": run_ms(lambda: P.scatter_add_cuda(cshape, grads, pos)),
         "host_us": host_us(lambda: P.scatter_add_cuda(cshape, grads, pos)),
@@ -637,12 +661,15 @@ def repeats_bitwise(fn, first) -> bool:
     return all(torch.equal(a, b) for a, b in zip(first, fn()))
 
 
-def check_loss_chain(dev, gen, atomic_b3: bool = False) -> list:
+def check_loss_chain(dev, gen, atomic_b3: bool = False, batch: int = BATCH,
+                     suffix: str = "") -> list:
     """B3a/B3b against loss_sums_plain and its autograd VJP at tBL shapes,
-    for per-position probe spectra (the main path's case, which is timed)
-    and a shared real-space probe; B3b run twice must repeat bit for bit
-    (``atomic_b3``: a tree from before the fixed-order reduce, whose B3b
-    added with atomics; chain_bench.py --atomic-b3 times one)."""
+    ``batch`` patterns, for per-position probe spectra (the main path's
+    case, which is timed) and a shared real-space probe; B3b run twice must
+    repeat bit for bit (``atomic_b3``: a tree from before the fixed-order
+    reduce, whose B3b added with atomics; chain_bench.py --atomic-b3 times
+    one). The rows' names end in ``suffix``; the one-slice rows
+    (check_loss_chain_one_slice) come with the tBL batch's rows alone."""
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops.shift import fourier_shift_kspace
     from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
@@ -651,12 +678,12 @@ def check_loss_chain(dev, gen, atomic_b3: bool = False) -> list:
     lam = electron_wavelength(80.0)
     probe = torch.as_tensor(tbl_probe(), device=dev)
     h = torch.as_tensor(near_field_evolution((n, n), 0.1494, 2.0, lam), device=dev)[None]
-    obja = 1.0 + 0.05 * torch.randn((BATCH, 1, NZ, n, n), generator=gen, device=dev)
-    objp = 0.1 * torch.randn((BATCH, 1, NZ, n, n), generator=gen, device=dev)
-    shifts = 0.3 * torch.randn((BATCH, 2), generator=gen, device=dev)
-    meas = torch.rand((BATCH, n, n), generator=gen, device=dev) * 2e-4
-    mask = torch.ones(BATCH, device=dev)
-    mask[BATCH - 1] = 0.0  # a padded tail sample
+    obja = 1.0 + 0.05 * torch.randn((batch, 1, NZ, n, n), generator=gen, device=dev)
+    objp = 0.1 * torch.randn((batch, 1, NZ, n, n), generator=gen, device=dev)
+    shifts = 0.3 * torch.randn((batch, 2), generator=gen, device=dev)
+    meas = torch.rand((batch, n, n), generator=gen, device=dev) * 2e-4
+    mask = torch.ones(batch, device=dev)
+    mask[batch - 1] = 0.0  # a padded tail sample
     p, eps, c = 0.5, 1e-10, 0.7
     results = {}
     for kspace in (True, False):
@@ -684,28 +711,30 @@ def check_loss_chain(dev, gen, atomic_b3: bool = False) -> list:
         # 24 transforms by two FFT algorithms: 1e-4 of each cotangent's largest entry
         tols = [1e-4 * s for s in scales]
         err_bwd = max(errs)
-        emit({"phase": "kernel_check", "name": "B3 loss chain", "kspace": kspace,
+        emit({"phase": "kernel_check", "name": "B3 loss chain" + suffix, "kspace": kspace,
+              "batch": batch,
               "shared_probe": not kspace,
               "s1": [float(s1k), float(s1p)], "s2": [float(s2k), float(s2p)],
               "fwd_max_abs_err": err_fwd, "fwd_tolerance": tol_fwd,
               "bwd_max_abs_err": errs, "bwd_tolerance": tols,
               "bwd_names": ["d obja", "d objp", "d probe"], "bwd_repeats_bitwise": repeat})
-        require(err_fwd <= tol_fwd, f"B3a (kspace={kspace}) differs: {err_fwd} > {tol_fwd}")
-        require(repeat or atomic_b3, f"B3b (kspace={kspace}) run twice differs")
+        require(err_fwd <= tol_fwd,
+                f"B3a{suffix} (kspace={kspace}) differs: {err_fwd} > {tol_fwd}")
+        require(repeat or atomic_b3, f"B3b{suffix} (kspace={kspace}) run twice differs")
         for name, e, t in zip(("obja", "objp", "probe"), errs, tols):
-            require(e <= t, f"B3b d{name} (kspace={kspace}) differs: {e} > {t}")
+            require(e <= t, f"B3b{suffix} d{name} (kspace={kspace}) differs: {e} > {t}")
         results[kspace] = (pr, dp, err_fwd, err_bwd, s1_plain, leaves, cvec)
 
     # times at the main path's case (per-position probe spectra)
     pr, dp, err_fwd, err_bwd, s1_plain, leaves, cvec = results[True]
-    n_wave = BATCH * PMODE
+    n_wave = batch * PMODE
     in_bytes = 4 * (obja.numel() + objp.numel() + meas.numel() + mask.numel()) \
         + 8 * (pr.numel() + h.numel())
     f_bound, f_by = bound(in_bytes + 8, n_wave * _chain_flops(n, 2 * NZ, NZ))
     b_bytes = in_bytes + 4 * dp.numel() + 4 * (obja.numel() + objp.numel()) + 8 * pr.numel()
     b_bound, b_by = bound(b_bytes, n_wave * 2 * _chain_flops(n, 2 * NZ, NZ))
     fwd = {
-        "name": "B3a loss_sums_fwd", "route": "cuda",
+        "name": "B3a loss_sums_fwd" + suffix, "route": "cuda",
         "source": "ptyrad_tpu_torch/csrc/multislice.cu",
         "replaces": "ptyrad_tpu/ops/pallas_multislice.py:548",
         "max_abs_err": err_fwd,
@@ -715,7 +744,7 @@ def check_loss_chain(dev, gen, atomic_b3: bool = False) -> list:
         "library_ms": None, "bound_ms": f_bound, "bound_by": f_by,
     }
     bwd = {
-        "name": "B3b loss_sums_bwd", "route": "cuda",
+        "name": "B3b loss_sums_bwd" + suffix, "route": "cuda",
         "source": "ptyrad_tpu_torch/csrc/multislice.cu",
         "replaces": "ptyrad_tpu/ops/pallas_multislice.py:588",
         "max_abs_err": err_bwd,
@@ -726,7 +755,10 @@ def check_loss_chain(dev, gen, atomic_b3: bool = False) -> list:
         "library_ms": None, "bound_ms": b_bound, "bound_by": b_by,
     }
     for k in (fwd, bwd):
-        emit({"phase": "kernel", **k, "note": "kspace probe, the main path's case"})
+        emit({"phase": "kernel", **k, "shape": {"batch": batch},
+              "note": "kspace probe, the main path's case"})
+    if suffix:
+        return [fwd, bwd]
     return [fwd, bwd] + check_loss_chain_one_slice(obja, objp, pr, h, meas, mask, p, eps, cvec,
                                                    atomic_b3)
 
@@ -1894,7 +1926,8 @@ def optimizers_path(dev, card: str, init: dict) -> dict:
     1e-5 (atol 1e-5 of each tensor's largest entry: torch's foreach and
     fused CUDA paths against the CPU's). AdamW (weight_decay 0.1) starts obja
     at iteration 2: run at iteration 1, obja must not move at all."""
-    from ptyrad_tpu_torch.engine.solver import PtyRADSolver, build_train_epoch, loss_fn
+    from ptyrad_tpu_torch.engine.solver import (PtyRADSolver, RankBatches, build_train_epoch,
+                                                loss_fn)
     from ptyrad_tpu_torch.optim import create_optimizer, mask_unstarted_grads, \
         unstarted_tensors
 
@@ -1914,7 +1947,8 @@ def optimizers_path(dev, card: str, init: dict) -> dict:
                 t.copy_(start[k])
         solver.optimizer, _, start_dict = create_optimizer(
             {"name": name, "configs": configs}, update, solver.params)
-        epoch = build_train_epoch(solver.params, solver.buffers, solver.geom,
+        epoch = build_train_epoch(solver.params,
+                                  RankBatches(solver.params, solver.buffers, solver.geom),
                                   solver.loss_params, solver.optimizer, start_dict)
         t1 = time.perf_counter()
         (_, terms), counts = counted(lambda: epoch(idx[:-1], mask[:-1], 1))
@@ -4782,6 +4816,464 @@ def dist_cli_path(card: str, tmp: str, raw_path: str) -> None:
             f"dist_cli: losses {losses}")
 
 
+# -- canvas sharding over ranks (A7) ---------------------------------------------
+
+# demo/params/largeFOV_shard_canvas.yml at its widths: 128^2 patterns, 6 probe
+# modes, 1 object mode, 6 slices, batch 256, loss_single + loss_sparse, its four
+# constraints, shifts from iteration 10; the raster of tbl_positions (3 px a
+# step, the tBL geometry). canvas_largefov cuts the 512 x 512 scan to 256 x 256
+# and holds two gloo ranks on cuda:0 against the one-rank replicated run of the
+# same per-slab batches (parallel.global_batches) from random_object's seeded
+# start: the first batch's loss at rtol 1e-6 and each gradient within
+# CANVAS_GRAD_RTOL of the reference's largest entry (a dropped halo cotangent
+# or summed canvases are errors of the gradient's own size),
+# 2 iterations at rtol 1e-5, the ranks bit for bit. canvas_fullscan runs the
+# whole 512 x 512 scan for one iteration; each rank simulates only its slab's
+# patterns into a host store whose other rows are never touched (np.zeros), so
+# no 17 GB array is written; the replicated figure is one rank's peak memory
+# over CANVAS_REPLICATED_STEPS steps of the same scan.
+CANVAS_WORLD = 2
+CANVAS_SIDE, CANVAS_NITER = 256, 2
+CANVAS_FULL_SIDE, CANVAS_FULL_NITER = 512, 1
+CANVAS_BATCH = 256
+CANVAS_LOSS_RTOL, CANVAS_TRAJ_RTOL = 1e-6, 1e-5
+CANVAS_GRAD_RTOL = {"obja": 1e-5, "objp": 1e-5, "probe": 1e-5, "probe_pos_shifts": 1e-5}
+CANVAS_REPLICATED_STEPS = 16
+CANVAS_TIMEOUT_S = 900
+CANVAS_START_SEED = SEED + 7
+CANVAS_TIMING_REPS = 10
+CANVAS_SLAB = " (canvas rank, 256x256 scan)"       # the rows at a canvas rank's shapes
+CANVAS_FULL_SLAB = " (canvas rank, 512x512 scan)"
+CANVAS_KERNELS = ("B1 gather_patches", "B2 scatter_add_patches", "B3a loss_sums_fwd",
+                  "B3b loss_sums_bwd")
+LARGEFOV_PARAMS = {
+    "model_params": copy.deepcopy(TBL_PARAMS["model_params"]),
+    "loss_params": copy.deepcopy(TBL_PARAMS["loss_params"]),
+    "constraint_params": {
+        "ortho_pmode": {"freq": 1},
+        "fix_probe_int": {"freq": 1},
+        "obja_thresh": {"freq": 1, "relax": 0, "thresh": [0.98, 1.02]},
+        "objp_postiv": {"freq": 1, "relax": 0, "mode": "clip_neg"},
+    },
+    "recon_params": {"BATCH_SIZE": {"size": CANVAS_BATCH}, "GROUP_MODE": "random",
+                     "GROUP_MODE_SEED": SEED},
+}
+
+
+def largefov_params(niter: int, shard: bool) -> dict:
+    params = copy.deepcopy(LARGEFOV_PARAMS)
+    params["recon_params"].update(NITER=niter, shard_canvas=shard)
+    return params
+
+
+def canvas_raster(side: int) -> tuple[np.ndarray, int]:
+    """tbl_positions' raster at side x side positions, and its canvas."""
+    canvas = side * STEP_PX + NPIX + 8
+    ys, xs = np.meshgrid(np.arange(side) * STEP_PX, np.arange(side) * STEP_PX, indexing="ij")
+    return np.stack([ys.ravel() + 4, xs.ravel() + 4], -1).astype(np.int32), canvas
+
+
+def canvas_init(side: int) -> dict:
+    """init_variables of the largeFOV problem at side x side: tbl_init's
+    probe and slices on the raster, the known object ground_truth_phase's
+    blobs at tBL's density (seeded); measurements to fill."""
+    from ptyrad_tpu_torch.physics import electron_wavelength, near_field_evolution
+
+    crop_pos, canvas = canvas_raster(side)
+    rng = np.random.default_rng(SEED)
+    phase = np.zeros((NZ, canvas, canvas), np.float32)
+    d = np.arange(-12, 13, dtype=np.float32)
+    blob = 0.15 * np.exp(-(d[:, None] ** 2 + d[None, :] ** 2) / 4.0)
+    for z in range(NZ):
+        for _ in range(int(300 * (canvas / 520) ** 2)):
+            cy, cx = rng.integers(12, canvas - 12, 2)
+            phase[z, cy - 12:cy + 13, cx - 12:cx + 13] += blob
+    lam = electron_wavelength(80.0)
+    return {"obj": np.exp(1j * phase)[None].astype(np.complex64), "probe": tbl_probe(),
+            "probe_pos_shifts": np.zeros((side * side, 2), np.float32),
+            "obj_tilts": np.zeros((1, 2), np.float32), "slice_thickness": 2.0,
+            "H": near_field_evolution((NPIX, NPIX), SIM_DX, 2.0, lam),
+            "measurements": None, "crop_pos": crop_pos, "omode_occu": np.ones(1, np.float32),
+            "dx": SIM_DX, "lambd": lam, "N_scan_slow": side, "N_scan_fast": side}
+
+
+def simulate_positions(dev, init: dict, ids: np.ndarray) -> torch.Tensor:
+    """The patterns of positions ``ids`` through forward() (B4a) from the
+    known object, SIM_BATCH at a time (set-up, as simulate)."""
+    from ptyrad_tpu_torch.models import forward, make_model
+
+    params, buffers, geom = make_model(dict(init, measurements=np.zeros((1, NPIX, NPIX),
+                                                                       np.float32)), None, dev)
+    out = torch.empty((len(ids), NPIX, NPIX), dtype=torch.float32, device=dev)
+    ids_dev = torch.as_tensor(ids, device=dev)
+    with torch.no_grad():
+        for start in range(0, len(ids), SIM_BATCH):
+            out[start:start + SIM_BATCH] = forward(params, buffers, geom,
+                                                   ids_dev[start:start + SIM_BATCH])[0]
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()), "simulated canvas patterns are not finite")
+    return out
+
+
+def canvas_plan(side: int):
+    from ptyrad_tpu_torch.parallel import plan_canvas
+
+    crop_pos, canvas = canvas_raster(side)
+    return plan_canvas(crop_pos, np.arange(side * side), canvas, NPIX, CANVAS_WORLD)
+
+
+def host_grads(params, gather=None) -> dict:
+    """Every gradient on the host (complex as real pairs; obja/objp through
+    ``gather``, the canvas path's whole-canvas gather), then cleared."""
+    grads = {}
+    for name, t in params.named():
+        if t.grad is None:
+            continue
+        g = t.grad.detach()
+        if gather is not None and name in ("obja", "objp"):
+            g = gather(g)
+        grads[name] = (torch.view_as_real(g) if g.is_complex() else g).cpu().numpy()
+        t.grad = None
+    return grads
+
+
+def canvas_replicated(dev, side: int, niter: int) -> tuple[dict, dict]:
+    """The one-rank replicated run of canvas_largefov: every pattern
+    simulated on the card, the seeded start, the first batch's loss and
+    gradients, then niter iterations on the batches the ranks draw together."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver, loss_fn, recon_loop
+    from ptyrad_tpu_torch.parallel import global_batches
+    from ptyrad_tpu_torch.parallel.canvas import canvas_batch_count
+
+    t0 = time.perf_counter()
+    init = canvas_init(side)
+    init["measurements"] = simulate_positions(dev, init, np.arange(side * side))
+    init["obj"] = random_object(init["obj"].shape, CANVAS_START_SEED)
+    solver = PtyRADSolver(largefov_params(niter, False), init_variables=init, device=dev,
+                          verbose=False)
+    solver.prepare()
+    solver._build()
+    plan = canvas_plan(side)
+    n_batches = canvas_batch_count(plan, side * side, CANVAS_BATCH, verbose=False)
+    gids, mask = global_batches(plan, n_batches, 1)
+    total, _ = loss_fn(solver.params, solver.buffers, solver.geom,
+                       torch.as_tensor(gids[0], device=dev), torch.as_tensor(mask[0], device=dev),
+                       solver.loss_params)
+    total.backward()
+    grads = host_grads(solver.params)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    recon_loop(solver.train_epoch, solver.params, lambda n: global_batches(plan, n_batches, n),
+               None, niter, solver.constraint_fn, solver.buffers, history=solver.history,
+               verbose=False)
+    torch.cuda.synchronize()
+    return {"first_loss": float(total.detach()), "setup_s": setup_s,
+            "run_s": time.perf_counter() - t1, "iter_s": solver.history.iter_times,
+            "losses": [v for _, v in solver.history.loss_iters], "n_batches": n_batches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, grads
+
+
+def canvas_replicated_peak(dev, side: int) -> dict:
+    """One rank's replicated run of the whole scan for CANVAS_REPLICATED_STEPS
+    steps of its first iteration's canvas batches: its peak memory (the
+    whole store, canvases and optimizer state, one step's work) and ms a
+    step."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.parallel import global_batches
+    from ptyrad_tpu_torch.parallel.canvas import canvas_batch_count
+
+    init = canvas_init(side)
+    init["measurements"] = simulate_positions(dev, init, np.arange(side * side))
+    init["obj"] = random_object(init["obj"].shape, CANVAS_START_SEED)
+    solver = PtyRADSolver(largefov_params(1, False), init_variables=init, device=dev,
+                          verbose=False)
+    solver.prepare()
+    solver._build()
+    plan = canvas_plan(side)
+    gids, mask = global_batches(plan, canvas_batch_count(plan, side * side, CANVAS_BATCH,
+                                                         verbose=False), 1)
+    k = CANVAS_REPLICATED_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, terms = solver.train_epoch(torch.as_tensor(gids[:k], device=dev),
+                                  torch.as_tensor(mask[:k], device=dev), 1)
+    torch.cuda.synchronize()
+    out = {"steps": k, "ms_per_step": (time.perf_counter() - t0) * 1e3 / k,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "store_gb": solver.buffers.measurements.numel() * 4 / 1e9,
+           "finite": bool(np.all(np.isfinite(terms["loss_single"])))}
+    return out
+
+
+def median_host_ms(fn, reps: int = CANVAS_TIMING_REPS) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def canvas_timing(shard, group) -> dict:
+    """Host ms and bytes of one step's halo exchange (forward and backward
+    on copies of the rank's slabs) and of its gradient all-reduce (the
+    replicated tensors' gradients, zeroed)."""
+    from ptyrad_tpu_torch.parallel import all_reduce_grads, halo_extend
+
+    halo = shard.plan.halo
+    a = shard.params.obja.detach().clone().requires_grad_(True)
+    p = shard.params.objp.detach().clone().requires_grad_(True)
+
+    def exchange():
+        ea, ep = halo_extend(a, p, halo, group)
+        (ea.sum() + ep.sum()).backward()
+
+    tensors = [t for t in shard.replicated_tensors() if t.requires_grad]
+    for t in tensors:
+        t.grad = torch.zeros_like(t)
+    nbytes = all_reduce_grads(tensors, group)
+    out = {"halo_ms": median_host_ms(exchange),
+           "halo_bytes_sent": 2 * 2 * a[..., :halo, :].numel() * 4,
+           "grad_allreduce_ms": median_host_ms(lambda: all_reduce_grads(tensors, group)),
+           "grad_allreduce_bytes": nbytes}
+    for t in tensors:
+        t.grad = None
+    return out
+
+
+class CollectiveCounter:
+    """Counts the calls and bytes (the tensor each rank puts in) of
+    torch.distributed's all_gather and all_reduce while active."""
+
+    def __init__(self):
+        self.calls = {"all_gather": 0, "all_reduce": 0}
+        self.bytes = {"all_gather": 0, "all_reduce": 0}
+
+    def __enter__(self):
+        self.saved = {k: getattr(torch.distributed, k) for k in self.calls}
+
+        def wrap(name, fn, arg):
+            def counting(*args, **kwargs):
+                t = args[arg]
+                self.calls[name] += 1
+                self.bytes[name] += t.numel() * t.element_size()
+                return fn(*args, **kwargs)
+            return counting
+
+        torch.distributed.all_gather = wrap("all_gather", self.saved["all_gather"], 1)
+        torch.distributed.all_reduce = wrap("all_reduce", self.saved["all_reduce"], 0)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(torch.distributed, k, fn)
+
+
+def canvas_rank_run(side: int, niter: int, group, first: bool) -> tuple[dict, dict]:
+    """A rank of a canvas phase: its slab's patterns simulated on the card
+    into a host store of which it writes only those rows, the seeded start,
+    PtyRADSolver with shard_canvas; with ``first`` the first batch's loss and
+    gradients (the canvases gathered whole); niter iterations under
+    counted() with the collectives counted and the replicated tensors'
+    digest after each; then the exchange's and the all-reduce's times."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.parallel import all_reduce_grads
+
+    dev = group.device
+    t0 = time.perf_counter()
+    init = canvas_init(side)
+    plan = canvas_plan(side)
+    cap = plan.b_local
+    ids = np.unique(plan.pos_index[group.rank * cap:(group.rank + 1) * cap])
+    meas = np.zeros((side * side, NPIX, NPIX), np.float32)  # untouched rows stay unbacked
+    sim = simulate_positions(dev, init, ids)
+    for start in range(0, len(ids), 4096):
+        meas[ids[start:start + 4096]] = sim[start:start + 4096].cpu().numpy()
+    del sim
+    sim_s = time.perf_counter() - t0
+    init.update(obj=random_object(init["obj"].shape, CANVAS_START_SEED), measurements=meas)
+    solver = PtyRADSolver(largefov_params(niter, True), init_variables=init, device=dev,
+                          verbose=False, group=group)
+    solver.prepare()
+    solver._build()
+    shard, n_batches = solver._canvas
+    out = {"sim_s": sim_s, "setup_s": time.perf_counter() - t0, "n_batches": n_batches,
+           "rows_local": plan.rows_local, "halo": plan.halo, "cap": cap,
+           "slab_positions": int(plan.mask[group.rank * cap:(group.rank + 1) * cap].sum()),
+           "store_gb": shard.store.measurements.numel() * 4 / 1e9,
+           "slab_shape": list(shard.params.obja.shape)}
+    grads = {}
+    if first:
+        slots, mask = shard.local_batches(n_batches, 1)
+        total, _ = shard.loss(torch.as_tensor(slots[0], device=dev),
+                              torch.as_tensor(mask[0], device=dev), solver.loss_params)
+        total.backward()
+        all_reduce_grads(shard.replicated_tensors(), group)
+        out["first_loss"] = float(total.detach())
+        grads = host_grads(shard.params, shard.gather)
+    digests = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with CollectiveCounter() as coll:
+        launches = counted(lambda: solver.run(
+            callback=lambda niter, p, history: digests.append(params_digest(p))))[1]
+    steps = niter * n_batches
+    batch = solver.history.batch_terms.get("loss_single", [])
+    tenth = max(1, len(batch) // 10)
+    out.update({
+        "run_s": time.perf_counter() - t1, "iter_s": solver.history.iter_times,
+        "losses": [v for _, v in solver.history.loss_iters], "digests": digests,
+        "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "batch_loss_first_tenth": float(np.mean(batch[:tenth])) if batch else None,
+        "batch_loss_last_tenth": float(np.mean(batch[-tenth:])) if batch else None,
+        "collectives_per_step": {k: v / steps for k, v in coll.calls.items()},
+        "collective_bytes_per_step": {k: v / steps for k, v in coll.bytes.items()},
+        **canvas_timing(shard, group)})
+    return out, grads
+
+
+def canvas_rank(rank: int, tmp: str, port: int) -> None:
+    """A rank of the canvas phases (spawned): joins the gloo group on cuda:0,
+    runs canvas_largefov then canvas_fullscan and writes
+    <tmp>/canvas_<rank>.json and canvas_<rank>_grads.npz."""
+    from ptyrad_tpu_torch.parallel import init_multihost
+
+    group = init_multihost(f"127.0.0.1:{port}", CANVAS_WORLD, rank, backend="gloo")
+    try:
+        out = {}
+        out["largefov"], grads = canvas_rank_run(CANVAS_SIDE, CANVAS_NITER, group, True)
+        np.savez(f"{tmp}/canvas_{rank}_grads.npz", **grads)
+        torch.cuda.empty_cache()
+        out["fullscan"], _ = canvas_rank_run(CANVAS_FULL_SIDE, CANVAS_FULL_NITER, group, False)
+        with open(f"{tmp}/canvas_{rank}.json", "w", encoding="utf-8") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def canvas_path(dev, card: str) -> tuple[dict, dict]:
+    """canvas_largefov and canvas_fullscan: the one-rank replicated runs in
+    this process, then CANVAS_WORLD gloo ranks on cuda:0 running both phases
+    from one spawn. Gates as in CANVAS_WORLD's comment; each rank launched
+    B1, B2, B3a and B3b. Returns (the largeFOV ranks' summed launches, the
+    full scan ranks')."""
+    ref, ref_grads = canvas_replicated(dev, CANVAS_SIDE, CANVAS_NITER)
+    torch.cuda.empty_cache()
+    full_ref = canvas_replicated_peak(dev, CANVAS_FULL_SIDE)
+    torch.cuda.empty_cache()
+    loopback_env()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_canvas_") as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(canvas_rank, (tmp, _free_port()), CANVAS_WORLD, CANVAS_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        outs = []
+        for r in range(CANVAS_WORLD):
+            with open(f"{tmp}/canvas_{r}.json", encoding="utf-8") as f:
+                outs.append(json.load(f))
+        grads = [dict(np.load(f"{tmp}/canvas_{r}_grads.npz")) for r in range(CANVAS_WORLD)]
+
+    def per_rank(o):
+        return {k: v for k, v in o.items() if k not in ("digests", "launches")} | {
+            "launches": {name: o["launches"][name] for name in CANVAS_KERNELS}}
+
+    ranks = [o["largefov"] for o in outs]
+    grad_err = {name: max(float(np.abs(g[name] - ref_grads[name]).max()) for g in grads)
+                for name in ref_grads}
+    grad_max = {name: float(np.abs(g).max()) for name, g in ref_grads.items()}
+    loss_err = [abs(o["first_loss"] - ref["first_loss"]) / abs(ref["first_loss"]) for o in ranks]
+    traj_err = [_max_rel(o["losses"], ref["losses"]) for o in ranks]
+    emit({"phase": "canvas_largefov", "card": card, "world": CANVAS_WORLD, "backend": "gloo",
+          "n_patterns": CANVAS_SIDE ** 2, "batch": CANVAS_BATCH, "iterations": CANVAS_NITER,
+          "reduced": "512 x 512 scan cut to 256 x 256", "start": "seeded", "ranks_s": ranks_s,
+          "one_rank": ref, "first_loss_rel_err": loss_err, "first_loss_rtol": CANVAS_LOSS_RTOL,
+          "grad_max_abs": grad_max, "grad_max_abs_err": grad_err,
+          "grad_rel_err": {k: v / grad_max[k] if grad_max[k] else None
+                           for k, v in grad_err.items()},
+          "grad_rtol": CANVAS_GRAD_RTOL,
+          "trajectory_max_rel_err": traj_err, "trajectory_rtol": CANVAS_TRAJ_RTOL,
+          "peak_mem_ratio": [o["peak_mem_gb"] / ref["peak_mem_gb"] for o in ranks],
+          "ranks": [per_rank(o) for o in ranks],
+          "digests_equal": all(o["digests"] == ranks[0]["digests"] for o in ranks)})
+    full = [o["fullscan"] for o in outs]
+    emit({"phase": "canvas_fullscan", "card": card, "world": CANVAS_WORLD, "backend": "gloo",
+          "n_patterns": CANVAS_FULL_SIDE ** 2, "batch": CANVAS_BATCH,
+          "iterations": CANVAS_FULL_NITER, "replicated": full_ref,
+          "peak_mem_ratio": [o["peak_mem_gb"] / full_ref["peak_mem_gb"] for o in full],
+          "ranks": [per_rank(o) for o in full],
+          "digests_equal": all(o["digests"] == full[0]["digests"] for o in full)})
+    for phase, runs, niter in (("canvas_largefov", ranks, CANVAS_NITER),
+                               ("canvas_fullscan", full, CANVAS_FULL_NITER)):
+        for r, o in enumerate(runs):
+            require(len(o["losses"]) == niter and all(np.isfinite(o["losses"])),
+                    f"{phase} rank {r}: losses {o['losses']}")
+            for name in CANVAS_KERNELS:
+                require(o["launches"][name] > 0, f"{phase} rank {r}: {name} not launched")
+            require(o["digests"] == runs[0]["digests"] and len(o["digests"]) == niter,
+                    f"{phase}: the ranks' parameters part")
+            require(o["losses"] == runs[0]["losses"], f"{phase}: the ranks' losses part")
+    require(max(loss_err) <= CANVAS_LOSS_RTOL, f"canvas_largefov: first loss {loss_err}")
+    require(set(grad_err) == set(CANVAS_GRAD_RTOL),
+            f"canvas_largefov: gradients of {set(grad_err)}")
+    for name, err in grad_err.items():
+        require(grad_max[name] > 0, f"canvas_largefov: the reference's gradient of {name} is 0")
+        require(err <= CANVAS_GRAD_RTOL[name] * grad_max[name],
+                f"canvas_largefov: gradient of {name} off by {err} (largest entry "
+                f"{grad_max[name]})")
+    require(max(traj_err) <= CANVAS_TRAJ_RTOL, f"canvas_largefov: trajectory off by {traj_err}")
+    require(full_ref["finite"], "canvas_fullscan: the replicated steps' loss is not finite")
+    for r, o in enumerate(full):
+        require(o["batch_loss_last_tenth"] < o["batch_loss_first_tenth"],
+                f"canvas_fullscan rank {r}: the batch loss did not fall "
+                f"({o['batch_loss_first_tenth']} -> {o['batch_loss_last_tenth']})")
+        require(o["peak_mem_gb"] < full_ref["peak_mem_gb"],
+                f"canvas_fullscan rank {r}: peak memory {o['peak_mem_gb']} GB is not below the "
+                f"replicated run's {full_ref['peak_mem_gb']} GB")
+    return (add_counts(*[o["launches"] for o in ranks]),
+            add_counts(*[o["launches"] for o in full]))
+
+
+def canvas_rank_batch(side: int) -> tuple[int, np.ndarray]:
+    """The batch a canvas rank launches its kernels on at side x side (the
+    width of its block of canvas_iteration_batches, its real slots and the
+    padding ones), and the last rank's corners in iteration 1's first batch,
+    rebased to its slab."""
+    from ptyrad_tpu_torch.parallel import slab_local_positions
+    from ptyrad_tpu_torch.parallel.canvas import canvas_batch_count, canvas_iteration_batches
+
+    plan = canvas_plan(side)
+    crop_pos, _ = canvas_raster(side)
+    n_batches = canvas_batch_count(plan, side * side, CANVAS_BATCH, verbose=False)
+    slots, _, _ = canvas_iteration_batches(plan, n_batches, 1)
+    per, last = slots.shape[1] // CANVAS_WORLD, CANVAS_WORLD - 1
+    corners = slab_local_positions(crop_pos, plan.pos_index, plan.rows_local, plan.n_dev,
+                                   plan.b_local)
+    return per, corners[slots[0, last * per:(last + 1) * per]]
+
+
+def canvas_kernel_rows(dev, gen) -> list:
+    """B1 and B2 at the canvas phases' halo-extended slab shapes,
+    (1, NZ, rows_local + halo, canvas), and B3a/B3b, each at the batch a
+    canvas rank launches (canvas_rank_batch); B1/B2 at the last rank's
+    corners with patch_corners' edge cases (a negative corner among
+    them)."""
+    rows = []
+    for side, suffix in ((CANVAS_SIDE, CANVAS_SLAB), (CANVAS_FULL_SIDE, CANVAS_FULL_SLAB)):
+        plan = canvas_plan(side)
+        canvas = canvas_raster(side)[1]
+        per, corners = canvas_rank_batch(side)
+        h = plan.rows_local + plan.halo
+        rows += check_patches_at(dev, gen, NZ, h, canvas, NPIX,
+                                 patch_corners(dev, gen, corners, h, canvas, NPIX, per), suffix)
+        torch.cuda.empty_cache()
+        rows += check_loss_chain(dev, gen, batch=per, suffix=suffix)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_rows(dev, gen, atomic_b2: bool = False, atomic_b3: bool = False,
                 checks=KERNEL_CHECKS) -> list:
     """Every kernel against its plain version at the main paths' shapes, and
@@ -4885,6 +5377,9 @@ def main() -> int:
     dist_launches = dist_path(dev, card, init, main_losses)
     del init
     torch.cuda.empty_cache()
+    canvas_launches, canvas_full_launches = canvas_path(dev, card)
+    torch.cuda.empty_cache()
+    kernels += canvas_kernel_rows(dev, gen)
     solver, store_launches = tbl_store_path(dev, card, store_data)
     profile_steps(solver, card, "tBL-store", NITER + 1, n_batches=32)
     del solver, store_data
@@ -4920,10 +5415,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver, pso_tilt_launches = pso_tilt_path(dev, card)
     profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
+    # the canvas ranks' B1-B3 launches count in the canvas rows alone; the
+    # one-rank reference of canvas_largefov (the two slabs' batch on the
+    # whole canvas) is a comparison and counts in no row
+    canvas_ranks = add_counts(canvas_launches, canvas_full_launches)
     narrow = add_counts(plain_launches, tbl_launches, params_file_launches, resume_launches,
                         forward_launches, low_dose_launches, store_launches, tilt_launches,
                         lbfgs_launches, accum_launches, family_launches, figures_launches,
                         hypertune_launches, mp_launches, forward_bf16_launches, dist_launches,
+                        {k: 0 if k in CANVAS_KERNELS else v for k, v in canvas_ranks.items()},
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
                       pso_tilt_launches, pso_bf16_launches, pso_bf16_forward_launches)
@@ -4935,6 +5435,9 @@ def main() -> int:
     # their rows at the PSO shapes those of the N = 256 runs
     for name in PATCH_KERNELS:
         launches[name], launches[name + PSO_SHAPES] = narrow[name], wide[name]
+    for name in CANVAS_KERNELS:
+        launches[name + CANVAS_SLAB] = canvas_launches[name]
+        launches[name + CANVAS_FULL_SLAB] = canvas_full_launches[name]
     emit({"kernels": [{key: {**k, "launches": launches[k["name"]]}[key] for key in keys}
                       for k in kernels]})
     print(card)

@@ -306,6 +306,10 @@ class ConstraintScheduler:
                 fn(params, buffers, c)
         return params
 
+    def due(self, niter: int) -> bool:
+        """Is any constraint applied at iteration niter?"""
+        return any(niter % freq == 0 for _, freq, _, _ in self._active)
+
     @property
     def active_names(self) -> List[str]:
         return [name for name, _, _, _ in self._active]

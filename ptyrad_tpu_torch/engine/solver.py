@@ -22,7 +22,16 @@ contiguous block of each (parallel.rank_slice), computes the whole batch's
 loss terms (the loss all-reduces its batch sums) and, after backward, sums
 every gradient over the ranks in one flat buffer before the start-iter
 gating and the optimizer's step; the parameters stay bit-identical across
-ranks. Canvas sharding (ROADMAP item A7) is not in this slice.
+ranks.
+
+Canvas sharding (``recon_params.shard_canvas`` on more than one rank;
+ptyrad_tpu/engine/solver.py:605-880, parallel/canvas.py): each rank keeps
+its row slab of obja/objp, of the optimizer's canvas-shaped state and of the
+measurement store (the whole store stays on the host, ``make_model(...,
+store_on_host=True)``); each iteration draws every slab's batches
+(canvas_iteration_batches), the loss runs on the rank's halo-extended slab
+(CanvasShard.loss) and only the replicated tensors' gradients are summed
+over the ranks; constraints, callbacks and saves see whole canvases.
 """
 
 from __future__ import annotations
@@ -43,8 +52,9 @@ from ptyrad_tpu_torch.losses import combined_loss
 from ptyrad_tpu_torch.models.forward import forward, fused_loss_terms, get_measurements
 from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams, make_model
 from ptyrad_tpu_torch.optim import (OptStateMismatchError, create_optimizer, is_lbfgs,
-                                    load_opt_state_hdf5, mask_unstarted_grads, started,
-                                    unstarted_tensors)
+                                    load_opt_state_hdf5, mask_unstarted_grads,
+                                    optim_state_values, started, unstarted_tensors)
+from ptyrad_tpu_torch.parallel.canvas import CanvasShard, canvas_batch_count, plan_canvas
 from ptyrad_tpu_torch.parallel.mesh import (DataGroup, all_reduce_grads, broadcast_str,
                                             rank_slice, shard_model)
 from ptyrad_tpu_torch.utils.logging import vprint
@@ -68,9 +78,31 @@ def params_tensors(params: PtychoParams) -> list:
     return [t for _, t in params.named()]
 
 
-def build_train_epoch(params: PtychoParams, buffers: Buffers, geom: Geometry,
-                      loss_params: Optional[dict], optimizer: torch.optim.Optimizer,
-                      start_iters: Dict[str, int], group: Optional[DataGroup] = None):
+class RankBatches:
+    """A rank's share of every batch on the replicated path: its contiguous
+    block of each batch (``slice``, parallel.rank_slice), the loss of it
+    whose terms are the whole batch's (``loss``), and the tensors whose
+    gradients are summed over the ranks (``replicated_tensors``: all of
+    them). parallel.canvas.CanvasShard is the canvas path's: the same three
+    methods and ``group``. Without a group, the whole batch in one
+    process."""
+
+    def __init__(self, params: PtychoParams, buffers: Buffers, geom: Geometry,
+                 group: Optional[DataGroup] = None):
+        self.params, self.buffers, self.geom, self.group = params, buffers, geom, group
+
+    def slice(self, idx_all: torch.Tensor, mask_all: torch.Tensor) -> tuple:
+        return rank_slice(idx_all, mask_all, self.group)
+
+    def loss(self, idx, mask, loss_params):
+        return loss_fn(self.params, self.buffers, self.geom, idx, mask, loss_params, self.group)
+
+    def replicated_tensors(self) -> list:
+        return params_tensors(self.params)
+
+
+def build_train_epoch(params: PtychoParams, share, loss_params: Optional[dict],
+                      optimizer: torch.optim.Optimizer, start_iters: Dict[str, int]):
     """One call per iteration over all (padded) batches.
 
     Returns train_epoch(idx_all, mask_all, niter) -> (mean total, {term:
@@ -78,23 +110,24 @@ def build_train_epoch(params: PtychoParams, buffers: Buffers, geom: Geometry,
     device; params are updated in place. The updates of tensors whose
     start_iter has not come are masked as the gradients are (their values
     are put back after the step): decoupled or coupled weight decay would
-    move them otherwise (ptyrad_tpu/engine/solver.py:84-90). With a group
-    each rank takes its block of every batch and the gradients are summed
-    over the ranks before the gating and the step (under grad_accumulation,
-    before MultiSteps accumulates them).
+    move them otherwise (ptyrad_tpu/engine/solver.py:84-90). ``share`` (a
+    RankBatches, or under canvas sharding the rank's CanvasShard) says what
+    the rank computes of each batch: its part of the batch, the loss, and
+    the tensors whose gradients are summed over the ranks, before the gating
+    and the step (under grad_accumulation, before MultiSteps accumulates
+    them).
     """
-    tensors = params_tensors(params)
+    tensors = share.replicated_tensors()
 
     def train_epoch(idx_all: torch.Tensor, mask_all: torch.Tensor, niter: int):
         totals, term_rows = [], []
         frozen = unstarted_tensors(params, niter, start_iters)
-        idx_all, mask_all = rank_slice(idx_all, mask_all, group)
+        idx_all, mask_all = share.slice(idx_all, mask_all)
         for b in range(idx_all.shape[0]):
             optimizer.zero_grad(set_to_none=True)
-            total, terms = loss_fn(params, buffers, geom, idx_all[b], mask_all[b], loss_params,
-                                   group)
+            total, terms = share.loss(idx_all[b], mask_all[b], loss_params)
             total.backward()
-            all_reduce_grads(tensors, group)
+            all_reduce_grads(tensors, share.group)
             mask_unstarted_grads(params, niter, start_iters)
             kept = [t.detach().clone() for t in frozen]
             optimizer.step()
@@ -111,9 +144,8 @@ def build_train_epoch(params: PtychoParams, buffers: Buffers, geom: Geometry,
     return train_epoch
 
 
-def build_lbfgs_objective(params: PtychoParams, buffers: Buffers, geom: Geometry,
-                          loss_params: Optional[dict], start_iters: Dict[str, int],
-                          group: Optional[DataGroup] = None):
+def build_lbfgs_objective(params: PtychoParams, share, loss_params: Optional[dict],
+                          start_iters: Dict[str, int]):
     """The LBFGS objective (ptyrad_tpu/engine/solver.py build_lbfgs_step):
     objective_of(idx_all, mask_all, niter)() -> (value, {name: gradient}) at
     the live parameters, the value the mean of the per-batch losses (summed
@@ -121,15 +153,16 @@ def build_lbfgs_objective(params: PtychoParams, buffers: Buffers, geom: Geometry
     gradient its gradient: one backward per batch with cotangent 1/n,
     accumulated, so one batch's graph is alive at a time. Tensors that have
     not started (freeze_unstarted_params) and tensors not optimized get a
-    zero gradient. With a group each rank runs its block of every batch;
-    the batch losses are already global (the loss reduces over the ranks)
-    and the accumulated gradients are summed over the ranks once, so the
-    line search takes the same steps on every rank."""
-    tensors = params_tensors(params)
+    zero gradient. ``share`` as in build_train_epoch: over ranks each runs
+    its part of every batch, the batch losses are already global (the loss
+    reduces over the ranks) and the accumulated gradients of
+    share.replicated_tensors() are summed over the ranks once, so the line
+    search takes the same steps on every rank."""
+    tensors = share.replicated_tensors()
 
     def objective_of(idx_all: torch.Tensor, mask_all: torch.Tensor, niter: int):
         n = idx_all.shape[0]
-        idx_all, mask_all = rank_slice(idx_all, mask_all, group)
+        idx_all, mask_all = share.slice(idx_all, mask_all)
 
         def objective():
             for _, t in params.named():
@@ -137,11 +170,10 @@ def build_lbfgs_objective(params: PtychoParams, buffers: Buffers, geom: Geometry
             scale = torch.tensor(1.0 / n, dtype=torch.float32, device=idx_all.device)
             acc = torch.zeros((), dtype=torch.float32, device=idx_all.device)
             for b in range(n):
-                total, _ = loss_fn(params, buffers, geom, idx_all[b], mask_all[b], loss_params,
-                                   group)
+                total, _ = share.loss(idx_all[b], mask_all[b], loss_params)
                 acc = acc + total.detach()
                 total.backward(scale)
-            all_reduce_grads(tensors, group)
+            all_reduce_grads(tensors, share.group)
             grads = {}
             for name, t in params.named():
                 live = t.grad is not None and started(name, niter, start_iters)
@@ -179,8 +211,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def recon_loop(train_epoch, params: PtychoParams, batch_idx: np.ndarray,
-               batch_mask: np.ndarray, n_iter: int,
+def recon_loop(train_epoch, params: PtychoParams, batch_idx, batch_mask, n_iter: int,
                constraint_fn: Optional[ConstraintScheduler], buffers: Buffers,
                history: Optional[ReconHistory] = None, callback: Optional[Callable] = None,
                verbose: bool = True, optimizer: Optional[torch.optim.Optimizer] = None,
@@ -188,21 +219,30 @@ def recon_loop(train_epoch, params: PtychoParams, batch_idx: np.ndarray,
     """n_iter iterations, numbered from start_niter: the batch order, the
     start_iter gates and the constraints' schedule follow the number, so a
     run resumed at k + 1 from iteration k's parameters and optimizer state
-    repeats the uninterrupted run's iteration k + 1. callback(niter, params,
-    history) fires after each iteration; a callback that declares an
-    ``optimizer`` parameter also gets the live optimizer. Halts on a
-    non-finite loss."""
+    repeats the uninterrupted run's iteration k + 1. batch_idx and
+    batch_mask: (n_batches, L) arrays, taken each iteration in
+    iter_batch_perm's order; or batch_idx a function of the iteration
+    giving its (idx, mask) arrays (the canvas path's per-slab draw) and
+    batch_mask None. callback(niter, params, history) fires after each
+    iteration; a callback that declares an ``optimizer`` parameter also
+    gets the live optimizer. Halts on a non-finite loss."""
     history = history or ReconHistory()
     cb_takes_optimizer = (callback is not None
                           and "optimizer" in inspect.signature(callback).parameters)
     device = params.obja.device
-    batch_idx = np.asarray(batch_idx)
-    batch_mask = np.asarray(batch_mask)
+    if callable(batch_idx):
+        batches_of = batch_idx
+    else:
+        batch_idx, batch_mask = np.asarray(batch_idx), np.asarray(batch_mask)
+
+        def batches_of(niter):
+            perm = iter_batch_perm(niter, batch_idx.shape[0])
+            return batch_idx[perm], batch_mask[perm]
     for niter in range(start_niter, start_niter + n_iter):
         t0 = time.perf_counter()
-        perm = iter_batch_perm(niter, batch_idx.shape[0])
-        idx_dev = torch.as_tensor(batch_idx[perm], device=device)
-        mask_dev = torch.as_tensor(batch_mask[perm], device=device)
+        idx_np, mask_np = batches_of(niter)
+        idx_dev = torch.as_tensor(idx_np, device=device)
+        mask_dev = torch.as_tensor(mask_np, device=device)
         _total, batch_terms = train_epoch(idx_dev, mask_dev, niter)
         term_avgs = {k: float(np.mean(v)) for k, v in batch_terms.items()}
         history.batch_terms = batch_terms
@@ -250,6 +290,9 @@ class PtyRADSolver:
     process per rank: parallel.init_multihost, or the CLI's --n_devices /
     --multihost); None is one process. n_devices: the number of devices the
     caller expects, which must be the group's size (1 without a group).
+    With recon_params.shard_canvas and a group of more than one rank the
+    run is canvas-sharded (parallel/canvas.py; ``_build_canvas``,
+    ``_canvas_loop``); on one rank it warns and runs the replicated path.
     """
 
     def __init__(self, params: Optional[dict] = None, init_variables: Optional[dict] = None,
@@ -276,12 +319,14 @@ class PtyRADSolver:
             init_variables = init.init_variables
         self.init_variables = init_variables
         self.model_params = self.params_dict.get("model_params", {}) or {}
-        self.params, self.buffers, self.geom = make_model(
-            init_variables, self.model_params, self.device)
         self.recon_params = self.params_dict.get("recon_params", {}) or {}
+        canvas = bool(self.recon_params.get("shard_canvas")) and world > 1
+        self.params, self.buffers, self.geom = make_model(
+            init_variables, self.model_params, self.device, store_on_host=canvas)
         self.params, self.buffers = shard_model(
             self.params, self.buffers, group,
-            shard_measurements=bool(self.recon_params.get("shard_measurements", True)),
+            shard_measurements=(bool(self.recon_params.get("shard_measurements", True))
+                                and not canvas),
             verbose=verbose)
         self.loss_params = self.params_dict.get("loss_params")
         self.constraint_fn = ConstraintScheduler(self.params_dict.get("constraint_params"),
@@ -293,6 +338,15 @@ class PtyRADSolver:
         self.train_epoch = None
         self.lbfgs_objective = None
         self.grad_accumulation = 1
+        self._canvas = None  # (CanvasShard, n_batches) under canvas sharding
+        self._gathered_state = None
+
+    @property
+    def checkpoint_optimizer(self):
+        """What a checkpoint reads the optimizer state from: the optimizer,
+        or after a canvas-sharded run its state gathered whole on every rank
+        (None unless save_result holds 'optim_state')."""
+        return self.optimizer if self._canvas is None else self._gathered_state
 
     def prepare(self):
         rp = self.recon_params
@@ -316,54 +370,119 @@ class PtyRADSolver:
         return self.batch_idx, self.batch_mask
 
     def _build(self):
-        if self.recon_params.get("shard_canvas"):
-            if self.group is not None and self.group.size > 1:
-                raise NotImplementedError(
-                    "recon_params.shard_canvas on more than one rank: canvas sharding is "
-                    "ROADMAP item A7")
-            vprint("WARNING: recon_params.shard_canvas requires more than one rank (--n_devices "
-                   "or --multihost); running the replicated path instead.", verbose=self.verbose)
         optimizer_params = self.model_params.get("optimizer_params", {"name": "Adam"})
         self.optimizer_name = optimizer_params.get("name", "Adam")
+        if self.recon_params.get("shard_canvas"):
+            if self.group is not None and self.group.size > 1:
+                self._build_canvas(optimizer_params)
+                return
+            vprint("WARNING: recon_params.shard_canvas requires more than one rank (--n_devices "
+                   "or --multihost); running the replicated path instead.", verbose=self.verbose)
         self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
             optimizer_params, self.model_params.get("update_params"), self.params,
             grad_accumulation=self.grad_accumulation)
-        load_state = optimizer_params.get("load_state")
-        if load_state:
-            if not str(load_state).endswith((".hdf5", ".h5")):
-                raise NotImplementedError(
-                    f"optimizer_params.load_state='{load_state}': ptyrad_tpu_torch resumes the "
-                    "optimizer from a model.hdf5 (saved with 'optim_state' in save_result); an "
-                    "orbax optimizer directory is the JAX package's own format")
-            try:
-                load_opt_state_hdf5(self.optimizer, str(load_state))
-                vprint(f"Restored optimizer state from '{load_state}'", verbose=self.verbose)
-            except OptStateMismatchError:
-                raise  # a fresh state here would pass for the resume asked for
-            except (OSError, KeyError, ValueError) as e:
-                vprint(f"WARNING: failed to restore optimizer state from '{load_state}': {e}. "
-                       "Using fresh state.")
+        self._load_state(optimizer_params.get("load_state"))
+        self._build_steps(RankBatches(self.params, self.buffers, self.geom, self.group))
+
+    def _build_steps(self, share) -> None:
+        """The epoch, or the LBFGS objective, over ``share``'s part of each
+        batch (build_train_epoch)."""
         if is_lbfgs(self.optimizer_name):
-            self.lbfgs_objective = build_lbfgs_objective(
-                self.params, self.buffers, self.geom, self.loss_params, self.start_dict,
-                self.group)
+            self.lbfgs_objective = build_lbfgs_objective(self.params, share, self.loss_params,
+                                                         self.start_dict)
         else:
-            self.train_epoch = build_train_epoch(
-                self.params, self.buffers, self.geom, self.loss_params, self.optimizer,
-                self.start_dict, self.group)
+            self.train_epoch = build_train_epoch(self.params, share, self.loss_params,
+                                                 self.optimizer, self.start_dict)
+
+    def _load_state(self, load_state, cut=None) -> None:
+        """optimizer_params.load_state: the optimizer state of a model.hdf5
+        (``cut``: CanvasShard.cut_state, the rank's rows of its canvases)."""
+        if not load_state:
+            return
+        if not str(load_state).endswith((".hdf5", ".h5")):
+            raise NotImplementedError(
+                f"optimizer_params.load_state='{load_state}': ptyrad_tpu_torch resumes the "
+                "optimizer from a model.hdf5 (saved with 'optim_state' in save_result); an "
+                "orbax optimizer directory is the JAX package's own format")
+        try:
+            load_opt_state_hdf5(self.optimizer, str(load_state), cut=cut)
+            vprint(f"Restored optimizer state from '{load_state}'", verbose=self.verbose)
+        except OptStateMismatchError:
+            raise  # a fresh state here would pass for the resume asked for
+        except (OSError, KeyError, ValueError) as e:
+            vprint(f"WARNING: failed to restore optimizer state from '{load_state}': {e}. "
+                   "Using fresh state.")
+
+    def _build_canvas(self, optimizer_params: dict) -> None:
+        """The canvas-sharded build (ptyrad_tpu/engine/solver.py:605-755): the
+        plan over the INDICES_MODE positions, the rank's CanvasShard (its
+        padded slabs and its slab store on the device), the optimizer on the
+        slab parameters (its canvas-shaped state born slab-sized) with the
+        shard attached for the rules that reduce over a tensor, a resumed
+        state cut to the rank's rows, and the epoch or LBFGS objective on
+        the shard's loss. The batch count is capped at the busiest slab's
+        count."""
+        if is_lbfgs(self.optimizer_name) and optimizer_params.get("load_state"):
+            raise NotImplementedError(
+                "shard_canvas + LBFGS cannot resume optimizer state (the line search state "
+                "holds padded parameter and gradient copies); drop optimizer_params.load_state "
+                "or use a first-order optimizer")
+        geom = self.geom
+        plan = plan_canvas(self.buffers.crop_pos.cpu().numpy(), self.indices, geom.obj_shape[2],
+                           geom.probe_shape[0], self.group.size)
+        shard = CanvasShard(self.params, self.buffers, geom, plan, self.group,
+                            self.model_params.get("meas_dtype", "float32"))
+        self.params = shard.params
+        self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
+            optimizer_params, self.model_params.get("update_params"), self.params,
+            grad_accumulation=self.grad_accumulation, slab=shard)
+        self._load_state(optimizer_params.get("load_state"), cut=shard.cut_state)
+        self._build_steps(shard)
+        batch_size = int((self.recon_params.get("BATCH_SIZE", {}) or {}).get("size", 32))
+        self._canvas = (shard, canvas_batch_count(plan, len(self.indices), batch_size,
+                                                  self.verbose))
+
+    def _canvas_loop(self, n_iter: int, callback: Optional[Callable] = None):
+        """Canvas-sharded iterations (ptyrad_tpu/engine/solver.py:757-880):
+        recon_loop over each iteration's per-slab draw, or LBFGS on the fixed
+        split of iteration 0; due constraints on whole canvases
+        (CanvasShard.constrain); ``callback`` as CanvasShard.wrap_callback
+        calls it (whole canvases; only on its canvas_save_iters when it has
+        that attribute). Then self.params holds the whole canvases and
+        checkpoint_optimizer the state gathered whole."""
+        shard, n_batches = self._canvas
+        save_optim = "optim_state" in (self.recon_params.get("save_result") or [])
+        wrapped = shard.wrap_callback(callback, self.optimizer, save_optim)
+        constrain = shard.constrain(self.constraint_fn)
+        if self.lbfgs_objective is not None:
+            self._lbfgs_loop(n_iter, wrapped, batches=shard.local_batches(n_batches, 0),
+                             constrain=constrain)
+        else:
+            recon_loop(self.train_epoch, self.params,
+                       lambda niter: shard.local_batches(n_batches, niter), None, n_iter,
+                       constrain, self.buffers, history=self.history, callback=wrapped,
+                       verbose=self.verbose, optimizer=self.optimizer)
+        if save_optim:
+            self._gathered_state = shard.gather_state(optim_state_values(self.optimizer))
+        self.params = shard.whole_params()
+        return self.params, self.history
 
     def _lbfgs_loop(self, n_iter: int, callback: Optional[Callable] = None,
-                    start_niter: int = 1, permute: bool = False):
+                    start_niter: int = 1, permute: bool = False, batches=None,
+                    constrain: Optional[Callable] = None):
         """LBFGS iterations (ptyrad_tpu/engine/solver.py _lbfgs_loop): one
         optimizer step an iteration on the mean loss over all batches in
         their planned order (``permute``: in iter_batch_perm's order of the
         iteration, as the JAX package's hypertune trial passes them), then
         the due constraints; the history records the objective at the start
         of each step (``LBFGS Loss``), the line search's steps and the
-        objective's evaluations. callback as for recon_loop."""
+        objective's evaluations. callback as for recon_loop. The canvas path
+        passes its own ``batches`` (idx, mask arrays) and ``constrain``."""
         history = self.history
-        idx_all = torch.as_tensor(self.batch_idx, device=self.device)
-        mask_all = torch.as_tensor(self.batch_mask, device=self.device)
+        constrain = constrain or self.constraint_fn
+        idx_all, mask_all = (self.batch_idx, self.batch_mask) if batches is None else batches
+        idx_all = torch.as_tensor(idx_all, device=self.device)
+        mask_all = torch.as_tensor(mask_all, device=self.device)
         cb_takes_optimizer = (callback is not None
                               and "optimizer" in inspect.signature(callback).parameters)
         for niter in range(start_niter, start_niter + n_iter):
@@ -374,7 +493,7 @@ class PtyRADSolver:
                 idx = torch.as_tensor(self.batch_idx[perm], device=self.device)
                 mask = torch.as_tensor(self.batch_mask[perm], device=self.device)
             value = self.optimizer.step(self.lbfgs_objective(idx, mask, niter))
-            self.constraint_fn(self.params, self.buffers, niter)
+            constrain(self.params, self.buffers, niter)
             _sync(self.device)
             iter_t = time.perf_counter() - t0
             value = float(value)
@@ -405,7 +524,15 @@ class PtyRADSolver:
             f"optimizer={self.optimizer_name}, device={self.device}",
             verbose=self.verbose,
         )
-        if self.group is not None:
+        if self._canvas is not None:
+            shard, n_batches = self._canvas
+            plan = shard.plan
+            vprint(f"Canvas sharding: {plan.n_dev} ranks over {self.group.backend}, slabs of "
+                   f"{plan.rows_local} rows + a {plan.halo}-row halo, {int(plan.mask.sum())} "
+                   f"positions in {n_batches} batches, {plan.b_local} store rows on each "
+                   f"rank ({int(plan.mask.reshape(plan.n_dev, -1)[shard.rank].sum())} real on "
+                   "this one)", verbose=self.verbose)
+        elif self.group is not None:
             vprint(f"Data parallel: {self.group.size} rank(s) over {self.group.backend}, "
                    f"{self.batch_idx.shape[1] // self.group.size} positions of every batch "
                    "on each", verbose=self.verbose)
@@ -413,6 +540,8 @@ class PtyRADSolver:
             vprint(f"Compute policy: compute_dtype={self.geom.compute_dtype}, transform "
                    f"operands {'bfloat16' if self.geom.bf16_operands else 'float32'}; "
                    "parameters, gradients and the loss float32", verbose=self.verbose)
+        if self._canvas is not None:
+            return self._canvas_loop(n_iter, callback)
         if self.lbfgs_objective is not None:
             return self._lbfgs_loop(n_iter, callback)
         self.params, self.history = recon_loop(

@@ -16,6 +16,9 @@ With a group (parallel.DataGroup) every rank composes the folder name and
 takes rank 0's (parallel.broadcast_str: a prefix_time name can differ by a
 clock tick); only rank 0 makes the folder, copies the params, writes the
 log, draws and saves (ptyrad_tpu/engine/workflow.py:34-57, :80-115).
+Under recon_params.shard_canvas the callback fires on save iterations only
+and gets whole canvases; the last save takes the optimizer state the solver
+gathered whole on every rank (``solver.checkpoint_optimizer``).
 """
 
 from __future__ import annotations
@@ -70,25 +73,28 @@ def run_reconstruction(params: dict, logger=None, verbose: Optional[bool] = None
     save_iters = recon_params.get("SAVE_ITERS")
     last_saved = {"niter": None}
 
-    def save(niter, optimizer):
-        save_results(output_path, solver.params, solver.buffers, solver.geom, params,
+    def save(niter, optimizer, cur_params):
+        save_results(output_path, cur_params, solver.buffers, solver.geom, params,
                      optimizer, solver.history, niter, solver.indices,
                      lr_dict=solver.lr_dict, start_dict=solver.start_dict)
         last_saved["niter"] = niter
 
     def callback(niter, cur_params, history, optimizer=None):
         if save_iters and niter % save_iters == 0:
-            save(niter, optimizer)
+            save(niter, optimizer, cur_params)
             if selected and main:
                 plot_summary(output_path, cur_params, solver.buffers, solver.geom, history,
                              niter, solver.indices, selected_figs=selected,
                              init_variables=solver.init_variables)
 
+    # under shard_canvas each call gathers whole canvases on every rank: the
+    # canvas loop calls this callback on save iterations only
+    callback.canvas_save_iters = save_iters
     solver.run(callback=callback)
     # the callback has already written the last iteration when it lands on
     # a SAVE_ITERS boundary
     n_final = len(solver.history.loss_iters)
     if last_saved["niter"] != n_final or n_final == 0:
-        save(n_final, solver.optimizer)
+        save(n_final, solver.checkpoint_optimizer, solver.params)
     solver.output_path = output_path
     return solver

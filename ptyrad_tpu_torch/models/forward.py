@@ -227,8 +227,10 @@ def get_measurements(buffers: Buffers, geom: Geometry, indices: torch.Tensor) ->
     the store's type, embedded in the fitted background canvas when the data
     are padded on the fly, then resampled bilinearly with its intensity
     conserved, so neither the float32, the padded nor the resampled dataset
-    ever sits on the device."""
-    meas = buffers.measurements[indices].to(torch.float32)
+    ever sits on the device. A store kept on the host (the canvas path's
+    whole store) is read there, the batch alone moved."""
+    store = buffers.measurements
+    meas = store[indices.to(store.device)].to(device=indices.device, dtype=torch.float32)
     if geom.meas_pad_idx is not None:
         h1, h2, w1, w2 = geom.meas_pad_idx
         canvas = buffers.meas_padded.expand(meas.shape[0], *geom.meas_padded_shape).clone()

@@ -183,7 +183,8 @@ def resolve_compute_policy(model_params: dict) -> Tuple[str, bool]:
     return compute, matmul == "bfloat16"
 
 
-def make_model(init_variables: dict, model_params: Optional[dict] = None, device=None):
+def make_model(init_variables: dict, model_params: Optional[dict] = None, device=None,
+               store_on_host: bool = False):
     """Build (params, buffers, geometry) from an init_variables dict, such
     as the Initializer's as it comes (keys this function does not read, e.g.
     Npix, meas_avg, fitRBF, obj_lateral_extent, are ignored, as the JAX
@@ -204,7 +205,11 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     (resolve_compute_policy: bfloat16 operands in every DFT pass, the
     kernels' included, and with compute_dtype a bfloat16 wavefield on the
     plain route); the JAX package's fwd_remat is accepted and warns once (it
-    acts on the TPU only). ``device=None`` means CUDA.
+    acts on the TPU only). ``device=None`` means CUDA. ``store_on_host``
+    leaves the measurement store where it is and as it is (a NumPy array as
+    a CPU tensor over its memory, no copy): the canvas path
+    (parallel/canvas.py) moves each rank's slab alone to the device, in
+    meas_dtype, and reads no other row.
     """
     dev = resolve_device(device)
     model_params = model_params or {}
@@ -219,8 +224,11 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     probe = np.asarray(init_variables["probe"], dtype=np.complex64)
     tilts = np.asarray(init_variables["obj_tilts"], dtype=np.float32).reshape(-1, 2)
     dz = float(np.asarray(init_variables["slice_thickness"]))
-    meas = _measurements(init_variables["measurements"], dev,
-                         model_params.get("meas_dtype", "float32"))
+    meas = init_variables["measurements"]
+    if not store_on_host:
+        meas = _measurements(meas, dev, model_params.get("meas_dtype", "float32"))
+    elif not isinstance(meas, torch.Tensor):
+        meas = torch.as_tensor(np.asarray(meas, dtype=np.float32))
     crop_pos = np.asarray(init_variables["crop_pos"], dtype=np.int32)
     omode_occu = np.asarray(init_variables["omode_occu"], dtype=np.float32)
     dx = float(np.asarray(init_variables["dx"]))

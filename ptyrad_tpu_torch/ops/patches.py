@@ -12,7 +12,9 @@ kernel or raises. On a CPU tensor they run their plain PyTorch versions
 JAX package and ``chip_smoke.py`` holds the kernels against on the card.
 Corners are clamped as the Pallas kernels clamp them: y to [0, H-Ny], x to
 [0, W-Nx]. The JAX package's XLA path (``lax.dynamic_slice``) differs for a
-negative corner, which it wraps; no caller passes one.
+negative corner, which it wraps; the canvas path (parallel/canvas.py) passes
+one for a padding slot, whose row is rebased to a later rank's slab, and
+its mask is 0.
 
 ``extract_patches`` (one canvas) and ``extract_patch_pair`` (obja and objp
 at the same corners) are one autograd Function over one or two canvases:
@@ -241,7 +243,14 @@ def extract_patch_pair(obja: torch.Tensor, objp: torch.Tensor, pos: torch.Tensor
                        patch_shape) -> tuple:
     """``extract_patches`` of two canvases of one shape at the same (B, 2)
     corners: one B1 launch forward, one B2 launch backward for the canvases
-    that need a gradient."""
+    that need a gradient.
+
+    Under canvas sharding (parallel/canvas.py) the canvases are a rank's
+    halo-extended slab (rows_local + halo rows) and the corners are rebased
+    to its first row; B1/B2 take any row count, and a corner below 0 or past
+    the last row clamps. This is the counterpart of both extract_patches and
+    extract_patches_local (ptyrad_tpu/ops/patches.py:450-475): a rank has no
+    mesh to escape, so one function serves both."""
     if obja.shape != objp.shape:
         raise ValueError(f"extract_patch_pair: canvases {tuple(obja.shape)} and "
                          f"{tuple(objp.shape)} differ")

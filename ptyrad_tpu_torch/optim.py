@@ -160,10 +160,15 @@ class OptaxRule(torch.optim.Optimizer):
     optax.add_decayed_weights (grad + wd param), which puts it at ``[1]``
     of a chain. Subclasses define ``init_slots(leaves, lr)`` and
     ``update(grads, state, leaves, lr)``, which returns the update of each
-    leaf (added to the parameter) and updates the state in place.
+    leaf (added to the parameter) and updates the state in place; a rule
+    with ``takes_slab`` gets each group's ``slab`` as a keyword of both.
     """
 
     paths: Dict[str, str] = {}
+    # a rule whose update reduces over a whole tensor (Adafactor) takes the
+    # ``slab`` of the tensor's group: the parallel.canvas.CanvasShard that
+    # create_optimizer puts in obja's and objp's groups under canvas sharding
+    takes_slab = False
 
     def __init__(self, groups, coupled_wd: float = 0.0, **hyper):
         super().__init__(groups, {})
@@ -177,11 +182,15 @@ class OptaxRule(torch.optim.Optimizer):
     def update(self, grads, state, lv, lr):
         raise NotImplementedError
 
+    def _slab_arg(self, group) -> dict:
+        return {"slab": group.get("slab")} if self.takes_slab else {}
+
     def slot_state(self, group) -> dict:
         p = group["params"][0]
         st = self.state[p]
         if not st:
-            st.update(self.init_slots([x.detach() for x in leaves(p)], group["lr"]))
+            st.update(self.init_slots([x.detach() for x in leaves(p)], group["lr"],
+                                      **self._slab_arg(group)))
         return st
 
     @torch.no_grad()
@@ -194,7 +203,7 @@ class OptaxRule(torch.optim.Optimizer):
             gl = leaves(g)
             if self.coupled_wd:
                 gl = [x + self.coupled_wd * w for x, w in zip(gl, lv)]
-            for w, u in zip(lv, self.update(gl, st, lv, group["lr"])):
+            for w, u in zip(lv, self.update(gl, st, lv, group["lr"], **self._slab_arg(group))):
                 w.add_(u)
 
     def keyed_arrays(self) -> list:
@@ -490,15 +499,34 @@ def _factored_dims(shape, factored: bool, min_dim: int):
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.mean(x * x))
+def _rms(x: torch.Tensor, slab=None) -> torch.Tensor:
+    """The root mean square; of a whole canvas over the ranks' real rows
+    when x is a rank's slab."""
+    if slab is None:
+        return torch.sqrt(torch.mean(x * x))
+    rows = slab.rows(x)
+    return torch.sqrt(slab.sum(torch.sum(rows * rows)) / (x.numel() // x.shape[-2] * slab.noy))
+
+
+def _rows_last(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return x.movedim(axis, -1).unsqueeze(-1)
+
+
+def _from_rows_last(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return x.squeeze(-1).movedim(-1, axis)
 
 
 class AdafactorRule(OptaxRule):
     """optax.adafactor: scale_by_factored_rms, clip_by_block_rms, the
     learning rate, scale_by_param_block_rms, optionally an ema (momentum)
     and add_decayed_weights (weight_decay_rate), then a sign flip; each
-    factored or not per leaf as optax decides."""
+    factored or not per leaf as optax decides. Under canvas sharding (the
+    group's ``slab``) a slab is factored as its whole canvas would be, the moments'
+    and the block RMS's reductions span the ranks' real rows, and the
+    factored moments are whole canvases' on every rank (so the checkpoint
+    holds what a replicated run's holds)."""
+
+    takes_slab = True
 
     def __init__(self, groups, coupled_wd=0.0, **hyper):
         super().__init__(groups, coupled_wd, **hyper)
@@ -509,22 +537,55 @@ class AdafactorRule(OptaxRule):
                 + bool(hyper["multiply_by_parameter_scale"])
             self.paths.update({"ema_count": f"[{ema_at}].count", "ema": f"[{ema_at}].ema"})
 
-    def _dims(self, x):
-        return _factored_dims(tuple(x.shape), self.hyper["factored"],
+    @staticmethod
+    def _shape(x, slab):
+        """The leaf's shape; a slab's whole canvas's under canvas sharding."""
+        shape = list(x.shape)
+        if slab is not None:
+            shape[-2] = slab.noy
+        return tuple(shape)
+
+    def _dims(self, x, slab):
+        return _factored_dims(self._shape(x, slab), self.hyper["factored"],
                               self.hyper["min_dim_size_to_factor"])
 
-    def init_slots(self, lv, lr):
+    @staticmethod
+    def _mean(x, dim: int, slab):
+        """torch.mean over dim; of a slab, the whole canvas's mean: over the
+        rows axis summed over the ranks' real rows, over another axis the
+        per-row means gathered whole (the factored moments stay whole and
+        replicated, as in a replicated run)."""
+        rows_axis = x.dim() - 2
+        if slab is None:
+            return torch.mean(x, dim=dim)
+        if dim == rows_axis:
+            return slab.sum(slab.rows(x).sum(dim=dim)) / slab.noy
+        local = torch.mean(x, dim=dim)
+        axis = rows_axis - (dim < rows_axis)
+        return _from_rows_last(slab.gather(_rows_last(local, axis)), axis)
+
+    @staticmethod
+    def _local(factor, deleted: int, ndim: int, slab):
+        """A factor over the whole canvas's rows cut to the rank's padded
+        rows (1 on a padding row, where the gradient is 0)."""
+        rows_axis = ndim - 2
+        if slab is None or deleted == rows_axis:
+            return factor
+        axis = rows_axis - (deleted < rows_axis)
+        return _from_rows_last(slab.own_rows(_rows_last(factor, axis), 1.0), axis)
+
+    def init_slots(self, lv, lr, slab=None):
         st = {"count": 0, "v_row": [], "v_col": [], "v": []}
         for x in lv:
             one = torch.zeros((1,), dtype=x.dtype, device=x.device)
-            dims = self._dims(x)
+            dims = self._dims(x, slab)
             if dims is None:
                 st["v_row"].append(one)
                 st["v_col"].append(one.clone())
                 st["v"].append(torch.zeros_like(x))
             else:
                 d1, d0 = dims
-                shape = tuple(x.shape)
+                shape = self._shape(x, slab)
                 st["v_row"].append(torch.zeros(tuple(np.delete(shape, d0)), dtype=x.dtype,
                                                device=x.device))
                 st["v_col"].append(torch.zeros(tuple(np.delete(shape, d1)), dtype=x.dtype,
@@ -535,23 +596,23 @@ class AdafactorRule(OptaxRule):
             st["ema"] = _zeros(lv)
         return st
 
-    def update(self, grads, st, lv, lr):
+    def update(self, grads, st, lv, lr, slab=None):
         h = self.hyper
         t = F32(st["count"] - h["decay_offset"] + 1)
         decay = float(F32(1) - t ** F32(-h["decay_rate"]))
         eps = h["eps"]
         out = []
         for i, (g, w) in enumerate(zip(grads, lv)):
-            dims = self._dims(w)
+            dims = self._dims(w, slab)
             gsq = g * g + eps
             if dims is not None:
                 d1, d0 = dims
-                v_row = decay * st["v_row"][i] + (1.0 - decay) * torch.mean(gsq, dim=d0)
-                v_col = decay * st["v_col"][i] + (1.0 - decay) * torch.mean(gsq, dim=d1)
+                v_row = decay * st["v_row"][i] + (1.0 - decay) * self._mean(gsq, d0, slab)
+                v_col = decay * st["v_col"][i] + (1.0 - decay) * self._mean(gsq, d1, slab)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_col_mean = torch.mean(v_row, dim=reduced_d1, keepdim=True)
-                row_factor = (v_row / row_col_mean) ** -0.5
-                col_factor = v_col ** -0.5
+                row_factor = self._local((v_row / row_col_mean) ** -0.5, d0, g.dim(), slab)
+                col_factor = self._local(v_col ** -0.5, d1, g.dim(), slab)
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
                 st["v_row"][i], st["v_col"][i] = v_row, v_col
             else:
@@ -559,10 +620,10 @@ class AdafactorRule(OptaxRule):
                 u = g * v ** -0.5
                 st["v"][i] = v
             if h["clipping_threshold"] is not None:
-                u = u / torch.clamp(_rms(u) / h["clipping_threshold"], min=1.0)
+                u = u / torch.clamp(_rms(u, slab) / h["clipping_threshold"], min=1.0)
             u = u * lr
             if h["multiply_by_parameter_scale"]:
-                rms = _rms(w)
+                rms = _rms(w, slab)
                 u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
             if "ema" in st:
                 m = h["momentum"]
@@ -755,7 +816,7 @@ def _translate_configs(name: str, configs: dict):
 
 
 def create_optimizer(optimizer_params: Optional[dict], update_params: Optional[dict],
-                     params: PtychoParams, grad_accumulation: int = 1):
+                     params: PtychoParams, grad_accumulation: int = 1, slab=None):
     """(optimizer, lr_dict, start_dict).
 
     optimizer_params: {'name': <a name of OPTIMIZER_REGISTRY>, 'configs':
@@ -763,7 +824,10 @@ def create_optimizer(optimizer_params: Optional[dict], update_params: Optional[d
     tensors as requiring gradients. The groups follow update_params' order
     (each group's ``name`` says whose). LBFGS gives an optim_lbfgs.LBFGS over
     every tensor at the smallest nonzero lr, never wrapped; otherwise
-    grad_accumulation k > 1 wraps the optimizer in MultiSteps(k).
+    grad_accumulation k > 1 wraps the optimizer in MultiSteps(k). ``slab``
+    (a parallel.canvas.CanvasShard; params its slab parameters) goes to the
+    rules that reduce over a whole tensor: LBFGS, and the groups of obja
+    and objp of an OptaxRule (torch's Adam is elementwise).
     """
     optimizer_params = optimizer_params or {"name": "Adam"}
     name = optimizer_params.get("name", "Adam")
@@ -789,7 +853,7 @@ def create_optimizer(optimizer_params: Optional[dict], update_params: Optional[d
         nonzero = [v for v in lr_dict.values() if v != 0]
         configs.pop("learning_rate", None)
         return (LBFGS(params, lr_dict, learning_rate=min(nonzero) if nonzero else 1.0,
-                      coupled_wd=coupled, **configs), lr_dict, start_dict)
+                      coupled_wd=coupled, slab=slab, **configs), lr_dict, start_dict)
 
     configs.pop("learning_rate", None)  # per-tensor lrs own this
     groups = [{"params": [getattr(params, pname)], "lr": lr_dict[pname], "name": pname}
@@ -797,6 +861,10 @@ def create_optimizer(optimizer_params: Optional[dict], update_params: Optional[d
     if not groups:
         raise ValueError("no tensor has a nonzero lr in update_params")
     rule, defaults, _, _ = _FAMILIES[family]
+    if slab is not None and rule != "torch_adam":
+        for group in groups:
+            if group["name"] in slab.canvas_names:
+                group["slab"] = slab
     if rule == "torch_adam":
         opt = torch.optim.Adam(groups, betas=(configs.get("b1", 0.9), configs.get("b2", 0.999)),
                                eps=configs.get("eps", 1e-8), weight_decay=coupled)
@@ -1079,16 +1147,17 @@ def _load_torch_adam(optimizer: torch.optim.Adam, values: Dict[str, Any], names)
                "the checkpoint and start fresh")
 
 
-def load_opt_state_hdf5(optimizer, ckpt_path: str) -> None:
+def load_opt_state_hdf5(optimizer, ckpt_path: str, cut=None) -> None:
     """load_opt_state_values from a model.hdf5's ``optim_state_dict`` (one
     written by either package or by upstream PtyRAD); needs h5py. A
     checkpoint saved without 'optim_state' in save_result raises
-    ValueError."""
+    ValueError. ``cut`` maps the values first (the canvas path's
+    CanvasShard.cut_state: the rank's rows of every canvas-shaped array)."""
     from ptyrad_tpu_torch.load import load_hdf5
 
     values = load_hdf5(ckpt_path, key="optim_state_dict")
     if not isinstance(values, dict) or not values:
         raise ValueError(f"'{ckpt_path}' has no optimizer state; save it with 'optim_state' "
                          "in recon_params.save_result")
-    load_opt_state_values(optimizer, values)
+    load_opt_state_values(optimizer, values if cut is None else cut(values))
 

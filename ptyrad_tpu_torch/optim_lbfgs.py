@@ -20,7 +20,9 @@ torch.optim.LBFGS, which runs inner iterations and another line search.
     moved them) and gradient - previous gradient;
   - inner products are taken leaf by leaf, the complex probe as its
     (re, im) pair, as optax's vdot over the JAX package's leaves; the
-    line search's scalars are float32, as optax's.
+    line search's scalars are float32, as optax's; under canvas sharding
+    (``slab``) the canvases' products are summed over the ranks' real rows,
+    and the memories are the rank's slabs.
 
 The objective is the solver's: the mean over all batches of the batch
 losses at the live parameters (engine/solver.py builds it, one batch's
@@ -50,11 +52,20 @@ SLOPE_RTOL, CURV_RTOL, APPROX_DEC_RTOL = F32(1e-4), F32(0.9), F32(1e-6)
 INCREASE_FACTOR, TOL, INTERVAL_THRESHOLD = F32(2.0), F32(0.0), F32(1e-5)
 
 
-def vdot(a: Tree, b: Tree) -> torch.Tensor:
+def vdot(a: Tree, b: Tree, slab=None) -> torch.Tensor:
     """optax.tree.vdot: the sum over leaves of each leaf's dot product, a
-    float32 scalar on the device."""
+    float32 scalar on the device. With ``slab`` (a parallel.canvas.
+    CanvasShard) obja and objp are the rank's slabs: their products over
+    the real rows are summed over the ranks first, as optax's vdot of the
+    row-sharded canvases in the JAX package."""
     out = None
+    if slab is not None:
+        part = sum(torch.sum(slab.rows(x) * slab.rows(y)) for name in slab.canvas_names
+                   for x, y in zip(leaves(a[name]), leaves(b[name])))
+        out = slab.sum(part)
     for name in PARAM_NAMES:
+        if slab is not None and name in slab.canvas_names:
+            continue
         for x, y in zip(leaves(a[name]), leaves(b[name])):
             d = torch.sum(x * y)
             out = d if out is None else out + d
@@ -100,10 +111,11 @@ class ZoomLinesearch:
     steps, decrease_error, curvature_error)."""
 
     def __init__(self, x0: Tree, u: Tree, value, grad: Tree,
-                 evaluate: Callable[[np.float32], Tuple[np.float32, Tree]]):
+                 evaluate: Callable[[np.float32], Tuple[np.float32, Tree]], slab=None):
         self.evaluate = evaluate
         self.u = u
-        slope = _f(vdot(u, grad))
+        self.slab = slab
+        slope = _f(vdot(u, grad, slab))
         v = F32(value)
         self.s = dict(count=0, stepsize=F32(0), value=v, grad=grad, slope=slope, value_init=v,
                       slope_init=slope, decrease_error=F32(np.inf),
@@ -114,7 +126,7 @@ class ZoomLinesearch:
 
     def _on_line(self, stepsize):
         value, grad = self.evaluate(stepsize)
-        return F32(value), grad, _f(vdot(grad, self.u))
+        return F32(value), grad, _f(vdot(grad, self.u, self.slab))
 
     def _decrease_error(self, stepsize, value, slope):
         s = self.s
@@ -231,7 +243,7 @@ class LBFGS:
 
     def __init__(self, params: PtychoParams, lr_dict: Dict[str, float], learning_rate: float,
                  memory_size: int = 10, scale_init_precond: bool = True,
-                 coupled_wd: float = 0.0):
+                 coupled_wd: float = 0.0, slab=None):
         if memory_size < 1:
             raise ValueError("memory_size must be >= 1")
         self.params = params
@@ -265,6 +277,7 @@ class LBFGS:
         self.info = {"num_linesearch_steps": 0, "decrease_error": F32(np.inf),
                      "curvature_error": F32(np.inf)}
         self.evaluations = 0  # objective evaluations of the last step
+        self.slab = slab  # a parallel.canvas.CanvasShard under canvas sharding (vdot)
 
     @property
     def state(self):
@@ -284,12 +297,12 @@ class LBFGS:
         vec = dict(updates)
         alphas = {}
         for idx in reversed(order):
-            alpha = rhos[idx] * vdot({k: dw[k][idx] for k in PARAM_NAMES}, vec)
+            alpha = rhos[idx] * vdot({k: dw[k][idx] for k in PARAM_NAMES}, vec, self.slab)
             vec = {k: vec[k] + (-alpha) * du[k][idx] for k in PARAM_NAMES}
             alphas[idx] = alpha
         vec = {k: identity_scale * v for k, v in vec.items()}
         for idx in order:
-            beta = rhos[idx] * vdot({k: du[k][idx] for k in PARAM_NAMES}, vec)
+            beta = rhos[idx] * vdot({k: du[k][idx] for k in PARAM_NAMES}, vec, self.slab)
             vec = {k: vec[k] + (alphas[idx] - beta) * dw[k][idx] for k in PARAM_NAMES}
         return vec
 
@@ -299,7 +312,7 @@ class LBFGS:
         prev_idx = (self.count - 1) % m
         diff_params = {k: params[k] - self.prev_params[k] for k in PARAM_NAMES}
         diff_updates = {k: updates[k] - self.prev_updates[k] for k in PARAM_NAMES}
-        dot = vdot(diff_updates, diff_params)
+        dot = vdot(diff_updates, diff_params, self.slab)
         weight = torch.where(dot == 0.0, torch.zeros_like(dot), 1.0 / dot)
         if self.count == 0:
             diff_params = {k: torch.zeros_like(v) for k, v in diff_params.items()}
@@ -311,11 +324,11 @@ class LBFGS:
         self.weights_memory[prev_idx] = weight
         if self.scale_init_precond:
             if self.count > 0:
-                num = vdot(diff_updates, diff_params)
-                den = vdot(diff_updates, diff_updates)
+                num = vdot(diff_updates, diff_params, self.slab)
+                den = vdot(diff_updates, diff_updates, self.slab)
                 scale = torch.where(den > 0.0, num / den, torch.ones_like(num))
             else:
-                norm = torch.sqrt(vdot(updates, updates))
+                norm = torch.sqrt(vdot(updates, updates, self.slab))
                 scale = torch.minimum(torch.ones_like(norm), 1.0 / norm)
         else:
             scale = 1.0
@@ -356,7 +369,7 @@ class LBFGS:
             masked = {k: g + self.coupled_wd * x0[k] for k, g in masked.items()}
         direction = self._scale_by_lbfgs(masked, x0)
         u = {k: -self.learning_rate * d for k, d in direction.items()}
-        search = ZoomLinesearch(x0, u, value, grad, evaluate)
+        search = ZoomLinesearch(x0, u, value, grad, evaluate, self.slab)
         stepsize, new_value, new_grad, steps, dec, curv = search.run()
         for k in self.moving:
             live[k].copy_(x0[k] + float(stepsize) * u[k])

@@ -31,7 +31,10 @@ reduces across the mesh is reduced here by two collectives:
 
 ``recon_params.shard_measurements`` (the store split over devices) and
 hypertune on more than one rank are ROADMAP item A6b: the store is
-replicated on every rank. Canvas sharding is item A7.
+replicated on every rank. Canvas sharding (``recon_params.shard_canvas``,
+parallel/canvas.py) splits the object and the store into row slabs instead;
+it gathers whole canvases with ``all_gather_rows`` and all-reduces only the
+replicated tensors' gradients.
 """
 
 from __future__ import annotations
@@ -172,6 +175,21 @@ def all_reduce_grads(tensors, group: Optional[DataGroup]) -> int:
         g.copy_(flat[offset:offset + g.numel()].view(g.shape))
         offset += g.numel()
     return flat.numel() * flat.element_size()
+
+
+def all_gather_rows(slab: torch.Tensor, group: Optional[DataGroup],
+                    rows: Optional[int] = None) -> torch.Tensor:
+    """Every rank's slab, of one shape on every rank, stacked along axis -2
+    in rank order (the rows of a canvas split in row slabs) and cut to its
+    first ``rows`` rows; the slab itself (cut) for group None. Not
+    differentiable."""
+    if group is None:
+        return slab if rows is None else slab[..., :rows, :]
+    slab = slab.detach().contiguous()
+    parts = [torch.empty_like(slab) for _ in range(group.size)]
+    dist.all_gather(parts, slab)
+    whole = torch.cat(parts, dim=-2)
+    return whole if rows is None else whole[..., :rows, :]
 
 
 def rank_slice(idx: torch.Tensor, mask: torch.Tensor, group: Optional[DataGroup]):

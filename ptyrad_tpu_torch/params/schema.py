@@ -3,8 +3,8 @@
 The port's own copy of ptyrad_tpu/params/schema.py, field for field, so a
 params file validates the same way in both packages and gives the same
 dict. That includes the keys that act on the TPU only (ModelParams
-fwd_remat; recon_params shard_canvas, shard_measurements), which the port
-accepts. Optimizer names validate against
+fwd_remat; recon_params shard_measurements), which the port accepts, and
+recon_params shard_canvas, which it runs on more than one rank. Optimizer names validate against
 ptyrad_tpu_torch.optim.OPTIMIZER_REGISTRY_NAMES, the same names as the JAX
 package's registry.
 
@@ -507,8 +507,10 @@ class ReconParams(BaseModel):
     # batch-grouping RNG seed; None = a fresh shuffle per run
     GROUP_MODE_SEED: Optional[int] = None
     SAVE_ITERS: Optional[int] = Field(default=10, ge=1)
-    # the JAX package's device-mesh options (ROADMAP items A6, A7); the
-    # port runs on one device
+    # the JAX package's device-mesh options: on more than one rank
+    # shard_canvas splits the object and the store into row slabs
+    # (parallel/canvas.py); shard_measurements' split of the store in the
+    # replicated path is ROADMAP item A6b
     shard_measurements: bool = True
     shard_canvas: bool = False
     output_dir: str = "output/"

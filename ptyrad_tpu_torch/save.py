@@ -179,8 +179,9 @@ def make_save_dict(output_path: str, params, buffers, geom, params_dict: dict, o
                    history, niter: int, indices, lr_dict=None, start_dict=None) -> Dict[str, Any]:
     """The checkpoint dict (PtyRAD's model.hdf5 layout): version, the
     optimizable tensors (the probe complex), the optimizer state when
-    save_result holds 'optim_state', the params dict, the model attributes
-    and the loss, time and dz histories. Every tensor is copied to the host
+    save_result holds 'optim_state' (``optimizer`` the optimizer, or its
+    optim_state_values as the canvas path gathers them on every rank), the
+    params dict, the model attributes and the loss, time and dz histories. Every tensor is copied to the host
     once; nothing on the device is kept or changed."""
     from ptyrad_tpu_torch import __version__
 
@@ -188,7 +189,9 @@ def make_save_dict(output_path: str, params, buffers, geom, params_dict: dict, o
     last_terms = dict(history.term_iters[-1]) if history.term_iters else {}
     save_optim = "optim_state" in (params_dict.get("recon_params", {}).get("save_result") or [])
     optim_state_dict = None
-    if save_optim and optimizer is not None:
+    if save_optim and isinstance(optimizer, dict):
+        optim_state_dict = optimizer  # already gathered (the canvas path)
+    elif save_optim and optimizer is not None:
         from ptyrad_tpu_torch.optim import optim_state_values
 
         optim_state_dict = optim_state_values(optimizer)

@@ -18,7 +18,6 @@ ranks' parameters bit for bit after every iteration.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +35,7 @@ from ptyrad_tpu.models import make_model as j_make_model
 from ptyrad_tpu.parallel.mesh import data_sharding, make_mesh
 from ptyrad_tpu.parallel.mesh import shard_model as j_shard_model
 from torch_dist_worker import GRAD_NAMES, batch_grads, grads_problem, train
+from torch_port_helpers import free_port, rank_env, spawn_ranks
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_dist_worker.py"
@@ -43,34 +43,11 @@ GRAD_ATOL = {"obja": 1e-5, "objp": 1e-5, "probe": 5e-5, "probe_pos_shifts": 1e-7
 RANK_TIMEOUT_S = 120
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _env() -> dict:
-    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
-                                                            "MASTER_PORT", "LOCAL_RANK")}
-    env.update(OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
-    return env
-
-
 def run_ranks(tmp: Path, case: str, world: int, **args) -> list:
     """Start ``world`` ranks of ``case`` and return each rank's outputs."""
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, str(WORKER), case, str(r), str(world), str(port),
-                               str(tmp), json.dumps(args)],
-                              cwd=tmp, env=_env(), stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for r in range(world)]
-    try:
-        outs = [p.communicate(timeout=RANK_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} of {case} exited {p.returncode}:\n{out}\n{err[-4000:]}"
+    port = free_port()
+    spawn_ranks(lambda r: [sys.executable, str(WORKER), case, str(r), str(world), str(port),
+                           str(tmp), json.dumps(args)], world, tmp, RANK_TIMEOUT_S, case)
     return [dict(np.load(tmp / f"{case}_{r}.npz")) for r in range(world)]
 
 
@@ -204,7 +181,7 @@ def test_cli_n_devices_runs_gloo_ranks(tmp_path):
     path = recon_params_file(tmp_path, "p.json", NITER=2, save_result=["objp"])
     out = subprocess.run([sys.executable, "-m", "ptyrad_tpu_torch", "run", "--params_path",
                           str(path), "--device", "cpu", "--n_devices", "2"],
-                         cwd=ROOT, env=_env(), capture_output=True, text=True,
+                         cwd=ROOT, env=rank_env(), capture_output=True, text=True,
                          timeout=RANK_TIMEOUT_S)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     iters = [line for line in out.stdout.splitlines() if "Total Loss" in line]
@@ -225,9 +202,9 @@ def test_cli_multihost_joins_a_world_of_one(tmp_path):
     path = recon_params_file(tmp_path, "p.json", NITER=1, save_result=["objp"])
     out = subprocess.run([sys.executable, "-m", "ptyrad_tpu_torch", "run", "--params_path",
                           str(path), "--device", "cpu", "--multihost", "--coordinator_address",
-                          f"127.0.0.1:{_free_port()}", "--num_processes", "1",
+                          f"127.0.0.1:{free_port()}", "--num_processes", "1",
                           "--process_id", "0"],
-                         cwd=ROOT, env=_env(), capture_output=True, text=True,
+                         cwd=ROOT, env=rank_env(), capture_output=True, text=True,
                          timeout=RANK_TIMEOUT_S)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert "process index   : 0 / 1" in out.stdout
@@ -257,8 +234,10 @@ def test_shard_model_gives_every_rank_rank_zeros_parameters(primitives):
 
 
 def test_shard_canvas_and_hypertune_refuse_more_than_one_rank(primitives):
+    """Hypertune over ranks is ROADMAP item A6b; shard_canvas runs on ranks
+    since the canvas path (tests/test_torch_canvas.py)."""
     for o in primitives:
-        assert "A7" in str(o["shard_canvas"]) and "A6b" in str(o["hypertune"])
+        assert "A6b" in str(o["hypertune"])
         assert "pad_batches(multiple_of=2)" in str(o["odd_slice"])
 
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from ptyrad_tpu_torch import optim as O
-from ptyrad_tpu_torch.engine.solver import build_train_epoch
+from ptyrad_tpu_torch.engine.solver import RankBatches, build_train_epoch
 from ptyrad_tpu_torch.models import make_model
 from test_torch_optim import jax_numpy, run_both, STEPS
 from torch_port_helpers import CPU, both_solvers, losses, np_, small_dataset, small_params
@@ -120,7 +120,7 @@ def test_grad_accumulation_matches_big_batch(dataset):
                                            device=CPU)
         before = np_(params.objp).copy()
         opt, _, start = O.create_optimizer({"name": "SGD"}, upd, params, grad_accumulation=k)
-        epoch = build_train_epoch(params, buffers, geom, None, opt, start)
+        epoch = build_train_epoch(params, RankBatches(params, buffers, geom), None, opt, start)
         epoch(idx.reshape(shape), mask.reshape(shape), 1)
         deltas.append((np_(params.objp) - before).ravel())
     assert np.abs(deltas[1]).max() > 0

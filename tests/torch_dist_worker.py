@@ -131,8 +131,8 @@ def workflow(params_path: str, group) -> dict:
 
 
 def primitives(group) -> dict:
-    """broadcast_str, all_reduce_sum's gradient, shard_model and the paths
-    that refuse more than one rank."""
+    """broadcast_str, all_reduce_sum's gradient, shard_model and the path
+    that refuses more than one rank (hypertune)."""
     from ptyrad_tpu_torch.engine.hypertune import run_hypertune
     from ptyrad_tpu_torch.parallel import all_reduce_sum, broadcast_str
 
@@ -148,13 +148,11 @@ def primitives(group) -> dict:
                                                        "shard_canvas": True}},
                           init_variables=init, device="cpu", verbose=False, group=group)
     out["obja_sum"] = float(solver.params.obja.sum())
-    solver.prepare()
-    for key, fn in (("shard_canvas", solver._build), ("hypertune", lambda: run_hypertune({}))):
-        try:
-            fn()
-            out[key] = np.array("no error")
-        except NotImplementedError as e:
-            out[key] = np.array(str(e))
+    try:
+        run_hypertune({})
+        out["hypertune"] = np.array("no error")
+    except NotImplementedError as e:
+        out["hypertune"] = np.array(str(e))
     try:
         rank_slice(torch.arange(5), torch.ones(5), group)
         out["odd_slice"] = np.array("no error")

@@ -6,10 +6,47 @@ the two compute the same thing; results come back as numpy arrays.
 
 from __future__ import annotations
 
+import os
+import socket
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import torch
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env() -> dict:
+    """The environment of a rank process: no launcher variables, one OpenMP
+    thread, the repository on the path."""
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                                            "MASTER_PORT", "LOCAL_RANK")}
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    return env
+
+
+def spawn_ranks(argv_of, world: int, cwd, timeout: float, what: str) -> None:
+    """Start ``world`` processes, rank r running argv_of(r) in cwd, wait for
+    them (each killed once ``timeout`` seconds pass) and assert that each
+    exited 0."""
+    procs = [subprocess.Popen(argv_of(r), cwd=cwd, env=rank_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, \
+            f"rank {r} of {what} exited {p.returncode}:\n{out[-4000:]}\n{err[-4000:]}"
 
 
 def toy_init(rng, n_scans=12, npix=16, omode=1, nz=3, pmode=2, canvas=32):
