@@ -193,6 +193,12 @@ Phases, one JSON object per line each:
                B1, B2, B4a and B4b launched and B3 not; then each data term
                alone for 2 iterations, where loss_poissn must fall; then its
                torch.profiler breakdown over 32 more steps.
+     dev_tools - utils/dev_tools on the card: test_loss_fn on a low-dose
+               batch (B4a) against the plain route at rtol 1e-4,
+               check_nan_inf and print_tree_sizes over the model, time_sync
+               around one training step beside CUDA events around another,
+               and trace() around a third: its Chrome trace must hold kernel
+               events.
      dist_tbl, dist_low_dose - data parallelism over ranks (A6): the tBL
                data with random_object's seeded start written once as .npz,
                then two ranks spawned on cuda:0 (gloo; one card, so no
@@ -210,7 +216,25 @@ Phases, one JSON object per line each:
                against the main phase, and how far float32 rounding alone
                moves either start (a one-rank run from the object times
                1 + 2^-23: about 1e-3 at iteration 2 from the flat start,
-               1e-6 from the seeded one; see DIST_WORLD).
+               1e-6 from the seeded one; see DIST_WORLD). The store is split
+               over the ranks (shard_measurements): dist_store_split runs
+               tBL again on the same ranks with it replicated and gates the
+               split run against it bit for bit (losses, parameters), each
+               store ceil(N/2) rows; per rank the store's bytes beside the
+               replicated store's, the row exchange's calls, host ms and
+               bytes a step, and peak memory.
+     hypertune_dist - hypertune over ranks (A6b), in the dist ranks' spawn:
+               a 2-trial study (RandomSampler, MedianPruner; the objp and
+               probe rates) at tBL's widths on a 32 x 32 sub-raster of its
+               data from a seeded object, 2 iterations a trial, rank 0
+               holding the study, against the same study in one process on
+               the card: the trial params and states equal, the values at
+               rtol 1e-5, every rank running every trial, B1-B3 launched on
+               each. Then one canvas trial at the largeFOV yml's widths on
+               the smallest sub-raster whose slabs hold a probe (30 x 30),
+               whose value must be the last loss of the plain canvas run of
+               its configuration on the same ranks, bit for bit. Per rank:
+               seconds and peak memory of each trial.
      canvas_largefov, canvas_fullscan - canvas sharding over ranks (A7)
                at demo/params/largeFOV_shard_canvas.yml's widths (128^2, 6
                probe modes, 1 object mode, 6 slices, batch 256, loss_single
@@ -3079,6 +3103,79 @@ def low_dose_terms_alone(dev, data: dict) -> None:
             f"loss_poissn alone did not fall through B4: {poissn}")
 
 
+DEV_TOOLS_RTOL = 1e-4  # the smoke run's terms on B4a against the plain route (forward_vs_plain's)
+
+
+def dev_tools_path(dev, card: str, init: dict, tmp: str) -> dict:
+    """utils/dev_tools on the card, on the low-dose data: test_loss_fn on a
+    batch of BATCH (forward() through B4a, the low-dose mix) against the
+    same smoke run on the plain route (fwd_fused off), within
+    DEV_TOOLS_RTOL; check_nan_inf and print_tree_sizes over the model;
+    time_sync around one training step, against CUDA events around
+    another; trace() around a third, whose Chrome trace must hold kernel
+    events. Returns the launches of the smoke run and the steps."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.utils import dev_tools as DT
+
+    data = low_dose_dataset(init)
+    solver = PtyRADSolver(LOW_DOSE_PARAMS, init_variables=data, device=dev, verbose=False)
+    solver.prepare()
+    solver._build()
+    p, b, g = solver.params, solver.buffers, solver.geom
+    idx = np.arange(BATCH)
+    loss_params = LOW_DOSE_PARAMS["loss_params"]
+    (total, terms), smoke = counted(lambda: DT.test_loss_fn(p, b, g, idx, loss_params))
+    plain_total, plain_terms = DT.test_loss_fn(p, b, dataclasses.replace(g, fwd_fused=False),
+                                               idx, loss_params)
+    rel = {k: abs(v - plain_terms[k]) / max(abs(plain_terms[k]), 1e-30)
+           for k, v in terms.items() if plain_terms[k] != 0}
+    rel["total"] = abs(total - plain_total) / abs(plain_total)
+    clean = DT.check_nan_inf(p, "params") and DT.check_nan_inf(b, "buffers")
+    nbytes = DT.print_tree_sizes(p, "params")
+    bidx = torch.as_tensor(solver.batch_idx[:1], device=dev)
+    bmask = torch.as_tensor(solver.batch_mask[:1], device=dev)
+
+    def steps():
+        t0 = DT.time_sync(p)
+        solver.train_epoch(bidx, bmask, 1)
+        t1 = DT.time_sync(p)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        solver.train_epoch(bidx, bmask, 2)
+        end.record()
+        end.synchronize()
+        with DT.trace(f"{tmp}/dev_tools_trace") as path:
+            solver.train_epoch(bidx, bmask, 3)
+            DT.time_sync(p)
+        return (t1 - t0) * 1e3, start.elapsed_time(end), path
+
+    (sync_ms, event_ms, path), stepped = counted(steps)
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = add_counts(smoke, stepped)
+    emit({"phase": "dev_tools", "card": card, "batch": BATCH, "terms": terms, "total": total,
+          "plain_terms": plain_terms, "plain_total": plain_total, "rel_err": rel,
+          "rtol": DEV_TOOLS_RTOL, "clean": clean, "params_bytes": nbytes,
+          "time_sync_step_ms": sync_ms, "event_step_ms": event_ms,
+          "trace_bytes": os.path.getsize(path), "trace_events": len(events),
+          "trace_kernel_events": len(kernels), "smoke_launches": smoke["B4a dp_fwd"],
+          "launches": {k: launches[k] for k in LOW_DOSE_KERNELS}})
+    require(smoke["B4a dp_fwd"] > 0 and smoke["B4b dp_bwd"] == 0,
+            f"dev_tools: the smoke run launched B4a {smoke['B4a dp_fwd']} times, B4b "
+            f"{smoke['B4b dp_bwd']}")
+    require(np.isfinite(total) and max(rel.values()) <= DEV_TOOLS_RTOL,
+            f"dev_tools: test_loss_fn on B4a against the plain route: {rel}")
+    require(clean and nbytes == sum(t.numel() * t.element_size() for _, t in p.named()),
+            f"dev_tools: check_nan_inf {clean}, print_tree_sizes {nbytes}")
+    require(sync_ms > 0 and event_ms > 0, f"dev_tools: step ms {sync_ms}, {event_ms}")
+    require(len(events) > 0 and len(kernels) > 0,
+            f"dev_tools: the trace holds {len(events)} events, {len(kernels)} kernels")
+    del solver
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- phase 6: the PSO path ----------------------------------------------------
 
 def pso_positions() -> tuple[np.ndarray, int]:
@@ -4518,13 +4615,16 @@ DIST_KINDS = {"tbl": TBL_KERNELS, "low_dose": LOW_DOSE_KERNELS}
 DIST_ALLREDUCE_REPS = 20
 
 
-def dist_problem(kind: str, init: dict, low_dose_probe) -> tuple[dict, dict]:
+def dist_problem(kind: str, init: dict, low_dose_probe,
+                 split: bool = True) -> tuple[dict, dict]:
     """(params, init_variables) of a dist phase: tBL's sections or the
     low-dose mix for DIST_NITER iterations, on the tBL init (the low-dose
-    phase's normalisation, with its probe as low_dose_dataset scaled it)."""
+    phase's normalisation, with its probe as low_dose_dataset scaled it);
+    the store split over the ranks (the tBL yml's shard_measurements: true)
+    or, with ``split`` False, replicated."""
     base = TBL_PARAMS if kind == "tbl" else LOW_DOSE_PARAMS
     params = copy.deepcopy(base)
-    params["recon_params"]["NITER"] = DIST_NITER
+    params["recon_params"].update(NITER=DIST_NITER, shard_measurements=split)
     if kind == "tbl":
         return params, init
     meas = init["measurements"]
@@ -4533,17 +4633,16 @@ def dist_problem(kind: str, init: dict, low_dose_probe) -> tuple[dict, dict]:
 
 def first_batch_grads(solver, group) -> tuple[float, dict]:
     """The loss and gradients of iteration 1's first batch at the start
-    (each rank its block, the gradients all-reduced), on the host; the
-    gradients are then cleared."""
-    from ptyrad_tpu_torch.engine.solver import iter_batch_perm, loss_fn, params_tensors
-    from ptyrad_tpu_torch.parallel import all_reduce_grads, rank_slice
+    (each rank its block, its rows fetched from the split store, the
+    gradients all-reduced), on the host; the gradients are then cleared."""
+    from ptyrad_tpu_torch.engine.solver import iter_batch_perm, params_tensors
+    from ptyrad_tpu_torch.parallel import all_reduce_grads
 
     b = int(iter_batch_perm(1, solver.batch_idx.shape[0])[0])
-    idx = torch.as_tensor(solver.batch_idx[b], device=solver.device)
-    mask = torch.as_tensor(solver.batch_mask[b], device=solver.device)
-    idx, mask = rank_slice(idx, mask, group)
-    total, _ = loss_fn(solver.params, solver.buffers, solver.geom, idx, mask,
-                       solver.loss_params, group)
+    idx = torch.as_tensor(solver.batch_idx[b:b + 1], device=solver.device)
+    mask = torch.as_tensor(solver.batch_mask[b:b + 1], device=solver.device)
+    idx, mask, plans = solver.share.slice(idx, mask)
+    total, _ = solver.share.loss(idx[0], mask[0], solver.loss_params, plans[0])
     total.backward()
     all_reduce_grads(params_tensors(solver.params), group)
     grads = {}
@@ -4592,14 +4691,44 @@ def allreduce_timing(solver, group) -> dict:
             "loss_allreduce_ms": median_ms(lambda: all_reduce_sum(small, group))}
 
 
-def dist_run(kind: str, init: dict, low_dose_probe, dev, group) -> tuple[dict, dict]:
+class ExchangeTimer:
+    """Wraps torch.distributed.all_to_all_single (the split store's row
+    exchange) for the duration of a ``with``: each call's host ms,
+    synchronised before and after, and the bytes this rank hands it (its
+    rows for every rank, its own included)."""
+
+    def __enter__(self):
+        self._fn = torch.distributed.all_to_all_single
+        self.ms, self.sent = [], 0
+
+        def timed(output, input, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return self._fn(output, input, *args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.sent += input.numel() * input.element_size()
+
+        torch.distributed.all_to_all_single = timed
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_to_all_single = self._fn
+        return False
+
+
+def dist_run(kind: str, init: dict, low_dose_probe, dev, group,
+             split: bool = True) -> tuple[dict, dict]:
     """One dist run, in a rank (group) or in the one-rank parent (group
     None): the first batch's loss and gradients, then DIST_NITER iterations
     under counted(); in a rank also the parameters' digest after each
-    iteration, the collectives of one step and the all-reduce's times."""
+    iteration, the collectives of one step, the all-reduce's times, the
+    store's bytes and the row exchange's host ms and bytes a step."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
 
-    params, data = dist_problem(kind, init, low_dose_probe)
+    params, data = dist_problem(kind, init, low_dose_probe, split)
     solver = PtyRADSolver(params, init_variables=data, device=dev, verbose=False, group=group)
     solver.prepare()
     solver._build()
@@ -4621,13 +4750,23 @@ def dist_run(kind: str, init: dict, low_dose_probe, dev, group) -> tuple[dict, d
     torch.distributed.all_reduce = counting
     try:
         t0 = time.perf_counter()
-        launches = counted(lambda: solver.run(
-            callback=lambda niter, p, history: digests.append(params_digest(p))))[1]
+        with ExchangeTimer() as exchange:
+            launches = counted(lambda: solver.run(
+                callback=lambda niter, p, history: digests.append(params_digest(p))))[1]
         run_s = time.perf_counter() - t0
     finally:
         torch.distributed.all_reduce = all_reduce
     steps = DIST_NITER * solver.batch_idx.shape[0]
+    store = solver.buffers.measurements
+    row_bytes = store[0].numel() * store.element_size()
     out.update({
+        "store_split": solver.buffers.store_split is not None,
+        "store_rows": store.shape[0], "store_bytes": store.shape[0] * row_bytes,
+        "replicated_store_bytes": solver.geom.n_scans * row_bytes,
+        "exchanges_per_step": len(exchange.ms) / steps,
+        "exchange_ms_per_step": sum(exchange.ms) / steps,
+        "exchange_ms_median": statistics.median(exchange.ms) if exchange.ms else 0.0,
+        "exchange_bytes_per_step": exchange.sent / steps,
         "losses": [v for _, v in solver.history.loss_iters], "iter_s": solver.history.iter_times,
         "run_s": run_s, "digests": digests, "launches": launches,
         "allreduces_per_step": calls[0] / steps, "local_batch": solver.batch_idx.shape[1] // group.size,
@@ -4638,8 +4777,10 @@ def dist_run(kind: str, init: dict, low_dose_probe, dev, group) -> tuple[dict, d
 
 def dist_rank(rank: int, tmp: str, port: int) -> None:
     """A rank of the dist phases (spawned): joins the gloo group on cuda:0,
-    runs both kinds from the parent's init and writes
-    <tmp>/dist_<rank>.json and dist_<rank>_<kind>.npz."""
+    runs both kinds from the parent's init (the store split), the tBL run
+    from the flat start and again with the store replicated, then the
+    hypertune_dist studies, and writes <tmp>/dist_<rank>.json and
+    dist_<rank>_<kind>.npz."""
     from ptyrad_tpu_torch.parallel import init_multihost
 
     group = init_multihost(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo")
@@ -4653,6 +4794,12 @@ def dist_rank(rank: int, tmp: str, port: int) -> None:
             np.savez(f"{tmp}/dist_{rank}_{kind}.npz", **grads)
             torch.cuda.empty_cache()
         out["tbl_flat"], _ = dist_run("tbl", dict(init, obj=flat_obj), None, group.device, group)
+        out["tbl_replicated"], _ = dist_run("tbl", init, None, group.device, group, split=False)
+        del init
+        torch.cuda.empty_cache()
+        with np.load(f"{tmp}/ht_dist.npz") as f:
+            arrays = {k: f[k] for k in f.files}
+        out["hypertune"] = hypertune_rank(arrays, tmp, group)
         with open(f"{tmp}/dist_{rank}.json", "w", encoding="utf-8") as f:
             json.dump(out, f)
     finally:
@@ -4719,6 +4866,8 @@ def dist_path(dev, card: str, init: dict, flat_losses: list) -> dict:
         one = {kind: dist_run(kind, init, low_dose_probe, dev, None) for kind in DIST_KINDS}
         seeded_ulp = ulp_yardstick(dev, init, one["tbl"][0]["losses"])
         torch.cuda.empty_cache()
+        ht_ref = hypertune_reference(dev, init, tmp)
+        torch.cuda.empty_cache()
         loopback_env()
         t1 = time.perf_counter()
         spawn_ranks(dist_rank, (tmp, _free_port()), DIST_WORLD, DIST_TIMEOUT_S)
@@ -4771,7 +4920,238 @@ def dist_path(dev, card: str, init: dict, flat_losses: list) -> dict:
         require(o["tbl_flat"]["digests"] == outs[0]["tbl_flat"]["digests"],
                 f"dist_tbl from the flat start: rank {r}'s parameters part from rank 0's")
         launches.append(o["tbl_flat"]["launches"])
+    launches += store_split_check(card, outs)
+    launches += hypertune_dist_check(card, ht_ref, [o["hypertune"] for o in outs])
     return add_counts(*launches)
+
+
+def store_split_check(card: str, outs: list) -> list:
+    """dist_tbl's split store against its rerun with the store replicated
+    (shard_measurements: false) on the same ranks: losses and parameters
+    bit for bit; each rank's store, exchange and peak memory reported.
+    Returns the replicated reruns' launches."""
+    rows = []
+    for r, o in enumerate(outs):
+        split, rep = o["tbl"], o["tbl_replicated"]
+        rows.append({
+            "rank": r, "store_rows": split["store_rows"], "store_bytes": split["store_bytes"],
+            "replicated_store_bytes": rep["store_bytes"],
+            "exchanges_per_step": split["exchanges_per_step"],
+            "exchange_ms_per_step": split["exchange_ms_per_step"],
+            "exchange_ms_median": split["exchange_ms_median"],
+            "exchange_bytes_per_step": split["exchange_bytes_per_step"],
+            "peak_mem_gb": {"split": split["peak_mem_gb"], "replicated": rep["peak_mem_gb"]},
+            "iter_s": {"split": split["iter_s"], "replicated": rep["iter_s"]},
+            "losses_equal": split["losses"] == rep["losses"],
+            "digests_equal": split["digests"] == rep["digests"]})
+    emit({"phase": "dist_store_split", "card": card, "world": DIST_WORLD, "backend": "gloo",
+          "n_patterns": N_SCANS, "batch": BATCH, "ranks": rows})
+    for r, (o, row) in enumerate(zip(outs, rows)):
+        require(o["tbl"]["store_split"] and not o["tbl_replicated"]["store_split"],
+                f"dist_store_split rank {r}: the store was not split, or split when asked not to")
+        require(row["store_rows"] == -(-N_SCANS // DIST_WORLD),
+                f"dist_store_split rank {r}: {row['store_rows']} store rows")
+        require(row["replicated_store_bytes"] == DIST_WORLD * row["store_bytes"],
+                f"dist_store_split rank {r}: store bytes {row['store_bytes']} against "
+                f"{row['replicated_store_bytes']} replicated")
+        require(row["exchanges_per_step"] == 1.0,
+                f"dist_store_split rank {r}: {row['exchanges_per_step']} exchanges a step")
+        require(row["losses_equal"] and row["digests_equal"],
+                f"dist_store_split rank {r}: the split store's run parts from the replicated "
+                f"store's: {o['tbl']['losses']} against {o['tbl_replicated']['losses']}")
+    return [o["tbl_replicated"]["launches"] for o in outs]
+
+
+HT_DIST_SIDE = 32                  # the study's sub-raster of the tBL scan: 1,024 patterns
+HT_DIST_TRIALS, HT_DIST_NITER = 2, 2
+HT_DIST_RTOL = 1e-5                # the ranks' trial values against the one-process study's
+HT_DIST_START_SEED = SEED + 11     # the seeded object every study starts from
+
+
+def canvas_trial_side() -> int:
+    """The smallest square sub-raster of the tBL scan whose canvas (the
+    Initializer's: 1.2 times the scan's extent plus a probe,
+    initialization.init_pos) splits over DIST_WORLD slabs at least a probe
+    tall each (parallel.plan_canvas_sharding)."""
+    for side in range(2, N_SIDE + 1):
+        rows = int(1.2 * np.ceil((side - 1) * STEP_PX + NPIX))
+        if -(-rows // DIST_WORLD) >= NPIX:
+            return side
+    raise ValueError("no sub-raster of the tBL scan splits into slabs a probe tall")
+
+
+def sub_raster(side: int) -> np.ndarray:
+    """Scan indices of the side x side block at the tBL raster's corner."""
+    r = np.arange(side)
+    return (r[:, None] * N_SIDE + r[None, :]).ravel()
+
+
+def ht_dist_params(meas: np.ndarray, obj, tmp: str, tag: str, canvas: bool) -> dict:
+    """A study on ``meas`` (a square sub-raster of the tBL patterns, in
+    memory) from the seeded object ``obj`` (None: the Initializer's flat
+    one), through tbl_params_file's sections: the calibrated dx, no
+    position jitter, the store split. The data-parallel study: HT_DIST_TRIALS
+    trials of HT_DIST_NITER iterations tuning the objp and probe rates,
+    RandomSampler(seed 0), MedianPruner after one finished trial. ``canvas``:
+    one trial at the largeFOV yml's widths (batch 256, its constraints,
+    shard_canvas), its objp rate the yml's."""
+    side = int(round(np.sqrt(len(meas))))
+    d = tbl_params_file("")
+    d["init_params"].update(
+        pos_N_scans=side * side, pos_N_scan_slow=side, pos_N_scan_fast=side,
+        meas_source="custom", meas_params=meas, meas_flipT=None,
+        meas_calibration={"mode": "dx", "value": SIM_DX, "thresh": 0.5}, pos_scan_rand_std=None,
+        obj_source="simu" if obj is None else "custom", obj_params=obj)
+    d["recon_params"].update(
+        NITER=HT_DIST_NITER, SAVE_ITERS=None, output_dir=f"{tmp}/{tag}_out", save_result=[],
+        selected_figs=[], if_quiet=True, shard_measurements=True)
+    tune = d["hypertune_params"]["tune_params"]
+    tune["scale"]["state"] = tune["rotation"]["state"] = False
+    tune["oplr"] = _tune(True, "cat", choices=[2.5e-4, 5e-4, 1e-3])
+    tune["plr"] = _tune(True, "cat", choices=[1e-4, 5e-4])
+    d["hypertune_params"].update(
+        if_hypertune=True, collate_results=False, n_trials=HT_DIST_TRIALS,
+        sampler_params={"name": "RandomSampler", "configs": {"seed": 0}},
+        pruner_params={"name": "MedianPruner", "configs": {"n_startup_trials": 1}},
+        storage_path=f"{tmp}/{tag}.sqlite3", study_name=tag)
+    if canvas:
+        d["constraint_params"].update(
+            {k: {**v, "freq": None} for k, v in d["constraint_params"].items()})
+        d["constraint_params"].update(copy.deepcopy(LARGEFOV_PARAMS["constraint_params"]))
+        d["recon_params"].update(BATCH_SIZE={"size": CANVAS_BATCH, "grad_accumulation": 1},
+                                 shard_canvas=True)
+        tune["plr"]["state"] = False
+        tune["oplr"] = _tune(True, "cat", choices=[5e-4])
+        d["hypertune_params"].update(n_trials=1, pruner_params=None)
+    return d
+
+
+def ht_start(meas: np.ndarray, tmp: str, tag: str, canvas: bool) -> np.ndarray:
+    """The seeded object of a study: random_object at the shape of the
+    Initializer's object for these patterns."""
+    from ptyrad_tpu_torch.initialization import Initializer
+
+    d = ht_dist_params(meas, None, tmp, tag, canvas)
+    init = Initializer(d["init_params"], verbose=False, rng=np.random.RandomState(SEED))
+    shape = init.init_all().init_variables["obj"].shape
+    return random_object(shape, HT_DIST_START_SEED)
+
+
+def hypertune_reference(dev, init: dict, tmp: str) -> dict:
+    """The hypertune_dist phase's inputs and its one-process reference: the
+    sub-rasters' patterns and seeded objects, written to <tmp>/ht_dist.npz
+    for the ranks, and the data-parallel study run here on one rank of the
+    card (trials, seconds)."""
+    from ptyrad_tpu_torch.engine.hypertune import run_hypertune
+    from ptyrad_tpu_torch.parallel import plan_canvas_sharding
+
+    meas_all = init["measurements"]
+    meas_all = meas_all.cpu().numpy() if torch.is_tensor(meas_all) else np.asarray(meas_all)
+    side = canvas_trial_side()
+    arrays = {"meas": np.ascontiguousarray(meas_all[sub_raster(HT_DIST_SIDE)]),
+              "canvas_meas": np.ascontiguousarray(meas_all[sub_raster(side)])}
+    arrays["obj"] = ht_start(arrays["meas"], tmp, "ht_shape", False)
+    arrays["canvas_obj"] = ht_start(arrays["canvas_meas"], tmp, "ht_shape", True)
+    # the canvas trial's scan is the smallest whose slabs hold a probe
+    d = ht_dist_params(arrays["canvas_meas"], arrays["canvas_obj"], tmp, "ht_plan", True)
+    from ptyrad_tpu_torch.initialization import Initializer
+
+    iv = Initializer(d["init_params"], verbose=False,
+                     rng=np.random.RandomState(SEED)).init_all().init_variables
+    plan_canvas_sharding(iv["crop_pos"], iv["obj"].shape[-2], NPIX, DIST_WORLD)
+    np.savez(f"{tmp}/ht_dist.npz", **arrays)
+    d = ht_dist_params(arrays["meas"], arrays["obj"], tmp, "ht_one", False)
+    t0 = time.perf_counter()
+    study = run_hypertune(d, device=dev, init_rng=np.random.RandomState(SEED), use_optuna=False)
+    return {"trials": study.trials, "seconds": time.perf_counter() - t0,
+            "canvas_side": side, "canvas_rows": int(iv["obj"].shape[-2])}
+
+
+def hypertune_rank(arrays: dict, tmp: str, group) -> dict:
+    """A rank's share of hypertune_dist: the data-parallel study and the
+    canvas trial through run_hypertune(group=) (rank 0 holding each study),
+    each trial's seconds and peak memory on this rank and the launches;
+    then the canvas trial's configuration as a plain canvas-sharded run of
+    the same ranks, whose last loss the trial's value must be."""
+    from ptyrad_tpu_torch.engine.hypertune import run_hypertune
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+    from ptyrad_tpu_torch.initialization import Initializer
+
+    out = {}
+    for tag, canvas in (("ht_dist", False), ("ht_canvas", True)):
+        prefix = "canvas_" if canvas else ""
+        d = ht_dist_params(arrays[prefix + "meas"], arrays[prefix + "obj"], tmp, tag, canvas)
+        t0 = time.perf_counter()
+        with TrialRecorder() as rec:
+            study, launches = counted(lambda: run_hypertune(
+                d, device=group.device, init_rng=np.random.RandomState(SEED), use_optuna=False,
+                group=group))
+        out[tag] = {"seconds": time.perf_counter() - t0, "launches": launches,
+                    "trial_s": [r["seconds"] for r in rec.rows],
+                    "trial_peak_gb": [r["peak_gb"] for r in rec.rows],
+                    "trial_numbers": [r["number"] for r in rec.rows],
+                    "exceptions": [r.get("exception") for r in rec.rows],
+                    "trials": None if study is None else study.trials}
+        torch.cuda.empty_cache()
+    init = Initializer(d["init_params"], verbose=False, rng=np.random.RandomState(SEED))
+    solver = PtyRADSolver(d, init_variables=init.init_all().init_variables, device=group.device,
+                          verbose=False, group=group)
+    solver.run()
+    out["ht_canvas"].update(direct_losses=[v for _, v in solver.history.loss_iters],
+                            direct_canvas=solver._canvas is not None)
+    del solver
+    torch.cuda.empty_cache()
+    return out
+
+
+def hypertune_dist_check(card: str, ref: dict, ranks: list) -> list:
+    """hypertune_dist's gates: the ranks' data-parallel study (rank 0's)
+    has the one-process study's trial params and states, its values within
+    HT_DIST_RTOL; every rank ran every trial, none raised; the canvas
+    trial is COMPLETE, canvas-sharded, and its value is the last loss of
+    the plain canvas run of its configuration, bit for bit; B1-B3 launched
+    in both studies on every rank. Returns the ranks' launches."""
+    dp, cv = ranks[0]["ht_dist"], ranks[0]["ht_canvas"]
+    rel = [abs(a["value"] - b["value"]) / abs(b["value"]) for a, b in zip(dp["trials"],
+                                                                         ref["trials"])]
+    emit({"phase": "hypertune_dist", "card": card, "world": DIST_WORLD, "backend": "gloo",
+          "n_patterns": HT_DIST_SIDE ** 2, "batch": BATCH, "iterations": HT_DIST_NITER,
+          "one_process": {"seconds": ref["seconds"],
+                          "trials": [[t["number"], t["state"], t["value"], t["params"]]
+                                     for t in ref["trials"]]},
+          "ranks_trials": [[t["number"], t["state"], t["value"], t["params"]]
+                           for t in dp["trials"]],
+          "value_rel_err": rel, "value_rtol": HT_DIST_RTOL,
+          "ranks": [{"study_s": o["ht_dist"]["seconds"], "trial_s": o["ht_dist"]["trial_s"],
+                     "trial_peak_gb": o["ht_dist"]["trial_peak_gb"],
+                     "canvas_trial_s": o["ht_canvas"]["trial_s"],
+                     "canvas_trial_peak_gb": o["ht_canvas"]["trial_peak_gb"]} for o in ranks],
+          "canvas": {"side": ref["canvas_side"], "canvas_rows": ref["canvas_rows"],
+                     "n_patterns": ref["canvas_side"] ** 2, "batch": CANVAS_BATCH,
+                     "trials": [[t["number"], t["state"], t["value"]] for t in cv["trials"]],
+                     "direct_losses": cv["direct_losses"]}})
+    require([t["params"] for t in dp["trials"]] == [t["params"] for t in ref["trials"]],
+            "hypertune_dist: the ranks' trial params differ from the one-process study's")
+    require([t["state"] for t in dp["trials"]] == [t["state"] for t in ref["trials"]],
+            "hypertune_dist: the ranks' trial states differ from the one-process study's")
+    require(len(rel) == HT_DIST_TRIALS and max(rel) <= HT_DIST_RTOL,
+            f"hypertune_dist: trial values off by {rel}")
+    for r, o in enumerate(ranks):
+        for tag in ("ht_dist", "ht_canvas"):
+            require(o[tag]["trial_numbers"] == ranks[0][tag]["trial_numbers"],
+                    f"hypertune_dist rank {r}: ran trials {o[tag]['trial_numbers']}")
+            require(not any(o[tag]["exceptions"]),
+                    f"hypertune_dist rank {r}: {o[tag]['exceptions']}")
+            for name in TBL_KERNELS:
+                require(o[tag]["launches"][name] > 0,
+                        f"hypertune_dist rank {r}: {name} not launched in {tag}")
+        require((o["ht_dist"]["trials"] is None) == (r > 0) and o["ht_canvas"]["direct_canvas"],
+                f"hypertune_dist rank {r}: a study held off rank 0, or a run not canvas-sharded")
+    (trial,) = cv["trials"]
+    require(trial["state"] == "COMPLETE" and trial["value"] == cv["direct_losses"][-1],
+            f"hypertune_dist: the canvas trial {trial} against the plain canvas run "
+            f"{cv['direct_losses']}")
+    return [o[tag]["launches"] for o in ranks for tag in ("ht_dist", "ht_canvas")]
 
 
 def _free_port() -> int:
@@ -5374,6 +5754,9 @@ def main() -> int:
     store_data = tbl_store_dataset(init)
     del solver
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dev_tools_") as tmp:
+        dev_tools_launches = dev_tools_path(dev, card, init, tmp)
+    torch.cuda.empty_cache()
     dist_launches = dist_path(dev, card, init, main_losses)
     del init
     torch.cuda.empty_cache()
@@ -5423,6 +5806,7 @@ def main() -> int:
                         forward_launches, low_dose_launches, store_launches, tilt_launches,
                         lbfgs_launches, accum_launches, family_launches, figures_launches,
                         hypertune_launches, mp_launches, forward_bf16_launches, dist_launches,
+                        dev_tools_launches,
                         {k: 0 if k in CANVAS_KERNELS else v for k, v in canvas_ranks.items()},
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,

@@ -60,8 +60,9 @@ def _build_kernels(device: str) -> None:
 
 
 def _run(args, group) -> None:
-    """The run of one process: a reconstruction, or a hypertune study (one
-    rank only), with rank 0 printing and writing."""
+    """The run of one process: a reconstruction, or a hypertune study whose
+    trials every rank runs, with rank 0 printing and writing (and holding
+    the study)."""
     from ptyrad_tpu_torch.device import resolve_device
     from ptyrad_tpu_torch.load import load_params
     from ptyrad_tpu_torch.utils.logging import CustomLogger
@@ -78,7 +79,7 @@ def _run(args, group) -> None:
         if (params.get("hypertune_params") or {}).get("if_hypertune"):
             from ptyrad_tpu_torch.engine.hypertune import run_hypertune
 
-            run_hypertune(params, logger=logger, jobid=args.jobid, device=device)
+            run_hypertune(params, logger=logger, jobid=args.jobid, device=device, group=group)
         else:
             from ptyrad_tpu_torch.engine.workflow import run_reconstruction
 

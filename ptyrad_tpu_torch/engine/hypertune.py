@@ -18,6 +18,21 @@ trial raises too: there is no retry with the kernels off.
 Multi-worker: N independent processes share one sqlite storage (the
 reference's Slurm LoopSubmit pattern); optuna is used when it imports, else
 the built-in engine (engine/tuner.py) with the same semantics.
+
+Over ranks (``group``, a parallel.DataGroup; the JAX package runs each
+trial on its mesh, ptyrad_tpu/engine/hypertune.py:188-340): every rank runs
+every trial, its solver on the group, so the store is split and the batches
+shared as in a reconstruction. Only rank 0 holds the study: it opens it,
+samples, reports, prunes, collates and prints. Before each trial it
+broadcasts the trial's number and sampled values (or the end of the study);
+the other ranks replay them through ``_FollowerTrial`` and take rank 0's
+pruning decision, broadcast after every iteration, so every rank re-runs the
+same Initializer stages, leaves the loop at the same iteration and fails a
+diverged trial with the others. A canvas-sharded trial
+(``recon_params.shard_canvas``) iterates through the solver's canvas loop;
+its error reads whole canvases, gathered when the metric needs them, and
+every rank gathers the whole canvases after a pruned trial before rank 0
+collates.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ import numpy as np
 
 from ptyrad_tpu_torch.engine import tuner as builtin_tuner
 from ptyrad_tpu_torch.initialization import Initializer
+from ptyrad_tpu_torch.parallel.mesh import broadcast_object, broadcast_str
 from ptyrad_tpu_torch.utils.logging import vprint
 
 LR_TO_TENSOR = {
@@ -138,14 +154,17 @@ def apply_trial_params(trial, params: dict, init: Initializer) -> dict:
     return params
 
 
-def compute_hypertune_error(solver, error_metric: str) -> float:
+def compute_hypertune_error(solver, error_metric: str, objp=None) -> float:
+    """The trial's error: its last loss, or minus the contrast of the phase
+    object ``objp`` (a whole canvas; None: the solver's own)."""
     if error_metric == "loss":
         return float(solver.history.loss_iters[-1][1])
     if error_metric == "contrast":
         from ptyrad_tpu_torch.losses import objp_contrast
 
+        objp = solver.params.objp if objp is None else objp
         return -objp_contrast(
-            solver.params.objp.detach().cpu().numpy(), solver.buffers.crop_pos.cpu().numpy(),
+            objp.detach().cpu().numpy(), solver.buffers.crop_pos.cpu().numpy(),
             solver.geom.probe_shape, solver.indices,
         )
     raise ValueError(f"Unsupported error_metric '{error_metric}'; use 'loss' or 'contrast'")
@@ -156,66 +175,143 @@ class _StopTrial(Exception):
     pruner has spoken."""
 
 
+class _LeadTrial:
+    """Rank 0's side of a trial over ranks: the study's trial, whose sampled
+    values it records and announces to the other ranks, and whose pruning
+    decision it sends them."""
+
+    def __init__(self, trial, group):
+        self.trial, self.group, self.values = trial, group, {}
+        self.number = trial.number
+
+    @property
+    def params(self) -> dict:
+        return self.trial.params
+
+    def _keep(self, name, value):
+        self.values[name] = value
+        return value
+
+    def suggest_float(self, name, *args, **kwargs):
+        return self._keep(name, self.trial.suggest_float(name, *args, **kwargs))
+
+    def suggest_int(self, name, *args, **kwargs):
+        return self._keep(name, self.trial.suggest_int(name, *args, **kwargs))
+
+    def suggest_categorical(self, name, *args, **kwargs):
+        return self._keep(name, self.trial.suggest_categorical(name, *args, **kwargs))
+
+    def announce(self) -> None:
+        broadcast_object((self.number, self.values), self.group)
+
+    def report(self, value: float, step: int) -> None:
+        self.trial.report(value, step)
+
+    def should_prune(self) -> bool:
+        return broadcast_object(bool(self.trial.should_prune()), self.group)
+
+
+class _FollowerTrial:
+    """Another rank's side: rank 0's trial number and sampled values,
+    reports that go nowhere, and rank 0's pruning decision."""
+
+    def __init__(self, number: int, values: dict, group):
+        self.number, self.values, self.group = number, dict(values), group
+        self.params = self.values
+
+    def _value(self, name, *args, **kwargs):
+        return self.values[name]
+
+    suggest_float = suggest_int = suggest_categorical = _value
+
+    def announce(self) -> None:
+        pass
+
+    def report(self, value: float, step: int) -> None:
+        pass
+
+    def should_prune(self) -> bool:
+        return broadcast_object(None, self.group)
+
+
 def hypertune_objective(trial, params: dict, init: Initializer, device=None,
-                        verbose: bool = False) -> float:
+                        verbose: bool = False, group=None) -> float:
     """One trial: apply sampled params, rebuild the model, run NITER
     iterations with per-iteration pruning reports, collate results.
     run_hypertune passes catch=(FloatingPointError,) to optuna, so a diverged
-    trial is recorded as failed without ending the study."""
+    trial is recorded as failed without ending the study. With a group of
+    ranks, ``trial`` is a _LeadTrial on rank 0 (which announces the sampled
+    values once they are drawn) or a _FollowerTrial, and rank 0 alone
+    collates."""
     trial_params = apply_trial_params(trial, params, init)
+    if group is not None:
+        trial.announce()
     recon_params = trial_params["recon_params"]
     ht = trial_params["hypertune_params"]
     n_iter = int(recon_params.get("NITER", 50))
     trial_id = "t" + str(trial.number).zfill(4)
 
     solver, error, pruned = _run_trial_loop(trial, trial_params, init, device, verbose, ht,
-                                            n_iter)
-    if ht.get("collate_results", True):
+                                            n_iter, group)
+    if ht.get("collate_results", True) and (group is None or group.is_main):
         _collate_trial(trial, trial_params, init, solver, error, trial_id, ht, recon_params)
     if pruned:
         raise _pruned_exception()
     return error
 
 
-def _run_trial_loop(trial, trial_params, init, device, verbose, ht, n_iter):
+def _run_trial_loop(trial, trial_params, init, device, verbose, ht, n_iter, group=None):
     """Build the trial's solver and run its iterations through the
     production loop; returns (solver, error, pruned).
 
     Adam and the other per-batch optimizers run recon_loop (the batch order
     permuted per iteration, the due constraints after each). LBFGS runs
     _lbfgs_loop on the permuted batches, as the JAX package's trial passes
-    them to its lbfgs_step. After each iteration the callback raises
-    FloatingPointError on a non-finite loss (before any report: a NaN value
-    would break the TPE sort order and is unprunable), then, with a pruner,
-    reports the error and stops the loop when the pruner says so."""
+    them to its lbfgs_step. A canvas-sharded solver runs its canvas loop
+    (the per-slab draw; LBFGS on iteration 0's split), the callback on the
+    rank's slabs, and ends with whole canvases even when pruned. After each
+    iteration the callback raises FloatingPointError on a non-finite loss
+    (before any report: a NaN value would break the TPE sort order and is
+    unprunable), then, with a pruner, reports the error and stops the loop
+    when the pruner says so."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver, recon_loop
 
     solver = PtyRADSolver(trial_params, init_variables=init.init_variables, device=device,
-                          verbose=verbose)
+                          verbose=verbose, group=group)
     solver.prepare()
     solver._build()
     state = {"error": None, "pruned": False}
+    canvas = solver._canvas is not None
 
     def callback(niter, params, history):
         total = history.loss_iters[-1][1]
         if not np.isfinite(total):
             raise FloatingPointError(f"trial diverged: non-finite loss at iter {niter}")
         if ht.get("pruner_params") is not None:
-            state["error"] = compute_hypertune_error(solver, ht["error_metric"])
+            objp = None
+            if canvas and ht["error_metric"] == "contrast":
+                shard = solver._canvas[0]
+                objp = shard.gather(shard.params.objp)
+            state["error"] = compute_hypertune_error(solver, ht["error_metric"], objp)
             trial.report(state["error"], niter)
             if trial.should_prune():
                 state["pruned"] = True
                 raise _StopTrial()
 
+    # the canvas loop hands this callback the rank's slabs, ungathered
+    callback.canvas_slabs = True
     try:
-        if solver.lbfgs_objective is not None:
+        if canvas:
+            solver._canvas_loop(n_iter, callback)
+        elif solver.lbfgs_objective is not None:
             solver._lbfgs_loop(n_iter, callback, permute=True)
         else:
             recon_loop(solver.train_epoch, solver.params, solver.batch_idx, solver.batch_mask,
                        n_iter, solver.constraint_fn, solver.buffers, history=solver.history,
                        callback=callback, verbose=verbose, optimizer=solver.optimizer)
     except _StopTrial:
-        pass
+        if canvas:
+            solver._canvas_close()
     losses = solver.history.loss_iters
     if losses and not np.isfinite(losses[-1][1]):
         # recon_loop stops at a non-finite loss before its callback
@@ -239,13 +335,34 @@ def _collate_trial(trial, trial_params, init, solver, error, trial_id, ht, recon
     out_dir = recon_params.get("output_dir", "output/")
     niter = len(solver.history.loss_iters)
     save_results(out_dir, solver.params, solver.buffers, solver.geom, trial_params,
-                 solver.optimizer, solver.history, niter, solver.indices,
+                 solver.checkpoint_optimizer, solver.history, niter, solver.indices,
                  lr_dict=solver.lr_dict, start_dict=solver.start_dict, collate_str=collate_str)
     selected = recon_params.get("selected_figs") or []
     if selected:
         plot_summary(out_dir, solver.params, solver.buffers, solver.geom, solver.history, niter,
                      solver.indices, selected_figs=selected, init_variables=init.init_variables,
                      collate_str=collate_str)
+
+
+def _follow_trials(params: dict, init: Initializer, device, verbose: bool, group,
+                   use_optuna: bool) -> None:
+    """A rank other than 0: run each trial rank 0 announces until it
+    announces the end. A trial ends here as the study on rank 0 ends it: a
+    pruned or diverged one always; with the built-in engine any failed one
+    (it records every failure and goes on), with optuna only those (the rest
+    end the study on every rank)."""
+    caught = ((Exception,) if not use_optuna
+              else (FloatingPointError, type(_pruned_exception())))
+    while True:
+        message = broadcast_object(None, group)
+        if message is None:
+            return
+        number, values = message
+        try:
+            hypertune_objective(_FollowerTrial(number, values, group), params, init,
+                                device=device, verbose=verbose, group=group)
+        except caught:
+            pass
 
 
 def _pruned_exception():
@@ -258,23 +375,22 @@ def _pruned_exception():
 
 
 def run_hypertune(params: dict, logger=None, jobid: Optional[str] = None,
-                  use_optuna: Optional[bool] = None, device=None, init_rng=None):
+                  use_optuna: Optional[bool] = None, device=None, init_rng=None, group=None):
     """Create or load the (shared) study and optimize (reference
-    reconstruction.py:145-240). Returns the study.
+    reconstruction.py:145-240). Returns the study (None on a rank other
+    than 0).
 
     logger: a CustomLogger, flushed into recon_params.output_dir (its file
     name carries the worker's job id). jobid: the worker's label (the
-    logger's file name carries it). device: None means CUDA. init_rng: the
-    Initializer's generator. The trials print each iteration unless
-    recon_params.if_quiet. A study that collates a checkpoint checks that
-    h5py imports before the Initializer runs."""
-    from ptyrad_tpu_torch.parallel.mesh import world_size
+    logger's file name carries it). device: None means CUDA (the group's
+    device with a group). init_rng: the Initializer's generator; None with a
+    group is one seed broadcast from rank 0. group: a parallel.DataGroup
+    whose ranks all run every trial (see the module docstring); None is one
+    process. The trials print each iteration unless recon_params.if_quiet.
+    A study that collates a checkpoint checks that h5py imports before the
+    Initializer runs."""
     from ptyrad_tpu_torch.save import import_h5py
 
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"hypertune on {world_size()} ranks: a study runs in one process (hypertune over "
-            "ranks is ROADMAP item A6b); start several workers with --jobid instead")
     ht = params["hypertune_params"]
     recon_params = params.get("recon_params", {}) or {}
     verbose = not recon_params.get("if_quiet", False)
@@ -286,6 +402,10 @@ def run_hypertune(params: dict, logger=None, jobid: Optional[str] = None,
         logger.flush_to_dir(recon_params.get("output_dir", "output/"))
     if jobid not in (None, "", "0", 0):
         vprint(f"Hypertune worker {jobid}")
+    if group is not None and init_rng is None:
+        # one seed for every rank's Initializer, as PtyRADSolver seeds its own
+        seed = broadcast_str(str(np.random.SeedSequence().entropy % 2**32), group)
+        init_rng = np.random.RandomState(int(seed))
     init = Initializer(params["init_params"], verbose=False, rng=init_rng)
     init.init_all()
 
@@ -299,6 +419,9 @@ def run_hypertune(params: dict, logger=None, jobid: Optional[str] = None,
 
     n_trials = int(ht.get("n_trials", 50))
     timeout = ht.get("timeout")
+    if group is not None and not group.is_main:
+        _follow_trials(params, init, device, verbose, group, use_optuna)
+        return None
 
     if use_optuna:
         import optuna
@@ -328,7 +451,8 @@ def run_hypertune(params: dict, logger=None, jobid: Optional[str] = None,
             load_if_exists=True,
         )
 
-    vprint(f"Starting hypertune: {n_trials} trials, engine={'optuna' if use_optuna else 'builtin'}")
+    vprint(f"Starting hypertune: {n_trials} trials, engine={'optuna' if use_optuna else 'builtin'}"
+           + (f", every trial on {group.size} ranks" if group is not None else ""))
     optimize_kwargs = {}
     if use_optuna:
         # a diverged trial raises FloatingPointError; without catch= optuna
@@ -336,10 +460,17 @@ def run_hypertune(params: dict, logger=None, jobid: Optional[str] = None,
         # reconstruction.py:234). The builtin engine records every failed
         # trial and goes on (tuner.Study.optimize).
         optimize_kwargs["catch"] = (FloatingPointError,)
-    study.optimize(
-        lambda trial: hypertune_objective(trial, params, init, device=device, verbose=verbose),
-        n_trials=n_trials, timeout=timeout, **optimize_kwargs,
-    )
+
+    def objective(trial):
+        if group is not None:
+            trial = _LeadTrial(trial, group)
+        return hypertune_objective(trial, params, init, device=device, verbose=verbose,
+                                   group=group)
+
+    study.optimize(objective, n_trials=n_trials, timeout=timeout, **optimize_kwargs)
+    # the end of the study; a trial that raised past the study's own catch
+    # raised on every rank and ends them all
+    broadcast_object(None, group)
     try:
         best = study.best_trial
     except ValueError:

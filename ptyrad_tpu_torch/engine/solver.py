@@ -22,7 +22,10 @@ contiguous block of each (parallel.rank_slice), computes the whole batch's
 loss terms (the loss all-reduces its batch sums) and, after backward, sums
 every gradient over the ranks in one flat buffer before the start-iter
 gating and the optimizer's step; the parameters stay bit-identical across
-ranks.
+ranks. With ``recon_params.shard_measurements`` (the default) each rank
+keeps its block of the measurement store and every batch's loss first
+fetches its slice's rows from the ranks that hold them
+(``RankBatches``, parallel.exchange_rows).
 
 Canvas sharding (``recon_params.shard_canvas`` on more than one rank;
 ptyrad_tpu/engine/solver.py:605-880, parallel/canvas.py): each rank keeps
@@ -56,20 +59,22 @@ from ptyrad_tpu_torch.optim import (OptStateMismatchError, create_optimizer, is_
                                     optim_state_values, started, unstarted_tensors)
 from ptyrad_tpu_torch.parallel.canvas import CanvasShard, canvas_batch_count, plan_canvas
 from ptyrad_tpu_torch.parallel.mesh import (DataGroup, all_reduce_grads, broadcast_str,
-                                            rank_slice, shard_model)
+                                            exchange_plan, exchange_rows, rank_slice,
+                                            shard_model)
 from ptyrad_tpu_torch.utils.logging import vprint
 
 
 def loss_fn(params: PtychoParams, buffers: Buffers, geom: Geometry, indices, mask,
-            loss_params, group: Optional[DataGroup] = None):
+            loss_params, group: Optional[DataGroup] = None, rows=None):
     """(total, terms) for one batch, the loss-folded chain first. With a
     group, indices and mask are the rank's slice and the terms the whole
-    batch's."""
-    fused = fused_loss_terms(params, buffers, geom, indices, mask, loss_params, group)
+    batch's. ``rows``: the slice's store rows when the store is split over
+    the ranks (RankBatches fetches them)."""
+    fused = fused_loss_terms(params, buffers, geom, indices, mask, loss_params, group, rows)
     if fused is not None:
         return fused
     dp, (obja_p, objp_p) = forward(params, buffers, geom, indices)
-    meas = get_measurements(buffers, geom, indices)
+    meas = get_measurements(buffers, geom, indices, rows)
     return combined_loss(dp, meas, obja_p, objp_p, buffers.omode_occu, loss_params, mask,
                          group)
 
@@ -80,22 +85,33 @@ def params_tensors(params: PtychoParams) -> list:
 
 class RankBatches:
     """A rank's share of every batch on the replicated path: its contiguous
-    block of each batch (``slice``, parallel.rank_slice), the loss of it
-    whose terms are the whole batch's (``loss``), and the tensors whose
-    gradients are summed over the ranks (``replicated_tensors``: all of
-    them). parallel.canvas.CanvasShard is the canvas path's: the same three
-    methods and ``group``. Without a group, the whole batch in one
-    process."""
+    block of each batch with, when the store is split over the ranks, each
+    batch's row exchange (``slice``: idx, mask and one parallel.ExchangePlan
+    or None per batch), the loss of it whose terms are the whole batch's
+    (``loss``, which runs the exchange), and the tensors whose gradients are
+    summed over the ranks (``replicated_tensors``: all of them).
+    parallel.canvas.CanvasShard is the canvas path's: the same three methods
+    and ``group``. Without a group, the whole batch in one process."""
 
     def __init__(self, params: PtychoParams, buffers: Buffers, geom: Geometry,
                  group: Optional[DataGroup] = None):
         self.params, self.buffers, self.geom, self.group = params, buffers, geom, group
 
     def slice(self, idx_all: torch.Tensor, mask_all: torch.Tensor) -> tuple:
-        return rank_slice(idx_all, mask_all, self.group)
+        idx, mask = rank_slice(idx_all, mask_all, self.group)
+        split = self.buffers.store_split
+        if split is None:
+            return idx, mask, [None] * idx.shape[0]
+        store = self.buffers.measurements
+        plans = [exchange_plan(row, split, store.device)
+                 for row in idx_all.reshape(-1, idx_all.shape[-1]).cpu().numpy()]
+        return idx, mask, plans
 
-    def loss(self, idx, mask, loss_params):
-        return loss_fn(self.params, self.buffers, self.geom, idx, mask, loss_params, self.group)
+    def loss(self, idx, mask, loss_params, plan=None):
+        rows = (None if plan is None
+                else exchange_rows(self.buffers.measurements, plan, self.group))
+        return loss_fn(self.params, self.buffers, self.geom, idx, mask, loss_params, self.group,
+                       rows)
 
     def replicated_tensors(self) -> list:
         return params_tensors(self.params)
@@ -122,10 +138,10 @@ def build_train_epoch(params: PtychoParams, share, loss_params: Optional[dict],
     def train_epoch(idx_all: torch.Tensor, mask_all: torch.Tensor, niter: int):
         totals, term_rows = [], []
         frozen = unstarted_tensors(params, niter, start_iters)
-        idx_all, mask_all = share.slice(idx_all, mask_all)
+        idx_all, mask_all, plans = share.slice(idx_all, mask_all)
         for b in range(idx_all.shape[0]):
             optimizer.zero_grad(set_to_none=True)
-            total, terms = share.loss(idx_all[b], mask_all[b], loss_params)
+            total, terms = share.loss(idx_all[b], mask_all[b], loss_params, plans[b])
             total.backward()
             all_reduce_grads(tensors, share.group)
             mask_unstarted_grads(params, niter, start_iters)
@@ -162,7 +178,7 @@ def build_lbfgs_objective(params: PtychoParams, share, loss_params: Optional[dic
 
     def objective_of(idx_all: torch.Tensor, mask_all: torch.Tensor, niter: int):
         n = idx_all.shape[0]
-        idx_all, mask_all = share.slice(idx_all, mask_all)
+        idx_all, mask_all, plans = share.slice(idx_all, mask_all)
 
         def objective():
             for _, t in params.named():
@@ -170,7 +186,7 @@ def build_lbfgs_objective(params: PtychoParams, share, loss_params: Optional[dic
             scale = torch.tensor(1.0 / n, dtype=torch.float32, device=idx_all.device)
             acc = torch.zeros((), dtype=torch.float32, device=idx_all.device)
             for b in range(n):
-                total, _ = share.loss(idx_all[b], mask_all[b], loss_params)
+                total, _ = share.loss(idx_all[b], mask_all[b], loss_params, plans[b])
                 acc = acc + total.detach()
                 total.backward(scale)
             all_reduce_grads(tensors, share.group)
@@ -321,13 +337,14 @@ class PtyRADSolver:
         self.model_params = self.params_dict.get("model_params", {}) or {}
         self.recon_params = self.params_dict.get("recon_params", {}) or {}
         canvas = bool(self.recon_params.get("shard_canvas")) and world > 1
+        split = (bool(self.recon_params.get("shard_measurements", True)) and world > 1
+                 and not canvas)
+        # the canvas path and the split store move only their rows to the device
         self.params, self.buffers, self.geom = make_model(
-            init_variables, self.model_params, self.device, store_on_host=canvas)
+            init_variables, self.model_params, self.device, store_on_host=canvas or split)
         self.params, self.buffers = shard_model(
-            self.params, self.buffers, group,
-            shard_measurements=(bool(self.recon_params.get("shard_measurements", True))
-                                and not canvas),
-            verbose=verbose)
+            self.params, self.buffers, group, shard_measurements=split, verbose=verbose,
+            meas_dtype=self.model_params.get("meas_dtype", "float32"))
         self.loss_params = self.params_dict.get("loss_params")
         self.constraint_fn = ConstraintScheduler(self.params_dict.get("constraint_params"),
                                                  self.geom)
@@ -337,6 +354,7 @@ class PtyRADSolver:
         self.optimizer = None
         self.train_epoch = None
         self.lbfgs_objective = None
+        self.share = None  # RankBatches, or the canvas path's CanvasShard
         self.grad_accumulation = 1
         self._canvas = None  # (CanvasShard, n_batches) under canvas sharding
         self._gathered_state = None
@@ -387,6 +405,7 @@ class PtyRADSolver:
     def _build_steps(self, share) -> None:
         """The epoch, or the LBFGS objective, over ``share``'s part of each
         batch (build_train_epoch)."""
+        self.share = share
         if is_lbfgs(self.optimizer_name):
             self.lbfgs_objective = build_lbfgs_objective(self.params, share, self.loss_params,
                                                          self.start_dict)
@@ -449,10 +468,10 @@ class PtyRADSolver:
         (CanvasShard.constrain); ``callback`` as CanvasShard.wrap_callback
         calls it (whole canvases; only on its canvas_save_iters when it has
         that attribute). Then self.params holds the whole canvases and
-        checkpoint_optimizer the state gathered whole."""
+        checkpoint_optimizer the state gathered whole (_canvas_close, which
+        a caller whose callback leaves the loop early calls itself)."""
         shard, n_batches = self._canvas
-        save_optim = "optim_state" in (self.recon_params.get("save_result") or [])
-        wrapped = shard.wrap_callback(callback, self.optimizer, save_optim)
+        wrapped = shard.wrap_callback(callback, self.optimizer, self._canvas_saves_optim)
         constrain = shard.constrain(self.constraint_fn)
         if self.lbfgs_objective is not None:
             self._lbfgs_loop(n_iter, wrapped, batches=shard.local_batches(n_batches, 0),
@@ -462,10 +481,20 @@ class PtyRADSolver:
                        lambda niter: shard.local_batches(n_batches, niter), None, n_iter,
                        constrain, self.buffers, history=self.history, callback=wrapped,
                        verbose=self.verbose, optimizer=self.optimizer)
-        if save_optim:
+        self._canvas_close()
+        return self.params, self.history
+
+    @property
+    def _canvas_saves_optim(self) -> bool:
+        return "optim_state" in (self.recon_params.get("save_result") or [])
+
+    def _canvas_close(self) -> None:
+        """Whole canvases into self.params and, when the run saves it, the
+        optimizer state gathered whole (every rank calls it)."""
+        shard = self._canvas[0]
+        if self._canvas_saves_optim:
             self._gathered_state = shard.gather_state(optim_state_values(self.optimizer))
         self.params = shard.whole_params()
-        return self.params, self.history
 
     def _lbfgs_loop(self, n_iter: int, callback: Optional[Callable] = None,
                     start_niter: int = 1, permute: bool = False, batches=None,

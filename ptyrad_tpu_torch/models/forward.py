@@ -43,6 +43,8 @@ Parameters, gradients, dp and the loss stay float32.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ptyrad_tpu_torch.losses import loss_simlar, loss_sparse, merge_loss_params
@@ -221,16 +223,24 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
 forward.launches_plain = 0
 
 
-def get_measurements(buffers: Buffers, geom: Geometry, indices: torch.Tensor) -> torch.Tensor:
+def get_measurements(buffers: Buffers, geom: Geometry, indices: torch.Tensor,
+                     rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Measured patterns (B, Ky, Kx) float32 for a batch of scan indices
     (ptyrad_tpu/models/forward.py:339-352): the batch alone is upcast from
     the store's type, embedded in the fitted background canvas when the data
     are padded on the fly, then resampled bilinearly with its intensity
     conserved, so neither the float32, the padded nor the resampled dataset
     ever sits on the device. A store kept on the host (the canvas path's
-    whole store) is read there, the batch alone moved."""
-    store = buffers.measurements
-    meas = store[indices.to(store.device)].to(device=indices.device, dtype=torch.float32)
+    whole store) is read there, the batch alone moved. ``rows``: the batch's
+    rows of the store, already fetched (a store split over ranks gives them
+    through parallel.exchange_rows), which a split store requires."""
+    if rows is None:
+        if buffers.store_split is not None:
+            raise ValueError("the measurement store is split over ranks (shard_measurements): "
+                             "pass the batch's rows, fetched with parallel.exchange_rows")
+        store = buffers.measurements
+        rows = store[indices.to(store.device)]
+    meas = rows.to(device=indices.device, dtype=torch.float32)
     if geom.meas_pad_idx is not None:
         h1, h2, w1, w2 = geom.meas_pad_idx
         canvas = buffers.meas_padded.expand(meas.shape[0], *geom.meas_padded_shape).clone()
@@ -266,7 +276,7 @@ def propagated_probe(params: PtychoParams, buffers: Buffers, geom: Geometry,
 
 
 def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
-                     indices: torch.Tensor, mask, loss_params, group=None):
+                     indices: torch.Tensor, mask, loss_params, group=None, rows=None):
     """(total, terms) with the loss_single data term folded into the
     multislice chain (B3), or None when the configuration is out of regime:
     fwd_fused on, loss_single the only dp-dependent term, no detector blur,
@@ -284,7 +294,8 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     rank's slice of the batch: s1, s2 and the mask count are summed over
     the ranks before loss_single is formed (the psum of
     ptyrad_tpu/ops/pallas_multislice.py:678-680), and loss_sparse and
-    loss_simlar take the group too.
+    loss_simlar take the group too. ``rows``: the batch's store rows, as
+    get_measurements takes them.
     """
     cfg = merge_loss_params(loss_params)
     if (not cfg["loss_single"]["state"] or cfg["loss_poissn"]["state"]
@@ -312,7 +323,7 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
         probe = params.probe[None] * occu_root
         kspace = False
 
-    meas_cc = ifftshift2(get_measurements(buffers, geom, indices))
+    meas_cc = ifftshift2(get_measurements(buffers, geom, indices, rows))
     mask_b = mask if mask is not None else torch.ones(b, dtype=torch.float32,
                                                       device=obja_p.device)
     sp = cfg["loss_single"]

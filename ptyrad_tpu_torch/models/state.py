@@ -57,6 +57,9 @@ class Buffers:
     Kz: torch.Tensor             # sqrt(k^2 - Kx^2 - Ky^2)
     probe_int_sum: torch.Tensor  # () float32 initial total probe intensity
     meas_padded: Optional[torch.Tensor] = None  # (Kp, Kp) on-the-fly pad background
+    # parallel.StoreSplit when ``measurements`` is this rank's block of a
+    # store split over ranks (shard_measurements); None: the whole store
+    store_split: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,7 +212,8 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     leaves the measurement store where it is and as it is (a NumPy array as
     a CPU tensor over its memory, no copy): the canvas path
     (parallel/canvas.py) moves each rank's slab alone to the device, in
-    meas_dtype, and reads no other row.
+    meas_dtype, and reads no other row; so does the store split over ranks
+    (parallel.split_store) with its block.
     """
     dev = resolve_device(device)
     model_params = model_params or {}

@@ -314,9 +314,10 @@ class CanvasShard:
         return dataclasses.replace(p, obja=ext_a, objp=ext_p, probe_pos_shifts=shifts,
                                    obj_tilts=tilts)
 
-    def loss(self, slots: torch.Tensor, mask: torch.Tensor, loss_params):
+    def loss(self, slots: torch.Tensor, mask: torch.Tensor, loss_params, plan=None):
         """(total, terms) of a batch, whole-batch terms on every rank: slots
-        and mask are the rank's store slots of the batch."""
+        and mask are the rank's store slots of the batch (``plan`` is
+        RankBatches'; the slab store needs no exchange)."""
         from ptyrad_tpu_torch.engine.solver import loss_fn
 
         return loss_fn(self.view(), self.buffers, self.geom, slots, mask, loss_params,
@@ -324,8 +325,8 @@ class CanvasShard:
 
     def slice(self, idx_all: torch.Tensor, mask_all: torch.Tensor) -> tuple:
         """The rank's part of each batch (engine.solver.build_train_epoch):
-        its store slots, as the canvas loop passes them."""
-        return idx_all, mask_all
+        its store slots, as the canvas loop passes them, and no exchange."""
+        return idx_all, mask_all, [None] * idx_all.shape[0]
 
     def local_batches(self, n_batches: int, niter: int):
         """The rank's block of canvas_iteration_batches as its own store slots
@@ -417,9 +418,12 @@ class CanvasShard:
         (and, if it declares ``optimizer``, the gathered state when the run
         saves it), on every iteration, or only on multiples of its
         ``canvas_save_iters`` attribute when it has one (None: never;
-        ptyrad_tpu/engine/solver.py:784-797)."""
-        if callback is None:
-            return None
+        ptyrad_tpu/engine/solver.py:784-797). A callback whose
+        ``canvas_slabs`` attribute is true is called every iteration with the
+        loop's own arguments, the rank's slabs, and gathers what it needs
+        itself (a hypertune trial's)."""
+        if callback is None or getattr(callback, "canvas_slabs", False):
+            return callback
         import inspect
 
         unset = object()

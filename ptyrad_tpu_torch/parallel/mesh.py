@@ -29,20 +29,28 @@ reduces across the mesh is reduced here by two collectives:
   (ptyrad_tpu/ops/pallas_multislice.py:491-499, :774-780;
   ptyrad_tpu/ops/pallas_chain.py:960-961, :1134-1135).
 
-``recon_params.shard_measurements`` (the store split over devices) and
-hypertune on more than one rank are ROADMAP item A6b: the store is
-replicated on every rank. Canvas sharding (``recon_params.shard_canvas``,
-parallel/canvas.py) splits the object and the store into row slabs instead;
-it gathers whole canvases with ``all_gather_rows`` and all-reduces only the
-replicated tensors' gradients.
+``recon_params.shard_measurements`` (the default) splits the measurement
+store over the ranks (ptyrad_tpu/parallel/mesh.py:108-158): rank r keeps
+rows [r M/n, (r+1) M/n) of the store zero-padded to M = n ceil(N/n) rows
+on its device (``StoreSplit``, ``shard_model``). Where XLA gathers any
+index pattern across the shards, the port exchanges rows explicitly, once
+per batch and without a request round: every rank holds the same padded
+batch, so each works out which of its rows every other rank's
+``rank_slice`` needs (``exchange_plan``) and one ``all_to_all_single``
+with per-rank split sizes hands each rank its slice's rows in slice order,
+in the store's type (``exchange_rows``). Canvas sharding
+(``recon_params.shard_canvas``, parallel/canvas.py) splits the object and
+the store into row slabs instead; it gathers whole canvases with
+``all_gather_rows`` and all-reduces only the replicated tensors' gradients.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -225,27 +233,146 @@ def broadcast_str(s: str, group: Optional[DataGroup], max_len: int = 512) -> str
     return buf.cpu().numpy().tobytes().rstrip(b"\x00").decode()
 
 
+def broadcast_object(obj, group: Optional[DataGroup]):
+    """Rank 0's picklable object on every rank (obj itself for group None):
+    a hypertune trial's sampled values, the pruner's decision."""
+    if group is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreSplit:
+    """The measurement store split over ranks (shard_measurements): the
+    rank's device store holds ``rows`` rows, global rows [first, first +
+    rows) of the store zero-padded to rows x world; ``n_rows`` is the
+    unpadded count."""
+
+    rank: int
+    world: int
+    rows: int
+    n_rows: int
+
+    @property
+    def first(self) -> int:
+        return self.rank * self.rows
+
+
+def store_split(n_rows: int, group: DataGroup) -> StoreSplit:
+    return StoreSplit(rank=group.rank, world=group.size, rows=-(-n_rows // group.size),
+                      n_rows=n_rows)
+
+
+def split_store(meas, split: StoreSplit, device, meas_dtype: str = "float32") -> torch.Tensor:
+    """The rank's block of the store ``meas`` (host or device, any layout
+    make_model(store_on_host=True) leaves) on ``device`` in meas_dtype; the
+    rows past the store's end are zeros."""
+    from ptyrad_tpu_torch.models.state import _measurements
+
+    lo, hi = split.first, min(split.first + split.rows, split.n_rows)
+    block = meas[lo:max(lo, hi)]
+    if not isinstance(block, torch.Tensor):
+        block = torch.as_tensor(np.asarray(block, dtype=np.float32))
+    pad = split.rows - block.shape[0]
+    if pad:
+        block = torch.cat([block, block.new_zeros((pad, *block.shape[1:]))])
+    return _measurements(block, device, meas_dtype)
+
+
+def store_rows(meas, idx, like: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a whole store kept on the host (the Initializer's
+    measurements, a NumPy array or a tensor), in the type and on the device
+    of ``like`` (a split store's block) and converted as split_store
+    converts them: the rows a rank that draws a figure reads without an
+    exchange."""
+    from ptyrad_tpu_torch.models.state import MEAS_DTYPES, _measurements
+
+    idx = np.asarray(idx, dtype=np.int64)
+    if isinstance(meas, torch.Tensor):
+        rows = meas[torch.as_tensor(idx, device=meas.device)]
+    else:
+        rows = torch.as_tensor(np.asarray(meas)[idx], dtype=torch.float32)
+    name = next(k for k, v in MEAS_DTYPES.items() if v == like.dtype)
+    return _measurements(rows, like.device, name)
+
+
+@dataclasses.dataclass
+class ExchangePlan:
+    """One batch's row exchange for one rank (exchange_plan)."""
+
+    send: torch.Tensor      # (k,) the rank's store rows to send, grouped by destination
+    send_counts: List[int]  # rows sent to each rank
+    recv_counts: List[int]  # rows received from each rank
+    order: torch.Tensor     # (L/n,) the slice position of each received row
+
+
+def exchange_plan(idx_batch: np.ndarray, split: StoreSplit, device) -> ExchangePlan:
+    """The exchange that gives this rank the rows of its rank_slice of the
+    padded batch ``idx_batch`` (global scan indices, length a multiple of
+    the world size): to each rank d, this rank's rows among d's slice in
+    slice order; from each rank r, the rows of its own slice that r holds.
+    Padded slots and repeated indices are rows like any other."""
+    idx = np.asarray(idx_batch, dtype=np.int64).reshape(-1)
+    n, per = split.world, idx.shape[0] // split.world
+    owner = idx // split.rows
+    sends, send_counts = [], []
+    for d in range(n):
+        cut = slice(d * per, (d + 1) * per)
+        mine = idx[cut][owner[cut] == split.rank] - split.first
+        sends.append(mine)
+        send_counts.append(int(mine.shape[0]))
+    own = owner[split.rank * per:(split.rank + 1) * per]
+    order = np.argsort(own, kind="stable")
+    return ExchangePlan(send=torch.as_tensor(np.concatenate(sends), device=device),
+                        send_counts=send_counts,
+                        recv_counts=np.bincount(own, minlength=n).tolist(),
+                        order=torch.as_tensor(order, device=device))
+
+
+def exchange_rows(store: torch.Tensor, plan: ExchangePlan, group: DataGroup) -> torch.Tensor:
+    """The rows of the rank's slice of a batch, (L/n, Ky, Kx) in the store's
+    type and in slice order, as store[idx_batch][rank_slice] of the whole
+    store: one all_to_all_single over the ranks (every rank calls it with
+    its own plan of the same batch)."""
+    received = store.new_empty((sum(plan.recv_counts), *store.shape[1:]))
+    dist.all_to_all_single(received, store[plan.send], plan.recv_counts, plan.send_counts)
+    rows = torch.empty_like(received)
+    rows[plan.order] = received
+    return rows
+
+
 def shard_model(params, buffers, group: Optional[DataGroup], shard_measurements: bool = True,
-                verbose: bool = True):
+                verbose: bool = True, meas_dtype: str = "float32"):
     """Place the model on the ranks (ptyrad_tpu/parallel/mesh.py:108-158):
     every parameter and every buffer but the measurement store takes rank
     0's values, so a rank whose Initializer drew another random object or
     position jitter cannot drift. The store is built identically on every
-    rank, as the JAX package assumes, and stays replicated:
-    ``shard_measurements`` (the JAX package's split of the store over
-    devices) is ROADMAP item A6b, and rank 0 says so once. Returns (params,
-    buffers)."""
+    rank, as the JAX package assumes. With ``shard_measurements`` each rank
+    keeps its block of it on its device (split_store, in meas_dtype; the
+    caller leaves the whole store where it is, make_model(store_on_host=
+    True)) and ``buffers.store_split`` says which; rank 0 prints the bytes
+    per rank once. Without it the store stays as make_model put it,
+    replicated. Returns (params, buffers)."""
     if group is None:
         return params, buffers
     tensors = [t for _, t in params.named()]
     tensors += [getattr(buffers, f.name) for f in dataclasses.fields(buffers)
-                if f.name != "measurements" and getattr(buffers, f.name) is not None]
+                if f.name != "measurements" and isinstance(getattr(buffers, f.name), torch.Tensor)]
     with torch.no_grad():
         for t in tensors:
             dist.broadcast(_real_view(t), src=0)
-    if shard_measurements and verbose and group.is_main:
+    if not shard_measurements:
+        return params, buffers
+    split = store_split(int(buffers.measurements.shape[0]), group)
+    block = split_store(buffers.measurements, split, group.device, meas_dtype)
+    if verbose and group.is_main:
         from ptyrad_tpu_torch.utils.logging import vprint
 
-        vprint(f"recon_params.shard_measurements: the measurement store is replicated on each "
-               f"of the {group.size} ranks (splitting it is ROADMAP item A6b)")
-    return params, buffers
+        row = block[0].numel() * block.element_size()
+        vprint(f"recon_params.shard_measurements: the measurement store is split over "
+               f"{group.size} ranks, {split.rows} of {split.n_rows} rows on each "
+               f"({split.rows * row / 1e9:.3f} GB in {block.dtype}, against "
+               f"{split.n_rows * row / 1e9:.3f} GB replicated)")
+    return params, dataclasses.replace(buffers, measurements=block, store_split=split)

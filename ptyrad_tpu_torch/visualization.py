@@ -19,6 +19,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ptyrad_tpu_torch.parallel.mesh import store_rows
 from ptyrad_tpu_torch.utils.logging import vprint
 
 
@@ -59,13 +60,15 @@ def plot_sigmoid_mask(npix: int, relative_radius: float, relative_width: float, 
     return fig
 
 
-def forward_panels(params, buffers, geom, indices) -> dict:
+def forward_panels(params, buffers, geom, indices, rows=None) -> dict:
     """The device work of the "forward" figure for a few scan indices, as
     NumPy arrays: ``probe_int`` (n, Ny, Nx) the probe intensity summed over
     modes, ``obja``/``objp`` (n, Nz, Ny, Nx) the object patches weighted by
     omode_occu and summed over object modes, ``model_dp`` (n, Ky, Kx) the
     forward() pattern and ``meas_dp`` the measured one (the JAX package's
-    plot_forward_pass panels). No gradient is recorded."""
+    plot_forward_pass panels). No gradient is recorded. ``rows``: the
+    indices' store rows, which a store split over ranks needs
+    (get_measurements)."""
     from ptyrad_tpu_torch.models.forward import (forward, get_measurements, get_obj_patches,
                                                  get_probes)
 
@@ -78,7 +81,7 @@ def forward_panels(params, buffers, geom, indices) -> dict:
         occu = buffers.omode_occu[:, None, None, None]
         obja_roi = (obja_p * occu).sum(1)
         objp_roi = (objp_p * occu).sum(1)
-        meas = get_measurements(buffers, geom, idx)
+        meas = get_measurements(buffers, geom, idx, rows)
     probes_int = probes_int.cpu().numpy()
     if probes_int.shape[0] == 1:
         probes_int = np.broadcast_to(probes_int, (len(idx), *probes_int.shape[-2:]))
@@ -292,7 +295,9 @@ def plot_summary(
     once by the workflow, not a per-iteration summary.) The "forward"
     figure's forward_panels runs first, outside the guard: a failure there
     raises. A failure while drawing or saving (matplotlib missing, say) only
-    warns: plotting never ends a run.
+    warns: plotting never ends a run. When the store is split over ranks
+    (buffers.store_split), the figure's measured patterns are read from
+    init_variables' whole store, which is then required.
     """
     selected = list(selected_figs or ["loss", "forward", "probe_r_amp", "pos"])
     if "all" in selected:
@@ -300,7 +305,15 @@ def plot_summary(
     selected = ["dz" if s == "slice_thickness" else s for s in selected]
     iter_str = f"_iter{str(niter).zfill(4)}"
     show_idx = np.asarray(indices)[:2]
-    panels = forward_panels(params, buffers, geom, show_idx) if "forward" in selected else None
+    panels = None
+    if "forward" in selected:
+        rows = None
+        if buffers.store_split is not None:
+            if init_variables is None:
+                raise ValueError("plot_summary: the measurement store is split over ranks; "
+                                 "pass init_variables, whose store the forward figure reads")
+            rows = store_rows(init_variables["measurements"], show_idx, buffers.measurements)
+        panels = forward_panels(params, buffers, geom, show_idx, rows)
     probe_np = params.probe.detach().cpu().numpy()
     pos_now = buffers.crop_pos.cpu().numpy() + params.probe_pos_shifts.detach().cpu().numpy()
     tilts = params.obj_tilts.detach().cpu().numpy()
