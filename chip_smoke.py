@@ -5,8 +5,11 @@
 Phases, one JSON object per line each:
   1. device  - the card, torch and CUDA versions; TF32 off.
   2. build   - nvcc builds the kernels of ptyrad_tpu_torch/csrc into
-               ptyrad_tpu_torch/_build (seconds), then the chain kernels'
-               one-time set-up for N = 256 and 512 (ops.chain.prepare).
+               ptyrad_tpu_torch/_build and, beside them, the mixed-radix
+               libraries of the fused kernels at N = 96, 120 and 127
+               (seconds, each), then the chain kernels' one-time set-up for
+               N = 256 and 512 (ops.chain.prepare) and the fused kernels' for
+               N = 128, 96, 120 and 127, with the plans they compiled.
   3. kernels - each kernel against its plain PyTorch version at its main
                path's shapes (B1-B4 at tBL_WSe2's, B5/B6 at PSO's, B1/B2 at
                PSO's too), with its error, tolerance and CUDA-event times
@@ -49,10 +52,16 @@ Phases, one JSON object per line each:
                one slice with the exit) the kernel is within a tenth of its
                own bfloat16 error of its twin. Each timed beside the float32
                kernel, with the float32 row's bound and library time.
-     plain route - forward() at N = 96 and 120, which no kernel rule takes,
-               through the plain torch.fft chain on the card (B1/B2 for the
-               patches, no chain kernel) against the CPU, values and
-               gradients at 1e-4 of the largest entry.
+               Then B3a, B3b, B3b with dH, B4a and B4b of the mixed-radix
+               pair at N = 120 (PSO's widths), 96 (tBL's) and 127 (a small
+               batch, one sum pass), each at its power-of-two twin's
+               tolerance, B3b/B4b run twice bit for bit, and the _bf16 rows
+               at 120 by the bf16 gates.
+     fused route - forward() (B4a, B4b) and fused_loss_terms (B3a, B3b) at
+               N = 96 and 120 (the mixed-radix pair) on the card against
+               the CPU, then the same cases with fwd_fused: false through the
+               plain torch.fft chain (B1/B2 for the patches, no chain
+               kernel), values and gradients at 1e-4 of the largest entry.
   4. main    - the tBL_WSe2 reconstruction through PtyRADSolver.run(): 16,384
                128^2 patterns simulated through forward() (B4a; every 8th
                batch held against the plain multislice_dp), 6 probe modes, 6
@@ -181,7 +190,8 @@ Phases, one JSON object per line each:
                plain multislice_dp, values and gradients. forward_bf16: under
                compute_dtype 'bfloat16', dp float32: a tBL batch through the
                bf16 B4 against the plain multislice_dp with bf16_operands, and
-               N = 96 through the plain chain (a bfloat16 wavefield), card
+               N = 96 through the plain chain (fwd_fused: false; a bfloat16
+               wavefield), card
                against CPU, values and gradients by the bf16 rows' gates; a
                tBL batch of loss_fn with optimizable dz and tilts (the bf16
                B3b with dH).
@@ -267,6 +277,13 @@ Phases, one JSON object per line each:
                (the yml's "forward" figure) against the plain multislice_dp.
                quality: its phase correlation with the seeded columns.
   7. profile - torch.profiler over 8 more PSO training steps.
+     pso_n120 - PSO at its 120^2 crop without the on-the-fly pad (the same
+               patterns, the crop's pixel), from a seeded object, 2
+               iterations: B1, B2, B3a/B3b at N = 120 (the mixed-radix pair)
+               and B4a for the forward figure, no plain route; a finite,
+               falling loss within rtol 1e-4 of the same run with fwd_fused:
+               false; a profile (PSO-n120); then the dz and tilt float64
+               gate at N = 120 on its first batch (B3b with dH).
      pso_bf16 - the PSO run from the same start under compute_dtype
                'bfloat16' (the bf16 B5/B6), beside the pso phase as
                mixed_precision is beside main; from pso_ff_random_start's
@@ -314,8 +331,9 @@ Phases, one JSON object per line each:
                loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
                profile over 8 steps.
 Then a {"kernels": [...]} line (launches summed over the driven runs: the
-plain route, tBL, params_file, resume, figures, hypertune, lbfgs,
-grad_accum, optimizers, grouping, low-dose (both runs), the dist ranks, tbl_store, PSO, pso_ff (with its random-start
+fused route, tBL, params_file, resume, figures, hypertune, lbfgs,
+grad_accum, optimizers, grouping, low-dose (both runs), the dist ranks, tbl_store, PSO,
+pso_n120 (and its tilt gate), pso_ff (with its random-start
 runs and the carve), tilt (its simulation included) and PSO tilt paths,
 mixed_precision, pso_bf16 and the forward phases' kernel routes, the bf16
 kernels in rows of their own; B1/B2's rows at the tBL shapes count the
@@ -374,6 +392,14 @@ PSO_SCANS = PSO_SIDE * PSO_SIDE
 PSO_NITER = 2
 PSO_SG = 8  # ops.chain.best_sg(21): 21 = 2 x 8 + 5
 PSO_FF_FLAT_RTOL = 2e-2  # pso_ff against pso from the flat start (see pso_ff_path)
+# The fused kernels at N that is not a power of two (the mixed-radix pair,
+# one library per N, built beside the main one): PSO's 120^2 crop without
+# the on-the-fly pad (pso_n120), 96 (the fused route check, tBL widths) and
+# a prime N, one sum pass of 127 points (a small-batch row set)
+PSO_N120 = PSO_CROP[1] - PSO_CROP[0]
+NPO2_NS = (96, PSO_N120)
+PRIME_N = 127
+MIXED_NS = NPO2_NS + (PRIME_N,)
 SIM_BATCH = 512  # patterns per forward() call when simulating the tBL data
 
 # tBL_WSe2 sections of demo/params/tBL_WSe2_reconstruct.yml (the card's
@@ -1259,6 +1285,227 @@ def check_fused_dh(dev, gen) -> list:
     return rows
 
 
+def npo2_widths(n: int) -> dict:
+    """The widths of the fused rows at N that is not a power of two: PSO's
+    at its 120^2 crop (300 kV, 21 slices of 10 Ang, 4 modes, the crop's
+    pixel 0.15 x 256 / 120 Ang), tBL's at 96 (80 kV, 6 slices of 2 Ang,
+    6 modes) and a small batch at the prime N."""
+    if n == PSO_N120:
+        return {"batch": BATCH, "pmode": PSO_PMODE, "nz": PSO_NZ, "kv": PSO_KV, "conv": 21.4,
+                "dx": PSO_DX * PSO_NPIX / n, "dz": PSO_DZ, "df": -200.0,
+                "note": "PSO widths at its 120^2 crop, per-position probe spectra"}
+    small = n == PRIME_N
+    return {"batch": 4 if small else BATCH, "pmode": 2 if small else PMODE,
+            "nz": 3 if small else NZ, "kv": 80.0, "conv": 24.9, "dx": 0.1494, "dz": 2.0, "df": 0.0,
+            "note": ("a small batch at a prime N (one sum pass)" if small else "tBL widths")
+            + ", per-position probe spectra"}
+
+
+def check_fused_npo2(dev, gen) -> list:
+    """B3a, B3b, B3b with dH, B4a and B4b of the mixed-radix pair at N = 120
+    (PSO's widths), 96 (tBL's) and the prime N (a small batch), each against
+    its plain version on the same CUDA tensors at the tolerance of its
+    power-of-two twin (check_loss_chain, check_dp_chain, check_fused_dh:
+    s1/s2 at rtol 1e-4, dp and every cotangent at 1e-4 of its largest
+    entry); B3b and B4b run twice bit for bit. Then at N = 120 the _bf16
+    rows, each against its plain twin with bf16_operands by the bf16 rows'
+    error-ratio gates (check_bf16_kernels). Per-position probe spectra; dH
+    on a per-position H (tilts within 1 mrad). Bounds from each N's own
+    operations (_chain_flops at log2 N) and bytes."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+    from ptyrad_tpu_torch.ops.shift import fourier_shift_kspace
+    from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
+                                          make_stem_probe, near_field_evolution)
+
+    rows, failures = [], []
+    src = "ptyrad_tpu_torch/csrc/multislice.cu"
+    for n in (PSO_N120, 96, PRIME_N):
+        w = npo2_widths(n)
+        b, pmode, nz = w["batch"], w["pmode"], w["nz"]
+        lam = electron_wavelength(w["kv"])
+        probe = make_mixed_probe(make_stem_probe({"kv": w["kv"], "conv_angle": w["conv"],
+                                                  "Npix": n, "dx": w["dx"], "df": w["df"]}),
+                                 pmode, [0.02])
+        probe = torch.as_tensor(probe, device=dev)
+        h = torch.as_tensor(near_field_evolution((n, n), w["dx"], w["dz"], lam), device=dev)[None]
+        h_each = tilted_h(h, 2.0 * torch.rand((b, 2), generator=gen, device=dev) - 1.0,
+                          w["dx"], w["dz"])
+        obja = 1.0 + 0.05 * torch.randn((b, 1, nz, n, n), generator=gen, device=dev)
+        objp = 0.1 * torch.randn((b, 1, nz, n, n), generator=gen, device=dev)
+        pr = fourier_shift_kspace(probe, 0.3 * torch.randn((b, 2), generator=gen, device=dev))
+        meas = torch.rand((b, n, n), generator=gen, device=dev) * 2.0 / (n * n)
+        mask = torch.ones(b, device=dev)
+        mask[b - 1] = 0.0
+        g = torch.randn((b, n, n), generator=gen, device=dev)
+        p, eps, cvec = 0.5, 1e-10, torch.tensor(0.7, device=dev)
+        largs = (meas, mask, p, eps)
+        tag = f"N={n}"
+        n_wave = b * pmode
+        obj_bytes = 4 * (obja.numel() + objp.numel())
+        in_bytes = obj_bytes + 8 * (pr.numel() + h.numel())
+        fwd_ops = n_wave * _chain_flops(n, 2 * nz, nz)
+        dh_ops = n_wave * (nz - 1) * 8 * n * n
+        loss_in = 4 * (meas.numel() + mask.numel())
+        bwd_out = obj_bytes + 8 * pr.numel()
+
+        def add(name, replaces, errs, tols, kern, plain, nbytes, ops, repeat=None):
+            row = {"name": f"{name} ({tag})" if "(" not in name else f"{name[:-1]}, {tag})",
+                   "route": "cuda", "source": src, "replaces": replaces,
+                   "max_abs_err": max(errs), "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                   "library_ms": None, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))}
+            emit({"phase": "kernel", **row, "errors": errs, "tolerances": tols,
+                  "repeats_bitwise": repeat, "note": w["note"],
+                  "shape": {"N": n, "batch": b, "pmode": pmode, "nz": nz}})
+            failures.extend(f"{row['name']} differs from its plain version: {e} > {t}"
+                            for e, t in zip(errs, tols) if not e <= t)
+            if repeat is False:
+                failures.append(f"{row['name']} run twice differs")
+            rows.append(row)
+
+        # B3: the loss-folded pair
+        s1k, s2k, dp = M.loss_sums_fwd_cuda(obja, objp, pr, h, *largs, True)
+        leaves = [t.clone().requires_grad_(True) for t in (obja, objp, pr)]
+        s1p, s2p = M.loss_sums_plain(*leaves, h, *largs, True)
+        add("B3a loss_sums_fwd", "ptyrad_tpu/ops/pallas_multislice.py:548",
+            [max(abs(float(s1k - s1p.detach())), abs(float(s2k - s2p)))],
+            [1e-4 * max(abs(float(s1p.detach())), abs(float(s2p)))],
+            lambda: M.loss_sums_fwd_cuda(obja, objp, pr, h, *largs, True),
+            lambda: M.loss_sums_plain(obja, objp, pr, h, *largs, True),
+            in_bytes + loss_in + 8, fwd_ops)
+        g_plain = torch.autograd.grad(s1p, leaves, grad_outputs=cvec, retain_graph=True)
+
+        def b3b():
+            return M.loss_sums_bwd_cuda(obja, objp, pr, h, meas, mask, dp, cvec, p, eps,
+                                        True)[:3]
+
+        add("B3b loss_sums_bwd", "ptyrad_tpu/ops/pallas_multislice.py:588",
+            *_grad_errs(b3b(), g_plain), b3b,
+            lambda: torch.autograd.grad(s1p, leaves, grad_outputs=cvec, retain_graph=True),
+            in_bytes + loss_in + 4 * dp.numel() + bwd_out, 2 * fwd_ops,
+            repeat=repeats_bitwise(b3b, b3b()))
+        # B3b with dH on a per-position H
+        dpe = M.loss_sums_fwd_cuda(obja, objp, pr, h_each, *largs, True)[2]
+        leaves_e = [t.clone().requires_grad_(True) for t in (obja, objp, pr, h_each)]
+        s1pe = M.loss_sums_plain(*leaves_e, *largs, True)[0]
+        g_plain_e = torch.autograd.grad(s1pe, leaves_e, grad_outputs=cvec, retain_graph=True)
+
+        def b3b_dh():
+            return M.loss_sums_bwd_cuda(obja, objp, pr, h_each, meas, mask, dpe, cvec, p, eps,
+                                        True, need_dh=True)
+
+        in_each = obj_bytes + 8 * (pr.numel() + h_each.numel())
+        add("B3b loss_sums_bwd (dH)", "ptyrad_tpu/ops/pallas_multislice.py:588",
+            *_grad_errs(b3b_dh(), g_plain_e), b3b_dh,
+            lambda: torch.autograd.grad(s1pe, leaves_e, grad_outputs=cvec, retain_graph=True),
+            in_each + loss_in + 4 * dpe.numel() + bwd_out + 8 * h_each.numel(),
+            2 * fwd_ops + dh_ops, repeat=repeats_bitwise(b3b_dh, b3b_dh()))
+        # B4: the plain pair
+        dp_k = M.dp_fwd_cuda(obja, objp, pr, h, True)
+        leaves = [t.clone().requires_grad_(True) for t in (obja, objp, pr)]
+        dp_p = M.multislice_dp_plain(*leaves, h, True)
+        add("B4a dp_fwd", "ptyrad_tpu/ops/pallas_multislice.py:128",
+            [float((dp_k - dp_p.detach()).abs().max())],
+            [1e-4 * float(dp_p.detach().abs().max())],
+            lambda: M.dp_fwd_cuda(obja, objp, pr, h, True),
+            lambda: M.multislice_dp_plain(obja, objp, pr, h, True),
+            in_bytes + 4 * g.numel(), fwd_ops)
+        g4 = torch.autograd.grad(dp_p, leaves, grad_outputs=g, retain_graph=True)
+
+        def b4b():
+            return M.dp_bwd_cuda(obja, objp, pr, h, g, True)[:3]
+
+        add("B4b dp_bwd", "ptyrad_tpu/ops/pallas_multislice.py:145", *_grad_errs(b4b(), g4), b4b,
+            lambda: torch.autograd.grad(dp_p, leaves, grad_outputs=g, retain_graph=True),
+            in_bytes + 4 * g.numel() + bwd_out, 2 * fwd_ops, repeat=repeats_bitwise(b4b, b4b()))
+        if n == PSO_N120:
+            rows += npo2_bf16_rows(rows, failures, obja, objp, pr, h, g, largs, cvec, tag)
+        torch.cuda.empty_cache()
+    require(not failures, "; ".join(failures))
+    return rows
+
+
+def npo2_bf16_rows(f32_rows, failures, obja, objp, pr, h, g, largs, cvec, tag) -> list:
+    """The _bf16 rows of B3a, B3b, B4a and B4b at one N, each against its
+    plain twin with bf16_operands (bf16_errors, bf16_failures: the kernel's
+    bfloat16 error against its twin's within BF16_RATIO_TOL), B3b and B4b
+    run twice bit for bit, with their float32 rows' bounds."""
+    from ptyrad_tpu_torch.ops import fused_multislice as M
+
+    f32 = {r["name"]: r for r in f32_rows}
+    meas, mask, p, eps = largs
+    out = []
+
+    def row(name, names, kern, twin, repeat=False):
+        k16, time_k16 = kern(True)
+        k32 = kern(False)[0]
+        t16, time_t16 = twin(True)
+        t32 = twin(False)[0]
+        errs = bf16_errors(k16, k32, t16, t32)
+        bad = bf16_failures(name, names, errs)
+        rep = repeats_bitwise(lambda: kern(True)[0], k16) if repeat else None
+        if rep is False:
+            bad.append(f"{name}: run twice differs")
+        ref = f32[f"{name.replace(' (bf16)', '')} ({tag})"]
+        r = {"name": f"{name[:-1]}, {tag})" if "(" in name else name, "route": "cuda",
+             "source": "ptyrad_tpu_torch/csrc/multislice_bf16.cu", "replaces": ref["replaces"],
+             "max_abs_err": max(e["max_abs"] for e in errs), "ms": time_ms(time_k16),
+             "plain_ms": time_ms(time_t16), "bound_ms": ref["bound_ms"],
+             "bound_by": ref["bound_by"], "library_ms": None}
+        emit({"phase": "kernel", **r, "f32_row": ref["name"], "outputs": names, "errors": errs,
+              "tolerance": BF16_TOLERANCE, "repeats_bitwise": rep})
+        out.append(r)
+        failures.extend(bad)
+
+    def b3a(bf16):
+        def call():
+            return M.loss_sums_fwd_cuda(obja, objp, pr, h, *largs, True, bf16_operands=bf16)
+        return (call()[2],), call
+
+    def b3a_twin(bf16):
+        with torch.no_grad():
+            dp = M.multislice_dp_plain(obja, objp, pr, h, True, bf16)
+        return (dp,), lambda: M.loss_sums_plain(obja, objp, pr, h, *largs, True, bf16)
+
+    def b3b(bf16):
+        dp = M.loss_sums_fwd_cuda(obja, objp, pr, h, *largs, True, bf16_operands=bf16)[2]
+
+        def call():
+            return M.loss_sums_bwd_cuda(obja, objp, pr, h, meas, mask, dp, cvec, p, eps, True,
+                                        bf16_operands=bf16)[:3]
+        return call(), call
+
+    def b3b_twin(bf16):
+        return _twin_vjp(lambda a, ph, q: M.loss_sums_plain(a, ph, q, h, *largs, True, bf16)[0],
+                         (obja, objp, pr), cvec)
+
+    def b4a(bf16):
+        def call():
+            return M.dp_fwd_cuda(obja, objp, pr, h, True, bf16)
+        return (call(),), call
+
+    def b4a_twin(bf16):
+        def call():
+            return M.multislice_dp_plain(obja, objp, pr, h, True, bf16)
+        with torch.no_grad():
+            return (call(),), call
+
+    def b4b(bf16):
+        def call():
+            return M.dp_bwd_cuda(obja, objp, pr, h, g, True, bf16_operands=bf16)[:3]
+        return call(), call
+
+    def b4b_twin(bf16):
+        return _twin_vjp(lambda a, ph, q: M.multislice_dp_plain(a, ph, q, h, True, bf16),
+                         (obja, objp, pr), g)
+
+    grads = ["d obja", "d objp", "d probe"]
+    row("B3a loss_sums_fwd (bf16)", ["dp"], b3a, b3a_twin)
+    row("B3b loss_sums_bwd (bf16)", grads, b3b, b3b_twin, repeat=True)
+    row("B4a dp_fwd (bf16)", ["dp"], b4a, b4a_twin)
+    row("B4b dp_bwd (bf16)", grads, b4b, b4b_twin, repeat=True)
+    return out
+
+
 def check_chain_dh(dev, gen) -> list:
     """B5b and B6b with dH at the PSO shapes the main path gives them (B6
     over 2 x 8 slices with last_mega False, B5 over the 5-slice tail with
@@ -1576,6 +1823,19 @@ def kernel_counters():
         "B6b chain_stack_bwd (bf16)": (C.stack_bwd_cuda, "launches_bf16"),
         "B6b chain_stack_bwd (bf16, dH)": (C.stack_bwd_cuda, "launches_bf16_dh"),
     })
+    # the mixed-radix kernels at each N that is not a power of two
+    for n in MIXED_NS:
+        out.update({
+            f"B3a loss_sums_fwd (N={n})": (M.loss_sums_fwd_cuda, f"launches_n{n}"),
+            f"B3b loss_sums_bwd (N={n})": (M.loss_sums_bwd_cuda, f"launches_n{n}"),
+            f"B3b loss_sums_bwd (dH, N={n})": (M.loss_sums_bwd_cuda, f"launches_n{n}_dh"),
+            f"B4a dp_fwd (N={n})": (M.dp_fwd_cuda, f"launches_n{n}"),
+            f"B4b dp_bwd (N={n})": (M.dp_bwd_cuda, f"launches_n{n}"),
+        })
+    for name, fn in (("B3a loss_sums_fwd", M.loss_sums_fwd_cuda),
+                     ("B3b loss_sums_bwd", M.loss_sums_bwd_cuda), ("B4a dp_fwd", M.dp_fwd_cuda),
+                     ("B4b dp_bwd", M.dp_bwd_cuda)):
+        out[f"{name} (bf16, N={PSO_N120})"] = (fn, f"launches_n{PSO_N120}_bf16")
     return out
 
 
@@ -3333,9 +3593,120 @@ def pso_forward_figure(solver) -> None:
     tol = 1e-4 * float(ref.abs().max())
     emit({"phase": "pso_forward", "shape": list(dp.shape), "finite": bool(torch.isfinite(dp).all()),
           "max_abs_err": err, "tolerance": tol})
-    require(tuple(dp.shape) == (len(idx), PSO_NPIX, PSO_NPIX) and bool(torch.isfinite(dp).all()),
+    require(tuple(dp.shape) == (len(idx), *geom.probe_shape) and bool(torch.isfinite(dp).all()),
             "forward() gave a non-finite or misshapen dp")
     require(err <= tol, f"forward() differs from the plain multislice_dp: {err} > {tol}")
+
+
+# -- PSO at its 120^2 crop: the fused kernels' mixed-radix pair ------------------
+
+def pso_n120_init(pso_init: dict) -> dict:
+    """init_variables of PSO at its 120^2 crop without the on-the-fly pad:
+    pso_dataset's patterns (cropped to [68, 188)^2, normalised to max one),
+    the crop's pixel 0.15 x 256 / 120 Ang (the same reciprocal pixel), the
+    yml's probe at 120^2 scaled to the mean measured intensity, the raster
+    at that pixel, 21 slices of 10 Ang, a seeded random object (the flat
+    start amplifies float32 rounding, see pso_ff_path) and zero tilt."""
+    from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
+                                          make_stem_probe, near_field_evolution)
+
+    n = PSO_N120
+    dx = PSO_DX * PSO_NPIX / n
+    steps = np.round(np.arange(PSO_SIDE) * PSO_STEP_ANG / dx).astype(np.int32)
+    ys, xs = np.meshgrid(steps, steps, indexing="ij")
+    canvas = int(steps[-1]) + n + 8
+    lam = electron_wavelength(PSO_KV)
+    meas = pso_init["measurements"]
+    probe = make_mixed_probe(make_stem_probe({"kv": PSO_KV, "conv_angle": 21.4, "Npix": n,
+                                              "dx": dx, "df": -200.0}), PSO_PMODE, [0.02])
+    scale = np.sqrt(float(meas.mean(0).sum()) / np.sum(np.abs(probe) ** 2))
+    return {
+        "obj": random_object((1, PSO_NZ, canvas, canvas), SEED + 9),
+        "probe": (probe * scale).astype(np.complex64),
+        "probe_pos_shifts": np.zeros((PSO_SCANS, 2), np.float32),
+        "obj_tilts": np.zeros((1, 2), np.float32), "slice_thickness": PSO_DZ,
+        "H": near_field_evolution((n, n), dx, PSO_DZ, lam), "measurements": meas,
+        "crop_pos": np.stack([ys.ravel() + 4, xs.ravel() + 4], -1).astype(np.int32),
+        "omode_occu": np.ones(1, np.float32), "dx": dx, "lambd": lam,
+        "N_scan_slow": PSO_SIDE, "N_scan_fast": PSO_SIDE,
+    }
+
+
+def pso_n120_path(dev, card: str, pso_init: dict):
+    """pso_n120: PSO as its params file gives it minus the on-the-fly pad
+    (4,096 patterns of 120^2, 4 probe modes, 21 slices, batch 32, Adam,
+    loss_single, the yml's constraints), 2 iterations from a seeded object
+    through PtyRADSolver.run(): each step B1, B2, B3a and B3b at N = 120
+    (the mixed-radix pair), the forward figure B4a, no plain route; finite
+    and falling, and every iteration's loss within rtol 1e-4 of the same
+    run through the plain route (fwd_fused: false, torch.fft on the card).
+    Returns (solver, launches of the kernel run and the figure, init)."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    t0 = time.perf_counter()
+    init = pso_n120_init(pso_init)
+    setup_s = time.perf_counter() - t0
+    solver = PtyRADSolver(PSO_PARAMS, init_variables=init, device=dev, verbose=True)
+    first = first_batch_loss(solver)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    launches = drive(solver)
+    run_s = time.perf_counter() - t1
+    losses = [v for _, v in solver.history.loss_iters]
+    times = solver.history.iter_times
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = add_counts(launches, counted(lambda: pso_forward_figure(solver))[1])
+
+    plain_params = copy.deepcopy(PSO_PARAMS)
+    plain_params["model_params"]["fwd_fused"] = False
+    ref = PtyRADSolver(plain_params, init_variables=init, device=dev, verbose=False)
+    t2 = time.perf_counter()
+    ref_launches = drive(ref)
+    ref_s = time.perf_counter() - t2
+    ref_losses = [v for _, v in ref.history.loss_iters]
+    del ref
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    emit({
+        "phase": "pso_n120", "card": card, "N": PSO_N120, "n_patterns": PSO_SCANS, "batch": BATCH,
+        "first_batch_loss": first, "iterations": len(losses), "losses": losses, "iter_s": times,
+        "patterns_per_s": [PSO_SCANS / t for t in times], "setup_s": setup_s, "run_s": run_s,
+        "peak_mem_gb": peak, "launches": launches, "plain_route_losses": ref_losses,
+        "plain_route_run_s": ref_s, "rel_diff": rel, "rtol": 1e-4,
+        "plain_route_launches": ref_launches[PLAIN_ROUTE],
+    })
+    require(len(losses) == PSO_NITER and all(np.isfinite(losses)), f"pso_n120: losses {losses}")
+    require(losses[-1] < losses[0], f"pso_n120: loss did not fall: {losses}")
+    require(len(ref_losses) == PSO_NITER and max(rel) <= 1e-4,
+            f"pso_n120: losses {losses} differ from the plain route's {ref_losses}: {rel}")
+    for name in (f"B3a loss_sums_fwd (N={PSO_N120})", f"B3b loss_sums_bwd (N={PSO_N120})",
+                 f"B4a dp_fwd (N={PSO_N120})", "B1 gather_patches", "B2 scatter_add_patches"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the pso_n120 path")
+    require(launches[PLAIN_ROUTE] == 0, f"pso_n120: {launches[PLAIN_ROUTE]} plain routes")
+    for name in CHAIN_KERNELS:
+        require(launches[name] == 0, f"pso_n120: {name} ran at N = 120")
+    require(ref_launches[PLAIN_ROUTE] > 0, "pso_n120's reference did not take the plain route")
+    return solver, launches, init
+
+
+def n120_tilt_gate(dev, init: dict) -> dict:
+    """The dz and tilt float64 gate (tilt_gradients_check, its tolerance
+    unchanged) at N = 120: pso_n120's data with per-position tilts and dz
+    optimizable (with_dz_tilts), the first batch through B3 with dH (a
+    per-position H) against the plain route and against float64 on the
+    CPU. Returns the launch counts."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    data = dict(init, obj_tilts=np.zeros((PSO_SCANS, 2), np.float32))
+    solver = PtyRADSolver(with_dz_tilts(PSO_PARAMS), init_variables=data, device=dev,
+                          verbose=False)
+    solver.prepare()
+    for name in ("slice_thickness", "obj_tilts"):
+        getattr(solver.params, name).requires_grad_(True)
+    require(not solver.geom.global_tilt, "the N = 120 tilt gate runs one global tilt")
+    launches = counted(lambda: tilt_gradients_check(solver))[1]
+    require(launches[f"B3b loss_sums_bwd (dH, N={PSO_N120})"] > 0,
+            "the N = 120 tilt gate did not run B3b with dH")
+    return launches
 
 
 # -- the far-field exit: the PSO path again, and the carve ----------------------
@@ -3512,10 +3883,11 @@ def carve_check(dev, init: dict) -> dict:
     return launches
 
 
-def plain_route_case(n: int, rng) -> dict:
-    """The plain route's case at N: init_variables (a seeded random object,
-    6 probe modes, 6 slices, a batch of 32 shifted probes), model_params and
-    the weights of the summed dp, drawn from ``rng``."""
+def route_case(n: int, rng) -> dict:
+    """The fused route check's case at N: init_variables (a seeded random
+    object, 6 probe modes, 6 slices, a batch of 32 shifted probes, 32
+    patterns), model_params and the weights of the summed dp, drawn from
+    ``rng``."""
     from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
                                           make_stem_probe, near_field_evolution)
 
@@ -3535,56 +3907,88 @@ def plain_route_case(n: int, rng) -> dict:
     }
     mp = {"update_params": {"probe_pos_shifts": {"lr": 1e-4}}}
     w = torch.from_numpy(rng.random((BATCH, n, n)).astype(np.float32))
+    init["measurements"] = (rng.random((BATCH, n, n)) * 2.0 / (n * n)).astype(np.float32)
     return {"init": init, "mp": mp, "w": w}
 
 
-def plain_route_check(dev) -> dict:
-    """forward() where no kernel rule applies: N = 96 and 120 (not powers of
-    two) on the card go through the plain torch.fft chain, the patches still
-    through B1/B2. A batch of 32 with 6 probe modes, 6 slices and shifted
-    probes from a seeded random object: dp and every gradient against the
-    same forward() on the CPU, each within 1e-4 of its largest entry (the
-    tolerance of the B4 tests). Returns the card runs' launch counts."""
-    from ptyrad_tpu_torch.models import forward, forward_route, make_model
+def fused_route_check(dev) -> dict:
+    """The fused route at N = 96 and 120 (not powers of two: the mixed-radix
+    pair) and, with fwd_fused: false, the plain torch.fft chain at the same
+    cases, each on the card against the CPU (whose fused route runs the
+    kernels' plain versions): forward() (B4a, B4b under autograd) and the
+    loss_single data term through fused_loss_terms (B3a, B3b), a batch of 32
+    with 6 probe modes, 6 slices and shifted probes from a seeded random
+    object; dp, the loss and every gradient within 1e-4 of each largest
+    entry (the tolerance of the B4 tests). The patches go through B1/B2 on
+    both routes. Returns the card runs' launch counts."""
+    from ptyrad_tpu_torch.models import forward, forward_route, fused_loss_terms, make_model
 
+    loss_params = {"loss_single": {"state": True, "weight": 1.0, "dp_pow": 0.5}}
     rng = np.random.default_rng(SEED + 6)
     runs = []
-    for n in (96, 120):
-        case = plain_route_case(n, rng)
-        init, mp, w = case["init"], case["mp"], case["w"]
+    for n in NPO2_NS:
+        case = route_case(n, rng)
+        init, w = case["init"], case["w"]
+        for fused in (True, False):
+            mp = {**case["mp"], "fwd_fused": fused}
+            route = "fused" if fused else "plain"
 
-        def run(where):
-            params, buffers, geom = make_model(init, mp, where)
-            for _, t in params.named():
-                t.requires_grad_(True)
-            idx = torch.arange(BATCH, device=where)
-            require(forward_route(params, geom, idx) == "plain", f"N = {n} left the plain route")
-            dp, _ = forward(params, buffers, geom, idx)
-            (w.to(where) * dp).sum().backward()
-            return dp.detach().cpu(), {k: t.grad.cpu() for k, t in params.named()
-                                       if t.grad is not None}
+            def run(where):
+                params, buffers, geom = make_model(init, mp, where)
+                for _, t in params.named():
+                    t.requires_grad_(True)
+                idx = torch.arange(BATCH, device=where)
+                require(forward_route(params, geom, idx) == route,
+                        f"N = {n} left the {route} route")
+                dp, _ = forward(params, buffers, geom, idx)
+                (w.to(where) * dp).sum().backward()
+                out = [dp.detach().cpu()], {k: t.grad.cpu() for k, t in params.named()
+                                            if t.grad is not None}
+                if fused:
+                    for _, t in params.named():
+                        t.grad = None
+                    total = fused_loss_terms(params, buffers, geom, idx, None, loss_params)[0]
+                    total.backward()
+                    out[0].append(total.detach().cpu().reshape(1))
+                    out[1].update({"loss " + k: t.grad.cpu() for k, t in params.named()
+                                   if t.grad is not None})
+                return out
 
-        (dp_k, g_k), launches = counted(lambda: run(dev))
-        dp_c, g_c = run(torch.device("cpu"))
-        names = sorted(g_c)
-        (e_dp,), (t_dp,) = _grad_errs([dp_k], [dp_c])
-        errs, tols = _grad_errs([g_k[k] for k in names], [g_c[k] for k in names])
-        emit({"phase": "forward_plain_route", "N": n, "batch": BATCH, "pmode": PMODE, "nz": NZ,
-              "finite": bool(torch.isfinite(dp_k).all()), "max_abs_err_vs_cpu": e_dp,
-              "tolerance": t_dp, "grad_names": names, "grad_max_abs_err": errs,
-              "grad_tolerance": tols, "launches": launches})
-        require(names == ["obja", "objp", "probe", "probe_pos_shifts"] and set(g_k) == set(g_c),
-                f"N = {n}: gradients reached {sorted(g_k)} and {names}")
-        require(bool(torch.isfinite(dp_k).all()) and e_dp <= t_dp,
-                f"N = {n}: forward() on the card differs from the CPU: {e_dp} > {t_dp}")
-        for k, e, t in zip(names, errs, tols):
-            require(e <= t, f"N = {n}: the gradient of {k} differs from the CPU's: {e} > {t}")
-        require(launches[PLAIN_ROUTE] == 1, f"N = {n}: {launches[PLAIN_ROUTE]} plain routes")
-        for k in ("B1 gather_patches", "B2 scatter_add_patches"):
-            require(launches[k] > 0, f"N = {n}: {k} did not gather the patches")
-        for k in ("B3a loss_sums_fwd", "B4a dp_fwd", "B4b dp_bwd") + CHAIN_KERNELS:
-            require(launches[k] == 0, f"N = {n}: {k} ran on the plain route")
-        runs.append(launches)
+            (vals_k, g_k), launches = counted(lambda: run(dev))
+            vals_c, g_c = run(torch.device("cpu"))
+            names = sorted(g_c)
+            errs_v, tols_v = _grad_errs(vals_k, vals_c)
+            errs, tols = _grad_errs([g_k[k] for k in names], [g_c[k] for k in names])
+            emit({"phase": "forward_fused_route" if fused else "forward_plain_route", "N": n,
+                  "batch": BATCH, "pmode": PMODE, "nz": NZ,
+                  "finite": bool(torch.isfinite(vals_k[0]).all()),
+                  "values": ["dp", "loss"][:len(vals_k)], "max_abs_err_vs_cpu": errs_v,
+                  "tolerance": tols_v, "grad_names": names, "grad_max_abs_err": errs,
+                  "grad_tolerance": tols, "launches": launches})
+            want = {"obja", "objp", "probe", "probe_pos_shifts"}
+            want |= {"loss " + k for k in want} if fused else set()
+            require(set(names) == want and set(g_k) == set(g_c),
+                    f"N = {n}: gradients reached {sorted(g_k)} and {names}")
+            require(bool(torch.isfinite(vals_k[0]).all()), f"N = {n}: dp is not finite")
+            for v, e, t in zip(["dp", "loss"], errs_v, tols_v):
+                require(e <= t, f"N = {n} ({route}): {v} on the card differs from the CPU: "
+                        f"{e} > {t}")
+            for k, e, t in zip(names, errs, tols):
+                require(e <= t, f"N = {n} ({route}): the gradient of {k} differs from the "
+                        f"CPU's: {e} > {t}")
+            for k in ("B1 gather_patches", "B2 scatter_add_patches"):
+                require(launches[k] > 0, f"N = {n}: {k} did not gather the patches")
+            ours = [f"B4a dp_fwd (N={n})", f"B4b dp_bwd (N={n})", f"B3a loss_sums_fwd (N={n})",
+                    f"B3b loss_sums_bwd (N={n})"]
+            if fused:
+                require(launches[PLAIN_ROUTE] == 0 and all(launches[k] == 1 for k in ours),
+                        f"N = {n}: the fused route's launches {launches}")
+            else:
+                require(launches[PLAIN_ROUTE] == 1,
+                        f"N = {n}: {launches[PLAIN_ROUTE]} plain routes")
+                for k in ("B3a loss_sums_fwd", "B4a dp_fwd", "B4b dp_bwd") + CHAIN_KERNELS:
+                    require(launches[k] == 0, f"N = {n}: {k} ran on the plain route")
+            runs.append(launches)
     return add_counts(*runs)
 
 
@@ -4417,7 +4821,8 @@ def forward_bf16_check(dev, init: dict) -> dict:
     batch with shifted probes through B4 (the low-dose route), dp and every
     gradient against the plain multislice_dp with bf16_operands on the same
     patches (BF16_RATIO_TOL's gates); (2) N = 96 through the plain chain (a
-    bfloat16 wavefield), the card against the CPU, by the same gates; (3) a
+    bfloat16 wavefield; fwd_fused: false, since the fused kernels take
+    N = 96), the card against the CPU, by the same gates; (3) a
     tBL batch of loss_fn with optimizable dz and per-position tilts (B3 with
     dH, bf16): a finite, float32 loss and gradients. Returns the kernel
     routes' launch counts."""
@@ -4468,12 +4873,12 @@ def forward_bf16_check(dev, init: dict) -> dict:
     bf16_compare("forward() B4, tBL batch", ["dp"] + ["d " + k for k in names], k16,
                  run("float32", "kernels"), run("bfloat16", "plain"), run("float32", "plain"))
 
-    # (2) the plain route at N = 96: the card against the CPU
-    n96 = plain_route_case(96, np.random.default_rng(SEED + 6))
+    # (2) the plain route at N = 96 (fwd_fused: false): the card against the CPU
+    n96 = route_case(96, np.random.default_rng(SEED + 6))
 
     def run96(where, dtype):
-        params, buffers, geom = make_model(n96["init"], {**n96["mp"], "compute_dtype": dtype},
-                                           where)
+        params, buffers, geom = make_model(n96["init"], {**n96["mp"], "compute_dtype": dtype,
+                                                         "fwd_fused": False}, where)
         for _, t in params.named():
             t.requires_grad_(True)
         at = torch.arange(BATCH, device=where)
@@ -4578,20 +4983,23 @@ def cli_mixed_precision(card: str, tmp: str, raw_path: str) -> None:
 
 
 def fused_plan(n: int) -> dict:
-    """The plan csrc/multislice.cu compiled for N (ptyrad_fused_plan)."""
+    """The plan csrc/multislice.cu compiled for N (ptyrad_fused_plan; at N
+    that is not a power of two from that N's library)."""
     import ctypes
 
     from ptyrad_tpu_torch.ops import _build
 
-    out = (ctypes.c_int * 11)()
-    _build.check(_build.lib().ptyrad_fused_plan(n.bit_length() - 1, out), "ptyrad_fused_plan")
-    keys = ("n", "elems", "line_threads", "line", "fwd_threads", "fwd_sweeps", "bwd_threads",
-            "bwd_sweeps", "group_threads", "smem_bytes", "chunks")
+    out = (ctypes.c_int * 14)()
+    lib = _build.lib() if n & (n - 1) == 0 else _build.fused_lib(n)
+    _build.check(lib.ptyrad_fused_plan(n, out), "ptyrad_fused_plan")
+    keys = ("n", "elems", "line_threads", "line", "pad_shift", "fwd_threads", "fwd_row_sweeps",
+            "fwd_col_sweeps", "bwd_threads", "bwd_row_sweeps", "bwd_col_sweeps", "group_threads",
+            "smem_bytes", "chunks")
     return dict(zip(keys, out))
 
 
 KERNEL_CHECKS = ("check_patches", "check_loss_chain", "check_dp_chain", "check_chain",
-                 "check_fused_dh", "check_chain_dh", "check_chain_ff")
+                 "check_fused_dh", "check_chain_dh", "check_chain_ff", "check_fused_npo2")
 
 
 # -- data parallelism over ranks (A6) ---------------------------------------------
@@ -5692,13 +6100,16 @@ def main() -> int:
           "tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
-    path = _build.build()
+    path = _build.build(extra_n=MIXED_NS)  # the mixed-radix libraries beside the main one
     _build.lib()
     for n in (PSO_NPIX, 512):
         C.prepare(dev, n)
-    M.prepare(dev, NPIX)
+    for n in (NPIX,) + MIXED_NS:
+        M.prepare(dev, n)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": path.name,
-          "compiled": _build.BUILD_SECONDS is not None, "fused_plan": fused_plan(NPIX)})
+          "compiled": _build.BUILD_SECONDS is not None, "main_seconds": _build.BUILD_SECONDS,
+          "mixed_seconds": {str(n): s for n, s in _build.FUSED_BUILD_SECONDS.items()},
+          "fused_plan": {str(n): fused_plan(n) for n in (NPIX,) + MIXED_NS}})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = kernel_rows(dev, gen)
@@ -5706,7 +6117,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     propagation_yardstick(dev, gen)
     torch.cuda.empty_cache()
-    plain_launches = plain_route_check(dev)
+    route_launches = fused_route_check(dev)
 
     solver, tbl_launches, init, main_record = main_path(dev, card)
     main_losses = [v for _, v in solver.history.loss_iters]
@@ -5773,6 +6184,13 @@ def main() -> int:
     pso_ms = profile_steps(solver, card, "PSO", PSO_NITER + 1, n_batches=8)["device_ms_per_step"]
     del solver
     torch.cuda.empty_cache()
+    solver, n120_launches, n120_init = pso_n120_path(dev, card, pso_init)
+    profile_steps(solver, card, "PSO-n120", PSO_NITER + 1, n_batches=8)
+    del solver
+    torch.cuda.empty_cache()
+    n120_tilt_launches = n120_tilt_gate(dev, n120_init)
+    del n120_init
+    torch.cuda.empty_cache()
     solver, pso_bf16_launches = pso_bf16_path(dev, card, pso_init, pso_ref)
     profile_steps(solver, card, "PSO-bf16", PSO_NITER + 1, n_batches=8)
     del solver
@@ -5802,11 +6220,11 @@ def main() -> int:
     # one-rank reference of canvas_largefov (the two slabs' batch on the
     # whole canvas) is a comparison and counts in no row
     canvas_ranks = add_counts(canvas_launches, canvas_full_launches)
-    narrow = add_counts(plain_launches, tbl_launches, params_file_launches, resume_launches,
+    narrow = add_counts(route_launches, tbl_launches, params_file_launches, resume_launches,
                         forward_launches, low_dose_launches, store_launches, tilt_launches,
                         lbfgs_launches, accum_launches, family_launches, figures_launches,
                         hypertune_launches, mp_launches, forward_bf16_launches, dist_launches,
-                        dev_tools_launches,
+                        dev_tools_launches, n120_launches, n120_tilt_launches,
                         {k: 0 if k in CANVAS_KERNELS else v for k, v in canvas_ranks.items()},
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,

@@ -1,4 +1,4 @@
-// Mixed-state multislice chain for sm_90a at N <= 128, forward and backward:
+// Mixed-state multislice chain for sm_90a at every N <= 128, forward and backward:
 // the plain pair (B4), whose output is the diffraction intensity, and the
 // loss-folded pair (B3), whose output is the loss_single partial sums.
 //
@@ -107,6 +107,22 @@
 //  * A per-position H is read at b N^2 by the blocks of sample b.
 //  * Set-up once per (device, N) (prepare, ptyrad_fused_prepare): the
 //    twiddle table and the kernels' shared-memory limits.
+//  * N that is not a power of two (96, 100, 120, 127, ...): the same
+//    kernels on the mixed-radix pair of reg_fft.cuh (line_dif_mr,
+//    line_dit_mr) with the plan ops/fused_plan.py chooses for that N, which
+//    this file takes as macros (PTYRAD_MIXED_LINE, PTYRAD_MIXED_ROW,
+//    PTYRAD_MIXED_PAD): ops/_build.py compiles it, and its _bf16 twin, once
+//    per such N into a library of its own, whose entry points take that N
+//    alone. Without the macros the file builds the powers of two as before.
+//    FPlanMR holds the field the same way (rows padded by a + (a >> pad),
+//    the plan's shift), a line's T threads hold E points each in the
+//    plan's layouts, and the block's warps may leave lanes or lines idle
+//    where T does not divide 32 or the lines a sweep covers exceed N: an
+//    idle thread runs every barrier and touches no memory (the exchanges'
+//    `live`). The elementwise kernels index N^2 pixels by division by the
+//    compile-time N^2 (regfft::FixedPix), B3a's epilogue blocks take
+//    ceil(N^2 / chunks) pixels each, and the reduces are the fixed-order
+//    ones of every N.
 //  * FP32 throughout, accurate sincosf, twiddles from double precision.
 //  * The bfloat16 compute policy: multislice_bf16.cu compiles this file
 //    with PTYRAD_BF16_OPERANDS 1, so every line transform (line_dif,
@@ -153,26 +169,122 @@ constexpr int kFwdThreads = 1024;
 constexpr int kBwdThreads = 512;
 constexpr int kSumThreads = 256;
 
+// The plan of N = 2^LOGN: the radix-2 pair of reg_fft.cuh
 template <int LOGN, int kMaxThreads>
 struct FPlan {
   using Line = regfft::LinePlan<LOGN>;
+  static constexpr bool kPow2 = true;
   static constexpr int kLogN = LOGN;
   static constexpr int kN = Line::kN, kE = Line::kE, kLogTl = Line::kLogTl, kTl = Line::kTl;
   static constexpr int kNN = kN * kN;
   static constexpr int kLine = kN + (kN >= 16 ? kN / 16 : 1);  // a padded row
+  static constexpr int kPadShift = 4;                           // element a at a + a / 16
   static constexpr int kSlots = kN * kTl;  // a phase's threads: TL for each of N lines
   static constexpr int kThreads = kSlots < kMaxThreads ? kSlots : kMaxThreads;
   static constexpr int kSweeps = kSlots / kThreads;  // lines a thread takes in a phase
+  static constexpr int kRowSweeps = kSweeps, kColSweeps = kSweeps;
   static constexpr int kLinesPerSweep = kThreads >> kLogTl;
   static constexpr int kGroupThreads = 32 * kTl;  // a column phase's 32 adjacent columns
   static constexpr size_t kSmem = sizeof(float2) * kN * kLine;
+  static constexpr bool kReadsSlots = kTl > 1;  // line_dif's exchange: store_freq waits first
+
+  // register m of thread t: its point (t + TL m) and its frequency after line_dif
+  template <int m>
+  __device__ __forceinline__ static int pos(int t) { return t + m * kTl; }
+  template <int m>
+  __device__ __forceinline__ static bool pos_ok(int) { return true; }
+  template <int m>
+  __device__ __forceinline__ static int freq(int t) { return regfft::dif_freq<LOGN>(t, m); }
+  template <int m>
+  __device__ __forceinline__ static bool freq_ok(int) { return true; }
+  template <bool kB, class Ex>
+  __device__ __forceinline__ static void dif(float2 (&v)[kE], int t, const Ex& ex) {
+    line_dif<LOGN, kB>(v, t, ex);
+  }
+  template <bool kB, class Ex>
+  __device__ __forceinline__ static void dit(float2 (&v)[kE], int t, const Ex& ex) {
+    line_dit<LOGN, kB>(v, t, ex);
+  }
 };
 
-// the two chain kernels' block sizes at N (no comma for __launch_bounds__)
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The plan of a mixed-radix line (regfft::MixedLine, ops/fused_plan.py):
+// rows of kRow elements padded by a + (a >> kPad); a warp holds 32 / T rows
+// in the row phase, a column group T warps of 32 adjacent columns (one
+// named barrier each, at most 15 groups); the block takes the warps one
+// sweep of each phase needs, up to kMaxThreads
+template <class L, int kMaxThreads, int kRow, int kPad>
+struct FPlanMR {
+  using Line = L;
+  static constexpr bool kPow2 = false;
+  static constexpr int kN = L::kN, kE = L::kE, kTl = L::kTl;
+  static constexpr int kNN = kN * kN;
+  static constexpr int kLine = kRow, kPadShift = kPad;
+  static constexpr int kRowsPerWarp = 32 / kTl;
+  static constexpr int kWarpsMax0 = (kMaxThreads / 32) / kTl * kTl;
+  static constexpr int kWarpsMax =
+      kTl > 1 && kWarpsMax0 > 15 * kTl ? 15 * kTl : kWarpsMax0;  // named barriers 1 ... 15
+  static constexpr int kNeed0 = cdiv(kN, kRowsPerWarp), kNeed1 = kTl * cdiv(kN, 32);
+  static constexpr int kNeed = cdiv(kNeed0 > kNeed1 ? kNeed0 : kNeed1, kTl) * kTl;
+  static constexpr int kWarps = kNeed < kWarpsMax ? kNeed : kWarpsMax;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kGroups = kWarps / kTl;
+  static constexpr int kRowSweeps = cdiv(kN, kWarps * kRowsPerWarp);
+  static constexpr int kColSweeps = cdiv(kN, 32 * kGroups);
+  static constexpr int kGroupThreads = 32 * kTl;
+  static constexpr size_t kSmem = sizeof(float2) * kN * kLine;
+  static constexpr bool kReadsSlots = L::kReadsSlots;
+  static_assert(kLine >= kN - 1 + ((kN - 1) >> kPad) + 1, "a padded row must hold the row");
+
+  template <int m>
+  __device__ __forceinline__ static int pos(int t) { return L::template pos<0, m>(t); }
+  template <int m>
+  __device__ __forceinline__ static bool pos_ok(int t) { return L::template ok<0, m>(t); }
+  template <int m>
+  __device__ __forceinline__ static int freq(int t) { return L::template freq<m>(t); }
+  template <int m>
+  __device__ __forceinline__ static bool freq_ok(int t) {
+    return L::template ok<L::kPasses - 1, m>(t);
+  }
+  template <bool kB, class Ex>
+  __device__ __forceinline__ static void dif(float2 (&v)[kE], int t, const Ex& ex) {
+    regfft::line_dif_mr<L, kB>(v, t, ex);
+  }
+  template <bool kB, class Ex>
+  __device__ __forceinline__ static void dit(float2 (&v)[kE], int t, const Ex& ex) {
+    regfft::line_dit_mr<L, kB>(v, t, ex);
+  }
+};
+
+// What the kernels are built for: a shape S gives the plan of a block of at
+// most kMax threads (S::Plan<kMax>), the pixel arithmetic of the
+// elementwise kernels, the key of its one-time set-up and its twiddles.
 template <int LOGN>
-constexpr int kFwdBlock = FPlan<LOGN, kFwdThreads>::kThreads;
-template <int LOGN>
-constexpr int kBwdBlock = FPlan<LOGN, kBwdThreads>::kThreads;
+struct Pow2Shape {
+  template <int kMax>
+  using Plan = FPlan<LOGN, kMax>;
+  static constexpr int kN = 1 << LOGN, kKey = LOGN;
+  static regfft::Pow2Pix pix() { return regfft::Pow2Pix{2 * LOGN}; }
+  static cudaError_t upload() { return cudaSuccess; }
+};
+
+#ifdef PTYRAD_MIXED_LINE
+using MixedLineT = PTYRAD_MIXED_LINE;
+struct MixedShape {
+  template <int kMax>
+  using Plan = FPlanMR<MixedLineT, kMax, PTYRAD_MIXED_ROW, PTYRAD_MIXED_PAD>;
+  static constexpr int kN = MixedLineT::kN, kKey = 1;
+  static regfft::FixedPix<kN * kN> pix() { return {}; }
+  static cudaError_t upload() { return regfft::upload_mixed(kN); }
+};
+#endif
+
+// the two chain kernels' block sizes of shape S (no comma for __launch_bounds__)
+template <class S>
+constexpr int kFwdBlock = S::template Plan<kFwdThreads>::kThreads;
+template <class S>
+constexpr int kBwdBlock = S::template Plan<kBwdThreads>::kThreads;
 
 __device__ __forceinline__ float2 cscale(float2 a, float s) {
   return make_float2(a.x * s, a.y * s);
@@ -194,6 +306,7 @@ __device__ __forceinline__ float pow_pm1(float x, float p) {
 // A row of the resident field as a line (element a at a + a / 16); the
 // row's threads share a warp.
 struct FieldRow {
+  static constexpr bool live = true;
   float2* s;
   __device__ __forceinline__ void store(int a, float2 x) const { s[a + (a >> 4)] = x; }
   __device__ __forceinline__ float2 load(int a) const { return s[a + (a >> 4)]; }
@@ -205,6 +318,7 @@ struct FieldRow {
 // named barrier `bar`.
 template <class P>
 struct FieldCol {
+  static constexpr bool live = true;
   float2* s;
   int bar;
   __device__ __forceinline__ void store(int a, float2 x) const { s[a * P::kLine] = x; }
@@ -214,13 +328,52 @@ struct FieldCol {
   }
 };
 
+// The same for a mixed-radix plan, where a thread may hold no line (live
+// false: it waits at every barrier, stores nothing and loads from the
+// field's first element)
+template <class P>
+struct MixedRow {
+  float2* s;
+  bool live;
+  __device__ __forceinline__ void store(int a, float2 x) const {
+    if (live) s[a + (a >> P::kPadShift)] = x;
+  }
+  __device__ __forceinline__ float2 load(int a) const { return s[a + (a >> P::kPadShift)]; }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+template <class P>
+struct MixedCol {
+  float2* s;
+  int bar;
+  bool live;
+  __device__ __forceinline__ void store(int a, float2 x) const {
+    if (live) s[a * P::kLine] = x;
+  }
+  __device__ __forceinline__ float2 load(int a) const { return s[a * P::kLine]; }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;" : : "r"(bar), "r"(P::kGroupThreads) : "memory");
+  }
+};
+
 // f(y, t, line) for every row y of the field: thread t of the row's TL
 template <class P, class F>
 __device__ __forceinline__ void for_rows(float2* s, F&& f) {
-  const int t = threadIdx.x & (P::kTl - 1);
-  for (int sw = 0; sw < P::kSweeps; ++sw) {
-    const int y = sw * P::kLinesPerSweep + (threadIdx.x >> P::kLogTl);
-    f(y, t, FieldRow{s + y * P::kLine});
+  if constexpr (P::kPow2) {
+    const int t = threadIdx.x & (P::kTl - 1);
+    for (int sw = 0; sw < P::kSweeps; ++sw) {
+      const int y = sw * P::kLinesPerSweep + (threadIdx.x >> P::kLogTl);
+      f(y, t, FieldRow{s + y * P::kLine});
+    }
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int t = lane % P::kTl;
+    const int r = lane / P::kTl;
+    for (int sw = 0; sw < P::kRowSweeps; ++sw) {
+      const int y = (sw * P::kWarps + (threadIdx.x >> 5)) * P::kRowsPerWarp + r;
+      const bool live = r < P::kRowsPerWarp && y < P::kN;
+      f(y, t, MixedRow<P>{s + (live ? y * P::kLine : 0), live});
+    }
   }
 }
 
@@ -228,37 +381,76 @@ __device__ __forceinline__ void for_rows(float2* s, F&& f) {
 // columns with one t, and a column's TL warps are adjacent
 template <class P, class F>
 __device__ __forceinline__ void for_cols(float2* s, F&& f) {
-  const int w = threadIdx.x >> 5;
-  const int group = w >> P::kLogTl;
-  const int t = w & (P::kTl - 1);
-  for (int sw = 0; sw < P::kSweeps; ++sw) {
-    const int x = sw * P::kLinesPerSweep + group * 32 + (threadIdx.x & 31);
-    f(x, t, FieldCol<P>{s + x + (x >> 4), 1 + group});
+  if constexpr (P::kPow2) {
+    const int w = threadIdx.x >> 5;
+    const int group = w >> P::kLogTl;
+    const int t = w & (P::kTl - 1);
+    for (int sw = 0; sw < P::kSweeps; ++sw) {
+      const int x = sw * P::kLinesPerSweep + group * 32 + (threadIdx.x & 31);
+      f(x, t, FieldCol<P>{s + x + (x >> 4), 1 + group});
+    }
+  } else {
+    const int w = threadIdx.x >> 5;
+    const int group = w / P::kTl;
+    const int t = w % P::kTl;
+    for (int sw = 0; sw < P::kColSweeps; ++sw) {
+      const int x = (sw * P::kGroups + group) * 32 + (threadIdx.x & 31);
+      const bool live = x < P::kN;
+      f(x, t, MixedCol<P>{s + (live ? x + (x >> P::kPadShift) : 0), 1 + group, live});
+    }
   }
 }
 
-// The thread's points t + TL m of a line, from and to the field
+// Registers a mixed-radix plan's layouts leave empty start at zero
+template <class P>
+__device__ __forceinline__ void fresh(float2 (&v)[P::kE]) {
+  if constexpr (!P::kPow2) static_for<0, P::kE>([&](auto m) { v[m] = make_float2(0.0f, 0.0f); });
+}
+
+// f(m, a) for each register m of thread t that holds a point, a its line
+// position (t + TL m for a power of two), on a line the thread holds
+template <class P, class Ex, class F>
+__device__ __forceinline__ void each_point(int t, const Ex& ex, F&& f) {
+  static_for<0, P::kE>([&](auto m) {
+    if (ex.live && P::template pos_ok<decltype(m)::value>(t)) {
+      f(m, P::template pos<decltype(m)::value>(t));
+    }
+  });
+}
+
+// f(i, k) for each register i of thread t that holds a frequency after the
+// forward transform, k that frequency
+template <class P, class Ex, class F>
+__device__ __forceinline__ void each_freq(int t, const Ex& ex, F&& f) {
+  static_for<0, P::kE>([&](auto i) {
+    if (ex.live && P::template freq_ok<decltype(i)::value>(t)) {
+      f(i, P::template freq<decltype(i)::value>(t));
+    }
+  });
+}
+
+// The thread's points of a line, from and to the field
 template <class P, class Ex>
 __device__ __forceinline__ void load_line(float2 (&v)[P::kE], int t, const Ex& ex) {
-  static_for<0, P::kE>([&](auto m) { v[m] = ex.load(t + m * P::kTl); });
+  each_point<P>(t, ex, [&](auto m, int a) { v[m] = ex.load(a); });
 }
 
 template <class P, class Ex>
 __device__ __forceinline__ void store_line(const float2 (&v)[P::kE], int t, const Ex& ex) {
-  static_for<0, P::kE>([&](auto m) { ex.store(t + m * P::kTl, v[m]); });
+  each_point<P>(t, ex, [&](auto m, int a) { ex.store(a, v[m]); });
 }
 
-// The thread's frequencies dif_freq(t, i) of a line, from and to the field;
-// the store waits first for the exchange loads of line_dif
+// The thread's frequencies of a line, from and to the field; the store
+// waits first for the exchange loads of the forward transform
 template <class P, class Ex>
 __device__ __forceinline__ void load_freq(float2 (&v)[P::kE], int t, const Ex& ex) {
-  static_for<0, P::kE>([&](auto i) { v[i] = ex.load(regfft::dif_freq<P::kLogN>(t, i)); });
+  each_freq<P>(t, ex, [&](auto i, int k) { v[i] = ex.load(k); });
 }
 
 template <class P, class Ex>
 __device__ __forceinline__ void store_freq(const float2 (&v)[P::kE], int t, const Ex& ex) {
-  if constexpr (P::kTl > 1) ex.sync();
-  static_for<0, P::kE>([&](auto i) { ex.store(regfft::dif_freq<P::kLogN>(t, i), v[i]); });
+  if constexpr (P::kReadsSlots) ex.sync();
+  each_freq<P>(t, ex, [&](auto i, int k) { ex.store(k, v[i]); });
 }
 
 // The chain from the probe through the final slice's forward row
@@ -274,13 +466,14 @@ __device__ __forceinline__ void run_chain(float2* s, const float2* __restrict__ 
                                           const float* __restrict__ phi_b,
                                           const float2* __restrict__ h, float2* __restrict__ st,
                                           float2* __restrict__ kst, int nz) {
-  constexpr int kN = P::kN, kE = P::kE, kTl = P::kTl, kNN = P::kNN, kLogN = P::kLogN;
+  constexpr int kN = P::kN, kE = P::kE, kNN = P::kNN;
   constexpr float kInvNN = 1.0f / kNN;
   if (kspace) {  // the spectrum's inverse column transforms, straight from device memory
     for_cols<P>(s, [&](int x, int t, const auto& ex) {
       float2 v[kE];
-      static_for<0, kE>([&](auto i) { v[i] = pr[regfft::dif_freq<kLogN>(t, i) * kN + x]; });
-      line_dit<kLogN, kBf16>(v, t, ex);
+      fresh<P>(v);
+      each_freq<P>(t, ex, [&](auto i, int k) { v[i] = pr[k * kN + x]; });
+      P::template dit<kBf16>(v, t, ex);
       store_line<P>(v, t, ex);
     });
     __syncthreads();
@@ -292,25 +485,26 @@ __device__ __forceinline__ void run_chain(float2* s, const float2* __restrict__ 
     // the slice's entry state, T, the forward row transform
     for_rows<P>(s, [&](int y, int t, const auto& ex) {
       float2 v[kE];
-      const int row = y * kN + t;
+      fresh<P>(v);
+      const int row = y * kN;
       if (z == 0 && !kspace) {
-        static_for<0, kE>([&](auto m) { v[m] = pr[row + m * kTl]; });
+        each_point<P>(t, ex, [&](auto m, int a) { v[m] = pr[row + a]; });
       } else {
         load_freq<P>(v, t, ex);
-        line_dit<kLogN, kBf16>(v, t, ex);
+        P::template dit<kBf16>(v, t, ex);
         if (z == 0) static_for<0, kE>([&](auto m) { v[m] = cscale(v[m], kInvNN); });
       }
       if (st != nullptr) {
-        static_for<0, kE>([&](auto m) { st[z * kNN + row + m * kTl] = v[m]; });
+        each_point<P>(t, ex, [&](auto m, int a) { st[z * kNN + row + a] = v[m]; });
       }
-      static_for<0, kE>([&](auto m) {
-        const int k = row + m * kTl;
+      each_point<P>(t, ex, [&](auto m, int a) {
+        const int k = row + a;
         float sn, cs;
         sincosf(phi_z[k], &sn, &cs);
-        const float a = a_z[k];
-        v[m] = cmul(v[m], make_float2(a * cs, a * sn));
+        const float amp = a_z[k];
+        v[m] = cmul(v[m], make_float2(amp * cs, amp * sn));
       });
-      line_dif<kLogN, kBf16>(v, t, ex);
+      P::template dif<kBf16>(v, t, ex);
       store_freq<P>(v, t, ex);
     });
     __syncthreads();
@@ -318,28 +512,29 @@ __device__ __forceinline__ void run_chain(float2* s, const float2* __restrict__ 
     // the propagation's column phase: forward transform, (K_z), H / N^2, inverse
     for_cols<P>(s, [&](int x, int t, const auto& ex) {
       float2 v[kE];
+      fresh<P>(v);
       load_line<P>(v, t, ex);
-      line_dif<kLogN, kBf16>(v, t, ex);
-      static_for<0, kE>([&](auto i) {
-        const int k = regfft::dif_freq<kLogN>(t, i) * kN + x;
+      P::template dif<kBf16>(v, t, ex);
+      each_freq<P>(t, ex, [&](auto i, int f) {
+        const int k = f * kN + x;
         if constexpr (kDh) kst[z * kNN + k] = v[i];
         const float2 hv = __ldg(h + k);
         v[i] = cmul(v[i], make_float2(hv.x * kInvNN, hv.y * kInvNN));
       });
-      line_dit<kLogN, kBf16>(v, t, ex);
+      P::template dit<kBf16>(v, t, ex);
       store_line<P>(v, t, ex);
     });
     __syncthreads();
   }
 }
 
-template <int LOGN>
-__global__ void __launch_bounds__(kFwdBlock<LOGN>)
+template <class S>
+__global__ void __launch_bounds__(kFwdBlock<S>)
 chain_fwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
                  const float2* __restrict__ probe, const float2* __restrict__ h,
                  float* __restrict__ inten, int pmode, int nz, int shared_probe, int h_shared,
                  int kspace) {
-  using P = FPlan<LOGN, kFwdThreads>;
+  using P = typename S::template Plan<kFwdThreads>;
   constexpr int kN = P::kN, kE = P::kE, kNN = P::kNN;
   constexpr float kInvNN = 1.0f / kNN;
   extern __shared__ float2 smem[];
@@ -354,23 +549,25 @@ chain_fwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   float* out = inten + static_cast<size_t>(blockIdx.x) * kNN;
   for_cols<P>(smem, [&](int x, int t, const auto& ex) {
     float2 v[kE];
+    fresh<P>(v);
     load_line<P>(v, t, ex);
-    line_dif<LOGN, kBf16>(v, t, ex);
-    static_for<0, kE>([&](auto i) {
-      out[regfft::dif_freq<LOGN>(t, i) * kN + x] = (v[i].x * v[i].x + v[i].y * v[i].y) * kInvNN;
+    P::template dif<kBf16>(v, t, ex);
+    each_freq<P>(t, ex, [&](auto i, int f) {
+      out[f * kN + x] = (v[i].x * v[i].x + v[i].y * v[i].y) * kInvNN;
     });
   });
 }
 
 // dp = the sum over modes of inten, in mode order (B4a)
+template <class Pix>
 __global__ void __launch_bounds__(kSumThreads)
-mode_sum_kernel(const float* __restrict__ inten, float* __restrict__ dp, int pmode, int logn2,
+mode_sum_kernel(const float* __restrict__ inten, float* __restrict__ dp, int pmode, Pix pix,
                 size_t total) {
-  const size_t nn = size_t(1) << logn2;
+  const size_t nn = pix.nn();
   for (size_t t = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; t < total;
        t += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t b = t >> logn2;
-    const float* src = inten + b * pmode * nn + (t & (nn - 1));
+    const size_t b = pix.div(t);
+    const float* src = inten + b * pmode * nn + pix.mod(t);
     float d = 0.0f;
     for (int q = 0; q < pmode; ++q) d += src[q * nn];
     dp[t] = d;
@@ -392,20 +589,24 @@ __device__ float block_sum(float v, float* red) {
 }
 
 // B3a's epilogue, grid (chunks, B): block (c, b) takes chunk c of sample b's
-// N^2 pixels, sums the modes into dp in mode order, and writes the masked
-// partial sums of s1 and s2 over its pixels to partial (B, chunks, 2).
+// N^2 pixels (ceil(N^2 / chunks) of them, the last chunk the rest), sums the
+// modes into dp in mode order, and writes the masked partial sums of s1
+// and s2 over its pixels to partial (B, chunks, 2).
+template <class Pix>
 __global__ void __launch_bounds__(kSumThreads)
 loss_reduce_kernel(const float* __restrict__ inten, const float* __restrict__ meas,
                    const float* __restrict__ mask, float* __restrict__ dp,
-                   float* __restrict__ partial, int pmode, int logn2, float p, float eps) {
+                   float* __restrict__ partial, int pmode, Pix pix, float p, float eps) {
   __shared__ float red[kSumThreads / 32];
-  const size_t nn = size_t(1) << logn2;
+  const size_t nn = pix.nn();
   const size_t b = blockIdx.y;
-  const size_t per = nn / gridDim.x;
+  constexpr bool kExact = std::is_same_v<Pix, regfft::Pow2Pix>;  // chunks divide N^2
+  const size_t per = kExact ? nn / gridDim.x : (nn + gridDim.x - 1) / gridDim.x;
   const size_t first = b * nn + blockIdx.x * per;
+  const size_t stop = kExact || first + per < (b + 1) * nn ? first + per : (b + 1) * nn;
   float s1 = 0.0f;
   float s2 = 0.0f;
-  for (size_t i = first + threadIdx.x; i < first + per; i += blockDim.x) {
+  for (size_t i = first + threadIdx.x; i < stop; i += blockDim.x) {
     const float* src = inten + (b * pmode) * nn + (i - b * nn);
     float d = 0.0f;
     for (int q = 0; q < pmode; ++q) d += src[q * nn];
@@ -453,8 +654,8 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __
 // nz - 1, N, N) and the walk accumulates this wavefield's sum_z U_z
 // conj(K_z) into its dh_part field, in natural order; without it both
 // pointers are ignored.
-template <int LOGN, bool kLoss, bool kDh>
-__global__ void __launch_bounds__(kBwdBlock<LOGN>)
+template <class S, bool kLoss, bool kDh>
+__global__ void __launch_bounds__(kBwdBlock<S>)
 chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
                  const float2* __restrict__ probe, const float2* __restrict__ h,
                  const float* __restrict__ g, const float* __restrict__ meas,
@@ -463,8 +664,8 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
                  float2* dh_part, float2* __restrict__ d_probe, float2* __restrict__ probe_part,
                  int pmode, int nz, int shared_probe, int h_shared, int kspace, float p,
                  float eps) {
-  using P = FPlan<LOGN, kBwdThreads>;
-  constexpr int kN = P::kN, kE = P::kE, kTl = P::kTl, kNN = P::kNN;
+  using P = typename S::template Plan<kBwdThreads>;
+  constexpr int kN = P::kN, kE = P::kE, kNN = P::kNN;
   constexpr float kInvNN = 1.0f / kNN;
   extern __shared__ float2 smem[];
   const int b = blockIdx.x / pmode;
@@ -488,10 +689,11 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
   const float coef = kLoss ? c[0] * mask[b] * 2.0f * p * 2.0f * kInvNN : 2.0f * kInvNN;
   for_cols<P>(smem, [&](int x, int t, const auto& ex) {
     float2 v[kE];
+    fresh<P>(v);
     load_line<P>(v, t, ex);
-    line_dif<LOGN, kBf16>(v, t, ex);
-    static_for<0, kE>([&](auto i) {
-      const int k = regfft::dif_freq<LOGN>(t, i) * kN + x;
+    P::template dif<kBf16>(v, t, ex);
+    each_freq<P>(t, ex, [&](auto i, int f) {
+      const int k = f * kN + x;
       float gk;
       if constexpr (kLoss) {
         const float d = g_b[k] + eps;
@@ -501,7 +703,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
       }
       v[i] = cscale(v[i], coef * gk);
     });
-    line_dit<LOGN, kBf16>(v, t, ex);
+    P::template dit<kBf16>(v, t, ex);
     store_line<P>(v, t, ex);
   });
   __syncthreads();
@@ -516,21 +718,22 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
     // propagation to slice z - 1
     for_rows<P>(smem, [&](int y, int t, const auto& ex) {
       float2 v[kE];
+      fresh<P>(v);
       load_freq<P>(v, t, ex);
-      line_dit<LOGN, kBf16>(v, t, ex);
-      const int row = z * kNN + y * kN + t;
-      static_for<0, kE>([&](auto m) {
-        const int k = row + m * kTl;
+      P::template dit<kBf16>(v, t, ex);
+      const int row = z * kNN + y * kN;
+      each_point<P>(t, ex, [&](auto m, int a) {
+        const int k = row + a;
         float sn, cs;
         sincosf(phi_b[k], &sn, &cs);
-        const float a = a_b[k];
+        const float amp = a_b[k];
         st[k] = cmul_conj(v[m], st[k]);  // dT = d chi conj(psi)
-        v[m] = cmul_conj(v[m], make_float2(a * cs, a * sn));
+        v[m] = cmul_conj(v[m], make_float2(amp * cs, amp * sn));
       });
       if (probe_rows) {
-        static_for<0, kE>([&](auto m) { out[y * kN + t + m * kTl] = v[m]; });
+        each_point<P>(t, ex, [&](auto m, int a) { out[y * kN + a] = v[m]; });
       } else {
-        line_dif<LOGN, kBf16>(v, t, ex);
+        P::template dif<kBf16>(v, t, ex);
         store_freq<P>(v, t, ex);
       }
     });
@@ -541,10 +744,11 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
       // (dH += U conj(K)), conj(H) / N^2, inverse transform
       for_cols<P>(smem, [&](int x, int t, const auto& ex) {
         float2 v[kE];
+        fresh<P>(v);
         load_line<P>(v, t, ex);
-        line_dif<LOGN, kBf16>(v, t, ex);
-        static_for<0, kE>([&](auto i) {
-          const int k = regfft::dif_freq<LOGN>(t, i) * kN + x;
+        P::template dif<kBf16>(v, t, ex);
+        each_freq<P>(t, ex, [&](auto i, int f) {
+          const int k = f * kN + x;
           if constexpr (kDh) {
             float2 d = cmul_conj(v[i], kst[(z - 1) * kNN + k]);
             if (z != nz - 1) d = make_float2(d.x + dacc[k].x, d.y + dacc[k].y);
@@ -553,7 +757,7 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
           const float2 hv = __ldg(h_b + k);
           v[i] = cmul_conj(v[i], make_float2(hv.x * kInvNN, hv.y * kInvNN));
         });
-        line_dit<LOGN, kBf16>(v, t, ex);
+        P::template dit<kBf16>(v, t, ex);
         store_line<P>(v, t, ex);
       });
       __syncthreads();
@@ -561,41 +765,59 @@ chain_bwd_kernel(const float* __restrict__ obja, const float* __restrict__ objp,
       // kspace: the spectrum's cotangent, fft2(d psi_0) / N^2
       for_cols<P>(smem, [&](int x, int t, const auto& ex) {
         float2 v[kE];
+        fresh<P>(v);
         load_line<P>(v, t, ex);
-        line_dif<LOGN, kBf16>(v, t, ex);
-        static_for<0, kE>([&](auto i) {
-          out[regfft::dif_freq<LOGN>(t, i) * kN + x] = cscale(v[i], kInvNN);
-        });
+        P::template dif<kBf16>(v, t, ex);
+        each_freq<P>(t, ex, [&](auto i, int f) { out[f * kN + x] = cscale(v[i], kInvNN); });
       });
     }
   }
 }
 
-// Set-up once per (device, log2 N) (regfft::prepare_once): the twiddle table
+// f(S{}) for the shape of N: a power of two up to 128, or (built with a
+// mixed plan) that plan's N alone
+#ifdef PTYRAD_MIXED_LINE
+template <class F>
+cudaError_t with_shape(int n, F&& f) {
+  if (n != MixedShape::kN) return cudaErrorInvalidValue;
+  return f(MixedShape{});
+}
+#else
+template <class F>
+cudaError_t with_shape(int n, F&& f) {
+  if (n < 2 || n > (1 << kMaxLogN) || (n & (n - 1)) != 0) return cudaErrorInvalidValue;
+  return with_logn<kMaxLogN>(regfft::log2i(n), [&](auto L) -> cudaError_t {
+    return f(Pow2Shape<decltype(L)::value>{});
+  });
+}
+#endif
+
+// Set-up once per (device, N) (regfft::prepare_once): the twiddle tables
 // and the shared-memory limits of the five chain kernels of that N. After
 // it a launch checks one flag and does no set-up (ptyrad_fused_prepare).
-cudaError_t prepare(int logn) {
-  return regfft::prepare_once<kMaxLogN>(logn, [](int logn) {
-    return with_logn<kMaxLogN>(logn, [](auto L) -> cudaError_t {
-      constexpr int kL = decltype(L)::value;
-      constexpr size_t smem = FPlan<kL, kFwdThreads>::kSmem;  // both kernels'
-      REGFFT_TRY(set_smem(chain_fwd_kernel<kL>, smem));
-      REGFFT_TRY(set_smem(chain_bwd_kernel<kL, false, false>, smem));
-      REGFFT_TRY(set_smem(chain_bwd_kernel<kL, false, true>, smem));
-      REGFFT_TRY(set_smem(chain_bwd_kernel<kL, true, false>, smem));
-      return set_smem(chain_bwd_kernel<kL, true, true>, smem);
+cudaError_t prepare(int n) {
+  return with_shape(n, [](auto shape) -> cudaError_t {
+    using S = decltype(shape);
+    return regfft::prepare_once<kMaxLogN>(S::kKey, [](int) -> cudaError_t {
+      REGFFT_TRY(S::upload());
+      constexpr size_t smem = S::template Plan<kFwdThreads>::kSmem;  // both kernels'
+      REGFFT_TRY(set_smem(chain_fwd_kernel<S>, smem));
+      REGFFT_TRY(set_smem(chain_bwd_kernel<S, false, false>, smem));
+      REGFFT_TRY(set_smem(chain_bwd_kernel<S, false, true>, smem));
+      REGFFT_TRY(set_smem(chain_bwd_kernel<S, true, false>, smem));
+      return set_smem(chain_bwd_kernel<S, true, true>, smem);
     });
   });
 }
 
 cudaError_t launch_chain_fwd(const float* obja, const float* objp, const float2* probe,
-                             const float2* h, float* inten, int B, int pmode, int nz, int logn,
+                             const float2* h, float* inten, int B, int pmode, int nz, int n,
                              int shared_probe, int h_shared, int kspace, cudaStream_t st) {
-  REGFFT_TRY(prepare(logn));
-  return with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
-    constexpr int kL = decltype(L)::value;
-    using P = FPlan<kL, kFwdThreads>;
-    chain_fwd_kernel<kL><<<B * pmode, P::kThreads, P::kSmem, st>>>(
+  REGFFT_TRY(prepare(n));
+  return with_shape(n, [&](auto shape) -> cudaError_t {
+    using S = decltype(shape);
+    using P = typename S::template Plan<kFwdThreads>;
+    chain_fwd_kernel<S><<<B * pmode, P::kThreads, P::kSmem, st>>>(
         obja, objp, probe, h, inten, pmode, nz, shared_probe, h_shared, kspace);
     return cudaGetLastError();
   });
@@ -611,33 +833,33 @@ cudaError_t launch_chain_bwd(const float* obja, const float* objp, const float2*
                              const float* mask, const float* dp, const float* c, float2* stack,
                              float2* kstack, float2* dh_part, float2* dh, float* d_obja,
                              float* d_objp, float2* d_probe, float2* probe_part, int B, int pmode,
-                             int nz, int logn, int shared_probe, int h_shared, int kspace,
+                             int nz, int n, int shared_probe, int h_shared, int kspace,
                              float p, float eps, cudaStream_t st) {
-  REGFFT_TRY(prepare(logn));
-  const size_t nn = size_t(1) << (2 * logn);
+  REGFFT_TRY(prepare(n));
+  const size_t nn = static_cast<size_t>(n) * n;
   const bool with_dh = dh != nullptr && nz > 1;
   if (shared_probe && probe_part == nullptr) return cudaErrorInvalidValue;
   if (dh != nullptr && !with_dh) {
     REGFFT_TRY(cudaMemsetAsync(dh, 0, sizeof(float2) * (h_shared ? 1 : B) * nn, st));
   }
-  REGFFT_TRY(with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
-    constexpr int kL = decltype(L)::value;
-    using P = FPlan<kL, kBwdThreads>;
+  return with_shape(n, [&](auto shape) -> cudaError_t {
+    using S = decltype(shape);
+    using P = typename S::template Plan<kBwdThreads>;
     // without dH the instantiation that never touches the dH scratch
-    auto kernel = with_dh ? chain_bwd_kernel<kL, kLoss, true> : chain_bwd_kernel<kL, kLoss, false>;
+    auto kernel = with_dh ? chain_bwd_kernel<S, kLoss, true> : chain_bwd_kernel<S, kLoss, false>;
     kernel<<<B * pmode, P::kThreads, P::kSmem, st>>>(
         obja, objp, probe, h, g, meas, mask, dp, c, stack, kstack, dh_part, d_probe, probe_part,
         pmode, nz, shared_probe, h_shared, kspace, p, eps);
-    return cudaGetLastError();
-  }));
-  REGFFT_TRY(dt::obj(stack, obja, objp, d_obja, d_objp, B, pmode, nz, nn, st));
-  if (shared_probe) REGFFT_TRY(dt::probe(probe_part, d_probe, B, pmode, nn, st));
-  if (!with_dh) return cudaSuccess;
-  return dh::reduce(dh_part, dh, B, pmode, h_shared, logn, st);
+    REGFFT_TRY(cudaGetLastError());
+    REGFFT_TRY(dt::obj(stack, obja, objp, d_obja, d_objp, B, pmode, nz, nn, st));
+    if (shared_probe) REGFFT_TRY(dt::probe(probe_part, d_probe, B, pmode, nn, st));
+    if (!with_dh) return cudaSuccess;
+    return dh::reduce_pix(dh_part, dh, B, pmode, h_shared, S::pix(), st);
+  });
 }
 
 // B3a's epilogue blocks per sample: min(N, 16)
-constexpr int chunks(int logn) { return 1 << (logn < 4 ? logn : 4); }
+constexpr int chunks(int n) { return n < 16 ? n : 16; }
 
 }  // namespace
 
@@ -648,18 +870,19 @@ extern "C" {
 // the inten (B, pmode, N, N) scratch and dp (B, N, N), corner-centred.
 int PTYRAD_ENTRY(ptyrad_dp_fwd)(
     const float* obja, const float* objp, const float2* probe, const float2* h, float* inten,
-    float* dp, int B, int pmode, int nz, int logn, int shared_probe, int h_shared, int kspace,
+    float* dp, int B, int pmode, int nz, int n, int shared_probe, int h_shared, int kspace,
     void* stream) {
-  if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, logn,
+  cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, n,
                                      shared_probe, h_shared, kspace, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(B) << (2 * logn);
-  const size_t blocks = (total + kSumThreads - 1) / kSumThreads;
-  mode_sum_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), kSumThreads, 0, st>>>(
-      inten, dp, pmode, 2 * logn, total);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_shape(n, [&](auto shape) -> cudaError_t {
+    const size_t total = static_cast<size_t>(B) * n * n;
+    const size_t blocks = (total + kSumThreads - 1) / kSumThreads;
+    mode_sum_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), kSumThreads, 0,
+                      st>>>(inten, dp, pmode, decltype(shape)::pix(), total);
+    return cudaGetLastError();
+  }));
 }
 
 // B4b. As ptyrad_dp_fwd, plus g (B, N, N) the dp cotangent, corner-centred,
@@ -672,12 +895,11 @@ int PTYRAD_ENTRY(ptyrad_dp_fwd)(
 int PTYRAD_ENTRY(ptyrad_dp_bwd)(
     const float* obja, const float* objp, const float2* probe, const float2* h, const float* g,
     float2* stack, float2* kstack, float2* dh_part, float2* dh, float* d_obja, float* d_objp,
-    float2* d_probe, float2* probe_part, int B, int pmode, int nz, int logn, int shared_probe,
+    float2* d_probe, float2* probe_part, int B, int pmode, int nz, int n, int shared_probe,
     int h_shared, int kspace, void* stream) {
-  if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chain_bwd<false>(
       obja, objp, probe, h, g, nullptr, nullptr, nullptr, nullptr, stack, kstack, dh_part, dh,
-      d_obja, d_objp, d_probe, probe_part, B, pmode, nz, logn, shared_probe, h_shared, kspace,
+      d_obja, d_objp, d_probe, probe_part, B, pmode, nz, n, shared_probe, h_shared, kspace,
       1.0f, 0.0f, static_cast<cudaStream_t>(stream)));
 }
 
@@ -688,19 +910,19 @@ int PTYRAD_ENTRY(ptyrad_dp_bwd)(
 int PTYRAD_ENTRY(ptyrad_loss_fwd)(
     const float* obja, const float* objp, const float2* probe, const float2* h, const float* meas,
     const float* mask, float* inten, float* dp, float* partial, float* sums, int B, int pmode,
-    int nz, int logn, int shared_probe, int h_shared, int kspace, float p, float eps,
+    int nz, int n, int shared_probe, int h_shared, int kspace, float p, float eps,
     void* stream) {
-  if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, logn,
+  cudaError_t err = launch_chain_fwd(obja, objp, probe, h, inten, B, pmode, nz, n,
                                      shared_probe, h_shared, kspace, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  loss_reduce_kernel<<<dim3(chunks(logn), B), kSumThreads, 0, st>>>(inten, meas, mask, dp,
-                                                                   partial, pmode, 2 * logn, p,
-                                                                   eps);
-  err = cudaGetLastError();
+  err = with_shape(n, [&](auto shape) -> cudaError_t {
+    loss_reduce_kernel<<<dim3(chunks(n), B), kSumThreads, 0, st>>>(
+        inten, meas, mask, dp, partial, pmode, decltype(shape)::pix(), p, eps);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<1, 32, 0, st>>>(partial, sums, B * chunks(logn));
+  sum_partials_kernel<<<1, 32, 0, st>>>(partial, sums, B * chunks(n));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -712,32 +934,34 @@ int PTYRAD_ENTRY(ptyrad_loss_bwd)(
     const float* obja, const float* objp, const float2* probe, const float2* h, const float* meas,
     const float* mask, const float* dp, const float* c, float2* stack, float2* kstack,
     float2* dh_part, float2* dh, float* d_obja, float* d_objp, float2* d_probe,
-    float2* probe_part, int B, int pmode, int nz, int logn, int shared_probe, int h_shared,
+    float2* probe_part, int B, int pmode, int nz, int n, int shared_probe, int h_shared,
     int kspace, float p, float eps, void* stream) {
-  if (logn < 1 || logn > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chain_bwd<true>(
       obja, objp, probe, h, nullptr, meas, mask, dp, c, stack, kstack, dh_part, dh, d_obja,
-      d_objp, d_probe, probe_part, B, pmode, nz, logn, shared_probe, h_shared, kspace, p, eps,
+      d_objp, d_probe, probe_part, B, pmode, nz, n, shared_probe, h_shared, kspace, p, eps,
       static_cast<cudaStream_t>(stream)));
 }
 
-// The set-up of N = 2^logn on the current device (prepare): a launch after it
-// does none.
-int PTYRAD_ENTRY(ptyrad_fused_prepare)(int logn) { return static_cast<int>(prepare(logn)); }
+// The set-up of N on the current device (prepare): a launch after it does
+// none.
+int PTYRAD_ENTRY(ptyrad_fused_prepare)(int n) { return static_cast<int>(prepare(n)); }
 
 #if !PTYRAD_BF16_OPERANDS
-// The plan for N = 2^logn, which the card-only tests hold against
+// The plan for N, which the card-only tests hold against
 // tests/test_torch_fused_plan.py's: out gets N, E, TL, the padded row
-// length, the forward and the backward chain block's threads and sweeps, a
-// column group's threads, the blocks' shared bytes and the B3a epilogue's
-// blocks per sample.
-int ptyrad_fused_plan(int logn, int* out) {
-  return static_cast<int>(with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
-    using F = FPlan<decltype(L)::value, kFwdThreads>;
-    using B = FPlan<decltype(L)::value, kBwdThreads>;
-    const int v[] = {F::kN, F::kE, F::kTl, F::kLine, F::kThreads, F::kSweeps, B::kThreads,
-                     B::kSweeps, F::kGroupThreads, static_cast<int>(F::kSmem), chunks(logn)};
-    for (int i = 0; i < 11; ++i) out[i] = v[i];
+// length, the row padding's shift, the forward chain block's threads and
+// its row and column sweeps, the same for the backward's block, a column
+// group's threads, the blocks' shared bytes and the B3a epilogue's blocks
+// per sample.
+int ptyrad_fused_plan(int n, int* out) {
+  return static_cast<int>(with_shape(n, [&](auto shape) -> cudaError_t {
+    using S = decltype(shape);
+    using F = typename S::template Plan<kFwdThreads>;
+    using B = typename S::template Plan<kBwdThreads>;
+    const int v[] = {F::kN, F::kE, F::kTl, F::kLine, F::kPadShift, F::kThreads, F::kRowSweeps,
+                     F::kColSweeps, B::kThreads, B::kRowSweeps, B::kColSweeps, F::kGroupThreads,
+                     static_cast<int>(F::kSmem), chunks(n)};
+    for (int i = 0; i < 14; ++i) out[i] = v[i];
     return cudaSuccess;
   }));
 }

@@ -1,7 +1,9 @@
 // Register line transforms of the chain kernels: chain.cu (B5, B6) runs the
 // Stockham passes (line_fft), multislice.cu (B3, B4) the radix-2 pair
-// (line_dif, line_dit, below). Both share the line layout (LinePlan), the
-// twiddle table, the exchange policies and the set-up.
+// (line_dif, line_dit, below) at N a power of two and the mixed-radix pair
+// (line_dif_mr, line_dit_mr, further below) at any other N up to 128. The
+// first three share the line layout (LinePlan), the twiddle table, the
+// exchange policies and the set-up.
 //
 // An N-point line (N = 2 ... 512, a power of two) is held by TL = N / E
 // threads, E = 16 points each (N itself below 16), thread t holding
@@ -35,6 +37,7 @@
 #include <atomic>
 #include <cmath>
 #include <mutex>
+#include <tuple>
 #include <type_traits>
 
 #define REGFFT_TRY(expr)                        \
@@ -368,6 +371,444 @@ __device__ __forceinline__ void line_dit(float2 (&v)[LinePlan<LOGN>::kE], int t,
   });
 }
 
+// The mixed-radix pair of B3/B4 (multislice.cu), N <= 128 not a power of
+// two (ptyrad_tpu_torch/ops/fused_plan.py chooses the plan and documents
+// it; multislice.cu is built once per such N with it as macros). The
+// N-point transform is an in-place decimation in frequency with one stage
+// per prime factor of N; the inverse is its conjugate transpose, stage by
+// stage backwards (conjugate twiddles first, then the conjugate
+// butterfly), as line_dit is line_dif's. The stages run in passes:
+//  * a register pass (Pass<false, r...>, radices 2, 3, 5, 7) on whole
+//    cosets: its radices multiply to R, the N / R cosets are the positions
+//    that differ only in its digits, and thread t of the line's T holds the
+//    cosets t + T u (u < c, while below N / R), point D of slot u in
+//    register u + c D;
+//  * a sum pass (Pass<true, p>, one prime p above 7) computes each output
+//    as a direct sum of its p inputs, read from the line's slots, with
+//    twiddles from the table: O(p) a point, so every N has a plan. Thread
+//    t computes positions t + T j.
+// Between two passes the line goes through its slots once (store, sync,
+// load); a sum pass reads its inputs there. The forward leaves frequency
+// digitrev(position) in each register of the last pass's layout (freq);
+// the inverse takes that layout and ends in the first pass's (pos), the
+// layout of a line's points. Registers past a pass's, and slots past its
+// cosets, hold nothing (ok() is false there).
+
+constexpr int kMaxMixedN = 128;
+// exp(-2 pi i e / N) for e < N of the including file's mixed-radix N
+// (upload_mixed): every twiddle of the pair, W_M^x = W_N^(x N / M)
+__device__ float2 g_mixed[kMaxMixedN];
+
+template <bool kSum, int... R>
+struct Pass {
+  static constexpr bool kIsSum = kSum;
+  static constexpr int kStages = sizeof...(R);
+  static constexpr int kProd = (R * ... * 1);
+  __host__ __device__ static constexpr int radix(int s) {
+    constexpr int r[] = {R...};
+    return r[s];
+  }
+};
+
+// The unrolled butterflies' constants cos(2 pi m / r), sin(2 pi m / r), m <= (r - 1) / 2
+template <int r>
+__host__ __device__ constexpr float cos_r(int m) {
+  if constexpr (r == 3) {
+    return -0.5f;
+  } else if constexpr (r == 5) {
+    return m == 1 ? 0.309016994374947424f : -0.809016994374947424f;
+  } else {
+    return m == 1 ? 0.623489801858733531f : m == 2 ? -0.222520933956314404f
+                                                   : -0.900968867902419126f;
+  }
+}
+
+template <int r>
+__host__ __device__ constexpr float sin_r(int m) {
+  if constexpr (r == 3) {
+    return 0.866025403784438647f;
+  } else if constexpr (r == 5) {
+    return m == 1 ? 0.951056516295153572f : 0.587785252292473129f;
+  } else {
+    return m == 1 ? 0.781831482468029809f : m == 2 ? 0.974927912181823607f
+                                                   : 0.433883739117558120f;
+  }
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// Unnormalised r-point DFT (kInv: the inverse, its conjugate) of x, natural
+// order in and out, r = 2, 3, 5, 7: for odd r the conjugate-symmetric
+// pairs, y_q = x_0 + sum_k cos(2 pi q k / r) (x_k + x_{r-k})
+//             -/+ i sum_k sin(2 pi q k / r) (x_k - x_{r-k}).
+template <int r, bool kInv>
+__device__ __forceinline__ void small_dft(float2 (&x)[r]) {
+  if constexpr (r == 2) {
+    const float2 a = x[0];
+    x[0] = cadd(a, x[1]);
+    x[1] = csub(a, x[1]);
+  } else {
+    constexpr int h = (r - 1) / 2;
+    float2 sp[h], dm[h];
+    static_for<0, h>([&](auto kk) {
+      constexpr int k = decltype(kk)::value + 1;
+      sp[k - 1] = cadd(x[k], x[r - k]);
+      dm[k - 1] = csub(x[k], x[r - k]);
+    });
+    float2 y0 = x[0];
+    static_for<0, h>([&](auto k) { y0 = cadd(y0, sp[k]); });
+    static_for<0, h>([&](auto qq) {
+      constexpr int q = decltype(qq)::value + 1;
+      float2 a = x[0];
+      float2 b = make_float2(0.0f, 0.0f);
+      static_for<0, h>([&](auto kk) {
+        constexpr int k = decltype(kk)::value + 1;
+        constexpr int m = (q * k) % r;
+        constexpr float c = cos_r<r>(m <= h ? m : r - m);
+        constexpr float s = m <= h ? sin_r<r>(m) : -sin_r<r>(r - m);
+        a = make_float2(a.x + c * sp[k - 1].x, a.y + c * sp[k - 1].y);
+        b = make_float2(b.x + s * dm[k - 1].x, b.y + s * dm[k - 1].y);
+      });
+      // forward y_q = a - i b, y_{r-q} = a + i b; the inverse the other way
+      const float2 minus = make_float2(a.x + b.y, a.y - b.x);
+      const float2 plus = make_float2(a.x - b.y, a.y + b.x);
+      x[q] = kInv ? plus : minus;
+      x[r - q] = kInv ? minus : plus;
+    });
+    x[0] = y0;
+  }
+}
+
+// The compile-time arithmetic of a mixed-radix line (MixedLine below): a
+// base of its own, so the line's constants can call it
+template <int N, int T, class... Ps>
+struct MixedBase {
+  static constexpr int kPasses = sizeof...(Ps);
+  static constexpr int kStages = (Ps::kStages + ... + 0);
+
+  __host__ __device__ static constexpr int prod(int k) {
+    constexpr int p[] = {Ps::kProd...};
+    return p[k];
+  }
+  __host__ __device__ static constexpr bool is_sum(int k) {
+    constexpr bool s[] = {Ps::kIsSum...};
+    return s[k];
+  }
+  // radix of stage g of the whole transform
+  __host__ __device__ static constexpr int stage_radix(int g) {
+    int out = 0, base = 0;
+    ((g >= base && g < base + Ps::kStages ? (out = Ps::radix(g - base), 0) : 0,
+      base += Ps::kStages), ...);
+    return out;
+  }
+  __host__ __device__ static constexpr int first_stage(int k) {
+    int g = 0;
+    for (int i = 0; i < k; ++i) g += stages(i);
+    return g;
+  }
+  __host__ __device__ static constexpr int stages(int k) {
+    constexpr int s[] = {Ps::kStages...};
+    return s[k];
+  }
+  // the product of the earlier passes' radices, the span below pass k
+  // (N / (H R)), its cosets and the slots (a sum pass: points) of a thread
+  __host__ __device__ static constexpr int high(int k) {
+    int h = 1;
+    for (int i = 0; i < k; ++i) h *= prod(i);
+    return h;
+  }
+  __host__ __device__ static constexpr int span(int k) { return N / (high(k) * prod(k)); }
+  __host__ __device__ static constexpr int cosets(int k) { return N / prod(k); }
+  __host__ __device__ static constexpr int slots(int k) {
+    return is_sum(k) ? (N + T - 1) / T : (cosets(k) + T - 1) / T;
+  }
+  __host__ __device__ static constexpr int pass_elems(int k) {
+    return is_sum(k) ? slots(k) : slots(k) * prod(k);
+  }
+  __host__ __device__ static constexpr int max_elems() {
+    int e = 0;
+    for (int k = 0; k < kPasses; ++k) e = pass_elems(k) > e ? pass_elems(k) : e;
+    return e;
+  }
+  __host__ __device__ static constexpr int sub_prod(int s0, int s1) {
+    int p = 1;
+    for (int g = s0; g < s1; ++g) p *= stage_radix(g);
+    return p;
+  }
+  __host__ __device__ static constexpr int digitrev_const(int x, int s0, int s1) {
+    int f = 0;
+    for (int g = s0; g < s1; ++g) f += (x / sub_prod(g + 1, s1)) % stage_radix(g) * sub_prod(s0, g);
+    return f;
+  }
+};
+
+// How T threads transform an N-point line with the passes Ps (see above)
+template <int N, int T, class... Ps>
+struct MixedLine : MixedBase<N, T, Ps...> {
+  using Base = MixedBase<N, T, Ps...>;
+  using Base::cosets, Base::digitrev_const, Base::first_stage, Base::high, Base::is_sum,
+      Base::prod, Base::slots, Base::span, Base::stage_radix, Base::sub_prod;
+  static constexpr int kN = N, kTl = T, kPasses = Base::kPasses, kStages = Base::kStages;
+  template <int k>
+  using PassAt = std::tuple_element_t<k, std::tuple<Ps...>>;
+  static constexpr int kE = Base::max_elems();
+  static constexpr int kExchanges = kPasses - 1 + (Base::is_sum(0) ? 1 : 0);
+  // whether a transform reads slots other threads of the line wrote
+  static constexpr bool kReadsSlots = kExchanges > 0 && T > 1;
+  static_assert(Base::high(kPasses) == N, "the passes' radices must multiply to N");
+  static_assert(kE <= 32 && T <= 32, "a mixed-radix plan out of its register budget");
+
+  // register m of pass k's layout: the line position it holds, and whether it holds one
+  template <int k, int m>
+  __device__ __forceinline__ static int pos(int t) {
+    if constexpr (is_sum(k)) {
+      return t + T * m;
+    } else {
+      constexpr int c = slots(k), u = m % c, d = m / c, l = span(k), r = prod(k);
+      const int kappa = t + T * u;
+      if constexpr (l == 1) {
+        return kappa * r + d;
+      } else {
+        return (kappa / l) * r * l + d * l + kappa % l;
+      }
+    }
+  }
+  template <int k, int m>
+  __device__ __forceinline__ static bool ok(int t) {
+    if constexpr (is_sum(k)) {
+      if constexpr (T * (m + 1) <= N) {
+        return true;
+      } else {
+        return t + T * m < N;
+      }
+    } else {
+      constexpr int c = slots(k), u = m % c, d = m / c;
+      if constexpr (d >= prod(k)) {
+        return false;
+      } else if constexpr (T * (u + 1) <= cosets(k)) {
+        return true;
+      } else {
+        return t + T * u < cosets(k);
+      }
+    }
+  }
+  // x's digits in the radices of stages [s0, s1) (the first most
+  // significant), reversed: digit g weighs the product of the radices before it
+  template <int s0, int s1>
+  __device__ __forceinline__ static int digitrev(int x) {
+    int f = 0;
+    static_for<s0, s1>([&](auto gg) {
+      constexpr int g = decltype(gg)::value;
+      constexpr int below = sub_prod(g + 1, s1), weight = sub_prod(s0, g);
+      f += (x / below) % stage_radix(g) * weight;
+    });
+    return f;
+  }
+  // the frequency the forward leaves in register m of thread t
+  template <int m>
+  __device__ __forceinline__ static int freq(int t) {
+    constexpr int k = kPasses - 1;
+    if constexpr (is_sum(k)) {
+      return digitrev<0, kStages>(t + T * m);
+    } else {
+      constexpr int c = slots(k), u = m % c, d = m / c;
+      constexpr int lo = high(k) * digitrev_const(d < prod(k) ? d : 0, first_stage(k), kStages);
+      if constexpr (k == 0) {
+        return lo;
+      } else {
+        return digitrev<0, first_stage(k)>(t + T * u) + lo;
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ float2 mixed_twiddle(int e) { return __ldg(g_mixed + e); }
+
+// The product of pass P's radices from stage s on
+template <class P>
+__host__ __device__ constexpr int pass_suffix(int s) {
+  int p = 1;
+  for (int i = s; i < P::kStages; ++i) p *= P::radix(i);
+  return p;
+}
+
+// Thread t's registers of pass k's layout to and from the line's slots
+template <class Line, int k, class Ex>
+__device__ __forceinline__ void mr_store(const float2 (&v)[Line::kE], int t, const Ex& ex) {
+  static_for<0, Line::kE>([&](auto mm) {
+    constexpr int m = decltype(mm)::value;
+    if (Line::template ok<k, m>(t)) ex.store(Line::template pos<k, m>(t), v[m]);
+  });
+}
+
+template <class Line, int k, class Ex>
+__device__ __forceinline__ void mr_load(float2 (&v)[Line::kE], int t, const Ex& ex) {
+  static_for<0, Line::kE>([&](auto mm) {
+    constexpr int m = decltype(mm)::value;
+    if (Line::template ok<k, m>(t)) v[m] = ex.load(Line::template pos<k, m>(t));
+  });
+}
+
+// The stages of register pass k on thread t's cosets: forward, stage by
+// stage, the butterfly then the twiddles W_M^(j q) (M the stage's
+// sub-transform, j the offset below its span); kInv: the conjugate
+// transpose, stages backwards, conjugate twiddles then the conjugate butterfly
+template <class Line, int k, bool kInv>
+__device__ __forceinline__ void mr_stages(float2 (&v)[Line::kE], int t) {
+  using P = typename Line::template PassAt<k>;
+  constexpr int c = Line::slots(k), l = Line::span(k), R = P::kProd, T = Line::kTl;
+  static_for<0, c>([&](auto uu) {
+    constexpr int u = decltype(uu)::value;
+    const int kappa = t + T * u;
+    if constexpr (T * (u + 1) > Line::cosets(k)) {
+      if (kappa >= Line::cosets(k)) return;
+    }
+    const int below = l == 1 ? 0 : kappa % l;  // the coset's offset below the pass's span
+    static_for<0, P::kStages>([&](auto ss) {
+      constexpr int s = kInv ? P::kStages - 1 - decltype(ss)::value : decltype(ss)::value;
+      constexpr int r = P::radix(s);
+      constexpr int S = pass_suffix<P>(s + 1);  // the pass's digits after stage s, in points of D
+      constexpr int step = Line::kN / (r * S * l);  // N / M of the stage's sub-transform
+      static_for<0, R / (r * S)>([&](auto hh) {
+        constexpr int hi = decltype(hh)::value;
+        static_for<0, S>([&](auto ll) {
+          constexpr int lo = decltype(ll)::value;
+          constexpr int d0 = hi * r * S + lo;
+          const int j = lo * l + below;
+          float2 x[r];
+          static_for<0, r>([&](auto d) { x[d] = v[u + c * (d0 + d * S)]; });
+          if constexpr (kInv) {
+            static_for<1, r>([&](auto q) {
+              if constexpr (l == 1) {
+                constexpr int e = lo * decltype(q)::value * step;
+                if constexpr (e != 0) x[q] = cmul_conj(x[q], mixed_twiddle(e));
+              } else {
+                x[q] = cmul_conj(x[q], mixed_twiddle(j * decltype(q)::value * step));
+              }
+            });
+            small_dft<r, true>(x);
+          } else {
+            small_dft<r, false>(x);
+            static_for<1, r>([&](auto q) {
+              if constexpr (l == 1) {
+                constexpr int e = lo * decltype(q)::value * step;
+                if constexpr (e != 0) x[q] = cmul(x[q], mixed_twiddle(e));
+              } else {
+                x[q] = cmul(x[q], mixed_twiddle(j * decltype(q)::value * step));
+              }
+            });
+          }
+          static_for<0, r>([&](auto d) { v[u + c * (d0 + d * S)] = x[d]; });
+        });
+      });
+    });
+  });
+}
+
+// Sum pass k (one prime p, span l) from the line's slots into thread t's
+// points t + T j. Forward: output (h, q, w) = W_{p l}^(w q) sum_i x(h, i, w)
+// w_p^(q i); kInv, its conjugate transpose: x(h, i, w) = sum_q
+// conj(w_p^(q i)) conj(W_{p l}^(w q)) y(h, q, w). Sums run in index order.
+template <class Line, int k, bool kInv, class Ex>
+__device__ __forceinline__ void mr_sum(float2 (&v)[Line::kE], int t, const Ex& ex) {
+  constexpr int p = Line::prod(k), l = Line::span(k), T = Line::kTl, N = Line::kN;
+  constexpr int step = N / p, wstep = N / (p * l);
+  static_for<0, Line::slots(k)>([&](auto jj) {
+    constexpr int j = decltype(jj)::value;
+    const int x = t + T * j;
+    if constexpr (T * (j + 1) > N) {
+      if (x >= N) return;
+    }
+    const int w = x % l;
+    const int q = (x / l) % p;
+    const int base = x - q * l;
+    float2 acc = make_float2(0.0f, 0.0f);
+    int e = 0;  // q i mod p
+#pragma unroll 4
+    for (int i = 0; i < p; ++i) {
+      float2 y = ex.load(base + i * l);
+      if constexpr (kInv) {
+        y = cmul_conj(y, mixed_twiddle(w * i * wstep));
+        acc = cadd(acc, cmul_conj(y, mixed_twiddle(e * step)));
+      } else {
+        acc = cadd(acc, cmul(y, mixed_twiddle(e * step)));
+      }
+      e += q;
+      if (e >= p) e -= p;
+    }
+    v[j] = kInv ? acc : cmul(acc, mixed_twiddle(w * q * wstep));
+  });
+}
+
+// Unnormalised forward transform of one line with the mixed-radix pair:
+// v in the first pass's layout (the line's points) on entry, frequency
+// Line::freq in each register on return. The exchange loads other threads'
+// positions: the caller waits (ex.sync()) before it stores to the line's
+// slots when Line::kReadsSlots. kBf16: the points are rounded to bfloat16
+// first.
+template <class Line, bool kBf16 = false, class Ex>
+__device__ __forceinline__ void line_dif_mr(float2 (&v)[Line::kE], int t, const Ex& ex) {
+  round_operand<kBf16>(v);
+  static_for<0, Line::kPasses>([&](auto kk) {
+    constexpr int k = decltype(kk)::value;
+    if constexpr (k > 0 || Line::is_sum(0)) {
+      if constexpr (Line::kTl > 1) ex.sync();  // slots other threads may still read
+      mr_store<Line, (k > 0 ? k - 1 : 0)>(v, t, ex);
+      if constexpr (Line::kTl > 1) ex.sync();
+      if constexpr (!Line::is_sum(k)) mr_load<Line, k>(v, t, ex);
+    }
+    if constexpr (Line::is_sum(k)) {
+      mr_sum<Line, k, false>(v, t, ex);
+    } else {
+      mr_stages<Line, k, false>(v, t);
+    }
+  });
+}
+
+// Unnormalised inverse transform, the conjugate transpose of line_dif_mr:
+// frequency Line::freq in each register on entry, the first pass's layout
+// on return; when that pass reads slots the transform ends waiting for the
+// line, so the caller may store to its slots. kBf16: the points are rounded
+// to bfloat16 first.
+template <class Line, bool kBf16 = false, class Ex>
+__device__ __forceinline__ void line_dit_mr(float2 (&v)[Line::kE], int t, const Ex& ex) {
+  round_operand<kBf16>(v);
+  static_for<0, Line::kPasses>([&](auto kk) {
+    constexpr int k = Line::kPasses - 1 - decltype(kk)::value;
+    if constexpr (k < Line::kPasses - 1 || Line::is_sum(k)) {
+      if constexpr (Line::kTl > 1) ex.sync();
+      mr_store<Line, (k < Line::kPasses - 1 ? k + 1 : k)>(v, t, ex);
+      if constexpr (Line::kTl > 1) ex.sync();
+      if constexpr (!Line::is_sum(k)) mr_load<Line, k>(v, t, ex);
+    }
+    if constexpr (Line::is_sum(k)) {
+      mr_sum<Line, k, true>(v, t, ex);
+    } else {
+      mr_stages<Line, k, true>(v, t);
+    }
+  });
+  if constexpr (Line::is_sum(0) && Line::kTl > 1) ex.sync();
+}
+
+// The twiddles of the mixed-radix pair at N on the current device
+inline cudaError_t upload_mixed(int n) {
+  constexpr double kPi = 3.14159265358979323846;
+  if (n < 2 || n > kMaxMixedN) return cudaErrorInvalidValue;
+  float2 host[kMaxMixedN] = {};
+  for (int e = 0; e < n; ++e) {
+    const double ang = -2.0 * kPi * e / n;
+    host[e] = make_float2(static_cast<float>(std::cos(ang)), static_cast<float>(std::sin(ang)));
+  }
+  REGFFT_TRY(cudaMemcpyToSymbol(g_mixed, host, sizeof(host)));
+  return cudaDeviceSynchronize();
+}
+
 template <int L, int kMax, class F>
 cudaError_t call_with_logn(F& f) {
   if constexpr (L <= kMax) {
@@ -393,6 +834,22 @@ cudaError_t with_logn(int logn, F&& f) {
     default: return cudaErrorInvalidValue;
   }
 }
+
+// The pixel arithmetic of an N x N field for the elementwise kernels: N a
+// power of two (shifts by logn2 = 2 log2 N) or a compile-time N^2 = NN
+struct Pow2Pix {
+  int logn2;
+  __host__ __device__ size_t nn() const { return size_t(1) << logn2; }
+  __host__ __device__ size_t div(size_t t) const { return t >> logn2; }
+  __host__ __device__ size_t mod(size_t t) const { return t & (nn() - 1); }
+};
+
+template <int NN>
+struct FixedPix {
+  __host__ __device__ constexpr size_t nn() const { return NN; }
+  __host__ __device__ size_t div(size_t t) const { return t / NN; }
+  __host__ __device__ size_t mod(size_t t) const { return t % NN; }
+};
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {

@@ -13,6 +13,15 @@ the package needs no nvcc. A failed build raises. Every launch goes through
 ``launch``, which makes the operand's device current around the call (a
 ctypes launch runs in the current device's context, whatever stream it is
 handed) and costs one device query when it already is.
+
+The fused chain kernels (B3/B4) at N that is not a power of two come from a
+library of their own for each such N (``fused_lib``): ``multislice.cu`` and
+its ``_bf16`` twin compiled with the mixed-radix plan of
+``ops/fused_plan.py`` (two generated sources that define it and include
+the kernel file), by two nvcc processes started together, at the first use
+of that N (``launch(..., n=N)``, or ``fused_multislice.prepare`` ahead of
+it). Its name carries the same hash plus the generated sources';
+``build(extra_n=...)`` starts those builds beside the main library's.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from contextlib import nullcontext
 from pathlib import Path
 
 import torch
+
+from ptyrad_tpu_torch.ops.fused_plan import is_pow2, plan_source
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -73,8 +84,14 @@ BF16_VARIANTS = ("ptyrad_chain_segment_fwd", "ptyrad_chain_segment_bwd",
                  "ptyrad_fused_prepare", "ptyrad_dp_fwd", "ptyrad_dp_bwd", "ptyrad_loss_fwd",
                  "ptyrad_loss_bwd")
 
+# the entry points of a mixed-radix library (fused_lib)
+FUSED_ENTRIES = ("ptyrad_dp_fwd", "ptyrad_dp_bwd", "ptyrad_loss_fwd", "ptyrad_loss_bwd",
+                 "ptyrad_fused_prepare", "ptyrad_fused_plan")
+
 _LIB = None
+_FUSED = {}  # N -> the loaded mixed-radix library
 BUILD_SECONDS = None  # wall time of the build this process ran (None: cached)
+FUSED_BUILD_SECONDS = {}  # N -> seconds of the mixed-radix build this process ran
 
 
 def _nvcc() -> str:
@@ -88,49 +105,94 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _key() -> str:
-    """Hash of the flags and every file under csrc/, so an edited header
-    rebuilds as an edited source does."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _key(extra=()) -> str:
+    """Hash of the flags (and ``extra`` ones) and every file under csrc/, so
+    an edited header rebuilds as an edited source does."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra)).encode())
     for path in sorted(p for p in CSRC.iterdir() if p.is_file()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
+class _Job:
+    """One library's build: its nvcc processes, started at once, then the
+    link (finish)."""
+
+    def __init__(self, out: Path, sources=SOURCES, generated=None):
+        """sources: files of csrc/; generated: {file name: text} of
+        sources written into the build's directory (they include csrc/)."""
+        self.out, self.t0, self.compiled_at = out, time.perf_counter(), None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        self.tmp = tempfile.TemporaryDirectory(dir=BUILD_DIR)
+        paths = [CSRC / name for name in sources]
+        for name, text in (generated or {}).items():
+            paths.append(Path(self.tmp.name) / name)
+            paths[-1].write_text(text)
+        self.objs, self.procs = [], []
+        for path in paths:
+            obj = Path(self.tmp.name) / (path.stem + ".o")
+            self.objs.append(str(obj))
+            self.procs.append((path.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(path), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+    def compiled(self) -> bool:
+        """Whether every compile has ended (the first time: when)."""
+        if self.compiled_at is None and all(proc.poll() is not None for _, proc in self.procs):
+            self.compiled_at = time.perf_counter()
+        return self.compiled_at is not None
+
+    def finish(self) -> float:
+        """Wait for the compiles, link, and return the build's own seconds
+        (to the compiles' end, then the link)."""
+        with self.tmp:
+            failed = []
+            for name, proc in self.procs:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{name}:\n{log}")
+            if failed:
+                raise RuntimeError("nvcc failed to compile\n" + "\n".join(failed))
+            self.compiled()
+            t_link = time.perf_counter()
+            tmp_so = Path(self.tmp.name) / self.out.name
+            link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", *self.objs, "-o", str(tmp_so)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link:\n{link.stdout}{link.stderr}")
+            os.replace(tmp_so, self.out)  # atomic: a concurrent loader never sees half a file
+        return self.compiled_at - self.t0 + time.perf_counter() - t_link
+
+
+def _fused_sources(n: int) -> dict:
+    """The two generated sources of N's mixed-radix library (float32, _bf16)."""
+    return {f"multislice_n{n}.cu": plan_source(n),
+            f"multislice_n{n}_bf16.cu": plan_source(n, bf16_operands=True)}
+
+
+def _fused_path(n: int) -> Path:
+    return BUILD_DIR / f"libptyrad_fused_n{n}_{_key(tuple(_fused_sources(n).values()))}.so"
+
+
+def build(extra_n=()) -> Path:
     """Compile the sources (one nvcc per file, in parallel) and link the
     shared library; returns its path. Reuses a library built from the same
-    sources."""
+    sources. ``extra_n``: N that are not powers of two whose mixed-radix
+    libraries (fused_lib) build at the same time, beside it."""
     global BUILD_SECONDS
     out = BUILD_DIR / f"libptyrad_kernels_{_key()}.so"
-    if out.exists():
-        return out
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, procs = [], []
-        for name in SOURCES:
-            obj = Path(tmp) / (Path(name).stem + ".o")
-            objs.append(str(obj))
-            procs.append((name, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
-        for name, proc in procs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name}:\n{log}")
-        if failed:
-            raise RuntimeError("nvcc failed to compile\n" + "\n".join(failed))
-        tmp_so = Path(tmp) / out.name
-        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(tmp_so)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc failed to link:\n{link.stdout}{link.stderr}")
-        os.replace(tmp_so, out)  # atomic: a concurrent loader never sees half a file
-    BUILD_SECONDS = time.perf_counter() - t0
+    main = None if out.exists() else _Job(out)
+    extra = {n: _Job(_fused_path(n), (), _fused_sources(n))
+             for n in dict.fromkeys(extra_n) if not _fused_path(n).exists()}
+    jobs = [job for job in (main, *extra.values()) if job is not None]
+    while not all([job.compiled() for job in jobs]):  # each build's own end
+        time.sleep(0.1)
+    if main is not None:
+        BUILD_SECONDS = main.finish()
+    for n, job in extra.items():
+        FUSED_BUILD_SECONDS[n] = job.finish()
     return out
 
 
@@ -150,6 +212,23 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
+def fused_lib(n: int) -> ctypes.CDLL:
+    """The loaded mixed-radix library of B3/B4 at N (not a power of two),
+    built on first call: its entry points take that N alone."""
+    if n not in _FUSED:
+        path = _fused_path(n)
+        if not path.exists():
+            FUSED_BUILD_SECONDS[n] = _Job(path, (), _fused_sources(n)).finish()
+        handle = ctypes.CDLL(str(path))
+        for name in FUSED_ENTRIES:
+            for suffix in ("", "_bf16") if name != "ptyrad_fused_plan" else ("",):
+                fn = getattr(handle, name + suffix)
+                fn.argtypes = list(SIGNATURES[name])
+                fn.restype = ctypes.c_int
+        _FUSED[n] = handle
+    return _FUSED[n]
+
+
 def ptr(t) -> int | None:
     """A tensor's device pointer for a launcher, or None (NULL) for an
     absent optional operand."""
@@ -157,15 +236,16 @@ def ptr(t) -> int | None:
 
 
 def launch(name: str, t: torch.Tensor, *args, stream: bool = True,
-           bf16_operands: bool = False) -> None:
+           bf16_operands: bool = False, n: int | None = None) -> None:
     """Call launcher ``name`` (its bfloat16-operand twin with
     ``bf16_operands``, BF16_VARIANTS) with ``args`` and (unless ``stream``
     is False) the current stream of ``t``'s device last, with that device
     current: under ``torch.cuda.device`` when another one is current. Raise
-    if it returns a CUDA error code."""
+    if it returns a CUDA error code. ``n``: the fused kernels' N, whose
+    launcher comes from fused_lib(n) when N is not a power of two."""
     if bf16_operands:
         name += "_bf16"
-    fn = getattr(lib(), name)
+    fn = getattr(lib() if n is None or is_pow2(n) else fused_lib(n), name)
     index = t.device.index
     guard = nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index)
     with guard:

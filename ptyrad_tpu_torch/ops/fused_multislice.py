@@ -1,4 +1,4 @@
-"""The fused multislice chain for N <= 128: the plain pair (kernel B4),
+"""The fused multislice chain for every N <= 128: the plain pair (kernel B4),
 whose output is the far-field intensity, and the loss-folded pair (kernel
 B3), whose output is the partial sums of the loss_single data term.
 
@@ -26,11 +26,14 @@ On a CPU tensor each entry point runs its plain version (``multislice_dp_plain``
 runs the hand-written kernels of ``csrc/multislice.cu`` through an
 autograd.Function whose forward is B4a (B3a) and whose backward is B4b
 (B3b), computing dH only when autograd asks for H's gradient, or raises:
-the kernels take omode 1 and N a power of two up to 128. Each wavefield
+the kernels take omode 1 and any square N from 2 to 128. Each wavefield
 stays in one block's shared memory for the whole chain and is transformed
-in registers (the radix-2 pair of ``csrc/reg_fft.cuh``, the header the
-chain kernels share); tests/test_torch_fused_plan.py emulates the
-kernels' plan.
+in registers: at N a power of two by the radix-2 pair of
+``csrc/reg_fft.cuh`` (the header the chain kernels share), at any other N
+by its mixed-radix pair, with the plan ``ops/fused_plan.py`` chooses for
+that N, built into a library of its own at the first use of that N
+(``_build.fused_lib``; ``prepare`` builds it ahead).
+tests/test_torch_fused_plan.py emulates the kernels' plans.
 
 ``bf16_operands`` (the bfloat16 compute policy, models/state.py) rounds the
 operand of every 1-D transform pass to bfloat16, forward and adjoint, as
@@ -46,21 +49,20 @@ import torch
 
 from ptyrad_tpu_torch.ops import _build
 from ptyrad_tpu_torch.ops.fourier import fft2, ifft2
-
-MAX_N = 128  # a padded 128^2 complex64 wavefield fills 139 KB of a block's shared memory
+from ptyrad_tpu_torch.ops.fused_plan import MAX_N, is_pow2
 
 
 def prepare(device, n: int) -> None:
     """Do the kernels' one-time set-up for N-point fields on a CUDA device
-    (the twiddle table and the chain kernels' shared-memory limits). The
+    (at N that is not a power of two the build of its library first, then
+    the twiddle tables and the chain kernels' shared-memory limits). The
     first launch at each N does it otherwise; after it no launch does any,
     so call it for every N before capturing launches in a CUDA graph."""
-    if not (2 <= n <= MAX_N and not n & (n - 1)):
-        raise ValueError(f"prepare: N must be a power of two in [2, {MAX_N}], got {n}")
+    if not 2 <= n <= MAX_N:
+        raise ValueError(f"prepare: N must be in [2, {MAX_N}], got {n}")
     t = torch.empty(0, device=device)
     for bf16 in (False, True):  # the float32 and the bfloat16-operand kernels
-        _build.launch("ptyrad_fused_prepare", t, n.bit_length() - 1, stream=False,
-                      bf16_operands=bf16)
+        _build.launch("ptyrad_fused_prepare", t, n, stream=False, bf16_operands=bf16, n=n)
 
 
 def _pow(x: torch.Tensor, p: float) -> torch.Tensor:
@@ -110,29 +112,29 @@ def loss_sums_plain(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, eps:
 
 def fused_applicable_shapes(b, omode, nz, ny, nx, probe_b, pmode, h_b) -> bool:
     """The card's rule for what the fused kernels (B3 and B4) take: square
-    N x N with N a power of two, 2 <= N <= MAX_N (the whole wavefield sits
-    in one block's shared memory), and a shared or per-position probe. Pure
+    N x N with 2 <= N <= MAX_N (the whole wavefield sits in one block's
+    shared memory; the radix-2 pair at a power of two, the mixed-radix pair
+    at any other N), and a shared or per-position probe. Pure
     shape logic, the counterpart of
     ptyrad_tpu/ops/pallas_multislice.py:fused_applicable_shapes; omode (the
     callers loop object modes), nz, pmode, h_b and need_dh do not limit the
     kernels' shared memory (dH goes through device scratch), so unlike the
     JAX rule nothing else declines."""
-    return ny == nx and 2 <= nx <= MAX_N and not nx & (nx - 1) and probe_b in (1, b)
+    return ny == nx and 2 <= nx <= MAX_N and probe_b in (1, b)
 
 
 def _shape_info(obja_p, probe, h):
     if obja_p.dim() != 5 or obja_p.shape[1] != 1:
         raise ValueError(f"object patches must be (B, 1, Nz, N, N), got {tuple(obja_p.shape)}")
     b, _, nz, ny, nx = obja_p.shape
-    if ny != nx or nx > MAX_N or nx < 2 or nx & (nx - 1):
-        raise ValueError(f"the fused kernels (B3, B4) take square N x N patches with N a power "
-                         f"of two <= {MAX_N}; got {ny}x{nx}")
+    if ny != nx or nx > MAX_N or nx < 2:
+        raise ValueError(f"the fused kernels (B3, B4) take square N x N patches with "
+                         f"2 <= N <= {MAX_N}; got {ny}x{nx}")
     if probe.shape[0] not in (1, b) or tuple(probe.shape[2:]) != (ny, nx):
         raise ValueError(f"probe must be (1 or {b}, pmode, {ny}, {nx}), got {tuple(probe.shape)}")
     if h.shape[0] not in (1, b) or tuple(h.shape[1:]) != (ny, nx):
         raise ValueError(f"propagator must be (1 or {b}, {ny}, {nx}), got {tuple(h.shape)}")
-    return (b, nz, nx.bit_length() - 1, probe.shape[1], int(probe.shape[0] == 1),
-            int(h.shape[0] == 1))
+    return b, nz, nx, probe.shape[1], int(probe.shape[0] == 1), int(h.shape[0] == 1)
 
 
 def _check(name, tensors):
@@ -150,12 +152,20 @@ def _inputs(obja_p, objp_p, probe, h, **real):
             **{k: (t, torch.float32) for k, t in real.items()}}
 
 
-def _count(fn, h_shared, nz, dh=None, bf16_operands: bool = False) -> None:
+def _count(fn, h_shared, nz, dh=None, bf16_operands: bool = False, n: int = 128) -> None:
     """One launch of fn; launches_h_each counts those on a per-position H,
     launches_nz1 those of a single slice (no propagation in the chain),
     launches_dh (backwards) those that computed dH, launches_bf16 those with
-    bfloat16 operands and launches_bf16_dh those that computed dH too."""
+    bfloat16 operands and launches_bf16_dh those that computed dH too; at N
+    that is not a power of two launches_n<N> counts those at that N (the
+    mixed-radix kernels), launches_n<N>_dh those that computed dH and
+    launches_n<N>_bf16 those with bfloat16 operands."""
     fn.launches += 1
+    if not is_pow2(n):
+        keys = [f"launches_n{n}"]
+        keys += [f"launches_n{n}_dh"] * (dh is not None) + [f"launches_n{n}_bf16"] * bf16_operands
+        for key in keys:
+            setattr(fn, key, getattr(fn, key, 0) + 1)
     if bf16_operands:
         fn.launches_bf16 += 1
         if dh is not None:
@@ -194,8 +204,7 @@ def _bwd_scratch(b, pmode, nz, n, probe, shared):
 def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool, bf16_operands: bool = False):
     """Kernel B4a (the chain, then the mode sum in mode order): dp (B, N, N),
     corner-centred."""
-    b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
-    n = 1 << logn
+    b, nz, n, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     _check("dp_fwd_cuda", _inputs(obja_p, objp_p, probe, h))
     dev = obja_p.device
     inten = torch.empty((b, pmode, n, n), dtype=torch.float32, device=dev)
@@ -203,9 +212,9 @@ def dp_fwd_cuda(obja_p, objp_p, probe, h, probe_kspace: bool, bf16_operands: boo
     _build.launch(
         "ptyrad_dp_fwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), inten.data_ptr(),
-        dp.data_ptr(), b, pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)),
-        bf16_operands=bf16_operands)
-    _count(dp_fwd_cuda, h_shared, nz, bf16_operands=bf16_operands)
+        dp.data_ptr(), b, pmode, nz, n, shared, h_shared, int(bool(probe_kspace)),
+        bf16_operands=bf16_operands, n=n)
+    _count(dp_fwd_cuda, h_shared, nz, bf16_operands=bf16_operands, n=n)
     return dp
 
 
@@ -218,8 +227,7 @@ def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool =
     """Kernel B4b: recomputes the chain and walks it back from g, the
     cotangent of dp (B, N, N). Returns (d obja_p, d objp_p, d probe, d h),
     d h None unless need_dh."""
-    b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
-    n = 1 << logn
+    b, nz, n, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     _check("dp_bwd_cuda", _inputs(obja_p, objp_p, probe, h, g=g))
     if tuple(g.shape) != (b, n, n):
         raise ValueError(f"dp_bwd_cuda: g must be ({b}, {n}, {n}), got {tuple(g.shape)}")
@@ -233,9 +241,9 @@ def dp_bwd_cuda(obja_p, objp_p, probe, h, g, probe_kspace: bool, need_dh: bool =
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(), g.data_ptr(),
         stack.data_ptr(), _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h),
         d_obja.data_ptr(), d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b,
-        pmode, nz, logn, shared, h_shared, int(bool(probe_kspace)),
-        bf16_operands=bf16_operands)
-    _count(dp_bwd_cuda, h_shared, nz, d_h, bf16_operands)
+        pmode, nz, n, shared, h_shared, int(bool(probe_kspace)),
+        bf16_operands=bf16_operands, n=n)
+    _count(dp_bwd_cuda, h_shared, nz, d_h, bf16_operands, n)
     return d_obja, d_objp, d_probe, d_h
 
 
@@ -287,8 +295,7 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
     """Kernel B3a (chain, the mode reduction in min(N, 16) blocks a sample,
     the sum of their partials in a fixed order). Returns (s1, s2, dp) with
     dp (B, N, N) the corner-centred intensity kept for the backward."""
-    b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
-    n = 1 << logn
+    b, nz, n, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     _check("loss_sums_fwd_cuda", _inputs(obja_p, objp_p, probe, h, meas_cc=meas_cc, mask=mask))
     if tuple(meas_cc.shape) != (b, n, n) or tuple(mask.shape) != (b,):
         raise ValueError("loss_sums_fwd_cuda: meas_cc must be (B, N, N) and mask (B,)")
@@ -302,10 +309,10 @@ def loss_sums_fwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp_pow: float, e
         "ptyrad_loss_fwd", obja_p,
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), inten.data_ptr(), dp.data_ptr(),
-        partial.data_ptr(), sums.data_ptr(), b, pmode, nz, logn, shared, h_shared,
+        partial.data_ptr(), sums.data_ptr(), b, pmode, nz, n, shared, h_shared,
         int(bool(probe_kspace)), float(dp_pow), float(eps),
-        bf16_operands=bf16_operands)
-    _count(loss_sums_fwd_cuda, h_shared, nz, bf16_operands=bf16_operands)
+        bf16_operands=bf16_operands, n=n)
+    _count(loss_sums_fwd_cuda, h_shared, nz, bf16_operands=bf16_operands, n=n)
     return sums[0], sums[1], dp
 
 
@@ -320,8 +327,7 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
     """Kernel B3b: recomputes the chain and walks it back. c is the upstream
     cotangent of s1 (a device scalar). Returns (d obja_p, d objp_p, d probe,
     d h), d h None unless need_dh."""
-    b, nz, logn, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
-    n = 1 << logn
+    b, nz, n, pmode, shared, h_shared = _shape_info(obja_p, probe, h)
     _check("loss_sums_bwd_cuda",
            _inputs(obja_p, objp_p, probe, h, meas_cc=meas_cc, mask=mask, dp=dp, c=c))
     if tuple(dp.shape) != (b, n, n) or c.numel() != 1:
@@ -336,10 +342,10 @@ def loss_sums_bwd_cuda(obja_p, objp_p, probe, h, meas_cc, mask, dp, c, dp_pow: f
         obja_p.data_ptr(), objp_p.data_ptr(), probe.data_ptr(), h.data_ptr(),
         meas_cc.data_ptr(), mask.data_ptr(), dp.data_ptr(), c.data_ptr(), stack.data_ptr(),
         _build.ptr(kstack), _build.ptr(dh_part), _build.ptr(d_h), d_obja.data_ptr(),
-        d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b, pmode, nz, logn,
+        d_objp.data_ptr(), d_probe.data_ptr(), _build.ptr(probe_part), b, pmode, nz, n,
         shared, h_shared, int(bool(probe_kspace)), float(dp_pow), float(eps),
-        bf16_operands=bf16_operands)
-    _count(loss_sums_bwd_cuda, h_shared, nz, d_h, bf16_operands)
+        bf16_operands=bf16_operands, n=n)
+    _count(loss_sums_bwd_cuda, h_shared, nz, d_h, bf16_operands, n)
     return d_obja, d_objp, d_probe, d_h
 
 

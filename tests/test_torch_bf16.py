@@ -483,8 +483,10 @@ def test_bf16_policy_keeps_float32_state(rng, route, loss, monkeypatch):
     the loss stay float32 on every route (test_forward.py
     test_bf16_forward_returns_f32_dp), and the loss moves off the float32
     one by the policy's rounding. The chain route is taken at N = 16 by
-    declining the fused rule, as the card does above N = 128."""
-    if route == "chain":
+    declining the fused rule, as the card does above N = 128, and the plain
+    route at N = 12 the same way (the fused rule takes every N up to 128;
+    the chain rule no N that is not a power of two)."""
+    if route != "fused":
         monkeypatch.setattr(importlib.import_module("ptyrad_tpu_torch.models.forward"),
                             "fused_applicable_shapes", lambda *a: False)
     shape = ROUTE_SHAPES[route]

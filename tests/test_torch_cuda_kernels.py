@@ -3,7 +3,8 @@ the edge cases that chip_smoke.py's tBL and PSO shapes do not reach: small
 and odd patch sizes, one slice, one mode, every probe layout, other loss
 powers, a masked sample, the whole loss-folded path, the plain fused chain
 (B4) and forward() through it with two object modes and detector blur, the
-segmented chain (B5/B6) with `last` / `last_mega` both ways and the
+fused pairs at N that is not a power of two (6, 96, 100, 120, 127: the
+mixed-radix pair), the segmented chain (B5/B6) with `last` / `last_mega` both ways and the
 grad-off route, B5 with the far-field exit (set_far_field) and the route
 through it, and short tBL-like, low-dose and PSO-like solver runs, with
 optimizable slice thickness and tilts too, and one from a params file and a
@@ -184,7 +185,8 @@ def _grad(t):
 
 @pytest.mark.parametrize("b,pmode,nz,n", [(3, 2, 1, 16), (2, 1, 2, 2), (4, 3, 6, 64),
                                           (2, 6, 6, 128), (3, 8, 3, 4), (5, 8, 2, 8),
-                                          (3, 8, 4, 32)])
+                                          (3, 8, 4, 32), (3, 2, 3, 6), (2, 4, 3, 96),
+                                          (2, 3, 2, 100), (2, 4, 3, 120), (2, 2, 2, 127)])
 @pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])
 @pytest.mark.parametrize("p", [0.5, 1.0, 0.3])
 @pytest.mark.parametrize("h_case", H_CASES)
@@ -270,14 +272,16 @@ def test_fused_kernel_plans_match_fused_plan(dev):
     from ptyrad_tpu_torch.ops import _build
     from ptyrad_tpu_torch.ops import fused_multislice as M
 
-    for logn in range(1, 8):
-        M.prepare(dev, 1 << logn)  # the explicit warm-up, at every N
-        out = (ctypes.c_int * 11)()
-        _build.check(_build.lib().ptyrad_fused_plan(logn, out), "ptyrad_fused_plan")
-        plan = fused_plan(1 << logn)
-        assert list(out) == [plan.n, plan.elems, plan.line_threads, plan.line, plan.threads,
-                             plan.sweeps, plan.bwd_threads, plan.bwd_sweeps,
-                             plan.group_threads, plan.smem, plan.chunks]
+    for n in [1 << logn for logn in range(1, 8)] + [6, 96, 100, 120, 127]:
+        M.prepare(dev, n)  # the explicit warm-up (and, not a power of two, the build)
+        out = (ctypes.c_int * 14)()
+        lib = _build.lib() if n & (n - 1) == 0 else _build.fused_lib(n)
+        _build.check(lib.ptyrad_fused_plan(n, out), "ptyrad_fused_plan")
+        plan = fused_plan(n)
+        assert list(out) == [plan.n, plan.elems, plan.line_threads, plan.line, plan.pad_shift,
+                             plan.threads, plan.row_sweeps, plan.col_sweeps, plan.bwd_threads,
+                             plan.bwd_row_sweeps, plan.bwd_col_sweeps, plan.group_threads,
+                             plan.smem, plan.chunks]
 
 
 def test_unsupported_cases_raise(dev, gen):
@@ -286,7 +290,7 @@ def test_unsupported_cases_raise(dev, gen):
 
     _, _, probe, h, meas, mask = _chain_inputs(dev, gen, 2, 2, 2, 16, "each")
     big = torch.ones((2, 1, 1, 256, 256), device=dev)
-    with pytest.raises(ValueError, match="power of two"):
+    with pytest.raises(ValueError, match="2 <= N <= 128"):
         M.multislice_loss_sums_fused(big, big, probe, h, meas, mask, 0.5, 1e-10)
 
 
@@ -378,7 +382,7 @@ def test_solver_cuda_matches_cpu(dev):
 
 # -- B4: the plain fused chain ------------------------------------------------
 
-@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128, 6, 96, 120, 127])
 @pytest.mark.parametrize("pmode", [1, 6, 8])
 @pytest.mark.parametrize("nz", [1, 6])
 @pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])
@@ -423,7 +427,7 @@ def test_dp_chain_unsupported_cases_raise(dev, gen):
 
     _, _, probe, h, _, _ = _chain_inputs(dev, gen, 2, 2, 2, 16, "each")
     big = torch.ones((2, 1, 1, 256, 256), device=dev)
-    with pytest.raises(ValueError, match="power of two"):
+    with pytest.raises(ValueError, match="2 <= N <= 128"):
         M.multislice_dp_fused(big, big, probe, h)
 
 
@@ -458,12 +462,14 @@ def test_forward_cuda_omode2_blur_matches_cpu(dev):
         _assert_rel(g_gpu[name], g_cpu[name], f"d {name}")
 
 
-@pytest.mark.parametrize("npix,fwd_fused", [(96, True), (120, True), (32, False)])
+@pytest.mark.parametrize("npix,fwd_fused", [(96, True), (120, True), (32, False), (96, False),
+                                            (192, True)])
 def test_forward_plain_route_cuda_matches_cpu(dev, npix, fwd_fused):
-    """forward() where no kernel rule applies (N = 96, 120: not a power of
-    two) or with fwd_fused off: the plain torch.fft chain on the card, the
-    patches still through B1/B2, against the CPU; values and gradients at
-    1e-4 of the largest entry, counted in forward.launches_plain."""
+    """forward() where the fused kernels take N = 96 and 120 (their
+    mixed-radix pair, B4a/B4b), where no kernel rule applies (N = 192) or
+    with fwd_fused off (the plain torch.fft chain on the card, counted in
+    forward.launches_plain); the patches through B1/B2; against the CPU,
+    values and gradients at 1e-4 of the largest entry."""
     from ptyrad_tpu_torch.models import forward, forward_route, make_model
     from ptyrad_tpu_torch.ops import patches as P
 
@@ -476,12 +482,13 @@ def test_forward_plain_route_cuda_matches_cpu(dev, npix, fwd_fused):
         for _, t in params.named():
             t.requires_grad_(True)
         idx = torch.arange(6, device=d)
-        assert forward_route(params, geom, idx) == "plain"
+        fused = fwd_fused and npix <= 128
+        assert forward_route(params, geom, idx) == ("fused" if fused else "plain")
         before = forward.launches_plain, P.gather_cuda.launches, P.scatter_add_cuda.launches
         dp, _ = forward(params, buffers, geom, idx)
         (w.to(d) * dp).sum().backward()
         after = forward.launches_plain, P.gather_cuda.launches, P.scatter_add_cuda.launches
-        assert after[0] - before[0] == 1
+        assert after[0] - before[0] == (0 if fused else 1)
         assert (after[1] > before[1] and after[2] > before[2]) == (d != "cpu")
         out[str(d)] = (dp.detach().cpu(), {n: t.grad.cpu() for n, t in params.named()
                                            if t.grad is not None})

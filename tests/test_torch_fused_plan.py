@@ -1,44 +1,60 @@
-"""The plan of the fused chain kernels (B3/B4, ``csrc/multislice.cu``),
-checked on the CPU.
+"""The plans of the fused chain kernels (B3/B4, ``csrc/multislice.cu``),
+checked on the CPU at every N = 2 ... 128.
 
-``fused_plan`` restates multislice.cu's compile-time ``FPlan``; the
+``fused_plan`` restates the plan multislice.cu compiles for N; the
 card-only suite holds the two equal through the library's
 ``ptyrad_fused_plan``. A block holds one (sample, mode) wavefield in shared
 memory for the whole chain, its rows padded (element (y, x) at
-y * line + x + x // 16), and transforms it in a row phase and a column
-phase with the radix-2 pair of ``csrc/reg_fft.cuh`` (``line_dif``,
+y * line + pad(x)), and transforms it in a row phase and a column phase.
+
+At N a power of two the radix-2 pair of ``csrc/reg_fft.cuh`` (``line_dif``,
 ``line_dit``): TL = N / E threads a line, E points each at t + TL * m; the
 decimation-in-frequency stages of span N/2 ... TL in registers, one
 exchange on the line's own slots of the field (the points stored at
 t + TL * m, thread t loading positions E * t + i), the stages of span
 TL/2 ... 1; the forward leaves frequency bitrev(E * t + i) in register i
-(``dif_freq``), and the inverse, its conjugate transpose, runs the same
-way back. In the row phase a row's threads are adjacent lanes of one warp;
-in the column phase a warp holds 32 adjacent columns with one t, and a
+(``dif_freq``), and the inverse, its conjugate transpose, runs the same way
+back. In the row phase a row's threads are adjacent lanes of one warp; in
+the column phase a warp holds 32 adjacent columns with one t, and a
 column's TL warps wait on a named barrier of their own.
 
-Here, for every N = 2 ... 128 and both blocks: the block fits the card;
-each phase covers every element of the field once, in each of the three
-layouts a thread uses (its points, its exchange positions, its
-frequencies); every warp access of both phases (loads and stores in each
-layout) takes the least number of shared-memory wavefronts (8-byte
-accesses: one per half-warp that has any, 32 banks of 4 bytes). For every
-N: each exchange writes each of its line's slots once, reads only what it
-wrote and touches no other line, and a thread-by-thread NumPy emulation of
-one propagation ifft2(H fft2(.)), its column phase fused (column
-transform, H / N^2, inverse column transform), and of the far field
-fft2(.) equals NumPy's at rtol 1e-5 of the largest entry (double precision
-arithmetic; the only float32 rounding is the twiddles').
+At any other N the mixed-radix pair (``line_dif_mr``, ``line_dit_mr``) with
+the plan of ``ops/fused_plan.py`` (its module docstring): one stage per
+prime factor, register passes of radix 2, 3, 5 and 7 on whole cosets and
+sum passes of a larger prime, an exchange between passes, frequency
+digitrev(position) after the forward; a warp holds 32 // T rows, a column
+group T warps, and lanes or lines past N idle.
+
+Here, for every N and both blocks: the block fits the card; each phase
+covers every element of the field once, in each layout a thread uses (its
+points, each pass's layout, its frequencies); the row phase's warp accesses
+take the least number of shared-memory wavefronts (8-byte accesses: one
+per half-warp that has any, 32 banks of 4 bytes) at every power of two and
+at N = 96, 120 and 127, and at every other N the count the plan states
+(``fused_plan.wavefronts``, the fewest of the paddings it could take); the
+column phase's always take the least. A thread-by-thread NumPy emulation
+of one propagation ifft2(H fft2(.)), its column phase fused (column
+transform, H / N^2, inverse column transform), and of the far field fft2(.)
+equals NumPy's at rtol 1e-5 of the largest entry (double precision
+arithmetic; the only float32 rounding is the twiddles'): at every power of
+two and at N = 3, 5, 6, 7, 12, 15, 24, 96, 98, 100, 104, 120, 125 and 127;
+each exchange writes each of its line's slots once, reads only what it
+wrote and touches no other line.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 
 from ptyrad_tpu_torch.ops import fused_multislice as M
+from ptyrad_tpu_torch.ops import fused_plan as FP
 
-NS = [2 ** k for k in range(1, 8)]
+POW2 = [2 ** k for k in range(1, 8)]
+NS = list(range(2, M.MAX_N + 1))
+EMULATED = POW2 + [3, 5, 6, 7, 12, 15, 24, 96, 98, 100, 104, 120, 125, 127]
+LEAST_WAVEFRONTS = [96, 120, 127]
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
 # multislice.cu kFwdThreads, kBwdThreads: the chain blocks' threads at N = 128
 FWD_THREADS, BWD_THREADS = 1024, 512
@@ -49,38 +65,52 @@ class FusedPlan:
     """How a chain block of multislice.cu holds and transforms an N x N field."""
 
     n: int
-    elems: int          # E: points of a line a thread holds
-    line_threads: int   # TL: threads a line
+    elems: int          # E: registers of a line a thread holds
+    line_threads: int   # TL (T): threads a line
     line: int           # a padded row of the field, in elements
+    pad_shift: int      # a row's element a sits at a + (a >> pad_shift)
     threads: int        # the block's threads
-    sweeps: int         # lines a thread takes in a phase
+    row_sweeps: int     # rows a thread takes in the row phase
+    col_sweeps: int     # columns a thread takes in the column phase
     bwd_threads: int    # the same for the backward's block
-    bwd_sweeps: int
+    bwd_row_sweeps: int
+    bwd_col_sweeps: int
     group_threads: int  # a column group (32 adjacent columns): its named barrier's count
     smem: int           # bytes: the padded field
     chunks: int         # B3a's epilogue blocks per sample
+    mixed: FP.MixedPlan | None = None  # the mixed-radix plan (N not a power of two)
 
 
 def fused_plan(n: int, backward: bool = False) -> FusedPlan:
-    """multislice.cu's FPlan for N a power of two from 2 to M.MAX_N: the
-    forward chain block's (threads, sweeps), or with ``backward`` the
-    backward's in their place."""
-    if not (2 <= n <= M.MAX_N and not n & (n - 1)):
-        raise ValueError(f"fused_plan: N must be a power of two in [2, {M.MAX_N}], got {n}")
-    elems = min(n, 16)
-    line_threads = n // elems
-    slots = n * line_threads
-    fwd, bwd = min(slots, FWD_THREADS), min(slots, BWD_THREADS)
-    threads = bwd if backward else fwd
-    line = n + (n // 16 if n >= 16 else 1)
+    """multislice.cu's plan for N from 2 to M.MAX_N: the forward chain
+    block's (threads, sweeps), or with ``backward`` the backward's in their
+    place."""
+    if not 2 <= n <= M.MAX_N:
+        raise ValueError(f"fused_plan: N must be in [2, {M.MAX_N}], got {n}")
+    if FP.is_pow2(n):
+        elems = min(n, 16)
+        line_threads = n // elems
+        slots = n * line_threads
+        fwd, bwd = min(slots, FWD_THREADS), min(slots, BWD_THREADS)
+        line = n + (n // 16 if n >= 16 else 1)
+        threads, sweeps = (bwd, slots // bwd) if backward else (fwd, slots // fwd)
+        return FusedPlan(
+            n=n, elems=elems, line_threads=line_threads, line=line, pad_shift=4,
+            threads=threads, row_sweeps=sweeps, col_sweeps=sweeps, bwd_threads=bwd,
+            bwd_row_sweeps=slots // bwd, bwd_col_sweeps=slots // bwd,
+            group_threads=32 * line_threads, smem=8 * n * line, chunks=min(n, 16))
+    mp = FP.mixed_plan(n)
+    fwd, bwd = mp.block(FWD_THREADS), mp.block(BWD_THREADS)
+    blk = bwd if backward else fwd
     return FusedPlan(
-        n=n, elems=elems, line_threads=line_threads, line=line, threads=threads,
-        sweeps=slots // threads, bwd_threads=bwd, bwd_sweeps=slots // bwd,
-        group_threads=32 * line_threads, smem=8 * n * line, chunks=min(n, 16))
+        n=n, elems=mp.elems, line_threads=mp.line_threads, line=mp.line, pad_shift=mp.pad_shift,
+        threads=blk.threads, row_sweeps=blk.row_sweeps, col_sweeps=blk.col_sweeps,
+        bwd_threads=bwd.threads, bwd_row_sweeps=bwd.row_sweeps, bwd_col_sweeps=bwd.col_sweeps,
+        group_threads=32 * mp.line_threads, smem=mp.smem, chunks=min(n, 16), mixed=mp)
 
 
-def pad(a):
-    return a + a // 16
+def pad(plan, a):
+    return a + (np.asarray(a) >> plan.pad_shift)
 
 
 def bitrev(k, bits):
@@ -95,125 +125,168 @@ def dif_freq(plan, t, i):
 
 
 def layouts(plan, t):
-    """The line positions thread t holds in register j, in each layout:
-    its points, its exchange positions, its frequencies."""
+    """Thread t's registers in each layout: {kind: (line positions, valid)}.
+    A power of two: its points, its exchange positions, its frequencies; a
+    mixed plan: its points, each pass's layout, its frequencies."""
     j = np.arange(plan.elems)
-    return {"points": t + plan.line_threads * j, "exchange": plan.elems * t + j,
-            "frequencies": np.array([dif_freq(plan, t, i) for i in j])}
+    if plan.mixed is None:
+        ok = np.ones(plan.elems, bool)
+        return {"points": (t + plan.line_threads * j, ok), "exchange": (plan.elems * t + j, ok),
+                "frequencies": (np.array([dif_freq(plan, t, i) for i in j]), ok)}
+    mp = plan.mixed
+    out = {"points": mp.points(t)}
+    for k in range(len(mp.passes)):
+        out[f"pass {k}"] = mp.layout(k, t)
+    out["frequencies"] = mp.frequencies(t)
+    return {k: (np.array(p), np.array(v, bool)) for k, (p, v) in out.items()}
 
 
 def row_threads(plan):
-    """(sweep, thread) -> (row y, t) of the row phase."""
+    """(sweep, thread) -> (row y, t, live) of the row phase."""
     tid = np.arange(plan.threads)
-    per = plan.threads // plan.line_threads
-    sweep = np.arange(plan.sweeps)[:, None]
-    return sweep * per + tid[None, :] // plan.line_threads, np.broadcast_to(
-        tid % plan.line_threads, (plan.sweeps, plan.threads))
+    sweep = np.arange(plan.row_sweeps)[:, None]
+    if plan.mixed is None:
+        per = plan.threads // plan.line_threads
+        y = sweep * per + tid[None, :] // plan.line_threads
+        t = np.broadcast_to(tid % plan.line_threads, y.shape)
+        return y, t, np.ones(y.shape, bool)
+    tl, rpw = plan.line_threads, 32 // plan.line_threads
+    lane, warp = tid % 32, tid // 32
+    r = lane // tl
+    y = (sweep * (plan.threads // 32) + warp[None, :]) * rpw + r[None, :]
+    live = (r[None, :] < rpw) & (y < plan.n)
+    return y, np.broadcast_to(lane % tl, y.shape), live
 
 
 def col_threads(plan):
-    """(sweep, thread) -> (column x, t, group) of the column phase."""
+    """(sweep, thread) -> (column x, t, group, live) of the column phase."""
     tid = np.arange(plan.threads)
     warp, lane = tid // 32, tid % 32
     group, t = warp // plan.line_threads, warp % plan.line_threads
-    per = plan.threads // plan.line_threads
-    x = np.arange(plan.sweeps)[:, None] * per + (group * 32 + lane)[None, :]
-    return x, np.broadcast_to(t, x.shape), np.broadcast_to(group, x.shape)
+    groups = plan.threads // 32 // plan.line_threads
+    x = (np.arange(plan.col_sweeps)[:, None] * groups + group[None, :]) * 32 + lane[None, :]
+    return (x, np.broadcast_to(t, x.shape), np.broadcast_to(group, x.shape), x < plan.n)
 
 
 def row_addr(plan, y, a):
     """Field address of element a of row y."""
-    return y * plan.line + pad(a)
+    return y * plan.line + pad(plan, a)
 
 
 def col_addr(plan, x, a):
     """Field address of element a of column x."""
-    return pad(x) + a * plan.line
+    return pad(plan, x) + a * plan.line
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("n", NS)
 def test_plan_fits_the_card(n, backward):
     plan = fused_plan(n, backward)
-    assert plan.elems * plan.line_threads == n
-    assert plan.line_threads <= plan.elems  # the exchange's blocks of TL stay in a thread
-    assert 1 <= plan.threads <= 1024 and plan.sweeps * plan.threads == n * plan.line_threads
-    assert plan.smem <= SMEM_LIMIT
-    assert plan.smem == 8 * n * plan.line and plan.line > n
-    if plan.line_threads > 1:  # the phases exchange: whole warps, rows within one
-        assert plan.threads % 32 == 0 and 32 % plan.line_threads == 0
-        assert plan.threads % plan.group_threads == 0 and plan.group_threads % 32 == 0
-        assert plan.threads // plan.group_threads <= 15  # named barriers 1 ... 15
-    assert n * n % plan.chunks == 0
+    assert 1 <= plan.threads <= 1024 and plan.smem <= SMEM_LIMIT
+    assert plan.smem == 8 * n * plan.line and plan.line >= pad(plan, n - 1) + 1
+    assert n * n % plan.chunks == 0 or plan.mixed is not None
+    if plan.mixed is None:
+        assert plan.elems * plan.line_threads == n
+        assert plan.line_threads <= plan.elems  # the exchange's blocks of TL stay in a thread
+        assert plan.row_sweeps * plan.threads == n * plan.line_threads
+        if plan.line_threads > 1:  # the phases exchange: whole warps, rows within one
+            assert plan.threads % 32 == 0 and 32 % plan.line_threads == 0
+            assert plan.threads % plan.group_threads == 0 and plan.group_threads % 32 == 0
+            assert plan.threads // plan.group_threads <= 15  # named barriers 1 ... 15
+        return
+    mp = plan.mixed
+    assert math.prod(mp.radices) == n and all(FP.primes(r) == [r] for r in mp.radices)
+    assert all(set(p.radices) <= set(FP.SMALL) for p in mp.passes if not p.sum)
+    assert all(len(p.radices) == 1 and p.radices[0] > 7 for p in mp.passes if p.sum)
+    assert plan.elems <= 32 and plan.line_threads <= FP.MAX_LINE_THREADS
+    assert plan.threads % 32 == 0 and plan.threads % plan.group_threads == 0
+    assert plan.line_threads == 1 or plan.threads // plan.group_threads <= 15
+    assert plan.row_sweeps * (plan.threads // 32) * (32 // plan.line_threads) >= n
+    assert plan.col_sweeps * 32 * (plan.threads // plan.group_threads) >= n
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("n", NS)
 def test_phases_cover_the_field_once(n, backward):
     plan = fused_plan(n, backward)
-    for kind in ("points", "exchange", "frequencies"):
-        pos = np.array([layouts(plan, t)[kind] for t in range(plan.line_threads)])
-        hits = np.zeros((n, n), int)
-        y, t = row_threads(plan)
-        np.add.at(hits, (y[..., None], pos[t]), 1)
-        assert (hits == 1).all(), f"row phase, {kind}"
-        hits[:] = 0
-        x, t, group = col_threads(plan)
-        np.add.at(hits, (pos[t], x[..., None]), 1)
-        assert (hits == 1).all(), f"column phase, {kind}"
+    ry, rt, rlive = row_threads(plan)
+    cx, ct, group, clive = col_threads(plan)
+    for kind in layouts(plan, 0):
+        pos = np.array([layouts(plan, t)[kind][0] for t in range(plan.line_threads)])
+        ok = np.array([layouts(plan, t)[kind][1] for t in range(plan.line_threads)])
+        for lines, ts, live, index in ((ry, rt, rlive, lambda ln, p: (ln, p)),
+                                       (cx, ct, clive, lambda ln, p: (p, ln))):
+            hits = np.zeros((n, n), int)
+            use = live[..., None] & ok[ts]
+            ln = np.broadcast_to(lines[..., None], use.shape)[use]
+            np.add.at(hits, index(ln, pos[ts][use]), 1)
+            assert (hits == 1).all(), kind
     # a column's threads all sit in one group (one named barrier)
     for col in range(n):
-        assert len(set(group[x == col].tolist())) == 1
+        assert len(set(group[(cx == col) & clive].tolist())) == 1
 
 
-def _wavefronts(addrs):
-    """Shared-memory wavefronts of one warp access of 8-byte elements at
-    element addresses addrs (lane order, None for an idle lane): a
-    half-warp at a time, as many as the most distinct elements that share a
-    bank pair."""
-    total = 0
-    for half in (addrs[:16], addrs[16:]):
-        live = {a for a in half if a is not None}
-        if live:
-            pairs = {}
-            for a in live:
-                pairs.setdefault(a % 16, set()).add(a)
-            total += max(len(v) for v in pairs.values())
-    return total
+def _count(addrs):
+    """(wavefronts, least) of warp accesses of 8-byte elements at element
+    addresses addrs (..., 32 lanes; -1 for an idle lane): a half-warp at a
+    time, as many as the most distinct elements that share a bank pair,
+    against one per half-warp that has any."""
+    half = np.sort(np.asarray(addrs).reshape(-1, 16), axis=1)
+    first = half >= 0
+    first[:, 1:] &= half[:, 1:] != half[:, :-1]
+    banks = np.zeros((half.shape[0], 16), int)
+    rows = np.broadcast_to(np.arange(half.shape[0])[:, None], half.shape)
+    np.add.at(banks, (rows[first], half[first] % 16), 1)
+    return int(banks.max(axis=1).sum()), int(first.any(axis=1).sum())
 
 
-def _least(addrs):
-    return sum(1 for half in (addrs[:16], addrs[16:]) if any(a is not None for a in half))
+def _phase_wavefronts(plan, phase):
+    """(wavefronts, least) of every warp access of one phase's first
+    sweep: each register's load or store in each layout."""
+    lays = [layouts(plan, t) for t in range(plan.line_threads)]
+    if phase == "row":
+        lines, ts, live = (a[0] for a in row_threads(plan))
+        addr = row_addr
+    else:
+        lines, ts, _, live = (a[0] for a in col_threads(plan))
+        addr = col_addr
+    total = least = 0
+    for kind in lays[0]:
+        pos = np.array([lk[kind][0] for lk in lays])[ts]  # (threads, E)
+        ok = np.array([lk[kind][1] for lk in lays])[ts] & live[:, None]
+        a = np.where(ok, addr(plan, lines[:, None], pos), -1).T  # (E, threads)
+        a = np.pad(a, ((0, 0), (0, -a.shape[1] % 32)), constant_values=-1)
+        got = _count(a.reshape(-1, 32))
+        total, least = total + got[0], least + got[1]
+    return total, least
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("n", NS)
 def test_accesses_take_the_least_wavefronts(n, backward):
     """Every warp-wide shared-memory access of both phases: each register's
-    load or store in each of the three layouts."""
+    load or store in each layout. The column phase always takes the least;
+    the row phase the least at every power of two and LEAST_WAVEFRONTS,
+    else the count the plan states (for the forward's block, which chose
+    the padding)."""
     plan = fused_plan(n, backward)
-    pos = {kind: np.array([layouts(plan, t)[kind] for t in range(plan.line_threads)])
-           for kind in ("points", "exchange", "frequencies")}
-    ry, rt = row_threads(plan)
-    cx, ct, _ = col_threads(plan)
-    for sweep in range(plan.sweeps):
-        for phase, (lines, ts, addr) in {"row": (ry[sweep], rt[sweep], row_addr),
-                                         "column": (cx[sweep], ct[sweep], col_addr)}.items():
-            for kind, p in pos.items():
-                for j in range(plan.elems):
-                    for w0 in range(0, plan.threads, 32):
-                        lanes = range(w0, min(w0 + 32, plan.threads))
-                        addrs = [int(addr(plan, lines[i], p[ts[i], j])) for i in lanes]
-                        addrs += [None] * (32 - len(addrs))
-                        assert _wavefronts(addrs) == _least(addrs), (phase, kind, j, w0)
+    total, least = _phase_wavefronts(plan, "column")
+    assert total == least
+    total, least = _phase_wavefronts(plan, "row")
+    if plan.mixed is None or n in LEAST_WAVEFRONTS:
+        assert total == least
+    if plan.mixed is not None and not backward:
+        assert (total, least) == FP.wavefronts(plan.mixed)
 
 
-def _unit(e):
-    """The kernels' unit twiddle table (reg_fft.cuh, kUnit):
-    exp(-2 pi i e / 128) stored as complex64, e = 32 exact."""
+def _table(plan, e):
+    """The kernels' twiddle tables as float32: the radix-2 pair's unit table
+    exp(-2 pi i e / 128) (e = 32 exact), the mixed pair's exp(-2 pi i e / N)."""
     e = np.asarray(e)
-    w = np.exp(-2j * np.pi * e / 128).astype(np.complex64).astype(complex)
-    return np.where(e == 32, -1j, w)
+    if plan.mixed is None:
+        w = np.exp(-2j * np.pi * e / 128).astype(np.complex64).astype(complex)
+        return np.where(e == 32, -1j, w)
+    return np.exp(-2j * np.pi * e / plan.n).astype(np.complex64).astype(complex)
 
 
 def _w16(k):
@@ -221,33 +294,39 @@ def _w16(k):
     return np.exp(-2j * np.pi * np.asarray(k) / 16).astype(np.complex64).astype(complex)
 
 
-def _exchange(field, v, addr, store, load, own):
-    """One exchange of a phase's lines on their own slots: each thread
-    stores register j at line position store[t, j], then loads position
-    load[t, j]; every slot of a line is written once and only written
-    slots are read."""
+def _exchange_store(field, v, ok, addr, store, own):
+    """Each thread's valid registers to their line positions store[t, j] on
+    the line's own slots: every slot of a line written once, no other."""
     field[own.ravel()] = np.nan  # whatever the lines held is overwritten
     counts = np.zeros(field.shape, int)
     a = addr(store[None])
-    np.add.at(counts, a.ravel(), 1)
-    field[a] = v
+    use = np.broadcast_to(ok[None], a.shape)
+    np.add.at(counts, a[use], 1)
+    field[a[use]] = v[use]
     assert (counts[own.ravel()] == 1).all(), "an exchange slot written twice or never"
     assert counts.sum() == own.size, "an exchange wrote outside its lines"
-    out = field[addr(load[None])]
-    assert not np.isnan(out).any(), "an exchange read a slot no thread wrote"
+
+
+def _exchange_load(field, v, ok, addr, load):
+    a = addr(load[None])
+    use = np.broadcast_to(ok[None], a.shape)
+    out = v.copy()
+    out[use] = field[a[use]]
+    assert not np.isnan(out[use]).any(), "an exchange read a slot no thread wrote"
     return out
 
 
 def _register_stages(v, plan, inverse):
-    """The stages of span N/2 ... TL on the thread's points (line_dif's
-    first part; line_dit's last, run backwards with conjugate twiddles)."""
+    """The radix-2 pair's stages of span N/2 ... TL on the thread's points
+    (line_dif's first part; line_dit's last, run backwards with conjugate
+    twiddles)."""
     tl, e = plan.line_threads, plan.elems
     t = np.arange(tl)
     spans = [e >> (s + 1) for s in range(e.bit_length() - 1)]
     for hm in reversed(spans) if inverse else spans:
         for m in range(e):
             if m & hm == 0:
-                w = _unit((t + tl * (m & (2 * hm - 1))) * (64 // (hm * tl)))
+                w = _table(plan, (t + tl * (m & (2 * hm - 1))) * (64 // (hm * tl)))
                 a, b = v[:, :, m].copy(), v[:, :, m + hm].copy()
                 if inverse:
                     b = b * np.conj(w)
@@ -258,8 +337,9 @@ def _register_stages(v, plan, inverse):
 
 
 def _block_stages(v, plan, inverse):
-    """The stages of span TL/2 ... 1 on positions E t + i (line_dif's last
-    part; line_dit's first, backwards with conjugate twiddles)."""
+    """The radix-2 pair's stages of span TL/2 ... 1 on positions E t + i
+    (line_dif's last part; line_dit's first, backwards with conjugate
+    twiddles)."""
     tl, e = plan.line_threads, plan.elems
     spans = [tl >> (s + 1) for s in range(tl.bit_length() - 1)]
     for h in reversed(spans) if inverse else spans:
@@ -275,25 +355,115 @@ def _block_stages(v, plan, inverse):
     return v
 
 
-def _line(field, v, plan, addr, inverse):
+def _line_pow2(field, v, plan, addr, inverse, own):
     """Emulate reg_fft.cuh line_dif (inverse: line_dit) for every line of a
     phase. v: (lines, TL, E); the forward takes point t + TL * j in
     v[:, t, j] and leaves frequency dif_freq(t, j) there, the inverse the
     other way round."""
-    n, tl, e = plan.n, plan.line_threads, plan.elems
+    tl, e = plan.line_threads, plan.elems
     v = v.copy()
     t, j = np.arange(tl)[:, None], np.arange(e)[None, :]
     points, exchange = t + tl * j, e * t + j
-    own = np.sort(addr(np.arange(n)[None, :]).reshape(v.shape[0], n), axis=1)
+    ok = np.ones((tl, e), bool)
     if inverse:
         if tl > 1:
             v = _block_stages(v, plan, True)
-            v = _exchange(field, v, addr, exchange, points, own)
+            _exchange_store(field, v, ok, addr, exchange, own)
+            v = _exchange_load(field, v, ok, addr, points)
         return _register_stages(v, plan, True)
     v = _register_stages(v, plan, False)
     if tl > 1:
-        v = _exchange(field, v, addr, points, exchange, own)
+        _exchange_store(field, v, ok, addr, points, own)
+        v = _exchange_load(field, v, ok, addr, exchange)
         v = _block_stages(v, plan, False)
+    return v
+
+
+def _dft(x, inverse):
+    """Unnormalised DFT over the last axis (its conjugate with inverse),
+    exact: the butterflies' float32 constants are within rounding."""
+    r = x.shape[-1]
+    w = np.exp((2j if inverse else -2j) * np.pi * np.outer(np.arange(r), np.arange(r)) / r)
+    return x @ w
+
+
+def _mixed_pass(v, plan, k, inverse, slots_of):
+    """Pass k of the mixed-radix pair on every line's threads (line_dif_mr's
+    mr_stages / mr_sum): v (lines, T, E) in pass k's layout."""
+    mp = plan.mixed
+    r_all, _, span, cosets, c = mp.geometry(k)
+    tl, n = mp.line_threads, mp.n
+    t = np.arange(tl)
+    if mp.passes[k].sum:
+        p, pos = r_all, t[:, None] + tl * np.arange(c)[None, :]
+        ok = pos < n
+        line = slots_of()  # (lines, N): the pass's inputs, from the slots
+        w, q = pos % span, (pos // span) % p
+        base = pos - q * span
+        out = v.copy()
+        idx = (base[..., None] + span * np.arange(p)).clip(0, n - 1)  # (T, c, p)
+        x = line[:, idx]  # (lines, T, c, p)
+        ii = np.arange(p)
+        if inverse:
+            tw = np.conj(_table(plan, (w[..., None] * ii * (n // (p * span))) % n))
+            x = x * tw
+            wp = np.conj(_table(plan, ((q[..., None] * ii) % p) * (n // p)))
+            res = (x * wp).sum(-1)
+        else:
+            wp = _table(plan, ((q[..., None] * ii) % p) * (n // p))
+            res = (x * wp).sum(-1) * _table(plan, w * q * (n // (p * span)))
+        out[:, :, :c] = np.where(ok[None], res, out[:, :, :c])
+        return out
+    radices = mp.passes[k].radices
+    out = v.copy()
+    for u in range(c):
+        kappa = t + tl * u
+        live = kappa < cosets
+        below = kappa % span
+        order = range(len(radices) - 1, -1, -1) if inverse else range(len(radices))
+        for s in order:
+            r, big_s = radices[s], math.prod(radices[s + 1:])
+            step = n // (r * big_s * span)
+            for hi in range(r_all // (r * big_s)):
+                for lo in range(big_s):
+                    d0 = hi * r * big_s + lo
+                    regs = [u + c * (d0 + d * big_s) for d in range(r)]
+                    x = out[:, :, regs]  # (lines, T, r)
+                    j = lo * span + below  # (T,)
+                    tw = _table(plan, (j[:, None] * np.arange(r)[None, :] * step) % n)
+                    if inverse:
+                        x = _dft(x * np.conj(tw), True)
+                    else:
+                        x = _dft(x, False) * tw
+                    out[:, :, regs] = np.where(live[None, :, None], x, out[:, :, regs])
+    return out
+
+
+def _line_mixed(field, v, plan, addr, inverse, own):
+    """Emulate line_dif_mr (inverse: line_dit_mr) for every line of a
+    phase: v (lines, T, E) in the points layout (the inverse: the
+    frequencies' layout), the passes with their exchanges on the lines'
+    own slots."""
+    mp = plan.mixed
+    tl, last = mp.line_threads, len(mp.passes) - 1
+    lay = [[mp.layout(k, t) for t in range(tl)] for k in range(last + 1)]
+    pos = [np.array([p for p, _ in lk]) for lk in lay]
+    ok = [np.array([o for _, o in lk], bool) for lk in lay]
+    n = mp.n
+
+    def slots_of():
+        return field[addr(np.arange(n)[None, :])]
+
+    v = v.copy()
+    order = range(last, -1, -1) if inverse else range(last + 1)
+    for k in order:
+        src = (k + 1 if k < last else k) if inverse else (k - 1 if k > 0 else 0)
+        enter = (k < last or mp.passes[k].sum) if inverse else (k > 0 or mp.passes[0].sum)
+        if enter:
+            _exchange_store(field, v, ok[src], addr, pos[src], own)
+            if not mp.passes[k].sum:
+                v = _exchange_load(field, v, ok[k], addr, pos[k])
+        v = _mixed_pass(v, plan, k, inverse, slots_of)
     return v
 
 
@@ -305,24 +475,35 @@ def _phase(field, plan, addr_of, steps, load="points", store="points", src=None)
     ``store``. Returns the lines, (lines, N), in natural order."""
     n, tl = plan.n, plan.line_threads
     lines = np.arange(n)[:, None, None]
-    pos = {kind: np.array([layouts(plan, t)[kind] for t in range(tl)])[None]
-           for kind in ("points", "frequencies")}
+    lay = [layouts(plan, t) for t in range(tl)]
+    pos = {kind: np.array([lk[kind][0] for lk in lay])[None] for kind in ("points", "frequencies")}
+    ok = {kind: np.array([lk[kind][1] for lk in lay])[None] for kind in ("points", "frequencies")}
 
     def addr(a):
         return addr_of(lines[:, :, 0] if a.ndim == 2 else lines, a)
 
+    own = np.sort(addr(np.arange(n)[None, :]).reshape(n, n), axis=1)
     held = load
-    v = src[:, pos[held][0]] if src is not None else field[addr(pos[held])]
+    use = np.broadcast_to(ok[held], (n, tl, plan.elems))
+    p = np.broadcast_to(pos[held], use.shape)
+    v = np.full(use.shape, np.nan + 0j)
+    v[use] = (src[np.broadcast_to(lines, use.shape)[use], p[use]] if src is not None
+              else field[addr(pos[held])][use])
+    line = _line_pow2 if plan.mixed is None else _line_mixed
     for step in steps:
         if step in ("dif", "dit"):
-            v = _line(field, v, plan, addr, step == "dit")
+            v = line(field, v, plan, addr, step == "dit", own)
             held = "points" if step == "dit" else "frequencies"
         else:
             v = step(v, lines, pos[held])
     assert held == store
-    field[addr(pos[store])] = v
-    out = np.empty((n, n), complex)
-    out[lines, pos[store]] = v
+    use = np.broadcast_to(ok[store], v.shape)
+    a = addr(pos[store])
+    field[a[use]] = v[use]
+    out = np.full((n, n), np.nan + 0j)
+    out[np.broadcast_to(lines, use.shape)[use], np.broadcast_to(pos[store], use.shape)[use]] = \
+        v[use]
+    assert not np.isnan(out).any(), "a line element no thread held"
     return out
 
 
@@ -340,7 +521,7 @@ def _assert_close(actual, expected):
     np.testing.assert_allclose(actual, expected, rtol=0, atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("n", EMULATED)
 def test_emulated_chain_matches_numpy(n):
     """One slice as the kernels run it: the row phase (T, the forward row
     transform, stored by frequency), the propagation's column phase
@@ -368,11 +549,31 @@ def test_emulated_chain_matches_numpy(n):
     assert np.isnan(field[~used]).all()
 
 
+@pytest.mark.parametrize("n", [n for n in NS if not FP.is_pow2(n)])
+def test_mixed_plan_frequencies_are_the_digit_reversal(n):
+    """The forward's frequency layout holds every frequency once, and the
+    generated source names the plan's line, row and padding."""
+    mp = FP.mixed_plan(n)
+    held = [f for t in range(mp.line_threads)
+            for f, ok in zip(*mp.frequencies(t)) if ok]
+    assert sorted(held) == list(range(n))
+    assert sorted(FP.digitrev(p, mp.radices) for p in range(n)) == list(range(n))
+    src = FP.plan_source(n).splitlines()
+    assert src[1].startswith(f"#define PTYRAD_MIXED_LINE regfft::MixedLine<{n}, "
+                             f"{mp.line_threads}, ")
+    assert src[2:] == [f"#define PTYRAD_MIXED_ROW {mp.line}",
+                       f"#define PTYRAD_MIXED_PAD {mp.pad_shift}", '#include "multislice.cu"']
+    assert FP.plan_source(n, bf16_operands=True).splitlines()[1] == "#define PTYRAD_BF16_OPERANDS 1"
+
+
 def test_plan_and_prepare_reject_other_sizes():
-    """The plan and the kernels' set-up take N a power of two up to 128 and
-    refuse any other before they touch a device."""
-    for n in (1, 96, 256):
-        with pytest.raises(ValueError, match="power of two"):
+    """The plan and the kernels' set-up take N from 2 to 128 and refuse any
+    other before they touch a device."""
+    for n in (0, 1, 129, 256):
+        with pytest.raises(ValueError, match=r"N must be in \[2, 128\]"):
             fused_plan(n)
-        with pytest.raises(ValueError, match="power of two"):
+        with pytest.raises(ValueError, match=r"N must be in \[2, 128\]"):
             M.prepare("cpu", n)
+    for n in (1, 64, 129):
+        with pytest.raises(ValueError, match="not a power of two"):
+            FP.mixed_plan(n)

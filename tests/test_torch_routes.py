@@ -1,7 +1,8 @@
 """The forward routes and the launch guard of ptyrad_tpu_torch, on the CPU.
 
-- Every shape has a route on every device: the fused kernels (B4) and the
-  chain kernels (B5/B6) at their shapes, else the plain torch.fft chain,
+- Every shape has a route on every device: the fused kernels (B4, every
+  square N up to 128) and the chain kernels (B5/B6, powers of two up to
+  512) at their shapes, else the plain torch.fft chain,
   the counterpart of the JAX package's XLA path (a meta model stands for a
   CUDA one: the route is chosen from the static shapes before any work).
 - ``model_params.fwd_fused: false`` routes every shape to the plain chain
@@ -47,8 +48,9 @@ def _meta_route(n, fwd_fused=True, pmode=2):
 
 
 @pytest.mark.parametrize("n,route", [(8, "fused"), (128, "fused"), (256, "chain"),
-                                     (512, "chain"), (96, "plain"), (120, "plain"),
-                                     (124, "plain"), (192, "plain"), (640, "plain")])
+                                     (512, "chain"), (96, "fused"), (120, "fused"),
+                                     (124, "fused"), (192, "plain"), (640, "plain"),
+                                     (100, "fused"), (127, "fused")])
 def test_every_shape_has_a_route_off_the_cpu(n, route):
     assert _meta_route(n) == route
 
@@ -95,12 +97,36 @@ def test_cpu_routes_and_fused_loss_terms(rng, fwd_fused):
 
 @pytest.mark.parametrize("n", [12, 24])
 def test_cpu_forward_at_any_n_is_the_plain_route(rng, n):
+    """At N that is not a power of two the CPU runs plain PyTorch on either
+    route: the fused route (the rule takes every N up to 128) runs the
+    fused chain's plain version, equal to the plain route's torch.fft
+    chain (counted in forward.launches_plain) at rtol 1e-5."""
     init = toy_init(rng, npix=n, canvas=2 * n)
+    idx = torch.arange(3)
+    out = {}
+    for fwd_fused in (True, False):
+        params, buffers, geom = make_model(init, {"fwd_fused": fwd_fused}, device=CPU)
+        before = forward.launches_plain
+        dp, _ = forward(params, buffers, geom, idx)
+        assert forward_route(params, geom, idx) == ("fused" if fwd_fused else "plain")
+        assert forward.launches_plain - before == (0 if fwd_fused else 1)
+        assert dp.shape == (3, n, n) and bool(torch.isfinite(dp).all())
+        out[fwd_fused] = dp
+    torch.testing.assert_close(out[True], out[False], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("n", [130, 144])
+def test_cpu_forward_beyond_the_kernels_is_the_plain_route(rng, n):
+    """Above 128 at N that is not a power of two no kernel rule applies: the
+    plain route, counted in forward.launches_plain."""
+    init = toy_init(rng, npix=n, canvas=n + 8, nz=2, pmode=1, n_scans=2)
     params, buffers, geom = make_model(init, None, device=CPU)
+    idx = torch.arange(2)
     before = forward.launches_plain
-    dp, _ = forward(params, buffers, geom, torch.arange(3))
+    dp, _ = forward(params, buffers, geom, idx)
+    assert forward_route(params, geom, idx) == "plain"
     assert forward.launches_plain - before == 1
-    assert dp.shape == (3, n, n) and bool(torch.isfinite(dp).all())
+    assert dp.shape == (2, n, n) and bool(torch.isfinite(dp).all())
 
 
 def test_tpu_only_keys_warn_once(rng, monkeypatch):
