@@ -6,10 +6,12 @@ Phases, one JSON object per line each:
   1. device  - the card, torch and CUDA versions; TF32 off.
   2. build   - nvcc builds the kernels of ptyrad_tpu_torch/csrc into
                ptyrad_tpu_torch/_build and, beside them, the mixed-radix
-               libraries of the fused kernels at N = 96, 120 and 127
-               (seconds, each), then the chain kernels' one-time set-up for
-               N = 256 and 512 (ops.chain.prepare) and the fused kernels' for
-               N = 128, 96, 120 and 127, with the plans they compiled.
+               libraries of the fused kernels at N = 96, 120 and 127 and of
+               the segmented chain at N = 192, 384 and 509 (seconds, each),
+               then the chain kernels' one-time set-up for N = 256, 512,
+               192, 384 and 509 (ops.chain.prepare) and the fused kernels'
+               for N = 128, 96, 120 and 127, with the plans they compiled
+               (the chain's mixed plans equal to ops/chain_plan.py's).
   3. kernels - each kernel against its plain PyTorch version at its main
                path's shapes (B1-B4 at tBL_WSe2's, B5/B6 at PSO's, B1/B2 at
                PSO's too), with its error, tolerance and CUDA-event times
@@ -56,7 +58,17 @@ Phases, one JSON object per line each:
                pair at N = 120 (PSO's widths), 96 (tBL's) and 127 (a small
                batch, one sum pass), each at its power-of-two twin's
                tolerance, B3b/B4b run twice bit for bit, and the _bf16 rows
-               at 120 by the bf16 gates.
+               at 120 by the bf16 gates. Then B5 and B6 of the segmented
+               chain's mixed-radix build (check_chain_npo2): at N = 192
+               (PSO's widths) B5a, B5a with the far-field exit, B5b, B5b
+               with dH (per-position H), B5b with the exit, B6a, B6b, B6b
+               with dH and the _bf16 B5a/B5b/B6a/B6b; at 384 (B = 8) B5a and
+               B5b with and without the exit; at the prime 509 (B 2, 2
+               modes, 3 slices, one sum pass) B5a/B5b with and without the
+               exit, B6a and B6b; each at its power-of-two twin's tolerance
+               (dH against the plain dH gathered with the plan's
+               permutation, as the kernels give it), each backward run twice
+               bit for bit.
      fused route - forward() (B4a, B4b) and fused_loss_terms (B3a, B3b) at
                N = 96 and 120 (the mixed-radix pair) on the card against
                the CPU, then the same cases with fwd_fused: false through the
@@ -284,6 +296,20 @@ Phases, one JSON object per line each:
                falling loss within rtol 1e-4 of the same run with fwd_fused:
                false; a profile (PSO-n120); then the dz and tilt float64
                gate at N = 120 on its first batch (B3b with dH).
+     pso_n192 - PSO as its yml gives it but padded on the fly to 192^2
+               instead of 256^2 (the 120^2 crops through
+               meas_pad_on_the_fly(.., "power", 192, threshold=70), the
+               pixel 0.2 Ang), from a seeded object, 2 iterations: B1, B2,
+               B6a/B6b over 16 slices and B5a/B5b over the 5-slice tail at
+               N = 192 (chain.cu's mixed-radix build), no B3/B4 and no plain
+               route; a finite, falling loss within rtol 1e-4 of the same run
+               with fwd_fused: false; a profile (PSO-n192); then on its first
+               batch the far-field exit (loss_fn and its backward with
+               set_far_field(True) within rtol 1e-5 of the exit off, every
+               B5 launch through the exit) and the dz and tilt float64 gate
+               on the chain route (per-position tilts and dz optimizable:
+               B5b and B6b with dH on a per-position H, against the plain
+               route and float64 on the CPU).
      pso_bf16 - the PSO run from the same start under compute_dtype
                'bfloat16' (the bf16 B5/B6), beside the pso phase as
                mixed_precision is beside main; from pso_ff_random_start's
@@ -400,6 +426,14 @@ PSO_N120 = PSO_CROP[1] - PSO_CROP[0]
 NPO2_NS = (96, PSO_N120)
 PRIME_N = 127
 MIXED_NS = NPO2_NS + (PRIME_N,)
+# The segmented chain at N in (128, 512] that is not a power of two
+# (chain.cu's mixed-radix build, one library per N, built beside the main
+# one): PSO padded on the fly to 192^2 (pso_n192), 384 (a three-pass plan,
+# the 512^2 far-field rows' batch) and the prime 509 (one sum pass, a
+# small-batch row set)
+PSO_N192 = 192
+CHAIN_PRIME_N = 509
+CHAIN_NS = (PSO_N192, 384, CHAIN_PRIME_N)
 SIM_BATCH = 512  # patterns per forward() call when simulating the tBL data
 
 # tBL_WSe2 sections of demo/params/tBL_WSe2_reconstruct.yml (the card's
@@ -1506,6 +1540,318 @@ def npo2_bf16_rows(f32_rows, failures, obja, objp, pr, h, g, largs, cvec, tag) -
     return out
 
 
+def chain_npo2_case(n: int) -> dict:
+    """The widths of the chain rows at N in (128, 512] that is not a power of
+    two: PSO's at 192^2 (B 32, 4 modes, 21 slices: B6 over 2 x 8, B5 over
+    the 5-slice tail), B = 8 at 384 as the 512^2 far-field rows (B5 over the
+    tail, with and without the exit), and a small batch at the prime 509 (B
+    2, 2 modes, 3 slices: B5 over them, B6 over 3 segments of one). The
+    pixel keeps PSO's reciprocal pixel, 0.15 x 256 / N Ang."""
+    tail = PSO_NZ - 2 * PSO_SG
+    if n == PSO_N192:
+        return {"batch": BATCH, "pmode": PSO_PMODE, "nz": PSO_NZ, "tail": tail,
+                "stack": (2, PSO_SG), "note": "PSO widths padded to 192^2"}
+    if n == CHAIN_PRIME_N:
+        return {"batch": 2, "pmode": 2, "nz": 3, "tail": 3, "stack": (3, 1),
+                "note": "a small batch at a prime N (one sum pass)"}
+    return {"batch": 8, "pmode": PSO_PMODE, "nz": PSO_NZ, "tail": tail, "stack": None,
+            "note": "B = 8, as the 512^2 far-field rows"}
+
+
+def check_chain_npo2(dev, gen) -> list:
+    """B5 and B6 of chain.cu's mixed-radix build at N = 192 (PSO's widths),
+    384 and the prime 509 (chain_npo2_case), each against its plain version
+    on the same CUDA tensors at its power-of-two twin's tolerance (1e-4 of
+    each output's or cotangent's largest entry; check_chain, check_chain_dh,
+    check_chain_ff), the backwards run twice bit for bit. The kernels take H
+    gathered with the plan's permutation (ops.chain.kernel_h) and give dH in
+    that order, held against the plain dH gathered the same way. B5 over
+    the tail with `last` both ways (the row times last), with the far-field
+    exit (library_ms: B5 without it plus torch.fft.fft2, or that
+    transform's backward before B5b), B5b with dH on a per-position H; B6
+    (last_mega False at 192 and 384's, True at 509) and B6b with dH; at
+    192 the _bf16 rows of B5a, B5b, B6a and B6b by the bf16 gates
+    (bf16_errors, bf16_failures). Bounds from each N's own operations
+    (_chain_ops at log2 N) and bytes."""
+    from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.ops.shift import fourier_shift
+    from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
+                                          make_stem_probe, near_field_evolution)
+
+    rows, failures = [], []
+    src = "ptyrad_tpu_torch/csrc/chain.cu"
+    lam = electron_wavelength(PSO_KV)
+    for n in CHAIN_NS:
+        w = chain_npo2_case(n)
+        b, pm, nz, sg = w["batch"], w["pmode"], w["nz"], w["tail"]
+        dx = PSO_DX * PSO_NPIX / n
+        h = torch.as_tensor(near_field_evolution((n, n), dx, PSO_DZ, lam), device=dev)[None]
+        h_each = tilted_h(h, 2.0 * torch.rand((b, 2), generator=gen, device=dev) - 1.0, dx,
+                          PSO_DZ)
+        probe = make_mixed_probe(make_stem_probe({"kv": PSO_KV, "conv_angle": 21.4, "Npix": n,
+                                                  "dx": dx, "df": -200.0}), pm, [0.02])
+        psi = fourier_shift(torch.as_tensor(probe, device=dev),
+                            0.3 * torch.randn((b, 2), generator=gen, device=dev))
+        obja = 1.0 + 0.05 * torch.randn((b, 1, nz, n, n), generator=gen, device=dev)
+        objp = 0.1 * torch.randn((b, 1, nz, n, n), generator=gen, device=dev)
+        a_t, p_t = obja[:, 0, nz - sg:], objp[:, 0, nz - sg:]
+        g = torch.complex(torch.randn(psi.shape, generator=gen, device=dev),
+                          torch.randn(psi.shape, generator=gen, device=dev))
+        g = g * float(psi.abs().max())
+        hk, hk_each = C.kernel_h(h), C.kernel_h(h_each)
+        field, nn, n_wave = 8 * psi.numel(), n * n, b * pm
+        tag = f"N={n}"
+
+        def slab(k, b=b, nn=nn):
+            return 2 * 4 * b * k * nn  # a and phi
+
+        def add(name, replaces, errs, tols, kern, plain, nbytes, ops, repeat=None, library=None,
+                n=n, w=w, b=b, pm=pm, nz=nz):
+            row = {"name": per_n(name, n), "route": "cuda", "source": src,
+                   "replaces": f"ptyrad_tpu/ops/pallas_chain.py:{replaces}",
+                   "max_abs_err": max(errs), "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                   "library_ms": None if library is None else time_ms(library),
+                   **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))}
+            emit({"phase": "kernel", **row, "errors": errs, "tolerances": tols,
+                  "repeats_bitwise": repeat, "note": w["note"],
+                  "shape": {"N": n, "batch": b, "pmode": pm, "slices": nz}})
+            failures.extend(f"{row['name']} differs from its plain version: {e} > {t}"
+                            for e, t in zip(errs, tols) if not e <= t)
+            if repeat is False:
+                failures.append(f"{row['name']} run twice differs")
+            rows.append(row)
+
+        def vjp_plain(fn, inputs, g=g):
+            leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+            out = fn(*leaves)
+            return out, leaves, torch.autograd.grad(out, leaves, grad_outputs=g,
+                                                    retain_graph=True)
+
+        # B5 over the tail: last False held, last True (the path's case) held and timed
+        n_prop = sg - 1
+        for last in (False, True):
+            out_k = C.segment_fwd_cuda(psi, a_t, p_t, hk, last)
+            out_p, leaves, g_p = vjp_plain(
+                lambda x, y, z, last=last: C.chain_segment_plain(x, y, z, h, last), (psi, a_t, p_t))
+            (e_f,), (t_f,) = _grad_errs([out_k], [out_p.detach()])
+            e_b, t_b = _grad_errs(C.segment_bwd_cuda(g, psi, a_t, p_t, hk, last)[:3], g_p)
+            if not last:
+                emit({"phase": "kernel_check", "name": "B5 chain_segment", "N": n, "last": last,
+                      "fwd_max_abs_err": e_f, "fwd_tolerance": t_f, "bwd_max_abs_err": e_b,
+                      "bwd_tolerance": t_b})
+                failures.extend(f"B5 (last False, {tag}) differs: {e} > {t}"
+                                for e, t in zip([e_f] + e_b, [t_f] + t_b) if not e <= t)
+
+        def b5b():
+            return C.segment_bwd_cuda(g, psi, a_t, p_t, hk, True)[:3]
+
+        add("B5a chain_segment_fwd", 238, [e_f], [t_f],
+            lambda: C.segment_fwd_cuda(psi, a_t, p_t, hk, True),
+            lambda: C.chain_segment_plain(psi, a_t, p_t, h, True),
+            2 * field + slab(sg) + 8 * h.numel(), _chain_ops(n, n_wave, n_prop, sg))
+        add("B5b chain_segment_bwd", 279, e_b, t_b, b5b,
+            lambda: torch.autograd.grad(out_p, leaves, grad_outputs=g, retain_graph=True),
+            3 * field + 2 * slab(sg) + 8 * h.numel(),
+            _chain_ops(n, n_wave, 2 * n_prop, n_prop, sg), repeat=repeats_bitwise(b5b, b5b()))
+        del out_p, leaves, g_p
+
+        # B5 with the far-field exit
+        fft_ops = n_wave * 10 * nn * np.log2(n)
+        ff_p, ff_leaves, ff_g = vjp_plain(
+            lambda x, y, z: C.chain_segment_plain(x, y, z, h, True, far_field=True),
+            (psi, a_t, p_t))
+        (e_f,), (t_f,) = _grad_errs([C.segment_fwd_cuda(psi, a_t, p_t, hk, True, True)],
+                                    [ff_p.detach()])
+
+        def b5b_ff():
+            return C.segment_bwd_cuda(g, psi, a_t, p_t, hk, True, far_field=True)[:3]
+
+        x = torch.empty_like(psi).requires_grad_(True)
+        y = torch.fft.fft2(x, norm="ortho")
+        add("B5a chain_segment_fwd (far-field)", 238, [e_f], [t_f],
+            lambda: C.segment_fwd_cuda(psi, a_t, p_t, hk, True, True),
+            lambda: C.chain_segment_plain(psi, a_t, p_t, h, True, far_field=True),
+            2 * field + slab(sg) + 8 * h.numel(), _chain_ops(n, n_wave, n_prop, sg) + fft_ops,
+            library=lambda: torch.fft.fft2(C.segment_fwd_cuda(psi, a_t, p_t, hk, True),
+                                           norm="ortho"))
+        add("B5b chain_segment_bwd (far-field)", 279, *_grad_errs(b5b_ff(), ff_g), b5b_ff,
+            lambda: torch.autograd.grad(ff_p, ff_leaves, grad_outputs=g, retain_graph=True),
+            3 * field + 2 * slab(sg) + 8 * h.numel(),
+            _chain_ops(n, n_wave, 2 * n_prop, n_prop, sg) + fft_ops,
+            repeat=repeats_bitwise(b5b_ff, b5b_ff()),
+            library=lambda: C.segment_bwd_cuda(
+                torch.autograd.grad(y, x, grad_outputs=g, retain_graph=True)[0], psi, a_t, p_t,
+                hk, True))
+        del ff_p, ff_leaves, ff_g, x, y
+        torch.cuda.empty_cache()
+        if n == 384:
+            continue
+
+        # B5b with dH on a per-position H: dH in the kernels' order against
+        # the plain dH gathered the same way
+        dh_p, dh_leaves, dh_g = vjp_plain(
+            lambda x, y, z, v: C.chain_segment_plain(x, y, z, v, True), (psi, a_t, p_t, h_each))
+
+        def b5b_dh():
+            return C.segment_bwd_cuda(g, psi, a_t, p_t, hk_each, True, need_dh=True)
+
+        dh_ops = n_wave * n_prop * 8 * nn
+        if n == PSO_N192:
+            add("B5b chain_segment_bwd (dH)", 279,
+                *_grad_errs(b5b_dh(), [*dh_g[:3], C.kernel_h(dh_g[3])]), b5b_dh,
+                lambda: torch.autograd.grad(dh_p, dh_leaves, grad_outputs=g, retain_graph=True),
+                3 * field + 2 * slab(sg) + 16 * h_each.numel(),
+                _chain_ops(n, n_wave, 2 * n_prop, n_prop, sg) + dh_ops,
+                repeat=repeats_bitwise(b5b_dh, b5b_dh()))
+        else:
+            e, t = _grad_errs(b5b_dh(), [*dh_g[:3], C.kernel_h(dh_g[3])])
+            emit({"phase": "kernel_check", "name": "B5b with dH", "N": n, "h": "each",
+                  "bwd_max_abs_err": e, "bwd_tolerance": t})
+            failures.extend(f"B5b with dH ({tag}) differs: {ei} > {ti}"
+                            for ei, ti in zip(e, t) if not ei <= ti)
+        del dh_p, dh_leaves, dh_g
+
+        # B6 over the uniform segments
+        n_seg, ssg = w["stack"]
+        nz_main = n_seg * ssg
+        last_mega = nz_main == nz
+        a_m, p_m = obja[:, 0, :nz_main], objp[:, 0, :nz_main]
+        out_k, stack = C.stack_fwd_cuda(psi, a_m, p_m, hk, ssg, last_mega)
+        st_p, st_leaves, st_g = vjp_plain(
+            lambda x, y, z, v: C.chain_stack_plain(x, y, z, v, ssg, last_mega),
+            (psi, a_m, p_m, h_each))
+        st_out = C.chain_stack_plain(psi, a_m, p_m, h, ssg, last_mega)
+        (e_f,), (t_f,) = _grad_errs([out_k], [st_out])
+
+        def b6b(dh=False):
+            out = C.stack_bwd_cuda(g, stack, a_m, p_m, hk_each if dh else hk, ssg, last_mega,
+                                   need_dh=dh)
+            return out if dh else out[:3]
+
+        st_plain, st_pl_leaves, st_pl_g = vjp_plain(
+            lambda x, y, z: C.chain_stack_plain(x, y, z, h, ssg, last_mega), (psi, a_m, p_m))
+        # rebuild: S (sg - 1) propagations; walk: nz_main adjoint slices and
+        # nz_main - last_mega adjoint propagations
+        n_main_prop = nz_main - last_mega
+        b6a_ops = _chain_ops(n, n_wave, n_main_prop, nz_main)
+        b6b_ops = _chain_ops(n, n_wave, n_seg * (ssg - 1) + n_main_prop, n_seg * (ssg - 1),
+                             nz_main)
+        add("B6a chain_stack_fwd", 466, [e_f], [t_f],
+            lambda: C.stack_fwd_cuda(psi, a_m, p_m, hk, ssg, last_mega),
+            lambda: C.chain_stack_plain(psi, a_m, p_m, h, ssg, last_mega),
+            2 * field + slab(nz_main) + 8 * h.numel() + n_seg * field, b6a_ops)
+        add("B6b chain_stack_bwd", 529, *_grad_errs(b6b(), st_pl_g), b6b,
+            lambda: torch.autograd.grad(st_plain, st_pl_leaves, grad_outputs=g,
+                                        retain_graph=True),
+            2 * field + n_seg * field + 2 * slab(nz_main) + 8 * h.numel(), b6b_ops,
+            repeat=repeats_bitwise(b6b, b6b()))
+        out_k, stack = C.stack_fwd_cuda(psi, a_m, p_m, hk_each, ssg, last_mega)
+
+        def b6b_dh():
+            return b6b(True)
+
+        if n == PSO_N192:
+            add("B6b chain_stack_bwd (dH)", 529,
+                *_grad_errs(b6b_dh(), [*st_g[:3], C.kernel_h(st_g[3])]), b6b_dh,
+                lambda: torch.autograd.grad(st_p, st_leaves, grad_outputs=g, retain_graph=True),
+                2 * field + n_seg * field + 2 * slab(nz_main) + 16 * h_each.numel(),
+                b6b_ops + n_wave * n_main_prop * 8 * nn, repeat=repeats_bitwise(b6b_dh, b6b_dh()))
+        else:
+            e, t = _grad_errs(b6b_dh(), [*st_g[:3], C.kernel_h(st_g[3])])
+            emit({"phase": "kernel_check", "name": "B6b with dH", "N": n, "h": "each",
+                  "bwd_max_abs_err": e, "bwd_tolerance": t})
+            failures.extend(f"B6b with dH ({tag}) differs: {ei} > {ti}"
+                            for ei, ti in zip(e, t) if not ei <= ti)
+        if n == PSO_N192:
+            rows += chain_npo2_bf16_rows(rows, failures, psi, a_t, p_t, a_m, p_m, h, hk, g, ssg)
+        del st_p, st_leaves, st_g, st_plain, st_pl_leaves, st_pl_g, stack
+        torch.cuda.empty_cache()
+    require(not failures, "; ".join(failures))
+    return rows
+
+
+def chain_npo2_bf16_rows(f32_rows, failures, psi, a_t, p_t, a_m, p_m, h, hk, g, sg) -> list:
+    """The _bf16 rows of B5a, B5b, B6a and B6b at N = 192, each against its
+    plain twin with bf16_operands by the bf16 gates (bf16_errors,
+    bf16_failures), B5b and B6b run twice bit for bit, with their float32
+    rows' bounds."""
+    from ptyrad_tpu_torch.ops import chain as C
+
+    f32 = {r["name"]: r for r in f32_rows}
+    out = []
+    names = ["d psi", "d a", "d phi"]
+
+    def row(name, outputs, kern, twin, repeat=False):
+        k16, time_k16 = kern(True)
+        k32 = kern(False)[0]
+        t16, time_t16 = twin(True)
+        t32 = twin(False)[0]
+        errs = bf16_errors(k16, k32, t16, t32)
+        bad = bf16_failures(name, outputs, errs)
+        rep = repeats_bitwise(lambda: kern(True)[0], k16) if repeat else None
+        if rep is False:
+            bad.append(f"{name}: run twice differs")
+        ref = f32[per_n(name.replace(" (bf16)", ""), PSO_N192)]
+        r = {"name": per_n(name, PSO_N192), "route": "cuda",
+             "source": "ptyrad_tpu_torch/csrc/chain_bf16.cu", "replaces": ref["replaces"],
+             "max_abs_err": max(e["max_abs"] for e in errs), "ms": time_ms(time_k16),
+             "plain_ms": time_ms(time_t16), "bound_ms": ref["bound_ms"],
+             "bound_by": ref["bound_by"], "library_ms": None}
+        emit({"phase": "kernel", **r, "f32_row": ref["name"], "outputs": outputs, "errors": errs,
+              "tolerance": BF16_TOLERANCE, "repeats_bitwise": rep})
+        out.append(r)
+        failures.extend(bad)
+
+    def b5a(bf16):
+        def call():
+            return C.segment_fwd_cuda(psi, a_t, p_t, hk, True, bf16_operands=bf16)
+        return (call(),), call
+
+    def b5a_twin(bf16):
+        def call():
+            return C.chain_segment_plain(psi, a_t, p_t, h, True, bf16_operands=bf16)
+        with torch.no_grad():
+            return (call(),), call
+
+    def b5b(bf16):
+        def call():
+            return C.segment_bwd_cuda(g, psi, a_t, p_t, hk, True, bf16_operands=bf16)[:3]
+        return call(), call
+
+    def b5b_twin(bf16):
+        return _twin_vjp(lambda x, y, z: C.chain_segment_plain(x, y, z, h, True,
+                                                               bf16_operands=bf16),
+                         (psi, a_t, p_t), g)
+
+    def b6a(bf16):
+        def call():
+            return C.stack_fwd_cuda(psi, a_m, p_m, hk, sg, False, bf16)
+        return (call()[0],), call
+
+    def b6a_twin(bf16):
+        def call():
+            return C.chain_stack_plain(psi, a_m, p_m, h, sg, False, bf16)
+        with torch.no_grad():
+            return (call(),), call
+
+    def b6b(bf16):
+        stack = C.stack_fwd_cuda(psi, a_m, p_m, hk, sg, False, bf16)[1]
+
+        def call():
+            return C.stack_bwd_cuda(g, stack, a_m, p_m, hk, sg, False, bf16_operands=bf16)[:3]
+        return call(), call
+
+    def b6b_twin(bf16):
+        return _twin_vjp(lambda x, y, z: C.chain_stack_plain(x, y, z, h, sg, False, bf16),
+                         (psi, a_m, p_m), g)
+
+    row("B5a chain_segment_fwd (bf16)", ["exit"], b5a, b5a_twin)
+    row("B5b chain_segment_bwd (bf16)", names, b5b, b5b_twin, repeat=True)
+    row("B6a chain_stack_fwd (bf16)", ["exit"], b6a, b6a_twin)
+    row("B6b chain_stack_bwd (bf16)", names, b6b, b6b_twin, repeat=True)
+    return out
+
+
 def check_chain_dh(dev, gen) -> list:
     """B5b and B6b with dH at the PSO shapes the main path gives them (B6
     over 2 x 8 slices with last_mega False, B5 over the 5-slice tail with
@@ -1836,7 +2182,33 @@ def kernel_counters():
                      ("B3b loss_sums_bwd", M.loss_sums_bwd_cuda), ("B4a dp_fwd", M.dp_fwd_cuda),
                      ("B4b dp_bwd", M.dp_bwd_cuda)):
         out[f"{name} (bf16, N={PSO_N120})"] = (fn, f"launches_n{PSO_N120}_bf16")
+    # the segmented chain's mixed-radix kernels at each N in (128, 512]
+    for n in CHAIN_NS:
+        for name, wrapper, flags in CHAIN_SPLITS:
+            out[per_n(name, n)] = (getattr(C, wrapper), "_".join([f"launches_n{n}", *flags]))
     return out
+
+
+def per_n(name: str, n: int) -> str:
+    """A row's name at N: "B5a chain_segment_fwd (N=192)", "B5b
+    chain_segment_bwd (dH, N=192)"."""
+    return f"{name[:-1]}, N={n})" if name.endswith(")") else f"{name} (N={n})"
+
+
+# The chain rows split by N (the wrapper, and the flags of its per-N count,
+# ops/chain.py _count_n): the generic row counts the power-of-two build's
+# launches only (main subtracts these)
+CHAIN_WRAPPERS = {"B5a chain_segment_fwd": "segment_fwd_cuda",
+                  "B5b chain_segment_bwd": "segment_bwd_cuda",
+                  "B6a chain_stack_fwd": "stack_fwd_cuda", "B6b chain_stack_bwd": "stack_bwd_cuda"}
+CHAIN_SPLITS = tuple(
+    (name, CHAIN_WRAPPERS[name.split(" (")[0]], flags) for name, flags in (
+        ("B5a chain_segment_fwd", ()), ("B5a chain_segment_fwd (far-field)", ("ff",)),
+        ("B5b chain_segment_bwd", ()), ("B5b chain_segment_bwd (dH)", ("dh",)),
+        ("B5b chain_segment_bwd (far-field)", ("ff",)), ("B6a chain_stack_fwd", ()),
+        ("B6b chain_stack_bwd", ()), ("B6b chain_stack_bwd (dH)", ("dh",)),
+        ("B5a chain_segment_fwd (bf16)", ("bf16",)), ("B5b chain_segment_bwd (bf16)", ("bf16",)),
+        ("B6a chain_stack_fwd (bf16)", ("bf16",)), ("B6b chain_stack_bwd (bf16)", ("bf16",))))
 
 
 PLAIN_ROUTE = "forward() plain route"
@@ -3129,16 +3501,16 @@ def hypertune_cli_path(card: str, tmp: str, raw_path: str) -> None:
 
 # -- the forward() figure and the low-dose path ---------------------------------
 
-def float64_cpu(params, buffers):
-    """CPU copies of a model in float64 / complex128, the parameters as
-    fresh leaves that want gradients: the reference for the gradients that
-    float32 rounding dominates."""
+def float64_cpu(params, buffers, device="cpu"):
+    """Copies of a model in float64 / complex128 on the CPU (or ``device``),
+    the parameters as fresh leaves that want gradients: the reference for
+    the gradients that float32 rounding dominates."""
     from ptyrad_tpu_torch.models.state import PtychoParams
 
     def up(t):
         if t is None:
             return None
-        t = t.detach().cpu()
+        t = t.detach().to(device)
         if t.is_complex():
             return t.to(torch.complex128)
         return t.double() if t.is_floating_point() else t
@@ -3706,6 +4078,228 @@ def n120_tilt_gate(dev, init: dict) -> dict:
     launches = counted(lambda: tilt_gradients_check(solver))[1]
     require(launches[f"B3b loss_sums_bwd (dH, N={PSO_N120})"] > 0,
             "the N = 120 tilt gate did not run B3b with dH")
+    return launches
+
+
+# -- PSO padded to 192^2: the segmented chain's mixed-radix build --------------
+
+def pso_n192_init(pso_init: dict) -> dict:
+    """init_variables of PSO as its params file gives it, but padded on the
+    fly to 192^2 instead of 256^2: pso_dataset's 120^2 crops padded with
+    meas_pad_on_the_fly(crops, "power", 192, threshold=70), the pixel
+    0.15 x 256 / 192 = 0.2 Ang (the crop's 0.32 Ang x 120 / 192), the yml's
+    probe at 192^2 scaled to the mean measured intensity with its pad (as
+    pso_dataset scales it), the raster at that pixel, 21 slices of 10 Ang, a
+    seeded random object (the flat start amplifies float32 rounding, see
+    pso_ff_path) and zero tilt."""
+    from ptyrad_tpu_torch.initialization import meas_pad_on_the_fly
+    from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
+                                          make_stem_probe, near_field_evolution)
+
+    n = PSO_N192
+    dx = PSO_DX * PSO_NPIX / n
+    steps = np.round(np.arange(PSO_SIDE) * PSO_STEP_ANG / dx).astype(np.int32)
+    ys, xs = np.meshgrid(steps, steps, indexing="ij")
+    canvas = int(steps[-1]) + n + 8
+    lam = electron_wavelength(PSO_KV)
+    crops = pso_init["measurements"]
+    crops_np = crops.cpu().numpy()
+    padded, pad_idx = meas_pad_on_the_fly(crops_np, "power", n, threshold=70)
+    meas_avg_sum = float(crops_np.mean(0).sum() + padded.sum())
+    probe = make_mixed_probe(make_stem_probe({"kv": PSO_KV, "conv_angle": 21.4, "Npix": n,
+                                              "dx": dx, "df": -200.0}), PSO_PMODE, [0.02])
+    scale = np.sqrt(meas_avg_sum / np.sum(np.abs(probe) ** 2))
+    return {
+        "obj": random_object((1, PSO_NZ, canvas, canvas), SEED + 11),
+        "probe": (probe * scale).astype(np.complex64),
+        "probe_pos_shifts": np.zeros((PSO_SCANS, 2), np.float32),
+        "obj_tilts": np.zeros((1, 2), np.float32), "slice_thickness": PSO_DZ,
+        "H": near_field_evolution((n, n), dx, PSO_DZ, lam), "measurements": crops,
+        "crop_pos": np.stack([ys.ravel() + 4, xs.ravel() + 4], -1).astype(np.int32),
+        "omode_occu": np.ones(1, np.float32), "dx": dx, "lambd": lam,
+        "N_scan_slow": PSO_SIDE, "N_scan_fast": PSO_SIDE,
+        "on_the_fly_meas_padded": padded, "on_the_fly_meas_padded_idx": pad_idx,
+    }
+
+
+N192_KERNELS = tuple(per_n(name, PSO_N192) for name in CHAIN_KERNELS) + PATCH_KERNELS
+
+
+def pso_n192_path(dev, card: str, pso_init: dict):
+    """pso_n192: PSO as its params file gives it, padded on the fly to
+    192^2 (4,096 patterns, 4 probe modes, 21 slices, batch 32, Adam,
+    loss_single, the yml's constraints), 2 iterations from a seeded object
+    through PtyRADSolver.run(): each step B1, B2, B6a/B6b over 16 slices and
+    B5a/B5b over the 5-slice tail at N = 192 (chain.cu's mixed-radix build),
+    no B3/B4 and no plain route; finite and falling, and every iteration's
+    loss within rtol 1e-4 of the same run through the plain route
+    (fwd_fused: false, torch.fft on the card). Returns (solver, launches,
+    init)."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    t0 = time.perf_counter()
+    init = pso_n192_init(pso_init)
+    setup_s = time.perf_counter() - t0
+    solver = PtyRADSolver(PSO_PARAMS, init_variables=init, device=dev, verbose=True)
+    first = first_batch_loss(solver)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    launches = drive(solver)
+    run_s = time.perf_counter() - t1
+    losses = [v for _, v in solver.history.loss_iters]
+    times = solver.history.iter_times
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    plain_params = copy.deepcopy(PSO_PARAMS)
+    plain_params["model_params"]["fwd_fused"] = False
+    ref = PtyRADSolver(plain_params, init_variables=init, device=dev, verbose=False)
+    t2 = time.perf_counter()
+    ref_launches = drive(ref)
+    ref_s = time.perf_counter() - t2
+    ref_losses = [v for _, v in ref.history.loss_iters]
+    del ref
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    emit({
+        "phase": "pso_n192", "card": card, "N": PSO_N192, "n_patterns": PSO_SCANS,
+        "batch": BATCH, "first_batch_loss": first, "iterations": len(losses), "losses": losses,
+        "iter_s": times, "patterns_per_s": [PSO_SCANS / t for t in times], "setup_s": setup_s,
+        "run_s": run_s, "peak_mem_gb": peak, "launches": launches,
+        "plain_route_losses": ref_losses, "plain_route_run_s": ref_s, "rel_diff": rel,
+        "rtol": 1e-4, "plain_route_launches": ref_launches[PLAIN_ROUTE],
+    })
+    require(len(losses) == PSO_NITER and all(np.isfinite(losses)), f"pso_n192: losses {losses}")
+    require(losses[-1] < losses[0], f"pso_n192: loss did not fall: {losses}")
+    require(len(ref_losses) == PSO_NITER and max(rel) <= 1e-4,
+            f"pso_n192: losses {losses} differ from the plain route's {ref_losses}: {rel}")
+    for name in N192_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the pso_n192 path")
+    require(launches[PLAIN_ROUTE] == 0, f"pso_n192: {launches[PLAIN_ROUTE]} plain routes")
+    for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd", "B4a dp_fwd", "B4b dp_bwd"):
+        require(launches[name] == 0, f"pso_n192: {name} ran at N = 192")
+    for name in CHAIN_KERNELS:  # every chain launch at N = 192 (the mixed build)
+        require(launches[name] == launches[per_n(name, PSO_N192)],
+                f"pso_n192: {name} ran {launches[name]} times, "
+                f"{launches[per_n(name, PSO_N192)]} at N = 192")
+    require(ref_launches[PLAIN_ROUTE] > 0, "pso_n192's reference did not take the plain route")
+    return solver, launches, init
+
+
+def n192_exit_check(solver) -> dict:
+    """The far-field exit at N = 192 on pso_n192's first batch: loss_fn and
+    its backward (B6 over 16 slices, B5 over the tail) with
+    set_far_field(True) against the same with the exit off: the loss
+    within rtol 1e-5, and every B5 launch of the exit's run took it.
+    Returns both runs' launch counts, summed."""
+    from ptyrad_tpu_torch.engine.solver import loss_fn
+
+    p, bufs, geom = solver.params, solver.buffers, solver.geom
+    idx, mask = (torch.as_tensor(x[0], device=solver.device)
+                 for x in (solver.batch_idx, solver.batch_mask))
+
+    def run():
+        total, _ = loss_fn(p, bufs, geom, idx, mask, solver.loss_params)
+        total.backward()
+        for _, t in p.named():
+            t.grad = None
+        return float(total.detach())
+
+    off, l_off = counted(run)
+    on, l_on = counted(lambda: far_field_on(run))
+    rel = abs(on - off) / abs(off)
+    b5 = [per_n(name, PSO_N192) for name in ("B5a chain_segment_fwd", "B5b chain_segment_bwd")]
+    emit({"phase": "n192_exit", "loss_exit_off": off, "loss_exit_on": on, "rel_diff": rel,
+          "rtol": 1e-5, "launches_exit_on": {k: l_on[k] for k in b5 + [per_n(
+              f"{k.split(' (')[0]} (far-field)", PSO_N192) for k in b5]}})
+    require(rel <= 1e-5, f"n192_exit: the exit's loss {on} differs from {off}: {rel}")
+    for name in b5:
+        ff = per_n(f"{name.split(' (')[0]} (far-field)", PSO_N192)
+        require(l_off[ff] == 0 < l_on[name] == l_on[ff],
+                f"n192_exit: {name} ran {l_on[name]} times with the exit on, {l_on[ff]} through "
+                f"it; {l_off[ff]} with it off")
+    return add_counts(l_off, l_on)
+
+
+def chain_tilt_gradients_check(solver) -> dict:
+    """The dz and tilt float64 gate on the chain route (N > 128, where
+    tilt_gradients_check's B3 does not run), built as that check is: the
+    first batch's patches, probes and patterns computed once in float32,
+    and the loss (combined_loss, the solver's terms) of multislice_dp_chain
+    on the kernels (B6b and B5b with dH on a per-position H), of the plain
+    multislice_dp on the same CUDA tensors and of the plain chain in
+    float64 on the CPU. H comes from float64 parameters in every route,
+    rounded once to complex64 for the two float32 routes: at 192^2 (k up to
+    2.5 / Ang) evaluating H and contracting dH into the tilt gradients in
+    float32, which both float32 routes share, puts an entry of the tilt
+    gradient 1.06 of the limit off the float64 one, for torch.fft's route
+    as for the kernels (on an H100: 2.8143e-7 and 2.8144e-7, largest entry
+    1.72e-4), so
+    the gate holds the chains' own float32 arithmetic, where the dz
+    cancellation lives. dH within 1e-4 of the plain route's largest entry;
+    the dz and tilt gradients through scalar_grads_check (its tolerance
+    unchanged). Returns the kernel route's launch counts."""
+    from ptyrad_tpu_torch.losses import combined_loss
+    from ptyrad_tpu_torch.models import (compute_propagators, forward_route, get_measurements,
+                                         get_obj_patches, get_probes, multislice_dp)
+    from ptyrad_tpu_torch.ops import chain as C
+
+    p, bufs, geom = solver.params, solver.buffers, solver.geom
+    idx, mask = (torch.as_tensor(x[0], device=solver.device)
+                 for x in (solver.batch_idx, solver.batch_mask))
+    require(forward_route(p, geom, idx) == "chain", "the chain tilt gate left the chain route")
+    with torch.no_grad():
+        ops = (*get_obj_patches(p, bufs, geom, idx), get_probes(p, geom, idx),
+               get_measurements(bufs, geom, idx), mask)
+
+    def run(route):
+        on_cpu = route == "float64"
+        model, bb = float64_cpu(p, bufs, "cpu" if on_cpu else solver.device)
+        at, args = idx, ops
+        h = compute_propagators(model, bb, geom, idx.cpu() if on_cpu else idx)
+        if on_cpu:
+            at = idx.cpu()
+            args = tuple(t.cpu().to(torch.complex128 if t.is_complex() else torch.float64)
+                         for t in ops)
+        else:
+            h = h.to(torch.complex64)
+        h.retain_grad()
+        obja_p, objp_p, probes, meas, m = args
+        occu = bb.omode_occu if on_cpu else bufs.omode_occu
+        chain = multislice_dp if route == "plain" else C.multislice_dp_chain
+        dp = chain(obja_p, objp_p, probes, h, occu, geom.eps)
+        total, _ = combined_loss(dp, meas, obja_p, objp_p, occu, solver.loss_params, m)
+        total.backward()
+        return h.grad, model.slice_thickness.grad, model.obj_tilts.grad[at]
+
+    k, launches = counted(lambda: run("kernels"))
+    pl, r64 = run("plain"), run("float64")
+    (e_dh,), (t_dh,) = _grad_errs(k[:1], pl[:1])
+    emit({"phase": "tilt_gradients", "route": "chain", "N": geom.probe_shape[-1],
+          "batch": len(idx), "h": "float64 parameters, rounded once to complex64",
+          "dh_max_abs_err": e_dh, "dh_tolerance": t_dh})
+    require(e_dh <= t_dh, f"chain tilt gate: dH differs from the plain route: {e_dh} > {t_dh}")
+    scalar_grads_check(f"chain tilt gate (N = {geom.probe_shape[-1]})",
+                       ("slice_thickness", "obj_tilts"), k[1:], pl[1:], r64[1:])
+    return launches
+
+
+def n192_tilt_gate(dev, init: dict) -> dict:
+    """The dz and tilt float64 gate at N = 192: pso_n192's data with
+    per-position tilts and dz optimizable (with_dz_tilts), the first batch
+    through B6b and B5b with dH on a per-position H (chain_tilt_gradients_check).
+    Returns the launch counts."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver
+
+    data = dict(init, obj_tilts=np.zeros((PSO_SCANS, 2), np.float32))
+    solver = PtyRADSolver(with_dz_tilts(PSO_PARAMS), init_variables=data, device=dev,
+                          verbose=False)
+    solver.prepare()
+    for name in ("slice_thickness", "obj_tilts"):
+        getattr(solver.params, name).requires_grad_(True)
+    require(not solver.geom.global_tilt, "the N = 192 tilt gate runs one global tilt")
+    launches = chain_tilt_gradients_check(solver)
+    for name in ("B5b chain_segment_bwd (dH)", "B6b chain_stack_bwd (dH)"):
+        require(launches[per_n(name, PSO_N192)] > 0,
+                f"the N = 192 tilt gate did not run {per_n(name, PSO_N192)}")
     return launches
 
 
@@ -4990,7 +5584,7 @@ def fused_plan(n: int) -> dict:
     from ptyrad_tpu_torch.ops import _build
 
     out = (ctypes.c_int * 14)()
-    lib = _build.lib() if n & (n - 1) == 0 else _build.fused_lib(n)
+    lib = _build.lib() if n & (n - 1) == 0 else _build.mixed_lib(n)
     _build.check(lib.ptyrad_fused_plan(n, out), "ptyrad_fused_plan")
     keys = ("n", "elems", "line_threads", "line", "pad_shift", "fwd_threads", "fwd_row_sweeps",
             "fwd_col_sweeps", "bwd_threads", "bwd_row_sweeps", "bwd_col_sweeps", "group_threads",
@@ -4998,8 +5592,27 @@ def fused_plan(n: int) -> dict:
     return dict(zip(keys, out))
 
 
+def chain_plan(n: int) -> dict:
+    """The plan chain.cu's mixed build compiled for N at PSO's 4 modes
+    (ptyrad_chain_plan from N's library), which must be ops/chain_plan.py's."""
+    import ctypes
+
+    from ptyrad_tpu_torch.ops import _build
+    from ptyrad_tpu_torch.ops.chain_plan import chain_plan as python_plan
+
+    out = (ctypes.c_int * 13)()
+    _build.check(_build.mixed_lib(n).ptyrad_chain_plan(n, PSO_PMODE, out), "ptyrad_chain_plan")
+    require(tuple(out) == python_plan(n).reported(PSO_PMODE),
+            f"N = {n}: the compiled chain plan {list(out)} is not ops/chain_plan.py's "
+            f"{python_plan(n).reported(PSO_PMODE)}")
+    keys = ("n", "elems", "line_threads", "passes", "stages", "rows", "cols", "row_threads",
+            "col_threads", "row_smem_bytes", "col_smem_bytes", "line", "pad_shift")
+    return dict(zip(keys, out))
+
+
 KERNEL_CHECKS = ("check_patches", "check_loss_chain", "check_dp_chain", "check_chain",
-                 "check_fused_dh", "check_chain_dh", "check_chain_ff", "check_fused_npo2")
+                 "check_fused_dh", "check_chain_dh", "check_chain_ff", "check_fused_npo2",
+                 "check_chain_npo2")
 
 
 # -- data parallelism over ranks (A6) ---------------------------------------------
@@ -6100,16 +6713,18 @@ def main() -> int:
           "tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
-    path = _build.build(extra_n=MIXED_NS)  # the mixed-radix libraries beside the main one
+    # the mixed-radix libraries (B3/B4's, B5/B6's) beside the main one
+    path = _build.build(extra_n=MIXED_NS + CHAIN_NS)
     _build.lib()
-    for n in (PSO_NPIX, 512):
+    for n in (PSO_NPIX, 512) + CHAIN_NS:
         C.prepare(dev, n)
     for n in (NPIX,) + MIXED_NS:
         M.prepare(dev, n)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": path.name,
           "compiled": _build.BUILD_SECONDS is not None, "main_seconds": _build.BUILD_SECONDS,
-          "mixed_seconds": {str(n): s for n, s in _build.FUSED_BUILD_SECONDS.items()},
-          "fused_plan": {str(n): fused_plan(n) for n in (NPIX,) + MIXED_NS}})
+          "mixed_seconds": {str(n): s for n, s in _build.MIXED_BUILD_SECONDS.items()},
+          "fused_plan": {str(n): fused_plan(n) for n in (NPIX,) + MIXED_NS},
+          "chain_plan": {str(n): chain_plan(n) for n in CHAIN_NS}})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = kernel_rows(dev, gen)
@@ -6191,6 +6806,14 @@ def main() -> int:
     n120_tilt_launches = n120_tilt_gate(dev, n120_init)
     del n120_init
     torch.cuda.empty_cache()
+    solver, n192_launches, n192_init = pso_n192_path(dev, card, pso_init)
+    profile_steps(solver, card, "PSO-n192", PSO_NITER + 1, n_batches=8)
+    n192_exit_launches = n192_exit_check(solver)
+    del solver
+    torch.cuda.empty_cache()
+    n192_tilt_launches = n192_tilt_gate(dev, n192_init)
+    del n192_init
+    torch.cuda.empty_cache()
     solver, pso_bf16_launches = pso_bf16_path(dev, card, pso_init, pso_ref)
     profile_steps(solver, card, "PSO-bf16", PSO_NITER + 1, n_batches=8)
     del solver
@@ -6228,13 +6851,19 @@ def main() -> int:
                         {k: 0 if k in CANVAS_KERNELS else v for k, v in canvas_ranks.items()},
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
-                      pso_tilt_launches, pso_bf16_launches, pso_bf16_forward_launches)
+                      pso_tilt_launches, pso_bf16_launches, pso_bf16_forward_launches,
+                      n192_launches, n192_exit_launches, n192_tilt_launches)
     launches = add_counts(narrow, wide)
+    # a chain row at N = 2^k counts the power-of-two build's launches: less
+    # those of the mixed builds, which have rows of their own
+    for name, _, _ in CHAIN_SPLITS:
+        if name in launches:
+            launches[name] -= sum(launches[per_n(name, n)] for n in CHAIN_NS)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     launches.update({name: 0 for name in NOT_DRIVEN})
     # B1/B2's rows at the tBL shapes count the launches of the N <= 128 runs,
-    # their rows at the PSO shapes those of the N = 256 runs
+    # their rows at the PSO shapes those of the N = 256 and 192 runs
     for name in PATCH_KERNELS:
         launches[name], launches[name + PSO_SHAPES] = narrow[name], wide[name]
     for name in CANVAS_KERNELS:

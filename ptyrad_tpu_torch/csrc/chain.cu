@@ -111,6 +111,25 @@
 //    written between passes stay FP32; its entry points carry the suffix
 //    _bf16. This file alone (the default, 0) compiles the FP32 kernels as
 //    they were.
+//  * N in (128, 512] that is not a power of two (192, 384, 509, ...): the
+//    same pass structure and walks on the mixed-radix pair of reg_fft.cuh
+//    (line_dif_mr forward, line_dit_mr its conjugate transpose) with the
+//    plan ops/chain_plan.py chooses for that N, which this file takes as
+//    macros (PTYRAD_MIXED_LINE, PTYRAD_MIXED_ROW, PTYRAD_MIXED_PAD):
+//    ops/_build.py compiles it, and its _bf16 twin, once per such N into a
+//    library of its own whose entry points take that N alone. Without the
+//    macros the file builds the powers of two as before. A row's T <= 32
+//    threads share a warp (32 / T rows a mode group, lanes past them idle);
+//    a column-pass block holds 16 columns of T threads. The forward leaves
+//    frequency digitrev(position) at each position, so the spectra stay in
+//    that order on both axes: the x-spectrum is stored between the passes
+//    at the positions the transform leaves it, the column pass multiplies
+//    H at the positions it leaves, and the caller hands the kernels H
+//    gathered with the plan's permutation on both axes (the dH partials,
+//    and dH, come back in that order). The far-field exit stores frequency
+//    f at (f + N / 2) % N on both axes (fftshift's roll at any N) and its
+//    adjoint loads through the same map. Rows and columns past N idle: an
+//    idle thread runs every barrier and touches no device memory.
 
 #ifndef PTYRAD_BF16_OPERANDS
 #define PTYRAD_BF16_OPERANDS 0
@@ -380,6 +399,7 @@ col_ff_kernel(const float2* src, float2* dst, long long bs) {
   static_for<0, kE>([&](auto m) { dst[fo + m * kStep] = v[kAdj ? m : (m ^ (kE / 2))]; });
 }
 
+#ifndef PTYRAD_MIXED_LINE
 // Set-up once per (device, log2 N) (regfft::prepare_once): the twiddle table
 // and the shared-memory limits of the eight kernels of that N. After it, a
 // launch checks one flag and does no set-up, so a caller that warms up every
@@ -477,13 +497,466 @@ struct Chain {
       return cudaGetLastError();
     });
   }
+
+  // dH from the per-(sample, mode) partials (natural order: Plan has no
+  // permutation between passes)
+  cudaError_t reduce_dh(const float2* dh_part, float2* dh, int h_shared) const {
+    return dh::reduce(dh_part, dh, B, pmode, h_shared, logn, st);
+  }
 };
+
+// log2 N for N a power of two in [2, 512], else 0 (which Chain::init refuses)
+int logn_of(int n) {
+  return n >= 2 && n <= (1 << kMaxLogN) && (n & (n - 1)) == 0 ? regfft::log2i(n) : 0;
+}
+
+Chain make_chain(int B, int pmode, int n, const float2* h, int h_shared, void* stream) {
+  Chain c{};
+  c.B = B;
+  c.pmode = pmode;
+  c.logn = logn_of(n);
+  c.h = h;
+  c.st = static_cast<cudaStream_t>(stream);
+  c.h_bs = h_shared ? 0 : (1LL << (2 * c.logn));
+  return c;
+}
+
+// The set-up of N on the current device (prepare)
+cudaError_t prepare_n(int n) { return prepare(logn_of(n)); }
+#endif  // !PTYRAD_MIXED_LINE
+
+#ifdef PTYRAD_MIXED_LINE
+// -- the mixed-radix build: one N in (128, 512] that is not a power of two ---
+
+using MLine = PTYRAD_MIXED_LINE;
+
+// The plan (ops/chain_plan.py ChainPlan; ptyrad_chain_plan reports it): a
+// row-pass block holds kRows = 32 / T rows of one sample for each of up to
+// kMaxGroups mode groups, a warp each, every row's line padded in shared
+// memory (element a at a + (a >> kPad)); a column-pass block holds 16
+// adjacent columns of T threads each (regfft::ColExchange<4>).
+struct MPlan {
+  using Line = MLine;
+  static constexpr int kN = Line::kN, kE = Line::kE, kTl = Line::kTl;
+  static constexpr int kLast = Line::kPasses - 1;  // the pass whose layout holds the spectrum
+  static constexpr int kRows = 32 / kTl;
+  static constexpr int kMaxGroups = 4;
+  static constexpr int kLogCols = 4;
+  static constexpr int kCols = 1 << kLogCols;
+  static constexpr int kLine = PTYRAD_MIXED_ROW, kPad = PTYRAD_MIXED_PAD;
+  static constexpr int kColThreads = kCols * kTl;
+  static constexpr int kRowBlocks = (kN + kRows - 1) / kRows;
+  static constexpr int kColBlocks = (kN + kCols - 1) / kCols;
+  static constexpr size_t kNN = static_cast<size_t>(kN) * kN;
+  static constexpr size_t kColSmem = sizeof(float2) * kCols * kN;
+  static constexpr int groups(int pmode) { return pmode < kMaxGroups ? pmode : kMaxGroups; }
+  static constexpr size_t row_smem(int g) {
+    return sizeof(float2) * (static_cast<size_t>(kRows) * kN +
+                             static_cast<size_t>(g) * kRows * kLine);
+  }
+  // where the far-field exit keeps frequency f: fftshift's roll by floor(N / 2)
+  __device__ __forceinline__ static int shifted(int f) {
+    return f + kN / 2 < kN ? f + kN / 2 : f + kN / 2 - kN;
+  }
+  static_assert(kTl >= 2 && kTl <= 32, "a row's line stays inside one warp");
+  // every transform passes a barrier of its line between the loads of its
+  // points and the stores of its results, so a pass may work in place
+  static_assert(Line::kReadsSlots, "a mixed plan without an exchange");
+  static_assert(kLine >= kN - 1 + ((kN - 1) >> kPad) + 1, "a padded row must hold the row");
+};
+
+// A row's padded line in shared memory; an idle lane (no row) stores nothing
+struct MixedRowEx {
+  float2* s;
+  bool live;
+  __device__ __forceinline__ void store(int a, float2 x) const {
+    if (live) s[a + (a >> MPlan::kPad)] = x;
+  }
+  __device__ __forceinline__ float2 load(int a) const { return s[a + (a >> MPlan::kPad)]; }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+// f(m, a) for each register m of thread t that holds a point of its line in
+// the points' layout (kSpec: the spectrum's, the last pass's), a its position
+template <bool kSpec, class F>
+__device__ __forceinline__ void each_at(int t, F&& f) {
+  constexpr int k = kSpec ? MPlan::kLast : 0;
+  static_for<0, MPlan::kE>([&](auto m) {
+    if (MLine::template ok<k, decltype(m)::value>(t)) {
+      f(m, MLine::template pos<k, decltype(m)::value>(t));
+    }
+  });
+}
+
+// f(m, x) over the spectrum's registers, x the far-field exit's place of
+// the frequency register m holds
+template <class F>
+__device__ __forceinline__ void each_shifted(int t, F&& f) {
+  static_for<0, MPlan::kE>([&](auto m) {
+    if (MLine::template ok<MPlan::kLast, decltype(m)::value>(t)) {
+      f(m, MPlan::shifted(MLine::template freq<decltype(m)::value>(t)));
+    }
+  });
+}
+
+template <int E>
+__device__ __forceinline__ void zero(float2 (&v)[E]) {
+  static_for<0, E>([&](auto m) { v[m] = make_float2(0.0f, 0.0f); });
+}
+
+// Row pass of the forward chain (grid (ceil(N / R), B), G warps): as
+// row_fwd_kernel, on the mixed line. Its rows arrive in natural order, or
+// (pending) as the x-spectrum at the positions the forward left it; the row
+// FFT stores the x-spectrum the same way, or (kFf) frequency f at column
+// shifted(f).
+template <bool kFf>
+__global__ void __launch_bounds__(32 * MPlan::kMaxGroups)
+row_fwd_mr(const float2* src, long long src_bs, int pending, float2* entry, long long entry_bs,
+           const float* __restrict__ a, const float* __restrict__ ph, long long obj_bs, int fft,
+           float2* dst, long long dst_bs, int pmode) {
+  using P = MPlan;
+  constexpr int kE = P::kE, kN = P::kN;
+  extern __shared__ float2 smem[];
+  const int groups = blockDim.x >> 5;
+  const int group = threadIdx.x >> 5;
+  const int line = (threadIdx.x & 31) / P::kTl;
+  const int t = (threadIdx.x & 31) % P::kTl;
+  const int y0 = blockIdx.x * P::kRows;
+  const int rows = kN - y0 < P::kRows ? kN - y0 : P::kRows;
+  const bool live = line < rows;
+  const size_t b = blockIdx.y;
+  const size_t tile = static_cast<size_t>(y0) * kN;  // the block's pixels
+  const int row = live ? line * kN : 0;               // the thread's row in the tile
+  float2* tsm = smem;
+  const MixedRowEx ex{smem + P::kRows * kN + (group * P::kRows + (live ? line : 0)) * P::kLine,
+                      live};
+
+  if (a != nullptr) {
+    for (int e = threadIdx.x; e < rows * kN; e += blockDim.x) {
+      const size_t k = b * obj_bs + tile + e;
+      float sn, cs;
+      sincosf(ph[k], &sn, &cs);
+      tsm[e] = make_float2(a[k] * cs, a[k] * sn);
+    }
+    __syncthreads();
+  }
+  for (int p = group; p < pmode; p += groups) {
+    const size_t off = p * P::kNN + tile + row;
+    const float2* sp = src + b * src_bs + off;
+    float2 v[kE];
+    zero(v);
+    if (live) {
+      if (pending) {
+        each_at<true>(t, [&](auto m, int x) { v[m] = sp[x]; });
+      } else {
+        each_at<false>(t, [&](auto m, int x) { v[m] = sp[x]; });
+      }
+    }
+    if (pending) regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+    if (entry != nullptr && live) {
+      float2* ep = entry + b * entry_bs + off;
+      each_at<false>(t, [&](auto m, int x) { ep[x] = v[m]; });
+    }
+    if (a != nullptr) {
+      each_at<false>(t, [&](auto m, int x) { v[m] = cmul(v[m], tsm[row + x]); });
+    }
+    if (fft) regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+    if (dst != nullptr && live) {
+      float2* dp = dst + b * dst_bs + off;
+      if (!fft) {
+        each_at<false>(t, [&](auto m, int x) { dp[x] = v[m]; });
+      } else if (kFf) {
+        each_shifted(t, [&](auto m, int x) { dp[x] = v[m]; });
+      } else {
+        each_at<true>(t, [&](auto m, int x) { dp[x] = v[m]; });
+      }
+    }
+  }
+}
+
+// Row pass of the adjoint walk (grid and groups as row_fwd_mr): as
+// row_bwd_kernel, on the mixed line; kFf: column x of src holds the
+// frequency whose shifted place is x.
+template <bool kFf>
+__global__ void __launch_bounds__(32 * MPlan::kMaxGroups)
+row_bwd_mr(const float2* src, long long src_bs, int pending, const float2* __restrict__ psi,
+           long long psi_bs, const float* __restrict__ a, const float* __restrict__ ph,
+           long long obj_bs, float* __restrict__ da, float* __restrict__ dph, long long dobj_bs,
+           int fft, float2* dst, long long dst_bs, int pmode) {
+  using P = MPlan;
+  constexpr int kE = P::kE, kN = P::kN, kTile = P::kRows * P::kN;
+  extern __shared__ float2 smem[];
+  const int groups = blockDim.x >> 5;
+  const int group = threadIdx.x >> 5;
+  const int line = (threadIdx.x & 31) / P::kTl;
+  const int t = (threadIdx.x & 31) % P::kTl;
+  const int y0 = blockIdx.x * P::kRows;
+  const int rows = kN - y0 < P::kRows ? kN - y0 : P::kRows;
+  const bool live = line < rows;
+  const size_t b = blockIdx.y;
+  const size_t tile = static_cast<size_t>(y0) * kN;
+  const int row = live ? line * kN : 0;
+  float2* tsm = smem;
+  float2* part = smem + kTile;  // after the mode loop: each group's dT share
+  const MixedRowEx ex{smem + kTile + (group * P::kRows + (live ? line : 0)) * P::kLine, live};
+
+  for (int e = threadIdx.x; e < rows * kN; e += blockDim.x) {
+    const size_t k = b * obj_bs + tile + e;
+    float sn, cs;
+    sincosf(ph[k], &sn, &cs);
+    tsm[e] = make_float2(a[k] * cs, a[k] * sn);
+  }
+  __syncthreads();
+  float2 dt[kE];
+  zero(dt);
+  for (int p = group; p < pmode; p += groups) {
+    const size_t off = p * P::kNN + tile + row;
+    const float2* sp = src + b * src_bs + off;
+    const float2* pp = psi + b * psi_bs + off;
+    float2 v[kE], ps[kE];  // psi is loaded with d chi, before the transform
+    zero(v);
+    zero(ps);
+    if (live) {
+      if (!pending) {
+        each_at<false>(t, [&](auto m, int x) { v[m] = sp[x]; });
+      } else if (kFf) {
+        each_shifted(t, [&](auto m, int x) { v[m] = sp[x]; });
+      } else {
+        each_at<true>(t, [&](auto m, int x) { v[m] = sp[x]; });
+      }
+      each_at<false>(t, [&](auto m, int x) { ps[m] = pp[x]; });
+    }
+    if (pending) regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+    each_at<false>(t, [&](auto m, int x) {
+      const float2 q = cmul_conj(v[m], ps[m]);
+      dt[m].x += q.x;
+      dt[m].y += q.y;
+      v[m] = cmul_conj(v[m], tsm[row + x]);
+    });
+    if (fft) regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+    if (live) {
+      float2* dp = dst + b * dst_bs + off;
+      if (fft) {
+        each_at<true>(t, [&](auto m, int x) { dp[x] = v[m]; });
+      } else {
+        each_at<false>(t, [&](auto m, int x) { dp[x] = v[m]; });
+      }
+    }
+  }
+  __syncthreads();  // the exchange lines become the partial sums
+  if (live) each_at<false>(t, [&](auto m, int x) { part[group * kTile + row + x] = dt[m]; });
+  __syncthreads();
+  // d a = Re(dT e^{-i phi}), d phi = a Im(dT e^{-i phi}), dT summed over
+  // the groups in order: a fixed order, no atomics
+  for (int e = threadIdx.x; e < rows * kN; e += blockDim.x) {
+    float2 d = part[e];
+    for (int g = 1; g < groups; ++g) {
+      d.x += part[g * kTile + e].x;
+      d.y += part[g * kTile + e].y;
+    }
+    const size_t k = b * obj_bs + tile + e;
+    const size_t kd = b * dobj_bs + tile + e;
+    float sn, cs;
+    sincosf(ph[k], &sn, &cs);
+    da[kd] = d.x * cs + d.y * sn;
+    dph[kd] = a[k] * (d.y * cs - d.x * sn);
+  }
+}
+
+// Column pass, in place (grid (ceil(N / 16), pmode, B)): as col_kernel, on
+// the mixed line. The column FFT leaves row position y holding frequency
+// digitrev(y), where H (handed in permuted), K and the dH partials sit.
+template <bool kDh>
+__global__ void __launch_bounds__(MPlan::kColThreads)
+col_mr(float2* buf, long long bs, const float2* __restrict__ h, long long h_bs, int conj_h,
+       float2* kbuf, float2* dacc, int first) {
+  using P = MPlan;
+  constexpr int kE = P::kE, kN = P::kN;
+  extern __shared__ float2 smem[];
+  const int c = threadIdx.x & (P::kCols - 1);
+  const int t = threadIdx.x >> P::kLogCols;
+  const int x = blockIdx.x * P::kCols + c;
+  const bool live = x < kN;
+  const size_t col = live ? x : 0;
+  const size_t fo = blockIdx.z * static_cast<size_t>(bs) + blockIdx.y * P::kNN + col;
+  const ColExchange<P::kLogCols> ex{smem, c};
+  float2* f = buf + fo;
+
+  float2 v[kE];
+  zero(v);
+  if (live) each_at<false>(t, [&](auto m, int y) { v[m] = f[static_cast<size_t>(y) * kN]; });
+  regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+  if constexpr (kDh) {
+    float2* kb = kbuf + fo;
+    if (!conj_h) {
+      if (live) each_at<true>(t, [&](auto m, int y) { kb[static_cast<size_t>(y) * kN] = v[m]; });
+      if (h == nullptr) return;
+    } else if (live) {
+      float2* dc = dacc + fo;
+      each_at<true>(t, [&](auto m, int y) {
+        const size_t k = static_cast<size_t>(y) * kN;
+        float2 d = cmul_conj(v[m], kb[k]);
+        if (!first) d = make_float2(d.x + dc[k].x, d.y + dc[k].y);
+        dc[k] = d;
+      });
+    }
+  }
+  if (live) {
+    const float inv_nn = 1.0f / static_cast<float>(P::kNN);
+    const float2* hb = h + blockIdx.z * static_cast<size_t>(h_bs) + col;
+    each_at<true>(t, [&](auto m, int y) {
+      const float2 hv = hb[static_cast<size_t>(y) * kN];
+      v[m] = cmul(v[m], make_float2(hv.x * inv_nn, (conj_h ? -hv.y : hv.y) * inv_nn));
+    });
+  }
+  regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+  if (live) each_at<false>(t, [&](auto m, int y) { f[static_cast<size_t>(y) * kN] = v[m]; });
+}
+
+// Column pass of the far-field exit (grid (ceil(N / 16), pmode, B)): the
+// column FFT with frequency f stored at row shifted(f); kAdj, its adjoint:
+// the rows loaded through the same map, the unnormalised inverse transform.
+template <bool kAdj>
+__global__ void __launch_bounds__(MPlan::kColThreads)
+col_ff_mr(const float2* src, float2* dst, long long bs) {
+  using P = MPlan;
+  constexpr int kE = P::kE, kN = P::kN;
+  extern __shared__ float2 smem[];
+  const int c = threadIdx.x & (P::kCols - 1);
+  const int t = threadIdx.x >> P::kLogCols;
+  const int x = blockIdx.x * P::kCols + c;
+  const bool live = x < kN;
+  const size_t fo = blockIdx.z * static_cast<size_t>(bs) + blockIdx.y * P::kNN + (live ? x : 0);
+  const ColExchange<P::kLogCols> ex{smem, c};
+
+  float2 v[kE];
+  zero(v);
+  if (live) {
+    if constexpr (kAdj) {
+      each_shifted(t, [&](auto m, int y) { v[m] = src[fo + static_cast<size_t>(y) * kN]; });
+    } else {
+      each_at<false>(t, [&](auto m, int y) { v[m] = src[fo + static_cast<size_t>(y) * kN]; });
+    }
+  }
+  if constexpr (kAdj) {
+    regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+  } else {
+    regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+  }
+  if (live) {
+    if constexpr (kAdj) {
+      each_at<false>(t, [&](auto m, int y) { dst[fo + static_cast<size_t>(y) * kN] = v[m]; });
+    } else {
+      each_shifted(t, [&](auto m, int y) { dst[fo + static_cast<size_t>(y) * kN] = v[m]; });
+    }
+  }
+}
+
+// Set-up once per device (regfft::prepare_once, key 1: the library holds one
+// N): the mixed pair's twiddles and the eight kernels' shared-memory limits
+cudaError_t prepare_mixed() {
+  return regfft::prepare_once<kMaxLogN>(1, [](int) -> cudaError_t {
+    using P = MPlan;
+    REGFFT_TRY(regfft::upload_mixed(P::kN));
+    const size_t row_smem = P::row_smem(P::kMaxGroups);
+    REGFFT_TRY(set_smem(row_fwd_mr<false>, row_smem));
+    REGFFT_TRY(set_smem(row_fwd_mr<true>, row_smem));
+    REGFFT_TRY(set_smem(row_bwd_mr<false>, row_smem));
+    REGFFT_TRY(set_smem(row_bwd_mr<true>, row_smem));
+    REGFFT_TRY(set_smem(col_mr<false>, P::kColSmem));
+    REGFFT_TRY(set_smem(col_mr<true>, P::kColSmem));
+    REGFFT_TRY(set_smem(col_ff_mr<false>, P::kColSmem));
+    return set_smem(col_ff_mr<true>, P::kColSmem);
+  });
+}
+
+// Shapes shared by every pass of one call, as Chain, at the build's N
+struct MixedChain {
+  int B, pmode, n;
+  long long nn, field_bs;
+  const float2* h;
+  long long h_bs;
+  cudaStream_t st;
+
+  cudaError_t init() {
+    if (n != MPlan::kN || B < 1 || pmode < 1) return cudaErrorInvalidValue;
+    nn = static_cast<long long>(MPlan::kNN);
+    field_bs = pmode * nn;
+    return prepare_mixed();
+  }
+
+  cudaError_t row_fwd(const float2* src, long long src_bs, bool pending, float2* entry,
+                      long long entry_bs, const float* a, const float* ph, long long obj_bs,
+                      bool fft, float2* dst, bool ff = false) const {
+    using P = MPlan;
+    auto kernel = ff ? row_fwd_mr<true> : row_fwd_mr<false>;
+    const int groups = P::groups(pmode);
+    kernel<<<dim3(P::kRowBlocks, B), 32 * groups, P::row_smem(groups), st>>>(
+        src, src_bs, pending, entry, entry_bs, a, ph, obj_bs, fft, dst, field_bs, pmode);
+    return cudaGetLastError();
+  }
+
+  cudaError_t row_bwd(const float2* src, bool pending, const float2* psi, long long psi_bs,
+                      const float* a, const float* ph, long long obj_bs, float* da, float* dph,
+                      long long dobj_bs, bool fft, float2* dst, bool ff = false) const {
+    using P = MPlan;
+    auto kernel = ff ? row_bwd_mr<true> : row_bwd_mr<false>;
+    const int groups = P::groups(pmode);
+    kernel<<<dim3(P::kRowBlocks, B), 32 * groups, P::row_smem(groups), st>>>(
+        src, field_bs, pending, psi, psi_bs, a, ph, obj_bs, da, dph, dobj_bs, fft, dst, field_bs,
+        pmode);
+    return cudaGetLastError();
+  }
+
+  cudaError_t col(float2* buf, bool conj_h, float2* kbuf = nullptr, float2* dacc = nullptr,
+                  bool first = false, bool with_h = true) const {
+    using P = MPlan;
+    auto kernel = kbuf != nullptr ? col_mr<true> : col_mr<false>;
+    kernel<<<dim3(P::kColBlocks, pmode, B), P::kColThreads, P::kColSmem, st>>>(
+        buf, field_bs, with_h ? h : nullptr, h_bs, conj_h, kbuf, dacc, first);
+    return cudaGetLastError();
+  }
+
+  cudaError_t col_k(float2* buf, float2* kbuf) const {
+    return col(buf, false, kbuf, nullptr, false, false);
+  }
+
+  cudaError_t col_ff(const float2* src, float2* dst, bool adj) const {
+    using P = MPlan;
+    auto kernel = adj ? col_ff_mr<true> : col_ff_mr<false>;
+    kernel<<<dim3(P::kColBlocks, pmode, B), P::kColThreads, P::kColSmem, st>>>(src, dst,
+                                                                               field_bs);
+    return cudaGetLastError();
+  }
+
+  // dH from the partials, in the order H was handed in (the plan's
+  // permutation on both axes)
+  cudaError_t reduce_dh(const float2* dh_part, float2* dh, int h_shared) const {
+    using Pix = regfft::FixedPix<MPlan::kN * MPlan::kN>;
+    return dh::reduce_pix(dh_part, dh, B, pmode, h_shared, Pix{}, st);
+  }
+};
+
+MixedChain make_chain(int B, int pmode, int n, const float2* h, int h_shared, void* stream) {
+  MixedChain c{};
+  c.B = B;
+  c.pmode = pmode;
+  c.n = n;
+  c.h = h;
+  c.st = static_cast<cudaStream_t>(stream);
+  c.h_bs = h_shared ? 0 : static_cast<long long>(MPlan::kNN);
+  return c;
+}
+
+cudaError_t prepare_n(int n) { return n == MPlan::kN ? prepare_mixed() : cudaErrorInvalidValue; }
+#endif  // PTYRAD_MIXED_LINE
 
 // Forward walk over nslices slices (a and ph point at the first; slice z at
 // + z * nn), from psi_in into out. With a stack, the entry state of every
 // sg-slice segment is written to stack[:, z / sg]. `last`: no propagation
 // after the final slice; with `ff` (needs `last`) the far-field exit instead.
-cudaError_t chain_fwd(const Chain& c, const float2* psi_in, float2* out, const float* a,
+template <class C>
+cudaError_t chain_fwd(const C& c, const float2* psi_in, float2* out, const float* a,
                       const float* ph, long long obj_bs, float2* stack, int n_seg, int sg,
                       int nslices, bool last, bool ff = false) {
   const float2* src = psi_in;
@@ -516,7 +989,8 @@ cudaError_t chain_fwd(const Chain& c, const float2* psi_in, float2* out, const f
 // carries the running cotangent. With dh (need_dh): kscr holds sg fields
 // of K, dh_part one field of partials, and dh gets the propagator
 // cotangent in H's shape.
-cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long long stack_bs,
+template <class C>
+cudaError_t chain_bwd(const C& c, const float2* g, const float2* stack, long long stack_bs,
                       const float* a, const float* ph, long long obj_bs, float2* scratch,
                       float2* work, float2* kscr, float2* dh_part, float2* dh, float* da,
                       float* dph, float2* dpsi, int n_seg, int sg, bool last, bool ff = false) {
@@ -593,34 +1067,26 @@ cudaError_t chain_bwd(const Chain& c, const float2* g, const float2* stack, long
   if (dh_first) {  // nothing propagated
     return cudaMemsetAsync(dh, 0, sizeof(float2) * (h_shared ? 1 : c.B) * c.nn, c.st);
   }
-  // the partials are in natural order (Plan: no permutation between passes)
-  return dh::reduce(dh_part, dh, c.B, c.pmode, h_shared, c.logn, c.st);
-}
-
-Chain make_chain(int B, int pmode, int logn, const float2* h, int h_shared, void* stream) {
-  Chain c{};
-  c.B = B;
-  c.pmode = pmode;
-  c.logn = logn;
-  c.h = h;
-  c.st = static_cast<cudaStream_t>(stream);
-  c.h_bs = h_shared ? 0 : (1LL << (2 * logn));
-  return c;
+  return c.reduce_dh(dh_part, dh, h_shared);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every entry point takes N itself: a power of two in [2, 512], or in a
+// mixed build its own N alone (anything else: cudaErrorInvalidValue).
+//
 // B5a. psi (B, pmode, N, N) complex64 -> out (same); a, ph: slice 0 of the
 // segment, (B, ., N, N) f32 with per-sample stride obj_bs (elements) and
-// the sg slices adjacent; h (1 or B, N, N) complex64, corner-centred. With
+// the sg slices adjacent; h (1 or B, N, N) complex64, corner-centred (in a
+// mixed build gathered with the plan's permutation on both axes). With
 // far_field (needs last) out is the exit's centred spectrum.
 int PTYRAD_ENTRY(ptyrad_chain_segment_fwd)(
     const float2* psi, const float* a, const float* ph, long long obj_bs, const float2* h,
-    float2* out, int B, int pmode, int sg, int logn, int h_shared, int last, int far_field,
+    float2* out, int B, int pmode, int sg, int n, int h_shared, int last, int far_field,
     void* stream) {
-  Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
+  auto c = make_chain(B, pmode, n, h, h_shared, stream);
   if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
   REGFFT_TRY(c.init());
   return static_cast<int>(chain_fwd(c, psi, out, a, ph, obj_bs, nullptr, 1, sg, sg, last != 0,
@@ -636,9 +1102,9 @@ int PTYRAD_ENTRY(ptyrad_chain_segment_fwd)(
 int PTYRAD_ENTRY(ptyrad_chain_segment_bwd)(
     const float2* g, const float2* psi, const float* a, const float* ph, long long obj_bs,
     const float2* h, float2* scratch, float2* work, float2* kscr, float2* dh_part, float2* dh,
-    float* da, float* dph, float2* dpsi, int B, int pmode, int sg, int logn, int h_shared,
+    float* da, float* dph, float2* dpsi, int B, int pmode, int sg, int n, int h_shared,
     int last, int far_field, void* stream) {
-  Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
+  auto c = make_chain(B, pmode, n, h, h_shared, stream);
   if (sg < 1 || (far_field && !last)) return static_cast<int>(cudaErrorInvalidValue);
   REGFFT_TRY(c.init());
   return static_cast<int>(chain_bwd(c, g, psi, c.field_bs, a, ph, obj_bs, scratch, work, kscr,
@@ -650,9 +1116,9 @@ int PTYRAD_ENTRY(ptyrad_chain_segment_bwd)(
 // segment-entry stack (B, n_seg, pmode, N, N).
 int PTYRAD_ENTRY(ptyrad_chain_stack_fwd)(
     const float2* psi0, const float* a, const float* ph, long long obj_bs, const float2* h,
-    float2* stack, float2* out, int B, int pmode, int n_seg, int sg, int logn, int h_shared,
+    float2* stack, float2* out, int B, int pmode, int n_seg, int sg, int n, int h_shared,
     int last_mega, void* stream) {
-  Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
+  auto c = make_chain(B, pmode, n, h, h_shared, stream);
   if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
   REGFFT_TRY(c.init());
   return static_cast<int>(chain_fwd(c, psi0, out, a, ph, obj_bs, stack, n_seg, sg, n_seg * sg,
@@ -665,9 +1131,9 @@ int PTYRAD_ENTRY(ptyrad_chain_stack_fwd)(
 int PTYRAD_ENTRY(ptyrad_chain_stack_bwd)(
     const float2* g, const float2* stack, const float* a, const float* ph, long long obj_bs,
     const float2* h, float2* scratch, float2* work, float2* kscr, float2* dh_part, float2* dh,
-    float* da, float* dph, float2* dpsi0, int B, int pmode, int n_seg, int sg, int logn,
+    float* da, float* dph, float2* dpsi0, int B, int pmode, int n_seg, int sg, int n,
     int h_shared, int last_mega, void* stream) {
-  Chain c = make_chain(B, pmode, logn, h, h_shared, stream);
+  auto c = make_chain(B, pmode, n, h, h_shared, stream);
   if (sg < 1 || n_seg < 1) return static_cast<int>(cudaErrorInvalidValue);
   REGFFT_TRY(c.init());
   return static_cast<int>(chain_bwd(c, g, stack, n_seg * c.field_bs, a, ph, obj_bs, scratch,
@@ -675,19 +1141,35 @@ int PTYRAD_ENTRY(ptyrad_chain_stack_bwd)(
                                     last_mega != 0));
 }
 
-// The set-up of N = 2^logn on the current device (prepare): a launch after it
-// does none.
-int PTYRAD_ENTRY(ptyrad_chain_prepare)(int logn) { return static_cast<int>(prepare(logn)); }
+// The set-up of N on the current device (prepare): a launch after it does
+// none.
+int PTYRAD_ENTRY(ptyrad_chain_prepare)(int n) { return static_cast<int>(prepare_n(n)); }
 
 #if !PTYRAD_BF16_OPERANDS
-// The pass plan for N = 2^logn and pmode probe modes, which the card-only
-// tests hold against tests/test_torch_chain_plan.py's: out gets N, E, TL,
-// the number of passes, their radices (0 past the last), rows and columns
-// per block, threads per row and column block, and the two blocks' shared
-// bytes.
-int ptyrad_chain_plan(int logn, int pmode, int* out) {
+#ifdef PTYRAD_MIXED_LINE
+// The mixed plan for pmode probe modes, which the card-only tests hold
+// against ops/chain_plan.py's ChainPlan.reported: out gets N, E, T, the
+// passes, the stages, rows and columns per block, threads per row and
+// column block, the two blocks' shared bytes, the padded row and its shift.
+int ptyrad_chain_plan(int n, int pmode, int* out) {
+  using P = MPlan;
+  if (pmode < 1 || n != P::kN) return static_cast<int>(cudaErrorInvalidValue);
+  const int g = P::groups(pmode);
+  const int v[] = {P::kN, P::kE, P::kTl, MLine::kPasses, MLine::kStages, P::kRows, P::kCols,
+                   32 * g, P::kColThreads, static_cast<int>(P::row_smem(g)),
+                   static_cast<int>(P::kColSmem), P::kLine, P::kPad};
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  return 0;
+}
+#else
+// The pass plan for N (a power of two) and pmode probe modes, which the
+// card-only tests hold against tests/test_torch_chain_plan.py's: out gets
+// N, E, TL, the number of passes, their radices (0 past the last), rows and
+// columns per block, threads per row and column block, and the two blocks'
+// shared bytes.
+int ptyrad_chain_plan(int n, int pmode, int* out) {
   if (pmode < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_logn<kMaxLogN>(logn, [&](auto L) -> cudaError_t {
+  return static_cast<int>(with_logn<kMaxLogN>(logn_of(n), [&](auto L) -> cudaError_t {
     using P = Plan<decltype(L)::value>;
     const int g = P::groups(pmode);
     const int v[] = {P::kN, P::kE, P::kTl, P::kPasses, P::kR0, P::kPasses > 1 ? P::kR1 : 0,
@@ -698,6 +1180,7 @@ int ptyrad_chain_plan(int logn, int pmode, int* out) {
     return cudaSuccess;
   }));
 }
+#endif  // PTYRAD_MIXED_LINE
 #endif  // !PTYRAD_BF16_OPERANDS
 
 }  // extern "C"

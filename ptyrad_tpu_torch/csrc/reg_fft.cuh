@@ -1,9 +1,10 @@
 // Register line transforms of the chain kernels: chain.cu (B5, B6) runs the
-// Stockham passes (line_fft), multislice.cu (B3, B4) the radix-2 pair
-// (line_dif, line_dit, below) at N a power of two and the mixed-radix pair
-// (line_dif_mr, line_dit_mr, further below) at any other N up to 128. The
-// first three share the line layout (LinePlan), the twiddle table, the
-// exchange policies and the set-up.
+// Stockham passes (line_fft) at N a power of two, multislice.cu (B3, B4) the
+// radix-2 pair (line_dif, line_dit, below) there; both run the mixed-radix
+// pair (line_dif_mr, line_dit_mr, further below) at any other N, up to 128
+// in multislice.cu and in (128, 512] in chain.cu. The first three share the
+// line layout (LinePlan), the twiddle table, the exchange policies and the
+// set-up.
 //
 // An N-point line (N = 2 ... 512, a power of two) is held by TL = N / E
 // threads, E = 16 points each (N itself below 16), thread t holding
@@ -186,7 +187,11 @@ struct RowExchange {
   __device__ __forceinline__ void sync() const { __syncwarp(); }
 };
 
-// The column tile: element a of column c at s[a * cols + c].
+// The column tile: element a of column c at s[a * cols + c]. It serves a
+// mixed-radix line too (chain.cu's mixed build: 16 columns of T threads):
+// each thread stores and loads its own column's slots only, so a column
+// past N (its threads idle) writes nothing another column reads, and a
+// half-warp's 16 columns of one row are 128 adjacent bytes.
 template <int LOGC>
 struct ColExchange {
   float2* s;
@@ -371,9 +376,11 @@ __device__ __forceinline__ void line_dit(float2 (&v)[LinePlan<LOGN>::kE], int t,
   });
 }
 
-// The mixed-radix pair of B3/B4 (multislice.cu), N <= 128 not a power of
-// two (ptyrad_tpu_torch/ops/fused_plan.py chooses the plan and documents
-// it; multislice.cu is built once per such N with it as macros). The
+// The mixed-radix pair of B3/B4 (multislice.cu, N <= 128) and of B5/B6
+// (chain.cu, N in (128, 512]) at N that is not a power of two
+// (ptyrad_tpu_torch/ops/fused_plan.py and ops/chain_plan.py choose the
+// plans and document them; the file is built once per such N with its
+// plan as macros). The
 // N-point transform is an in-place decimation in frequency with one stage
 // per prime factor of N; the inverse is its conjugate transpose, stage by
 // stage backwards (conjugate twiddles first, then the conjugate
@@ -394,7 +401,7 @@ __device__ __forceinline__ void line_dit(float2 (&v)[LinePlan<LOGN>::kE], int t,
 // layout of a line's points. Registers past a pass's, and slots past its
 // cosets, hold nothing (ok() is false there).
 
-constexpr int kMaxMixedN = 128;
+constexpr int kMaxMixedN = 512;
 // exp(-2 pi i e / N) for e < N of the including file's mixed-radix N
 // (upload_mixed): every twiddle of the pair, W_M^x = W_N^(x N / M)
 __device__ float2 g_mixed[kMaxMixedN];

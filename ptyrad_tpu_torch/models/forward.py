@@ -12,12 +12,13 @@ N <= 128). Otherwise the solver takes ``forward`` + ``combined_loss``.
 ``forward`` dispatches as the JAX package does, on both devices
 (``forward_route``, from the static shapes before any work): the plain
 fused chain (``multislice_dp_fused``, kernel B4 on CUDA) for the fused
-kernels' shapes, looped over object modes; else the segmented chain
-(``multislice_dp_chain``, B5/B6) for square patches of N a power of two up
-to 512; else ``multislice_dp``, the eager torch.fft chain, the counterpart
-of the JAX package's XLA path (and the kernels' oracle), on the CPU and the
-card alike: N that is not a power of two (96, 120, ...), non-square patches
-or N > 512. ``model_params.fwd_fused: false`` takes that route for every
+kernels' shapes (every square N up to 128), looped over object modes; else
+the segmented chain (``multislice_dp_chain``, B5/B6) for square patches of
+N up to 512 (256 and 512 through chain.cu's power-of-two plans, any other N
+in (128, 512] through its mixed-radix build); else ``multislice_dp``, the
+eager torch.fft chain, the counterpart of the JAX package's XLA path (and
+the kernels' oracle), on the CPU and the card alike: non-square patches or
+N > 512. ``model_params.fwd_fused: false`` takes that route for every
 shape and turns ``fused_loss_terms`` off, as in the JAX package. On the CPU
 each route runs its plain torch.fft version, so the CPU tests cover the
 dispatch the card runs.
@@ -162,11 +163,13 @@ def _batch_shapes(params: PtychoParams, geom: Geometry, indices: torch.Tensor):
 
 def forward_route(params: PtychoParams, geom: Geometry, indices: torch.Tensor) -> str:
     """Which chain forward() runs for a batch, decided from the static
-    geometry on either device: "fused" (multislice_dp_fused, B4 on CUDA),
-    "chain" (multislice_dp_chain, B5/B6) or "plain" (multislice_dp, the
-    eager torch.fft chain of the JAX package's XLA path) when fwd_fused is
-    off or the shapes fit neither kernel rule (ptyrad_tpu/models/forward.py:
-    155-221)."""
+    geometry on either device: "fused" (multislice_dp_fused, B4 on CUDA:
+    every square N <= 128), "chain" (multislice_dp_chain, B5/B6: every
+    square N in (128, 512], a power of two or not) or "plain"
+    (multislice_dp, the eager torch.fft chain of the JAX package's XLA
+    path) when fwd_fused is off or the shapes fit neither kernel rule
+    (ptyrad_tpu/models/forward.py:155-221): non-square patches, N > 512, or
+    an H batch neither 1 nor B."""
     if not geom.fwd_fused:
         return "plain"
     b, omode, nz, ny, nx, probe_b, pmode, h_b = _batch_shapes(params, geom, indices)

@@ -14,14 +14,17 @@ the package needs no nvcc. A failed build raises. Every launch goes through
 ctypes launch runs in the current device's context, whatever stream it is
 handed) and costs one device query when it already is.
 
-The fused chain kernels (B3/B4) at N that is not a power of two come from a
-library of their own for each such N (``fused_lib``): ``multislice.cu`` and
-its ``_bf16`` twin compiled with the mixed-radix plan of
-``ops/fused_plan.py`` (two generated sources that define it and include
-the kernel file), by two nvcc processes started together, at the first use
-of that N (``launch(..., n=N)``, or ``fused_multislice.prepare`` ahead of
-it). Its name carries the same hash plus the generated sources';
-``build(extra_n=...)`` starts those builds beside the main library's.
+At N that is not a power of two the chain kernels come from a library of
+their own for each such N (``mixed_lib``): up to 128 the fused kernels
+(B3/B4), ``multislice.cu`` and its ``_bf16`` twin compiled with the
+mixed-radix plan of ``ops/fused_plan.py``; in (128, 512] the segmented
+chain (B5/B6), ``chain.cu`` and its twin with the plan of
+``ops/chain_plan.py``. Two generated sources define the plan and include
+the kernel file, and two nvcc processes started together compile them, at
+the first use of that N (``launch(..., n=N)``, or ``prepare`` of
+``fused_multislice`` or ``chain`` ahead of it). The library's name carries
+the same hash plus the generated sources'; ``build(extra_n=...)`` starts
+those builds beside the main library's.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from pathlib import Path
 
 import torch
 
+from ptyrad_tpu_torch.ops import chain_plan
 from ptyrad_tpu_torch.ops.fused_plan import is_pow2, plan_source
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -84,14 +88,19 @@ BF16_VARIANTS = ("ptyrad_chain_segment_fwd", "ptyrad_chain_segment_bwd",
                  "ptyrad_fused_prepare", "ptyrad_dp_fwd", "ptyrad_dp_bwd", "ptyrad_loss_fwd",
                  "ptyrad_loss_bwd")
 
-# the entry points of a mixed-radix library (fused_lib)
+# the entry points of a mixed-radix library (mixed_lib): the fused kernels'
+# at N <= 128, the segmented chain's above
 FUSED_ENTRIES = ("ptyrad_dp_fwd", "ptyrad_dp_bwd", "ptyrad_loss_fwd", "ptyrad_loss_bwd",
                  "ptyrad_fused_prepare", "ptyrad_fused_plan")
+CHAIN_ENTRIES = ("ptyrad_chain_segment_fwd", "ptyrad_chain_segment_bwd",
+                 "ptyrad_chain_stack_fwd", "ptyrad_chain_stack_bwd", "ptyrad_chain_prepare",
+                 "ptyrad_chain_plan")
+PLAN_ENTRIES = ("ptyrad_fused_plan", "ptyrad_chain_plan")  # no _bf16 twin
 
 _LIB = None
-_FUSED = {}  # N -> the loaded mixed-radix library
+_MIXED = {}  # N -> the loaded mixed-radix library
 BUILD_SECONDS = None  # wall time of the build this process ran (None: cached)
-FUSED_BUILD_SECONDS = {}  # N -> seconds of the mixed-radix build this process ran
+MIXED_BUILD_SECONDS = {}  # N -> seconds of the mixed-radix build this process ran
 
 
 def _nvcc() -> str:
@@ -119,9 +128,10 @@ class _Job:
     """One library's build: its nvcc processes, started at once, then the
     link (finish)."""
 
-    def __init__(self, out: Path, sources=SOURCES, generated=None):
+    def __init__(self, out: Path, sources=SOURCES, generated=None, nice: int = 0):
         """sources: files of csrc/; generated: {file name: text} of
-        sources written into the build's directory (they include csrc/)."""
+        sources written into the build's directory (they include csrc/);
+        nice: the compiles' niceness increment."""
         self.out, self.t0, self.compiled_at = out, time.perf_counter(), None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -136,7 +146,8 @@ class _Job:
             self.objs.append(str(obj))
             self.procs.append((path.name, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(path), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                preexec_fn=(lambda: os.nice(nice)) if nice else None)))
 
     def compiled(self) -> bool:
         """Whether every compile has ended (the first time: when)."""
@@ -166,33 +177,50 @@ class _Job:
         return self.compiled_at - self.t0 + time.perf_counter() - t_link
 
 
-def _fused_sources(n: int) -> dict:
+def _mixed_kind(n: int) -> str:
+    """Which kernels N's mixed-radix library holds: "fused" (B3/B4, N <=
+    128) or "chain" (B5/B6, N in (128, 512])."""
+    if chain_plan.takes(n):
+        return "chain"
+    if 2 <= n <= 128 and not is_pow2(n):
+        return "fused"
+    raise ValueError(f"no mixed-radix library for N = {n}: N <= 512 and not a power of two")
+
+
+def _mixed_sources(n: int) -> dict:
     """The two generated sources of N's mixed-radix library (float32, _bf16)."""
+    if _mixed_kind(n) == "chain":
+        return {f"chain_n{n}.cu": chain_plan.plan_source(n),
+                f"chain_n{n}_bf16.cu": chain_plan.plan_source(n, bf16_operands=True)}
     return {f"multislice_n{n}.cu": plan_source(n),
             f"multislice_n{n}_bf16.cu": plan_source(n, bf16_operands=True)}
 
 
-def _fused_path(n: int) -> Path:
-    return BUILD_DIR / f"libptyrad_fused_n{n}_{_key(tuple(_fused_sources(n).values()))}.so"
+def _mixed_path(n: int) -> Path:
+    key = _key(tuple(_mixed_sources(n).values()))
+    return BUILD_DIR / f"libptyrad_{_mixed_kind(n)}_n{n}_{key}.so"
 
 
 def build(extra_n=()) -> Path:
     """Compile the sources (one nvcc per file, in parallel) and link the
     shared library; returns its path. Reuses a library built from the same
     sources. ``extra_n``: N that are not powers of two whose mixed-radix
-    libraries (fused_lib) build at the same time, beside it."""
+    libraries (mixed_lib) build at the same time, beside it."""
     global BUILD_SECONDS
     out = BUILD_DIR / f"libptyrad_kernels_{_key()}.so"
     main = None if out.exists() else _Job(out)
-    extra = {n: _Job(_fused_path(n), (), _fused_sources(n))
-             for n in dict.fromkeys(extra_n) if not _fused_path(n).exists()}
+    # beside the main build the mixed-radix ones yield the cores to it: its
+    # unrolled multislice.cu compiles are the longest (about 110 s alone on
+    # an H100 host's CPU)
+    extra = {n: _Job(_mixed_path(n), (), _mixed_sources(n), nice=10 if main else 0)
+             for n in dict.fromkeys(extra_n) if not _mixed_path(n).exists()}
     jobs = [job for job in (main, *extra.values()) if job is not None]
     while not all([job.compiled() for job in jobs]):  # each build's own end
         time.sleep(0.1)
     if main is not None:
         BUILD_SECONDS = main.finish()
     for n, job in extra.items():
-        FUSED_BUILD_SECONDS[n] = job.finish()
+        MIXED_BUILD_SECONDS[n] = job.finish()
     return out
 
 
@@ -212,21 +240,22 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def fused_lib(n: int) -> ctypes.CDLL:
-    """The loaded mixed-radix library of B3/B4 at N (not a power of two),
-    built on first call: its entry points take that N alone."""
-    if n not in _FUSED:
-        path = _fused_path(n)
+def mixed_lib(n: int) -> ctypes.CDLL:
+    """The loaded mixed-radix library at N (not a power of two, at most
+    512): B3/B4's up to 128, B5/B6's above; built on first call. Its entry
+    points take that N alone."""
+    if n not in _MIXED:
+        path = _mixed_path(n)
         if not path.exists():
-            FUSED_BUILD_SECONDS[n] = _Job(path, (), _fused_sources(n)).finish()
+            MIXED_BUILD_SECONDS[n] = _Job(path, (), _mixed_sources(n)).finish()
         handle = ctypes.CDLL(str(path))
-        for name in FUSED_ENTRIES:
-            for suffix in ("", "_bf16") if name != "ptyrad_fused_plan" else ("",):
+        for name in CHAIN_ENTRIES if _mixed_kind(n) == "chain" else FUSED_ENTRIES:
+            for suffix in ("", "_bf16") if name not in PLAN_ENTRIES else ("",):
                 fn = getattr(handle, name + suffix)
                 fn.argtypes = list(SIGNATURES[name])
                 fn.restype = ctypes.c_int
-        _FUSED[n] = handle
-    return _FUSED[n]
+        _MIXED[n] = handle
+    return _MIXED[n]
 
 
 def ptr(t) -> int | None:
@@ -241,11 +270,11 @@ def launch(name: str, t: torch.Tensor, *args, stream: bool = True,
     ``bf16_operands``, BF16_VARIANTS) with ``args`` and (unless ``stream``
     is False) the current stream of ``t``'s device last, with that device
     current: under ``torch.cuda.device`` when another one is current. Raise
-    if it returns a CUDA error code. ``n``: the fused kernels' N, whose
-    launcher comes from fused_lib(n) when N is not a power of two."""
+    if it returns a CUDA error code. ``n``: the kernels' N, whose launcher
+    comes from mixed_lib(n) when N is not a power of two."""
     if bf16_operands:
         name += "_bf16"
-    fn = getattr(lib() if n is None or is_pow2(n) else fused_lib(n), name)
+    fn = getattr(lib() if n is None or is_pow2(n) else mixed_lib(n), name)
     index = t.device.index
     guard = nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index)
     with guard:

@@ -31,9 +31,16 @@ also returns its cotangent dH in H's shape; autograd sums the calls'.
 On a CPU tensor every wrapper runs its plain version (torch.fft under
 autograd). On a CUDA tensor it launches the hand-written kernels of
 ``csrc/chain.cu`` (B5b and B6b compute dH only when autograd asks for it)
-or raises. The kernels move the field through device memory in a row pass
-and a column pass per slice; tests/test_torch_chain_plan.py emulates how
-each pass transforms its lines.
+or raises. The kernels take every square N that is a power of two up to
+512 (chain.cu's Stockham plans, in the main library) or lies in (128, 512]
+(the mixed-radix pair with the plan of ``ops/chain_plan.py``, a library of
+its own per N, built at its first use or by ``prepare``). They move the
+field through device memory in a row pass and a column pass per slice;
+tests/test_torch_chain_plan.py and tests/test_torch_chain_mixed_plan.py
+emulate how each pass transforms its lines. At a mixed N the transforms
+leave the spectra in the plan's digit-reversed order, so the kernels take
+H gathered with its permutation on both axes (``kernel_h``, under
+autograd: dH comes back in natural order through the gather's adjoint).
 
 ``bf16_operands`` (the bfloat16 compute policy, models/state.py) rounds the
 operand of every 1-D transform pass to bfloat16, forward and adjoint, the
@@ -48,24 +55,55 @@ from __future__ import annotations
 
 import torch
 
-from ptyrad_tpu_torch.ops import _build
+from ptyrad_tpu_torch.ops import _build, chain_plan
 from ptyrad_tpu_torch.ops.fourier import fft2, fftshift2, ifft2
+from ptyrad_tpu_torch.ops.fused_plan import is_pow2
 
-MAX_N = 512   # the kernels' transform plans go up to three passes of 16, 16, 2
+MAX_N = 512   # the power-of-two plans go up to three passes of 16, 16, 2; the mixed ones to 511
 MAX_SG = 8    # the JAX planner's search range (pallas_chain.py:1236)
+
+
+def takes_n(n: int) -> bool:
+    """Whether the kernels take N-point lines: N a power of two in [2, 512]
+    or any N in (128, 512]."""
+    return (2 <= n <= MAX_N and is_pow2(n)) or chain_plan.takes(n)
+
+
+def _size_error(what: str, n: int) -> ValueError:
+    return ValueError(f"{what}: N must be a power of two in [2, {MAX_N}] or lie in "
+                      f"({chain_plan.MIN_N - 1}, {MAX_N}], got {n}")
 
 
 def prepare(device, n: int) -> None:
     """Do the kernels' one-time set-up for N-point fields on a CUDA device
-    (the twiddle table and the blocks' shared-memory limits). The first
-    launch at each N does it otherwise; after it no launch does any, so call
-    it for every N before capturing launches in a CUDA graph."""
-    if not (2 <= n <= MAX_N and not n & (n - 1)):
-        raise ValueError(f"prepare: N must be a power of two in [2, {MAX_N}], got {n}")
+    (the twiddle tables and the blocks' shared-memory limits; at a mixed N
+    first the build of its library). The first launch at each N does it
+    otherwise; after it no launch does any, so call it for every N before
+    capturing launches in a CUDA graph."""
+    if not takes_n(n):
+        raise _size_error("prepare", n)
     t = torch.empty(0, device=device)
     for bf16 in (False, True):  # the float32 and the bfloat16-operand kernels
-        _build.launch("ptyrad_chain_prepare", t, n.bit_length() - 1, stream=False,
-                      bf16_operands=bf16)
+        _build.launch("ptyrad_chain_prepare", t, n, stream=False, bf16_operands=bf16, n=n)
+
+
+_PERMS = {}  # (N, device) -> the mixed plan's permutation on the device
+
+
+def kernel_h(h):
+    """H (1 or B, N, N) as the kernels take it: as given at N a power of two
+    (natural order in and out of every transform); at a mixed N gathered
+    with the plan's permutation on both axes, H[:, perm][:, :, perm], where
+    the transforms leave frequency perm[p] at position p. Differentiable:
+    the gather's adjoint puts the kernels' dH back in natural order."""
+    n = h.shape[-1]
+    if is_pow2(n):
+        return h
+    key = (n, h.device)
+    if key not in _PERMS:
+        _PERMS[key] = torch.as_tensor(chain_plan.chain_plan(n).perm, device=h.device)
+    perm = _PERMS[key]
+    return h.index_select(-2, perm).index_select(-1, perm)
 
 
 # In-kernel far-field exit of the chain's tail (pallas_chain.py:734). Off by
@@ -85,10 +123,12 @@ def set_far_field(flag: bool, silent: bool = False) -> None:
 
 def chain_applicable_shapes(b, omode, nz, ny, nx, pmode, h_b) -> bool:
     """The card's rule for what the chain kernels take: square N x N with N
-    a power of two up to 512 (chain.cu's plans) and a shared or per-position
-    propagator. Any omode (multislice_dp_chain loops object modes), any nz
-    (that is the point), any pmode."""
-    return ny == nx and 2 <= nx <= MAX_N and not nx & (nx - 1) and h_b in (1, b)
+    a power of two up to 512 or any N in (128, 512] (takes_n), and a shared
+    or per-position propagator. Any omode (multislice_dp_chain loops object
+    modes), any nz (that is the point), any pmode. N <= 128 that is not a
+    power of two is left out: no route reaches it, since the fused kernels
+    take every square N up to 128 first."""
+    return ny == nx and takes_n(nx) and h_b in (1, b)
 
 
 def best_sg(nz: int) -> int:
@@ -145,12 +185,12 @@ def _check_uniform(nz_main: int, sg: int) -> None:
 # -- the CUDA kernels ---------------------------------------------------------
 
 def _dims(psi, a, p, h, nslices):
-    """Validate the kernels' operands; returns (B, pmode, logn, h_shared)."""
+    """Validate the kernels' operands; returns (B, pmode, N, h_shared)."""
     if psi.dim() != 4 or psi.shape[-1] != psi.shape[-2]:
         raise ValueError(f"psi must be (B, pmode, N, N), got {tuple(psi.shape)}")
     b, pmode, n, _ = psi.shape
-    if n > MAX_N or n < 2 or n & (n - 1):
-        raise ValueError(f"the chain kernels take N a power of two <= {MAX_N}; got {n}")
+    if not takes_n(n):
+        raise _size_error("the chain kernels", n)
     for name, t, dtype in (("psi", psi, torch.complex64), ("h", h, torch.complex64),
                            ("a", a, torch.float32), ("phi", p, torch.float32)):
         if t.device.type != "cuda" or t.dtype != dtype:
@@ -168,7 +208,7 @@ def _dims(psi, a, p, h, nslices):
             raise ValueError(f"chain kernels: {name} must be (B, {nslices}, N, N) with "
                              f"contiguous slices and a's batch stride, got shape "
                              f"{tuple(t.shape)} strides {t.stride()}")
-    return b, pmode, n.bit_length() - 1, int(h.shape[0] == 1)
+    return b, pmode, n, int(h.shape[0] == 1)
 
 
 def _bwd_scratch(g, sg, h, need_dh):
@@ -183,35 +223,49 @@ def _bwd_scratch(g, sg, h, need_dh):
     return scratch, work, field(sg), torch.empty_like(g), torch.empty_like(h)
 
 
-def _count_bwd(fn, d_h, bf16_operands: bool) -> None:
+def _count_n(fn, n: int, **flags) -> None:
+    """At a mixed N, launches_n<N> counts fn's launches at that N (its own
+    library's kernels) and launches_n<N>_<flag> those with each flag set
+    (dh, ff, bf16)."""
+    if is_pow2(n):
+        return
+    for key in [f"launches_n{n}"] + [f"launches_n{n}_{k}" for k, on in flags.items() if on]:
+        setattr(fn, key, getattr(fn, key, 0) + 1)
+
+
+def _count_bwd(fn, d_h, bf16_operands: bool, n: int, far_field: bool = False) -> None:
     """One launch of a backward; launches_dh counts those that computed dH,
-    launches_bf16 those with bfloat16 operands, launches_bf16_dh both."""
+    launches_bf16 those with bfloat16 operands, launches_bf16_dh both; per
+    mixed N as _count_n."""
     fn.launches += 1
     if d_h is not None:
         fn.launches_dh += 1
     if bf16_operands:
         fn.launches_bf16 += 1
         fn.launches_bf16_dh += d_h is not None
+    _count_n(fn, n, dh=d_h is not None, ff=far_field, bf16=bf16_operands)
 
 
 def segment_fwd_cuda(psi, a_seg, p_seg, h, last: bool, far_field: bool = False,
                      bf16_operands: bool = False):
     """Kernel B5a: the segment's exit wavefield, or with ``far_field`` its
-    centred spectrum. launches_ff counts the launches that took the exit,
-    launches_bf16 those with bfloat16 operands, launches_ff_bf16 both."""
+    centred spectrum; h as kernel_h gives it. launches_ff counts the
+    launches that took the exit, launches_bf16 those with bfloat16 operands,
+    launches_ff_bf16 both; per mixed N as _count_n."""
     _check_far_field(far_field, last)
     sg = a_seg.shape[1]
-    b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
+    b, pmode, n, h_shared = _dims(psi, a_seg, p_seg, h, sg)
     out = torch.empty_like(psi)
     _build.launch(
         "ptyrad_chain_segment_fwd", psi,
         psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0), h.data_ptr(),
-        out.data_ptr(), b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)),
-        bf16_operands=bf16_operands)
+        out.data_ptr(), b, pmode, sg, n, h_shared, int(bool(last)), int(bool(far_field)),
+        bf16_operands=bf16_operands, n=n)
     segment_fwd_cuda.launches += 1
     segment_fwd_cuda.launches_ff += bool(far_field)
     segment_fwd_cuda.launches_bf16 += bool(bf16_operands)
     segment_fwd_cuda.launches_ff_bf16 += bool(far_field and bf16_operands)
+    _count_n(segment_fwd_cuda, n, ff=far_field, bf16=bf16_operands)
     return out
 
 
@@ -222,10 +276,11 @@ segment_fwd_cuda.launches_bf16 = segment_fwd_cuda.launches_ff_bf16 = 0
 def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False,
                      far_field: bool = False, bf16_operands: bool = False):
     """Kernel B5b: from the exit cotangent g (of the centred spectrum with
-    ``far_field``), (d psi, d a_seg, d p_seg, d h), d h None unless need_dh."""
+    ``far_field``), (d psi, d a_seg, d p_seg, d h), d h None unless need_dh
+    (in h's order: h as kernel_h gives it)."""
     _check_far_field(far_field, last)
     sg = a_seg.shape[1]
-    b, pmode, logn, h_shared = _dims(psi, a_seg, p_seg, h, sg)
+    b, pmode, n, h_shared = _dims(psi, a_seg, p_seg, h, sg)
     if tuple(g.shape) != tuple(psi.shape) or g.dtype != psi.dtype or not g.is_contiguous():
         raise ValueError("segment_bwd_cuda: g must be a contiguous tensor like psi")
     scratch, work, kscr, dh_part, d_h = _bwd_scratch(g, sg, h, need_dh)
@@ -237,9 +292,9 @@ def segment_bwd_cuda(g, psi, a_seg, p_seg, h, last: bool, need_dh: bool = False,
         g.data_ptr(), psi.data_ptr(), a_seg.data_ptr(), p_seg.data_ptr(), a_seg.stride(0),
         h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
         _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi.data_ptr(),
-        b, pmode, sg, logn, h_shared, int(bool(last)), int(bool(far_field)),
-        bf16_operands=bf16_operands)
-    _count_bwd(segment_bwd_cuda, d_h, bf16_operands)
+        b, pmode, sg, n, h_shared, int(bool(last)), int(bool(far_field)),
+        bf16_operands=bf16_operands, n=n)
+    _count_bwd(segment_bwd_cuda, d_h, bf16_operands, n, far_field)
     if far_field:  # launches_ff: the exit's adjoint ran; launches_ff_dh: with dH too
         segment_bwd_cuda.launches_ff += 1
         segment_bwd_cuda.launches_ff_dh += d_h is not None
@@ -253,21 +308,23 @@ segment_bwd_cuda.launches_bf16 = segment_bwd_cuda.launches_bf16_dh = 0
 
 def stack_fwd_cuda(psi0, a_main, p_main, h, sg: int, last_mega: bool,
                    bf16_operands: bool = False):
-    """Kernel B6a: (exit wavefield, segment-entry stack (B, S, pmode, N, N))."""
+    """Kernel B6a: (exit wavefield, segment-entry stack (B, S, pmode, N, N));
+    h as kernel_h gives it."""
     nz_main = a_main.shape[1]
     _check_uniform(nz_main, sg)
-    b, pmode, logn, h_shared = _dims(psi0, a_main, p_main, h, nz_main)
+    b, pmode, n, h_shared = _dims(psi0, a_main, p_main, h, nz_main)
     n_seg = nz_main // sg
     stack = torch.empty((b, n_seg, *psi0.shape[1:]), dtype=psi0.dtype, device=psi0.device)
     out = torch.empty_like(psi0)
     _build.launch(
         "ptyrad_chain_stack_fwd", psi0,
         psi0.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0), h.data_ptr(),
-        stack.data_ptr(), out.data_ptr(), b, pmode, n_seg, sg, logn, h_shared,
+        stack.data_ptr(), out.data_ptr(), b, pmode, n_seg, sg, n, h_shared,
         int(bool(last_mega)),
-        bf16_operands=bf16_operands)
+        bf16_operands=bf16_operands, n=n)
     stack_fwd_cuda.launches += 1
     stack_fwd_cuda.launches_bf16 += bool(bf16_operands)
+    _count_n(stack_fwd_cuda, n, bf16=bf16_operands)
     return out, stack
 
 
@@ -283,7 +340,7 @@ def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool,
     n_seg = nz_main // sg
     if stack.dim() != 5 or stack.shape[1] != n_seg or not stack.is_contiguous():
         raise ValueError(f"stack_bwd_cuda: stack must be a contiguous (B, {n_seg}, pmode, N, N)")
-    b, pmode, logn, h_shared = _dims(g, a_main, p_main, h, nz_main)
+    b, pmode, n, h_shared = _dims(g, a_main, p_main, h, nz_main)
     if tuple(stack[:, 0].shape) != tuple(g.shape) or stack.dtype != g.dtype:
         raise ValueError("stack_bwd_cuda: each stack entry must be shaped like g")
     scratch, work, kscr, dh_part, d_h = _bwd_scratch(g, sg, h, need_dh)
@@ -295,9 +352,9 @@ def stack_bwd_cuda(g, stack, a_main, p_main, h, sg: int, last_mega: bool,
         g.data_ptr(), stack.data_ptr(), a_main.data_ptr(), p_main.data_ptr(), a_main.stride(0),
         h.data_ptr(), scratch.data_ptr(), work.data_ptr(), _build.ptr(kscr),
         _build.ptr(dh_part), _build.ptr(d_h), d_a.data_ptr(), d_p.data_ptr(), d_psi0.data_ptr(),
-        b, pmode, n_seg, sg, logn, h_shared, int(bool(last_mega)),
-        bf16_operands=bf16_operands)
-    _count_bwd(stack_bwd_cuda, d_h, bf16_operands)
+        b, pmode, n_seg, sg, n, h_shared, int(bool(last_mega)),
+        bf16_operands=bf16_operands, n=n)
+    _count_bwd(stack_bwd_cuda, d_h, bf16_operands, n)
     return d_psi0, d_a, d_p, d_h
 
 
@@ -349,8 +406,8 @@ def chain_segment(psi, a_seg, p_seg, h, last: bool, far_field: bool = False,
     _check_far_field(far_field, last)
     if psi.device.type == "cpu":
         return chain_segment_plain(psi, a_seg, p_seg, h, last, far_field, bf16_operands)
-    return _SegmentCuda.apply(psi.contiguous(), a_seg, p_seg, h.contiguous(), bool(last),
-                              bool(far_field), bool(bf16_operands))
+    return _SegmentCuda.apply(psi.contiguous(), a_seg, p_seg, kernel_h(h.contiguous()),
+                              bool(last), bool(far_field), bool(bf16_operands))
 
 
 def chain_stack(psi0, a_main, p_main, h, sg: int, last_mega: bool,
@@ -372,8 +429,8 @@ def chain_stack(psi0, a_main, p_main, h, sg: int, last_mega: bool,
         return psi
     if psi0.device.type == "cpu":
         return chain_stack_plain(psi0, a_main, p_main, h, sg, last_mega, bf16_operands)
-    return _StackCuda.apply(psi0.contiguous(), a_main, p_main, h.contiguous(), int(sg),
-                            bool(last_mega), bool(bf16_operands))
+    return _StackCuda.apply(psi0.contiguous(), a_main, p_main, kernel_h(h.contiguous()),
+                            int(sg), bool(last_mega), bool(bf16_operands))
 
 
 def multislice_dp_chain(obja_patches, objp_patches, probes, H, omode_occu, eps: float,

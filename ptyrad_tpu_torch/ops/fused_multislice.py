@@ -32,7 +32,7 @@ in registers: at N a power of two by the radix-2 pair of
 ``csrc/reg_fft.cuh`` (the header the chain kernels share), at any other N
 by its mixed-radix pair, with the plan ``ops/fused_plan.py`` chooses for
 that N, built into a library of its own at the first use of that N
-(``_build.fused_lib``; ``prepare`` builds it ahead).
+(``_build.mixed_lib``; ``prepare`` builds it ahead).
 tests/test_torch_fused_plan.py emulates the kernels' plans.
 
 ``bf16_operands`` (the bfloat16 compute policy, models/state.py) rounds the

@@ -22,7 +22,7 @@ Between two passes the line goes once through its own slots of the field
 each register (the position written in the stages' mixed radix, its digits
 reversed), as the radix-2 pair leaves bitrev. The plan is chosen here and
 handed to nvcc as macros in a generated source (``plan_source``): each N
-has its own build (``ops/_build.fused_lib``) and ``ptyrad_fused_plan``
+has its own build (``ops/_build.mixed_lib``) and ``ptyrad_fused_plan``
 reports what it compiled. Python and NumPy alone: the tests import it
 without a card.
 """
@@ -258,7 +258,15 @@ def wavefronts(plan: MixedPlan) -> tuple:
     p = pos[:, t, :].transpose(0, 2, 1)[:, :, None, :]  # (layouts, E, 1, 32)
     use = ok[:, t, :].transpose(0, 2, 1)[:, :, None, :] & live[None, None]
     addr = y[None, None] * plan.line + pad(p, plan.pad_shift)
-    half = np.sort(np.where(use, addr, -1).reshape(-1, 16), axis=1)  # half-warps
+    return bank_wavefronts(np.where(use, addr, -1))
+
+
+def bank_wavefronts(addr) -> tuple:
+    """(wavefronts, least) of warp accesses of 8-byte elements at element
+    addresses addr (..., 32 lanes; -1 for a lane that does not access): a
+    half-warp at a time, as many as the most distinct elements that share a
+    bank pair, against one per half-warp that has any."""
+    half = np.sort(np.asarray(addr).reshape(-1, 16), axis=1)  # half-warps
     first = half >= 0
     first[:, 1:] &= half[:, 1:] != half[:, :-1]  # each distinct element once
     banks = np.zeros((half.shape[0], 16), int)

@@ -168,7 +168,7 @@ def test_best_sg(nz, sg):
     (512, 1, 4, False, True),
     (1024, 1, 1, False, False),
     (96, 1, 1, True, False),    # not a power of two: the fused kernels' mixed-radix pair
-    (192, 1, 1, False, False),  # not a power of two above 128: neither
+    (192, 1, 1, False, True),   # not a power of two above 128: the chain's mixed-radix build
     (128, 2, 1, False, True),   # probe batch neither 1 nor B
     (256, 4, 2, False, False),  # H batch neither 1 nor B
 ])

@@ -5,7 +5,9 @@ powers, a masked sample, the whole loss-folded path, the plain fused chain
 (B4) and forward() through it with two object modes and detector blur, the
 fused pairs at N that is not a power of two (6, 96, 100, 120, 127: the
 mixed-radix pair), the segmented chain (B5/B6) with `last` / `last_mega` both ways and the
-grad-off route, B5 with the far-field exit (set_far_field) and the route
+grad-off route, its mixed-radix build at N in (128, 512] that is not a
+power of two (one N of each plan kind, and the compiled plans against
+ops/chain_plan.py's), B5 with the far-field exit (set_far_field) and the route
 through it, and short tBL-like, low-dose and PSO-like solver runs, with
 optimizable slice thickness and tilts too, and one from a params file and a
 .raw through the Initializer. Every kernel test runs on a
@@ -275,7 +277,7 @@ def test_fused_kernel_plans_match_fused_plan(dev):
     for n in [1 << logn for logn in range(1, 8)] + [6, 96, 100, 120, 127]:
         M.prepare(dev, n)  # the explicit warm-up (and, not a power of two, the build)
         out = (ctypes.c_int * 14)()
-        lib = _build.lib() if n & (n - 1) == 0 else _build.fused_lib(n)
+        lib = _build.lib() if n & (n - 1) == 0 else _build.mixed_lib(n)
         _build.check(lib.ptyrad_fused_plan(n, out), "ptyrad_fused_plan")
         plan = fused_plan(n)
         assert list(out) == [plan.n, plan.elems, plan.line_threads, plan.line, plan.pad_shift,
@@ -466,10 +468,11 @@ def test_forward_cuda_omode2_blur_matches_cpu(dev):
                                             (192, True)])
 def test_forward_plain_route_cuda_matches_cpu(dev, npix, fwd_fused):
     """forward() where the fused kernels take N = 96 and 120 (their
-    mixed-radix pair, B4a/B4b), where no kernel rule applies (N = 192) or
-    with fwd_fused off (the plain torch.fft chain on the card, counted in
-    forward.launches_plain); the patches through B1/B2; against the CPU,
-    values and gradients at 1e-4 of the largest entry."""
+    mixed-radix pair, B4a/B4b), where the chain takes N = 192 (its
+    mixed-radix build, B5/B6) or with fwd_fused off (the plain torch.fft
+    chain on the card, counted in forward.launches_plain); the patches
+    through B1/B2; against the CPU, values and gradients at 1e-4 of the
+    largest entry."""
     from ptyrad_tpu_torch.models import forward, forward_route, make_model
     from ptyrad_tpu_torch.ops import patches as P
 
@@ -482,13 +485,13 @@ def test_forward_plain_route_cuda_matches_cpu(dev, npix, fwd_fused):
         for _, t in params.named():
             t.requires_grad_(True)
         idx = torch.arange(6, device=d)
-        fused = fwd_fused and npix <= 128
-        assert forward_route(params, geom, idx) == ("fused" if fused else "plain")
+        route = ("fused" if npix <= 128 else "chain") if fwd_fused else "plain"
+        assert forward_route(params, geom, idx) == route
         before = forward.launches_plain, P.gather_cuda.launches, P.scatter_add_cuda.launches
         dp, _ = forward(params, buffers, geom, idx)
         (w.to(d) * dp).sum().backward()
         after = forward.launches_plain, P.gather_cuda.launches, P.scatter_add_cuda.launches
-        assert after[0] - before[0] == (0 if fused else 1)
+        assert after[0] - before[0] == (route == "plain")
         assert (after[1] > before[1] and after[2] > before[2]) == (d != "cpu")
         out[str(d)] = (dp.detach().cpu(), {n: t.grad.cpu() for n, t in params.named()
                                            if t.grad is not None})
@@ -691,7 +694,7 @@ def test_chain_kernel_plans_match_pass_plan(dev):
     for logn, pmode in ((logn, pmode) for logn in range(1, 10) for pmode in (1, 3, 4, 8)):
         C.prepare(dev, 1 << logn)  # the explicit warm-up, at every N
         out = (ctypes.c_int * 13)()
-        _build.check(_build.lib().ptyrad_chain_plan(logn, pmode, out), "ptyrad_chain_plan")
+        _build.check(_build.lib().ptyrad_chain_plan(1 << logn, pmode, out), "ptyrad_chain_plan")
         plan = pass_plan(1 << logn, pmode)
         radices = tuple(r for r in out[4:7] if r)
         assert list(out[:4]) == [plan.n, plan.elems, plan.line_threads, len(plan.radices)]
@@ -722,6 +725,108 @@ def test_chain_kernels_on_each_plan(dev, gen, n, pmode, h_case):
     _chain_grads(out, h_case, lambda x, y, z, w: C.chain_stack_plain(x, y, z, w, sg, True),
                  (psi, a, p, h),
                  lambda g, w, dh: C.stack_bwd_cuda(g, stack, a, p, w, sg, True, need_dh=dh))
+
+
+# N of each kind of mixed plan (ops/chain_plan.py): two register passes
+# (135, 192, 240), three (384), a register pass and a sum pass (136: 8 and
+# 17), two register passes around a sum pass (385: 7, 5, 11), a lone sum
+# pass (509, prime)
+MIXED_NS = [135, 136, 192, 240, 384, 385, 509]
+
+
+def test_chain_mixed_plans_match_chain_plan(dev):
+    """The plan each mixed library compiled (ptyrad_chain_plan) is
+    ops/chain_plan.py's, which tests/test_torch_chain_mixed_plan.py
+    emulates on the CPU."""
+    import ctypes
+
+    from ptyrad_tpu_torch.ops import _build
+    from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.ops.chain_plan import chain_plan
+
+    _build.build(extra_n=MIXED_NS)  # the libraries of every N at once
+    for n in MIXED_NS:
+        C.prepare(dev, n)  # N's library loaded and warmed up
+        for pmode in (1, 3, 4, 8):
+            out = (ctypes.c_int * 13)()
+            _build.check(_build.mixed_lib(n).ptyrad_chain_plan(n, pmode, out), "ptyrad_chain_plan")
+            assert tuple(out) == chain_plan(n).reported(pmode)
+
+
+@pytest.mark.parametrize("n", MIXED_NS)
+@pytest.mark.parametrize("h_case", H_CASES)
+def test_chain_kernels_at_mixed_n(dev, gen, n, h_case):
+    """B5 (last both ways, and with the far-field exit) and B6 (last_mega
+    both ways) of N's mixed build through chain_segment / chain_stack
+    against the plain chain: kernel_h's gather runs under autograd, so dH
+    comes back in natural order and is compared as it is. Every launch is
+    counted at N (launches_n<N>), and the backwards repeat bit for bit."""
+    from ptyrad_tpu_torch.ops import chain as C
+
+    b, pmode, sg = 3, 2, 2
+    psi, a, p, h = _seg_inputs(dev, gen, b, pmode, 2 * sg, n)
+    h, need_dh = _h_case(dev, gen, h, b, n, h_case)
+    before = getattr(C.segment_fwd_cuda, f"launches_n{n}", 0)
+    cases = [(lambda x, y, z, w, last=last, ff=ff: C.chain_segment(x, y[:, :sg + 1],
+                                                                   z[:, :sg + 1], w, last, ff),
+              lambda x, y, z, w, last=last, ff=ff: C.chain_segment_plain(
+                  x, y[:, :sg + 1], z[:, :sg + 1], w, last, ff))
+             for last, ff in ((True, False), (False, False), (True, True))]
+    cases += [(lambda x, y, z, w, lm=lm: C.chain_stack(x, y, z, w, sg, lm),
+               lambda x, y, z, w, lm=lm: C.chain_stack_plain(x, y, z, w, sg, lm))
+              for lm in (True, False)]
+    for kern, plain in cases:
+        g = None
+        grads = []
+        for _ in range(2):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (psi, a, p, h)]
+            leaves[3].requires_grad_(need_dh)
+            out = kern(*leaves)
+            g = torch.randn_like(out) if g is None else g
+            grads.append(torch.autograd.grad(out, leaves[:3 + need_dh], grad_outputs=g,
+                                             materialize_grads=True))
+        for x, y in zip(*grads):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        if need_dh:
+            ref, g_p = _vjp_plain(plain, (psi, a, p, h), g)
+        else:
+            ref, g_p = _vjp_plain(lambda x, y, z: plain(x, y, z, h), (psi, a, p), g)
+        _assert_rel(out, ref, f"exit (N={n})")
+        for name, x, y in zip(("psi", "a", "phi", "h"), grads[0], g_p):
+            _assert_rel(x, y, f"d {name} (N={n})")
+    assert getattr(C.segment_fwd_cuda, f"launches_n{n}") == before + 6
+
+
+@pytest.mark.parametrize("n,nz", [(192, 21), (509, 3)])
+@pytest.mark.parametrize("need_dh", [False, True])
+def test_multislice_dp_chain_cuda_at_mixed_n(dev, gen, n, nz, need_dh):
+    """multislice_dp_chain at a mixed N (B6 over the uniform segments, B5
+    over the tail) against the plain multislice_dp on the same CUDA
+    tensors, values and gradients, H's too with need_dh."""
+    from ptyrad_tpu_torch.models import multislice_dp
+    from ptyrad_tpu_torch.ops import chain as C
+
+    b, pmode = 2, 2
+    obja = 1.0 + 0.05 * torch.randn((b, 1, nz, n, n), generator=gen, device=dev)
+    objp = 0.3 * torch.randn((b, 1, nz, n, n), generator=gen, device=dev)
+    probe = torch.complex(torch.randn((b, pmode, n, n), generator=gen, device=dev),
+                          torch.randn((b, pmode, n, n), generator=gen, device=dev)) / n
+    h = torch.exp(1j * torch.rand((1, n, n), generator=gen, device=dev) * 6.0).to(torch.complex64)
+    occu = torch.ones(1, device=dev)
+    leaves_k = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+    leaves_p = [t.clone().requires_grad_(True) for t in (obja, objp, probe)]
+    h_k, h_p = h.clone().requires_grad_(need_dh), h.clone().requires_grad_(need_dh)
+    before = getattr(C.stack_bwd_cuda, f"launches_n{n}", 0)
+    dp_k = C.multislice_dp_chain(*leaves_k, h_k, occu, 1e-10)
+    dp_p = multislice_dp(*leaves_p, h_p, occu, 1e-10)
+    _assert_rel(dp_k, dp_p, "dp")
+    w = torch.rand(dp_k.shape, generator=gen, device=dev)
+    (w * dp_k).sum().backward()
+    (w * dp_p).sum().backward()
+    names = ("obja", "objp", "probe", "h")[:3 + need_dh]
+    for name, x, y in zip(names, leaves_k + [h_k], leaves_p + [h_p]):
+        _assert_rel(_grad(x), _grad(y), f"d {name}")
+    assert getattr(C.stack_bwd_cuda, f"launches_n{n}", 0) == before + (nz >= 2 * C.best_sg(nz))
 
 
 def test_chain_unsupported_cases_raise(dev, gen):

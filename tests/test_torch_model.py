@@ -121,9 +121,9 @@ def test_forward_raises_off_the_cpu():
     """Outside the CPU (a meta model stands for a CUDA one), forward() takes
     the fused kernels (B4) at their shapes (every N up to 128: 8, and 96
     and 120 through the mixed-radix pair) and the chain kernels at theirs
-    (N = 256); at shapes neither rule takes (N = 192) it no longer raises
-    but routes to the plain torch.fft chain, as the JAX package falls back
-    to its XLA path."""
+    (N = 256, and 192 through chain.cu's mixed-radix build); at shapes
+    neither rule takes (N = 640) it no longer raises but routes to the
+    plain torch.fft chain, as the JAX package falls back to its XLA path."""
     meta = torch.empty((1, 2, 8, 8), device="meta")
     params = PtychoParams(meta, meta, meta, meta, meta, meta)
     idx = torch.arange(3, device="meta")
@@ -136,7 +136,8 @@ def test_forward_raises_off_the_cpu():
     assert forward_route(params, geom(256), idx) == "chain"
     assert forward_route(params, geom(96), idx) == "fused"
     assert forward_route(params, geom(120), idx) == "fused"
-    assert forward_route(params, geom(192), idx) == "plain"
+    assert forward_route(params, geom(192), idx) == "chain"
+    assert forward_route(params, geom(640), idx) == "plain"
 
 
 LOSS_ALL = {

@@ -49,7 +49,7 @@ def _meta_route(n, fwd_fused=True, pmode=2):
 
 @pytest.mark.parametrize("n,route", [(8, "fused"), (128, "fused"), (256, "chain"),
                                      (512, "chain"), (96, "fused"), (120, "fused"),
-                                     (124, "fused"), (192, "plain"), (640, "plain"),
+                                     (124, "fused"), (192, "chain"), (640, "plain"),
                                      (100, "fused"), (127, "fused")])
 def test_every_shape_has_a_route_off_the_cpu(n, route):
     assert _meta_route(n) == route
@@ -116,9 +116,29 @@ def test_cpu_forward_at_any_n_is_the_plain_route(rng, n):
 
 
 @pytest.mark.parametrize("n", [130, 144])
+def test_cpu_forward_at_mixed_n_above_128_is_the_chain_route(rng, n):
+    """Above 128 at N that is not a power of two the chain rule applies (its
+    mixed-radix build on the card): on the CPU its plain versions, equal to
+    the plain route's torch.fft chain (fwd_fused: false, counted in
+    forward.launches_plain) at rtol 1e-5."""
+    init = toy_init(rng, npix=n, canvas=n + 8, nz=2, pmode=1, n_scans=2)
+    idx = torch.arange(2)
+    out = {}
+    for fwd_fused in (True, False):
+        params, buffers, geom = make_model(init, {"fwd_fused": fwd_fused}, device=CPU)
+        before = forward.launches_plain
+        dp, _ = forward(params, buffers, geom, idx)
+        assert forward_route(params, geom, idx) == ("chain" if fwd_fused else "plain")
+        assert forward.launches_plain - before == (0 if fwd_fused else 1)
+        assert dp.shape == (2, n, n) and bool(torch.isfinite(dp).all())
+        out[fwd_fused] = dp
+    torch.testing.assert_close(out[True], out[False], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("n", [520, 640])
 def test_cpu_forward_beyond_the_kernels_is_the_plain_route(rng, n):
-    """Above 128 at N that is not a power of two no kernel rule applies: the
-    plain route, counted in forward.launches_plain."""
+    """Above 512 no kernel rule applies: the plain route, counted in
+    forward.launches_plain."""
     init = toy_init(rng, npix=n, canvas=n + 8, nz=2, pmode=1, n_scans=2)
     params, buffers, geom = make_model(init, None, device=CPU)
     idx = torch.arange(2)
