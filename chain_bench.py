@@ -6,6 +6,10 @@ of this repository on one NVIDIA GPU, in turns.
     python3 chain_bench.py --trees _ab/old . . _ab/old --atomic-b2 _ab/old
     python3 chain_bench.py --trees _ab/parent . . _ab/parent --atomic-b3 _ab/parent \
         --checks check_loss_chain check_dp_chain check_fused_dh --steps tBL
+    python3 chain_bench.py --trees _ab/parent . . _ab/parent --checks check_chain_npo2 \
+        --steps --mixed-n 96 120 127 192 384
+    python3 chain_bench.py --trees _ab/parent . . _ab/parent --checks check_chain_npo2 \
+        --steps --chain-n 130 136 176 495
 
 Each turn is a process of its own. It imports ptyrad_tpu_torch from its tree
 (which builds that tree's kernels at first use) and chip_smoke.py from this
@@ -21,7 +25,11 @@ one, so every tree is timed on the same rows, inputs and steps:
     named in --atomic-b2 is one from before the pair launch, whose B2 summed
     with atomics: its B2 is held at rtol 1e-5 and it has no pair rows; a
     tree named in --atomic-b3 is one from before B3b/B4b's fixed-order
-    reduce, whose repeat check is reported but not required;
+    reduce, whose repeat check is reported but not required; with
+    --chain-n N ..., check_chain_npo2's rows at those N in place of
+    chip_smoke's, each at PSO's widths (B 32, 4 modes, 21 slices: B6 over
+    2 x 8, B5 over the 5-slice tail; no _bf16 rows), their libraries built
+    beside the main one, and each tree's plan at each N (its line type);
   - chip_smoke.propagation_yardstick: B6a's row and column pass
     (torch.profiler);
   - the launch guard's host cost, where the tree has ops._build.launch: us
@@ -36,8 +44,10 @@ one, so every tree is timed on the same rows, inputs and steps:
     step, busy share, and B1's, B2's and the memsets' device ms per step).
 It prints one JSON line per turn, then per tree the median of each number
 over its turns, with the smallest and largest of each step number. With
-more than one tree (and no --checks) it then compiles every tree's csrc/*.cu as the build
-does and compares the kernels' machine code (cuobjdump -sass) with the
+more than one tree (and no --checks, or with --mixed-n) it then compiles
+every tree's csrc/*.cu as the build does, and with --mixed-n N ... the
+generated sources of its mixed-radix libraries at those N (each tree's own
+plans), and compares the kernels' machine code (cuobjdump -sass) with the
 first tree's, kernel by kernel, with the SASS instruction classes (opcode
 before its first dot) of each kernel that differs, in both trees. Needs one
 card; every number goes with the card's name and power limit.
@@ -135,7 +145,7 @@ def step_profile(cs, dev, params: dict, init: dict, path: str, niter: int, n_bat
     return out
 
 
-def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps) -> dict:
+def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps, chain_n=()) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -146,19 +156,29 @@ def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps) -> dict:
     from ptyrad_tpu_torch.device import pin_fp32
     from ptyrad_tpu_torch.ops import _build
     from ptyrad_tpu_torch.ops import chain as C
+    from ptyrad_tpu_torch.ops import chain_plan as CP
 
     assert C.__file__.startswith(os.path.abspath(root)), (C.__file__, root)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     pin_fp32()
     t0 = time.perf_counter()
+    _build.build(extra_n=chain_n)
     _build.lib()
     build_s = time.perf_counter() - t0
+    plans = {}
+    if chain_n:
+        cs.CHAIN_NS = tuple(chain_n)
+        pso = cs.chain_npo2_case(cs.PSO_N192)
+        cs.chain_npo2_case = lambda n: {**pso, "note": f"PSO widths at {n}^2"}
+        plans = {n: next(ln for ln in CP.plan_source(n).splitlines() if "MIXED_LINE" in ln)
+                 for n in chain_n}
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     all_rows = checks is None
     rows = cs.kernel_rows(dev, gen, atomic_b2, atomic_b3, checks or cs.KERNEL_CHECKS)
     ms = {r["name"]: r["ms"] for r in rows}
-    extra = {key: {r["name"]: r[key] for r in rows if key in r} for key in ("host_us", "pair_ms")}
+    extra = {key: {r["name"]: r[key] for r in rows if key in r}
+             for key in ("host_us", "pair_ms", "plain_ms")}
     pass_ms = guard = tbl = pso = None
     if all_rows:
         yard = cs.propagation_yardstick(dev, gen)
@@ -175,8 +195,8 @@ def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps) -> dict:
     if "PSO" in steps:
         pso = step_profile(cs, dev, cs.PSO_PARAMS, cs.pso_dataset(dev), "PSO", cs.PSO_NITER + 1,
                            8)
-    return {"tree": root, "card": cs.gpu_line(), "build_s": build_s, "ms": ms, **extra,
-            "pass_ms": pass_ms, "guard": guard, "tbl_step": tbl, "pso_step": pso}
+    return {"tree": root, "card": cs.gpu_line(), "build_s": build_s, "plans": plans, "ms": ms,
+            **extra, "pass_ms": pass_ms, "guard": guard, "tbl_step": tbl, "pso_step": pso}
 
 
 def _median(values):
@@ -190,21 +210,43 @@ def sass_classes(sass: str) -> dict:
     return dict(collections.Counter(ops).most_common())
 
 
-def machine_code(root: str) -> dict:
-    """{source: {kernel: SASS}} of a tree's csrc/*.cu, each compiled by its
-    own nvcc with the build's flags (in parallel) and read back with
-    cuobjdump; the per-file hash in the anonymous namespace's names is cut
-    out, so that two trees' kernels pair up by name."""
+def mixed_sources(root: str, mixed_n) -> dict:
+    """{file name: text} of the generated sources of a tree's mixed-radix
+    libraries at each N of mixed_n (its own ops/_build._mixed_sources, read
+    in a process of that tree)."""
+    if not mixed_n:
+        return {}
+    code = ("import json, sys; from ptyrad_tpu_torch.ops import _build; "
+            "print(json.dumps({k: v for n in map(int, sys.argv[1:]) "
+            "for k, v in _build._mixed_sources(n).items()}))")
+    out = subprocess.run([sys.executable, "-c", code, *map(str, mixed_n)], cwd=root,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": root})
+    return json.loads(out.stdout)
+
+
+def machine_code(root: str, mixed_n=()) -> dict:
+    """{source: {kernel: SASS}} of a tree's csrc/*.cu and of its mixed-radix
+    libraries' generated sources at mixed_n, each compiled by its own nvcc
+    with the build's flags (in parallel) and read back with cuobjdump; the
+    per-file hash in the anonymous namespace's names is cut out, so that
+    two trees' kernels pair up by name."""
     from ptyrad_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
     csrc = os.path.join(root, "ptyrad_tpu_torch", "csrc")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {name: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", os.path.join(csrc, name),
+        paths = {name: os.path.join(csrc, name) for name in sorted(os.listdir(csrc))
+                 if name.endswith(".cu")}
+        for name, text in mixed_sources(root, mixed_n).items():
+            paths[name] = os.path.join(tmp, name)
+            with open(paths[name], "w", encoding="utf-8") as f:
+                f.write(text)
+        procs = {name: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-I", csrc, "-c", path,
                                          "-o", os.path.join(tmp, name + ".o")],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for name in sorted(os.listdir(csrc)) if name.endswith(".cu")}
+                 for name, path in paths.items()}
         for name, proc in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
@@ -220,11 +262,12 @@ def machine_code(root: str) -> dict:
     return out
 
 
-def compare_machine_code(roots: list) -> dict:
-    """Per later tree and source: how many of its kernels have the first
+def compare_machine_code(roots: list, mixed_n=()) -> dict:
+    """Per later tree and source (csrc/*.cu, and the mixed-radix libraries'
+    generated sources at mixed_n): how many of its kernels have the first
     tree's machine code, the names of those that do not, and the SASS
     classes of those and of the first tree's kernels that have no twin."""
-    codes = [machine_code(root) for root in roots]
+    codes = [machine_code(root, mixed_n) for root in roots]
     report = {}
     for root, code in zip(roots[1:], codes[1:]):
         report[root] = {}
@@ -257,6 +300,12 @@ def main() -> int:
                     help="only these chip_smoke kernel checks (default: every row)")
     ap.add_argument("--steps", nargs="*", default=["tBL", "PSO"], choices=["tBL", "PSO"],
                     help="training steps to profile (default: both)")
+    ap.add_argument("--mixed-n", nargs="+", type=int, default=[], metavar="N",
+                    help="also compare the machine code of the mixed-radix libraries at these N "
+                         "(then even with --checks)")
+    ap.add_argument("--chain-n", nargs="+", type=int, default=[], metavar="N",
+                    help="time check_chain_npo2's rows at these N (PSO widths) in place of "
+                         "chip_smoke's")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -266,7 +315,7 @@ def main() -> int:
             print("chain_bench.py: CUDA is not available", file=sys.stderr)
             return 2
         print(json.dumps(worker(args.worker, bool(args.atomic_b2), bool(args.atomic_b3),
-                                args.checks, args.steps)), flush=True)
+                                args.checks, args.steps, args.chain_n)), flush=True)
         return 0
     turns = []
     for tree in args.trees:
@@ -275,6 +324,7 @@ def main() -> int:
         flags += ["--atomic-b2", tree] if tree in args.atomic_b2 else []
         flags += ["--atomic-b3", tree] if tree in args.atomic_b3 else []
         flags += ["--checks", *args.checks] if args.checks else []
+        flags += ["--chain-n", *map(str, args.chain_n)] if args.chain_n else []
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root, *flags],
                              cwd=root, capture_output=True, text=True)
         sys.stderr.write(out.stderr[-4000:])
@@ -288,7 +338,8 @@ def main() -> int:
     for tree in dict.fromkeys(t["tree"] for t in turns):
         mine = [t for t in turns if t["tree"] == tree]
         summary[tree] = {"turns": len(mine)}
-        for group in ("ms", "host_us", "pair_ms", "pass_ms", "guard", "tbl_step", "pso_step"):
+        for group in ("ms", "plain_ms", "host_us", "pair_ms", "pass_ms", "guard", "tbl_step",
+                      "pso_step"):
             if mine[0][group] is not None:
                 summary[tree][group] = {k: _median(t[group][k] for t in mine)
                                         for k in mine[0][group]}
@@ -298,8 +349,9 @@ def main() -> int:
                                    if mine[0][group] is not None}
     print(json.dumps({"card": turns[0]["card"], "median_by_tree": summary}), flush=True)
     roots = list(dict.fromkeys(os.path.abspath(os.path.join(HERE, t)) for t in args.trees))
-    if len(roots) > 1 and not args.checks:
-        print(json.dumps({"machine_code_vs": roots[0], "trees": compare_machine_code(roots)}))
+    if len(roots) > 1 and (not args.checks or args.mixed_n):
+        print(json.dumps({"machine_code_vs": roots[0],
+                          "trees": compare_machine_code(roots, args.mixed_n)}))
     return 0
 
 

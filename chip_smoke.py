@@ -7,11 +7,12 @@ Phases, one JSON object per line each:
   2. build   - nvcc builds the kernels of ptyrad_tpu_torch/csrc into
                ptyrad_tpu_torch/_build and, beside them, the mixed-radix
                libraries of the fused kernels at N = 96, 120 and 127 and of
-               the segmented chain at N = 192, 384 and 509 (seconds, each),
-               then the chain kernels' one-time set-up for N = 256, 512,
-               192, 384 and 509 (ops.chain.prepare) and the fused kernels'
-               for N = 128, 96, 120 and 127, with the plans they compiled
-               (the chain's mixed plans equal to ops/chain_plan.py's).
+               the segmented chain at N = 192, 254, 384 and 509 (seconds,
+               each), then the chain kernels' one-time set-up for N = 256,
+               512, 192, 254, 384 and 509 (ops.chain.prepare) and the fused
+               kernels' for N = 128, 96, 120 and 127, with the plans they
+               compiled (the chain's mixed plans equal to
+               ops/chain_plan.py's; at 254 and 509 Bluestein lines).
   3. kernels - each kernel against its plain PyTorch version at its main
                path's shapes (B1-B4 at tBL_WSe2's, B5/B6 at PSO's, B1/B2 at
                PSO's too), with its error, tolerance and CUDA-event times
@@ -59,16 +60,16 @@ Phases, one JSON object per line each:
                batch, one sum pass), each at its power-of-two twin's
                tolerance, B3b/B4b run twice bit for bit, and the _bf16 rows
                at 120 by the bf16 gates. Then B5 and B6 of the segmented
-               chain's mixed-radix build (check_chain_npo2): at N = 192
-               (PSO's widths) B5a, B5a with the far-field exit, B5b, B5b
-               with dH (per-position H), B5b with the exit, B6a, B6b, B6b
-               with dH and the _bf16 B5a/B5b/B6a/B6b; at 384 (B = 8) B5a and
-               B5b with and without the exit; at the prime 509 (B 2, 2
-               modes, 3 slices, one sum pass) B5a/B5b with and without the
-               exit, B6a and B6b; each at its power-of-two twin's tolerance
-               (dH against the plain dH gathered with the plan's
-               permutation, as the kernels give it), each backward run twice
-               bit for bit.
+               chain's mixed build (check_chain_npo2): at N = 192 and 254
+               (PSO's widths; 254 = 2 x 127 a Bluestein line) B5a, B5a with
+               the far-field exit, B5b, B5b with dH (per-position H), B5b
+               with the exit, B6a, B6b, B6b with dH and the _bf16
+               B5a/B5b/B6a/B6b; at 384 (B = 8) B5a and B5b with and without
+               the exit; at the prime 509 (B 2, 2 modes, 3 slices, a
+               Bluestein line) B5a/B5b with and without the exit, B6a and
+               B6b; each at its power-of-two twin's tolerance (dH against
+               the plain dH gathered with the plan's permutation, as the
+               kernels give it), each backward run twice bit for bit.
      fused route - forward() (B4a, B4b) and fused_loss_terms (B3a, B3b) at
                N = 96 and 120 (the mixed-radix pair) on the card against
                the CPU, then the same cases with fwd_fused: false through the
@@ -102,7 +103,7 @@ Phases, one JSON object per line each:
                jitter 0.15, simulated probe, positions, object and tilt; every
                key written out), then load_params (validated where pydantic
                imports) -> PtyRADSolver(params, init_rng=RandomState(SEED))
-               -> run(), 3 iterations. Prints which optional host packages
+               -> run(), 2 iterations. Prints which optional host packages
                import, the Initializer's seconds by stage, load_raw's GB/s,
                patterns/s and peak memory. Asserts the native .raw reader
                ran, the mean pattern's max is 1, the probe and object shapes,
@@ -137,7 +138,10 @@ Phases, one JSON object per line each:
                the first iteration's end, patterns/s and each save's
                seconds. Then validate-params (exit 0 on the .json, 1 on a
                copy with a bad key), check-gpu and print-system-info (exit
-               0, naming the card), run at once. cli_mixed_precision: one
+               0, naming the card), run at once. cli_mixed_precision,
+               dist_cli and hypertune_cli run at once, after hypertune (each
+               subprocess spends most of its seconds starting; cli's own
+               start is timed alone). cli_mixed_precision: one
                iteration of ``run --mixed_precision`` in a subprocess: exit
                0, a finite loss, the log naming the policy. dist_cli:
                ``run --multihost --coordinator_address 127.0.0.1:<port>
@@ -154,7 +158,7 @@ Phases, one JSON object per line each:
                "figures: drawing skipped, matplotlib missing".
      hypertune - run_hypertune in process on the same .raw at full width
                with demo/params/tBL_WSe2_hypertune.yml's sections (one
-               slice: B3 at nz = 1): 4 trials of 3 iterations tuning scale
+               slice: B3 at nz = 1): 4 trials of 2 iterations tuning scale
                and rotation, TPE (seed 0, 2 startup trials) and Hyperband
                (min_resource 1, reduction_factor 2, 2 startup trials), a
                sqlite study, objp and the loss and forward figures collated.
@@ -171,7 +175,7 @@ Phases, one JSON object per line each:
                every batch's loss terms in every iteration, the losses and
                the final obja, objp and probe; where they part, the ops
                torch.use_deterministic_algorithms(warn_only=True) names. The
-               low-dose phase runs its 3 iterations twice for the same check
+               low-dose phase runs its 2 iterations twice for the same check
                through B4b.
      lbfgs   - tBL's sections with LBFGS (history_size 10), 2 iterations: the
                objective is the mean loss of all 512 batches, evaluated
@@ -211,7 +215,7 @@ Phases, one JSON object per line each:
                (loss_poissn + loss_pacbed of demo/scripts/run_parity_midscale.py
                plus loss_sparse) on the patterns normalised as the yml asks
                (max at one): fused_loss_terms declines, so every step runs
-               forward() (B4a), combined_loss and B4b. Asserts a finite loss,
+               forward() (B4a), combined_loss and B4b, 2 iterations. Asserts a finite loss,
                B1, B2, B4a and B4b launched and B3 not; then each data term
                alone for 2 iterations, where loss_poissn must fall; then its
                torch.profiler breakdown over 32 more steps.
@@ -225,8 +229,8 @@ Phases, one JSON object per line each:
                data with random_object's seeded start written once as .npz,
                then two ranks spawned on cuda:0 (gloo; one card, so no
                speed-up is measured or claimed), each taking 16 of every
-               batch's 32 positions, run tBL and the low-dose mix for 2
-               iterations. Gates, each kind, against the one-rank run of
+               batch's 32 positions, run tBL and the low-dose mix for one
+               iteration (512 steps). Gates, each kind, against the one-rank run of
                the same start on the card: the first batch's loss (rtol
                1e-5) and gradients (obja/objp atol 1e-5, probe 5e-5, shifts
                1e-7: tests/test_engine.py's mesh tolerances), each rank's
@@ -263,7 +267,7 @@ Phases, one JSON object per line each:
                + loss_sparse, its four constraints) on tbl_positions'
                raster, two gloo ranks on cuda:0 from one spawn, each rank
                simulating only its slab's patterns. canvas_largefov: a
-               256 x 256 scan (the yml's 512 x 512 cut), 2 iterations from
+               256 x 256 scan (the yml's 512 x 512 cut), one iteration from
                random_object's seeded start, against the one-rank
                replicated run of the same per-slab batches: the first
                batch's loss (rtol 1e-6) and gradients (CANVAS_GRAD_RTOL), each
@@ -296,14 +300,15 @@ Phases, one JSON object per line each:
                falling loss within rtol 1e-4 of the same run with fwd_fused:
                false; a profile (PSO-n120); then the dz and tilt float64
                gate at N = 120 on its first batch (B3b with dH).
-     pso_n192 - PSO as its yml gives it but padded on the fly to 192^2
-               instead of 256^2 (the 120^2 crops through
-               meas_pad_on_the_fly(.., "power", 192, threshold=70), the
-               pixel 0.2 Ang), from a seeded object, 2 iterations: B1, B2,
-               B6a/B6b over 16 slices and B5a/B5b over the 5-slice tail at
-               N = 192 (chain.cu's mixed-radix build), no B3/B4 and no plain
-               route; a finite, falling loss within rtol 1e-4 of the same run
-               with fwd_fused: false; a profile (PSO-n192); then on its first
+     pso_n192, pso_n254 - PSO as its yml gives it but padded on the fly
+               to 192^2 and to 254^2 instead of 256^2 (the 120^2 crops
+               through meas_pad_on_the_fly(.., "power", N, threshold=70), the
+               pixel 0.15 x 256 / N Ang), from a seeded object, 2 iterations:
+               B1, B2, B6a/B6b over 16 slices and B5a/B5b over the 5-slice
+               tail at N (chain.cu's mixed build: the mixed-radix pair at
+               192, a Bluestein line at 254), no B3/B4 and no plain route; a
+               finite, falling loss within rtol 1e-4 of the same run with
+               fwd_fused: false; a profile (PSO-n192, PSO-n254); then on its first
                batch the far-field exit (loss_fn and its backward with
                set_far_field(True) within rtol 1e-5 of the exit off, every
                B5 launch through the exit) and the dz and tilt float64 gate
@@ -323,7 +328,7 @@ Phases, one JSON object per line each:
                per-position tilts: the 16,384 patterns simulated through
                forward() with a smooth tilt field within 1 mrad (B4a on a
                per-position H), reconstructed from zero tilts with obj_tilts
-               and slice_thickness at lr 1e-4 and tilt_smooth (std 2), 3
+               and slice_thickness at lr 1e-4 and tilt_smooth (std 2), 2
                iterations. Asserts a finite, falling loss, moved dz and
                tilts, B1, B2, B3a (per-position H) and B3b (dH) launched and
                B4b not; then one batch's dH, dz and tilt gradients through B3
@@ -331,7 +336,7 @@ Phases, one JSON object per line each:
                forward phase also runs forward() with optimizable dz and
                per-position tilts (B4b with dH) against the plain chain.
      tbl_store - the tBL data binned 2 x 2 on the host to 64^2, stored as
-               bfloat16 and resampled on the fly by (2, 2), 3 iterations
+               bfloat16 and resampled on the fly by (2, 2), 2 iterations
                through B3: a finite, falling loss, the store's type and bytes.
      constraints - all twelve constraints once on a tBL-sized model, on the
                card against the CPU.
@@ -356,15 +361,17 @@ Phases, one JSON object per line each:
                slice_thickness at lr 1e-4, 2 iterations: a finite, falling
                loss, moved dz and tilt, B5b and B6b with dH, B3 not; then a
                profile over 8 steps.
-Then a {"kernels": [...]} line (launches summed over the driven runs: the
+Then a phase_seconds line (the host seconds of each phase of main, and
+the whole script's), a {"kernels": [...]} line (launches summed over the driven runs: the
 fused route, tBL, params_file, resume, figures, hypertune, lbfgs,
 grad_accum, optimizers, grouping, low-dose (both runs), the dist ranks, tbl_store, PSO,
-pso_n120 (and its tilt gate), pso_ff (with its random-start
+pso_n120 (and its tilt gate), pso_n192 and pso_n254 (with their exit
+checks and tilt gates), pso_ff (with its random-start
 runs and the carve), tilt (its simulation included) and PSO tilt paths,
 mixed_precision, pso_bf16 and the forward phases' kernel routes, the bf16
 kernels in rows of their own; B1/B2's rows at the tBL shapes count the
 N <= 128 runs but the canvas ranks, their rows at the PSO shapes the N =
-256 runs, their canvas slab rows the canvas ranks'), the
+256, 192 and 254 runs, their canvas slab rows the canvas ranks'), the
 nvidia-smi name/power-limit line, and as the last line {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is not 0 and the
 last line is never printed. Exits non-zero at once without CUDA.
@@ -373,6 +380,7 @@ last line is never printed. Exits non-zero at once without CUDA.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import hashlib
@@ -405,6 +413,7 @@ SLEEP_CYCLES_PER_S = 1.98e9
 N_SIDE, STEP_PX, NPIX, PMODE, NZ, BATCH = 128, 3, 128, 6, 6, 32
 N_SCANS = N_SIDE * N_SIDE
 NITER = 3
+SIDE_NITER = 2  # the params_file, low-dose, tbl_store, tilt and hypertune trial runs
 SEED = 0
 
 # PSO (demo/params/PSO_reconstruct.yml): 64 x 64 scan at 0.41 Ang steps,
@@ -428,12 +437,15 @@ PRIME_N = 127
 MIXED_NS = NPO2_NS + (PRIME_N,)
 # The segmented chain at N in (128, 512] that is not a power of two
 # (chain.cu's mixed-radix build, one library per N, built beside the main
-# one): PSO padded on the fly to 192^2 (pso_n192), 384 (a three-pass plan,
-# the 512^2 far-field rows' batch) and the prime 509 (one sum pass, a
-# small-batch row set)
+# one): PSO padded on the fly to 192^2 (pso_n192) and to 254^2 = 2 x 127
+# (pso_n254, a Bluestein line over 512 points), 384 (a three-pass plan, the
+# 512^2 far-field rows' batch) and the prime 509 (a Bluestein line over
+# 1,024 points, a small-batch row set)
 PSO_N192 = 192
+PSO_N254 = 254
+PSO_PADS = (PSO_N192, PSO_N254)  # the N that PSO is padded to on the fly
 CHAIN_PRIME_N = 509
-CHAIN_NS = (PSO_N192, 384, CHAIN_PRIME_N)
+CHAIN_NS = (PSO_N192, PSO_N254, 384, CHAIN_PRIME_N)
 SIM_BATCH = 512  # patterns per forward() call when simulating the tBL data
 
 # tBL_WSe2 sections of demo/params/tBL_WSe2_reconstruct.yml (the card's
@@ -475,6 +487,7 @@ TBL_PARAMS = {
 # (:252-259) plus the tBL yml's loss_sparse, on the tBL sections otherwise
 LOW_DOSE_PARAMS = {
     **TBL_PARAMS,
+    "recon_params": {**TBL_PARAMS["recon_params"], "NITER": SIDE_NITER},
     "loss_params": {
         "loss_single": {"state": False, "weight": 0.0, "dp_pow": 0.5},
         "loss_poissn": {"state": True, "weight": 1.0, "dp_pow": 1.0, "eps": 1e-6},
@@ -513,8 +526,12 @@ PSO_PARAMS = {
 }
 
 
+_EMIT_LOCK = threading.Lock()  # the CLI phases that run at once emit from threads
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    with _EMIT_LOCK:
+        print(json.dumps(obj), flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -1542,25 +1559,26 @@ def npo2_bf16_rows(f32_rows, failures, obja, objp, pr, h, g, largs, cvec, tag) -
 
 def chain_npo2_case(n: int) -> dict:
     """The widths of the chain rows at N in (128, 512] that is not a power of
-    two: PSO's at 192^2 (B 32, 4 modes, 21 slices: B6 over 2 x 8, B5 over
-    the 5-slice tail), B = 8 at 384 as the 512^2 far-field rows (B5 over the
-    tail, with and without the exit), and a small batch at the prime 509 (B
-    2, 2 modes, 3 slices: B5 over them, B6 over 3 segments of one). The
-    pixel keeps PSO's reciprocal pixel, 0.15 x 256 / N Ang."""
+    two: PSO's at 192^2 and 254^2 (B 32, 4 modes, 21 slices: B6 over 2 x 8,
+    B5 over the 5-slice tail), B = 8 at 384 as the 512^2 far-field rows (B5
+    over the tail, with and without the exit), and a small batch at the
+    prime 509 (B 2, 2 modes, 3 slices: B5 over them, B6 over 3 segments of
+    one). The pixel keeps PSO's reciprocal pixel, 0.15 x 256 / N Ang."""
     tail = PSO_NZ - 2 * PSO_SG
-    if n == PSO_N192:
+    if n in PSO_PADS:
         return {"batch": BATCH, "pmode": PSO_PMODE, "nz": PSO_NZ, "tail": tail,
-                "stack": (2, PSO_SG), "note": "PSO widths padded to 192^2"}
+                "stack": (2, PSO_SG), "note": f"PSO widths padded to {n}^2"}
     if n == CHAIN_PRIME_N:
         return {"batch": 2, "pmode": 2, "nz": 3, "tail": 3, "stack": (3, 1),
-                "note": "a small batch at a prime N (one sum pass)"}
+                "note": "a small batch at a prime N (a Bluestein line)"}
     return {"batch": 8, "pmode": PSO_PMODE, "nz": PSO_NZ, "tail": tail, "stack": None,
             "note": "B = 8, as the 512^2 far-field rows"}
 
 
 def check_chain_npo2(dev, gen) -> list:
-    """B5 and B6 of chain.cu's mixed-radix build at N = 192 (PSO's widths),
-    384 and the prime 509 (chain_npo2_case), each against its plain version
+    """B5 and B6 of chain.cu's mixed-radix build at N = 192 and 254 (PSO's
+    widths; 254 a Bluestein line), 384 and the prime 509 (a Bluestein line;
+    chain_npo2_case), each against its plain version
     on the same CUDA tensors at its power-of-two twin's tolerance (1e-4 of
     each output's or cotangent's largest entry; check_chain, check_chain_dh,
     check_chain_ff), the backwards run twice bit for bit. The kernels take H
@@ -1569,8 +1587,8 @@ def check_chain_npo2(dev, gen) -> list:
     the tail with `last` both ways (the row times last), with the far-field
     exit (library_ms: B5 without it plus torch.fft.fft2, or that
     transform's backward before B5b), B5b with dH on a per-position H; B6
-    (last_mega False at 192 and 384's, True at 509) and B6b with dH; at
-    192 the _bf16 rows of B5a, B5b, B6a and B6b by the bf16 gates
+    (last_mega False at 192, 254 and 384's, True at 509) and B6b with dH; at
+    192 and 254 the _bf16 rows of B5a, B5b, B6a and B6b by the bf16 gates
     (bf16_errors, bf16_failures). Bounds from each N's own operations
     (_chain_ops at log2 N) and bytes."""
     from ptyrad_tpu_torch.ops import chain as C
@@ -1696,7 +1714,7 @@ def check_chain_npo2(dev, gen) -> list:
             return C.segment_bwd_cuda(g, psi, a_t, p_t, hk_each, True, need_dh=True)
 
         dh_ops = n_wave * n_prop * 8 * nn
-        if n == PSO_N192:
+        if n in PSO_PADS:
             add("B5b chain_segment_bwd (dH)", 279,
                 *_grad_errs(b5b_dh(), [*dh_g[:3], C.kernel_h(dh_g[3])]), b5b_dh,
                 lambda: torch.autograd.grad(dh_p, dh_leaves, grad_outputs=g, retain_graph=True),
@@ -1750,7 +1768,7 @@ def check_chain_npo2(dev, gen) -> list:
         def b6b_dh():
             return b6b(True)
 
-        if n == PSO_N192:
+        if n in PSO_PADS:
             add("B6b chain_stack_bwd (dH)", 529,
                 *_grad_errs(b6b_dh(), [*st_g[:3], C.kernel_h(st_g[3])]), b6b_dh,
                 lambda: torch.autograd.grad(st_p, st_leaves, grad_outputs=g, retain_graph=True),
@@ -1762,16 +1780,18 @@ def check_chain_npo2(dev, gen) -> list:
                   "bwd_max_abs_err": e, "bwd_tolerance": t})
             failures.extend(f"B6b with dH ({tag}) differs: {ei} > {ti}"
                             for ei, ti in zip(e, t) if not ei <= ti)
-        if n == PSO_N192:
-            rows += chain_npo2_bf16_rows(rows, failures, psi, a_t, p_t, a_m, p_m, h, hk, g, ssg)
+        if n in PSO_PADS:
+            rows += chain_npo2_bf16_rows(rows, failures, psi, a_t, p_t, a_m, p_m, h, hk, g, ssg,
+                                         n)
         del st_p, st_leaves, st_g, st_plain, st_pl_leaves, st_pl_g, stack
         torch.cuda.empty_cache()
     require(not failures, "; ".join(failures))
     return rows
 
 
-def chain_npo2_bf16_rows(f32_rows, failures, psi, a_t, p_t, a_m, p_m, h, hk, g, sg) -> list:
-    """The _bf16 rows of B5a, B5b, B6a and B6b at N = 192, each against its
+def chain_npo2_bf16_rows(f32_rows, failures, psi, a_t, p_t, a_m, p_m, h, hk, g, sg,
+                         n) -> list:
+    """The _bf16 rows of B5a, B5b, B6a and B6b at N (192, 254), each against its
     plain twin with bf16_operands by the bf16 gates (bf16_errors,
     bf16_failures), B5b and B6b run twice bit for bit, with their float32
     rows' bounds."""
@@ -1791,8 +1811,8 @@ def chain_npo2_bf16_rows(f32_rows, failures, psi, a_t, p_t, a_m, p_m, h, hk, g, 
         rep = repeats_bitwise(lambda: kern(True)[0], k16) if repeat else None
         if rep is False:
             bad.append(f"{name}: run twice differs")
-        ref = f32[per_n(name.replace(" (bf16)", ""), PSO_N192)]
-        r = {"name": per_n(name, PSO_N192), "route": "cuda",
+        ref = f32[per_n(name.replace(" (bf16)", ""), n)]
+        r = {"name": per_n(name, n), "route": "cuda",
              "source": "ptyrad_tpu_torch/csrc/chain_bf16.cu", "replaces": ref["replaces"],
              "max_abs_err": max(e["max_abs"] for e in errs), "ms": time_ms(time_k16),
              "plain_ms": time_ms(time_t16), "bound_ms": ref["bound_ms"],
@@ -2924,8 +2944,10 @@ def params_file_path(dev, card: str, meas: np.ndarray, tmp: str) -> tuple[dict, 
     emit({"phase": "params_file_packages", "imports": packages})
     raw_path, json_path = f"{tmp}/tbl.raw", f"{tmp}/tbl.json"
     write_s = write_raw(raw_path, meas)
+    d = tbl_params_file(raw_path)
+    d["recon_params"]["NITER"] = SIDE_NITER
     with open(json_path, "w", encoding="utf-8") as f:
-        json.dump(tbl_params_file(raw_path), f)
+        json.dump(d, f)
     params = L.load_params(json_path, validate=packages["pydantic"])
     L.LAST_RAW_READ.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -2972,7 +2994,7 @@ def params_file_path(dev, card: str, meas: np.ndarray, tmp: str) -> tuple[dict, 
             f"probe {tuple(solver.params.probe.shape)}")
     require(tuple(solver.params.obja.shape[:2]) == (1, NZ), f"object {solver.params.obja.shape}")
     require(abs(iv["dx"] / SIM_DX - 1.0) <= 0.05, f"fitted dx {iv['dx']} vs {SIM_DX}")
-    require(len(losses) == NITER and all(np.isfinite(losses)), f"loss not finite: {losses}")
+    require(len(losses) == SIDE_NITER and all(np.isfinite(losses)), f"loss not finite: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for name in TBL_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the params_file path")
@@ -3245,7 +3267,7 @@ def cli_path(card: str, tmp: str, raw_path: str, named_like) -> None:
 
 FIG_NITER = 2
 FIGS = ["loss", "forward", "probe_r_amp", "pos", "group"]
-HT_TRIALS, HT_NITER = 4, 3
+HT_TRIALS, HT_NITER = 4, SIDE_NITER
 HT_CLI_NITER = 2
 HT_MEM_RTOL = 0.10  # the last trial's peak device memory against the first's
 
@@ -3399,7 +3421,7 @@ class TrialRecorder:
 
 def hypertune_path(dev, card: str, tmp: str, raw_path: str) -> dict:
     """run_hypertune in process on the .raw at full width (16,384 patterns
-    of 128², 6 probe modes, batch 32, one slice): 4 trials of 3 iterations
+    of 128², 6 probe modes, batch 32, one slice): 4 trials of 2 iterations
     (hypertune_params_file), trials 3 and 4 past the TPE startup and
     consulted by the pruner. Gates: no trial FAILED (each failed trial's
     exception printed), every trial COMPLETE or PRUNED; each trial's
@@ -3698,12 +3720,12 @@ def low_dose_path(dev, card: str, init: dict):
     # (loss_pacbed rises, see low_dose_terms_alone), upstream PtyRAD's and
     # the JAX package's neither (PARITY_MIDSCALE.json, leg A); so the run is
     # held to finite values here, and descent to the Poisson term alone.
-    require(len(losses) == NITER and all(np.isfinite(losses)), f"loss not finite: {losses}")
+    require(len(losses) == SIDE_NITER and all(np.isfinite(losses)), f"loss not finite: {losses}")
     for name in LOW_DOSE_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the low-dose path")
     for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd"):
         require(launches[name] == 0, f"kernel {name} ran on the low-dose path")
-    # determinism through B4b: the same 3 iterations again
+    # determinism through B4b: the same iterations again
     again = PtyRADSolver(LOW_DOSE_PARAMS, init_variables=data, device=dev, verbose=False)
     second = RunRecord()
     launches = add_counts(launches, counted(lambda: again.run(callback=second))[1])
@@ -4083,20 +4105,19 @@ def n120_tilt_gate(dev, init: dict) -> dict:
 
 # -- PSO padded to 192^2: the segmented chain's mixed-radix build --------------
 
-def pso_n192_init(pso_init: dict) -> dict:
+def pso_pad_init(pso_init: dict, n: int) -> dict:
     """init_variables of PSO as its params file gives it, but padded on the
-    fly to 192^2 instead of 256^2: pso_dataset's 120^2 crops padded with
-    meas_pad_on_the_fly(crops, "power", 192, threshold=70), the pixel
-    0.15 x 256 / 192 = 0.2 Ang (the crop's 0.32 Ang x 120 / 192), the yml's
-    probe at 192^2 scaled to the mean measured intensity with its pad (as
-    pso_dataset scales it), the raster at that pixel, 21 slices of 10 Ang, a
-    seeded random object (the flat start amplifies float32 rounding, see
-    pso_ff_path) and zero tilt."""
+    fly to N^2 (192, 254) instead of 256^2: pso_dataset's 120^2 crops padded
+    with meas_pad_on_the_fly(crops, "power", N, threshold=70), the pixel
+    0.15 x 256 / N Ang (at 192: 0.2 Ang, the crop's 0.32 Ang x 120 / 192),
+    the yml's probe at N^2 scaled to the mean measured intensity with its
+    pad (as pso_dataset scales it), the raster at that pixel, 21 slices of
+    10 Ang, a seeded random object (the flat start amplifies float32
+    rounding, see pso_ff_path) and zero tilt."""
     from ptyrad_tpu_torch.initialization import meas_pad_on_the_fly
     from ptyrad_tpu_torch.physics import (electron_wavelength, make_mixed_probe,
                                           make_stem_probe, near_field_evolution)
 
-    n = PSO_N192
     dx = PSO_DX * PSO_NPIX / n
     steps = np.round(np.arange(PSO_SIDE) * PSO_STEP_ANG / dx).astype(np.int32)
     ys, xs = np.meshgrid(steps, steps, indexing="ij")
@@ -4122,23 +4143,20 @@ def pso_n192_init(pso_init: dict) -> dict:
     }
 
 
-N192_KERNELS = tuple(per_n(name, PSO_N192) for name in CHAIN_KERNELS) + PATCH_KERNELS
-
-
-def pso_n192_path(dev, card: str, pso_init: dict):
-    """pso_n192: PSO as its params file gives it, padded on the fly to
-    192^2 (4,096 patterns, 4 probe modes, 21 slices, batch 32, Adam,
+def pso_pad_path(dev, card: str, pso_init: dict, n: int):
+    """pso_n192 and pso_n254: PSO as its params file gives it, padded on the
+    fly to N^2 (4,096 patterns, 4 probe modes, 21 slices, batch 32, Adam,
     loss_single, the yml's constraints), 2 iterations from a seeded object
     through PtyRADSolver.run(): each step B1, B2, B6a/B6b over 16 slices and
-    B5a/B5b over the 5-slice tail at N = 192 (chain.cu's mixed-radix build),
-    no B3/B4 and no plain route; finite and falling, and every iteration's
-    loss within rtol 1e-4 of the same run through the plain route
-    (fwd_fused: false, torch.fft on the card). Returns (solver, launches,
-    init)."""
+    B5a/B5b over the 5-slice tail at N (chain.cu's mixed build: at 192 the
+    mixed-radix pair, at 254 = 2 x 127 a Bluestein line), no B3/B4 and no
+    plain route; finite and falling, and every iteration's loss within rtol
+    1e-4 of the same run through the plain route (fwd_fused: false,
+    torch.fft on the card). Returns (solver, launches, init)."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
 
     t0 = time.perf_counter()
-    init = pso_n192_init(pso_init)
+    init = pso_pad_init(pso_init, n)
     setup_s = time.perf_counter() - t0
     solver = PtyRADSolver(PSO_PARAMS, init_variables=init, device=dev, verbose=True)
     first = first_batch_loss(solver)
@@ -4160,33 +4178,34 @@ def pso_n192_path(dev, card: str, pso_init: dict):
     del ref
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     emit({
-        "phase": "pso_n192", "card": card, "N": PSO_N192, "n_patterns": PSO_SCANS,
+        "phase": f"pso_n{n}", "card": card, "N": n, "n_patterns": PSO_SCANS,
         "batch": BATCH, "first_batch_loss": first, "iterations": len(losses), "losses": losses,
         "iter_s": times, "patterns_per_s": [PSO_SCANS / t for t in times], "setup_s": setup_s,
         "run_s": run_s, "peak_mem_gb": peak, "launches": launches,
         "plain_route_losses": ref_losses, "plain_route_run_s": ref_s, "rel_diff": rel,
         "rtol": 1e-4, "plain_route_launches": ref_launches[PLAIN_ROUTE],
     })
-    require(len(losses) == PSO_NITER and all(np.isfinite(losses)), f"pso_n192: losses {losses}")
-    require(losses[-1] < losses[0], f"pso_n192: loss did not fall: {losses}")
+    tag = f"pso_n{n}"
+    require(len(losses) == PSO_NITER and all(np.isfinite(losses)), f"{tag}: losses {losses}")
+    require(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
     require(len(ref_losses) == PSO_NITER and max(rel) <= 1e-4,
-            f"pso_n192: losses {losses} differ from the plain route's {ref_losses}: {rel}")
-    for name in N192_KERNELS:
-        require(launches[name] > 0, f"kernel {name} was not launched on the pso_n192 path")
-    require(launches[PLAIN_ROUTE] == 0, f"pso_n192: {launches[PLAIN_ROUTE]} plain routes")
+            f"{tag}: losses {losses} differ from the plain route's {ref_losses}: {rel}")
+    for name in tuple(per_n(name, n) for name in CHAIN_KERNELS) + PATCH_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the {tag} path")
+    require(launches[PLAIN_ROUTE] == 0, f"{tag}: {launches[PLAIN_ROUTE]} plain routes")
     for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd", "B4a dp_fwd", "B4b dp_bwd"):
-        require(launches[name] == 0, f"pso_n192: {name} ran at N = 192")
-    for name in CHAIN_KERNELS:  # every chain launch at N = 192 (the mixed build)
-        require(launches[name] == launches[per_n(name, PSO_N192)],
-                f"pso_n192: {name} ran {launches[name]} times, "
-                f"{launches[per_n(name, PSO_N192)]} at N = 192")
-    require(ref_launches[PLAIN_ROUTE] > 0, "pso_n192's reference did not take the plain route")
+        require(launches[name] == 0, f"{tag}: {name} ran at N = {n}")
+    for name in CHAIN_KERNELS:  # every chain launch at N (the mixed build)
+        require(launches[name] == launches[per_n(name, n)],
+                f"{tag}: {name} ran {launches[name]} times, "
+                f"{launches[per_n(name, n)]} at N = {n}")
+    require(ref_launches[PLAIN_ROUTE] > 0, f"{tag}'s reference did not take the plain route")
     return solver, launches, init
 
 
-def n192_exit_check(solver) -> dict:
-    """The far-field exit at N = 192 on pso_n192's first batch: loss_fn and
-    its backward (B6 over 16 slices, B5 over the tail) with
+def pad_exit_check(solver, n: int) -> dict:
+    """The far-field exit at N (192, 254) on pso_n<N>'s first batch: loss_fn
+    and its backward (B6 over 16 slices, B5 over the tail) with
     set_far_field(True) against the same with the exit off: the loss
     within rtol 1e-5, and every B5 launch of the exit's run took it.
     Returns both runs' launch counts, summed."""
@@ -4206,16 +4225,16 @@ def n192_exit_check(solver) -> dict:
     off, l_off = counted(run)
     on, l_on = counted(lambda: far_field_on(run))
     rel = abs(on - off) / abs(off)
-    b5 = [per_n(name, PSO_N192) for name in ("B5a chain_segment_fwd", "B5b chain_segment_bwd")]
-    emit({"phase": "n192_exit", "loss_exit_off": off, "loss_exit_on": on, "rel_diff": rel,
+    b5 = [per_n(name, n) for name in ("B5a chain_segment_fwd", "B5b chain_segment_bwd")]
+    emit({"phase": f"n{n}_exit", "loss_exit_off": off, "loss_exit_on": on, "rel_diff": rel,
           "rtol": 1e-5, "launches_exit_on": {k: l_on[k] for k in b5 + [per_n(
-              f"{k.split(' (')[0]} (far-field)", PSO_N192) for k in b5]}})
-    require(rel <= 1e-5, f"n192_exit: the exit's loss {on} differs from {off}: {rel}")
+              f"{k.split(' (')[0]} (far-field)", n) for k in b5]}})
+    require(rel <= 1e-5, f"n{n}_exit: the exit's loss {on} differs from {off}: {rel}")
     for name in b5:
-        ff = per_n(f"{name.split(' (')[0]} (far-field)", PSO_N192)
+        ff = per_n(f"{name.split(' (')[0]} (far-field)", n)
         require(l_off[ff] == 0 < l_on[name] == l_on[ff],
-                f"n192_exit: {name} ran {l_on[name]} times with the exit on, {l_on[ff]} through "
-                f"it; {l_off[ff]} with it off")
+                f"n{n}_exit: {name} ran {l_on[name]} times with the exit on, {l_on[ff]} "
+                f"through it; {l_off[ff]} with it off")
     return add_counts(l_off, l_on)
 
 
@@ -4282,8 +4301,8 @@ def chain_tilt_gradients_check(solver) -> dict:
     return launches
 
 
-def n192_tilt_gate(dev, init: dict) -> dict:
-    """The dz and tilt float64 gate at N = 192: pso_n192's data with
+def pad_tilt_gate(dev, init: dict, n: int) -> dict:
+    """The dz and tilt float64 gate at N (192, 254): pso_n<N>'s data with
     per-position tilts and dz optimizable (with_dz_tilts), the first batch
     through B6b and B5b with dH on a per-position H (chain_tilt_gradients_check).
     Returns the launch counts."""
@@ -4295,11 +4314,11 @@ def n192_tilt_gate(dev, init: dict) -> dict:
     solver.prepare()
     for name in ("slice_thickness", "obj_tilts"):
         getattr(solver.params, name).requires_grad_(True)
-    require(not solver.geom.global_tilt, "the N = 192 tilt gate runs one global tilt")
+    require(not solver.geom.global_tilt, f"the N = {n} tilt gate runs one global tilt")
     launches = chain_tilt_gradients_check(solver)
     for name in ("B5b chain_segment_bwd (dH)", "B6b chain_stack_bwd (dH)"):
-        require(launches[per_n(name, PSO_N192)] > 0,
-                f"the N = 192 tilt gate did not run {per_n(name, PSO_N192)}")
+        require(launches[per_n(name, n)] > 0,
+                f"the N = {n} tilt gate did not run {per_n(name, n)}")
     return launches
 
 
@@ -4613,6 +4632,7 @@ def tbl_store_path(dev, card: str, data: dict):
 
     params = copy.deepcopy(TBL_PARAMS)
     params["model_params"]["meas_dtype"] = TBL_STORE_DTYPE
+    params["recon_params"]["NITER"] = SIDE_NITER
     torch.cuda.reset_peak_memory_stats()
     solver = PtyRADSolver(params, init_variables=data, device=dev, verbose=True)
     store = solver.buffers.measurements
@@ -4633,9 +4653,10 @@ def tbl_store_path(dev, card: str, data: dict):
     })
     require(store.dtype == torch.bfloat16 and tuple(store.shape[-2:]) == (NPIX // 2, NPIX // 2),
             f"the store is {store.dtype} {tuple(store.shape)}")
-    require(len(losses) == NITER and all(np.isfinite(losses)), f"tbl_store: loss not finite: {losses}")
+    require(len(losses) == SIDE_NITER and all(np.isfinite(losses)),
+            f"tbl_store: loss not finite: {losses}")
     require(losses[-1] < losses[0], f"tbl_store: loss did not fall: {losses}")
-    steps = NITER * -(-N_SCANS // BATCH)
+    steps = SIDE_NITER * -(-N_SCANS // BATCH)
     for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd"):
         require(launches[name] == steps, f"tbl_store: {name} ran {launches[name]} times in "
                 f"{steps} steps")
@@ -4743,7 +4764,7 @@ def tilt_path(dev, card: str):
     """The tBL reconstruction with per-position tilts: 16,384 patterns
     simulated through forward() with tilt_field() (B4a on a per-position H),
     reconstructed from zero tilts with obj_tilts (16,384 x 2) and
-    slice_thickness optimized and tilt_smooth, the yml otherwise, 3
+    slice_thickness optimized and tilt_smooth, the yml otherwise, 2
     iterations. The simulation and the run are driven under counted():
     B4a on a per-position H, B1, B2, B3a on a per-position H and B3b with
     dH must run, B4b must not; then one batch's dz and tilt gradients and dH
@@ -4755,7 +4776,8 @@ def tilt_path(dev, card: str):
     init.update(obj=np.ones_like(init["obj"]), obj_tilts=np.zeros((N_SCANS, 2), np.float32))
     setup_s = time.perf_counter() - t0
     params = with_dz_tilts(TBL_PARAMS, {"tilt_smooth": {"freq": 1, "std": 2.0}})
-    solver, launches = run_tilt_solver(dev, card, "tilt", params, init, setup_s, NITER)
+    params["recon_params"]["NITER"] = SIDE_NITER
+    solver, launches = run_tilt_solver(dev, card, "tilt", params, init, setup_s, SIDE_NITER)
     launches = add_counts(sim_launches, launches)
     require(not solver.geom.global_tilt, "the tilt path runs one global tilt")
     for name in TILT_KERNELS + ("B4a dp_fwd (per-position H)",):
@@ -5600,14 +5622,14 @@ def chain_plan(n: int) -> dict:
     from ptyrad_tpu_torch.ops import _build
     from ptyrad_tpu_torch.ops.chain_plan import chain_plan as python_plan
 
-    out = (ctypes.c_int * 13)()
+    out = (ctypes.c_int * 14)()
     _build.check(_build.mixed_lib(n).ptyrad_chain_plan(n, PSO_PMODE, out), "ptyrad_chain_plan")
     require(tuple(out) == python_plan(n).reported(PSO_PMODE),
             f"N = {n}: the compiled chain plan {list(out)} is not ops/chain_plan.py's "
             f"{python_plan(n).reported(PSO_PMODE)}")
     keys = ("n", "elems", "line_threads", "passes", "stages", "rows", "cols", "row_threads",
-            "col_threads", "row_smem_bytes", "col_smem_bytes", "line", "pad_shift")
-    return dict(zip(keys, out))
+            "col_threads", "row_smem_bytes", "col_smem_bytes", "line", "pad_shift", "slots")
+    return {**dict(zip(keys, out)), "bluestein": python_plan(n).bluestein}
 
 
 KERNEL_CHECKS = ("check_patches", "check_loss_chain", "check_dp_chain", "check_chain",
@@ -5627,8 +5649,10 @@ KERNEL_CHECKS = ("check_patches", "check_loss_chain", "check_dp_chain", "check_c
 # amplify; the ranks part by 1.7e-4 there), so no reordering of float32
 # sums could be held at rtol 1e-4 from it; from the seeded object the same
 # change moves iteration 2 by about 1e-6. dist_tbl reports both yardsticks
-# and the ranks' run from the flat start beside the main phase's.
-DIST_WORLD, DIST_NITER = 2, 2
+# and the ranks' run from the flat start beside the main phase's. The rank
+# runs take one iteration (512 steps of the ranks' half batches), dist_cli
+# two (its loss must fall).
+DIST_WORLD, DIST_NITER, DIST_CLI_NITER = 2, 1, 2
 DIST_GRAD_ATOL = {"obja": 1e-5, "objp": 1e-5, "probe": 5e-5, "probe_pos_shifts": 1e-7}
 DIST_LOSS_RTOL, DIST_TRAJ_RTOL = 1e-5, 1e-4
 DIST_TIMEOUT_S = 600
@@ -6194,7 +6218,7 @@ def dist_cli_path(card: str, tmp: str, raw_path: str) -> None:
     .raw, 2 iterations: NCCL as a world of one through the CLI. Exit 0,
     the log naming the process and the backend, a finite, falling loss."""
     d = tbl_params_file(raw_path)
-    d["recon_params"].update(NITER=DIST_NITER, output_dir=f"{tmp}/dist_cli_out",
+    d["recon_params"].update(NITER=DIST_CLI_NITER, output_dir=f"{tmp}/dist_cli_out",
                              save_result=["objp"])
     json_path = f"{tmp}/tbl_dist_cli.json"
     with open(json_path, "w", encoding="utf-8") as f:
@@ -6213,8 +6237,8 @@ def dist_cli_path(card: str, tmp: str, raw_path: str) -> None:
     require(any("process index   : 0 / 1" in t for t in text), "dist_cli: no process line")
     require(any("Data parallel: 1 rank(s) over nccl" in t for t in text),
             f"dist_cli: not an NCCL world of one:\n{_tail(lines)}")
-    require(len(losses) == DIST_NITER and all(np.isfinite(losses)) and losses[-1] < losses[0],
-            f"dist_cli: losses {losses}")
+    require(len(losses) == DIST_CLI_NITER and all(np.isfinite(losses))
+            and losses[-1] < losses[0], f"dist_cli: losses {losses}")
 
 
 # -- canvas sharding over ranks (A7) ---------------------------------------------
@@ -6228,13 +6252,14 @@ def dist_cli_path(card: str, tmp: str, raw_path: str) -> None:
 # start: the first batch's loss at rtol 1e-6 and each gradient within
 # CANVAS_GRAD_RTOL of the reference's largest entry (a dropped halo cotangent
 # or summed canvases are errors of the gradient's own size),
-# 2 iterations at rtol 1e-5, the ranks bit for bit. canvas_fullscan runs the
+# one iteration (256 steps) at rtol 1e-5, the ranks bit for bit.
+# canvas_fullscan runs the
 # whole 512 x 512 scan for one iteration; each rank simulates only its slab's
 # patterns into a host store whose other rows are never touched (np.zeros), so
 # no 17 GB array is written; the replicated figure is one rank's peak memory
 # over CANVAS_REPLICATED_STEPS steps of the same scan.
 CANVAS_WORLD = 2
-CANVAS_SIDE, CANVAS_NITER = 256, 2
+CANVAS_SIDE, CANVAS_NITER = 256, 1
 CANVAS_FULL_SIDE, CANVAS_FULL_NITER = 512, 1
 CANVAS_BATCH = 256
 CANVAS_LOSS_RTOL, CANVAS_TRAJ_RTOL = 1e-6, 1e-5
@@ -6693,6 +6718,19 @@ def kernel_rows(dev, gen, atomic_b2: bool = False, atomic_b3: bool = False,
     return rows
 
 
+PHASE_SECONDS = {}  # each phase of main -> host seconds (the phase_seconds line)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Add the host seconds of the block to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; this script runs on a GPU",
@@ -6703,6 +6741,7 @@ def main() -> int:
     from ptyrad_tpu_torch.ops import chain as C
     from ptyrad_tpu_torch.ops import fused_multislice as M
 
+    start = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     pin_fp32()
@@ -6712,133 +6751,174 @@ def main() -> int:
           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    t0 = time.perf_counter()
-    # the mixed-radix libraries (B3/B4's, B5/B6's) beside the main one
-    path = _build.build(extra_n=MIXED_NS + CHAIN_NS)
-    _build.lib()
-    for n in (PSO_NPIX, 512) + CHAIN_NS:
-        C.prepare(dev, n)
-    for n in (NPIX,) + MIXED_NS:
-        M.prepare(dev, n)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": path.name,
-          "compiled": _build.BUILD_SECONDS is not None, "main_seconds": _build.BUILD_SECONDS,
-          "mixed_seconds": {str(n): s for n, s in _build.MIXED_BUILD_SECONDS.items()},
-          "fused_plan": {str(n): fused_plan(n) for n in (NPIX,) + MIXED_NS},
-          "chain_plan": {str(n): chain_plan(n) for n in CHAIN_NS}})
+    with phase("build"):
+        t0 = time.perf_counter()
+        # the mixed-radix libraries (B3/B4's, B5/B6's) beside the main one
+        path = _build.build(extra_n=MIXED_NS + CHAIN_NS)
+        _build.lib()
+        for n in (PSO_NPIX, 512) + CHAIN_NS:
+            C.prepare(dev, n)
+        for n in (NPIX,) + MIXED_NS:
+            M.prepare(dev, n)
+        emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": path.name,
+              "compiled": _build.BUILD_SECONDS is not None, "main_seconds": _build.BUILD_SECONDS,
+              "mixed_seconds": {str(n): s for n, s in _build.MIXED_BUILD_SECONDS.items()},
+              "fused_plan": {str(n): fused_plan(n) for n in (NPIX,) + MIXED_NS},
+              "chain_plan": {str(n): chain_plan(n) for n in CHAIN_NS}})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernels = kernel_rows(dev, gen)
-    kernels += check_bf16_kernels(dev, gen, kernels)
-    torch.cuda.empty_cache()
-    propagation_yardstick(dev, gen)
-    torch.cuda.empty_cache()
-    route_launches = fused_route_check(dev)
+    with phase("kernel_rows"):
+        kernels = kernel_rows(dev, gen)
+    with phase("bf16_rows"):
+        kernels += check_bf16_kernels(dev, gen, kernels)
+        torch.cuda.empty_cache()
+    with phase("propagation_yardstick"):
+        propagation_yardstick(dev, gen)
+        torch.cuda.empty_cache()
+    with phase("fused_route"):
+        route_launches = fused_route_check(dev)
 
-    solver, tbl_launches, init, main_record = main_path(dev, card)
-    main_losses = [v for _, v in solver.history.loss_iters]
-    main_state = final_state(solver)  # before the profile's steps move it
-    corr32 = quality_check("tBL", card, solver.params.objp,
-                           ground_truth_phase(tbl_positions()[1]), *tbl_scanned())
-    profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
-    del solver
-    torch.cuda.empty_cache()
-    solver, mp_launches = mixed_precision_path(dev, card, init, main_state, corr32)
-    profile_steps(solver, card, "tBL-bf16", NITER + 1, n_batches=32)
-    del solver, main_state
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        params_file_launches, raw_path = params_file_path(
-            dev, card, init["measurements"].cpu().numpy(), tmp)
-        torch.cuda.empty_cache()
-        resume_record = RunRecord()
-        resume_launches, solver = resume_path(dev, card, init, main_losses, tmp, resume_record)
-        determinism_check("tBL", card, main_record, resume_record, solver)
-        torch.cuda.empty_cache()
-        cli_path(card, tmp, raw_path, solver)
+    with phase("tBL"):
+        solver, tbl_launches, init, main_record = main_path(dev, card)
+        main_losses = [v for _, v in solver.history.loss_iters]
+        main_state = final_state(solver)  # before the profile's steps move it
+        corr32 = quality_check("tBL", card, solver.params.objp,
+                               ground_truth_phase(tbl_positions()[1]), *tbl_scanned())
+        profile_steps(solver, card, "tBL", NITER + 1, n_batches=32)
         del solver
-        cli_mixed_precision(card, tmp, raw_path)
-        dist_cli_path(card, tmp, raw_path)
         torch.cuda.empty_cache()
-        figures_launches = figures_path(dev, card, tmp, raw_path)
-        hypertune_launches = hypertune_path(dev, card, tmp, raw_path)
-        hypertune_cli_path(card, tmp, raw_path)
+    with phase("mixed_precision"):
+        solver, mp_launches = mixed_precision_path(dev, card, init, main_state, corr32)
+        profile_steps(solver, card, "tBL-bf16", NITER + 1, n_batches=32)
+        del solver, main_state
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        with phase("params_file"):
+            params_file_launches, raw_path = params_file_path(
+                dev, card, init["measurements"].cpu().numpy(), tmp)
+            torch.cuda.empty_cache()
+        with phase("resume"):
+            resume_record = RunRecord()
+            resume_launches, solver = resume_path(dev, card, init, main_losses, tmp,
+                                                  resume_record)
+            determinism_check("tBL", card, main_record, resume_record, solver)
+            torch.cuda.empty_cache()
+        with phase("cli"):
+            cli_path(card, tmp, raw_path, solver)
+            del solver
+            torch.cuda.empty_cache()
+        with phase("figures"):
+            figures_launches = figures_path(dev, card, tmp, raw_path)
+        with phase("hypertune"):
+            hypertune_launches = hypertune_path(dev, card, tmp, raw_path)
+        with phase("cli_subprocesses"):
+            # three CLI subprocesses at once (the hypertune worker after the
+            # study it joins): each spends most of its time starting, and no
+            # gate reads their seconds; cli_path ran alone, it times the start
+            loopback_env()
+            with concurrent.futures.ThreadPoolExecutor(3) as pool:
+                jobs = [pool.submit(fn, card, tmp, raw_path)
+                        for fn in (cli_mixed_precision, dist_cli_path, hypertune_cli_path)]
+                for job in jobs:
+                    job.result()
     torch.cuda.empty_cache()
-    lbfgs_launches = lbfgs_path(dev, card, init)
-    torch.cuda.empty_cache()
-    accum_launches = grad_accum_path(dev, card, init)
-    torch.cuda.empty_cache()
-    family_launches = optimizers_path(dev, card, init)
-    torch.cuda.empty_cache()
-    grouping_launches = grouping_path(dev, card, init)
-    torch.cuda.empty_cache()
-    forward_launches = forward_modes_check(dev, init)
-    torch.cuda.empty_cache()
-    forward_bf16_launches = forward_bf16_check(dev, init)
-    torch.cuda.empty_cache()
-    solver, low_dose_launches = low_dose_path(dev, card, init)
-    profile_steps(solver, card, "low-dose", NITER + 1, n_batches=32)
-    store_data = tbl_store_dataset(init)
-    del solver
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dev_tools_") as tmp:
+    with phase("lbfgs"):
+        lbfgs_launches = lbfgs_path(dev, card, init)
+        torch.cuda.empty_cache()
+    with phase("grad_accum"):
+        accum_launches = grad_accum_path(dev, card, init)
+        torch.cuda.empty_cache()
+    with phase("optimizers"):
+        family_launches = optimizers_path(dev, card, init)
+        torch.cuda.empty_cache()
+    with phase("grouping"):
+        grouping_launches = grouping_path(dev, card, init)
+        torch.cuda.empty_cache()
+    with phase("forward_modes"):
+        forward_launches = forward_modes_check(dev, init)
+        torch.cuda.empty_cache()
+        forward_bf16_launches = forward_bf16_check(dev, init)
+        torch.cuda.empty_cache()
+    with phase("low_dose"):
+        solver, low_dose_launches = low_dose_path(dev, card, init)
+        profile_steps(solver, card, "low-dose", NITER + 1, n_batches=32)
+        store_data = tbl_store_dataset(init)
+        del solver
+        torch.cuda.empty_cache()
+    with phase("dev_tools"), tempfile.TemporaryDirectory(prefix="chip_smoke_dev_tools_") as tmp:
         dev_tools_launches = dev_tools_path(dev, card, init, tmp)
     torch.cuda.empty_cache()
-    dist_launches = dist_path(dev, card, init, main_losses)
-    del init
-    torch.cuda.empty_cache()
-    canvas_launches, canvas_full_launches = canvas_path(dev, card)
-    torch.cuda.empty_cache()
-    kernels += canvas_kernel_rows(dev, gen)
-    solver, store_launches = tbl_store_path(dev, card, store_data)
-    profile_steps(solver, card, "tBL-store", NITER + 1, n_batches=32)
-    del solver, store_data
-    torch.cuda.empty_cache()
-    constraints_check(dev)
-    torch.cuda.empty_cache()
-    solver, pso_launches, pso_init, pso_ref = pso_path(dev, card)
-    pso_ms = profile_steps(solver, card, "PSO", PSO_NITER + 1, n_batches=8)["device_ms_per_step"]
-    del solver
-    torch.cuda.empty_cache()
-    solver, n120_launches, n120_init = pso_n120_path(dev, card, pso_init)
-    profile_steps(solver, card, "PSO-n120", PSO_NITER + 1, n_batches=8)
-    del solver
-    torch.cuda.empty_cache()
-    n120_tilt_launches = n120_tilt_gate(dev, n120_init)
-    del n120_init
-    torch.cuda.empty_cache()
-    solver, n192_launches, n192_init = pso_n192_path(dev, card, pso_init)
-    profile_steps(solver, card, "PSO-n192", PSO_NITER + 1, n_batches=8)
-    n192_exit_launches = n192_exit_check(solver)
-    del solver
-    torch.cuda.empty_cache()
-    n192_tilt_launches = n192_tilt_gate(dev, n192_init)
-    del n192_init
-    torch.cuda.empty_cache()
-    solver, pso_bf16_launches = pso_bf16_path(dev, card, pso_init, pso_ref)
-    profile_steps(solver, card, "PSO-bf16", PSO_NITER + 1, n_batches=8)
-    del solver
-    torch.cuda.empty_cache()
-    solver, pso_ff_launches = pso_ff_path(dev, card, pso_init, pso_ref)
-    pso_ff_ms = far_field_on(
-        lambda: profile_steps(solver, card, "PSO-ff", PSO_NITER + 1, n_batches=8)
-    )["device_ms_per_step"]
-    emit({"phase": "pso_ff_profile", "card": card,
-          "device_ms_per_step": {"pso": pso_ms, "pso_ff": pso_ff_ms}})
-    del solver
-    torch.cuda.empty_cache()
-    random_start_launches = pso_ff_random_start(dev, pso_init)
-    torch.cuda.empty_cache()
-    carve_launches = carve_check(dev, pso_init)
-    torch.cuda.empty_cache()
-    pso_bf16_forward_launches = forward_bf16_pso(dev, pso_init)
-    del pso_init
-    torch.cuda.empty_cache()
-    solver, tilt_launches = tilt_path(dev, card)
-    profile_steps(solver, card, "tBL-tilt", NITER + 1, n_batches=32)
-    del solver
-    torch.cuda.empty_cache()
-    solver, pso_tilt_launches = pso_tilt_path(dev, card)
-    profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
+    with phase("dist"):
+        dist_launches = dist_path(dev, card, init, main_losses)
+        del init
+        torch.cuda.empty_cache()
+    with phase("canvas"):
+        canvas_launches, canvas_full_launches = canvas_path(dev, card)
+        torch.cuda.empty_cache()
+        kernels += canvas_kernel_rows(dev, gen)
+    with phase("tbl_store"):
+        solver, store_launches = tbl_store_path(dev, card, store_data)
+        profile_steps(solver, card, "tBL-store", NITER + 1, n_batches=32)
+        del solver, store_data
+        torch.cuda.empty_cache()
+    with phase("constraints"):
+        constraints_check(dev)
+        torch.cuda.empty_cache()
+    with phase("pso"):
+        solver, pso_launches, pso_init, pso_ref = pso_path(dev, card)
+        pso_ms = profile_steps(solver, card, "PSO", PSO_NITER + 1,
+                               n_batches=8)["device_ms_per_step"]
+        del solver
+        torch.cuda.empty_cache()
+    with phase("pso_n120"):
+        solver, n120_launches, n120_init = pso_n120_path(dev, card, pso_init)
+        profile_steps(solver, card, "PSO-n120", PSO_NITER + 1, n_batches=8)
+        del solver
+        torch.cuda.empty_cache()
+        n120_tilt_launches = n120_tilt_gate(dev, n120_init)
+        del n120_init
+        torch.cuda.empty_cache()
+    pad_launches = []
+    for n in PSO_PADS:  # pso_n192, pso_n254
+        with phase(f"pso_n{n}"):
+            solver, path_launches, pad_init = pso_pad_path(dev, card, pso_init, n)
+            profile_steps(solver, card, f"PSO-n{n}", PSO_NITER + 1, n_batches=8)
+            pad_launches += [path_launches, pad_exit_check(solver, n)]
+            del solver
+            torch.cuda.empty_cache()
+            pad_launches.append(pad_tilt_gate(dev, pad_init, n))
+            del pad_init
+            torch.cuda.empty_cache()
+    with phase("pso_bf16"):
+        solver, pso_bf16_launches = pso_bf16_path(dev, card, pso_init, pso_ref)
+        profile_steps(solver, card, "PSO-bf16", PSO_NITER + 1, n_batches=8)
+        del solver
+        torch.cuda.empty_cache()
+    with phase("pso_ff"):
+        solver, pso_ff_launches = pso_ff_path(dev, card, pso_init, pso_ref)
+        pso_ff_ms = far_field_on(
+            lambda: profile_steps(solver, card, "PSO-ff", PSO_NITER + 1, n_batches=8)
+        )["device_ms_per_step"]
+        emit({"phase": "pso_ff_profile", "card": card,
+              "device_ms_per_step": {"pso": pso_ms, "pso_ff": pso_ff_ms}})
+        del solver
+        torch.cuda.empty_cache()
+        random_start_launches = pso_ff_random_start(dev, pso_init)
+        torch.cuda.empty_cache()
+    with phase("carve"):
+        carve_launches = carve_check(dev, pso_init)
+        torch.cuda.empty_cache()
+        pso_bf16_forward_launches = forward_bf16_pso(dev, pso_init)
+        del pso_init
+        torch.cuda.empty_cache()
+    with phase("tilt"):
+        solver, tilt_launches = tilt_path(dev, card)
+        profile_steps(solver, card, "tBL-tilt", NITER + 1, n_batches=32)
+        del solver
+        torch.cuda.empty_cache()
+    with phase("pso_tilt"):
+        solver, pso_tilt_launches = pso_tilt_path(dev, card)
+        profile_steps(solver, card, "PSO-tilt", PSO_NITER + 1, n_batches=8)
     # the canvas ranks' B1-B3 launches count in the canvas rows alone; the
     # one-rank reference of canvas_largefov (the two slabs' batch on the
     # whole canvas) is a comparison and counts in no row
@@ -6852,7 +6932,7 @@ def main() -> int:
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,
                       pso_tilt_launches, pso_bf16_launches, pso_bf16_forward_launches,
-                      n192_launches, n192_exit_launches, n192_tilt_launches)
+                      *pad_launches)
     launches = add_counts(narrow, wide)
     # a chain row at N = 2^k counts the power-of-two build's launches: less
     # those of the mixed builds, which have rows of their own
@@ -6863,12 +6943,14 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     launches.update({name: 0 for name in NOT_DRIVEN})
     # B1/B2's rows at the tBL shapes count the launches of the N <= 128 runs,
-    # their rows at the PSO shapes those of the N = 256 and 192 runs
+    # their rows at the PSO shapes those of the N = 256, 192 and 254 runs
     for name in PATCH_KERNELS:
         launches[name], launches[name + PSO_SHAPES] = narrow[name], wide[name]
     for name in CANVAS_KERNELS:
         launches[name + CANVAS_SLAB] = canvas_launches[name]
         launches[name + CANVAS_FULL_SLAB] = canvas_full_launches[name]
+    emit({"phase": "phase_seconds", "card": card, "seconds": PHASE_SECONDS,
+          "total_s": time.perf_counter() - start})
     emit({"kernels": [{key: {**k, "launches": launches[k["name"]]}[key] for key in keys}
                       for k in kernels]})
     print(card)

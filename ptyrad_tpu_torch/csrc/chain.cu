@@ -130,6 +130,16 @@
 //    f at (f + N / 2) % N on both axes (fftshift's roll at any N) and its
 //    adjoint loads through the same map. Rows and columns past N idle: an
 //    idle thread runs every barrier and touches no device memory.
+//  * every N in (128, 512] with a prime factor above 7 (ops/chain_plan.py)
+//    (254 = 2 x 127, 509, ...): the same build on reg_fft.cuh's Bluestein
+//    line (PTYRAD_BLUESTEIN; the line type regfft::BluesteinLine<N, an
+//    M-point MixedLine>, M the 7-smooth size of the cyclic convolution,
+//    M >= 2 N - 1), through line_fwd / line_inv. A sum pass of a prime p
+//    costs O(p) loads and FMAs a point; the Bluestein line two M-point
+//    register-pass transforms and three pointwise products. Its spectrum is
+//    in natural order in the points' own layout (kPasses = 1), so H goes in
+//    as it is; a line's exchange slots, the padded row and the column tile
+//    hold M points (MPlan::kSlots), the T tile N.
 
 #ifndef PTYRAD_BF16_OPERANDS
 #define PTYRAD_BF16_OPERANDS 0
@@ -548,7 +558,8 @@ struct MPlan {
   static constexpr int kRowBlocks = (kN + kRows - 1) / kRows;
   static constexpr int kColBlocks = (kN + kCols - 1) / kCols;
   static constexpr size_t kNN = static_cast<size_t>(kN) * kN;
-  static constexpr size_t kColSmem = sizeof(float2) * kCols * kN;
+  static constexpr int kSlots = Line::kSlots;  // a line's slots in an exchange: N, or M
+  static constexpr size_t kColSmem = sizeof(float2) * kCols * kSlots;
   static constexpr int groups(int pmode) { return pmode < kMaxGroups ? pmode : kMaxGroups; }
   static constexpr size_t row_smem(int g) {
     return sizeof(float2) * (static_cast<size_t>(kRows) * kN +
@@ -562,8 +573,29 @@ struct MPlan {
   // every transform passes a barrier of its line between the loads of its
   // points and the stores of its results, so a pass may work in place
   static_assert(Line::kReadsSlots, "a mixed plan without an exchange");
-  static_assert(kLine >= kN - 1 + ((kN - 1) >> kPad) + 1, "a padded row must hold the row");
+  static_assert(kLine >= kSlots - 1 + ((kSlots - 1) >> kPad) + 1,
+                "a padded row must hold the line's slots");
 };
+
+// The build's line transforms: the mixed-radix pair, or the Bluestein line
+// (PTYRAD_BLUESTEIN, reg_fft.cuh) whose spectrum is in natural order
+template <class Ex>
+__device__ __forceinline__ void line_fwd(float2 (&v)[MPlan::kE], int t, const Ex& ex) {
+#ifdef PTYRAD_BLUESTEIN
+  regfft::line_dif_bl<MLine, kBf16>(v, t, ex);
+#else
+  regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+#endif
+}
+
+template <class Ex>
+__device__ __forceinline__ void line_inv(float2 (&v)[MPlan::kE], int t, const Ex& ex) {
+#ifdef PTYRAD_BLUESTEIN
+  regfft::line_dit_bl<MLine, kBf16>(v, t, ex);
+#else
+  regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+#endif
+}
 
 // A row's padded line in shared memory; an idle lane (no row) stores nothing
 struct MixedRowEx {
@@ -652,7 +684,7 @@ row_fwd_mr(const float2* src, long long src_bs, int pending, float2* entry, long
         each_at<false>(t, [&](auto m, int x) { v[m] = sp[x]; });
       }
     }
-    if (pending) regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+    if (pending) line_inv(v, t, ex);
     if (entry != nullptr && live) {
       float2* ep = entry + b * entry_bs + off;
       each_at<false>(t, [&](auto m, int x) { ep[x] = v[m]; });
@@ -660,7 +692,7 @@ row_fwd_mr(const float2* src, long long src_bs, int pending, float2* entry, long
     if (a != nullptr) {
       each_at<false>(t, [&](auto m, int x) { v[m] = cmul(v[m], tsm[row + x]); });
     }
-    if (fft) regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+    if (fft) line_fwd(v, t, ex);
     if (dst != nullptr && live) {
       float2* dp = dst + b * dst_bs + off;
       if (!fft) {
@@ -726,14 +758,14 @@ row_bwd_mr(const float2* src, long long src_bs, int pending, const float2* __res
       }
       each_at<false>(t, [&](auto m, int x) { ps[m] = pp[x]; });
     }
-    if (pending) regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+    if (pending) line_inv(v, t, ex);
     each_at<false>(t, [&](auto m, int x) {
       const float2 q = cmul_conj(v[m], ps[m]);
       dt[m].x += q.x;
       dt[m].y += q.y;
       v[m] = cmul_conj(v[m], tsm[row + x]);
     });
-    if (fft) regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+    if (fft) line_fwd(v, t, ex);
     if (live) {
       float2* dp = dst + b * dst_bs + off;
       if (fft) {
@@ -785,7 +817,7 @@ col_mr(float2* buf, long long bs, const float2* __restrict__ h, long long h_bs, 
   float2 v[kE];
   zero(v);
   if (live) each_at<false>(t, [&](auto m, int y) { v[m] = f[static_cast<size_t>(y) * kN]; });
-  regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+  line_fwd(v, t, ex);
   if constexpr (kDh) {
     float2* kb = kbuf + fo;
     if (!conj_h) {
@@ -809,7 +841,7 @@ col_mr(float2* buf, long long bs, const float2* __restrict__ h, long long h_bs, 
       v[m] = cmul(v[m], make_float2(hv.x * inv_nn, (conj_h ? -hv.y : hv.y) * inv_nn));
     });
   }
-  regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+  line_inv(v, t, ex);
   if (live) each_at<false>(t, [&](auto m, int y) { f[static_cast<size_t>(y) * kN] = v[m]; });
 }
 
@@ -839,9 +871,9 @@ col_ff_mr(const float2* src, float2* dst, long long bs) {
     }
   }
   if constexpr (kAdj) {
-    regfft::line_dit_mr<MLine, kBf16>(v, t, ex);
+    line_inv(v, t, ex);
   } else {
-    regfft::line_dif_mr<MLine, kBf16>(v, t, ex);
+    line_fwd(v, t, ex);
   }
   if (live) {
     if constexpr (kAdj) {
@@ -853,11 +885,17 @@ col_ff_mr(const float2* src, float2* dst, long long bs) {
 }
 
 // Set-up once per device (regfft::prepare_once, key 1: the library holds one
-// N): the mixed pair's twiddles and the eight kernels' shared-memory limits
+// N): the line's tables (the mixed pair's twiddles; the Bluestein line's
+// inner twiddles, chirp and filter) and the eight kernels' shared-memory
+// limits
 cudaError_t prepare_mixed() {
   return regfft::prepare_once<kMaxLogN>(1, [](int) -> cudaError_t {
     using P = MPlan;
+#ifdef PTYRAD_BLUESTEIN
+    REGFFT_TRY(regfft::upload_bluestein<MLine>());
+#else
     REGFFT_TRY(regfft::upload_mixed(P::kN));
+#endif
     const size_t row_smem = P::row_smem(P::kMaxGroups);
     REGFFT_TRY(set_smem(row_fwd_mr<false>, row_smem));
     REGFFT_TRY(set_smem(row_fwd_mr<true>, row_smem));
@@ -1150,15 +1188,22 @@ int PTYRAD_ENTRY(ptyrad_chain_prepare)(int n) { return static_cast<int>(prepare_
 // The mixed plan for pmode probe modes, which the card-only tests hold
 // against ops/chain_plan.py's ChainPlan.reported: out gets N, E, T, the
 // passes, the stages, rows and columns per block, threads per row and
-// column block, the two blocks' shared bytes, the padded row and its shift.
+// column block, the two blocks' shared bytes, the padded row and its shift,
+// and a line's slots (N, or a Bluestein line's M; its passes and stages are
+// the M-point line's).
 int ptyrad_chain_plan(int n, int pmode, int* out) {
   using P = MPlan;
+#ifdef PTYRAD_BLUESTEIN
+  using Passes = MLine::In;
+#else
+  using Passes = MLine;
+#endif
   if (pmode < 1 || n != P::kN) return static_cast<int>(cudaErrorInvalidValue);
   const int g = P::groups(pmode);
-  const int v[] = {P::kN, P::kE, P::kTl, MLine::kPasses, MLine::kStages, P::kRows, P::kCols,
+  const int v[] = {P::kN, P::kE, P::kTl, Passes::kPasses, Passes::kStages, P::kRows, P::kCols,
                    32 * g, P::kColThreads, static_cast<int>(P::row_smem(g)),
-                   static_cast<int>(P::kColSmem), P::kLine, P::kPad};
-  for (int i = 0; i < 13; ++i) out[i] = v[i];
+                   static_cast<int>(P::kColSmem), P::kLine, P::kPad, P::kSlots};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
   return 0;
 }
 #else

@@ -2,9 +2,10 @@
 // Stockham passes (line_fft) at N a power of two, multislice.cu (B3, B4) the
 // radix-2 pair (line_dif, line_dit, below) there; both run the mixed-radix
 // pair (line_dif_mr, line_dit_mr, further below) at any other N, up to 128
-// in multislice.cu and in (128, 512] in chain.cu. The first three share the
-// line layout (LinePlan), the twiddle table, the exchange policies and the
-// set-up.
+// in multislice.cu and in (128, 512] in chain.cu, where a build may wrap an
+// M-point mixed-radix line in a Bluestein line (line_dif_bl, line_dit_bl;
+// PTYRAD_BLUESTEIN builds only). The first three share the line layout
+// (LinePlan), the twiddle table, the exchange policies and the set-up.
 //
 // An N-point line (N = 2 ... 512, a power of two) is held by TL = N / E
 // threads, E = 16 points each (N itself below 16), thread t holding
@@ -401,7 +402,11 @@ __device__ __forceinline__ void line_dit(float2 (&v)[LinePlan<LOGN>::kE], int t,
 // layout of a line's points. Registers past a pass's, and slots past its
 // cosets, hold nothing (ok() is false there).
 
+#ifdef PTYRAD_BLUESTEIN
+constexpr int kMaxMixedN = 1024;  // the M-point line inside a Bluestein line (below)
+#else
 constexpr int kMaxMixedN = 512;
+#endif
 // exp(-2 pi i e / N) for e < N of the including file's mixed-radix N
 // (upload_mixed): every twiddle of the pair, W_M^x = W_N^(x N / M)
 __device__ float2 g_mixed[kMaxMixedN];
@@ -562,6 +567,7 @@ struct MixedLine : MixedBase<N, T, Ps...> {
   using Base::cosets, Base::digitrev_const, Base::first_stage, Base::high, Base::is_sum,
       Base::prod, Base::slots, Base::span, Base::stage_radix, Base::sub_prod;
   static constexpr int kN = N, kTl = T, kPasses = Base::kPasses, kStages = Base::kStages;
+  static constexpr int kSlots = N;  // the line's slots an exchange uses
   template <int k>
   using PassAt = std::tuple_element_t<k, std::tuple<Ps...>>;
   static constexpr int kE = Base::max_elems();
@@ -815,6 +821,150 @@ inline cudaError_t upload_mixed(int n) {
   REGFFT_TRY(cudaMemcpyToSymbol(g_mixed, host, sizeof(host)));
   return cudaDeviceSynchronize();
 }
+
+#ifdef PTYRAD_BLUESTEIN
+// The Bluestein line of chain.cu's mixed build (PTYRAD_BLUESTEIN defined):
+// an N-point line whose prime factors include one above 7 (ops/chain_plan.py
+// plans every such N on it, not on a sum pass). Bluestein's chirp-z
+// identity, with c_j = exp(-i pi j^2 / N),
+//   X_k = c_k sum_j (x_j c_j) conj(c_(k-j)),
+// is a cyclic convolution over M >= 2 N - 1 points (M 7-smooth), done by an
+// M-point mixed-radix line (Inner, register passes only) and its conjugate
+// transpose: the line's points times the chirp, zero past N; the inner
+// forward (line_dif_mr); times the filter, the spectrum of
+// g_j = conj(c_|j|) (|j| < N, cyclic over M) over M at the positions the
+// inner forward leaves its frequencies; the inner inverse (line_dit_mr),
+// which ends in the first pass's layout; points below N times the chirp.
+// The spectrum comes out in natural order in the layout the points went in
+// (kPasses = 1: the points' layout is the spectrum's, freq = pos). The
+// inverse runs the same steps with the conjugate chirp and filter: step by
+// step the conjugate transpose of the forward (the crop's adjoint is the
+// pad, the inner inverse's adjoint the inner forward). O(M log M) a line
+// against the sum pass's O(N p). Under kBf16 the inner forward's operand
+// is rounded, once a transform as every other line rounds; the chirp and
+// filter products and the inner inverse stay FP32.
+
+constexpr int kMaxBluesteinN = 512;
+// c_j = exp(-i pi (j^2 mod 2N) / N) for j < N
+__device__ float2 g_chirp[kMaxBluesteinN];
+// the filter (above) over M, divided by M, at inner position p: frequency digitrev(p)
+__device__ float2 g_filter[kMaxMixedN];
+
+template <int N, class Inner>
+struct BluesteinLine {
+  using In = Inner;
+  static constexpr int kN = N, kTl = In::kTl, kE = In::kE, kSlots = In::kN;
+  static constexpr int kPasses = 1, kStages = In::kStages;
+  static constexpr bool kReadsSlots = In::kReadsSlots;
+  static_assert(kSlots >= 2 * N - 1, "a Bluestein convolution of fewer than 2 N - 1 points");
+  static_assert(!In::is_sum(0), "a Bluestein line's inner passes are register passes");
+
+  // the position inner register m of layout 0 holds in thread t (point d of
+  // coset slot u: d * span + t + T u), the least at t = 0, the largest at T - 1
+  template <int m>
+  __host__ __device__ static constexpr int position(int t) {
+    constexpr int c = In::slots(0);
+    return (m / c) * In::span(0) + t + kTl * (m % c);
+  }
+  template <int k, int m>
+  __device__ __forceinline__ static int pos(int t) {
+    return In::template pos<0, m>(t);
+  }
+  // register m holds a point of the line: a valid inner register below N
+  template <int k, int m>
+  __device__ __forceinline__ static bool ok(int t) {
+    if constexpr (m / In::slots(0) >= In::prod(0) || position<m>(0) >= N) {
+      return false;
+    } else if constexpr (position<m>(kTl - 1) < N) {
+      return In::template ok<0, m>(t);
+    } else {
+      return In::template ok<0, m>(t) && position<m>(t) < N;
+    }
+  }
+  template <int m>
+  __device__ __forceinline__ static int freq(int t) {
+    return position<m>(t);
+  }
+};
+
+// The Bluestein transform of one line (kInv: its inverse, the conjugate
+// transpose), the line's points in v in and its spectrum out (same layout,
+// natural order); registers that hold no point end as zero.
+template <class Line, bool kInv, bool kBf16, class Ex>
+__device__ __forceinline__ void bluestein(float2 (&v)[Line::kE], int t, const Ex& ex) {
+  using In = typename Line::In;
+  auto chirp = [&](auto mm) {
+    constexpr int m = decltype(mm)::value;
+    if (Line::template ok<0, m>(t)) {
+      const float2 c = __ldg(g_chirp + Line::template position<m>(t));
+      v[m] = kInv ? cmul_conj(v[m], c) : cmul(v[m], c);
+    } else {
+      v[m] = make_float2(0.0f, 0.0f);
+    }
+  };
+  static_for<0, Line::kE>(chirp);
+  line_dif_mr<In, kBf16>(v, t, ex);
+  static_for<0, In::kE>([&](auto mm) {
+    constexpr int m = decltype(mm)::value;
+    if (In::template ok<In::kPasses - 1, m>(t)) {
+      const float2 f = __ldg(g_filter + In::template pos<In::kPasses - 1, m>(t));
+      v[m] = kInv ? cmul_conj(v[m], f) : cmul(v[m], f);
+    }
+  });
+  line_dit_mr<In, false>(v, t, ex);
+  static_for<0, Line::kE>(chirp);
+}
+
+template <class Line, bool kBf16 = false, class Ex>
+__device__ __forceinline__ void line_dif_bl(float2 (&v)[Line::kE], int t, const Ex& ex) {
+  bluestein<Line, false, kBf16>(v, t, ex);
+}
+
+template <class Line, bool kBf16 = false, class Ex>
+__device__ __forceinline__ void line_dit_bl(float2 (&v)[Line::kE], int t, const Ex& ex) {
+  bluestein<Line, true, kBf16>(v, t, ex);
+}
+
+// The Bluestein line's tables on the current device: the inner line's
+// twiddles (upload_mixed at M), the chirp and the filter, each computed in
+// double precision and rounded once to float32. The chirp's angle takes
+// j^2 mod 2N in integers.
+template <class Line>
+cudaError_t upload_bluestein() {
+  using In = typename Line::In;
+  constexpr int n = Line::kN, m = In::kN;
+  constexpr double kPi = 3.14159265358979323846;
+  static_assert(n <= kMaxBluesteinN && m <= kMaxMixedN, "a Bluestein line past its tables");
+  REGFFT_TRY(upload_mixed(m));
+  double cr[kMaxBluesteinN], ci[kMaxBluesteinN], wr[kMaxMixedN], wi[kMaxMixedN];
+  float2 chirp[kMaxBluesteinN], filter[kMaxMixedN];
+  for (int j = 0; j < n; ++j) {
+    const long long q = static_cast<long long>(j) * j % (2LL * n);
+    cr[j] = std::cos(-kPi * static_cast<double>(q) / n);
+    ci[j] = std::sin(-kPi * static_cast<double>(q) / n);
+    chirp[j] = make_float2(static_cast<float>(cr[j]), static_cast<float>(ci[j]));
+  }
+  for (int e = 0; e < m; ++e) {
+    wr[e] = std::cos(-2.0 * kPi * e / m);
+    wi[e] = std::sin(-2.0 * kPi * e / m);
+  }
+  for (int p = 0; p < m; ++p) {
+    // frequency f of g: sum over |j| < N of conj(c_|j|) exp(-2 pi i j f / M)
+    const int f = In::digitrev_const(p, 0, In::kStages);
+    double sr = 0.0, si = 0.0;
+    for (int j = 1 - n; j < n; ++j) {
+      const int a = j < 0 ? -j : j;
+      const int e = static_cast<int>((static_cast<long long>(j + m) * f) % m);
+      sr += cr[a] * wr[e] + ci[a] * wi[e];  // conj(c) w
+      si += cr[a] * wi[e] - ci[a] * wr[e];
+    }
+    filter[p] = make_float2(static_cast<float>(sr / m), static_cast<float>(si / m));
+  }
+  REGFFT_TRY(cudaMemcpyToSymbol(g_chirp, chirp, sizeof(float2) * n));
+  REGFFT_TRY(cudaMemcpyToSymbol(g_filter, filter, sizeof(float2) * m));
+  return cudaDeviceSynchronize();
+}
+#endif  // PTYRAD_BLUESTEIN
 
 template <int L, int kMax, class F>
 cudaError_t call_with_logn(F& f) {

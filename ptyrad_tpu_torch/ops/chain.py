@@ -37,10 +37,12 @@ or raises. The kernels take every square N that is a power of two up to
 its own per N, built at its first use or by ``prepare``). They move the
 field through device memory in a row pass and a column pass per slice;
 tests/test_torch_chain_plan.py and tests/test_torch_chain_mixed_plan.py
-emulate how each pass transforms its lines. At a mixed N the transforms
-leave the spectra in the plan's digit-reversed order, so the kernels take
-H gathered with its permutation on both axes (``kernel_h``, under
-autograd: dH comes back in natural order through the gather's adjoint).
+emulate how each pass transforms its lines. At a mixed N the mixed-radix
+transforms leave the spectra in the plan's digit-reversed order, so the
+kernels take H gathered with its permutation on both axes (``kernel_h``,
+under autograd: dH comes back in natural order through the gather's
+adjoint); a Bluestein plan (N with a prime factor above 7 where its cost
+wins) leaves them in natural order and takes H as it is.
 
 ``bf16_operands`` (the bfloat16 compute policy, models/state.py) rounds the
 operand of every 1-D transform pass to bfloat16, forward and adjoint, the
@@ -92,12 +94,13 @@ _PERMS = {}  # (N, device) -> the mixed plan's permutation on the device
 
 def kernel_h(h):
     """H (1 or B, N, N) as the kernels take it: as given at N a power of two
-    (natural order in and out of every transform); at a mixed N gathered
-    with the plan's permutation on both axes, H[:, perm][:, :, perm], where
-    the transforms leave frequency perm[p] at position p. Differentiable:
-    the gather's adjoint puts the kernels' dH back in natural order."""
+    or with a Bluestein plan (natural order in and out of every transform);
+    at any other mixed N gathered with the plan's permutation on both axes,
+    H[:, perm][:, :, perm], where the transforms leave frequency perm[p] at
+    position p. Differentiable: the gather's adjoint puts the kernels' dH
+    back in natural order."""
     n = h.shape[-1]
-    if is_pow2(n):
+    if is_pow2(n) or chain_plan.chain_plan(n).bluestein:
         return h
     key = (n, h.device)
     if key not in _PERMS:

@@ -6,10 +6,11 @@ A power of two N keeps chain.cu's own Stockham plan (``Plan<LOGN>``). Every
 other N in (128, 512] runs the mixed-radix pair of ``csrc/reg_fft.cuh``
 (``line_dif_mr`` forward, ``line_dit_mr`` its conjugate transpose) that
 ``ops/fused_plan.py`` describes for the fused kernels: one in-place stage
-per prime factor, register passes of radix 2, 3, 5 and 7 on whole cosets
-and sum passes of a larger prime, an exchange through shared memory between
-passes. Its candidates and its layouts are fused_plan's (``Pass``,
-``_passes_of``, ``MixedPlan``); what differs is the chain's pass structure.
+per prime factor, register passes of radix 2, 3, 5 and 7 on whole cosets,
+an exchange through shared memory between passes (no sum pass: a larger
+prime takes the Bluestein line below). Its candidates and its layouts are
+fused_plan's (``Pass``, ``_passes_of``, ``MixedPlan``); what differs is the
+chain's pass structure.
 The field is too large for one block, so it moves through device memory in
 a row pass and a column pass per slice:
 
@@ -31,6 +32,20 @@ axes (as the JAX chain pre-permutes H for its radix passes,
 that order (its gather's adjoint puts it back). The far-field exit stores
 frequency f at (f + N // 2) % N on both axes, fftshift's roll at any N.
 
+Where N has a prime factor above 7 the plan is a Bluestein line
+(``reg_fft.cuh`` ``BluesteinLine``): the chirp-z identity turns the
+N-point transform into a cyclic convolution over the least 7-smooth
+M >= 2 N - 1 that has a plan that fits, two M-point mixed-radix lines of
+register passes (``line`` is then that M-point plan) and three pointwise
+products with tables the library computes in double precision
+(``bluestein_tables`` restates them). Its spectrum is in natural order
+(``perm`` is the identity), in the layout the points went in, and its
+slots in an exchange are M. It takes every such N in place of the sum
+pass of the prime (O(p) a point): timed against it on an H100 80GB HBM3 at
+700 W (PERF.md; chain_bench.py --chain-n), the sum pass was ahead by at
+most 10% (130, 495) and behind by up to 1.7x (136, 152, 176), and by 7x
+or more at 254 and 509.
+
 ``chain_plan`` chooses the plan, ``plan_source`` hands it to nvcc as macros
 (a library per N, ``ops/_build.mixed_lib``), and ``ptyrad_chain_plan``
 reports what the library compiled. Python and NumPy alone: the tests import
@@ -44,7 +59,7 @@ import functools
 
 import numpy as np
 
-from ptyrad_tpu_torch.ops.fused_plan import (PAD_SHIFTS, SMALL, MixedPlan, Pass, _passes_of,
+from ptyrad_tpu_torch.ops.fused_plan import (PAD_SHIFTS, SMALL, MixedPlan, _passes_of,
                                              bank_wavefronts, digitrev, is_pow2, pad, primes)
 
 MIN_N, MAX_N = 129, 512  # below, the fused kernels' mixed pair takes every N
@@ -64,12 +79,19 @@ def takes(n: int) -> bool:
 class ChainPlan:
     """How chain.cu's mixed build transforms the N-point lines of its row
     and column passes: ``line`` is the line transform (T threads, the
-    passes, the padded row of the row pass's exchange and its shift)."""
+    passes, the padded row of the row pass's exchange and its shift); for a
+    Bluestein plan the M-point line inside it (``slots`` = M > N)."""
 
     line: MixedPlan
+    n: int
 
     @property
-    def n(self) -> int:
+    def bluestein(self) -> bool:
+        return self.line.n != self.n
+
+    @property
+    def slots(self) -> int:
+        """A line's slots in an exchange: N, or the Bluestein line's M."""
         return self.line.n
 
     @property
@@ -102,8 +124,8 @@ class ChainPlan:
 
     @property
     def col_smem(self) -> int:
-        """Bytes: the column tile, element a of column c at a * COLS + c."""
-        return 8 * COLS * self.n
+        """Bytes: the column tile, slot a of column c at a * COLS + c."""
+        return 8 * COLS * self.slots
 
     @property
     def row_blocks(self) -> int:
@@ -113,10 +135,24 @@ class ChainPlan:
     def col_blocks(self) -> int:
         return -(-self.n // COLS)
 
+    def layouts(self):
+        """(positions, valid), each (2, T, E): the line positions of each
+        thread's registers when they hold its points (0) and the spectrum
+        (1). A Bluestein line keeps both in its inner first pass's layout,
+        below N."""
+        pos, ok = _layouts(self.line)
+        if not self.bluestein:
+            return pos[[0, -1]], ok[[0, -1]]
+        pos0, ok0 = pos[0], ok[0] & (pos[0] < self.n)
+        return np.stack([pos0, pos0]), np.stack([ok0, ok0])
+
     @property
     def perm(self) -> np.ndarray:
         """perm[p] = the frequency the forward leaves at position p: H is
-        handed to the kernels as H[perm][:, perm]."""
+        handed to the kernels as H[perm][:, perm] (a Bluestein line's is
+        the identity)."""
+        if self.bluestein:
+            return np.arange(self.n)
         return np.array([digitrev(p, self.line.radices) for p in range(self.n)])
 
     def reported(self, pmode: int) -> tuple:
@@ -124,33 +160,22 @@ class ChainPlan:
         return (self.n, self.elems, self.line_threads, len(self.line.passes),
                 len(self.line.radices), self.rows, COLS, self.row_threads(pmode),
                 self.col_threads, self.row_smem(pmode), self.col_smem, self.line.line,
-                self.line.pad_shift)
+                self.line.pad_shift, self.slots)
 
 
-def _passes(n: int):
-    """fused_plan's candidate pass sequences for N, and where N has a prime
-    above 7, its 7-smooth part split into two register passes too (before,
-    after or around the sum passes): at 385 = 7 * 5 * 11 one register pass
-    of 35 would hold 35 points a thread."""
-    yield from _passes_of(n)
-    small = sorted((p for p in primes(n) if p in SMALL), reverse=True)
-    sums = tuple(Pass((p,), True) for p in primes(n) if p not in SMALL)
-    if not sums:
-        return
-    for cut in range(1, len(small)):
-        a, b = Pass(tuple(small[:cut])), Pass(tuple(small[cut:]))
-        yield (a, b) + sums
-        yield sums + (a, b)
-        yield (a,) + sums + (b,)
+def smooth(n: int) -> bool:
+    """Whether N's prime factors are all 2, 3, 5 or 7."""
+    return all(p in SMALL for p in primes(n))
 
 
-def _cost(plan: MixedPlan) -> tuple:
+def _cost(plan: ChainPlan) -> tuple:
     """Registers above 16 first, then exchanges, then the thread-registers
     of both passes a line takes (a row pass's warp spends 32 lanes on 32 // T
     lines), then fewer threads a line."""
-    e, t = plan.elems, plan.line_threads
-    work = plan.n * e * (32 / (32 // t) + t)
-    return (max(e - 16, 0), plan.exchanges, work, t)
+    line = plan.line
+    e, t = line.elems, line.line_threads
+    work = line.n * e * (32 / (32 // t) + t)
+    return (max(e - 16, 0), line.exchanges, work, t)
 
 
 def _layouts(plan: MixedPlan):
@@ -181,44 +206,84 @@ def wavefronts(plan: MixedPlan, layouts=None) -> tuple:
     return bank_wavefronts(np.where(use, addr, -1))
 
 
+def _fitting(n: int, size: int, passes):
+    """The plans of an N-point chain line over ``size`` points with these
+    passes and T <= 32 threads that hold at most 32 registers a thread."""
+    for t in range(2, MAX_LINE_THREADS + 1):
+        plan = ChainPlan(MixedPlan(size, t, passes, size), n)
+        if plan.elems <= MAX_ELEMS:
+            yield plan
+
+
+def _candidates(n: int):
+    """Every plan chain.cu's mixed build could compile for N: the pass
+    sequences of a 7-smooth N, else the Bluestein line over the least
+    7-smooth M >= 2 N - 1 that has a plan that fits (a power of two
+    M <= 1,024 always does)."""
+    if smooth(n):
+        yield from (plan for passes in _passes_of(n) for plan in _fitting(n, n, passes))
+        return
+    for m in (m for m in range(2 * n - 1, 1 << (2 * n - 2).bit_length() + 1) if smooth(m)):
+        plans = [plan for passes in _passes_of(m) for plan in _fitting(n, m, passes)]
+        if plans:
+            yield from plans
+            return
+
+
 @functools.lru_cache(maxsize=None)
 def chain_plan(n: int) -> ChainPlan:
     """The plan chain.cu's mixed build compiles for N (in (128, 512], not a
-    power of two): the cheapest pass sequence and T <= 32 by _cost with at
-    most 32 registers a thread, then the row padding (PAD_SHIFTS) and the
-    padded row, from pad(N - 1) + 1 up, with the fewest wavefronts of a
-    row-pass warp (the shortest row among equals)."""
+    power of two): the cheapest candidate by _cost, then the row padding
+    (PAD_SHIFTS) and the padded row, from pad(slots - 1) + 1 up, with the
+    fewest wavefronts of a row-pass warp (the shortest row among equals)."""
     if not takes(n):
         raise ValueError(f"chain_plan: N must be in ({MIN_N - 1}, {MAX_N}] and not a power of "
                          f"two, got {n}")
-    best = None
-    for passes in _passes(n):
-        for t in range(2, MAX_LINE_THREADS + 1):
-            plan = MixedPlan(n, t, passes, n)
-            if plan.elems > MAX_ELEMS:
-                continue
-            cost = _cost(plan)
-            if best is None or cost < best[0]:
-                best = (cost, plan)
-    plan = best[1]
-    lays = _layouts(plan)
-    lines = [dataclasses.replace(plan, line=pad(n - 1, s) + 1 + d, pad_shift=s)
+    plan = min(_candidates(n), key=_cost)
+    line, size = plan.line, plan.slots
+    lays = _layouts(line)
+    lines = [dataclasses.replace(line, line=pad(size - 1, s) + 1 + d, pad_shift=s)
              for s in PAD_SHIFTS for d in range(16)]
-    return ChainPlan(min(lines, key=lambda p: (wavefronts(p, lays)[0], p.line, -p.pad_shift)))
+    best = min(lines, key=lambda p: (wavefronts(p, lays)[0], p.line, -p.pad_shift))
+    return ChainPlan(best, n)
+
+
+def bluestein_tables(n: int) -> tuple:
+    """The Bluestein line's tables as the library computes them (reg_fft.cuh
+    upload_bluestein), in double precision before the rounding to float32:
+    the chirp c_j = exp(-i pi (j^2 mod 2N) / N) for j < N, and the filter,
+    the spectrum over M of g_j = conj(c_|j|) (|j| < N, cyclic) divided by M,
+    at inner position p the frequency digitrev(p)."""
+    plan = chain_plan(n)
+    if not plan.bluestein:
+        raise ValueError(f"bluestein_tables: N = {n} has no Bluestein plan")
+    m = plan.slots
+    j = np.arange(n)
+    chirp = np.exp(-1j * np.pi * ((j * j) % (2 * n)) / n)
+    g = np.zeros(m, complex)
+    g[:n] = np.conj(chirp)
+    g[m - n + 1:] = np.conj(chirp[1:][::-1])
+    f = np.array([digitrev(p, plan.line.radices) for p in range(m)])
+    return chirp, np.fft.fft(g)[f] / m
 
 
 def plan_source(n: int, bf16_operands: bool = False) -> str:
     """The source that compiles chain.cu for N's mixed plan (its _bf16 twin
     with bf16_operands): the line type (regfft::MixedLine<N, T,
-    passes...>), the padded row and the padding's shift as macros, then the
-    kernel file. A file, since nvcc splits a -D value at its commas."""
-    plan = chain_plan(n).line
+    passes...>, or for a Bluestein plan PTYRAD_BLUESTEIN and
+    regfft::BluesteinLine<N, the M-point MixedLine>), the padded row and the
+    padding's shift as macros, then the kernel file. A file, since nvcc
+    splits a -D value at its commas."""
+    plan = chain_plan(n)
+    line = plan.line
     passes = ", ".join(f"regfft::Pass<{str(p.sum).lower()}, {', '.join(map(str, p.radices))}>"
-                       for p in plan.passes)
+                       for p in line.passes)
+    mixed = f"regfft::MixedLine<{line.n}, {line.line_threads}, {passes}>"
     return (f"// chain.cu at N = {n}: ops/chain_plan.py's mixed-radix plan\n"
             + ("#define PTYRAD_BF16_OPERANDS 1\n" if bf16_operands else "")
-            + f"#define PTYRAD_MIXED_LINE regfft::MixedLine<{n}, {plan.line_threads}, {passes}>\n"
-            f"#define PTYRAD_MIXED_ROW {plan.line}\n"
-            f"#define PTYRAD_MIXED_PAD {plan.pad_shift}\n"
+            + ("#define PTYRAD_BLUESTEIN 1\n" if plan.bluestein else "")
+            + "#define PTYRAD_MIXED_LINE "
+            + (f"regfft::BluesteinLine<{n}, {mixed}>\n" if plan.bluestein else f"{mixed}\n")
+            + f"#define PTYRAD_MIXED_ROW {line.line}\n"
+            f"#define PTYRAD_MIXED_PAD {line.pad_shift}\n"
             '#include "chain.cu"\n')
-

@@ -24,13 +24,14 @@ fftshift(fft2(.)) at rtol 1e-5 of the largest entry (double precision
 arithmetic; the only float32 rounding is the twiddle table's
 exp(-2 pi i e / N)); at three odd N (135, 243, 509) the exit's adjoint too,
 loaded through the same map. Register passes run stage by stage as
-mr_stages does, sum passes as mr_sum's direct sums (as matrix products).
+mr_stages does (a chain plan has no sum pass).
 
 Last, with torch: H gathered with the permutation (``kernel_h``) and the
 kernels' dH accumulated in that order, returned through the gather's
 adjoint, give the natural-order propagation and its dH.
 """
 
+import hashlib
 import math
 
 import numpy as np
@@ -70,18 +71,21 @@ def _table(n):
     return np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64).astype(complex)
 
 
-class Emulator:
-    """chain.cu's mixed line transforms for every line of a phase at once.
-    Registers are (T, E, lines), a register that holds no point at zero;
-    a phase's lines go in and come out as (lines, N)."""
+def _f32(z):
+    """A table rounded once to float32, as the library uploads it."""
+    return np.asarray(z).astype(np.complex64).astype(complex)
 
-    def __init__(self, n):
-        self.plan = CP.chain_plan(n)
-        self.mp = self.plan.line
-        self.n = n
-        self.pos, self.ok = _layouts(self.mp)
-        self.table = _table(n)
-        self.freq = np.vectorize(lambda p: digitrev(p, self.mp.radices))(self.pos[-1])
+
+class LineEmulator:
+    """The mixed-radix pair of a MixedPlan (its own size: N, or a Bluestein
+    line's M) for every line of a phase at once. Registers are (T, E,
+    lines), a register that holds no point at zero."""
+
+    def __init__(self, mp):
+        self.mp = mp
+        self.n = mp.n
+        self.pos, self.ok = _layouts(mp)
+        self.table = _table(self.n)
         self._maps = {}
 
     def tw(self, e):
@@ -89,32 +93,33 @@ class Emulator:
         assert e.min() >= 0 and e.max() < self.n, "a twiddle outside the table"
         return self.table[e]
 
-    def _map(self, pos, ok):
-        """(gather, scatter) of a layout: register (t, m) reads line position
-        gather[t E + m] (N: the zero pad), position p is held by register
-        scatter[p]; each position held by exactly one register."""
-        key = (pos.tobytes(), ok.tobytes())
+    def _map(self, pos, ok, size):
+        """(gather, scatter) of a layout of ``size`` positions: register
+        (t, m) reads line position gather[t E + m] (N: the zero pad),
+        position p is held by register scatter[p]; each position held by
+        exactly one register."""
+        key = (pos.tobytes(), ok.tobytes(), size)
         if key not in self._maps:
             flat_ok = ok.ravel()
             p = pos.ravel()[flat_ok]
-            assert np.bincount(p, minlength=self.n).tolist() == [1] * self.n, \
+            assert np.bincount(p, minlength=size).tolist() == [1] * size, \
                 "a line position held twice or never"
-            scatter = np.empty(self.n, int)
+            scatter = np.empty(size, int)
             scatter[p] = np.flatnonzero(flat_ok)
             self._maps[key] = (np.where(flat_ok, pos.ravel(), 0), np.flatnonzero(~flat_ok),
                                scatter)
         return self._maps[key]
 
     def to_regs(self, cols, pos, ok):
-        """cols (N, lines) -> registers (T, E, lines) in the layout."""
-        gather, empty, _ = self._map(pos, ok)
+        """cols (size, lines) -> registers (T, E, lines) in the layout."""
+        gather, empty, _ = self._map(pos, ok, cols.shape[0])
         v = cols[gather]
         v[empty] = 0.0
         return v.reshape(*pos.shape, cols.shape[1])
 
-    def from_regs(self, v, pos, ok):
-        """registers (T, E, lines) -> cols (N, lines)."""
-        _, _, scatter = self._map(pos, ok)
+    def from_regs(self, v, pos, ok, size=None):
+        """registers (T, E, lines) -> cols (size, lines)."""
+        _, _, scatter = self._map(pos, ok, size or self.n)
         return v.reshape(-1, v.shape[-1])[scatter]
 
     def store(self, v, k):
@@ -174,69 +179,83 @@ class Emulator:
         flat[regs] = maps @ flat[regs]
         return flat.reshape(v.shape)
 
-    def sum_pass(self, slots, k, inverse):
-        """mr_sum: output (h, q, w) of the prime p over span l is
-        W_{p l}^(w q) sum_i x(h, i, w) w_p^(q i) (inverse: the conjugate
-        transpose), its inputs read from the slots at base + i * span;
-        thread t computes positions t + T j."""
-        n = self.n
-        p, _, span, _, _ = self.mp.geometry(k)
-        step, wstep = n // p, n // (p * span)
-        y = slots.reshape(n // (p * span), p, span, -1)                 # (h, i, w, lines)
-        q, w = np.arange(p), np.arange(span)
-        m = self.tw((np.outer(q, q) % p) * step)                        # (q, i)
-        tw = self.tw(np.outer(q, w) * wstep)[:, :, None]               # (q, w, 1)
-        if inverse:
-            out = np.matmul(np.conj(m), (y * np.conj(tw)).reshape(y.shape[0], p, -1))
-        else:
-            out = np.matmul(m, y.reshape(y.shape[0], p, -1)).reshape(y.shape) * tw
-        return self.load(out.reshape(n, -1), k)
-
     def dif(self, v):
         """line_dif_mr: points layout in, spectrum layout out."""
-        passes, slots = self.mp.passes, None
-        for k in range(len(passes)):
-            if k > 0 or passes[0].sum:
-                slots = self.store(v, k - 1 if k > 0 else 0)
-                if not passes[k].sum:
-                    v = self.load(slots, k)
-            v = self.sum_pass(slots, k, False) if passes[k].sum else self.reg_pass(v, k, False)
+        for k in range(len(self.mp.passes)):
+            if k > 0:
+                v = self.load(self.store(v, k - 1), k)
+            v = self.reg_pass(v, k, False)
         return v
 
     def dit(self, v):
         """line_dit_mr, the conjugate transpose: spectrum layout in, points out."""
-        passes, last, slots = self.mp.passes, len(self.mp.passes) - 1, None
+        last = len(self.mp.passes) - 1
         for k in range(last, -1, -1):
-            if k < last or passes[k].sum:
-                slots = self.store(v, k + 1 if k < last else k)
-                if not passes[k].sum:
-                    v = self.load(slots, k)
-            v = self.sum_pass(slots, k, True) if passes[k].sum else self.reg_pass(v, k, True)
+            if k < last:
+                v = self.load(self.store(v, k + 1), k)
+            v = self.reg_pass(v, k, True)
         return v
+
+
+class Emulator:
+    """chain.cu's line transforms at N for every line of a phase at once:
+    the mixed-radix pair (LineEmulator), or the Bluestein line (the chirp,
+    the M-point forward, the filter, the M-point inverse, the chirp; the
+    tables of chain_plan.bluestein_tables rounded to float32, the inverse
+    with their conjugates). A phase's lines go in and come out as (lines,
+    N), through the plan's layouts of the points and of the spectrum."""
+
+    def __init__(self, n):
+        self.plan = CP.chain_plan(n)
+        self.line = LineEmulator(self.plan.line)
+        self.n = n
+        (self.pos0, self.spos), (self.ok0, self.sok) = self.plan.layouts()
+        if self.plan.bluestein:
+            chirp, filt = (_f32(t) for t in CP.bluestein_tables(n))
+            self.chirp = np.where(self.ok0, chirp[np.where(self.ok0, self.pos0, 0)], 0)[..., None]
+            lpos, lok = self.line.pos[-1], self.line.ok[-1]
+            self.filter = np.where(lok, filt[lpos], 0)[..., None]
+            self.freq = self.spos
+        else:
+            self.freq = np.vectorize(lambda p: digitrev(p, self.plan.line.radices))(self.spos)
+
+    def _bluestein(self, v, inverse):
+        chirp = np.conj(self.chirp) if inverse else self.chirp
+        filt = np.conj(self.filter) if inverse else self.filter
+        v = self.line.dit(self.line.dif(v * chirp) * filt)
+        return v * chirp
+
+    def dif(self, v):
+        """The forward: points layout in, spectrum layout out."""
+        return self._bluestein(v, False) if self.plan.bluestein else self.line.dif(v)
+
+    def dit(self, v):
+        """The inverse, the conjugate transpose: spectrum layout in, points out."""
+        return self._bluestein(v, True) if self.plan.bluestein else self.line.dit(v)
 
     # a phase's loads and stores of its lines (lines, N): the points'
     # layout, the spectrum's, or the spectrum's at the far-field exit's
     # places (f + N // 2) % N
     def points(self, lines):
-        return self.to_regs(lines.T, self.pos[0], self.ok[0])
+        return self.line.to_regs(lines.T, self.pos0, self.ok0)
 
     def from_points(self, v):
-        return self.from_regs(v, self.pos[0], self.ok[0]).T
+        return self.line.from_regs(v, self.pos0, self.ok0, self.n).T
 
     def spectrum(self, lines):
-        return self.to_regs(lines.T, self.pos[-1], self.ok[-1])
+        return self.line.to_regs(lines.T, self.spos, self.sok)
 
     def from_spectrum(self, v):
-        return self.from_regs(v, self.pos[-1], self.ok[-1]).T
+        return self.line.from_regs(v, self.spos, self.sok, self.n).T
 
     def shifted(self):
         return (self.freq + self.n // 2) % self.n
 
     def from_shifted(self, v):
-        return self.from_regs(v, self.shifted(), self.ok[-1]).T
+        return self.line.from_regs(v, self.shifted(), self.sok, self.n).T
 
     def shifted_regs(self, lines):
-        return self.to_regs(lines.T, self.shifted(), self.ok[-1])
+        return self.line.to_regs(lines.T, self.shifted(), self.sok)
 
 
 def _assert_close(actual, expected):
@@ -249,10 +268,15 @@ def _assert_close(actual, expected):
 def test_plan_fits_the_card(n):
     plan = CP.chain_plan(n)
     mp = plan.line
-    assert math.prod(mp.radices) == n
+    assert math.prod(mp.radices) == plan.slots and not any(p.sum for p in mp.passes)
+    if plan.bluestein:  # a cyclic convolution of 2 N - 1 points or more
+        assert plan.slots >= 2 * n - 1 and CP.smooth(plan.slots) and plan.slots <= 1024
+    else:
+        assert plan.slots == n
+    assert plan.bluestein != CP.smooth(n)
     assert 2 <= plan.line_threads <= 32 and plan.elems <= CP.MAX_ELEMS
     assert mp.exchanges >= 1  # every transform syncs between its loads and its stores
-    assert mp.line >= pad(n - 1, mp.pad_shift) + 1
+    assert mp.line >= pad(plan.slots - 1, mp.pad_shift) + 1
     for pmode in PMODES:
         assert plan.row_threads(pmode) == 32 * min(pmode, 4) <= ROW_THREAD_LIMIT
         assert plan.row_smem(pmode) <= CP.SMEM_LIMIT
@@ -269,7 +293,7 @@ def test_passes_cover_the_field_once(n):
     tid % 16, t = tid // 16), live while the column is below N. In each
     layout every (y, x) is held once; every mode once for pmode 1 ... 8."""
     plan = CP.chain_plan(n)
-    pos, ok = _layouts(plan.line)
+    pos, ok = plan.layouts()
     tl, rows = plan.line_threads, plan.rows
     lane = np.arange(32)
     line, t = lane // tl, lane % tl
@@ -279,7 +303,7 @@ def test_passes_cover_the_field_once(n):
     c, tc = tid % CP.COLS, tid // CP.COLS
     x = np.arange(plan.col_blocks)[:, None] * CP.COLS + c[None, :]       # (cx, tid)
     clive = x < n
-    for k in (0, len(plan.line.passes) - 1):
+    for k in (0, 1):  # the points' layout, the spectrum's
         # rows: (bx, lane, E)
         use = live[..., None] & ok[k][t][None]
         yy = np.broadcast_to(y[..., None], use.shape)[use]
@@ -330,21 +354,96 @@ def test_emulated_passes_match_numpy(n):
         _assert_close(back, np.conj(np.fft.fft2(np.conj(np.fft.ifftshift(g)))))
 
 
+# sha256 of plan_source(N)[:12] for every 7-smooth N in (128, 512] that is
+# not a power of two, as they were before the Bluestein candidate: those
+# plans, and so their machine code, stay what they were
+SMOOTH_SOURCES = {
+    135: "024a7defd838", 140: "e0482ce73625", 144: "e2c471589636", 147: "3d702158c4ec",
+    150: "6fa7aadc7930", 160: "b3ad3d01acac", 162: "f05012a122d1", 168: "897d3246244f",
+    175: "fcdb23595c70", 180: "33dbcfca4351", 189: "9b84435f9524", 192: "be82372cbfdb",
+    196: "b83da6250059", 200: "8ab66b74c48e", 210: "c18374aeea96", 216: "80408bab97fb",
+    224: "acd484989fa6", 225: "bd60cb51ce59", 240: "7ff48dbdd040", 243: "63b1d354f4e4",
+    245: "4643a6f1ee49", 250: "2fcc6dda7e8a", 252: "aae698413a0b", 270: "79a8335f25f0",
+    280: "d722e166afd2", 288: "c675cf3683d1", 294: "7175c8efdabb", 300: "01a5067449c3",
+    315: "a713e21617dd", 320: "ee13a7e60c55", 324: "02cfd1bb049e", 336: "1ad5e4357a29",
+    343: "edd9ca39fcc4", 350: "226269a47b88", 360: "fa888252de7f", 375: "7c6fb25869b0",
+    378: "e9d1855b2830", 384: "37b9eef1fa79", 392: "60df3a34251a", 400: "123d75210230",
+    405: "fe42f12e35d6", 420: "a73218dcb3e4", 432: "e926799b9a7b", 441: "9d949dfbac3f",
+    448: "46d97377a503", 450: "2e042c82187d", 480: "ce06815522f2", 486: "269aaa668589",
+    490: "bc743b0148b9", 500: "bfc33530a55c", 504: "5352493a7000",
+}
+
+
 @pytest.mark.parametrize("n", NS)
 def test_plan_source_and_permutation(n):
-    """The spectrum holds every frequency once (perm is a permutation), and
-    the generated source names the plan's line, row and padding."""
+    """The spectrum holds every frequency once (perm is a permutation; a
+    Bluestein line's the identity), and the generated source names the
+    plan's line, row and padding; a 7-smooth N's source is the one it had
+    before the Bluestein candidate."""
     plan = CP.chain_plan(n)
-    em_freq = [digitrev(p, plan.line.radices) for p in range(n)]
+    mp = plan.line
+    em_freq = list(range(n)) if plan.bluestein else [digitrev(p, mp.radices) for p in range(n)]
     assert sorted(em_freq) == list(range(n)) and plan.perm.tolist() == em_freq
     src = CP.plan_source(n).splitlines()
     passes = ", ".join(f"regfft::Pass<{str(p.sum).lower()}, {', '.join(map(str, p.radices))}>"
-                       for p in plan.line.passes)
-    assert src[1] == (f"#define PTYRAD_MIXED_LINE regfft::MixedLine<{n}, {plan.line_threads}, "
-                      f"{passes}>")
-    assert src[2:] == [f"#define PTYRAD_MIXED_ROW {plan.line.line}",
-                       f"#define PTYRAD_MIXED_PAD {plan.line.pad_shift}", '#include "chain.cu"']
+                       for p in mp.passes)
+    line = f"regfft::MixedLine<{mp.n}, {plan.line_threads}, {passes}>"
+    if plan.bluestein:
+        assert src[1] == "#define PTYRAD_BLUESTEIN 1"
+        line = f"regfft::BluesteinLine<{n}, {line}>"
+        src = src[:1] + src[2:]
+    assert src[1] == f"#define PTYRAD_MIXED_LINE {line}"
+    assert src[2:] == [f"#define PTYRAD_MIXED_ROW {mp.line}",
+                       f"#define PTYRAD_MIXED_PAD {mp.pad_shift}", '#include "chain.cu"']
     assert CP.plan_source(n, bf16_operands=True).splitlines()[1] == "#define PTYRAD_BF16_OPERANDS 1"
+    if CP.smooth(n):
+        assert hashlib.sha256(CP.plan_source(n).encode()).hexdigest()[:12] == SMOOTH_SOURCES[n]
+    assert (n in SMOOTH_SOURCES) == CP.smooth(n)
+
+
+@pytest.mark.parametrize("n", [135, 176, 254, 384, 385, 509])
+def test_line_adjoint(n):
+    """The inverse line transform is the forward's conjugate transpose:
+    <F x, y> = <x, F^H y> to 1e-12 in float64 (the float32 tables alike
+    in both), at 135 (two register passes), 384 (three), and Bluestein
+    lines over three register passes (176 over 360 points, 254 over 512)
+    and over two (385 over 784, 509 over 1,024)."""
+    em = Emulator(n)
+    rng = np.random.default_rng(n + 1)
+    x = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    y = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    fx = em.from_spectrum(em.dif(em.points(x)))
+    fhy = em.from_points(em.dit(em.spectrum(y)))
+    lhs, rhs = np.vdot(y, fx), np.vdot(fhy, x)
+    assert abs(lhs - rhs) <= 1e-12 * np.linalg.norm(x) * np.linalg.norm(y) * n
+    _assert_close(fx, np.fft.fft(x, axis=1)[:, em.plan.perm])
+
+
+def test_bluestein_plans_and_tables():
+    """chain_plan takes the Bluestein line at every N with a prime above
+    7, over the least 7-smooth M >= 2 N - 1 that fits (509, a prime, and
+    254 = 2 x 127 over 1,024 and 512; 176 = 16 x 11 over 360; 495 over
+    1,024, since 1,000 and 1,008 fit no plan), and has no other candidate
+    there; the chirp at 509 is exp(-i pi (j^2 mod 2N) / N) rounded once to
+    float32, its angle never taken from a float j^2; the filter is the
+    spectrum of the conjugate chirp over M, divided by M, in the inner
+    forward's digit-reversed order."""
+    for n, m in ((509, 1024), (254, 512), (176, 360), (495, 1024)):
+        plan = CP.chain_plan(n)
+        assert plan.bluestein and plan.slots == m
+        assert all(c.bluestein and c.slots == m for c in CP._candidates(n))
+    assert all(CP.chain_plan(n).bluestein for n in NS if not CP.smooth(n))
+    n = 509
+    chirp, filt = CP.bluestein_tables(n)
+    j = np.arange(n)
+    exact = np.exp(-1j * np.pi * ((j * j) % (2 * n)) / n)
+    assert np.array_equal(chirp.astype(np.complex64), exact.astype(np.complex64))
+    assert np.abs(chirp - np.exp(-1j * np.pi * j.astype(float) ** 2 / n)).max() < 1e-9
+    m = CP.chain_plan(n).slots
+    g = np.zeros(m, complex)
+    g[:n], g[m - n + 1:] = np.conj(exact), np.conj(exact[1:][::-1])
+    order = [digitrev(p, CP.chain_plan(n).line.radices) for p in range(m)]
+    np.testing.assert_allclose(filt, np.fft.fft(g)[order] / m, rtol=0, atol=1e-12)
 
 
 class _PermutedPropagation(torch.autograd.Function):

@@ -5,11 +5,12 @@ On a CUDA tensor the port runs chain.cu's mixed-radix build at these N
 (its plan is tests/test_torch_chain_mixed_plan.py's); on the CPU the same
 entry points run their plain versions, which are held here against the JAX
 package's chain kernels in Pallas interpret mode (the ``interpret`` fixture
-of tests/test_torch_chain.py) at N = 136 (a sum pass of 17 in the port's
-plan), 135 (odd, 3^3 5) and 192 (PSO padded to 192^2). The JAX chain's DFT
-is a dense matrix product at these N (no radix pass), so both take H in
-natural order. Small shapes: B = 2, 2 probe modes, 3 to 5 slices with
-Sg = 2.
+of tests/test_torch_chain.py) at N = 136 (8 x 17: a Bluestein line over
+280 points in the port's plan), 135 (odd, 3^3 5), 192 (PSO padded to
+192^2) and 254 (2 x 127, PSO padded to 254^2: a Bluestein line over 512
+points). The JAX chain's DFT is a dense matrix product at these N (no
+radix pass), so both take H in natural order. Small shapes: B = 2, 2 probe
+modes, 3 to 5 slices with Sg = 2.
 
 - ``chain_segment`` (last both ways) and ``chain_stack`` (last_mega both
   ways) with every cotangent and dH, on a shared and a per-position H;
@@ -18,7 +19,7 @@ Sg = 2.
   slices and B5 over a 1-slice tail. The JAX chain takes every case here
   (``pch.chain_applicable_shapes``); a case it declined would be held
   against the JAX package's XLA ``multislice_dp`` instead (``_jax_dp``);
-- ``forward_route`` gives "chain" at 136, 192, 240, 384 and 509, and a
+- ``forward_route`` gives "chain" at 136, 192, 240, 254, 384 and 509, and a
   2-iteration solver run at N = 192 (64 positions, 3 slices, 2 modes: the
   chain route's plain versions) matches the JAX solver's loss trajectory
   (its XLA route on the CPU) at rtol 1e-4.
@@ -130,7 +131,7 @@ def _compare_vjp(j_fn, t_fn, psi, a, p, h, g):
 
 
 @pytest.mark.parametrize("n,last,h_b", [(136, True, 1), (135, False, B), (192, True, B),
-                                         (192, False, 1)])
+                                         (192, False, 1), (254, True, B)])
 def test_chain_segment_matches_jax(interpret, n, last, h_b):
     """B5 over a 3-slice segment: the exit and every cotangent, dH included."""
     psi, a, p, h, g = _inputs(np.random.default_rng(n), n, 3, h_b)
@@ -138,7 +139,8 @@ def test_chain_segment_matches_jax(interpret, n, last, h_b):
                  lambda *x: C.chain_segment(*x, last), psi, a, p, h, g)
 
 
-@pytest.mark.parametrize("n,last_mega,h_b", [(136, False, B), (135, True, 1), (192, False, 1)])
+@pytest.mark.parametrize("n,last_mega,h_b", [(136, False, B), (135, True, 1), (192, False, 1),
+                                              (254, False, 1)])
 def test_chain_stack_matches_jax(interpret, n, last_mega, h_b):
     """B6 over S = 2 segments of Sg = 2 slices: the propagation across the
     segment boundary and, with last_mega False, the exit's own propagation
@@ -148,7 +150,7 @@ def test_chain_stack_matches_jax(interpret, n, last_mega, h_b):
                  lambda *x: C.chain_stack(*x, 2, last_mega), psi, a, p, h, g)
 
 
-@pytest.mark.parametrize("n,h_b", [(136, 1), (135, B), (192, B)])
+@pytest.mark.parametrize("n,h_b", [(136, 1), (135, B), (192, B), (254, 1)])
 def test_chain_segment_far_field_matches_jax(exit_on, n, h_b):
     """B5 with the exit (fftshift(fft2(.)) of the final slice, unnormalised:
     at odd N the roll by N // 2): the spectrum and every cotangent, dH
@@ -169,7 +171,8 @@ def _jax_dp(obja, objp, probe, h, occu, seg, need_dh):
     return jax_multislice_dp(obja, objp, pr, Cplx(*h), occu, 1e-10)
 
 
-@pytest.mark.parametrize("n,far_field", [(136, False), (135, True), (192, False), (192, True)])
+@pytest.mark.parametrize("n,far_field", [(136, False), (135, True), (192, False), (192, True),
+                                         (254, True)])
 def test_multislice_dp_chain_matches_jax(interpret, n, far_field):
     """multislice_dp_chain with dH (B6 over 4 slices, B5 over a 1-slice
     tail; with the exit, B5 ends in the detector transform): dp and the
@@ -209,7 +212,7 @@ def test_multislice_dp_chain_matches_jax(interpret, n, far_field):
     assert_grad_close(np_(leaves[3].grad).imag, g_ref[5], "dH.im")
 
 
-@pytest.mark.parametrize("n", [136, 192, 240, 384, 509])
+@pytest.mark.parametrize("n", [136, 192, 240, 254, 384, 509])
 def test_chain_route_takes_every_n(n):
     """forward_route gives the chain at these N on any device (a meta model
     stands for a CUDA one): square, above 128 and up to 512."""

@@ -728,10 +728,11 @@ def test_chain_kernels_on_each_plan(dev, gen, n, pmode, h_case):
 
 
 # N of each kind of mixed plan (ops/chain_plan.py): two register passes
-# (135, 192, 240), three (384), a register pass and a sum pass (136: 8 and
-# 17), two register passes around a sum pass (385: 7, 5, 11), a lone sum
-# pass (509, prime)
-MIXED_NS = [135, 136, 192, 240, 384, 385, 509]
+# (135, 192, 240), three (384), a Bluestein line over three register passes
+# (136 = 8 x 17 over 280 points, 176 = 16 x 11 over 360, 254 = 2 x 127 over
+# 512) and over two (385 = 5 x 7 x 11 over 784, 509, prime, over 1,024):
+# every N with a prime above 7 takes it
+MIXED_NS = [135, 136, 176, 192, 240, 254, 384, 385, 509]
 
 
 def test_chain_mixed_plans_match_chain_plan(dev):
@@ -748,7 +749,7 @@ def test_chain_mixed_plans_match_chain_plan(dev):
     for n in MIXED_NS:
         C.prepare(dev, n)  # N's library loaded and warmed up
         for pmode in (1, 3, 4, 8):
-            out = (ctypes.c_int * 13)()
+            out = (ctypes.c_int * 14)()
             _build.check(_build.mixed_lib(n).ptyrad_chain_plan(n, pmode, out), "ptyrad_chain_plan")
             assert tuple(out) == chain_plan(n).reported(pmode)
 
@@ -797,7 +798,7 @@ def test_chain_kernels_at_mixed_n(dev, gen, n, h_case):
     assert getattr(C.segment_fwd_cuda, f"launches_n{n}") == before + 6
 
 
-@pytest.mark.parametrize("n,nz", [(192, 21), (509, 3)])
+@pytest.mark.parametrize("n,nz", [(192, 21), (254, 21), (509, 3)])
 @pytest.mark.parametrize("need_dh", [False, True])
 def test_multislice_dp_chain_cuda_at_mixed_n(dev, gen, n, nz, need_dh):
     """multislice_dp_chain at a mixed N (B6 over the uniform segments, B5
