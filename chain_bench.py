@@ -10,6 +10,8 @@ of this repository on one NVIDIA GPU, in turns.
         --steps --mixed-n 96 120 127 192 384
     python3 chain_bench.py --trees _ab/parent . . _ab/parent --checks check_chain_npo2 \
         --steps --chain-n 130 136 176 495
+    python3 chain_bench.py --trees _ab/parent . . _ab/parent --checks check_fused_npo2 \
+        --steps --fused-n 110 117 121 122 124 127
 
 Each turn is a process of its own. It imports ptyrad_tpu_torch from its tree
 (which builds that tree's kernels at first use) and chip_smoke.py from this
@@ -30,6 +32,9 @@ one, so every tree is timed on the same rows, inputs and steps:
     chip_smoke's, each at PSO's widths (B 32, 4 modes, 21 slices: B6 over
     2 x 8, B5 over the 5-slice tail; no _bf16 rows), their libraries built
     beside the main one, and each tree's plan at each N (its line type);
+    with --fused-n N ..., check_fused_npo2's rows (B3a, B3b, B3b with dH,
+    B4a, B4b) at those N in place of chip_smoke's, each at PSO's widths (B
+    32, 4 modes, 21 slices; no _bf16 rows), likewise;
   - chip_smoke.propagation_yardstick: B6a's row and column pass
     (torch.profiler);
   - the launch guard's host cost, where the tree has ops._build.launch: us
@@ -145,7 +150,8 @@ def step_profile(cs, dev, params: dict, init: dict, path: str, niter: int, n_bat
     return out
 
 
-def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps, chain_n=()) -> dict:
+def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps, chain_n=(),
+           fused_n=()) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -157,13 +163,14 @@ def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps, chain_n=(
     from ptyrad_tpu_torch.ops import _build
     from ptyrad_tpu_torch.ops import chain as C
     from ptyrad_tpu_torch.ops import chain_plan as CP
+    from ptyrad_tpu_torch.ops import fused_plan as FP
 
     assert C.__file__.startswith(os.path.abspath(root)), (C.__file__, root)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     pin_fp32()
     t0 = time.perf_counter()
-    _build.build(extra_n=chain_n)
+    _build.build(extra_n=tuple(chain_n) + tuple(fused_n))
     _build.lib()
     build_s = time.perf_counter() - t0
     plans = {}
@@ -173,6 +180,11 @@ def worker(root: str, atomic_b2: bool, atomic_b3: bool, checks, steps, chain_n=(
         cs.chain_npo2_case = lambda n: {**pso, "note": f"PSO widths at {n}^2"}
         plans = {n: next(ln for ln in CP.plan_source(n).splitlines() if "MIXED_LINE" in ln)
                  for n in chain_n}
+    if fused_n:
+        cs.FUSED_ROWS = tuple((n, "PSO", f"N={n}") for n in fused_n)
+        cs.FUSED_BF16_ROWS = ()
+        plans.update({n: next(ln for ln in FP.plan_source(n).splitlines() if "MIXED_LINE" in ln)
+                      for n in fused_n})
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     all_rows = checks is None
     rows = cs.kernel_rows(dev, gen, atomic_b2, atomic_b3, checks or cs.KERNEL_CHECKS)
@@ -306,6 +318,9 @@ def main() -> int:
     ap.add_argument("--chain-n", nargs="+", type=int, default=[], metavar="N",
                     help="time check_chain_npo2's rows at these N (PSO widths) in place of "
                          "chip_smoke's")
+    ap.add_argument("--fused-n", nargs="+", type=int, default=[], metavar="N",
+                    help="time check_fused_npo2's rows at these N (PSO widths) in place of "
+                         "chip_smoke's")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -315,7 +330,8 @@ def main() -> int:
             print("chain_bench.py: CUDA is not available", file=sys.stderr)
             return 2
         print(json.dumps(worker(args.worker, bool(args.atomic_b2), bool(args.atomic_b3),
-                                args.checks, args.steps, args.chain_n)), flush=True)
+                                args.checks, args.steps, args.chain_n, args.fused_n)),
+              flush=True)
         return 0
     turns = []
     for tree in args.trees:
@@ -325,6 +341,7 @@ def main() -> int:
         flags += ["--atomic-b3", tree] if tree in args.atomic_b3 else []
         flags += ["--checks", *args.checks] if args.checks else []
         flags += ["--chain-n", *map(str, args.chain_n)] if args.chain_n else []
+        flags += ["--fused-n", *map(str, args.fused_n)] if args.fused_n else []
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root, *flags],
                              cwd=root, capture_output=True, text=True)
         sys.stderr.write(out.stderr[-4000:])

@@ -56,10 +56,12 @@ Phases, one JSON object per line each:
                own bfloat16 error of its twin. Each timed beside the float32
                kernel, with the float32 row's bound and library time.
                Then B3a, B3b, B3b with dH, B4a and B4b of the mixed-radix
-               pair at N = 120 (PSO's widths), 96 (tBL's) and 127 (a small
-               batch, one sum pass), each at its power-of-two twin's
-               tolerance, B3b/B4b run twice bit for bit, and the _bf16 rows
-               at 120 by the bf16 gates. Then B5 and B6 of the segmented
+               pair at N = 120 (PSO's widths) and 96 (tBL's), and of the
+               Bluestein line at the primes 127 (a small batch, and PSO's
+               widths) and 29 (PSO's widths), each at its power-of-two
+               twin's tolerance, B3b/B4b run twice bit for bit, and the
+               _bf16 rows at 120 and at 127 (PSO's widths) by the bf16
+               gates. Then B5 and B6 of the segmented
                chain's mixed build (check_chain_npo2): at N = 192 and 254
                (PSO's widths; 254 = 2 x 127 a Bluestein line) B5a, B5a with
                the far-field exit, B5b, B5b with dH (per-position H), B5b
@@ -228,7 +230,8 @@ Phases, one JSON object per line each:
      dist_tbl, dist_low_dose - data parallelism over ranks (A6): the tBL
                data with random_object's seeded start written once as .npz,
                then two ranks spawned on cuda:0 (gloo; one card, so no
-               speed-up is measured or claimed), each taking 16 of every
+               speed-up is measured or claimed; the canvas phases' ranks,
+               one spawn for both: rank_main), each taking 16 of every
                batch's 32 positions, run tBL and the low-dose mix for one
                iteration (512 steps). Gates, each kind, against the one-rank run of
                the same start on the card: the first batch's loss (rtol
@@ -265,7 +268,7 @@ Phases, one JSON object per line each:
                at demo/params/largeFOV_shard_canvas.yml's widths (128^2, 6
                probe modes, 1 object mode, 6 slices, batch 256, loss_single
                + loss_sparse, its four constraints) on tbl_positions'
-               raster, two gloo ranks on cuda:0 from one spawn, each rank
+               raster, the dist phases' two gloo ranks on cuda:0, each rank
                simulating only its slab's patterns. canvas_largefov: a
                256 x 256 scan (the yml's 512 x 512 cut), one iteration from
                random_object's seeded start, against the one-rank
@@ -300,6 +303,11 @@ Phases, one JSON object per line each:
                falling loss within rtol 1e-4 of the same run with fwd_fused:
                false; a profile (PSO-n120); then the dz and tilt float64
                gate at N = 120 on its first batch (B3b with dH).
+     pso_n127 - the same padded on the fly to 127^2 (the 120^2 crops
+               through meas_pad_on_the_fly(.., "power", 127, threshold=70),
+               the pixel 0.15 x 256 / 127 Ang): B1, B2, B3a/B3b at N = 127 (a
+               prime: the Bluestein line over 256 points), B4a for the
+               figure, the same gates, profile (PSO-n127) and tilt gate.
      pso_n192, pso_n254 - PSO as its yml gives it but padded on the fly
                to 192^2 and to 254^2 instead of 256^2 (the 120^2 crops
                through meas_pad_on_the_fly(.., "power", N, threshold=70), the
@@ -427,14 +435,18 @@ PSO_SCANS = PSO_SIDE * PSO_SIDE
 PSO_NITER = 2
 PSO_SG = 8  # ops.chain.best_sg(21): 21 = 2 x 8 + 5
 PSO_FF_FLAT_RTOL = 2e-2  # pso_ff against pso from the flat start (see pso_ff_path)
-# The fused kernels at N that is not a power of two (the mixed-radix pair,
-# one library per N, built beside the main one): PSO's 120^2 crop without
-# the on-the-fly pad (pso_n120), 96 (the fused route check, tBL widths) and
-# a prime N, one sum pass of 127 points (a small-batch row set)
+# The fused kernels at N that is not a power of two (one library per N,
+# built beside the main one): PSO's 120^2 crop without the on-the-fly pad
+# (pso_n120) and 96 (the fused route check, tBL widths) on the mixed-radix
+# pair; the prime 127 on a Bluestein line over 256 points (a small-batch row
+# set, the rows at PSO widths, and pso_n127: the crops padded on the fly);
+# the prime 29 on a Bluestein line over 64 points (rows at PSO widths)
 PSO_N120 = PSO_CROP[1] - PSO_CROP[0]
 NPO2_NS = (96, PSO_N120)
 PRIME_N = 127
-MIXED_NS = NPO2_NS + (PRIME_N,)
+SMALL_PRIME_N = 29
+MIXED_NS = NPO2_NS + (PRIME_N, SMALL_PRIME_N)
+PSO_FUSED = (PSO_N120, PRIME_N)  # pso_n120, and pso_n127: the crops padded on the fly to 127^2
 # The segmented chain at N in (128, 512] that is not a power of two
 # (chain.cu's mixed-radix build, one library per N, built beside the main
 # one): PSO padded on the fly to 192^2 (pso_n192) and to 254^2 = 2 x 127
@@ -446,6 +458,9 @@ PSO_N254 = 254
 PSO_PADS = (PSO_N192, PSO_N254)  # the N that PSO is padded to on the fly
 CHAIN_PRIME_N = 509
 CHAIN_NS = (PSO_N192, PSO_N254, 384, CHAIN_PRIME_N)
+# the mixed N whose _bf16 twins a row runs (FUSED_BF16_ROWS, chain_npo2_bf16_rows):
+# only their twins' libraries are built
+BF16_MIXED_NS = (PSO_N120, PRIME_N) + PSO_PADS
 SIM_BATCH = 512  # patterns per forward() call when simulating the tBL data
 
 # tBL_WSe2 sections of demo/params/tBL_WSe2_reconstruct.yml (the card's
@@ -1336,32 +1351,41 @@ def check_fused_dh(dev, gen) -> list:
     return rows
 
 
-def npo2_widths(n: int) -> dict:
+# check_fused_npo2's row sets: (N, widths, the rows' tag) and the N whose
+# _bf16 rows it adds (npo2_bf16_rows)
+FUSED_ROWS = ((PSO_N120, "PSO", f"N={PSO_N120}"), (96, "tBL", "N=96"),
+              (PRIME_N, "small", f"N={PRIME_N}"), (PRIME_N, "PSO", f"N={PRIME_N}, PSO widths"),
+              (SMALL_PRIME_N, "PSO", f"N={SMALL_PRIME_N}"))
+FUSED_BF16_ROWS = (f"N={PSO_N120}", f"N={PRIME_N}, PSO widths")
+
+
+def npo2_widths(n: int, widths: str) -> dict:
     """The widths of the fused rows at N that is not a power of two: PSO's
-    at its 120^2 crop (300 kV, 21 slices of 10 Ang, 4 modes, the crop's
-    pixel 0.15 x 256 / 120 Ang), tBL's at 96 (80 kV, 6 slices of 2 Ang,
-    6 modes) and a small batch at the prime N."""
-    if n == PSO_N120:
+    (300 kV, 21 slices of 10 Ang, 4 modes, the pixel 0.15 x 256 / N Ang: at
+    120 its crop's), tBL's (80 kV, 6 slices of 2 Ang, 6 modes) or a small
+    batch (4 samples, 2 modes, 3 slices)."""
+    if widths == "PSO":
         return {"batch": BATCH, "pmode": PSO_PMODE, "nz": PSO_NZ, "kv": PSO_KV, "conv": 21.4,
                 "dx": PSO_DX * PSO_NPIX / n, "dz": PSO_DZ, "df": -200.0,
-                "note": "PSO widths at its 120^2 crop, per-position probe spectra"}
-    small = n == PRIME_N
+                "note": f"PSO widths at {n}^2, per-position probe spectra"}
+    small = widths == "small"
     return {"batch": 4 if small else BATCH, "pmode": 2 if small else PMODE,
             "nz": 3 if small else NZ, "kv": 80.0, "conv": 24.9, "dx": 0.1494, "dz": 2.0, "df": 0.0,
-            "note": ("a small batch at a prime N (one sum pass)" if small else "tBL widths")
-            + ", per-position probe spectra"}
+            "note": ("a small batch" if small else "tBL widths") + ", per-position probe spectra"}
 
 
 def check_fused_npo2(dev, gen) -> list:
-    """B3a, B3b, B3b with dH, B4a and B4b of the mixed-radix pair at N = 120
-    (PSO's widths), 96 (tBL's) and the prime N (a small batch), each against
-    its plain version on the same CUDA tensors at the tolerance of its
-    power-of-two twin (check_loss_chain, check_dp_chain, check_fused_dh:
-    s1/s2 at rtol 1e-4, dp and every cotangent at 1e-4 of its largest
-    entry); B3b and B4b run twice bit for bit. Then at N = 120 the _bf16
-    rows, each against its plain twin with bf16_operands by the bf16 rows'
-    error-ratio gates (check_bf16_kernels). Per-position probe spectra; dH
-    on a per-position H (tilts within 1 mrad). Bounds from each N's own
+    """B3a, B3b, B3b with dH, B4a and B4b at N that is not a power of two
+    (FUSED_ROWS): the mixed-radix pair at N = 120 (PSO's widths) and 96
+    (tBL's), the Bluestein line at the prime N (a small batch, and PSO's
+    widths) and at 29 (PSO's widths), each against its plain version on the
+    same CUDA tensors at the tolerance of its power-of-two twin
+    (check_loss_chain, check_dp_chain, check_fused_dh: s1/s2 at rtol 1e-4,
+    dp and every cotangent at 1e-4 of its largest entry); B3b and B4b run
+    twice bit for bit. Then for FUSED_BF16_ROWS the _bf16 rows, each
+    against its plain twin with bf16_operands by the bf16 rows' error-ratio
+    gates (check_bf16_kernels). Per-position probe spectra; dH on a
+    per-position H (tilts within 1 mrad). Bounds from each N's own
     operations (_chain_flops at log2 N) and bytes."""
     from ptyrad_tpu_torch.ops import fused_multislice as M
     from ptyrad_tpu_torch.ops.shift import fourier_shift_kspace
@@ -1370,8 +1394,8 @@ def check_fused_npo2(dev, gen) -> list:
 
     rows, failures = [], []
     src = "ptyrad_tpu_torch/csrc/multislice.cu"
-    for n in (PSO_N120, 96, PRIME_N):
-        w = npo2_widths(n)
+    for n, widths, tag in FUSED_ROWS:
+        w = npo2_widths(n, widths)
         b, pmode, nz = w["batch"], w["pmode"], w["nz"]
         lam = electron_wavelength(w["kv"])
         probe = make_mixed_probe(make_stem_probe({"kv": w["kv"], "conv_angle": w["conv"],
@@ -1390,7 +1414,6 @@ def check_fused_npo2(dev, gen) -> list:
         g = torch.randn((b, n, n), generator=gen, device=dev)
         p, eps, cvec = 0.5, 1e-10, torch.tensor(0.7, device=dev)
         largs = (meas, mask, p, eps)
-        tag = f"N={n}"
         n_wave = b * pmode
         obj_bytes = 4 * (obja.numel() + objp.numel())
         in_bytes = obj_bytes + 8 * (pr.numel() + h.numel())
@@ -1468,7 +1491,7 @@ def check_fused_npo2(dev, gen) -> list:
         add("B4b dp_bwd", "ptyrad_tpu/ops/pallas_multislice.py:145", *_grad_errs(b4b(), g4), b4b,
             lambda: torch.autograd.grad(dp_p, leaves, grad_outputs=g, retain_graph=True),
             in_bytes + 4 * g.numel() + bwd_out, 2 * fwd_ops, repeat=repeats_bitwise(b4b, b4b()))
-        if n == PSO_N120:
+        if tag in FUSED_BF16_ROWS:
             rows += npo2_bf16_rows(rows, failures, obja, objp, pr, h, g, largs, cvec, tag)
         torch.cuda.empty_cache()
     require(not failures, "; ".join(failures))
@@ -2189,19 +2212,21 @@ def kernel_counters():
         "B6b chain_stack_bwd (bf16)": (C.stack_bwd_cuda, "launches_bf16"),
         "B6b chain_stack_bwd (bf16, dH)": (C.stack_bwd_cuda, "launches_bf16_dh"),
     })
-    # the mixed-radix kernels at each N that is not a power of two
-    for n in MIXED_NS:
+    # the kernels at each N that is not a power of two (check_fused_npo2's
+    # rows; two row sets at one N share its counts)
+    for n, _, tag in FUSED_ROWS:
         out.update({
-            f"B3a loss_sums_fwd (N={n})": (M.loss_sums_fwd_cuda, f"launches_n{n}"),
-            f"B3b loss_sums_bwd (N={n})": (M.loss_sums_bwd_cuda, f"launches_n{n}"),
-            f"B3b loss_sums_bwd (dH, N={n})": (M.loss_sums_bwd_cuda, f"launches_n{n}_dh"),
-            f"B4a dp_fwd (N={n})": (M.dp_fwd_cuda, f"launches_n{n}"),
-            f"B4b dp_bwd (N={n})": (M.dp_bwd_cuda, f"launches_n{n}"),
+            f"B3a loss_sums_fwd ({tag})": (M.loss_sums_fwd_cuda, f"launches_n{n}"),
+            f"B3b loss_sums_bwd ({tag})": (M.loss_sums_bwd_cuda, f"launches_n{n}"),
+            f"B3b loss_sums_bwd (dH, {tag})": (M.loss_sums_bwd_cuda, f"launches_n{n}_dh"),
+            f"B4a dp_fwd ({tag})": (M.dp_fwd_cuda, f"launches_n{n}"),
+            f"B4b dp_bwd ({tag})": (M.dp_bwd_cuda, f"launches_n{n}"),
         })
-    for name, fn in (("B3a loss_sums_fwd", M.loss_sums_fwd_cuda),
-                     ("B3b loss_sums_bwd", M.loss_sums_bwd_cuda), ("B4a dp_fwd", M.dp_fwd_cuda),
-                     ("B4b dp_bwd", M.dp_bwd_cuda)):
-        out[f"{name} (bf16, N={PSO_N120})"] = (fn, f"launches_n{PSO_N120}_bf16")
+        for name, fn in (("B3a loss_sums_fwd", M.loss_sums_fwd_cuda),
+                         ("B3b loss_sums_bwd", M.loss_sums_bwd_cuda),
+                         ("B4a dp_fwd", M.dp_fwd_cuda), ("B4b dp_bwd", M.dp_bwd_cuda)):
+            if tag in FUSED_BF16_ROWS:
+                out[f"{name} (bf16, {tag})"] = (fn, f"launches_n{n}_bf16")
     # the segmented chain's mixed-radix kernels at each N in (128, 512]
     for n in CHAIN_NS:
         for name, wrapper, flags in CHAIN_SPLITS:
@@ -4026,19 +4051,21 @@ def pso_n120_init(pso_init: dict) -> dict:
     }
 
 
-def pso_n120_path(dev, card: str, pso_init: dict):
-    """pso_n120: PSO as its params file gives it minus the on-the-fly pad
-    (4,096 patterns of 120^2, 4 probe modes, 21 slices, batch 32, Adam,
-    loss_single, the yml's constraints), 2 iterations from a seeded object
-    through PtyRADSolver.run(): each step B1, B2, B3a and B3b at N = 120
-    (the mixed-radix pair), the forward figure B4a, no plain route; finite
-    and falling, and every iteration's loss within rtol 1e-4 of the same
-    run through the plain route (fwd_fused: false, torch.fft on the card).
-    Returns (solver, launches of the kernel run and the figure, init)."""
+def pso_fused_path(dev, card: str, pso_init: dict, n: int):
+    """pso_n120 and pso_n127: PSO as its params file gives it minus the
+    on-the-fly pad (4,096 patterns of 120^2), or padded on the fly to 127^2
+    (pso_pad_init), 4 probe modes, 21 slices, batch 32, Adam, loss_single,
+    the yml's constraints, 2 iterations from a seeded object through
+    PtyRADSolver.run(): each step B1, B2, B3a and B3b at N (at 120 the
+    mixed-radix pair, at 127 the Bluestein line), the forward figure B4a,
+    no plain route; finite and falling, and every iteration's loss within
+    rtol 1e-4 of the same run through the plain route (fwd_fused: false,
+    torch.fft on the card). Returns (solver, launches of the kernel run and
+    the figure, init)."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
 
     t0 = time.perf_counter()
-    init = pso_n120_init(pso_init)
+    init = pso_n120_init(pso_init) if n == PSO_N120 else pso_pad_init(pso_init, n)
     setup_s = time.perf_counter() - t0
     solver = PtyRADSolver(PSO_PARAMS, init_variables=init, device=dev, verbose=True)
     first = first_batch_loss(solver)
@@ -4061,31 +4088,35 @@ def pso_n120_path(dev, card: str, pso_init: dict):
     del ref
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     emit({
-        "phase": "pso_n120", "card": card, "N": PSO_N120, "n_patterns": PSO_SCANS, "batch": BATCH,
+        "phase": f"pso_n{n}", "card": card, "N": n, "n_patterns": PSO_SCANS, "batch": BATCH,
         "first_batch_loss": first, "iterations": len(losses), "losses": losses, "iter_s": times,
         "patterns_per_s": [PSO_SCANS / t for t in times], "setup_s": setup_s, "run_s": run_s,
         "peak_mem_gb": peak, "launches": launches, "plain_route_losses": ref_losses,
         "plain_route_run_s": ref_s, "rel_diff": rel, "rtol": 1e-4,
         "plain_route_launches": ref_launches[PLAIN_ROUTE],
     })
-    require(len(losses) == PSO_NITER and all(np.isfinite(losses)), f"pso_n120: losses {losses}")
-    require(losses[-1] < losses[0], f"pso_n120: loss did not fall: {losses}")
+    tag = f"pso_n{n}"
+    require(len(losses) == PSO_NITER and all(np.isfinite(losses)), f"{tag}: losses {losses}")
+    require(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
     require(len(ref_losses) == PSO_NITER and max(rel) <= 1e-4,
-            f"pso_n120: losses {losses} differ from the plain route's {ref_losses}: {rel}")
-    for name in (f"B3a loss_sums_fwd (N={PSO_N120})", f"B3b loss_sums_bwd (N={PSO_N120})",
-                 f"B4a dp_fwd (N={PSO_N120})", "B1 gather_patches", "B2 scatter_add_patches"):
-        require(launches[name] > 0, f"kernel {name} was not launched on the pso_n120 path")
-    require(launches[PLAIN_ROUTE] == 0, f"pso_n120: {launches[PLAIN_ROUTE]} plain routes")
+            f"{tag}: losses {losses} differ from the plain route's {ref_losses}: {rel}")
+    for name in (f"B3a loss_sums_fwd (N={n})", f"B3b loss_sums_bwd (N={n})",
+                 f"B4a dp_fwd (N={n})", "B1 gather_patches", "B2 scatter_add_patches"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the {tag} path")
+    require(launches[PLAIN_ROUTE] == 0, f"{tag}: {launches[PLAIN_ROUTE]} plain routes")
     for name in CHAIN_KERNELS:
-        require(launches[name] == 0, f"pso_n120: {name} ran at N = 120")
-    require(ref_launches[PLAIN_ROUTE] > 0, "pso_n120's reference did not take the plain route")
+        require(launches[name] == 0, f"{tag}: {name} ran at N = {n}")
+    for name in ("B3a loss_sums_fwd", "B3b loss_sums_bwd"):  # every B3 launch at N
+        require(launches[name] == launches[f"{name} (N={n})"],
+                f"{tag}: {name} ran {launches[name]} times, {launches[f'{name} (N={n})']} at N")
+    require(ref_launches[PLAIN_ROUTE] > 0, f"{tag}'s reference did not take the plain route")
     return solver, launches, init
 
 
-def n120_tilt_gate(dev, init: dict) -> dict:
+def fused_tilt_gate(dev, init: dict, n: int) -> dict:
     """The dz and tilt float64 gate (tilt_gradients_check, its tolerance
-    unchanged) at N = 120: pso_n120's data with per-position tilts and dz
-    optimizable (with_dz_tilts), the first batch through B3 with dH (a
+    unchanged) at N (120, 127): pso_n<N>'s data with per-position tilts and
+    dz optimizable (with_dz_tilts), the first batch through B3 with dH (a
     per-position H) against the plain route and against float64 on the
     CPU. Returns the launch counts."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
@@ -4096,10 +4127,10 @@ def n120_tilt_gate(dev, init: dict) -> dict:
     solver.prepare()
     for name in ("slice_thickness", "obj_tilts"):
         getattr(solver.params, name).requires_grad_(True)
-    require(not solver.geom.global_tilt, "the N = 120 tilt gate runs one global tilt")
+    require(not solver.geom.global_tilt, f"the N = {n} tilt gate runs one global tilt")
     launches = counted(lambda: tilt_gradients_check(solver))[1]
-    require(launches[f"B3b loss_sums_bwd (dH, N={PSO_N120})"] > 0,
-            "the N = 120 tilt gate did not run B3b with dH")
+    require(launches[f"B3b loss_sums_bwd (dH, N={n})"] > 0,
+            f"the N = {n} tilt gate did not run B3b with dH")
     return launches
 
 
@@ -5600,17 +5631,23 @@ def cli_mixed_precision(card: str, tmp: str, raw_path: str) -> None:
 
 def fused_plan(n: int) -> dict:
     """The plan csrc/multislice.cu compiled for N (ptyrad_fused_plan; at N
-    that is not a power of two from that N's library)."""
+    that is not a power of two from that N's library, which must be
+    ops/fused_plan.py's)."""
     import ctypes
 
     from ptyrad_tpu_torch.ops import _build
+    from ptyrad_tpu_torch.ops.fused_plan import reported
 
-    out = (ctypes.c_int * 14)()
+    out = (ctypes.c_int * 19)()
     lib = _build.lib() if n & (n - 1) == 0 else _build.mixed_lib(n)
     _build.check(lib.ptyrad_fused_plan(n, out), "ptyrad_fused_plan")
+    if n & (n - 1):
+        require(tuple(out) == reported(n), f"N = {n}: the compiled fused plan {list(out)} is not "
+                f"ops/fused_plan.py's {reported(n)}")
     keys = ("n", "elems", "line_threads", "line", "pad_shift", "fwd_threads", "fwd_row_sweeps",
             "fwd_col_sweeps", "bwd_threads", "bwd_row_sweeps", "bwd_col_sweeps", "group_threads",
-            "smem_bytes", "chunks")
+            "smem_bytes", "chunks", "line_kind", "slots", "scratch_bytes", "scratch_row",
+            "scratch_pad_shift")
     return dict(zip(keys, out))
 
 
@@ -5820,33 +5857,48 @@ def dist_run(kind: str, init: dict, low_dose_probe, dev, group,
     return out, grads
 
 
-def dist_rank(rank: int, tmp: str, port: int) -> None:
-    """A rank of the dist phases (spawned): joins the gloo group on cuda:0,
-    runs both kinds from the parent's init (the store split), the tBL run
-    from the flat start and again with the store replicated, then the
-    hypertune_dist studies, and writes <tmp>/dist_<rank>.json and
-    dist_<rank>_<kind>.npz."""
+def dist_rank(tmp: str, group) -> None:
+    """The dist phases' work of a rank (rank_main): runs both kinds from the
+    parent's init (the store split), the tBL run from the flat start and
+    again with the store replicated, then the hypertune_dist studies, and
+    writes <tmp>/dist_<rank>.json and dist_<rank>_<kind>.npz."""
+    rank = group.rank
+    with np.load(f"{tmp}/dist_init.npz") as f:
+        init = {k: f[k] for k in f.files}
+    low_dose_probe, flat_obj = init.pop("low_dose_probe"), init.pop("flat_obj")
+    out = {}
+    for kind in DIST_KINDS:
+        out[kind], grads = dist_run(kind, init, low_dose_probe, group.device, group)
+        np.savez(f"{tmp}/dist_{rank}_{kind}.npz", **grads)
+        torch.cuda.empty_cache()
+    out["tbl_flat"], _ = dist_run("tbl", dict(init, obj=flat_obj), None, group.device, group)
+    out["tbl_replicated"], _ = dist_run("tbl", init, None, group.device, group, split=False)
+    del init
+    torch.cuda.empty_cache()
+    with np.load(f"{tmp}/ht_dist.npz") as f:
+        arrays = {k: f[k] for k in f.files}
+    out["hypertune"] = hypertune_rank(arrays, tmp, group)
+    with open(f"{tmp}/dist_{rank}.json", "w", encoding="utf-8") as f:
+        json.dump(out, f)
+
+
+def rank_main(rank: int, tmp: str, port: int) -> None:
+    """A spawned rank of the dist and canvas phases: joins the gloo group on
+    cuda:0 once, runs the dist phases' work (dist_rank), then the canvas
+    phases' (canvas_rank), and writes the seconds of each to
+    <tmp>/rank_<rank>_s.json."""
     from ptyrad_tpu_torch.parallel import init_multihost
 
     group = init_multihost(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo")
     try:
-        with np.load(f"{tmp}/dist_init.npz") as f:
-            init = {k: f[k] for k in f.files}
-        low_dose_probe, flat_obj = init.pop("low_dose_probe"), init.pop("flat_obj")
-        out = {}
-        for kind in DIST_KINDS:
-            out[kind], grads = dist_run(kind, init, low_dose_probe, group.device, group)
-            np.savez(f"{tmp}/dist_{rank}_{kind}.npz", **grads)
-            torch.cuda.empty_cache()
-        out["tbl_flat"], _ = dist_run("tbl", dict(init, obj=flat_obj), None, group.device, group)
-        out["tbl_replicated"], _ = dist_run("tbl", init, None, group.device, group, split=False)
-        del init
+        t0 = time.perf_counter()
+        dist_rank(tmp, group)
         torch.cuda.empty_cache()
-        with np.load(f"{tmp}/ht_dist.npz") as f:
-            arrays = {k: f[k] for k in f.files}
-        out["hypertune"] = hypertune_rank(arrays, tmp, group)
-        with open(f"{tmp}/dist_{rank}.json", "w", encoding="utf-8") as f:
-            json.dump(out, f)
+        t1 = time.perf_counter()
+        canvas_rank(tmp, group)
+        seconds = {"dist_s": t1 - t0, "canvas_s": time.perf_counter() - t1}
+        with open(f"{tmp}/rank_{rank}_s.json", "w", encoding="utf-8") as f:
+            json.dump(seconds, f)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -5886,43 +5938,53 @@ def ulp_yardstick(dev, init: dict, ref_losses: list) -> list:
     return rel_each([v for _, v in solver.history.loss_iters], ref_losses)
 
 
-def dist_path(dev, card: str, init: dict, flat_losses: list) -> dict:
-    """dist_tbl and dist_low_dose: DIST_WORLD gloo ranks on cuda:0 run tBL
-    and the low-dose mix from random_object's seeded start on the tBL data
-    (written once as .npz, so no rank simulates), each rank half of every
-    batch. Gates: the first batch's loss (rtol 1e-5) and gradients, and the
-    loss trajectory (rtol 1e-4), against the one-rank run of the same start
-    on the card; the ranks' parameters bit for bit after every iteration;
-    the path's kernels launched in every rank. flat_losses: the main
-    phase's, for the flat start's rounding yardstick. Returns the launches
-    summed over the ranks and the one-rank runs. Reported beside dist_tbl:
-    the ranks from the flat start against the main phase, and the 1-ulp
-    yardstick of either start."""
+def dist_reference(dev, init: dict, flat_losses: list, tmp: str) -> dict:
+    """The dist phases' side in this process, before the ranks start:
+    random_object's seeded start on the tBL data and the low-dose probe
+    written to <tmp> as .npz (so no rank simulates), the one-rank runs of
+    both kinds from it, the 1-ulp yardsticks of either start (flat_losses:
+    the main phase's) and the hypertune_dist reference studies. Returns what
+    dist_check holds the ranks against."""
     flat_obj = init["obj"]
+    t0 = time.perf_counter()
     flat_ulp = ulp_yardstick(dev, init, flat_losses)
     init = dict(init, obj=random_object(init["obj"].shape, SEED + 5))
     low_dose_probe = low_dose_dataset(init)["probe"]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
-        t0 = time.perf_counter()
-        np.savez(f"{tmp}/dist_init.npz", low_dose_probe=low_dose_probe, flat_obj=flat_obj,
-                 **{k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-                    for k, v in init.items()})
-        write_s = time.perf_counter() - t0
-        one = {kind: dist_run(kind, init, low_dose_probe, dev, None) for kind in DIST_KINDS}
-        seeded_ulp = ulp_yardstick(dev, init, one["tbl"][0]["losses"])
-        torch.cuda.empty_cache()
-        ht_ref = hypertune_reference(dev, init, tmp)
-        torch.cuda.empty_cache()
-        loopback_env()
-        t1 = time.perf_counter()
-        spawn_ranks(dist_rank, (tmp, _free_port()), DIST_WORLD, DIST_TIMEOUT_S)
-        ranks_s = time.perf_counter() - t1
-        outs = []
-        for r in range(DIST_WORLD):
-            with open(f"{tmp}/dist_{r}.json", encoding="utf-8") as f:
-                outs.append(json.load(f))
-        grads = {(r, kind): dict(np.load(f"{tmp}/dist_{r}_{kind}.npz"))
-                 for r in range(DIST_WORLD) for kind in DIST_KINDS}
+    t1 = time.perf_counter()
+    np.savez(f"{tmp}/dist_init.npz", low_dose_probe=low_dose_probe, flat_obj=flat_obj,
+             **{k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                for k, v in init.items()})
+    write_s = time.perf_counter() - t1
+    one = {kind: dist_run(kind, init, low_dose_probe, dev, None) for kind in DIST_KINDS}
+    seeded_ulp = ulp_yardstick(dev, init, one["tbl"][0]["losses"])
+    torch.cuda.empty_cache()
+    ht_ref = hypertune_reference(dev, init, tmp)
+    torch.cuda.empty_cache()
+    return {"flat_ulp": flat_ulp, "seeded_ulp": seeded_ulp, "write_s": write_s, "one": one,
+            "ht_ref": ht_ref, "flat_losses": flat_losses,
+            "reference_s": time.perf_counter() - t0}
+
+
+def dist_check(card: str, ref: dict, tmp: str, ranks_s: float) -> dict:
+    """dist_tbl and dist_low_dose: DIST_WORLD gloo ranks on cuda:0 ran tBL
+    and the low-dose mix from random_object's seeded start on the tBL data,
+    each rank half of every batch (rank_main; their output in <tmp>).
+    Gates: the first batch's loss (rtol 1e-5) and gradients, and the loss
+    trajectory (rtol 1e-4), against the one-rank run of the same start on
+    the card (dist_reference); the ranks' parameters bit for bit after every
+    iteration; the path's kernels launched in every rank. Returns the
+    launches summed over the ranks and the one-rank runs. Reported beside
+    dist_tbl: the ranks from the flat start against the main phase, and the
+    1-ulp yardstick of either start."""
+    flat_losses, one = ref["flat_losses"], ref["one"]
+    outs, rank_s = [], []
+    for r in range(DIST_WORLD):
+        with open(f"{tmp}/dist_{r}.json", encoding="utf-8") as f:
+            outs.append(json.load(f))
+        with open(f"{tmp}/rank_{r}_s.json", encoding="utf-8") as f:
+            rank_s.append(json.load(f)["dist_s"])
+    grads = {(r, kind): dict(np.load(f"{tmp}/dist_{r}_{kind}.npz"))
+             for r in range(DIST_WORLD) for kind in DIST_KINDS}
     launches = []
     for kind, kernels in DIST_KINDS.items():
         (one_out, one_grads), ranks = one[kind], [o[kind] for o in outs]
@@ -5933,12 +5995,13 @@ def dist_path(dev, card: str, init: dict, flat_losses: list) -> dict:
                     for o in ranks]
         traj_err = [_max_rel(o["losses"], one_out["losses"]) for o in ranks]
         emit({"phase": f"dist_{kind}", "card": card, "world": DIST_WORLD, "backend": "gloo",
-              "device": str(dev), "n_patterns": N_SCANS, "batch": BATCH, "start": "seeded",
-              "iterations": DIST_NITER, "init_write_s": write_s, "ranks_s": ranks_s,
-              **({"seeded_start_ulp_rel": seeded_ulp,
+              "device": "cuda:0", "n_patterns": N_SCANS, "batch": BATCH, "start": "seeded",
+              "iterations": DIST_NITER, "init_write_s": ref["write_s"],
+              "reference_s": ref["reference_s"], "ranks_s": ranks_s, "rank_dist_s": rank_s,
+              **({"seeded_start_ulp_rel": ref["seeded_ulp"],
                   "flat_start": {"ranks_rel": rel_each(outs[0]["tbl_flat"]["losses"],
                                                        flat_losses),
-                                 "ulp_rel": flat_ulp}} if kind == "tbl" else {}),
+                                 "ulp_rel": ref["flat_ulp"]}} if kind == "tbl" else {}),
               "one_rank_losses": one_out["losses"],
               "first_loss_rel_err": loss_err, "first_loss_rtol": DIST_LOSS_RTOL,
               "grad_max_abs_err": grad_err, "grad_atol": DIST_GRAD_ATOL,
@@ -5966,8 +6029,27 @@ def dist_path(dev, card: str, init: dict, flat_losses: list) -> dict:
                 f"dist_tbl from the flat start: rank {r}'s parameters part from rank 0's")
         launches.append(o["tbl_flat"]["launches"])
     launches += store_split_check(card, outs)
-    launches += hypertune_dist_check(card, ht_ref, [o["hypertune"] for o in outs])
+    launches += hypertune_dist_check(card, ref["ht_ref"], [o["hypertune"] for o in outs])
     return add_counts(*launches)
+
+
+def ranks_path(dev, card: str, dist_ref: dict, tmp: str) -> tuple[dict, dict, dict]:
+    """The dist and canvas phases after dist_reference (which wrote the
+    ranks' inputs to <tmp>): the canvas phases' one-rank references
+    (canvas_reference), then one spawn of DIST_WORLD gloo ranks on cuda:0
+    that runs both phases' work in one process group (rank_main), then each
+    phase's gates (dist_check, canvas_check). Returns (the dist launches,
+    the largeFOV canvas ranks', the full scan canvas ranks')."""
+    require(DIST_WORLD == CANVAS_WORLD, "the dist and canvas phases share one spawn")
+    canvas_ref = canvas_reference(dev)
+    torch.cuda.empty_cache()
+    loopback_env()
+    t0 = time.perf_counter()
+    spawn_ranks(rank_main, (tmp, _free_port()), DIST_WORLD, DIST_TIMEOUT_S + CANVAS_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    dist_launches = dist_check(card, dist_ref, tmp, ranks_s)
+    canvas_launches, canvas_full_launches = canvas_check(card, canvas_ref, tmp, ranks_s)
+    return dist_launches, canvas_launches, canvas_full_launches
 
 
 def store_split_check(card: str, outs: list) -> list:
@@ -6562,45 +6644,47 @@ def canvas_rank_run(side: int, niter: int, group, first: bool) -> tuple[dict, di
     return out, grads
 
 
-def canvas_rank(rank: int, tmp: str, port: int) -> None:
-    """A rank of the canvas phases (spawned): joins the gloo group on cuda:0,
-    runs canvas_largefov then canvas_fullscan and writes
-    <tmp>/canvas_<rank>.json and canvas_<rank>_grads.npz."""
-    from ptyrad_tpu_torch.parallel import init_multihost
-
-    group = init_multihost(f"127.0.0.1:{port}", CANVAS_WORLD, rank, backend="gloo")
-    try:
-        out = {}
-        out["largefov"], grads = canvas_rank_run(CANVAS_SIDE, CANVAS_NITER, group, True)
-        np.savez(f"{tmp}/canvas_{rank}_grads.npz", **grads)
-        torch.cuda.empty_cache()
-        out["fullscan"], _ = canvas_rank_run(CANVAS_FULL_SIDE, CANVAS_FULL_NITER, group, False)
-        with open(f"{tmp}/canvas_{rank}.json", "w", encoding="utf-8") as f:
-            json.dump(out, f)
-    finally:
-        torch.distributed.destroy_process_group()
+def canvas_rank(tmp: str, group) -> None:
+    """The canvas phases' work of a rank (rank_main): canvas_largefov then
+    canvas_fullscan; writes <tmp>/canvas_<rank>.json and
+    canvas_<rank>_grads.npz."""
+    rank = group.rank
+    out = {}
+    out["largefov"], grads = canvas_rank_run(CANVAS_SIDE, CANVAS_NITER, group, True)
+    np.savez(f"{tmp}/canvas_{rank}_grads.npz", **grads)
+    torch.cuda.empty_cache()
+    out["fullscan"], _ = canvas_rank_run(CANVAS_FULL_SIDE, CANVAS_FULL_NITER, group, False)
+    with open(f"{tmp}/canvas_{rank}.json", "w", encoding="utf-8") as f:
+        json.dump(out, f)
 
 
-def canvas_path(dev, card: str) -> tuple[dict, dict]:
-    """canvas_largefov and canvas_fullscan: the one-rank replicated runs in
-    this process, then CANVAS_WORLD gloo ranks on cuda:0 running both phases
-    from one spawn. Gates as in CANVAS_WORLD's comment; each rank launched
-    B1, B2, B3a and B3b. Returns (the largeFOV ranks' summed launches, the
-    full scan ranks')."""
+def canvas_reference(dev) -> tuple[dict, dict, dict]:
+    """The canvas phases' one-rank replicated runs in this process, before
+    the ranks start: (canvas_largefov's run and gradients, canvas_fullscan's
+    peak)."""
+    t0 = time.perf_counter()
     ref, ref_grads = canvas_replicated(dev, CANVAS_SIDE, CANVAS_NITER)
     torch.cuda.empty_cache()
     full_ref = canvas_replicated_peak(dev, CANVAS_FULL_SIDE)
     torch.cuda.empty_cache()
-    loopback_env()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_canvas_") as tmp:
-        t0 = time.perf_counter()
-        spawn_ranks(canvas_rank, (tmp, _free_port()), CANVAS_WORLD, CANVAS_TIMEOUT_S)
-        ranks_s = time.perf_counter() - t0
-        outs = []
-        for r in range(CANVAS_WORLD):
-            with open(f"{tmp}/canvas_{r}.json", encoding="utf-8") as f:
-                outs.append(json.load(f))
-        grads = [dict(np.load(f"{tmp}/canvas_{r}_grads.npz")) for r in range(CANVAS_WORLD)]
+    ref["reference_s"] = time.perf_counter() - t0
+    return ref, ref_grads, full_ref
+
+
+def canvas_check(card: str, refs: tuple, tmp: str, ranks_s: float) -> tuple[dict, dict]:
+    """canvas_largefov and canvas_fullscan: CANVAS_WORLD gloo ranks on cuda:0
+    ran both phases (rank_main; their output in <tmp>) against the one-rank
+    replicated runs (canvas_reference). Gates as in CANVAS_WORLD's comment;
+    each rank launched B1, B2, B3a and B3b. Returns (the largeFOV ranks'
+    summed launches, the full scan ranks')."""
+    ref, ref_grads, full_ref = refs
+    outs, rank_s = [], []
+    for r in range(CANVAS_WORLD):
+        with open(f"{tmp}/canvas_{r}.json", encoding="utf-8") as f:
+            outs.append(json.load(f))
+        with open(f"{tmp}/rank_{r}_s.json", encoding="utf-8") as f:
+            rank_s.append(json.load(f)["canvas_s"])
+    grads = [dict(np.load(f"{tmp}/canvas_{r}_grads.npz")) for r in range(CANVAS_WORLD)]
 
     def per_rank(o):
         return {k: v for k, v in o.items() if k not in ("digests", "launches")} | {
@@ -6615,6 +6699,7 @@ def canvas_path(dev, card: str) -> tuple[dict, dict]:
     emit({"phase": "canvas_largefov", "card": card, "world": CANVAS_WORLD, "backend": "gloo",
           "n_patterns": CANVAS_SIDE ** 2, "batch": CANVAS_BATCH, "iterations": CANVAS_NITER,
           "reduced": "512 x 512 scan cut to 256 x 256", "start": "seeded", "ranks_s": ranks_s,
+          "rank_canvas_s": rank_s,
           "one_rank": ref, "first_loss_rel_err": loss_err, "first_loss_rtol": CANVAS_LOSS_RTOL,
           "grad_max_abs": grad_max, "grad_max_abs_err": grad_err,
           "grad_rel_err": {k: v / grad_max[k] if grad_max[k] else None
@@ -6754,7 +6839,7 @@ def main() -> int:
     with phase("build"):
         t0 = time.perf_counter()
         # the mixed-radix libraries (B3/B4's, B5/B6's) beside the main one
-        path = _build.build(extra_n=MIXED_NS + CHAIN_NS)
+        path = _build.build(extra_n=MIXED_NS + CHAIN_NS, bf16_n=BF16_MIXED_NS)
         _build.lib()
         for n in (PSO_NPIX, 512) + CHAIN_NS:
             C.prepare(dev, n)
@@ -6848,13 +6933,12 @@ def main() -> int:
     with phase("dev_tools"), tempfile.TemporaryDirectory(prefix="chip_smoke_dev_tools_") as tmp:
         dev_tools_launches = dev_tools_path(dev, card, init, tmp)
     torch.cuda.empty_cache()
-    with phase("dist"):
-        dist_launches = dist_path(dev, card, init, main_losses)
-        del init
+    with phase("dist_canvas"), tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        dist_ref = dist_reference(dev, init, main_losses, tmp)
+        del init  # before the canvas references, whose peak memory the ranks are held under
         torch.cuda.empty_cache()
-    with phase("canvas"):
-        canvas_launches, canvas_full_launches = canvas_path(dev, card)
-        torch.cuda.empty_cache()
+        dist_launches, canvas_launches, canvas_full_launches = ranks_path(dev, card, dist_ref,
+                                                                          tmp)
         kernels += canvas_kernel_rows(dev, gen)
     with phase("tbl_store"):
         solver, store_launches = tbl_store_path(dev, card, store_data)
@@ -6870,14 +6954,16 @@ def main() -> int:
                                n_batches=8)["device_ms_per_step"]
         del solver
         torch.cuda.empty_cache()
-    with phase("pso_n120"):
-        solver, n120_launches, n120_init = pso_n120_path(dev, card, pso_init)
-        profile_steps(solver, card, "PSO-n120", PSO_NITER + 1, n_batches=8)
-        del solver
-        torch.cuda.empty_cache()
-        n120_tilt_launches = n120_tilt_gate(dev, n120_init)
-        del n120_init
-        torch.cuda.empty_cache()
+    fused_launches = []
+    for n in PSO_FUSED:  # pso_n120, pso_n127
+        with phase(f"pso_n{n}"):
+            solver, path_launches, fused_init = pso_fused_path(dev, card, pso_init, n)
+            profile_steps(solver, card, f"PSO-n{n}", PSO_NITER + 1, n_batches=8)
+            del solver
+            torch.cuda.empty_cache()
+            fused_launches += [path_launches, fused_tilt_gate(dev, fused_init, n)]
+            del fused_init
+            torch.cuda.empty_cache()
     pad_launches = []
     for n in PSO_PADS:  # pso_n192, pso_n254
         with phase(f"pso_n{n}"):
@@ -6927,7 +7013,7 @@ def main() -> int:
                         forward_launches, low_dose_launches, store_launches, tilt_launches,
                         lbfgs_launches, accum_launches, family_launches, figures_launches,
                         hypertune_launches, mp_launches, forward_bf16_launches, dist_launches,
-                        dev_tools_launches, n120_launches, n120_tilt_launches,
+                        dev_tools_launches, *fused_launches,
                         {k: 0 if k in CANVAS_KERNELS else v for k, v in canvas_ranks.items()},
                         *([grouping_launches] if grouping_launches else []))
     wide = add_counts(pso_launches, pso_ff_launches, random_start_launches, carve_launches,

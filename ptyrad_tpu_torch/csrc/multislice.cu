@@ -123,6 +123,20 @@
 //    compile-time N^2 (regfft::FixedPix), B3a's epilogue blocks take
 //    ceil(N^2 / chunks) pixels each, and the reduces are the fixed-order
 //    ones of every N.
+//  * N with a prime factor above 7 (127, 122 = 2 x 61, ...; ops/fused_plan.py
+//    BluesteinPlan): the same kernels on reg_fft.cuh's Bluestein line
+//    (PTYRAD_BLUESTEIN; regfft::BluesteinLine<N, an M-point MixedLine>, M the
+//    7-smooth size >= 2 N - 1 whose plan costs least, 256 at 127): the
+//    chirp, two M-point register-pass transforms, the filter and the chirp,
+//    where a direct sum over the prime costs O(p) loads and FMAs a point.
+//    M slots do not fit the field's N-point row or column, so FPlanBL puts
+//    a scratch region after the field (PTYRAD_SCRATCH_ROW,
+//    PTYRAD_SCRATCH_PAD) through which the inner lines exchange, and caps
+//    the block (PTYRAD_BLOCK_THREADS: 512 at 127, for both kernels) so that
+//    field and scratch fit. The spectrum is
+//    in natural order in the points' own layout, so H, the field and every
+//    array keep their layouts; the inverse is the forward's conjugate
+//    transpose step by step.
 //  * FP32 throughout, accurate sincosf, twiddles from double precision.
 //  * The bfloat16 compute policy: multislice_bf16.cu compiles this file
 //    with PTYRAD_BF16_OPERANDS 1, so every line transform (line_dif,
@@ -235,6 +249,7 @@ struct FPlanMR {
   static constexpr int kGroupThreads = 32 * kTl;
   static constexpr size_t kSmem = sizeof(float2) * kN * kLine;
   static constexpr bool kReadsSlots = L::kReadsSlots;
+  static constexpr bool kBluestein = false;
   static_assert(kLine >= kN - 1 + ((kN - 1) >> kPad) + 1, "a padded row must hold the row");
 
   template <int m>
@@ -257,6 +272,48 @@ struct FPlanMR {
   }
 };
 
+#ifdef PTYRAD_BLUESTEIN
+// The plan of a Bluestein line (regfft::BluesteinLine over an M-point
+// MixedLine; ops/fused_plan.py BluesteinPlan): the field as FPlanMR's, the
+// block capped at PTYRAD_BLOCK_THREADS, and after the field a scratch region
+// for the M-point line's exchanges, which the N-point row or column cannot
+// hold: in the row phase a padded line of kScrLine elements (element a at
+// a + (a >> kScrPadShift)) for each row in flight, in the column phase M
+// slots for each column of each group (slot a of column c at a * 32 + c);
+// the phases share it. A transform loads and stores only the thread's own
+// points of the field, so no store of the field waits (kReadsSlots false).
+template <class L, int kMaxThreads, int kRow, int kPad, int kScrRow, int kScrPad>
+struct FPlanBL : FPlanMR<L, (kMaxThreads < PTYRAD_BLOCK_THREADS ? kMaxThreads
+                                                               : PTYRAD_BLOCK_THREADS),
+                         kRow, kPad> {
+  using Base = FPlanMR<L, (kMaxThreads < PTYRAD_BLOCK_THREADS ? kMaxThreads
+                                                              : PTYRAD_BLOCK_THREADS),
+                       kRow, kPad>;
+  static constexpr bool kBluestein = true;
+  static constexpr bool kReadsSlots = false;
+  static constexpr int kSlots = L::kSlots;  // M
+  static constexpr int kScrLine = kScrRow, kScrPadShift = kScrPad;
+  static constexpr size_t kField = static_cast<size_t>(Base::kN) * Base::kLine;
+  static constexpr size_t kScrRows =
+      static_cast<size_t>(Base::kWarps) * Base::kRowsPerWarp * kScrLine;
+  static constexpr size_t kScrCols = static_cast<size_t>(Base::kGroups) * 32 * kSlots;
+  static constexpr size_t kScratch = kScrRows > kScrCols ? kScrRows : kScrCols;
+  static constexpr size_t kSmem = sizeof(float2) * (kField + kScratch);
+  static_assert(kSmem <= 232448, "field and scratch exceed a block's shared memory");
+  static_assert(kScrLine >= kSlots - 1 + ((kSlots - 1) >> kScrPad) + 1,
+                "a scratch line must hold the M slots");
+
+  template <bool kB, class Ex>
+  __device__ __forceinline__ static void dif(float2 (&v)[Base::kE], int t, const Ex& ex) {
+    regfft::line_dif_bl<L, kB>(v, t, ex.scratch());
+  }
+  template <bool kB, class Ex>
+  __device__ __forceinline__ static void dit(float2 (&v)[Base::kE], int t, const Ex& ex) {
+    regfft::line_dit_bl<L, kB>(v, t, ex.scratch());
+  }
+};
+#endif
+
 // What the kernels are built for: a shape S gives the plan of a block of at
 // most kMax threads (S::Plan<kMax>), the pixel arithmetic of the
 // elementwise kernels, the key of its one-time set-up and its twiddles.
@@ -272,11 +329,18 @@ struct Pow2Shape {
 #ifdef PTYRAD_MIXED_LINE
 using MixedLineT = PTYRAD_MIXED_LINE;
 struct MixedShape {
+#ifdef PTYRAD_BLUESTEIN
+  template <int kMax>
+  using Plan = FPlanBL<MixedLineT, kMax, PTYRAD_MIXED_ROW, PTYRAD_MIXED_PAD, PTYRAD_SCRATCH_ROW,
+                       PTYRAD_SCRATCH_PAD>;
+  static cudaError_t upload() { return regfft::upload_bluestein<MixedLineT>(); }
+#else
   template <int kMax>
   using Plan = FPlanMR<MixedLineT, kMax, PTYRAD_MIXED_ROW, PTYRAD_MIXED_PAD>;
+  static cudaError_t upload() { return regfft::upload_mixed(MixedLineT::kN); }
+#endif
   static constexpr int kN = MixedLineT::kN, kKey = 1;
   static regfft::FixedPix<kN * kN> pix() { return {}; }
-  static cudaError_t upload() { return regfft::upload_mixed(kN); }
 };
 #endif
 
@@ -356,6 +420,44 @@ struct MixedCol {
   }
 };
 
+#ifdef PTYRAD_BLUESTEIN
+// A row's line in a Bluestein plan's scratch (its padded scratch line; the
+// row's threads share a warp) and a column's (slot a at a * 32, the
+// group's named barrier); an idle thread stores nothing
+template <class P>
+struct ScratchRow {
+  float2* s;
+  bool live;
+  __device__ __forceinline__ void store(int a, float2 x) const {
+    if (live) s[a + (a >> P::kScrPadShift)] = x;
+  }
+  __device__ __forceinline__ float2 load(int a) const { return s[a + (a >> P::kScrPadShift)]; }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+template <class P>
+struct ScratchCol {
+  float2* s;
+  int bar;
+  bool live;
+  __device__ __forceinline__ void store(int a, float2 x) const {
+    if (live) s[a * 32] = x;
+  }
+  __device__ __forceinline__ float2 load(int a) const { return s[a * 32]; }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;" : : "r"(bar), "r"(P::kGroupThreads) : "memory");
+  }
+};
+
+// A line of the field (F) with its line of the scratch (X), which the
+// plan's transforms exchange through
+template <class F, class X>
+struct WithScratch : F {
+  X x;
+  __device__ __forceinline__ const X& scratch() const { return x; }
+};
+#endif
+
 // f(y, t, line) for every row y of the field: thread t of the row's TL
 template <class P, class F>
 __device__ __forceinline__ void for_rows(float2* s, F&& f) {
@@ -372,7 +474,17 @@ __device__ __forceinline__ void for_rows(float2* s, F&& f) {
     for (int sw = 0; sw < P::kRowSweeps; ++sw) {
       const int y = (sw * P::kWarps + (threadIdx.x >> 5)) * P::kRowsPerWarp + r;
       const bool live = r < P::kRowsPerWarp && y < P::kN;
-      f(y, t, MixedRow<P>{s + (live ? y * P::kLine : 0), live});
+      if constexpr (P::kBluestein) {
+#ifdef PTYRAD_BLUESTEIN
+        // the warp's rows in flight own scratch lines warp * rows + r
+        const int line = (threadIdx.x >> 5) * P::kRowsPerWarp + r;
+        float2* x = s + P::kField + (live ? line * P::kScrLine : 0);
+        f(y, t, WithScratch<MixedRow<P>, ScratchRow<P>>{{s + (live ? y * P::kLine : 0), live},
+                                                        {x, live}});
+#endif
+      } else {
+        f(y, t, MixedRow<P>{s + (live ? y * P::kLine : 0), live});
+      }
     }
   }
 }
@@ -396,7 +508,17 @@ __device__ __forceinline__ void for_cols(float2* s, F&& f) {
     for (int sw = 0; sw < P::kColSweeps; ++sw) {
       const int x = (sw * P::kGroups + group) * 32 + (threadIdx.x & 31);
       const bool live = x < P::kN;
-      f(x, t, MixedCol<P>{s + (live ? x + (x >> P::kPadShift) : 0), 1 + group, live});
+      if constexpr (P::kBluestein) {
+#ifdef PTYRAD_BLUESTEIN
+        // a group's columns own M slots each, interleaved by column
+        float2* xs = s + P::kField + group * 32 * P::kSlots + (threadIdx.x & 31);
+        f(x, t, WithScratch<MixedCol<P>, ScratchCol<P>>{
+                    {s + (live ? x + (x >> P::kPadShift) : 0), 1 + group, live},
+                    {xs, 1 + group, live}});
+#endif
+      } else {
+        f(x, t, MixedCol<P>{s + (live ? x + (x >> P::kPadShift) : 0), 1 + group, live});
+      }
     }
   }
 }
@@ -800,8 +922,8 @@ cudaError_t prepare(int n) {
     using S = decltype(shape);
     return regfft::prepare_once<kMaxLogN>(S::kKey, [](int) -> cudaError_t {
       REGFFT_TRY(S::upload());
-      constexpr size_t smem = S::template Plan<kFwdThreads>::kSmem;  // both kernels'
-      REGFFT_TRY(set_smem(chain_fwd_kernel<S>, smem));
+      constexpr size_t smem = S::template Plan<kBwdThreads>::kSmem;
+      REGFFT_TRY(set_smem(chain_fwd_kernel<S>, S::template Plan<kFwdThreads>::kSmem));
       REGFFT_TRY(set_smem(chain_bwd_kernel<S, false, false>, smem));
       REGFFT_TRY(set_smem(chain_bwd_kernel<S, false, true>, smem));
       REGFFT_TRY(set_smem(chain_bwd_kernel<S, true, false>, smem));
@@ -947,21 +1069,38 @@ int PTYRAD_ENTRY(ptyrad_loss_bwd)(
 int PTYRAD_ENTRY(ptyrad_fused_prepare)(int n) { return static_cast<int>(prepare(n)); }
 
 #if !PTYRAD_BF16_OPERANDS
-// The plan for N, which the card-only tests hold against
-// tests/test_torch_fused_plan.py's: out gets N, E, TL, the padded row
-// length, the row padding's shift, the forward chain block's threads and
-// its row and column sweeps, the same for the backward's block, a column
-// group's threads, the blocks' shared bytes and the B3a epilogue's blocks
-// per sample.
+// The plan for N, which the card-only tests and chip_smoke.py hold against
+// tests/test_torch_fused_plan.py's and ops/fused_plan.py's (reported): out
+// gets N, E, TL, the padded row length, the row padding's shift, the
+// forward chain block's threads and its row and column sweeps, the same for
+// the backward's block, a column group's threads, the forward block's
+// shared bytes, the B3a epilogue's blocks per sample, the line kind (0 the
+// radix-2 pair, 1 the mixed-radix pair, 2 a Bluestein line), a line's slots
+// (N, or M), the forward block's scratch bytes, the scratch row and its
+// shift (0 without a scratch).
 int ptyrad_fused_plan(int n, int* out) {
   return static_cast<int>(with_shape(n, [&](auto shape) -> cudaError_t {
     using S = decltype(shape);
     using F = typename S::template Plan<kFwdThreads>;
     using B = typename S::template Plan<kBwdThreads>;
+    int kind = 0, slots = F::kN, scratch = 0, scr_row = 0, scr_pad = 0;
+    if constexpr (!F::kPow2) {
+      kind = 1;
+      if constexpr (F::kBluestein) {
+#ifdef PTYRAD_BLUESTEIN
+        kind = 2;
+        slots = F::kSlots;
+        scratch = static_cast<int>(sizeof(float2) * F::kScratch);
+        scr_row = F::kScrLine;
+        scr_pad = F::kScrPadShift;
+#endif
+      }
+    }
     const int v[] = {F::kN, F::kE, F::kTl, F::kLine, F::kPadShift, F::kThreads, F::kRowSweeps,
                      F::kColSweeps, B::kThreads, B::kRowSweeps, B::kColSweeps, F::kGroupThreads,
-                     static_cast<int>(F::kSmem), chunks(n)};
-    for (int i = 0; i < 14; ++i) out[i] = v[i];
+                     static_cast<int>(F::kSmem), chunks(n), kind, slots, scratch, scr_row,
+                     scr_pad};
+    for (int i = 0; i < 19; ++i) out[i] = v[i];
     return cudaSuccess;
   }));
 }

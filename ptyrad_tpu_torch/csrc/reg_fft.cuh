@@ -2,9 +2,9 @@
 // Stockham passes (line_fft) at N a power of two, multislice.cu (B3, B4) the
 // radix-2 pair (line_dif, line_dit, below) there; both run the mixed-radix
 // pair (line_dif_mr, line_dit_mr, further below) at any other N, up to 128
-// in multislice.cu and in (128, 512] in chain.cu, where a build may wrap an
-// M-point mixed-radix line in a Bluestein line (line_dif_bl, line_dit_bl;
-// PTYRAD_BLUESTEIN builds only). The first three share the line layout
+// in multislice.cu and in (128, 512] in chain.cu, where a build of either may
+// wrap an M-point mixed-radix line in a Bluestein line (line_dif_bl,
+// line_dit_bl; PTYRAD_BLUESTEIN builds only). The first three share the line layout
 // (LinePlan), the twiddle table, the exchange policies and the set-up.
 //
 // An N-point line (N = 2 ... 512, a power of two) is held by TL = N / E
@@ -386,17 +386,14 @@ __device__ __forceinline__ void line_dit(float2 (&v)[LinePlan<LOGN>::kE], int t,
 // per prime factor of N; the inverse is its conjugate transpose, stage by
 // stage backwards (conjugate twiddles first, then the conjugate
 // butterfly), as line_dit is line_dif's. The stages run in passes:
-//  * a register pass (Pass<false, r...>, radices 2, 3, 5, 7) on whole
-//    cosets: its radices multiply to R, the N / R cosets are the positions
-//    that differ only in its digits, and thread t of the line's T holds the
-//    cosets t + T u (u < c, while below N / R), point D of slot u in
-//    register u + c D;
-//  * a sum pass (Pass<true, p>, one prime p above 7) computes each output
-//    as a direct sum of its p inputs, read from the line's slots, with
-//    twiddles from the table: O(p) a point, so every N has a plan. Thread
-//    t computes positions t + T j.
+// a register pass (Pass<false, r...>, radices 2, 3, 5, 7) on whole
+// cosets: its radices multiply to R, the N / R cosets are the positions
+// that differ only in its digits, and thread t of the line's T holds the
+// cosets t + T u (u < c, while below N / R), point D of slot u in register
+// u + c D. An N with a prime factor above 7 takes a Bluestein line (below)
+// over such passes.
 // Between two passes the line goes through its slots once (store, sync,
-// load); a sum pass reads its inputs there. The forward leaves frequency
+// load). The forward leaves frequency
 // digitrev(position) in each register of the last pass's layout (freq);
 // the inverse takes that layout and ends in the first pass's (pos), the
 // layout of a line's points. Registers past a pass's, and slots past its
@@ -411,9 +408,11 @@ constexpr int kMaxMixedN = 512;
 // (upload_mixed): every twiddle of the pair, W_M^x = W_N^(x N / M)
 __device__ float2 g_mixed[kMaxMixedN];
 
+// A register pass of radices R; the flag is false (the plan sources of
+// ops/fused_plan.py and ops/chain_plan.py spell a pass Pass<false, r...>)
 template <bool kSum, int... R>
 struct Pass {
-  static constexpr bool kIsSum = kSum;
+  static_assert(!kSum, "every pass is a register pass");
   static constexpr int kStages = sizeof...(R);
   static constexpr int kProd = (R * ... * 1);
   __host__ __device__ static constexpr int radix(int s) {
@@ -508,10 +507,6 @@ struct MixedBase {
     constexpr int p[] = {Ps::kProd...};
     return p[k];
   }
-  __host__ __device__ static constexpr bool is_sum(int k) {
-    constexpr bool s[] = {Ps::kIsSum...};
-    return s[k];
-  }
   // radix of stage g of the whole transform
   __host__ __device__ static constexpr int stage_radix(int g) {
     int out = 0, base = 0;
@@ -529,7 +524,7 @@ struct MixedBase {
     return s[k];
   }
   // the product of the earlier passes' radices, the span below pass k
-  // (N / (H R)), its cosets and the slots (a sum pass: points) of a thread
+  // (N / (H R)), its cosets and the coset slots of a thread
   __host__ __device__ static constexpr int high(int k) {
     int h = 1;
     for (int i = 0; i < k; ++i) h *= prod(i);
@@ -538,11 +533,9 @@ struct MixedBase {
   __host__ __device__ static constexpr int span(int k) { return N / (high(k) * prod(k)); }
   __host__ __device__ static constexpr int cosets(int k) { return N / prod(k); }
   __host__ __device__ static constexpr int slots(int k) {
-    return is_sum(k) ? (N + T - 1) / T : (cosets(k) + T - 1) / T;
+    return (cosets(k) + T - 1) / T;
   }
-  __host__ __device__ static constexpr int pass_elems(int k) {
-    return is_sum(k) ? slots(k) : slots(k) * prod(k);
-  }
+  __host__ __device__ static constexpr int pass_elems(int k) { return slots(k) * prod(k); }
   __host__ __device__ static constexpr int max_elems() {
     int e = 0;
     for (int k = 0; k < kPasses; ++k) e = pass_elems(k) > e ? pass_elems(k) : e;
@@ -564,14 +557,14 @@ struct MixedBase {
 template <int N, int T, class... Ps>
 struct MixedLine : MixedBase<N, T, Ps...> {
   using Base = MixedBase<N, T, Ps...>;
-  using Base::cosets, Base::digitrev_const, Base::first_stage, Base::high, Base::is_sum,
-      Base::prod, Base::slots, Base::span, Base::stage_radix, Base::sub_prod;
+  using Base::cosets, Base::digitrev_const, Base::first_stage, Base::high, Base::prod,
+      Base::slots, Base::span, Base::stage_radix, Base::sub_prod;
   static constexpr int kN = N, kTl = T, kPasses = Base::kPasses, kStages = Base::kStages;
   static constexpr int kSlots = N;  // the line's slots an exchange uses
   template <int k>
   using PassAt = std::tuple_element_t<k, std::tuple<Ps...>>;
   static constexpr int kE = Base::max_elems();
-  static constexpr int kExchanges = kPasses - 1 + (Base::is_sum(0) ? 1 : 0);
+  static constexpr int kExchanges = kPasses - 1;
   // whether a transform reads slots other threads of the line wrote
   static constexpr bool kReadsSlots = kExchanges > 0 && T > 1;
   static_assert(Base::high(kPasses) == N, "the passes' radices must multiply to N");
@@ -580,35 +573,23 @@ struct MixedLine : MixedBase<N, T, Ps...> {
   // register m of pass k's layout: the line position it holds, and whether it holds one
   template <int k, int m>
   __device__ __forceinline__ static int pos(int t) {
-    if constexpr (is_sum(k)) {
-      return t + T * m;
+    constexpr int c = slots(k), u = m % c, d = m / c, l = span(k), r = prod(k);
+    const int kappa = t + T * u;
+    if constexpr (l == 1) {
+      return kappa * r + d;
     } else {
-      constexpr int c = slots(k), u = m % c, d = m / c, l = span(k), r = prod(k);
-      const int kappa = t + T * u;
-      if constexpr (l == 1) {
-        return kappa * r + d;
-      } else {
-        return (kappa / l) * r * l + d * l + kappa % l;
-      }
+      return (kappa / l) * r * l + d * l + kappa % l;
     }
   }
   template <int k, int m>
   __device__ __forceinline__ static bool ok(int t) {
-    if constexpr (is_sum(k)) {
-      if constexpr (T * (m + 1) <= N) {
-        return true;
-      } else {
-        return t + T * m < N;
-      }
+    constexpr int c = slots(k), u = m % c, d = m / c;
+    if constexpr (d >= prod(k)) {
+      return false;
+    } else if constexpr (T * (u + 1) <= cosets(k)) {
+      return true;
     } else {
-      constexpr int c = slots(k), u = m % c, d = m / c;
-      if constexpr (d >= prod(k)) {
-        return false;
-      } else if constexpr (T * (u + 1) <= cosets(k)) {
-        return true;
-      } else {
-        return t + T * u < cosets(k);
-      }
+      return t + T * u < cosets(k);
     }
   }
   // x's digits in the radices of stages [s0, s1) (the first most
@@ -627,16 +608,12 @@ struct MixedLine : MixedBase<N, T, Ps...> {
   template <int m>
   __device__ __forceinline__ static int freq(int t) {
     constexpr int k = kPasses - 1;
-    if constexpr (is_sum(k)) {
-      return digitrev<0, kStages>(t + T * m);
+    constexpr int c = slots(k), u = m % c, d = m / c;
+    constexpr int lo = high(k) * digitrev_const(d < prod(k) ? d : 0, first_stage(k), kStages);
+    if constexpr (k == 0) {
+      return lo;
     } else {
-      constexpr int c = slots(k), u = m % c, d = m / c;
-      constexpr int lo = high(k) * digitrev_const(d < prod(k) ? d : 0, first_stage(k), kStages);
-      if constexpr (k == 0) {
-        return lo;
-      } else {
-        return digitrev<0, first_stage(k)>(t + T * u) + lo;
-      }
+      return digitrev<0, first_stage(k)>(t + T * u) + lo;
     }
   }
 };
@@ -724,41 +701,6 @@ __device__ __forceinline__ void mr_stages(float2 (&v)[Line::kE], int t) {
   });
 }
 
-// Sum pass k (one prime p, span l) from the line's slots into thread t's
-// points t + T j. Forward: output (h, q, w) = W_{p l}^(w q) sum_i x(h, i, w)
-// w_p^(q i); kInv, its conjugate transpose: x(h, i, w) = sum_q
-// conj(w_p^(q i)) conj(W_{p l}^(w q)) y(h, q, w). Sums run in index order.
-template <class Line, int k, bool kInv, class Ex>
-__device__ __forceinline__ void mr_sum(float2 (&v)[Line::kE], int t, const Ex& ex) {
-  constexpr int p = Line::prod(k), l = Line::span(k), T = Line::kTl, N = Line::kN;
-  constexpr int step = N / p, wstep = N / (p * l);
-  static_for<0, Line::slots(k)>([&](auto jj) {
-    constexpr int j = decltype(jj)::value;
-    const int x = t + T * j;
-    if constexpr (T * (j + 1) > N) {
-      if (x >= N) return;
-    }
-    const int w = x % l;
-    const int q = (x / l) % p;
-    const int base = x - q * l;
-    float2 acc = make_float2(0.0f, 0.0f);
-    int e = 0;  // q i mod p
-#pragma unroll 4
-    for (int i = 0; i < p; ++i) {
-      float2 y = ex.load(base + i * l);
-      if constexpr (kInv) {
-        y = cmul_conj(y, mixed_twiddle(w * i * wstep));
-        acc = cadd(acc, cmul_conj(y, mixed_twiddle(e * step)));
-      } else {
-        acc = cadd(acc, cmul(y, mixed_twiddle(e * step)));
-      }
-      e += q;
-      if (e >= p) e -= p;
-    }
-    v[j] = kInv ? acc : cmul(acc, mixed_twiddle(w * q * wstep));
-  });
-}
-
 // Unnormalised forward transform of one line with the mixed-radix pair:
 // v in the first pass's layout (the line's points) on entry, frequency
 // Line::freq in each register on return. The exchange loads other threads'
@@ -770,43 +712,32 @@ __device__ __forceinline__ void line_dif_mr(float2 (&v)[Line::kE], int t, const 
   round_operand<kBf16>(v);
   static_for<0, Line::kPasses>([&](auto kk) {
     constexpr int k = decltype(kk)::value;
-    if constexpr (k > 0 || Line::is_sum(0)) {
+    if constexpr (k > 0) {
       if constexpr (Line::kTl > 1) ex.sync();  // slots other threads may still read
       mr_store<Line, (k > 0 ? k - 1 : 0)>(v, t, ex);
       if constexpr (Line::kTl > 1) ex.sync();
-      if constexpr (!Line::is_sum(k)) mr_load<Line, k>(v, t, ex);
+      mr_load<Line, k>(v, t, ex);
     }
-    if constexpr (Line::is_sum(k)) {
-      mr_sum<Line, k, false>(v, t, ex);
-    } else {
-      mr_stages<Line, k, false>(v, t);
-    }
+    mr_stages<Line, k, false>(v, t);
   });
 }
 
 // Unnormalised inverse transform, the conjugate transpose of line_dif_mr:
 // frequency Line::freq in each register on entry, the first pass's layout
-// on return; when that pass reads slots the transform ends waiting for the
-// line, so the caller may store to its slots. kBf16: the points are rounded
-// to bfloat16 first.
+// on return. kBf16: the points are rounded to bfloat16 first.
 template <class Line, bool kBf16 = false, class Ex>
 __device__ __forceinline__ void line_dit_mr(float2 (&v)[Line::kE], int t, const Ex& ex) {
   round_operand<kBf16>(v);
   static_for<0, Line::kPasses>([&](auto kk) {
     constexpr int k = Line::kPasses - 1 - decltype(kk)::value;
-    if constexpr (k < Line::kPasses - 1 || Line::is_sum(k)) {
+    if constexpr (k < Line::kPasses - 1) {
       if constexpr (Line::kTl > 1) ex.sync();
       mr_store<Line, (k < Line::kPasses - 1 ? k + 1 : k)>(v, t, ex);
       if constexpr (Line::kTl > 1) ex.sync();
-      if constexpr (!Line::is_sum(k)) mr_load<Line, k>(v, t, ex);
+      mr_load<Line, k>(v, t, ex);
     }
-    if constexpr (Line::is_sum(k)) {
-      mr_sum<Line, k, true>(v, t, ex);
-    } else {
-      mr_stages<Line, k, true>(v, t);
-    }
+    mr_stages<Line, k, true>(v, t);
   });
-  if constexpr (Line::is_sum(0) && Line::kTl > 1) ex.sync();
 }
 
 // The twiddles of the mixed-radix pair at N on the current device
@@ -823,9 +754,9 @@ inline cudaError_t upload_mixed(int n) {
 }
 
 #ifdef PTYRAD_BLUESTEIN
-// The Bluestein line of chain.cu's mixed build (PTYRAD_BLUESTEIN defined):
-// an N-point line whose prime factors include one above 7 (ops/chain_plan.py
-// plans every such N on it, not on a sum pass). Bluestein's chirp-z
+// The Bluestein line of chain.cu's and multislice.cu's mixed builds
+// (PTYRAD_BLUESTEIN defined): an N-point line whose prime factors include one
+// above 7 (ops/chain_plan.py, ops/fused_plan.py plan such N on it). Bluestein's chirp-z
 // identity, with c_j = exp(-i pi j^2 / N),
 //   X_k = c_k sum_j (x_j c_j) conj(c_(k-j)),
 // is a cyclic convolution over M >= 2 N - 1 points (M 7-smooth), done by an
@@ -840,7 +771,7 @@ inline cudaError_t upload_mixed(int n) {
 // inverse runs the same steps with the conjugate chirp and filter: step by
 // step the conjugate transpose of the forward (the crop's adjoint is the
 // pad, the inner inverse's adjoint the inner forward). O(M log M) a line
-// against the sum pass's O(N p). Under kBf16 the inner forward's operand
+// against a direct sum's O(N p). Under kBf16 the inner forward's operand
 // is rounded, once a transform as every other line rounds; the chirp and
 // filter products and the inner inverse stay FP32.
 
@@ -857,7 +788,6 @@ struct BluesteinLine {
   static constexpr int kPasses = 1, kStages = In::kStages;
   static constexpr bool kReadsSlots = In::kReadsSlots;
   static_assert(kSlots >= 2 * N - 1, "a Bluestein convolution of fewer than 2 N - 1 points");
-  static_assert(!In::is_sum(0), "a Bluestein line's inner passes are register passes");
 
   // the position inner register m of layout 0 holds in thread t (point d of
   // coset slot u: d * span + t + T u), the least at t = 0, the largest at T - 1

@@ -14,17 +14,18 @@ the package needs no nvcc. A failed build raises. Every launch goes through
 ctypes launch runs in the current device's context, whatever stream it is
 handed) and costs one device query when it already is.
 
-At N that is not a power of two the chain kernels come from a library of
+At N that is not a power of two the chain kernels come from libraries of
 their own for each such N (``mixed_lib``): up to 128 the fused kernels
-(B3/B4), ``multislice.cu`` and its ``_bf16`` twin compiled with the
-mixed-radix plan of ``ops/fused_plan.py``; in (128, 512] the segmented
-chain (B5/B6), ``chain.cu`` and its twin with the plan of
-``ops/chain_plan.py``. Two generated sources define the plan and include
-the kernel file, and two nvcc processes started together compile them, at
-the first use of that N (``launch(..., n=N)``, or ``prepare`` of
-``fused_multislice`` or ``chain`` ahead of it). The library's name carries
-the same hash plus the generated sources'; ``build(extra_n=...)`` starts
-those builds beside the main library's.
+(B3/B4), ``multislice.cu`` compiled with the plan of
+``ops/fused_plan.py``; in (128, 512] the segmented chain (B5/B6),
+``chain.cu`` with the plan of ``ops/chain_plan.py``. A generated source
+defines the plan and includes the kernel file; the float32 kernels and
+their ``_bf16`` twins are two libraries, each built by its own nvcc at its
+first use (``launch(..., n=N)``, or ``prepare`` of ``fused_multislice`` or
+``chain`` ahead of it), so a run that never rounds operands at N never
+compiles the twin. A library's name carries the same hash plus its
+generated source's; ``build(extra_n=..., bf16_n=...)`` starts those builds
+beside the main library's.
 """
 
 from __future__ import annotations
@@ -98,9 +99,9 @@ CHAIN_ENTRIES = ("ptyrad_chain_segment_fwd", "ptyrad_chain_segment_bwd",
 PLAN_ENTRIES = ("ptyrad_fused_plan", "ptyrad_chain_plan")  # no _bf16 twin
 
 _LIB = None
-_MIXED = {}  # N -> the loaded mixed-radix library
+_MIXED = {}  # (N, bf16) -> the loaded mixed-radix library
 BUILD_SECONDS = None  # wall time of the build this process ran (None: cached)
-MIXED_BUILD_SECONDS = {}  # N -> seconds of the mixed-radix build this process ran
+MIXED_BUILD_SECONDS = {}  # N, or "N_bf16" -> seconds of that mixed-radix build this process ran
 
 
 def _nvcc() -> str:
@@ -187,40 +188,46 @@ def _mixed_kind(n: int) -> str:
     raise ValueError(f"no mixed-radix library for N = {n}: N <= 512 and not a power of two")
 
 
-def _mixed_sources(n: int) -> dict:
-    """The two generated sources of N's mixed-radix library (float32, _bf16)."""
-    if _mixed_kind(n) == "chain":
-        return {f"chain_n{n}.cu": chain_plan.plan_source(n),
-                f"chain_n{n}_bf16.cu": chain_plan.plan_source(n, bf16_operands=True)}
-    return {f"multislice_n{n}.cu": plan_source(n),
-            f"multislice_n{n}_bf16.cu": plan_source(n, bf16_operands=True)}
+def _mixed_sources(n: int, variants=(False, True)) -> dict:
+    """The generated sources of N's mixed-radix libraries: the float32
+    kernels' (False in variants) and the _bf16 twins' (True)."""
+    stem, source = ((f"chain_n{n}", chain_plan.plan_source) if _mixed_kind(n) == "chain"
+                    else (f"multislice_n{n}", plan_source))
+    return {f"{stem}{'_bf16' if bf16 else ''}.cu": source(n, bf16_operands=bf16)
+            for bf16 in variants}
 
 
-def _mixed_path(n: int) -> Path:
-    key = _key(tuple(_mixed_sources(n).values()))
-    return BUILD_DIR / f"libptyrad_{_mixed_kind(n)}_n{n}_{key}.so"
+def _mixed_path(n: int, bf16: bool = False) -> Path:
+    key = _key(tuple(_mixed_sources(n, (bf16,)).values()))
+    return BUILD_DIR / f"libptyrad_{_mixed_kind(n)}_n{n}{'_bf16' if bf16 else ''}_{key}.so"
 
 
-def build(extra_n=()) -> Path:
+def _mixed_job(n: int, bf16: bool, nice: int = 0) -> _Job:
+    return _Job(_mixed_path(n, bf16), (), _mixed_sources(n, (bf16,)), nice=nice)
+
+
+def build(extra_n=(), bf16_n=()) -> Path:
     """Compile the sources (one nvcc per file, in parallel) and link the
     shared library; returns its path. Reuses a library built from the same
-    sources. ``extra_n``: N that are not powers of two whose mixed-radix
-    libraries (mixed_lib) build at the same time, beside it."""
+    sources. ``extra_n``, ``bf16_n``: N that are not powers of two whose
+    mixed-radix libraries (mixed_lib: the float32 kernels', the _bf16
+    twins') build at the same time, beside it."""
     global BUILD_SECONDS
     out = BUILD_DIR / f"libptyrad_kernels_{_key()}.so"
     main = None if out.exists() else _Job(out)
     # beside the main build the mixed-radix ones yield the cores to it: its
     # unrolled multislice.cu compiles are the longest (about 110 s alone on
     # an H100 host's CPU)
-    extra = {n: _Job(_mixed_path(n), (), _mixed_sources(n), nice=10 if main else 0)
-             for n in dict.fromkeys(extra_n) if not _mixed_path(n).exists()}
+    wanted = [(n, False) for n in extra_n] + [(n, True) for n in bf16_n]
+    extra = {key: _mixed_job(*key, nice=10 if main else 0)
+             for key in dict.fromkeys(wanted) if not _mixed_path(*key).exists()}
     jobs = [job for job in (main, *extra.values()) if job is not None]
     while not all([job.compiled() for job in jobs]):  # each build's own end
         time.sleep(0.1)
     if main is not None:
         BUILD_SECONDS = main.finish()
-    for n, job in extra.items():
-        MIXED_BUILD_SECONDS[n] = job.finish()
+    for (n, bf16), job in extra.items():
+        MIXED_BUILD_SECONDS[f"{n}_bf16" if bf16 else n] = job.finish()
     return out
 
 
@@ -240,22 +247,24 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def mixed_lib(n: int) -> ctypes.CDLL:
+def mixed_lib(n: int, bf16: bool = False) -> ctypes.CDLL:
     """The loaded mixed-radix library at N (not a power of two, at most
-    512): B3/B4's up to 128, B5/B6's above; built on first call. Its entry
-    points take that N alone."""
-    if n not in _MIXED:
-        path = _mixed_path(n)
-        if not path.exists():
-            MIXED_BUILD_SECONDS[n] = _Job(path, (), _mixed_sources(n)).finish()
-        handle = ctypes.CDLL(str(path))
+    512): B3/B4's up to 128, B5/B6's above; with bf16 the _bf16 twins' (no
+    plan entry point); built on first call. Its entry points take that N
+    alone."""
+    key = (n, bf16)
+    if key not in _MIXED:
+        if not _mixed_path(n, bf16).exists():
+            MIXED_BUILD_SECONDS[f"{n}_bf16" if bf16 else n] = _mixed_job(n, bf16).finish()
+        handle = ctypes.CDLL(str(_mixed_path(n, bf16)))
         for name in CHAIN_ENTRIES if _mixed_kind(n) == "chain" else FUSED_ENTRIES:
-            for suffix in ("", "_bf16") if name not in PLAN_ENTRIES else ("",):
-                fn = getattr(handle, name + suffix)
-                fn.argtypes = list(SIGNATURES[name])
-                fn.restype = ctypes.c_int
-        _MIXED[n] = handle
-    return _MIXED[n]
+            if bf16 and name in PLAN_ENTRIES:
+                continue
+            fn = getattr(handle, name + ("_bf16" if bf16 else ""))
+            fn.argtypes = list(SIGNATURES[name])
+            fn.restype = ctypes.c_int
+        _MIXED[key] = handle
+    return _MIXED[key]
 
 
 def ptr(t) -> int | None:
@@ -271,10 +280,9 @@ def launch(name: str, t: torch.Tensor, *args, stream: bool = True,
     is False) the current stream of ``t``'s device last, with that device
     current: under ``torch.cuda.device`` when another one is current. Raise
     if it returns a CUDA error code. ``n``: the kernels' N, whose launcher
-    comes from mixed_lib(n) when N is not a power of two."""
-    if bf16_operands:
-        name += "_bf16"
-    fn = getattr(lib() if n is None or is_pow2(n) else mixed_lib(n), name)
+    comes from mixed_lib(n, bf16_operands) when N is not a power of two."""
+    handle = lib() if n is None or is_pow2(n) else mixed_lib(n, bf16_operands)
+    fn = getattr(handle, name + "_bf16" if bf16_operands else name)
     index = t.device.index
     guard = nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index)
     with guard:

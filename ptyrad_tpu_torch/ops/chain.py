@@ -77,16 +77,14 @@ def _size_error(what: str, n: int) -> ValueError:
 
 
 def prepare(device, n: int) -> None:
-    """Do the kernels' one-time set-up for N-point fields on a CUDA device
-    (the twiddle tables and the blocks' shared-memory limits; at a mixed N
-    first the build of its library). The first launch at each N does it
-    otherwise; after it no launch does any, so call it for every N before
-    capturing launches in a CUDA graph."""
+    """Do the float32 kernels' one-time set-up for N-point fields on a CUDA
+    device (the twiddle tables and the blocks' shared-memory limits; at a
+    mixed N first the build of its library). The first launch at each N
+    does it otherwise (the _bf16 twins' always so); after it no launch does
+    any, so call it for every N before capturing launches in a CUDA graph."""
     if not takes_n(n):
         raise _size_error("prepare", n)
-    t = torch.empty(0, device=device)
-    for bf16 in (False, True):  # the float32 and the bfloat16-operand kernels
-        _build.launch("ptyrad_chain_prepare", t, n, stream=False, bf16_operands=bf16, n=n)
+    _build.launch("ptyrad_chain_prepare", torch.empty(0, device=device), n, stream=False, n=n)
 
 
 _PERMS = {}  # (N, device) -> the mixed plan's permutation on the device

@@ -7,8 +7,8 @@ other N in (128, 512] runs the mixed-radix pair of ``csrc/reg_fft.cuh``
 (``line_dif_mr`` forward, ``line_dit_mr`` its conjugate transpose) that
 ``ops/fused_plan.py`` describes for the fused kernels: one in-place stage
 per prime factor, register passes of radix 2, 3, 5 and 7 on whole cosets,
-an exchange through shared memory between passes (no sum pass: a larger
-prime takes the Bluestein line below). Its candidates and its layouts are
+an exchange through shared memory between passes (a larger prime takes
+the Bluestein line below). Its candidates and its layouts are
 fused_plan's (``Pass``, ``_passes_of``, ``MixedPlan``); what differs is the
 chain's pass structure.
 The field is too large for one block, so it moves through device memory in
@@ -59,8 +59,9 @@ import functools
 
 import numpy as np
 
-from ptyrad_tpu_torch.ops.fused_plan import (PAD_SHIFTS, SMALL, MixedPlan, _passes_of,
-                                             bank_wavefronts, digitrev, is_pow2, pad, primes)
+from ptyrad_tpu_torch.ops import fused_plan
+from ptyrad_tpu_torch.ops.fused_plan import (PAD_SHIFTS, MixedPlan, _passes_of, bank_wavefronts,
+                                             digitrev, is_pow2, pad, pass_layouts, smooth)
 
 MIN_N, MAX_N = 129, 512  # below, the fused kernels' mixed pair takes every N
 MAX_LINE_THREADS = 32    # a row's line stays inside one warp
@@ -140,7 +141,7 @@ class ChainPlan:
         thread's registers when they hold its points (0) and the spectrum
         (1). A Bluestein line keeps both in its inner first pass's layout,
         below N."""
-        pos, ok = _layouts(self.line)
+        pos, ok = pass_layouts(self.line)
         if not self.bluestein:
             return pos[[0, -1]], ok[[0, -1]]
         pos0, ok0 = pos[0], ok[0] & (pos[0] < self.n)
@@ -163,11 +164,6 @@ class ChainPlan:
                 self.line.pad_shift, self.slots)
 
 
-def smooth(n: int) -> bool:
-    """Whether N's prime factors are all 2, 3, 5 or 7."""
-    return all(p in SMALL for p in primes(n))
-
-
 def _cost(plan: ChainPlan) -> tuple:
     """Registers above 16 first, then exchanges, then the thread-registers
     of both passes a line takes (a row pass's warp spends 32 lanes on 32 // T
@@ -178,24 +174,13 @@ def _cost(plan: ChainPlan) -> tuple:
     return (max(e - 16, 0), line.exchanges, work, t)
 
 
-def _layouts(plan: MixedPlan):
-    """(positions, valid), each (layouts, T, E): every layout a row thread
-    uses (its points, each pass's layout, the frequencies' which is the last
-    pass's)."""
-    tl, k = plan.line_threads, len(plan.passes)
-    lays = [[plan.layout(j, t) for t in range(tl)] for j in range(k)]
-    pos = np.array([[p for p, _ in lay] for lay in lays])
-    ok = np.array([[o for _, o in lay] for lay in lays], bool)
-    return pos, ok
-
-
 def wavefronts(plan: MixedPlan, layouts=None) -> tuple:
     """(wavefronts, least) of one row-pass warp's shared-memory accesses
     (fused_plan.bank_wavefronts): each register's store or load in each
     layout of its exchanges, its rows' lines at row * line + pad(position).
     Every warp of a block is alike up to a constant offset, which moves no
     element to another bank pair's share."""
-    pos, ok = layouts if layouts is not None else _layouts(plan)
+    pos, ok = layouts if layouts is not None else pass_layouts(plan)
     tl = plan.line_threads
     lane = np.arange(32)
     row, t = lane // tl, lane % tl
@@ -241,7 +226,7 @@ def chain_plan(n: int) -> ChainPlan:
                          f"two, got {n}")
     plan = min(_candidates(n), key=_cost)
     line, size = plan.line, plan.slots
-    lays = _layouts(line)
+    lays = pass_layouts(line)
     lines = [dataclasses.replace(line, line=pad(size - 1, s) + 1 + d, pad_shift=s)
              for s in PAD_SHIFTS for d in range(16)]
     best = min(lines, key=lambda p: (wavefronts(p, lays)[0], p.line, -p.pad_shift))
@@ -257,14 +242,7 @@ def bluestein_tables(n: int) -> tuple:
     plan = chain_plan(n)
     if not plan.bluestein:
         raise ValueError(f"bluestein_tables: N = {n} has no Bluestein plan")
-    m = plan.slots
-    j = np.arange(n)
-    chirp = np.exp(-1j * np.pi * ((j * j) % (2 * n)) / n)
-    g = np.zeros(m, complex)
-    g[:n] = np.conj(chirp)
-    g[m - n + 1:] = np.conj(chirp[1:][::-1])
-    f = np.array([digitrev(p, plan.line.radices) for p in range(m)])
-    return chirp, np.fft.fft(g)[f] / m
+    return fused_plan.bluestein_tables(n, plan.line)
 
 
 def plan_source(n: int, bf16_operands: bool = False) -> str:
@@ -276,9 +254,7 @@ def plan_source(n: int, bf16_operands: bool = False) -> str:
     splits a -D value at its commas."""
     plan = chain_plan(n)
     line = plan.line
-    passes = ", ".join(f"regfft::Pass<{str(p.sum).lower()}, {', '.join(map(str, p.radices))}>"
-                       for p in line.passes)
-    mixed = f"regfft::MixedLine<{line.n}, {line.line_threads}, {passes}>"
+    mixed = fused_plan.mixed_line_type(line)
     return (f"// chain.cu at N = {n}: ops/chain_plan.py's mixed-radix plan\n"
             + ("#define PTYRAD_BF16_OPERANDS 1\n" if bf16_operands else "")
             + ("#define PTYRAD_BLUESTEIN 1\n" if plan.bluestein else "")

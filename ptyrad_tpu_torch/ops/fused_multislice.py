@@ -30,8 +30,9 @@ the kernels take omode 1 and any square N from 2 to 128. Each wavefield
 stays in one block's shared memory for the whole chain and is transformed
 in registers: at N a power of two by the radix-2 pair of
 ``csrc/reg_fft.cuh`` (the header the chain kernels share), at any other N
-by its mixed-radix pair, with the plan ``ops/fused_plan.py`` chooses for
-that N, built into a library of its own at the first use of that N
+by its mixed-radix pair or, at N with a prime factor above 7, its
+Bluestein line, with the plan ``ops/fused_plan.py`` chooses for that N,
+built into a library of its own at the first use of that N
 (``_build.mixed_lib``; ``prepare`` builds it ahead).
 tests/test_torch_fused_plan.py emulates the kernels' plans.
 
@@ -53,16 +54,15 @@ from ptyrad_tpu_torch.ops.fused_plan import MAX_N, is_pow2
 
 
 def prepare(device, n: int) -> None:
-    """Do the kernels' one-time set-up for N-point fields on a CUDA device
-    (at N that is not a power of two the build of its library first, then
-    the twiddle tables and the chain kernels' shared-memory limits). The
-    first launch at each N does it otherwise; after it no launch does any,
-    so call it for every N before capturing launches in a CUDA graph."""
+    """Do the float32 kernels' one-time set-up for N-point fields on a CUDA
+    device (at N that is not a power of two the build of its library first,
+    then the twiddle tables and the chain kernels' shared-memory limits).
+    The first launch at each N does it otherwise (the _bf16 twins' always
+    so); after it no launch does any, so call it for every N before
+    capturing launches in a CUDA graph."""
     if not 2 <= n <= MAX_N:
         raise ValueError(f"prepare: N must be in [2, {MAX_N}], got {n}")
-    t = torch.empty(0, device=device)
-    for bf16 in (False, True):  # the float32 and the bfloat16-operand kernels
-        _build.launch("ptyrad_fused_prepare", t, n, stream=False, bf16_operands=bf16, n=n)
+    _build.launch("ptyrad_fused_prepare", torch.empty(0, device=device), n, stream=False, n=n)
 
 
 def _pow(x: torch.Tensor, p: float) -> torch.Tensor:

@@ -24,7 +24,7 @@ fftshift(fft2(.)) at rtol 1e-5 of the largest entry (double precision
 arithmetic; the only float32 rounding is the twiddle table's
 exp(-2 pi i e / N)); at three odd N (135, 243, 509) the exit's adjoint too,
 loaded through the same map. Register passes run stage by stage as
-mr_stages does (a chain plan has no sum pass).
+mr_stages does.
 
 Last, with torch: H gathered with the permutation (``kernel_h``) and the
 kernels' dH accumulated in that order, returned through the gather's
@@ -268,7 +268,7 @@ def _assert_close(actual, expected):
 def test_plan_fits_the_card(n):
     plan = CP.chain_plan(n)
     mp = plan.line
-    assert math.prod(mp.radices) == plan.slots and not any(p.sum for p in mp.passes)
+    assert math.prod(mp.radices) == plan.slots and CP.smooth(plan.slots)
     if plan.bluestein:  # a cyclic convolution of 2 N - 1 points or more
         assert plan.slots >= 2 * n - 1 and CP.smooth(plan.slots) and plan.slots <= 1024
     else:
@@ -385,7 +385,7 @@ def test_plan_source_and_permutation(n):
     em_freq = list(range(n)) if plan.bluestein else [digitrev(p, mp.radices) for p in range(n)]
     assert sorted(em_freq) == list(range(n)) and plan.perm.tolist() == em_freq
     src = CP.plan_source(n).splitlines()
-    passes = ", ".join(f"regfft::Pass<{str(p.sum).lower()}, {', '.join(map(str, p.radices))}>"
+    passes = ", ".join(f"regfft::Pass<false, {', '.join(map(str, p.radices))}>"
                        for p in mp.passes)
     line = f"regfft::MixedLine<{mp.n}, {plan.line_threads}, {passes}>"
     if plan.bluestein:

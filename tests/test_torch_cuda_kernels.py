@@ -3,9 +3,10 @@ the edge cases that chip_smoke.py's tBL and PSO shapes do not reach: small
 and odd patch sizes, one slice, one mode, every probe layout, other loss
 powers, a masked sample, the whole loss-folded path, the plain fused chain
 (B4) and forward() through it with two object modes and detector blur, the
-fused pairs at N that is not a power of two (6, 96, 100, 120, 127: the
-mixed-radix pair), the segmented chain (B5/B6) with `last` / `last_mega` both ways and the
-grad-off route, its mixed-radix build at N in (128, 512] that is not a
+fused pairs at N that is not a power of two (6, 96, 100, 120: the
+mixed-radix pair; 11, 22, 110, 124, 127: the Bluestein line), the segmented
+chain (B5/B6) with `last` / `last_mega` both ways and the grad-off route,
+its mixed-radix build at N in (128, 512] that is not a
 power of two (one N of each plan kind, and the compiled plans against
 ops/chain_plan.py's), B5 with the far-field exit (set_far_field) and the route
 through it, and short tBL-like, low-dose and PSO-like solver runs, with
@@ -188,7 +189,9 @@ def _grad(t):
 @pytest.mark.parametrize("b,pmode,nz,n", [(3, 2, 1, 16), (2, 1, 2, 2), (4, 3, 6, 64),
                                           (2, 6, 6, 128), (3, 8, 3, 4), (5, 8, 2, 8),
                                           (3, 8, 4, 32), (3, 2, 3, 6), (2, 4, 3, 96),
-                                          (2, 3, 2, 100), (2, 4, 3, 120), (2, 2, 2, 127)])
+                                          (2, 3, 2, 100), (2, 4, 3, 120), (2, 2, 2, 127),
+                                          (2, 3, 2, 124), (2, 2, 2, 110), (3, 2, 3, 11),
+                                          (2, 3, 2, 22)])
 @pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])
 @pytest.mark.parametrize("p", [0.5, 1.0, 0.3])
 @pytest.mark.parametrize("h_case", H_CASES)
@@ -273,17 +276,22 @@ def test_fused_kernel_plans_match_fused_plan(dev):
 
     from ptyrad_tpu_torch.ops import _build
     from ptyrad_tpu_torch.ops import fused_multislice as M
+    from ptyrad_tpu_torch.ops import fused_plan as FP
 
-    for n in [1 << logn for logn in range(1, 8)] + [6, 96, 100, 120, 127]:
+    ns = [1 << logn for logn in range(1, 8)] + [6, 96, 100, 120, 127, 124, 110, 11, 22]
+    _build.build(extra_n=ns[7:])  # the libraries of every N at once
+    for n in ns:
         M.prepare(dev, n)  # the explicit warm-up (and, not a power of two, the build)
-        out = (ctypes.c_int * 14)()
+        out = (ctypes.c_int * 19)()
         lib = _build.lib() if n & (n - 1) == 0 else _build.mixed_lib(n)
         _build.check(lib.ptyrad_fused_plan(n, out), "ptyrad_fused_plan")
         plan = fused_plan(n)
-        assert list(out) == [plan.n, plan.elems, plan.line_threads, plan.line, plan.pad_shift,
-                             plan.threads, plan.row_sweeps, plan.col_sweeps, plan.bwd_threads,
-                             plan.bwd_row_sweeps, plan.bwd_col_sweeps, plan.group_threads,
-                             plan.smem, plan.chunks]
+        assert list(out)[:14] == [plan.n, plan.elems, plan.line_threads, plan.line,
+                                  plan.pad_shift, plan.threads, plan.row_sweeps, plan.col_sweeps,
+                                  plan.bwd_threads, plan.bwd_row_sweeps, plan.bwd_col_sweeps,
+                                  plan.group_threads, plan.smem, plan.chunks]
+        if n & (n - 1):
+            assert tuple(out) == FP.reported(n)
 
 
 def test_unsupported_cases_raise(dev, gen):
@@ -384,7 +392,7 @@ def test_solver_cuda_matches_cpu(dev):
 
 # -- B4: the plain fused chain ------------------------------------------------
 
-@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128, 6, 96, 120, 127])
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128, 6, 96, 120, 127, 124, 11])
 @pytest.mark.parametrize("pmode", [1, 6, 8])
 @pytest.mark.parametrize("nz", [1, 6])
 @pytest.mark.parametrize("probe_layout", ["shared", "shared_kspace", "each", "each_kspace"])

@@ -2,9 +2,10 @@
 ptyrad_tpu on the CPU.
 
 On a CUDA tensor the port runs the mixed-radix pair of csrc/reg_fft.cuh at
-these N (its plan is tests/test_torch_fused_plan.py's); on the CPU the same
-entry points run their plain versions, which are held here against the JAX
-package's kernels at N = 96, 100 and 120:
+these N, and at 124 and 127 (a prime factor above 7) its Bluestein line (the
+plans are tests/test_torch_fused_plan.py's); on the CPU the same entry
+points run their plain versions, which are held here against the JAX
+package's kernels at N = 96, 100, 120, 124 and 127:
 
 - ``multislice_dp_fused`` against ptyrad_tpu's ``multislice_dp_fused`` in
   Pallas interpret mode (as tests/test_forward.py:276 runs it): dp and its
@@ -39,7 +40,7 @@ from ptyrad_tpu_torch.models import forward_route, make_model
 from ptyrad_tpu_torch.ops import fused_multislice as tfm
 from torch_port_helpers import CPU, assert_grad_close, np_, toy_init
 
-NS = [96, 100, 120]
+NS = [96, 100, 120, 124, 127]
 
 
 def close(actual, expected):
@@ -139,7 +140,7 @@ def test_loss_sums_match_pallas_interpret(n, nz, pmode, layout):
         assert_grad_close(np_(leaves[3].grad.imag), j_g[5], "h.im")
 
 
-@pytest.mark.parametrize("n", NS + [127])
+@pytest.mark.parametrize("n", NS)
 def test_fused_route_takes_every_n(n):
     """The fused rule takes these N (square, up to 128) on any device: a
     meta model stands for a CUDA one."""

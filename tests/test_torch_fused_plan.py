@@ -18,31 +18,44 @@ back. In the row phase a row's threads are adjacent lanes of one warp; in
 the column phase a warp holds 32 adjacent columns with one t, and a
 column's TL warps wait on a named barrier of their own.
 
-At any other N the mixed-radix pair (``line_dif_mr``, ``line_dit_mr``) with
-the plan of ``ops/fused_plan.py`` (its module docstring): one stage per
-prime factor, register passes of radix 2, 3, 5 and 7 on whole cosets and
-sum passes of a larger prime, an exchange between passes, frequency
+At any other 7-smooth N the mixed-radix pair (``line_dif_mr``,
+``line_dit_mr``) with the plan of ``ops/fused_plan.py`` (its module
+docstring): one stage per prime factor, register passes of radix 2, 3, 5
+and 7 on whole cosets, an exchange between passes, frequency
 digitrev(position) after the forward; a warp holds 32 // T rows, a column
-group T warps, and lanes or lines past N idle.
+group T warps, and lanes or lines past N idle. At every N with a prime
+factor above 7 a Bluestein line (``BluesteinPlan``): the chirp, an M-point forward
+of the same pair, the filter, its inverse, the chirp (the tables of
+``fused_plan.bluestein_tables`` rounded to float32; the inverse with their
+conjugates), the M-point line's exchanges in a scratch region beside the
+field (a padded line for each row in flight, M slots interleaved by column
+for each column of a group), the spectrum in natural order in the points'
+own layout.
 
-Here, for every N and both blocks: the block fits the card; each phase
-covers every element of the field once, in each layout a thread uses (its
-points, each pass's layout, its frequencies); the row phase's warp accesses
-take the least number of shared-memory wavefronts (8-byte accesses: one
-per half-warp that has any, 32 banks of 4 bytes) at every power of two and
-at N = 96, 120 and 127, and at every other N the count the plan states
-(``fused_plan.wavefronts``, the fewest of the paddings it could take); the
-column phase's always take the least. A thread-by-thread NumPy emulation
-of one propagation ifft2(H fft2(.)), its column phase fused (column
-transform, H / N^2, inverse column transform), and of the far field fft2(.)
-equals NumPy's at rtol 1e-5 of the largest entry (double precision
-arithmetic; the only float32 rounding is the twiddles'): at every power of
-two and at N = 3, 5, 6, 7, 12, 15, 24, 96, 98, 100, 104, 120, 125 and 127;
-each exchange writes each of its line's slots once, reads only what it
-wrote and touches no other line.
+Here, for every N and both blocks: the block fits the card (field and
+scratch); each phase covers every element of the field once, in each
+layout a thread uses (its points, each pass's layout, its frequencies);
+the row phase's warp accesses take the least number of shared-memory
+wavefronts (8-byte accesses: one per half-warp that has any, 32 banks of 4
+bytes) at every power of two and at N = 96, 120 and 127, and at every other
+N the count the plan states (``fused_plan.wavefronts``, the fewest of the
+paddings it could take), the scratch's likewise
+(``fused_plan.scratch_wavefronts``); the column phase's always take the
+least. A thread-by-thread NumPy emulation of one propagation
+ifft2(H fft2(.)), its column phase fused (column transform, H / N^2,
+inverse column transform), and of the far field fft2(.) equals NumPy's at
+rtol 1e-5 of the largest entry (double precision arithmetic; the only
+float32 rounding is the tables'): at every power of two, at N = 3, 5, 6, 7,
+12, 15, 24, 96, 98, 100, 120 and 125, and at every N with a prime factor
+above 7 (104 among them); each exchange writes each of its line's slots once, reads
+only what it wrote and touches no other line, a scratch exchange inside
+the block's scratch and apart from every other line in flight. The
+inverse line is the forward's conjugate transpose to 1e-12, and every
+N that takes no Bluestein line has the generated source it had before it.
 """
 
 import dataclasses
+import hashlib
 import math
 
 import numpy as np
@@ -53,7 +66,8 @@ from ptyrad_tpu_torch.ops import fused_plan as FP
 
 POW2 = [2 ** k for k in range(1, 8)]
 NS = list(range(2, M.MAX_N + 1))
-EMULATED = POW2 + [3, 5, 6, 7, 12, 15, 24, 96, 98, 100, 104, 120, 125, 127]
+LARGE_PRIME = [n for n in NS if not FP.smooth(n)]  # a prime factor above 7
+EMULATED = POW2 + [3, 5, 6, 7, 12, 15, 24, 96, 98, 100, 120, 125] + LARGE_PRIME
 LEAST_WAVEFRONTS = [96, 120, 127]
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
 # multislice.cu kFwdThreads, kBwdThreads: the chain blocks' threads at N = 128
@@ -76,9 +90,13 @@ class FusedPlan:
     bwd_row_sweeps: int
     bwd_col_sweeps: int
     group_threads: int  # a column group (32 adjacent columns): its named barrier's count
-    smem: int           # bytes: the padded field
+    smem: int           # bytes: the padded field (and a Bluestein plan's scratch), forward block
     chunks: int         # B3a's epilogue blocks per sample
-    mixed: FP.MixedPlan | None = None  # the mixed-radix plan (N not a power of two)
+    mixed: FP.MixedPlan | FP.BluesteinPlan | None = None  # N not a power of two: the plan
+
+    @property
+    def bluestein(self) -> bool:
+        return isinstance(self.mixed, FP.BluesteinPlan)
 
 
 def fused_plan(n: int, backward: bool = False) -> FusedPlan:
@@ -135,8 +153,9 @@ def layouts(plan, t):
                 "frequencies": (np.array([dif_freq(plan, t, i) for i in j]), ok)}
     mp = plan.mixed
     out = {"points": mp.points(t)}
-    for k in range(len(mp.passes)):
-        out[f"pass {k}"] = mp.layout(k, t)
+    if not plan.bluestein:  # a Bluestein line's passes exchange in the scratch
+        for k in range(len(mp.passes)):
+            out[f"pass {k}"] = mp.layout(k, t)
     out["frequencies"] = mp.frequencies(t)
     return {k: (np.array(p), np.array(v, bool)) for k, (p, v) in out.items()}
 
@@ -178,12 +197,47 @@ def col_addr(plan, x, a):
     return pad(plan, x) + a * plan.line
 
 
+def scratch_elems(plan):
+    """A Bluestein block's scratch, in elements: a padded line for each row
+    of a row sweep, M slots for each column of a column sweep."""
+    mp = plan.mixed
+    return max(plan.threads // 32 * (32 // plan.line_threads) * mp.inner.line,
+               plan.threads // plan.group_threads * 32 * mp.slots)
+
+
+def row_scratch_addr(plan, y, a):
+    """Scratch address of inner position a of row y's line, offset by its
+    row sweep's whole scratch so that lines of different sweeps (which
+    reuse the region one after another) stay apart: the row's line in
+    flight (warp * rows a warp + r) at that times the scratch row, element
+    a at a + (a >> the scratch's shift)."""
+    inner = plan.mixed.inner
+    per = plan.threads // 32 * (32 // plan.line_threads)
+    sweep, line = np.divmod(y, per)
+    slot = line * inner.line + a + (np.asarray(a) >> inner.pad_shift)
+    assert (slot < scratch_elems(plan)).all(), "a row's scratch line past the scratch"
+    return sweep * scratch_elems(plan) + slot
+
+
+def col_scratch_addr(plan, x, a):
+    """Scratch address of inner position a of column x's line (offset by
+    its sweep as in row_scratch_addr): group g's 32 columns hold M slots
+    each, slot a of column c at g * 32 * M + a * 32 + c."""
+    groups = plan.threads // plan.group_threads
+    sweep, rest = np.divmod(x, 32 * groups)
+    group, c = np.divmod(rest, 32)
+    slot = group * 32 * plan.mixed.slots + np.asarray(a) * 32 + c
+    assert (slot < scratch_elems(plan)).all(), "a column's scratch slots past the scratch"
+    return sweep * scratch_elems(plan) + slot
+
+
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("n", NS)
 def test_plan_fits_the_card(n, backward):
     plan = fused_plan(n, backward)
     assert 1 <= plan.threads <= 1024 and plan.smem <= SMEM_LIMIT
-    assert plan.smem == 8 * n * plan.line and plan.line >= pad(plan, n - 1) + 1
+    assert plan.smem == 8 * n * plan.line or plan.bluestein
+    assert plan.line >= pad(plan, n - 1) + 1
     assert n * n % plan.chunks == 0 or plan.mixed is not None
     if plan.mixed is None:
         assert plan.elems * plan.line_threads == n
@@ -195,10 +249,24 @@ def test_plan_fits_the_card(n, backward):
             assert plan.threads // plan.group_threads <= 15  # named barriers 1 ... 15
         return
     mp = plan.mixed
-    assert math.prod(mp.radices) == n and all(FP.primes(r) == [r] for r in mp.radices)
-    assert all(set(p.radices) <= set(FP.SMALL) for p in mp.passes if not p.sum)
-    assert all(len(p.radices) == 1 and p.radices[0] > 7 for p in mp.passes if p.sum)
-    assert plan.elems <= 32 and plan.line_threads <= FP.MAX_LINE_THREADS
+    if plan.bluestein:
+        # a cyclic convolution over a 7-smooth M >= 2 N - 1, at most the power
+        # of two at or above it, two M-point lines of register passes; field
+        # and scratch fit
+        inner, m = mp.inner, mp.slots
+        assert not FP.smooth(n) and m >= 2 * n - 1 and FP.smooth(m)
+        assert m <= 1 << (2 * n - 2).bit_length()
+        assert math.prod(inner.radices) == m
+        assert all(set(p.radices) <= set(FP.SMALL) for p in inner.passes)
+        assert plan.elems == inner.elems <= 32 and plan.line_threads <= FP.MAX_LINE_THREADS
+        assert inner.line >= m - 1 + ((m - 1) >> inner.pad_shift) + 1
+        assert plan.threads <= mp.max_threads and plan.smem == mp.block_smem(FP.FWD_THREADS)
+        assert 8 * (n * plan.line + scratch_elems(plan)) == \
+            mp.block_smem(FP.BWD_THREADS if backward else FP.FWD_THREADS) <= SMEM_LIMIT
+    else:
+        assert math.prod(mp.radices) == n and all(FP.primes(r) == [r] for r in mp.radices)
+        assert FP.smooth(n) and all(set(p.radices) <= set(FP.SMALL) for p in mp.passes)
+        assert plan.elems <= 32 and plan.line_threads <= FP.MAX_LINE_THREADS
     assert plan.threads % 32 == 0 and plan.threads % plan.group_threads == 0
     assert plan.line_threads == 1 or plan.threads // plan.group_threads <= 15
     assert plan.row_sweeps * (plan.threads // 32) * (32 // plan.line_threads) >= n
@@ -261,6 +329,30 @@ def _phase_wavefronts(plan, phase):
     return total, least
 
 
+def _scratch_wavefronts(plan, phase):
+    """(wavefronts, least) of every warp access of a Bluestein plan's
+    scratch in one phase's first sweep: each register's store or load in
+    each of the inner line's pass layouts."""
+    inner = plan.mixed.inner
+    lays = [[inner.layout(k, t) for t in range(plan.line_threads)]
+            for k in range(len(inner.passes))]
+    if phase == "row":
+        lines, ts, live = (a[0] for a in row_threads(plan))
+        addr = row_scratch_addr
+    else:
+        lines, ts, _, live = (a[0] for a in col_threads(plan))
+        addr = col_scratch_addr
+    total = least = 0
+    for lay in lays:
+        pos = np.array([p for p, _ in lay])[ts]  # (threads, E)
+        ok = np.array([o for _, o in lay], bool)[ts] & live[:, None]
+        a = np.where(ok, addr(plan, lines[:, None], pos), -1).T  # (E, threads)
+        a = np.pad(a, ((0, 0), (0, -a.shape[1] % 32)), constant_values=-1)
+        got = _count(a.reshape(-1, 32))
+        total, least = total + got[0], least + got[1]
+    return total, least
+
+
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("n", NS)
 def test_accesses_take_the_least_wavefronts(n, backward):
@@ -268,7 +360,7 @@ def test_accesses_take_the_least_wavefronts(n, backward):
     load or store in each layout. The column phase always takes the least;
     the row phase the least at every power of two and LEAST_WAVEFRONTS,
     else the count the plan states (for the forward's block, which chose
-    the padding)."""
+    the padding); a Bluestein plan's scratch likewise."""
     plan = fused_plan(n, backward)
     total, least = _phase_wavefronts(plan, "column")
     assert total == least
@@ -277,6 +369,14 @@ def test_accesses_take_the_least_wavefronts(n, backward):
         assert total == least
     if plan.mixed is not None and not backward:
         assert (total, least) == FP.wavefronts(plan.mixed)
+    if plan.bluestein:
+        total, least = _scratch_wavefronts(plan, "column")
+        assert total == least
+        total, least = _scratch_wavefronts(plan, "row")
+        if n in LEAST_WAVEFRONTS:
+            assert total == least
+        if not backward:
+            assert (total, least) == FP.scratch_wavefronts(plan.mixed)
 
 
 def _table(plan, e):
@@ -387,33 +487,13 @@ def _dft(x, inverse):
     return x @ w
 
 
-def _mixed_pass(v, plan, k, inverse, slots_of):
+def _mixed_pass(v, plan, k, inverse):
     """Pass k of the mixed-radix pair on every line's threads (line_dif_mr's
-    mr_stages / mr_sum): v (lines, T, E) in pass k's layout."""
+    mr_stages): v (lines, T, E) in pass k's layout."""
     mp = plan.mixed
     r_all, _, span, cosets, c = mp.geometry(k)
     tl, n = mp.line_threads, mp.n
     t = np.arange(tl)
-    if mp.passes[k].sum:
-        p, pos = r_all, t[:, None] + tl * np.arange(c)[None, :]
-        ok = pos < n
-        line = slots_of()  # (lines, N): the pass's inputs, from the slots
-        w, q = pos % span, (pos // span) % p
-        base = pos - q * span
-        out = v.copy()
-        idx = (base[..., None] + span * np.arange(p)).clip(0, n - 1)  # (T, c, p)
-        x = line[:, idx]  # (lines, T, c, p)
-        ii = np.arange(p)
-        if inverse:
-            tw = np.conj(_table(plan, (w[..., None] * ii * (n // (p * span))) % n))
-            x = x * tw
-            wp = np.conj(_table(plan, ((q[..., None] * ii) % p) * (n // p)))
-            res = (x * wp).sum(-1)
-        else:
-            wp = _table(plan, ((q[..., None] * ii) % p) * (n // p))
-            res = (x * wp).sum(-1) * _table(plan, w * q * (n // (p * span)))
-        out[:, :, :c] = np.where(ok[None], res, out[:, :, :c])
-        return out
     radices = mp.passes[k].radices
     out = v.copy()
     for u in range(c):
@@ -449,30 +529,59 @@ def _line_mixed(field, v, plan, addr, inverse, own):
     lay = [[mp.layout(k, t) for t in range(tl)] for k in range(last + 1)]
     pos = [np.array([p for p, _ in lk]) for lk in lay]
     ok = [np.array([o for _, o in lk], bool) for lk in lay]
-    n = mp.n
-
-    def slots_of():
-        return field[addr(np.arange(n)[None, :])]
 
     v = v.copy()
     order = range(last, -1, -1) if inverse else range(last + 1)
     for k in order:
-        src = (k + 1 if k < last else k) if inverse else (k - 1 if k > 0 else 0)
-        enter = (k < last or mp.passes[k].sum) if inverse else (k > 0 or mp.passes[0].sum)
-        if enter:
+        if k < last if inverse else k > 0:
+            src = k + 1 if inverse else k - 1
             _exchange_store(field, v, ok[src], addr, pos[src], own)
-            if not mp.passes[k].sum:
-                v = _exchange_load(field, v, ok[k], addr, pos[k])
-        v = _mixed_pass(v, plan, k, inverse, slots_of)
+            v = _exchange_load(field, v, ok[k], addr, pos[k])
+        v = _mixed_pass(v, plan, k, inverse)
     return v
 
 
-def _phase(field, plan, addr_of, steps, load="points", store="points", src=None):
+def _f32(z):
+    """A table rounded once to float32, as the library uploads it."""
+    return np.asarray(z).astype(np.complex64).astype(complex)
+
+
+def _line_bluestein(scratch, v, plan, saddr, inverse, own):
+    """Emulate line_dif_bl (inverse: line_dit_bl) for every line of a
+    phase: v (lines, T, E) in the points' layout (the spectrum's is the
+    same); the chirp, the inner forward (line_dif_mr at M, its exchanges in
+    the scratch through saddr), the filter at the inner forward's
+    frequencies, the inner inverse, the chirp; the inverse with the tables'
+    conjugates. Registers past N end as zero."""
+    bp = plan.mixed
+    inner = FusedPlan(n=bp.slots, elems=bp.elems, line_threads=bp.line_threads, line=0,
+                      pad_shift=0, threads=0, row_sweeps=0, col_sweeps=0, bwd_threads=0,
+                      bwd_row_sweeps=0, bwd_col_sweeps=0, group_threads=0, smem=0, chunks=0,
+                      mixed=bp.inner)
+    chirp, filt = (_f32(t) for t in FP.bluestein_tables(bp.n, bp.inner))
+    tl = bp.line_threads
+    pos0 = np.array([bp.points(t)[0] for t in range(tl)])
+    ok0 = np.array([bp.points(t)[1] for t in range(tl)], bool)
+    last = len(bp.inner.passes) - 1
+    pos_l = np.array([bp.inner.layout(last, t)[0] for t in range(tl)])
+    ok_l = np.array([bp.inner.layout(last, t)[1] for t in range(tl)], bool)
+    c = chirp[np.where(ok0, pos0, 0)][None]
+    f = filt[pos_l][None]
+    if inverse:
+        c, f = np.conj(c), np.conj(f)
+    v = _line_mixed(scratch, np.where(ok0, v * c, 0), inner, saddr, False, own)
+    v = _line_mixed(scratch, np.where(ok_l, v * f, v), inner, saddr, True, own)
+    return np.where(ok0, v * c, 0)
+
+
+def _phase(field, plan, addr_of, steps, load="points", store="points", src=None,
+           scratch_of=None, scratch=None):
     """One phase over every line: load the thread's registers in layout
     ``load`` (from src, (lines, N), else the field), run the steps ("dif",
     "dit", or f(v, line, position): elementwise work, with each register's
     line position in the layout it then holds) and store them in layout
-    ``store``. Returns the lines, (lines, N), in natural order."""
+    ``store``. Returns the lines, (lines, N), in natural order. A Bluestein
+    plan's lines exchange in ``scratch`` at scratch_of(line, position)."""
     n, tl = plan.n, plan.line_threads
     lines = np.arange(n)[:, None, None]
     lay = [layouts(plan, t) for t in range(tl)]
@@ -483,19 +592,30 @@ def _phase(field, plan, addr_of, steps, load="points", store="points", src=None)
         return addr_of(lines[:, :, 0] if a.ndim == 2 else lines, a)
 
     own = np.sort(addr(np.arange(n)[None, :]).reshape(n, n), axis=1)
+    if plan.bluestein:
+        m = plan.mixed.slots
+
+        def saddr(a):
+            return scratch_of(lines[:, :, 0] if a.ndim == 2 else lines, a)
+
+        own_s = np.sort(saddr(np.arange(m)[None, :]).reshape(n, m), axis=1)
+        assert len(np.unique(own_s)) == own_s.size, "two lines in flight share a scratch slot"
     held = load
     use = np.broadcast_to(ok[held], (n, tl, plan.elems))
     p = np.broadcast_to(pos[held], use.shape)
     v = np.full(use.shape, np.nan + 0j)
     v[use] = (src[np.broadcast_to(lines, use.shape)[use], p[use]] if src is not None
-              else field[addr(pos[held])][use])
-    line = _line_pow2 if plan.mixed is None else _line_mixed
+              else field[addr(np.where(ok[held], pos[held], 0))][use])
     for step in steps:
-        if step in ("dif", "dit"):
+        if step in ("dif", "dit") and plan.bluestein:
+            v = _line_bluestein(scratch, v, plan, saddr, step == "dit", own_s)
+            held = "points" if step == "dit" else "frequencies"
+        elif step in ("dif", "dit"):
+            line = _line_pow2 if plan.mixed is None else _line_mixed
             v = line(field, v, plan, addr, step == "dit", own)
             held = "points" if step == "dit" else "frequencies"
         else:
-            v = step(v, lines, pos[held])
+            v = step(v, lines, np.where(ok[held], pos[held], 0))
     assert held == store
     use = np.broadcast_to(ok[store], v.shape)
     a = addr(pos[store])
@@ -507,13 +627,25 @@ def _phase(field, plan, addr_of, steps, load="points", store="points", src=None)
     return out
 
 
+def _scratch(plan):
+    """A Bluestein plan's scratch for every sweep of a phase (else None)."""
+    if not plan.bluestein:
+        return None
+    sweeps = max(plan.row_sweeps, plan.col_sweeps)
+    return np.full(sweeps * scratch_elems(plan), np.nan + 0j)
+
+
 def _rows(field, plan, steps, **kw):
-    return _phase(field, plan, lambda y, a: row_addr(plan, y, a), steps, **kw)
+    return _phase(field, plan, lambda y, a: row_addr(plan, y, a), steps,
+                  scratch_of=lambda y, a: row_scratch_addr(plan, y, a), scratch=_scratch(plan),
+                  **kw)
 
 
 def _cols(field, plan, steps, **kw):
     """As _rows for the columns; returns the field (ky, x)."""
-    return _phase(field, plan, lambda x, a: col_addr(plan, x, a), steps, **kw).T
+    return _phase(field, plan, lambda x, a: col_addr(plan, x, a), steps,
+                  scratch_of=lambda x, a: col_scratch_addr(plan, x, a), scratch=_scratch(plan),
+                  **kw).T
 
 
 def _assert_close(actual, expected):
@@ -549,21 +681,77 @@ def test_emulated_chain_matches_numpy(n):
     assert np.isnan(field[~used]).all()
 
 
+# sha256 of plan_source(N)[:12] for every N in [2, 128] that is not a power
+# of two and takes no Bluestein line (7-smooth), as they were before the
+# Bluestein line: those plans, and so their machine code,
+# stay what they were
+MIXED_SOURCES = {
+    3: "100c77a44490", 5: "3e9b9c52140a", 6: "09ca825fa7ac", 7: "ae3a6bac25ac",
+    9: "6555b3c43ed6", 10: "876d6915eeaf", 12: "bff31546447d", 14: "a17f08cf9c5f",
+    15: "6aaccb8348a7", 18: "212ffeae6888", 20: "821164422af2", 21: "338960ae31d1",
+    24: "d7fc6265d29f", 25: "b76e3486a13b", 27: "5bc0ef6c14b5", 28: "670b4d80009c",
+    30: "9eb9ced4cd73", 35: "f8810c5e3ca2", 36: "020639909266", 40: "32766dd52358",
+    42: "61b655fd7cd0", 45: "78bff2939690", 48: "8dce2c9d9060", 49: "ebe6d646d36b",
+    50: "016d45c8273b", 54: "925d33ba0436", 56: "3202b4b44e0e", 60: "c7fc36aae541",
+    63: "197c351ce40b", 70: "85201ada21b1", 72: "addb4b2fb4fd", 75: "d7aa82747af8",
+    80: "990e17f85e51", 81: "5215f386a639", 84: "03b6ac9f62f1", 90: "b75ba6c1cc2b",
+    96: "09ffe541e80c", 98: "704b5142ef3f", 100: "0d51f3049d6a", 105: "17cb0bb7332a",
+    108: "af32031d51c8", 112: "fd4b3a3e96b4", 120: "b8330b7563c8", 125: "df26a0db022e",
+    126: "5be95b21c744",
+}
+
+
 @pytest.mark.parametrize("n", [n for n in NS if not FP.is_pow2(n)])
 def test_mixed_plan_frequencies_are_the_digit_reversal(n):
-    """The forward's frequency layout holds every frequency once, and the
-    generated source names the plan's line, row and padding."""
+    """The forward's frequency layout holds every frequency once: the digit
+    reversal of its position (a Bluestein line's: the position itself), and
+    the generated source names the plan's line, row and padding (and a
+    Bluestein plan's scratch row and thread cap); any other N's source is
+    the one it had before the Bluestein line."""
     mp = FP.mixed_plan(n)
+    blue = isinstance(mp, FP.BluesteinPlan)
     held = [f for t in range(mp.line_threads)
             for f, ok in zip(*mp.frequencies(t)) if ok]
     assert sorted(held) == list(range(n))
-    assert sorted(FP.digitrev(p, mp.radices) for p in range(n)) == list(range(n))
     src = FP.plan_source(n).splitlines()
-    assert src[1].startswith(f"#define PTYRAD_MIXED_LINE regfft::MixedLine<{n}, "
-                             f"{mp.line_threads}, ")
+    if blue:
+        assert held == [p for t in range(mp.line_threads) for p, ok in zip(*mp.points(t)) if ok]
+        assert src[1] == "#define PTYRAD_BLUESTEIN 1"
+        assert src[2].startswith(f"#define PTYRAD_MIXED_LINE regfft::BluesteinLine<{n}, "
+                                 f"regfft::MixedLine<{mp.slots}, {mp.line_threads}, ")
+        assert src[5:8] == [f"#define PTYRAD_SCRATCH_ROW {mp.inner.line}",
+                            f"#define PTYRAD_SCRATCH_PAD {mp.inner.pad_shift}",
+                            f"#define PTYRAD_BLOCK_THREADS {mp.max_threads}"]
+        src = src[:1] + src[2:5] + src[8:]
+    else:
+        assert sorted(FP.digitrev(p, mp.radices) for p in range(n)) == list(range(n))
+        assert src[1].startswith(f"#define PTYRAD_MIXED_LINE regfft::MixedLine<{n}, "
+                                 f"{mp.line_threads}, ")
+        assert hashlib.sha256(FP.plan_source(n).encode()).hexdigest()[:12] == MIXED_SOURCES[n]
+    assert (n in MIXED_SOURCES) == (not blue) == FP.smooth(n)
     assert src[2:] == [f"#define PTYRAD_MIXED_ROW {mp.line}",
                        f"#define PTYRAD_MIXED_PAD {mp.pad_shift}", '#include "multislice.cu"']
     assert FP.plan_source(n, bf16_operands=True).splitlines()[1] == "#define PTYRAD_BF16_OPERANDS 1"
+
+
+@pytest.mark.parametrize("n", [11, 26, 110, 122, 127])
+def test_line_adjoint(n):
+    """The inverse line transform is the forward's conjugate transpose,
+    step by step (a Bluestein line's: the conjugate chirp, the pad as the
+    crop's adjoint, each inner transform's adjoint, the conjugate filter):
+    <F x, y> = <x, F^H y> to 1e-12 in float64 over a
+    row phase's lines, the float32 tables alike in both; and F is the DFT
+    (rtol 1e-5 of the largest entry)."""
+    plan = fused_plan(n)
+    rng = np.random.default_rng(n + 1)
+    x = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    y = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    field = np.full(n * plan.line, np.nan + 0j)
+    fx = _rows(field, plan, ["dif"], src=x, store="frequencies")
+    fhy = _rows(field, plan, ["dit"], src=y, load="frequencies")
+    lhs, rhs = np.vdot(y, fx), np.vdot(fhy, x)
+    assert abs(lhs - rhs) <= 1e-12 * np.linalg.norm(x) * np.linalg.norm(y) * n
+    _assert_close(fx, np.fft.fft(x, axis=1))
 
 
 def test_plan_and_prepare_reject_other_sizes():

@@ -15,6 +15,8 @@ equal key for key at rtol 1e-5 (atol 1e-5 of each array's largest entry).
 LBFGS takes value functions, not gradients: tests/test_torch_lbfgs.py.
 """
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -161,9 +163,14 @@ def test_every_registry_name_builds():
 
 @pytest.mark.parametrize("name, key", [("Adam", "amsgrad"), ("RMSprop", "alpha"),
                                        ("SGD", "dampening"), ("LBFGS", "max_iter")])
-def test_dropped_torch_only_config_warns_in_both(name, key, capsys):
+def test_dropped_torch_only_config_warns_in_both(name, key, capsys, monkeypatch):
     """A torch-only key is dropped with the same warning in both packages,
-    and not switched on in the port (amsgrad stays off)."""
+    and not switched on in the port (amsgrad stays off). Each package's
+    vprint prints to this test's stdout only while its logger has no
+    handler: a CustomLogger that an earlier test in the process installed
+    writes to that test's captured stdout, so both loggers are emptied here."""
+    for logger in ("ptyrad_tpu", "ptyrad_tpu_torch"):
+        monkeypatch.setattr(logging.getLogger(logger), "handlers", [])
     params = PtychoParams(**{k: torch.tensor(a) for k, a in values(
         np.random.default_rng(2)).items()})
     cfg = {"name": name, "configs": {key: 1}}

@@ -265,3 +265,52 @@ def test_every_launcher_goes_through_the_guard():
             sites[launcher] = sites.get(launcher, 0) + 1
     launchers = set(_build.SIGNATURES) - {"ptyrad_chain_plan", "ptyrad_fused_plan"}
     assert sites == {name: 1 for name in launchers}
+
+
+def test_mixed_twins_are_libraries_of_their_own(monkeypatch, tmp_path):
+    """At N that is not a power of two, launch takes the float32 kernels
+    from mixed_lib(N) and the _bf16 twins from mixed_lib(N, True): two
+    libraries, a generated source and a path each. build() starts the main
+    library, the float32 libraries of extra_n and the twins' of bf16_n, and
+    no other, so a run that rounds no operand at N compiles no twin."""
+    picked = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: picked.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "mixed_lib",
+                        lambda n, bf16=False: picked.append((n, bf16)) or Lib())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=5))
+    t = SimpleNamespace(device=torch.device("cuda", 0))
+    _build.launch("ptyrad_loss_fwd", t, 1, n=127)
+    _build.launch("ptyrad_loss_fwd", t, 2, n=127, bf16_operands=True)
+    assert picked == [(127, False), ("ptyrad_loss_fwd", (1, 5)),
+                      (127, True), ("ptyrad_loss_fwd_bf16", (2, 5))]
+    for n, stem in ((127, "multislice_n127"), (254, "chain_n254")):
+        assert list(_build._mixed_sources(n)) == [f"{stem}.cu", f"{stem}_bf16.cu"]
+        assert list(_build._mixed_sources(n, (True,))) == [f"{stem}_bf16.cu"]
+        assert _build._mixed_path(n).name != _build._mixed_path(n, True).name
+
+    started = []
+
+    class Job:
+        def __init__(self, out, sources=_build.SOURCES, generated=None, nice=0):
+            started.append((out.name.split("_")[1], tuple(generated or sources)))
+
+        def compiled(self):
+            return True
+
+        def finish(self):
+            return 0.0
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_Job", Job)
+    monkeypatch.setattr(_build, "BUILD_SECONDS", None)
+    monkeypatch.setattr(_build, "MIXED_BUILD_SECONDS", {})
+    _build.build(extra_n=(120, 254), bf16_n=(120,))
+    assert started == [("kernels", _build.SOURCES), ("fused", ("multislice_n120.cu",)),
+                       ("chain", ("chain_n254.cu",)), ("fused", ("multislice_n120_bf16.cu",))]
+    assert _build.MIXED_BUILD_SECONDS == {120: 0.0, 254: 0.0, "120_bf16": 0.0}
