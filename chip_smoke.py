@@ -194,10 +194,17 @@ Phases, one JSON object per line each:
      optimizers - every other registry name (AdamW with weight_decay and
                obja from iteration 2, SGD with momentum, RMSprop, Adagrad,
                Adamax, NAdam, RAdam, Adadelta, Rprop, ASGD, Adafactor, Muon,
-               SparseAdam), 16 tBL batches each: finite losses; one more step
-               on CUDA against the same step on CPU copies of the same
-               parameters, state and gradients at rtol 1e-5; AdamW's obja
-               unchanged bit for bit before it starts.
+               SparseAdam), then the optax configs beyond the torch names
+               (Adam with nesterov and eps_root, mu_dtype bfloat16 for Adam,
+               NAdam and Muon, SGD's accumulator_dtype, Adafactor's
+               dtype_momentum, AdamW's mask and Muon's weight_decay_mask
+               False), 16 tBL batches each: finite losses, each moment of a
+               dtype config stored in that dtype on the card, a False mask
+               equal bit for bit to its decay off; one more step on CUDA
+               against the same step on CPU copies of the same parameters,
+               state and gradients at rtol 1e-5, the 2-byte moments within
+               one step of their type; AdamW's obja unchanged bit for bit
+               before it starts.
      grouping - compact and sparse grouping of the 16,384 positions, one
                iteration each: make_batches' host seconds, every index in
                one batch, none empty, compact tighter than random and sparse
@@ -278,11 +285,13 @@ Phases, one JSON object per line each:
                launched in each rank; per rank peak memory beside the one
                rank's, the all_gather and all_reduce calls and bytes a step,
                the halo exchange's and the gradient all-reduce's host ms
-               and bytes. canvas_fullscan: the whole 512 x 512 scan for one
-               iteration, each rank's peak memory and s/iteration beside
-               one rank's replicated peak over 16 steps of the same scan;
-               gates: finite losses, the batch loss falling over the
-               iteration, each rank's peak below the replicated one.
+               and bytes. canvas_fullscan: the whole 512 x 512 scan's slabs
+               and store for the first 128 batches of a rank's iteration 1
+               (only the patterns they read simulated), each rank's peak
+               memory and seconds beside one rank's replicated peak over 16
+               steps of the same scan; gates: a finite loss, the batch loss
+               falling over the window, each rank's peak below the
+               replicated one.
                Then B1/B2 at both phases' halo-extended slab shapes and
                B1-B3 at the batch a rank launches them on (about 150 and
                140 of each batch of 256).
@@ -2469,13 +2478,24 @@ LBFGS_NITER = 2          # iterations of each of the lbfgs phase's two runs
 GRAD_ACCUM, GRAD_ACCUM_NITER = 4, 2
 FAMILY_BATCHES = 16      # batches each optimizer family runs
 # every registry name but Adam (the main phase's) and LBFGS (its own phase),
-# with the configs of a torch-named params file
+# with the configs of a torch-named params file; then the optax configs a
+# params file can spell beyond the torch names: eps_root and Adam's nesterov
+# (optim.AdamRule in place of torch's Adam), the moments' storage dtypes and
+# the decay masks. AdamW stays first: its row carries the start_iter check.
 FAMILIES = (("AdamW", {"weight_decay": 0.1}), ("SGD", {"momentum": 0.9}), ("RMSprop", {}),
             ("Adagrad", {}), ("Adamax", {}), ("NAdam", {}), ("RAdam", {}), ("Adadelta", {}),
-            ("Rprop", {}), ("ASGD", {}), ("Adafactor", {}), ("Muon", {}), ("SparseAdam", {}))
+            ("Rprop", {}), ("ASGD", {}), ("Adafactor", {}), ("Muon", {}), ("SparseAdam", {}),
+            ("Adam", {"nesterov": True, "eps_root": 1e-8}), ("Adam", {"mu_dtype": "bfloat16"}),
+            ("NAdam", {"mu_dtype": "bfloat16"}), ("AdamW", {"weight_decay": 0.1, "mask": False}),
+            ("SGD", {"momentum": 0.9, "accumulator_dtype": "bfloat16"}),
+            ("Adafactor", {"momentum": 0.9, "dtype_momentum": "bfloat16"}),
+            ("Muon", {"mu_dtype": "bfloat16", "weight_decay": 0.01, "weight_decay_mask": False}))
 FAMILY_RTOL = 1e-5       # one step on CUDA against the same step on the CPU
+# a dtype config -> the state slots it stores (optim's OptaxRule slot names)
+DTYPE_SLOTS = {"mu_dtype": ("mu", "muon_mu", "adam_mu"), "accumulator_dtype": ("trace",),
+               "dtype_momentum": ("ema",)}
 # seconds each of these phases is expected to take on the card (PERF.md §6)
-PREDICTED_S = {"lbfgs": (10, 60), "grad_accum": (8, 20), "optimizers": (0, 20),
+PREDICTED_S = {"lbfgs": (10, 60), "grad_accum": (8, 20), "optimizers": (8, 30),
                "grouping": (5, 30)}
 
 
@@ -2606,31 +2626,69 @@ def grad_accum_path(dev, card: str, init: dict) -> dict:
     return launches
 
 
+def _on_cpu(v):
+    """A state value (a tensor, a list of tensors or None, a count) copied to
+    the CPU in its own dtype."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().clone()
+    if isinstance(v, list):
+        return [_on_cpu(x) for x in v]
+    return v
+
+
 def _cpu_twin(solver, name: str, configs: dict, update: dict):
-    """The solver's parameters and optimizer state copied to the CPU, with
-    an optimizer of the same family over them."""
+    """The solver's parameters and optimizer state copied to the CPU, each
+    state tensor in its own dtype (a bfloat16 state does not pass through a
+    checkpoint's values: C11), with an optimizer of the same family over
+    them."""
     from ptyrad_tpu_torch.models.state import PtychoParams
-    from ptyrad_tpu_torch.optim import create_optimizer, load_opt_state_values, \
-        optim_state_values
+    from ptyrad_tpu_torch.optim import create_optimizer
 
     params = PtychoParams(**{k: t.detach().cpu().clone() for k, t in solver.params.named()})
     opt, _, _ = create_optimizer({"name": name, "configs": configs}, update, params)
-    load_opt_state_values(opt, optim_state_values(solver.optimizer))
+    for ours, theirs in zip(opt.param_groups, solver.optimizer.param_groups):
+        opt.state[ours["params"][0]] = {k: _on_cpu(v) for k, v in
+                                        solver.optimizer.state[theirs["params"][0]].items()}
     return params, opt
 
 
+def state_slots(opt, slots) -> list:
+    """The tensors of an optimizer's state under these slot names, every
+    param group's, the leaves that hold one."""
+    return [t for st in opt.state.values() for k in slots if k in st
+            for t in (st[k] if isinstance(st[k], list) else [st[k]]) if t is not None]
+
+
+def masked_twin(name: str, configs: dict):
+    """A row's configs with its False decay mask dropped and the decay the
+    mask turns off removed (Adafactor's weight_decay_rate None, another
+    family's weight_decay 0): the run a False mask must equal bit for bit.
+    None when no mask is False."""
+    masks = [k for k in ("mask", "weight_decay_mask") if configs.get(k) is False]
+    if not masks:
+        return None
+    twin = {k: v for k, v in configs.items() if k not in masks}
+    twin.update({"weight_decay_rate": None} if name == "Adafactor" else {"weight_decay": 0.0})
+    return twin
+
+
 def optimizers_path(dev, card: str, init: dict) -> dict:
-    """Every registry name but Adam and LBFGS on the card: FAMILY_BATCHES
-    tBL batches each from the same start through B1-B3 (finite losses);
-    then one more step on CUDA and the same step on the CPU, from copies of
-    the same parameters, optimizer state and gradients, agreeing at rtol
+    """Every registry name but Adam and LBFGS on the card, and the optax
+    configs beyond the torch names (FAMILIES): FAMILY_BATCHES tBL batches
+    each from the same start through B1-B3 (finite losses; each moment of
+    a dtype config stored in that dtype on the card; a row with a decay
+    mask False equal bit for bit to its family with that decay 0); then one
+    more step on CUDA and the same step on the CPU, from copies of the same
+    parameters, optimizer state and gradients: the parameters agree at rtol
     1e-5 (atol 1e-5 of each tensor's largest entry: torch's foreach and
-    fused CUDA paths against the CPU's). AdamW (weight_decay 0.1) starts obja
-    at iteration 2: run at iteration 1, obja must not move at all."""
-    from ptyrad_tpu_torch.engine.solver import (PtyRADSolver, RankBatches, build_train_epoch,
-                                                loss_fn)
+    fused CUDA paths against the CPU's), and a moment stored in a 2-byte
+    type within one step of that type (its machine epsilon times the
+    moment's largest entry). AdamW (weight_decay 0.1) starts obja at
+    iteration 2: run at iteration 1, obja must not move at all."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver, RankBatches, build_train_epoch, \
+        loss_fn
     from ptyrad_tpu_torch.optim import create_optimizer, mask_unstarted_grads, \
-        unstarted_tensors
+        storage_dtype, unstarted_tensors
 
     t0 = time.perf_counter()
     solver = PtyRADSolver(TBL_PARAMS, init_variables=init, device=dev, verbose=False)
@@ -2639,10 +2697,10 @@ def optimizers_path(dev, card: str, init: dict) -> dict:
     idx = torch.as_tensor(solver.batch_idx[:FAMILY_BATCHES + 1], device=dev)
     mask = torch.as_tensor(solver.batch_mask[:FAMILY_BATCHES + 1], device=dev)
     rows, launches = [], None
-    for name, configs in FAMILIES:
-        update = copy.deepcopy(TBL_PARAMS["model_params"]["update_params"])
-        if name == "AdamW":
-            update["obja"]["start_iter"] = 2
+
+    def run(name, configs, update):
+        """FAMILY_BATCHES batches of a fresh optimizer from the start:
+        (start_dict, per-batch totals, seconds, launches)."""
         with torch.no_grad():
             for k, t in solver.params.named():
                 t.copy_(start[k])
@@ -2654,8 +2712,29 @@ def optimizers_path(dev, card: str, init: dict) -> dict:
         t1 = time.perf_counter()
         (_, terms), counts = counted(lambda: epoch(idx[:-1], mask[:-1], 1))
         seconds = time.perf_counter() - t1
+        return (start_dict, np.sum([np.asarray(v) for v in terms.values()], axis=0), seconds,
+                counts)
+
+    for name, configs in FAMILIES:
+        update = copy.deepcopy(TBL_PARAMS["model_params"]["update_params"])
+        if name == "AdamW" and not rows:
+            update["obja"]["start_iter"] = 2
+        twin, twin_equal = masked_twin(name, configs), None
+        if twin is not None:
+            _, twin_totals, _, counts = run(name, twin, update)
+            launches = counts if launches is None else add_counts(launches, counts)
+            twin_params = {k: t.detach().clone() for k, t in solver.params.named()}
+        start_dict, totals, seconds, counts = run(name, configs, update)
         launches = counts if launches is None else add_counts(launches, counts)
-        totals = np.sum([np.asarray(v) for v in terms.values()], axis=0)
+        if twin is not None:
+            twin_equal = bool(np.array_equal(totals, twin_totals) and all(
+                torch.equal(t, twin_params[k]) for k, t in solver.params.named()))
+            del twin_params
+        stored = {key: sorted({str(t.dtype) for t in state_slots(solver.optimizer, slots)}
+                              | {t.device.type for t in state_slots(solver.optimizer, slots)})
+                  for key, slots in DTYPE_SLOTS.items() if configs.get(key) is not None}
+        stored_ok = all(v == sorted({str(storage_dtype(configs[k])), "cuda"})
+                        for k, v in stored.items())
         obja_still = bool(torch.equal(solver.params.obja, start["obja"]))
         # one more batch's gradients, then the same step on both devices
         solver.optimizer.zero_grad(set_to_none=True)
@@ -2677,18 +2756,34 @@ def optimizers_path(dev, card: str, init: dict) -> dict:
             a, b = a.detach().cpu(), b.detach()
             scale = float(b.abs().max())
             errs[k] = float(((a - b).abs() - FAMILY_RTOL * b.abs()).max()) / max(scale, 1e-30)
+        slots = [s for key in stored for s in DTYPE_SLOTS[key]]
+        pairs = zip(state_slots(solver.optimizer, slots), state_slots(cpu_opt, slots))
+        steps = [float((a.cpu().float() - b.float()).abs().max())
+                 / (torch.finfo(b.dtype).eps * max(float(b.float().abs().max()), 1e-30))
+                 for a, b in pairs]
         rows.append({"name": name, "configs": configs, "losses_first_last":
                      [float(totals[0]), float(totals[-1])], "finite": bool(np.isfinite(totals).all()),
                      "seconds": seconds, "cuda_vs_cpu_excess": errs,
-                     "obja_unchanged_before_start": obja_still if name == "AdamW" else None})
+                     "stored_dtypes": stored or None, "stored_as_asked": stored_ok,
+                     "moments_cuda_vs_cpu_steps": max(steps) if steps else None,
+                     "equal_to_decay_off": twin_equal,
+                     "obja_unchanged_before_start":
+                         obja_still if update["obja"]["start_iter"] == 2 else None})
     seconds = time.perf_counter() - t0
     emit({"phase": "optimizers", "card": card, "batches": FAMILY_BATCHES, "families": rows,
           "rtol": FAMILY_RTOL, "seconds": seconds, "predicted_s": PREDICTED_S["optimizers"],
           "launches": launches})
     for r in rows:
-        require(r["finite"], f"optimizers: {r['name']} gave a non-finite loss")
+        what = f"optimizers: {r['name']} {r['configs']}"
+        require(r["finite"], f"{what} gave a non-finite loss")
         bad = {k: v for k, v in r["cuda_vs_cpu_excess"].items() if v > FAMILY_RTOL}
-        require(not bad, f"optimizers: {r['name']}'s step on CUDA differs from the CPU's: {bad}")
+        require(not bad, f"{what}'s step on CUDA differs from the CPU's: {bad}")
+        require(r["stored_as_asked"], f"{what}: moments stored as {r['stored_dtypes']}")
+        require(r["moments_cuda_vs_cpu_steps"] is None or r["moments_cuda_vs_cpu_steps"] <= 1.0,
+                f"{what}: a stored moment on CUDA is {r['moments_cuda_vs_cpu_steps']} steps of "
+                "its type from the CPU's")
+        require(r["equal_to_decay_off"] is not False,
+                f"{what}: a False mask does not equal its decay off")
     require(rows[0]["obja_unchanged_before_start"],
             "optimizers: AdamW moved obja before its start_iter")
     for name in TBL_KERNELS:
@@ -6335,14 +6430,18 @@ def dist_cli_path(card: str, tmp: str, raw_path: str) -> None:
 # CANVAS_GRAD_RTOL of the reference's largest entry (a dropped halo cotangent
 # or summed canvases are errors of the gradient's own size),
 # one iteration (256 steps) at rtol 1e-5, the ranks bit for bit.
-# canvas_fullscan runs the
-# whole 512 x 512 scan for one iteration; each rank simulates only its slab's
-# patterns into a host store whose other rows are never touched (np.zeros), so
-# no 17 GB array is written; the replicated figure is one rank's peak memory
+# canvas_fullscan runs the whole 512 x 512 scan's slabs and store for the
+# first CANVAS_FULL_STEPS batches of iteration 1 (an eighth of a rank's
+# 1,024; the same count on both ranks, through solver.train_epoch: no
+# constraint is due inside the window); each rank simulates only the
+# patterns its window reads into a host store whose other rows are never
+# touched (np.zeros), so no 17 GB array is written; the peak memory (set by
+# the slab and the store, not by the step count) and the falling batch loss
+# are gated on that window; the replicated figure is one rank's peak memory
 # over CANVAS_REPLICATED_STEPS steps of the same scan.
 CANVAS_WORLD = 2
 CANVAS_SIDE, CANVAS_NITER = 256, 1
-CANVAS_FULL_SIDE, CANVAS_FULL_NITER = 512, 1
+CANVAS_FULL_SIDE, CANVAS_FULL_STEPS = 512, 128
 CANVAS_BATCH = 256
 CANVAS_LOSS_RTOL, CANVAS_TRAJ_RTOL = 1e-6, 1e-5
 CANVAS_GRAD_RTOL = {"obja": 1e-5, "objp": 1e-5, "probe": 1e-5, "probe_pos_shifts": 1e-5}
@@ -6580,15 +6679,21 @@ class CollectiveCounter:
             setattr(torch.distributed, k, fn)
 
 
-def canvas_rank_run(side: int, niter: int, group, first: bool) -> tuple[dict, dict]:
+def canvas_rank_run(side: int, niter: int, group, first: bool,
+                    steps: int | None = None) -> tuple[dict, dict]:
     """A rank of a canvas phase: its slab's patterns simulated on the card
     into a host store of which it writes only those rows, the seeded start,
     PtyRADSolver with shard_canvas; with ``first`` the first batch's loss and
     gradients (the canvases gathered whole); niter iterations under
     counted() with the collectives counted and the replicated tensors'
-    digest after each; then the exchange's and the all-reduce's times."""
+    digest after each, or with ``steps`` only the first ``steps`` batches
+    of iteration 1 (solver.train_epoch on them; one loss, their mean, and
+    one digest; only the patterns those batches read are simulated, the
+    rest of the slab's store rows stay zero); then the exchange's and the
+    all-reduce's times."""
     from ptyrad_tpu_torch.engine.solver import PtyRADSolver
     from ptyrad_tpu_torch.parallel import all_reduce_grads
+    from ptyrad_tpu_torch.parallel.canvas import canvas_batch_count, canvas_iteration_batches
 
     dev = group.device
     t0 = time.perf_counter()
@@ -6596,6 +6701,13 @@ def canvas_rank_run(side: int, niter: int, group, first: bool) -> tuple[dict, di
     plan = canvas_plan(side)
     cap = plan.b_local
     ids = np.unique(plan.pos_index[group.rank * cap:(group.rank + 1) * cap])
+    if steps is not None:
+        window_batches = canvas_batch_count(plan, side * side, CANVAS_BATCH, verbose=False)
+        slots, mask, _ = canvas_iteration_batches(plan, window_batches, 1)
+        per = slots.shape[1] // plan.n_dev
+        mine = slice(group.rank * per, (group.rank + 1) * per)
+        read = slots[:steps, mine][mask[:steps, mine] > 0]
+        ids = np.intersect1d(ids, plan.pos_index[read])
     meas = np.zeros((side * side, NPIX, NPIX), np.float32)  # untouched rows stay unbacked
     sim = simulate_positions(dev, init, ids)
     for start in range(0, len(ids), 4096):
@@ -6608,8 +6720,11 @@ def canvas_rank_run(side: int, niter: int, group, first: bool) -> tuple[dict, di
     solver.prepare()
     solver._build()
     shard, n_batches = solver._canvas
+    if steps is not None:
+        require(n_batches == window_batches, f"canvas rank {group.rank}: {n_batches} batches, "
+                f"the window took {window_batches}")
     out = {"sim_s": sim_s, "setup_s": time.perf_counter() - t0, "n_batches": n_batches,
-           "rows_local": plan.rows_local, "halo": plan.halo, "cap": cap,
+           "simulated": len(ids), "rows_local": plan.rows_local, "halo": plan.halo, "cap": cap,
            "slab_positions": int(plan.mask[group.rank * cap:(group.rank + 1) * cap].sum()),
            "store_gb": shard.store.measurements.numel() * 4 / 1e9,
            "slab_shape": list(shard.params.obja.shape)}
@@ -6627,14 +6742,23 @@ def canvas_rank_run(side: int, niter: int, group, first: bool) -> tuple[dict, di
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     with CollectiveCounter() as coll:
-        launches = counted(lambda: solver.run(
-            callback=lambda niter, p, history: digests.append(params_digest(p))))[1]
-    steps = niter * n_batches
-    batch = solver.history.batch_terms.get("loss_single", [])
+        if steps is None:
+            launches = counted(lambda: solver.run(
+                callback=lambda niter, p, history: digests.append(params_digest(p))))[1]
+            steps = niter * n_batches
+            batch = solver.history.batch_terms.get("loss_single", [])
+            losses, iter_s = [v for _, v in solver.history.loss_iters], solver.history.iter_times
+        else:
+            slots, mask = shard.local_batches(n_batches, 1)
+            (mean, terms), launches = counted(lambda: solver.train_epoch(
+                torch.as_tensor(slots[:steps], device=dev),
+                torch.as_tensor(mask[:steps], device=dev), 1))
+            batch, losses, iter_s = terms.get("loss_single", []), [mean], []
+            digests.append(params_digest(shard.whole_params()))
     tenth = max(1, len(batch) // 10)
     out.update({
-        "run_s": time.perf_counter() - t1, "iter_s": solver.history.iter_times,
-        "losses": [v for _, v in solver.history.loss_iters], "digests": digests,
+        "run_s": time.perf_counter() - t1, "iter_s": iter_s, "steps": steps,
+        "losses": losses, "digests": digests,
         "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "batch_loss_first_tenth": float(np.mean(batch[:tenth])) if batch else None,
         "batch_loss_last_tenth": float(np.mean(batch[-tenth:])) if batch else None,
@@ -6653,7 +6777,8 @@ def canvas_rank(tmp: str, group) -> None:
     out["largefov"], grads = canvas_rank_run(CANVAS_SIDE, CANVAS_NITER, group, True)
     np.savez(f"{tmp}/canvas_{rank}_grads.npz", **grads)
     torch.cuda.empty_cache()
-    out["fullscan"], _ = canvas_rank_run(CANVAS_FULL_SIDE, CANVAS_FULL_NITER, group, False)
+    out["fullscan"], _ = canvas_rank_run(CANVAS_FULL_SIDE, 1, group, False,
+                                         steps=CANVAS_FULL_STEPS)
     with open(f"{tmp}/canvas_{rank}.json", "w", encoding="utf-8") as f:
         json.dump(out, f)
 
@@ -6712,12 +6837,14 @@ def canvas_check(card: str, refs: tuple, tmp: str, ranks_s: float) -> tuple[dict
     full = [o["fullscan"] for o in outs]
     emit({"phase": "canvas_fullscan", "card": card, "world": CANVAS_WORLD, "backend": "gloo",
           "n_patterns": CANVAS_FULL_SIDE ** 2, "batch": CANVAS_BATCH,
-          "iterations": CANVAS_FULL_NITER, "replicated": full_ref,
+          "steps": CANVAS_FULL_STEPS, "reduced": f"the first {CANVAS_FULL_STEPS} batches of "
+          f"a rank's {full[0]['n_batches']} in iteration 1, only the patterns they read "
+          "simulated", "replicated": full_ref,
           "peak_mem_ratio": [o["peak_mem_gb"] / full_ref["peak_mem_gb"] for o in full],
           "ranks": [per_rank(o) for o in full],
           "digests_equal": all(o["digests"] == full[0]["digests"] for o in full)})
     for phase, runs, niter in (("canvas_largefov", ranks, CANVAS_NITER),
-                               ("canvas_fullscan", full, CANVAS_FULL_NITER)):
+                               ("canvas_fullscan", full, 1)):
         for r, o in enumerate(runs):
             require(len(o["losses"]) == niter and all(np.isfinite(o["losses"])),
                     f"{phase} rank {r}: losses {o['losses']}")

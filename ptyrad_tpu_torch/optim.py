@@ -16,17 +16,26 @@ the port computes the same rules:
     those tensors back (weight decay would move them otherwise);
   - Adam and SparseAdam (dense gradients: Adam's rule) are torch.optim.Adam,
     whose rule is optax.adam's, a ``weight_decay`` coupled into the gradient
-    as optax.add_decayed_weights ahead of it; every other family is an
-    ``OptaxRule``, a torch.optim.Optimizer that computes optax's rule leaf
-    by leaf, the complex probe as its (re, im) pair of real leaves (optax's
-    leaves in the JAX package), with the chain's scalars in float32;
+    as optax.add_decayed_weights ahead of it, while ``eps_root`` is 0,
+    ``nesterov`` false and ``mu_dtype`` None; otherwise, and for every other
+    family, an ``OptaxRule``, a torch.optim.Optimizer that computes optax's
+    rule leaf by leaf, the complex probe as its (re, im) pair of real leaves
+    (optax's leaves in the JAX package), with the chain's scalars in
+    float32;
+  - every optax config a params file can spell is computed: the moments'
+    storage dtypes (``mu_dtype``, ``accumulator_dtype``,
+    ``dtype_momentum``: a name such as "bfloat16", the moment rounded as
+    optax rounds it) and the decay masks as bools (``mask``,
+    ``weight_decay_mask``: False turns the decay off). Muon's
+    ``muon_weight_dimension_numbers`` and LBFGS's ``linesearch`` take
+    optax objects and raise unless None, as does a mask that is not a bool;
   - a torch-only config (Adam's ``amsgrad``, RMSprop's ``alpha``, ...) is
     dropped with the JAX package's warning, never switched on;
   - ``grad_accumulation`` k > 1 wraps the optimizer in ``MultiSteps``
     (optax.MultiSteps); LBFGS is optim_lbfgs.LBFGS and is never wrapped.
 
 Checkpoints hold the optimizer state under ``optim_state_dict`` of
-model.hdf5 (``optim_state_values``). Adam writes torch Adam's
+model.hdf5 (``optim_state_values``). torch's Adam writes its
 ``state_dict`` in upstream PtyRAD's layout (``torch_optim_state``:
 ``state``/``<i>``/``step``, ``exp_avg``, ``exp_avg_sq``, the probe's moments
 as a real view with a trailing axis of 2, and ``param_groups``), which the
@@ -38,13 +47,17 @@ as ``.probe.re``/``.probe.im``; ``.mini_step``, ``.acc_grads.<name>`` and
 ... for LBFGS). Both layouts are read (``load_opt_state_values`` on the
 dict, ``load_opt_state_hdf5`` on a file): a checkpoint none of whose
 arrays fits raises OptStateMismatchError, as the JAX package's
-_apply_keystr_dict does; one that fits in part warns. The JAX package's
-orbax directory is a format of JAX's own, which the port neither writes
-nor reads.
+_apply_keystr_dict does; one that fits in part warns. A float16 moment
+is written as float16; a bfloat16 one as its raw bits (``bf16_bits``), the
+opaque 2-byte dataset the JAX package writes, which neither package's
+reader casts back: such a state does not resume (the solver warns and
+starts fresh). The JAX package's orbax directory is a format of JAX's
+own, which the port neither writes nor reads.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import re
 from typing import Any, Dict, List, Optional
@@ -126,14 +139,63 @@ def leaf_keys(name: str, t: torch.Tensor) -> List[str]:
     return [f".{name}.re", f".{name}.im"] if t.is_complex() else [f".{name}"]
 
 
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """A bfloat16 tensor on the host as the JAX package writes one: its raw
+    16 bits as a 2-byte opaque ('V2') array, which h5py stores as an
+    opaque dataset (NumPy has no bfloat16)."""
+    return t.detach().cpu().view(torch.int16).numpy().view("V2").copy()
+
+
 def _host(t) -> np.ndarray:
-    """A host copy of a state value; a complex tensor as its real view (..., 2)."""
+    """A host copy of a state value; a complex tensor as its real view
+    (..., 2), a bfloat16 one as its bits (bf16_bits)."""
     if isinstance(t, torch.Tensor):
         t = t.detach()
         if t.is_complex():
             t = torch.view_as_real(t)
+        if t.dtype == torch.bfloat16:
+            return bf16_bits(t)
         return t.cpu().numpy().copy()
     return np.asarray(t)
+
+
+def _widened(a) -> np.ndarray:
+    """A getter's host array as its setter takes it back: bfloat16 bits
+    widened to float32 (exact), anything else as it is."""
+    a = np.asarray(a)
+    if a.dtype.kind != "V":
+        return a
+    return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def _numeric(arr) -> np.ndarray:
+    """A checkpoint array that casts to a number type. A 2-byte opaque one
+    (bfloat16's bits) raises ValueError, as in the JAX package's reader,
+    which has no cast for it either: a bfloat16 optimizer state does not
+    resume, and the solver warns and starts fresh."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V":
+        raise ValueError(f"No cast function available for a checkpoint array of type "
+                         f"{arr.dtype} (bfloat16's bits)")
+    return arr
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def _decayed(t: torch.Tensor, decay: float) -> torch.Tensor:
+    """decay * t in t's dtype with decay first rounded to it, as JAX's weakly
+    typed Python scalar (torch would multiply by the float32 scalar); for a
+    float32 t the product torch computes anyway."""
+    return t * _rounded(decay, t.dtype)
+
+
+def _store(slot: list, i: int, value: torch.Tensor) -> None:
+    """slot[i] = value cast to the slot's storage dtype (optax.tree.cast
+    after the update: the update itself comes from the float32 value)."""
+    slot[i] = value.to(slot[i].dtype)
 
 
 def _pow32(base: float, count: int) -> np.float32:
@@ -236,35 +298,51 @@ class OptaxRule(torch.optim.Optimizer):
 
 def _coerce(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """A checkpoint array as a state tensor of ``like``'s shape, dtype and
-    device (ValueError when its size differs, as the JAX reader's reshape)."""
-    return torch.as_tensor(np.asarray(arr, dtype=np.float32).reshape(tuple(like.shape)),
-                           device=like.device).to(like.dtype)
+    device, cast from its own type straight into like's as the JAX reader
+    casts (ValueError when its size differs, as the JAX reader's reshape,
+    or when it is bfloat16's bits: _numeric)."""
+    arr = np.array(_numeric(arr)).reshape(tuple(like.shape))
+    return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
 
 
-def _zeros(lv):
-    return [torch.zeros_like(x) for x in lv]
+def _zeros(lv, dtype: Optional[torch.dtype] = None):
+    """Zeros like each leaf, in ``dtype`` when given (optax.tree.zeros_like)."""
+    return [torch.zeros_like(x, dtype=dtype) for x in lv]
+
+
+def _decays(mask) -> bool:
+    """Whether a weight decay runs under its optax ``mask``: None (no mask)
+    or True keep it on, False turns it off (_translate_configs lets only a
+    bool or None through)."""
+    return mask is not False
 
 
 class AdamRule(OptaxRule):
-    """optax.scale_by_adam (+ nesterov: NAdam) then the learning rate, and
-    optax.adamw's decoupled decay (``weight_decay``) between the two."""
+    """optax.scale_by_adam (+ nesterov: NAdam; eps_root; the first moment
+    stored in ``mu_dtype``) then the learning rate, and optax.adamw's
+    decoupled decay (``weight_decay``, off under ``mask`` False) between
+    the two. A stored moment of a narrower type takes optax's order of
+    rounding: b1 times it in its own type, the sum with (1 - b1) g in
+    float32, the update from that float32 moment, and the moment cast to
+    its type after (optax/_src/transform.py scale_by_adam)."""
 
     paths = {"count": "[0].count", "mu": "[0].mu", "nu": "[0].nu"}
 
     def init_slots(self, lv, lr):
-        return {"count": 0, "mu": _zeros(lv), "nu": _zeros(lv)}
+        return {"count": 0, "mu": _zeros(lv, self.hyper.get("mu_dtype")), "nu": _zeros(lv)}
 
     def update(self, grads, st, lv, lr):
         h = self.hyper
         b1, b2, eps, eps_root = h["b1"], h["b2"], h["eps"], h["eps_root"]
-        wd = h.get("weight_decay", 0.0)
+        wd = h.get("weight_decay", 0.0) if _decays(h.get("mask")) else 0.0
         st["count"] += 1
         c = st["count"]
         out = []
         for i, (g, w) in enumerate(zip(grads, lv)):
-            mu = (1 - b1) * g + b1 * st["mu"][i]
+            mu = (1 - b1) * g + _decayed(st["mu"][i], b1)
             nu = (1 - b2) * g * g + b2 * st["nu"][i]
-            st["mu"][i], st["nu"][i] = mu, nu
+            _store(st["mu"], i, mu)
+            st["nu"][i] = nu
             if h.get("nesterov"):
                 mu_hat = b1 * _bias_correction(mu, b1, c + 1) + (1 - b1) * _bias_correction(g, b1, c)
             else:
@@ -277,15 +355,16 @@ class AdamRule(OptaxRule):
 
 
 class SGDRule(OptaxRule):
-    """optax.sgd: optax.trace (momentum, nesterov) when momentum is given,
-    then the learning rate."""
+    """optax.sgd: optax.trace (momentum, nesterov; the trace stored in
+    ``accumulator_dtype``) when momentum is given, then the learning
+    rate."""
 
     def __init__(self, groups, coupled_wd=0.0, **hyper):
         super().__init__(groups, coupled_wd, **hyper)
         self.paths = {"trace": "[0].trace"} if hyper.get("momentum") is not None else {}
 
     def init_slots(self, lv, lr):
-        return {"trace": _zeros(lv)} if self.paths else {}
+        return {"trace": _zeros(lv, self.hyper.get("accumulator_dtype"))} if self.paths else {}
 
     def update(self, grads, st, lv, lr):
         m = self.hyper.get("momentum")
@@ -293,8 +372,8 @@ class SGDRule(OptaxRule):
             return [-lr * g for g in grads]
         out = []
         for i, g in enumerate(grads):
-            t = g + m * st["trace"][i]
-            st["trace"][i] = t
+            t = g + _decayed(st["trace"][i], m)
+            _store(st["trace"], i, t)
             out.append(-lr * ((g + m * t) if self.hyper.get("nesterov") else t))
         return out
 
@@ -425,7 +504,8 @@ class RAdamRule(AdamRule):
 
 class AdadeltaRule(OptaxRule):
     """optax.adadelta: add_decayed_weights (its own weight_decay, always in
-    the chain), scale_by_adadelta, then the learning rate."""
+    the chain; off under ``weight_decay_mask`` False), scale_by_adadelta,
+    then the learning rate."""
 
     paths = {"e_g": "[1].e_g", "e_x": "[1].e_x"}
 
@@ -434,6 +514,8 @@ class AdadeltaRule(OptaxRule):
 
     def update(self, grads, st, lv, lr):
         rho, eps, wd = self.hyper["rho"], self.hyper["eps"], self.hyper["weight_decay"]
+        if not _decays(self.hyper.get("weight_decay_mask")):
+            wd = 0.0
         out = []
         for i, (g, w) in enumerate(zip(grads, lv)):
             if wd:
@@ -518,9 +600,10 @@ def _from_rows_last(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 class AdafactorRule(OptaxRule):
     """optax.adafactor: scale_by_factored_rms, clip_by_block_rms, the
-    learning rate, scale_by_param_block_rms, optionally an ema (momentum)
-    and add_decayed_weights (weight_decay_rate), then a sign flip; each
-    factored or not per leaf as optax decides. Under canvas sharding (the
+    learning rate, scale_by_param_block_rms, optionally an ema (momentum,
+    stored in ``dtype_momentum``) and add_decayed_weights
+    (weight_decay_rate, off under ``weight_decay_mask`` False), then a
+    sign flip; each factored or not per leaf as optax decides. Under canvas sharding (the
     group's ``slab``) a slab is factored as its whole canvas would be, the moments'
     and the block RMS's reductions span the ranks' real rows, and the
     factored moments are whole canvases' on every rank (so the checkpoint
@@ -593,7 +676,7 @@ class AdafactorRule(OptaxRule):
                 st["v"].append(one)
         if "ema" in self.paths:
             st["ema_count"] = 0
-            st["ema"] = _zeros(lv)
+            st["ema"] = _zeros(lv, self.hyper.get("dtype_momentum"))
         return st
 
     def update(self, grads, st, lv, lr, slab=None):
@@ -627,9 +710,9 @@ class AdafactorRule(OptaxRule):
                 u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
             if "ema" in st:
                 m = h["momentum"]
-                u = (1 - m) * u + m * st["ema"][i]
-                st["ema"][i] = u
-            if h["weight_decay_rate"] is not None:
+                u = (1 - m) * u + _decayed(st["ema"][i], m)
+                _store(st["ema"], i, u)
+            if h["weight_decay_rate"] is not None and _decays(h.get("weight_decay_mask")):
                 u = u + h["weight_decay_rate"] * w
             out.append(-1 * u)
         st["count"] += 1
@@ -654,8 +737,10 @@ def _newton_schulz(x: torch.Tensor, coeffs, steps: int, eps: float) -> torch.Ten
 
 class MuonRule(OptaxRule):
     """optax.contrib.muon: Newton-Schulz on the 2-D leaves (the scan-position
-    shifts and the tilts) behind a nesterov momentum, optax.adamw (nesterov,
-    adam_* configs) on the others, each leaf in its partition."""
+    shifts and the tilts) behind a nesterov momentum, then its
+    weight_decay (off under ``weight_decay_mask`` False); optax.adamw
+    (nesterov, adam_* configs) on the others, each leaf in its partition;
+    both first moments stored in ``mu_dtype`` (AdamRule's rounding)."""
 
     def __init__(self, groups, coupled_wd=0.0, **hyper):
         super().__init__(groups, coupled_wd, **hyper)
@@ -667,7 +752,7 @@ class MuonRule(OptaxRule):
 
     def init_slots(self, lv, lr):
         two = [x.dim() == 2 for x in lv]
-        z = _zeros(lv)
+        z = _zeros(lv, self.hyper.get("mu_dtype"))
         dev = lv[0].device
         return {"adam_count": 0, "muon_count": 0,
                 "adam_mu": [None if t else x for t, x in zip(two, z)],
@@ -685,8 +770,8 @@ class MuonRule(OptaxRule):
         out = []
         for i, (g, w) in enumerate(zip(grads, lv)):
             if st["muon_mu"][i] is not None:
-                mu = (1 - beta) * g + beta * st["muon_mu"][i]
-                st["muon_mu"][i] = mu
+                mu = (1 - beta) * g + _decayed(st["muon_mu"][i], beta)
+                _store(st["muon_mu"], i, mu)
                 if h["nesterov"]:
                     mu_hat = (beta * _bias_correction(mu, beta, cm + 1)
                               + (1 - beta) * _bias_correction(g, beta, cm))
@@ -696,12 +781,13 @@ class MuonRule(OptaxRule):
                 if h["adaptive"]:
                     u = torch.sum(mu_hat * u) * u
                 u = math.sqrt(max(1.0, w.shape[1] / w.shape[0])) * u
-                if h["weight_decay"]:
+                if h["weight_decay"] and _decays(h.get("weight_decay_mask")):
                     u = u + h["weight_decay"] * w
             else:
-                mu = (1 - b1) * g + b1 * st["adam_mu"][i]
+                mu = (1 - b1) * g + _decayed(st["adam_mu"][i], b1)
                 nu = (1 - b2) * g * g + b2 * st["adam_nu"][i]
-                st["adam_mu"][i], st["adam_nu"][i] = mu, nu
+                _store(st["adam_mu"], i, mu)
+                st["adam_nu"][i] = nu
                 if h["nesterov"]:
                     mu_hat = (b1 * _bias_correction(mu, b1, ca + 1)
                               + (1 - b1) * _bias_correction(g, b1, ca))
@@ -722,38 +808,72 @@ class MuonRule(OptaxRule):
 _ADAM = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0, "nesterov": False}
 
 # name -> (rule class or "torch_adam", {optax config name: default}, has
-# weight_decay in its optax signature, optax-only configs the port does not
-# compute). The config names are the optax constructor's (the JAX package's
-# _translate_configs keeps a key only if the constructor takes it).
+# weight_decay in its optax signature). The config names are the optax
+# constructor's (the JAX package's _translate_configs keeps a key only if
+# the constructor takes it).
 _FAMILIES = {
-    "adam": ("torch_adam", dict(_ADAM), False, ("mu_dtype", "eps_root", "nesterov")),
-    "adamw": (AdamRule, {**_ADAM, "weight_decay": 1e-4}, True, ("mu_dtype", "mask")),
-    "nadam": (AdamRule, {**_ADAM, "nesterov": True}, False, ("mu_dtype",)),
-    "sgd": (SGDRule, {"momentum": None, "nesterov": False}, False, ("accumulator_dtype",)),
+    "adam": ("torch_adam", {**_ADAM, "mu_dtype": None}, False),
+    "adamw": (AdamRule, {**_ADAM, "mu_dtype": None, "weight_decay": 1e-4, "mask": None}, True),
+    "nadam": (AdamRule, {**_ADAM, "mu_dtype": None, "nesterov": True}, False),
+    "sgd": (SGDRule, {"momentum": None, "nesterov": False, "accumulator_dtype": None}, False),
     "rmsprop": (RMSpropRule, {"decay": 0.9, "eps": 1e-8, "initial_scale": 0.0,
                               "eps_in_sqrt": True, "centered": False, "momentum": None,
-                              "nesterov": False, "bias_correction": False}, False, ()),
-    "adagrad": (AdagradRule, {"initial_accumulator_value": 0.1, "eps": 1e-7}, False, ()),
-    "adamax": (AdamaxRule, {"b1": 0.9, "b2": 0.999, "eps": 1e-8}, False, ()),
-    "radam": (RAdamRule, {**_ADAM, "threshold": 5.0}, False, ()),
-    "adadelta": (AdadeltaRule, {"rho": 0.9, "eps": 1e-6, "weight_decay": 0.0}, True,
-                 ("weight_decay_mask",)),
+                              "nesterov": False, "bias_correction": False}, False),
+    "adagrad": (AdagradRule, {"initial_accumulator_value": 0.1, "eps": 1e-7}, False),
+    "adamax": (AdamaxRule, {"b1": 0.9, "b2": 0.999, "eps": 1e-8}, False),
+    "radam": (RAdamRule, {**_ADAM, "threshold": 5.0}, False),
+    "adadelta": (AdadeltaRule, {"rho": 0.9, "eps": 1e-6, "weight_decay": 0.0,
+                                "weight_decay_mask": None}, True),
     "rprop": (RpropRule, {"eta_minus": 0.5, "eta_plus": 1.2, "min_step_size": 1e-6,
-                          "max_step_size": 50.0}, False, ()),
-    "asgd": (ASGDRule, {"lambd": 1e-4, "alpha": 0.75, "t0": 1e6}, False, ()),
+                          "max_step_size": 50.0}, False),
+    "asgd": (ASGDRule, {"lambd": 1e-4, "alpha": 0.75, "t0": 1e6}, False),
     "adafactor": (AdafactorRule, {"min_dim_size_to_factor": 128, "decay_rate": 0.8,
                                   "decay_offset": 0, "multiply_by_parameter_scale": True,
                                   "clipping_threshold": 1.0, "momentum": None,
-                                  "weight_decay_rate": None, "eps": 1e-30, "factored": True},
-                  False, ("dtype_momentum", "weight_decay_mask")),
+                                  "dtype_momentum": None, "weight_decay_rate": None,
+                                  "weight_decay_mask": None, "eps": 1e-30, "factored": True},
+                  False),
     "muon": (MuonRule, {"ns_coeffs": (3.4445, -4.775, 2.0315), "ns_steps": 5, "beta": 0.95,
-                        "eps": 1e-8, "weight_decay": 0.0, "nesterov": True, "adaptive": False,
+                        "eps": 1e-8, "weight_decay": 0.0, "weight_decay_mask": None,
+                        "mu_dtype": None, "nesterov": True, "adaptive": False,
                         "adam_b1": 0.9, "adam_b2": 0.999, "adam_eps_root": 0.0,
-                        "adam_weight_decay": 0.0}, True,
-             ("weight_decay_mask", "mu_dtype", "muon_weight_dimension_numbers")),
+                        "adam_weight_decay": 0.0, "muon_weight_dimension_numbers": None}, True),
     "lbfgs": ("lbfgs", {"memory_size": 10, "scale_init_precond": True, "linesearch": None},
-              False, ("linesearch",)),
+              False),
 }
+# optax configs no params file can spell: each must stay None (its reason)
+_REFUSED = {
+    "muon_weight_dimension_numbers": "it takes optax MuonDimensionNumbers or a function of the "
+    "parameters; the JAX package refuses a list or dict for it with a ValueError ('Expected "
+    "list/dict, got PtychoParams')",
+    "linesearch": "it takes an optax line-search object, which a params file cannot hold",
+}
+# optax configs naming a storage dtype, and the decay masks (a bool is a
+# prefix of the parameter tree; a tree or a function is refused)
+_DTYPE_KEYS = ("mu_dtype", "accumulator_dtype", "dtype_momentum")
+_MASK_KEYS = ("mask", "weight_decay_mask")
+# a dtype name as optax's utils.canonicalize_dtype reads it (JAX's 64-bit
+# types off, so float64 is stored as float32); other names through NumPy's
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
+           "float64": torch.float32}
+
+
+def storage_dtype(value) -> Optional[torch.dtype]:
+    """A dtype config (None, a torch.dtype, or a name such as "bfloat16",
+    "float16", "float32") as the torch.dtype a moment is stored in."""
+    if value is None or isinstance(value, torch.dtype):
+        return value
+    name = str(value)
+    if name not in _DTYPES:
+        try:
+            name = np.dtype(value).name
+        except TypeError:
+            pass
+    if name not in _DTYPES:
+        raise ValueError(f"dtype config {value!r} is not a floating type; use bfloat16, "
+                         "float16 or float32")
+    return _DTYPES[name]
+
 
 # The optimizer names a params file may give: the keys of the JAX package's
 # registry (ptyrad_tpu/optim.py:OPTIMIZER_REGISTRY), the torch.optim names
@@ -779,10 +899,12 @@ def _translate_configs(name: str, configs: dict):
     step_sizes -> min_step_size/max_step_size; a ``weight_decay`` the optax
     constructor does not take becomes add_decayed_weights ahead of the rule
     (returned as the coupled weight decay); every other key the constructor
-    does not take is dropped with the JAX package's warning. Returns
-    (configs, coupled weight decay)."""
-    _, defaults, takes_wd, unported = _FAMILIES[OPTIMIZER_REGISTRY[name]]
-    sig = {"learning_rate", *defaults, *unported}
+    does not take is dropped with the JAX package's warning. A dtype config
+    becomes a torch.dtype (storage_dtype); a config no params file can
+    spell (_REFUSED) other than None, or a decay mask that is not a bool,
+    raises NotImplementedError. Returns (configs, coupled weight decay)."""
+    _, defaults, takes_wd = _FAMILIES[OPTIMIZER_REGISTRY[name]]
+    sig = {"learning_rate", *defaults}
     out = dict(configs)
     if "betas" in out:
         b = out.pop("betas")
@@ -807,11 +929,21 @@ def _translate_configs(name: str, configs: dict):
         vprint(f"WARNING: optimizer '{name}' does not support config '{k}' "
                f"(torch-only or renamed); ignoring it.")
         out.pop(k)
-    for k in unported:
-        if out.get(k, defaults.get(k)) != defaults.get(k):
+    for k, why in _REFUSED.items():
+        if out.get(k) is not None:
             raise NotImplementedError(
-                f"optimizer '{name}': optax config '{k}' is not computed by ptyrad_tpu_torch")
-        out.pop(k, None)
+                f"optimizer '{name}': optax config '{k}' is not ported ({why}); leave it null")
+    for k in _MASK_KEYS:
+        if not isinstance(out.get(k), (type(None), bool, np.bool_)):
+            raise NotImplementedError(
+                f"optimizer '{name}': optax config '{k}' must be true, false or null in "
+                "ptyrad_tpu_torch (a tree of bools or a function cannot be spelled in a "
+                f"params file), got {out[k]!r}")
+        if k in out and out[k] is not None:
+            out[k] = bool(out[k])
+    for k in _DTYPE_KEYS:
+        if k in out:
+            out[k] = storage_dtype(out[k])
     return out, coupled
 
 
@@ -860,7 +992,10 @@ def create_optimizer(optimizer_params: Optional[dict], update_params: Optional[d
               for pname in (update_params or {}) if lr_dict[pname] != 0]
     if not groups:
         raise ValueError("no tensor has a nonzero lr in update_params")
-    rule, defaults, _, _ = _FAMILIES[family]
+    rule, defaults, _ = _FAMILIES[family]
+    if rule == "torch_adam" and (configs.get("eps_root", 0.0) or configs.get("nesterov")
+                                 or configs.get("mu_dtype") is not None):
+        rule = AdamRule  # torch's Adam computes optax.adam only at these three's defaults
     if slab is not None and rule != "torch_adam":
         for group in groups:
             if group["name"] in slab.canvas_names:
@@ -1091,7 +1226,7 @@ def load_opt_state_values(optimizer, values: Dict[str, Any]) -> None:
             "optimizer state mismatch: no checkpoint entry matches the optimizer's state "
             f"(checkpoint keys look like '{sample}'); was it saved with another optimizer, "
             "other tensors optimized or gradient accumulation?")
-    backup = {k: get() for k, get, _ in slots}
+    backup = {k: _widened(get()) for k, get, _ in slots}
     try:
         for key, _, put in slots:
             if key in found:
@@ -1125,7 +1260,7 @@ def _load_torch_adam(optimizer: torch.optim.Adam, values: Dict[str, Any], names)
             fresh.append(name)
             continue
         p = group["params"][0]
-        arrays = [np.asarray(values[found[k]], dtype=np.float32) for k in keys[1:]]
+        arrays = [_numeric(values[found[k]]).astype(np.float32) for k in keys[1:]]
         if name == "probe":
             arrays = [a + 1j * b for a, b in (arrays[:2], arrays[2:])]
         mu, nu = (torch.tensor(np.asarray(a).reshape(p.shape), dtype=p.dtype, device=p.device)

@@ -228,6 +228,13 @@ def halo_extend(obja: torch.Tensor, objp: torch.Tensor, halo: int,
 
 # -- one rank's share ----------------------------------------------------------
 
+def _bits(a: np.ndarray) -> np.ndarray:
+    """A host state array as torch takes it: bfloat16's bits (the opaque
+    2-byte type of optim.bf16_bits) as int16, which rows are moved and
+    padded in (zero bits are bfloat16's 0); any other array as it is."""
+    return a.view(np.int16) if a.dtype.kind == "V" else a
+
+
 def slab_rows(whole: torch.Tensor, plan: CanvasPlan, rank: int, value: float) -> torch.Tensor:
     """The rank's rows of a (..., Noy, Nox) canvas padded to noy_pad rows
     with ``value``, as a new tensor."""
@@ -392,25 +399,28 @@ class CanvasShard:
         """An optimizer state (optim.optim_state_values' dict of host arrays)
         with each slab-shaped array, trailing dims (omode, Nz, rows_local,
         Nox), gathered whole and unpadded: the layout the replicated path
-        writes (ptyrad_tpu/parallel/canvas.py:958-987). Every rank calls it."""
+        writes (ptyrad_tpu/parallel/canvas.py:958-987), in its own dtype.
+        Every rank calls it."""
         dev = self.params.obja.device
 
         def fix(a):
             if a.shape[-4:] != self.slab_shape:
                 return a
-            return self.gather(torch.as_tensor(a, device=dev)).cpu().numpy()
+            whole = self.gather(torch.as_tensor(_bits(a), device=dev)).cpu().numpy()
+            return whole.view(a.dtype)
         return self._walk(values, fix)
 
     def cut_state(self, values):
         """The inverse of gather_state for a checkpoint's state: each array
         with the whole canvas's trailing dims zero-padded and cut to the
         rank's rows (padding rows take no gradient, so zero moments are the
-        exact resume; ptyrad_tpu/parallel/canvas.py:990-1011)."""
+        exact resume; ptyrad_tpu/parallel/canvas.py:990-1011), in its own
+        dtype."""
         def fix(a):
             if a.shape[-4:] != self.whole_shape:
                 return a
-            whole = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
-            return self.own_rows(whole, 0.0).numpy()
+            whole = torch.from_numpy(np.ascontiguousarray(_bits(a)))
+            return self.own_rows(whole, 0).numpy().view(a.dtype)
         return self._walk(values, fix)
 
     def wrap_callback(self, callback: Optional[Callable], optimizer, save_optim: bool):

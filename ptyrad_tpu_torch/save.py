@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ptyrad_tpu_torch.optim import bf16_bits
 from ptyrad_tpu_torch.parallel.mesh import is_main_process
 from ptyrad_tpu_torch.utils.common import safe_filename
 from ptyrad_tpu_torch.utils.logging import vprint
@@ -115,9 +116,12 @@ def import_h5py(what: str):
 def _to_numpy(value):
     """A tensor as a NumPy copy on the host (a complex one stays complex), a
     NumPy scalar as a 0-d array (so that a list holding one is written as
-    the JAX package writes it); anything else as it is."""
+    the JAX package writes it), a bfloat16 one as its bits (the opaque
+    2-byte dataset the JAX package writes for it); anything else as it is."""
     if isinstance(value, torch.Tensor):
         value = value.detach()
+        if value.dtype == torch.bfloat16:
+            return bf16_bits(value)
         return value.numpy().copy() if value.device.type == "cpu" else value.cpu().numpy()
     if isinstance(value, np.generic):
         return np.asarray(value)

@@ -426,3 +426,37 @@ def test_cli_n_devices_runs_the_canvas_path(tmp_path):
                                    for line in iters), out.stdout
     (folder,) = os.listdir(tmp_path / "out")
     assert "model_iter0002.hdf5" in os.listdir(tmp_path / "out" / folder)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=["float32", "float16", "bfloat16"])
+def test_state_gather_and_cut_keep_the_moment_dtype(dtype):
+    """CanvasShard.gather_state and cut_state on a state whose moments are
+    stored in ``dtype`` (optim's host arrays: a bfloat16 one as its bits):
+    a slab-shaped moment gathered from two ranks' slabs and a whole one cut
+    to a rank's padded rows keep their dtype and bits, the padding rows
+    zero; other arrays pass as they are. A stand-in shard holds the two
+    ranks' slabs."""
+    from types import SimpleNamespace
+
+    from ptyrad_tpu_torch.optim import _host
+    from ptyrad_tpu_torch.parallel.canvas import CanvasShard, slab_rows
+
+    rows, noy, nox = 3, 5, 4
+    whole = torch.randn(1, 2, noy, nox).to(dtype)
+    plan = SimpleNamespace(rows_local=rows)
+    slabs = [slab_rows(whole, plan, r, 0.0) for r in range(2)]
+    shard = SimpleNamespace(
+        params=SimpleNamespace(obja=whole), slab_shape=(1, 2, rows, nox),
+        whole_shape=(1, 2, noy, nox),
+        gather=lambda t: torch.cat([s.view(t.dtype) for s in slabs], dim=-2)[..., :noy, :],
+        own_rows=lambda w, value: slab_rows(w, plan, 1, value))
+    shard._walk = lambda v, fn: CanvasShard._walk(shard, v, fn)
+    count = np.int32(7)
+    gathered = CanvasShard.gather_state(shard, {"mu": _host(slabs[1]), "count": count})
+    assert gathered["count"] is count
+    assert gathered["mu"].dtype == _host(whole).dtype
+    assert gathered["mu"].tobytes() == _host(whole).tobytes()
+    cut = CanvasShard.cut_state(shard, {"mu": _host(whole)})["mu"]
+    assert cut.dtype == _host(whole).dtype and cut.tobytes() == _host(slabs[1]).tobytes()
+    assert not _host(slabs[1])[..., noy - rows:, :].view(np.uint8).any()

@@ -12,7 +12,12 @@ gradient mask, step and update mask), on parameters of the six tensors'
 kinds: rtol 1e-6 on the parameters (float32 rules in two orders of
 rounding), and the port's checkpoint state under the JAX package's keys,
 equal key for key at rtol 1e-5 (atol 1e-5 of each array's largest entry).
-LBFGS takes value functions, not gradients: tests/test_torch_lbfgs.py.
+A moment stored in a 2-byte type (mu_dtype, accumulator_dtype,
+dtype_momentum) is held in that type, at one step of it: rtol its
+machine epsilon (2^-7 for bfloat16, 2^-10 for float16), atol that of the
+array's largest entry. The parameters stay at rtol 1e-6: the port rounds
+as optax's eager update does. LBFGS takes value functions, not gradients:
+tests/test_torch_lbfgs.py.
 """
 
 import logging
@@ -60,7 +65,25 @@ CASES = [
     ("ASGD", {}), ("ASGD", {"lambd": 1e-3, "weight_decay": 0.01}),
     ("Adafactor", {}), ("Adafactor", {"momentum": 0.9, "weight_decay_rate": 0.01}),
     ("Muon", {}), ("Muon", {"weight_decay": 0.01, "momentum": 0.9}),
+    # the optax configs a params file can spell beyond the torch names
+    ("Adam", {"nesterov": True, "eps_root": 1e-8}), ("Adam", {"mu_dtype": "bfloat16"}),
+    ("Adam", {"mu_dtype": "float16"}), ("NAdam", {"mu_dtype": "bfloat16"}),
+    ("Muon", {"mu_dtype": "bfloat16"}),
+    ("SGD", {"momentum": 0.9, "accumulator_dtype": "bfloat16"}),
+    ("Adafactor", {"momentum": 0.9, "dtype_momentum": "bfloat16"}),
+    ("AdamW", {"weight_decay": 0.1, "mask": False}),
+    ("AdamW", {"weight_decay": 0.1, "mask": True}),
+    ("Adadelta", {"weight_decay": 0.01, "weight_decay_mask": False}),
+    ("Adafactor", {"weight_decay_rate": 0.01, "weight_decay_mask": False}),
+    ("Muon", {"weight_decay": 0.01, "weight_decay_mask": False}),
 ]
+# the values of these configs are part of a case's id
+_VALUED = ("mu_dtype", "accumulator_dtype", "dtype_momentum", "mask", "weight_decay_mask")
+
+
+def case_id(name, configs) -> str:
+    keys = [f"{k}={v}" if k in _VALUED else k for k, v in configs.items()]
+    return f"{name}-{'-'.join(keys) or 'defaults'}"
 
 
 def values(rng) -> dict:
@@ -122,6 +145,19 @@ def jax_state_values(state) -> dict:
     return {jax.tree_util.keystr(p): np.asarray(x) for p, x in flat if hasattr(x, "shape")}
 
 
+def as_float(a) -> np.ndarray:
+    """A state array in float64: the port's bfloat16 bits (an opaque 2-byte
+    array) and JAX's bfloat16 (ml_dtypes) widened exactly."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.names is None and a.dtype.str == "|V2":
+        a = O._widened(a)
+    return np.asarray(a.astype(np.float32) if a.dtype.itemsize == 2 else a, np.float64)
+
+
+# the relative size of one step of a 2-byte storage type (its machine epsilon)
+STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
 def assert_state_equal(opt, state):
     ours = O.optim_state_values(opt)
     if "state" in ours:  # Adam: upstream's torch layout
@@ -132,16 +168,17 @@ def assert_state_equal(opt, state):
         ref = jax_state_values(state)
     assert sorted(ours) == sorted(ref)
     for key, want in ref.items():
-        got = np.asarray(ours[key], np.float64)
-        want = np.asarray(want, np.float64)
+        mine = np.asarray(ours[key])
+        assert mine.dtype.itemsize == want.dtype.itemsize, (key, mine.dtype, want.dtype)
+        rtol = STEP[want.dtype.name] if want.dtype.name in STEP else 1e-5
+        got, want = as_float(mine), as_float(want)
         assert got.shape == want.shape, key
-        np.testing.assert_allclose(got, want, rtol=1e-5,
-                                   atol=1e-5 * float(np.abs(want).max(initial=0.0)),
+        np.testing.assert_allclose(got, want, rtol=rtol,
+                                   atol=rtol * float(np.abs(want).max(initial=0.0)),
                                    err_msg=str(key))
 
 
-@pytest.mark.parametrize("name, configs", CASES,
-                         ids=[f"{n}-{'-'.join(c) or 'defaults'}" for n, c in CASES])
+@pytest.mark.parametrize("name, configs", CASES, ids=[case_id(n, c) for n, c in CASES])
 def test_rule_matches_optax(name, configs):
     jp, state, params, opt = run_both(name, configs)
     ref = jax_numpy(jp)
@@ -192,3 +229,82 @@ def test_unknown_name_raises_the_same_value_error():
     with pytest.raises(ValueError) as theirs:
         j_create_optimizer({"name": "Lion"}, UPDATE, jax_params(values(np.random.default_rng(3))))
     assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("name, key, value, jax_error", [
+    ("Muon", "muon_weight_dimension_numbers", [0, 1], ValueError),
+    ("Muon", "muon_weight_dimension_numbers", {"reduction_axis": 0, "output_axis": 1},
+     ValueError),
+    ("LBFGS", "linesearch", "zoom", AttributeError), ("AdamW", "mask", [True], ValueError),
+    ("Adafactor", "weight_decay_mask", {"obja": False}, None)],
+    ids=["muon_dims-list", "muon_dims-dict", "lbfgs-linesearch", "adamw-mask-list",
+         "adafactor-mask-dict"])
+def test_unspellable_config_raises(name, key, value, jax_error):
+    """The optax configs that take objects no params file can hold stay
+    refused with the decision's reason. The JAX package cannot build them
+    either (a ValueError for Muon's dimension numbers as a list or dict, or
+    for a list mask), except a tree mask that optax never reads (Adafactor
+    without weight_decay_rate), which the port refuses all the same."""
+    v = values(np.random.default_rng(4))
+    cfg = {"name": name, "configs": {key: value}}
+    params = PtychoParams(**{k: torch.tensor(a) for k, a in v.items()})
+    with pytest.raises(NotImplementedError, match=f"'{key}'.*(not ported|true, false or null)"):
+        O.create_optimizer(cfg, UPDATE, params)
+    if jax_error is not None:
+        with pytest.raises(jax_error):
+            j_create_optimizer(cfg, UPDATE, jax_params(v))
+
+
+@pytest.mark.parametrize("value", ["bfloat16", "float16", "float32", "float64", "half", "float",
+                                   "double", "single", "f2", np.float16, None])
+def test_storage_dtype_reads_as_optax(value):
+    """A dtype config names the storage type optax.utils.canonicalize_dtype
+    gives it (64-bit types off: float64 is float32)."""
+    ours = O.storage_dtype(value)
+    theirs = optax._src.utils.canonicalize_dtype(value)
+    assert (ours is None and theirs is None) or str(ours) == f"torch.{jnp.dtype(theirs).name}"
+
+
+def test_storage_dtype_refuses_a_non_float():
+    with pytest.raises(ValueError, match="not a floating type"):
+        O.storage_dtype("int8")
+
+
+@pytest.mark.parametrize("name, configs", [("Adam", {"mu_dtype": "bfloat16"}),
+                                           ("SGD", {"momentum": 0.9,
+                                                    "accumulator_dtype": "bfloat16"})],
+                         ids=["Adam-mu_dtype", "SGD-accumulator_dtype"])
+def test_jitted_update_stays_within_two_bf16_steps(name, configs, capsys):
+    """The port holds optax's eager update bit for bit in a bfloat16 moment.
+    Under jax.jit, XLA may skip the bfloat16 rounding of b1 * mu (it keeps
+    the product in float32 for the sum), so the JAX package's jitted solver
+    step parts from the eager rule in the last bfloat16 bit of some entries,
+    which then evolve apart: after 5 steps the stored moment stays within
+    two bfloat16 steps (2 x 2^-7) of its largest entry. Prints how many
+    entries differ and by how much, step by step."""
+    rng = np.random.default_rng(0)
+    v = values(rng)
+    grads = [values(rng) for _ in range(STEPS)]
+    jp = jax_params(v)
+    tx, eager, _, start = j_create_optimizer({"name": name, "configs": configs}, UPDATE, jp)
+    jitted, update = eager, jax.jit(tx.update)
+    _, _, _, opt = run_both(name, configs)
+    report = []
+    for i, g in enumerate(grads):
+        g = j_mask(jax_params(g), jnp.int32(i + 1), start)  # run_both's gradients
+        _, eager = tx.update(g, eager, jp)
+        _, jitted = update(g, jitted, jp)
+        a, b = jax_state_values(eager), jax_state_values(jitted)
+        two = [k for k in a if a[k].dtype.itemsize == 2]
+        worst = max(float(np.abs(as_float(a[k]) - as_float(b[k])).max())
+                    / max(float(np.abs(as_float(a[k])).max()), 1e-30) for k in two)
+        worst /= STEP["bfloat16"]
+        report.append((i + 1, sum(int((as_float(a[k]) != as_float(b[k])).sum()) for k in two),
+                       sum(a[k].size for k in two), worst))
+        assert worst <= 2.0, report
+    ours = O.optim_state_values(opt)
+    for k in two:
+        np.testing.assert_array_equal(as_float(ours[k]), as_float(a[k]), err_msg=k)
+    with capsys.disabled():
+        print(f"\n{name} {configs}: jitted against eager (step, differing entries, of, "
+              f"largest difference in bfloat16 steps of the largest entry): {report}")

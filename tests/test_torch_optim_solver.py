@@ -4,7 +4,8 @@ batches of 4, 4 and 3, 3 iterations): trajectories of four families, the
 start-iter mask of the updates, and gradient accumulation (optax.MultiSteps
 in the JAX package, optim.MultiSteps here), whose running mean and
 mini-step counter carry across iterations (3 batches an iteration is no
-multiple of 2).
+multiple of 2). A params file's optax configs (mu_dtype, nesterov) load,
+validate and run alike.
 """
 
 import copy
@@ -125,3 +126,33 @@ def test_grad_accumulation_matches_big_batch(dataset):
         deltas.append((np_(params.objp) - before).ravel())
     assert np.abs(deltas[1]).max() > 0
     assert np.corrcoef(deltas[0], deltas[1])[0, 1] > 0.95
+
+
+def test_optax_configs_from_a_yml_run_alike(dataset, tmp_path):
+    """The minimal tBL yml with optimizer_params.configs {mu_dtype:
+    bfloat16, nesterov: true} validates to the same optimizer_params in
+    both packages; one iteration of the small run with them (the port's
+    AdamRule, bfloat16 moments) gives the JAX solver's loss at rtol 1e-4
+    (its jitted step may skip a bfloat16 rounding that the eager rule
+    makes: tests/test_torch_optim.py::test_jitted_update_stays_within_two_bf16_steps)."""
+    import yaml
+
+    from ptyrad_tpu.load import load_params as j_load_params
+    from ptyrad_tpu_torch.load import load_params
+    from test_torch_params import ROOT, assert_same
+
+    raw = load_params(str(ROOT / "demo" / "params" / "tBL_WSe2_reconstruct_minimal.yml"),
+                      validate=False)
+    raw.setdefault("model_params", {})["optimizer_params"] = {
+        "name": "Adam", "configs": {"mu_dtype": "bfloat16", "nesterov": True}}
+    path = tmp_path / "adam_bf16.yml"
+    path.write_text(yaml.safe_dump(raw))
+    ours = load_params(str(path))["model_params"]["optimizer_params"]
+    assert_same(ours, j_load_params(str(path))["model_params"]["optimizer_params"])
+    assert ours["configs"] == {"mu_dtype": "bfloat16", "nesterov": True}
+    js, ts = both_solvers(small_params(ours, niter=1), dataset)
+    js.run()
+    ts.run()
+    assert isinstance(ts.optimizer, O.AdamRule)
+    assert {t.dtype for st in ts.optimizer.state.values() for t in st["mu"]} == {torch.bfloat16}
+    np.testing.assert_allclose(losses(ts), losses(js), rtol=1e-4)
