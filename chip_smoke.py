@@ -128,19 +128,19 @@ Phases, one JSON object per line each:
                load_ptyrad (write seconds printed); which routes ran is
                printed. B1, B2, B3a, B3b.
      cli     - ``python -m ptyrad_tpu_torch run --params_path`` in a
-               subprocess on params_file's .raw and a .json set to 4
-               iterations saved every 2 into a temporary output_dir
+               subprocess on params_file's .raw and a .json set to 2
+               iterations saved every iteration into a temporary output_dir
                (objp, obja, probe; model and optim_state where h5py
                imports): exit 0, one output folder named as
                make_output_folder names it, the params copy and the log in
-               it, the objp and probe_amp TIFs of iterations 2 and 4 at
+               it, the objp and probe_amp TIFs of iterations 1 and 2 at
                their shapes (read back through PIL), each iteration saved
                once, finite and falling losses, the kernel library neither
                rebuilt nor replaced. Prints the seconds to training and to
                the first iteration's end, patterns/s and each save's
-               seconds. Then validate-params (exit 0 on the .json, 1 on a
-               copy with a bad key), check-gpu and print-system-info (exit
-               0, naming the card), run at once. cli_mixed_precision,
+               seconds. cli_commands: validate-params (exit 0 on the .json,
+               1 on a copy with a bad key), check-gpu and print-system-info
+               (exit 0, naming the card). cli_commands, cli_mixed_precision,
                dist_cli and hypertune_cli run at once, after hypertune (each
                subprocess spends most of its seconds starting; cli's own
                start is timed alone). cli_mixed_precision: one
@@ -332,6 +332,21 @@ Phases, one JSON object per line each:
                on the chain route (per-position tilts and dz optimizable:
                B5b and B6b with dH on a per-position H, against the plain
                route and float64 on the CPU).
+     pso_n1024 - PSO as its yml gives it but padded on the fly to 1024^2,
+               the first N above the kernels' 512: the plain route (the
+               eager torch.fft chain), B1/B2 at 1024^2 windows. The first 8
+               batches of iteration 1 through solver.train_epoch, four
+               times from one seeded state: fwd_remat off, then on, with
+               the yml's update set, and the same with dz and the tilts
+               optimized. Each pair equal bit for bit (every batch's terms,
+               the parameters' digest), the window's first batch's loss
+               falling, the remat run's peak device memory below its
+               pair's; every run through B1/B2 and the plain route 8
+               times, never B3-B6. A profile over 4 steps of each yml run
+               (PSO-n1024, PSO-n1024-remat); then B1/B2 at these shapes
+               (32 windows of 21 x 1024^2 on a 21 x 1,721^2 canvas, the
+               pair launch: 64 windows) against their plain versions, rows
+               of the kernels line.
      pso_bf16 - the PSO run from the same start under compute_dtype
                'bfloat16' (the bf16 B5/B6), beside the pso phase as
                mixed_precision is beside main; from pso_ff_random_start's
@@ -388,7 +403,8 @@ runs and the carve), tilt (its simulation included) and PSO tilt paths,
 mixed_precision, pso_bf16 and the forward phases' kernel routes, the bf16
 kernels in rows of their own; B1/B2's rows at the tBL shapes count the
 N <= 128 runs but the canvas ranks, their rows at the PSO shapes the N =
-256, 192 and 254 runs, their canvas slab rows the canvas ranks'), the
+256, 192 and 254 runs, their rows at N = 1024 pso_n1024's windows, their
+canvas slab rows the canvas ranks'), the
 nvidia-smi name/power-limit line, and as the last line {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is not 0 and the
 last line is never printed. Exits non-zero at once without CUDA.
@@ -400,6 +416,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import gc
 import hashlib
 import importlib
 import json
@@ -673,7 +690,8 @@ def patch_corners(dev, gen, corners: np.ndarray, h: int, w: int, n: int,
 
 
 def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.Tensor,
-                     suffix: str, atomic_b2: bool = False) -> list:
+                     suffix: str, atomic_b2: bool = False,
+                     launches: int = RUN_LAUNCHES) -> list:
     """B1 and B2 at one shape: a (1, lmodes, h, w) canvas, len(pos) n^2
     windows at `pos`. B1 against advanced indexing and B2 against scatter_add_plain on
     the CPU, both at tolerance 0; B2 run twice must repeat bit for bit; the
@@ -682,10 +700,14 @@ def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.T
     wrapper's host us per call apart. `atomic_b2` is for a tree from before
     the pair launch, whose B2 summed with atomics (chain_bench.py
     --atomic-b2 times one): B2 held at rtol 1e-5 of the largest sum, with
-    no repeat check and no pair rows."""
+    no repeat check and no pair rows. `launches`: of each timed run."""
     from ptyrad_tpu_torch.ops import patches as P
 
     shape, batch = (n, n), len(pos)
+
+    def run(fn):
+        return run_ms(fn, launches)
+
     canvas = torch.rand((1, lmodes, h, w), generator=gen, device=dev)
     canvas_p = torch.rand((1, lmodes, h, w), generator=gen, device=dev)
     out_k = P.gather_cuda(canvas, pos, shape)
@@ -701,10 +723,10 @@ def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.T
         "replaces": "ptyrad_tpu/ops/patches.py:136",
         "shape": {"canvas": [1, lmodes, h, w], "batch": batch, "window": n},
         "max_abs_err": err_g, "tolerance": 0.0,
-        "ms": run_ms(lambda: P.gather_cuda(canvas, pos, shape)),
+        "ms": run(lambda: P.gather_cuda(canvas, pos, shape)),
         "host_us": host_us(lambda: P.gather_cuda(canvas, pos, shape)),
         "plain_ms": time_ms(lambda: P.gather_plain(canvas, pos, shape)),
-        "library_ms": run_ms(lambda: canvas[..., iy, ix]),
+        "library_ms": run(lambda: canvas[..., iy, ix]),
         "bound_ms": g_bound, "bound_by": g_by,
     }
     if not atomic_b2:
@@ -712,7 +734,7 @@ def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.T
         require(torch.equal(pair[0], out_k)
                 and torch.equal(pair[1], P.gather_cuda(canvas_p, pos, shape)),
                 f"B1{suffix}: the pair launch differs from two single launches")
-        gather["pair_ms"] = run_ms(lambda: P.gather_pair_cuda(canvas, canvas_p, pos, shape))
+        gather["pair_ms"] = run(lambda: P.gather_pair_cuda(canvas, canvas_p, pos, shape))
     del out_k
     emit({"phase": "kernel", **gather, "note": "bit-exact against advanced indexing"})
     require(err_g == 0.0, f"B1{suffix} gather differs from its plain version: {err_g}")
@@ -735,10 +757,10 @@ def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.T
         "replaces": "ptyrad_tpu/ops/patches.py:98",
         "shape": {"canvas": list(cshape), "batch": batch, "window": n},
         "max_abs_err": err_s, "tolerance": tol_s, "repeats_bit_for_bit": repeats,
-        "ms": run_ms(lambda: P.scatter_add_cuda(cshape, grads, pos)),
+        "ms": run(lambda: P.scatter_add_cuda(cshape, grads, pos)),
         "host_us": host_us(lambda: P.scatter_add_cuda(cshape, grads, pos)),
         "plain_ms": time_ms(lambda: P.scatter_add_plain(cshape, grads, pos)),
-        "library_ms": run_ms(lambda: torch.zeros(lmodes * h * w, device=dev).index_put_(
+        "library_ms": run(lambda: torch.zeros(lmodes * h * w, device=dev).index_put_(
             (flat,), vals, accumulate=True)),
         "bound_ms": s_bound, "bound_by": s_by,
     }
@@ -747,7 +769,7 @@ def check_patches_at(dev, gen, lmodes: int, h: int, w: int, n: int, pos: torch.T
         require(torch.equal(pair[0], sc_k)
                 and torch.equal(pair[1], P.scatter_add_cuda(cshape, grads_p, pos)),
                 f"B2{suffix}: the pair launch differs from two single launches")
-        scatter["pair_ms"] = run_ms(
+        scatter["pair_ms"] = run(
             lambda: P.scatter_add_pair_cuda(cshape, grads, grads_p, pos))
         require(repeats, f"B2{suffix}: two runs differ")
     emit({"phase": "kernel", **scatter,
@@ -2496,7 +2518,7 @@ DTYPE_SLOTS = {"mu_dtype": ("mu", "muon_mu", "adam_mu"), "accumulator_dtype": ("
                "dtype_momentum": ("ema",)}
 # seconds each of these phases is expected to take on the card (PERF.md §6)
 PREDICTED_S = {"lbfgs": (10, 60), "grad_accum": (8, 20), "optimizers": (8, 30),
-               "grouping": (5, 30)}
+               "grouping": (5, 30), "pso_n1024": (40, 90)}
 
 
 def with_optimizer(params: dict, optimizer_params: dict, **recon) -> dict:
@@ -3248,7 +3270,8 @@ def resume_path(dev, card: str, init: dict, main_losses: list, tmp: str, record:
     return launches, solver
 
 
-CLI_NITER, CLI_SAVE_ITERS = 4, 2
+CLI_NITER, CLI_SAVE_ITERS = 2, 1
+CLI_SAVES = list(range(CLI_SAVE_ITERS, CLI_NITER + 1, CLI_SAVE_ITERS))
 _ITER_LINE = re.compile(r"Iter: (\d+), Total Loss: (\S+?),.* in ([0-9.]+) sec")
 _SAVE_LINE = re.compile(r"Saved the results of iteration (\d+) to .* in ([0-9.]+) sec")
 
@@ -3280,12 +3303,12 @@ def _tail(lines: list, n: int = 30) -> str:
 def cli_path(card: str, tmp: str, raw_path: str, named_like) -> None:
     """The tBL run as a user starts it: ``python -m ptyrad_tpu_torch run
     --params_path`` in a subprocess, on the params_file phase's .raw, with
-    its .json set to 4 iterations saved every 2 into a temporary output_dir
-    (objp, obja and probe; model and optim_state where h5py imports). The
-    kernels built for this process serve the subprocess unbuilt. Then
-    validate-params (on the .json and on a copy with a bad key), check-gpu
-    and print-system-info, all three at once. ``named_like``: a solver of
-    the same shapes, to name the output folder as make_output_folder does."""
+    its .json (``tmp``/tbl_cli.json, which cli_commands reads) set to
+    CLI_NITER iterations saved every CLI_SAVE_ITERS into a temporary
+    output_dir (objp, obja and probe; model and optim_state where h5py
+    imports). The kernels built for this process serve the subprocess
+    unbuilt. ``named_like``: a solver of the same shapes, to name the output
+    folder as make_output_folder does."""
     from PIL import Image
 
     from ptyrad_tpu_torch.ops import _build
@@ -3343,9 +3366,10 @@ def cli_path(card: str, tmp: str, raw_path: str, named_like) -> None:
     require(not out["rebuilt"], "cli: the subprocess rebuilt or replaced the kernel library")
     require(len(losses) == CLI_NITER and all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"cli: losses {losses}")
-    require([int(m.group(1)) for m in saves] == [2, 4],
-            f"cli: saves at iterations {[m.group(1) for m in saves]}, expected 2 and 4 once each")
-    for it in (2, 4):
+    require([int(m.group(1)) for m in saves] == CLI_SAVES,
+            f"cli: saves at iterations {[m.group(1) for m in saves]}, expected {CLI_SAVES} "
+            "once each")
+    for it in CLI_SAVES:
         zsum, zstack = f"objp_zsum_crop_08bit_iter{it:04d}.tif", f"objp_zstack_crop_08bit_iter{it:04d}.tif"
         probe = f"probe_amp_08bit_iter{it:04d}.tif"
         require(shapes.get(probe) == [1, NPIX, PMODE * NPIX], f"cli: {probe} {shapes.get(probe)}")
@@ -3360,6 +3384,14 @@ def cli_path(card: str, tmp: str, raw_path: str, named_like) -> None:
     require(f"Iter: {CLI_NITER}, Total Loss" in log and "### System information ###" in log,
             "cli: the log file misses the run")
 
+
+def cli_commands(card: str, tmp: str, raw_path: str) -> None:
+    """validate-params (on cli_path's .json and on a copy with a bad key),
+    check-gpu and print-system-info, all at once: the exit codes, and the
+    card named by the last two."""
+    json_path = f"{tmp}/tbl_cli.json"
+    with open(json_path, encoding="utf-8") as f:
+        d = json.load(f)
     bad_path = f"{tmp}/tbl_bad.json"
     with open(bad_path, "w", encoding="utf-8") as f:
         json.dump({**d, "init_params": {**d["init_params"], "bogus_key": 1}}, f)
@@ -4046,18 +4078,22 @@ def pso_path(dev, card: str):
     return solver, launches, init, ref
 
 
-def first_batch_loss(solver) -> float:
-    """The loss of the solver's first batch before any step (no gradient:
-    the chain runs B5 segment by segment)."""
+def batch_loss(solver, idx: torch.Tensor, mask: torch.Tensor) -> float:
+    """The total loss of one batch, no gradient (the chain runs B5 segment
+    by segment)."""
     from ptyrad_tpu_torch.engine.solver import loss_fn
 
-    solver.prepare()
-    idx, mask = (torch.as_tensor(x[0], device=solver.device)
-                 for x in (solver.batch_idx, solver.batch_mask))
     with torch.no_grad():
         total, _ = loss_fn(solver.params, solver.buffers, solver.geom, idx, mask,
                            solver.loss_params)
     return float(total)
+
+
+def first_batch_loss(solver) -> float:
+    """The loss of the solver's first batch before any step."""
+    solver.prepare()
+    return batch_loss(solver, *(torch.as_tensor(x[0], device=solver.device)
+                                 for x in (solver.batch_idx, solver.batch_mask)))
 
 
 def run_pso_solver(dev, card: str, phase: str, init: dict, setup_s: float,
@@ -4446,6 +4482,138 @@ def pad_tilt_gate(dev, init: dict, n: int) -> dict:
         require(launches[per_n(name, n)] > 0,
                 f"the N = {n} tilt gate did not run {per_n(name, n)}")
     return launches
+
+
+# -- PSO padded on the fly to 1024^2: the plain route, with and without remat ---
+
+# The first N above the kernels' 512: forward_route gives "plain" (the eager
+# torch.fft chain) and B1/B2 are the path's only kernels, at 1024^2 windows.
+# The window: the first N1024_STEPS batches of iteration 1 through
+# solver.train_epoch, as canvas_fullscan's window runs, from one seeded
+# state for each of the four runs (fwd_remat off and on, with the yml's
+# update set and with dz and the tilts optimized too)
+PSO_N1024 = 1024
+N1024_STEPS = 8
+N1024_PROFILE_STEPS = 4
+N1024_SHAPES = " (PSO N=1024)"  # name suffix of the B1/B2 rows at pso_n1024's shapes
+# launches a timed run of B1/B2 and their library calls at these shapes (a
+# library scatter of 704 M values takes some 200 ms)
+N1024_ROW_LAUNCHES = 4
+
+
+def free_device_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def n1024_window(dev, init: dict, params: dict, remat: bool):
+    """One run of pso_n1024's window: a fresh PtyRADSolver with fwd_remat as
+    given, the window's first batch's loss, the window under counted() with
+    the peak device memory from just before it, that batch's loss again.
+    Returns (the record, the solver)."""
+    from ptyrad_tpu_torch.engine.solver import PtyRADSolver, iter_batch_perm
+
+    t0 = time.perf_counter()
+    params = copy.deepcopy(params)
+    params["model_params"]["fwd_remat"] = remat
+    solver = PtyRADSolver(params, init_variables=init, device=dev, verbose=False)
+    solver.prepare()
+    solver._build()
+    require(solver.geom.fwd_remat == remat, f"pso_n1024: fwd_remat {remat} not in Geometry")
+    window = iter_batch_perm(1, len(solver.batch_idx))[:N1024_STEPS]
+    idx = torch.as_tensor(solver.batch_idx[window], device=dev)
+    mask = torch.as_tensor(solver.batch_mask[window], device=dev)
+    before = batch_loss(solver, idx[0], mask[0])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    (mean, terms), launches = counted(lambda: solver.train_epoch(idx, mask, 1))
+    run_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    after = batch_loss(solver, idx[0], mask[0])
+    return {"remat": remat, "mean_loss": mean, "batch_terms": terms,
+            "first_batch_loss": [before, after], "peak_mem_gb": peak,
+            "s_per_step": run_s / N1024_STEPS, "setup_s": setup_s,
+            "digest": params_digest(solver.params), "launches": launches}, solver
+
+
+def pso_n1024_path(dev, card: str, pso_init: dict) -> tuple[dict, list]:
+    """pso_n1024: PSO as its params file gives it (4,096 patterns, 4 probe
+    modes, 21 slices of 10 Ang, batch 32, Adam, loss_single, the yml's
+    constraints) with the 120^2 crops padded on the fly to 1024^2
+    (pso_pad_init: dx 0.0375 Ang, canvas 1,721^2): the plain route, B1/B2 at
+    1024^2 windows. n1024_window four times from one seeded state: the yml's
+    update set with fwd_remat off, then on, and the same with dz and the
+    tilts optimized (with_dz_tilts: H needs a gradient). Each pair equal bit
+    for bit (every batch's terms, the mean, the parameters' digest), the
+    window's first batch's loss falling and finite, the remat peak below
+    its pair's; every run B1 and B2, PLAIN_ROUTE N1024_STEPS times, no
+    B3-B6. A profile over N1024_PROFILE_STEPS steps of each yml run
+    (PSO-n1024, PSO-n1024-remat); then B1/B2 at these shapes against their
+    plain versions (rows of the kernels line). Returns (the launches of the
+    four windows, the B1/B2 rows)."""
+    t0 = time.perf_counter()
+    init = pso_pad_init(pso_init, PSO_N1024)
+    corners, side = init["crop_pos"], init["obj"].shape[-1]
+    init_s = time.perf_counter() - t0
+    runs, pairs = [], {}
+    for label, params in (("yml", PSO_PARAMS), ("dz_tilts", with_dz_tilts(PSO_PARAMS))):
+        pair = []
+        for remat in (False, True):
+            rec, solver = n1024_window(dev, init, params, remat)
+            tag = f"pso_n1024 {label}, fwd_remat {remat}"
+            require(solver.geom.probe_shape == (PSO_N1024, PSO_N1024)
+                    and solver.geom.tilt_obj == (label == "dz_tilts"),
+                    f"{tag}: geometry {solver.geom.probe_shape}, tilt {solver.geom.tilt_obj}")
+            before, after = rec["first_batch_loss"]
+            require(np.isfinite(after) and after < before,
+                    f"{tag}: the first batch's loss went {before} -> {after}")
+            launches = rec["launches"]
+            for name in PATCH_KERNELS:
+                require(launches[name] > 0, f"{tag}: {name} was not launched")
+            require(launches[PLAIN_ROUTE] == N1024_STEPS,
+                    f"{tag}: {launches[PLAIN_ROUTE]} plain routes in {N1024_STEPS} steps")
+            chain = {k: v for k, v in launches.items() if k[:2] in ("B3", "B4", "B5", "B6") and v}
+            require(not chain, f"{tag}: chain kernels ran: {chain}")
+            if label == "yml":
+                rec["profile"] = profile_steps(solver, card, "PSO-n1024" + "-remat" * remat,
+                                               1, n_batches=N1024_PROFILE_STEPS)
+            del solver
+            free_device_memory()
+            pair.append(rec)
+            runs.append(launches)
+        off, on = pair
+        same = (off["batch_terms"] == on["batch_terms"] and off["mean_loss"] == on["mean_loss"]
+                and off["digest"] == on["digest"])
+        pairs[label] = {"peak_mem_gb": [off["peak_mem_gb"], on["peak_mem_gb"]],
+                        "peak_ratio": on["peak_mem_gb"] / off["peak_mem_gb"],
+                        "s_per_step": [off["s_per_step"], on["s_per_step"]],
+                        "setup_s": [off["setup_s"], on["setup_s"]],
+                        "first_batch_loss": [off["first_batch_loss"], on["first_batch_loss"]],
+                        "mean_loss": [off["mean_loss"], on["mean_loss"]],
+                        "bit_for_bit": same,
+                        "launches": {k: v for k, v in off["launches"].items() if v}}
+        require(same, f"pso_n1024 {label}: fwd_remat changed the run: {off['mean_loss']} / "
+                      f"{on['mean_loss']}, digests {off['digest'][:12]} / {on['digest'][:12]}")
+        require(on["peak_mem_gb"] < off["peak_mem_gb"],
+                f"pso_n1024 {label}: remat peak {on['peak_mem_gb']} GB not below "
+                f"{off['peak_mem_gb']} GB")
+    windows_s = time.perf_counter() - t0
+    del init
+    free_device_memory()
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    rows = check_patches_at(dev, gen, PSO_NZ, side, side, PSO_N1024,
+                            patch_corners(dev, gen, corners, side, side, PSO_N1024),
+                            N1024_SHAPES, launches=N1024_ROW_LAUNCHES)
+    free_device_memory()
+    emit({"phase": "pso_n1024", "card": card, "N": PSO_N1024, "n_patterns": PSO_SCANS,
+          "batch": BATCH, "steps": N1024_STEPS, "canvas": side, "pairs": pairs,
+          "init_s": init_s, "windows_s": windows_s, "rows_s": time.perf_counter() - t1,
+          "seconds": time.perf_counter() - t0, "predicted_s": PREDICTED_S["pso_n1024"]})
+    return add_counts(*runs), rows
 
 
 # -- the far-field exit: the PSO path again, and the carve ----------------------
@@ -7024,13 +7192,15 @@ def main() -> int:
         with phase("hypertune"):
             hypertune_launches = hypertune_path(dev, card, tmp, raw_path)
         with phase("cli_subprocesses"):
-            # three CLI subprocesses at once (the hypertune worker after the
-            # study it joins): each spends most of its time starting, and no
-            # gate reads their seconds; cli_path ran alone, it times the start
+            # the other CLI subprocesses at once (the hypertune worker after
+            # the study it joins): each spends most of its time starting, and
+            # no gate reads their seconds; cli_path ran alone, it times the
+            # start
             loopback_env()
-            with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            with concurrent.futures.ThreadPoolExecutor(4) as pool:
                 jobs = [pool.submit(fn, card, tmp, raw_path)
-                        for fn in (cli_mixed_precision, dist_cli_path, hypertune_cli_path)]
+                        for fn in (cli_mixed_precision, dist_cli_path, hypertune_cli_path,
+                                   cli_commands)]
                 for job in jobs:
                     job.result()
     torch.cuda.empty_cache()
@@ -7102,6 +7272,9 @@ def main() -> int:
             pad_launches.append(pad_tilt_gate(dev, pad_init, n))
             del pad_init
             torch.cuda.empty_cache()
+    with phase("pso_n1024"):
+        n1024_launches, n1024_rows = pso_n1024_path(dev, card, pso_init)
+        kernels += n1024_rows
     with phase("pso_bf16"):
         solver, pso_bf16_launches = pso_bf16_path(dev, card, pso_init, pso_ref)
         profile_steps(solver, card, "PSO-bf16", PSO_NITER + 1, n_batches=8)
@@ -7156,9 +7329,11 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     launches.update({name: 0 for name in NOT_DRIVEN})
     # B1/B2's rows at the tBL shapes count the launches of the N <= 128 runs,
-    # their rows at the PSO shapes those of the N = 256, 192 and 254 runs
+    # their rows at the PSO shapes those of the N = 256, 192 and 254 runs,
+    # their rows at N = 1024 those of pso_n1024's four windows
     for name in PATCH_KERNELS:
         launches[name], launches[name + PSO_SHAPES] = narrow[name], wide[name]
+        launches[name + N1024_SHAPES] = n1024_launches[name]
     for name in CANVAS_KERNELS:
         launches[name + CANVAS_SLAB] = canvas_launches[name]
         launches[name + CANVAS_FULL_SLAB] = canvas_full_launches[name]

@@ -47,6 +47,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ptyrad_tpu_torch.losses import loss_simlar, loss_sparse, merge_loss_params
 from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams
@@ -113,7 +114,7 @@ def compute_propagators(params: PtychoParams, buffers: Buffers, geom: Geometry,
 def multislice_dp(obja_patches: torch.Tensor, objp_patches: torch.Tensor,
                   probes: torch.Tensor, H: torch.Tensor, omode_occu: torch.Tensor,
                   eps: float = 1e-10, compute_dtype: str = "float32",
-                  bf16_operands: bool = False) -> torch.Tensor:
+                  bf16_operands: bool = False, remat: bool = False) -> torch.Tensor:
     """Far-field intensity (B, Ny, Nx): incoherent sum over (pmode, omode) of
     |fftshift(fft2(psi, ortho))|^2 weighted by omode_occu, plus eps.
 
@@ -129,6 +130,14 @@ def multislice_dp(obja_patches: torch.Tensor, objp_patches: torch.Tensor,
     The rounding's backward rounds the cotangent, as autodiff through
     bfloat16 ops does. bf16_operands alone rounds the operand of every
     transform pass, the detector plane's included.
+
+    remat (ptyrad_tpu/models/forward.py:118-125): each of the Nz - 1 slice
+    steps runs under a non-reentrant checkpoint, so the backward keeps only
+    each step's input wavefield and recomputes the step's intermediates
+    (the transmission, its cos and sin, the spectrum) from it. The same
+    operations run in the same order, so dp and every gradient are the
+    same with or without it; the last slice's multiply and the
+    detector-plane transform stay outside the checkpoint.
     """
     low = compute_dtype == "bfloat16"
     ops = bf16_operands or low
@@ -136,16 +145,26 @@ def multislice_dp(obja_patches: torch.Tensor, objp_patches: torch.Tensor,
     if low:
         obja_patches, objp_patches = round_bf16(obja_patches), round_bf16(objp_patches)
         probes, H = round_bf16(probes), round_bf16(H)
+
+    def transmit(psi, a, phi):
+        t = torch.complex(rnd(a * rnd(torch.cos(phi))), rnd(a * rnd(torch.sin(phi))))
+        return rnd(psi * t[:, None])
+
+    def step(psi, a, phi, hb):
+        k = rnd(fft2(transmit(psi, a, phi), bf16_operands=ops))
+        return rnd(ifft2(rnd(hb * k), bf16_operands=ops))
+
     n_slices = obja_patches.shape[2]
     psi = probes[:, :, None]       # (B|1, pmode, 1, Ny, Nx): broadcasts over omode
     hb = H[:, None, None]
-    for z in range(n_slices):
+    for z in range(n_slices - 1):
         a, phi = obja_patches[:, :, z], objp_patches[:, :, z]
-        t = torch.complex(rnd(a * rnd(torch.cos(phi))), rnd(a * rnd(torch.sin(phi))))
-        psi = rnd(psi * t[:, None])
-        if z < n_slices - 1:
-            k = rnd(fft2(psi, bf16_operands=ops))
-            psi = rnd(ifft2(rnd(hb * k), bf16_operands=ops))
+        if remat:
+            psi = checkpoint(step, psi, a, phi, hb, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            psi = step(psi, a, phi, hb)
+    psi = transmit(psi, obja_patches[:, :, -1], objp_patches[:, :, -1])
     psi_k = fftshift2(fft2(psi, norm="ortho", bf16_operands=bf16_operands and not low))
     intensity = psi_k.real ** 2 + psi_k.imag ** 2   # (B, pmode, omode, Ny, Nx)
     return (intensity * omode_occu[:, None, None]).sum(dim=(1, 2)) + eps
@@ -215,7 +234,7 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
     else:
         dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, indices), H,
                            buffers.omode_occu, eps=geom.eps, compute_dtype=geom.compute_dtype,
-                           bf16_operands=geom.bf16_operands)
+                           bf16_operands=geom.bf16_operands, remat=geom.fwd_remat)
         forward.launches_plain += 1
     std = geom.detector_blur_std
     if std is not None and std != 0:

@@ -83,6 +83,9 @@ class Geometry:
     meas_padded_shape: Optional[Tuple[int, int]] = None
     meas_scale_factors: Optional[Tuple[float, float]] = None
     fwd_fused: bool = True  # False: forward() takes multislice_dp, no kernel chain
+    # the plain route checkpoints each slice step (multislice_dp's remat):
+    # the backward recomputes the step's intermediates instead of storing them
+    fwd_remat: bool = False
     # the bfloat16 compute policy: compute_dtype 'bfloat16' keeps the plain
     # route's wavefield in bfloat16 between ops; bf16_operands rounds the
     # operand of every DFT pass (every kernel's and the f32 transforms
@@ -118,24 +121,7 @@ def params_from_numpy(d: dict, device=None) -> PtychoParams:
     )
 
 
-# model_params keys of the JAX package that act on the TPU only: accepted,
-# with one warning per key and process
-TPU_ONLY_KEYS = {
-    "fwd_remat": "rematerialises the XLA multislice loop to save TPU memory",
-}
 COMPUTE_DTYPES = ("float32", "bfloat16")
-_WARNED_TPU_ONLY: set = set()
-
-
-def _warn_tpu_only(model_params: dict) -> None:
-    for key, what in TPU_ONLY_KEYS.items():
-        value = model_params.get(key)
-        if value in (None, False) or key in _WARNED_TPU_ONLY:
-            continue
-        _WARNED_TPU_ONLY.add(key)
-        warnings.warn(f"model_params.{key}={value!r} does nothing in ptyrad_tpu_torch: in the "
-                      f"JAX package it {what}, and the port has no such step",
-                      stacklevel=3)
 
 
 MEAS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -207,8 +193,9 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     bfloat16 compute policy, compute_dtype and matmul_dtype
     (resolve_compute_policy: bfloat16 operands in every DFT pass, the
     kernels' included, and with compute_dtype a bfloat16 wavefield on the
-    plain route); the JAX package's fwd_remat is accepted and warns once (it
-    acts on the TPU only). ``device=None`` means CUDA. ``store_on_host``
+    plain route) and fwd_remat (the plain route recomputes each slice step
+    in the backward instead of storing its intermediates; the kernel
+    routes ignore it). ``device=None`` means CUDA. ``store_on_host``
     leaves the measurement store where it is and as it is (a NumPy array as
     a CPU tensor over its memory, no copy): the canvas path
     (parallel/canvas.py) moves each rank's slab alone to the device, in
@@ -217,7 +204,6 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
     """
     dev = resolve_device(device)
     model_params = model_params or {}
-    _warn_tpu_only(model_params)
     compute_dtype, bf16_operands = resolve_compute_policy(model_params)
     update = model_params.get("update_params", {}) or {}
 
@@ -295,6 +281,7 @@ def make_model(init_variables: dict, model_params: Optional[dict] = None, device
                            else tuple(int(v) for v in np.shape(meas_padded)[-2:])),
         meas_scale_factors=None if meas_scale is None else tuple(float(s) for s in meas_scale),
         fwd_fused=model_params.get("fwd_fused") is None or bool(model_params["fwd_fused"]),
+        fwd_remat=bool(model_params.get("fwd_remat", False)),
         compute_dtype=compute_dtype,
         bf16_operands=bf16_operands,
         n_scans=int(meas.shape[0]),

@@ -2,8 +2,9 @@
 
 The port's own copy of ptyrad_tpu/params/schema.py, field for field, so a
 params file validates the same way in both packages and gives the same
-dict. That includes the keys that act on the TPU only (ModelParams
-fwd_remat; recon_params shard_measurements), which the port accepts, and
+dict. That includes the keys of the JAX package beyond the reference
+configs: ModelParams fwd_remat, which rematerialises the plain route's
+slice loop; recon_params shard_measurements, which the port accepts; and
 recon_params shard_canvas, which it runs on more than one rank. Optimizer names validate against
 ptyrad_tpu_torch.optim.OPTIMIZER_REGISTRY_NAMES, the same names as the JAX
 package's registry.
@@ -288,10 +289,11 @@ class ModelParams(BaseModel):
     update_params: UpdateParams = Field(default_factory=UpdateParams)
     # Keys of the JAX package beyond the reference configs. In the port:
     # fwd_fused None or True takes the kernel routes where the shapes fit,
-    # False the plain torch.fft chain; fwd_remat acts on the TPU only and
-    # warns once (models/state.py); compute_dtype and matmul_dtype are the
-    # bfloat16 compute policy (models/state.py:resolve_compute_policy);
-    # meas_dtype is the measurement store's type.
+    # False the plain torch.fft chain; fwd_remat rematerialises the plain
+    # route's slice loop (models/forward.py:multislice_dp); compute_dtype
+    # and matmul_dtype are the bfloat16 compute policy
+    # (models/state.py:resolve_compute_policy); meas_dtype is the
+    # measurement store's type.
     fwd_fused: Optional[bool] = None
     fwd_remat: bool = False
     compute_dtype: Literal["float32", "bfloat16"] = "float32"

@@ -1,20 +1,20 @@
-"""The CUDA kernels against their plain PyTorch versions on the card, over
-the edge cases that chip_smoke.py's tBL and PSO shapes do not reach: small
-and odd patch sizes, one slice, one mode, every probe layout, other loss
-powers, a masked sample, the whole loss-folded path, the plain fused chain
-(B4) and forward() through it with two object modes and detector blur, the
-fused pairs at N that is not a power of two (6, 96, 100, 120: the
-mixed-radix pair; 11, 22, 110, 124, 127: the Bluestein line), the segmented
-chain (B5/B6) with `last` / `last_mega` both ways and the grad-off route,
-its mixed-radix build at N in (128, 512] that is not a
-power of two (one N of each plan kind, and the compiled plans against
-ops/chain_plan.py's), B5 with the far-field exit (set_far_field) and the route
-through it, and short tBL-like, low-dose and PSO-like solver runs, with
-optimizable slice thickness and tilts too, and one from a params file and a
-.raw through the Initializer. Every kernel test runs on a
-shared and a per-position H, each with and without its gradient (need_dh):
-with it, the propagator cotangent dH of the backward (B3b, B4b, B5b, B6b)
-is compared as well.
+"""The CUDA kernels against their plain PyTorch versions on the card, over the
+edge cases that chip_smoke.py's tBL and PSO shapes do not reach: small and
+odd patch sizes, B1/B2 at 1024^2 windows (the plain route's shapes), one
+slice, one mode, every probe layout, other loss powers, a masked sample,
+the whole loss-folded path, the plain fused chain (B4) and forward()
+through it with two object modes and detector blur, the fused pairs at N
+that is not a power of two (6, 96, 100, 120: the mixed-radix pair; 11, 22,
+110, 124, 127: the Bluestein line), the segmented chain (B5/B6) with `last`
+/ `last_mega` both ways and the grad-off route, its mixed-radix build at N
+in (128, 512] that is not a power of two (one N of each plan kind, and the
+compiled plans against ops/chain_plan.py's), B5 with the far-field exit
+(set_far_field) and the route through it, and short tBL-like, low-dose and
+PSO-like solver runs, with optimizable slice thickness and tilts too, and
+one from a params file and a .raw through the Initializer. Every kernel
+test runs on a shared and a per-position H, each with and without its
+gradient (need_dh): with it, the propagator cotangent dH of the backward
+(B3b, B4b, B5b, B6b) is compared as well.
 
 Marked ``cuda``: skipped without a GPU. On a machine with one (and no JAX,
 which tests/conftest.py imports) run
@@ -152,6 +152,33 @@ def test_scatter_repeats_bit_for_bit(dev, gen):
         again = P.scatter_add_pair_cuda(shape, g[0], g[1], pos)
         assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
     assert torch.equal(first[0], P.scatter_add_cuda(shape, g[0], pos))
+
+
+def test_patch_pair_at_1024_windows(dev, gen):
+    """B1 and B2 at the shapes of PSO padded on the fly to 1024^2 (the plain
+    route's only kernels): 32 windows of 21 x 1024^2, 704 M floats a stack
+    and byte offsets past 2^31, on a 21 x 1,721^2 canvas, clamped corners
+    and a duplicate window among them. One canvas and two a launch (the
+    pair: 64 windows through the gather's grid z-loop) against the plain
+    versions at tolerance 0, the scatter against the CPU's index_add_."""
+    from ptyrad_tpu_torch.ops import patches as P
+
+    shape, patch, b = (1, 21, 1721, 1721), (1024, 1024), 32
+    canvases = [torch.rand(shape, generator=gen, device=dev) for _ in range(2)]
+    pos = torch.randint(-4, 1721 - 1024 + 8, (b, 2), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[3] = pos[2]
+    pair = P.gather_pair_cuda(canvases[0], canvases[1], pos, patch)
+    for canvas, out in zip(canvases, pair):
+        assert torch.equal(out, P.gather_plain(canvas, pos, patch))
+    assert torch.equal(P.gather_cuda(canvases[1], pos, patch), pair[1])
+    del pair, canvases
+    g = [torch.randn((b, 1, 21, *patch), generator=gen, device=dev) for _ in range(2)]
+    pair = P.scatter_add_pair_cuda(shape, g[0], g[1], pos)
+    for grads, out in zip(g, pair):
+        want = P.scatter_add_plain(shape, grads.cpu(), pos.cpu())
+        torch.testing.assert_close(out.cpu(), want, rtol=0, atol=0)
+    assert torch.equal(P.scatter_add_cuda(shape, g[0], pos), pair[0])
 
 
 def _chain_inputs(dev, gen, b, pmode, nz, n, probe_layout):

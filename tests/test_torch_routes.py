@@ -8,8 +8,10 @@
 - ``model_params.fwd_fused: false`` routes every shape to the plain chain
   and turns the loss-folded chain off, as in the JAX package; a 2-iteration
   solver run with it matches the JAX package's run with the same setting
-  at rtol 1e-4. The JAX package's TPU-only keys fwd_remat and matmul_dtype
-  are accepted and warn once each.
+  at rtol 1e-4, and so does one with fwd_remat, which checkpoints the
+  plain chain's slice steps in both packages. No model_params key warns
+  as TPU-only: fwd_remat reaches Geometry, matmul_dtype is the bfloat16
+  policy.
 - Every kernel launch goes through ``ops._build.launch``, which makes the
   operand's device current around the call. The wrappers reach it only
   with CUDA tensors, so here the guard itself is shown with a stand-in
@@ -31,7 +33,6 @@ from ptyrad_tpu.engine.solver import PtyRADSolver as JaxSolver
 from ptyrad_tpu.models import make_model as j_make_model
 from ptyrad_tpu_torch.engine.solver import PtyRADSolver
 from ptyrad_tpu_torch.models import forward, forward_route, fused_loss_terms, make_model
-from ptyrad_tpu_torch.models import state as S
 from ptyrad_tpu_torch.models.state import Geometry, PtychoParams
 from ptyrad_tpu_torch.ops import _build
 from torch_port_helpers import CPU, toy_init
@@ -149,29 +150,29 @@ def test_cpu_forward_beyond_the_kernels_is_the_plain_route(rng, n):
     assert dp.shape == (2, n, n) and bool(torch.isfinite(dp).all())
 
 
-def test_tpu_only_keys_warn_once(rng, monkeypatch):
-    """fwd_remat warns once a process; matmul_dtype is the bfloat16 compute
-    policy's key, which the port runs: no warning, bfloat16 operands."""
-    monkeypatch.setattr(S, "_WARNED_TPU_ONLY", set())
+def test_tpu_only_keys_warn_once(rng):
+    """No key of the JAX package's model_params is TPU-only in the port, so
+    none warns: fwd_remat reaches Geometry.fwd_remat (the plain route's
+    checkpointed slice loop), and matmul_dtype is the bfloat16 compute
+    policy's key: bfloat16 operands."""
     init = toy_init(rng)
     mp = {"fwd_remat": True, "matmul_dtype": "bfloat16"}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         _, _, geom = make_model(init, mp, device=CPU)
-        make_model(init, mp, device=CPU)
-        make_model(init, {"fwd_remat": False, "matmul_dtype": None}, device=CPU)
-    texts = [str(w.message) for w in caught if "does nothing" in str(w.message)]
-    assert len(texts) == 1 and "fwd_remat" in texts[0]
-    assert not any("matmul_dtype" in str(w.message) for w in caught)
+        _, _, off = make_model(init, {"fwd_remat": False, "matmul_dtype": None}, device=CPU)
+    assert not caught, [str(w.message) for w in caught]
+    assert geom.fwd_remat and not off.fwd_remat
     assert geom.bf16_operands and geom.compute_dtype == "float32"
+    assert not off.bf16_operands
 
 
-def _plain_params():
+def _plain_params(fwd_remat=False):
     update = {name: {"start_iter": 1, "lr": lr} for name, lr in
               (("obja", 5e-4), ("objp", 5e-4), ("probe", 1e-4))}
     return {
         "model_params": {"optimizer_params": {"name": "Adam"}, "update_params": update,
-                         "fwd_fused": False},
+                         "fwd_fused": False, "fwd_remat": fwd_remat},
         "loss_params": {**LOSS_SINGLE, "loss_sparse": {"state": True, "weight": 0.1,
                                                         "ln_order": 1}},
         "constraint_params": {"obja_thresh": {"freq": 1, "relax": 0, "thresh": [0.98, 1.02]}},
@@ -180,15 +181,18 @@ def _plain_params():
     }
 
 
-def test_fwd_fused_false_solver_matches_jax(rng):
+@pytest.mark.parametrize("fwd_remat", [False, True], ids=["stored", "remat"])
+def test_fwd_fused_false_solver_matches_jax(rng, fwd_remat):
     """A 2-iteration run with fwd_fused: false through the plain chain, every
     step counted in forward.launches_plain, against the JAX package's run
-    with the same setting (its XLA path): losses at rtol 1e-4."""
+    with the same setting (its XLA path), with and without fwd_remat (each
+    slice step checkpointed in both packages): losses at rtol 1e-4."""
     init = toy_init(rng, n_scans=10)
-    js = JaxSolver(_plain_params(), init_variables=copy.deepcopy(init), verbose=False)
+    js = JaxSolver(_plain_params(fwd_remat), init_variables=copy.deepcopy(init), verbose=False)
     js.run()
-    ts = PtyRADSolver(_plain_params(), init_variables=copy.deepcopy(init), device="cpu",
-                      verbose=False)
+    ts = PtyRADSolver(_plain_params(fwd_remat), init_variables=copy.deepcopy(init),
+                      device="cpu", verbose=False)
+    assert ts.geom.fwd_remat == fwd_remat
     before = forward.launches_plain
     ts.run()
     assert forward.launches_plain - before == 2 * ts.batch_idx.shape[0]
