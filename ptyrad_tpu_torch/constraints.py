@@ -26,6 +26,7 @@ from ptyrad_tpu_torch.models.state import Buffers, Geometry, PtychoParams
 from ptyrad_tpu_torch.ops.blur import gaussian_blur_1d, gaussian_blur_2d
 from ptyrad_tpu_torch.ops.fourier import fft2, fftn3, fftshift2, ifft2, ifftshift2
 from ptyrad_tpu_torch.ops.masks import make_sigmoid_mask
+from ptyrad_tpu_torch.utils.tracing import span
 
 DEFAULT_CONSTRAINT_PARAMS = {
     "ortho_pmode": {"freq": None},
@@ -243,6 +244,8 @@ _ORDER: Tuple[str, ...] = (
     "objp_postiv",
     "tilt_smooth",
 )
+# each constraint's span (utils.tracing), one static name each
+_SPANS: Dict[str, str] = {name: f"ptyrad.constraint.{name}" for name in _ORDER}
 
 _FNS: Dict[str, Callable] = {
     "ortho_pmode": ortho_pmode,
@@ -301,9 +304,10 @@ class ConstraintScheduler:
 
     @torch.no_grad()
     def __call__(self, params: PtychoParams, buffers: Buffers, niter: int) -> PtychoParams:
-        for _name, freq, fn, c in self._active:
+        for name, freq, fn, c in self._active:
             if niter % freq == 0:
-                fn(params, buffers, c)
+                with span(_SPANS[name]):
+                    fn(params, buffers, c)
         return params
 
     def due(self, niter: int) -> bool:

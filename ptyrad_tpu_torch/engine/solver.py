@@ -10,6 +10,9 @@ the updates of tensors that have not started put back; then the due
 constraints. The per-batch loss terms stay on the device and reach the host
 once per iteration. LBFGS instead takes one step an iteration on the mean
 of all batch losses (``build_lbfgs_objective``, ``PtyRADSolver._lbfgs_loop``).
+An iteration of recon_loop, each step and their phases run under the spans
+of utils/tracing.py (``ptyrad.iter``, ``ptyrad.step`` and their parts), and
+the optimizer's construction under ``ptyrad.setup.optimizer``.
 
 ``optimizer_params.load_state`` resumes the optimizer from a model.hdf5
 (either package's or upstream PtyRAD's), and ``recon_loop(start_niter=)``
@@ -62,6 +65,7 @@ from ptyrad_tpu_torch.parallel.mesh import (DataGroup, all_reduce_grads, broadca
                                             exchange_plan, exchange_rows, rank_slice,
                                             shard_model)
 from ptyrad_tpu_torch.utils.logging import vprint
+from ptyrad_tpu_torch.utils.tracing import span
 
 
 def loss_fn(params: PtychoParams, buffers: Buffers, geom: Geometry, indices, mask,
@@ -75,8 +79,9 @@ def loss_fn(params: PtychoParams, buffers: Buffers, geom: Geometry, indices, mas
         return fused
     dp, (obja_p, objp_p) = forward(params, buffers, geom, indices)
     meas = get_measurements(buffers, geom, indices, rows)
-    return combined_loss(dp, meas, obja_p, objp_p, buffers.omode_occu, loss_params, mask,
-                         group)
+    with span("ptyrad.model.loss"):
+        return combined_loss(dp, meas, obja_p, objp_p, buffers.omode_occu, loss_params, mask,
+                             group)
 
 
 def params_tensors(params: PtychoParams) -> list:
@@ -140,20 +145,25 @@ def build_train_epoch(params: PtychoParams, share, loss_params: Optional[dict],
         frozen = unstarted_tensors(params, niter, start_iters)
         idx_all, mask_all, plans = share.slice(idx_all, mask_all)
         for b in range(idx_all.shape[0]):
-            optimizer.zero_grad(set_to_none=True)
-            total, terms = share.loss(idx_all[b], mask_all[b], loss_params, plans[b])
-            total.backward()
-            all_reduce_grads(tensors, share.group)
-            mask_unstarted_grads(params, niter, start_iters)
-            kept = [t.detach().clone() for t in frozen]
-            optimizer.step()
-            with torch.no_grad():
-                for t, k in zip(frozen, kept):
-                    t.copy_(k)
-            totals.append(total.detach())
-            term_rows.append(torch.stack([t.detach() for t in terms.values()]))
+            with span("ptyrad.step"):
+                optimizer.zero_grad(set_to_none=True)
+                with span("ptyrad.step.loss"):
+                    total, terms = share.loss(idx_all[b], mask_all[b], loss_params, plans[b])
+                with span("ptyrad.step.backward"):
+                    total.backward()
+                all_reduce_grads(tensors, share.group)
+                mask_unstarted_grads(params, niter, start_iters)
+                kept = [t.detach().clone() for t in frozen]
+                with span("ptyrad.step.optimizer"):
+                    optimizer.step()
+                with torch.no_grad():
+                    for t, k in zip(frozen, kept):
+                        t.copy_(k)
+                totals.append(total.detach())
+                term_rows.append(torch.stack([t.detach() for t in terms.values()]))
         names = list(terms.keys())
-        table = torch.stack(term_rows).cpu().numpy()  # the one device->host copy
+        with span("ptyrad.iter.table"):
+            table = torch.stack(term_rows).cpu().numpy()  # the one device->host copy
         batch_terms = {k: table[:, i].tolist() for i, k in enumerate(names)}
         return float(torch.stack(totals).mean()), batch_terms
 
@@ -255,40 +265,45 @@ def recon_loop(train_epoch, params: PtychoParams, batch_idx, batch_mask, n_iter:
             perm = iter_batch_perm(niter, batch_idx.shape[0])
             return batch_idx[perm], batch_mask[perm]
     for niter in range(start_niter, start_niter + n_iter):
-        t0 = time.perf_counter()
-        idx_np, mask_np = batches_of(niter)
-        idx_dev = torch.as_tensor(idx_np, device=device)
-        mask_dev = torch.as_tensor(mask_np, device=device)
-        _total, batch_terms = train_epoch(idx_dev, mask_dev, niter)
-        term_avgs = {k: float(np.mean(v)) for k, v in batch_terms.items()}
-        history.batch_terms = batch_terms
-        if constraint_fn is not None:
-            constraint_fn(params, buffers, niter)
-        _sync(device)
-        iter_t = time.perf_counter() - t0
+        with span("ptyrad.iter"):
+            t0 = time.perf_counter()
+            with span("ptyrad.iter.batches"):
+                idx_np, mask_np = batches_of(niter)
+                idx_dev = torch.as_tensor(idx_np, device=device)
+                mask_dev = torch.as_tensor(mask_np, device=device)
+            _total, batch_terms = train_epoch(idx_dev, mask_dev, niter)
+            term_avgs = {k: float(np.mean(v)) for k, v in batch_terms.items()}
+            history.batch_terms = batch_terms
+            if constraint_fn is not None:
+                with span("ptyrad.iter.constraints"):
+                    constraint_fn(params, buffers, niter)
+            with span("ptyrad.iter.end"):
+                _sync(device)
+                iter_t = time.perf_counter() - t0
 
-        total = float(sum(term_avgs.values()))
-        if not np.isfinite(total):
-            vprint(
-                f"ERROR: non-finite loss at iter {niter} "
-                f"(terms: {term_avgs}); stopping early. Check learning rates, "
-                "normalization, and constraint settings.",
-            )
-            history.loss_iters.append((niter, total))
-            break
-        history.loss_iters.append((niter, total))
-        history.term_iters.append(term_avgs)
-        history.iter_times.append(iter_t)
-        history.dz_iters.append((niter, float(params.slice_thickness.detach())))
-        history.avg_tilt_iters.append((niter, params.obj_tilts.detach().cpu().numpy().mean(0)))
+                total = float(sum(term_avgs.values()))
+                if not np.isfinite(total):
+                    vprint(
+                        f"ERROR: non-finite loss at iter {niter} "
+                        f"(terms: {term_avgs}); stopping early. Check learning rates, "
+                        "normalization, and constraint settings.",
+                    )
+                    history.loss_iters.append((niter, total))
+                    break
+                history.loss_iters.append((niter, total))
+                history.term_iters.append(term_avgs)
+                history.iter_times.append(iter_t)
+                history.dz_iters.append((niter, float(params.slice_thickness.detach())))
+                history.avg_tilt_iters.append(
+                    (niter, params.obj_tilts.detach().cpu().numpy().mean(0)))
 
-        term_str = ", ".join(f"{k}: {v:.4f}" for k, v in term_avgs.items())
-        vprint(f"Iter: {niter}, Total Loss: {total:.4f}, {term_str}, in {iter_t:.3f} sec",
-               verbose=verbose)
-        if cb_takes_optimizer:
-            callback(niter, params, history, optimizer=optimizer)
-        elif callback is not None:
-            callback(niter, params, history)
+            term_str = ", ".join(f"{k}: {v:.4f}" for k, v in term_avgs.items())
+            vprint(f"Iter: {niter}, Total Loss: {total:.4f}, {term_str}, in {iter_t:.3f} sec",
+                   verbose=verbose)
+            if cb_takes_optimizer:
+                callback(niter, params, history, optimizer=optimizer)
+            elif callback is not None:
+                callback(niter, params, history)
     return params, history
 
 
@@ -396,10 +411,11 @@ class PtyRADSolver:
                 return
             vprint("WARNING: recon_params.shard_canvas requires more than one rank (--n_devices "
                    "or --multihost); running the replicated path instead.", verbose=self.verbose)
-        self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
-            optimizer_params, self.model_params.get("update_params"), self.params,
-            grad_accumulation=self.grad_accumulation)
-        self._load_state(optimizer_params.get("load_state"))
+        with span("ptyrad.setup.optimizer"):
+            self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
+                optimizer_params, self.model_params.get("update_params"), self.params,
+                grad_accumulation=self.grad_accumulation)
+            self._load_state(optimizer_params.get("load_state"))
         self._build_steps(RankBatches(self.params, self.buffers, self.geom, self.group))
 
     def _build_steps(self, share) -> None:
@@ -452,10 +468,11 @@ class PtyRADSolver:
         shard = CanvasShard(self.params, self.buffers, geom, plan, self.group,
                             self.model_params.get("meas_dtype", "float32"))
         self.params = shard.params
-        self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
-            optimizer_params, self.model_params.get("update_params"), self.params,
-            grad_accumulation=self.grad_accumulation, slab=shard)
-        self._load_state(optimizer_params.get("load_state"), cut=shard.cut_state)
+        with span("ptyrad.setup.optimizer"):
+            self.optimizer, self.lr_dict, self.start_dict = create_optimizer(
+                optimizer_params, self.model_params.get("update_params"), self.params,
+                grad_accumulation=self.grad_accumulation, slab=shard)
+            self._load_state(optimizer_params.get("load_state"), cut=shard.cut_state)
         self._build_steps(shard)
         batch_size = int((self.recon_params.get("BATCH_SIZE", {}) or {}).get("size", 32))
         self._canvas = (shard, canvas_batch_count(plan, len(self.indices), batch_size,

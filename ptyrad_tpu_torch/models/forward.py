@@ -40,6 +40,12 @@ bfloat16, in the kernels (B3-B6) and in the float32 transforms outside them
 ``compute_dtype`` 'bfloat16' the plain route also keeps its wavefield in
 bfloat16 between ops, as ptyrad_tpu/models/forward.py:110-136 does.
 Parameters, gradients, dp and the loss stay float32.
+
+Each phase of a batch runs under a span of utils/tracing.py:
+``ptyrad.model.patches`` (B1), ``.probe`` (the probe or its shift),
+``.propagators``, ``.measurements`` (the store's rows, padded and resampled
+on the fly), ``.multislice`` (the route's chain) and ``.loss`` (the terms;
+combined_loss's under the solver's loss_fn).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from ptyrad_tpu_torch.ops.patches import extract_patch_pair
 from ptyrad_tpu_torch.ops.resize import bilinear_resize_conserve
 from ptyrad_tpu_torch.ops.shift import fourier_shift, fourier_shift_kspace
 from ptyrad_tpu_torch.parallel.mesh import all_reduce_sum
+from ptyrad_tpu_torch.utils.tracing import span
 
 
 def _expi(x: torch.Tensor) -> torch.Tensor:
@@ -71,22 +78,24 @@ def get_obj_patches(params: PtychoParams, buffers: Buffers, geom: Geometry,
                     indices: torch.Tensor):
     """Per-position (obja, objp) patches, each (B, omode, Nz, Ny, Nx) float32,
     with the optional lateral pre-blur."""
-    pos = buffers.crop_pos[indices]
-    obja, objp = extract_patch_pair(params.obja, params.objp, pos, geom.probe_shape)
-    std = geom.obj_preblur_std
-    if std is not None and std != 0:
-        obja = gaussian_blur_2d(obja, kernel_size=5, sigma=std)
-        objp = gaussian_blur_2d(objp, kernel_size=5, sigma=std)
+    with span("ptyrad.model.patches"):
+        pos = buffers.crop_pos[indices]
+        obja, objp = extract_patch_pair(params.obja, params.objp, pos, geom.probe_shape)
+        std = geom.obj_preblur_std
+        if std is not None and std != 0:
+            obja = gaussian_blur_2d(obja, kernel_size=5, sigma=std)
+            objp = gaussian_blur_2d(objp, kernel_size=5, sigma=std)
     return obja, objp
 
 
 def get_probes(params: PtychoParams, geom: Geometry, indices: torch.Tensor) -> torch.Tensor:
     """Per-position probes (B, pmode, Ny, Nx), sub-pixel shifted when
     positions are optimized; else the shared (1, pmode, Ny, Nx) probe."""
-    if geom.shift_probes:
-        return fourier_shift(params.probe, params.probe_pos_shifts[indices],
-                             bf16_operands=geom.bf16_operands)
-    return params.probe[None]
+    with span("ptyrad.model.probe"):
+        if geom.shift_probes:
+            return fourier_shift(params.probe, params.probe_pos_shifts[indices],
+                                 bf16_operands=geom.bf16_operands)
+        return params.probe[None]
 
 
 def tilt_ramp(Ky: torch.Tensor, Kx: torch.Tensor, tilts: torch.Tensor, dz) -> torch.Tensor:
@@ -103,12 +112,13 @@ def compute_propagators(params: PtychoParams, buffers: Buffers, geom: Geometry,
     base = exp(i dz Kz) if dz is optimizable else the precomputed H, times
     exp(i dz (Ky tan ty + Kx tan tx)) when tilts are active (global or
     per position; tilt_ramp)."""
-    dz = params.slice_thickness
-    base = _expi(dz * buffers.Kz) if geom.change_thickness else buffers.H
-    if not geom.tilt_obj:
-        return base[None]
-    tilts = params.obj_tilts if geom.global_tilt else params.obj_tilts[indices]
-    return base[None] * tilt_ramp(buffers.Ky, buffers.Kx, tilts, dz)
+    with span("ptyrad.model.propagators"):
+        dz = params.slice_thickness
+        base = _expi(dz * buffers.Kz) if geom.change_thickness else buffers.H
+        if not geom.tilt_obj:
+            return base[None]
+        tilts = params.obj_tilts if geom.global_tilt else params.obj_tilts[indices]
+        return base[None] * tilt_ramp(buffers.Ky, buffers.Kx, tilts, dz)
 
 
 def multislice_dp(obja_patches: torch.Tensor, objp_patches: torch.Tensor,
@@ -214,27 +224,32 @@ def forward(params: PtychoParams, buffers: Buffers, geom: Geometry, indices: tor
     obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
     H = compute_propagators(params, buffers, geom, indices)
     if route == "fused":
-        if geom.shift_probes:
-            probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices],
-                                         bf16_operands=geom.bf16_operands)
-        else:
-            probe = params.probe[None]
-        raw = None
-        for om in range(obja_p.shape[1]):
-            dp_om = multislice_dp_fused(obja_p[:, om:om + 1], objp_p[:, om:om + 1], probe, H,
-                                        probe_kspace=geom.shift_probes,
-                                        bf16_operands=geom.bf16_operands)
-            contrib = buffers.omode_occu[om] * dp_om
-            raw = contrib if raw is None else raw + contrib
-        dp = fftshift2(raw) + geom.eps
+        with span("ptyrad.model.probe"):
+            if geom.shift_probes:
+                probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices],
+                                             bf16_operands=geom.bf16_operands)
+            else:
+                probe = params.probe[None]
+        with span("ptyrad.model.multislice"):
+            raw = None
+            for om in range(obja_p.shape[1]):
+                dp_om = multislice_dp_fused(obja_p[:, om:om + 1], objp_p[:, om:om + 1], probe,
+                                            H, probe_kspace=geom.shift_probes,
+                                            bf16_operands=geom.bf16_operands)
+                contrib = buffers.omode_occu[om] * dp_om
+                raw = contrib if raw is None else raw + contrib
+            dp = fftshift2(raw) + geom.eps
     elif route == "chain":
-        dp = multislice_dp_chain(obja_p, objp_p, get_probes(params, geom, indices), H,
-                                 buffers.omode_occu, geom.eps,
-                                 bf16_operands=geom.bf16_operands)
+        probes = get_probes(params, geom, indices)
+        with span("ptyrad.model.multislice"):
+            dp = multislice_dp_chain(obja_p, objp_p, probes, H, buffers.omode_occu, geom.eps,
+                                     bf16_operands=geom.bf16_operands)
     else:
-        dp = multislice_dp(obja_p, objp_p, get_probes(params, geom, indices), H,
-                           buffers.omode_occu, eps=geom.eps, compute_dtype=geom.compute_dtype,
-                           bf16_operands=geom.bf16_operands, remat=geom.fwd_remat)
+        probes = get_probes(params, geom, indices)
+        with span("ptyrad.model.multislice"):
+            dp = multislice_dp(obja_p, objp_p, probes, H, buffers.omode_occu, eps=geom.eps,
+                               compute_dtype=geom.compute_dtype,
+                               bf16_operands=geom.bf16_operands, remat=geom.fwd_remat)
         forward.launches_plain += 1
     std = geom.detector_blur_std
     if std is not None and std != 0:
@@ -256,21 +271,23 @@ def get_measurements(buffers: Buffers, geom: Geometry, indices: torch.Tensor,
     whole store) is read there, the batch alone moved. ``rows``: the batch's
     rows of the store, already fetched (a store split over ranks gives them
     through parallel.exchange_rows), which a split store requires."""
-    if rows is None:
-        if buffers.store_split is not None:
-            raise ValueError("the measurement store is split over ranks (shard_measurements): "
-                             "pass the batch's rows, fetched with parallel.exchange_rows")
-        store = buffers.measurements
-        rows = store[indices.to(store.device)]
-    meas = rows.to(device=indices.device, dtype=torch.float32)
-    if geom.meas_pad_idx is not None:
-        h1, h2, w1, w2 = geom.meas_pad_idx
-        canvas = buffers.meas_padded.expand(meas.shape[0], *geom.meas_padded_shape).clone()
-        canvas[:, h1:h2, w1:w2] = meas
-        meas = canvas
-    scale = geom.meas_scale_factors
-    if scale is not None and any(s != 1 for s in scale):
-        meas = bilinear_resize_conserve(meas, scale)
+    with span("ptyrad.model.measurements"):
+        if rows is None:
+            if buffers.store_split is not None:
+                raise ValueError("the measurement store is split over ranks "
+                                 "(shard_measurements): pass the batch's rows, fetched with "
+                                 "parallel.exchange_rows")
+            store = buffers.measurements
+            rows = store[indices.to(store.device)]
+        meas = rows.to(device=indices.device, dtype=torch.float32)
+        if geom.meas_pad_idx is not None:
+            h1, h2, w1, w2 = geom.meas_pad_idx
+            canvas = buffers.meas_padded.expand(meas.shape[0], *geom.meas_padded_shape).clone()
+            canvas[:, h1:h2, w1:w2] = meas
+            meas = canvas
+        scale = geom.meas_scale_factors
+        if scale is not None and any(s != 1 for s in scale):
+            meas = bilinear_resize_conserve(meas, scale)
     if tuple(meas.shape[-2:]) != tuple(geom.probe_shape):
         raise ValueError(
             f"measured patterns are {tuple(meas.shape[-2:])} after the on-the-fly pad/resample "
@@ -336,39 +353,43 @@ def fused_loss_terms(params: PtychoParams, buffers: Buffers, geom: Geometry,
     obja_p, objp_p = get_obj_patches(params, buffers, geom, indices)
     H = compute_propagators(params, buffers, geom, indices)
 
-    occu_root = torch.sqrt(buffers.omode_occu[0])
-    if geom.shift_probes:
-        probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices],
-                                     scale=occu_root, bf16_operands=geom.bf16_operands)
-        kspace = True
-    else:
-        probe = params.probe[None] * occu_root
-        kspace = False
+    with span("ptyrad.model.probe"):
+        occu_root = torch.sqrt(buffers.omode_occu[0])
+        if geom.shift_probes:
+            probe = fourier_shift_kspace(params.probe, params.probe_pos_shifts[indices],
+                                         scale=occu_root, bf16_operands=geom.bf16_operands)
+            kspace = True
+        else:
+            probe = params.probe[None] * occu_root
+            kspace = False
 
-    meas_cc = ifftshift2(get_measurements(buffers, geom, indices, rows))
+    meas = get_measurements(buffers, geom, indices, rows)
     mask_b = mask if mask is not None else torch.ones(b, dtype=torch.float32,
                                                       device=obja_p.device)
     sp = cfg["loss_single"]
-    s1, s2 = multislice_loss_sums_fused(
-        obja_p, objp_p, probe, H, meas_cc, mask_b, float(sp.get("dp_pow", 0.5)),
-        float(geom.eps), probe_kspace=kspace, bf16_operands=geom.bf16_operands,
-    )
-    if group is None:
-        denom = obja_p.shape[3] * obja_p.shape[4] * mask_b.sum()
-    else:
-        s1, s2, count = all_reduce_sum(torch.stack([s1, s2, mask_b.sum()]), group)
-        denom = obja_p.shape[3] * obja_p.shape[4] * count
-    single = sp["weight"] * torch.sqrt(s1 / denom) / (s2 / denom)
+    with span("ptyrad.model.multislice"):
+        s1, s2 = multislice_loss_sums_fused(
+            obja_p, objp_p, probe, H, ifftshift2(meas), mask_b, float(sp.get("dp_pow", 0.5)),
+            float(geom.eps), probe_kspace=kspace, bf16_operands=geom.bf16_operands,
+        )
+    with span("ptyrad.model.loss"):
+        if group is None:
+            denom = obja_p.shape[3] * obja_p.shape[4] * mask_b.sum()
+        else:
+            s1, s2, count = all_reduce_sum(torch.stack([s1, s2, mask_b.sum()]), group)
+            denom = obja_p.shape[3] * obja_p.shape[4] * count
+        single = sp["weight"] * torch.sqrt(s1 / denom) / (s2 / denom)
 
-    zero = torch.zeros((), dtype=torch.float32, device=obja_p.device)
-    terms = {
-        "loss_single": single,
-        "loss_poissn": zero,
-        "loss_pacbed": zero,
-        "loss_sparse": (loss_sparse(objp_p, buffers.omode_occu, cfg["loss_sparse"], mask, group)
-                        if cfg["loss_sparse"]["state"] else zero),
-        "loss_simlar": (loss_simlar(obja_p, objp_p, buffers.omode_occu, cfg["loss_simlar"], mask,
-                                    group)
-                        if cfg["loss_simlar"]["state"] else zero),
-    }
-    return sum(terms.values()), terms
+        zero = torch.zeros((), dtype=torch.float32, device=obja_p.device)
+        terms = {
+            "loss_single": single,
+            "loss_poissn": zero,
+            "loss_pacbed": zero,
+            "loss_sparse": (loss_sparse(objp_p, buffers.omode_occu, cfg["loss_sparse"], mask,
+                                        group)
+                            if cfg["loss_sparse"]["state"] else zero),
+            "loss_simlar": (loss_simlar(obja_p, objp_p, buffers.omode_occu, cfg["loss_simlar"],
+                                        mask, group)
+                            if cfg["loss_simlar"]["state"] else zero),
+        }
+        return sum(terms.values()), terms

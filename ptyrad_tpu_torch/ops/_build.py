@@ -44,6 +44,7 @@ import torch
 
 from ptyrad_tpu_torch.ops import chain_plan
 from ptyrad_tpu_torch.ops.fused_plan import is_pow2, plan_source
+from ptyrad_tpu_torch.utils.tracing import span
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -232,18 +233,21 @@ def build(extra_n=(), bf16_n=()) -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (the call that loads
+    it runs under the ``ptyrad.setup.kernels`` span: the sources' hash, any
+    build, the load and the argtypes)."""
     global _LIB
     if _LIB is None:
-        handle = ctypes.CDLL(str(build()))
-        entries = {**SIGNATURES, **{n + "_bf16": SIGNATURES[n] for n in BF16_VARIANTS}}
-        for name, argtypes in entries.items():
-            fn = getattr(handle, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        handle.ptyrad_error_string.argtypes = [ctypes.c_int]
-        handle.ptyrad_error_string.restype = ctypes.c_char_p
-        _LIB = handle
+        with span("ptyrad.setup.kernels"):
+            handle = ctypes.CDLL(str(build()))
+            entries = {**SIGNATURES, **{n + "_bf16": SIGNATURES[n] for n in BF16_VARIANTS}}
+            for name, argtypes in entries.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.ptyrad_error_string.argtypes = [ctypes.c_int]
+            handle.ptyrad_error_string.restype = ctypes.c_char_p
+            _LIB = handle
     return _LIB
 
 
@@ -251,19 +255,22 @@ def mixed_lib(n: int, bf16: bool = False) -> ctypes.CDLL:
     """The loaded mixed-radix library at N (not a power of two, at most
     512): B3/B4's up to 128, B5/B6's above; with bf16 the _bf16 twins' (no
     plan entry point); built on first call. Its entry points take that N
-    alone."""
+    alone. The call that loads it runs under the ``ptyrad.setup.kernels``
+    span, as lib()'s does."""
     key = (n, bf16)
     if key not in _MIXED:
-        if not _mixed_path(n, bf16).exists():
-            MIXED_BUILD_SECONDS[f"{n}_bf16" if bf16 else n] = _mixed_job(n, bf16).finish()
-        handle = ctypes.CDLL(str(_mixed_path(n, bf16)))
-        for name in CHAIN_ENTRIES if _mixed_kind(n) == "chain" else FUSED_ENTRIES:
-            if bf16 and name in PLAN_ENTRIES:
-                continue
-            fn = getattr(handle, name + ("_bf16" if bf16 else ""))
-            fn.argtypes = list(SIGNATURES[name])
-            fn.restype = ctypes.c_int
-        _MIXED[key] = handle
+        with span("ptyrad.setup.kernels"):
+            path = _mixed_path(n, bf16)
+            if not path.exists():
+                MIXED_BUILD_SECONDS[f"{n}_bf16" if bf16 else n] = _mixed_job(n, bf16).finish()
+            handle = ctypes.CDLL(str(path))
+            for name in CHAIN_ENTRIES if _mixed_kind(n) == "chain" else FUSED_ENTRIES:
+                if bf16 and name in PLAN_ENTRIES:
+                    continue
+                fn = getattr(handle, name + ("_bf16" if bf16 else ""))
+                fn.argtypes = list(SIGNATURES[name])
+                fn.restype = ctypes.c_int
+            _MIXED[key] = handle
     return _MIXED[key]
 
 

@@ -200,6 +200,18 @@ def trace(log_dir: str = "ptyrad_tpu_torch_trace"):
     the card, writing a Chrome trace (chrome://tracing, Perfetto) to
     <log_dir>/trace.json on exit. Yields that path.
 
+    The trace holds the port's spans (utils/tracing.py) as ranges of the
+    profiler's own: ``ptyrad.iter`` (an iteration of recon_loop) with
+    ``ptyrad.iter.batches``, ``ptyrad.iter.table``,
+    ``ptyrad.iter.constraints`` (each due constraint under
+    ``ptyrad.constraint.<name>``) and ``ptyrad.iter.end``; ``ptyrad.step``
+    (a batch) with ``ptyrad.step.loss``, ``ptyrad.step.backward`` and
+    ``ptyrad.step.optimizer``; the model's ``ptyrad.model.patches``,
+    ``.probe``, ``.propagators``, ``.measurements``, ``.multislice`` and
+    ``.loss``; set-up's ``ptyrad.setup.optimizer`` and
+    ``ptyrad.setup.kernels``. Without a profiler the spans time the host
+    alone (tracing.totals()).
+
     Usage: ``with trace("traces") as path: solver.run()``
     """
     from torch.profiler import ProfilerActivity, profile
